@@ -1,0 +1,518 @@
+"""Conditional RealNVP normalizing flow (port of `bcnf_tpu/models/cnf.py`).
+
+The same design as the JAX package, in PyTorch idiom:
+
+- **Parameters are a plain tree** of dicts, lists and tensors, with the JAX
+  package's keys and layouts (linear weights ``(in, out)``; every inner
+  block's leaves stacked on a leading block axis), so `bcnf_tpu_torch.bridge`
+  carries weights across by plain copies.
+- **Hoisted condition projections.** Each coupling's first-layer weight is
+  split ``W1 = [W1_y; W1_h]`` and ``h @ W1_h`` is computed once for every
+  block in one batched matmul; conditions are encoded once per batch, not
+  once per posterior draw.
+- **The whole-flow kernel.** On a CUDA tensor with no gradient required,
+  `forward` and `inverse_given_h` run the flow as one launch of the
+  hand-written kernel (`ops/flow_kernel.py`, `ops/csrc/flow_kernel.cu`), the
+  counterpart of the JAX package's Pallas `fused_flow`. Under autograd, and
+  on the CPU, the plain composition below runs: the counterpart of the JAX
+  XLA path.
+
+Ported so far: one-way affine couplings with the `Linear` layer family.
+`two_way`, `rqs` and `hybrid` raise `NotImplementedError` (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+from bcnf_tpu_torch.ops.nn import Params, dropout, get_activation, get_dense_layer
+from bcnf_tpu_torch.utils.misc import resolve_device
+
+
+def count_params(params: Any) -> int:
+    """Total number of scalar parameters in a tree (reference `cnf.py:19-20`)."""
+    return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+class NestedMLP:
+    """The conditioner MLP inside a coupling layer (reference
+    `ConditionalNestedNeuralNetwork`, `src/bcnf/models/cnf.py:49-107`).
+
+    ``sizes = [half_in] + nested_sizes + [half_out]``; the first layer input is
+    widened by ``n_conditions`` and the last layer output by
+    ``n_output_parameters``.
+    """
+
+    def __init__(
+        self,
+        sizes: Sequence[int],
+        n_conditions: int,
+        n_output_parameters: int,
+        layer: str = "Linear",
+        layer_kwargs: dict | None = None,
+        activation: str = "GELU",
+        activation_kwargs: dict | None = None,
+        dropout: float = 0.0,
+    ) -> None:
+        if len(sizes) < 2:
+            raise ValueError("NestedMLP requires at least input and output sizes")
+        self.in_dim = sizes[0]
+        self.n_conditions = n_conditions
+        self.dims = [sizes[0] + n_conditions] + list(sizes[1:-1]) + [sizes[-1] * n_output_parameters]
+        self.family = get_dense_layer(layer, layer_kwargs)
+        self.activation_name = activation
+        self.act = get_activation(activation, **(activation_kwargs or {}))
+        self.dropout_rate = dropout
+        self.splittable = n_conditions > 0
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {
+            "layers": [
+                self.family.init(generator, self.dims[i], self.dims[i + 1])
+                for i in range(len(self.dims) - 1)
+            ]
+        }
+
+    def cond_proj(self, params: Params, h: torch.Tensor) -> torch.Tensor | None:
+        """Precompute ``h @ W1_h`` (stack-aware: a leading block axis on the
+        params is kept, giving ``(..., B, hidden)``)."""
+        if not self.splittable:
+            return None
+        return torch.matmul(h, params["layers"][0]["w"][..., self.in_dim:, :])
+
+    def apply(
+        self,
+        params: Params,
+        y: torch.Tensor,
+        h: torch.Tensor | None,
+        h_proj: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        train: bool = False,
+    ) -> torch.Tensor:
+        layers = params["layers"]
+        if self.splittable and h_proj is not None:
+            p = layers[0]
+            x = y @ p["w"][: self.in_dim] + p["b"] + h_proj
+        else:
+            inp = torch.cat([y, h], dim=-1) if self.n_conditions > 0 and h is not None else y
+            x = self.family.apply(layers[0], inp)
+        for i in range(len(layers) - 1):
+            if i > 0:
+                x = self.family.apply(layers[i], x)
+            x = self.act(x)
+            x = dropout(generator, x, self.dropout_rate, train)
+        return self.family.apply(layers[-1], x)
+
+
+class AffineCoupling:
+    """One-way conditional affine coupling (reference
+    `ConditionalAffineCouplingLayer`, `src/bcnf/models/cnf.py:110-213`).
+    The scale is `tanh`-bounded, exactly as the reference."""
+
+    def __init__(
+        self,
+        input_size: int,
+        nested_sizes: Sequence[int],
+        n_conditions: int,
+        layer: str = "Linear",
+        layer_kwargs: dict | None = None,
+        activation: str = "GELU",
+        activation_kwargs: dict | None = None,
+        dropout: float = 0.0,
+        two_way: bool = False,
+    ) -> None:
+        if two_way:
+            raise NotImplementedError("two_way couplings are not ported yet (ROADMAP.md, 'Other conditioners')")
+        self.input_size = input_size
+        self.d_a = math.ceil(input_size / 2)
+        self.d_b = math.floor(input_size / 2)
+        self.nn_a = NestedMLP(
+            [self.d_a] + list(nested_sizes) + [self.d_b],
+            n_conditions=n_conditions, n_output_parameters=2, layer=layer,
+            layer_kwargs=layer_kwargs, activation=activation,
+            activation_kwargs=activation_kwargs, dropout=dropout,
+        )
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {"a": self.nn_a.init(generator)}
+
+    def cond_proj(self, params: Params, h: torch.Tensor) -> torch.Tensor | None:
+        return self.nn_a.cond_proj(params["a"], h)
+
+    def _coeffs(self, p: Params, y: torch.Tensor, h: torch.Tensor | None, h_proj: torch.Tensor | None,
+                generator: torch.Generator | None, train: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        out = self.nn_a.apply(p, y, h, h_proj, generator, train)
+        t, s = torch.chunk(out, 2, dim=-1)
+        return t, torch.tanh(s)
+
+    def forward(self, params: Params, y: torch.Tensor, h: torch.Tensor | None = None,
+                h_proj: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        y_a, y_b = y[..., : self.d_a], y[..., self.d_a:]
+        t, log_s = self._coeffs(params["a"], y_a, h, h_proj, generator, train)
+        z_b = torch.exp(log_s) * y_b + t
+        return torch.cat([y_a, z_b], dim=-1), torch.sum(log_s, dim=-1)
+
+    def inverse(self, params: Params, z: torch.Tensor, h: torch.Tensor | None = None,
+                h_proj: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                train: bool = False) -> torch.Tensor:
+        z_a, z_b = z[..., : self.d_a], z[..., self.d_a:]
+        t, log_s = self._coeffs(params["a"], z_a, h, h_proj, generator, train)
+        return torch.cat([z_a, (z_b - t) * torch.exp(-log_s)], dim=-1)
+
+    @property
+    def fusable(self) -> bool:
+        """Whether the whole-flow kernel covers this coupling: Linear family
+        and GELU (the kernel hardcodes tanh-GELU)."""
+        return self.nn_a.family.name == "Linear" and self.nn_a.activation_name.upper() == "GELU"
+
+
+class ActNorm:
+    """Learnable elementwise affine (reference `src/bcnf/models/cnf.py:342-354`);
+    log-det is ``sum(log|scale|)``."""
+
+    def __init__(self, size: int) -> None:
+        self.size = size
+
+    def init(self) -> Params:
+        return {"scale": torch.ones(self.size), "bias": torch.zeros(self.size)}
+
+    def forward(self, params: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        z = params["scale"] * x + params["bias"]
+        ld = torch.sum(torch.log(torch.abs(params["scale"])), dim=-1)
+        return z, ld.expand(x.shape[:-1])
+
+    def inverse(self, params: Params, z: torch.Tensor) -> torch.Tensor:
+        return (z - params["bias"]) / params["scale"]
+
+
+def orthonormal_init(seed: Any, size: int) -> torch.Tensor:
+    """Fixed random orthonormal matrix: float64 NumPy QR cast to float32
+    (`bcnf_tpu/models/cnf.py:472-485`), bit for bit the JAX package's."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((size, size)))
+    return torch.from_numpy(q.astype(np.float32))
+
+
+def _grad_required(*trees: Any) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for tree in trees for t in tree_leaves(tree)
+    )
+
+
+class CondRealNVP:
+    """Conditional RealNVP v2 (reference `CondRealNVP_v2`, `src/bcnf/models/cnf.py:357-588`).
+
+    Static configuration object; parameters live in the tree returned by
+    :meth:`init`. Structure (reference `cnf.py:394-423`)::
+
+        (n_blocks - 1) x [ActNorm?, Coupling, Orthonormal]  +  final Coupling
+
+    The keyword arguments are the JAX package's. `use_pallas` gates the
+    whole-flow kernel (here the CUDA one); `pallas_strict` has nothing left to
+    choose, since the kernel computes in exact float32 only.
+    """
+
+    SUPPORTED_PRECISIONS = ("highest", "float32")
+
+    def __init__(
+        self,
+        size: int,
+        nested_sizes: Sequence[int],
+        n_blocks: int,
+        n_conditions: int,
+        feature_network_stack: Any | None = None,
+        dropout: float = 0.0,
+        act_norm: bool = False,
+        two_way: bool = False,
+        layer: str = "Linear",
+        layer_kwargs: dict | None = None,
+        activation: str = "GELU",
+        activation_kwargs: dict | None = None,
+        random_state: int | None = None,
+        parameter_index_mapping: Any = None,
+        hybrid: bool = False,
+        coupling: str = "affine",
+        coupling_kwargs: dict | None = None,
+        precision: str = "highest",
+        use_pallas: bool = True,
+        pallas_strict: bool = False,
+    ) -> None:
+        if hybrid:
+            raise NotImplementedError("hybrid models are not ported yet (ROADMAP.md, 'Training')")
+        if coupling != "affine":
+            raise NotImplementedError(f"Coupling type {coupling} is not ported yet (ROADMAP.md, 'RQS coupling')")
+        self.size = size
+        self.nested_sizes = list(nested_sizes)
+        self.n_blocks = n_blocks
+        self.n_conditions = n_conditions
+        self.features = feature_network_stack if n_conditions > 0 else None
+        self.dropout = dropout
+        self.act_norm = act_norm
+        self.two_way = two_way
+        self.random_state = random_state
+        self.parameter_index_mapping = parameter_index_mapping
+        self.hybrid = hybrid
+        self.precision = precision
+        self.use_pallas = use_pallas
+        self.pallas_strict = pallas_strict
+        self.coupling = AffineCoupling(
+            input_size=size, nested_sizes=nested_sizes, n_conditions=n_conditions,
+            layer=layer, layer_kwargs=layer_kwargs, activation=activation,
+            activation_kwargs=activation_kwargs, dropout=dropout, two_way=two_way,
+        )
+        self.actnorm = ActNorm(size) if act_norm else None
+
+    @property
+    def precision(self) -> str:
+        return self._precision
+
+    @precision.setter
+    def precision(self, value: str) -> None:
+        """Only float32 ("highest") is ported; the TF32 modes that would
+        stand for the JAX package's "default" and x3 are an open question
+        (PERF.md)."""
+        if value not in self.SUPPORTED_PRECISIONS:
+            raise NotImplementedError(
+                f"precision {value!r} is not ported; supported: {self.SUPPORTED_PRECISIONS}"
+            )
+        self._precision = value
+
+    # -- construction -----------------------------------------------------
+
+    def init(self, generator: torch.Generator | None = None, device: str | torch.device | None = None) -> Params:
+        """Random parameters drawn on the CPU from `generator` (a CPU
+        `torch.Generator`; default: seeded with `random_state`), then moved
+        to `device` (default CUDA): one seed gives the same weights on every
+        device."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.random_state or 0)
+        params: Params = {}
+        if self.features is not None:
+            params["features"] = self.features.init(generator)
+        n_inner = self.n_blocks - 1
+        if n_inner > 0:
+            couplings = [self.coupling.init(generator) for _ in range(n_inner)]
+            base_seed = self.random_state if self.random_state is not None else 0
+            blocks: Params = {
+                "coupling": map_tree(lambda *xs: torch.stack(xs), *couplings),
+                "ortho": torch.stack([orthonormal_init([base_seed, i], self.size) for i in range(n_inner)]),
+            }
+            if self.actnorm is not None:
+                blocks["actnorm"] = map_tree(
+                    lambda *xs: torch.stack(xs), *[self.actnorm.init() for _ in range(n_inner)]
+                )
+            params["blocks"] = blocks
+        params["final"] = self.coupling.init(generator)
+        return map_tree(lambda t: t.to(dev), params)
+
+    def n_params(self, params: Params) -> int:
+        return count_params(params)
+
+    def verify(self) -> None:
+        """Shape-chain check over the feature networks (reference `cnf.py:425-440`)."""
+        if self.features is None:
+            return
+
+        def _norm(s: Any) -> Any:
+            return tuple(s) if isinstance(s, (list, tuple)) else s
+
+        current = None
+        for fn in self.features.feature_networks:
+            in_size = _norm(getattr(fn, "input_size", None))
+            out_size = _norm(getattr(fn, "output_size", None))
+            if in_size is None and out_size is None:
+                continue
+            if current is not None and in_size not in (None, current):
+                raise AssertionError(
+                    f"Feature network output {current} does not match next input {in_size}."
+                )
+            if out_size is not None:
+                current = out_size
+        if current is not None and current != self.n_conditions:
+            raise AssertionError(
+                f"Feature network output {current} must match n_conditions {self.n_conditions}."
+            )
+
+    @classmethod
+    def from_config(cls, config: dict[str, Any]) -> "CondRealNVP":
+        """Build from a reference-schema run config (reference `cnf.py:442-456`)."""
+        from bcnf_tpu_torch.config import ParameterIndexMapping
+        from bcnf_tpu_torch.factories import FeatureNetworkFactory
+        from bcnf_tpu_torch.models.feature_network import FeatureNetworkStack
+
+        feature_networks = [
+            FeatureNetworkFactory.get_feature_network(fn_config["type"], dict(fn_config.get("kwargs") or {}))
+            for fn_config in config["feature_networks"]
+        ]
+        model_kwargs = {k: v for k, v in dict(config["model"]["kwargs"]).items() if k != "device"}
+        if "nested_sizes" in model_kwargs:
+            model_kwargs["nested_sizes"] = list(model_kwargs["nested_sizes"])
+        model = cls(
+            feature_network_stack=FeatureNetworkStack(feature_networks),
+            parameter_index_mapping=ParameterIndexMapping(list(config["global"]["parameter_selection"])),
+            **model_kwargs,
+        )
+        model.verify()
+        return model
+
+    # -- encoding ---------------------------------------------------------
+
+    def encode(self, params: Params, conditions: Sequence[torch.Tensor],
+               generator: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
+        """Run the feature-network stack once (reference `cnf.py:467-473`)."""
+        if self.features is None:
+            raise ValueError("Model has no conditions")
+        return self.features.apply(params["features"], *conditions, generator=generator, train=train)
+
+    # -- the whole-flow kernel ---------------------------------------------
+
+    def _use_fused(self, train: bool, x: torch.Tensor, *trees: Any) -> bool:
+        """Kernel gate: `_use_fused` of the JAX package (`bcnf_tpu/models/cnf.py:744-760`)
+        with the TPU platform test replaced by "a CUDA tensor, no gradient
+        required". Structural guards: at least one inner block and two nested
+        layers (`stack_flow_params`), and one hidden width for all of them."""
+        return (
+            self.use_pallas
+            and not train
+            and self.n_conditions > 0
+            and self.n_blocks > 1
+            and len(self.nested_sizes) >= 2
+            and len(set(self.nested_sizes)) == 1
+            and self.coupling.fusable
+            and x.is_cuda
+            and not _grad_required(x, *trees)
+        )
+
+    def _fused_flow_args(self, params: Params, h: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        """Stacked kernel args + the (K+1, N, Hp) condition projections, with
+        the hidden width zero-padded to the kernel's width."""
+        from bcnf_tpu_torch.ops.flow_kernel import pad_hidden, stack_flow_params
+
+        kargs = stack_flow_params(self, params)
+        proj_blocks = self.coupling.cond_proj(params["blocks"]["coupling"], h)
+        proj_final = self.coupling.cond_proj(params["final"], h)
+        return pad_hidden(kargs, torch.cat([proj_blocks, proj_final[None]], dim=0))
+
+    def _fused(self, params: Params, x: torch.Tensor, h: torch.Tensor, inverse: bool) -> Any:
+        """One kernel launch over all rows of `x` (..., size); flattened row
+        r is conditioned on h[r % N], which is how (..., N, size) rows
+        broadcast against (N, n_conditions) conditions."""
+        from bcnf_tpu_torch.ops.flow_kernel import fused_flow
+
+        N = h.shape[0]
+        if N != 1 and (x.dim() < 2 or x.shape[-2] != N):
+            raise ValueError(f"rows of shape {tuple(x.shape)} do not broadcast against {N} conditions")
+        kargs, h_proj = self._fused_flow_args(params, h)
+        out = fused_flow(x.reshape(-1, self.size).contiguous(), h_proj, **kargs, inverse=inverse, n_cond=N)
+        if inverse:
+            return out.reshape(x.shape)
+        z, ld = out
+        return z.reshape(x.shape), ld.reshape(x.shape[:-1])
+
+    # -- flow -------------------------------------------------------------
+
+    def _block(self, params: Params, projs: torch.Tensor | None, i: int) -> tuple[Params, torch.Tensor | None]:
+        blk = map_tree(lambda t: t[i], params["blocks"])
+        return blk, None if projs is None else projs[i]
+
+    def forward(
+        self,
+        params: Params,
+        y: torch.Tensor,
+        *conditions: torch.Tensor,
+        generator: torch.Generator | None = None,
+        train: bool = False,
+        return_features: bool = False,
+    ) -> tuple[torch.Tensor, ...]:
+        """theta -> z with log|det J| (reference `cnf.py:467-493`)."""
+        h = self.encode(params, conditions, generator, train) if self.features is not None else None
+        if h is not None and self._use_fused(train, y, h, params):
+            z, log_det = self._fused(params, y, h, inverse=False)
+            return (z, log_det, h) if return_features else (z, log_det)
+
+        log_det = y.new_zeros(y.shape[:-1])
+        if "blocks" in params:
+            projs = self.coupling.cond_proj(params["blocks"]["coupling"], h) if h is not None else None
+            for i in range(self.n_blocks - 1):
+                blk, proj = self._block(params, projs, i)
+                if self.actnorm is not None:
+                    y, ld_an = self.actnorm.forward(blk["actnorm"], y)
+                    log_det = log_det + ld_an
+                y, ld_c = self.coupling.forward(blk["coupling"], y, h, proj, generator, train)
+                log_det = log_det + ld_c
+                # fixed (non-trainable) mixing matrix, reference `cnf.py:323-324`
+                y = y @ blk["ortho"].detach()
+        final_proj = self.coupling.cond_proj(params["final"], h) if h is not None else None
+        y, ld_f = self.coupling.forward(params["final"], y, h, final_proj, generator, train)
+        log_det = log_det + ld_f
+        return (y, log_det, h) if return_features else (y, log_det)
+
+    def inverse(self, params: Params, z: torch.Tensor, *conditions: torch.Tensor,
+                generator: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
+        """z -> theta (reference `cnf.py:495-508`)."""
+        h = self.encode(params, conditions, generator, train) if self.features is not None else None
+        return self.inverse_given_h(params, z, h, generator=generator, train=train)
+
+    def inverse_given_h(self, params: Params, z: torch.Tensor, h: torch.Tensor | None,
+                        generator: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
+        """Inverse with a pre-encoded condition vector: encode conditions once
+        and reuse them across many z draws (posterior sampling)."""
+        if h is not None and self._use_fused(train, z, h, params):
+            return self._fused(params, z, h, inverse=True)
+
+        final_proj = self.coupling.cond_proj(params["final"], h) if h is not None else None
+        z = self.coupling.inverse(params["final"], z, h, final_proj, generator, train)
+        if "blocks" in params:
+            projs = self.coupling.cond_proj(params["blocks"]["coupling"], h) if h is not None else None
+            for i in range(self.n_blocks - 2, -1, -1):
+                blk, proj = self._block(params, projs, i)
+                z = z @ blk["ortho"].detach().T
+                z = self.coupling.inverse(blk["coupling"], z, h, proj, generator, train)
+                if self.actnorm is not None:
+                    z = self.actnorm.inverse(blk["actnorm"], z)
+        return z
+
+    # -- probabilistic API -------------------------------------------------
+
+    def log_prob(self, params: Params, y: torch.Tensor, *conditions: torch.Tensor) -> torch.Tensor:
+        """Per-example log p(theta | condition) under the reference's NLL
+        convention (constant omitted, SURVEY.md Q9)."""
+        z, log_det = self.forward(params, y, *conditions)
+        return -(0.5 * torch.sum(z**2, dim=-1) - log_det)
+
+    def sample(
+        self,
+        params: Params,
+        generator: torch.Generator,
+        n_samples: int,
+        *conditions: torch.Tensor,
+        sigma: float = 1.0,
+        outer: bool = True,
+        device: str | torch.device | None = None,
+    ) -> torch.Tensor:
+        """Draw `n_samples` posterior samples per condition row on `device`
+        (default CUDA; the params must live there).
+
+        Returns `(n_samples, N, size)`, draws-major, matching the reference's
+        `outer=True` broadcast semantics (reference `cnf.py:540-588`).
+        Conditions are encoded once. z is drawn from `generator` on its own
+        device and moved, so one seed gives the same z on every device.
+        """
+        dev = resolve_device(device)
+        conditions = tuple((c[None] if c.dim() == 1 else c).to(dev) for c in conditions)
+        h = self.encode(params, conditions) if self.features is not None else None
+        N = conditions[0].shape[0] if conditions else 1
+        shape = (n_samples, N, self.size) if outer else (n_samples, self.size)
+        z = sigma * torch.randn(shape, generator=generator, device=generator.device).to(dev)
+        return self.inverse_given_h(params, z, h)
+
+
+# Backwards-compatible alias matching the reference class name
+CondRealNVP_v2 = CondRealNVP

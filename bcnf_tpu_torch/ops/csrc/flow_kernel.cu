@@ -1,0 +1,366 @@
+// The whole conditional RealNVP flow, forward or inverse, in one kernel.
+//
+// Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow (the Pallas TPU kernel
+// `_flow_kernel`). Host side and plain PyTorch version:
+// bcnf_tpu_torch/ops/flow_kernel.py.
+//
+// What it computes, for every row r of x (rows are draws-major; row r is
+// conditioned on h_proj[step, r % N]):
+//   inverse: step K (the final coupling alone), then for k = K-1 .. 0:
+//            x <- x Q_k^T, coupling^-1, ActNorm^-1
+//   forward: for k = 0 .. K-1: ActNorm, coupling, x <- x Q_k; then step K;
+//            logdet = sum log|s_an| + sum s.
+//   coupling on x = [x_a | x_b]: a = gelu(x_a W1y + b1 + h_proj); a = gelu(a Wm_i
+//   + bm_i) for each hidden layer; [t | s'] = a Wout + bout; s = tanh(s');
+//   x_b <- exp(s) x_b + t (forward) or (x_b - t) exp(-s) (inverse).
+//   GELU is the tanh form, as jax.nn.gelu and the Pallas kernel compute it.
+//
+// What bounds it on an H100: operations. At the flagship widths (H = 526,
+// 4 hidden layers, 26 steps) a row costs ~58 MFLOP, almost all in the
+// H x H layers, while the ~120 MB of weights are shared by every row, so any
+// batch past a few thousand rows is compute-bound on float32 FMA (this kernel
+// uses no tensor cores: exact f32 is the "highest" precision contract).
+//
+// Design: one block of 256 threads owns BM = 8*TM rows and walks all steps
+// and layers itself, so activations never leave the SM (the TPU kernel's
+// sequential grid axis over steps becomes this loop). The block's activation
+// tile a (BM x Hp) sits in shared memory; each thread keeps a TM x TN tile of
+// the next layer's sums in registers, so one activation buffer suffices: the
+// layer's epilogue overwrites it after a barrier. Weights stream from L2 in
+// BK-row slabs through a cp.async double buffer; a slab is contiguous in
+// memory because weights are stored (in, out). Blocks resident on the card
+// walk the steps at about the same pace, so one step's ~4.7 MB of weights
+// stays hot in the 50 MB L2. Per k, a warp issues TM*TN = 136 FMAs against
+// TM/4 + TN = 19 shared-memory wavefronts (activations are broadcast float4
+// reads, weights conflict-free rows), which keeps the inner loop on the FMA
+// pipe rather than the shared-memory port. The hidden width is zero-padded to
+// Hp = 32*TN by the host (exact: padded units stay 0 because gelu(0) = 0).
+// Rows past B in the ragged last tile are computed on zeros and not stored.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block may use
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
+  return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+}
+
+__device__ __forceinline__ float lane(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy n contiguous floats (n a multiple of 4, both ends 16-byte aligned).
+__device__ __forceinline__ void load_slab(float* dst, const float* src, int n, int tid) {
+  for (int i = tid * 4; i < n; i += kThreads * 4) cp_async16(dst + i, src + i);
+}
+
+// acc[r][j] += sum_{kk < BK} a[row r][k0 + kk] * ws[kk][col j], where this
+// thread's rows are ty*TM + r and its columns tx + 32*j.
+template <int TM, int TN>
+__device__ __forceinline__ void mac_slab(const float* act, int k0, const float* ws, int BK,
+                                         float (&acc)[TM][TN], int ty, int tx) {
+  constexpr int Hp = 32 * TN;
+#pragma unroll 1
+  for (int kk = 0; kk < BK; kk += 4) {
+    float4 a[TM];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+      a[r] = *reinterpret_cast<const float4*>(act + (ty * TM + r) * Hp + k0 + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* wrow = ws + (kk + q) * Hp + tx;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float w = wrow[32 * j];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) acc[r][j] = fmaf(lane(a[r], q), w, acc[r][j]);
+      }
+    }
+  }
+}
+
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 1)
+flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
+            const float* __restrict__ an_s, const float* __restrict__ an_b,
+            const float* __restrict__ ortho, const float* __restrict__ w1y,
+            const float* __restrict__ b1, const float* __restrict__ wm,
+            const float* __restrict__ bm, const float* __restrict__ wout,
+            const float* __restrict__ bout, float* __restrict__ y,
+            float* __restrict__ ld_out, int B, int N, int S, int size, int d_a,
+            int nh, int BK, int inverse) {
+  constexpr int BM = kWarps * TM;
+  constexpr int Hp = 32 * TN;
+  const int d_b = size - d_a;
+  const int n_out = 2 * d_b;
+
+  extern __shared__ float4 smem4[];
+  float* act = reinterpret_cast<float*>(smem4);  // BM x Hp
+  float* slab = act + BM * Hp;                   // 2 x BK x Hp
+  float* xs = slab + 2 * BK * Hp;                // BM x size: the rows' state
+  float* xt = xs + BM * size;                    // BM x size: ortho scratch
+  float* outs = xt + BM * size;                  // BM x n_out: [t | s']
+  float* lds = outs + BM * n_out;                // BM: logdet
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 32;
+  const int tx = tid % 32;
+  const int row0 = blockIdx.x * BM;
+
+  for (int p = tid; p < BM * size; p += kThreads) {
+    const int grow = row0 + p / size;
+    xs[p] = grow < B ? x[static_cast<size_t>(row0) * size + p] : 0.0f;
+  }
+  if (tid < BM) lds[tid] = 0.0f;
+  __syncthreads();
+
+  for (int it = 0; it < S; ++it) {
+    const int k = inverse ? S - 1 - it : it;
+    const bool inner = k < S - 1;  // step S-1 is the final coupling alone
+    const float* Q = ortho + static_cast<size_t>(k) * size * size;
+    const float* sc = an_s + static_cast<size_t>(k) * size;
+    const float* bi = an_b + static_cast<size_t>(k) * size;
+
+    if (inner) {
+      if (!inverse) {  // ActNorm
+        for (int p = tid; p < BM * size; p += kThreads) {
+          const int i = p % size;
+          xs[p] = xs[p] * sc[i] + bi[i];
+        }
+        if (tid < BM) {
+          float l = 0.0f;
+          for (int i = 0; i < size; ++i) l += logf(fabsf(sc[i]));
+          lds[tid] += l;
+        }
+      } else {  // x <- x Q^T
+        for (int p = tid; p < BM * size; p += kThreads) {
+          const int r = p / size, j = p % size;
+          float acc = 0.0f;
+          for (int i = 0; i < size; ++i) acc = fmaf(xs[r * size + i], Q[j * size + i], acc);
+          xt[p] = acc;
+        }
+        float* t = xs;
+        xs = xt;
+        xt = t;
+      }
+      __syncthreads();
+    }
+
+    // ---- coupling MLP, first layer: gelu(x_a W1y + b1 + h_proj[k, row % N])
+    {
+      float acc[TM][TN];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const int n = (row0 + ty * TM + r) % N;
+        const float* hp = h_proj + (static_cast<size_t>(k) * N + n) * Hp + tx;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[r][j] = b1[static_cast<size_t>(k) * Hp + tx + 32 * j] + hp[32 * j];
+      }
+      for (int i = 0; i < d_a; ++i) {
+        const float* wr = w1y + (static_cast<size_t>(k) * d_a + i) * Hp + tx;
+        float w[TN];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) w[j] = wr[32 * j];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          const float xa = xs[(ty * TM + r) * size + i];
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(xa, w[j], acc[r][j]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) act[(ty * TM + r) * Hp + tx + 32 * j] = gelu_tanh(acc[r][j]);
+    }
+    __syncthreads();
+
+    // ---- hidden layers: a <- gelu(a Wm_l + bm_l)
+    for (int l = 0; l < nh; ++l) {
+      const float* W = wm + (static_cast<size_t>(k) * nh + l) * Hp * Hp;
+      float acc[TM][TN];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[r][j] = 0.0f;
+      const int n_slabs = Hp / BK;
+      load_slab(slab, W, BK * Hp, tid);
+      cp_async_commit();
+      for (int s = 0; s < n_slabs; ++s) {
+        if (s + 1 < n_slabs) {
+          load_slab(slab + ((s + 1) & 1) * BK * Hp, W + static_cast<size_t>(s + 1) * BK * Hp, BK * Hp, tid);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        mac_slab<TM, TN>(act, s * BK, slab + (s & 1) * BK * Hp, BK, acc, ty, tx);
+        __syncthreads();
+      }
+      const float* bias = bm + (static_cast<size_t>(k) * nh + l) * Hp + tx;
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          act[(ty * TM + r) * Hp + tx + 32 * j] = gelu_tanh(acc[r][j] + bias[32 * j]);
+      __syncthreads();
+    }
+
+    // ---- output layer: [t | s'] = a Wout + bout, one column per lane
+    for (int c = tx; c < ((n_out + 31) / 32) * 32; c += 32) {
+      if (c < n_out) {
+        float acc[TM];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
+        const float* W = wout + static_cast<size_t>(k) * Hp * n_out + c;
+        for (int kk = 0; kk < Hp; kk += 4) {
+          float w[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w[q] = W[(kk + q) * n_out];
+#pragma unroll
+          for (int r = 0; r < TM; ++r) {
+            const float4 a = *reinterpret_cast<const float4*>(act + (ty * TM + r) * Hp + kk);
+            acc[r] = fmaf(a.x, w[0], acc[r]);
+            acc[r] = fmaf(a.y, w[1], acc[r]);
+            acc[r] = fmaf(a.z, w[2], acc[r]);
+            acc[r] = fmaf(a.w, w[3], acc[r]);
+          }
+        }
+        const float bo = bout[static_cast<size_t>(k) * n_out + c];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) outs[(ty * TM + r) * n_out + c] = acc[r] + bo;
+      }
+    }
+    __syncthreads();
+
+    // ---- affine update of x_b (one thread per row)
+    if (tid < BM) {
+      float* xr = xs + tid * size;
+      const float* o = outs + tid * n_out;
+      float l = 0.0f;
+      for (int j = 0; j < d_b; ++j) {
+        const float t = o[j];
+        const float s = tanhf(o[d_b + j]);
+        if (!inverse) {
+          xr[d_a + j] = expf(s) * xr[d_a + j] + t;
+          l += s;
+        } else {
+          xr[d_a + j] = (xr[d_a + j] - t) * expf(-s);
+        }
+      }
+      if (!inverse) lds[tid] += l;
+    }
+    __syncthreads();
+
+    if (inner) {
+      if (!inverse) {  // x <- x Q
+        for (int p = tid; p < BM * size; p += kThreads) {
+          const int r = p / size, j = p % size;
+          float acc = 0.0f;
+          for (int i = 0; i < size; ++i) acc = fmaf(xs[r * size + i], Q[i * size + j], acc);
+          xt[p] = acc;
+        }
+        float* t = xs;
+        xs = xt;
+        xt = t;
+      } else {  // ActNorm^-1
+        for (int p = tid; p < BM * size; p += kThreads) {
+          const int i = p % size;
+          xs[p] = (xs[p] - bi[i]) / sc[i];
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int p = tid; p < BM * size; p += kThreads) {
+    if (row0 + p / size < B) y[static_cast<size_t>(row0) * size + p] = xs[p];
+  }
+  if (!inverse && tid < BM && row0 + tid < B) ld_out[row0 + tid] = lds[tid];
+}
+
+template <int TM, int TN>
+cudaError_t launch(const float* x, const float* h_proj, const float* an_s, const float* an_b,
+                   const float* ortho, const float* w1y, const float* b1, const float* wm,
+                   const float* bm, const float* wout, const float* bout, float* y, float* ld,
+                   int B, int N, int S, int size, int d_a, int nh, int inverse,
+                   cudaStream_t stream) {
+  constexpr int BM = kWarps * TM;
+  constexpr int Hp = 32 * TN;
+  const int n_out = 2 * (size - d_a);
+  const size_t fixed = sizeof(float) * (static_cast<size_t>(BM) * Hp +
+                                        static_cast<size_t>(BM) * (2 * size + n_out + 1));
+  int BK = 16;
+  while (BK >= 4 && fixed + sizeof(float) * 2 * BK * Hp > kSmemLimit) BK /= 2;
+  if (BK < 4) return cudaErrorInvalidValue;
+  const size_t smem = fixed + sizeof(float) * 2 * BK * Hp;
+  cudaError_t err = cudaFuncSetAttribute(flow_kernel<TM, TN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + BM - 1) / BM);
+  flow_kernel<TM, TN><<<grid, kThreads, smem, stream>>>(
+      x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, B, N, S, size, d_a, nh,
+      BK, inverse);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry point, loaded with ctypes. Hp (the padded hidden width) must be
+// 32*TN for a compiled TN; returns the cudaError_t of the launch.
+extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float* an_s,
+                               const float* an_b, const float* ortho, const float* w1y,
+                               const float* b1, const float* wm, const float* bm,
+                               const float* wout, const float* bout, float* y, float* ld,
+                               int B, int N, int S, int size, int d_a, int nh, int Hp,
+                               int inverse, void* stream) {
+  if (B <= 0 || N <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 || Hp % 32 != 0 ||
+      (!inverse && ld == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BCNF_CASE(TM, TN)                                                                   \
+  case TN:                                                                                  \
+    return launch<TM, TN>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, \
+                          B, N, S, size, d_a, nh, inverse, st);
+  switch (Hp / 32) {
+    BCNF_CASE(8, 1)
+    BCNF_CASE(8, 2)
+    BCNF_CASE(8, 4)
+    BCNF_CASE(8, 8)
+    BCNF_CASE(8, 12)
+    BCNF_CASE(8, 16)
+    BCNF_CASE(8, 17)
+    BCNF_CASE(4, 24)
+    BCNF_CASE(4, 32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef BCNF_CASE
+}
+
+extern "C" const char* bcnf_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
