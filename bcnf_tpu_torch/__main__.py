@@ -1,13 +1,18 @@
-"""CLI of the port (`bcnf_tpu/__main__.py`, the serving slice of it).
+"""CLI of the port (`bcnf_tpu/__main__.py`, its training and serving slices).
 
 Subcommands:
 
-- ``sample`` — posterior sampling from a model directory as `bcnf-tpu train`
-  writes it (`config.json` + `params.pkl`), on the GPU unless
-  ``--device cpu`` is given
+- ``train``  — build a model from a run config, train it on a dataset, and
+  write `params.pkl` (a NumPy tree, the format `bcnf-tpu train` writes) and
+  `config.json` to the output directory
+- ``sample`` — posterior sampling from a model directory as either package's
+  ``train`` writes it (`config.json` + `params.pkl`)
 - ``size``   — parameter count for a run config
 
-Usage: ``python -m bcnf_tpu_torch sample -m MODEL_DIR -d DATA.pkl -n 1000 -o out.npy``.
+``train`` and ``sample`` run on the GPU unless ``--device cpu`` is given.
+
+Usage: ``python -m bcnf_tpu_torch train -c RUN.yaml -d DATA.pkl -o MODEL_DIR``, then
+``python -m bcnf_tpu_torch sample -m MODEL_DIR -d DATA.pkl -n 1000 -o out.npy``.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import argparse
 import json
 import os
 import pickle
+import sys
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -23,6 +29,35 @@ def main(argv: list[str] | None = None) -> None:
         description="Ballistic Conditional Normalizing Flows on PyTorch/CUDA (bcnf_tpu_torch)"
     )
     subparsers = parser.add_subparsers(dest="command_name", required=True)
+
+    train_parser = subparsers.add_parser("train")
+    train_parser.add_argument("-c", "--config", type=str, required=True, help="Path to the run configuration file")
+    train_parser.add_argument("-o", "--output-dir", type=str, default=None, help="Directory to store the results")
+    train_parser.add_argument("-p", "--project", type=str, default="bcnf-test", help="Project name for metric sinks")
+    train_parser.add_argument("-f", "--force", action="store_true", help="Overwrite the output directory if it exists")
+    train_parser.add_argument("--wandb", action="store_true", help="Also log to Weights & Biases (requires wandb)")
+    train_parser.add_argument("--checkpoint-every", type=int, default=0, help="Checkpoint every N epochs (0 = off)")
+    train_parser.add_argument("--seed", type=int, default=None)
+    train_parser.add_argument("--freeze-features", action="store_true",
+                              help="Zero conditioner gradients (train the flow only)")
+    train_parser.add_argument("-d", "--data", type=str, default=None,
+                              help="Override data.path (dataset pickle or shard directory)")
+    train_parser.add_argument("--timeout", type=float, default=None,
+                              help="Override training.timeout (seconds of training wall-clock)")
+    train_parser.add_argument("--on-divergence", type=str, default=None, choices=["raise", "stop", "rescue"],
+                              help="Override training.on_divergence")
+    train_parser.add_argument("--device", type=str, default=None,
+                              help="Device to train on (default: cuda; 'cpu' runs the plain path)")
+    # the JAX package's flags for paths the port has not reached yet: each raises
+    train_parser.add_argument("--pretrained-features", type=str, default=None,
+                              help="Not ported yet (ROADMAP.md, slice 10)")
+    train_parser.add_argument("--online", action="store_true", help="Not ported yet (ROADMAP.md, slice 5)")
+    train_parser.add_argument("--online-steps", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 5)")
+    train_parser.add_argument("--online-lr-decay", action="store_true", help="Not ported yet (ROADMAP.md, slice 5)")
+    train_parser.add_argument("--dp-devices", type=int, default=0, help="Not ported yet above 1 (ROADMAP.md, slice 11)")
+    train_parser.add_argument("--coordinator", type=str, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
+    train_parser.add_argument("--num-processes", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
+    train_parser.add_argument("--process-id", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
 
     size_parser = subparsers.add_parser("size")
     size_parser.add_argument("-c", "--config", type=str, required=True)
@@ -40,10 +75,98 @@ def main(argv: list[str] | None = None) -> None:
                                help="Device to sample on (default: cuda; 'cpu' runs the plain path)")
 
     args = parser.parse_args(argv)
-    if args.command_name == "size":
+    if args.command_name == "train":
+        _cmd_train(args)
+    elif args.command_name == "size":
         _cmd_size(args)
     else:
         _cmd_sample(args)
+
+
+def _cmd_train(args: argparse.Namespace) -> None:
+    """`bcnf_tpu/__main__.py:153-299` for one device."""
+    not_ported = {
+        "--online": (args.online or args.online_steps is not None or args.online_lr_decay, 5),
+        "--dp-devices > 1": (args.dp_devices > 1, 11),
+        "--pretrained-features": (args.pretrained_features is not None, 10),
+        "--coordinator/--num-processes/--process-id": (
+            any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)), 11),
+    }
+    for flag, (given, slice_no) in not_ported.items():
+        if given:
+            raise NotImplementedError(f"train {flag} is not ported yet (ROADMAP.md, slice {slice_no})")
+
+    import torch
+
+    from bcnf_tpu_torch.bridge import params_to_numpy
+    from bcnf_tpu_torch.config import load_config, sub_root_path
+    from bcnf_tpu_torch.models import CondRealNVP, count_params
+    from bcnf_tpu_torch.train import Trainer
+    from bcnf_tpu_torch.train.history import JSONLSink, MultiSink, StdoutSink
+    from bcnf_tpu_torch.utils.misc import resolve_device
+
+    device = resolve_device(args.device)
+    model_name = os.path.splitext(os.path.basename(args.config))[0]
+    output_dir = args.output_dir or os.path.join("{{BCNF_ROOT}}", "models", "bcnf-models", model_name)
+    resolved = sub_root_path(output_dir)
+    os.makedirs(resolved, exist_ok=True)
+    if len(os.listdir(resolved)) > 0 and not args.force:
+        print(f"Output directory {resolved} already exists and is not empty. Use -f to overwrite.")
+        sys.exit(1)
+
+    config = load_config(args.config)
+    model = CondRealNVP.from_config(config)
+    # --seed, default 0, as the JAX CLI's `jax.random.key(args.seed or 0)`
+    params = model.init(torch.Generator().manual_seed(args.seed if args.seed is not None else 0), device=device)
+    print(f"Loaded {model_name} with {count_params(params):,} parameters on {device}")
+
+    sinks = [StdoutSink(), JSONLSink(os.path.join(resolved, "metrics.jsonl"))]
+    if args.wandb:
+        from bcnf_tpu_torch.train.history import WandbSink
+
+        sinks.append(WandbSink(args.project, model_name, config.to_dict()))
+
+    cfg = {k.lower(): v for k, v in config.items()}
+    cfg["training"] = dict(cfg["training"])
+    cfg["data"] = dict(cfg["data"])
+    if args.data is not None:
+        cfg["data"]["path"] = args.data
+    if args.timeout is not None:
+        cfg["training"]["timeout"] = args.timeout
+    if args.on_divergence is not None:
+        cfg["training"]["on_divergence"] = args.on_divergence
+        if args.on_divergence == "rescue":
+            cfg["training"]["keep_best"] = True
+    if args.freeze_features:
+        cfg["training"]["freeze_features"] = True
+
+    trainer = Trainer(
+        config=cfg,
+        project_name=args.project,
+        run_name=model_name,
+        parameter_index_mapping=model.parameter_index_mapping,
+        hybrid_weight=config["global"].get("hybrid_weight", 0) or 0,
+        verbose=True,
+        sink=MultiSink(*sinks),
+        seed=args.seed,
+        checkpoint_dir=os.path.join(resolved, "ckpts") if args.checkpoint_every else None,
+        checkpoint_every=args.checkpoint_every,
+        device=device,
+    )
+    try:
+        params = trainer.train(model, params)
+    except KeyboardInterrupt:
+        print("Training interrupted by user")
+    finally:
+        for sink in sinks:
+            sink.close()
+
+    with open(os.path.join(resolved, "params.pkl"), "wb") as f:
+        pickle.dump(params_to_numpy(params), f)
+    with open(os.path.join(resolved, "config.json"), "w") as f:
+        json.dump({"config_path": args.config}, f)
+    print(f"Model saved to {resolved}")
+
 
 
 def _cmd_size(args: argparse.Namespace) -> None:

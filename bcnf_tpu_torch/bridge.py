@@ -40,11 +40,12 @@ def tree_leaves(tree: Any) -> Iterator[Any]:
         yield tree
 
 
-def params_from_numpy(tree: Any, device: str | torch.device | None = None) -> Any:
+def params_from_numpy(tree: Any, device: str | torch.device | None = None, requires_grad: bool = False) -> Any:
     """A tree of NumPy arrays -> the same tree of tensors on `device`
-    (default CUDA; dtypes kept)."""
+    (default CUDA; dtypes kept), leaf tensors that require grad when asked
+    (the trainer's parameters)."""
     dev = resolve_device(device)
-    return map_tree(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+    return map_tree(lambda a: torch.from_numpy(np.array(a)).to(dev).requires_grad_(requires_grad), tree)
 
 
 def params_to_numpy(params: Any) -> Any:

@@ -10,27 +10,32 @@ The same design as the JAX package, in PyTorch idiom:
   split ``W1 = [W1_y; W1_h]`` and ``h @ W1_h`` is computed once for every
   block in one batched matmul; conditions are encoded once per batch, not
   once per posterior draw.
-- **The whole-flow kernel.** On a CUDA tensor with no gradient required,
+- **The whole-flow kernels.** On a CUDA tensor with no gradient required,
   `forward` and `inverse_given_h` run the flow as one launch of the
-  hand-written kernel (`ops/flow_kernel.py`, `ops/csrc/flow_kernel.cu`), the
-  counterpart of the JAX package's Pallas `fused_flow`. Under autograd, and
-  on the CPU, the plain composition below runs: the counterpart of the JAX
-  XLA path.
+  hand-written kernel K1 (`ops/flow_kernel.py`, `ops/csrc/flow_kernel.cu`),
+  the counterpart of the JAX package's Pallas `fused_flow`. Under autograd
+  (training), `forward` runs K2a and its backward K2b (`fused_flow_train`,
+  the counterpart of the JAX package's `forward_fused_flow`) behind the same
+  gate as `_use_fused_train`. Where a gate is closed for a structural reason
+  (dropout in training, a small batch, a CPU tensor), the plain composition
+  below runs: the counterpart of the JAX XLA path.
 
-Ported so far: one-way affine couplings with the `Linear` layer family.
-`two_way`, `rqs` and `hybrid` raise `NotImplementedError` (ROADMAP.md).
+Ported so far: one-way affine couplings with the `Linear` layer family, and
+the hybrid MSE head. `two_way` and `rqs` raise `NotImplementedError`
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from bcnf_tpu_torch.bridge import map_tree, tree_leaves
-from bcnf_tpu_torch.ops.nn import Params, dropout, get_activation, get_dense_layer
+from bcnf_tpu_torch.ops.nn import Params, dropout, get_activation, get_dense_layer, linear_init
 from bcnf_tpu_torch.utils.misc import resolve_device
 
 
@@ -243,8 +248,6 @@ class CondRealNVP:
         use_pallas: bool = True,
         pallas_strict: bool = False,
     ) -> None:
-        if hybrid:
-            raise NotImplementedError("hybrid models are not ported yet (ROADMAP.md, 'Training')")
         if coupling != "affine":
             raise NotImplementedError(f"Coupling type {coupling} is not ported yet (ROADMAP.md, 'RQS coupling')")
         self.size = size
@@ -310,10 +313,36 @@ class CondRealNVP:
                 )
             params["blocks"] = blocks
         params["final"] = self.coupling.init(generator)
+        if self.hybrid:
+            params["head"] = linear_init(generator, self.n_conditions, self.size)
         return map_tree(lambda t: t.to(dev), params)
 
     def n_params(self, params: Params) -> int:
         return count_params(params)
+
+    @torch.no_grad()
+    def init_actnorm(self, params: Params, y: torch.Tensor, *conditions: torch.Tensor,
+                     eps: float = 1e-6) -> Params:
+        """Glow-style data-dependent ActNorm initialization
+        (`bcnf_tpu/models/cnf.py:623-672`): walks the stack once with a data
+        batch, setting each ActNorm's scale to 1/std and bias to -mean/std of
+        its own input (population std), so every block sees a zero-mean
+        unit-variance activation at step 0. Returns a new tree; the tensors
+        of `params` are not changed."""
+        blocks = params.get("blocks")
+        if self.actnorm is None or blocks is None or "actnorm" not in blocks:
+            return params
+        h = self.encode(params, conditions) if self.features is not None else None
+        scale = blocks["actnorm"]["scale"].clone()
+        bias = blocks["actnorm"]["bias"].clone()
+        x = y
+        for i in range(self.n_blocks - 1):
+            sd = torch.std(x, dim=0, correction=0) + eps
+            scale[i], bias[i] = 1.0 / sd, -torch.mean(x, dim=0) / sd
+            x = x * scale[i] + bias[i]
+            x, _ = self.coupling.forward(map_tree(lambda t: t[i], blocks["coupling"]), x, h)
+            x = x @ blocks["ortho"][i]
+        return dict(params, blocks=dict(blocks, actnorm={"scale": scale, "bias": bias}))
 
     def verify(self) -> None:
         """Shape-chain check over the feature networks (reference `cnf.py:425-440`)."""
@@ -390,6 +419,30 @@ class CondRealNVP:
             and not _grad_required(x, *trees)
         )
 
+    # Minimum batch for the training kernels (`bcnf_tpu/models/cnf.py:998`,
+    # overridable per model or by the BCNF_FUSED_TRAIN_MIN_BATCH variable).
+    fused_train_min_batch: int = 256
+
+    def _use_fused_train(self, train: bool, x: torch.Tensor) -> bool:
+        """Training-kernel gate: `_use_fused_train` of the JAX package
+        (`bcnf_tpu/models/cnf.py:1000-1017`): the structural guards of
+        `_use_fused`, a dropout-free coupling when training (the kernels draw
+        no random bits), a batch of at least `fused_train_min_batch` rows, and
+        a CUDA tensor in place of the TPU platform test."""
+        min_batch = int(os.environ.get("BCNF_FUSED_TRAIN_MIN_BATCH", self.fused_train_min_batch))
+        return (
+            self.use_pallas
+            and self.n_conditions > 0
+            and self.n_blocks > 1
+            and len(self.nested_sizes) >= 2
+            and len(set(self.nested_sizes)) == 1
+            and self.coupling.fusable
+            and (not train or float(self.dropout) == 0.0)
+            and x.dim() == 2
+            and x.shape[0] >= min_batch
+            and x.is_cuda
+        )
+
     def _fused_flow_args(self, params: Params, h: torch.Tensor) -> tuple[dict, torch.Tensor]:
         """Stacked kernel args + the (K+1, N, Hp) condition projections, with
         the hidden width zero-padded to the kernel's width."""
@@ -416,6 +469,17 @@ class CondRealNVP:
         z, ld = out
         return z.reshape(x.shape), ld.reshape(x.shape[:-1])
 
+    def forward_fused_flow(self, params: Params, y: torch.Tensor,
+                           h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The differentiable whole-flow forward (`bcnf_tpu/models/cnf.py:1019-1039`):
+        K2a for z and logdet, K2b for every grad in the backward. Grads reach
+        the param tree through the stacking and padding (`torch.cat`,
+        `F.pad`), and the encoder through the condition projections."""
+        from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train
+
+        kargs, h_proj = self._fused_flow_args(params, h)
+        return fused_flow_train(y.contiguous(), h_proj, **kargs)
+
     # -- flow -------------------------------------------------------------
 
     def _block(self, params: Params, projs: torch.Tensor | None, i: int) -> tuple[Params, torch.Tensor | None]:
@@ -435,6 +499,9 @@ class CondRealNVP:
         h = self.encode(params, conditions, generator, train) if self.features is not None else None
         if h is not None and self._use_fused(train, y, h, params):
             z, log_det = self._fused(params, y, h, inverse=False)
+            return (z, log_det, h) if return_features else (z, log_det)
+        if h is not None and self._use_fused_train(train, y):
+            z, log_det = self.forward_fused_flow(params, y, h)
             return (z, log_det, h) if return_features else (z, log_det)
 
         log_det = y.new_zeros(y.shape[:-1])
@@ -486,6 +553,12 @@ class CondRealNVP:
         convention (constant omitted, SURVEY.md Q9)."""
         z, log_det = self.forward(params, y, *conditions)
         return -(0.5 * torch.sum(z**2, dim=-1) - log_det)
+
+    def predict_head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        """Hybrid prediction head (`bcnf_tpu/models/cnf.py:915-919`)."""
+        if not self.hybrid:
+            raise ValueError("Model was not built with hybrid=True")
+        return h @ params["head"]["w"] + params["head"]["b"]
 
     def sample(
         self,

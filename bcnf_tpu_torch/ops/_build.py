@@ -4,8 +4,9 @@ Each source under `csrc/` is compiled by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface, loaded with `ctypes`. The build runs
 at first use, from the sources in the checkout only, into
 `bcnf_tpu_torch/_build/` (listed in `.gitignore`); the library's file name
-carries a hash of its source, so an edited source is rebuilt. Nothing here
-runs at import time: the CPU tests import every module.
+carries a hash of its source and the shared headers, so an edited source is
+rebuilt. `build_all` starts one nvcc per source at once. Nothing here runs at
+import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"flow_kernel": _PKG / "ops" / "csrc" / "flow_kernel.cu"}
+_CSRC = _PKG / "ops" / "csrc"
+SOURCES = {
+    "flow_kernel": _CSRC / "flow_kernel.cu",  # K1 and the training forward K2a
+    "flow_train_kernel": _CSRC / "flow_train_kernel.cu",  # the training backward K2b
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,27 +43,47 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(name: str) -> Path:
-    """Compile `SOURCES[name]` unless a library built from the same source
-    exists; returns the library's path. A failed build raises with nvcc's
-    output."""
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
-        return lib
+def _library_path(name: str) -> Path:
+    text = SOURCES[name].read_bytes() + b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile the named sources (default: all) that have no library built
+    from the same text yet, one nvcc each, all started together; returns the
+    libraries' paths. A failed build raises with nvcc's output."""
+    names = list(SOURCES) if names is None else names
+    libs = {name: _library_path(name) for name in names}
+    todo = [name for name in names if not libs[name].exists()]
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {src.name}:\n{' '.join(cmd)}\n{build_logs[name]}")
-    os.replace(tmp, lib)
-    return lib
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = libs[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (cmd, tmp, time.perf_counter(),
+                       subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, t0, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        build_logs[name] = out
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {SOURCES[name].name}:\n{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def build(name: str) -> Path:
+    """Compile one source unless its library exists; returns its path."""
+    return build_all([name])[name]
 
 
 def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
@@ -71,6 +96,13 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     if name == "flow_kernel":
         lib.bcnf_fused_flow.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
         lib.bcnf_fused_flow.restype = i32
+        lib.bcnf_flow_train_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+        lib.bcnf_flow_train_fwd.restype = i32
+    elif name == "flow_train_kernel":
+        lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 6 + [ptr]
+        lib.bcnf_flow_train_bwd.restype = i32
+        lib.bcnf_flow_train_bwd_scratch.argtypes = [i32] * 6
+        lib.bcnf_flow_train_bwd_scratch.restype = ctypes.c_longlong
     lib.bcnf_cuda_error_string.argtypes = [i32]
     lib.bcnf_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

@@ -1,8 +1,11 @@
-// The whole conditional RealNVP flow, forward or inverse, in one kernel.
+// The whole conditional RealNVP flow, forward or inverse, in one kernel:
+// K1, and with one more store the training forward K2a.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow (the Pallas TPU kernel
-// `_flow_kernel`). Host side and plain PyTorch version:
-// bcnf_tpu_torch/ops/flow_kernel.py.
+// `_flow_kernel`) and, through `bcnf_flow_train_fwd`, the training forward
+// `fwd_call` of `_make_fused_flow_train` (`_flow_fwd_train_kernel`). Host
+// side and plain PyTorch versions: bcnf_tpu_torch/ops/flow_kernel.py. The
+// training backward (K2b) is csrc/flow_train_kernel.cu.
 //
 // What it computes, for every row r of x (rows are draws-major; row r is
 // conditioned on h_proj[step, r % N]):
@@ -14,12 +17,17 @@
 //   + bm_i) for each hidden layer; [t | s'] = a Wout + bout; s = tanh(s');
 //   x_b <- exp(s) x_b + t (forward) or (x_b - t) exp(-s) (inverse).
 //   GELU is the tanh form, as jax.nn.gelu and the Pallas kernel compute it.
+//   K2a (the forward compiled with kStoreBound) also stores each row's input
+//   to step k in bound[k] (`bound_ref[0] = x` of the TPU kernel): the (S, B, size)
+//   residual from which the backward recomputes every step. Training rows
+//   have their own conditions, N = B.
 //
 // What bounds it on an H100: operations. At the flagship widths (H = 526,
 // 4 hidden layers, 26 steps) a row costs ~58 MFLOP, almost all in the
 // H x H layers, while the ~120 MB of weights are shared by every row, so any
 // batch past a few thousand rows is compute-bound on float32 FMA (this kernel
 // uses no tensor cores: exact f32 is the "highest" precision contract).
+// K2a's extra store is S*size floats a row (~2 KB), nothing beside that.
 //
 // Design: one block of 256 threads owns BM = 8*TM rows and walks all steps
 // and layers itself, so activations never leave the SM (the TPU kernel's
@@ -37,70 +45,13 @@
 // Hp = 32*TN by the host (exact: padded units stay 0 because gelu(0) = 0).
 // Rows past B in the ragged last tile are computed on zeros and not stored.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "flow_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block may use
+using namespace bcnf;
 
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float k0 = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * x * (1.0f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-}
-
-__device__ __forceinline__ float lane(const float4& v, int q) {
-  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy n contiguous floats (n a multiple of 4, both ends 16-byte aligned).
-__device__ __forceinline__ void load_slab(float* dst, const float* src, int n, int tid) {
-  for (int i = tid * 4; i < n; i += kThreads * 4) cp_async16(dst + i, src + i);
-}
-
-// acc[r][j] += sum_{kk < BK} a[row r][k0 + kk] * ws[kk][col j], where this
-// thread's rows are ty*TM + r and its columns tx + 32*j.
-template <int TM, int TN>
-__device__ __forceinline__ void mac_slab(const float* act, int k0, const float* ws, int BK,
-                                         float (&acc)[TM][TN], int ty, int tx) {
-  constexpr int Hp = 32 * TN;
-#pragma unroll 1
-  for (int kk = 0; kk < BK; kk += 4) {
-    float4 a[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-      a[r] = *reinterpret_cast<const float4*>(act + (ty * TM + r) * Hp + k0 + kk);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float* wrow = ws + (kk + q) * Hp + tx;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float w = wrow[32 * j];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) acc[r][j] = fmaf(lane(a[r], q), w, acc[r][j]);
-      }
-    }
-  }
-}
-
-template <int TM, int TN>
+template <int TM, int TN, bool kStoreBound>
 __global__ void __launch_bounds__(kThreads, 1)
 flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
             const float* __restrict__ an_s, const float* __restrict__ an_b,
@@ -108,8 +59,8 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
             const float* __restrict__ b1, const float* __restrict__ wm,
             const float* __restrict__ bm, const float* __restrict__ wout,
             const float* __restrict__ bout, float* __restrict__ y,
-            float* __restrict__ ld_out, int B, int N, int S, int size, int d_a,
-            int nh, int BK, int inverse) {
+            float* __restrict__ ld_out, float* __restrict__ bound, int B, int N, int S,
+            int size, int d_a, int nh, int BK, int inverse) {
   constexpr int BM = kWarps * TM;
   constexpr int Hp = 32 * TN;
   const int d_b = size - d_a;
@@ -141,6 +92,13 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
     const float* Q = ortho + static_cast<size_t>(k) * size * size;
     const float* sc = an_s + static_cast<size_t>(k) * size;
     const float* bi = an_b + static_cast<size_t>(k) * size;
+
+    if constexpr (kStoreBound) {  // K2a: the step's input rows, before the ActNorm
+      float* bk = bound + (static_cast<size_t>(k) * B + row0) * size;
+      for (int p = tid; p < BM * size; p += kThreads) {
+        if (row0 + p / size < B) bk[p] = xs[p];
+      }
+    }
 
     if (inner) {
       if (!inverse) {  // ActNorm
@@ -198,27 +156,9 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
 
     // ---- hidden layers: a <- gelu(a Wm_l + bm_l)
     for (int l = 0; l < nh; ++l) {
-      const float* W = wm + (static_cast<size_t>(k) * nh + l) * Hp * Hp;
       float acc[TM][TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[r][j] = 0.0f;
-      const int n_slabs = Hp / BK;
-      load_slab(slab, W, BK * Hp, tid);
-      cp_async_commit();
-      for (int s = 0; s < n_slabs; ++s) {
-        if (s + 1 < n_slabs) {
-          load_slab(slab + ((s + 1) & 1) * BK * Hp, W + static_cast<size_t>(s + 1) * BK * Hp, BK * Hp, tid);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        mac_slab<TM, TN>(act, s * BK, slab + (s & 1) * BK * Hp, BK, acc, ty, tx);
-        __syncthreads();
-      }
+      matmul_hidden<TM, TN>(act, wm + (static_cast<size_t>(k) * nh + l) * Hp * Hp, slab, BK, acc, ty,
+                            tx, tid);
       const float* bias = bm + (static_cast<size_t>(k) * nh + l) * Hp + tx;
 #pragma unroll
       for (int r = 0; r < TM; ++r)
@@ -229,30 +169,8 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
     }
 
     // ---- output layer: [t | s'] = a Wout + bout, one column per lane
-    for (int c = tx; c < ((n_out + 31) / 32) * 32; c += 32) {
-      if (c < n_out) {
-        float acc[TM];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) acc[r] = 0.0f;
-        const float* W = wout + static_cast<size_t>(k) * Hp * n_out + c;
-        for (int kk = 0; kk < Hp; kk += 4) {
-          float w[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) w[q] = W[(kk + q) * n_out];
-#pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            const float4 a = *reinterpret_cast<const float4*>(act + (ty * TM + r) * Hp + kk);
-            acc[r] = fmaf(a.x, w[0], acc[r]);
-            acc[r] = fmaf(a.y, w[1], acc[r]);
-            acc[r] = fmaf(a.z, w[2], acc[r]);
-            acc[r] = fmaf(a.w, w[3], acc[r]);
-          }
-        }
-        const float bo = bout[static_cast<size_t>(k) * n_out + c];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) outs[(ty * TM + r) * n_out + c] = acc[r] + bo;
-      }
-    }
+    matmul_narrow<TM, TN>(act, wout + static_cast<size_t>(k) * Hp * n_out, n_out, 1,
+                          bout + static_cast<size_t>(k) * n_out, outs, n_out, ty, tx);
     __syncthreads();
 
     // ---- affine update of x_b (one thread per row)
@@ -301,11 +219,11 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
   if (!inverse && tid < BM && row0 + tid < B) ld_out[row0 + tid] = lds[tid];
 }
 
-template <int TM, int TN>
+template <int TM, int TN, bool kStoreBound>
 cudaError_t launch(const float* x, const float* h_proj, const float* an_s, const float* an_b,
                    const float* ortho, const float* w1y, const float* b1, const float* wm,
                    const float* bm, const float* wout, const float* bout, float* y, float* ld,
-                   int B, int N, int S, int size, int d_a, int nh, int inverse,
+                   float* bound, int B, int N, int S, int size, int d_a, int nh, int inverse,
                    cudaStream_t stream) {
   constexpr int BM = kWarps * TM;
   constexpr int Hp = 32 * TN;
@@ -316,35 +234,32 @@ cudaError_t launch(const float* x, const float* h_proj, const float* an_s, const
   while (BK >= 4 && fixed + sizeof(float) * 2 * BK * Hp > kSmemLimit) BK /= 2;
   if (BK < 4) return cudaErrorInvalidValue;
   const size_t smem = fixed + sizeof(float) * 2 * BK * Hp;
-  cudaError_t err = cudaFuncSetAttribute(flow_kernel<TM, TN>,
+  cudaError_t err = cudaFuncSetAttribute(flow_kernel<TM, TN, kStoreBound>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((B + BM - 1) / BM);
-  flow_kernel<TM, TN><<<grid, kThreads, smem, stream>>>(
-      x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, B, N, S, size, d_a, nh,
-      BK, inverse);
+  flow_kernel<TM, TN, kStoreBound><<<grid, kThreads, smem, stream>>>(
+      x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, bound, B, N, S, size, d_a,
+      nh, BK, inverse);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point, loaded with ctypes. Hp (the padded hidden width) must be
-// 32*TN for a compiled TN; returns the cudaError_t of the launch.
-extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float* an_s,
-                               const float* an_b, const float* ortho, const float* w1y,
-                               const float* b1, const float* wm, const float* bm,
-                               const float* wout, const float* bout, float* y, float* ld,
-                               int B, int N, int S, int size, int d_a, int nh, int Hp,
-                               int inverse, void* stream) {
+cudaError_t dispatch(const float* x, const float* h_proj, const float* an_s, const float* an_b,
+                     const float* ortho, const float* w1y, const float* b1, const float* wm,
+                     const float* bm, const float* wout, const float* bout, float* y, float* ld,
+                     float* bound, int B, int N, int S, int size, int d_a, int nh, int Hp,
+                     int inverse, cudaStream_t st) {
   if (B <= 0 || N <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 || Hp % 32 != 0 ||
       (!inverse && ld == nullptr))
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BCNF_CASE(TM, TN)                                                                   \
-  case TN:                                                                                  \
-    return launch<TM, TN>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, \
-                          B, N, S, size, d_a, nh, inverse, st);
+#define BCNF_CASE(TM, TN)                                                                     \
+  case TN:                                                                                    \
+    return bound != nullptr                                                                   \
+               ? launch<TM, TN, true>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, \
+                                      y, ld, bound, B, N, S, size, d_a, nh, inverse, st)        \
+               : launch<TM, TN, false>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout,      \
+                                       bout, y, ld, nullptr, B, N, S, size, d_a, nh, inverse, st);
   switch (Hp / 32) {
     BCNF_CASE(8, 1)
     BCNF_CASE(8, 2)
@@ -359,6 +274,35 @@ extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float*
       return cudaErrorInvalidValue;
   }
 #undef BCNF_CASE
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes. Hp (the padded hidden width) must be
+// 32*TN for a compiled TN; each returns the cudaError_t of its launch.
+
+// K1: the flow, forward (y = z, ld = logdet) or inverse.
+extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float* an_s,
+                               const float* an_b, const float* ortho, const float* w1y,
+                               const float* b1, const float* wm, const float* bm,
+                               const float* wout, const float* bout, float* y, float* ld,
+                               int B, int N, int S, int size, int d_a, int nh, int Hp,
+                               int inverse, void* stream) {
+  return dispatch(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, nullptr, B, N,
+                  S, size, d_a, nh, Hp, inverse, static_cast<cudaStream_t>(stream));
+}
+
+// K2a: the training forward, rows with their own conditions (h_proj is
+// (S, B, Hp)); also writes every step's input rows to bound (S, B, size).
+extern "C" int bcnf_flow_train_fwd(const float* x, const float* h_proj, const float* an_s,
+                                   const float* an_b, const float* ortho, const float* w1y,
+                                   const float* b1, const float* wm, const float* bm,
+                                   const float* wout, const float* bout, float* z, float* ld,
+                                   float* bound, int B, int S, int size, int d_a, int nh, int Hp,
+                                   void* stream) {
+  if (bound == nullptr) return cudaErrorInvalidValue;
+  return dispatch(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, B, B,
+                  S, size, d_a, nh, Hp, 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* bcnf_cuda_error_string(int err) {

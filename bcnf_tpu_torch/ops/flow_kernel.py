@@ -1,10 +1,18 @@
-"""The whole RealNVP flow in one CUDA kernel: host side.
+"""The whole RealNVP flow in CUDA kernels: host side.
 
-Replaces `bcnf_tpu/ops/flow_kernel.py::fused_flow` (the Pallas TPU kernel
-`_flow_kernel`). The kernel itself is `csrc/flow_kernel.cu`; this module
-stacks and pads its arguments, checks them, launches it on PyTorch's current
-stream, and holds its plain PyTorch version, `fused_flow_reference`, which
-the CPU tests use and `chip_smoke.py` holds the kernel against on the card.
+- K1, `fused_flow`, replaces `bcnf_tpu/ops/flow_kernel.py::fused_flow` (the
+  Pallas TPU kernel `_flow_kernel`), kernel in `csrc/flow_kernel.cu`.
+- K2a/K2b, `fused_flow_train`, replace `fused_flow_train` and its custom VJP
+  (`fwd_call`/`bwd_call` of `_make_fused_flow_train`): a
+  `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`,
+  `csrc/flow_kernel.cu`) and whose backward is K2b (`fused_flow_train_bwd`,
+  `csrc/flow_train_kernel.cu`).
+
+This module stacks and pads the kernels' arguments, checks them, launches
+them on PyTorch's current stream, and holds their plain PyTorch versions
+(`fused_flow_reference`, `fused_flow_train_reference`,
+`fused_flow_train_backward_reference`), which serve CPU tensors (the tests)
+and which `chip_smoke.py` holds the kernels against on the card.
 
 Layout contract (the same as the JAX kernel's): rows are draws-major, row
 ``r`` uses the condition projection ``h_proj[step, r % n_cond]``; step ``K``
@@ -21,7 +29,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from bcnf_tpu_torch.ops.nn import gelu
+from bcnf_tpu_torch.ops.nn import gelu, gelu_grad
 
 # Each thread of the kernel owns `TN` columns of the padded hidden width
 # (32 * TN); these are the widths it is compiled for (`csrc/flow_kernel.cu`).
@@ -153,6 +161,8 @@ def _check_args(x: torch.Tensor, args: dict[str, torch.Tensor], n_cond: int) -> 
             raise ValueError(f"fused_flow: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"fused_flow: {name} must be contiguous")
+    if x.dim() != 2:
+        raise ValueError(f"fused_flow: x must be (rows, size), got {tuple(x.shape)}")
     B, size = x.shape
     S, N, Hp = args["h_proj"].shape
     nh, d_a = args["wm"].shape[1], args["w1y"].shape[1]
@@ -177,6 +187,15 @@ def _check_args(x: torch.Tensor, args: dict[str, torch.Tensor], n_cond: int) -> 
         raise ValueError(f"fused_flow: bad split d_a={d_a} of size={size} or n_cond={n_cond}")
     if B * size >= 2**31:
         raise ValueError(f"fused_flow: {B} rows exceed the kernel's 32-bit row indexing")
+
+
+def _ptrs(*tensors: torch.Tensor) -> list[ctypes.c_void_p]:
+    return [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+
+
+def _raise_on(err: int, lib: Any, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {lib.bcnf_cuda_error_string(err).decode()}")
 
 
 def fused_flow(
@@ -215,21 +234,276 @@ def fused_flow(
     ld = None if inverse else torch.empty((B,), dtype=x.dtype, device=x.device)
     if B == 0:
         return y if inverse else (y, ld)
-    ptr = ctypes.c_void_p
     with torch.cuda.device(x.device):
         err = lib.bcnf_fused_flow(
-            ptr(x.data_ptr()), ptr(h_proj.data_ptr()), ptr(an_scale.data_ptr()),
-            ptr(an_bias.data_ptr()), ptr(ortho.data_ptr()), ptr(w1y.data_ptr()),
-            ptr(b1.data_ptr()), ptr(wm.data_ptr()), ptr(bm.data_ptr()),
-            ptr(wout.data_ptr()), ptr(bout.data_ptr()),
-            ptr(y.data_ptr()), ptr(0 if ld is None else ld.data_ptr()),
+            *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, y),
+            ctypes.c_void_p(0 if ld is None else ld.data_ptr()),
             B, n_cond, S, size, w1y.shape[1], wm.shape[1], Hp, int(inverse),
-            ptr(torch.cuda.current_stream().cuda_stream),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    if err != 0:
-        raise RuntimeError(f"fused_flow kernel launch failed: {lib.bcnf_cuda_error_string(err).decode()}")
+    _raise_on(err, lib, "fused_flow")
     fused_flow.launches += 1
     return y if inverse else (y, ld)
 
 
 fused_flow.launches = 0  # type: ignore[attr-defined]
+
+
+# ---------------------------------------------------------------------------
+# Training: K2a (forward that keeps each step's input rows) and K2b (backward)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's training kernels (`bcnf_tpu/ops/flow_kernel.py:345-706`)
+# store only the (S, B, size) step inputs in the forward; the backward
+# recomputes each step's MLP from them. Training rows carry their own
+# conditions: h_proj is (S, B, Hp), row r uses h_proj[k, r].
+
+
+def _train_step_mlp(k: int, x_a: torch.Tensor, h_proj: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor,
+                    wm: torch.Tensor, bm: torch.Tensor) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Step k's MLP up to its last hidden layer: pre-activations and activations."""
+    acts = [x_a @ w1y[k] + b1[k] + h_proj[k]]
+    hs = [gelu(acts[0])]
+    for i in range(wm.shape[1]):
+        acts.append(hs[-1] @ wm[k, i] + bm[k, i])
+        hs.append(gelu(acts[-1]))
+    return acts, hs
+
+
+def fused_flow_train_reference(
+    x: torch.Tensor,
+    h_proj: torch.Tensor,
+    an_scale: torch.Tensor,
+    an_bias: torch.Tensor,
+    ortho: torch.Tensor,
+    w1y: torch.Tensor,
+    b1: torch.Tensor,
+    wm: torch.Tensor,
+    bm: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2a (`_flow_fwd_train_kernel`,
+    `bcnf_tpu/ops/flow_kernel.py:382-431`): returns `(z, logdet, bound)`,
+    `bound[k]` being the rows' input to step k. Differentiable by autograd."""
+    B, size = x.shape
+    S = h_proj.shape[0]
+    d_a = w1y.shape[1]
+    ld = x.new_zeros((B,))
+    bound = []
+    for k in range(S):
+        inner = k < S - 1
+        bound.append(x)
+        if inner:
+            x = x * an_scale[k] + an_bias[k]
+            ld = ld + torch.sum(torch.log(torch.abs(an_scale[k])))
+        _, hs = _train_step_mlp(k, x[:, :d_a], h_proj, w1y, b1, wm, bm)
+        out = hs[-1] @ wout[k] + bout[k]
+        t, s = out[:, : size - d_a], torch.tanh(out[:, size - d_a:])
+        x = torch.cat([x[:, :d_a], torch.exp(s) * x[:, d_a:] + t], dim=-1)
+        ld = ld + torch.sum(s, dim=-1)
+        if inner:
+            x = x @ ortho[k]
+    return x, ld, torch.stack(bound)
+
+
+def fused_flow_train_backward_reference(
+    bound: torch.Tensor,
+    h_proj: torch.Tensor,
+    dz: torch.Tensor,
+    dld: torch.Tensor,
+    an_scale: torch.Tensor,
+    an_bias: torch.Tensor,
+    ortho: torch.Tensor,
+    w1y: torch.Tensor,
+    b1: torch.Tensor,
+    wm: torch.Tensor,
+    bm: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K2b, output by output as
+    `_flow_bwd_train_kernel` (`bcnf_tpu/ops/flow_kernel.py:434-538`): from the
+    step inputs `bound` and the cotangents `dz`, `dld`, returns
+    `(dx, dh_proj, dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout, dbout)`.
+    The final step's ActNorm grads are zero; the mixes get none."""
+    S, B, size = bound.shape
+    d_a = w1y.shape[1]
+    d_b = size - d_a
+    dhp, dan_s, dan_b = torch.zeros_like(h_proj), torch.zeros_like(an_scale), torch.zeros_like(an_bias)
+    dw1y, db1, dwm, dbm = torch.zeros_like(w1y), torch.zeros_like(b1), torch.zeros_like(wm), torch.zeros_like(bm)
+    dwout, dbout = torch.zeros_like(wout), torch.zeros_like(bout)
+    dld_total = torch.sum(dld)
+    dx = dz
+    for k in range(S - 1, -1, -1):
+        inner = k < S - 1
+        x_k = bound[k]
+        x1 = x_k * an_scale[k] + an_bias[k] if inner else x_k
+        x_a, x1_b = x1[:, :d_a], x1[:, d_a:]
+        acts, hs = _train_step_mlp(k, x_a, h_proj, w1y, b1, wm, bm)
+        out = hs[-1] @ wout[k] + bout[k]
+        s = torch.tanh(out[:, d_b:])
+        es = torch.exp(s)
+
+        dx2 = dx @ ortho[k].T if inner else dx
+        dz_b = dx2[:, d_a:]
+        ds = dz_b * es * x1_b + dld[:, None]
+        dout = torch.cat([dz_b, ds * (1.0 - s * s)], dim=-1)
+        dwout[k] = hs[-1].T @ dout
+        dbout[k] = torch.sum(dout, dim=0)
+        dh = dout @ wout[k].T
+        for i in range(wm.shape[1] - 1, -1, -1):
+            da = gelu_grad(acts[i + 1]) * dh
+            dwm[k, i] = hs[i].T @ da
+            dbm[k, i] = torch.sum(da, dim=0)
+            dh = da @ wm[k, i].T
+        da0 = gelu_grad(acts[0]) * dh
+        dw1y[k] = x_a.T @ da0
+        db1[k] = torch.sum(da0, dim=0)
+        dhp[k] = da0
+        dx1 = torch.cat([dx2[:, :d_a] + da0 @ w1y[k].T, dz_b * es], dim=-1)
+        if inner:
+            dan_s[k] = torch.sum(dx1 * x_k, dim=0) + dld_total / an_scale[k]
+            dan_b[k] = torch.sum(dx1, dim=0)
+            dx = dx1 * an_scale[k]
+        else:
+            dx = dx1
+    return dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout
+
+
+def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tensor]) -> None:
+    if x.dim() != 2 or h_proj.dim() != 3 or h_proj.shape[1] != x.shape[0]:
+        raise ValueError(
+            f"fused_flow_train: rows carry their own conditions, so h_proj must be (S, B, H) for x of "
+            f"(B, size); got x {tuple(x.shape)} and h_proj {tuple(h_proj.shape)}"
+        )
+    if x.device.type == "cuda":
+        _check_args(x, dict(h_proj=h_proj, **args), x.shape[0])
+
+
+def fused_flow_train_fwd(
+    x: torch.Tensor, h_proj: torch.Tensor, an_scale: torch.Tensor, an_bias: torch.Tensor,
+    ortho: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor,
+    wout: torch.Tensor, bout: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2a: `(z, logdet, bound)` in one launch. A CPU tensor takes
+    `fused_flow_train_reference`; a CUDA tensor launches the kernel (or raises)."""
+    args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
+                wout=wout, bout=bout)
+    _check_train_args(x, h_proj, args)
+    if x.device.type == "cpu":
+        return fused_flow_train_reference(x, h_proj, **args)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_flow_train runs on CPU or CUDA tensors, not {x.device}")
+
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library("flow_kernel")
+    B, size = x.shape
+    S, _, Hp = h_proj.shape
+    z = torch.empty_like(x)
+    ld = torch.empty((B,), dtype=x.dtype, device=x.device)
+    bound = torch.empty((S, B, size), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return z, ld, bound
+    with torch.cuda.device(x.device):
+        err = lib.bcnf_flow_train_fwd(
+            *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
+            B, S, size, w1y.shape[1], wm.shape[1], Hp,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _raise_on(err, lib, "fused_flow_train_fwd")
+    fused_flow_train_fwd.launches += 1
+    return z, ld, bound
+
+
+fused_flow_train_fwd.launches = 0  # type: ignore[attr-defined]
+
+
+def fused_flow_train_bwd(
+    bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
+    an_scale: torch.Tensor, an_bias: torch.Tensor, ortho: torch.Tensor, w1y: torch.Tensor,
+    b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor, wout: torch.Tensor, bout: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """K2b: every grad of K2a's outputs, in one call of the kernel's entry
+    point (which enqueues a few launches per step, `csrc/flow_train_kernel.cu`).
+    Returns `(dx, dh_proj, dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout,
+    dbout)`. A CPU tensor takes `fused_flow_train_backward_reference`; a CUDA
+    tensor launches the kernel (or raises)."""
+    args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
+                wout=wout, bout=bout)
+    _check_train_args(dz, h_proj, args)
+    S, B, size = bound.shape
+    if tuple(bound.shape) != (h_proj.shape[0], *dz.shape) or tuple(dld.shape) != (dz.shape[0],):
+        raise ValueError(f"fused_flow_train_bwd: bound {tuple(bound.shape)}, dz {tuple(dz.shape)} and "
+                         f"dld {tuple(dld.shape)} do not match h_proj {tuple(h_proj.shape)}")
+    if dz.device.type == "cpu":
+        return fused_flow_train_backward_reference(bound, h_proj, dz, dld, **args)
+    if dz.device.type != "cuda":
+        raise ValueError(f"fused_flow_train runs on CPU or CUDA tensors, not {dz.device}")
+    for name, t in (("bound", bound), ("dld", dld)):
+        if t.dtype != torch.float32 or t.device != dz.device or not t.is_contiguous():
+            raise ValueError(f"fused_flow_train_bwd: {name} must be contiguous float32 on {dz.device}")
+
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library("flow_train_kernel")
+    Hp = h_proj.shape[-1]
+    d_a, nh = w1y.shape[1], wm.shape[1]
+    grads = (torch.empty_like(dz), torch.empty_like(h_proj), torch.empty_like(an_scale),
+             torch.empty_like(an_bias), torch.empty_like(w1y), torch.empty_like(b1), torch.empty_like(wm),
+             torch.empty_like(bm), torch.empty_like(wout), torch.empty_like(bout))
+    if B == 0:
+        return tuple(g.zero_() for g in grads)
+    scratch = torch.empty((lib.bcnf_flow_train_bwd_scratch(B, S, size, d_a, nh, Hp),),
+                          dtype=torch.float32, device=dz.device)
+    with torch.cuda.device(dz.device):
+        err = lib.bcnf_flow_train_bwd(
+            *_ptrs(bound, h_proj, dz, dld, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout,
+                   *grads, scratch),
+            B, S, size, d_a, nh, Hp, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _raise_on(err, lib, "fused_flow_train_bwd")
+    fused_flow_train_bwd.launches += 1
+    return grads
+
+
+fused_flow_train_bwd.launches = 0  # type: ignore[attr-defined]
+
+
+class _FusedFlowTrain(torch.autograd.Function):
+    """K2a forward, K2b backward: the custom VJP of the JAX package
+    (`bcnf_tpu/ops/flow_kernel.py:653-672`). The mixes get zero grads."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, h_proj: torch.Tensor, *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args)
+        ctx.save_for_backward(bound, h_proj, *args)
+        return z, ld
+
+    @staticmethod
+    def backward(ctx: Any, dz: torch.Tensor, dld: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        bound, h_proj, *args = ctx.saved_tensors  # an unused output's cotangent arrives as zeros
+        dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout = fused_flow_train_bwd(
+            bound, h_proj, dz.contiguous(), dld.contiguous(), *args)
+        return dx, dhp, dan_s, dan_b, torch.zeros_like(args[2]), dw1y, db1, dwm, dbm, dwout, dbout
+
+
+def fused_flow_train(
+    x: torch.Tensor,
+    h_proj: torch.Tensor,
+    an_scale: torch.Tensor,
+    an_bias: torch.Tensor,
+    ortho: torch.Tensor,
+    w1y: torch.Tensor,
+    b1: torch.Tensor,
+    wm: torch.Tensor,
+    bm: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable `(z, logdet)` of the whole flow for training
+    (`bcnf_tpu/ops/flow_kernel.py::fused_flow_train`): K2a forward, K2b
+    backward. Arguments as `stack_flow_params`/`pad_hidden` give them, with
+    one condition row per row of `x` (h_proj is (S, B, Hp)); raises otherwise."""
+    return _FusedFlowTrain.apply(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)

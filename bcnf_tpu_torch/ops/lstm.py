@@ -29,12 +29,14 @@ def lstm_cell_init(generator: torch.Generator, input_size: int, hidden_size: int
 def _direction(params: Params, x: torch.Tensor, hidden_size: int, reverse: bool) -> torch.Tensor:
     """Run one direction over `(B, T, F)`; returns `(B, T, H)`."""
     B, T = x.shape[0], x.shape[1]
-    x_proj = x @ params["w_ih"] + params["b_ih"] + params["b_hh"]  # (B, T, 4H)
+    # the steps' slices are taken at once: indexing `x_proj[:, t]` would make
+    # autograd add a zero-filled (B, T, 4H) grad per step in the backward
+    x_steps = (x @ params["w_ih"] + params["b_ih"] + params["b_hh"]).unbind(1)  # T x (B, 4H)
     h = x.new_zeros((B, hidden_size))
     c = x.new_zeros((B, hidden_size))
     hs: list[torch.Tensor] = [h] * T
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = x_proj[:, t] + h @ params["w_hh"]
+        gates = x_steps[t] + h @ params["w_hh"]
         i, f, g, o = torch.chunk(gates, 4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)

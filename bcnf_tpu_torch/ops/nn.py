@@ -24,6 +24,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d gelu / dx of the tanh form, as `jax.vjp(jax.nn.gelu)` gives it in the
+    training kernel's backward (`bcnf_tpu/ops/flow_kernel.py:515`):
+    0.5 (1 + tanh u) + 0.5 x (1 - tanh^2 u) sqrt(2/pi) (1 + 3 * 0.044715 x^2)."""
+    k0 = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(k0 * (x + 0.044715 * x**3))
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * k0 * (1.0 + 3.0 * 0.044715 * x * x)
+
+
 ACTIVATIONS: dict[str, Callable[..., torch.Tensor]] = {
     "GELU": gelu,
     "RELU": F.relu,

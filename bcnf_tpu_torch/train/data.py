@@ -1,14 +1,18 @@
-"""Training-data assembly, load path only (port of `bcnf_tpu/train/data.py:29-99`).
+"""Training-data assembly: load, split, device batches (port of `bcnf_tpu/train/data.py`).
 
 `TrainerDataHandler.get_data_for_training` loads a dataset pickle (or a
 directory of shards) and assembles the condition tensors and the theta
 matrix. Generating missing data needs the simulator, which is not ported
-yet; the seeded split and device batching belong to the training slice.
+yet: a missing dataset raises. `split_dataset` is the JAX package's seeded
+shuffled split, index for index. `DeviceDataset` holds the dataset in device
+memory and gathers batches there, as the JAX package's does; training never
+copies a batch from the host.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -73,3 +77,68 @@ class TrainerDataHandler:
         if verbose:
             print(f"Conditions: {[c.shape for c in conditions]}; Parameters: {y.shape}")
         return y, conditions
+
+    @staticmethod
+    def split_dataset(
+        y: np.ndarray,
+        conditions: Sequence[np.ndarray],
+        split_ratio: float,
+        seed: int = 0,
+    ) -> tuple[tuple, tuple]:
+        """Seeded shuffled train/val split (`bcnf_tpu/train/data.py:101-116`,
+        the SURVEY.md Q2 fix): numpy's generator, so the same indices."""
+        n = len(y)
+        perm = np.random.default_rng(seed).permutation(n)
+        n_val = int(round(split_ratio * n))
+        val_idx, train_idx = perm[:n_val], perm[n_val:]
+        train = (y[train_idx], [c[train_idx] for c in conditions])
+        val = (y[val_idx], [c[val_idx] for c in conditions])
+        return train, val
+
+
+class DeviceDataset:
+    """A dataset held in device memory with batches gathered on the device
+    (`bcnf_tpu/train/data.py:119-173`)."""
+
+    def __init__(self, y: np.ndarray, conditions: Sequence[np.ndarray], device: torch.device) -> None:
+        self.y = torch.from_numpy(np.ascontiguousarray(y)).to(device)
+        self.conditions = [torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in conditions]
+        self.n = len(y)
+
+    def _take(self, idx: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        return self.y.index_select(0, idx), [c.index_select(0, idx) for c in self.conditions]
+
+    def batches(
+        self,
+        batch_size: int,
+        generator: torch.Generator | None = None,
+        drop_remainder: bool = False,
+    ) -> Iterator[tuple[torch.Tensor, list[torch.Tensor]]]:
+        """Yield `(y, conditions)` batches, shuffled by `torch.randperm` from
+        `generator` when one is given (drawn on the generator's device)."""
+        if generator is not None:
+            perm = torch.randperm(self.n, generator=generator, device=generator.device).to(self.y.device)
+        else:
+            perm = torch.arange(self.n, device=self.y.device)
+        n_full = self.n // batch_size
+        for i in range(n_full):
+            yield self._take(perm[i * batch_size:(i + 1) * batch_size])
+        if self.n > n_full * batch_size and not drop_remainder:
+            yield self._take(perm[n_full * batch_size:])
+
+    def batches_padded(self, batch_size: int) -> Iterator[tuple[torch.Tensor, list[torch.Tensor], torch.Tensor]]:
+        """Yield `(y, conditions, weights)`, every batch `batch_size` rows:
+        pad rows wrap around to the start of the dataset and weigh 0, so
+        weighted means give exact metrics."""
+        n_total = ((self.n + batch_size - 1) // batch_size) * batch_size
+        pos = torch.arange(n_total, device=self.y.device)
+        idx_all, w_all = pos % self.n, (pos < self.n).to(torch.float32)
+        for i in range(n_total // batch_size):
+            sl = slice(i * batch_size, (i + 1) * batch_size)
+            y, conditions = self._take(idx_all[sl])
+            yield y, conditions, w_all[sl]
+
+    def n_batches(self, batch_size: int, drop_remainder: bool = False) -> int:
+        if drop_remainder:
+            return self.n // batch_size
+        return (self.n + batch_size - 1) // batch_size

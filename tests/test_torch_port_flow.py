@@ -185,6 +185,7 @@ def test_kernel_gate():
     assert not CondRealNVP(nested_sizes=NESTED, **kw)._use_fused(False, x)  # a CPU tensor
     assert not CondRealNVP(nested_sizes=[24, 32], **kw)._use_fused(False, x)
     assert not CondRealNVP(nested_sizes=NESTED, activation="ReLU", **kw).coupling.fusable
-    for bad in (dict(two_way=True), dict(coupling="rqs"), dict(hybrid=True), dict(precision="default")):
+    assert CondRealNVP(nested_sizes=NESTED, hybrid=True, **kw).hybrid  # the hybrid head is ported
+    for bad in (dict(two_way=True), dict(coupling="rqs"), dict(precision="default")):
         with pytest.raises(NotImplementedError):
             CondRealNVP(nested_sizes=NESTED, **{**kw, **bad})
