@@ -51,9 +51,9 @@ def main(argv: list[str] | None = None) -> None:
     # the JAX package's flags for paths the port has not reached yet: each raises
     train_parser.add_argument("--pretrained-features", type=str, default=None,
                               help="Not ported yet (ROADMAP.md, slice 10)")
-    train_parser.add_argument("--online", action="store_true", help="Not ported yet (ROADMAP.md, slice 5)")
-    train_parser.add_argument("--online-steps", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 5)")
-    train_parser.add_argument("--online-lr-decay", action="store_true", help="Not ported yet (ROADMAP.md, slice 5)")
+    train_parser.add_argument("--online", action="store_true", help="Not ported yet (ROADMAP.md, slice 6)")
+    train_parser.add_argument("--online-steps", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 6)")
+    train_parser.add_argument("--online-lr-decay", action="store_true", help="Not ported yet (ROADMAP.md, slice 6)")
     train_parser.add_argument("--dp-devices", type=int, default=0, help="Not ported yet above 1 (ROADMAP.md, slice 11)")
     train_parser.add_argument("--coordinator", type=str, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
     train_parser.add_argument("--num-processes", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
@@ -86,7 +86,7 @@ def main(argv: list[str] | None = None) -> None:
 def _cmd_train(args: argparse.Namespace) -> None:
     """`bcnf_tpu/__main__.py:153-299` for one device."""
     not_ported = {
-        "--online": (args.online or args.online_steps is not None or args.online_lr_decay, 5),
+        "--online": (args.online or args.online_steps is not None or args.online_lr_decay, 6),
         "--dp-devices > 1": (args.dp_devices > 1, 11),
         "--pretrained-features": (args.pretrained_features is not None, 10),
         "--coordinator/--num-processes/--process-id": (

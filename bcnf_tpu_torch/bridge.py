@@ -5,8 +5,10 @@ A `bcnf_tpu` parameter tree (`jax.device_get(model.init(...))`, or the
 arrays. The port keeps the same keys and layouts, e.g.
 ``features.nets[i].lstm.layers[l].{fwd,bwd}.{w_ih,w_hh,b_ih,b_hh}``,
 ``blocks.{coupling.a.layers[j].{w,b}, ortho, actnorm.{scale,bias}}`` and
-``final.a.layers[j]``, so the bridge is a plain copy each way and
-`params_to_numpy(params_from_numpy(t))` gives `t` back exactly.
+``final.a.layers[j]``; a `DualDomainLSTM`'s ``{time, freq, fc}`` (two LSTM
+trees and ``fc.layers[j]``) and a `VerboseLSTM`'s ``layers[i]`` (one
+single-layer LSTM tree each) likewise. So the bridge is a plain copy each way
+and `params_to_numpy(params_from_numpy(t))` gives `t` back exactly.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """String -> feature-network registry driven by the YAML config schema
 (port of `bcnf_tpu/factories.py`, reference `src/bcnf/factories.py:33-58`).
 
-Only the serving slice's types are ported; the other names the JAX registry
-knows raise `NotImplementedError` until their slice lands (ROADMAP.md).
+Ported types: `ConcatenateCondition`, `LSTM`, `FullyConnected`,
+`VerboseLSTM` and `DualDomainLSTM`. The other names the JAX registry knows
+(`CNN`, `Transformer`, `FrExpFeatureNetwork`, `DualDomainTransformer`,
+`DualDomainFC` and the layer types) raise `NotImplementedError` until their
+slice lands (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,16 +14,22 @@ from typing import Any
 
 from bcnf_tpu_torch.models.feature_network import (
     ConcatenateCondition,
+    DualDomainLSTM,
     FeatureNetwork,
+    FullyConnectedFeatureNetwork,
     Identity,
     LSTMFeatureNetwork,
+    VerboseLSTM,
 )
 
 
 class FeatureNetworkFactory:
-    REGISTRY: dict[str, type] = {
+    REGISTRY: dict[str, type] = {  # the JAX registry's names (`bcnf_tpu/factories.py:34-49`)
+        "FullyConnected": FullyConnectedFeatureNetwork,
         "LSTM": LSTMFeatureNetwork,
         "ConcatenateCondition": ConcatenateCondition,
+        "DualDomainLSTM": DualDomainLSTM,
+        "VerboseLSTM": VerboseLSTM,
     }
 
     @staticmethod

@@ -9,10 +9,13 @@ from bcnf_tpu_torch.models.cnf import (
 )
 from bcnf_tpu_torch.models.feature_network import (
     ConcatenateCondition,
+    DualDomainLSTM,
     FeatureNetwork,
     FeatureNetworkStack,
+    FullyConnectedFeatureNetwork,
     Identity,
     LSTMFeatureNetwork,
+    VerboseLSTM,
 )
 
 __all__ = [
@@ -21,11 +24,14 @@ __all__ = [
     "CondRealNVP",
     "CondRealNVP_v2",
     "ConcatenateCondition",
+    "DualDomainLSTM",
     "FeatureNetwork",
     "FeatureNetworkStack",
+    "FullyConnectedFeatureNetwork",
     "Identity",
     "LSTMFeatureNetwork",
     "NestedMLP",
     "count_params",
     "orthonormal_init",
+    "VerboseLSTM",
 ]

@@ -19,10 +19,15 @@ The same design as the JAX package, in PyTorch idiom:
   gate as `_use_fused_train`. Where a gate is closed for a structural reason
   (dropout in training, a small batch, a CPU tensor), the plain composition
   below runs: the counterpart of the JAX XLA path.
+- **The per-coupling kernel.** A model with `use_pallas_coupling = True`
+  (off by default, as in JAX) runs `inverse_given_h` and the no-grad
+  `forward` as the per-block loop with K4 (`ops/coupling_kernel.py`) in
+  every coupling, in place of K1; `sample(outer=True)` keeps K1, as JAX's
+  `sample` does.
 
-Ported so far: one-way affine couplings with the `Linear` layer family, and
-the hybrid MSE head. `two_way` and `rqs` raise `NotImplementedError`
-(ROADMAP.md).
+Ported so far: one-way affine couplings with the `Linear` layer family
+(through K1, K2a/K2b or K4 where their gates open), and the hybrid MSE
+head. `two_way` and `rqs` raise `NotImplementedError` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -176,6 +181,34 @@ class AffineCoupling:
         and GELU (the kernel hardcodes tanh-GELU)."""
         return self.nn_a.family.name == "Linear" and self.nn_a.activation_name.upper() == "GELU"
 
+    def _fused_rows(self, y: torch.Tensor, h_proj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """`y (..., N, size)` as K4's contiguous row halves; flattened row r
+        is conditioned on `h_proj[r % N]`, which is how the rows broadcast
+        against the (N, hidden) projections."""
+        N = h_proj.shape[0]
+        if N != 1 and (y.dim() < 2 or y.shape[-2] != N):
+            raise ValueError(f"rows of shape {tuple(y.shape)} do not broadcast against {N} conditions")
+        rows = y.reshape(-1, self.input_size)
+        return rows[:, : self.d_a].contiguous(), rows[:, self.d_a:].contiguous()
+
+    def forward_fused(self, params: Params, y: torch.Tensor, h_proj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The coupling through K4 (`bcnf_tpu/models/cnf.py:320-328`; eval
+        only: the kernel has no dropout)."""
+        from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling, mlp_params_to_kernel_args
+
+        x_a, x_b = self._fused_rows(y, h_proj)
+        z_b, ld = fused_affine_coupling(x_a, x_b, h_proj, **mlp_params_to_kernel_args(params["a"], self.d_a))
+        return torch.cat([y[..., : self.d_a], z_b.reshape(y.shape[:-1] + (self.d_b,))], dim=-1), ld.reshape(y.shape[:-1])
+
+    def inverse_fused(self, params: Params, z: torch.Tensor, h_proj: torch.Tensor) -> torch.Tensor:
+        """The coupling's inverse through K4 (`bcnf_tpu/models/cnf.py:330-337`)."""
+        from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling, mlp_params_to_kernel_args
+
+        z_a, z_b = self._fused_rows(z, h_proj)
+        y_b = fused_affine_coupling(z_a, z_b, h_proj, **mlp_params_to_kernel_args(params["a"], self.d_a),
+                                    inverse=True)
+        return torch.cat([z[..., : self.d_a], y_b.reshape(z.shape[:-1] + (self.d_b,))], dim=-1)
+
 
 class ActNorm:
     """Learnable elementwise affine (reference `src/bcnf/models/cnf.py:342-354`);
@@ -264,6 +297,8 @@ class CondRealNVP:
         self.precision = precision
         self.use_pallas = use_pallas
         self.pallas_strict = pallas_strict
+        # the per-coupling kernel K4: opt-in, as in the JAX package (`cnf.py:555-558`)
+        self.use_pallas_coupling = False
         self.coupling = AffineCoupling(
             input_size=size, nested_sizes=nested_sizes, n_conditions=n_conditions,
             layer=layer, layer_kwargs=layer_kwargs, activation=activation,
@@ -419,6 +454,10 @@ class CondRealNVP:
             and not _grad_required(x, *trees)
         )
 
+    def _use_fused_coupling(self, train: bool, x: torch.Tensor, *trees: Any) -> bool:
+        """Per-coupling kernel gate (`bcnf_tpu/models/cnf.py:762-764`)."""
+        return self.use_pallas_coupling and self._use_fused(train, x, *trees)
+
     # Minimum batch for the training kernels (`bcnf_tpu/models/cnf.py:998`,
     # overridable per model or by the BCNF_FUSED_TRAIN_MIN_BATCH variable).
     fused_train_min_batch: int = 256
@@ -497,12 +536,18 @@ class CondRealNVP:
     ) -> tuple[torch.Tensor, ...]:
         """theta -> z with log|det J| (reference `cnf.py:467-493`)."""
         h = self.encode(params, conditions, generator, train) if self.features is not None else None
-        if h is not None and self._use_fused(train, y, h, params):
+        fused = h is not None and self._use_fused_coupling(train, y, h, params)
+        if h is not None and not fused and self._use_fused(train, y, h, params):
             z, log_det = self._fused(params, y, h, inverse=False)
             return (z, log_det, h) if return_features else (z, log_det)
-        if h is not None and self._use_fused_train(train, y):
+        if h is not None and not fused and self._use_fused_train(train, y):
             z, log_det = self.forward_fused_flow(params, y, h)
             return (z, log_det, h) if return_features else (z, log_det)
+
+        def couple(p: Params, x: torch.Tensor, proj: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+            if fused:
+                return self.coupling.forward_fused(p, x, proj)
+            return self.coupling.forward(p, x, h, proj, generator, train)
 
         log_det = y.new_zeros(y.shape[:-1])
         if "blocks" in params:
@@ -512,12 +557,12 @@ class CondRealNVP:
                 if self.actnorm is not None:
                     y, ld_an = self.actnorm.forward(blk["actnorm"], y)
                     log_det = log_det + ld_an
-                y, ld_c = self.coupling.forward(blk["coupling"], y, h, proj, generator, train)
+                y, ld_c = couple(blk["coupling"], y, proj)
                 log_det = log_det + ld_c
                 # fixed (non-trainable) mixing matrix, reference `cnf.py:323-324`
                 y = y @ blk["ortho"].detach()
         final_proj = self.coupling.cond_proj(params["final"], h) if h is not None else None
-        y, ld_f = self.coupling.forward(params["final"], y, h, final_proj, generator, train)
+        y, ld_f = couple(params["final"], y, final_proj)
         log_det = log_det + ld_f
         return (y, log_det, h) if return_features else (y, log_det)
 
@@ -530,18 +575,26 @@ class CondRealNVP:
     def inverse_given_h(self, params: Params, z: torch.Tensor, h: torch.Tensor | None,
                         generator: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
         """Inverse with a pre-encoded condition vector: encode conditions once
-        and reuse them across many z draws (posterior sampling)."""
-        if h is not None and self._use_fused(train, z, h, params):
+        and reuse them across many z draws (posterior sampling). With
+        `use_pallas_coupling` (and its gate open) every coupling runs through
+        K4; else, with the whole-flow gate open, one launch of K1."""
+        fused = h is not None and self._use_fused_coupling(train, z, h, params)
+        if h is not None and not fused and self._use_fused(train, z, h, params):
             return self._fused(params, z, h, inverse=True)
 
+        def uncouple(p: Params, x: torch.Tensor, proj: torch.Tensor | None) -> torch.Tensor:
+            if fused:
+                return self.coupling.inverse_fused(p, x, proj)
+            return self.coupling.inverse(p, x, h, proj, generator, train)
+
         final_proj = self.coupling.cond_proj(params["final"], h) if h is not None else None
-        z = self.coupling.inverse(params["final"], z, h, final_proj, generator, train)
+        z = uncouple(params["final"], z, final_proj)
         if "blocks" in params:
             projs = self.coupling.cond_proj(params["blocks"]["coupling"], h) if h is not None else None
             for i in range(self.n_blocks - 2, -1, -1):
                 blk, proj = self._block(params, projs, i)
                 z = z @ blk["ortho"].detach().T
-                z = self.coupling.inverse(blk["coupling"], z, h, proj, generator, train)
+                z = uncouple(blk["coupling"], z, proj)
                 if self.actnorm is not None:
                     z = self.actnorm.inverse(blk["actnorm"], z)
         return z
@@ -577,6 +630,8 @@ class CondRealNVP:
         `outer=True` broadcast semantics (reference `cnf.py:540-588`).
         Conditions are encoded once. z is drawn from `generator` on its own
         device and moved, so one seed gives the same z on every device.
+        With `outer` and the whole-flow gate open the inverse is one launch
+        of K1, with or without `use_pallas_coupling` (`bcnf_tpu/models/cnf.py:945-948`).
         """
         dev = resolve_device(device)
         conditions = tuple((c[None] if c.dim() == 1 else c).to(dev) for c in conditions)
@@ -584,6 +639,8 @@ class CondRealNVP:
         N = conditions[0].shape[0] if conditions else 1
         shape = (n_samples, N, self.size) if outer else (n_samples, self.size)
         z = sigma * torch.randn(shape, generator=generator, device=generator.device).to(dev)
+        if outer and h is not None and self._use_fused(False, z, h, params):
+            return self._fused(params, z, h, inverse=True)
         return self.inverse_given_h(params, z, h)
 
 

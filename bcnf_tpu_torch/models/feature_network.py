@@ -6,7 +6,9 @@ consumes one raw condition per `ConcatenateCondition` marker, as the
 reference does (`feature_network.py:46-69`).
 
 `LSTMFeatureNetwork` pools over the **time** axis: the SURVEY.md Q1 fix the
-JAX package carries (`bcnf_tpu/models/feature_network.py:188-229`).
+JAX package carries (`bcnf_tpu/models/feature_network.py:188-229`). Every
+LSTM here runs through `ops/lstm.lstm_apply`, so ``BCNF_FUSED_LSTM=1`` puts
+each of their directions on the fused recurrence kernels.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Any, Sequence
 import torch
 
 from bcnf_tpu_torch.ops.lstm import lstm_apply, lstm_init
-from bcnf_tpu_torch.ops.nn import Params, linear_apply, linear_init
+from bcnf_tpu_torch.ops.nn import Params, dropout, get_activation, linear_apply, linear_init
 
 
 class FeatureNetwork:
@@ -90,6 +92,45 @@ class FeatureNetworkStack(FeatureNetwork):
         return current
 
 
+class FullyConnectedFeatureNetwork(FeatureNetwork):
+    """MLP over the flattened input (reference `feature_network.py:114-145`;
+    `bcnf_tpu/models/feature_network.py:135-185`). ``flatten=False`` applies
+    it over the last axis only (per frame), the JAX package's form of the
+    reference's legacy two-stage schema."""
+
+    def __init__(
+        self,
+        sizes: Sequence[int],
+        activation: str = "GELU",
+        dropout: float = 0.0,
+        batch_norm: bool = False,
+        flatten: bool = True,
+    ) -> None:
+        if batch_norm:
+            raise NotImplementedError("batch_norm is unused by all reference run configs and is not supported")
+        self.sizes = list(sizes)
+        self.input_size = self.sizes[0]
+        self.output_size = self.sizes[-1]
+        self.act = get_activation(activation if isinstance(activation, str) else "GELU")
+        self.dropout_rate = dropout
+        self.flatten = flatten
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {"layers": [linear_init(generator, self.sizes[i], self.sizes[i + 1])
+                           for i in range(len(self.sizes) - 1)]}
+
+    def apply(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        if self.flatten:
+            x = x.reshape(x.shape[0], -1)  # reference `:144`
+        layers = params["layers"]
+        if not layers:
+            return x
+        for p in layers[:-1]:
+            x = dropout(generator, self.act(linear_apply(p, x)), self.dropout_rate, train)
+        return linear_apply(layers[-1], x)
+
+
 class LSTMFeatureNetwork(FeatureNetwork):
     """LSTM encoder with linear head + time pooling (reference `feature_network.py:148-178`)."""
 
@@ -127,3 +168,92 @@ class LSTMFeatureNetwork(FeatureNetwork):
         if self.pooling == "mean":
             return h.mean(dim=1)
         return h.amax(dim=1)
+
+
+class VerboseLSTM(FeatureNetwork):
+    """Per-layer LSTM stack that also exposes every layer's hidden states
+    (reference `feature_network.py:310-348`; `bcnf_tpu/models/feature_network.py:285-336`):
+    `num_layers` single-layer LSTMs with dropout between them. ``apply``
+    returns the last layer's sequence, ``apply_verbose`` the pair ``(x, h)``,
+    ``h`` of shape ``(B, num_layers, T, H*dirs)``."""
+
+    def __init__(
+        self,
+        input_size: int,
+        hidden_size: int,
+        num_layers: int,
+        dropout: float = 0.0,
+        bidirectional: bool = False,
+    ) -> None:
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout_rate = dropout
+        self.bidirectional = bidirectional
+        self.output_size = hidden_size * (2 if bidirectional else 1)
+
+    def init(self, generator: torch.Generator) -> Params:
+        in_sizes = [self.input_size] + [self.output_size] * (self.num_layers - 1)
+        return {"layers": [lstm_init(generator, n, self.hidden_size, 1, self.bidirectional) for n in in_sizes]}
+
+    def apply_verbose(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+                      train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        hs = []
+        for i, layer in enumerate(params["layers"]):
+            x = lstm_apply(layer, x, self.hidden_size)
+            hs.append(x)
+            if i < self.num_layers - 1:
+                x = dropout(generator, x, self.dropout_rate, train)
+        return x, torch.stack(hs, dim=1)  # reference `:347`
+
+    def apply(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        return self.apply_verbose(params, x, generator, train)[0]
+
+
+class DualDomainLSTM(FeatureNetwork):
+    """A time LSTM and an LSTM over the rfft of the input along time
+    (``[real, imag]`` features), each pooled over its steps, fused by an MLP
+    (reference `feature_network.py:350-398`; `bcnf_tpu/models/feature_network.py:339-394`)."""
+
+    def __init__(
+        self,
+        input_size: int,
+        hidden_size: int,
+        fc_sizes: Sequence[int],
+        fc_dropout: float = 0.0,
+        num_layers: int = 1,
+        dropout: float = 0.0,
+        bidirectional: bool = False,
+        pooling: str = "mean",
+    ) -> None:
+        if pooling not in ("mean", "max"):
+            raise ValueError(f"Invalid pooling method: {pooling}")
+        self.input_size = input_size
+        self.output_size = list(fc_sizes)[-1]
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout_rate = dropout
+        self.bidirectional = bidirectional
+        self.pooling = pooling
+        dirs = 2 if bidirectional else 1
+        self.fc = FullyConnectedFeatureNetwork(sizes=[hidden_size * dirs * 2] + list(fc_sizes), dropout=fc_dropout)
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {
+            "time": lstm_init(generator, self.input_size, self.hidden_size, self.num_layers, self.bidirectional),
+            "freq": lstm_init(generator, self.input_size * 2, self.hidden_size, self.num_layers, self.bidirectional),
+            "fc": self.fc.init(generator),
+        }
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=1) if self.pooling == "mean" else x.amax(dim=1)
+
+    def apply(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        h_time = lstm_apply(params["time"], x, self.hidden_size, self.dropout_rate, generator, train)
+        f = torch.fft.rfft(x, dim=1)  # over time (reference `:383`)
+        h_freq = lstm_apply(params["freq"], torch.cat([f.real, f.imag], dim=-1), self.hidden_size,
+                            self.dropout_rate, generator, train)
+        fused = torch.cat([self._pool(h_time), self._pool(h_freq)], dim=-1)
+        return self.fc.apply(params["fc"], fused, generator, train)

@@ -23,6 +23,8 @@ _CSRC = _PKG / "ops" / "csrc"
 SOURCES = {
     "flow_kernel": _CSRC / "flow_kernel.cu",  # K1 and the training forward K2a
     "flow_train_kernel": _CSRC / "flow_train_kernel.cu",  # the training backward K2b
+    "lstm_kernel": _CSRC / "lstm_kernel.cu",  # the LSTM recurrence K3a and its backward K3b
+    "coupling_kernel": _CSRC / "coupling_kernel.cu",  # the per-coupling kernel K4
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
@@ -103,6 +105,16 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
         lib.bcnf_flow_train_bwd.restype = i32
         lib.bcnf_flow_train_bwd_scratch.argtypes = [i32] * 6
         lib.bcnf_flow_train_bwd_scratch.restype = ctypes.c_longlong
+    elif name == "lstm_kernel":
+        lib.bcnf_lstm_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.bcnf_lstm_fwd.restype = i32
+        lib.bcnf_lstm_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+        lib.bcnf_lstm_bwd.restype = i32
+        lib.bcnf_lstm_bwd_scratch.argtypes = [i32] * 3
+        lib.bcnf_lstm_bwd_scratch.restype = ctypes.c_longlong
+    elif name == "coupling_kernel":
+        lib.bcnf_coupling.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+        lib.bcnf_coupling.restype = i32
     lib.bcnf_cuda_error_string.argtypes = [i32]
     lib.bcnf_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

@@ -1,5 +1,6 @@
-// Device helpers shared by the whole-flow kernels (flow_kernel.cu: K1 and
-// the training forward K2a; flow_train_kernel.cu: the training backward K2b).
+// Device helpers shared by the hand-written kernels (flow_kernel.cu: K1 and
+// the training forward K2a; flow_train_kernel.cu: the training backward K2b;
+// coupling_kernel.cu: K4; lstm_kernel.cu: K3a/K3b).
 //
 // Layout conventions: 256 threads = 8 warps; a thread (ty = warp, tx = lane)
 // owns rows ty*TM + r (r < TM) and hidden columns tx + 32*j (j < TN) of a
@@ -56,11 +57,14 @@ __device__ __forceinline__ void load_slab(float* dst, const float* src, int n, i
 }
 
 // acc[r][j] += sum_{kk < BK} a[row r][k0 + kk] * ws[kk][col j], where this
-// thread's rows are ty*TM + r and its columns tx + 32*j.
-template <int TM, int TN>
+// thread's rows are ty*TM + r and its columns tx + 32*j. The activation tile
+// is 32*TN wide, the weight slab 32*TNO (TNO = TN for the square hidden
+// layers; the LSTM's gate products are 4x wide one way or the other).
+template <int TM, int TN, int TNO = TN>
 __device__ __forceinline__ void mac_slab(const float* act, int k0, const float* ws, int BK,
-                                         float (&acc)[TM][TN], int ty, int tx) {
+                                         float (&acc)[TM][TNO], int ty, int tx) {
   constexpr int Hp = 32 * TN;
+  constexpr int No = 32 * TNO;
 #pragma unroll 1
   for (int kk = 0; kk < BK; kk += 4) {
     float4 a[TM];
@@ -69,9 +73,9 @@ __device__ __forceinline__ void mac_slab(const float* act, int k0, const float* 
       a[r] = *reinterpret_cast<const float4*>(act + (ty * TM + r) * Hp + k0 + kk);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float* wrow = ws + (kk + q) * Hp + tx;
+      const float* wrow = ws + (kk + q) * No + tx;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
+      for (int j = 0; j < TNO; ++j) {
         const float w = wrow[32 * j];
 #pragma unroll
         for (int r = 0; r < TM; ++r) acc[r][j] = fmaf(lane(a[r], q), w, acc[r][j]);
@@ -80,30 +84,32 @@ __device__ __forceinline__ void mac_slab(const float* act, int k0, const float* 
   }
 }
 
-// acc = act (BM x Hp, shared) @ W (Hp x Hp, global, row-major), with W
-// streamed through the two-slab cp.async double buffer `slab`. Ends with a
-// barrier, so the caller may overwrite `act` right after.
-template <int TM, int TN>
+// acc = act (BM x 32*TN, shared) @ W (32*TN x 32*TNO, global, row-major),
+// with W streamed through the two-slab cp.async double buffer `slab`
+// (2 x BK x 32*TNO floats). Ends with a barrier, so the caller may
+// overwrite `act` right after.
+template <int TM, int TN, int TNO = TN>
 __device__ __forceinline__ void matmul_hidden(const float* act, const float* W, float* slab, int BK,
-                                              float (&acc)[TM][TN], int ty, int tx, int tid) {
+                                              float (&acc)[TM][TNO], int ty, int tx, int tid) {
   constexpr int Hp = 32 * TN;
+  constexpr int No = 32 * TNO;
 #pragma unroll
   for (int r = 0; r < TM; ++r)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[r][j] = 0.0f;
+    for (int j = 0; j < TNO; ++j) acc[r][j] = 0.0f;
   const int n_slabs = Hp / BK;
-  load_slab(slab, W, BK * Hp, tid);
+  load_slab(slab, W, BK * No, tid);
   cp_async_commit();
   for (int s = 0; s < n_slabs; ++s) {
     if (s + 1 < n_slabs) {
-      load_slab(slab + ((s + 1) & 1) * BK * Hp, W + static_cast<size_t>(s + 1) * BK * Hp, BK * Hp, tid);
+      load_slab(slab + ((s + 1) & 1) * BK * No, W + static_cast<size_t>(s + 1) * BK * No, BK * No, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    mac_slab<TM, TN>(act, s * BK, slab + (s & 1) * BK * Hp, BK, acc, ty, tx);
+    mac_slab<TM, TN, TNO>(act, s * BK, slab + (s & 1) * BK * No, BK, acc, ty, tx);
     __syncthreads();
   }
 }

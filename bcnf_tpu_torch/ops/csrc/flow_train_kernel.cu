@@ -34,16 +34,17 @@
 //    kept these pre-activations in a 100 MB VMEM window; a block's 227 KB of
 //    shared memory cannot, so they go through L2/HBM. The carried dx is
 //    updated in place: a block only touches its own rows.
-// 3. `atb_kernel`: every weight grad of the step as C = A^T B over the B
-//    rows, one 64 x 64 output tile per block, each block looping over all
-//    rows in a fixed order. A's row M is taken to be all ones, so row M of
-//    the product is the column sums: the bias grads come out of the same
-//    pass. No atomics: the result does not depend on the launch order, which
-//    is the TPU kernel's VMEM-resident accumulation made deterministic.
+// 3. `atb_kernel` (atb.cuh, shared with the LSTM backward): every weight
+//    grad of the step as C = A^T B over the B rows, one 64 x 64 output tile
+//    per block, each block looping over all rows in a fixed order. A's row
+//    M is taken to be all ones, so row M of the product is the column sums:
+//    the bias grads come out of the same pass. No atomics: the result does
+//    not depend on the launch order, which is the TPU kernel's
+//    VMEM-resident accumulation made deterministic.
 // After the last step, `actnorm_grad_kernel` forms the ActNorm grads from the
 // column sums. Rows past B are computed on zeros and never stored or summed.
 
-#include "flow_common.cuh"
+#include "atb.cuh"
 
 namespace {
 
@@ -275,86 +276,6 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
   if (tid < BM && row0 + tid < B) an_g[static_cast<size_t>(row0 + tid) * n_an + 2 * size] = dlds[tid];
 }
 
-// ---------------------------------------------------------------------------
-// C = A^T B over K rows, several products per launch (blockIdx.z picks one)
-
-struct AtbJob {
-  const float* a;  // K x m, leading dimension lda (unused when m = 0)
-  const float* b;  // K x n, leading dimension ldb
-  float* c;        // m x n, row-major (unused when m = 0)
-  float* sums;     // n: the column sums of b
-  int lda, ldb, m, n;
-};
-
-constexpr int kMaxJobs = 8;
-struct AtbJobs {
-  AtbJob job[kMaxJobs];
-};
-
-constexpr int kTile = 64;   // output tile, 16 x 16 threads of 4 x 4
-constexpr int kTileK = 16;  // rows per shared-memory stage
-
-__global__ void __launch_bounds__(kThreads)
-atb_kernel(const AtbJobs jobs, int K) {
-  const AtbJob jb = jobs.job[blockIdx.z];
-  const int m0 = blockIdx.y * kTile;
-  const int n0 = blockIdx.x * kTile;
-  if (m0 > jb.m || n0 >= jb.n) return;  // output rows 0..m: row m holds the column sums
-
-  __shared__ float4 as4[kTileK * kTile / 4];
-  __shared__ float4 bs4[kTileK * kTile / 4];
-  float* as = reinterpret_cast<float*>(as4);
-  float* bs = reinterpret_cast<float*>(bs4);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    for (int e = tid; e < kTileK * kTile; e += kThreads) {
-      const int kr = k0 + e / kTile;
-      const int m = m0 + e % kTile;
-      const int n = n0 + e % kTile;
-      float va = 0.0f, vb = 0.0f;
-      if (kr < K) {
-        va = m < jb.m ? jb.a[static_cast<size_t>(kr) * jb.lda + m] : (m == jb.m ? 1.0f : 0.0f);
-        if (n < jb.n) vb = jb.b[static_cast<size_t>(kr) * jb.ldb + n];
-      }
-      as[e] = va;
-      bs[e] = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a = as4[(kk * kTile + ty * 4) / 4];
-      const float4 b = bs4[(kk * kTile + tx * 4) / 4];
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= jb.n) continue;
-      if (m < jb.m) jb.c[static_cast<size_t>(m) * jb.n + n] = acc[i][j];
-      else if (m == jb.m) jb.sums[n] = acc[i][j];
-    }
-  }
-}
-
 // out[z] = in[z]^T for a batch of rows x cols matrices (32 x 32 tiles).
 __global__ void transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int rows,
                                  int cols) {
@@ -416,24 +337,6 @@ cudaError_t launch_rows(const float* bound, const float* h_proj, const float* dl
       bound, h_proj, dld, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, wmT, woutT, dxy, dhp, hs,
       gs, da, dout, x1, an, B, S, k, size, d_a, nh, BK);
   return cudaGetLastError();
-}
-
-cudaError_t launch_atb(const AtbJob* list, int n_jobs, int K, cudaStream_t stream) {
-  for (int j0 = 0; j0 < n_jobs; j0 += kMaxJobs) {
-    AtbJobs jobs = {};
-    const int n = n_jobs - j0 < kMaxJobs ? n_jobs - j0 : kMaxJobs;
-    int max_m = 0, max_n = 0;
-    for (int j = 0; j < n; ++j) {
-      jobs.job[j] = list[j0 + j];
-      max_m = list[j0 + j].m > max_m ? list[j0 + j].m : max_m;
-      max_n = list[j0 + j].n > max_n ? list[j0 + j].n : max_n;
-    }
-    const dim3 grid((max_n + kTile - 1) / kTile, max_m / kTile + 1, n);
-    atb_kernel<<<grid, kThreads, 0, stream>>>(jobs, K);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
 }
 
 size_t scratch_floats(int B, int S, int size, int d_a, int nh, int Hp) {
@@ -513,15 +416,15 @@ extern "C" int bcnf_flow_train_bwd(
     int n_jobs = 0;
     for (int l = 0; l < nh && n_jobs < 2 * kMaxJobs - 3; ++l) {
       const size_t wl = static_cast<size_t>(k) * nh + l;
-      jobs[n_jobs++] = {hs + l * BHp, da + l * BHp, dwm + wl * Hp * Hp, dbm + wl * Hp, Hp, Hp, Hp, Hp};
+      jobs[n_jobs++] = {hs + l * BHp, da + l * BHp, dwm + wl * Hp * Hp, dbm + wl * Hp, Hp, Hp, Hp, Hp, B};
     }
     if (n_jobs != nh) return cudaErrorInvalidValue;  // more hidden layers than the job table holds
     jobs[n_jobs++] = {hs + nh * BHp, dout, dwout + static_cast<size_t>(k) * Hp * n_out,
-                      dbout + static_cast<size_t>(k) * n_out, Hp, n_out, Hp, n_out};
+                      dbout + static_cast<size_t>(k) * n_out, Hp, n_out, Hp, n_out, B};
     jobs[n_jobs++] = {x1, dhp + k * BHp, dw1y + static_cast<size_t>(k) * d_a * Hp,
-                      db1 + static_cast<size_t>(k) * Hp, size, Hp, d_a, Hp};
-    jobs[n_jobs++] = {nullptr, an, nullptr, sums + static_cast<size_t>(k) * n_an, 0, n_an, 0, n_an};
-    if ((err = launch_atb(jobs, n_jobs, B, st)) != cudaSuccess) return err;
+                      db1 + static_cast<size_t>(k) * Hp, size, Hp, d_a, Hp, B};
+    jobs[n_jobs++] = {nullptr, an, nullptr, sums + static_cast<size_t>(k) * n_an, 0, n_an, 0, n_an, B};
+    if ((err = launch_atb(jobs, n_jobs, st)) != cudaSuccess) return err;
   }
   actnorm_grad_kernel<<<(S * size + 255) / 256, 256, 0, st>>>(sums, an_s, dan_s, dan_b, S, size);
   return cudaGetLastError();

@@ -36,12 +36,13 @@ from bcnf_tpu_torch.ops.nn import gelu, gelu_grad
 KERNEL_TN = (1, 2, 4, 8, 12, 16, 17, 24, 32)
 
 
-def padded_width(H: int) -> int:
-    """The hidden width the kernel runs at: the smallest compiled 32*TN >= H."""
-    for tn in KERNEL_TN:
+def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
+    """The hidden width a kernel runs at: the smallest 32*TN >= H of the TN
+    it is compiled for (default: the flow kernels')."""
+    for tn in compiled:
         if 32 * tn >= H:
             return 32 * tn
-    raise ValueError(f"hidden width {H} exceeds the kernel's largest width {32 * KERNEL_TN[-1]}")
+    raise ValueError(f"hidden width {H} exceeds the kernel's largest width {32 * compiled[-1]}")
 
 
 def stack_flow_params(model: Any, params: dict) -> dict:

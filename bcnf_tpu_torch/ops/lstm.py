@@ -1,15 +1,20 @@
-"""LSTM as a plain time loop (port of `bcnf_tpu/ops/lstm.py`).
+"""LSTM (port of `bcnf_tpu/ops/lstm.py`): a plain time loop, or the fused
+recurrence kernels.
 
 The input projection ``x @ W_ih`` for all timesteps is one matmul before the
 loop (`_direction_scan`, `bcnf_tpu/ops/lstm.py:53-71`); each step then does one
 ``(B, H) @ (H, 4H)`` matmul. The JAX package runs this outside any Pallas
 kernel by default (`ops/lstm.py:27-38`), so plain `torch.matmul` is its
-counterpart here. Weights are ``(in, 4H)`` with gate order ``i, f, g, o``.
+counterpart here. With ``BCNF_FUSED_LSTM=1`` each direction runs through
+`ops/lstm_kernel.fused_direction` instead (K3a forward, K3b backward), as the
+JAX package routes it (`ops/lstm.py:74-83`). Weights are ``(in, 4H)`` with
+gate order ``i, f, g, o``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -26,8 +31,16 @@ def lstm_cell_init(generator: torch.Generator, input_size: int, hidden_size: int
     }
 
 
-def _direction(params: Params, x: torch.Tensor, hidden_size: int, reverse: bool) -> torch.Tensor:
-    """Run one direction over `(B, T, F)`; returns `(B, T, H)`."""
+def _fused_enabled() -> bool:
+    """Gate for the fused recurrence (`ops/lstm_kernel.py`), off unless
+    ``BCNF_FUSED_LSTM=1``, as in the JAX package (`bcnf_tpu/ops/lstm.py:27-38`),
+    which turned it off by a TPU measurement; the card's numbers are in
+    PERF.md."""
+    return os.environ.get("BCNF_FUSED_LSTM", "0") == "1"
+
+
+def _direction_scan(params: Params, x: torch.Tensor, hidden_size: int, reverse: bool) -> torch.Tensor:
+    """Run one direction over `(B, T, F)` as a time loop; returns `(B, T, H)`."""
     B, T = x.shape[0], x.shape[1]
     # the steps' slices are taken at once: indexing `x_proj[:, t]` would make
     # autograd add a zero-filled (B, T, 4H) grad per step in the backward
@@ -42,6 +55,17 @@ def _direction(params: Params, x: torch.Tensor, hidden_size: int, reverse: bool)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs[t] = h
     return torch.stack(hs, dim=1)
+
+
+def _direction(params: Params, x: torch.Tensor, hidden_size: int, reverse: bool) -> torch.Tensor:
+    """One LSTM direction: the fused recurrence when enabled, else the time
+    loop. The fused kernels take any batch, so no batch falls back (the JAX
+    kernel needs one that tiles)."""
+    if _fused_enabled():
+        from bcnf_tpu_torch.ops.lstm_kernel import fused_direction
+
+        return fused_direction(params, x, hidden_size, reverse)
+    return _direction_scan(params, x, hidden_size, reverse)
 
 
 def lstm_init(

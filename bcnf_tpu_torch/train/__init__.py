@@ -1,5 +1,5 @@
 """Training-side modules of the port (`bcnf_tpu/train/__init__.py`, without
-the online simulator: ROADMAP.md slice 5)."""
+the online simulator: ROADMAP.md slice 6)."""
 
 from bcnf_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from bcnf_tpu_torch.train.data import DeviceDataset, TrainerDataHandler

@@ -30,6 +30,27 @@ Phases, one line each; any failure exits non-zero and prints no result:
 7. entry point: the `train` CLI on a written dataset with a copy of the
    flagship config (`model.kwargs.dropout: 0`, 2 epochs), then `sample` from
    the model directory it wrote.
+8. LSTM kernels: K3a (one direction's recurrence) and K3b (its backward)
+   against their plain PyTorch versions at the flagship encoder's shapes
+   (B = 4096 and a ragged 4099, T = 30, H = 140, layers of 3 and 280
+   inputs) and t_DLSTM_large's (H = 128, T = 30 and 16), both directions;
+   their times beside cuDNN's one-layer LSTM (`torch.nn.LSTM`, timed as a
+   yardstick only, never on the port's path).
+9. path A: the flagship with BCNF_FUSED_LSTM=1: sampling 10,000 x 8 (K3a
+   4, K1 1) against phase 3's samples; `Trainer.train` at batch 4096 and
+   256 (K3a/K3b 4 a step, K2a/K2b); a training step through K3a/K3b against
+   the time-loop encoder's; train samples/s both ways; the `train` CLI.
+10. path B: `configs/runs/nll/t_DLSTM_large.yaml` at its published widths
+   (DualDomainLSTM, 37,053,181 params, random weights from the seed) with
+   BCNF_FUSED_LSTM=1: sampling (K3a 16, K1 1) against the time loop's,
+   `Trainer.train` at batch 256 and 4096 (K3a/K3b 16 a step; the flow on
+   plain autograd, its coupling dropout 0.5 closing the training-kernel
+   gate), a step against the time loop's, then `train` -> `sample` CLI.
+11. path C: K4 (the per-coupling kernel) against its plain version at the
+   flagship widths, 4096 and 4099 rows, forward and inverse; the flagship
+   with `use_pallas_coupling`: the inverse of phase 3's 80,000 sampling
+   rows through 26 K4 launches against K1's samples, and the no-grad
+   forward against K1's.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of `bcnf_tpu`.
@@ -66,6 +87,12 @@ ROUNDTRIP_TOL = 5e-4
 # tests do): no sum cancels, as the summed NLL's constant logdet cotangent
 # makes the ActNorm scale grad's do, past what float32 resolves.
 GRAD_ATOL, GRAD_RTOL, GRAD_REL = 5e-4, 1e-3, 1e-4
+# the LSTM kernels against their plain versions: the JAX package's bars for
+# its LSTM kernel (tests/test_lstm_kernel.py:30, 48), hs and cs 1e-5, grads
+# atol 1e-4 (capped at GRAD_REL of the grad's largest value) and rtol 1e-4
+LSTM_TOL, LSTM_GRAD_ATOL, LSTM_GRAD_RTOL = 1e-5, 1e-4, 1e-4
+DLSTM_CONFIG = "{{BCNF_ROOT}}/configs/runs/nll/t_DLSTM_large.yaml"
+DLSTM_PARAMS = 37_053_181
 TRAIN_ARGS = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
 GRAD_NAMES = ("dx", "dh_proj", "dan_scale", "dan_bias", "dw1y", "db1", "dwm", "dbm", "dwout", "dbout")
 # Published dense peaks (NVIDIA data sheets) by card: float32 outside the
@@ -123,13 +150,13 @@ def train_work(kargs: dict, h_proj, rows: int, H: int) -> tuple[tuple[float, flo
     return (f_ops, f_bytes + 4.0 * S * rows * size), (float(3 * mlp + mixes), float(b_bytes))
 
 
-def grad_excess(got, ref) -> tuple[float, float, float]:
-    """(max |got - ref|, max of |got - ref| - (atol + GRAD_RTOL |ref|),
-    max |ref|), with atol = min(GRAD_ATOL, GRAD_REL max |ref|): the second is
+def grad_excess(got, ref, atol: float = GRAD_ATOL, rtol: float = GRAD_RTOL) -> tuple[float, float, float]:
+    """(max |got - ref|, max of |got - ref| - (atol' + rtol |ref|),
+    max |ref|), with atol' = min(atol, GRAD_REL max |ref|): the second is
     <= 0 when every element is inside the grad bar."""
     d, mag = (got - ref).abs(), ref.abs().max().item()
-    atol = min(GRAD_ATOL, GRAD_REL * mag)
-    return d.max().item(), (d - atol - GRAD_RTOL * ref.abs()).max().item(), mag
+    cap = min(atol, GRAD_REL * mag)
+    return d.max().item(), (d - cap - rtol * ref.abs()).max().item(), mag
 
 
 def randn_cotangents(z):
@@ -141,13 +168,13 @@ def randn_cotangents(z):
             torch.randn((z.shape[0],), generator=gen, device=z.device))
 
 
-def check_grads(what: str, names, got, ref) -> float:
+def check_grads(what: str, names, got, ref, atol: float = GRAD_ATOL, rtol: float = GRAD_RTOL) -> float:
     """Hold each grad against its plain version at the grad bar. Prints
     max |plain| and max |d| for every grad, then fails where one is outside
     the bar. Returns the largest max |d|."""
     worst, faults = 0.0, []
     for name, a, b in zip(names, got, ref):
-        d, excess, mag = grad_excess(a, b)
+        d, excess, mag = grad_excess(a, b, atol, rtol)
         worst = max(worst, d)
         print(f"      {what} {name}: max|plain| {mag:.3e}, max|d| {d:.3e}")
         if excess > 0:
@@ -155,6 +182,22 @@ def check_grads(what: str, names, got, ref) -> float:
     if faults:
         fail(f"{what}: " + "; ".join(faults))
     return worst
+
+
+def median(xs: list[float]) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def kernel_row(name: str, source: str, replaces: str, launches: int, err: float, k_times: list[float],
+               p_times: list[float], work: tuple[float, float], peaks: tuple[float, float],
+               library_ms: float | None) -> dict:
+    """One entry of the kernel table: median times, and the bound from the
+    work's operations and bytes over the card's peaks."""
+    t_ops, t_bytes = 1e3 * work[0] / peaks[0], 1e3 * work[1] / peaks[1]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": median(k_times), "plain_ms": median(p_times),
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
 
 
 def cuda_ms(fn, reps: int) -> list[float]:
@@ -337,25 +380,14 @@ def main() -> None:
             errs[direction] = max(errs[direction], err)
             k_times = cuda_ms(lambda: fused_flow(x, hp, **ka, inverse=inv, n_cond=n), reps=5)
             p_times = cuda_ms(lambda: fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n), reps=3)
-            ms, plain_ms = sorted(k_times)[len(k_times) // 2], sorted(p_times)[len(p_times) // 2]
             flops, nbytes = flow_work(ka, hp, x.shape[0], H)
-            t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bw
-            kernels.append({
-                "name": f"fused_flow[{direction}]",
-                "route": "cuda",
-                "source": "bcnf_tpu_torch/ops/csrc/flow_kernel.cu",
-                "replaces": "bcnf_tpu/ops/flow_kernel.py:162",
-                "launches": launches,
-                "max_abs_err": errs[direction],
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None,
-            })
+            kernels.append(kernel_row(f"fused_flow[{direction}]", "bcnf_tpu_torch/ops/csrc/flow_kernel.cu",
+                                      "bcnf_tpu/ops/flow_kernel.py:162", launches, errs[direction], k_times, p_times,
+                                      (flops, nbytes), (peak_flops, peak_bw), None))
+            ms, plain_ms, bound = kernels[-1]["ms"], kernels[-1]["plain_ms"], kernels[-1]["bound_ms"]
             tile = 64 if hp.shape[-1] <= 32 * 17 else 32  # the kernel's rows per block (csrc/flow_kernel.cu)
             l2_gb = -(-x.shape[0] // tile) * 4 * sum(int(v.numel()) for v in ka.values()) / 1e9
-            print(f"    fused_flow[{direction}] rows {x.shape[0]}: {ms:.2f} ms (bound {max(t_ops, t_bytes):.2f} ms, "
+            print(f"    fused_flow[{direction}] rows {x.shape[0]}: {ms:.2f} ms (bound {bound:.2f} ms, "
                   f"{flops / 1e12:.2f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, median of {len(k_times)}, "
                   f"range {min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms "
                   f"(range {min(p_times):.2f}-{max(p_times):.2f}); "
@@ -387,6 +419,13 @@ def main() -> None:
     check_train_kernels(model, k_params, rng, dev)
     kernels += train_main_path(rng, dev, peak_flops, peak_bw)
     train_cli(rng, build_dir)
+    peaks = (peak_flops, peak_bw)
+    lstm_times = check_lstm_kernels(rng, dev)
+    k2b_ms = next(row["ms"] for row in kernels if row["name"].startswith("K2b"))
+    lstm_launches = lstm_path_a(model, params, traj, samples, rng, dev, build_dir, lstm_times, k2b_ms)
+    kernels += lstm_rows(lstm_times, lstm_launches, peaks)
+    dlstm_path_b(rng, dev, build_dir)
+    kernels += coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev, peaks)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -618,16 +657,11 @@ def train_main_path(rng, dev, peak_flops: float, peak_bw: float) -> list[dict]:
          "fused_flow_train_bwd"),
     ):
         k_times, p_times = times[name]
-        ms, plain_ms = sorted(k_times)[len(k_times) // 2], sorted(p_times)[len(p_times) // 2]
-        flops, nbytes = work[name]
-        t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bw
-        rows.append({
-            "name": f"{name} {fn}", "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-        })
-        print(f"    {name} rows {B}: {ms:.2f} ms (bound {max(t_ops, t_bytes):.2f} ms, {flops / 1e12:.3f} TFLOP -> "
+        flops = work[name][0]
+        rows.append(kernel_row(f"{name} {fn}", src, replaces, launches[name], err, k_times, p_times, work[name],
+                               (peak_flops, peak_bw), None))
+        ms, plain_ms, bound = rows[-1]["ms"], rows[-1]["plain_ms"], rows[-1]["bound_ms"]
+        print(f"    {name} rows {B}: {ms:.2f} ms (bound {bound:.2f} ms, {flops / 1e12:.3f} TFLOP -> "
               f"{flops / ms / 1e9:.1f} TFLOP/s, median of {len(k_times)}, range {min(k_times):.2f}-"
               f"{max(k_times):.2f}), plain {plain_ms:.2f} ms (range {min(p_times):.2f}-{max(p_times):.2f}); "
               f"max|d| vs plain {err:.2e}")
@@ -728,6 +762,581 @@ def train_cli(rng, build_dir: str) -> None:
         fail(f"sample after train gave shape {samples.shape}, finite={np.isfinite(samples).all()}, K1 launches {k1}")
     print(f"[7 entry point] bcnf_tpu_torch train (2 epochs x 2 steps of 256): K2a {k2a}, K2b {k2b} launches; "
           f"then sample from its model directory: {samples.shape} finite, K1 launches {k1}")
+
+
+# ---------------------------------------------------------------------------
+# phases 8-11: the LSTM recurrence kernels (K3a/K3b) and the per-coupling
+# kernel (K4)
+# ---------------------------------------------------------------------------
+
+LSTM_GRADS = ("dxp", "dW_hh")
+
+
+def lstm_work(T: int, B: int, H: int) -> tuple[tuple[float, float], tuple[float, float]]:
+    """(operations, bytes) of one K3a and of one K3b call for one direction
+    of B rows and T steps at hidden size H: K3a does the step products
+    h W_hh (8 H^2 FLOP a row and step), reads xp and W_hh once and writes hs
+    and cs; K3b recomputes those products, multiplies dgates back through
+    W_hh^T and forms dW_hh over the (T - 1) B rows that have an h_prev, reads
+    xp, W_hh, hs, cs and dhs and writes dxp and dW_hh."""
+    step = 2.0 * B * H * 4 * H
+    seq, gates, w = T * B * H, T * B * 4 * H, H * 4 * H
+    fwd = (T * step, 4.0 * (gates + w + 2 * seq))
+    bwd = ((2 * T + T - 1) * step, 4.0 * (gates + w + 3 * seq + gates + w))
+    return fwd, bwd
+
+
+def cudnn_lstm(p: dict, F: int, H: int, reverse: bool, dev):
+    """cuDNN's one-layer, one-direction LSTM carrying the same weights
+    (`weight_ih_l0 = w_ih^T`, ...; gate order i, f, g, o as the port's): the
+    library yardstick, run on the time-reversed input for the reverse
+    direction. Never on the port's path."""
+    import torch
+
+    lstm = torch.nn.LSTM(F, H, num_layers=1, batch_first=True).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(p["w_ih"].T)
+        lstm.weight_hh_l0.copy_(p["w_hh"].T)
+        lstm.bias_ih_l0.copy_(p["b_ih"])
+        lstm.bias_hh_l0.copy_(p["b_hh"])
+
+    def run(x):
+        out = lstm(x.flip(1) if reverse else x)[0]
+        return out.flip(1) if reverse else out
+
+    return run
+
+
+def check_lstm_kernels(rng, dev) -> dict:
+    """Phase 8: K3a and K3b against their plain versions at the encoders'
+    shapes, then their times at the flagship encoder's batch-4096 shape
+    beside the plain versions and cuDNN. Launches here do not count."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.ops.lstm import lstm_cell_init
+    from bcnf_tpu_torch.ops.lstm_kernel import (
+        fused_direction,
+        lstm_direction_bwd,
+        lstm_direction_bwd_reference,
+        lstm_direction_fwd,
+        lstm_direction_fwd_reference,
+    )
+
+    saved = lstm_direction_fwd.launches, lstm_direction_bwd.launches
+    gen = torch.Generator().manual_seed(SEED)
+    print(f"[8 LSTM kernels] K3a vs plain (hs, cs; tolerance {LSTM_TOL:g}) and K3b vs plain (grads from "
+          f"standard-normal dhs; bar |d| <= min({LSTM_GRAD_ATOL:g}, {GRAD_REL:g} max|plain|) + "
+          f"{LSTM_GRAD_RTOL:g}|plain|), B=4096 and ragged B=4099, both directions:")
+    worst = {"K3a": 0.0, "K3b": 0.0}
+    cells = {}
+    for label, T, F, H in (("flagship layer 1", 30, 3, 140), ("flagship layer 2", 30, 280, 140),
+                           ("t_DLSTM_large time layer 1", 30, 3, 128), ("t_DLSTM_large freq layer 1", 16, 6, 128)):
+        p = {k: v.to(dev) for k, v in lstm_cell_init(gen, F, H).items()}
+        cells[label] = (p, T, F, H)
+        for B in (4096, 4099):
+            x = torch.from_numpy(rng.normal(size=(B, T, F)).astype(np.float32)).to(dev)
+            with torch.no_grad():
+                xp = (torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b_ih"] + p["b_hh"]).contiguous()
+                for reverse in (False, True):
+                    hs, cs = lstm_direction_fwd(xp, p["w_hh"], reverse)
+                    hs_r, cs_r = lstm_direction_fwd_reference(xp, p["w_hh"], reverse)
+                    err = max((hs - hs_r).abs().max().item(), (cs - cs_r).abs().max().item())
+                    dhs = torch.randn(hs.shape, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+                    got = lstm_direction_bwd(xp, p["w_hh"], hs, cs, dhs, reverse)
+                    ref = lstm_direction_bwd_reference(xp, p["w_hh"], hs, cs, dhs, reverse)
+                    torch.cuda.synchronize()
+                    what = f"K3b {label} B={B} {'reverse' if reverse else 'forward'}"
+                    print(f"      K3a {label} B={B} {'reverse' if reverse else 'forward'}: max|d| hs, cs {err:.3e}")
+                    if not err <= LSTM_TOL:
+                        fail(f"K3a ({label}, B={B}, reverse={reverse}) disagrees with plain: {err:.3e} > {LSTM_TOL:g}")
+                    worst["K3a"] = max(worst["K3a"], err)
+                    worst["K3b"] = max(worst["K3b"], check_grads(what, LSTM_GRADS, got, ref, LSTM_GRAD_ATOL,
+                                                                 LSTM_GRAD_RTOL))
+    if (lstm_direction_fwd.launches - saved[0], lstm_direction_bwd.launches - saved[1]) != (16, 16):
+        fail("the LSTM kernels did not count their launches")
+
+    # times at the main path's shapes: the flagship encoder's layer 2 at
+    # batch 4096 (the kernels do not depend on the input width), and
+    # t_DLSTM_large's time LSTM at its batch 256
+    times = {}
+    for key, label, B in (("flagship", "flagship layer 2", 4096), ("t_DLSTM_large", "t_DLSTM_large time layer 1", 256)):
+        p, T, F, H = cells[label]
+        x = torch.from_numpy(rng.normal(size=(B, T, F)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            xp = (torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b_ih"] + p["b_hh"]).contiguous()
+            hs, cs = lstm_direction_fwd(xp, p["w_hh"], False)
+            dhs = torch.randn(hs.shape, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            t = {
+                "K3a": cuda_ms(lambda: lstm_direction_fwd(xp, p["w_hh"], False), reps=5),
+                "K3a plain": cuda_ms(lambda: lstm_direction_fwd_reference(xp, p["w_hh"], False), reps=3),
+                "projection + K3a": cuda_ms(lambda: fused_direction(p, x, H, False), reps=5),
+                "K3b": cuda_ms(lambda: lstm_direction_bwd(xp, p["w_hh"], hs, cs, dhs, False), reps=5),
+                "K3b plain": cuda_ms(lambda: lstm_direction_bwd_reference(xp, p["w_hh"], hs, cs, dhs, False), reps=3),
+            }
+            run = cudnn_lstm(p, F, H, False, dev)
+            t["cuDNN forward"] = cuda_ms(lambda: run(x), reps=5)
+        xg = x.clone().requires_grad_(True)
+        dy = dhs.transpose(0, 1).contiguous()
+        t["cuDNN forward, autograd on"] = cuda_ms(lambda: run(xg), reps=5)
+
+        def fwd_bwd():
+            run(xg).backward(dy)
+
+        t["cuDNN forward + backward"] = cuda_ms(fwd_bwd, reps=5)
+        med = {k: median(v) for k, v in t.items()}
+        (f_ops, f_bytes), (b_ops, b_bytes) = lstm_work(T, B, H)
+        times[key] = dict(med, T=T, B=B, H=H, work=((f_ops, f_bytes), (b_ops, b_bytes)), ranges={
+            k: (min(v), max(v)) for k, v in t.items()})
+        print(f"    times, {label}, B={B}, T={T}, H={H} (CUDA events, median; ms): K3a {med['K3a']:.3f} "
+              f"(range {min(t['K3a']):.3f}-{max(t['K3a']):.3f}; {f_ops / 1e9:.1f} GFLOP -> "
+              f"{f_ops / med['K3a'] / 1e9:.1f} TFLOP/s), plain {med['K3a plain']:.3f}; projection + K3a "
+              f"{med['projection + K3a']:.3f} vs cuDNN forward {med['cuDNN forward']:.3f} (with autograd on "
+              f"{med['cuDNN forward, autograd on']:.3f}); K3b {med['K3b']:.3f} "
+              f"(range {min(t['K3b']):.3f}-{max(t['K3b']):.3f}; {b_ops / 1e9:.1f} GFLOP -> "
+              f"{b_ops / med['K3b'] / 1e9:.1f} TFLOP/s), plain {med['K3b plain']:.3f}; cuDNN backward "
+              f"(forward + backward - forward) {med['cuDNN forward + backward'] - med['cuDNN forward']:.3f}")
+    lstm_direction_fwd.launches, lstm_direction_bwd.launches = saved
+    times["err"] = worst
+    return times
+
+
+def lstm_rows(times: dict, launches: dict, peaks: tuple[float, float]) -> list[dict]:
+    """The K3a/K3b entries of the kernel table, at the flagship encoder's
+    batch-4096 shape; launches are phase 9's (path A's main-path run)."""
+    t = times["flagship"]
+    (fwd_work, bwd_work) = t["work"]
+    src, rep = "bcnf_tpu_torch/ops/csrc/lstm_kernel.cu", "bcnf_tpu/ops/lstm_kernel.py"
+    return [
+        kernel_row("K3a lstm_direction_fwd", src, f"{rep}:129", launches["K3a"], times["err"]["K3a"], [t["K3a"]],
+                   [t["K3a plain"]], fwd_work, peaks, t["cuDNN forward"]),
+        kernel_row("K3b lstm_direction_bwd", src, f"{rep}:150", launches["K3b"], times["err"]["K3b"], [t["K3b"]],
+                   [t["K3b plain"]], bwd_work, peaks, t["cuDNN forward + backward"] - t["cuDNN forward"]),
+    ]
+
+
+def lstm_counts() -> dict:
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow, fused_flow_train_bwd, fused_flow_train_fwd
+    from bcnf_tpu_torch.ops.lstm_kernel import lstm_direction_bwd, lstm_direction_fwd
+
+    return {"K3a": lstm_direction_fwd.launches, "K3b": lstm_direction_bwd.launches, "K1": fused_flow.launches,
+            "K2a": fused_flow_train_fwd.launches, "K2b": fused_flow_train_bwd.launches}
+
+
+def zero_counts() -> None:
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow, fused_flow_train_bwd, fused_flow_train_fwd
+    from bcnf_tpu_torch.ops.lstm_kernel import lstm_direction_bwd, lstm_direction_fwd
+
+    for fn in (lstm_direction_fwd, lstm_direction_bwd, fused_flow, fused_flow_train_fwd, fused_flow_train_bwd):
+        fn.launches = 0
+
+
+def fused_lstm(on: bool) -> None:
+    os.environ["BCNF_FUSED_LSTM"] = "1" if on else "0"
+
+
+def train_with_counts(cfg: dict, model, rng, dev, dirs: int, what: str) -> tuple[dict, int, dict, list]:
+    """`Trainer.train` on random data (3 batches an epoch) with the fused
+    LSTM on; checks K3b = dirs a step and K3a = dirs a step, validation
+    batch and the ActNorm data init. Returns (counts, steps, trained, data)."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import tree_leaves
+    from bcnf_tpu_torch.train import Trainer
+
+    B, n_epochs = cfg["training"]["batch_size"], cfg["training"]["n_epochs"]
+    n = int(round(3 * B / (1 - cfg["training"]["validation_split"])))
+    y = rng.normal(size=(n, model.size)).astype(np.float32)
+    traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
+    params0 = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED)
+    fused_lstm(True)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = trainer.train(model, params0)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    c = lstm_counts()
+    steps = 3 * n_epochs
+    hist = trainer.meta_scheduler.parameter_history
+    losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
+    if c["K3b"] != dirs * steps or c["K3a"] != dirs * (steps + c["K1"] + 1):
+        fail(f"{what}: Trainer.train launched K3a {c['K3a']} and K3b {c['K3b']} times for {steps} steps, "
+             f"{c['K1']} validation batches and the ActNorm init ({dirs} directions)")
+    if not (np.all(np.isfinite(losses)) and all(torch.isfinite(t).all() for t in tree_leaves(trained))):
+        fail(f"{what}: Trainer.train gave non-finite losses or params: {losses}")
+    print(f"    {what}: Trainer.train, {n_epochs} epoch(s) x 3 steps of {B} + validation in {t_train:.2f} s; "
+          f"launches K3a {c['K3a']}, K3b {c['K3b']}, K2a {c['K2a']}, K2b {c['K2b']}, K1 {c['K1']}; losses "
+          f"{', '.join(f'{v:.3f}' for v in losses)}")
+    return c, steps, trained, (y, traj, trainer)
+
+
+def step_against_loop(model, trained, yb, cb, dev, what: str, expect: tuple[int, int]) -> None:
+    """One training step's loss and grads (from standard-normal cotangents)
+    with the fused LSTM against the same step with the time loop, dropout
+    masks from the same seeded generator."""
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    losses, grads = [], []
+    for on in (True, False):
+        fused_lstm(on)
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+        before = lstm_counts()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        z, ld = model.forward(p, yb, *cb, generator=gen, train=True)
+        dz, dld = randn_cotangents(z)
+        ((z * dz).sum() + (ld * dld).sum()).backward()
+        after = lstm_counts()
+        used = (after["K3a"] - before["K3a"], after["K3b"] - before["K3b"])
+        if used != (expect if on else (0, 0)):
+            fail(f"{what}: the step launched K3a/K3b {used} times (fused LSTM {on})")
+        losses.append(inn_nll_loss(z, ld).item())
+        grads.append([t.grad for t in tree_leaves(p)])
+    worst, max_d, mags = -1.0, 0.0, []
+    for a, b in zip(*grads):
+        if a is not None and b is not None:
+            d, excess, mag = grad_excess(a, b)
+            worst, max_d = max(worst, excess), max(max_d, d)
+            mags.append(mag)
+    loss_d = abs(losses[0] - losses[1])
+    print(f"    {what}: step through K3a/K3b vs the time-loop encoder's: loss {losses[0]:.5f} vs {losses[1]:.5f}; "
+          f"{len(mags)} param grads, max|d| {max_d:.3e} (bar |d| <= min({GRAD_ATOL:g}, {GRAD_REL:g} max|plain|) + "
+          f"{GRAD_RTOL:g}|plain|), max|plain| per grad from {min(mags):.3e} to {max(mags):.3e}")
+    if not loss_d <= KERNEL_TOL * max(1.0, abs(losses[1])) or worst > 0:
+        fail(f"{what}: the fused-LSTM step disagrees with the time loop's: loss |d| {loss_d:.3e}, grads {worst:.3e} "
+             f"past the bar")
+
+
+def train_rates(model, trainer, trained, yb, cb, dev, reps: int = 5) -> tuple[float, float]:
+    """Train samples/s of `Trainer.train_step` with the fused LSTM and with
+    the time loop (host clock around synchronised work, after a warm-up)."""
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.train import make_optimizer
+
+    rates = []
+    for on in (True, False):
+        fused_lstm(on)
+        params = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+        opt = make_optimizer("Adam", lr=2e-4).init(params)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        trainer.train_step(model, params, opt, yb, cb, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            trainer.train_step(model, params, opt, yb, cb, gen)
+        torch.cuda.synchronize()
+        rates.append(reps * yb.shape[0] / (time.perf_counter() - t0))
+    fused_lstm(True)
+    return rates[0], rates[1]
+
+
+def cli_round_trip(cfg: dict, rng, build_dir: str, dirs: int, what: str) -> dict:
+    """`train` (2 epochs of 2 batches) on a written dataset, then `sample`
+    from its model directory, with the fused LSTM on; launch counts checked
+    and returned."""
+    import numpy as np
+    import yaml
+
+    from bcnf_tpu_torch.__main__ import main as cli_main
+
+    B = cfg["training"]["batch_size"]
+    fused_lstm(True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        cfg_path, data_path = os.path.join(tmp, "run.yaml"), os.path.join(tmp, "data.pkl")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        n = int(round(2 * B / (1 - cfg["training"]["validation_split"])))
+        data = {"trajectories": rng.normal(size=(n, 30, 3)).astype(np.float32)}
+        data.update({p: rng.normal(size=n).astype(np.float32) for p in cfg["global"]["parameter_selection"]})
+        with open(data_path, "wb") as f:
+            pickle.dump(data, f)
+        model_dir, out = os.path.join(tmp, "model"), os.path.join(tmp, "samples.npy")
+        zero_counts()
+        cli_main(["train", "-c", cfg_path, "-d", data_path, "-o", model_dir, "--seed", "1"])
+        tr = lstm_counts()
+        zero_counts()
+        cli_main(["sample", "-m", model_dir, "-d", data_path, "-n", "20", "-o", out, "--seed", "2"])
+        samples, sa = np.load(out), lstm_counts()
+    size = len(cfg["global"]["parameter_selection"])
+    if tr["K3b"] != dirs * 4 or tr["K3a"] < dirs * 5:
+        fail(f"{what}: the train CLI launched K3a {tr['K3a']} and K3b {tr['K3b']} times for 4 steps")
+    if samples.shape != (20, n, size) or not np.isfinite(samples).all() or (sa["K3a"], sa["K1"]) != (dirs, 1):
+        fail(f"{what}: sample after train gave shape {samples.shape}, finite={np.isfinite(samples).all()}, "
+             f"launches K3a {sa['K3a']}, K1 {sa['K1']}")
+    print(f"    {what}: bcnf_tpu_torch train (2 epochs x 2 steps of {B}): K3a {tr['K3a']}, K3b {tr['K3b']}, K2a "
+          f"{tr['K2a']}, K2b {tr['K2b']} launches; then sample: {samples.shape} finite, K3a {sa['K3a']}, K1 {sa['K1']}")
+    return {k: tr[k] + sa[k] for k in tr}
+
+
+def lstm_path_a(model, params, traj, samples, rng, dev, build_dir: str, lstm_times: dict, k2b_ms: float) -> dict:
+    """Phase 9: the flagship with BCNF_FUSED_LSTM=1. Returns the K3a/K3b
+    launches of its sampling call, its two `Trainer.train` runs and its CLI
+    round trip (the step checks and the rates time other calls)."""
+    import torch
+
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train
+    from bcnf_tpu_torch.train import make_optimizer
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    totals = {"K3a": 0, "K3b": 0}
+
+    def add(c):
+        totals["K3a"] += c["K3a"]
+        totals["K3b"] += c["K3b"]
+
+    fused_lstm(True)
+    with torch.no_grad():
+        zero_counts()
+        t0 = time.perf_counter()
+        out = model.sample(params, torch.Generator().manual_seed(SEED), M_DRAWS, traj, device=dev)
+        torch.cuda.synchronize()
+        t_sample = time.perf_counter() - t0
+    c = lstm_counts()
+    add(c)
+    err = (out - samples).abs().max().item()
+    print(f"[9 path A] flagship, BCNF_FUSED_LSTM=1: sample {M_DRAWS}x{N_COND} in {t_sample:.3f} s = "
+          f"{M_DRAWS * N_COND / t_sample:.0f} samples/s; launches K3a {c['K3a']}, K1 {c['K1']}; max|d| vs the "
+          f"time-loop encoder's samples (phase 3) {err:.3e} (tolerance {KERNEL_TOL:g})")
+    if (c["K3a"], c["K1"], c["K3b"]) != (4, 1, 0) or not torch.isfinite(out).all():
+        fail(f"fused-LSTM sampling launched K3a {c['K3a']}, K1 {c['K1']}, K3b {c['K3b']} or is not finite")
+    if not err <= KERNEL_TOL:
+        fail(f"fused-LSTM samples disagree with the time loop's: {err:.3e} > {KERNEL_TOL:g}")
+
+    rates = {}
+    for B in (4096, 256):
+        cfg = _flagship_train_config(B, 1)
+        m = CondRealNVP.from_config(cfg)
+        c, steps, trained, (y, tr, trainer) = train_with_counts(cfg, m, rng, dev, 4, f"batch {B}")
+        add(c)
+        if (c["K2a"], c["K2b"]) != (steps, steps):
+            fail(f"path A batch {B}: K2a {c['K2a']}, K2b {c['K2b']} for {steps} steps")
+        yb = torch.from_numpy(y[:B]).to(dev)
+        cb = [torch.from_numpy(tr[:B]).to(dev)]
+        step_against_loop(m, trained, yb, cb, dev, f"batch {B}", (4, 4))
+        rates[B] = train_rates(m, trainer, trained, yb, cb, dev)
+        if B != 4096:
+            continue
+        # CUDA-event split of one step with the fused LSTM, as in phase 6
+        fused_lstm(True)
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+        opt = make_optimizer("Adam", lr=2e-4).init(p)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        splits = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+            opt.zero_grad()
+            ev[0].record()
+            h = m.encode(p, cb, gen, train=True)
+            ev[1].record()
+            kargs, h_proj = m._fused_flow_args(p, h)
+            ev[2].record()
+            z, ld = fused_flow_train(yb, h_proj, *[kargs[k] for k in TRAIN_ARGS])
+            ev[3].record()
+            loss = inn_nll_loss(z, ld)
+            ev[4].record()
+            loss.backward()
+            ev[5].record()
+            opt.step()
+            ev[6].record()
+            torch.cuda.synchronize()
+            splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(6)])
+        split = [sorted(col)[1] for col in zip(*splits)]
+        k3b4 = 4 * lstm_times["flagship"]["K3b"]
+        print(f"    step split at batch 4096 with the fused LSTM (CUDA events, median of 3, ms): encoder forward "
+              f"{split[0]:.2f} (4 x K3a alone ~{4 * lstm_times['flagship']['K3a']:.2f}), projections + stacking "
+              f"{split[1]:.2f}, K2a {split[2]:.2f}, loss {split[3]:.2f}, backward {split[4]:.2f} (4 x K3b alone "
+              f"~{k3b4:.2f}, K2b alone {k2b_ms:.2f}), clip + Adam {split[5]:.2f}; step {sum(split):.2f} = "
+              f"{4096 / sum(split) * 1e3:.0f} samples/s")
+    print(f"    train samples/s, flagship: {rates[4096][0]:.0f} at batch 4096 and {rates[256][0]:.0f} at 256 with the "
+          f"fused LSTM; {rates[4096][1]:.0f} and {rates[256][1]:.0f} with the time loop (same call)")
+    add(cli_round_trip(_flagship_train_config(256, 2), rng, build_dir, 4, "flagship CLI"))
+    fused_lstm(False)
+    return totals
+
+
+def dlstm_path_b(rng, dev, build_dir: str) -> None:
+    """Phase 10: t_DLSTM_large at its published widths with
+    BCNF_FUSED_LSTM=1: sampling, training at batch 256 and 4096, the CLI."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.config import load_config
+    from bcnf_tpu_torch.models import CondRealNVP, DualDomainLSTM, count_params
+
+    cfg = load_config(DLSTM_CONFIG).to_dict()
+    model = CondRealNVP.from_config(cfg)
+    if not isinstance(model.features.feature_networks[1], DualDomainLSTM):
+        fail("t_DLSTM_large did not build a DualDomainLSTM encoder")
+    params = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    n_params = count_params(params)
+    if n_params != DLSTM_PARAMS:
+        fail(f"t_DLSTM_large has {n_params:,} params, expected {DLSTM_PARAMS:,}")
+    traj = torch.from_numpy(rng.normal(size=(N_COND, 30, 3)).astype(np.float32))
+    outs, secs, counts = {}, {}, {}
+    with torch.no_grad():
+        for on in (True, False):
+            fused_lstm(on)
+            model.sample(params, torch.Generator().manual_seed(SEED), 16, traj, device=dev)  # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            outs[on] = model.sample(params, torch.Generator().manual_seed(SEED), M_DRAWS, traj, device=dev)
+            torch.cuda.synchronize()
+            secs[on], counts[on] = time.perf_counter() - t0, lstm_counts()
+    err = (outs[True] - outs[False]).abs().max().item()
+    print(f"[10 path B] t_DLSTM_large ({n_params:,} params), BCNF_FUSED_LSTM=1: sample {M_DRAWS}x{N_COND} in "
+          f"{secs[True]:.3f} s = {M_DRAWS * N_COND / secs[True]:.0f} samples/s (time loop: "
+          f"{M_DRAWS * N_COND / secs[False]:.0f}); launches K3a {counts[True]['K3a']}, K1 {counts[True]['K1']}; "
+          f"max|d| vs the time loop's samples {err:.3e} (tolerance {KERNEL_TOL:g})")
+    if (counts[True]["K3a"], counts[True]["K1"]) != (16, 1) or counts[False]["K3a"] != 0:
+        fail(f"t_DLSTM_large sampling launched K3a {counts[True]['K3a']}, K1 {counts[True]['K1']} "
+             f"(time loop: K3a {counts[False]['K3a']})")
+    if not torch.isfinite(outs[True]).all() or not err <= KERNEL_TOL:
+        fail(f"t_DLSTM_large fused-LSTM samples not finite or off the time loop's: {err:.3e}")
+
+    rates = {}
+    for B in (256, 4096):
+        tcfg = load_config(DLSTM_CONFIG).to_dict()
+        tcfg["training"].update(batch_size=B, n_epochs=1, timeout=None)
+        m = CondRealNVP.from_config(tcfg)
+        c, steps, trained, (y, tr, trainer) = train_with_counts(tcfg, m, rng, dev, 16, f"t_DLSTM_large batch {B}")
+        if (c["K2a"], c["K2b"]) != (0, 0):
+            fail(f"t_DLSTM_large batch {B}: the training kernels ran ({c['K2a']}, {c['K2b']}) with coupling dropout 0.5")
+        yb = torch.from_numpy(y[:B]).to(dev)
+        cb = [torch.from_numpy(tr[:B]).to(dev)]
+        if B == 256:
+            step_against_loop(m, trained, yb, cb, dev, f"t_DLSTM_large batch {B}", (16, 16))
+        rates[B] = train_rates(m, trainer, trained, yb, cb, dev)
+    print(f"    train samples/s, t_DLSTM_large: {rates[256][0]:.0f} at batch 256 and {rates[4096][0]:.0f} at 4096 with "
+          f"the fused LSTM; {rates[256][1]:.0f} and {rates[4096][1]:.0f} with the time loop (same call)")
+    ccfg = load_config(DLSTM_CONFIG).to_dict()
+    ccfg["training"].update(n_epochs=2, timeout=None)
+    cli_round_trip(ccfg, rng, build_dir, 16, "t_DLSTM_large CLI")
+    fused_lstm(False)
+
+
+def coupling_work(args: dict, rows: int, n_cond: int, H: int, inverse: bool) -> tuple[float, float]:
+    """Operations and bytes of one K4 call at the unpadded hidden width H:
+    the MLP's products for every row, each weight and condition row read
+    once, x_a and x_b read and the output (and the forward's logdet) written."""
+    d_a, nh = args["w1y"].shape[0], len(args["wm"])
+    n_out = args["wout"].shape[1]
+    d_b = n_out // 2
+    flops = rows * 2.0 * (d_a * H + nh * H * H + H * n_out)
+    weights = d_a * H + H + nh * (H * H + H) + H * n_out + n_out
+    nbytes = 4.0 * (weights + n_cond * H + rows * (d_a + 2 * d_b + (0 if inverse else 1)))
+    return flops, nbytes
+
+
+def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev,
+                    peaks: tuple[float, float]) -> list[dict]:
+    """Phase 11: K4 against its plain version at the flagship widths; the
+    flagship with `use_pallas_coupling` (26 K4 launches a pass) against K1.
+    Returns the K4 entries of the kernel table."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.ops.coupling_kernel import (
+        fused_affine_coupling,
+        fused_affine_coupling_reference,
+        mlp_params_to_kernel_args,
+    )
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow
+
+    cp = model.coupling
+    blk0 = map_tree(lambda t: t[0], params["blocks"]["coupling"])
+    args = mlp_params_to_kernel_args(blk0["a"], cp.d_a)
+    H = model.nested_sizes[0]
+    saved = fused_affine_coupling.launches
+    errs = {False: 0.0, True: 0.0}
+    with torch.no_grad():
+        for B, N in ((4096, 8), (4099, 7)):
+            h = model.encode(params, (torch.from_numpy(rng.normal(size=(N, 30, 3)).astype(np.float32)).to(dev),))
+            h_proj = cp.cond_proj(blk0, h)
+            x = torch.from_numpy(rng.normal(size=(B, model.size)).astype(np.float32)).to(dev)
+            x_a, x_b = x[:, : cp.d_a].contiguous(), x[:, cp.d_a:].contiguous()
+            for inverse in (False, True):
+                out = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=inverse)
+                ref = fused_affine_coupling_reference(x_a, x_b, h_proj, **args, inverse=inverse, n_cond=N)
+                torch.cuda.synchronize()
+                errs[inverse] = max([errs[inverse]] + [(a - b).abs().max().item() for a, b in zip(
+                    (out,) if inverse else out, (ref,) if inverse else ref)])
+    if fused_affine_coupling.launches != saved + 4:
+        fail("fused_affine_coupling did not count its launches")
+    print(f"[11 path C] K4 vs plain at H={H}, B=4096/N=8 and ragged B=4099/N=7: max|d| forward (z_b, logdet) "
+          f"{errs[False]:.3e}, inverse {errs[True]:.3e} (tolerance {KERNEL_TOL:g})")
+    for inverse, e in errs.items():
+        if not e <= KERNEL_TOL:
+            fail(f"K4 {'inverse' if inverse else 'forward'} disagrees with its plain version: {e:.3e}")
+
+    # path C: the flagship's inverse over phase 3's sampling rows, and its
+    # no-grad forward over the log_prob batch, through K4 in every coupling
+    h = model.encode(params, (traj.to(dev),))
+    model.use_pallas_coupling = True
+    launches = {}
+    with torch.no_grad():
+        fused_affine_coupling.launches = fused_flow.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y4 = model.inverse_given_h(params, z_all.to(dev), h)
+        torch.cuda.synchronize()
+        t_inv = time.perf_counter() - t0
+        launches[True], k1_inv = fused_affine_coupling.launches, fused_flow.launches
+        fused_affine_coupling.launches = 0
+        z4, ld4 = model.forward(params, y_lp, cond_lp)
+        torch.cuda.synchronize()
+        launches[False], k1_fwd = fused_affine_coupling.launches, fused_flow.launches - k1_inv
+        model.use_pallas_coupling = False
+        z1, ld1 = model.forward(params, y_lp, cond_lp)
+    inv_err = (y4 - samples).abs().max().item()
+    fwd_err = max((z4 - z1).abs().max().item(), (ld4 - ld1).abs().max().item())
+    print(f"    flagship with use_pallas_coupling: inverse of {z_all.shape[0] * z_all.shape[1]} rows in {t_inv:.3f} s "
+          f"(K4 launches {launches[True]}, K1 {k1_inv}), max|d| vs K1's samples {inv_err:.3e}; no-grad forward on "
+          f"{y_lp.shape[0]} rows (K4 launches {launches[False]}, K1 {k1_fwd}), max|d| z, logdet vs K1's {fwd_err:.3e}")
+    n_couplings = model.n_blocks
+    if (launches[True], k1_inv, launches[False], k1_fwd) != (n_couplings, 0, n_couplings, 0):
+        fail(f"path C launched K4 {launches[True]}/{launches[False]} and K1 {k1_inv}/{k1_fwd} times")
+    if not (inv_err <= KERNEL_TOL and fwd_err <= KERNEL_TOL) or not torch.isfinite(y4).all():
+        fail(f"path C disagrees with K1: inverse {inv_err:.3e}, forward {fwd_err:.3e}")
+
+    # K4 timed at the main path's shapes: block 0's coupling over the
+    # 80,000 sampling rows (inverse) and the 4096 log_prob rows (forward)
+    rows = []
+    with torch.no_grad():
+        x_inv = z_all.to(dev).reshape(-1, model.size)
+        shapes = {True: (x_inv, cp.cond_proj(blk0, h), N_COND),
+                  False: (y_lp.contiguous(), cp.cond_proj(blk0, model.encode(params, (cond_lp,))), LOGPROB_ROWS)}
+        for inverse, (x, hp, n) in shapes.items():
+            x_a, x_b = x[:, : cp.d_a].contiguous(), x[:, cp.d_a:].contiguous()
+            out = fused_affine_coupling(x_a, x_b, hp, **args, inverse=inverse)
+            ref = fused_affine_coupling_reference(x_a, x_b, hp, **args, inverse=inverse, n_cond=n)
+            err = max((a - b).abs().max().item() for a, b in zip((out,) if inverse else out, (ref,) if inverse else ref))
+            if not err <= KERNEL_TOL:
+                fail(f"K4 at the main path's shape disagrees with plain: {err:.3e}")
+            k_times = cuda_ms(lambda: fused_affine_coupling(x_a, x_b, hp, **args, inverse=inverse), reps=5)
+            p_times = cuda_ms(lambda: fused_affine_coupling_reference(x_a, x_b, hp, **args, inverse=inverse, n_cond=n),
+                              reps=3)
+            work = coupling_work(args, x.shape[0], n, H, inverse)
+            direction = "inverse" if inverse else "forward"
+            rows.append(kernel_row(f"K4 fused_affine_coupling[{direction}]", "bcnf_tpu_torch/ops/csrc/coupling_kernel.cu",
+                                   "bcnf_tpu/ops/coupling_kernel.py:69", launches[inverse], max(errs[inverse], err),
+                                   k_times, p_times, work, peaks, None))
+            print(f"    K4[{direction}] rows {x.shape[0]}: {median(k_times):.3f} ms (bound {rows[-1]['bound_ms']:.3f} ms, "
+                  f"{work[0] / 1e9:.1f} GFLOP -> {work[0] / median(k_times) / 1e9:.1f} TFLOP/s, range "
+                  f"{min(k_times):.3f}-{max(k_times):.3f}), plain {median(p_times):.3f} ms; max|d| vs plain {err:.2e}; "
+                  f"x {n_couplings} couplings a pass")
+    fused_affine_coupling.launches = saved
+    return rows
 
 
 if __name__ == "__main__":

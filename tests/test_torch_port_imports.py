@@ -11,8 +11,21 @@ import numpy as np
 import pytest
 import torch
 
+from bcnf_tpu_torch.bridge import map_tree
 from bcnf_tpu_torch.models import CondRealNVP, ConcatenateCondition, FeatureNetworkStack, LSTMFeatureNetwork
+from bcnf_tpu_torch.ops import lstm
+from bcnf_tpu_torch.ops.coupling_kernel import (
+    fused_affine_coupling,
+    fused_affine_coupling_reference,
+    mlp_params_to_kernel_args,
+)
 from bcnf_tpu_torch.ops.flow_kernel import fused_flow, fused_flow_reference, padded_width
+from bcnf_tpu_torch.ops.lstm_kernel import (
+    lstm_direction_bwd,
+    lstm_direction_bwd_reference,
+    lstm_direction_fwd,
+    lstm_direction_fwd_reference,
+)
 from bcnf_tpu_torch.utils.misc import resolve_device
 
 
@@ -33,7 +46,8 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
         "import bcnf_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(bcnf_tpu_torch.__path__, 'bcnf_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "need = ['__main__', 'ops.flow_kernel', 'train.trainer', 'train.optim', 'train.checkpoint', 'train.history']\n"
+        "need = ['__main__', 'ops.flow_kernel', 'ops.lstm_kernel', 'ops.coupling_kernel', 'train.trainer',\n"
+        "        'train.optim', 'train.checkpoint', 'train.history']\n"
         "assert all('bcnf_tpu_torch.' + n in names for n in need), names\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'bcnf_tpu' or m.startswith('bcnf_tpu.')]\n"
@@ -42,7 +56,7 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 22
 
 
 def test_resolve_device_rule():
@@ -224,3 +238,95 @@ def test_sample_on_card_matches_cpu(cuda):
     assert fused_flow.launches == before + 1
     on_cpu = model.sample(model.init(device="cpu"), torch.Generator().manual_seed(6), 50, cond, device="cpu")
     torch.testing.assert_close(on_card.cpu(), on_cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("hidden,batch,steps", [(12, 7, 10), (140, 259, 30), (128, 33, 16), (256, 40, 5)])
+def test_lstm_kernels_match_plain_versions_on_card(cuda, reverse, hidden, batch, steps):
+    """K3a's hs, cs and K3b's dxp, dW_hh against the plain versions, ragged
+    batches (the bars of tests/test_lstm_kernel.py, dW_hh's atol scaled to
+    its largest value); each wrapper counts one launch."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    xp = torch.randn((steps, batch, 4 * hidden), generator=g, device=cuda)
+    w_hh = torch.randn((hidden, 4 * hidden), generator=g, device=cuda) / hidden**0.5
+    before = (lstm_direction_fwd.launches, lstm_direction_bwd.launches)
+    hs, cs = lstm_direction_fwd(xp, w_hh, reverse)
+    hs_r, cs_r = lstm_direction_fwd_reference(xp, w_hh, reverse)
+    dhs = torch.randn(hs.shape, generator=g, device=cuda)
+    dxp, dw = lstm_direction_bwd(xp, w_hh, hs, cs, dhs, reverse)
+    dxp_r, dw_r = lstm_direction_bwd_reference(xp, w_hh, hs, cs, dhs, reverse)
+    torch.cuda.synchronize()
+    assert (lstm_direction_fwd.launches, lstm_direction_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(hs, hs_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(cs, cs_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(dxp, dxp_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dw, dw_r, atol=1e-4 * dw_r.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fused_lstm_on_card_matches_the_cpu_loop(cuda, monkeypatch):
+    """2 layers, bidirectional, under BCNF_FUSED_LSTM=1: 4 launches of each
+    kernel; values and grads as the CPU time loop gives them."""
+    params = lstm.lstm_init(torch.Generator().manual_seed(9), 3, 12, 2, bidirectional=True)
+    x = torch.randn((37, 10, 3), generator=torch.Generator().manual_seed(10))
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        monkeypatch.setenv("BCNF_FUSED_LSTM", "1" if dev.type == "cuda" else "0")
+        p = map_tree(lambda t: t.to(dev).requires_grad_(True), params)
+        before = (lstm_direction_fwd.launches, lstm_direction_bwd.launches)
+        out = lstm.lstm_apply(p, x.to(dev), 12)
+        torch.sum(torch.sin(out)).backward()
+        launched = (lstm_direction_fwd.launches - before[0], lstm_direction_bwd.launches - before[1])
+        assert launched == ((4, 4) if dev.type == "cuda" else (0, 0))
+        results[dev.type] = (out.detach().cpu(), [t.grad.cpu() for layer in p["layers"] for d in layer.values()
+                                                  for t in d.values()])
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], atol=1e-5, rtol=0)
+    for a, b in zip(results["cuda"][1], results["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("hidden,n_hidden", [(16, 0), (100, 2), (526, 4)])
+def test_coupling_kernel_matches_plain_version_on_card(cuda, inverse, hidden, n_hidden):
+    """K4 on a ragged row count against 7 conditions; one launch counted."""
+    from bcnf_tpu_torch.models.cnf import AffineCoupling
+
+    port = AffineCoupling(input_size=19, nested_sizes=[hidden] * (n_hidden + 1), n_conditions=32)
+    tp = map_tree(lambda t: t.to(cuda), port.init(torch.Generator().manual_seed(5)))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rows = 7 * 41 + 3
+    x_a = torch.randn((rows, port.d_a), generator=g, device=cuda)
+    x_b = torch.randn((rows, port.d_b), generator=g, device=cuda)
+    h_proj = port.cond_proj(tp, torch.randn((7, 32), generator=g, device=cuda))
+    args = mlp_params_to_kernel_args(tp["a"], port.d_a)
+    before = fused_affine_coupling.launches
+    out = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=inverse)
+    ref = fused_affine_coupling_reference(x_a, x_b, h_proj, **args, inverse=inverse, n_cond=7)
+    torch.cuda.synchronize()
+    assert fused_affine_coupling.launches == before + 1
+    for a, b in zip((out,) if inverse else out, (ref,) if inverse else ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_per_coupling_path_on_card_matches_the_whole_flow_kernel(cuda):
+    """With use_pallas_coupling, inverse and the no-grad forward launch K4
+    in each of the 3 couplings and agree with K1."""
+    model = _tiny_model(100)
+    params = model.init(device=cuda)
+    cond = torch.randn((4, 9, 3), generator=torch.Generator().manual_seed(11)).to(cuda)
+    z = torch.randn((9, 4, 5), generator=torch.Generator().manual_seed(12)).to(cuda)
+    with torch.no_grad():
+        model.use_pallas_coupling = True
+        before = (fused_affine_coupling.launches, fused_flow.launches)
+        y4 = model.inverse(params, z, cond)
+        z4, ld4 = model.forward(params, y4[0], cond)
+        assert (fused_affine_coupling.launches - before[0], fused_flow.launches - before[1]) == (6, 0)
+        model.use_pallas_coupling = False
+        y1 = model.inverse(params, z, cond)
+        z1, ld1 = model.forward(params, y4[0], cond)
+    torch.testing.assert_close(y4, y1, atol=1e-4, rtol=0)
+    torch.testing.assert_close(z4, z1, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ld4, ld1, atol=1e-4, rtol=0)

@@ -356,7 +356,7 @@ def test_train_cli_writes_a_model_dir_jax_loads(tmp_path):
     with pytest.raises(FileNotFoundError, match="simulator slice"):
         main(["train", "-c", str(cfg_path), "-d", str(tmp_path / "none.pkl"), "-o", str(out), "-f",
               "--device", "cpu"])
-    for flags, slice_no in ((["--online"], 5), (["--dp-devices", "2"], 11), (["--pretrained-features", "p"], 10),
+    for flags, slice_no in ((["--online"], 6), (["--dp-devices", "2"], 11), (["--pretrained-features", "p"], 10),
                             (["--coordinator", "localhost:1"], 11)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             main(["train", "-c", str(cfg_path), "-o", str(out), "-f", "--device", "cpu", *flags])
