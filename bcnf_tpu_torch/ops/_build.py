@@ -101,17 +101,21 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
         lib.bcnf_flow_train_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
         lib.bcnf_flow_train_fwd.restype = i32
     elif name == "flow_train_kernel":
-        lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 6 + [ptr]
+        lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 7 + [ptr]
         lib.bcnf_flow_train_bwd.restype = i32
         lib.bcnf_flow_train_bwd_scratch.argtypes = [i32] * 6
         lib.bcnf_flow_train_bwd_scratch.restype = ctypes.c_longlong
     elif name == "lstm_kernel":
         lib.bcnf_lstm_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.bcnf_lstm_fwd.restype = i32
-        lib.bcnf_lstm_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
-        lib.bcnf_lstm_bwd.restype = i32
+        lib.bcnf_lstm_bwd_rec.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.bcnf_lstm_bwd_rec.restype = i32
+        lib.bcnf_lstm_bwd_dw.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.bcnf_lstm_bwd_dw.restype = i32
         lib.bcnf_lstm_bwd_scratch.argtypes = [i32] * 3
         lib.bcnf_lstm_bwd_scratch.restype = ctypes.c_longlong
+        lib.bcnf_atb.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.bcnf_atb.restype = i32
     elif name == "coupling_kernel":
         lib.bcnf_coupling.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
         lib.bcnf_coupling.restype = i32

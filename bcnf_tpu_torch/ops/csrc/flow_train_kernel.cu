@@ -21,28 +21,37 @@
 //
 // What bounds it on an H100: operations. Per row and step it does the
 // forward's MLP again, the same products transposed for dh, and the weight
-// products: about three times K2a's ~58 MFLOP a row, in float32 FMA.
+// products: about three times K2a's ~58 MFLOP a row. The square hidden
+// products and the weight grads run on tensor cores in 3xTF32
+// (mma_tf32.cuh, the counterpart of the JAX kernel's "x3" mode), so the
+// bound is 3 x operations at the dense TF32 rate; the narrow products (the
+// d_a inputs, the n_out outputs, the mixes) stay float32 FMA.
 //
 // Design, per step, in reverse order (all launches on the caller's stream):
-// 1. `transpose_kernel` writes this step's Wm_l^T and Wout^T to scratch, so
-//    the backward products stream weight slabs exactly as the forward does.
-// 2. `bwd_rows_kernel`: one block of 256 threads owns BM = 32 rows, as K1
-//    does: it recomputes the MLP (activation tile in shared memory, weights
-//    through the cp.async double buffer), storing h_l and gelu'(a_l) to a
-//    global scratch ((nh+1) x B x Hp each), then runs the backward on the
-//    same tile and writes da_l (da_0 is dh_proj[k]) and dout. The TPU kernel
-//    kept these pre-activations in a 100 MB VMEM window; a block's 227 KB of
-//    shared memory cannot, so they go through L2/HBM. The carried dx is
+// 1. `bwd_rows_kernel`: one block of 512 threads (16 warps, so that each
+//    scheduler has four to hide the fragment loads' and the products'
+//    latency) owns BM rows (32, or 16 at the widest hidden widths), as K1
+//    does. It recomputes the MLP and runs the backward on one activation
+//    tile in shared memory. Each square product is a BM x Hp by Hp x Hp
+//    product on `mma.sync` (warp w owns n-tiles w, w+16, ... of all BM
+//    rows), the weight streamed from L2 in BK-row (forward) or BK-column
+//    (backward: W^T read as it is stored, so no transposed copy is made)
+//    stages through a 3-stage cp.async ring, one barrier a stage. The
+//    narrow products read their weights (W1y, Wout) from the same ring.
+//    h_l and gelu'(a_l) (one tanh for both) go to a global scratch
+//    ((nh+1) x B x Hp each) and da_l after them: the TPU kernel kept these in
+//    a 100 MB VMEM window, a block's 227 KB cannot. The carried dx is
 //    updated in place: a block only touches its own rows.
-// 3. `atb_kernel` (atb.cuh, shared with the LSTM backward): every weight
-//    grad of the step as C = A^T B over the B rows, one 64 x 64 output tile
-//    per block, each block looping over all rows in a fixed order. A's row
-//    M is taken to be all ones, so row M of the product is the column sums:
-//    the bias grads come out of the same pass. No atomics: the result does
-//    not depend on the launch order, which is the TPU kernel's
+// 2. `atb_kernel` (atb.cuh, shared with the LSTM backward): every weight
+//    grad of the step as C = A^T B over the B rows in one launch, tensor
+//    cores in 3xTF32; A's column M is taken to be all ones, so row M of the
+//    product is the column sums (the bias grads and the ActNorm sums). No
+//    atomics, one block a row range in a fixed order: the TPU kernel's
 //    VMEM-resident accumulation made deterministic.
 // After the last step, `actnorm_grad_kernel` forms the ActNorm grads from the
 // column sums. Rows past B are computed on zeros and never stored or summed.
+// The entry point's `parts` mask runs the rows kernels (1), the weight-grad
+// passes (2) or the ActNorm grads (4) alone, so each part can be timed.
 
 #include "atb.cuh"
 
@@ -50,24 +59,154 @@ namespace {
 
 using namespace bcnf;
 
-constexpr int kRowTM = 4;  // rows per warp in bwd_rows_kernel: BM = 32
+constexpr int kRingStages = 3;
+constexpr int kRowThreads = 512;  // bwd_rows_kernel's block
+constexpr int kRowWarps = kRowThreads / 32;
 
-template <int TN>
-__global__ void __launch_bounds__(kThreads, 1)
+// gelu_tanh(x) and gelu_tanh_grad(x) (flow_common.cuh) from one tanh: the
+// same expressions, so the same values.
+__device__ __forceinline__ void gelu_and_grad(float x, float& h, float& d) {
+  const float t = tanhf(kGeluK0 * (x + kGeluK1 * x * x * x));
+  h = 0.5f * x * (1.0f + t);
+  d = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * kGeluK0 * (1.0f + 3.0f * kGeluK1 * x * x);
+}
+
+// Copy n floats (n a multiple of 4, both ends 16-byte aligned) with all of
+// the rows kernel's threads.
+__device__ __forceinline__ void load_floats(float* dst, const float* src, int n, int tid) {
+  for (int i = tid * 4; i < n; i += kRowThreads * 4) cp_async16(dst + i, src + i);
+}
+
+// The rows kernel's shapes for Hp = 32*TN, BM rows and BK-deep weight stages.
+template <int TN, int BM, int BK>
+struct RowShape {
+  static constexpr int Hp = 32 * TN;
+  static constexpr int NT = Hp / 8;                       // n-tiles of a square product
+  static constexpr int NTW = (NT + kRowWarps - 1) / kRowWarps;  // ... of one warp, at most
+  static constexpr int MT = BM / 16;                            // m-tiles
+  static constexpr int ldA = Hp + 4;                            // activation tile (row-major A)
+  static constexpr int ldK = Hp + 8;                            // a stage of BK rows of W
+  static constexpr int ldN = BK + 4;                            // a stage of BK columns of W (Hp rows)
+  static constexpr int stage = BK * ldK > Hp * ldN ? BK * ldK : Hp * ldN;
+  // Between the square products the ring holds W1y (d_a x Hp) or Wout
+  // (Hp x n_out) where it is large enough (the flagship's widths and far
+  // wider); otherwise the narrow products read them from global memory.
+  __host__ __device__ static bool narrow_in_ring(int size, int d_a) {
+    const int widest = d_a > 2 * (size - d_a) ? d_a : 2 * (size - d_a);
+    return static_cast<size_t>(kRingStages) * stage >= static_cast<size_t>(Hp) * widest;
+  }
+  static size_t smem(int size, int d_a) {
+    const int n_out = 2 * (size - d_a);
+    return sizeof(float) * (static_cast<size_t>(BM) * ldA + static_cast<size_t>(kRingStages) * stage +
+                            static_cast<size_t>(BM) * (5 * size + n_out + d_a + 1));
+  }
+};
+
+// acc = act (BM x Hp, shared) @ W (forward) or @ W^T (kTrans), W an Hp x Hp
+// weight in global memory, row-major. Warp w's n-tiles are w + 16 i. Starts
+// and ends with a barrier: the caller may write act, or the ring, right
+// before and after.
+template <int TN, int BM, int BK, bool kTrans>
+__device__ __forceinline__ void square_product(const float* act, const float* W, float* ring,
+                                               float (&acc)[BM / 16][RowShape<TN, BM, BK>::NTW][4],
+                                               int warp, int lane, int tid) {
+  using S = RowShape<TN, BM, BK>;
+  constexpr int Hp = S::Hp, n_slabs = Hp / BK;
+#pragma unroll
+  for (int mi = 0; mi < S::MT; ++mi)
+#pragma unroll
+    for (int i = 0; i < S::NTW; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][i][e] = 0.0f;
+
+  __syncthreads();  // the ring's last readers are done
+  auto load = [&](int slab) {
+    float* st = ring + (slab % kRingStages) * S::stage;
+    if (!kTrans) {  // rows slab*BK .. of W
+      const float* src = W + static_cast<size_t>(slab) * BK * Hp;
+      for (int e = tid; e < BK * Hp / 4; e += kRowThreads) {
+        const int kr = e / (Hp / 4), c = (e % (Hp / 4)) * 4;
+        cp_async16(st + kr * S::ldK + c, src + kr * Hp + c);
+      }
+    } else {  // columns slab*BK .. of every row of W
+      const float* src = W + slab * BK;
+      for (int e = tid; e < Hp * BK / 4; e += kRowThreads) {
+        const int n = e / (BK / 4), c = (e % (BK / 4)) * 4;
+        cp_async16(st + n * S::ldN + c, src + static_cast<size_t>(n) * Hp + c);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kRingStages - 1; ++s) {
+    if (s < n_slabs) load(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<kRingStages - 2>();  // slab s has landed (this thread's copies)
+    __syncthreads();                   // ... and everyone's; slab s-1's stage is free again
+    if (s + kRingStages - 1 < n_slabs) load(s + kRingStages - 1);
+    cp_async_commit();
+    const float* st = ring + (s % kRingStages) * S::stage;
+    const int nb = (S::NT - warp + kRowWarps - 1) / kRowWarps;  // the warp's n-tiles: w, w + 16, ...
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      FragA fa[S::MT];
+      FragB fb[S::NTW];
+#pragma unroll
+      for (int mi = 0; mi < S::MT; ++mi) fa[mi] = load_a_rowmajor(act + 16 * mi * S::ldA + s * BK + kk, S::ldA, lane);
+#pragma unroll
+      for (int i = 0; i < S::NTW; ++i) {
+        const int nt = warp + kRowWarps * i;
+        if (i < nb) {
+          fb[i] = kTrans ? load_b_nmajor(st + 8 * nt * S::ldN + kk, S::ldN, lane)
+                         : load_b_kmajor(st + kk * S::ldK + 8 * nt, S::ldK, lane);
+        }
+      }
+      mma_3xtf32(acc, fa, fb, nb);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// out[r][c] = sum_{i < K} act[r * lda + i] * W[i * w_row + c * w_col] + bias[c]
+// for r < BM and c < n_cols, W in shared memory, one output a thread in
+// turn, float32 FMA in the order of i. `bias` may be null.
+__device__ __forceinline__ void narrow_product(const float* act, int lda, int BM, int K, const float* W,
+                                               int w_row, int w_col, const float* bias, float* out,
+                                               int n_cols, int tid) {
+  for (int p = tid; p < BM * n_cols; p += kRowThreads) {
+    const int r = p / n_cols, c = p % n_cols;
+    const float* a = act + r * lda;
+    const float* Wc = W + c * w_col;
+    float acc = 0.0f;
+    for (int kk = 0; kk < K; kk += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(a + kk);
+      acc = fmaf(v.x, Wc[kk * w_row], acc);
+      acc = fmaf(v.y, Wc[(kk + 1) * w_row], acc);
+      acc = fmaf(v.z, Wc[(kk + 2) * w_row], acc);
+      acc = fmaf(v.w, Wc[(kk + 3) * w_row], acc);
+    }
+    out[p] = acc + (bias == nullptr ? 0.0f : bias[c]);
+  }
+}
+
+template <int TN, int BM, int BK>
+__global__ void __launch_bounds__(kRowThreads, 1)
 bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_proj,
                 const float* __restrict__ dld, const float* __restrict__ an_s,
                 const float* __restrict__ an_b, const float* __restrict__ ortho,
                 const float* __restrict__ w1y, const float* __restrict__ b1,
                 const float* __restrict__ wm, const float* __restrict__ bm,
                 const float* __restrict__ wout, const float* __restrict__ bout,
-                const float* __restrict__ wmT, const float* __restrict__ woutT,
                 float* __restrict__ dxy, float* __restrict__ dhp, float* __restrict__ hs_g,
                 float* __restrict__ gs_g, float* __restrict__ da_g, float* __restrict__ dout_g,
                 float* __restrict__ x1_g, float* __restrict__ an_g, int B, int S, int k, int size,
-                int d_a, int nh, int BK) {
-  constexpr int TM = kRowTM;
-  constexpr int BM = kWarps * TM;
-  constexpr int Hp = 32 * TN;
+                int d_a, int nh) {
+  using Sh = RowShape<TN, BM, BK>;
+  constexpr int Hp = Sh::Hp, MT = Sh::MT, NTW = Sh::NTW, ldA = Sh::ldA;
   const int d_b = size - d_a;
   const int n_out = 2 * d_b;
   const int n_an = 2 * size + 1;
@@ -75,9 +214,9 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
   const size_t BHp = static_cast<size_t>(B) * Hp;
 
   extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);  // BM x Hp
-  float* slab = act + BM * Hp;                   // 2 x BK x Hp
-  float* xs = slab + 2 * BK * Hp;                // BM x size: x_k
+  float* act = reinterpret_cast<float*>(smem4);  // BM x Hp (ld ldA)
+  float* ring = act + BM * ldA;                  // kRingStages weight stages
+  float* xs = ring + kRingStages * Sh::stage;    // BM x size: x_k
   float* x1s = xs + BM * size;                   // BM x size: after the ActNorm
   float* dys = x1s + BM * size;                  // BM x size: cotangent of the step's output
   float* dx2s = dys + BM * size;                 // BM x size: dy Q^T
@@ -87,99 +226,110 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
   float* dlds = dxas + BM * d_a;                 // BM
 
   const int tid = threadIdx.x;
-  const int ty = tid / 32;
-  const int tx = tid % 32;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;  // a thread's rows and columns in a C fragment
   const int row0 = blockIdx.x * BM;
   const float* sc = an_s + static_cast<size_t>(k) * size;
   const float* bi = an_b + static_cast<size_t>(k) * size;
   const float* Q = ortho + static_cast<size_t>(k) * size * size;
 
+  // The thread's elements of a BM x Hp product, pairs of columns as the C
+  // fragments hold them: f(row, col, value pair index mi, i, h).
+  auto each_pair = [&](auto&& f) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        const int nt = warp + kRowWarps * i;
+        if (nt < Sh::NT) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) f(16 * mi + g + 8 * h, 8 * nt + 2 * t4, mi, i, h);
+        }
+      }
+  };
+  auto store2 = [](float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); };
+  auto load2 = [](const float* p) { return *reinterpret_cast<const float2*>(p); };
+
   // ---- the step's input rows, the incoming cotangent, dlogdet
-  for (int p = tid; p < BM * size; p += kThreads) {
+  for (int p = tid; p < BM * size; p += kRowThreads) {
     const bool valid = row0 + p / size < B;
     xs[p] = valid ? bound[(static_cast<size_t>(k) * B + row0) * size + p] : 0.0f;
     dys[p] = valid ? dxy[static_cast<size_t>(row0) * size + p] : 0.0f;
   }
   if (tid < BM) dlds[tid] = row0 + tid < B ? dld[row0 + tid] : 0.0f;
   __syncthreads();
-  for (int p = tid; p < BM * size; p += kThreads) {
+  for (int p = tid; p < BM * size; p += kRowThreads) {
     const int i = p % size;
     x1s[p] = inner ? xs[p] * sc[i] + bi[i] : xs[p];
     if (row0 + p / size < B) x1_g[static_cast<size_t>(row0) * size + p] = x1s[p];
   }
   __syncthreads();
 
-  // ---- recompute the MLP: a_0 = x1_a W1y + b1 + h_proj[k, row]
+  // h = gelu(a) into the tile, and h, gelu'(a) of layer `l` to the scratch
+  auto keep = [&](int l, int row, int col, float a0, float a1) {
+    float h0, h1, d0, d1;
+    gelu_and_grad(a0, h0, d0);
+    gelu_and_grad(a1, h1, d1);
+    store2(act + row * ldA + col, h0, h1);
+    if (row0 + row < B) {
+      const size_t o = l * BHp + static_cast<size_t>(row0 + row) * Hp + col;
+      store2(hs_g + o, h0, h1);
+      store2(gs_g + o, d0, d1);
+    }
+  };
+  // The narrow products' weights go into the ring (free between the square
+  // products): W1y[k] (d_a x Hp), Wout[k] (Hp x n_out); returns where they are.
+  const float* w1_g = w1y + static_cast<size_t>(k) * d_a * Hp;
+  const float* wo_g = wout + static_cast<size_t>(k) * Hp * n_out;
+  const bool in_ring = Sh::narrow_in_ring(size, d_a);
+  auto stage_weight = [&](const float* src, int n) -> const float* {
+    if (!in_ring) return src;
+    __syncthreads();  // the ring's last readers are done
+    load_floats(ring, src, n, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    return ring;
+  };
+
+  // ---- recompute the MLP: a_0 = x1_a W1y + b1 + h_proj[k, row] (FMA)
   {
-    float acc[TM][TN];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int grow = row0 + ty * TM + r;
-      const float* hp = h_proj + (static_cast<size_t>(k) * B + grow) * Hp + tx;
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        acc[r][j] = b1[static_cast<size_t>(k) * Hp + tx + 32 * j] + (grow < B ? hp[32 * j] : 0.0f);
-    }
-    for (int i = 0; i < d_a; ++i) {
-      const float* wr = w1y + (static_cast<size_t>(k) * d_a + i) * Hp + tx;
-      float w[TN];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = wr[32 * j];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float xa = x1s[(ty * TM + r) * size + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(xa, w[j], acc[r][j]);
+    const float* w1 = stage_weight(w1_g, d_a * Hp);
+    each_pair([&](int row, int col, int, int, int) {
+      const bool valid = row0 + row < B;
+      const float2 hp = valid ? load2(h_proj + (static_cast<size_t>(k) * B + row0 + row) * Hp + col)
+                              : make_float2(0.0f, 0.0f);
+      float a0 = b1[static_cast<size_t>(k) * Hp + col] + hp.x;
+      float a1 = b1[static_cast<size_t>(k) * Hp + col + 1] + hp.y;
+      for (int i = 0; i < d_a; ++i) {
+        const float xa = x1s[row * size + i];
+        const float2 w = load2(w1 + i * Hp + col);
+        a0 = fmaf(xa, w.x, a0);
+        a1 = fmaf(xa, w.y, a1);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int grow = row0 + ty * TM + r;
-      const size_t g0 = static_cast<size_t>(grow) * Hp + tx;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float h = gelu_tanh(acc[r][j]);
-        act[(ty * TM + r) * Hp + tx + 32 * j] = h;
-        if (grow < B) {
-          hs_g[g0 + 32 * j] = h;
-          gs_g[g0 + 32 * j] = gelu_tanh_grad(acc[r][j]);
-        }
-      }
-    }
+      keep(0, row, col, a0, a1);
+    });
+  }
+
+  // ---- hidden layers: a_{l+1} = h_l Wm_l + bm_l on tensor cores
+  for (int l = 0; l < nh; ++l) {
+    float acc[MT][NTW][4];
+    const size_t wl = static_cast<size_t>(k) * nh + l;
+    square_product<TN, BM, BK, false>(act, wm + wl * Hp * Hp, ring, acc, warp, lane, tid);
+    const float* bias = bm + wl * Hp;
+    each_pair([&](int row, int col, int mi, int i, int h) {
+      keep(l + 1, row, col, acc[mi][i][2 * h] + bias[col], acc[mi][i][2 * h + 1] + bias[col + 1]);
+    });
   }
   __syncthreads();
 
-  // ---- hidden layers: a_{l+1} = h_l Wm_l + bm_l, keeping h and gelu'(a)
-  for (int l = 0; l < nh; ++l) {
-    float acc[TM][TN];
-    matmul_hidden<TM, TN>(act, wm + (static_cast<size_t>(k) * nh + l) * Hp * Hp, slab, BK, acc, ty,
-                          tx, tid);
-    const float* bias = bm + (static_cast<size_t>(k) * nh + l) * Hp + tx;
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int grow = row0 + ty * TM + r;
-      const size_t g0 = (l + 1) * BHp + static_cast<size_t>(grow) * Hp + tx;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float a = acc[r][j] + bias[32 * j];
-        const float h = gelu_tanh(a);
-        act[(ty * TM + r) * Hp + tx + 32 * j] = h;
-        if (grow < B) {
-          hs_g[g0 + 32 * j] = h;
-          gs_g[g0 + 32 * j] = gelu_tanh_grad(a);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- output layer: [t | s'] = h_nh Wout + bout
-  matmul_narrow<TM, TN>(act, wout + static_cast<size_t>(k) * Hp * n_out, n_out, 1,
-                        bout + static_cast<size_t>(k) * n_out, outs, n_out, ty, tx);
+  // ---- output layer: [t | s'] = h_nh Wout + bout (FMA)
+  const float* wo = stage_weight(wo_g, Hp * n_out);
+  narrow_product(act, ldA, BM, Hp, wo, n_out, 1, bout + static_cast<size_t>(k) * n_out, outs, n_out, tid);
   __syncthreads();
 
   // ---- backward through the mix and the affine update
-  for (int p = tid; p < BM * size; p += kThreads) {
+  for (int p = tid; p < BM * size; p += kRowThreads) {
     const int r = p / size, i = p % size;
     float v = dys[p];
     if (inner) {  // dx2 = dy Q^T
@@ -189,7 +339,7 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
     dx2s[p] = v;
   }
   __syncthreads();
-  for (int p = tid; p < BM * d_b; p += kThreads) {
+  for (int p = tid; p < BM * d_b; p += kRowThreads) {
     const int r = p / d_b, j = p % d_b;
     const float s = tanhf(outs[r * n_out + d_b + j]);
     const float es = expf(s);
@@ -200,69 +350,51 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
     dx1s[r * size + d_a + j] = dzb * es;
   }
   __syncthreads();
-  for (int p = tid; p < BM * n_out; p += kThreads) {
+  for (int p = tid; p < BM * n_out; p += kRowThreads) {
     if (row0 + p / n_out < B) dout_g[static_cast<size_t>(row0) * n_out + p] = outs[p];
   }
 
-  // ---- dh = dout Wout^T; da_nh = gelu'(a_nh) dh
+  // da = gelu'(a_l) dh into the tile and to `dst` (rows past B: zeros)
+  auto grad = [&](int l, float* dst, int row, int col, float d0, float d1) {
+    const bool valid = row0 + row < B;
+    const size_t o = static_cast<size_t>(row0 + row) * Hp + col;
+    const float2 gp = valid ? load2(gs_g + l * BHp + o) : make_float2(0.0f, 0.0f);
+    const float da0 = d0 * gp.x, da1 = d1 * gp.y;
+    store2(act + row * ldA + col, da0, da1);
+    if (valid) store2(dst + o, da0, da1);
+  };
+
+  // ---- dh = dout Wout^T (FMA, Wout still staged); da_nh = gelu'(a_nh) dh
   {
-    float acc[TM][TN];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[r][j] = 0.0f;
-    for (int c = 0; c < n_out; ++c) {
-      const float* wr = woutT + static_cast<size_t>(c) * Hp + tx;
-      float w[TN];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = wr[32 * j];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float d = outs[(ty * TM + r) * n_out + c];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[r][j] = fmaf(d, w[j], acc[r][j]);
+    each_pair([&](int row, int col, int, int, int) {
+      float d0 = 0.0f, d1 = 0.0f;
+      for (int c = 0; c < n_out; ++c) {
+        const float d = outs[row * n_out + c];
+        d0 = fmaf(d, wo[static_cast<size_t>(col) * n_out + c], d0);
+        d1 = fmaf(d, wo[static_cast<size_t>(col + 1) * n_out + c], d1);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int grow = row0 + ty * TM + r;
-      const size_t g0 = static_cast<size_t>(grow) * Hp + tx;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float da = grow < B ? acc[r][j] * gs_g[nh * BHp + g0 + 32 * j] : 0.0f;
-        act[(ty * TM + r) * Hp + tx + 32 * j] = da;
-        if (grow < B) da_g[(nh - 1) * BHp + g0 + 32 * j] = da;
-      }
-    }
+      grad(nh, da_g + (nh - 1) * BHp, row, col, d0, d1);
+    });
   }
-  __syncthreads();
 
   // ---- hidden layers backward: dh = da_{l+1} Wm_l^T; da_l = gelu'(a_l) dh
   for (int l = nh - 1; l >= 0; --l) {
-    float acc[TM][TN];
-    matmul_hidden<TM, TN>(act, wmT + static_cast<size_t>(l) * Hp * Hp, slab, BK, acc, ty, tx, tid);
+    float acc[MT][NTW][4];
+    square_product<TN, BM, BK, true>(act, wm + (static_cast<size_t>(k) * nh + l) * Hp * Hp, ring, acc, warp,
+                                     lane, tid);
     float* dst = l > 0 ? da_g + (l - 1) * BHp : dhp + static_cast<size_t>(k) * BHp;
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int grow = row0 + ty * TM + r;
-      const size_t g0 = static_cast<size_t>(grow) * Hp + tx;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float da = grow < B ? acc[r][j] * gs_g[l * BHp + g0 + 32 * j] : 0.0f;
-        act[(ty * TM + r) * Hp + tx + 32 * j] = da;
-        if (grow < B) dst[g0 + 32 * j] = da;
-      }
-    }
-    __syncthreads();
+    each_pair([&](int row, int col, int mi, int i, int h) {
+      grad(l, dst, row, col, acc[mi][i][2 * h], acc[mi][i][2 * h + 1]);
+    });
   }
+  __syncthreads();
 
-  // ---- dx_a through the MLP: da_0 W1y^T
-  matmul_narrow<TM, TN>(act, w1y + static_cast<size_t>(k) * d_a * Hp, 1, Hp, nullptr, dxas, d_a,
-                        ty, tx);
+  // ---- dx_a through the MLP: da_0 W1y^T (FMA)
+  narrow_product(act, ldA, BM, Hp, stage_weight(w1_g, d_a * Hp), 1, Hp, nullptr, dxas, d_a, tid);
   __syncthreads();
 
   // ---- dx1, the carried dx = dx1 s_k, and the ActNorm rows [dx1 x_k | dx1 | dld]
-  for (int p = tid; p < BM * size; p += kThreads) {
+  for (int p = tid; p < BM * size; p += kRowThreads) {
     const int r = p / size, i = p % size;
     const int grow = row0 + r;
     if (grow < B) {
@@ -274,24 +406,6 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
     }
   }
   if (tid < BM && row0 + tid < B) an_g[static_cast<size_t>(row0 + tid) * n_an + 2 * size] = dlds[tid];
-}
-
-// out[z] = in[z]^T for a batch of rows x cols matrices (32 x 32 tiles).
-__global__ void transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int rows,
-                                 int cols) {
-  __shared__ float tile[32][33];
-  const size_t off = static_cast<size_t>(blockIdx.z) * rows * cols;
-  const int c0 = blockIdx.x * 32;
-  const int r0 = blockIdx.y * 32;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int r = r0 + i, c = c0 + threadIdx.x;
-    if (r < rows && c < cols) tile[i][threadIdx.x] = in[off + static_cast<size_t>(r) * cols + c];
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int c = c0 + i, r = r0 + threadIdx.x;
-    if (c < cols && r < rows) out[off + static_cast<size_t>(c) * rows + r] = tile[threadIdx.x][i];
-  }
 }
 
 // dscale[k] = sum(dx1 x_k) + sum(dld) / scale[k], dbias[k] = sum(dx1); zero
@@ -312,38 +426,29 @@ __global__ void actnorm_grad_kernel(const float* __restrict__ sums, const float*
   }
 }
 
-template <int TN>
+template <int TN, int BM, int BK>
 cudaError_t launch_rows(const float* bound, const float* h_proj, const float* dld,
                         const float* an_s, const float* an_b, const float* ortho, const float* w1y,
                         const float* b1, const float* wm, const float* bm, const float* wout,
-                        const float* bout, const float* wmT, const float* woutT, float* dxy,
-                        float* dhp, float* hs, float* gs, float* da, float* dout, float* x1,
-                        float* an, int B, int S, int k, int size, int d_a, int nh,
+                        const float* bout, float* dxy, float* dhp, float* hs, float* gs, float* da,
+                        float* dout, float* x1, float* an, int B, int S, int k, int size, int d_a, int nh,
                         cudaStream_t stream) {
-  constexpr int BM = kWarps * kRowTM;
-  constexpr int Hp = 32 * TN;
-  const int n_out = 2 * (size - d_a);
-  const size_t fixed = sizeof(float) * (static_cast<size_t>(BM) * Hp +
-                                        static_cast<size_t>(BM) * (5 * size + n_out + d_a + 1));
-  int BK = 16;
-  while (BK >= 4 && fixed + sizeof(float) * 2 * BK * Hp > kSmemLimit) BK /= 2;
-  if (BK < 4) return cudaErrorInvalidValue;
-  const size_t smem = fixed + sizeof(float) * 2 * BK * Hp;
-  cudaError_t err = cudaFuncSetAttribute(bwd_rows_kernel<TN>,
+  const size_t smem = RowShape<TN, BM, BK>::smem(size, d_a);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(bwd_rows_kernel<TN, BM, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  bwd_rows_kernel<TN><<<(B + BM - 1) / BM, kThreads, smem, stream>>>(
-      bound, h_proj, dld, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, wmT, woutT, dxy, dhp, hs,
-      gs, da, dout, x1, an, B, S, k, size, d_a, nh, BK);
+  bwd_rows_kernel<TN, BM, BK><<<(B + BM - 1) / BM, kRowThreads, smem, stream>>>(
+      bound, h_proj, dld, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, dxy, dhp, hs, gs, da, dout, x1,
+      an, B, S, k, size, d_a, nh);
   return cudaGetLastError();
 }
 
 size_t scratch_floats(int B, int S, int size, int d_a, int nh, int Hp) {
   const size_t n_out = 2 * static_cast<size_t>(size - d_a);
   const size_t BHp = static_cast<size_t>(B) * Hp;
-  return static_cast<size_t>(nh) * Hp * Hp + n_out * Hp  // this step's Wm^T, Wout^T
-         + (3 * static_cast<size_t>(nh) + 2) * BHp       // h_l, gelu'(a_l): nh+1 each; da_1..nh
+  return (3 * static_cast<size_t>(nh) + 2) * BHp                  // h_l, gelu'(a_l): nh+1 each; da_1..nh
          + static_cast<size_t>(B) * (n_out + size + 2 * size + 1)  // dout, x1, ActNorm rows
          + static_cast<size_t>(S) * (2 * size + 1);                // ActNorm column sums
 }
@@ -359,22 +464,26 @@ extern "C" long long bcnf_flow_train_bwd_scratch(int B, int S, int size, int d_a
 // (S, B, size), dz (B, size) and dld (B); writes dx (B, size), dhp (S, B, Hp),
 // dan_s/dan_b (S, size), dw1y (S, d_a, Hp), db1 (S, Hp), dwm (S, nh, Hp, Hp),
 // dbm (S, nh, Hp), dwout (S, Hp, n_out), dbout (S, n_out). Hp must be 32*TN
-// for a compiled TN. Returns the first failing launch's cudaError_t.
+// for a compiled TN; the weights 16-byte aligned; the rows kernel's shared
+// memory bounds `size` (at Hp = 544, size <= 29; the repo's models have at
+// most 21): a shape past it returns cudaErrorInvalidValue. `parts` (bits) runs the
+// rows kernels (1, with the copy of dz that starts them), the weight-grad
+// passes (2) and the ActNorm grads (4); the wrapper passes 7. Returns the
+// first failing launch's cudaError_t.
 extern "C" int bcnf_flow_train_bwd(
     const float* bound, const float* h_proj, const float* dz, const float* dld, const float* an_s,
     const float* an_b, const float* ortho, const float* w1y, const float* b1, const float* wm,
     const float* bm, const float* wout, const float* bout, float* dx, float* dhp, float* dan_s,
     float* dan_b, float* dw1y, float* db1, float* dwm, float* dbm, float* dwout, float* dbout,
-    float* scratch, int B, int S, int size, int d_a, int nh, int Hp, void* stream) {
-  if (B <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 || Hp % 32 != 0)
+    float* scratch, int B, int S, int size, int d_a, int nh, int Hp, int parts, void* stream) {
+  if (B <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 || nh + 3 > kAtbMaxJobs || Hp % 32 != 0 ||
+      ((reinterpret_cast<size_t>(wm) | reinterpret_cast<size_t>(w1y) | reinterpret_cast<size_t>(wout)) & 15) != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_out = 2 * (size - d_a);
   const int n_an = 2 * size + 1;
   const size_t BHp = static_cast<size_t>(B) * Hp;
-  float* wmT = scratch;
-  float* woutT = wmT + static_cast<size_t>(nh) * Hp * Hp;
-  float* hs = woutT + static_cast<size_t>(n_out) * Hp;
+  float* hs = scratch;
   float* gs = hs + (nh + 1) * BHp;
   float* da = gs + (nh + 1) * BHp;
   float* dout = da + nh * BHp;
@@ -382,52 +491,53 @@ extern "C" int bcnf_flow_train_bwd(
   float* an = x1 + static_cast<size_t>(B) * size;
   float* sums = an + static_cast<size_t>(B) * n_an;
 
-  cudaError_t err = cudaMemcpyAsync(dx, dz, sizeof(float) * B * size, cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
+  if ((parts & 1) &&
+      (err = cudaMemcpyAsync(dx, dz, sizeof(float) * B * size, cudaMemcpyDeviceToDevice, st)) != cudaSuccess)
+    return err;
   for (int k = S - 1; k >= 0; --k) {
-    const float* wm_k = wm + static_cast<size_t>(k) * nh * Hp * Hp;
-    transpose_kernel<<<dim3(Hp / 32, Hp / 32, nh), dim3(32, 8), 0, st>>>(wm_k, wmT, Hp, Hp);
-    transpose_kernel<<<dim3((n_out + 31) / 32, Hp / 32, 1), dim3(32, 8), 0, st>>>(
-        wout + static_cast<size_t>(k) * Hp * n_out, woutT, Hp, n_out);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-#define BCNF_CASE(TN)                                                                             \
-  case TN:                                                                                        \
-    err = launch_rows<TN>(bound, h_proj, dld, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, wmT, \
-                          woutT, dx, dhp, hs, gs, da, dout, x1, an, B, S, k, size, d_a, nh, st);   \
+    if (parts & 1) {
+#define BCNF_CASE(TN, BM, BK)                                                                          \
+  case TN:                                                                                             \
+    err = launch_rows<TN, BM, BK>(bound, h_proj, dld, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, dx, \
+                                  dhp, hs, gs, da, dout, x1, an, B, S, k, size, d_a, nh, st);          \
     break;
-    switch (Hp / 32) {
-      BCNF_CASE(1)
-      BCNF_CASE(2)
-      BCNF_CASE(4)
-      BCNF_CASE(8)
-      BCNF_CASE(12)
-      BCNF_CASE(16)
-      BCNF_CASE(17)
-      BCNF_CASE(24)
-      BCNF_CASE(32)
-      default:
-        return cudaErrorInvalidValue;
-    }
+      switch (Hp / 32) {
+        BCNF_CASE(1, 32, 16)
+        BCNF_CASE(2, 32, 16)
+        BCNF_CASE(4, 32, 16)
+        BCNF_CASE(8, 32, 16)
+        BCNF_CASE(12, 32, 16)
+        BCNF_CASE(16, 32, 16)
+        BCNF_CASE(17, 32, 16)
+        BCNF_CASE(24, 16, 8)
+        BCNF_CASE(32, 16, 8)
+        default:
+          return cudaErrorInvalidValue;
+      }
 #undef BCNF_CASE
-    if (err != cudaSuccess) return err;
-
-    AtbJob jobs[kMaxJobs * 2];
-    int n_jobs = 0;
-    for (int l = 0; l < nh && n_jobs < 2 * kMaxJobs - 3; ++l) {
-      const size_t wl = static_cast<size_t>(k) * nh + l;
-      jobs[n_jobs++] = {hs + l * BHp, da + l * BHp, dwm + wl * Hp * Hp, dbm + wl * Hp, Hp, Hp, Hp, Hp, B};
+      if (err != cudaSuccess) return err;
     }
-    if (n_jobs != nh) return cudaErrorInvalidValue;  // more hidden layers than the job table holds
-    jobs[n_jobs++] = {hs + nh * BHp, dout, dwout + static_cast<size_t>(k) * Hp * n_out,
-                      dbout + static_cast<size_t>(k) * n_out, Hp, n_out, Hp, n_out, B};
-    jobs[n_jobs++] = {x1, dhp + k * BHp, dw1y + static_cast<size_t>(k) * d_a * Hp,
-                      db1 + static_cast<size_t>(k) * Hp, size, Hp, d_a, Hp, B};
-    jobs[n_jobs++] = {nullptr, an, nullptr, sums + static_cast<size_t>(k) * n_an, 0, n_an, 0, n_an, B};
-    if ((err = launch_atb(jobs, n_jobs, st)) != cudaSuccess) return err;
+    if (parts & 2) {
+      AtbJob jobs[kAtbMaxJobs];
+      int n_jobs = 0;
+      for (int l = 0; l < nh; ++l) {
+        const size_t wl = static_cast<size_t>(k) * nh + l;
+        jobs[n_jobs++] = {hs + l * BHp, da + l * BHp, dwm + wl * Hp * Hp, dbm + wl * Hp, Hp, Hp, Hp, Hp, B, B};
+      }
+      jobs[n_jobs++] = {hs + nh * BHp, dout, dwout + static_cast<size_t>(k) * Hp * n_out,
+                        dbout + static_cast<size_t>(k) * n_out, Hp, n_out, Hp, n_out, B, B};
+      jobs[n_jobs++] = {x1, dhp + k * BHp, dw1y + static_cast<size_t>(k) * d_a * Hp,
+                        db1 + static_cast<size_t>(k) * Hp, size, Hp, d_a, Hp, B, B};
+      jobs[n_jobs++] = {nullptr, an, nullptr, sums + static_cast<size_t>(k) * n_an, 0, n_an, 0, n_an, B, B};
+      if ((err = launch_atb(jobs, n_jobs, st)) != cudaSuccess) return err;
+    }
   }
-  actnorm_grad_kernel<<<(S * size + 255) / 256, 256, 0, st>>>(sums, an_s, dan_s, dan_b, S, size);
-  return cudaGetLastError();
+  if (parts & 4) {
+    actnorm_grad_kernel<<<(S * size + 255) / 256, 256, 0, st>>>(sums, an_s, dan_s, dan_b, S, size);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 extern "C" const char* bcnf_cuda_error_string(int err) {

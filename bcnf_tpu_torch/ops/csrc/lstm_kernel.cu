@@ -20,30 +20,52 @@
 //
 // What bounds it on an H100: operations. A step is a (B x H) @ (H x 4H)
 // product, 8 H^2 FLOP a row: 19.3 GFLOP a direction at the flagship's
-// B = 4096, T = 30, H = 140 (0.29 ms at the float32 rate), against 0.12 ms
-// for its bytes (xp in, hs and cs out). K3b does three such products.
+// B = 4096, T = 30, H = 140 (0.29 ms at the float32 FMA rate), against
+// 0.12 ms for its bytes (xp in, hs and cs out). K3b does three such products
+// (in 3xTF32: 3 x 57.2 GFLOP at the 494.7 TFLOP/s TF32 rate, 0.35 ms).
 //
-// Design. The TPU kernel keeps the whole time loop inside one invocation per
-// batch tile; here one block of 256 threads owns BM = 8*TM rows for all T
-// steps. A thread owns hidden units u = tx + 32*j (j < TN) of all four gates,
-// so the cell update needs no exchange: c (and in K3b the carried dh, dc)
-// stays in registers, the gate sums of a step in an accumulator tile. h (K3b:
-// also dgates) sits in shared memory for the step's product. W_hh does not
-// fit a block (313 KB at H = 140, against 227 KB of shared memory), so it is
-// streamed every step in BK-row slabs through the cp.async double buffer of
-// flow_common.cuh; resident blocks walk the steps together and keep it hot in
-// the 50 MB L2. Each gate block is zero-padded on its own to Hp = 32*TN (the
-// host pads W_hh to (Hp, 4Hp), K3b also passes its transpose): padded units
-// keep c = 0.5*0 + 0.5*tanh(0) = 0 and h = 0. xp, hs, cs, dhs and dxp are
-// read and written at their own width H, masked; rows past B are computed on
-// zeros and not stored. dW_hh is the TPU kernel's per-tile VMEM sum made
-// deterministic: after the recurrence, atb.cuh's A^T B pass forms
-// h_prev^T dxp over the (T-1) B rows that have an h_prev (time-major, they
-// are one contiguous block of hs and of dxp), split into fixed row chunks
-// whose partial products a last kernel adds in a fixed order: no atomics.
-// float32 FMA only; expf/tanhf without fast-math; sigmoid = 1/(1+exp(-x)).
+// K3a's design. The TPU kernel keeps the whole time loop inside one
+// invocation per batch tile; here one block of 256 threads owns BM = 8*TM
+// rows for all T steps. A thread owns hidden units u = tx + 32*j (j < TN) of
+// all four gates, so the cell update needs no exchange: c stays in
+// registers, the gate sums of a step in an accumulator tile, h in shared
+// memory for the step's product. W_hh does not fit a block (313 KB at
+// H = 140, against 227 KB of shared memory), so it is streamed every step in
+// BK-row slabs through the cp.async double buffer of flow_common.cuh;
+// resident blocks walk the steps together and keep it hot in the 50 MB L2.
+// float32 FMA.
+//
+// K3b's design: tensor cores in 3xTF32 (mma_tf32.cuh), W_hh resident. A
+// thread-block cluster of 8 blocks owns 32 rows for all T steps; block q owns
+// hidden units q*U .. q*U + U - 1 (U = Hp/8) of every gate and keeps W_hh's
+// columns of those units (Hp x 4U, 54 KB at H = 140) in shared memory for the
+// whole launch, so W_hh is read from L2 once a block, not twice a step. A
+// step: (1) the gate sums of the block's columns, h_prev times the resident
+// slice (h_prev arrives by cp.async during the step before; the cell's
+// inputs xp, c_prev, dhs are loaded to registers before the product);
+// (2) the cell's backward for the block's units, one thread an element, dc
+// carried in registers; (3) the block's partial dh_next of all Hp units,
+// dgates (its columns) times the same slice read transposed; (4) each block
+// sums its own units' dh_next from the 8 blocks' partials through
+// distributed shared memory, in rank order (deterministic). Two split
+// cluster barriers a step order the exchange; the work between an arrive and
+// its wait hides its latency. At the flagship's Hp = 160 a block takes
+// 106 KB, so two fit an SM. Each gate block is zero-padded on
+// its own to Hp = 32*TN (the host pads W_hh to (Hp, 4Hp)): padded units keep
+// c = 0, h = 0 and dgates = 0. xp, hs, cs, dhs and dxp are read and written at
+// their own width H, masked; rows past B are computed on zeros and not
+// stored. dW_hh is the TPU kernel's per-tile VMEM sum made deterministic:
+// after the recurrence, atb.cuh's tensor-core A^T B pass forms h_prev^T dxp
+// over the (T-1) B rows that have an h_prev (time-major, they are one
+// contiguous block of hs and of dxp), in fixed row chunks of at most 2048
+// rows whose partial products a last kernel adds in a fixed order: no
+// atomics. expf/tanhf without fast-math; sigmoid = 1/(1+exp(-x)).
+
+#include <cooperative_groups.h>
 
 #include "atb.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -56,7 +78,16 @@ using namespace bcnf;
 constexpr int kMaxSplit = 64;
 constexpr int kSplitRows = 2048;
 
+// K3b: a cluster of kCluster blocks owns kBwdRows rows.
+constexpr int kCluster = 8;
+constexpr int kBwdRows = 32;
+
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// barrier.cluster in two halves: arrive (release) and wait (acquire). Every
+// thread of the cluster's blocks alternates the two.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait;\n" ::: "memory"); }
 
 template <int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
@@ -116,92 +147,201 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wp, floa
   }
 }
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_kernel(const float* __restrict__ xp, const float* __restrict__ wp,
-                const float* __restrict__ wpt, const float* __restrict__ hs,
+// K3b's shared-memory layout for Hp = 32*TN; the leading dimensions keep the
+// fragment loads free of bank conflicts (or at most two-way).
+template <int TN>
+struct BwdShape {
+  static constexpr int Hp = 32 * TN;
+  static constexpr int U = Hp / kCluster;  // units a block owns in each gate: 4 TN
+  static constexpr int NG = 4 * U;         // its gate columns
+  static constexpr int ldw = NG + 4;       // w_s: Hp x NG, W_hh's column g*Hp + rank*U + j as g*U + j
+  static constexpr int ldh = Hp + 4;       // h_s: kBwdRows x Hp
+  static constexpr int ldg = NG + 4;       // dg_s: kBwdRows x NG
+  static constexpr int ldp = Hp + 4;       // part_s: kBwdRows x Hp
+  static constexpr int E = (kBwdRows * U + kThreads - 1) / kThreads;  // cell elements of a thread
+  static constexpr size_t smem =
+      sizeof(float) * (static_cast<size_t>(Hp) * ldw + static_cast<size_t>(kBwdRows) * (ldh + ldg + ldp));
+  // two blocks an SM where their shared memory fits (the flagship's Hp = 160
+  // and t_DLSTM_large's 128): registers are then capped at 128 a thread
+  static constexpr int kMinBlocks = 2 * smem <= 226 * 1024 ? 2 : 1;
+};
+
+template <int TN>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, BwdShape<TN>::kMinBlocks)
+lstm_bwd_kernel(const float* __restrict__ xp, const float* __restrict__ wp, const float* __restrict__ hs,
                 const float* __restrict__ cs, const float* __restrict__ dhs, float* __restrict__ dxp,
-                int T, int B, int H, int reverse, int BK) {
-  constexpr int BM = kWarps * TM;
-  constexpr int Hp = 32 * TN;
+                int T, int B, int H, int reverse) {
+  using S = BwdShape<TN>;
+  constexpr int Hp = S::Hp, U = S::U, NG = S::NG, BM = kBwdRows;
+  constexpr int NTG = NG / 8;        // n-tiles of the gate product: 2 TN
+  constexpr int PG = (NTG + 3) / 4;  // ... of one warp
   const int G = 4 * H;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = static_cast<int>(blockIdx.x / kCluster) * BM;
+  const int rows = B - row0 < BM ? B - row0 : BM;  // the cluster's rows inside the batch
+
   extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);  // BM x Hp: h_prev
-  float* dg_s = h_s + BM * Hp;                    // BM x 4Hp: the step's dgates
-  float* slab = dg_s + BM * 4 * Hp;               // 2 x BK x 4Hp
+  float* w_s = reinterpret_cast<float*>(smem4);  // the block's columns of W_hh, resident
+  float* h_s = w_s + Hp * S::ldw;                // h_prev, all Hp units
+  float* dg_s = h_s + BM * S::ldh;               // the gate sums, then dgates, of the block's columns
+  float* part_s = dg_s + BM * S::ldg;            // dgates (block's columns) W_hh^T: partial dh_next
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 32;
-  const int tx = tid % 32;
-  const int row0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mt = warp & 1, nq = warp >> 1;  // a warp's m-tile, and its first n-tile (then every 4th)
 
-  float dh_next[TM][TN], dc_next[TM][TN];
+  for (int e = tid; e < Hp * NG / 4; e += kThreads) {
+    const int k = e / (NG / 4), c = (e % (NG / 4)) * 4;
+    cp_async16(w_s + k * S::ldw + c, wp + static_cast<size_t>(k) * 4 * Hp + (c / U) * Hp + rank * U + c % U);
+  }
+  cp_async_commit();
+  for (int e = tid; e < BM * S::ldh; e += kThreads)
+    if (e % S::ldh >= H || e / S::ldh >= rows) h_s[e] = 0.0f;  // padded units, rows past B: h_prev = 0
+
+  // h_prev of step tau into h_s, asynchronously (the caller waits): the
+  // cluster's rows of hs at the forward step before (one contiguous block of
+  // hs), zeros at the forward's first step
+  auto load_h = [&](int tau) {
+    const int t = reverse ? tau : T - 1 - tau;
+    if (t == (reverse ? T - 1 : 0)) {
+      for (int e = tid; e < rows * H; e += kThreads) h_s[(e / H) * S::ldh + e % H] = 0.0f;
+      return;
+    }
+    const float* src = hs + (static_cast<size_t>(reverse ? t + 1 : t - 1) * B + row0) * H;
+    if ((H & 3) == 0) {
+      for (int e = tid; e < rows * (H / 4); e += kThreads) {
+        const int r = e / (H / 4), u = (e % (H / 4)) * 4;
+        cp_async16(h_s + r * S::ldh + u, src + r * H + u);
+      }
+    } else {
+      for (int e = tid; e < rows * H; e += kThreads) cp_async4(h_s + (e / H) * S::ldh + e % H, src + e);
+    }
+  };
+  load_h(0);
+  cp_async_commit();
+
+  float dc_next[S::E];
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) dh_next[r][j] = dc_next[r][j] = 0.0f;
+  for (int i = 0; i < S::E; ++i) dc_next[i] = 0.0f;
 
+  cluster_arrive();  // (1) every block of the cluster has started
   for (int tau = 0; tau < T; ++tau) {
     const int t = reverse ? tau : T - 1 - tau;     // the opposite order of the forward
     const bool first = t == (reverse ? T - 1 : 0);  // the forward's first step
     const int tp = reverse ? t + 1 : t - 1;
 
-    float c_prev[TM][TN];
+    // the cell's inputs from global memory (xp, c_prev, dhs), loaded now so
+    // that their latency hides behind the gate product
+    float xg[S::E][4], cpv[S::E], dhv[S::E];
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = row0 + ty * TM + r;
-      const size_t p0 = (static_cast<size_t>(first ? t : tp) * B + row) * H;
+    for (int i = 0; i < S::E; ++i) {
+      const int e = tid + kThreads * i;
+      const int r = e / U, u = rank * U + e % U, row = row0 + r;
+      const bool valid = e < BM * U && row < B && u < H;
+      const size_t x0 = (static_cast<size_t>(t) * B + row) * G + u;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int u = tx + 32 * j;
-        const bool valid = !first && row < B && u < H;
-        h_s[(ty * TM + r) * Hp + u] = valid ? hs[p0 + u] : 0.0f;
-        c_prev[r][j] = valid ? cs[p0 + u] : 0.0f;
+      for (int q = 0; q < 4; ++q) xg[i][q] = valid ? xp[x0 + q * H] : 0.0f;
+      cpv[i] = valid && !first ? cs[(static_cast<size_t>(tp) * B + row) * H + u] : 0.0f;
+      dhv[i] = valid ? dhs[(static_cast<size_t>(t) * B + row) * H + u] : 0.0f;
+    }
+    cp_async_wait<0>();  // h_prev (and, at the first step, w_s) has landed
+    __syncthreads();
+
+    // the gate sums of the block's columns: h_prev (BM x Hp) @ w_s (Hp x NG)
+    const int pg = (NTG - nq + 3) / 4;  // the warp's n-tiles: nq, nq + 4, ...
+    float acc[1][PG][4] = {};
+#pragma unroll 4
+    for (int k0 = 0; k0 < Hp; k0 += 8) {
+      const FragA fa[1] = {load_a_rowmajor(h_s + 16 * mt * S::ldh + k0, S::ldh, lane)};
+      FragB fb[PG];
+#pragma unroll
+      for (int i = 0; i < PG; ++i)
+        if (i < pg) fb[i] = load_b_kmajor(w_s + k0 * S::ldw + 8 * (nq + 4 * i), S::ldw, lane);
+      mma_3xtf32(acc, fa, fb, pg);
+    }
+#pragma unroll
+    for (int i = 0; i < PG; ++i) {
+      if (i < pg) {
+        float* d = dg_s + (16 * mt + g) * S::ldg + 8 * (nq + 4 * i) + 2 * t4;
+        d[0] = acc[0][i][0];
+        d[1] = acc[0][i][1];
+        d[8 * S::ldg] = acc[0][i][2];
+        d[8 * S::ldg + 1] = acc[0][i][3];
       }
     }
-    float acc[TM][4 * TN];
-    matmul_hidden<TM, TN, 4 * TN>(h_s, wp, slab, BK, acc, ty, tx, tid);  // h_prev W_hh
+    __syncthreads();  // the gate sums are complete; h_s is free
+    if (tau + 1 < T) {
+      load_h(tau + 1);  // the next step's h_prev lands behind this step's cell and partial product
+      cp_async_commit();
+    }
+    cluster_wait();  // (1) the other blocks' partials of the step before are in their part_s
 
+    // the cell's backward, one thread an element (row r, unit j of the block)
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = row0 + ty * TM + r;
-      const size_t x0 = (static_cast<size_t>(t) * B + row) * G;
-      const size_t s0 = (static_cast<size_t>(t) * B + row) * H;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int u = tx + 32 * j;
+    for (int i = 0; i < S::E; ++i) {
+      const int e = tid + kThreads * i;
+      if (e < BM * U) {
+        const int r = e / U, j = e % U, u = rank * U + j, row = row0 + r;
         const bool valid = row < B && u < H;
         float gate[4];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) gate[g] = (valid ? xp[x0 + g * H + u] : 0.0f) + acc[r][g * TN + j];
-        const float i = sigmoid_f(gate[0]);
+        for (int q = 0; q < 4; ++q) gate[q] = dg_s[r * S::ldg + q * U + j] + xg[i][q];
+        float dh_next = 0.0f;
+        if (tau > 0) {  // the 8 blocks' partials in rank order
+#pragma unroll
+          for (int q = 0; q < kCluster; ++q) dh_next += cluster.map_shared_rank(part_s, q)[r * S::ldp + u];
+        }
+        const float c_prev = cpv[i];
+        const float ig = sigmoid_f(gate[0]);
         const float f = sigmoid_f(gate[1]);
         const float gg = tanhf(gate[2]);
         const float o = sigmoid_f(gate[3]);
-        const float cc = f * c_prev[r][j] + i * gg;
+        const float cc = f * c_prev + ig * gg;
         const float tc = tanhf(cc);
-        const float dh = (valid ? dhs[s0 + u] : 0.0f) + dh_next[r][j];
+        const float dh = dhv[i] + dh_next;
         const float dout = dh * tc;
-        const float dc = dh * o * (1.0f - tc * tc) + dc_next[r][j];
-        float dg[4] = {dc * gg * i * (1.0f - i), dc * c_prev[r][j] * f * (1.0f - f),
-                       dc * i * (1.0f - gg * gg), dout * o * (1.0f - o)};
+        const float dc = dh * o * (1.0f - tc * tc) + dc_next[i];
+        float dg[4] = {dc * gg * ig * (1.0f - ig), dc * c_prev * f * (1.0f - f), dc * ig * (1.0f - gg * gg),
+                       dout * o * (1.0f - o)};
+        const size_t x0 = (static_cast<size_t>(t) * B + row) * G + u;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          if (!valid) dg[g] = 0.0f;
-          dg_s[(ty * TM + r) * 4 * Hp + g * Hp + u] = dg[g];
-          if (valid) dxp[x0 + g * H + u] = dg[g];
+        for (int q = 0; q < 4; ++q) {
+          if (!valid) dg[q] = 0.0f;
+          dg_s[r * S::ldg + q * U + j] = dg[q];
+          if (valid) dxp[x0 + q * H] = dg[q];
         }
-        dc_next[r][j] = valid ? dc * f : 0.0f;
+        dc_next[i] = valid ? dc * f : 0.0f;
       }
     }
-    // dh_next = dgates W_hh^T; the product's first barrier publishes dg_s
-    float acc2[TM][TN];
-    matmul_hidden<TM, 4 * TN, TN>(dg_s, wpt, slab, BK, acc2, ty, tx, tid);
+    cluster_arrive();  // (2) done reading the other blocks' part_s
+    if (tau == T - 1) {
+      cluster_wait();  // no block leaves while another may still read its part_s
+      break;
+    }
+    __syncthreads();  // dgates complete in dg_s
+
+    // the block's partial dh_next of all units: dgates (BM x NG) @ w_s^T (NG x Hp)
+    float pacc[1][TN][4] = {};
+#pragma unroll 2
+    for (int k0 = 0; k0 < NG; k0 += 8) {
+      const FragA fa[1] = {load_a_rowmajor(dg_s + 16 * mt * S::ldg + k0, S::ldg, lane)};
+      FragB fb[TN];
 #pragma unroll
-    for (int r = 0; r < TM; ++r)
+      for (int i = 0; i < TN; ++i) fb[i] = load_b_nmajor(w_s + 8 * (nq + 4 * i) * S::ldw + k0, S::ldw, lane);
+      mma_3xtf32(pacc, fa, fb);
+    }
+    cluster_wait();  // (2) every block has read its units from part_s
 #pragma unroll
-      for (int j = 0; j < TN; ++j) dh_next[r][j] = acc2[r][j];
+    for (int i = 0; i < TN; ++i) {
+      float* d = part_s + (16 * mt + g) * S::ldp + 8 * (nq + 4 * i) + 2 * t4;
+      d[0] = pacc[0][i][0];
+      d[1] = pacc[0][i][1];
+      d[8 * S::ldp] = pacc[0][i][2];
+      d[8 * S::ldp + 1] = pacc[0][i][3];
+    }
+    cluster_arrive();  // (1) part_s holds this step's partials
   }
 }
 
@@ -239,21 +379,18 @@ cudaError_t launch_fwd(const float* xp, const float* wp, float* hs, float* cs, i
   return cudaGetLastError();
 }
 
-template <int TM, int TN>
-cudaError_t launch_bwd(const float* xp, const float* wp, const float* wpt, const float* hs,
-                       const float* cs, const float* dhs, float* dxp, int T, int B, int H,
-                       int reverse, cudaStream_t stream) {
-  constexpr int BM = kWarps * TM;
-  constexpr int Hp = 32 * TN;
-  int BK;
-  const size_t smem = fit_smem(sizeof(float) * BM * 5 * Hp, 4 * Hp, &BK);
-  if (BK < 4) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(lstm_bwd_kernel<TM, TN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int TN>
+cudaError_t launch_bwd(const float* xp, const float* wp, const float* hs, const float* cs,
+                       const float* dhs, float* dxp, int T, int B, int H, int reverse,
+                       cudaStream_t stream) {
+  using S = BwdShape<TN>;
+  static_assert(S::smem <= kSmemLimit, "K3b's shared memory exceeds a block's");
+  cudaError_t err = cudaFuncSetAttribute(lstm_bwd_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(S::smem));
   if (err != cudaSuccess) return err;
-  lstm_bwd_kernel<TM, TN><<<(B + BM - 1) / BM, kThreads, smem, stream>>>(
-      xp, wp, wpt, hs, cs, dhs, dxp, T, B, H, reverse, BK);
+  const int clusters = (B + kBwdRows - 1) / kBwdRows;
+  lstm_bwd_kernel<TN><<<clusters * kCluster, kThreads, S::smem, stream>>>(xp, wp, hs, cs, dhs, dxp, T, B,
+                                                                          H, reverse);
   return cudaGetLastError();
 }
 
@@ -280,7 +417,7 @@ int n_split(int T, int B) {
 
 // C entry points, loaded with ctypes. Hp (the per-gate padded width) must be
 // 32*TN for a compiled TN (1..8) with H <= Hp; wp is W_hh padded per gate to
-// (Hp, 4Hp), wpt its transpose. Each returns the cudaError_t of its launches.
+// (Hp, 4Hp). Each returns the cudaError_t of its launches.
 
 // K3a: hs, cs (T, B, H) of one direction from xp (T, B, 4H).
 extern "C" int bcnf_lstm_fwd(const float* xp, const float* wp, float* hs, float* cs, int T, int B, int H,
@@ -292,48 +429,55 @@ extern "C" int bcnf_lstm_fwd(const float* xp, const float* wp, float* hs, float*
 #undef BCNF_CALL
 }
 
-// Floats of scratch `bcnf_lstm_bwd` needs (the wrapper allocates it).
+// K3b, part 1, the recurrence: dxp (T, B, 4H) from the forward's xp, hs, cs
+// and the cotangent dhs (T, B, H).
+extern "C" int bcnf_lstm_bwd_rec(const float* xp, const float* wp, const float* hs, const float* cs,
+                                 const float* dhs, float* dxp, int T, int B, int H, int Hp, int reverse,
+                                 void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || H > Hp || Hp % 32 != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BCNF_CALL(TM, TN) return launch_bwd<TN>(xp, wp, hs, cs, dhs, dxp, T, B, H, reverse, st);
+  BCNF_LSTM_CASES(BCNF_CALL)
+#undef BCNF_CALL
+}
+
+// Floats of scratch `bcnf_lstm_bwd_dw` needs (the wrapper allocates it).
 extern "C" long long bcnf_lstm_bwd_scratch(int T, int B, int H) {
   const int n = n_split(T, B);
   return n > 1 ? static_cast<long long>(n) * H * 4 * H : 0;
 }
 
-// K3b: dxp (T, B, 4H) and dW_hh (H, 4H) from the forward's xp, hs, cs and the
-// cotangent dhs (T, B, H).
-extern "C" int bcnf_lstm_bwd(const float* xp, const float* wp, const float* wpt, const float* hs,
-                             const float* cs, const float* dhs, float* dxp, float* dw, float* scratch,
-                             int T, int B, int H, int Hp, int reverse, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H > Hp || Hp % 32 != 0) return cudaErrorInvalidValue;
+// K3b, part 2: dW_hh (H, 4H) = h_prev^T dgates over the (T-1) B rows that
+// have an h_prev, from hs and part 1's dxp.
+extern "C" int bcnf_lstm_bwd_dw(const float* hs, const float* dxp, float* dw, float* scratch, int T, int B,
+                                int H, int reverse, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define BCNF_CALL(TM, TN) \
-  err = launch_bwd<TM, TN>(xp, wp, wpt, hs, cs, dhs, dxp, T, B, H, reverse, st); \
-  break;
-  BCNF_LSTM_CASES(BCNF_CALL)
-#undef BCNF_CALL
-  if (err != cudaSuccess) return err;
-
-  // dW_hh = h_prev^T dgates over the (T-1) B rows that have an h_prev
   const int G = 4 * H;
   const size_t skip = static_cast<size_t>(B);  // the first step's rows, in forward order
-  const float* a = reverse ? hs + skip * H : hs;
-  const float* b = reverse ? dxp : dxp + skip * G;
   const int rows = (T - 1) * B;
   const int n = n_split(T, B);
-  const int chunk = (rows + n - 1) / n;
-  AtbJob jobs[kMaxSplit];
-  for (int p = 0; p < n; ++p) {
-    const int r0 = p * chunk;
-    const int k = rows - r0 < chunk ? (rows - r0 > 0 ? rows - r0 : 0) : chunk;
-    jobs[p] = {a + static_cast<size_t>(r0) * H, b + static_cast<size_t>(r0) * G,
-               n > 1 ? scratch + static_cast<size_t>(p) * H * G : dw, nullptr, H, G, H, G, k};
-  }
-  if ((err = launch_atb(jobs, n, st)) != cudaSuccess) return err;
+  const int chunk = rows > n ? (rows + n - 1) / n : 1;
+  const AtbJob job = {reverse ? hs + skip * H : hs, reverse ? dxp : dxp + skip * G, n > 1 ? scratch : dw,
+                      nullptr, H, G, H, G, rows, chunk};
+  cudaError_t err = launch_atb(&job, 1, st);
+  if (err != cudaSuccess) return err;
+  const int parts = atb_chunks(job);
   if (n > 1) {
-    sum_parts_kernel<<<(H * G + 255) / 256, 256, 0, st>>>(scratch, n, H * G, dw);
+    sum_parts_kernel<<<(H * G + 255) / 256, 256, 0, st>>>(scratch, parts, H * G, dw);
     return cudaGetLastError();
   }
   return cudaSuccess;
+}
+
+// The A^T B pass of atb.cuh alone, for the tests: c (ceil(k / chunk), m, n)
+// partial products of a (k, m) and b (k, n), and sums (same count, n) the
+// partial column sums of b (not written when null).
+extern "C" int bcnf_atb(const float* a, const float* b, float* c, float* sums, int lda, int ldb, int m, int n,
+                        int k, int chunk, void* stream) {
+  if (m < 0 || n <= 0 || k < 0 || chunk < 1) return cudaErrorInvalidValue;
+  const AtbJob job = {a, b, c, sums, lda, ldb, m, n, k, chunk};
+  return launch_atb(&job, 1, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* bcnf_cuda_error_string(int err) {

@@ -24,6 +24,7 @@ tiling rule on ``B`` or ``n_cond``: the kernel masks the ragged last tile.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Callable
 from typing import Any
 
 import torch
@@ -261,12 +262,13 @@ fused_flow.launches = 0  # type: ignore[attr-defined]
 
 
 def _train_step_mlp(k: int, x_a: torch.Tensor, h_proj: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor,
-                    wm: torch.Tensor, bm: torch.Tensor) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+                    wm: torch.Tensor, bm: torch.Tensor, mm: Callable = torch.matmul,
+                    ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Step k's MLP up to its last hidden layer: pre-activations and activations."""
-    acts = [x_a @ w1y[k] + b1[k] + h_proj[k]]
+    acts = [mm(x_a, w1y[k]) + b1[k] + h_proj[k]]
     hs = [gelu(acts[0])]
     for i in range(wm.shape[1]):
-        acts.append(hs[-1] @ wm[k, i] + bm[k, i])
+        acts.append(mm(hs[-1], wm[k, i]) + bm[k, i])
         hs.append(gelu(acts[-1]))
     return acts, hs
 
@@ -322,12 +324,16 @@ def fused_flow_train_backward_reference(
     bm: torch.Tensor,
     wout: torch.Tensor,
     bout: torch.Tensor,
+    *,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch version of K2b, output by output as
     `_flow_bwd_train_kernel` (`bcnf_tpu/ops/flow_kernel.py:434-538`): from the
     step inputs `bound` and the cotangents `dz`, `dld`, returns
     `(dx, dh_proj, dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout, dbout)`.
-    The final step's ActNorm grads are zero; the mixes get none."""
+    The final step's ActNorm grads are zero; the mixes get none. `mm` takes
+    every product (the tests pass `tf32.matmul_3xtf32`, the kernel's
+    tensor-core arithmetic)."""
     S, B, size = bound.shape
     d_a = w1y.shape[1]
     d_b = size - d_a
@@ -341,28 +347,28 @@ def fused_flow_train_backward_reference(
         x_k = bound[k]
         x1 = x_k * an_scale[k] + an_bias[k] if inner else x_k
         x_a, x1_b = x1[:, :d_a], x1[:, d_a:]
-        acts, hs = _train_step_mlp(k, x_a, h_proj, w1y, b1, wm, bm)
-        out = hs[-1] @ wout[k] + bout[k]
+        acts, hs = _train_step_mlp(k, x_a, h_proj, w1y, b1, wm, bm, mm)
+        out = mm(hs[-1], wout[k]) + bout[k]
         s = torch.tanh(out[:, d_b:])
         es = torch.exp(s)
 
-        dx2 = dx @ ortho[k].T if inner else dx
+        dx2 = mm(dx, ortho[k].T) if inner else dx
         dz_b = dx2[:, d_a:]
         ds = dz_b * es * x1_b + dld[:, None]
         dout = torch.cat([dz_b, ds * (1.0 - s * s)], dim=-1)
-        dwout[k] = hs[-1].T @ dout
+        dwout[k] = mm(hs[-1].T, dout)
         dbout[k] = torch.sum(dout, dim=0)
-        dh = dout @ wout[k].T
+        dh = mm(dout, wout[k].T)
         for i in range(wm.shape[1] - 1, -1, -1):
             da = gelu_grad(acts[i + 1]) * dh
-            dwm[k, i] = hs[i].T @ da
+            dwm[k, i] = mm(hs[i].T, da)
             dbm[k, i] = torch.sum(da, dim=0)
-            dh = da @ wm[k, i].T
+            dh = mm(da, wm[k, i].T)
         da0 = gelu_grad(acts[0]) * dh
-        dw1y[k] = x_a.T @ da0
+        dw1y[k] = mm(x_a.T, da0)
         db1[k] = torch.sum(da0, dim=0)
         dhp[k] = da0
-        dx1 = torch.cat([dx2[:, :d_a] + da0 @ w1y[k].T, dz_b * es], dim=-1)
+        dx1 = torch.cat([dx2[:, :d_a] + mm(da0, w1y[k].T), dz_b * es], dim=-1)
         if inner:
             dan_s[k] = torch.sum(dx1 * x_k, dim=0) + dld_total / an_scale[k]
             dan_b[k] = torch.sum(dx1, dim=0)
@@ -421,6 +427,9 @@ def fused_flow_train_fwd(
 fused_flow_train_fwd.launches = 0  # type: ignore[attr-defined]
 
 
+BWD_ROWS, BWD_WEIGHT_GRADS, BWD_ACTNORM = 1, 2, 4  # K2b's parts
+
+
 def fused_flow_train_bwd(
     bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     an_scale: torch.Tensor, an_bias: torch.Tensor, ortho: torch.Tensor, w1y: torch.Tensor,
@@ -446,27 +455,37 @@ def fused_flow_train_bwd(
         if t.dtype != torch.float32 or t.device != dz.device or not t.is_contiguous():
             raise ValueError(f"fused_flow_train_bwd: {name} must be contiguous float32 on {dz.device}")
 
-    from bcnf_tpu_torch.ops._build import load_library
-
-    lib = load_library("flow_train_kernel")
-    Hp = h_proj.shape[-1]
-    d_a, nh = w1y.shape[1], wm.shape[1]
     grads = (torch.empty_like(dz), torch.empty_like(h_proj), torch.empty_like(an_scale),
              torch.empty_like(an_bias), torch.empty_like(w1y), torch.empty_like(b1), torch.empty_like(wm),
              torch.empty_like(bm), torch.empty_like(wout), torch.empty_like(bout))
     if B == 0:
         return tuple(g.zero_() for g in grads)
+    _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM)
+    fused_flow_train_bwd.launches += 1
+    return grads
+
+
+def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
+                     args: dict[str, torch.Tensor], grads: tuple[torch.Tensor, ...], parts: int) -> None:
+    """Launch K2b's parts on checked CUDA tensors into `grads`, uncounted:
+    per step the rows kernel (`BWD_ROWS`, with the copy of dz that starts
+    the carried dx) and the weight-grad pass (`BWD_WEIGHT_GRADS`), then the
+    ActNorm grads (`BWD_ACTNORM`). The wrapper runs all three; chip_smoke.py
+    times each alone."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library("flow_train_kernel")
+    S, B, size = bound.shape
+    Hp = h_proj.shape[-1]
+    d_a, nh = args["w1y"].shape[1], args["wm"].shape[1]
     scratch = torch.empty((lib.bcnf_flow_train_bwd_scratch(B, S, size, d_a, nh, Hp),),
                           dtype=torch.float32, device=dz.device)
     with torch.cuda.device(dz.device):
         err = lib.bcnf_flow_train_bwd(
-            *_ptrs(bound, h_proj, dz, dld, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout,
-                   *grads, scratch),
-            B, S, size, d_a, nh, Hp, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            *_ptrs(bound, h_proj, dz, dld, *args.values(), *grads, scratch),
+            B, S, size, d_a, nh, Hp, parts, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _raise_on(err, lib, "fused_flow_train_bwd")
-    fused_flow_train_bwd.launches += 1
-    return grads
 
 
 fused_flow_train_bwd.launches = 0  # type: ignore[attr-defined]

@@ -25,6 +25,7 @@ against on the card.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Callable
 from typing import Any
 
 import torch
@@ -74,11 +75,15 @@ def lstm_direction_fwd_reference(xp: torch.Tensor, w_hh: torch.Tensor,
 
 
 def lstm_direction_bwd_reference(xp: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
-                                 dhs: torch.Tensor, reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                                 dhs: torch.Tensor, reverse: bool, *,
+                                 mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3b, output by output as `_bwd_kernel`
     (`lstm_kernel.py:65-114`): walks the steps in the opposite order of the
     forward, recomputes each step's gates from the saved `h_prev`, `c_prev`
-    (zeros at the forward's first step), and returns `(dxp, dW_hh)`."""
+    (zeros at the forward's first step), and returns `(dxp, dW_hh)`. `mm`
+    takes every product (the tests pass `tf32.matmul_3xtf32`, the kernel's
+    tensor-core arithmetic)."""
     T, B, G = xp.shape
     H = G // 4
     dxp = torch.empty_like(xp)
@@ -92,7 +97,7 @@ def lstm_direction_bwd_reference(xp: torch.Tensor, w_hh: torch.Tensor, hs: torch
         t_prev = t + 1 if reverse else t - 1
         h_prev = zeros if first else hs[t_prev]
         c_prev = zeros if first else cs[t_prev]
-        i, f, g, o, c, _ = _gate_math(xp[t] + h_prev @ w_hh, c_prev, H)
+        i, f, g, o, c, _ = _gate_math(xp[t] + mm(h_prev, w_hh), c_prev, H)
         tanh_c = torch.tanh(c)
         dh = dhs[t] + dh_next
         do = dh * tanh_c
@@ -100,9 +105,9 @@ def lstm_direction_bwd_reference(xp: torch.Tensor, w_hh: torch.Tensor, hs: torch
         dgates = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
                             dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
         dxp[t] = dgates
-        dh_next = dgates @ w_hh.T
+        dh_next = mm(dgates, w_hh.T)
         dc_next = dc * f
-        dw_hh = dw_hh + h_prev.T @ dgates
+        dw_hh = dw_hh + mm(h_prev.T, dgates)
     return dxp, dw_hh
 
 
@@ -160,11 +165,15 @@ def lstm_direction_fwd(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool) -> t
 lstm_direction_fwd.launches = 0  # type: ignore[attr-defined]
 
 
+BWD_RECURRENCE, BWD_DW = 1, 2  # K3b's parts
+
+
 def lstm_direction_bwd(xp: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
                        dhs: torch.Tensor, reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3b: `(dxp, dW_hh)` of one direction, in one call of the kernel's
-    entry point (the recurrence launch, then its deterministic AᵀB pass for
-    `dW_hh`, `csrc/lstm_kernel.cu`). A CPU tensor takes
+    """K3b: `(dxp, dW_hh)` of one direction, in its two parts (the
+    recurrence, then the deterministic AᵀB pass for `dW_hh` and the
+    fixed-order sum of its row chunks, `csrc/lstm_kernel.cu`), counted as
+    one call. A CPU tensor takes
     `lstm_direction_bwd_reference`; a CUDA tensor launches the kernels (or
     raises)."""
     T, B, H = _shapes(xp)
@@ -175,24 +184,34 @@ def lstm_direction_bwd(xp: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor, c
     seq = (T, B, H)
     _check("lstm_direction_bwd", {"xp": xp, "w_hh": w_hh, "hs": hs, "cs": cs, "dhs": dhs},
            {"xp": (T, B, 4 * H), "w_hh": (H, 4 * H), "hs": seq, "cs": seq, "dhs": seq})
-    Hp = padded_width(H, LSTM_KERNEL_TN)
-
-    from bcnf_tpu_torch.ops._build import load_library
-
-    lib = load_library("lstm_kernel")
     dxp = torch.empty_like(xp)
     dw_hh = torch.empty_like(w_hh)
     if xp.numel() == 0:
         return dxp, dw_hh.zero_()
-    wp = pad_gates(w_hh, Hp)
-    wpt = wp.T.contiguous()
-    scratch = torch.empty((lib.bcnf_lstm_bwd_scratch(T, B, H),), dtype=torch.float32, device=xp.device)
-    with torch.cuda.device(xp.device):
-        err = lib.bcnf_lstm_bwd(*_ptrs(xp, wp, wpt, hs, cs, dhs, dxp, dw_hh, scratch), T, B, H, Hp, int(reverse),
-                                _stream())
-    _raise_on(err, lib, "lstm_direction_bwd")
+    _bwd_parts(xp, w_hh, hs, cs, dhs, reverse, dxp, dw_hh, BWD_RECURRENCE | BWD_DW)
     lstm_direction_bwd.launches += 1
     return dxp, dw_hh
+
+
+def _bwd_parts(xp: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor, dhs: torch.Tensor,
+               reverse: bool, dxp: torch.Tensor, dw_hh: torch.Tensor, parts: int) -> None:
+    """Launch K3b's parts on checked CUDA tensors, uncounted: the recurrence
+    (`BWD_RECURRENCE`: dxp) and the dW_hh pass (`BWD_DW`: from hs and dxp).
+    The wrapper runs both; chip_smoke.py times each alone."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    T, B, H = _shapes(xp)
+    lib = load_library("lstm_kernel")
+    with torch.cuda.device(xp.device):
+        if parts & BWD_RECURRENCE:
+            Hp = padded_width(H, LSTM_KERNEL_TN)
+            err = lib.bcnf_lstm_bwd_rec(*_ptrs(xp, pad_gates(w_hh, Hp), hs, cs, dhs, dxp), T, B, H, Hp,
+                                        int(reverse), _stream())
+            _raise_on(err, lib, "lstm_direction_bwd (recurrence)")
+        if parts & BWD_DW:
+            scratch = torch.empty((lib.bcnf_lstm_bwd_scratch(T, B, H),), dtype=torch.float32, device=xp.device)
+            err = lib.bcnf_lstm_bwd_dw(*_ptrs(hs, dxp, dw_hh, scratch), T, B, H, int(reverse), _stream())
+            _raise_on(err, lib, "lstm_direction_bwd (dW_hh)")
 
 
 lstm_direction_bwd.launches = 0  # type: ignore[attr-defined]

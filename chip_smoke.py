@@ -16,17 +16,18 @@ Phases, one line each; any failure exits non-zero and prints no result:
    each kernel's time beside its bound and its plain version's time.
 4. entry point: the `sample` CLI on a model directory written here.
 5. training kernels: K2a (the whole-flow training forward) and K2b (its
-   backward) against their plain PyTorch versions at the flagship widths,
-   B = 4096 and a ragged B = 4099, every output and every grad (pulled
-   back from standard-normal cotangents; each grad's largest value printed
-   beside its error).
+   backward, on tensor cores in 3xTF32) against their plain PyTorch versions
+   at the flagship widths, B = 4096 and a ragged B = 4099, every output and
+   every grad (pulled back from standard-normal cotangents; each grad's
+   largest value printed beside its error).
 6. training main path: `Trainer.train` on the full flagship (coupling
    dropout 0, as bench.py's flagship) at batch 4096 (2 epochs of 3 batches)
    and at batch 256 (1 epoch of 3 batches), on random y and trajectories
    from a seed, launches counted; one step through the kernels against the
    plain autograd step on the same batch; train samples/s through the
    kernels and with the gate closed, a CUDA-event split of one step, and
-   K2a/K2b's times beside their bounds and their plain versions' times.
+   K2a/K2b's times beside their bounds and their plain versions' times;
+   K2b's parts alone: its 26 rows kernels, its 26 weight-grad passes.
 7. entry point: the `train` CLI on a written dataset with a copy of the
    flagship config (`model.kwargs.dropout: 0`, 2 epochs), then `sample` from
    the model directory it wrote.
@@ -35,7 +36,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (B = 4096 and a ragged 4099, T = 30, H = 140, layers of 3 and 280
    inputs) and t_DLSTM_large's (H = 128, T = 30 and 16), both directions;
    their times beside cuDNN's one-layer LSTM (`torch.nn.LSTM`, timed as a
-   yardstick only, never on the port's path).
+   yardstick only, never on the port's path); K3b's parts alone: the
+   cluster recurrence and the dW_hh pass.
 9. path A: the flagship with BCNF_FUSED_LSTM=1: sampling 10,000 x 8 (K3a
    4, K1 1) against phase 3's samples; `Trainer.train` at batch 4096 and
    256 (K3a/K3b 4 a step, K2a/K2b); a training step through K3a/K3b against
@@ -52,7 +54,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    rows through 26 K4 launches against K1's samples, and the no-grad
    forward against K1's.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (each row with its
+arithmetic, `arith`: float32 FMA, or 3xTF32 on the tensor cores, and its
+bound at that arithmetic's peak); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of `bcnf_tpu`.
 """
 
@@ -96,13 +100,17 @@ DLSTM_PARAMS = 37_053_181
 TRAIN_ARGS = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
 GRAD_NAMES = ("dx", "dh_proj", "dan_scale", "dan_bias", "dw1y", "db1", "dwm", "dbm", "dwout", "dbout")
 # Published dense peaks (NVIDIA data sheets) by card: float32 outside the
-# tensor cores, and device-memory bandwidth.
-PEAKS = {  # name fragment: (FLOP/s, bytes/s)
-    "H100 PCIe": (51.2e12, 2.0e12),
-    "H100 NVL": (60.0e12, 3.9e12),
-    "H100": (66.9e12, 3.35e12),  # SXM5
-    "H200": (66.9e12, 4.8e12),
+# tensor cores, TF32 on the tensor cores, and device-memory bandwidth.
+PEAKS = {  # name fragment: (float32 FLOP/s, TF32 FLOP/s, bytes/s)
+    "H100 PCIe": (51.2e12, 378e12, 2.0e12),
+    "H100 NVL": (60.0e12, 417.5e12, 3.9e12),
+    "H100": (66.9e12, 494.7e12, 3.35e12),  # SXM5
+    "H200": (66.9e12, 494.7e12, 4.8e12),
 }
+# A kernel's arithmetic, and the rate its operations are bounded by: float32
+# FMA at the float32 peak; 3xTF32 (three tensor-core products a product,
+# csrc/mma_tf32.cuh) at a third of the TF32 peak.
+ARITH_FMA, ARITH_3XTF32 = "fp32-fma", "3xtf32"
 
 
 def fail(msg: str) -> None:
@@ -110,7 +118,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def peaks_for(name: str) -> tuple[float, float]:
+def peaks_for(name: str) -> tuple[float, float, float]:
     for frag, peak in PEAKS.items():
         if frag in name:
             return peak
@@ -184,20 +192,46 @@ def check_grads(what: str, names, got, ref, atol: float = GRAD_ATOL, rtol: float
     return worst
 
 
+def kernel_label(ptxas_line: str) -> str:
+    """`name<template args>` of the kernel a ptxas "Compiling entry
+    function '<mangled name>'" line names (its last name component)."""
+    import re
+
+    mangled = ptxas_line.split("'")[1] if "'" in ptxas_line else ""
+    pos, name = (3, "") if mangled.startswith("_ZN") else (2, "")
+    while pos < len(mangled) and mangled[pos].isdigit():  # <length><name> components
+        m = re.match(r"\d+", mangled[pos:])
+        n = int(m.group(0))
+        pos += len(m.group(0))
+        name, pos = mangled[pos: pos + n], pos + n
+    m = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    args = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
+    return (name or "?") + (f"<{','.join(args)}>" if args else "")
+
+
 def median(xs: list[float]) -> float:
     return sorted(xs)[len(xs) // 2]
 
 
+def bound_ms(work: tuple[float, float], peaks: tuple[float, float, float], arith: str) -> tuple[float, str]:
+    """The least time for the work on this card in the given arithmetic: the
+    larger of its operations over that arithmetic's rate and its bytes over
+    the memory rate; and which of the two it is."""
+    rate = peaks[1] / 3 if arith == ARITH_3XTF32 else peaks[0]
+    t_ops, t_bytes = 1e3 * work[0] / rate, 1e3 * work[1] / peaks[2]
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, err: float, k_times: list[float],
-               p_times: list[float], work: tuple[float, float], peaks: tuple[float, float],
-               library_ms: float | None) -> dict:
+               p_times: list[float], work: tuple[float, float], peaks: tuple[float, float, float],
+               library_ms: float | None, arith: str = ARITH_FMA) -> dict:
     """One entry of the kernel table: median times, and the bound from the
-    work's operations and bytes over the card's peaks."""
-    t_ops, t_bytes = 1e3 * work[0] / peaks[0], 1e3 * work[1] / peaks[1]
+    work's operations and bytes over the card's peaks for the kernel's
+    arithmetic (`arith`)."""
+    bound, by = bound_ms(work, peaks, arith)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": median(k_times), "plain_ms": median(p_times),
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms, "arith": arith}
 
 
 def cuda_ms(fn, reps: int) -> list[float]:
@@ -246,7 +280,7 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = peaks_for(kind)
+    peaks = peaks_for(kind)
     print(smi)
     t0 = time.perf_counter()
     _build.build_all()  # one nvcc per source, all started together
@@ -256,9 +290,12 @@ def main() -> None:
     print(f"[1 device] {kind} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernels built+loaded in {time.perf_counter() - t0:.1f} s (nvcc: {nvcc_s or 'cached'})")
     for name, log in _build.build_logs.items():
+        kernel = "?"
         for ln in log.splitlines():
-            if "registers" in ln or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln):
-                print(f"    ptxas {name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                kernel = kernel_label(ln)
+            elif "registers" in ln or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln):
+                print(f"    ptxas {name} {kernel}: {ln.strip().removeprefix('ptxas info    : ')}")
 
     dev = torch.device("cuda")
     model = CondRealNVP.from_config(load_config(CONFIG))
@@ -383,7 +420,7 @@ def main() -> None:
             flops, nbytes = flow_work(ka, hp, x.shape[0], H)
             kernels.append(kernel_row(f"fused_flow[{direction}]", "bcnf_tpu_torch/ops/csrc/flow_kernel.cu",
                                       "bcnf_tpu/ops/flow_kernel.py:162", launches, errs[direction], k_times, p_times,
-                                      (flops, nbytes), (peak_flops, peak_bw), None))
+                                      (flops, nbytes), peaks, None))
             ms, plain_ms, bound = kernels[-1]["ms"], kernels[-1]["plain_ms"], kernels[-1]["bound_ms"]
             tile = 64 if hp.shape[-1] <= 32 * 17 else 32  # the kernel's rows per block (csrc/flow_kernel.cu)
             l2_gb = -(-x.shape[0] // tile) * 4 * sum(int(v.numel()) for v in ka.values()) / 1e9
@@ -417,9 +454,8 @@ def main() -> None:
     print(f"[4 entry point] bcnf_tpu_torch sample: {cli.shape} finite, fused_flow launches {cli_launches}")
 
     check_train_kernels(model, k_params, rng, dev)
-    kernels += train_main_path(rng, dev, peak_flops, peak_bw)
+    kernels += train_main_path(rng, dev, peaks)
     train_cli(rng, build_dir)
-    peaks = (peak_flops, peak_bw)
     lstm_times = check_lstm_kernels(rng, dev)
     k2b_ms = next(row["ms"] for row in kernels if row["name"].startswith("K2b"))
     lstm_launches = lstm_path_a(model, params, traj, samples, rng, dev, build_dir, lstm_times, k2b_ms)
@@ -485,7 +521,7 @@ def _flagship_train_config(batch_size: int, n_epochs: int) -> dict:
     return cfg
 
 
-def train_main_path(rng, dev, peak_flops: float, peak_bw: float) -> list[dict]:
+def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
     """Phase 6: the training main path on the full flagship; returns the
     K2a/K2b rows of the kernel table."""
     import numpy as np
@@ -494,6 +530,9 @@ def train_main_path(rng, dev, peak_flops: float, peak_bw: float) -> list[dict]:
     from bcnf_tpu_torch.bridge import map_tree, tree_leaves
     from bcnf_tpu_torch.models import CondRealNVP
     from bcnf_tpu_torch.ops.flow_kernel import (
+        BWD_ROWS,
+        BWD_WEIGHT_GRADS,
+        _train_bwd_parts,
         fused_flow,
         fused_flow_train,
         fused_flow_train_backward_reference,
@@ -647,25 +686,34 @@ def train_main_path(rng, dev, peak_flops: float, peak_bw: float) -> list[dict]:
             "K2b": (cuda_ms(lambda: fused_flow_train_bwd(bound, h_proj, dz, dld, *args), reps=5),
                     cuda_ms(lambda: fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args), reps=3)),
         }
+        # K2b's parts alone, on the same inputs: the 26 rows kernels, then the 26 weight-grad passes
+        outs = tuple(torch.empty_like(t) for t in grads_k)
+        part_ms = {name: median(cuda_ms(lambda: _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(TRAIN_ARGS, args)),
+                                                                 outs, part), reps=5))
+                   for name, part in (("rows", BWD_ROWS), ("weight grads", BWD_WEIGHT_GRADS))}
     fused_flow_train_fwd.launches, fused_flow_train_bwd.launches = saved
     work = dict(zip(("K2a", "K2b"), train_work({k: v for k, v in zip(TRAIN_ARGS, args)}, h_proj, B, H)))
     rows = []
-    for name, err, src, replaces, fn in (
+    for name, err, src, replaces, fn, arith in (
         ("K2a", fwd_err, "bcnf_tpu_torch/ops/csrc/flow_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:558",
-         "fused_flow_train_fwd"),
+         "fused_flow_train_fwd", ARITH_FMA),
         ("K2b", bwd_err, "bcnf_tpu_torch/ops/csrc/flow_train_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:600",
-         "fused_flow_train_bwd"),
+         "fused_flow_train_bwd", ARITH_3XTF32),
     ):
         k_times, p_times = times[name]
         flops = work[name][0]
         rows.append(kernel_row(f"{name} {fn}", src, replaces, launches[name], err, k_times, p_times, work[name],
-                               (peak_flops, peak_bw), None))
+                               peaks, None, arith))
         ms, plain_ms, bound = rows[-1]["ms"], rows[-1]["plain_ms"], rows[-1]["bound_ms"]
-        print(f"    {name} rows {B}: {ms:.2f} ms (bound {bound:.2f} ms, {flops / 1e12:.3f} TFLOP -> "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, median of {len(k_times)}, range {min(k_times):.2f}-"
-              f"{max(k_times):.2f}), plain {plain_ms:.2f} ms (range {min(p_times):.2f}-{max(p_times):.2f}); "
-              f"max|d| vs plain {err:.2e}")
+        fma_bound = bound_ms(work[name], peaks, ARITH_FMA)[0]
+        print(f"    {name} rows {B}: {ms:.2f} ms ({arith}; bound {bound:.2f} ms, float32-FMA bound {fma_bound:.2f} ms, "
+              f"{flops / 1e12:.3f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, median of {len(k_times)}, range "
+              f"{min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms (range {min(p_times):.2f}-"
+              f"{max(p_times):.2f}); max|d| vs plain {err:.2e}")
     k2b_ms = rows[1]["ms"]
+    print(f"    K2b parts (CUDA events, median of 5, ms): 26 rows kernels {part_ms['rows']:.2f}, 26 weight-grad "
+          f"passes {part_ms['weight grads']:.2f}, the rest (dz copy, ActNorm grads, scratch, gaps) "
+          f"{k2b_ms - part_ms['rows'] - part_ms['weight grads']:.2f}")
     print(f"    step split at batch 4096 (CUDA events, median of 3, ms): encoder forward {split[0]:.2f}, "
           f"condition projections + stacking {split[1]:.2f}, K2a {split[2]:.2f}, loss {split[3]:.2f}, "
           f"backward {split[4]:.2f} (K2b alone {k2b_ms:.2f}, so the rest of autograd ~{split[4] - k2b_ms:.2f}), "
@@ -816,6 +864,9 @@ def check_lstm_kernels(rng, dev) -> dict:
 
     from bcnf_tpu_torch.ops.lstm import lstm_cell_init
     from bcnf_tpu_torch.ops.lstm_kernel import (
+        BWD_DW,
+        BWD_RECURRENCE,
+        _bwd_parts,
         fused_direction,
         lstm_direction_bwd,
         lstm_direction_bwd_reference,
@@ -874,6 +925,10 @@ def check_lstm_kernels(rng, dev) -> dict:
                 "K3b": cuda_ms(lambda: lstm_direction_bwd(xp, p["w_hh"], hs, cs, dhs, False), reps=5),
                 "K3b plain": cuda_ms(lambda: lstm_direction_bwd_reference(xp, p["w_hh"], hs, cs, dhs, False), reps=3),
             }
+            # K3b's two parts alone: the cluster recurrence, and the dW_hh pass over its dxp
+            dxp_b, dw_b = lstm_direction_bwd(xp, p["w_hh"], hs, cs, dhs, False)
+            for part, bit in (("K3b recurrence", BWD_RECURRENCE), ("K3b dW_hh pass", BWD_DW)):
+                t[part] = cuda_ms(lambda: _bwd_parts(xp, p["w_hh"], hs, cs, dhs, False, dxp_b, dw_b, bit), reps=5)
             run = cudnn_lstm(p, F, H, False, dev)
             t["cuDNN forward"] = cuda_ms(lambda: run(x), reps=5)
         xg = x.clone().requires_grad_(True)
@@ -894,25 +949,32 @@ def check_lstm_kernels(rng, dev) -> dict:
               f"{med['projection + K3a']:.3f} vs cuDNN forward {med['cuDNN forward']:.3f} (with autograd on "
               f"{med['cuDNN forward, autograd on']:.3f}); K3b {med['K3b']:.3f} "
               f"(range {min(t['K3b']):.3f}-{max(t['K3b']):.3f}; {b_ops / 1e9:.1f} GFLOP -> "
-              f"{b_ops / med['K3b'] / 1e9:.1f} TFLOP/s), plain {med['K3b plain']:.3f}; cuDNN backward "
+              f"{b_ops / med['K3b'] / 1e9:.1f} TFLOP/s; recurrence {med['K3b recurrence']:.3f}, dW_hh pass "
+              f"{med['K3b dW_hh pass']:.3f}), plain {med['K3b plain']:.3f}; cuDNN backward "
               f"(forward + backward - forward) {med['cuDNN forward + backward'] - med['cuDNN forward']:.3f}")
     lstm_direction_fwd.launches, lstm_direction_bwd.launches = saved
     times["err"] = worst
     return times
 
 
-def lstm_rows(times: dict, launches: dict, peaks: tuple[float, float]) -> list[dict]:
+def lstm_rows(times: dict, launches: dict, peaks: tuple[float, float, float]) -> list[dict]:
     """The K3a/K3b entries of the kernel table, at the flagship encoder's
     batch-4096 shape; launches are phase 9's (path A's main-path run)."""
     t = times["flagship"]
     (fwd_work, bwd_work) = t["work"]
     src, rep = "bcnf_tpu_torch/ops/csrc/lstm_kernel.cu", "bcnf_tpu/ops/lstm_kernel.py"
-    return [
+    rows = [
         kernel_row("K3a lstm_direction_fwd", src, f"{rep}:129", launches["K3a"], times["err"]["K3a"], [t["K3a"]],
                    [t["K3a plain"]], fwd_work, peaks, t["cuDNN forward"]),
         kernel_row("K3b lstm_direction_bwd", src, f"{rep}:150", launches["K3b"], times["err"]["K3b"], [t["K3b"]],
-                   [t["K3b plain"]], bwd_work, peaks, t["cuDNN forward + backward"] - t["cuDNN forward"]),
+                   [t["K3b plain"]], bwd_work, peaks, t["cuDNN forward + backward"] - t["cuDNN forward"],
+                   ARITH_3XTF32),
     ]
+    k3b = rows[1]
+    print(f"    K3b (3xtf32) at B={t['B']}: {k3b['ms']:.3f} ms against its bound {k3b['bound_ms']:.3f} ms (float32-FMA "
+          f"bound {bound_ms(bwd_work, peaks, ARITH_FMA)[0]:.3f} ms) and cuDNN's backward {k3b['library_ms']:.3f} ms: "
+          f"{'faster' if k3b['ms'] < k3b['library_ms'] else 'not faster'} than cuDNN")
+    return rows
 
 
 def lstm_counts() -> dict:
@@ -1238,7 +1300,7 @@ def coupling_work(args: dict, rows: int, n_cond: int, H: int, inverse: bool) -> 
 
 
 def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev,
-                    peaks: tuple[float, float]) -> list[dict]:
+                    peaks: tuple[float, float, float]) -> list[dict]:
     """Phase 11: K4 against its plain version at the flagship widths; the
     flagship with `use_pallas_coupling` (26 K4 launches a pass) against K1.
     Returns the K4 entries of the kernel table."""

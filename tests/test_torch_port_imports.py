@@ -330,3 +330,89 @@ def test_per_coupling_path_on_card_matches_the_whole_flow_kernel(cuda):
     torch.testing.assert_close(y4, y1, atol=1e-4, rtol=0)
     torch.testing.assert_close(z4, z1, atol=1e-4, rtol=0)
     torch.testing.assert_close(ld4, ld1, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m,n,chunk", [(4096, 128, 256, 2048), (1001, 37, 75, 300)], ids=["tiled", "ragged"])
+def test_atb_pass_matches_plain_version_on_card(cuda, k, m, n, chunk):
+    """The tensor-core AᵀB pass alone (3xTF32): every chunk's partial product
+    and column sums against float32 products on the card, within 1e-4 of the
+    partial's largest value; the same inputs give the same bits twice (no
+    atomics)."""
+    from bcnf_tpu_torch.ops.atb import atb, atb_reference
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    a = torch.randn((k, m), generator=g, device=cuda)
+    b = torch.randn((k, n), generator=g, device=cuda)
+    before = atb.launches
+    c, sums = atb(a, b, chunk)
+    c2, sums2 = atb(a, b, chunk)
+    c_r, sums_r = atb_reference(a, b, chunk)
+    torch.cuda.synchronize()
+    assert atb.launches == before + 2 and c.shape == (-(-k // chunk), m, n)
+    assert torch.equal(c, c2) and torch.equal(sums, sums2)
+    torch.testing.assert_close(c, c_r, atol=1e-4 * c_r.abs().max().item(), rtol=1e-4)
+    torch.testing.assert_close(sums, sums_r, atol=1e-4 * sums_r.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("hidden,batch,steps", [(140, 64, 12), (140, 70, 12), (32, 96, 8), (224, 45, 6)])
+def test_lstm_backward_parts_match_plain_versions_on_card(cuda, reverse, hidden, batch, steps):
+    """K3b's two parts, each alone: the cluster recurrence (dxp) and the
+    dW_hh pass over its dxp, against the plain version; tiled and ragged
+    batches (32 rows a cluster), per-gate widths 160, 32 and 224."""
+    from bcnf_tpu_torch.ops.lstm_kernel import BWD_DW, BWD_RECURRENCE, _bwd_parts
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    xp = torch.randn((steps, batch, 4 * hidden), generator=g, device=cuda)
+    w_hh = torch.randn((hidden, 4 * hidden), generator=g, device=cuda) / hidden**0.5
+    hs, cs = lstm_direction_fwd_reference(xp, w_hh, reverse)
+    dhs = torch.randn(hs.shape, generator=g, device=cuda)
+    dxp_r, dw_r = lstm_direction_bwd_reference(xp, w_hh, hs, cs, dhs, reverse)
+    dxp, dw = torch.full_like(xp, float("nan")), torch.full_like(w_hh, float("nan"))
+    _bwd_parts(xp, w_hh, hs, cs, dhs, reverse, dxp, dw, BWD_RECURRENCE)
+    torch.cuda.synchronize()
+    assert torch.isnan(dw).all()
+    torch.testing.assert_close(dxp, dxp_r, atol=1e-4, rtol=1e-4)
+    _bwd_parts(xp, w_hh, hs, cs, dhs, reverse, dxp_r.clone(), dw, BWD_DW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dw, dw_r, atol=1e-4 * dw_r.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [526, 700, 1000])  # 32-row tiles; 16-row tiles at the widest widths
+@pytest.mark.parametrize("rows", [256, 259], ids=["tiled", "ragged"])
+def test_train_backward_matches_plain_version_on_card(cuda, hidden, rows):
+    """K2b (rows kernels on tensor cores, weight grads by the AᵀB pass)
+    against its plain version, every grad at the JAX grad bar; its rows part
+    alone gives the call's dx and dh_proj and writes no weight grad."""
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        BWD_ROWS,
+        _train_bwd_parts,
+        fused_flow_train_backward_reference,
+        fused_flow_train_bwd,
+        fused_flow_train_reference,
+    )
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[hidden] * 3, n_blocks=3, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0)
+    with torch.no_grad():
+        x, h_proj, args = _train_args(model, model.init(device=cuda), B=rows, seed=15, device=cuda)
+        z, ld, bound = fused_flow_train_reference(x, h_proj, *args)
+        g = torch.Generator(device=cuda).manual_seed(16)
+        dz, dld = torch.randn(z.shape, generator=g, device=cuda), torch.randn(ld.shape, generator=g, device=cuda)
+        before = fused_flow_train_bwd.launches
+        grads = fused_flow_train_bwd(bound, h_proj, dz, dld, *args)
+        refs = fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args)
+        names = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+        rows_only = tuple(torch.full_like(t, float("nan")) for t in grads)
+        _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(names, args)), rows_only, BWD_ROWS)
+        torch.cuda.synchronize()
+    assert fused_flow_train_bwd.launches == before + 1
+    for name, gk, r in zip(("x", "h_proj", "an_scale", "an_bias", "w1y", "b1", "wm", "bm", "wout", "bout"),
+                           grads, refs):
+        torch.testing.assert_close(gk, r, atol=min(5e-4, 1e-4 * r.abs().max().item()), rtol=1e-3, msg=name)
+    assert torch.equal(rows_only[0], grads[0]) and torch.equal(rows_only[1], grads[1])
+    assert all(torch.isnan(t).all() for t in rows_only[2:])

@@ -1,0 +1,240 @@
+"""Port parity, the tensor-core arithmetic of K2b and K3b: 3xTF32.
+
+The redesigned backward kernels (`csrc/flow_train_kernel.cu`,
+`csrc/lstm_kernel.cu`, their AᵀB pass `csrc/atb.cuh`) take their large
+products on Hopper's tensor cores in 3xTF32, the counterpart of the JAX
+kernels' "x3" (bf16 x 3) mode that serves their "highest" contract.
+`bcnf_tpu_torch/ops/tf32.py` models that arithmetic in plain PyTorch; here
+the plain K3b and K2b backward versions, with every product taken by that
+model, are held against the JAX package's Pallas kernels in interpret mode
+at the existing bars (tests/test_lstm_kernel.py:48: atol 1e-4, rtol 1e-4;
+tests/test_flow_kernel.py:313: atol 5e-4, rtol 1e-3), on seeded numpy
+inputs. A single TF32 pass is shown to fall outside the LSTM bar, so the
+comparison can tell the two apart. The kernels themselves are held against
+the plain versions on the card (tests/test_torch_port_imports.py, `gpu`).
+"""
+
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bcnf_tpu.models import CondRealNVP as JaxCondRealNVP
+from bcnf_tpu.models import ConcatenateCondition as JaxConcat
+from bcnf_tpu.models import FeatureNetworkStack as JaxStack
+from bcnf_tpu.models import FullyConnectedFeatureNetwork as JaxFC
+from bcnf_tpu.ops.flow_kernel import fused_flow_train as jax_fused_flow_train
+from bcnf_tpu.ops.lstm_kernel import _make_lstm_dir
+from bcnf_tpu_torch.ops.atb import atb, atb_reference
+from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_backward_reference, fused_flow_train_reference
+from bcnf_tpu_torch.ops.lstm_kernel import lstm_direction_bwd_reference, lstm_direction_fwd_reference
+from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32, round_tf32, split_tf32
+
+LSTM_ATOL, LSTM_RTOL = 1e-4, 1e-4  # tests/test_lstm_kernel.py:48
+FLOW_ATOL, FLOW_RTOL = 5e-4, 1e-3  # tests/test_flow_kernel.py:313
+
+
+def _cvt_rna_tf32(x: np.ndarray) -> np.ndarray:
+    """An independent model of `cvt.rna.tf32.f32`, in float64 arithmetic:
+    round |x| to the nearest multiple of the TF32 quantum at its exponent
+    (10 mantissa bits; subnormals keep float32's smallest exponent), ties
+    away from zero, sign restored; ±inf and ±0 pass through."""
+    x = np.asarray(x, dtype=np.float32)
+    out = np.empty_like(x)
+    for idx, v in np.ndenumerate(x):
+        if not np.isfinite(v) or v == 0:
+            out[idx] = v
+            continue
+        a = abs(float(v))
+        _, e = np.frexp(a)  # a = m 2^e, 0.5 <= m < 1
+        q = 2.0 ** (max(int(e), -125) - 11)
+        r = np.floor(a / q + 0.5) * q
+        with np.errstate(over="ignore"):
+            out[idx] = np.float32(np.copysign(r, float(v)))
+    return out
+
+
+EDGE_CASES = {
+    # dropped 13 bits exactly half: ties go away from zero
+    "ties": np.array([0x3F801000, 0x3F803000, 0x40A01000, 0x00001000, 0x00803000], dtype=np.uint32),
+    # one below and one above half
+    "near_ties": np.array([0x3F800FFF, 0x3F801001, 0x3F7FFFFF, 0x7F7FEFFF, 0x7F7FFFFF], dtype=np.uint32),
+    "negatives": np.array([0xBF801000, 0xBF800FFF, 0xBF801001, 0xC2F6E979, 0x80001000], dtype=np.uint32),
+    "subnormals": np.array([0x00000001, 0x00000FFF, 0x00001001, 0x007FFFFF, 0x807FF000], dtype=np.uint32),
+    "inf_and_zero": np.array([0x7F800000, 0xFF800000, 0x00000000, 0x80000000], dtype=np.uint32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_round_tf32_is_cvt_rna_on_edge_cases(case):
+    x = EDGE_CASES[case].view(np.float32)
+    got = round_tf32(torch.from_numpy(x.copy())).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), _cvt_rna_tf32(x).view(np.uint32))
+
+
+def test_round_tf32_is_cvt_rna_on_random_values():
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2**32, size=4000, dtype=np.uint64).astype(np.uint32)
+    x = bits.view(np.float32)
+    x = x[np.isfinite(x)]
+    got = round_tf32(torch.from_numpy(x.copy())).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), _cvt_rna_tf32(x).view(np.uint32))
+
+
+def test_split_tf32_keeps_21_bits():
+    """hi is rounded, lo = x - hi truncated as the tensor cores read it: both
+    TF32 values, together within 2^-21 |x| of x."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.normal(size=10_000) * 10.0 ** rng.integers(-20, 20, size=10_000)).astype(np.float32))
+    hi, lo = split_tf32(x)
+    for part in (hi, lo):
+        assert torch.all(part.view(torch.int32) & 0x1FFF == 0)  # both are TF32 values
+    torch.testing.assert_close(hi, round_tf32(x), atol=0, rtol=0)
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert torch.all(err <= 2.0**-21 * x.double().abs())
+
+
+def test_matmul_3xtf32_is_near_float32_and_one_pass_is_not():
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(256, 48)).astype(np.float32))
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()  # the error bound's scale, element by element
+    e3 = ((matmul_3xtf32(a, b).double() - exact).abs() / scale).max().item()
+    e32 = ((a @ b).double() - exact).abs().div(scale).max().item()
+    e1 = ((matmul_tf32(a, b).double() - exact).abs() / scale).max().item()
+    assert e3 <= 2.0**-19 and e32 <= 2.0**-19
+    assert e1 >= 2.0**-14  # a single TF32 pass keeps ~11 bits
+
+
+def _lstm_case(seed: int, H: int, T: int = 8, B: int = 8):
+    rng = np.random.default_rng(seed)
+    xp = rng.normal(size=(T, B, 4 * H)).astype(np.float32)
+    w_hh = (rng.uniform(-1.0, 1.0, size=(H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    dhs = rng.normal(size=(T, B, H)).astype(np.float32)
+    return xp, w_hh, dhs
+
+
+def _jax_lstm_vjp(xp, w_hh, dhs, reverse: bool):
+    """dxp and dW_hh through the JAX kernel's custom VJP (K3b in interpret
+    mode), at precision "highest"."""
+    T, B, G = xp.shape
+    fn = _make_lstm_dir(G // 4, reverse, B, "highest", True)
+    _, vjp = jax.vjp(fn, jnp.asarray(xp), jnp.asarray(w_hh))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dhs))]
+
+
+def _port_lstm_grads(xp, w_hh, dhs, reverse: bool, mm):
+    xp_t, w_t = torch.from_numpy(xp), torch.from_numpy(w_hh)
+    hs, cs = lstm_direction_fwd_reference(xp_t, w_t, reverse)
+    return [g.numpy() for g in lstm_direction_bwd_reference(xp_t, w_t, hs, cs, torch.from_numpy(dhs), reverse, mm=mm)]
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("H", [16, 32])
+def test_lstm_backward_in_3xtf32_matches_jax_kernel(reverse, H):
+    """K3b's arithmetic (every product in 3xTF32) against JAX's `_bwd_kernel`
+    in interpret mode: dxp and dW_hh at the LSTM grad bar."""
+    xp, w_hh, dhs = _lstm_case(3, H)
+    ref = _jax_lstm_vjp(xp, w_hh, dhs, reverse)
+    got = _port_lstm_grads(xp, w_hh, dhs, reverse, matmul_3xtf32)
+    for name, g, r in zip(("dxp", "dW_hh"), got, ref):
+        np.testing.assert_allclose(g, r, atol=LSTM_ATOL, rtol=LSTM_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_lstm_backward_in_one_tf32_pass_falls_outside_the_bar(reverse):
+    """The control: the same comparison with a single TF32 pass for every
+    product misses the bar, so the test above can tell 3xTF32 from it."""
+    xp, w_hh, dhs = _lstm_case(3, 32)
+    ref = _jax_lstm_vjp(xp, w_hh, dhs, reverse)
+    got = _port_lstm_grads(xp, w_hh, dhs, reverse, matmul_tf32)
+    inside = [np.allclose(g, r, atol=LSTM_ATOL, rtol=LSTM_RTOL) for g, r in zip(got, ref)]
+    assert not all(inside), inside
+
+
+SIZE, N_COND_FEATURES, N_BLOCKS = 7, 16, 4  # 4 flow steps
+GRAD_NAMES = ("x", "h_proj", "an_scale", "an_bias", "w1y", "b1", "wm", "bm", "wout", "bout")
+ARG_NAMES = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+
+
+@pytest.fixture(scope="module", params=[32, 64], ids=["hidden32", "hidden64"])
+def jax_flow(request):
+    hidden = request.param
+    stack = JaxStack([JaxConcat(input_size=None, output_size=6), JaxFC(sizes=[6, 32, N_COND_FEATURES])])
+    model = JaxCondRealNVP(size=SIZE, nested_sizes=[hidden] * 3, n_blocks=N_BLOCKS, n_conditions=N_COND_FEATURES,
+                           feature_network_stack=stack, act_norm=True, random_state=0)
+    params = model.init(jax.random.key(0))
+    rng = np.random.default_rng(4)
+    blocks = dict(params["blocks"])
+    blocks["actnorm"] = {  # off identity, so the ActNorm grads are exercised
+        "scale": jnp.asarray((1.0 + 0.2 * rng.normal(size=(N_BLOCKS - 1, SIZE))).astype(np.float32)),
+        "bias": jnp.asarray((0.2 * rng.normal(size=(N_BLOCKS - 1, SIZE))).astype(np.float32)),
+    }
+    return model, dict(params, blocks=blocks)
+
+
+@pytest.mark.parametrize("precision", ["highest", "x3"])
+def test_flow_backward_in_3xtf32_matches_jax_kernel(jax_flow, precision):
+    """K2b's arithmetic (every product in 3xTF32) against JAX's training
+    kernels in interpret mode (`_flow_bwd_train_kernel` through the custom
+    VJP), at "highest" and at "x3" (bf16 x 3, what "highest" maps to in the
+    JAX model): all ten grads at the flow grad bar."""
+    model, params = jax_flow
+    B, block_b = 16, 8
+    rng = np.random.default_rng(5)
+    h = jnp.asarray(rng.normal(size=(B, N_COND_FEATURES)).astype(np.float32))
+    kargs, h_proj = model._fused_flow_args(params, h)
+    y = jnp.asarray(rng.normal(size=(B, SIZE)).astype(np.float32))
+    dz = rng.normal(size=(B, SIZE)).astype(np.float32)
+    dld = rng.normal(size=(B,)).astype(np.float32)
+
+    def f(y, h_proj, kargs):
+        return jax_fused_flow_train(y, h_proj, kargs, block_b=block_b, precision=precision, interpret=True)
+
+    _, vjp = jax.vjp(f, y, h_proj, kargs)
+    dy_ref, dhp_ref, dk_ref = vjp((jnp.asarray(dz), jnp.asarray(dld)))
+    refs = (dy_ref, dhp_ref, *(dk_ref[n] for n in GRAD_NAMES[2:]))
+
+    args = [torch.from_numpy(np.array(kargs[n])) for n in ARG_NAMES]
+    hp = torch.from_numpy(np.array(h_proj))
+    _, _, bound = fused_flow_train_reference(torch.from_numpy(np.array(y)), hp, *args)
+    got = fused_flow_train_backward_reference(bound, hp, torch.from_numpy(dz), torch.from_numpy(dld), *args,
+                                              mm=matmul_3xtf32)
+    for name, g, r in zip(GRAD_NAMES, got, refs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=FLOW_ATOL, rtol=FLOW_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("k,chunk", [(64, 64), (100, 32), (0, 8)], ids=["one_chunk", "ragged_chunks", "no_rows"])
+def test_atb_on_cpu_is_its_plain_version_by_chunk(k, chunk):
+    """The AᵀB pass's contract, on CPU tensors (its plain version): one
+    partial product and column sum a chunk of rows, at least one."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.normal(size=(k, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(k, 3)).astype(np.float32))
+    before = atb.launches
+    c, sums = atb(a, b, chunk)
+    assert atb.launches == before
+    assert c.shape == (max(1, -(-k // chunk)), 5, 3) and sums.shape == (c.shape[0], 3)
+    torch.testing.assert_close(c.sum(0), a.T @ b, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(sums.sum(0), b.sum(0), atol=1e-5, rtol=1e-5)
+    for got, ref in zip((c, sums), atb_reference(a, b, chunk)):
+        assert torch.equal(got, ref)
+
+
+def test_main_path_does_not_import_the_tf32_model():
+    """`ops/tf32.py` is for the tests: no module of the port's main path
+    imports it."""
+    code = (
+        "import sys\n"
+        "import bcnf_tpu_torch, bcnf_tpu_torch.__main__\n"
+        "import bcnf_tpu_torch.ops.flow_kernel, bcnf_tpu_torch.ops.lstm_kernel, bcnf_tpu_torch.ops.atb\n"
+        "import bcnf_tpu_torch.ops.coupling_kernel, bcnf_tpu_torch.train.trainer\n"
+        "assert 'bcnf_tpu_torch.ops.tf32' not in sys.modules\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
