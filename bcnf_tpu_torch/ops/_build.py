@@ -108,6 +108,8 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     elif name == "lstm_kernel":
         lib.bcnf_lstm_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.bcnf_lstm_fwd.restype = i32
+        lib.bcnf_lstm_fwd_layout.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        lib.bcnf_lstm_fwd_layout.restype = i32
         lib.bcnf_lstm_bwd_rec.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.bcnf_lstm_bwd_rec.restype = i32
         lib.bcnf_lstm_bwd_dw.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]

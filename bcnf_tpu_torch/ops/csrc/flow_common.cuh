@@ -2,7 +2,8 @@
 // the training forward K2a; flow_train_kernel.cu: the training backward K2b;
 // coupling_kernel.cu: K4; lstm_kernel.cu: K3a/K3b).
 //
-// Layout conventions: 256 threads = 8 warps; a thread (ty = warp, tx = lane)
+// Layout conventions of K1's and K4's float32 FMA products (mac_slab,
+// matmul_hidden, matmul_narrow): 256 threads = 8 warps; a thread (ty = warp, tx = lane)
 // owns rows ty*TM + r (r < TM) and hidden columns tx + 32*j (j < TN) of a
 // block's BM x Hp activation tile, Hp = 32*TN. Weights are stored (in, out),
 // so BK consecutive input rows of a weight are one contiguous slab.
@@ -57,14 +58,12 @@ __device__ __forceinline__ void load_slab(float* dst, const float* src, int n, i
 }
 
 // acc[r][j] += sum_{kk < BK} a[row r][k0 + kk] * ws[kk][col j], where this
-// thread's rows are ty*TM + r and its columns tx + 32*j. The activation tile
-// is 32*TN wide, the weight slab 32*TNO (TNO = TN for the square hidden
-// layers; the LSTM's gate products are 4x wide one way or the other).
-template <int TM, int TN, int TNO = TN>
-__device__ __forceinline__ void mac_slab(const float* act, int k0, const float* ws, int BK,
-                                         float (&acc)[TM][TNO], int ty, int tx) {
+// thread's rows are ty*TM + r and its columns tx + 32*j; the activation tile
+// and the weight slab are both 32*TN wide.
+template <int TM, int TN>
+__device__ __forceinline__ void mac_slab(const float* act, int k0, const float* ws, int BK, float (&acc)[TM][TN],
+                                         int ty, int tx) {
   constexpr int Hp = 32 * TN;
-  constexpr int No = 32 * TNO;
 #pragma unroll 1
   for (int kk = 0; kk < BK; kk += 4) {
     float4 a[TM];
@@ -73,9 +72,9 @@ __device__ __forceinline__ void mac_slab(const float* act, int k0, const float* 
       a[r] = *reinterpret_cast<const float4*>(act + (ty * TM + r) * Hp + k0 + kk);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float* wrow = ws + (kk + q) * No + tx;
+      const float* wrow = ws + (kk + q) * Hp + tx;
 #pragma unroll
-      for (int j = 0; j < TNO; ++j) {
+      for (int j = 0; j < TN; ++j) {
         const float w = wrow[32 * j];
 #pragma unroll
         for (int r = 0; r < TM; ++r) acc[r][j] = fmaf(lane(a[r], q), w, acc[r][j]);
@@ -84,32 +83,31 @@ __device__ __forceinline__ void mac_slab(const float* act, int k0, const float* 
   }
 }
 
-// acc = act (BM x 32*TN, shared) @ W (32*TN x 32*TNO, global, row-major),
+// acc = act (BM x Hp, shared) @ W (Hp x Hp, global, row-major), Hp = 32*TN,
 // with W streamed through the two-slab cp.async double buffer `slab`
-// (2 x BK x 32*TNO floats). Ends with a barrier, so the caller may
-// overwrite `act` right after.
-template <int TM, int TN, int TNO = TN>
+// (2 x BK x Hp floats). Ends with a barrier, so the caller may overwrite
+// `act` right after.
+template <int TM, int TN>
 __device__ __forceinline__ void matmul_hidden(const float* act, const float* W, float* slab, int BK,
-                                              float (&acc)[TM][TNO], int ty, int tx, int tid) {
+                                              float (&acc)[TM][TN], int ty, int tx, int tid) {
   constexpr int Hp = 32 * TN;
-  constexpr int No = 32 * TNO;
 #pragma unroll
   for (int r = 0; r < TM; ++r)
 #pragma unroll
-    for (int j = 0; j < TNO; ++j) acc[r][j] = 0.0f;
+    for (int j = 0; j < TN; ++j) acc[r][j] = 0.0f;
   const int n_slabs = Hp / BK;
-  load_slab(slab, W, BK * No, tid);
+  load_slab(slab, W, BK * Hp, tid);
   cp_async_commit();
   for (int s = 0; s < n_slabs; ++s) {
     if (s + 1 < n_slabs) {
-      load_slab(slab + ((s + 1) & 1) * BK * No, W + static_cast<size_t>(s + 1) * BK * No, BK * No, tid);
+      load_slab(slab + ((s + 1) & 1) * BK * Hp, W + static_cast<size_t>(s + 1) * BK * Hp, BK * Hp, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    mac_slab<TM, TN, TNO>(act, s * BK, slab + (s & 1) * BK * No, BK, acc, ty, tx);
+    mac_slab<TM, TN>(act, s * BK, slab + (s & 1) * BK * Hp, BK, acc, ty, tx);
     __syncthreads();
   }
 }

@@ -1,5 +1,5 @@
-// The whole conditional RealNVP flow, forward or inverse, in one kernel:
-// K1, and with one more store the training forward K2a.
+// The whole conditional RealNVP flow in one kernel: K1 (forward or inverse,
+// float32 FMA) and the training forward K2a (3xTF32 on the tensor cores).
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow (the Pallas TPU kernel
 // `_flow_kernel`) and, through `bcnf_flow_train_fwd`, the training forward
@@ -17,19 +17,19 @@
 //   + bm_i) for each hidden layer; [t | s'] = a Wout + bout; s = tanh(s');
 //   x_b <- exp(s) x_b + t (forward) or (x_b - t) exp(-s) (inverse).
 //   GELU is the tanh form, as jax.nn.gelu and the Pallas kernel compute it.
-//   K2a (the forward compiled with kStoreBound) also stores each row's input
-//   to step k in bound[k] (`bound_ref[0] = x` of the TPU kernel): the (S, B, size)
+//   K2a is the forward that also stores each row's input to step k in
+//   bound[k] (`bound_ref[0] = x` of the TPU kernel): the (S, B, size)
 //   residual from which the backward recomputes every step. Training rows
 //   have their own conditions, N = B.
 //
-// What bounds it on an H100: operations. At the flagship widths (H = 526,
+// What bounds them on an H100: operations. At the flagship widths (H = 526,
 // 4 hidden layers, 26 steps) a row costs ~58 MFLOP, almost all in the
 // H x H layers, while the ~120 MB of weights are shared by every row, so any
-// batch past a few thousand rows is compute-bound on float32 FMA (this kernel
-// uses no tensor cores: exact f32 is the "highest" precision contract).
+// batch past a few thousand rows is compute-bound: K1 on float32 FMA (exact
+// float32, the "highest" contract), K2a at a third of the dense TF32 rate.
 // K2a's extra store is S*size floats a row (~2 KB), nothing beside that.
 //
-// Design: one block of 256 threads owns BM = 8*TM rows and walks all steps
+// K1's design: one block of 256 threads owns BM = 8*TM rows and walks all steps
 // and layers itself, so activations never leave the SM (the TPU kernel's
 // sequential grid axis over steps becomes this loop). The block's activation
 // tile a (BM x Hp) sits in shared memory; each thread keeps a TM x TN tile of
@@ -44,14 +44,26 @@
 // pipe rather than the shared-memory port. The hidden width is zero-padded to
 // Hp = 32*TN by the host (exact: padded units stay 0 because gelu(0) = 0).
 // Rows past B in the ragged last tile are computed on zeros and not stored.
+//
+// K2a's design (`train_fwd_kernel`): K1's walk over the steps on the row-tile
+// machinery of K2b's rows kernel (flow_rows.cuh). One block of 512 threads
+// (16 warps) owns BM = 32 rows (16 at the widest widths) for all S steps, so
+// batch 4096 fills 128 SMs (K1's 64-row blocks would fill 64). The rows'
+// state, their logdet, the ActNorm, the mixes and the affine update stay in
+// shared memory; the nh square hidden products of a step run on `mma.sync`
+// in 3xTF32 (the counterpart of the JAX kernel's "x3" mode, which serves its
+// "highest" contract), each weight streamed from L2 through the 3-stage
+// cp.async ring; W1y and Wout are staged in the ring between them for the
+// narrow products, which stay float32 FMA, as the mixes do. K2a writes only
+// z, logdet and bound: no scratch.
 
-#include "flow_common.cuh"
+#include "flow_rows.cuh"
 
 namespace {
 
 using namespace bcnf;
 
-template <int TM, int TN, bool kStoreBound>
+template <int TM, int TN>
 __global__ void __launch_bounds__(kThreads, 1)
 flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
             const float* __restrict__ an_s, const float* __restrict__ an_b,
@@ -59,8 +71,8 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
             const float* __restrict__ b1, const float* __restrict__ wm,
             const float* __restrict__ bm, const float* __restrict__ wout,
             const float* __restrict__ bout, float* __restrict__ y,
-            float* __restrict__ ld_out, float* __restrict__ bound, int B, int N, int S,
-            int size, int d_a, int nh, int BK, int inverse) {
+            float* __restrict__ ld_out, int B, int N, int S, int size, int d_a, int nh, int BK,
+            int inverse) {
   constexpr int BM = kWarps * TM;
   constexpr int Hp = 32 * TN;
   const int d_b = size - d_a;
@@ -92,13 +104,6 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
     const float* Q = ortho + static_cast<size_t>(k) * size * size;
     const float* sc = an_s + static_cast<size_t>(k) * size;
     const float* bi = an_b + static_cast<size_t>(k) * size;
-
-    if constexpr (kStoreBound) {  // K2a: the step's input rows, before the ActNorm
-      float* bk = bound + (static_cast<size_t>(k) * B + row0) * size;
-      for (int p = tid; p < BM * size; p += kThreads) {
-        if (row0 + p / size < B) bk[p] = xs[p];
-      }
-    }
 
     if (inner) {
       if (!inverse) {  // ActNorm
@@ -219,12 +224,124 @@ flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
   if (!inverse && tid < BM && row0 + tid < B) ld_out[row0 + tid] = lds[tid];
 }
 
-template <int TM, int TN, bool kStoreBound>
+// K2a: the training forward, rows with their own conditions (N = B).
+template <int TN, int BM, int BK>
+__global__ void __launch_bounds__(kRowThreads, 1)
+train_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h_proj,
+                 const float* __restrict__ an_s, const float* __restrict__ an_b,
+                 const float* __restrict__ ortho, const float* __restrict__ w1y,
+                 const float* __restrict__ b1, const float* __restrict__ wm,
+                 const float* __restrict__ bm, const float* __restrict__ wout,
+                 const float* __restrict__ bout, float* __restrict__ z, float* __restrict__ ld_out,
+                 float* __restrict__ bound, int B, int S, int size, int d_a, int nh) {
+  using Sh = RowShape<TN, BM, BK>;
+  constexpr int Hp = Sh::Hp, ldA = Sh::ldA;
+  const int d_b = size - d_a;
+  const int n_out = 2 * d_b;
+
+  extern __shared__ float4 smem4[];
+  float* act = reinterpret_cast<float*>(smem4);  // BM x Hp (ld ldA)
+  float* ring = act + BM * ldA;                  // kRingStages weight stages
+  float* xs = ring + kRingStages * Sh::stage;    // BM x size: the rows' state
+  float* xt = xs + BM * size;                    // BM x size: the mix's output
+  float* outs = xt + BM * size;                  // BM x n_out: [t | s']
+  float* lds = outs + BM * n_out;                // BM: logdet
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = blockIdx.x * BM;
+  const bool in_ring = Sh::narrow_in_ring(size, d_a);
+
+  for (int p = tid; p < BM * size; p += kRowThreads)
+    xs[p] = row0 + p / size < B ? x[static_cast<size_t>(row0) * size + p] : 0.0f;
+  if (tid < BM) lds[tid] = 0.0f;
+  __syncthreads();
+
+  for (int k = 0; k < S; ++k) {
+    const bool inner = k < S - 1;  // step S-1 is the final coupling alone
+    const float* sc = an_s + static_cast<size_t>(k) * size;
+    const float* bi = an_b + static_cast<size_t>(k) * size;
+
+    // ---- the step's input rows to bound[k], then the ActNorm
+    float* bk = bound + (static_cast<size_t>(k) * B + row0) * size;
+    for (int p = tid; p < BM * size; p += kRowThreads) {
+      if (row0 + p / size < B) bk[p] = xs[p];
+      if (inner) xs[p] = xs[p] * sc[p % size] + bi[p % size];
+    }
+    if (inner && tid < BM) {
+      float l = 0.0f;
+      for (int i = 0; i < size; ++i) l += logf(fabsf(sc[i]));
+      lds[tid] += l;
+    }
+    __syncthreads();
+
+    // ---- a_0 = x1_a W1y + b1 + h_proj[k, row] (FMA); h_0 = gelu(a_0) into the tile
+    const float* w1 = stage_weight(ring, w1y + static_cast<size_t>(k) * d_a * Hp, d_a * Hp, in_ring, tid);
+    each_pair<TN, BM, BK>(warp, lane, [&](int row, int col, int, int, int) {
+      const float* hp = row0 + row < B ? h_proj + (static_cast<size_t>(k) * B + row0 + row) * Hp : nullptr;
+      const float2 a = input_layer<Hp>(xs + row * size, w1, b1 + static_cast<size_t>(k) * Hp, hp, d_a, col);
+      *reinterpret_cast<float2*>(act + row * ldA + col) = make_float2(gelu_tanh(a.x), gelu_tanh(a.y));
+    });
+
+    // ---- hidden layers: h_{l+1} = gelu(h_l Wm_l + bm_l), products on tensor cores
+    for (int l = 0; l < nh; ++l) {
+      float acc[Sh::MT][Sh::NTW][4];
+      const size_t wl = static_cast<size_t>(k) * nh + l;
+      square_product<TN, BM, BK, false>(act, wm + wl * Hp * Hp, ring, acc, warp, lane, tid);
+      const float* bias = bm + wl * Hp;
+      each_pair<TN, BM, BK>(warp, lane, [&](int row, int col, int mi, int i, int h) {
+        *reinterpret_cast<float2*>(act + row * ldA + col) =
+            make_float2(gelu_tanh(acc[mi][i][2 * h] + bias[col]), gelu_tanh(acc[mi][i][2 * h + 1] + bias[col + 1]));
+      });
+    }
+    __syncthreads();
+
+    // ---- output layer: [t | s'] = h_nh Wout + bout (FMA)
+    const float* wo = stage_weight(ring, wout + static_cast<size_t>(k) * Hp * n_out, Hp * n_out, in_ring, tid);
+    narrow_product(act, ldA, BM, Hp, wo, n_out, 1, bout + static_cast<size_t>(k) * n_out, outs, n_out, tid);
+    __syncthreads();
+
+    // ---- affine update of x_b and the logdet (one thread a row)
+    if (tid < BM) {
+      float* xr = xs + tid * size;
+      const float* o = outs + tid * n_out;
+      float l = 0.0f;
+      for (int j = 0; j < d_b; ++j) {
+        const float s = tanhf(o[d_b + j]);
+        xr[d_a + j] = expf(s) * xr[d_a + j] + o[j];
+        l += s;
+      }
+      lds[tid] += l;
+    }
+    __syncthreads();
+
+    // ---- x <- x Q_k (FMA)
+    if (inner) {
+      const float* Q = ortho + static_cast<size_t>(k) * size * size;
+      for (int p = tid; p < BM * size; p += kRowThreads) {
+        const int r = p / size, j = p % size;
+        float acc = 0.0f;
+        for (int i = 0; i < size; ++i) acc = fmaf(xs[r * size + i], Q[i * size + j], acc);
+        xt[p] = acc;
+      }
+      float* t = xs;
+      xs = xt;
+      xt = t;
+      __syncthreads();
+    }
+  }
+
+  for (int p = tid; p < BM * size; p += kRowThreads) {
+    if (row0 + p / size < B) z[static_cast<size_t>(row0) * size + p] = xs[p];
+  }
+  if (tid < BM && row0 + tid < B) ld_out[row0 + tid] = lds[tid];
+}
+
+template <int TM, int TN>
 cudaError_t launch(const float* x, const float* h_proj, const float* an_s, const float* an_b,
                    const float* ortho, const float* w1y, const float* b1, const float* wm,
                    const float* bm, const float* wout, const float* bout, float* y, float* ld,
-                   float* bound, int B, int N, int S, int size, int d_a, int nh, int inverse,
-                   cudaStream_t stream) {
+                   int B, int N, int S, int size, int d_a, int nh, int inverse, cudaStream_t stream) {
   constexpr int BM = kWarps * TM;
   constexpr int Hp = 32 * TN;
   const int n_out = 2 * (size - d_a);
@@ -234,32 +351,53 @@ cudaError_t launch(const float* x, const float* h_proj, const float* an_s, const
   while (BK >= 4 && fixed + sizeof(float) * 2 * BK * Hp > kSmemLimit) BK /= 2;
   if (BK < 4) return cudaErrorInvalidValue;
   const size_t smem = fixed + sizeof(float) * 2 * BK * Hp;
-  cudaError_t err = cudaFuncSetAttribute(flow_kernel<TM, TN, kStoreBound>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(flow_kernel<TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((B + BM - 1) / BM);
-  flow_kernel<TM, TN, kStoreBound><<<grid, kThreads, smem, stream>>>(
-      x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, bound, B, N, S, size, d_a,
-      nh, BK, inverse);
+  flow_kernel<TM, TN><<<grid, kThreads, smem, stream>>>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout,
+                                                        bout, y, ld, B, N, S, size, d_a, nh, BK, inverse);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const float* x, const float* h_proj, const float* an_s, const float* an_b,
-                     const float* ortho, const float* w1y, const float* b1, const float* wm,
-                     const float* bm, const float* wout, const float* bout, float* y, float* ld,
-                     float* bound, int B, int N, int S, int size, int d_a, int nh, int Hp,
-                     int inverse, cudaStream_t st) {
+template <int TN, int BM, int BK>
+cudaError_t launch_train_fwd(const float* x, const float* h_proj, const float* an_s, const float* an_b,
+                             const float* ortho, const float* w1y, const float* b1, const float* wm,
+                             const float* bm, const float* wout, const float* bout, float* z, float* ld,
+                             float* bound, int B, int S, int size, int d_a, int nh, cudaStream_t stream) {
+  // the tile, the ring, and BM rows of [x | x Q | t s' | logdet]: less than
+  // K2b's rows kernel takes for the same shape, so K2a runs every shape K2b runs
+  const size_t smem = sizeof(float) * (RowShape<TN, BM, BK>::tile_floats +
+                                       static_cast<size_t>(BM) * (2 * size + 2 * (size - d_a) + 1));
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<TN, BM, BK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  train_fwd_kernel<TN, BM, BK><<<(B + BM - 1) / BM, kRowThreads, smem, stream>>>(
+      x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, B, S, size, d_a, nh);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes. Hp (the padded hidden width) must be
+// 32*TN for a compiled TN; each returns the cudaError_t of its launch.
+
+// K1: the flow, forward (y = z, ld = logdet) or inverse.
+extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float* an_s,
+                               const float* an_b, const float* ortho, const float* w1y,
+                               const float* b1, const float* wm, const float* bm,
+                               const float* wout, const float* bout, float* y, float* ld,
+                               int B, int N, int S, int size, int d_a, int nh, int Hp,
+                               int inverse, void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 || Hp % 32 != 0 ||
       (!inverse && ld == nullptr))
     return cudaErrorInvalidValue;
-#define BCNF_CASE(TM, TN)                                                                     \
-  case TN:                                                                                    \
-    return bound != nullptr                                                                   \
-               ? launch<TM, TN, true>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, \
-                                      y, ld, bound, B, N, S, size, d_a, nh, inverse, st)        \
-               : launch<TM, TN, false>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout,      \
-                                       bout, y, ld, nullptr, B, N, S, size, d_a, nh, inverse, st);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BCNF_CASE(TM, TN) \
+  case TN:                \
+    return launch<TM, TN>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, B, N, S, size, d_a, nh, \
+                          inverse, st);
   switch (Hp / 32) {
     BCNF_CASE(8, 1)
     BCNF_CASE(8, 2)
@@ -276,33 +414,27 @@ cudaError_t dispatch(const float* x, const float* h_proj, const float* an_s, con
 #undef BCNF_CASE
 }
 
-}  // namespace
-
-// C entry points, loaded with ctypes. Hp (the padded hidden width) must be
-// 32*TN for a compiled TN; each returns the cudaError_t of its launch.
-
-// K1: the flow, forward (y = z, ld = logdet) or inverse.
-extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float* an_s,
-                               const float* an_b, const float* ortho, const float* w1y,
-                               const float* b1, const float* wm, const float* bm,
-                               const float* wout, const float* bout, float* y, float* ld,
-                               int B, int N, int S, int size, int d_a, int nh, int Hp,
-                               int inverse, void* stream) {
-  return dispatch(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, nullptr, B, N,
-                  S, size, d_a, nh, Hp, inverse, static_cast<cudaStream_t>(stream));
-}
-
 // K2a: the training forward, rows with their own conditions (h_proj is
-// (S, B, Hp)); also writes every step's input rows to bound (S, B, size).
+// (S, B, Hp)): z, ld (B) and every step's input rows in bound (S, B, size).
+// The weights must be 16-byte aligned; a `size` past the rows kernel's shared
+// memory (at Hp = 544, size <= 29, as K2b) returns cudaErrorInvalidValue.
 extern "C" int bcnf_flow_train_fwd(const float* x, const float* h_proj, const float* an_s,
                                    const float* an_b, const float* ortho, const float* w1y,
                                    const float* b1, const float* wm, const float* bm,
                                    const float* wout, const float* bout, float* z, float* ld,
                                    float* bound, int B, int S, int size, int d_a, int nh, int Hp,
                                    void* stream) {
-  if (bound == nullptr) return cudaErrorInvalidValue;
-  return dispatch(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, B, B,
-                  S, size, d_a, nh, Hp, 0, static_cast<cudaStream_t>(stream));
+  if (B <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 || Hp % 32 != 0 || ld == nullptr ||
+      bound == nullptr ||
+      ((reinterpret_cast<size_t>(wm) | reinterpret_cast<size_t>(w1y) | reinterpret_cast<size_t>(wout)) & 15) != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BCNF_CASE(TN, BM, BK) \
+  case TN:                    \
+    return launch_train_fwd<TN, BM, BK>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, B, \
+                                        S, size, d_a, nh, st);
+  BCNF_ROW_CASES(Hp, BCNF_CASE)
+#undef BCNF_CASE
 }
 
 extern "C" const char* bcnf_cuda_error_string(int err) {

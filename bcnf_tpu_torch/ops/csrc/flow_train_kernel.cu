@@ -3,7 +3,7 @@
 // Replaces: bcnf_tpu/ops/flow_kernel.py, `bwd_call` of
 // `_make_fused_flow_train` (the Pallas TPU kernel `_flow_bwd_train_kernel`).
 // Host side and plain PyTorch version (`fused_flow_train_backward_reference`):
-// bcnf_tpu_torch/ops/flow_kernel.py. Its forward, K2a, is flow_kernel.cu.
+// bcnf_tpu_torch/ops/flow_kernel.py. Its forward, K2a, is in flow_kernel.cu.
 //
 // What it computes. From the step inputs x_k = bound[k] (S, B, size) that K2a
 // stored, the cotangents dz (B, size) and dld (B) of z and logdet, and the
@@ -32,13 +32,11 @@
 //    scheduler has four to hide the fragment loads' and the products'
 //    latency) owns BM rows (32, or 16 at the widest hidden widths), as K1
 //    does. It recomputes the MLP and runs the backward on one activation
-//    tile in shared memory. Each square product is a BM x Hp by Hp x Hp
-//    product on `mma.sync` (warp w owns n-tiles w, w+16, ... of all BM
-//    rows), the weight streamed from L2 in BK-row (forward) or BK-column
-//    (backward: W^T read as it is stored, so no transposed copy is made)
-//    stages through a 3-stage cp.async ring, one barrier a stage. The
-//    narrow products read their weights (W1y, Wout) from the same ring.
-//    h_l and gelu'(a_l) (one tanh for both) go to a global scratch
+//    tile in shared memory, with the row-tile machinery it shares with K2a
+//    (flow_rows.cuh): each square product on `mma.sync` in 3xTF32, the
+//    weight streamed through a 3-stage cp.async ring (W^T read as it is
+//    stored, so no transposed copy is made), the narrow products' weights
+//    (W1y, Wout) staged in the same ring. h_l and gelu'(a_l) (one tanh for both) go to a global scratch
 //    ((nh+1) x B x Hp each) and da_l after them: the TPU kernel kept these in
 //    a 100 MB VMEM window, a block's 227 KB cannot. The carried dx is
 //    updated in place: a block only touches its own rows.
@@ -54,144 +52,11 @@
 // passes (2) or the ActNorm grads (4) alone, so each part can be timed.
 
 #include "atb.cuh"
+#include "flow_rows.cuh"
 
 namespace {
 
 using namespace bcnf;
-
-constexpr int kRingStages = 3;
-constexpr int kRowThreads = 512;  // bwd_rows_kernel's block
-constexpr int kRowWarps = kRowThreads / 32;
-
-// gelu_tanh(x) and gelu_tanh_grad(x) (flow_common.cuh) from one tanh: the
-// same expressions, so the same values.
-__device__ __forceinline__ void gelu_and_grad(float x, float& h, float& d) {
-  const float t = tanhf(kGeluK0 * (x + kGeluK1 * x * x * x));
-  h = 0.5f * x * (1.0f + t);
-  d = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * kGeluK0 * (1.0f + 3.0f * kGeluK1 * x * x);
-}
-
-// Copy n floats (n a multiple of 4, both ends 16-byte aligned) with all of
-// the rows kernel's threads.
-__device__ __forceinline__ void load_floats(float* dst, const float* src, int n, int tid) {
-  for (int i = tid * 4; i < n; i += kRowThreads * 4) cp_async16(dst + i, src + i);
-}
-
-// The rows kernel's shapes for Hp = 32*TN, BM rows and BK-deep weight stages.
-template <int TN, int BM, int BK>
-struct RowShape {
-  static constexpr int Hp = 32 * TN;
-  static constexpr int NT = Hp / 8;                       // n-tiles of a square product
-  static constexpr int NTW = (NT + kRowWarps - 1) / kRowWarps;  // ... of one warp, at most
-  static constexpr int MT = BM / 16;                            // m-tiles
-  static constexpr int ldA = Hp + 4;                            // activation tile (row-major A)
-  static constexpr int ldK = Hp + 8;                            // a stage of BK rows of W
-  static constexpr int ldN = BK + 4;                            // a stage of BK columns of W (Hp rows)
-  static constexpr int stage = BK * ldK > Hp * ldN ? BK * ldK : Hp * ldN;
-  // Between the square products the ring holds W1y (d_a x Hp) or Wout
-  // (Hp x n_out) where it is large enough (the flagship's widths and far
-  // wider); otherwise the narrow products read them from global memory.
-  __host__ __device__ static bool narrow_in_ring(int size, int d_a) {
-    const int widest = d_a > 2 * (size - d_a) ? d_a : 2 * (size - d_a);
-    return static_cast<size_t>(kRingStages) * stage >= static_cast<size_t>(Hp) * widest;
-  }
-  static size_t smem(int size, int d_a) {
-    const int n_out = 2 * (size - d_a);
-    return sizeof(float) * (static_cast<size_t>(BM) * ldA + static_cast<size_t>(kRingStages) * stage +
-                            static_cast<size_t>(BM) * (5 * size + n_out + d_a + 1));
-  }
-};
-
-// acc = act (BM x Hp, shared) @ W (forward) or @ W^T (kTrans), W an Hp x Hp
-// weight in global memory, row-major. Warp w's n-tiles are w + 16 i. Starts
-// and ends with a barrier: the caller may write act, or the ring, right
-// before and after.
-template <int TN, int BM, int BK, bool kTrans>
-__device__ __forceinline__ void square_product(const float* act, const float* W, float* ring,
-                                               float (&acc)[BM / 16][RowShape<TN, BM, BK>::NTW][4],
-                                               int warp, int lane, int tid) {
-  using S = RowShape<TN, BM, BK>;
-  constexpr int Hp = S::Hp, n_slabs = Hp / BK;
-#pragma unroll
-  for (int mi = 0; mi < S::MT; ++mi)
-#pragma unroll
-    for (int i = 0; i < S::NTW; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][i][e] = 0.0f;
-
-  __syncthreads();  // the ring's last readers are done
-  auto load = [&](int slab) {
-    float* st = ring + (slab % kRingStages) * S::stage;
-    if (!kTrans) {  // rows slab*BK .. of W
-      const float* src = W + static_cast<size_t>(slab) * BK * Hp;
-      for (int e = tid; e < BK * Hp / 4; e += kRowThreads) {
-        const int kr = e / (Hp / 4), c = (e % (Hp / 4)) * 4;
-        cp_async16(st + kr * S::ldK + c, src + kr * Hp + c);
-      }
-    } else {  // columns slab*BK .. of every row of W
-      const float* src = W + slab * BK;
-      for (int e = tid; e < Hp * BK / 4; e += kRowThreads) {
-        const int n = e / (BK / 4), c = (e % (BK / 4)) * 4;
-        cp_async16(st + n * S::ldN + c, src + static_cast<size_t>(n) * Hp + c);
-      }
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kRingStages - 1; ++s) {
-    if (s < n_slabs) load(s);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int s = 0; s < n_slabs; ++s) {
-    cp_async_wait<kRingStages - 2>();  // slab s has landed (this thread's copies)
-    __syncthreads();                   // ... and everyone's; slab s-1's stage is free again
-    if (s + kRingStages - 1 < n_slabs) load(s + kRingStages - 1);
-    cp_async_commit();
-    const float* st = ring + (s % kRingStages) * S::stage;
-    const int nb = (S::NT - warp + kRowWarps - 1) / kRowWarps;  // the warp's n-tiles: w, w + 16, ...
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      FragA fa[S::MT];
-      FragB fb[S::NTW];
-#pragma unroll
-      for (int mi = 0; mi < S::MT; ++mi) fa[mi] = load_a_rowmajor(act + 16 * mi * S::ldA + s * BK + kk, S::ldA, lane);
-#pragma unroll
-      for (int i = 0; i < S::NTW; ++i) {
-        const int nt = warp + kRowWarps * i;
-        if (i < nb) {
-          fb[i] = kTrans ? load_b_nmajor(st + 8 * nt * S::ldN + kk, S::ldN, lane)
-                         : load_b_kmajor(st + kk * S::ldK + 8 * nt, S::ldK, lane);
-        }
-      }
-      mma_3xtf32(acc, fa, fb, nb);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// out[r][c] = sum_{i < K} act[r * lda + i] * W[i * w_row + c * w_col] + bias[c]
-// for r < BM and c < n_cols, W in shared memory, one output a thread in
-// turn, float32 FMA in the order of i. `bias` may be null.
-__device__ __forceinline__ void narrow_product(const float* act, int lda, int BM, int K, const float* W,
-                                               int w_row, int w_col, const float* bias, float* out,
-                                               int n_cols, int tid) {
-  for (int p = tid; p < BM * n_cols; p += kRowThreads) {
-    const int r = p / n_cols, c = p % n_cols;
-    const float* a = act + r * lda;
-    const float* Wc = W + c * w_col;
-    float acc = 0.0f;
-    for (int kk = 0; kk < K; kk += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(a + kk);
-      acc = fmaf(v.x, Wc[kk * w_row], acc);
-      acc = fmaf(v.y, Wc[(kk + 1) * w_row], acc);
-      acc = fmaf(v.z, Wc[(kk + 2) * w_row], acc);
-      acc = fmaf(v.w, Wc[(kk + 3) * w_row], acc);
-    }
-    out[p] = acc + (bias == nullptr ? 0.0f : bias[c]);
-  }
-}
 
 template <int TN, int BM, int BK>
 __global__ void __launch_bounds__(kRowThreads, 1)
@@ -227,28 +92,14 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;  // a thread's rows and columns in a C fragment
   const int row0 = blockIdx.x * BM;
   const float* sc = an_s + static_cast<size_t>(k) * size;
   const float* bi = an_b + static_cast<size_t>(k) * size;
   const float* Q = ortho + static_cast<size_t>(k) * size * size;
 
-  // The thread's elements of a BM x Hp product, pairs of columns as the C
-  // fragments hold them: f(row, col, value pair index mi, i, h).
-  auto each_pair = [&](auto&& f) {
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int i = 0; i < NTW; ++i) {
-        const int nt = warp + kRowWarps * i;
-        if (nt < Sh::NT) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) f(16 * mi + g + 8 * h, 8 * nt + 2 * t4, mi, i, h);
-        }
-      }
-  };
   auto store2 = [](float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); };
   auto load2 = [](const float* p) { return *reinterpret_cast<const float2*>(p); };
+  auto pairs = [&](auto&& f) { each_pair<TN, BM, BK>(warp, lane, f); };
 
   // ---- the step's input rows, the incoming cotangent, dlogdet
   for (int p = tid; p < BM * size; p += kRowThreads) {
@@ -278,36 +129,18 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
     }
   };
   // The narrow products' weights go into the ring (free between the square
-  // products): W1y[k] (d_a x Hp), Wout[k] (Hp x n_out); returns where they are.
+  // products): W1y[k] (d_a x Hp), Wout[k] (Hp x n_out).
   const float* w1_g = w1y + static_cast<size_t>(k) * d_a * Hp;
   const float* wo_g = wout + static_cast<size_t>(k) * Hp * n_out;
   const bool in_ring = Sh::narrow_in_ring(size, d_a);
-  auto stage_weight = [&](const float* src, int n) -> const float* {
-    if (!in_ring) return src;
-    __syncthreads();  // the ring's last readers are done
-    load_floats(ring, src, n, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    return ring;
-  };
 
   // ---- recompute the MLP: a_0 = x1_a W1y + b1 + h_proj[k, row] (FMA)
   {
-    const float* w1 = stage_weight(w1_g, d_a * Hp);
-    each_pair([&](int row, int col, int, int, int) {
-      const bool valid = row0 + row < B;
-      const float2 hp = valid ? load2(h_proj + (static_cast<size_t>(k) * B + row0 + row) * Hp + col)
-                              : make_float2(0.0f, 0.0f);
-      float a0 = b1[static_cast<size_t>(k) * Hp + col] + hp.x;
-      float a1 = b1[static_cast<size_t>(k) * Hp + col + 1] + hp.y;
-      for (int i = 0; i < d_a; ++i) {
-        const float xa = x1s[row * size + i];
-        const float2 w = load2(w1 + i * Hp + col);
-        a0 = fmaf(xa, w.x, a0);
-        a1 = fmaf(xa, w.y, a1);
-      }
-      keep(0, row, col, a0, a1);
+    const float* w1 = stage_weight(ring, w1_g, d_a * Hp, in_ring, tid);
+    pairs([&](int row, int col, int, int, int) {
+      const float* hp = row0 + row < B ? h_proj + (static_cast<size_t>(k) * B + row0 + row) * Hp : nullptr;
+      const float2 a = input_layer<Hp>(x1s + row * size, w1, b1 + static_cast<size_t>(k) * Hp, hp, d_a, col);
+      keep(0, row, col, a.x, a.y);
     });
   }
 
@@ -317,14 +150,14 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
     const size_t wl = static_cast<size_t>(k) * nh + l;
     square_product<TN, BM, BK, false>(act, wm + wl * Hp * Hp, ring, acc, warp, lane, tid);
     const float* bias = bm + wl * Hp;
-    each_pair([&](int row, int col, int mi, int i, int h) {
+    pairs([&](int row, int col, int mi, int i, int h) {
       keep(l + 1, row, col, acc[mi][i][2 * h] + bias[col], acc[mi][i][2 * h + 1] + bias[col + 1]);
     });
   }
   __syncthreads();
 
   // ---- output layer: [t | s'] = h_nh Wout + bout (FMA)
-  const float* wo = stage_weight(wo_g, Hp * n_out);
+  const float* wo = stage_weight(ring, wo_g, Hp * n_out, in_ring, tid);
   narrow_product(act, ldA, BM, Hp, wo, n_out, 1, bout + static_cast<size_t>(k) * n_out, outs, n_out, tid);
   __syncthreads();
 
@@ -366,7 +199,7 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
 
   // ---- dh = dout Wout^T (FMA, Wout still staged); da_nh = gelu'(a_nh) dh
   {
-    each_pair([&](int row, int col, int, int, int) {
+    pairs([&](int row, int col, int, int, int) {
       float d0 = 0.0f, d1 = 0.0f;
       for (int c = 0; c < n_out; ++c) {
         const float d = outs[row * n_out + c];
@@ -383,14 +216,14 @@ bwd_rows_kernel(const float* __restrict__ bound, const float* __restrict__ h_pro
     square_product<TN, BM, BK, true>(act, wm + (static_cast<size_t>(k) * nh + l) * Hp * Hp, ring, acc, warp,
                                      lane, tid);
     float* dst = l > 0 ? da_g + (l - 1) * BHp : dhp + static_cast<size_t>(k) * BHp;
-    each_pair([&](int row, int col, int mi, int i, int h) {
+    pairs([&](int row, int col, int mi, int i, int h) {
       grad(l, dst, row, col, acc[mi][i][2 * h], acc[mi][i][2 * h + 1]);
     });
   }
   __syncthreads();
 
   // ---- dx_a through the MLP: da_0 W1y^T (FMA)
-  narrow_product(act, ldA, BM, Hp, stage_weight(w1_g, d_a * Hp), 1, Hp, nullptr, dxas, d_a, tid);
+  narrow_product(act, ldA, BM, Hp, stage_weight(ring, w1_g, d_a * Hp, in_ring, tid), 1, Hp, nullptr, dxas, d_a, tid);
   __syncthreads();
 
   // ---- dx1, the carried dx = dx1 s_k, and the ActNorm rows [dx1 x_k | dx1 | dld]
@@ -433,7 +266,8 @@ cudaError_t launch_rows(const float* bound, const float* h_proj, const float* dl
                         const float* bout, float* dxy, float* dhp, float* hs, float* gs, float* da,
                         float* dout, float* x1, float* an, int B, int S, int k, int size, int d_a, int nh,
                         cudaStream_t stream) {
-  const size_t smem = RowShape<TN, BM, BK>::smem(size, d_a);
+  const size_t smem = sizeof(float) * (RowShape<TN, BM, BK>::tile_floats +
+                                       static_cast<size_t>(BM) * (5 * size + 2 * (size - d_a) + d_a + 1));
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(bwd_rows_kernel<TN, BM, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -502,19 +336,7 @@ extern "C" int bcnf_flow_train_bwd(
     err = launch_rows<TN, BM, BK>(bound, h_proj, dld, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, dx, \
                                   dhp, hs, gs, da, dout, x1, an, B, S, k, size, d_a, nh, st);          \
     break;
-      switch (Hp / 32) {
-        BCNF_CASE(1, 32, 16)
-        BCNF_CASE(2, 32, 16)
-        BCNF_CASE(4, 32, 16)
-        BCNF_CASE(8, 32, 16)
-        BCNF_CASE(12, 32, 16)
-        BCNF_CASE(16, 32, 16)
-        BCNF_CASE(17, 32, 16)
-        BCNF_CASE(24, 16, 8)
-        BCNF_CASE(32, 16, 8)
-        default:
-          return cudaErrorInvalidValue;
-      }
+      BCNF_ROW_CASES(Hp, BCNF_CASE)
 #undef BCNF_CASE
       if (err != cudaSuccess) return err;
     }

@@ -18,22 +18,37 @@
 //        dh_next = dgates W_hh^T; dc_next = dc f; and
 //        dW_hh = sum over t and rows of h_prev^T dgates.
 //
-// What bounds it on an H100: operations. A step is a (B x H) @ (H x 4H)
-// product, 8 H^2 FLOP a row: 19.3 GFLOP a direction at the flagship's
-// B = 4096, T = 30, H = 140 (0.29 ms at the float32 FMA rate), against
-// 0.12 ms for its bytes (xp in, hs and cs out). K3b does three such products
-// (in 3xTF32: 3 x 57.2 GFLOP at the 494.7 TFLOP/s TF32 rate, 0.35 ms).
+// What bounds it on an H100. A step is a (B x H) @ (H x 4H) product, 8 H^2
+// FLOP a row: 19.3 GFLOP a direction at the flagship's B = 4096, T = 30,
+// H = 140. Both kernels take their products on the tensor cores in 3xTF32
+// (mma_tf32.cuh: three products a product, at a third of the 494.7 TFLOP/s
+// TF32 rate), so K3a is bound by its bytes (xp in, hs and cs out: 0.12 ms)
+// about as much as by its operations (0.12 ms); K3b does three such products
+// (3 x 57.2 GFLOP, 0.35 ms).
 //
-// K3a's design. The TPU kernel keeps the whole time loop inside one
-// invocation per batch tile; here one block of 256 threads owns BM = 8*TM
-// rows for all T steps. A thread owns hidden units u = tx + 32*j (j < TN) of
-// all four gates, so the cell update needs no exchange: c stays in
-// registers, the gate sums of a step in an accumulator tile, h in shared
-// memory for the step's product. W_hh does not fit a block (313 KB at
-// H = 140, against 227 KB of shared memory), so it is streamed every step in
-// BK-row slabs through the cp.async double buffer of flow_common.cuh;
-// resident blocks walk the steps together and keep it hot in the 50 MB L2.
-// float32 FMA.
+// K3a's design: tensor cores in 3xTF32, W_hh resident. The TPU kernel keeps
+// the whole time loop inside one invocation per batch tile; here a
+// thread-block cluster of 8 blocks owns kFwdRows = 64 rows for all T steps,
+// so batch 4096 is 64 clusters of 8 blocks, two blocks an SM at the
+// flagship's widths (the card holds 30 such clusters at once: clusters take
+// whole groups of SMs). Block q owns hidden units
+// q*U .. q*U + U - 1 (U = Hp/8) of every gate and keeps W_hh's columns of
+// those units (Hp x 4U, 55 KB at H = 140) in shared memory for the whole
+// launch: W_hh is read once a block, not once a step. The block orders
+// those columns as it loads them, so that one n-tile pair of the product's
+// C fragments gives a thread i, f (first tile) and g, o (second) of the same
+// unit: the cell update runs on the accumulators, c stays in registers, and
+// no gate sum goes through shared memory. A step: (1) the
+// gate sums of the block's columns, h (64 x Hp, all units) times the
+// resident slice; (2) the cell update for the block's units, hs and cs
+// written at width H, masked, and the new h of those units into the
+// block's own h tile (no other block writes those columns); (3) those
+// columns written into the 7 other blocks' h tiles through distributed
+// shared memory, 16 bytes a store (push). Two split cluster barriers a step
+// order the exchange: every block is done reading its h tile before any
+// block writes into it, and every write has landed before the next
+// product; the cell update runs between an arrive and its wait. The next step's xp is prefetched into L2 before each product and
+// loaded after it, so no register holds it across the product.
 //
 // K3b's design: tensor cores in 3xTF32 (mma_tf32.cuh), W_hh resident. A
 // thread-block cluster of 8 blocks owns 32 rows for all T steps; block q owns
@@ -78,8 +93,9 @@ using namespace bcnf;
 constexpr int kMaxSplit = 64;
 constexpr int kSplitRows = 2048;
 
-// K3b: a cluster of kCluster blocks owns kBwdRows rows.
+// K3a (K3b): a cluster of kCluster blocks owns kFwdRows (kBwdRows) rows.
 constexpr int kCluster = 8;
+constexpr int kFwdRows = 64;
 constexpr int kBwdRows = 32;
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -88,62 +104,153 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf
 // thread of the cluster's blocks alternates the two.
 __device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive;\n" ::: "memory"); }
 __device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait;\n" ::: "memory"); }
+// *p = v in the shared memory of block `rank` of the cluster, p being the
+// same variable's address in this block's.
+__device__ __forceinline__ void st_cluster_f4(float* p, int rank, float4 v) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "f"(v.x), "f"(v.y), "f"(v.z),
+               "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void prefetch_l2(const float* p) { asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p)); }
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wp, float* __restrict__ hs,
-                float* __restrict__ cs, int T, int B, int H, int reverse, int BK) {
-  constexpr int BM = kWarps * TM;
-  constexpr int Hp = 32 * TN;
+// K3a's shared-memory layout for Hp = 32*TN; the leading dimensions keep
+// the fragment loads and the exchange's stores free of bank conflicts.
+template <int TN>
+struct FwdShape {
+  static constexpr int Hp = 32 * TN;
+  static constexpr int U = Hp / kCluster;  // units a block owns in each gate: 4 TN, TN quads of 4
+  static constexpr int NG = 4 * U;         // its gate columns: a pair of n-tiles a quad
+  static constexpr int ldw = NG + 8;       // w_s: Hp x NG
+  static constexpr int ldh = Hp + 4;       // h_s: kFwdRows x Hp
+  static constexpr int QW = (TN + 1) / 2;  // quads of a warp, at most (warps 0-3: quads 0, 2, ..; 4-7: 1, 3, ..)
+  static constexpr size_t smem =
+      sizeof(float) * (static_cast<size_t>(Hp) * ldw + static_cast<size_t>(kFwdRows) * ldh);
+  // two blocks an SM where their shared memory fits (the flagship's Hp = 160
+  // and t_DLSTM_large's 128): registers are then capped at 128 a thread
+  static constexpr int kMinBlocks = 2 * smem <= 226 * 1024 ? 2 : 1;
+};
+
+template <int TN>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, FwdShape<TN>::kMinBlocks)
+lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh, float* __restrict__ hs,
+                float* __restrict__ cs, int T, int B, int H, int reverse) {
+  using S = FwdShape<TN>;
+  constexpr int Hp = S::Hp, U = S::U, NG = S::NG, QW = S::QW, R = kFwdRows;
   const int G = 4 * H;
+  const int Kp = (H + 7) & ~7;  // the product's depth: h's padded units are 0
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = static_cast<int>(blockIdx.x / kCluster) * R;
 
   extern __shared__ float4 smem4[];
-  float* h_s = reinterpret_cast<float*>(smem4);  // BM x Hp: h of the step before
-  float* slab = h_s + BM * Hp;                    // 2 x BK x 4Hp
+  float* w_s = reinterpret_cast<float*>(smem4);  // the block's gate columns of W_hh, resident
+  float* h_s = w_s + Hp * S::ldw;                // h of the step before, all Hp units of the cluster's rows
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 32;
-  const int tx = tid % 32;
-  const int row0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mt = warp & 3, nq = warp >> 2;  // the warp's m-tile (16 rows) and its first quad
+  const int nb = 2 * ((TN - nq + 1) / 2);   // its n-tiles: the pairs of quads nq, nq + 2, ...
 
-  for (int p = tid; p < BM * Hp; p += kThreads) h_s[p] = 0.0f;
-  float c[TM][TN];
+  // the block's columns of W_hh (H, 4H), zero-padded to Hp rows and units,
+  // in the order that gives a thread all four gates of its units: column
+  // 16 p + 8 tile + 2 t + e of w_s is gate 2 tile + e of unit rank*U + 4 p + t
+  for (int e = tid; e < Hp * NG; e += kThreads) {
+    const int k = e / NG, n = e % NG;
+    const int u = rank * U + 4 * (n / 16) + n / 2 % 4, gate = 2 * (n / 8 % 2) + n % 2;
+    w_s[k * S::ldw + n] = k < H && u < H ? w_hh[static_cast<size_t>(k) * G + gate * H + u] : 0.0f;
+  }
+  for (int e = tid; e < R * S::ldh; e += kThreads) h_s[e] = 0.0f;
+
+  // The thread's cells: quad i (p = nq + 2 i), rows 16 mt + g + 8 r of the
+  // cluster's tile, unit rank*U + 4p + t4, c carried in registers. Their
+  // xp of step tau: the gate q of cell (i, r) at xp_at(tau, i, r) + q H.
+  float c[QW][2];
+  auto cell_ok = [&](int i, int r) {
+    return nq + 2 * i < TN && row0 + 16 * mt + g + 8 * r < B && rank * U + 4 * (nq + 2 * i) + t4 < H;
+  };
+  auto xp_at = [&](int tau, int i, int r) {
+    const int t = reverse ? T - 1 - tau : tau;
+    return xp + (static_cast<size_t>(t) * B + row0 + 16 * mt + g + 8 * r) * G + rank * U + 4 * (nq + 2 * i) + t4;
+  };
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) c[r][j] = 0.0f;
+  for (int i = 0; i < QW; ++i) c[i][0] = c[i][1] = 0.0f;
+  __syncthreads();
 
   for (int tau = 0; tau < T; ++tau) {
     const int t = reverse ? T - 1 - tau : tau;
-    // h W_hh; the product's first barrier makes the h tile written below
-    // (and its zeros) visible, its last one ends every read of it
-    float acc[TM][4 * TN];
-    matmul_hidden<TM, TN, 4 * TN>(h_s, wp, slab, BK, acc, ty, tx, tid);
+    // the next step's xp into L2 now, so that its loads after that step's
+    // product are short; no registers held across the product
+    if (tau + 1 < T) {
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = row0 + ty * TM + r;
-      const size_t x0 = (static_cast<size_t>(t) * B + row) * G;
-      const size_t s0 = (static_cast<size_t>(t) * B + row) * H;
+      for (int i = 0; i < QW; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int u = tx + 32 * j;
-        const bool valid = row < B && u < H;
-        float gate[4];
+        for (int r = 0; r < 2; ++r)
+          if (cell_ok(i, r)) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) gate[g] = (valid ? xp[x0 + g * H + u] : 0.0f) + acc[r][g * TN + j];
-        const float i = sigmoid_f(gate[0]);
-        const float f = sigmoid_f(gate[1]);
-        const float gg = tanhf(gate[2]);
-        const float o = sigmoid_f(gate[3]);
-        c[r][j] = f * c[r][j] + i * gg;
-        const float h = valid ? o * tanhf(c[r][j]) : 0.0f;
-        h_s[(ty * TM + r) * Hp + u] = h;
-        if (valid) {
-          hs[s0 + u] = h;
-          cs[s0 + u] = c[r][j];
-        }
+            for (int q = 0; q < 4; ++q) prefetch_l2(xp_at(tau + 1, i, r) + q * H);
+          }
+    }
+    // (1) the gate sums of the block's columns: h (R x Hp) @ w_s (Hp x NG);
+    // zero at the first step (h = 0)
+    float acc[1][2 * QW][4] = {};
+    if (tau > 0) {
+      cluster_wait();  // (B) every block's h of the step before is in h_s
+#pragma unroll 2
+      for (int k0 = 0; k0 < Kp; k0 += 8) {
+        const FragA fa[1] = {load_a_rowmajor(h_s + 16 * mt * S::ldh + k0, S::ldh, lane)};
+        FragB fb[2 * QW];
+#pragma unroll
+        for (int j = 0; j < 2 * QW; ++j)
+          if (j < nb) fb[j] = load_b_kmajor(w_s + k0 * S::ldw + 8 * (2 * (nq + 2 * (j / 2)) + j % 2), S::ldw, lane);
+        mma_3xtf32(acc, fa, fb, nb);
       }
     }
+    cluster_arrive();  // (A) done reading h_s
+    __syncthreads();   // ... this block's warps too: its own units' columns take the new h
+
+    // (2) the cell update: i, f in the quad's first n-tile, g, o in its second
+    float xg[QW][2][4];
+#pragma unroll
+    for (int i = 0; i < QW; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xg[i][r][q] = cell_ok(i, r) ? xp_at(tau, i, r)[q * H] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < QW; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool valid = cell_ok(i, r);
+        const float ig = sigmoid_f(acc[0][2 * i][2 * r] + xg[i][r][0]);
+        const float f = sigmoid_f(acc[0][2 * i][2 * r + 1] + xg[i][r][1]);
+        const float gg = tanhf(acc[0][2 * i + 1][2 * r] + xg[i][r][2]);
+        const float o = sigmoid_f(acc[0][2 * i + 1][2 * r + 1] + xg[i][r][3]);
+        c[i][r] = f * c[i][r] + ig * gg;
+        const float h = valid ? o * tanhf(c[i][r]) : 0.0f;
+        if (nq + 2 * i < TN) h_s[(16 * mt + g + 8 * r) * S::ldh + rank * U + 4 * (nq + 2 * i) + t4] = h;
+        if (valid) {
+          const size_t s0 = (static_cast<size_t>(t) * B + row0 + 16 * mt + g + 8 * r) * H + rank * U +
+                            4 * (nq + 2 * i) + t4;
+          hs[s0] = h;
+          cs[s0] = c[i][r];
+        }
+      }
+    __syncthreads();  // this block's units of the new h are in its h_s
+    cluster_wait();   // (A) every block is done reading its h_s
+    if (tau + 1 == T) break;
+
+    // (3) those units into the 7 other blocks' h_s, 16 bytes a store, each
+    // block starting at the next rank
+    for (int e = tid; e < (kCluster - 1) * R * (U / 4); e += kThreads) {
+      const int q = (rank + 1 + e / (R * U / 4)) % kCluster, r = e % (R * U / 4) / (U / 4), j = e % (U / 4) * 4;
+      float* p = h_s + r * S::ldh + rank * U + j;
+      st_cluster_f4(p, q, *reinterpret_cast<const float4*>(p));
+    }
+    cluster_arrive();  // (B) this block's h has landed everywhere
   }
 }
 
@@ -355,28 +462,35 @@ __global__ void sum_parts_kernel(const float* __restrict__ parts, int n_parts, i
   out[i] = s;
 }
 
-// Shared memory of a launch, with the slab depth BK halved until it fits.
-size_t fit_smem(size_t fixed, int slab_row_floats, int* BK) {
-  *BK = 16;
-  while (*BK >= 4 && fixed + sizeof(float) * 2 * *BK * slab_row_floats > kSmemLimit) *BK /= 2;
-  return fixed + sizeof(float) * 2 * *BK * slab_row_floats;
+template <int TN>
+cudaError_t launch_fwd(const float* xp, const float* w_hh, float* hs, float* cs, int T, int B, int H, int reverse,
+                       cudaStream_t stream) {
+  using S = FwdShape<TN>;
+  static_assert(S::smem <= kSmemLimit, "K3a's shared memory exceeds a block's");
+  cudaError_t err = cudaFuncSetAttribute(lstm_fwd_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(S::smem));
+  if (err != cudaSuccess) return err;
+  const int clusters = (B + kFwdRows - 1) / kFwdRows;
+  lstm_fwd_kernel<TN><<<clusters * kCluster, kThreads, S::smem, stream>>>(xp, w_hh, hs, cs, T, B, H, reverse);
+  return cudaGetLastError();
 }
 
-template <int TM, int TN>
-cudaError_t launch_fwd(const float* xp, const float* wp, float* hs, float* cs, int T, int B, int H,
-                       int reverse, cudaStream_t stream) {
-  constexpr int BM = kWarps * TM;
-  constexpr int Hp = 32 * TN;
-  int BK;
-  const size_t smem = fit_smem(sizeof(float) * BM * Hp, 4 * Hp, &BK);
-  if (BK < 4) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(lstm_fwd_kernel<TM, TN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// K3a's launch at batch B: out = {rows a cluster, clusters, clusters the card
+// holds at once}; the waves are clusters over the last.
+template <int TN>
+cudaError_t fwd_layout(int B, int* out) {
+  using S = FwdShape<TN>;
+  cudaError_t err = cudaFuncSetAttribute(lstm_fwd_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(S::smem));
   if (err != cudaSuccess) return err;
-  lstm_fwd_kernel<TM, TN><<<(B + BM - 1) / BM, kThreads, smem, stream>>>(xp, wp, hs, cs, T, B, H,
-                                                                         reverse, BK);
-  return cudaGetLastError();
+  const int clusters = (B + kFwdRows - 1) / kFwdRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = S::smem;
+  out[0] = kFwdRows;
+  out[1] = clusters;
+  return cudaOccupancyMaxActiveClusters(&out[2], reinterpret_cast<const void*>(lstm_fwd_kernel<TN>), &cfg);
 }
 
 template <int TN>
@@ -400,43 +514,53 @@ int n_split(int T, int B) {
   return n < 1 ? 1 : (n > kMaxSplit ? kMaxSplit : static_cast<int>(n));
 }
 
-#define BCNF_LSTM_CASES(CALL) \
-  switch (Hp / 32) {          \
-    case 1: CALL(4, 1)        \
-    case 2: CALL(4, 2)        \
-    case 3: CALL(4, 3)        \
-    case 4: CALL(4, 4)        \
-    case 5: CALL(4, 5)        \
-    case 6: CALL(2, 6)        \
-    case 7: CALL(2, 7)        \
-    case 8: CALL(2, 8)        \
+#define BCNF_LSTM_CASES(CALL)              \
+  switch (Hp / 32) {                       \
+    case 1: CALL(1)                        \
+    case 2: CALL(2)                        \
+    case 3: CALL(3)                        \
+    case 4: CALL(4)                        \
+    case 5: CALL(5)                        \
+    case 6: CALL(6)                        \
+    case 7: CALL(7)                        \
+    case 8: CALL(8)                        \
     default: return cudaErrorInvalidValue; \
   }
 
 }  // namespace
 
 // C entry points, loaded with ctypes. Hp (the per-gate padded width) must be
-// 32*TN for a compiled TN (1..8) with H <= Hp; wp is W_hh padded per gate to
-// (Hp, 4Hp). Each returns the cudaError_t of its launches.
+// 32*TN for a compiled TN (1..8) with H <= Hp. Each returns the cudaError_t
+// of its launches.
 
-// K3a: hs, cs (T, B, H) of one direction from xp (T, B, 4H).
-extern "C" int bcnf_lstm_fwd(const float* xp, const float* wp, float* hs, float* cs, int T, int B, int H,
+// K3a: hs, cs (T, B, H) of one direction from xp (T, B, 4H) and W_hh
+// (H, 4H) as they are.
+extern "C" int bcnf_lstm_fwd(const float* xp, const float* w_hh, float* hs, float* cs, int T, int B, int H,
                              int Hp, int reverse, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || H > Hp || Hp % 32 != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BCNF_CALL(TM, TN) return launch_fwd<TM, TN>(xp, wp, hs, cs, T, B, H, reverse, st);
+#define BCNF_CALL(TN) return launch_fwd<TN>(xp, w_hh, hs, cs, T, B, H, reverse, st);
+  BCNF_LSTM_CASES(BCNF_CALL)
+#undef BCNF_CALL
+}
+
+// K3a's layout at batch B (out: rows a cluster, clusters, clusters resident
+// at once), for the smoke run's wave count.
+extern "C" int bcnf_lstm_fwd_layout(int B, int Hp, int* out) {
+  if (B <= 0 || Hp % 32 != 0) return cudaErrorInvalidValue;
+#define BCNF_CALL(TN) return fwd_layout<TN>(B, out);
   BCNF_LSTM_CASES(BCNF_CALL)
 #undef BCNF_CALL
 }
 
 // K3b, part 1, the recurrence: dxp (T, B, 4H) from the forward's xp, hs, cs
-// and the cotangent dhs (T, B, H).
+// and the cotangent dhs (T, B, H); wp is W_hh padded per gate to (Hp, 4Hp).
 extern "C" int bcnf_lstm_bwd_rec(const float* xp, const float* wp, const float* hs, const float* cs,
                                  const float* dhs, float* dxp, int T, int B, int H, int Hp, int reverse,
                                  void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || H > Hp || Hp % 32 != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BCNF_CALL(TM, TN) return launch_bwd<TN>(xp, wp, hs, cs, dhs, dxp, T, B, H, reverse, st);
+#define BCNF_CALL(TN) return launch_bwd<TN>(xp, wp, hs, cs, dhs, dxp, T, B, H, reverse, st);
   BCNF_LSTM_CASES(BCNF_CALL)
 #undef BCNF_CALL
 }

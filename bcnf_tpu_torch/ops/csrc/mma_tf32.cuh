@@ -1,6 +1,6 @@
 // 3xTF32 products on Hopper's tensor cores: the building blocks of the
-// training backward K2b (flow_train_kernel.cu), the LSTM backward K3b
-// (lstm_kernel.cu) and their shared A^T B weight-grad pass (atb.cuh).
+// training kernels K2a and K2b (flow_rows.cuh), the LSTM kernels K3a and K3b
+// (lstm_kernel.cu) and the A^T B weight-grad pass (atb.cuh).
 //
 // Which JAX mode it mirrors. The JAX package serves its "highest"/"float32"
 // contract in the fused kernels with a split-operand product on the matrix

@@ -5,8 +5,9 @@
 - K2a/K2b, `fused_flow_train`, replace `fused_flow_train` and its custom VJP
   (`fwd_call`/`bwd_call` of `_make_fused_flow_train`): a
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`,
-  `csrc/flow_kernel.cu`) and whose backward is K2b (`fused_flow_train_bwd`,
-  `csrc/flow_train_kernel.cu`).
+  `train_fwd_kernel` in `csrc/flow_kernel.cu`) and whose backward is K2b
+  (`fused_flow_train_bwd`, `csrc/flow_train_kernel.cu`). Both run their
+  square hidden products on the tensor cores in 3xTF32 (`csrc/flow_rows.cuh`).
 
 This module stacks and pads the kernels' arguments, checks them, launches
 them on PyTorch's current stream, and holds their plain PyTorch versions
@@ -285,10 +286,14 @@ def fused_flow_train_reference(
     bm: torch.Tensor,
     wout: torch.Tensor,
     bout: torch.Tensor,
+    *,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2a (`_flow_fwd_train_kernel`,
     `bcnf_tpu/ops/flow_kernel.py:382-431`): returns `(z, logdet, bound)`,
-    `bound[k]` being the rows' input to step k. Differentiable by autograd."""
+    `bound[k]` being the rows' input to step k. Differentiable by autograd.
+    `mm` takes every product (the tests pass `tf32.matmul_3xtf32`, the
+    arithmetic of the kernel's hidden products)."""
     B, size = x.shape
     S = h_proj.shape[0]
     d_a = w1y.shape[1]
@@ -300,13 +305,13 @@ def fused_flow_train_reference(
         if inner:
             x = x * an_scale[k] + an_bias[k]
             ld = ld + torch.sum(torch.log(torch.abs(an_scale[k])))
-        _, hs = _train_step_mlp(k, x[:, :d_a], h_proj, w1y, b1, wm, bm)
-        out = hs[-1] @ wout[k] + bout[k]
+        _, hs = _train_step_mlp(k, x[:, :d_a], h_proj, w1y, b1, wm, bm, mm)
+        out = mm(hs[-1], wout[k]) + bout[k]
         t, s = out[:, : size - d_a], torch.tanh(out[:, size - d_a:])
         x = torch.cat([x[:, :d_a], torch.exp(s) * x[:, d_a:] + t], dim=-1)
         ld = ld + torch.sum(s, dim=-1)
         if inner:
-            x = x @ ortho[k]
+            x = mm(x, ortho[k])
     return x, ld, torch.stack(bound)
 
 

@@ -33,8 +33,8 @@ import torch.nn.functional as F
 
 from bcnf_tpu_torch.ops.flow_kernel import _ptrs, _raise_on, padded_width
 
-# The kernels give each thread TN hidden units of every gate (Hp = 32 * TN
-# per gate); these are the TN they are compiled for (`csrc/lstm_kernel.cu`).
+# The kernels pad each gate to Hp = 32 * TN units, split over a cluster of
+# 8 blocks; these are the TN they are compiled for (`csrc/lstm_kernel.cu`).
 LSTM_KERNEL_TN = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
@@ -58,10 +58,12 @@ def _gate_math(gates: torch.Tensor, c_prev: torch.Tensor, H: int) -> tuple[torch
     return i, f, g, o, c, o * torch.tanh(c)
 
 
-def lstm_direction_fwd_reference(xp: torch.Tensor, w_hh: torch.Tensor,
-                                 reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def lstm_direction_fwd_reference(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool, *,
+                                 mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3a (`_fwd_kernel`, `lstm_kernel.py:46-62`):
-    `(hs, cs)`, each `(T, B, H)`."""
+    `(hs, cs)`, each `(T, B, H)`. `mm` takes the step products (the tests
+    pass `tf32.matmul_3xtf32`, the kernel's tensor-core arithmetic)."""
     T, B, G = xp.shape
     H = G // 4
     h = xp.new_zeros((B, H))
@@ -69,7 +71,7 @@ def lstm_direction_fwd_reference(xp: torch.Tensor, w_hh: torch.Tensor,
     hs, cs = [h] * T, [c] * T
     for tau in range(T):
         t = T - 1 - tau if reverse else tau
-        _, _, _, _, c, h = _gate_math(xp[t] + h @ w_hh, c, H)
+        _, _, _, _, c, h = _gate_math(xp[t] + mm(h, w_hh), c, H)
         hs[t], cs[t] = h, c
     return torch.stack(hs), torch.stack(cs)
 
@@ -136,7 +138,8 @@ def _stream() -> ctypes.c_void_p:
 
 
 def lstm_direction_fwd(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3a: `(hs, cs)` of one direction in one launch. A CPU tensor takes
+    """K3a: `(hs, cs)` of one direction in one launch (the kernel pads and
+    orders W_hh's columns itself as it loads them). A CPU tensor takes
     `lstm_direction_fwd_reference`; a CUDA tensor launches the kernel (or
     raises)."""
     T, B, H = _shapes(xp)
@@ -154,15 +157,28 @@ def lstm_direction_fwd(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool) -> t
     cs = torch.empty_like(hs)
     if hs.numel() == 0:
         return hs, cs
-    wp = pad_gates(w_hh, Hp)
     with torch.cuda.device(xp.device):
-        err = lib.bcnf_lstm_fwd(*_ptrs(xp, wp, hs, cs), T, B, H, Hp, int(reverse), _stream())
+        err = lib.bcnf_lstm_fwd(*_ptrs(xp, w_hh, hs, cs), T, B, H, Hp, int(reverse), _stream())
     _raise_on(err, lib, "lstm_direction_fwd")
     lstm_direction_fwd.launches += 1
     return hs, cs
 
 
 lstm_direction_fwd.launches = 0  # type: ignore[attr-defined]
+
+
+def fwd_layout(B: int, H: int, device: torch.device) -> dict[str, int]:
+    """K3a's launch at batch B and hidden size H on a card: rows a cluster,
+    clusters, the clusters the card holds at once, and so the waves."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library("lstm_kernel")
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        _raise_on(lib.bcnf_lstm_fwd_layout(B, padded_width(H, LSTM_KERNEL_TN), out), lib, "lstm_direction_fwd layout")
+    rows, clusters, active = out
+    return {"rows": rows, "clusters": clusters, "resident_clusters": active,
+            "waves": -(-clusters // active) if active else 0}
 
 
 BWD_RECURRENCE, BWD_DW = 1, 2  # K3b's parts

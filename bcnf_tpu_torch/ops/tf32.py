@@ -1,15 +1,16 @@
-"""The plain PyTorch model of the tensor-core arithmetic of K2b and K3b, for
-the tests only: nothing on the main path calls it.
+"""The plain PyTorch model of the tensor-core arithmetic of K2a, K2b, K3a and
+K3b, for the tests only: nothing on the main path calls it.
 
-The hand-written backward kernels (`csrc/flow_train_kernel.cu`,
-`csrc/lstm_kernel.cu`) and their shared AᵀB pass (`csrc/atb.cuh`) take their
+The hand-written training kernels (`csrc/flow_kernel.cu`'s K2a,
+`csrc/flow_train_kernel.cu`), the LSTM kernels (`csrc/lstm_kernel.cu`) and
+the AᵀB pass (`csrc/atb.cuh`) take their
 large products on Hopper's tensor cores in 3xTF32 (`csrc/mma_tf32.cuh`): a
 float32 ``x`` splits into ``hi = tf32(x)`` (rounded) and ``lo = x - hi``
 (which the tensor cores truncate to TF32), and a product ``a b`` is taken as
 ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with a float32 accumulator. It is the
 Hopper counterpart of the JAX kernels' ``"x3"`` mode (bf16 x 3,
 `bcnf_tpu/ops/flow_kernel.py::_dot`), which serves their ``"highest"``
-contract. The tests hold the plain backward versions, with
+contract. The tests hold the plain versions of those kernels, with
 every product replaced by `matmul_3xtf32`, against the JAX kernels.
 """
 

@@ -16,7 +16,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
    each kernel's time beside its bound and its plain version's time.
 4. entry point: the `sample` CLI on a model directory written here.
 5. training kernels: K2a (the whole-flow training forward) and K2b (its
-   backward, on tensor cores in 3xTF32) against their plain PyTorch versions
+   backward), both on tensor cores in 3xTF32, against their plain PyTorch versions
    at the flagship widths, B = 4096 and a ragged B = 4099, every output and
    every grad (pulled back from standard-normal cotangents; each grad's
    largest value printed beside its error).
@@ -31,13 +31,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
 7. entry point: the `train` CLI on a written dataset with a copy of the
    flagship config (`model.kwargs.dropout: 0`, 2 epochs), then `sample` from
    the model directory it wrote.
-8. LSTM kernels: K3a (one direction's recurrence) and K3b (its backward)
-   against their plain PyTorch versions at the flagship encoder's shapes
+8. LSTM kernels: K3a (one direction's recurrence) and K3b (its backward),
+   both on tensor cores in 3xTF32, against their plain PyTorch versions at
+   the flagship encoder's shapes
    (B = 4096 and a ragged 4099, T = 30, H = 140, layers of 3 and 280
    inputs) and t_DLSTM_large's (H = 128, T = 30 and 16), both directions;
    their times beside cuDNN's one-layer LSTM (`torch.nn.LSTM`, timed as a
-   yardstick only, never on the port's path); K3b's parts alone: the
-   cluster recurrence and the dW_hh pass.
+   yardstick only, never on the port's path); K3a's cluster rows and wave
+   count at batch 4096; K3b's parts alone: the cluster recurrence and the
+   dW_hh pass.
 9. path A: the flagship with BCNF_FUSED_LSTM=1: sampling 10,000 x 8 (K3a
    4, K1 1) against phase 3's samples; `Trainer.train` at batch 4096 and
    256 (K3a/K3b 4 a step, K2a/K2b); a training step through K3a/K3b against
@@ -696,7 +698,7 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
     rows = []
     for name, err, src, replaces, fn, arith in (
         ("K2a", fwd_err, "bcnf_tpu_torch/ops/csrc/flow_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:558",
-         "fused_flow_train_fwd", ARITH_FMA),
+         "fused_flow_train_fwd", ARITH_3XTF32),
         ("K2b", bwd_err, "bcnf_tpu_torch/ops/csrc/flow_train_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:600",
          "fused_flow_train_bwd", ARITH_3XTF32),
     ):
@@ -706,7 +708,8 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
                                peaks, None, arith))
         ms, plain_ms, bound = rows[-1]["ms"], rows[-1]["plain_ms"], rows[-1]["bound_ms"]
         fma_bound = bound_ms(work[name], peaks, ARITH_FMA)[0]
-        print(f"    {name} rows {B}: {ms:.2f} ms ({arith}; bound {bound:.2f} ms, float32-FMA bound {fma_bound:.2f} ms, "
+        blocks = -(-B // (32 if h_proj.shape[-1] <= 32 * 17 else 16))  # the rows kernels' tiles (csrc/flow_rows.cuh)
+        print(f"    {name} rows {B} ({blocks} blocks): {ms:.2f} ms ({arith}; bound {bound:.2f} ms, float32-FMA bound {fma_bound:.2f} ms, "
               f"{flops / 1e12:.3f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, median of {len(k_times)}, range "
               f"{min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms (range {min(p_times):.2f}-"
               f"{max(p_times):.2f}); max|d| vs plain {err:.2e}")
@@ -868,6 +871,7 @@ def check_lstm_kernels(rng, dev) -> dict:
         BWD_RECURRENCE,
         _bwd_parts,
         fused_direction,
+        fwd_layout,
         lstm_direction_bwd,
         lstm_direction_bwd_reference,
         lstm_direction_fwd,
@@ -906,6 +910,10 @@ def check_lstm_kernels(rng, dev) -> dict:
                                                                  LSTM_GRAD_RTOL))
     if (lstm_direction_fwd.launches - saved[0], lstm_direction_bwd.launches - saved[1]) != (16, 16):
         fail("the LSTM kernels did not count their launches")
+    for label, H in (("flagship", 140), ("t_DLSTM_large", 128)):
+        lay = fwd_layout(4096, H, dev)
+        print(f"    K3a layout, {label} H={H}, B=4096: clusters of 8 blocks own {lay['rows']} rows each; "
+              f"{lay['clusters']} clusters, {lay['resident_clusters']} resident at once: {lay['waves']} wave(s)")
 
     # times at the main path's shapes: the flagship encoder's layer 2 at
     # batch 4096 (the kernels do not depend on the input width), and
@@ -965,15 +973,16 @@ def lstm_rows(times: dict, launches: dict, peaks: tuple[float, float, float]) ->
     src, rep = "bcnf_tpu_torch/ops/csrc/lstm_kernel.cu", "bcnf_tpu/ops/lstm_kernel.py"
     rows = [
         kernel_row("K3a lstm_direction_fwd", src, f"{rep}:129", launches["K3a"], times["err"]["K3a"], [t["K3a"]],
-                   [t["K3a plain"]], fwd_work, peaks, t["cuDNN forward"]),
+                   [t["K3a plain"]], fwd_work, peaks, t["cuDNN forward"], ARITH_3XTF32),
         kernel_row("K3b lstm_direction_bwd", src, f"{rep}:150", launches["K3b"], times["err"]["K3b"], [t["K3b"]],
                    [t["K3b plain"]], bwd_work, peaks, t["cuDNN forward + backward"] - t["cuDNN forward"],
                    ARITH_3XTF32),
     ]
-    k3b = rows[1]
-    print(f"    K3b (3xtf32) at B={t['B']}: {k3b['ms']:.3f} ms against its bound {k3b['bound_ms']:.3f} ms (float32-FMA "
-          f"bound {bound_ms(bwd_work, peaks, ARITH_FMA)[0]:.3f} ms) and cuDNN's backward {k3b['library_ms']:.3f} ms: "
-          f"{'faster' if k3b['ms'] < k3b['library_ms'] else 'not faster'} than cuDNN")
+    for row, work, what in ((rows[0], fwd_work, "forward"), (rows[1], bwd_work, "backward")):
+        print(f"    {row['name'].split()[0]} (3xtf32) at B={t['B']}: {row['ms']:.3f} ms against its bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}; float32-FMA bound {bound_ms(work, peaks, ARITH_FMA)[0]:.3f} ms) "
+              f"and cuDNN's {what} {row['library_ms']:.3f} ms: "
+              f"{'faster' if row['ms'] < row['library_ms'] else 'not faster'} than cuDNN")
     return rows
 
 

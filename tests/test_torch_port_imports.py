@@ -125,6 +125,26 @@ def test_padded_width_is_exact_zero_padding():
     )
 
 
+def test_k3a_parts_patches_apply_to_the_kernel_source():
+    """scripts/k3a_parts.py's variants are text patches of the forward LSTM
+    kernel: each still finds its target, and each variant dispatches only
+    the widths it times (TN 4 and 5)."""
+    import importlib.util
+    from pathlib import Path
+
+    from bcnf_tpu_torch.ops._build import SOURCES
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "k3a_parts.py"
+    spec = importlib.util.spec_from_file_location("k3a_parts", path)
+    parts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parts)
+    src = SOURCES["lstm_kernel"].read_text()
+    for name, pairs in parts.PATCHES.items():
+        out = parts.variant_source(src, pairs)
+        assert all(new in out for _, new in pairs), name
+        assert "case 4: CALL(4)" in out and "case 5: CALL(5)" in out and "case 6: CALL(6)" not in out, name
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -203,6 +223,29 @@ def test_train_kernels_match_plain_versions_on_card(cuda, hidden):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hidden,rows", [(1000, 6 * 37 + 5), (526, 20), (1000, 20)],
+                         ids=["16_row_tiles", "one_partial_block", "one_partial_16_row_block"])
+def test_train_forward_matches_plain_version_on_card(cuda, hidden, rows):
+    """K2a (3xTF32 hidden products) at the 16-row tiles of the widest widths
+    and at a batch under one block: z, logdet and the step inputs against the
+    plain version at the flow bar; one launch counted."""
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_fwd, fused_flow_train_reference
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[hidden] * 3, n_blocks=4, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0)
+    with torch.no_grad():
+        x, h_proj, args = _train_args(model, model.init(device=cuda), B=rows, seed=18, device=cuda)
+        before = fused_flow_train_fwd.launches
+        out = fused_flow_train_fwd(x, h_proj, *args)
+        ref = fused_flow_train_reference(x, h_proj, *args)
+        torch.cuda.synchronize()
+    assert fused_flow_train_fwd.launches == before + 1
+    for name, a, b in zip(("z", "logdet", "bound"), out, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rows,launched", [(256, 1), (255, 0)])
 def test_training_forward_on_card_takes_the_kernels_from_the_batch_floor(cuda, rows, launched):
     """Under autograd a CUDA batch of >= 256 rows goes through K2a/K2b; one
@@ -262,6 +305,42 @@ def test_lstm_kernels_match_plain_versions_on_card(cuda, reverse, hidden, batch,
     torch.testing.assert_close(cs, cs_r, atol=1e-5, rtol=0)
     torch.testing.assert_close(dxp, dxp_r, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(dw, dw_r, atol=1e-4 * dw_r.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("hidden", [140, 256])
+@pytest.mark.parametrize("batch", [64, 65], ids=["one_cluster", "one_row_past"])
+def test_lstm_forward_at_the_cluster_edge_on_card(cuda, reverse, hidden, batch):
+    """K3a's cluster owns 64 rows: a batch of exactly one cluster and of one
+    row more (a second cluster with one valid row), hs and cs at 1e-5."""
+    from bcnf_tpu_torch.ops.lstm_kernel import fwd_layout
+
+    assert fwd_layout(batch, hidden, cuda)["rows"] == 64
+    g = torch.Generator(device=cuda).manual_seed(19)
+    xp = torch.randn((12, batch, 4 * hidden), generator=g, device=cuda)
+    w_hh = torch.randn((hidden, 4 * hidden), generator=g, device=cuda) / hidden**0.5
+    before = lstm_direction_fwd.launches
+    hs, cs = lstm_direction_fwd(xp, w_hh, reverse)
+    hs_r, cs_r = lstm_direction_fwd_reference(xp, w_hh, reverse)
+    torch.cuda.synchronize()
+    assert lstm_direction_fwd.launches == before + 1
+    torch.testing.assert_close(hs, hs_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(cs, cs_r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [140, 128])
+def test_lstm_forward_layout_at_batch_4096_on_card(cuda, hidden):
+    """At the encoders' widths K3a's 64 clusters of 8 blocks sit two blocks
+    an SM: more clusters resident at once than one block an SM allows
+    (132 / 8), so batch 4096 takes at most three waves."""
+    from bcnf_tpu_torch.ops.lstm_kernel import fwd_layout
+
+    layout = fwd_layout(4096, hidden, cuda)
+    assert (layout["rows"], layout["clusters"]) == (64, 64)
+    assert layout["resident_clusters"] > 132 // 8, layout
+    assert layout["waves"] == -(-64 // layout["resident_clusters"]) <= 3, layout
 
 
 @pytest.mark.gpu

@@ -1,17 +1,20 @@
-"""Port parity, the tensor-core arithmetic of K2b and K3b: 3xTF32.
+"""Port parity, the tensor-core arithmetic of K2a, K2b, K3a and K3b: 3xTF32.
 
-The redesigned backward kernels (`csrc/flow_train_kernel.cu`,
-`csrc/lstm_kernel.cu`, their AᵀB pass `csrc/atb.cuh`) take their large
-products on Hopper's tensor cores in 3xTF32, the counterpart of the JAX
-kernels' "x3" (bf16 x 3) mode that serves their "highest" contract.
-`bcnf_tpu_torch/ops/tf32.py` models that arithmetic in plain PyTorch; here
-the plain K3b and K2b backward versions, with every product taken by that
-model, are held against the JAX package's Pallas kernels in interpret mode
-at the existing bars (tests/test_lstm_kernel.py:48: atol 1e-4, rtol 1e-4;
-tests/test_flow_kernel.py:313: atol 5e-4, rtol 1e-3), on seeded numpy
-inputs. A single TF32 pass is shown to fall outside the LSTM bar, so the
-comparison can tell the two apart. The kernels themselves are held against
-the plain versions on the card (tests/test_torch_port_imports.py, `gpu`).
+The training kernels (`csrc/flow_kernel.cu`'s K2a, `csrc/flow_train_kernel.cu`),
+the LSTM kernels (`csrc/lstm_kernel.cu`) and the AᵀB pass (`csrc/atb.cuh`)
+take their large products on Hopper's tensor cores in 3xTF32, the
+counterpart of the JAX kernels' "x3" (bf16 x 3) mode that serves their
+"highest" contract. `bcnf_tpu_torch/ops/tf32.py` models that arithmetic in
+plain PyTorch; here the plain K3a, K3b, K2a and K2b versions, with every
+product taken by that model, are held against the JAX package's Pallas
+kernels in interpret mode at the existing bars (forwards:
+tests/test_lstm_kernel.py:30, hs and cs atol 1e-5; tests/test_flow_kernel.py:89-117,
+z and logdet atol 1e-4; grads: tests/test_lstm_kernel.py:48, atol 1e-4,
+rtol 1e-4; tests/test_flow_kernel.py:313, atol 5e-4, rtol 1e-3), on seeded
+numpy inputs. A single TF32 pass is shown to fall outside the LSTM bars, so
+the comparisons can tell the two apart. The kernels themselves are held
+against the plain versions on the card (tests/test_torch_port_imports.py,
+`gpu`).
 """
 
 import subprocess
@@ -36,6 +39,8 @@ from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32, round_tf32, spli
 
 LSTM_ATOL, LSTM_RTOL = 1e-4, 1e-4  # tests/test_lstm_kernel.py:48
 FLOW_ATOL, FLOW_RTOL = 5e-4, 1e-3  # tests/test_flow_kernel.py:313
+LSTM_FWD_ATOL = 1e-5  # hs, cs: tests/test_lstm_kernel.py:30
+FLOW_FWD_ATOL = 1e-4  # z, logdet: tests/test_flow_kernel.py:89-117
 
 
 def _cvt_rna_tf32(x: np.ndarray) -> np.ndarray:
@@ -128,6 +133,41 @@ def _jax_lstm_vjp(xp, w_hh, dhs, reverse: bool):
     return [np.asarray(g) for g in vjp(jnp.asarray(dhs))]
 
 
+def _jax_lstm_fwd(xp, w_hh, reverse: bool):
+    """hs and cs from JAX's `_fwd_kernel` in interpret mode at precision
+    "highest" (the custom VJP's forward rule, which keeps cs)."""
+    T, B, G = xp.shape
+    fn = _make_lstm_dir(G // 4, reverse, B, "highest", True)
+    _, (_, _, hs, cs) = fn.fwd(jnp.asarray(xp), jnp.asarray(w_hh))
+    return np.asarray(hs), np.asarray(cs)
+
+
+def _port_lstm_fwd(xp, w_hh, reverse: bool, mm):
+    hs, cs = lstm_direction_fwd_reference(torch.from_numpy(xp), torch.from_numpy(w_hh), reverse, mm=mm)
+    return hs.numpy(), cs.numpy()
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("H", [16, 32])
+def test_lstm_forward_in_3xtf32_matches_jax_kernel(reverse, H):
+    """K3a's arithmetic (the step products in 3xTF32) against JAX's
+    `_fwd_kernel` in interpret mode: hs and cs at the LSTM forward bar."""
+    xp, w_hh, _ = _lstm_case(3, H)
+    for name, g, r in zip(("hs", "cs"), _port_lstm_fwd(xp, w_hh, reverse, matmul_3xtf32),
+                          _jax_lstm_fwd(xp, w_hh, reverse)):
+        np.testing.assert_allclose(g, r, atol=LSTM_FWD_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_lstm_forward_in_one_tf32_pass_falls_outside_the_bar(reverse):
+    """The control: one TF32 pass for the step products misses the forward
+    bar, so the test above can tell 3xTF32 from it."""
+    xp, w_hh, _ = _lstm_case(3, 32)
+    got = _port_lstm_fwd(xp, w_hh, reverse, matmul_tf32)
+    inside = [np.allclose(g, r, atol=LSTM_FWD_ATOL, rtol=0) for g, r in zip(got, _jax_lstm_fwd(xp, w_hh, reverse))]
+    assert not all(inside), inside
+
+
 def _port_lstm_grads(xp, w_hh, dhs, reverse: bool, mm):
     xp_t, w_t = torch.from_numpy(xp), torch.from_numpy(w_hh)
     hs, cs = lstm_direction_fwd_reference(xp_t, w_t, reverse)
@@ -178,6 +218,31 @@ def jax_flow(request):
     return model, dict(params, blocks=blocks)
 
 
+def _flow_case(model, params, B: int = 16):
+    """Seeded kernel arguments (rows with their own conditions) and y."""
+    rng = np.random.default_rng(5)
+    h = jnp.asarray(rng.normal(size=(B, N_COND_FEATURES)).astype(np.float32))
+    kargs, h_proj = model._fused_flow_args(params, h)
+    y = jnp.asarray(rng.normal(size=(B, SIZE)).astype(np.float32))
+    return kargs, h_proj, y, rng
+
+
+@pytest.mark.parametrize("precision", ["highest", "x3"])
+def test_flow_forward_in_3xtf32_matches_jax_kernel(jax_flow, precision):
+    """K2a's arithmetic (every product in 3xTF32) against JAX's training
+    forward (`_flow_fwd_train_kernel`) in interpret mode, at "highest" and at
+    "x3" (bf16 x 3, what "highest" maps to in the JAX model): z and logdet at
+    the flow forward bar. x3's own error at these sizes stays inside it."""
+    model, params = jax_flow
+    kargs, h_proj, y, _ = _flow_case(model, params)
+    z_ref, ld_ref = jax_fused_flow_train(y, h_proj, kargs, block_b=8, precision=precision, interpret=True)
+    args = [torch.from_numpy(np.array(kargs[n])) for n in ARG_NAMES]
+    z, ld, _ = fused_flow_train_reference(torch.from_numpy(np.array(y)), torch.from_numpy(np.array(h_proj)), *args,
+                                          mm=matmul_3xtf32)
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=FLOW_FWD_ATOL, rtol=0, err_msg="z")
+    np.testing.assert_allclose(ld.numpy(), np.asarray(ld_ref), atol=FLOW_FWD_ATOL, rtol=0, err_msg="logdet")
+
+
 @pytest.mark.parametrize("precision", ["highest", "x3"])
 def test_flow_backward_in_3xtf32_matches_jax_kernel(jax_flow, precision):
     """K2b's arithmetic (every product in 3xTF32) against JAX's training
@@ -186,10 +251,7 @@ def test_flow_backward_in_3xtf32_matches_jax_kernel(jax_flow, precision):
     JAX model): all ten grads at the flow grad bar."""
     model, params = jax_flow
     B, block_b = 16, 8
-    rng = np.random.default_rng(5)
-    h = jnp.asarray(rng.normal(size=(B, N_COND_FEATURES)).astype(np.float32))
-    kargs, h_proj = model._fused_flow_args(params, h)
-    y = jnp.asarray(rng.normal(size=(B, SIZE)).astype(np.float32))
+    kargs, h_proj, y, rng = _flow_case(model, params, B)
     dz = rng.normal(size=(B, SIZE)).astype(np.float32)
     dld = rng.normal(size=(B,)).astype(np.float32)
 
