@@ -12,8 +12,11 @@ The same design as the JAX package, in PyTorch idiom:
   once per posterior draw.
 - **The whole-flow kernels.** On a CUDA tensor with no gradient required,
   `forward` and `inverse_given_h` run the flow as one launch of the
-  hand-written kernel K1 (`ops/flow_kernel.py`, `ops/csrc/flow_kernel.cu`),
-  the counterpart of the JAX package's Pallas `fused_flow`. Under autograd
+  hand-written kernel K1 (`ops/flow_kernel.py`), the counterpart of the JAX
+  package's Pallas `fused_flow`: in 3xTF32 on the tensor cores by default
+  (the inverse on `wgmma` up to the padded width 544, on the row tiles
+  above it; the forward on the row tiles), in float32 FMA with
+  `pallas_strict`. Under autograd
   (training), `forward` runs K2a and its backward K2b (`fused_flow_train`,
   the counterpart of the JAX package's `forward_fused_flow`) behind the same
   gate as `_use_fused_train`. Where a gate is closed for a structural reason
@@ -252,8 +255,14 @@ class CondRealNVP:
         (n_blocks - 1) x [ActNorm?, Coupling, Orthonormal]  +  final Coupling
 
     The keyword arguments are the JAX package's. `use_pallas` gates the
-    whole-flow kernel (here the CUDA one); `pallas_strict` has nothing left to
-    choose, since the kernel computes in exact float32 only.
+    whole-flow kernel (here the CUDA one). The "highest"/"float32" precision
+    runs it in 3xTF32 on the tensor cores, as the JAX model serves that
+    contract with its "x3" kernel mode; `pallas_strict=True` forces the
+    exact-float32 kernel (float32 FMA) for sampling and the no-grad forward,
+    as the JAX model's flag forces its exact-float32 mode
+    (`bcnf_tpu/models/cnf.py:1032-1033, 1053-1054`). The training kernels
+    (K2a/K2b) and the per-coupling kernel K4 have no exact-float32 mode in the
+    port: strict does not change them (JAX's K4 has none either).
     """
 
     SUPPORTED_PRECISIONS = ("highest", "float32")
@@ -441,7 +450,10 @@ class CondRealNVP:
         """Kernel gate: `_use_fused` of the JAX package (`bcnf_tpu/models/cnf.py:744-760`)
         with the TPU platform test replaced by "a CUDA tensor, no gradient
         required". Structural guards: at least one inner block and two nested
-        layers (`stack_flow_params`), and one hidden width for all of them."""
+        layers (`stack_flow_params`), one hidden width for all of them, and a
+        shape K1's kernels take in this mode (`_fused_flow_takes`), as JAX's
+        `inverse_fused_flow` returns None for a layout it does not take
+        (`bcnf_tpu/models/cnf.py:1058-1059`)."""
         return (
             self.use_pallas
             and not train
@@ -450,9 +462,22 @@ class CondRealNVP:
             and len(self.nested_sizes) >= 2
             and len(set(self.nested_sizes)) == 1
             and self.coupling.fusable
+            and self._fused_flow_takes()
             and x.is_cuda
             and not _grad_required(x, *trees)
         )
+
+    def _fused_flow_takes(self) -> bool:
+        """Whether K1's kernels take this model's shape in its mode, both
+        ways: the hidden width within the widest compiled one, and the rows'
+        state within the shared memory of the kernel each direction runs."""
+        from bcnf_tpu_torch.ops.flow_kernel import KERNEL_TN, flow_route, padded_width
+
+        H = self.nested_sizes[0]
+        if H > 32 * KERNEL_TN[-1]:
+            return False
+        Hp, d_a = padded_width(H), self.coupling.d_a
+        return all(flow_route(Hp, self.size, d_a, inverse, bool(self.pallas_strict)) for inverse in (True, False))
 
     def _use_fused_coupling(self, train: bool, x: torch.Tensor, *trees: Any) -> bool:
         """Per-coupling kernel gate (`bcnf_tpu/models/cnf.py:762-764`)."""
@@ -502,7 +527,8 @@ class CondRealNVP:
         if N != 1 and (x.dim() < 2 or x.shape[-2] != N):
             raise ValueError(f"rows of shape {tuple(x.shape)} do not broadcast against {N} conditions")
         kargs, h_proj = self._fused_flow_args(params, h)
-        out = fused_flow(x.reshape(-1, self.size).contiguous(), h_proj, **kargs, inverse=inverse, n_cond=N)
+        out = fused_flow(x.reshape(-1, self.size).contiguous(), h_proj, **kargs, inverse=inverse, n_cond=N,
+                         strict=bool(self.pallas_strict))
         if inverse:
             return out.reshape(x.shape)
         z, ld = out

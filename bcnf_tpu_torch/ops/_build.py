@@ -21,10 +21,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "ops" / "csrc"
 SOURCES = {
-    "flow_kernel": _CSRC / "flow_kernel.cu",  # K1 and the training forward K2a
+    "flow_kernel": _CSRC / "flow_kernel.cu",  # K1 on the row tiles and strict, K4, the training forward K2a
+    "flow_wgmma": _CSRC / "flow_wgmma.cu",  # K1's (and K4's) inverse on wgmma, Hp <= 544
     "flow_train_kernel": _CSRC / "flow_train_kernel.cu",  # the training backward K2b
     "lstm_kernel": _CSRC / "lstm_kernel.cu",  # the LSTM recurrence K3a and its backward K3b
-    "coupling_kernel": _CSRC / "coupling_kernel.cu",  # the per-coupling kernel K4
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
@@ -98,8 +98,13 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     if name == "flow_kernel":
         lib.bcnf_fused_flow.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
         lib.bcnf_fused_flow.restype = i32
-        lib.bcnf_flow_train_fwd.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
-        lib.bcnf_flow_train_fwd.restype = i32
+        lib.bcnf_flow_rows.argtypes = [ptr] * 14 + [i32] * 8 + [ptr]
+        lib.bcnf_flow_rows.restype = i32
+    elif name == "flow_wgmma":
+        lib.bcnf_flow_inverse_wgmma.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
+        lib.bcnf_flow_inverse_wgmma.restype = i32
+        lib.bcnf_flow_wgmma_occupancy.argtypes = [i32] * 3
+        lib.bcnf_flow_wgmma_occupancy.restype = i32
     elif name == "flow_train_kernel":
         lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 7 + [ptr]
         lib.bcnf_flow_train_bwd.restype = i32
@@ -118,9 +123,6 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
         lib.bcnf_lstm_bwd_scratch.restype = ctypes.c_longlong
         lib.bcnf_atb.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.bcnf_atb.restype = i32
-    elif name == "coupling_kernel":
-        lib.bcnf_coupling.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
-        lib.bcnf_coupling.restype = i32
     lib.bcnf_cuda_error_string.argtypes = [i32]
     lib.bcnf_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

@@ -2,30 +2,38 @@
 
 K4, `fused_affine_coupling`, replaces
 `bcnf_tpu/ops/coupling_kernel.py::fused_affine_coupling` (the Pallas TPU
-kernel `_coupling_kernel`); the kernel is `csrc/coupling_kernel.cu`. It runs
-one coupling's nested MLP on `x_a` plus the hoisted condition projection,
-then ``exp(tanh s) * x_b + t`` with the row log-det, or the inverse. The JAX
-package reaches it only when a model sets `use_pallas_coupling`
-(`bcnf_tpu/models/cnf.py:555-558, 762-764`); so does the port.
+kernel `_coupling_kernel`). It runs one coupling's nested MLP on `x_a` plus
+the hoisted condition projection, then ``exp(tanh s) * x_b + t`` with the
+row log-det, or the inverse. The JAX package reaches it only when a model
+sets `use_pallas_coupling` (`bcnf_tpu/models/cnf.py:555-558, 762-764`); so
+does the port.
+
+K4 is K1 at one step: K1's last step is the final coupling alone (no
+ActNorm, no mix), which is exactly what `_coupling_kernel` computes. So the
+wrapper stacks its coupling's weights with S = 1 (`coupling_flow_args`) and
+launches K1's kernels (`ops/flow_kernel.py::_launch_flow`) on ``[x_a | x_b]``
+in 3xTF32: the inverse on `wgmma` up to the padded width 544, the row tiles
+otherwise (JAX's K4 has no strict mode, nor has the port's). A pass of the
+per-coupling path launches one coupling once, so the wrapper prepares that
+coupling's weights once (the padding, and the `wgmma` layout of the inverse).
 
 Row ``r`` is conditioned on ``h_proj[r % n_cond]``, as K1 does, so a
 `(n_samples, N, size)` inverse needs no broadcast copy of the projections.
-Unlike the TPU kernel there is no tiling rule: the kernel masks the ragged
-last tile. The wrapper zero-pads the hidden width to the kernel's
-(`ops/flow_kernel.padded_width`); `fused_affine_coupling_reference` is the
-plain version, which serves CPU tensors (the tests) and which `chip_smoke.py`
-holds the kernel against on the card.
+Unlike the TPU kernel there is no tiling rule: the kernels mask the ragged
+last tile. `fused_affine_coupling_reference` is the plain version, which
+serves CPU tensors (the tests) and which `chip_smoke.py` holds the kernel
+against on the card.
 """
 
 from __future__ import annotations
 
-import ctypes
+from collections.abc import Callable
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from bcnf_tpu_torch.ops.flow_kernel import _ptrs, _raise_on, padded_width
+from bcnf_tpu_torch.ops.flow_kernel import _launch_flow, padded_width
 from bcnf_tpu_torch.ops.nn import gelu
 
 
@@ -58,16 +66,18 @@ def fused_affine_coupling_reference(
     *,
     inverse: bool,
     n_cond: int,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
     """Plain PyTorch version of K4 (`_coupling_kernel`,
     `bcnf_tpu/ops/coupling_kernel.py:34-65`): `(z_b, logdet)` forward, `y_b`
-    inverse."""
+    inverse. `mm` takes every product (the tests pass
+    `tf32.matmul_3xtf32`, the arithmetic of the kernel's hidden products)."""
     d_b = x_b.shape[1]
     rows = torch.arange(x_a.shape[0], device=x_a.device) % n_cond
-    a = gelu(x_a @ w1y + b1 + h_proj.index_select(0, rows))
+    a = gelu(mm(x_a, w1y) + b1 + h_proj.index_select(0, rows))
     for w, b in zip(wm, bm):
-        a = gelu(a @ w + b)
-    out = a @ wout + bout
+        a = gelu(mm(a, w) + b)
+    out = mm(a, wout) + bout
     t, s = out[:, :d_b], torch.tanh(out[:, d_b:])
     if inverse:
         return (x_b - t) * torch.exp(-s)
@@ -94,8 +104,35 @@ def _check_args(tensors: dict[str, torch.Tensor], n_cond: int) -> None:
             raise ValueError(f"fused_affine_coupling: {name} has shape {tuple(t.shape)}, expected {shape}")
     if not (x_a.is_contiguous() and x_b.is_contiguous()):
         raise ValueError("fused_affine_coupling: x_a and x_b must be contiguous")
-    if B * max(d_a, d_b) >= 2**31:
+    if B * (d_a + d_b) >= 2**31:
         raise ValueError(f"fused_affine_coupling: {B} rows exceed the kernel's 32-bit row indexing")
+
+
+def coupling_flow_args(h_proj: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Tensor],
+                       bm: Sequence[torch.Tensor], wout: torch.Tensor, bout: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One coupling's arguments as K1's at one step (S = 1: the final
+    coupling's slot, whose ActNorm and mix are identity and skipped), the
+    hidden width zero-padded to the kernels' (`ops/flow_kernel.padded_width`;
+    exact, as `pad_hidden`): every tensor of `fused_flow`'s layout, h_proj
+    (1, n_cond, Hp)."""
+    H = w1y.shape[1]
+    p = padded_width(H) - H
+    size = w1y.shape[0] + wout.shape[1] // 2
+    wm_p = F.pad(torch.stack(list(wm)), (0, p, 0, p)) if len(wm) else w1y.new_empty((0, H + p, H + p))
+    bm_p = F.pad(torch.stack(list(bm)), (0, p)) if len(bm) else w1y.new_empty((0, H + p))
+    args = {
+        "h_proj": F.pad(h_proj, (0, p))[None],
+        "an_scale": w1y.new_ones((1, size)),
+        "an_bias": w1y.new_zeros((1, size)),
+        "ortho": torch.eye(size, dtype=w1y.dtype, device=w1y.device)[None],
+        "w1y": F.pad(w1y, (0, p))[None],
+        "b1": F.pad(b1, (0, p))[None],
+        "wm": wm_p[None],
+        "bm": bm_p[None],
+        "wout": F.pad(wout, (0, 0, 0, p))[None],
+        "bout": bout[None],
+    }
+    return {k: v.contiguous() for k, v in args.items()}
 
 
 def fused_affine_coupling(
@@ -114,8 +151,8 @@ def fused_affine_coupling(
     """One coupling over `(B, d_a)`/`(B, d_b)` halves, row r conditioned on
     `h_proj[r % n_cond]` (`n_cond` defaults to `h_proj`'s rows). Returns
     `(z_b, logdet)` forward or `y_b` inverse. A CPU tensor takes
-    `fused_affine_coupling_reference`; a CUDA tensor launches the kernel (or
-    raises)."""
+    `fused_affine_coupling_reference`; a CUDA tensor launches K1's kernel at
+    one step (or raises)."""
     n_cond = h_proj.shape[0] if n_cond is None else n_cond
     wm, bm = list(wm), list(bm)
     if x_a.device.type == "cpu":
@@ -128,31 +165,13 @@ def fused_affine_coupling(
     _check_args(dict(x_a=x_a, x_b=x_b, h_proj=h_proj, w1y=w1y, b1=b1, wout=wout, bout=bout,
                      **{f"wm[{i}]": w for i, w in enumerate(wm)}, **{f"bm[{i}]": b for i, b in enumerate(bm)}),
                 n_cond)
-
-    from bcnf_tpu_torch.ops._build import load_library
-
-    lib = load_library("coupling_kernel")
-    B, d_b = x_b.shape
-    H = w1y.shape[1]
-    p = padded_width(H) - H  # exact zero padding, as `pad_hidden` of the whole flow
-    wm_p = F.pad(torch.stack(wm), (0, p, 0, p)) if wm else w1y.new_empty((0, H + p, H + p))
-    bm_p = F.pad(torch.stack(bm), (0, p)) if bm else w1y.new_empty((0, H + p))
-    padded = [t.contiguous() for t in (F.pad(h_proj, (0, p)), F.pad(w1y, (0, p)), F.pad(b1, (0, p)), wm_p, bm_p,
-                                       F.pad(wout, (0, 0, 0, p)), bout)]
-    out = torch.empty_like(x_b)
-    ld = None if inverse else torch.empty((B,), dtype=x_b.dtype, device=x_b.device)
-    if B == 0:
-        return out if inverse else (out, ld)
-    with torch.cuda.device(x_a.device):
-        err = lib.bcnf_coupling(
-            *_ptrs(x_a, x_b, *padded, out),
-            ctypes.c_void_p(0 if ld is None else ld.data_ptr()),
-            B, n_cond, x_a.shape[1], d_b, len(wm), H + p, int(inverse),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-        )
-    _raise_on(err, lib, "fused_affine_coupling")
-    fused_affine_coupling.launches += 1
-    return out if inverse else (out, ld)
+    d_a = x_a.shape[1]
+    _, y, ld = _launch_flow(torch.cat([x_a, x_b], dim=1), coupling_flow_args(h_proj, w1y, b1, wm, bm, wout, bout),
+                            inverse=inverse, n_cond=n_cond, strict=False)
+    if x_a.shape[0]:
+        fused_affine_coupling.launches += 1
+    y_b = y[:, d_a:].contiguous()
+    return y_b if inverse else (y_b, ld)
 
 
 fused_affine_coupling.launches = 0  # type: ignore[attr-defined]

@@ -1,8 +1,9 @@
-// Device helpers shared by the hand-written kernels (flow_kernel.cu: K1 and
-// the training forward K2a; flow_train_kernel.cu: the training backward K2b;
-// coupling_kernel.cu: K4; lstm_kernel.cu: K3a/K3b).
+// Device helpers shared by the hand-written kernels (flow_kernel.cu: K1, K4
+// as K1 at one step, and the training forward K2a; flow_wgmma.cu: K1's
+// inverse on `wgmma`; flow_train_kernel.cu: the training backward K2b;
+// lstm_kernel.cu: K3a/K3b).
 //
-// Layout conventions of K1's and K4's float32 FMA products (mac_slab,
+// Layout conventions of the strict K1's float32 FMA products (mac_slab,
 // matmul_hidden, matmul_narrow): 256 threads = 8 warps; a thread (ty = warp, tx = lane)
 // owns rows ty*TM + r (r < TM) and hidden columns tx + 32*j (j < TN) of a
 // block's BM x Hp activation tile, Hp = 32*TN. Weights are stored (in, out),

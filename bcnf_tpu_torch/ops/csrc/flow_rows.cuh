@@ -1,7 +1,8 @@
-// The row-tile machinery of the training kernels: K2a's whole-flow forward
-// (flow_kernel.cu, `train_fwd_kernel`) and K2b's per-step rows kernel
-// (flow_train_kernel.cu, `bwd_rows_kernel`) run the same coupling MLP on the
-// same tiles, so they share these pieces.
+// The row-tile machinery of the flow kernels: the whole-flow walk of K1's
+// forward, K1's wide inverse and K2a (flow_kernel.cu, `rows_flow_kernel`) and
+// K2b's per-step rows kernel (flow_train_kernel.cu, `bwd_rows_kernel`) run
+// the same coupling MLP on the same tiles, so they share these pieces; K1's
+// inverse on `wgmma` (flow_wgmma.cu) takes `input_layer` from here.
 //
 // A block of 512 threads (16 warps) owns BM rows (32, or 16 at the widest
 // hidden widths). Their activation tile (BM x Hp, Hp = 32*TN) sits in shared

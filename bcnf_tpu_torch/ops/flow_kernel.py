@@ -1,11 +1,22 @@
 """The whole RealNVP flow in CUDA kernels: host side.
 
 - K1, `fused_flow`, replaces `bcnf_tpu/ops/flow_kernel.py::fused_flow` (the
-  Pallas TPU kernel `_flow_kernel`), kernel in `csrc/flow_kernel.cu`.
+  Pallas TPU kernel `_flow_kernel`). Its route is chosen by mode and shape
+  (`flow_route`), never by catching a failure:
+  - the default mode (the "highest"/"float32" contract, which the JAX model
+    serves with its "x3" kernel mode) runs 3xTF32 on the tensor cores: the
+    inverse on `wgmma` (`csrc/flow_wgmma.cu`, with the hidden weights
+    prepared once a call by `prepare_weights`) at padded widths up to 544,
+    the row-tile kernel above that (`rows_flow_kernel` in
+    `csrc/flow_kernel.cu`); the forward on the row-tile kernel;
+  - the strict mode (`CondRealNVP(pallas_strict=True)`, as the JAX model's
+    strict flag forces its exact-float32 kernel mode) runs the float32 FMA
+    kernel (`flow_kernel` in `csrc/flow_kernel.cu`) both ways.
+- K4, the per-coupling kernel, is K1 at one step (`ops/coupling_kernel.py`).
 - K2a/K2b, `fused_flow_train`, replace `fused_flow_train` and its custom VJP
   (`fwd_call`/`bwd_call` of `_make_fused_flow_train`): a
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`,
-  `train_fwd_kernel` in `csrc/flow_kernel.cu`) and whose backward is K2b
+  the row-tile kernel with its step-input store) and whose backward is K2b
   (`fused_flow_train_bwd`, `csrc/flow_train_kernel.cu`). Both run their
   square hidden products on the tensor cores in 3xTF32 (`csrc/flow_rows.cuh`).
 
@@ -25,6 +36,7 @@ tiling rule on ``B`` or ``n_cond``: the kernel masks the ragged last tile.
 from __future__ import annotations
 
 import ctypes
+import collections
 from collections.abc import Callable
 from typing import Any
 
@@ -36,6 +48,13 @@ from bcnf_tpu_torch.ops.nn import gelu, gelu_grad
 # Each thread of the kernel owns `TN` columns of the padded hidden width
 # (32 * TN); these are the widths it is compiled for (`csrc/flow_kernel.cu`).
 KERNEL_TN = (1, 2, 4, 8, 12, 16, 17, 24, 32)
+
+
+# K1's routes (`flow_route`): 3xTF32 on `wgmma` (the inverse at TN <= 17),
+# 3xTF32 on the row tiles, and float32 FMA (strict).
+ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
+WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper (csrc/flow_common.cuh: kSmemLimit)
 
 
 def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
@@ -101,6 +120,64 @@ def pad_hidden(kargs: dict, h_proj: torch.Tensor) -> tuple[dict, torch.Tensor]:
     return out, h_proj.contiguous()
 
 
+def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
+    """Bytes of shared memory a block of K1's kernel on `route` takes at this
+    shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
+    `launch`, `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`)."""
+    tn, n_out = Hp // 32, 2 * (size - d_a)
+    if route == ROUTE_WGMMA:  # tile, 2 stages of hi and lo, x, x Q^T, [t | s'], 4 barriers
+        return 4 * (64 * (Hp + 4) + 2 * 16 * Hp + 64 * (2 * size + n_out)) + 32
+    if route == ROUTE_ROWS:  # tile, the 3-stage ring, x, x Q, [t | s'], logdet (csrc/flow_rows.cuh)
+        BM, BK = (32, 16) if tn <= 17 else (16, 8)
+        stage = max(BK * (Hp + 8), Hp * (BK + 4))
+        return 4 * (BM * (Hp + 4) + 3 * stage + BM * (2 * size + n_out + 1))
+    if route == ROUTE_FMA:  # tile, x, x Q, [t | s'], logdet, and the least double buffer it takes (BK = 4)
+        BM = 64 if tn <= 17 else 32
+        return 4 * (BM * Hp + BM * (2 * size + n_out + 1) + 2 * 4 * Hp)
+    raise ValueError(f"unknown route {route!r}")
+
+
+def flow_route(Hp: int, size: int, d_a: int, inverse: bool, strict: bool) -> str | None:
+    """Which of K1's kernels runs this call, by mode and shape: strict takes
+    the float32 FMA kernel; the default mode the `wgmma` inverse where it
+    holds the width and the shape, else the row tiles. None where no kernel
+    takes the shape (its shared memory; then the model's gate stays closed,
+    as JAX's `inverse_fused_flow` returns None)."""
+    if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size:
+        return None
+    if strict:
+        candidates = (ROUTE_FMA,)
+    elif inverse and Hp // 32 <= WGMMA_MAX_TN:
+        candidates = (ROUTE_WGMMA, ROUTE_ROWS)
+    else:
+        candidates = (ROUTE_ROWS,)
+    return next((r for r in candidates if kernel_smem(r, Hp, size, d_a) <= SMEM_LIMIT), None)
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32, rounded to nearest with ties away from zero (the bits
+    of `cvt.rna.tf32.f32`, csrc/mma_tf32.cuh: `tf32_rna`), kept in float32."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def prepare_weights(wm: torch.Tensor) -> torch.Tensor:
+    """The stacked, padded hidden weights `wm` (S, nh, Hp, Hp), stored (in,
+    out), as the `wgmma` inverse reads them (`csrc/flow_wgmma.cu`), on `wm`'s
+    device: transposed to K-major (out, in), split into ``hi = tf32(w)``
+    (rounded) and ``lo = w - hi`` (exact; the tensor cores read its top 19
+    bits), and laid out stage by stage, 8 input rows a stage, each stage
+    holding hi then lo in the order of `wgmma`'s core matrices (8 outputs x 4
+    inputs, 128 contiguous bytes; the two along the inputs side by side), so
+    that one bulk copy moves a stage. Shape (S, nh, Hp/8 stages, 2 [hi, lo],
+    Hp/8 output groups, 2 input halves, 8 outputs, 4 inputs)."""
+    S, nh, Hp, _ = wm.shape
+    g = Hp // 8
+    # w^T[n, k] with n = 8 ng + r and k = 8 s + 4 kg + c, to (s, ng, kg, r, c)
+    wt = wm.transpose(-1, -2).reshape(S, nh, g, 8, g, 2, 4).permute(0, 1, 4, 2, 5, 3, 6).contiguous()
+    hi = _round_tf32(wt)
+    return torch.stack([hi, wt - hi], dim=3)
+
+
 def fused_flow_reference(
     x: torch.Tensor,
     h_proj: torch.Tensor,
@@ -116,19 +193,22 @@ def fused_flow_reference(
     *,
     inverse: bool,
     n_cond: int,
+    mm: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
-    """Plain PyTorch version of the kernel: the same steps, one op at a time.
-    Forward returns `(z, logdet)`, inverse returns `y`."""
+    """Plain PyTorch version of K1: the same steps, one op at a time.
+    Forward returns `(z, logdet)`, inverse returns `y`. `mm` takes every
+    product (the tests pass `tf32.matmul_3xtf32`, the arithmetic of the
+    default mode's hidden products)."""
     B, size = x.shape
     n_steps = h_proj.shape[0]
     d_a = w1y.shape[1]
     rows = torch.arange(B, device=x.device) % n_cond
 
     def coeffs(k: int, x_a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        a = gelu(x_a @ w1y[k] + b1[k] + h_proj[k].index_select(0, rows))
+        a = gelu(mm(x_a, w1y[k]) + b1[k] + h_proj[k].index_select(0, rows))
         for i in range(wm.shape[1]):
-            a = gelu(a @ wm[k, i] + bm[k, i])
-        out = a @ wout[k] + bout[k]
+            a = gelu(mm(a, wm[k, i]) + bm[k, i])
+        out = mm(a, wout[k]) + bout[k]
         return out[:, : size - d_a], torch.tanh(out[:, size - d_a:])
 
     if not inverse:
@@ -142,13 +222,13 @@ def fused_flow_reference(
             x = torch.cat([x[:, :d_a], torch.exp(s) * x[:, d_a:] + t], dim=-1)
             ld = ld + torch.sum(s, dim=-1)
             if inner:
-                x = x @ ortho[k]
+                x = mm(x, ortho[k])
         return x, ld
 
     for k in range(n_steps - 1, -1, -1):
         inner = k < n_steps - 1
         if inner:
-            x = x @ ortho[k].T
+            x = mm(x, ortho[k].T)
         t, s = coeffs(k, x[:, :d_a])
         x = torch.cat([x[:, :d_a], (x[:, d_a:] - t) * torch.exp(-s)], dim=-1)
         if inner:
@@ -201,6 +281,55 @@ def _raise_on(err: int, lib: Any, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {lib.bcnf_cuda_error_string(err).decode()}")
 
 
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+WG_PRODUCTS, WG_COPIES = 1, 2  # the `wgmma` inverse's parts (csrc/flow_wgmma.cu)
+
+
+def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: bool, n_cond: int, strict: bool,
+                 wstages: torch.Tensor | None = None, parts: int = WG_PRODUCTS | WG_COPIES,
+                 ) -> tuple[str, torch.Tensor, torch.Tensor | None]:
+    """Launch K1 on checked CUDA tensors, uncounted, on the route
+    `flow_route` gives; returns `(route, y, logdet or None)`. The `wgmma`
+    route reads the hidden weights as `prepare_weights` gives them: pass
+    them as `wstages`, or they are prepared here. `parts` other than both
+    runs one part of the `wgmma` inverse alone, to time it (chip_smoke.py):
+    its products on stale weight stages (`WG_PRODUCTS`), or the weights'
+    stream without the products (`WG_COPIES`); y is then not the inverse."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    B, size = x.shape
+    S, _, Hp = args["h_proj"].shape
+    d_a, nh = args["w1y"].shape[1], args["wm"].shape[1]
+    route = flow_route(Hp, size, d_a, inverse, strict)
+    if route is None:
+        raise ValueError(f"fused_flow: no kernel takes size {size}, d_a {d_a} at hidden width {Hp} "
+                         f"({'strict' if strict else '3xTF32'}, {'inverse' if inverse else 'forward'})")
+    y = torch.empty_like(x)
+    ld = None if inverse else torch.empty((B,), dtype=x.dtype, device=x.device)
+    if B == 0:
+        return route, y, ld
+    tensors = [args[n] for n in ("h_proj", "an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")]
+    with torch.cuda.device(x.device):
+        if route == ROUTE_WGMMA:
+            lib = load_library("flow_wgmma")
+            tensors[6] = prepare_weights(args["wm"]) if wstages is None else wstages
+            err = lib.bcnf_flow_inverse_wgmma(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
+        else:
+            lib = load_library("flow_kernel")
+            ld_ptr = ctypes.c_void_p(0 if ld is None else ld.data_ptr())
+            if route == ROUTE_ROWS:  # no step-input store (that is K2a's)
+                err = lib.bcnf_flow_rows(*_ptrs(x, *tensors, y), ld_ptr, ctypes.c_void_p(0),
+                                         B, n_cond, S, size, d_a, nh, Hp, int(inverse), _stream())
+            else:
+                err = lib.bcnf_fused_flow(*_ptrs(x, *tensors, y), ld_ptr,
+                                          B, n_cond, S, size, d_a, nh, Hp, int(inverse), _stream())
+    _raise_on(err, lib, f"fused_flow ({route})")
+    return route, y, ld
+
+
 def fused_flow(
     x: torch.Tensor,
     h_proj: torch.Tensor,
@@ -216,10 +345,13 @@ def fused_flow(
     *,
     inverse: bool,
     n_cond: int,
+    strict: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
     """Run the whole flow in one kernel launch. Forward returns `(z, logdet)`,
     inverse returns `y`. A CPU tensor takes `fused_flow_reference`; a CUDA
-    tensor launches the kernel (or raises)."""
+    tensor launches the kernel of `flow_route` (3xTF32; float32 FMA when
+    `strict`), or raises. Counts its launches in `launches`, and by route in
+    `route_launches`."""
     args = dict(h_proj=h_proj, an_scale=an_scale, an_bias=an_bias, ortho=ortho,
                 w1y=w1y, b1=b1, wm=wm, bm=bm, wout=wout, bout=bout)
     if x.device.type == "cpu":
@@ -227,29 +359,15 @@ def fused_flow(
     if x.device.type != "cuda":
         raise ValueError(f"fused_flow runs on CPU or CUDA tensors, not {x.device}")
     _check_args(x, args, n_cond)
-
-    from bcnf_tpu_torch.ops._build import load_library
-
-    lib = load_library()
-    B, size = x.shape
-    S, _, Hp = h_proj.shape
-    y = torch.empty_like(x)
-    ld = None if inverse else torch.empty((B,), dtype=x.dtype, device=x.device)
-    if B == 0:
-        return y if inverse else (y, ld)
-    with torch.cuda.device(x.device):
-        err = lib.bcnf_fused_flow(
-            *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, y),
-            ctypes.c_void_p(0 if ld is None else ld.data_ptr()),
-            B, n_cond, S, size, w1y.shape[1], wm.shape[1], Hp, int(inverse),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-        )
-    _raise_on(err, lib, "fused_flow")
-    fused_flow.launches += 1
+    route, y, ld = _launch_flow(x, args, inverse=inverse, n_cond=n_cond, strict=strict)
+    if x.shape[0]:
+        fused_flow.launches += 1
+        fused_flow.route_launches[route] += 1
     return y if inverse else (y, ld)
 
 
 fused_flow.launches = 0  # type: ignore[attr-defined]
+fused_flow.route_launches = collections.Counter()  # type: ignore[attr-defined]
 
 
 # ---------------------------------------------------------------------------
@@ -418,11 +536,10 @@ def fused_flow_train_fwd(
     bound = torch.empty((S, B, size), dtype=x.dtype, device=x.device)
     if B == 0:
         return z, ld, bound
-    with torch.cuda.device(x.device):
-        err = lib.bcnf_flow_train_fwd(
+    with torch.cuda.device(x.device):  # the row-tile kernel with its step-input store, N = B
+        err = lib.bcnf_flow_rows(
             *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
-            B, S, size, w1y.shape[1], wm.shape[1], Hp,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            B, B, S, size, w1y.shape[1], wm.shape[1], Hp, 0, _stream(),
         )
     _raise_on(err, lib, "fused_flow_train_fwd")
     fused_flow_train_fwd.launches += 1
@@ -488,7 +605,7 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     with torch.cuda.device(dz.device):
         err = lib.bcnf_flow_train_bwd(
             *_ptrs(bound, h_proj, dz, dld, *args.values(), *grads, scratch),
-            B, S, size, d_a, nh, Hp, parts, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            B, S, size, d_a, nh, Hp, parts, _stream(),
         )
     _raise_on(err, lib, "fused_flow_train_bwd")
 

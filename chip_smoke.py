@@ -8,12 +8,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit, versions; build every kernel
    from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`).
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the flagship widths, on a tiled and on a ragged shape.
+   the flagship widths, on a tiled and on a ragged shape: K1 in its default
+   mode (3xTF32: the inverse on `wgmma`, the forward on the row tiles) and in
+   strict mode (float32 FMA).
 3. main path: the flagship `trajectory_LSTM_large` model (48,852,615
    params, random weights from a seed) on the card: posterior sampling of
    10,000 draws for 8 trajectories, then `log_prob` and the round trip on
-   4096 of them; the kernel's launch count is read for each; samples/s and
-   each kernel's time beside its bound and its plain version's time.
+   4096 of them, first in the default mode and then with `pallas_strict`;
+   K1's launches by route are read for each; samples/s, the split of a
+   `sample` call (with the `wgmma` weight preparation), the `wgmma`
+   inverse's blocks and waves, and each K1 kernel's time beside its bound
+   and its plain version's time.
 4. entry point: the `sample` CLI on a model directory written here.
 5. training kernels: K2a (the whole-flow training forward) and K2b (its
    backward), both on tensor cores in 3xTF32, against their plain PyTorch versions
@@ -50,11 +55,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
    `Trainer.train` at batch 256 and 4096 (K3a/K3b 16 a step; the flow on
    plain autograd, its coupling dropout 0.5 closing the training-kernel
    gate), a step against the time loop's, then `train` -> `sample` CLI.
-11. path C: K4 (the per-coupling kernel) against its plain version at the
-   flagship widths, 4096 and 4099 rows, forward and inverse; the flagship
-   with `use_pallas_coupling`: the inverse of phase 3's 80,000 sampling
-   rows through 26 K4 launches against K1's samples, and the no-grad
-   forward against K1's.
+11. path C: K4 (the per-coupling kernel: K1's kernels at one step, 3xTF32)
+   against its plain version at the flagship widths, 4096 and 4099 rows,
+   forward and inverse; the flagship with `use_pallas_coupling`: the inverse
+   of phase 3's 80,000 sampling rows through 26 K4 launches against K1's
+   samples, and the no-grad forward against K1's; K4's times with the cost
+   of the weights' preparation it does each launch.
 
 The line before the last is the kernel table as JSON (each row with its
 arithmetic, `arith`: float32 FMA, or 3xTF32 on the tensor cores, and its
@@ -211,6 +217,23 @@ def kernel_label(ptxas_line: str) -> str:
     return (name or "?") + (f"<{','.join(args)}>" if args else "")
 
 
+def zero_flow_counts() -> None:
+    """K1's launch counts to 0: in all, and by route."""
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow
+
+    fused_flow.launches = 0
+    fused_flow.route_launches.clear()
+
+
+def route_rows(route: str, Hp: int) -> int:
+    """Rows a block of K1's kernel on `route` owns at the padded width Hp
+    (csrc/flow_wgmma.cu: 64; csrc/flow_rows.cuh: 32, 16 from Hp 768;
+    csrc/flow_kernel.cu's strict kernel: 64, 32 from Hp 768)."""
+    if route == "rows":
+        return 32 if Hp <= 32 * 17 else 16
+    return 64 if Hp <= 32 * 17 else 32
+
+
 def median(xs: list[float]) -> float:
     return sorted(xs)[len(xs) // 2]
 
@@ -272,7 +295,18 @@ def main() -> None:
     from bcnf_tpu_torch.config import load_config
     from bcnf_tpu_torch.models import count_params
     from bcnf_tpu_torch.ops import _build
-    from bcnf_tpu_torch.ops.flow_kernel import fused_flow, fused_flow_reference
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        ROUTE_FMA,
+        ROUTE_ROWS,
+        ROUTE_WGMMA,
+        WG_COPIES,
+        WG_PRODUCTS,
+        _launch_flow,
+        flow_route,
+        fused_flow,
+        fused_flow_reference,
+        prepare_weights,
+    )
 
     # ---- 1. device + build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -314,75 +348,88 @@ def main() -> None:
         "scale": an["scale"] + 0.1 * torch.from_numpy(rng.normal(size=an["scale"].shape).astype(np.float32)).to(dev),
         "bias": 0.1 * torch.from_numpy(rng.normal(size=an["bias"].shape).astype(np.float32)).to(dev),
     }))
-    errs = {"inverse": 0.0, "forward": 0.0}
+    # K1 in both modes: the default 3xTF32 (the inverse on wgmma, the forward
+    # on the row tiles) and strict (float32 FMA), each against the plain version
+    modes = {"": False, " strict": True}
+    errs = {f"{d}{m}": 0.0 for m in modes for d in ("inverse", "forward")}
     before = fused_flow.launches
     for B, N in ((4096, 8), (4099, 7)):
         traj = torch.from_numpy(rng.normal(size=(N, 30, 3)).astype(np.float32)).to(dev)
         with torch.no_grad():
             kargs, h_proj = model._fused_flow_args(k_params, model.encode(k_params, (traj,)))
             x = torch.from_numpy(rng.normal(size=(B, model.size)).astype(np.float32)).to(dev)
-            y_k = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N)
             y_r = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=N)
-            z_k, ld_k = fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N)
             z_r, ld_r = fused_flow_reference(x, h_proj, **kargs, inverse=False, n_cond=N)
-            torch.cuda.synchronize()
-        errs["inverse"] = max(errs["inverse"], (y_k - y_r).abs().max().item())
-        errs["forward"] = max(errs["forward"], (z_k - z_r).abs().max().item(), (ld_k - ld_r).abs().max().item())
-    if fused_flow.launches <= before:
+            for m, strict in modes.items():
+                y_k = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N, strict=strict)
+                z_k, ld_k = fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N, strict=strict)
+                torch.cuda.synchronize()
+                errs[f"inverse{m}"] = max(errs[f"inverse{m}"], (y_k - y_r).abs().max().item())
+                errs[f"forward{m}"] = max(errs[f"forward{m}"], (z_k - z_r).abs().max().item(),
+                                          (ld_k - ld_r).abs().max().item())
+    if fused_flow.launches != before + 8:
         fail("fused_flow did not count its launches")
-    print(f"[2 kernels] fused_flow vs plain at H={H}, B=4096/N=8 and ragged B=4099/N=7: "
-          f"max|dy| inverse {errs['inverse']:.3e}, max|dz|,|dlogdet| forward {errs['forward']:.3e} "
+    print(f"[2 kernels] fused_flow vs plain at H={H}, B=4096/N=8 and ragged B=4099/N=7: 3xTF32 max|dy| inverse "
+          f"(wgmma) {errs['inverse']:.3e}, max|dz|,|dlogdet| forward (row tiles) {errs['forward']:.3e}; strict "
+          f"(FMA) inverse {errs['inverse strict']:.3e}, forward {errs['forward strict']:.3e} "
           f"(tolerance {KERNEL_TOL:g})")
     for d, e in errs.items():
         if not e <= KERNEL_TOL:
             fail(f"fused_flow {d} disagrees with its plain version: {e:.3e} > {KERNEL_TOL:g}")
 
-    # ---- 3. main path: posterior sampling, then log_prob + round trip
+    # ---- 3. main path: posterior sampling, then log_prob + round trip, in
+    # the default mode (3xTF32) and then in strict mode (float32 FMA)
     traj = torch.from_numpy(rng.normal(size=(N_COND, 30, 3)).astype(np.float32))
-    with torch.no_grad():
-        model.sample(params, torch.Generator().manual_seed(SEED), 16, traj, device=dev)  # warm-up
-        torch.cuda.synchronize()
-        fused_flow.launches = 0
-        t0 = time.perf_counter()
-        samples = model.sample(params, torch.Generator().manual_seed(SEED), M_DRAWS, traj, device=dev)
-        torch.cuda.synchronize()
-        t_sample = time.perf_counter() - t0
-        inv_launches = fused_flow.launches
-    if inv_launches < 1:
-        fail("posterior sampling did not go through the fused_flow kernel")
-    if tuple(samples.shape) != (M_DRAWS, N_COND, model.size) or not torch.isfinite(samples).all():
-        fail(f"samples of shape {tuple(samples.shape)} are not all finite / not the expected shape")
     z_all = torch.randn((M_DRAWS, N_COND, model.size), generator=torch.Generator().manual_seed(SEED))
-
-    # the kernel's samples against the plain path on the CPU, for the first 64 draws
     cpu_params = map_tree(lambda t: t.cpu(), params)
     with torch.no_grad():
         ref = model.inverse_given_h(cpu_params, z_all[:64], model.encode(cpu_params, (traj,)))
-    cpu_err = (samples[:64].cpu() - ref).abs().max().item()
-
     d = LOGPROB_ROWS // N_COND
-    y_lp = samples[:d].reshape(LOGPROB_ROWS, model.size)
     cond_lp = traj.to(dev).repeat(d, 1, 1)
-    with torch.no_grad():
-        fused_flow.launches = 0
-        lp = model.log_prob(params, y_lp, cond_lp)
-        z_rt, _ = model.forward(params, y_lp, cond_lp)
-        torch.cuda.synchronize()
-        fwd_launches = fused_flow.launches
-    if fwd_launches < 1:
-        fail("log_prob did not go through the fused_flow kernel")
-    rt_err = (z_rt.cpu() - z_all[:d].reshape(LOGPROB_ROWS, model.size)).abs().max().item()
-    if not torch.isfinite(lp).all():
-        fail("log_prob is not finite")
-    print(f"[3 main path] {n_params:,} params; sample {M_DRAWS}x{N_COND} in {t_sample:.3f} s = "
-          f"{M_DRAWS * N_COND / t_sample:.0f} samples/s, fused_flow launches {inv_launches}; "
-          f"max|d| vs CPU plain path (64 draws) {cpu_err:.3e}; log_prob on {LOGPROB_ROWS} rows "
-          f"(launches {fwd_launches}), round trip max|forward(sample) - z| {rt_err:.3e} "
-          f"(tolerance {ROUNDTRIP_TOL:g}); mean log_prob {lp.mean().item():.3f}")
-    if not cpu_err <= KERNEL_TOL:
-        fail(f"samples disagree with the CPU plain path: {cpu_err:.3e} > {KERNEL_TOL:g}")
-    if not rt_err <= ROUNDTRIP_TOL:
-        fail(f"round trip error {rt_err:.3e} > {ROUNDTRIP_TOL:g}")
+    launches, run = {}, {}
+    for mode, strict in (("3xtf32", False), ("strict", True)):
+        model.pallas_strict = strict
+        inv_route, fwd_route = (ROUTE_FMA, ROUTE_FMA) if strict else (ROUTE_WGMMA, ROUTE_ROWS)
+        with torch.no_grad():
+            model.sample(params, torch.Generator().manual_seed(SEED), 16, traj, device=dev)  # warm-up
+            torch.cuda.synchronize()
+            zero_flow_counts()
+            t0 = time.perf_counter()
+            out = model.sample(params, torch.Generator().manual_seed(SEED), M_DRAWS, traj, device=dev)
+            torch.cuda.synchronize()
+            t_sample = time.perf_counter() - t0
+            inv_launches = dict(fused_flow.route_launches)
+        if inv_launches != {inv_route: 1}:
+            fail(f"posterior sampling ({mode}) launched K1 {inv_launches}, not once on {inv_route}")
+        if tuple(out.shape) != (M_DRAWS, N_COND, model.size) or not torch.isfinite(out).all():
+            fail(f"samples ({mode}) of shape {tuple(out.shape)} are not all finite / not the expected shape")
+        # the kernel's samples against the plain path on the CPU, for the first 64 draws
+        cpu_err = (out[:64].cpu() - ref).abs().max().item()
+        y_lp = out[:d].reshape(LOGPROB_ROWS, model.size)
+        with torch.no_grad():
+            zero_flow_counts()
+            lp = model.log_prob(params, y_lp, cond_lp)
+            z_rt, _ = model.forward(params, y_lp, cond_lp)
+            torch.cuda.synchronize()
+            fwd_launches = dict(fused_flow.route_launches)
+        if fwd_launches != {fwd_route: 2}:
+            fail(f"log_prob and the round trip ({mode}) launched K1 {fwd_launches}, not twice on {fwd_route}")
+        rt_err = (z_rt.cpu() - z_all[:d].reshape(LOGPROB_ROWS, model.size)).abs().max().item()
+        if not torch.isfinite(lp).all():
+            fail(f"log_prob ({mode}) is not finite")
+        print(f"[3 main path, {mode}] {n_params:,} params; sample {M_DRAWS}x{N_COND} in {t_sample:.3f} s = "
+              f"{M_DRAWS * N_COND / t_sample:.0f} samples/s, K1 launches {inv_launches}; "
+              f"max|d| vs CPU plain path (64 draws) {cpu_err:.3e}; log_prob on {LOGPROB_ROWS} rows "
+              f"(K1 launches {fwd_launches}), round trip max|forward(sample) - z| {rt_err:.3e} "
+              f"(tolerance {ROUNDTRIP_TOL:g}); mean log_prob {lp.mean().item():.3f}")
+        if not cpu_err <= KERNEL_TOL:
+            fail(f"samples ({mode}) disagree with the CPU plain path: {cpu_err:.3e} > {KERNEL_TOL:g}")
+        if not rt_err <= ROUNDTRIP_TOL:
+            fail(f"round trip error ({mode}) {rt_err:.3e} > {ROUNDTRIP_TOL:g}")
+        launches[mode] = (inv_launches[inv_route], fwd_launches[fwd_route])
+        run[mode] = (out, y_lp)
+    model.pallas_strict = False
+    samples, y_lp = run["3xtf32"]
 
     # K1 timed at the main path's shapes: inverse over M*N rows, forward over the log_prob batch
     kernels = []
@@ -399,39 +446,71 @@ def main() -> None:
         fused_flow(x_inv, h_proj, **kargs, inverse=True, n_cond=N_COND)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
+        prep_ms = median(cuda_ms(lambda: prepare_weights(kargs["wm"]), reps=5))
+        wm_mb = 4 * kargs["wm"].numel() / 1e6
         print(f"    sample breakdown (host clock): z draw on CPU + copy {1e3 * (t1 - t0):.1f} ms, encode + "
-              f"projections + stacked args {1e3 * (t2 - t1):.1f} ms, kernel {1e3 * (t3 - t2):.1f} ms")
+              f"projections + stacked args {1e3 * (t2 - t1):.1f} ms, K1 call {1e3 * (t3 - t2):.1f} ms, of which "
+              f"the wgmma weight preparation {prep_ms:.2f} ms (CUDA events, median of 5; {wm_mb:.0f} MB in, "
+              f"{2 * wm_mb:.0f} MB out)")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_sm = _build.load_library("flow_wgmma").bcnf_flow_wgmma_occupancy(h_proj.shape[-1], model.size,
+                                                                              model.coupling.d_a)
+        blocks = -(-x_inv.shape[0] // 64)
+        if per_sm < 1:
+            fail(f"the wgmma inverse fits no block on an SM ({per_sm})")
+        print(f"    wgmma inverse layout: {blocks} blocks of 64 rows, {per_sm} an SM on {sms} SMs: "
+              f"{blocks / (per_sm * sms):.2f} waves")
         hl = model.encode(params, (cond_lp,))
         kargs_f, h_proj_f = model._fused_flow_args(params, hl)
         shapes = {
-            "inverse": (x_inv, kargs, h_proj, N_COND, inv_launches, True),
-            "forward": (y_lp.contiguous(), kargs_f, h_proj_f, LOGPROB_ROWS, fwd_launches, False),
+            "inverse": (x_inv, kargs, h_proj, N_COND, launches["3xtf32"][0], True, False),
+            "forward": (y_lp.contiguous(), kargs_f, h_proj_f, LOGPROB_ROWS, launches["3xtf32"][1], False, False),
+            "inverse, strict": (x_inv, kargs, h_proj, N_COND, launches["strict"][0], True, True),
+            "forward, strict": (y_lp.contiguous(), kargs_f, h_proj_f, LOGPROB_ROWS, launches["strict"][1], False, True),
         }
         saved = fused_flow.launches
-        for direction, (x, ka, hp, n, launches, inv) in shapes.items():
+        for direction, (x, ka, hp, n, n_launches, inv, strict) in shapes.items():
             # the kernel against its plain version at exactly the main path's inputs too
-            out_k = fused_flow(x, hp, **ka, inverse=inv, n_cond=n)
+            out_k = fused_flow(x, hp, **ka, inverse=inv, n_cond=n, strict=strict)
             out_p = fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n)
             err = max((a - b).abs().max().item() for a, b in zip(
                 (out_k,) if inv else out_k, (out_p,) if inv else out_p))
             if not err <= KERNEL_TOL:
                 fail(f"fused_flow {direction} at the main path's shape disagrees with plain: {err:.3e}")
-            errs[direction] = max(errs[direction], err)
-            k_times = cuda_ms(lambda: fused_flow(x, hp, **ka, inverse=inv, n_cond=n), reps=5)
+            key = direction.replace(",", "")
+            errs[key] = max(errs[key], err)
+            route = flow_route(hp.shape[-1], model.size, ka["w1y"].shape[1], inv, strict)
+            k_times = cuda_ms(lambda: fused_flow(x, hp, **ka, inverse=inv, n_cond=n, strict=strict), reps=5)
             p_times = cuda_ms(lambda: fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n), reps=3)
             flops, nbytes = flow_work(ka, hp, x.shape[0], H)
-            kernels.append(kernel_row(f"fused_flow[{direction}]", "bcnf_tpu_torch/ops/csrc/flow_kernel.cu",
-                                      "bcnf_tpu/ops/flow_kernel.py:162", launches, errs[direction], k_times, p_times,
-                                      (flops, nbytes), peaks, None))
+            arith = ARITH_FMA if strict else ARITH_3XTF32
+            src = "bcnf_tpu_torch/ops/csrc/" + ("flow_wgmma.cu" if route == ROUTE_WGMMA else "flow_kernel.cu")
+            kernels.append(kernel_row(f"fused_flow[{direction}]", src, "bcnf_tpu/ops/flow_kernel.py:162", n_launches,
+                                      errs[key], k_times, p_times, (flops, nbytes), peaks, None, arith))
             ms, plain_ms, bound = kernels[-1]["ms"], kernels[-1]["plain_ms"], kernels[-1]["bound_ms"]
-            tile = 64 if hp.shape[-1] <= 32 * 17 else 32  # the kernel's rows per block (csrc/flow_kernel.cu)
+            fma_bound = bound_ms((flops, nbytes), peaks, ARITH_FMA)[0]
+            tile = route_rows(route, hp.shape[-1])
             l2_gb = -(-x.shape[0] // tile) * 4 * sum(int(v.numel()) for v in ka.values()) / 1e9
-            print(f"    fused_flow[{direction}] rows {x.shape[0]}: {ms:.2f} ms (bound {bound:.2f} ms, "
-                  f"{flops / 1e12:.2f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, median of {len(k_times)}, "
-                  f"range {min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms "
-                  f"(range {min(p_times):.2f}-{max(p_times):.2f}); "
-                  f"max|d| vs plain {err:.2e}; weights re-read from L2 per call ~{l2_gb:.0f} GB")
+            if route == ROUTE_WGMMA:
+                l2_gb += -(-x.shape[0] // tile) * 4 * int(ka["wm"].numel()) / 1e9  # hi and lo of the hidden weights
+            print(f"    fused_flow[{direction}] ({route}, {arith}) rows {x.shape[0]}: {ms:.2f} ms (bound {bound:.2f} ms, "
+                  f"float32-FMA bound {fma_bound:.2f} ms, {flops / 1e12:.2f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"median of {len(k_times)}, range {min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms "
+                  f"(range {min(p_times):.2f}-{max(p_times):.2f}); max|d| vs plain {err:.2e}; weights read from L2 "
+                  f"per call ~{l2_gb:.0f} GB ({tile}-row blocks) -> {l2_gb / ms:.2f} TB/s")
         fused_flow.launches = saved
+        # the wgmma inverse's parts alone (uncounted launches): its products on
+        # stale weight stages, and the weights' stream from L2 without the products
+        staged, wg_args = prepare_weights(kargs["wm"]), dict(kargs, h_proj=h_proj)
+        part_ms = {name: median(cuda_ms(lambda: _launch_flow(x_inv, wg_args, inverse=True, n_cond=N_COND, strict=False,
+                                                             wstages=staged, parts=parts), reps=3))
+                   for name, parts in (("both", WG_PRODUCTS | WG_COPIES), ("products", WG_PRODUCTS),
+                                       ("stream", WG_COPIES))}
+        stream_gb = -(-x_inv.shape[0] // 64) * 4 * int(staged.numel()) / 1e9
+        print(f"    wgmma inverse parts (CUDA events, median of 3, ms): as built {part_ms['both']:.2f}; its products "
+              f"alone (stale stages) {part_ms['products']:.2f} ({flow_work(kargs, h_proj, x_inv.shape[0], H)[0] / part_ms['products'] / 1e9:.1f} "
+              f"TFLOP/s); the hidden weights' stream alone {part_ms['stream']:.2f} ({stream_gb:.0f} GB of hi and lo from "
+              f"L2 -> {stream_gb / part_ms['stream']:.2f} TB/s)")
 
     # ---- 4. the sample CLI on a model directory as `bcnf-tpu train` writes it
     build_dir = os.path.join(HERE, "bcnf_tpu_torch", "_build")
@@ -1000,6 +1079,7 @@ def zero_counts() -> None:
 
     for fn in (lstm_direction_fwd, lstm_direction_bwd, fused_flow, fused_flow_train_fwd, fused_flow_train_bwd):
         fn.launches = 0
+    fused_flow.route_launches.clear()
 
 
 def fused_lstm(on: bool) -> None:
@@ -1318,11 +1398,12 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
 
     from bcnf_tpu_torch.bridge import map_tree
     from bcnf_tpu_torch.ops.coupling_kernel import (
+        coupling_flow_args,
         fused_affine_coupling,
         fused_affine_coupling_reference,
         mlp_params_to_kernel_args,
     )
-    from bcnf_tpu_torch.ops.flow_kernel import fused_flow
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow, prepare_weights
 
     cp = model.coupling
     blk0 = map_tree(lambda t: t[0], params["blocks"]["coupling"])
@@ -1399,13 +1480,21 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                               reps=3)
             work = coupling_work(args, x.shape[0], n, H, inverse)
             direction = "inverse" if inverse else "forward"
-            rows.append(kernel_row(f"K4 fused_affine_coupling[{direction}]", "bcnf_tpu_torch/ops/csrc/coupling_kernel.cu",
+            # what the wrapper prepares each launch: the padded one-step stack, and for
+            # the wgmma inverse the hi/lo stage layout of its hidden weights
+            prep = (lambda: prepare_weights(coupling_flow_args(hp, **args)["wm"])) if inverse else (
+                lambda: coupling_flow_args(hp, **args))
+            prep_ms = median(cuda_ms(prep, reps=5))
+            src = "bcnf_tpu_torch/ops/csrc/" + ("flow_wgmma.cu" if inverse else "flow_kernel.cu")
+            rows.append(kernel_row(f"K4 fused_affine_coupling[{direction}]", src,
                                    "bcnf_tpu/ops/coupling_kernel.py:69", launches[inverse], max(errs[inverse], err),
-                                   k_times, p_times, work, peaks, None))
-            print(f"    K4[{direction}] rows {x.shape[0]}: {median(k_times):.3f} ms (bound {rows[-1]['bound_ms']:.3f} ms, "
+                                   k_times, p_times, work, peaks, None, ARITH_3XTF32))
+            fma_bound = bound_ms(work, peaks, ARITH_FMA)[0]
+            print(f"    K4[{direction}] ({'wgmma' if inverse else 'rows'}, 3xtf32) rows {x.shape[0]}: "
+                  f"{median(k_times):.3f} ms (bound {rows[-1]['bound_ms']:.3f} ms, float32-FMA bound {fma_bound:.3f} ms, "
                   f"{work[0] / 1e9:.1f} GFLOP -> {work[0] / median(k_times) / 1e9:.1f} TFLOP/s, range "
-                  f"{min(k_times):.3f}-{max(k_times):.3f}), plain {median(p_times):.3f} ms; max|d| vs plain {err:.2e}; "
-                  f"x {n_couplings} couplings a pass")
+                  f"{min(k_times):.3f}-{max(k_times):.3f}; of which the weights' preparation {prep_ms:.3f} ms), "
+                  f"plain {median(p_times):.3f} ms; max|d| vs plain {err:.2e}; x {n_couplings} couplings a pass")
     fused_affine_coupling.launches = saved
     return rows
 

@@ -153,23 +153,57 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("strict", [False, True], ids=["3xtf32", "strict"])
 @pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
-@pytest.mark.parametrize("hidden", [16, 100, 526, 1000])  # 64-row and 32-row tiles
-def test_kernel_matches_reference_on_card(cuda, inverse, hidden):
-    """A CUDA tensor launches the kernel (counted), ragged rows included."""
+@pytest.mark.parametrize("hidden", [16, 100, 526, 1000])  # wgmma up to Hp 544, row tiles above; FMA strict
+def test_kernel_matches_reference_on_card(cuda, inverse, hidden, strict):
+    """A CUDA tensor launches K1 on the route of its mode and width (counted
+    once, and once on that route), ragged rows included, within the flow bar
+    of the float32 plain version."""
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FMA, ROUTE_ROWS, ROUTE_WGMMA
+
     model = _tiny_model(hidden)
     params = model.init(device=cuda)
     rng = np.random.default_rng(3)
     traj = torch.from_numpy(rng.normal(size=(6, 9, 3)).astype(np.float32)).to(cuda)
     kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
     x = torch.from_numpy(rng.normal(size=(6 * 37 + 5, 5)).astype(np.float32)).to(cuda)
-    before = fused_flow.launches
-    out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6)
+    route = ROUTE_FMA if strict else ROUTE_WGMMA if inverse and hidden <= 544 else ROUTE_ROWS
+    before = fused_flow.launches, fused_flow.route_launches[route]
+    out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, strict=strict)
     ref = fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=6)
     torch.cuda.synchronize()
-    assert fused_flow.launches == before + 1
+    assert (fused_flow.launches, fused_flow.route_launches[route]) == (before[0] + 1, before[1] + 1)
     for a, b in zip(out if not inverse else (out,), ref if not inverse else (ref,)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [64, 65, 4099], ids=["one_block", "one_row_past", "ragged"])
+def test_wgmma_inverse_at_the_flagship_width_on_card(cuda, rows):
+    """K1's inverse on `wgmma` at Hp 544 (size 19, 4 hidden layers, 4 steps)
+    against the float32 plain version at the flow bar: a block of exactly 64
+    rows, one row more, and a ragged count over 7 conditions; the weights
+    prepared on the card are the CPU's bit for bit; one block an SM."""
+    from bcnf_tpu_torch.ops import _build
+    from bcnf_tpu_torch.ops.flow_kernel import prepare_weights
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[526] * 5, n_blocks=4, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0)
+    with torch.no_grad():
+        x, h_proj, args = _train_args(model, model.init(device=cuda), B=7, seed=20, device=cuda)
+        kargs = dict(zip(("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout"), args))
+        x = torch.randn((rows, 19), generator=torch.Generator(device=cuda).manual_seed(21), device=cuda)
+        staged = prepare_weights(kargs["wm"])
+        assert torch.equal(staged.cpu(), prepare_weights(kargs["wm"].cpu()))
+        before = fused_flow.route_launches["wgmma"]
+        out = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=7)
+        ref = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=7)
+        torch.cuda.synchronize()
+    assert fused_flow.route_launches["wgmma"] == before + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert _build.load_library("flow_wgmma").bcnf_flow_wgmma_occupancy(544, 19, 10) == 1
 
 
 def _train_args(model: CondRealNVP, params: dict, B: int, seed: int, device) -> tuple:
@@ -369,7 +403,10 @@ def test_fused_lstm_on_card_matches_the_cpu_loop(cuda, monkeypatch):
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 @pytest.mark.parametrize("hidden,n_hidden", [(16, 0), (100, 2), (526, 4)])
 def test_coupling_kernel_matches_plain_version_on_card(cuda, inverse, hidden, n_hidden):
-    """K4 on a ragged row count against 7 conditions; one launch counted."""
+    """K4 (K1's kernels at one step: the inverse on `wgmma`, the forward on
+    the row tiles) on a ragged row count against 7 conditions, a coupling
+    with no hidden-to-hidden layer among them; one K4 launch counted, none
+    of K1's."""
     from bcnf_tpu_torch.models.cnf import AffineCoupling
 
     port = AffineCoupling(input_size=19, nested_sizes=[hidden] * (n_hidden + 1), n_conditions=32)
@@ -380,12 +417,13 @@ def test_coupling_kernel_matches_plain_version_on_card(cuda, inverse, hidden, n_
     x_b = torch.randn((rows, port.d_b), generator=g, device=cuda)
     h_proj = port.cond_proj(tp, torch.randn((7, 32), generator=g, device=cuda))
     args = mlp_params_to_kernel_args(tp["a"], port.d_a)
-    before = fused_affine_coupling.launches
+    before = fused_affine_coupling.launches, fused_flow.launches
     out = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=inverse)
     ref = fused_affine_coupling_reference(x_a, x_b, h_proj, **args, inverse=inverse, n_cond=7)
     torch.cuda.synchronize()
-    assert fused_affine_coupling.launches == before + 1
+    assert (fused_affine_coupling.launches, fused_flow.launches) == (before[0] + 1, before[1])  # K1's kernels, K4's count
     for a, b in zip((out,) if inverse else out, (ref,) if inverse else ref):
+        assert a.is_contiguous()
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 

@@ -1,11 +1,13 @@
-"""Port parity, the tensor-core arithmetic of K2a, K2b, K3a and K3b: 3xTF32.
+"""Port parity, the tensor-core arithmetic of K1, K2a, K2b, K3a, K3b and K4: 3xTF32.
 
-The training kernels (`csrc/flow_kernel.cu`'s K2a, `csrc/flow_train_kernel.cu`),
-the LSTM kernels (`csrc/lstm_kernel.cu`) and the AᵀB pass (`csrc/atb.cuh`)
+The flow kernels (`csrc/flow_kernel.cu`'s row tiles: K1's forward and wide
+inverse, K2a; `csrc/flow_wgmma.cu`: K1's inverse on `wgmma`; K4 as K1 at
+one step; `csrc/flow_train_kernel.cu`: K2b), the LSTM kernels
+(`csrc/lstm_kernel.cu`) and the AᵀB pass (`csrc/atb.cuh`)
 take their large products on Hopper's tensor cores in 3xTF32, the
 counterpart of the JAX kernels' "x3" (bf16 x 3) mode that serves their
 "highest" contract. `bcnf_tpu_torch/ops/tf32.py` models that arithmetic in
-plain PyTorch; here the plain K3a, K3b, K2a and K2b versions, with every
+plain PyTorch; here the plain K1, K4, K3a, K3b, K2a and K2b versions, with every
 product taken by that model, are held against the JAX package's Pallas
 kernels in interpret mode at the existing bars (forwards:
 tests/test_lstm_kernel.py:30, hs and cs atol 1e-5; tests/test_flow_kernel.py:89-117,
@@ -30,12 +32,34 @@ from bcnf_tpu.models import CondRealNVP as JaxCondRealNVP
 from bcnf_tpu.models import ConcatenateCondition as JaxConcat
 from bcnf_tpu.models import FeatureNetworkStack as JaxStack
 from bcnf_tpu.models import FullyConnectedFeatureNetwork as JaxFC
+from bcnf_tpu.models.cnf import AffineCoupling as JaxAffineCoupling
+from bcnf_tpu.ops.coupling_kernel import fused_affine_coupling as jax_fused_affine_coupling
+from bcnf_tpu.ops.coupling_kernel import mlp_params_to_kernel_args as jax_coupling_args
+from bcnf_tpu.ops.flow_kernel import fused_flow as jax_fused_flow
 from bcnf_tpu.ops.flow_kernel import fused_flow_train as jax_fused_flow_train
 from bcnf_tpu.ops.lstm_kernel import _make_lstm_dir
+from bcnf_tpu_torch.bridge import params_from_numpy
+from bcnf_tpu_torch.models.cnf import AffineCoupling
+from bcnf_tpu_torch.ops import flow_kernel
 from bcnf_tpu_torch.ops.atb import atb, atb_reference
-from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_backward_reference, fused_flow_train_reference
+from bcnf_tpu_torch.ops.coupling_kernel import (
+    coupling_flow_args,
+    fused_affine_coupling_reference,
+    mlp_params_to_kernel_args,
+)
+from bcnf_tpu_torch.ops.flow_kernel import (
+    ROUTE_FMA,
+    ROUTE_ROWS,
+    ROUTE_WGMMA,
+    flow_route,
+    fused_flow_reference,
+    fused_flow_train_backward_reference,
+    fused_flow_train_reference,
+    kernel_smem,
+    prepare_weights,
+)
 from bcnf_tpu_torch.ops.lstm_kernel import lstm_direction_bwd_reference, lstm_direction_fwd_reference
-from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32, round_tf32, split_tf32
+from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32, round_tf32, split_tf32, truncate_tf32
 
 LSTM_ATOL, LSTM_RTOL = 1e-4, 1e-4  # tests/test_lstm_kernel.py:48
 FLOW_ATOL, FLOW_RTOL = 5e-4, 1e-3  # tests/test_flow_kernel.py:313
@@ -269,6 +293,198 @@ def test_flow_backward_in_3xtf32_matches_jax_kernel(jax_flow, precision):
                                               mm=matmul_3xtf32)
     for name, g, r in zip(GRAD_NAMES, got, refs):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=FLOW_ATOL, rtol=FLOW_RTOL, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K4 in 3xTF32 (the default mode), their weight preparation and routes
+# ---------------------------------------------------------------------------
+
+FLOW_ARGS = ("h_proj", *ARG_NAMES)
+
+
+def _k1_case(model, params, n_cond: int = 4, B: int = 16):
+    """Seeded K1 arguments: n_cond conditions for B rows (row r takes r % n_cond)."""
+    rng = np.random.default_rng(7)
+    h = jnp.asarray(rng.normal(size=(n_cond, N_COND_FEATURES)).astype(np.float32))
+    kargs, h_proj = model._fused_flow_args(params, h)
+    x = rng.normal(size=(B, SIZE)).astype(np.float32)
+    return dict(kargs, h_proj=h_proj), x
+
+
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+@pytest.mark.parametrize("precision", ["highest", "x3"])
+def test_k1_in_3xtf32_matches_jax_kernel(jax_flow, precision, inverse):
+    """K1's default-mode arithmetic (every product in 3xTF32) against JAX's
+    `fused_flow` in interpret mode, at "highest" and at "x3" (what the JAX
+    model runs for "highest"), with 4 conditions for 16 rows so that rows
+    take r % N: y, or z and logdet, at the flow forward bar."""
+    model, params = jax_flow
+    args, x = _k1_case(model, params)
+    ref = jax_fused_flow(jnp.asarray(x), **args, inverse=inverse, n_cond=4, block_b=8, precision=precision,
+                         interpret=True)
+    ours = fused_flow_reference(torch.from_numpy(x), **{k: torch.from_numpy(np.array(v)) for k, v in args.items()},
+                                inverse=inverse, n_cond=4, mm=matmul_3xtf32)
+    for name, g, r in zip(("y",) if inverse else ("z", "logdet"), (ours,) if inverse else ours,
+                          (ref,) if inverse else ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=FLOW_FWD_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def coupling_case():
+    """A flagship-shaped coupling (size 19) at a small width, with 5
+    conditions for 20 rows."""
+    layer = JaxAffineCoupling(input_size=19, nested_sizes=[48, 48, 48], n_conditions=12)
+    params = jax.tree.map(np.asarray, jax.device_get(layer.init(jax.random.key(2))))
+    rng = np.random.default_rng(8)
+    y = rng.normal(size=(20, 19)).astype(np.float32)
+    h = rng.normal(size=(5, 12)).astype(np.float32)
+    port = AffineCoupling(input_size=19, nested_sizes=[48, 48, 48], n_conditions=12)
+    tp = params_from_numpy(params, "cpu")
+    args = mlp_params_to_kernel_args(tp["a"], port.d_a)
+    h_proj = port.cond_proj(tp, torch.from_numpy(h))
+    return layer, params, port, args, h_proj, y, h
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_k4_in_3xtf32_matches_jax_kernel(coupling_case, inverse):
+    """K4's arithmetic (every product in 3xTF32) against JAX's
+    `fused_affine_coupling` in interpret mode on the rows' own projections:
+    z_b and logdet, or y_b, at the JAX kernel's bar (atol 1e-4)."""
+    layer, params, port, args, h_proj, y, h = coupling_case
+    jp = jax.tree.map(jnp.asarray, params)
+    rows = np.arange(y.shape[0]) % h.shape[0]
+    proj = layer.cond_proj(jp, jnp.asarray(h[rows]))["a"][0]
+    with jax.default_matmul_precision("highest"):
+        ref = jax_fused_affine_coupling(jnp.asarray(y[:, : layer.d_a]), jnp.asarray(y[:, layer.d_a:]), proj,
+                                        inverse=inverse, interpret=True, **jax_coupling_args(jp["a"], layer.d_a))
+    ours = fused_affine_coupling_reference(torch.from_numpy(y[:, : port.d_a]), torch.from_numpy(y[:, port.d_a:]),
+                                           h_proj, **args, inverse=inverse, n_cond=h.shape[0], mm=matmul_3xtf32)
+    for g, r in zip((ours,) if inverse else ours, (ref,) if inverse else ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=FLOW_FWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("mm", [torch.matmul, matmul_3xtf32], ids=["float32", "3xtf32"])
+def test_k4_is_k1_at_one_step(coupling_case, inverse, mm):
+    """K1's plain version on K4's arguments stacked at one step
+    (`coupling_flow_args`, the final coupling's slot: no ActNorm, no mix)
+    gives K4's plain version, in either arithmetic."""
+    _, _, port, args, h_proj, y, h = coupling_case
+    x = torch.from_numpy(y)
+    flow_args = coupling_flow_args(h_proj, **args)
+    assert flow_args["h_proj"].shape == (1, h.shape[0], 64) and flow_args["wm"].shape == (1, 2, 64, 64)
+    k1 = fused_flow_reference(x, **flow_args, inverse=inverse, n_cond=h.shape[0], mm=mm)
+    k4 = fused_affine_coupling_reference(x[:, : port.d_a], x[:, port.d_a:], h_proj, **args, inverse=inverse,
+                                         n_cond=h.shape[0], mm=mm)
+    y1 = k1 if inverse else k1[0]
+    torch.testing.assert_close(y1[:, : port.d_a], x[:, : port.d_a], atol=0, rtol=0)
+    torch.testing.assert_close(y1[:, port.d_a:], k4 if inverse else k4[0], atol=1e-6, rtol=0)
+    if not inverse:
+        torch.testing.assert_close(k1[1], k4[1], atol=1e-6, rtol=0)
+
+
+def _unstage(staged: torch.Tensor, Hp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Read `prepare_weights`' layout back as the `wgmma` inverse reads it:
+    stage s holds input rows 8 s .. 8 s + 7; in each of its halves (hi, lo)
+    output n = 8 ng + r and input 8 s + 4 kg + c sit at float
+    64 ng + 32 kg + 4 r + c (core matrices of 8 x 4, 32 floats, the two along
+    the inputs side by side: the descriptor's 128-byte leading and 256-byte
+    stride offsets, csrc/flow_wgmma.cu). Returns (hi, lo) as (S, nh, in, out)."""
+    S, nh = staged.shape[:2]
+    flat = staged.reshape(S, nh, Hp // 8, 2, 16 * Hp // 2)
+    parts = []
+    for half in range(2):
+        w = torch.empty((S, nh, Hp, Hp))
+        for s in range(Hp // 8):
+            for n in range(Hp):
+                ng, r = divmod(n, 8)
+                for kk in range(8):
+                    kg, c = divmod(kk, 4)
+                    w[:, :, 8 * s + kk, n] = flat[:, :, s, half, 64 * ng + 32 * kg + 4 * r + c]
+        parts.append(w)
+    return parts[0], parts[1]
+
+
+@pytest.mark.parametrize("S,nh,Hp", [(2, 3, 32), (1, 2, 64), (2, 0, 32)], ids=["three_layers", "one_step", "no_hidden"])
+def test_prepare_weights_splits_and_lays_out_stages(S, nh, Hp):
+    """The `wgmma` inverse's weights: hi + lo is w bit for bit; hi is the
+    rounded TF32 of `split_tf32`, lo truncated as the tensor cores read it is
+    its lo; the stage layout reads back to wm; 16 Hp floats a stage."""
+    rng = np.random.default_rng(9)
+    wm = torch.from_numpy((rng.normal(size=(S, nh, Hp, Hp)) * 10.0 ** rng.integers(-3, 3, size=(S, nh, Hp, Hp)))
+                          .astype(np.float32))
+    staged = prepare_weights(wm)
+    assert staged.shape == (S, nh, Hp // 8, 2, Hp // 8, 2, 8, 4) and staged.is_contiguous()
+    if nh == 0:
+        return
+    assert staged[0, 0, 0].numel() == 16 * Hp
+    hi, lo = _unstage(staged, Hp)
+    assert torch.equal(hi + lo, wm)
+    ref_hi, ref_lo = split_tf32(wm)
+    assert torch.equal(hi, ref_hi) and torch.equal(truncate_tf32(lo), ref_lo)
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["3xtf32", "strict"])
+@pytest.mark.parametrize("H", [16, 100, 526, 700, 1000])
+def test_k1_routes_by_mode_and_width(H, strict):
+    """Strict runs the float32 FMA kernel both ways; the default mode runs
+    the forward on the row tiles and the inverse on `wgmma` up to the padded
+    width 544, on the row tiles above it (flagship shape: size 19)."""
+    from bcnf_tpu_torch.ops.flow_kernel import padded_width
+
+    Hp = padded_width(H)
+    routes = {inv: flow_route(Hp, 19, 10, inv, strict) for inv in (True, False)}
+    if strict:
+        assert routes == {True: ROUTE_FMA, False: ROUTE_FMA}
+    else:
+        assert routes == {True: ROUTE_WGMMA if Hp <= 544 else ROUTE_ROWS, False: ROUTE_ROWS}
+
+
+def test_k1_routes_follow_shared_memory():
+    """At Hp 544 the `wgmma` inverse holds the rows' state up to size 29; a
+    larger size takes the row tiles, which hold up to ~80; past them no
+    3xTF32 kernel takes the shape and the model's gate closes, while the
+    strict FMA kernel still takes it. The sums are those the launchers check."""
+    assert kernel_smem(ROUTE_WGMMA, 544, 19, 10) == 4 * (64 * 548 + 32 * 544 + 64 * (38 + 18)) + 32
+    assert flow_route(544, 29, 15, True, False) == ROUTE_WGMMA
+    assert flow_route(544, 30, 15, True, False) == ROUTE_ROWS
+    assert flow_route(544, 90, 45, True, False) is None and flow_route(544, 90, 45, False, False) is None
+    assert flow_route(544, 90, 45, True, True) == ROUTE_FMA
+    assert flow_route(96, 19, 10, True, False) is None  # not a compiled width
+    from bcnf_tpu_torch.models import CondRealNVP
+
+    kw = dict(n_blocks=3, n_conditions=4, feature_network_stack=None)
+    assert CondRealNVP(size=19, nested_sizes=[526, 526], **kw)._fused_flow_takes()
+    assert not CondRealNVP(size=90, nested_sizes=[526, 526], **kw)._fused_flow_takes()
+    assert CondRealNVP(size=90, nested_sizes=[526, 526], pallas_strict=True, **kw)._fused_flow_takes()
+    assert not CondRealNVP(size=19, nested_sizes=[1100, 1100], **kw)._fused_flow_takes()
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["3xtf32", "strict"])
+def test_model_passes_its_mode_to_k1(strict, monkeypatch):
+    """`sample` and the no-grad forward hand `pallas_strict` to K1 (the gate
+    opened on CPU tensors, which stand for a CUDA tensor with no grad); on
+    the CPU K1's wrapper is the plain version in either mode."""
+    from bcnf_tpu_torch.models import CondRealNVP, ConcatenateCondition, FeatureNetworkStack
+    from bcnf_tpu_torch.models import FullyConnectedFeatureNetwork
+
+    stack = FeatureNetworkStack([ConcatenateCondition(input_size=None, output_size=6),
+                                 FullyConnectedFeatureNetwork(sizes=[6, 32, N_COND_FEATURES])])
+    model = CondRealNVP(size=SIZE, nested_sizes=[32] * 3, n_blocks=N_BLOCKS, n_conditions=N_COND_FEATURES,
+                        feature_network_stack=stack, act_norm=True, random_state=0, pallas_strict=strict)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    seen = []
+
+    def recording(*a, strict=False, **k):
+        seen.append(strict)
+        return flow_kernel.fused_flow_reference(*a, **k)
+
+    monkeypatch.setattr(flow_kernel, "fused_flow", recording)
+    monkeypatch.setattr(CondRealNVP, "_use_fused", lambda self, train, x, *trees: not train)
+    cond = torch.from_numpy(np.random.default_rng(10).normal(size=(3, 6)).astype(np.float32))
+    y = model.sample(params, torch.Generator().manual_seed(1), 4, cond, device="cpu")
+    model.forward(params, y[0], cond)
+    assert seen == [strict, strict]
 
 
 @pytest.mark.parametrize("k,chunk", [(64, 64), (100, 32), (0, 8)], ids=["one_chunk", "ragged_chunks", "no_rows"])
