@@ -1,9 +1,9 @@
 """Training-data assembly: load, split, device batches (port of `bcnf_tpu/train/data.py`).
 
-`TrainerDataHandler.get_data_for_training` loads a dataset pickle (or a
-directory of shards) and assembles the condition tensors and the theta
-matrix. Generating missing data needs the simulator, which is not ported
-yet: a missing dataset raises. `split_dataset` is the JAX package's seeded
+`TrainerDataHandler.get_data_for_training` generates the dataset with the
+port's simulator when `data.path` holds none (and saves it there), else
+loads a dataset pickle (or a directory of shards); then it assembles the
+condition tensors and the theta matrix. `split_dataset` is the JAX package's seeded
 shuffled split, index for index. `DeviceDataset` holds the dataset in device
 memory and gathers batches there, as the JAX package's does; training never
 copies a batch from the host.
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from bcnf_tpu_torch.config import ParameterIndexMapping
-from bcnf_tpu_torch.utils.io import load_data
+from bcnf_tpu_torch.simulation.sampling import generate_data
+from bcnf_tpu_torch.utils.io import load_data, save_data
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -31,10 +32,17 @@ class TrainerDataHandler:
         dtype: torch.dtype = torch.float32,
         errors: str = "raise",
         verbose: bool = False,
+        seed: int | None = None,
+        device: str | torch.device | None = None,
     ) -> tuple[np.ndarray, list[np.ndarray]]:
         """Returns `(y, conditions)` as NumPy arrays.
 
-        Conditions come from the `config.global.conditions` key groups
+        Generate-if-missing (`bcnf_tpu/train/data.py:49-68`): with no data
+        at `data.path`, the `data` section's prior, size and grid are
+        simulated on `device` (default CUDA) from `seed` and saved there
+        (a path without an extension is a directory and gets
+        `data.data_name`, default `data.pkl`); else the pickle or its
+        shards are loaded. Conditions come from the `config.global.conditions` key groups
         (reference `trainer_data_handler.py:75-85`; 1-D values get a trailing
         feature axis) and theta from `ParameterIndexMapping.vectorize` (`:86`).
         """
@@ -44,18 +52,36 @@ class TrainerDataHandler:
         data_cfg = config["data"]
         path = data_cfg["path"]
         if not os.path.exists(path) or (os.path.isdir(path) and len(os.listdir(path)) == 0):
-            raise FileNotFoundError(
-                f"No data found at {path}; data generation waits for the simulator slice"
+            if verbose:
+                print(f"No data found at {path}. Generating data...")
+            data = generate_data(
+                config_file=data_cfg["config_file"],
+                n=data_cfg["n_samples"],
+                output_type=data_cfg["output_type"],
+                dt=data_cfg["dt"],
+                T=data_cfg["T"],
+                num_cams=data_cfg.get("num_cams", 2),
+                break_on_impact=data_cfg.get("break_on_impact", True),
+                do_filter=data_cfg.get("do_filter", True),
+                verbose=data_cfg.get("verbose", verbose),
+                observation_noise=float(data_cfg.get("observation_noise", 0.0)),
+                seed=seed,
+                device=device,
             )
-        if verbose:
-            print(f"Loading data from {path}...")
-        data = load_data(
-            path=path,
-            keep_output_type=data_cfg["output_type"],
-            n_files=data_cfg.get("n_files"),
-            verbose=verbose,
-            errors=errors,
-        )
+            target = path if os.path.splitext(path)[1] != "" else os.path.join(
+                path, data_cfg.get("data_name", "data.pkl")
+            )
+            save_data(data, target)
+        else:
+            if verbose:
+                print(f"Loading data from {path}...")
+            data = load_data(
+                path=path,
+                keep_output_type=data_cfg["output_type"],
+                n_files=data_cfg.get("n_files"),
+                verbose=verbose,
+                errors=errors,
+            )
 
         # condition-key aliases: run configs say `cam_radian`
         # (reference `configs/runs/dev/videos_CNN_LSTM_large.yaml:6`) while the

@@ -97,7 +97,7 @@ class Trainer:
         else:
             self.data = self.data_handler.get_data_for_training(
                 config=config, parameter_index_mapping=parameter_index_mapping, dtype=self.dtype,
-                verbose=verbose,
+                verbose=verbose, seed=self.seed, device=self.device,
             )
         self.loss_function = inn_nll_loss
 

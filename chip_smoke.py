@@ -62,6 +62,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
    samples, and the no-grad forward against K1's; K4's times with the cost
    of the weights' preparation it does each launch.
 
+12. the evaluation path: `generate_data` with the filter and the MC
+   renderer (n = 256, the CLI's dt 1/30 and T 2), the impact loop's steps a
+   batch and its CUDA-graph replays against its eager loop; the `train` CLI
+   on the flagship's published config (coupling dropout 0.407, batch 256)
+   with no dataset on disk, so its 5000 trajectories are generated on the
+   card, 1 epoch (K2a/K2b not launched: their gate is closed), train
+   samples/s and a CUDA-event split of one step; `generate` of a held-out
+   set of 200 and `eval` with its defaults (M = 10,000, 1000 resimulation
+   draws; its figures only where matplotlib is installed), K1's launches by
+   direction, route and rows, each stage's seconds; then the card's test
+   NLL against the CPU plain path, one rank batch through K1 against the
+   plain version on the same z (near-ties excepted), and 4096 resimulated
+   trajectories against the CPU.
+
 The line before the last is the kernel table as JSON (each row with its
 arithmetic, `arith`: float32 FMA, or 3xTF32 on the tensor cores, and its
 bound at that arithmetic's peak); the last line is
@@ -543,6 +557,7 @@ def main() -> None:
     kernels += lstm_rows(lstm_times, lstm_launches, peaks)
     dlstm_path_b(rng, dev, build_dir)
     kernels += coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev, peaks)
+    eval_path(dev, build_dir, peaks)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1497,6 +1512,352 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                   f"plain {median(p_times):.3f} ms; max|d| vs plain {err:.2e}; x {n_couplings} couplings a pass")
     fused_affine_coupling.launches = saved
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the evaluation path (simulator, training at the published
+# config, calibration ranks, resimulation)
+# ---------------------------------------------------------------------------
+
+PRIOR_CONFIG = "{{BCNF_ROOT}}/configs/data_prior.yaml"
+# trajectories on the card against the CPU: the CPU tests' bar
+# (tests/test_torch_port_simulation.py), |d| <= TRAJ_REL (1 + max|row|)
+TRAJ_REL = 1e-5
+# a draw this close to the true value may rank on the other side of it in
+# the kernel and the plain version (K1's bar)
+TIE = KERNEL_TOL
+
+
+def trajectories_agree(card, cpu) -> tuple[bool, float, int]:
+    """(agree, worst |d| / (1 + max|row|), rows finite) for trajectory
+    arrays `(..., T, 3)`: the same rows finite, and those within TRAJ_REL."""
+    import numpy as np
+
+    card, cpu = card.reshape(-1, *card.shape[-2:]), cpu.reshape(-1, *cpu.shape[-2:])
+    fin_card, fin_cpu = np.isfinite(card).all(axis=(1, 2)), np.isfinite(cpu).all(axis=(1, 2))
+    if not np.array_equal(fin_card, fin_cpu):
+        return False, float("inf"), int(fin_cpu.sum())
+    scale = 1.0 + np.abs(cpu[fin_cpu]).max(axis=(1, 2))
+    worst = float((np.abs(card[fin_cpu] - cpu[fin_cpu]).max(axis=(1, 2)) / scale).max()) if fin_cpu.any() else 0.0
+    return worst <= TRAJ_REL, worst, int(fin_cpu.sum())
+
+
+class K1Recorder:
+    """Records each launch of K1 with its direction, route and rows: while
+    active, `ops.flow_kernel.fused_flow` (which the model looks up from its
+    module at every call) is a wrapper that shares the kernel's counters."""
+
+    def __init__(self) -> None:
+        from bcnf_tpu_torch.ops import flow_kernel
+
+        self.module, self.real, self.calls = flow_kernel, flow_kernel.fused_flow, []
+
+    def __enter__(self) -> "K1Recorder":
+        real, routes = self.real, self.real.route_launches
+
+        def recorded(x, h_proj, *args, inverse: bool, **kw):
+            before = dict(routes)
+            out = real(x, h_proj, *args, inverse=inverse, **kw)
+            for route, n in routes.items():
+                if n != before.get(route, 0):
+                    self.calls.append(("inverse" if inverse else "forward", route, int(x.shape[0])))
+            return out
+
+        # the kernel's wrapper counts through its module's name, which is this wrapper now
+        recorded.launches, recorded.route_launches = real.launches, routes
+        self.module.fused_flow = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.real.launches = self.module.fused_flow.launches
+        self.module.fused_flow = self.real
+
+    def summary(self) -> dict:
+        from collections import Counter
+
+        return dict(Counter(self.calls))
+
+
+def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate: int = 256,
+              n_test: int = 200, m_samples: int = 10_000, resim_samples: int = 1000) -> None:
+    """Phase 12: `generate` (filter, MC renderer), the flagship trained by the
+    `train` CLI from its published config with no dataset (generated on the
+    card), then `eval` with its defaults on a held-out generated set; the
+    card's NLL, ranks and resimulation held against the plain and CPU
+    results."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    import yaml
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, tree_leaves
+    from bcnf_tpu_torch.config import load_config, load_yaml, sub_root_path
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        fused_flow,
+        fused_flow_reference,
+        fused_flow_train_bwd,
+        fused_flow_train_fwd,
+    )
+    from bcnf_tpu_torch.simulation import physics
+    from bcnf_tpu_torch.simulation.physics import point_of_impact, simulate_trajectory
+    from bcnf_tpu_torch.simulation.priors import sample_ballistic_parameters
+    from bcnf_tpu_torch.simulation.resimulation import resimulate
+    from bcnf_tpu_torch.simulation.sampling import generate_data
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+    from bcnf_tpu_torch.train.data import TrainerDataHandler
+    from bcnf_tpu_torch.utils.io import load_data
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    def sim_args(p: dict) -> list:
+        vec = [torch.as_tensor(np.stack([np.asarray(p[f"{k}_{c}"], np.float32) for c in "xyz"], -1))
+               for k in ("x0", "v0", "g", "w", "a")]
+        sc = [torch.as_tensor(np.asarray(p[k], np.float32)) for k in ("b", "m", "rho", "r")]
+        return [vec[0], vec[1], vec[2], vec[3], *sc, vec[4]]
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # -- 12.1: generate with the filter and the MC renderer, the CLI's defaults (dt 1/30, T 2)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = generate_data(config_file=PRIOR_CONFIG, n=n_generate, output_type="trajectories", dt=1 / 30, T=2.0,
+                             do_filter=True, renderer="mc", seed=SEED, device=dev, stats=stats)
+        t_gen = time.perf_counter() - t0
+        traj = np.asarray(data["trajectories"])
+        if traj.shape != (n_generate, 60, 3) or not np.isfinite(traj).all():
+            fail(f"generate gave trajectories of shape {traj.shape}, finite={np.isfinite(traj).all()}")
+        if any(len(v) != n_generate for v in data.values()) or np.asarray(data["cam_radian_array"]).shape != (
+                n_generate, 2):
+            fail("generate's dataset does not have the JAX package's schema")
+        cpu_traj = simulate_trajectory(*sim_args(data), n_steps=60, dt=1 / 30, break_on_impact=True,
+                                       n_substeps=4).numpy()
+        ok, worst, _ = trajectories_agree(traj, cpu_traj)
+        # the impact loop alone on one filter batch of 128 prior draws
+        p = sample_ballistic_parameters(torch.Generator(device=dev).manual_seed(SEED), 128,
+                                        load_yaml(PRIOR_CONFIG).to_dict())
+        x0, v0, g, w, b, m, rho, r, a = (t.to(dev) for t in sim_args({k: v.cpu().numpy() for k, v in p.items()}))
+        poi_stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        point_of_impact(x0, v0, g, w, b, m, rho, r, a, dt=1 / 30, stats=poi_stats)
+        torch.cuda.synchronize()
+        t_poi = time.perf_counter() - t0
+        # the CUDA-graph replays against the eager loop (every step launched from the host), 640 steps
+        t0 = time.perf_counter()
+        poi_graph = point_of_impact(x0, v0, g, w, b, m, rho, r, a, dt=1 / 30, max_steps=640)
+        torch.cuda.synchronize()
+        t_graph = time.perf_counter() - t0
+        check_every, physics.IMPACT_CHECK_EVERY = physics.IMPACT_CHECK_EVERY, 10**9  # one eager run of 640 steps
+        t0 = time.perf_counter()
+        poi_eager = point_of_impact(x0, v0, g, w, b, m, rho, r, a, dt=1 / 30, max_steps=640)
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        physics.IMPACT_CHECK_EVERY = check_every
+        if not torch.equal(poi_graph, poi_eager):
+            fail("the impact loop's CUDA-graph replays disagree with its eager loop")
+        print(f"[12 eval path: generate] {n_generate} accepted, {stats['rejected']} rejected in {stats['batches']} "
+              f"batches of 128 (filter on, MC renderer, dt 1/30, T 2) in {t_gen:.2f} s = "
+              f"{n_generate / t_gen:.1f} accepted trajectories/s; impact loop steps per batch "
+              f"{stats['impact_steps']} of 3600 (early exit, exact); one impact loop of 128 rows: "
+              f"{poi_stats['steps']} steps in {1e3 * t_poi:.1f} ms ({1e3 * t_poi / poi_stats['steps']:.3f} ms a step); "
+              f"640 steps as CUDA-graph replays {1e3 * t_graph:.1f} ms, eager {1e3 * t_eager:.1f} ms, equal to the bit; "
+              f"accepted trajectories vs the CPU integration of their parameters: worst |d|/(1+max|row|) "
+              f"{worst:.2e} (bar {TRAJ_REL:g})")
+        if not ok:
+            fail(f"generated trajectories disagree with the CPU integration: {worst:.3e} > {TRAJ_REL:g}")
+
+        # -- 12.2: train from the published flagship config, with no dataset on disk
+        with open(sub_root_path(CONFIG)) as f:
+            cfg = yaml.safe_load(f)
+        cfg["data"]["path"] = os.path.join(tmp, "train_data")
+        cfg["training"]["n_epochs"] = 1
+        cfg_path, model_dir = os.path.join(tmp, "run.yaml"), os.path.join(tmp, "model")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        zero_flow_counts()
+        fused_flow_train_fwd.launches = fused_flow_train_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["train", "-c", cfg_path, "-o", model_dir])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        k2a, k2b, k1_val = fused_flow_train_fwd.launches, fused_flow_train_bwd.launches, fused_flow.launches
+        if k2a or k2b:
+            fail(f"training at the published dropout launched K2a {k2a} and K2b {k2b} times (its gate is closed)")
+        with open(os.path.join(model_dir, "params.pkl"), "rb") as f:
+            trained_np = pickle.load(f)
+        if not all(np.isfinite(t).all() for t in tree_leaves(trained_np)):
+            fail("the train CLI wrote non-finite params")
+        run_cfg = load_config(cfg_path)
+        y_all, conds_all = TrainerDataHandler().get_data_for_training(
+            {k.lower(): v for k, v in run_cfg.items()}, CondRealNVP.from_config(run_cfg).parameter_index_mapping)
+        if y_all.shape != (cfg["data"]["n_samples"], 19) or conds_all[0].shape[1:] != (30, 3):
+            fail(f"the generated training set has shapes {y_all.shape}, {conds_all[0].shape}")
+        # train samples/s and a CUDA-event split of one step at the published batch and dropout
+        model = CondRealNVP.from_config(run_cfg)
+        B = int(cfg["training"]["batch_size"])
+        trainer = Trainer({k.lower(): v for k, v in run_cfg.items()}, data=(y_all, conds_all), device=dev, seed=SEED)
+        params = params_from_numpy(trained_np, dev, requires_grad=True)
+        opt = make_optimizer("Adam", lr=2e-4).init(params)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        yb, cb = torch.from_numpy(y_all[:B]).to(dev), [torch.from_numpy(conds_all[0][:B]).to(dev)]
+        trainer.train_step(model, params, opt, yb, cb, gen)
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            trainer.train_step(model, params, opt, yb, cb, gen)
+        torch.cuda.synchronize()
+        rate = reps * B / (time.perf_counter() - t0)
+        splits = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            opt.zero_grad()
+            ev[0].record()
+            h = model.encode(params, cb, gen, train=True)
+            ev[1].record()
+            model.encode = lambda *_a, **_k: h  # the flow alone, on this step's condition
+            z, ld = model.forward(params, yb, *cb, generator=gen, train=True)
+            del model.encode
+            ev[2].record()
+            inn_nll_loss(z, ld).backward()
+            ev[3].record()
+            opt.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+        split = [sorted(c)[1] for c in zip(*splits)]
+        if fused_flow_train_fwd.launches or fused_flow_train_bwd.launches:
+            fail("the published-dropout training steps launched the training kernels")
+        print(f"[12 eval path: train] flagship from its published config (coupling dropout {cfg['model']['kwargs']['dropout']}, "
+              f"batch {B}, 1 epoch), {len(y_all)} trajectories generated on the card (no filter, dt "
+              f"{cfg['data']['dt']}, T {cfg['data']['T']}): train CLI {t_train:.2f} s; K2a {k2a}, K2b {k2b} launches "
+              f"(gate closed), K1 (validation) {k1_val}; {rate:.0f} train samples/s (batch {B}, plain autograd flow, "
+              f"time-loop encoder); step split (CUDA events, median of 3, ms): encoder forward {split[0]:.2f}, "
+              f"flow forward {split[1]:.2f}, backward {split[2]:.2f}, clip + Adam {split[3]:.2f} "
+              f"(sum {sum(split):.2f})")
+
+        # -- 12.3: eval with its defaults on a held-out generated set
+        test_set = os.path.join(tmp, "test.pkl")
+        cli.main(["generate", "-c", PRIOR_CONFIG, "-o", test_set, "-n", str(n_test), "--no-filter",
+                  "--dt", str(cfg["data"]["dt"]), "-T", str(cfg["data"]["T"]), "--seed", str(SEED + 1)])
+        argv = ["eval", "-m", model_dir, "-d", test_set, "-o", os.path.join(tmp, "report"),
+                "-M", str(m_samples), "--resim-samples", str(resim_samples), "--max-points", str(n_test)]
+        captured = {}
+        compute = cli.eval_report
+
+        def recording(args):
+            captured["out"] = compute(args)
+            return captured["out"]
+
+        zero_flow_counts()
+        cli.eval_report = recording
+        t0 = time.perf_counter()
+        with K1Recorder() as k1:
+            if importlib.util.find_spec("matplotlib") is not None:
+                cli.main(argv)
+            else:
+                print("    figures not drawn: matplotlib is not installed here; eval_report (the eval CLI's "
+                      "computation) runs alone")
+                cli.eval_report(cli.build_parser().parse_args(argv))
+        t_eval = time.perf_counter() - t0
+        cli.eval_report = compute
+        report, figs, stages = captured["out"]
+        launches = k1.summary()
+        rank_batches = -(-n_test // 100)
+        expected = {("inverse", "wgmma", min(100, n_test) * 1000): rank_batches * -(-m_samples // 1000),
+                    ("inverse", "wgmma", min(100, n_test) * 128): rank_batches * 4,
+                    ("inverse", "wgmma", n_test * 250): -(-resim_samples // 250),
+                    ("forward", "rows", n_test): 1}
+        if launches != expected:
+            fail(f"eval launched K1 {launches}, expected {expected}")
+        keys = {"test_nll", "n_points", "M_samples", "rank_mean_frac", "max_scaled_cdf_residual",
+                "calibration_verdict_by_dim", "resim_finite_frac", "impact_median_dist"}
+        if not keys <= set(report) or not np.isfinite(report["test_nll"]) or report["n_points"] != n_test:
+            fail(f"eval's report lacks keys or values: {sorted(report)}")
+        ranks, X_resim = figs["ranks"], figs["X_resim"]
+        if ranks.shape != (n_test, 19) or ranks.min() < 0 or ranks.max() > m_samples:
+            fail(f"eval's ranks have shape {ranks.shape} and range {ranks.min()}-{ranks.max()}")
+        if X_resim.shape != (n_test, resim_samples, 30, 3):
+            fail(f"eval's resimulation has shape {X_resim.shape}")
+        print(f"[12 eval path: eval] {n_test} points, M {m_samples}, {resim_samples} resimulation draws: {t_eval:.2f} s; "
+              f"stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) +
+              f"; K1 launches (direction, route, rows): {launches}; test NLL {report['test_nll']:.3f}, rank mean "
+              f"fraction {report['rank_mean_frac']:.3f}, max scaled CDF residual {report['max_scaled_cdf_residual']:.2f}, "
+              f"resimulation finite {report['resim_finite_frac']:.3f}")
+
+        # -- 12.4: the card's results against the plain and CPU versions
+        params = params_from_numpy(trained_np, dev)
+        cpu_params = map_tree(lambda t: t.cpu(), params)
+        y_test, conds_test = TrainerDataHandler().get_data_for_training(
+            {k.lower(): v for k, v in dict(run_cfg, data=dict(run_cfg["data"], path=test_set)).items()},
+            model.parameter_index_mapping)
+        y_test, cond = y_test[:n_test], torch.from_numpy(conds_test[0][:n_test])
+        with torch.no_grad():
+            z_cpu, ld_cpu = model.forward(cpu_params, torch.from_numpy(y_test), cond)
+        nll_cpu = inn_nll_loss(z_cpu, ld_cpu).item()
+        # K1's bar is 1e-4 on each z and on the logdet, so the mean NLL
+        # (0.5 |z|^2 - logdet) may move by 1e-4 (mean sum |z| + 1) + its square terms
+        nll_bar = KERNEL_TOL * (z_cpu.abs().sum(dim=1).mean().item() + 1) + 19 * KERNEL_TOL**2
+        nll_d = abs(report["test_nll"] - nll_cpu)
+        # one rank batch (100 conditions x 1000 draws) through K1 against the plain version on the same z
+        cond_b, y_b = cond[:100].to(dev), torch.from_numpy(y_test[:100]).to(dev)
+        z = torch.randn((1000, cond_b.shape[0], 19), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        with torch.no_grad():
+            kargs, h_proj = model._fused_flow_args(params, model.encode(params, (cond_b,)))
+            saved = fused_flow.launches, dict(fused_flow.route_launches)
+            x = z.reshape(-1, 19).contiguous()
+            y_k = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=cond_b.shape[0]).reshape(z.shape)
+            y_p = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=cond_b.shape[0]).reshape(z.shape)
+            torch.cuda.synchronize()
+            k_ms = median(cuda_ms(lambda: fused_flow(x, h_proj, **kargs, inverse=True, n_cond=cond_b.shape[0]), reps=3))
+            p_ms = median(cuda_ms(lambda: fused_flow_reference(x, h_proj, **kargs, inverse=True,
+                                                               n_cond=cond_b.shape[0]), reps=3))
+            fused_flow.launches = saved[0]
+            fused_flow.route_launches.clear()
+            fused_flow.route_launches.update(saved[1])
+        rk, rp = (y_k < y_b[None]).sum(dim=0), (y_p < y_b[None]).sum(dim=0)
+        ties = ((y_p - y_b[None]).abs() < TIE).sum(dim=0)
+        rank_d, err = (rk - rp).abs(), (y_k - y_p).abs().max().item()
+        flops, nbytes = flow_work(kargs, h_proj, x.shape[0], model.nested_sizes[0])
+        bound = bound_ms((flops, nbytes), peaks, ARITH_3XTF32)[0]
+        # resimulation on the card against the CPU: 64 draws x 64 points
+        data_dict = load_data(test_set, keep_output_type="trajectories")
+        data_dict = {k: v[:64] for k, v in data_dict.items()}
+        with torch.no_grad():
+            y_hat = model.sample(params, torch.Generator(device=dev).manual_seed(SEED), resim_samples,
+                                 cond.to(dev), device=dev)
+        full_dict = load_data(test_set, keep_output_type="trajectories")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X_card_all = resimulate(model, params, cfg["data"]["T"], cfg["data"]["dt"], full_dict, y_hat, device=dev)
+        t_resim = time.perf_counter() - t0
+        n_traj = y_hat.shape[0] * y_hat.shape[1]
+        X_card = resimulate(model, params, cfg["data"]["T"], cfg["data"]["dt"], data_dict, y_hat[:64, :64], device=dev)
+        X_cpu = resimulate(model, params, cfg["data"]["T"], cfg["data"]["dt"], data_dict, y_hat[:64, :64].cpu(),
+                           device="cpu")
+        ok_resim, worst_resim, n_finite = trajectories_agree(X_card, X_cpu)
+        print(f"    held: test NLL on the card {report['test_nll']:.6f} vs the CPU plain path {nll_cpu:.6f}: |d| "
+              f"{nll_d:.2e} (bar {nll_bar:.2e} = 1e-4 (mean sum|z| + 1) + 19e-8); rank batch {tuple(z.shape)} through "
+              f"K1 vs plain on the same z: max|dy| {err:.2e}, {int((rank_d > 0).sum())} of {rank_d.numel()} ranks "
+              f"differ, by at most {int(rank_d.max())}, near-ties (|y_hat - y| < {TIE:g}) {int(ties.sum())}; "
+              f"{X_card.shape[0] * X_card.shape[1]} resimulated trajectories vs the CPU: worst |d|/(1+max|row|) "
+              f"{worst_resim:.2e} (bar {TRAJ_REL:g}), {n_finite} finite")
+        print(f"    K1 inverse at the rank batch's {x.shape[0]:,} rows: {k_ms:.2f} ms (bound {bound:.2f} ms, 3xTF32), "
+              f"plain {p_ms:.2f} ms; resimulation of {n_traj:,} trajectories ({cfg['data']['T']} s at dt "
+              f"{cfg['data']['dt']}, 4 RK4 substeps) from given draws: {t_resim:.3f} s = {n_traj / t_resim:.0f} "
+              f"trajectories/s (with the copy to the host)")
+        if X_card_all.shape != (n_test, resim_samples, 30, 3):
+            fail(f"resimulate gave shape {X_card_all.shape}")
+        if not nll_d <= nll_bar:
+            fail(f"test NLL on the card is {nll_d:.3e} from the CPU plain path's (bar {nll_bar:.3e})")
+        if not err <= KERNEL_TOL or bool((rank_d > ties).any()):
+            fail(f"the rank batch through K1 disagrees with the plain version: max|dy| {err:.3e}, ranks beyond "
+                 f"their near-ties at {int((rank_d > ties).sum())} places")
+        if not ok_resim:
+            fail(f"resimulation on the card disagrees with the CPU: {worst_resim:.3e} > {TRAJ_REL:g}")
 
 
 if __name__ == "__main__":

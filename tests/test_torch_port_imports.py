@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
         "names = [m.name for m in pkgutil.walk_packages(bcnf_tpu_torch.__path__, 'bcnf_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "need = ['__main__', 'ops.flow_kernel', 'ops.lstm_kernel', 'ops.coupling_kernel', 'train.trainer',\n"
-        "        'train.optim', 'train.checkpoint', 'train.history']\n"
+        "        'train.optim', 'train.checkpoint', 'train.history', 'native', 'simulation.physics',\n"
+        "        'simulation.priors', 'simulation.camera', 'simulation.observation', 'simulation.sampling',\n"
+        "        'simulation.resimulation', 'eval.calibration', 'plots.eval_plots']\n"
         "assert all('bcnf_tpu_torch.' + n in names for n in need), names\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'bcnf_tpu' or m.startswith('bcnf_tpu.')]\n"
@@ -56,7 +58,7 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22
+    assert int(out.stdout.strip()) >= 34
 
 
 def test_resolve_device_rule():
@@ -533,3 +535,76 @@ def test_train_backward_matches_plain_version_on_card(cuda, hidden, rows):
         torch.testing.assert_close(gk, r, atol=min(5e-4, 1e-4 * r.abs().max().item()), rtol=1e-3, msg=name)
     assert torch.equal(rows_only[0], grads[0]) and torch.equal(rows_only[1], grads[1])
     assert all(torch.isnan(t).all() for t in rows_only[2:])
+
+
+@pytest.mark.gpu
+def test_resimulation_on_card_matches_cpu(cuda):
+    from bcnf_tpu_torch.config import ParameterIndexMapping
+    from bcnf_tpu_torch.simulation.resimulation import resimulate
+
+    class _Mapped:
+        parameter_index_mapping = ParameterIndexMapping(["x0_x", "x0_y", "x0_z", "v0_x", "v0_y", "v0_z", "g",
+                                                         "w_x", "w_y", "w_z", "b", "m", "r"])
+
+    rng = np.random.default_rng(20)
+    M, N = 64, 64
+    base = np.array([0, 0, 1.5, 8, 2, 7, 9.81, 1, -1, 0.3, 0.02, 0.3, 0.1], np.float32)
+    y_hat = (base * (1 + 0.3 * rng.normal(size=(M, N, 13)))).astype(np.float32)
+    data = {"rho": rng.gamma(3.5, 0.35, size=N).astype(np.float32)}
+    on_card = resimulate(_Mapped(), None, 2.0, 0.067, data, y_hat, device=cuda)
+    on_cpu = resimulate(_Mapped(), None, 2.0, 0.067, data, y_hat, device="cpu")
+    assert on_card.shape == on_cpu.shape == (N, M, 30, 3)
+    fin = np.isfinite(on_cpu).all(axis=(2, 3))
+    np.testing.assert_array_equal(np.isfinite(on_card).all(axis=(2, 3)), fin)
+    scale = 1.0 + np.abs(on_cpu[fin]).max(axis=(1, 2))
+    assert (np.abs(on_card[fin] - on_cpu[fin]).max(axis=(1, 2)) <= 1e-5 * scale).all()
+
+
+@pytest.mark.gpu
+def test_rank_batch_through_k1_matches_plain_version_on_card(cuda):
+    from bcnf_tpu_torch.eval.calibration import compute_y_hat_ranks
+
+    model = _tiny_model()
+    params = model.init(device=cuda)
+    rng = np.random.default_rng(21)
+    N, M = 30, 500
+    cond = torch.from_numpy(rng.normal(size=(N, 9, 3)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.normal(size=(N, 5)).astype(np.float32)).to(cuda)
+    draws = {}
+    for use_kernel in (True, False):
+        model.use_pallas = use_kernel
+        before = fused_flow.launches
+        with torch.no_grad():
+            draws[use_kernel] = model.sample(params, torch.Generator(device=cuda).manual_seed(3), M, cond, device=cuda)
+        assert fused_flow.launches == before + use_kernel
+    model.use_pallas = True
+    # one rank batch (30 conditions x 500 draws) through K1, on the same z as draws[True]
+    before = fused_flow.launches
+    k_ranks = compute_y_hat_ranks(model, params, y, cond, M_samples=M,
+                                  generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    assert fused_flow.launches == before + 1
+    assert np.array_equal(k_ranks, (draws[True] < y[None]).sum(dim=0).cpu().numpy())
+    plain_ranks = (draws[False] < y[None]).sum(dim=0).cpu().numpy()
+    ties = ((draws[False] - y[None]).abs() < 1e-4).sum(dim=0).cpu().numpy()
+    assert (np.abs(k_ranks - plain_ranks) <= ties).all()
+
+
+@pytest.mark.gpu
+def test_impact_loop_graph_replays_match_the_eager_loop_on_card(cuda, monkeypatch):
+    from bcnf_tpu_torch.simulation import physics
+
+    rng = np.random.default_rng(22)
+    n = 100
+    x0 = torch.from_numpy(np.c_[rng.normal(0, 5, (n, 2)), rng.uniform(0.1, 2.5, n)].astype(np.float32))
+    v0 = torch.from_numpy(np.c_[rng.normal(0, 8, (n, 2)), rng.normal(7, 5, n)].astype(np.float32))
+    g = torch.tensor([0.0, 0.0, -9.81]).expand(n, 3)
+    w = torch.from_numpy(rng.normal(0, 2, (n, 3)).astype(np.float32))
+    b, m = torch.full((n,), 0.05), torch.from_numpy(rng.uniform(0.05, 0.5, n).astype(np.float32))
+    rho, r, a = torch.full((n,), 1.2), torch.full((n,), 0.1), torch.zeros(n, 3)
+    args = [t.to(cuda) for t in (x0, v0, g, w, b, m, rho, r, a)]
+    graphed = physics.point_of_impact(*args, dt=1 / 30, max_steps=700)
+    cpu = physics.point_of_impact(x0, v0, g, w, b, m, rho, r, a, dt=1 / 30, max_steps=700)
+    monkeypatch.setattr(physics, "IMPACT_CHECK_EVERY", 10**9)  # one eager run of every step
+    eager = physics.point_of_impact(*args, dt=1 / 30, max_steps=700)
+    assert torch.equal(graphed, eager)
+    torch.testing.assert_close(graphed.cpu(), cpu, atol=1e-4, rtol=1e-5)

@@ -128,6 +128,9 @@ def test_data_handler_matches_jax_and_waits_for_the_simulator(slice_setup, tmp_p
     np.testing.assert_array_equal(y, y_ref)
     assert len(conds) == len(conds_ref) == 1
     np.testing.assert_array_equal(conds[0], conds_ref[0])
-    cfg["data"] = dict(cfg["data"], path=str(tmp_path / "missing.pkl"))
-    with pytest.raises(FileNotFoundError, match="data generation waits for the simulator slice"):
-        TrainerDataHandler().get_data_for_training(cfg, tm.parameter_index_mapping)
+    # the simulator is ported: a missing dataset is generated on the given device and saved
+    cfg["data"] = dict(cfg["data"], path=str(tmp_path / "missing.pkl"), n_samples=16)
+    y, conds = TrainerDataHandler().get_data_for_training(cfg, tm.parameter_index_mapping, seed=0, device="cpu")
+    assert y.shape == (16, 19) and conds[0].shape == (16, 30, 3) and np.isfinite(conds[0]).all()
+    y_saved, _ = TrainerDataHandler().get_data_for_training(cfg, tm.parameter_index_mapping)
+    np.testing.assert_array_equal(y_saved, y)

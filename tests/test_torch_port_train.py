@@ -353,9 +353,15 @@ def test_train_cli_writes_a_model_dir_jax_loads(tmp_path):
     main(["sample", "-m", str(out), "-d", str(tmp_path / "data.pkl"), "-n", "3", "-o", str(tmp_path / "s.npy"),
           "--device", "cpu"])
     assert np.load(tmp_path / "s.npy").shape == (3, 20, 19)
-    with pytest.raises(FileNotFoundError, match="simulator slice"):
-        main(["train", "-c", str(cfg_path), "-d", str(tmp_path / "none.pkl"), "-o", str(out), "-f",
-              "--device", "cpu"])
+    # a missing dataset is generated from the config's data section, saved, and trained on
+    cfg["data"]["n_samples"] = 24
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    main(["train", "-c", str(cfg_path), "-d", str(tmp_path / "none.pkl"), "-o", str(out), "-f",
+          "--device", "cpu"])
+    with open(tmp_path / "none.pkl", "rb") as f:
+        generated = pickle.load(f)
+    assert len(generated["trajectories"]) == 24 and np.asarray(generated["trajectories"]).shape[1:] == (30, 3)
+    assert (out / "params.pkl").exists()
     for flags, slice_no in ((["--online"], 6), (["--dp-devices", "2"], 11), (["--pretrained-features", "p"], 10),
                             (["--coordinator", "localhost:1"], 11)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
