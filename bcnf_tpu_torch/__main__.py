@@ -17,7 +17,8 @@ Subcommands:
 - ``size``   — parameter count for a run config
 
 ``generate``, ``train``, ``sample`` and ``eval`` run on the GPU unless
-``--device cpu`` is given. Still refused, with the slice that ports them:
+``--device cpu`` is given. Every run config in ``configs/runs/`` builds but
+the video ones, whose ``CNN`` encoder is refused (slice 10). Still refused, with the slice that ports them:
 ``train --online*`` (6), ``train --pretrained-features`` (10), ``train
 --dp-devices > 1`` and the multi-host flags (11), ``eval --dp-devices > 1``
 (11) and ``eval --precision`` other than float32 (7; ``sample --precision``

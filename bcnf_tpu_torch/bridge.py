@@ -7,8 +7,13 @@ arrays. The port keeps the same keys and layouts, e.g.
 ``blocks.{coupling.a.layers[j].{w,b}, ortho, actnorm.{scale,bias}}`` and
 ``final.a.layers[j]``; a `DualDomainLSTM`'s ``{time, freq, fc}`` (two LSTM
 trees and ``fc.layers[j]``) and a `VerboseLSTM`'s ``layers[i]`` (one
-single-layer LSTM tree each) likewise. So the bridge is a plain copy each way
-and `params_to_numpy(params_from_numpy(t))` gives `t` back exactly.
+single-layer LSTM tree each) likewise. So do the model zoo's trees: a
+`Transformer`'s ``embed``, ``blocks[i].{attn.{q,k,v,out}, norm1, norm2, ff1,
+ff2}`` and ``out``; the dual-domain encoders' ``{time, freq, fc}``; an
+AnyGLU layer's ``{gate, value}``; a two-way coupling's ``b`` beside ``a``
+(RQS couplings keep the affine ones' keys). So the bridge is a plain copy
+each way and `params_to_numpy(params_from_numpy(t))` gives `t` back exactly
+(`tests/test_torch_port_conditioners.py`).
 """
 
 from __future__ import annotations

@@ -1,11 +1,8 @@
 """String -> feature-network registry driven by the YAML config schema
 (port of `bcnf_tpu/factories.py`, reference `src/bcnf/factories.py:33-58`).
 
-Ported types: `ConcatenateCondition`, `LSTM`, `FullyConnected`,
-`VerboseLSTM` and `DualDomainLSTM`. The other names the JAX registry knows
-(`CNN`, `Transformer`, `FrExpFeatureNetwork`, `DualDomainTransformer`,
-`DualDomainFC` and the layer types) raise `NotImplementedError` until their
-slice lands (ROADMAP.md).
+Every name of the JAX registry is served but `CNN`, which raises
+`NotImplementedError` until the video slice lands (ROADMAP.md, slice 10).
 """
 
 from __future__ import annotations
@@ -14,22 +11,35 @@ from typing import Any
 
 from bcnf_tpu_torch.models.feature_network import (
     ConcatenateCondition,
+    DualDomainFC,
     DualDomainLSTM,
+    DualDomainTransformer,
     FeatureNetwork,
+    FrExpFeatureNetwork,
     FullyConnectedFeatureNetwork,
     Identity,
     LSTMFeatureNetwork,
+    Transformer,
     VerboseLSTM,
 )
+from bcnf_tpu_torch.models.layers import AnyGLU, FFTEnrichLayer, FFTLayer, LinearFFTEnriched
 
 
 class FeatureNetworkFactory:
     REGISTRY: dict[str, type] = {  # the JAX registry's names (`bcnf_tpu/factories.py:34-49`)
         "FullyConnected": FullyConnectedFeatureNetwork,
         "LSTM": LSTMFeatureNetwork,
+        "Transformer": Transformer,
         "ConcatenateCondition": ConcatenateCondition,
+        "FrExpFeatureNetwork": FrExpFeatureNetwork,
         "DualDomainLSTM": DualDomainLSTM,
+        "DualDomainTransformer": DualDomainTransformer,
+        "DualDomainFC": DualDomainFC,
         "VerboseLSTM": VerboseLSTM,
+        "AnyGLU": AnyGLU,
+        "FFTLayer": FFTLayer,
+        "FFTEnrichLayer": FFTEnrichLayer,
+        "LinearFFTEnriched": LinearFFTEnriched,
     }
 
     @staticmethod
@@ -37,10 +47,10 @@ class FeatureNetworkFactory:
         if network is None:
             return Identity()
         cls = FeatureNetworkFactory.REGISTRY.get(network)
+        if network == "CNN":
+            raise NotImplementedError("Feature network CNN is not ported yet (the video slice: ROADMAP.md, slice 10)")
         if cls is None:
-            raise NotImplementedError(
-                f"Feature network {network} is not ported yet (ROADMAP.md, 'Other conditioners')"
-            )
+            raise NotImplementedError(f"Feature network {network} not implemented")
         kwargs = dict(network_kwargs)
         if cls is not ConcatenateCondition:
             # configs pass `input_size: null` markers only meaningful for

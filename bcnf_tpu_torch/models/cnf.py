@@ -28,9 +28,12 @@ The same design as the JAX package, in PyTorch idiom:
   every coupling, in place of K1; `sample(outer=True)` keeps K1, as JAX's
   `sample` does.
 
-Ported so far: one-way affine couplings with the `Linear` layer family
-(through K1, K2a/K2b or K4 where their gates open), and the hybrid MSE
-head. `two_way` and `rqs` raise `NotImplementedError` (ROADMAP.md).
+Every option of the JAX model is ported: affine and RQS couplings
+(`coupling`, `coupling_kwargs`), one-way or `two_way`, with the `Linear`,
+`AnyGLU` or `LinearFFTEnriched` layer family, and the hybrid MSE head. The
+kernels cover what the JAX package's cover: one-way affine couplings of the
+`Linear` family with GELU (`AffineCoupling.fusable`); every other coupling
+runs the plain composition, as it runs the XLA path in JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+from bcnf_tpu_torch.models.splines import n_spline_params, rational_quadratic_spline
 from bcnf_tpu_torch.ops.nn import Params, dropout, get_activation, get_dense_layer, linear_init
 from bcnf_tpu_torch.utils.misc import resolve_device
 
@@ -54,11 +58,15 @@ def count_params(params: Any) -> int:
 
 class NestedMLP:
     """The conditioner MLP inside a coupling layer (reference
-    `ConditionalNestedNeuralNetwork`, `src/bcnf/models/cnf.py:49-107`).
+    `ConditionalNestedNeuralNetwork`, `src/bcnf/models/cnf.py:49-107`;
+    `bcnf_tpu/models/cnf.py:99-195`).
 
     ``sizes = [half_in] + nested_sizes + [half_out]``; the first layer input is
     widened by ``n_conditions`` and the last layer output by
-    ``n_output_parameters``.
+    ``n_output_parameters``. The first-layer split (``h @ W1_h`` hoisted out
+    of the block loop) holds for the `Linear` and `AnyGLU` families, whose
+    first layer is one or two plain matrices; `LinearFFTEnriched` mixes the
+    condition into its FFT features and is applied whole.
     """
 
     def __init__(
@@ -81,7 +89,7 @@ class NestedMLP:
         self.activation_name = activation
         self.act = get_activation(activation, **(activation_kwargs or {}))
         self.dropout_rate = dropout
-        self.splittable = n_conditions > 0
+        self.splittable = n_conditions > 0 and self.family.name in ("Linear", "AnyGLU")
 
     def init(self, generator: torch.Generator) -> Params:
         return {
@@ -91,28 +99,35 @@ class NestedMLP:
             ]
         }
 
-    def cond_proj(self, params: Params, h: torch.Tensor) -> torch.Tensor | None:
-        """Precompute ``h @ W1_h`` (stack-aware: a leading block axis on the
-        params is kept, giving ``(..., B, hidden)``)."""
+    def _first_weights(self, layer0: Params) -> list[Params]:
+        return [layer0] if self.family.name == "Linear" else [layer0["value"], layer0["gate"]]  # AnyGLU
+
+    def cond_proj(self, params: Params, h: torch.Tensor) -> list[torch.Tensor] | None:
+        """Precompute ``h @ W1_h``: a list with one entry per first-layer
+        matrix (2 for AnyGLU: value, gate), each ``(..., B, hidden)`` with the
+        params' leading block axes kept; None where the split does not hold."""
         if not self.splittable:
             return None
-        return torch.matmul(h, params["layers"][0]["w"][..., self.in_dim:, :])
+        return [torch.matmul(h, p["w"][..., self.in_dim:, :]) for p in self._first_weights(params["layers"][0])]
 
     def apply(
         self,
         params: Params,
         y: torch.Tensor,
         h: torch.Tensor | None,
-        h_proj: torch.Tensor | None = None,
+        h_proj: list[torch.Tensor] | None = None,
         generator: torch.Generator | None = None,
         train: bool = False,
     ) -> torch.Tensor:
         layers = params["layers"]
         if self.splittable and h_proj is not None:
-            p = layers[0]
-            x = y @ p["w"][: self.in_dim] + p["b"] + h_proj
+            outs = [y @ p["w"][: self.in_dim] + p["b"] + proj
+                    for p, proj in zip(self._first_weights(layers[0]), h_proj)]
+            x = outs[0] if self.family.name == "Linear" else outs[0] * self.family.glu_act(outs[1])
         else:
-            inp = torch.cat([y, h], dim=-1) if self.n_conditions > 0 and h is not None else y
+            # h (N, c) broadcasts against draws-major rows y (..., N, d), as the projections do
+            inp = y if self.n_conditions == 0 or h is None else torch.cat(
+                [y, h.expand(y.shape[:-1] + h.shape[-1:])], dim=-1)
             x = self.family.apply(layers[0], inp)
         for i in range(len(layers) - 1):
             if i > 0:
@@ -122,10 +137,41 @@ class NestedMLP:
         return self.family.apply(layers[-1], x)
 
 
-class AffineCoupling:
-    """One-way conditional affine coupling (reference
-    `ConditionalAffineCouplingLayer`, `src/bcnf/models/cnf.py:110-213`).
-    The scale is `tanh`-bounded, exactly as the reference."""
+class _Coupling:
+    """What the affine and the RQS coupling share: the halves ``d_a =
+    ceil(size/2)``, ``d_b = floor(size/2)``, the conditioner ``nn_a`` of the
+    b half on the a half, and with `two_way` a second conditioner ``nn_b``
+    of the a half on the transformed b half; parameters ``{"a"[, "b"]}``,
+    and the projections ``{"a", "b"}`` that `cond_proj` returns in the same
+    structure (``"b"`` is None when one-way)."""
+
+    def __init__(self, input_size: int, nested_sizes: Sequence[int], n_output_parameters: int,
+                 two_way: bool, **mlp_kwargs: Any) -> None:
+        self.input_size = input_size
+        self.d_a = math.ceil(input_size / 2)
+        self.d_b = math.floor(input_size / 2)
+        self.two_way = two_way
+        self.nn_a = NestedMLP([self.d_a] + list(nested_sizes) + [self.d_b], n_output_parameters=n_output_parameters,
+                              **mlp_kwargs)
+        self.nn_b = NestedMLP([self.d_b] + list(nested_sizes) + [self.d_a], n_output_parameters=n_output_parameters,
+                              **mlp_kwargs) if two_way else None
+
+    def init(self, generator: torch.Generator) -> Params:
+        p = {"a": self.nn_a.init(generator)}
+        if self.nn_b is not None:
+            p["b"] = self.nn_b.init(generator)
+        return p
+
+    def cond_proj(self, params: Params, h: torch.Tensor) -> dict:
+        return {"a": self.nn_a.cond_proj(params["a"], h),
+                "b": None if self.nn_b is None else self.nn_b.cond_proj(params["b"], h)}
+
+
+class AffineCoupling(_Coupling):
+    """Conditional affine coupling (reference `ConditionalAffineCouplingLayer`,
+    `src/bcnf/models/cnf.py:110-213`; `bcnf_tpu/models/cnf.py:198-337`),
+    with the optional `two_way` second half-transform. The scale is
+    `tanh`-bounded, exactly as the reference."""
 
     def __init__(
         self,
@@ -139,50 +185,58 @@ class AffineCoupling:
         dropout: float = 0.0,
         two_way: bool = False,
     ) -> None:
-        if two_way:
-            raise NotImplementedError("two_way couplings are not ported yet (ROADMAP.md, 'Other conditioners')")
-        self.input_size = input_size
-        self.d_a = math.ceil(input_size / 2)
-        self.d_b = math.floor(input_size / 2)
-        self.nn_a = NestedMLP(
-            [self.d_a] + list(nested_sizes) + [self.d_b],
-            n_conditions=n_conditions, n_output_parameters=2, layer=layer,
-            layer_kwargs=layer_kwargs, activation=activation,
-            activation_kwargs=activation_kwargs, dropout=dropout,
-        )
+        super().__init__(input_size, nested_sizes, 2, two_way, n_conditions=n_conditions, layer=layer,
+                         layer_kwargs=layer_kwargs, activation=activation, activation_kwargs=activation_kwargs,
+                         dropout=dropout)
 
-    def init(self, generator: torch.Generator) -> Params:
-        return {"a": self.nn_a.init(generator)}
-
-    def cond_proj(self, params: Params, h: torch.Tensor) -> torch.Tensor | None:
-        return self.nn_a.cond_proj(params["a"], h)
-
-    def _coeffs(self, p: Params, y: torch.Tensor, h: torch.Tensor | None, h_proj: torch.Tensor | None,
-                generator: torch.Generator | None, train: bool) -> tuple[torch.Tensor, torch.Tensor]:
-        out = self.nn_a.apply(p, y, h, h_proj, generator, train)
-        t, s = torch.chunk(out, 2, dim=-1)
+    @staticmethod
+    def _coeffs(mlp: NestedMLP, p: Params, y: torch.Tensor, h: torch.Tensor | None,
+                h_proj: list[torch.Tensor] | None, generator: torch.Generator | None,
+                train: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        t, s = torch.chunk(mlp.apply(p, y, h, h_proj, generator, train), 2, dim=-1)
         return t, torch.tanh(s)
 
     def forward(self, params: Params, y: torch.Tensor, h: torch.Tensor | None = None,
-                h_proj: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                h_proj: dict | None = None, generator: torch.Generator | None = None,
                 train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        h_proj = h_proj or {}
         y_a, y_b = y[..., : self.d_a], y[..., self.d_a:]
-        t, log_s = self._coeffs(params["a"], y_a, h, h_proj, generator, train)
-        z_b = torch.exp(log_s) * y_b + t
-        return torch.cat([y_a, z_b], dim=-1), torch.sum(log_s, dim=-1)
+        t_a, log_s_a = self._coeffs(self.nn_a, params["a"], y_a, h, h_proj.get("a"), generator, train)
+        z_b = torch.exp(log_s_a) * y_b + t_a
+        log_det = torch.sum(log_s_a, dim=-1)
+        z_a = y_a
+        if self.nn_b is not None:
+            # the second half-transform conditions on the *transformed* z_b
+            # (reference `cnf.py:183`)
+            t_b, log_s_b = self._coeffs(self.nn_b, params["b"], z_b, h, h_proj.get("b"), generator, train)
+            z_a = torch.exp(log_s_b) * y_a + t_b
+            log_det = log_det + torch.sum(log_s_b, dim=-1)
+        return torch.cat([z_a, z_b], dim=-1), log_det
 
     def inverse(self, params: Params, z: torch.Tensor, h: torch.Tensor | None = None,
-                h_proj: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                h_proj: dict | None = None, generator: torch.Generator | None = None,
                 train: bool = False) -> torch.Tensor:
+        """The inverse of `forward`. With `two_way` it takes the JAX
+        package's corrected order (`bcnf_tpu/models/cnf.py:287-306`; the
+        reference's is not the inverse of its forward): undo the
+        b-conditioned transform of y_a first (its conditioner input z_b is at
+        hand), then the a side."""
+        h_proj = h_proj or {}
         z_a, z_b = z[..., : self.d_a], z[..., self.d_a:]
-        t, log_s = self._coeffs(params["a"], z_a, h, h_proj, generator, train)
-        return torch.cat([z_a, (z_b - t) * torch.exp(-log_s)], dim=-1)
+        y_a = z_a
+        if self.nn_b is not None:
+            t_b, log_s_b = self._coeffs(self.nn_b, params["b"], z_b, h, h_proj.get("b"), generator, train)
+            y_a = (z_a - t_b) * torch.exp(-log_s_b)
+        t_a, log_s_a = self._coeffs(self.nn_a, params["a"], y_a, h, h_proj.get("a"), generator, train)
+        return torch.cat([y_a, (z_b - t_a) * torch.exp(-log_s_a)], dim=-1)
 
     @property
     def fusable(self) -> bool:
-        """Whether the whole-flow kernel covers this coupling: Linear family
-        and GELU (the kernel hardcodes tanh-GELU)."""
-        return self.nn_a.family.name == "Linear" and self.nn_a.activation_name.upper() == "GELU"
+        """Whether the whole-flow and per-coupling kernels cover this
+        coupling: one-way, the Linear family and GELU (the kernels hardcode
+        tanh-GELU; `bcnf_tpu/models/cnf.py:309-318`)."""
+        return (self.nn_b is None and self.nn_a.family.name == "Linear"
+                and self.nn_a.activation_name.upper() == "GELU")
 
     def _fused_rows(self, y: torch.Tensor, h_proj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """`y (..., N, size)` as K4's contiguous row halves; flattened row r
@@ -194,23 +248,90 @@ class AffineCoupling:
         rows = y.reshape(-1, self.input_size)
         return rows[:, : self.d_a].contiguous(), rows[:, self.d_a:].contiguous()
 
-    def forward_fused(self, params: Params, y: torch.Tensor, h_proj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward_fused(self, params: Params, y: torch.Tensor, h_proj: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """The coupling through K4 (`bcnf_tpu/models/cnf.py:320-328`; eval
-        only: the kernel has no dropout)."""
+        only: the kernel has no dropout). `h_proj` is `cond_proj`'s dict."""
         from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling, mlp_params_to_kernel_args
 
-        x_a, x_b = self._fused_rows(y, h_proj)
-        z_b, ld = fused_affine_coupling(x_a, x_b, h_proj, **mlp_params_to_kernel_args(params["a"], self.d_a))
+        proj = h_proj["a"][0]
+        x_a, x_b = self._fused_rows(y, proj)
+        z_b, ld = fused_affine_coupling(x_a, x_b, proj, **mlp_params_to_kernel_args(params["a"], self.d_a))
         return torch.cat([y[..., : self.d_a], z_b.reshape(y.shape[:-1] + (self.d_b,))], dim=-1), ld.reshape(y.shape[:-1])
 
-    def inverse_fused(self, params: Params, z: torch.Tensor, h_proj: torch.Tensor) -> torch.Tensor:
+    def inverse_fused(self, params: Params, z: torch.Tensor, h_proj: dict) -> torch.Tensor:
         """The coupling's inverse through K4 (`bcnf_tpu/models/cnf.py:330-337`)."""
         from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling, mlp_params_to_kernel_args
 
-        z_a, z_b = self._fused_rows(z, h_proj)
-        y_b = fused_affine_coupling(z_a, z_b, h_proj, **mlp_params_to_kernel_args(params["a"], self.d_a),
+        proj = h_proj["a"][0]
+        z_a, z_b = self._fused_rows(z, proj)
+        y_b = fused_affine_coupling(z_a, z_b, proj, **mlp_params_to_kernel_args(params["a"], self.d_a),
                                     inverse=True)
         return torch.cat([z[..., : self.d_a], y_b.reshape(z.shape[:-1] + (self.d_b,))], dim=-1)
+
+
+class RQSCoupling(_Coupling):
+    """Rational-quadratic-spline coupling (`bcnf_tpu/models/cnf.py:340-445`),
+    the working form of the reference's intended
+    `ConditionalRQSplineCouplingLayer` (SURVEY.md Q4), one-way or `two_way`.
+    Each conditioner's raw output is reshaped to ``(..., d_out, 3K-1)`` and
+    split into K widths, K heights and K-1 derivatives, the JAX layout that
+    bridged weights depend on. No kernel covers it (`fusable` is False)."""
+
+    fusable = False
+
+    def __init__(
+        self,
+        input_size: int,
+        nested_sizes: Sequence[int],
+        n_conditions: int,
+        num_bins: int = 8,
+        tail_bound: float = 3.0,
+        dropout: float = 0.0,
+        layer: str = "Linear",
+        layer_kwargs: dict | None = None,
+        activation: str = "GELU",
+        activation_kwargs: dict | None = None,
+        two_way: bool = False,
+    ) -> None:
+        self.num_bins = num_bins
+        self.tail_bound = tail_bound
+        super().__init__(input_size, nested_sizes, n_spline_params(num_bins), two_way, n_conditions=n_conditions,
+                         layer=layer, layer_kwargs=layer_kwargs, activation=activation,
+                         activation_kwargs=activation_kwargs, dropout=dropout)
+
+    def _spline(self, mlp: NestedMLP, p: Params, y_in: torch.Tensor, y_trans: torch.Tensor,
+                h: torch.Tensor | None, h_proj: list[torch.Tensor] | None, generator: torch.Generator | None,
+                train: bool, inverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        K = self.num_bins
+        raw = mlp.apply(p, y_in, h, h_proj, generator, train)
+        raw = raw.reshape(raw.shape[:-1] + (y_trans.shape[-1], n_spline_params(K)))
+        out, ld = rational_quadratic_spline(y_trans, raw[..., :K], raw[..., K: 2 * K], raw[..., 2 * K:],
+                                            inverse=inverse, tail_bound=self.tail_bound)
+        return out, torch.sum(ld, dim=-1)
+
+    def forward(self, params: Params, y: torch.Tensor, h: torch.Tensor | None = None,
+                h_proj: dict | None = None, generator: torch.Generator | None = None,
+                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        h_proj = h_proj or {}
+        y_a, y_b = y[..., : self.d_a], y[..., self.d_a:]
+        z_b, ld = self._spline(self.nn_a, params["a"], y_a, y_b, h, h_proj.get("a"), generator, train, False)
+        z_a = y_a
+        if self.nn_b is not None:
+            z_a, ld_b = self._spline(self.nn_b, params["b"], z_b, y_a, h, h_proj.get("b"), generator, train, False)
+            ld = ld + ld_b
+        return torch.cat([z_a, z_b], dim=-1), ld
+
+    def inverse(self, params: Params, z: torch.Tensor, h: torch.Tensor | None = None,
+                h_proj: dict | None = None, generator: torch.Generator | None = None,
+                train: bool = False) -> torch.Tensor:
+        """The corrected two-way order, as `AffineCoupling.inverse`."""
+        h_proj = h_proj or {}
+        z_a, z_b = z[..., : self.d_a], z[..., self.d_a:]
+        y_a = z_a
+        if self.nn_b is not None:
+            y_a, _ = self._spline(self.nn_b, params["b"], z_b, z_a, h, h_proj.get("b"), generator, train, True)
+        y_b, _ = self._spline(self.nn_a, params["a"], y_a, z_b, h, h_proj.get("a"), generator, train, True)
+        return torch.cat([y_a, y_b], dim=-1)
 
 
 class ActNorm:
@@ -290,8 +411,6 @@ class CondRealNVP:
         use_pallas: bool = True,
         pallas_strict: bool = False,
     ) -> None:
-        if coupling != "affine":
-            raise NotImplementedError(f"Coupling type {coupling} is not ported yet (ROADMAP.md, 'RQS coupling')")
         self.size = size
         self.nested_sizes = list(nested_sizes)
         self.n_blocks = n_blocks
@@ -308,11 +427,17 @@ class CondRealNVP:
         self.pallas_strict = pallas_strict
         # the per-coupling kernel K4: opt-in, as in the JAX package (`cnf.py:555-558`)
         self.use_pallas_coupling = False
-        self.coupling = AffineCoupling(
+        common = dict(
             input_size=size, nested_sizes=nested_sizes, n_conditions=n_conditions,
             layer=layer, layer_kwargs=layer_kwargs, activation=activation,
             activation_kwargs=activation_kwargs, dropout=dropout, two_way=two_way,
         )
+        if coupling == "affine":
+            self.coupling = AffineCoupling(**common)
+        elif coupling == "rqs":
+            self.coupling = RQSCoupling(**common, **(coupling_kwargs or {}))
+        else:
+            raise NotImplementedError(f"Coupling type {coupling} not implemented")
         self.actnorm = ActNorm(size) if act_norm else None
 
     @property
@@ -513,8 +638,8 @@ class CondRealNVP:
         from bcnf_tpu_torch.ops.flow_kernel import pad_hidden, stack_flow_params
 
         kargs = stack_flow_params(self, params)
-        proj_blocks = self.coupling.cond_proj(params["blocks"]["coupling"], h)
-        proj_final = self.coupling.cond_proj(params["final"], h)
+        proj_blocks = self.coupling.cond_proj(params["blocks"]["coupling"], h)["a"][0]
+        proj_final = self.coupling.cond_proj(params["final"], h)["a"][0]
         return pad_hidden(kargs, torch.cat([proj_blocks, proj_final[None]], dim=0))
 
     def _fused(self, params: Params, x: torch.Tensor, h: torch.Tensor, inverse: bool) -> Any:
@@ -547,9 +672,14 @@ class CondRealNVP:
 
     # -- flow -------------------------------------------------------------
 
-    def _block(self, params: Params, projs: torch.Tensor | None, i: int) -> tuple[Params, torch.Tensor | None]:
+    def _block(self, params: Params, projs: dict | None, i: int) -> tuple[Params, dict | None]:
+        """Block i's parameters and its slice of the stacked projections
+        (`cond_proj`'s dict of per-matrix lists, each entry with a leading
+        block axis; None entries stay None)."""
         blk = map_tree(lambda t: t[i], params["blocks"])
-        return blk, None if projs is None else projs[i]
+        if projs is None:
+            return blk, None
+        return blk, {k: None if v is None else [t[i] for t in v] for k, v in projs.items()}
 
     def forward(
         self,
@@ -570,7 +700,7 @@ class CondRealNVP:
             z, log_det = self.forward_fused_flow(params, y, h)
             return (z, log_det, h) if return_features else (z, log_det)
 
-        def couple(p: Params, x: torch.Tensor, proj: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+        def couple(p: Params, x: torch.Tensor, proj: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
             if fused:
                 return self.coupling.forward_fused(p, x, proj)
             return self.coupling.forward(p, x, h, proj, generator, train)
@@ -608,7 +738,7 @@ class CondRealNVP:
         if h is not None and not fused and self._use_fused(train, z, h, params):
             return self._fused(params, z, h, inverse=True)
 
-        def uncouple(p: Params, x: torch.Tensor, proj: torch.Tensor | None) -> torch.Tensor:
+        def uncouple(p: Params, x: torch.Tensor, proj: dict | None) -> torch.Tensor:
             if fused:
                 return self.coupling.inverse_fused(p, x, proj)
             return self.coupling.inverse(p, x, h, proj, generator, train)

@@ -8,7 +8,9 @@ reference does (`feature_network.py:46-69`).
 `LSTMFeatureNetwork` pools over the **time** axis: the SURVEY.md Q1 fix the
 JAX package carries (`bcnf_tpu/models/feature_network.py:188-229`). Every
 LSTM here runs through `ops/lstm.lstm_apply`, so ``BCNF_FUSED_LSTM=1`` puts
-each of their directions on the fused recurrence kernels.
+each of their directions on the fused recurrence kernels. The Transformer's
+positional embeddings are the JAX package's full-width ones (SURVEY.md Q10),
+and `DualDomainFC` keeps its two documented divergences from the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +19,11 @@ from typing import Any, Sequence
 
 import torch
 
+from bcnf_tpu_torch.ops.attention import (
+    sinusoidal_positional_embeddings,
+    transformer_block_apply,
+    transformer_block_init,
+)
 from bcnf_tpu_torch.ops.lstm import lstm_apply, lstm_init
 from bcnf_tpu_torch.ops.nn import Params, dropout, get_activation, linear_apply, linear_init
 
@@ -90,6 +97,28 @@ class FeatureNetworkStack(FeatureNetwork):
             else:
                 current = fn.apply(params["nets"][i], current, generator, train)
         return current
+
+
+class FrExpFeatureNetwork(FeatureNetwork):
+    """Mantissa/exponent split (reference `feature_network.py:91-111`;
+    `bcnf_tpu/models/feature_network.py:118-132`): ``[mantissa, exponent]``,
+    or ``[sign, |mantissa|, exponent]`` with `separate_sign`. It sits on
+    data: no gradient flows through it. `torch.frexp` gives IEEE results for
+    subnormal inputs, where `jnp.frexp` on the CPU flushes them
+    (ROADMAP.md, differences by design)."""
+
+    def __init__(self, input_size: int, separate_sign: bool = False) -> None:
+        self.separate_sign = separate_sign
+        self.input_size = input_size
+        self.output_size = input_size * (2 + int(separate_sign))
+
+    def apply(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        mantissa, exponent = torch.frexp(x.detach())
+        exponent = exponent.to(x.dtype)
+        if self.separate_sign:
+            return torch.cat([torch.sign(mantissa), mantissa.abs(), exponent], dim=-1)
+        return torch.cat([mantissa, exponent], dim=-1)
 
 
 class FullyConnectedFeatureNetwork(FeatureNetwork):
@@ -168,6 +197,53 @@ class LSTMFeatureNetwork(FeatureNetwork):
         if self.pooling == "mean":
             return h.mean(dim=1)
         return h.amax(dim=1)
+
+
+class Transformer(FeatureNetwork):
+    """Transformer encoder with first-token readout (reference
+    `feature_network.py:263-307`; `bcnf_tpu/models/feature_network.py:232-282`):
+    embed, dropout, the optional positional embeddings, `n_blocks` post-norm
+    blocks, dropout, then a linear layer on the first token."""
+
+    def __init__(
+        self,
+        input_size: int,
+        trf_size: int,
+        n_heads: int,
+        ff_size: int,
+        n_blocks: int,
+        output_size: int,
+        dropout: float = 0.5,
+        trf_dropout: float = 0.1,
+        add_positional_embeddings: bool = False,
+    ) -> None:
+        self.input_size = input_size
+        self.output_size = output_size
+        self.trf_size = trf_size
+        self.n_heads = n_heads
+        self.ff_size = ff_size
+        self.n_blocks = n_blocks
+        self.dropout_rate = dropout
+        self.trf_dropout = trf_dropout
+        self.add_positional_embeddings = add_positional_embeddings
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {
+            "embed": linear_init(generator, self.input_size, self.trf_size),
+            "blocks": [transformer_block_init(generator, self.trf_size, self.ff_size, self.n_heads)
+                       for _ in range(self.n_blocks)],
+            "out": linear_init(generator, self.trf_size, self.output_size),
+        }
+
+    def apply(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        x = dropout(generator, linear_apply(params["embed"], x), self.dropout_rate, train)
+        if self.add_positional_embeddings:
+            x = x + sinusoidal_positional_embeddings(x.shape[1], self.trf_size, x.device)[None]
+        for blk in params["blocks"]:
+            x = transformer_block_apply(blk, x, self.n_heads, self.trf_dropout, generator, train)
+        x = dropout(generator, x, self.dropout_rate, train)
+        return linear_apply(params["out"], x[:, 0, :])  # first-token readout (reference `:305`)
 
 
 class VerboseLSTM(FeatureNetwork):
@@ -257,3 +333,81 @@ class DualDomainLSTM(FeatureNetwork):
                             self.dropout_rate, generator, train)
         fused = torch.cat([self._pool(h_time), self._pool(h_freq)], dim=-1)
         return self.fc.apply(params["fc"], fused, generator, train)
+
+
+class DualDomainTransformer(FeatureNetwork):
+    """A time transformer and a transformer over the rfft of the input along
+    time (T//2+1 tokens of ``[real, imag]``, width 2C), each read out at its
+    first token, fused by an MLP (reference `feature_network.py:401-471`;
+    `bcnf_tpu/models/feature_network.py:397-441`)."""
+
+    def __init__(
+        self,
+        input_size: int,
+        trf_size: int,
+        n_heads: int,
+        ff_size: int,
+        n_blocks: int,
+        fc_sizes: Sequence[int],
+        fc_dropout: float = 0.5,
+        trf_dropout: float = 0.1,
+        dropout: float = 0.5,
+        add_positional_embeddings: bool = False,
+    ) -> None:
+        self.input_size = input_size
+        self.output_size = list(fc_sizes)[-1]
+        common = dict(trf_size=trf_size, n_heads=n_heads, ff_size=ff_size, n_blocks=n_blocks, output_size=trf_size,
+                      dropout=dropout, trf_dropout=trf_dropout, add_positional_embeddings=add_positional_embeddings)
+        self.time_trf = Transformer(input_size=input_size, **common)
+        self.freq_trf = Transformer(input_size=input_size * 2, **common)
+        self.fc = FullyConnectedFeatureNetwork(sizes=[trf_size * 2] + list(fc_sizes), dropout=fc_dropout)
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {"time": self.time_trf.init(generator), "freq": self.freq_trf.init(generator),
+                "fc": self.fc.init(generator)}
+
+    def apply(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        x_time = self.time_trf.apply(params["time"], x, generator, train)
+        f = torch.fft.rfft(x, dim=1)  # over time
+        x_freq = self.freq_trf.apply(params["freq"], torch.cat([f.real, f.imag], dim=-1), generator, train)
+        return self.fc.apply(params["fc"], torch.cat([x_time, x_freq], dim=-1), generator, train)
+
+
+class DualDomainFC(FeatureNetwork):
+    """A time MLP and an MLP over the FFT of the flattened input, fused by an
+    MLP (reference `feature_network.py:474-525`;
+    `bcnf_tpu/models/feature_network.py:444-495`).
+
+    The JAX package's two deliberate divergences from the reference, which
+    cannot run its published DFC configs as written, are kept as they are:
+    the frequency MLP takes the **full** FFT of the flattened input (whose
+    ``[real, imag]`` is exactly the declared ``input_size * 2`` features),
+    and the fusion MLP is sized from the actual concatenation,
+    ``2 * sizes[-1]``.
+    """
+
+    def __init__(
+        self,
+        input_size: int,
+        sizes: Sequence[int],
+        fc_sizes: Sequence[int],
+        dropout: float = 0.5,
+        add_positional_embeddings: bool = False,
+    ) -> None:
+        self.input_size = input_size
+        self.output_size = list(fc_sizes)[-1]
+        self.time_fc = FullyConnectedFeatureNetwork(sizes=[input_size] + list(sizes), dropout=dropout)
+        self.freq_fc = FullyConnectedFeatureNetwork(sizes=[input_size * 2] + list(sizes), dropout=dropout)
+        self.fc = FullyConnectedFeatureNetwork(sizes=[2 * list(sizes)[-1]] + list(fc_sizes), dropout=dropout)
+
+    def init(self, generator: torch.Generator) -> Params:
+        return {"time": self.time_fc.init(generator), "freq": self.freq_fc.init(generator),
+                "fc": self.fc.init(generator)}
+
+    def apply(self, params: Params, x: torch.Tensor, generator: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        x_time = self.time_fc.apply(params["time"], x, generator, train)
+        f = torch.fft.fft(x.reshape(x.shape[0], -1), dim=-1)  # the full FFT: 2 * input_size features
+        x_freq = self.freq_fc.apply(params["freq"], torch.cat([f.real, f.imag], dim=-1), generator, train)
+        return self.fc.apply(params["fc"], torch.cat([x_time, x_freq], dim=-1), generator, train)

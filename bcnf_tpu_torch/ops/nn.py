@@ -3,7 +3,9 @@
 Layouts match the JAX package so weights copy across unchanged: a linear
 layer is ``{"w": (in, out), "b": (out,)}`` and applies as ``x @ w + b``.
 Initialization is torch's `nn.Linear` default, U(-1/sqrt(fan_in),
-1/sqrt(fan_in)), drawn from an explicit `torch.Generator`.
+1/sqrt(fan_in)), drawn from an explicit `torch.Generator`. The dense-layer
+families (`Linear`, `AnyGLU`, `LinearFFTEnriched`), the FFT features and
+LayerNorm are those of the JAX module.
 """
 
 from __future__ import annotations
@@ -82,6 +84,27 @@ def dropout(generator: torch.Generator | None, x: torch.Tensor, rate: float, tra
     return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+# ---------------------------------------------------------------------------
+# FFT features (`bcnf_tpu/ops/nn.py:85-101`, reference `src/bcnf/models/layers.py:34-78`)
+# ---------------------------------------------------------------------------
+
+
+def fft_features(x: torch.Tensor) -> torch.Tensor:
+    """rfft over the feature axis with 'forward' norm; concat(real, imag)."""
+    f = torch.fft.rfft(x, dim=-1, norm="forward")
+    return torch.cat([f.real, f.imag], dim=-1)
+
+
+def fft_enrich(x: torch.Tensor) -> torch.Tensor:
+    """The input with its FFT features concatenated (reference `layers.py:48-58`)."""
+    return torch.cat([x, fft_features(x)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Dense-layer families selectable through `model.kwargs.layer`
+# ---------------------------------------------------------------------------
+
+
 class DenseLayer:
     """A named dense-layer family: init(generator, in, out) + apply(params, x)."""
 
@@ -91,14 +114,50 @@ class DenseLayer:
         self.apply = apply
 
 
+def _anyglu_init(generator: torch.Generator, in_dim: int, out_dim: int) -> Params:
+    return {"gate": linear_init(generator, in_dim, out_dim), "value": linear_init(generator, in_dim, out_dim)}
+
+
+def _linear_fft_init(generator: torch.Generator, in_dim: int, out_dim: int) -> Params:
+    return linear_init(generator, in_dim + 2 * (in_dim // 2 + 1), out_dim)  # reference `layers.py:71`
+
+
+def _linear_fft_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return linear_apply(params, fft_enrich(x))
+
+
 def get_dense_layer(layer: str, layer_kwargs: dict | None = None) -> DenseLayer:
-    """Resolve a dense-layer family by config name (reference `factories.py:61-73`).
-    Only `Linear` is ported so far."""
+    """Resolve a dense-layer family by config name (reference `factories.py:61-73`):
+    `Linear`; `AnyGLU`, ``{gate, value}`` applied as ``value(x) * act(gate(x))``
+    with its gate activation as `glu_act`; `LinearFFTEnriched`, a linear
+    layer over ``[x, rfft(x)]``."""
+    kwargs = layer_kwargs or {}
     name = layer.lower()
     if name == "linear":
         return DenseLayer("Linear", linear_init, linear_apply)
-    if name in ("anyglu", "linearfftenriched"):
-        raise NotImplementedError(
-            f"Layer {layer} is not ported yet (ROADMAP.md, 'Other conditioners')"
-        )
+    if name == "anyglu":
+        act = get_activation(kwargs.get("activation", "GELU"), **(kwargs.get("activation_kwargs") or {}))
+        family = DenseLayer("AnyGLU", _anyglu_init,
+                            lambda params, x: linear_apply(params["value"], x) * act(linear_apply(params["gate"], x)))
+        family.glu_act = act
+        return family
+    if name == "linearfftenriched":
+        return DenseLayer("LinearFFTEnriched", _linear_fft_init, _linear_fft_apply)
     raise NotImplementedError(f"Layer {layer} not implemented")
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm (for the Transformer conditioner)
+# ---------------------------------------------------------------------------
+
+
+def layer_norm_init(dim: int) -> Params:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def layer_norm_apply(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with the biased variance, as
+    `bcnf_tpu/ops/nn.py:172-176` writes it."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]

@@ -76,10 +76,28 @@ Phases, one line each; any failure exits non-zero and prints no result:
    plain version on the same z (near-ties excepted), and 4096 resimulated
    trajectories against the CPU.
 
+13. the model zoo, at published widths with random weights from the seed:
+   path D, `configs/runs/nll/t_PTRF_large.yaml` (the Transformer encoder,
+   37,046,525 params): sampling 10,000 x 8 through K1 (1 launch) against
+   the plain path and the CPU, the encoder against the CPU, `log_prob` and
+   the round trip on 4096 rows, K1's time at its sampling shape beside its
+   bound, `Trainer.train` at batch 256 with the published dropout (plain
+   autograd), train samples/s and a step split, then `train` -> `sample`;
+   path E, `configs/runs/dev/trajectory_SFrExp_LSTM_SiGLU_2_large.yaml`
+   (signed FrExp -> LSTM, a two-way AnyGLU flow, 48,543,591 params) with
+   BCNF_FUSED_LSTM=1: sampling through the plain flow (K1 0, K3a 4), the
+   round trip, `Trainer.train` at 256 with K3a/K3b and a step against the
+   time loop's; path F, `configs/runs/trajectory_LSTM_noisy_calib7.yaml`
+   (the RQS coupling): the `train` CLI on data generated on the card, `eval`
+   at its defaults, its test NLL against the CPU; and both dual-domain
+   hybrids (`t_DPTRF_large_hybrid`, `t_DFC_large_hybrid`): one `sample`
+   through K1 and one training step each.
+
 The line before the last is the kernel table as JSON (each row with its
-arithmetic, `arith`: float32 FMA, or 3xTF32 on the tensor cores, and its
-bound at that arithmetic's peak); the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX or of `bcnf_tpu`.
+arithmetic, `arith`: float32 FMA, or 3xTF32 on the tensor cores, its bound
+at that arithmetic's peak, and `zoo_launches`, its launches on phase 13's
+paths); the last line is {"ok": true, "device": {...}}. Imports nothing of
+JAX or of `bcnf_tpu`.
 """
 
 from __future__ import annotations
@@ -558,6 +576,11 @@ def main() -> None:
     dlstm_path_b(rng, dev, build_dir)
     kernels += coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev, peaks)
     eval_path(dev, build_dir, peaks)
+    zoo = model_zoo(rng, dev, build_dir, peaks)
+    for row in kernels:  # each kernel's launches on phase 13's paths, beside its main-path launches
+        key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward"}.get(
+            row["name"], row["name"].split()[0])
+        row["zoo_launches"] = zoo.get(key, 0)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -847,10 +870,11 @@ def weight_copies_ms(model, params: dict, dev) -> tuple[float, float, int]:
     return sorted(fwd[1:])[2], sorted(bwd[1:])[2], nbytes
 
 
-def device_profile(step) -> None:
-    """One training step under `torch.profiler`: the device's busy share and
-    the kernels that take most of its time. Prints what the profiler saw;
-    a profiler that records no device time is reported, not a failure."""
+def device_profile(step, what: str = "one step at batch 4096") -> None:
+    """One call of `step` (a training step, a rank batch) under
+    `torch.profiler`: the device's busy share and the kernels that take most
+    of its time. Prints what the profiler saw; a profiler that records no
+    device time is reported, not a failure."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -868,7 +892,7 @@ def device_profile(step) -> None:
         print("    profiler: no device time recorded; the CUDA-event split stands alone")
         return
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"    profiler, one step at batch 4096: kernels busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+    print(f"    profiler, {what}: kernels busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
           f"(device idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}, profiler on); top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"      {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -1101,10 +1125,13 @@ def fused_lstm(on: bool) -> None:
     os.environ["BCNF_FUSED_LSTM"] = "1" if on else "0"
 
 
-def train_with_counts(cfg: dict, model, rng, dev, dirs: int, what: str) -> tuple[dict, int, dict, list]:
+def train_with_counts(cfg: dict, model, rng, dev, dirs: int, what: str,
+                      val_batches: int | None = None) -> tuple[dict, int, dict, list]:
     """`Trainer.train` on random data (3 batches an epoch) with the fused
     LSTM on; checks K3b = dirs a step and K3a = dirs a step, validation
-    batch and the ActNorm data init. Returns (counts, steps, trained, data)."""
+    batch and the ActNorm data init. The validation batches are K1's
+    launches, or `val_batches` where K1 does not cover the flow. Returns
+    (counts, steps, trained, data)."""
     import numpy as np
     import torch
 
@@ -1128,7 +1155,8 @@ def train_with_counts(cfg: dict, model, rng, dev, dirs: int, what: str) -> tuple
     steps = 3 * n_epochs
     hist = trainer.meta_scheduler.parameter_history
     losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
-    if c["K3b"] != dirs * steps or c["K3a"] != dirs * (steps + c["K1"] + 1):
+    n_val = c["K1"] if val_batches is None else val_batches
+    if c["K3b"] != dirs * steps or c["K3a"] != dirs * (steps + n_val + 1):
         fail(f"{what}: Trainer.train launched K3a {c['K3a']} and K3b {c['K3b']} times for {steps} steps, "
              f"{c['K1']} validation batches and the ActNorm init ({dirs} directions)")
     if not (np.all(np.isfinite(losses)) and all(torch.isfinite(t).all() for t in tree_leaves(trained))):
@@ -1429,7 +1457,7 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
     with torch.no_grad():
         for B, N in ((4096, 8), (4099, 7)):
             h = model.encode(params, (torch.from_numpy(rng.normal(size=(N, 30, 3)).astype(np.float32)).to(dev),))
-            h_proj = cp.cond_proj(blk0, h)
+            h_proj = cp.cond_proj(blk0, h)["a"][0]
             x = torch.from_numpy(rng.normal(size=(B, model.size)).astype(np.float32)).to(dev)
             x_a, x_b = x[:, : cp.d_a].contiguous(), x[:, cp.d_a:].contiguous()
             for inverse in (False, True):
@@ -1481,8 +1509,8 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
     rows = []
     with torch.no_grad():
         x_inv = z_all.to(dev).reshape(-1, model.size)
-        shapes = {True: (x_inv, cp.cond_proj(blk0, h), N_COND),
-                  False: (y_lp.contiguous(), cp.cond_proj(blk0, model.encode(params, (cond_lp,))), LOGPROB_ROWS)}
+        shapes = {True: (x_inv, cp.cond_proj(blk0, h)["a"][0], N_COND),
+                  False: (y_lp.contiguous(), cp.cond_proj(blk0, model.encode(params, (cond_lp,)))["a"][0], LOGPROB_ROWS)}
         for inverse, (x, hp, n) in shapes.items():
             x_a, x_b = x[:, : cp.d_a].contiguous(), x[:, cp.d_a:].contiguous()
             out = fused_affine_coupling(x_a, x_b, hp, **args, inverse=inverse)
@@ -1578,6 +1606,63 @@ class K1Recorder:
         return dict(Counter(self.calls))
 
 
+def step_split(model, params: dict, opt, yb, cb: list, gen) -> list[float]:
+    """CUDA-event split of one training step on the plain flow (ms, median
+    of 3): encoder forward, flow forward on that step's condition, backward
+    of the NLL, clip + Adam."""
+    import torch
+
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    splits = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        opt.zero_grad()
+        ev[0].record()
+        h = model.encode(params, cb, gen, train=True)
+        ev[1].record()
+        model.encode = lambda *_a, **_k: h  # the flow alone, on this step's condition
+        z, ld = model.forward(params, yb, *cb, generator=gen, train=True)
+        del model.encode
+        ev[2].record()
+        inn_nll_loss(z, ld).backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    return [sorted(c)[1] for c in zip(*splits)]
+
+
+def run_eval(argv: list[str]) -> tuple[tuple[dict, dict, dict], float]:
+    """The `eval` CLI with `argv`, where matplotlib is installed; else its
+    computation alone (`eval_report`, no figure). Returns what
+    `eval_report` returned (report, arrays, stage seconds) and the seconds."""
+    import importlib.util
+
+    import bcnf_tpu_torch.__main__ as cli
+
+    captured = {}
+    compute = cli.eval_report
+
+    def recording(args):
+        captured["out"] = compute(args)
+        return captured["out"]
+
+    cli.eval_report = recording
+    t0 = time.perf_counter()
+    try:
+        if importlib.util.find_spec("matplotlib") is not None:
+            cli.main(argv)
+        else:
+            print("    figures not drawn: matplotlib is not installed here; eval_report (the eval CLI's "
+                  "computation) runs alone")
+            cli.eval_report(cli.build_parser().parse_args(argv))
+    finally:
+        cli.eval_report = compute
+    return captured["out"], time.perf_counter() - t0
+
+
 def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate: int = 256,
               n_test: int = 200, m_samples: int = 10_000, resim_samples: int = 1000) -> None:
     """Phase 12: `generate` (filter, MC renderer), the flagship trained by the
@@ -1585,8 +1670,6 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
     card), then `eval` with its defaults on a held-out generated set; the
     card's NLL, ranks and resimulation held against the plain and CPU
     results."""
-    import importlib.util
-
     import numpy as np
     import torch
     import yaml
@@ -1711,24 +1794,7 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
             trainer.train_step(model, params, opt, yb, cb, gen)
         torch.cuda.synchronize()
         rate = reps * B / (time.perf_counter() - t0)
-        splits = []
-        for _ in range(3):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            opt.zero_grad()
-            ev[0].record()
-            h = model.encode(params, cb, gen, train=True)
-            ev[1].record()
-            model.encode = lambda *_a, **_k: h  # the flow alone, on this step's condition
-            z, ld = model.forward(params, yb, *cb, generator=gen, train=True)
-            del model.encode
-            ev[2].record()
-            inn_nll_loss(z, ld).backward()
-            ev[3].record()
-            opt.step()
-            ev[4].record()
-            torch.cuda.synchronize()
-            splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
-        split = [sorted(c)[1] for c in zip(*splits)]
+        split = step_split(model, params, opt, yb, cb, gen)
         if fused_flow_train_fwd.launches or fused_flow_train_bwd.launches:
             fail("the published-dropout training steps launched the training kernels")
         print(f"[12 eval path: train] flagship from its published config (coupling dropout {cfg['model']['kwargs']['dropout']}, "
@@ -1745,26 +1811,9 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
                   "--dt", str(cfg["data"]["dt"]), "-T", str(cfg["data"]["T"]), "--seed", str(SEED + 1)])
         argv = ["eval", "-m", model_dir, "-d", test_set, "-o", os.path.join(tmp, "report"),
                 "-M", str(m_samples), "--resim-samples", str(resim_samples), "--max-points", str(n_test)]
-        captured = {}
-        compute = cli.eval_report
-
-        def recording(args):
-            captured["out"] = compute(args)
-            return captured["out"]
-
         zero_flow_counts()
-        cli.eval_report = recording
-        t0 = time.perf_counter()
         with K1Recorder() as k1:
-            if importlib.util.find_spec("matplotlib") is not None:
-                cli.main(argv)
-            else:
-                print("    figures not drawn: matplotlib is not installed here; eval_report (the eval CLI's "
-                      "computation) runs alone")
-                cli.eval_report(cli.build_parser().parse_args(argv))
-        t_eval = time.perf_counter() - t0
-        cli.eval_report = compute
-        report, figs, stages = captured["out"]
+            (report, figs, stages), t_eval = run_eval(argv)
         launches = k1.summary()
         rank_batches = -(-n_test // 100)
         expected = {("inverse", "wgmma", min(100, n_test) * 1000): rank_batches * -(-m_samples // 1000),
@@ -1858,6 +1907,430 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
                  f"their near-ties at {int((rank_d > ties).sum())} places")
         if not ok_resim:
             fail(f"resimulation on the card disagrees with the CPU: {worst_resim:.3e} > {TRAJ_REL:g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the model zoo (the Transformer, FrExp and dual-domain encoders,
+# two-way AnyGLU couplings, the RQS coupling)
+# ---------------------------------------------------------------------------
+
+PTRF_CONFIG = "{{BCNF_ROOT}}/configs/runs/nll/t_PTRF_large.yaml"
+PTRF_PARAMS = 37_046_525
+SIGLU_CONFIG = "{{BCNF_ROOT}}/configs/runs/dev/trajectory_SFrExp_LSTM_SiGLU_2_large.yaml"
+SIGLU_PARAMS = 48_543_591
+CALIB7_CONFIG = "{{BCNF_ROOT}}/configs/runs/trajectory_LSTM_noisy_calib7.yaml"
+CALIB7_PARAMS = 337_201
+HYBRIDS = {  # config: (encoder, params)
+    "{{BCNF_ROOT}}/configs/runs/hybrid/t_DPTRF_large_hybrid.yaml": ("DualDomainTransformer", 37_121_818),
+    "{{BCNF_ROOT}}/configs/runs/hybrid/t_DFC_large_hybrid.yaml": ("DualDomainFC", 37_678_738),
+}
+
+
+def frames(cfg: dict) -> int:
+    """Frames of the config's trajectories, T / dt (the simulator's grid)."""
+    return int(round(cfg["data"]["T"] / cfg["data"]["dt"]))
+
+
+def zoo_model(config: str, n_expected: int, encoder: str, dev) -> tuple[dict, object, dict]:
+    """(config, model, params): the run config built at its published
+    widths, random weights from the seed on the card; fails on another
+    parameter count or encoder."""
+    import torch
+
+    from bcnf_tpu_torch.config import load_config
+    from bcnf_tpu_torch.models import CondRealNVP, count_params
+
+    cfg = load_config(config).to_dict()
+    model = CondRealNVP.from_config(cfg)
+    kinds = [type(fn).__name__ for fn in model.features.feature_networks]
+    if encoder not in kinds:
+        fail(f"{os.path.basename(config)} built the encoders {kinds}, not {encoder}")
+    params = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    n_params = count_params(params)
+    if n_params != n_expected:
+        fail(f"{os.path.basename(config)} has {n_params:,} params, expected {n_expected:,}")
+    return cfg, model, params
+
+
+def zoo_sample(model, params: dict, traj, dev, n: int = M_DRAWS) -> tuple[object, float, dict, dict]:
+    """`sample` of n draws for the trajectories after a warm-up, with the
+    counts set to 0 just before: (samples, seconds, counts, K1 routes)."""
+    import torch
+
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow
+
+    with torch.no_grad():
+        model.sample(params, torch.Generator().manual_seed(SEED), 16, traj, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = model.sample(params, torch.Generator().manual_seed(SEED), n, traj, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, routes = lstm_counts(), dict(fused_flow.route_launches)
+    if tuple(out.shape) != (n, traj.shape[0], model.size) or not torch.isfinite(out).all():
+        fail(f"samples of shape {tuple(out.shape)} are not all finite / not the expected shape")
+    return out, secs, counts, routes
+
+
+def zoo_cpu_check(model, params: dict, traj, out, z) -> tuple[float, object]:
+    """max |d| of the first 64 draws against the CPU plain path on the same
+    z, and the condition vector encoded on the CPU."""
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    with torch.no_grad():
+        h_cpu = model.encode(cpu_params, (traj,))
+        ref = model.inverse_given_h(cpu_params, z[:64], h_cpu)
+    return (out[:64].cpu() - ref).abs().max().item(), h_cpu
+
+
+def zoo_round_trip(model, params: dict, out, traj, z, dev) -> tuple[float, dict, dict]:
+    """`log_prob` and the forward of 4096 samples (counts from 0): the round
+    trip's max |forward(sample) - z|, the counts and K1's routes."""
+    import torch
+
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow
+
+    d = LOGPROB_ROWS // traj.shape[0]
+    y_lp = out[:d].reshape(-1, model.size)
+    cond_lp = traj.to(dev).repeat(d, 1, 1)
+    with torch.no_grad():
+        zero_counts()
+        lp = model.log_prob(params, y_lp, cond_lp)
+        z_rt, _ = model.forward(params, y_lp, cond_lp)
+        torch.cuda.synchronize()
+    counts, routes = lstm_counts(), dict(fused_flow.route_launches)
+    if not torch.isfinite(lp).all():
+        fail("log_prob is not finite")
+    return (z_rt.cpu() - z[:d].reshape(-1, model.size)).abs().max().item(), counts, routes
+
+
+def zoo_path_d(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> dict:
+    """Path D: t_PTRF_large (the Transformer of the NLL comparison) at its
+    published widths: sampling through K1 against the plain path, `log_prob`
+    and the round trip, the encoder against the CPU, K1's time at the
+    sampling shape, `Trainer.train` at batch 256 with the published dropout
+    (plain autograd), train samples/s and a step split, the CLI. Returns
+    K1's launches on the path by direction."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.config import load_config
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_ROWS, ROUTE_WGMMA, fused_flow, fused_flow_reference
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+
+    cfg, model, params = zoo_model(PTRF_CONFIG, PTRF_PARAMS, "Transformer", dev)
+    T, H = frames(cfg), model.nested_sizes[0]
+    traj = torch.from_numpy(rng.normal(size=(N_COND, T, 3)).astype(np.float32))
+    z = torch.randn((M_DRAWS, N_COND, model.size), generator=torch.Generator().manual_seed(SEED))
+    launches = {"inverse": 0, "forward": 0}
+    out, secs, _, routes = zoo_sample(model, params, traj, dev)
+    if routes != {ROUTE_WGMMA: 1}:
+        fail(f"t_PTRF_large sampling launched K1 {routes}, not once on {ROUTE_WGMMA}")
+    launches["inverse"] += 1
+    model.use_pallas = False
+    with torch.no_grad():
+        plain = model.sample(params, torch.Generator().manual_seed(SEED), M_DRAWS, traj, device=dev)
+    model.use_pallas = True
+    plain_err = (out - plain).abs().max().item()
+    cpu_err, h_cpu = zoo_cpu_check(model, params, traj, out, z)
+    with torch.no_grad():
+        h = model.encode(params, (traj.to(dev),))
+    enc_err = (h.cpu() - h_cpu).abs().max().item()
+    rt_err, _, fwd_routes = zoo_round_trip(model, params, out, traj, z, dev)
+    if fwd_routes != {ROUTE_ROWS: 2}:
+        fail(f"t_PTRF_large log_prob and round trip launched K1 {fwd_routes}, not twice on {ROUTE_ROWS}")
+    launches["forward"] += 2
+    enc = model.features.feature_networks[-1]
+    print(f"[13 model zoo, path D] t_PTRF_large ({PTRF_PARAMS:,} params; Transformer {enc.n_blocks} x {enc.trf_size}, "
+          f"{enc.n_heads} heads, positional embeddings {enc.add_positional_embeddings}; flow {model.n_blocks} blocks "
+          f"of {len(model.nested_sizes)} x {H}): sample {M_DRAWS}x{N_COND} in {secs:.3f} s = "
+          f"{M_DRAWS * N_COND / secs:.0f} samples/s, K1 launches {routes}; max|d| vs the plain path on the same z "
+          f"{plain_err:.3e}, vs the CPU plain path (64 draws) {cpu_err:.3e}; encoder on the card vs the CPU "
+          f"{enc_err:.3e}; log_prob + round trip on {LOGPROB_ROWS} rows (K1 {fwd_routes}): max|forward(sample) - z| "
+          f"{rt_err:.3e} (tolerances {KERNEL_TOL:g}, round trip {ROUNDTRIP_TOL:g})")
+    for what, err, tol in (("plain path", plain_err, KERNEL_TOL), ("CPU plain path", cpu_err, KERNEL_TOL),
+                           ("CPU encoder", enc_err, KERNEL_TOL), ("round trip", rt_err, ROUNDTRIP_TOL)):
+        if not err <= tol:
+            fail(f"t_PTRF_large disagrees with the {what}: {err:.3e} > {tol:g}")
+
+    # K1 at the sampling shape, beside its bound and its plain version (uncounted launches)
+    with torch.no_grad():
+        x_inv = z.to(dev).reshape(-1, model.size)
+        kargs, h_proj = model._fused_flow_args(params, h)
+        saved = fused_flow.launches, dict(fused_flow.route_launches)
+        k_times = cuda_ms(lambda: fused_flow(x_inv, h_proj, **kargs, inverse=True, n_cond=N_COND), reps=5)
+        p_times = cuda_ms(lambda: fused_flow_reference(x_inv, h_proj, **kargs, inverse=True, n_cond=N_COND), reps=3)
+        fused_flow.launches = saved[0]
+        fused_flow.route_launches.clear()
+        fused_flow.route_launches.update(saved[1])
+    work = flow_work(kargs, h_proj, x_inv.shape[0], H)
+    bound, by = bound_ms(work, peaks, ARITH_3XTF32)
+    print(f"    K1 inverse (wgmma, 3xtf32) at t_PTRF_large's {x_inv.shape[0]:,} rows (size {model.size}, hidden {H}, "
+          f"{kargs['an_scale'].shape[0]} steps): {median(k_times):.2f} ms (range {min(k_times):.2f}-{max(k_times):.2f}; "
+          f"bound {bound:.2f} ms, {by}; {work[0] / 1e12:.2f} TFLOP -> {work[0] / median(k_times) / 1e9:.1f} TFLOP/s), "
+          f"plain {median(p_times):.2f} ms")
+
+    # Trainer.train at batch 256 with the published dropout 0.5: the flow on plain autograd
+    B = 256
+    tcfg = load_config(PTRF_CONFIG).to_dict()
+    tcfg["training"].update(batch_size=B, n_epochs=1, timeout=None)
+    n = int(round(3 * B / (1 - tcfg["training"]["validation_split"])))
+    y = rng.normal(size=(n, model.size)).astype(np.float32)
+    tr = rng.normal(size=(n, T, 3)).astype(np.float32)
+    trainer = Trainer(tcfg, data=(y, [tr]), device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = trainer.train(model, model.init(torch.Generator().manual_seed(SEED), device=dev))
+    torch.cuda.synchronize()
+    t_train, c = time.perf_counter() - t0, lstm_counts()
+    losses = [v for _, v in trainer.meta_scheduler.parameter_history["train_loss"]]
+    if (c["K2a"], c["K2b"]) != (0, 0) or c["K1"] < 1 or not np.all(np.isfinite(losses)):
+        fail(f"t_PTRF_large Trainer.train: K2a {c['K2a']}, K2b {c['K2b']} (gate closed by dropout), K1 (validation) "
+             f"{c['K1']}, losses {losses}")
+    launches["forward"] += c["K1"]
+    yb, cb = torch.from_numpy(y[:B]).to(dev), [torch.from_numpy(tr[:B]).to(dev)]
+    p = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+    opt = make_optimizer("Adam", lr=2e-4).init(p)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    trainer.train_step(model, p, opt, yb, cb, gen)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(model, p, opt, yb, cb, gen)
+    torch.cuda.synchronize()
+    rate = reps * B / (time.perf_counter() - t0)
+    split = step_split(model, p, opt, yb, cb, gen)
+    print(f"    t_PTRF_large Trainer.train (batch {B}, coupling dropout {tcfg['model']['kwargs']['dropout']}, 1 epoch of "
+          f"3 steps + validation) in {t_train:.2f} s: K2a {c['K2a']}, K2b {c['K2b']}, K1 (validation) {c['K1']}; "
+          f"{rate:.0f} train samples/s (plain autograd flow); step split (CUDA events, median of 3, ms): encoder "
+          f"forward {split[0]:.2f}, flow forward {split[1]:.2f}, backward {split[2]:.2f}, clip + Adam {split[3]:.2f} "
+          f"(sum {sum(split):.2f})")
+
+    ccfg = load_config(PTRF_CONFIG).to_dict()
+    ccfg["training"].update(n_epochs=2, timeout=None)
+    cc = cli_round_trip(ccfg, rng, build_dir, 0, "t_PTRF_large CLI")
+    launches["inverse"] += 1  # the sample CLI's one launch (checked there)
+    launches["forward"] += cc["K1"] - 1  # the train CLI's validation
+    return launches
+
+
+def zoo_path_e(rng, dev) -> dict:
+    """Path E: the signed-FrExp -> LSTM encoder with a two-way AnyGLU
+    (Sigmoid gate) flow, with BCNF_FUSED_LSTM=1: sampling through the plain
+    flow (K1 closed, K3a 4) against the CPU, the round trip, `Trainer.train`
+    at batch 256 (K3a/K3b), a step against the time-loop encoder's, train
+    samples/s both ways. Returns K3a's and K3b's launches on the path."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.config import load_config
+
+    cfg, model, params = zoo_model(SIGLU_CONFIG, SIGLU_PARAMS, "FrExpFeatureNetwork", dev)
+    cp = model.coupling
+    if not (cp.two_way and cp.nn_a.family.name == "AnyGLU") or cp.fusable:
+        fail("trajectory_SFrExp_LSTM_SiGLU_2_large did not build a two-way AnyGLU coupling outside K1")
+    T = frames(cfg)
+    traj = torch.from_numpy(rng.normal(size=(N_COND, T, 3)).astype(np.float32))
+    z = torch.randn((M_DRAWS, N_COND, model.size), generator=torch.Generator().manual_seed(SEED))
+    fused_lstm(True)
+    out, secs, c, routes = zoo_sample(model, params, traj, dev)
+    if (c["K1"], c["K3a"], c["K3b"]) != (0, 4, 0):
+        fail(f"two-way AnyGLU sampling launched K1 {c['K1']}, K3a {c['K3a']}, K3b {c['K3b']} (expected 0, 4, 0)")
+    launches = {"K3a": c["K3a"], "K3b": 0}
+    cpu_err, _ = zoo_cpu_check(model, params, traj, out, z)
+    rt_err, rc, _ = zoo_round_trip(model, params, out, traj, z, dev)
+    if (rc["K1"], rc["K3a"]) != (0, 8):
+        fail(f"two-way AnyGLU log_prob and round trip launched K1 {rc['K1']}, K3a {rc['K3a']} (expected 0, 8)")
+    launches["K3a"] += rc["K3a"]
+    lstm = model.features.feature_networks[-1]
+    print(f"[13 model zoo, path E] trajectory_SFrExp_LSTM_SiGLU_2_large ({SIGLU_PARAMS:,} params; signed FrExp -> "
+          f"LSTM H {lstm.hidden_size}, two-way AnyGLU flow {model.n_blocks} blocks of {len(model.nested_sizes)} x "
+          f"{model.nested_sizes[0]}), BCNF_FUSED_LSTM=1: sample {M_DRAWS}x{N_COND} in "
+          f"{secs:.3f} s = {M_DRAWS * N_COND / secs:.0f} samples/s through the plain flow, launches K1 {c['K1']}, K3a "
+          f"{c['K3a']}; max|d| vs the CPU plain path (64 draws) {cpu_err:.3e} (tolerance {KERNEL_TOL:g}); round trip "
+          f"on {LOGPROB_ROWS} rows {rt_err:.3e} (tolerance {ROUNDTRIP_TOL:g})")
+    if not cpu_err <= KERNEL_TOL or not rt_err <= ROUNDTRIP_TOL:
+        fail(f"the two-way AnyGLU model disagrees: CPU {cpu_err:.3e}, round trip {rt_err:.3e}")
+
+    B = 256
+    tcfg = load_config(SIGLU_CONFIG).to_dict()
+    tcfg["training"].update(batch_size=B, n_epochs=1, timeout=None)
+    c, steps, trained, (y, tr, trainer) = train_with_counts(tcfg, model, rng, dev, 4, "SiGLU batch 256",
+                                                            val_batches=1)
+    if (c["K1"], c["K2a"], c["K2b"]) != (0, 0, 0):
+        fail(f"two-way AnyGLU training launched K1 {c['K1']}, K2a {c['K2a']}, K2b {c['K2b']}")
+    launches["K3a"] += c["K3a"]
+    launches["K3b"] += c["K3b"]
+    yb, cb = torch.from_numpy(y[:B]).to(dev), [torch.from_numpy(tr[:B]).to(dev)]
+    step_against_loop(model, trained, yb, cb, dev, "SiGLU batch 256", (4, 4))
+    rates = train_rates(model, trainer, trained, yb, cb, dev)
+    print(f"    train samples/s, SiGLU at batch 256: {rates[0]:.0f} with the fused LSTM, {rates[1]:.0f} with the time "
+          f"loop (same call; the flow on plain autograd)")
+    fused_lstm(False)
+    return launches
+
+
+def zoo_path_f(dev, build_dir: str) -> None:
+    """Path F: calib7 (the RQS coupling) from its published config: the
+    `train` CLI with its data generated on the card (1 epoch), `eval` at its
+    defaults on a held-out generated set (the same observation noise), each
+    stage's seconds; its test NLL against the CPU plain path."""
+    import numpy as np
+    import torch
+    import yaml
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.bridge import params_from_numpy, tree_leaves
+    from bcnf_tpu_torch.config import load_config, sub_root_path
+    from bcnf_tpu_torch.models import CondRealNVP, RQSCoupling, count_params
+    from bcnf_tpu_torch.train.data import TrainerDataHandler
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        with open(sub_root_path(CALIB7_CONFIG)) as f:
+            cfg = yaml.safe_load(f)
+        cfg["data"]["path"] = os.path.join(tmp, "train_data")
+        cfg["training"]["n_epochs"] = 1
+        cfg_path, model_dir = os.path.join(tmp, "run.yaml"), os.path.join(tmp, "model")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main(["train", "-c", cfg_path, "-o", model_dir])
+        torch.cuda.synchronize()
+        t_train, c_train = time.perf_counter() - t0, lstm_counts()
+        with open(os.path.join(model_dir, "params.pkl"), "rb") as f:
+            trained_np = pickle.load(f)
+        run_cfg = load_config(cfg_path)
+        model = CondRealNVP.from_config(run_cfg)
+        if not isinstance(model.coupling, RQSCoupling) or count_params(params_from_numpy(trained_np, "cpu")) != CALIB7_PARAMS:
+            fail(f"calib7 did not build its RQS coupling with {CALIB7_PARAMS:,} params")
+        if not all(np.isfinite(t).all() for t in tree_leaves(trained_np)) or any(c_train.values()):
+            fail(f"calib7's train CLI wrote non-finite params or launched kernels: {c_train}")
+        data = cfg["data"]
+        test_set = os.path.join(tmp, "test.pkl")
+        t0 = time.perf_counter()
+        cli.main(["generate", "-c", PRIOR_CONFIG, "-o", test_set, "-n", "200", "--no-filter", "--dt", str(data["dt"]),
+                  "-T", str(data["T"]), "--observation-noise", str(data["observation_noise"]), "--seed", str(SEED + 1)])
+        t_gen = time.perf_counter() - t0
+        zero_counts()
+        (report, figs, stages), t_eval = run_eval(["eval", "-m", model_dir, "-d", test_set, "-o",
+                                                   os.path.join(tmp, "report")])
+        c_eval = lstm_counts()
+        if any(c_eval.values()) or not np.isfinite(report["test_nll"]) or report["n_points"] != 200:
+            fail(f"calib7's eval launched kernels {c_eval} or reported {report.get('test_nll')} on "
+                 f"{report.get('n_points')} points")
+        ranks = figs["ranks"]
+        if ranks.shape != (200, 19) or ranks.min() < 0 or ranks.max() > report["M_samples"]:
+            fail(f"calib7's ranks have shape {ranks.shape} and range {ranks.min()}-{ranks.max()}")
+        # the card's test NLL against the CPU plain path on the same points
+        y_test, conds = TrainerDataHandler().get_data_for_training(
+            {k.lower(): v for k, v in dict(run_cfg, data=dict(run_cfg["data"], path=test_set)).items()},
+            model.parameter_index_mapping)
+        with torch.no_grad():
+            z_cpu, ld_cpu = model.forward(params_from_numpy(trained_np, "cpu"), torch.from_numpy(y_test[:200]),
+                                          torch.from_numpy(conds[0][:200]))
+        nll_cpu = inn_nll_loss(z_cpu, ld_cpu).item()
+        nll_bar = KERNEL_TOL * (z_cpu.abs().sum(dim=1).mean().item() + 1) + 19 * KERNEL_TOL**2
+        nll_d = abs(report["test_nll"] - nll_cpu)
+        # where a rank batch's time goes: one `sample` of 1000 draws for 100 test points, as the ranks call it
+        params = params_from_numpy(trained_np, dev)
+        cond = torch.from_numpy(conds[0][:100]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        with torch.no_grad():
+            rank_ms = cuda_ms(lambda: model.sample(params, gen, 1000, cond, device=dev), reps=3)
+            h = model.encode(params, (cond,))
+            z = torch.randn((1000, 100, model.size), generator=gen, device=dev)
+            flow_ms = cuda_ms(lambda: model.inverse_given_h(params, z, h), reps=3)
+            device_profile(lambda: model.sample(params, gen, 1000, cond, device=dev),
+                           "one rank batch of calib7 (1000 draws x 100 points)")
+    print(f"[13 model zoo, path F] calib7 ({CALIB7_PARAMS:,} params; RQS coupling, {model.coupling.num_bins} bins, "
+          f"{model.n_blocks} blocks of {len(model.nested_sizes)} x {model.nested_sizes[0]}; LSTM H "
+          f"{model.features.feature_networks[-1].hidden_size}) from its published config: train CLI "
+          f"({data['n_samples']} trajectories generated on the card with observation noise "
+          f"{data['observation_noise']}, 1 epoch at batch {cfg['training']['batch_size']}) {t_train:.2f} s; generate "
+          f"200 held-out {t_gen:.2f} s; eval at its defaults (M {report['M_samples']}) {t_eval:.2f} s, stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) +
+          f"; kernels launched: none (no kernel covers the RQS coupling); test NLL on the card "
+          f"{report['test_nll']:.6f} vs the CPU plain path {nll_cpu:.6f}: |d| {nll_d:.2e} (bar {nll_bar:.2e}); rank "
+          f"mean fraction {report['rank_mean_frac']:.3f}; one rank batch (1000 draws x 100 points, CUDA events, "
+          f"median of 3): {median(rank_ms):.1f} ms, of which the {model.n_blocks}-block RQS inverse of its 100,000 rows "
+          f"{median(flow_ms):.1f} ms")
+    if not nll_d <= nll_bar:
+        fail(f"calib7's test NLL on the card is {nll_d:.3e} from the CPU plain path's (bar {nll_bar:.3e})")
+
+
+def zoo_hybrids(rng, dev) -> int:
+    """Both dual-domain hybrids at their published widths: one `sample` of
+    1000 x 8 through K1 against the plain path, and one training step with
+    the hybrid loss at the published batch and dropout. Returns K1's
+    launches."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_WGMMA
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+
+    launches = 0
+    for config, (encoder, n_params) in HYBRIDS.items():
+        cfg, model, params = zoo_model(config, n_params, encoder, dev)
+        name = os.path.basename(config)[:-5]
+        T = frames(cfg)
+        traj = torch.from_numpy(rng.normal(size=(N_COND, T, 3)).astype(np.float32))
+        out, secs, _, routes = zoo_sample(model, params, traj, dev, n=1000)
+        if routes != {ROUTE_WGMMA: 1} or not model.hybrid:
+            fail(f"{name} sampling launched K1 {routes}, not once on {ROUTE_WGMMA} (hybrid {model.hybrid})")
+        launches += 1
+        model.use_pallas = False
+        with torch.no_grad():
+            plain = model.sample(params, torch.Generator().manual_seed(SEED), 1000, traj, device=dev)
+        model.use_pallas = True
+        err = (out - plain).abs().max().item()
+        B = int(cfg["training"]["batch_size"])
+        y = rng.normal(size=(B, model.size)).astype(np.float32)
+        tr = rng.normal(size=(B, T, 3)).astype(np.float32)
+        trainer = Trainer(cfg, data=(y, [tr]), device=dev, seed=SEED, hybrid_weight=cfg["global"]["hybrid_weight"])
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+        before = [t.detach().clone() for t in tree_leaves(p["head"])]
+        opt = make_optimizer("Adam", lr=2e-4).init(p)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        yb, cb = torch.from_numpy(y).to(dev), [torch.from_numpy(tr).to(dev)]
+        zero_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(model, p, opt, yb, cb, gen).cpu()
+        t_step, c = time.perf_counter() - t0, lstm_counts()
+        moved = any(not torch.equal(a, b) for a, b in zip(before, tree_leaves(p["head"])))
+        print(f"[13 model zoo, hybrid] {name} ({n_params:,} params; {encoder}): sample 1000x{N_COND} in {secs:.3f} s, "
+              f"K1 launches {routes}, max|d| vs the plain path on the same z {err:.3e} (tolerance {KERNEL_TOL:g}); one "
+              f"training step at batch {B} (hybrid weight {trainer.hybrid_weight}, coupling dropout "
+              f"{cfg['model']['kwargs']['dropout']}) in {t_step:.3f} s (first call): loss, nll, mse, mean logdet "
+              f"{', '.join(f'{v:.3f}' for v in metrics.tolist())}; K2a {c['K2a']}, K2b {c['K2b']}")
+        if not err <= KERNEL_TOL:
+            fail(f"{name} samples disagree with the plain path: {err:.3e}")
+        if not torch.isfinite(metrics).all() or not metrics[2] > 0 or not moved or (c["K2a"], c["K2b"]) != (0, 0):
+            fail(f"{name}'s training step gave {metrics.tolist()}, head moved {moved}, K2a/K2b {c['K2a']}/{c['K2b']}")
+    return launches
+
+
+def model_zoo(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> dict:
+    """Phase 13: paths D, E, F and the two hybrids. Returns the launches of
+    K1 (by direction) and of K3a/K3b on these paths."""
+    t0 = time.perf_counter()
+    d = zoo_path_d(rng, dev, build_dir, peaks)
+    e = zoo_path_e(rng, dev)
+    zoo_path_f(dev, build_dir)
+    d["inverse"] += zoo_hybrids(rng, dev)
+    print(f"    phase 13 took {time.perf_counter() - t0:.1f} s")
+    return {"K1 inverse": d["inverse"], "K1 forward": d["forward"], **e}
 
 
 if __name__ == "__main__":

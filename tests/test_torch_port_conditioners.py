@@ -1,9 +1,9 @@
 """Port parity, conditioners: `FullyConnectedFeatureNetwork`,
 `VerboseLSTM.apply_verbose` and `DualDomainLSTM` against the JAX package on
 bridged params (dropout off), a cut-down `t_DLSTM_large` built by
-`from_config` in both packages (log_prob, inverse, a short Trainer), and the
-run configs the port's registry serves, built at their published widths with
-the JAX package's parameter count. Tolerances: features 1e-5, flow outputs
+`from_config` in both packages (log_prob, inverse, a short Trainer), and
+every run config but the video (CNN) ones, built at their published widths
+with the JAX package's parameter tree. Tolerances: features 1e-5, flow outputs
 1e-4 (tests/test_flow_kernel.py), per-epoch losses rtol 1e-3 (as
 tests/test_torch_port_train.py)."""
 
@@ -176,29 +176,18 @@ def test_small_dlstm_trainer_val_loss_matches_jax(tmp_path):
 # every run config the port's registry serves, at its published widths
 # ---------------------------------------------------------------------------
 
-def _served(path: str) -> bool:
+def _uses_cnn(path: str) -> bool:
+    """Whether the config's feature networks need `CNN`, which the port
+    refuses until the video slice (ROADMAP.md, slice 10)."""
     with open(path) as f:
         cfg = yaml.safe_load(f)
-    return all(fn.get("type") in FeatureNetworkFactory.REGISTRY for fn in cfg.get("feature_networks") or [])
+    return any(fn.get("type") == "CNN" for fn in cfg.get("feature_networks") or [])
 
 
-def _unported_model_option(path: str) -> str | None:
-    """The model option the port does not take yet, if any (ROADMAP.md)."""
-    with open(path) as f:
-        kw = yaml.safe_load(f)["model"]["kwargs"]
-    if kw.get("two_way"):
-        return "two_way"
-    if kw.get("coupling", "affine") != "affine":
-        return "coupling"
-    if kw.get("layer", "Linear") != "Linear":
-        return "layer"
-    return None
-
-
-SERVED = sorted(os.path.relpath(p, ROOT) for p in glob.glob(os.path.join(ROOT, "configs/runs/**/*.yaml"),
-                                                             recursive=True) if _served(p))
-BUILDS = [p for p in SERVED if _unported_model_option(os.path.join(ROOT, p)) is None]
-REFUSED = [p for p in SERVED if p not in BUILDS]
+RUN_CONFIGS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(os.path.join(ROOT, "configs/runs/**/*.yaml"),
+                                                                 recursive=True))
+BUILDS = [p for p in RUN_CONFIGS if not _uses_cnn(os.path.join(ROOT, p))]
+REFUSED = [p for p in RUN_CONFIGS if p not in BUILDS]
 
 
 def _shape_only_uniform(generator, shape, bound):
@@ -223,17 +212,72 @@ def test_run_config_builds_with_the_jax_parameter_count(rel, monkeypatch):
 
 @pytest.mark.parametrize("rel", REFUSED)
 def test_run_config_with_an_unported_model_option_raises(rel):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """The video configs (CNN) raise, naming the slice that ports them."""
+    with pytest.raises(NotImplementedError, match="not ported yet.*video slice.*slice 10"):
         CondRealNVP.from_config(load_config(os.path.join(ROOT, rel), verify=False))
 
 
 def test_registry_serves_the_jax_names_it_has_ported():
     from bcnf_tpu.factories import FeatureNetworkFactory as JaxFactory
 
-    assert set(FeatureNetworkFactory.REGISTRY) == {"FullyConnected", "LSTM", "ConcatenateCondition",
-                                                   "DualDomainLSTM", "VerboseLSTM"}
-    assert set(FeatureNetworkFactory.REGISTRY) <= set(JaxFactory.REGISTRY)
-    for name in sorted(set(JaxFactory.REGISTRY) - set(FeatureNetworkFactory.REGISTRY)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FeatureNetworkFactory.get_feature_network(name, {})
-    assert len(BUILDS) >= 50 and "configs/runs/nll/t_DLSTM_large.yaml" in BUILDS
+    assert set(FeatureNetworkFactory.REGISTRY) == set(JaxFactory.REGISTRY) - {"CNN"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FeatureNetworkFactory.get_feature_network("CNN", {})
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        FeatureNetworkFactory.get_feature_network("GRU", {})
+    assert (len(RUN_CONFIGS), len(BUILDS), len(REFUSED)) == (99, 91, 8)
+    assert "configs/runs/nll/t_PTRF_large.yaml" in BUILDS and "configs/runs/videos_CNN_LSTM_large.yaml" in REFUSED
+
+
+# ---------------------------------------------------------------------------
+# one model of each new family from its run config, on bridged JAX weights
+# ---------------------------------------------------------------------------
+
+ZOO = {  # config -> whether its flow is cut to 3 blocks of [8, 8]
+    "configs/runs/nll/t_PTRF_xsmall.yaml": False,
+    "configs/runs/hybrid/t_DPTRF_xsmall_hybrid.yaml": False,
+    "configs/runs/hybrid/t_DFC_xsmall_hybrid.yaml": False,
+    "configs/runs/trajectory_LSTM_noisy_calib7.yaml": False,
+    "configs/runs/dev/trajectory_SFrExp_LSTM_SiGLU_2_large.yaml": True,
+    "configs/runs/dev/trajectory_SFrExp_TRF_2_deep.yaml": True,
+    "configs/runs/dev/trajectory_LSTM_FFT_large_small_cond.yaml": True,
+}
+
+
+@pytest.mark.parametrize("rel", sorted(ZOO), ids=lambda r: os.path.basename(r)[:-5])
+def test_zoo_model_bridges_and_matches_jax(rel, tmp_path):
+    """The bridge is a plain copy each way on the new trees (attention
+    ``attn.{q,k,v,out}``, ``norm1/2``, ``ff1/2``, ``embed``, ``out``, the
+    dual-domain ``{time, freq, fc}``, AnyGLU's ``{gate, value}``, a
+    coupling's ``b``); the port's log_prob, inverse and hybrid head on the
+    bridged weights match JAX's at 1e-4."""
+    from bcnf_tpu_torch.bridge import params_to_numpy
+
+    with open(os.path.join(ROOT, rel)) as f:
+        cfg = yaml.safe_load(f)
+    if ZOO[rel]:
+        cfg["model"]["kwargs"].update(nested_sizes=[8, 8], n_blocks=3)
+    path = tmp_path / "run.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    jm = JaxCondRealNVP.from_config(jax_load_config(str(path), verify=False))
+    tm = CondRealNVP.from_config(load_config(str(path), verify=False))
+    jp = _np_tree(jm.init(jax.random.key(12)))
+    tp = params_from_numpy(jp, "cpu")
+    back = params_to_numpy(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    rng = np.random.default_rng(13)
+    T = int(round(cfg["data"]["T"] / cfg["data"]["dt"]))
+    traj = rng.normal(size=(5, T, 3)).astype(np.float32)
+    y = rng.normal(size=(5, tm.size)).astype(np.float32)
+    z = rng.normal(size=(5, tm.size)).astype(np.float32)
+    jpj = jax.tree.map(jnp.asarray, jp)
+    np.testing.assert_allclose(tm.log_prob(tp, torch.from_numpy(y), torch.from_numpy(traj)).numpy(),
+                               np.asarray(jm.log_prob(jpj, jnp.asarray(y), jnp.asarray(traj))), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tm.inverse(tp, torch.from_numpy(z), torch.from_numpy(traj)).numpy(),
+                               np.asarray(jm.inverse(jpj, jnp.asarray(z), jnp.asarray(traj))), atol=1e-4, rtol=0)
+    if tm.hybrid:
+        h_ref = jm.encode(jpj, (jnp.asarray(traj),))
+        np.testing.assert_allclose(tm.predict_head(tp, tm.encode(tp, (torch.from_numpy(traj),))).numpy(),
+                                   np.asarray(jm.predict_head(jpj, h_ref)), atol=1e-4, rtol=0)

@@ -59,7 +59,7 @@ def _jax_kernel(layer, params, rows, h_rows, inverse):
 def test_reference_matches_jax_interpret(coupling, inverse):
     layer, params, port, tp, y, h = coupling
     ref = _jax_kernel(layer, params, y, h, inverse)
-    h_proj = port.cond_proj(tp, torch.from_numpy(h))
+    h_proj = port.cond_proj(tp, torch.from_numpy(h))["a"][0]
     args = mlp_params_to_kernel_args(tp["a"], port.d_a)
     ours = fused_affine_coupling(torch.from_numpy(y[:, : port.d_a]), torch.from_numpy(y[:, port.d_a:]), h_proj,
                                  **args, inverse=inverse)
@@ -76,7 +76,7 @@ def test_rows_take_their_condition_modulo_n_cond(coupling, inverse):
     ref = _jax_kernel(layer, params, y, np.tile(h[:n], (B // n, 1)), inverse)
     ours = fused_affine_coupling_reference(
         torch.from_numpy(y[:, : port.d_a]), torch.from_numpy(y[:, port.d_a:]),
-        port.cond_proj(tp, torch.from_numpy(h[:n])), **mlp_params_to_kernel_args(tp["a"], port.d_a),
+        port.cond_proj(tp, torch.from_numpy(h[:n]))["a"][0], **mlp_params_to_kernel_args(tp["a"], port.d_a),
         inverse=inverse, n_cond=n)
     for a, b in zip((ours,) if inverse else ours, (ref,) if inverse else ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0)
@@ -191,7 +191,7 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing(coupling):
     layer, params, port, tp, y, h = coupling
     args = mlp_params_to_kernel_args(tp["a"], port.d_a)
     x_a, x_b = torch.from_numpy(y[:, : port.d_a]), torch.from_numpy(y[:, port.d_a:])
-    h_proj = port.cond_proj(tp, torch.from_numpy(h[:8]))
+    h_proj = port.cond_proj(tp, torch.from_numpy(h[:8]))["a"][0]
     before = fused_affine_coupling.launches
     z_b, ld = fused_affine_coupling(x_a, x_b, h_proj, **args)
     z_r, ld_r = fused_affine_coupling_reference(x_a, x_b, h_proj, **args, inverse=False, n_cond=8)

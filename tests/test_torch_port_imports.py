@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
         "need = ['__main__', 'ops.flow_kernel', 'ops.lstm_kernel', 'ops.coupling_kernel', 'train.trainer',\n"
         "        'train.optim', 'train.checkpoint', 'train.history', 'native', 'simulation.physics',\n"
         "        'simulation.priors', 'simulation.camera', 'simulation.observation', 'simulation.sampling',\n"
-        "        'simulation.resimulation', 'eval.calibration', 'plots.eval_plots']\n"
+        "        'simulation.resimulation', 'eval.calibration', 'plots.eval_plots', 'ops.attention',\n"
+        "        'models.layers', 'models.splines']\n"
         "assert all('bcnf_tpu_torch.' + n in names for n in need), names\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'bcnf_tpu' or m.startswith('bcnf_tpu.')]\n"
@@ -58,7 +59,7 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 34
+    assert int(out.stdout.strip()) >= 37
 
 
 def test_resolve_device_rule():
@@ -417,7 +418,7 @@ def test_coupling_kernel_matches_plain_version_on_card(cuda, inverse, hidden, n_
     rows = 7 * 41 + 3
     x_a = torch.randn((rows, port.d_a), generator=g, device=cuda)
     x_b = torch.randn((rows, port.d_b), generator=g, device=cuda)
-    h_proj = port.cond_proj(tp, torch.randn((7, 32), generator=g, device=cuda))
+    h_proj = port.cond_proj(tp, torch.randn((7, 32), generator=g, device=cuda))["a"][0]
     args = mlp_params_to_kernel_args(tp["a"], port.d_a)
     before = fused_affine_coupling.launches, fused_flow.launches
     out = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=inverse)
@@ -608,3 +609,71 @@ def test_impact_loop_graph_replays_match_the_eager_loop_on_card(cuda, monkeypatc
     eager = physics.point_of_impact(*args, dt=1 / 30, max_steps=700)
     assert torch.equal(graphed, eager)
     torch.testing.assert_close(graphed.cpu(), cpu, atol=1e-4, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo on the card: the Transformer encoder and the spline against
+# the CPU, and K1's gate on the couplings it does and does not cover
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_transformer_encoder_on_card_matches_cpu(cuda):
+    """t_PTRF_small's encoder widths (46 wide, 4 heads, positional
+    embeddings) on the card against the CPU, float32 products both sides."""
+    from bcnf_tpu_torch.models import Transformer
+
+    net = Transformer(input_size=3, trf_size=46, n_heads=4, ff_size=46, n_blocks=3, output_size=128,
+                      add_positional_embeddings=True)
+    params = net.init(torch.Generator().manual_seed(30))
+    x = torch.from_numpy(np.random.default_rng(31).normal(size=(64, 30, 3)).astype(np.float32))
+    with torch.no_grad():
+        on_cpu = net.apply(params, x)
+        on_card = net.apply(map_tree(lambda t: t.to(cuda), params), x.to(cuda))
+    torch.testing.assert_close(on_card.cpu(), on_cpu, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_spline_on_card_matches_cpu(cuda, inverse):
+    """The spline both ways on the card against the CPU, inside and outside
+    the tails: outputs at 1e-4, logdets at 2e-3 (the spline's bar)."""
+    from bcnf_tpu_torch.models.splines import rational_quadratic_spline
+
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy((rng.normal(size=(4096, 9)) * 2.4).astype(np.float32))
+    raw = torch.from_numpy(rng.normal(size=(4096, 9, 23)).astype(np.float32))
+    args = (x, raw[..., :8], raw[..., 8:16], raw[..., 16:])
+    y_cpu, ld_cpu = rational_quadratic_spline(*args, inverse=inverse)
+    y_card, ld_card = rational_quadratic_spline(*(a.to(cuda) for a in args), inverse=inverse)
+    torch.testing.assert_close(y_card.cpu(), y_cpu, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ld_card.cpu(), ld_cpu, atol=2e-3, rtol=0)
+    assert torch.equal(y_card.cpu()[x.abs() > 3], x[x.abs() > 3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts,launches", [
+    ({}, 1),
+    ({"two_way": True}, 0),
+    ({"layer": "AnyGLU", "layer_kwargs": {"activation": "Sigmoid"}}, 0),
+    ({"layer": "LinearFFTEnriched"}, 0),
+    ({"coupling": "rqs"}, 0),
+], ids=["linear", "two-way", "anyglu", "fft", "rqs"])
+def test_k1_launches_only_for_couplings_it_covers(cuda, opts, launches):
+    """Sampling launches K1 once for a one-way Linear GELU flow and never for
+    the others, which take the plain composition; samples finite."""
+    from bcnf_tpu_torch.models import Transformer
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3),
+                                 Transformer(input_size=3, trf_size=16, n_heads=4, ff_size=16, n_blocks=1,
+                                             output_size=8, add_positional_embeddings=True)])
+    model = CondRealNVP(size=5, nested_sizes=[16, 16], n_blocks=3, n_conditions=8, feature_network_stack=stack,
+                        act_norm=True, random_state=0, **opts)
+    params = model.init(device=cuda)
+    cond = torch.from_numpy(np.random.default_rng(33).normal(size=(4, 9, 3)).astype(np.float32))
+    before = fused_flow.launches
+    with torch.no_grad():
+        out = model.sample(params, torch.Generator().manual_seed(4), 50, cond, device=cuda)
+    torch.cuda.synchronize()
+    assert fused_flow.launches == before + launches
+    assert out.shape == (50, 4, 5) and torch.isfinite(out).all()

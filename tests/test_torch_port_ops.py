@@ -86,9 +86,15 @@ def test_dropout_is_identity_at_eval_and_scales_in_training():
 
 
 def test_unported_layer_families_raise():
-    for name in ("AnyGLU", "LinearFFTEnriched"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every family of the JAX registry resolves under its JAX name; a name
+    neither package has raises, as in JAX."""
+    for name in ("Linear", "AnyGLU", "LinearFFTEnriched"):
+        assert nn.get_dense_layer(name).name == jax_nn.get_dense_layer(name).name == name
+    for name in ("Conv1d", "GLU"):
+        with pytest.raises(NotImplementedError, match="not implemented"):
             nn.get_dense_layer(name)
+        with pytest.raises(NotImplementedError, match="not implemented"):
+            jax_nn.get_dense_layer(name)
 
 
 @pytest.mark.parametrize("bidirectional,num_layers", [(True, 2), (False, 1)])

@@ -341,7 +341,7 @@ def coupling_case():
     port = AffineCoupling(input_size=19, nested_sizes=[48, 48, 48], n_conditions=12)
     tp = params_from_numpy(params, "cpu")
     args = mlp_params_to_kernel_args(tp["a"], port.d_a)
-    h_proj = port.cond_proj(tp, torch.from_numpy(h))
+    h_proj = port.cond_proj(tp, torch.from_numpy(h))["a"][0]
     return layer, params, port, args, h_proj, y, h
 
 
