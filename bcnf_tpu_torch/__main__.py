@@ -7,8 +7,9 @@ Subcommands:
   trajectories, optional renders) and pickle it in the JAX package's schema
 - ``train``  — build a model from a run config, train it on a dataset
   (generated from the config's ``data`` section when ``data.path`` holds
-  none), and write `params.pkl` (a NumPy tree, the format `bcnf-tpu train`
-  writes) and `config.json` to the output directory
+  none), or with ``--online`` on a fresh simulated batch every step, and
+  write `params.pkl` (a NumPy tree, the format `bcnf-tpu train` writes) and
+  `config.json` to the output directory
 - ``sample`` — posterior sampling from a model directory as either package's
   ``train`` writes it (`config.json` + `params.pkl`)
 - ``eval``   — test NLL, calibration ranks and CDF residuals, posterior
@@ -17,12 +18,12 @@ Subcommands:
 - ``size``   — parameter count for a run config
 
 ``generate``, ``train``, ``sample`` and ``eval`` run on the GPU unless
-``--device cpu`` is given. Every run config in ``configs/runs/`` builds but
-the video ones, whose ``CNN`` encoder is refused (slice 10). Still refused, with the slice that ports them:
-``train --online*`` (6), ``train --pretrained-features`` (10), ``train
---dp-devices > 1`` and the multi-host flags (11), ``eval --dp-devices > 1``
-(11) and ``eval --precision`` other than float32 (7; ``sample --precision``
-raises in `CondRealNVP.precision`). ``hpo`` (7) is not offered yet.
+``--device cpu`` is given. Every run config in ``configs/runs/`` builds, the
+video ones (``CNN`` encoder) included. Still refused, with the slice that
+ports them: ``train --dp-devices > 1`` and the multi-host flags (11),
+``eval --dp-devices > 1`` (11) and ``eval --precision`` other than float32
+(7; ``sample --precision`` raises in `CondRealNVP.precision`). ``hpo`` (7)
+is not offered yet.
 
 Usage: ``python -m bcnf_tpu_torch generate -c configs/data_prior.yaml -o test.pkl -n 200``,
 ``python -m bcnf_tpu_torch train -c RUN.yaml -o MODEL_DIR``, then
@@ -69,12 +70,18 @@ def build_parser() -> argparse.ArgumentParser:
                               help="Override training.on_divergence")
     train_parser.add_argument("--device", type=str, default=None,
                               help="Device to train on (default: cuda; 'cpu' runs the plain path)")
-    # the JAX package's flags for paths the port has not reached yet: each raises
     train_parser.add_argument("--pretrained-features", type=str, default=None,
-                              help="Not ported yet (ROADMAP.md, slice 10)")
-    train_parser.add_argument("--online", action="store_true", help="Not ported yet (ROADMAP.md, slice 6)")
-    train_parser.add_argument("--online-steps", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 6)")
-    train_parser.add_argument("--online-lr-decay", action="store_true", help="Not ported yet (ROADMAP.md, slice 6)")
+                              help="Path to a params.pkl (or features subtree pickle) whose "
+                                   "feature-network weights initialize this model's conditioner")
+    train_parser.add_argument("--online", action="store_true",
+                              help="Infinite-data regime: draw a fresh simulated batch from the prior every step "
+                                   "(on the device, no dataset pickle); also enabled by training.online: true")
+    train_parser.add_argument("--online-steps", type=int, default=None,
+                              help="Step budget for --online (default: training.online_steps or 5000)")
+    train_parser.add_argument("--online-lr-decay", action="store_true",
+                              help="Cosine-decay the lr over the --online step budget "
+                                   "(also training.online_lr_decay: true)")
+    # the JAX package's flags for paths the port has not reached yet: each raises
     train_parser.add_argument("--dp-devices", type=int, default=0, help="Not ported yet above 1 (ROADMAP.md, slice 11)")
     train_parser.add_argument("--coordinator", type=str, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
     train_parser.add_argument("--num-processes", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
@@ -135,9 +142,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _cmd_train(args: argparse.Namespace) -> None:
     """`bcnf_tpu/__main__.py:153-299` for one device."""
     not_ported = {
-        "--online": (args.online or args.online_steps is not None or args.online_lr_decay, 6),
         "--dp-devices > 1": (args.dp_devices > 1, 11),
-        "--pretrained-features": (args.pretrained_features is not None, 10),
         "--coordinator/--num-processes/--process-id": (
             any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)), 11),
     }
@@ -186,6 +191,13 @@ def _cmd_train(args: argparse.Namespace) -> None:
         cfg["training"]["on_divergence"] = args.on_divergence
         if args.on_divergence == "rescue":
             cfg["training"]["keep_best"] = True
+
+    if args.online or cfg["training"].get("online"):
+        _train_online(args, cfg, model, params, sinks, resolved, device)
+        return
+
+    if args.pretrained_features:
+        cfg["training"]["pretrained_features"] = args.pretrained_features
     if args.freeze_features:
         cfg["training"]["freeze_features"] = True
 
@@ -216,6 +228,54 @@ def _cmd_train(args: argparse.Namespace) -> None:
         json.dump({"config_path": args.config}, f)
     print(f"Model saved to {resolved}")
 
+
+def _train_online(args: argparse.Namespace, cfg: dict, model, params, sinks: list, resolved: str, device) -> None:
+    """The online (infinite-data) regime of `train` (`bcnf_tpu/__main__.py:214-263`):
+    a fresh batch simulated on the device every step; `params.pkl` and
+    `config.json` with the JAX package's keys."""
+    from bcnf_tpu_torch.bridge import params_to_numpy
+    from bcnf_tpu_torch.config import load_yaml
+    from bcnf_tpu_torch.train.history import MultiSink
+    from bcnf_tpu_torch.train.online import OnlineSimulator, train_online
+
+    data_cfg = cfg["data"]
+    simulator = OnlineSimulator(
+        load_yaml(data_cfg["config_file"]),
+        model.parameter_index_mapping,
+        condition_groups=cfg["global"]["conditions"],
+        dt=float(data_cfg["dt"]),
+        T=float(data_cfg["T"]),
+        num_cams=int(data_cfg.get("num_cams", 2)),
+        break_on_impact=bool(data_cfg.get("break_on_impact", False)),
+        renderer=str(data_cfg.get("renderer", "analytic")),
+        observation_noise=float(data_cfg.get("observation_noise", 0.0)),
+    )
+    opt_kwargs = dict(cfg["optimizer"].get("kwargs", {}))
+    try:
+        params, history = train_online(
+            model, params, simulator,
+            n_steps=args.online_steps or int(cfg["training"].get("online_steps", 5000)),
+            batch_size=int(cfg["training"]["batch_size"]),
+            lr=float(opt_kwargs.get("lr", 2e-4)),
+            lr_decay=bool(args.online_lr_decay or cfg["training"].get("online_lr_decay", False)),
+            hybrid_weight=float(cfg["global"].get("hybrid_weight", 0) or 0),
+            seed=args.seed or 0,
+            sink=MultiSink(*sinks),
+            timeout=cfg["training"].get("timeout"),
+            checkpoint_dir=os.path.join(resolved, "ckpts") if args.checkpoint_every else None,
+            checkpoint_every=args.checkpoint_every or 500,
+            resume=bool(args.checkpoint_every),
+            device=device,
+        )
+    finally:
+        for sink in sinks:
+            sink.close()
+    with open(os.path.join(resolved, "params.pkl"), "wb") as f:
+        pickle.dump(params_to_numpy(params), f)
+    with open(os.path.join(resolved, "config.json"), "w") as f:
+        json.dump({"config_path": args.config, "online": True,
+                   "history_tail": {k: v[-3:] for k, v in history.items() if isinstance(v, list)}}, f)
+    print(f"Online-trained model saved to {resolved} (stop: {history.get('stop_reason')})")
 
 
 def _cmd_size(args: argparse.Namespace) -> None:

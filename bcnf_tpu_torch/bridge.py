@@ -11,7 +11,8 @@ single-layer LSTM tree each) likewise. So do the model zoo's trees: a
 `Transformer`'s ``embed``, ``blocks[i].{attn.{q,k,v,out}, norm1, norm2, ff1,
 ff2}`` and ``out``; the dual-domain encoders' ``{time, freq, fc}``; an
 AnyGLU layer's ``{gate, value}``; a two-way coupling's ``b`` beside ``a``
-(RQS couplings keep the affine ones' keys). So the bridge is a plain copy
+(RQS couplings keep the affine ones' keys); a `CNN`'s ``towers[t][i].{w, b}``
+(OIHW conv weights, torch's layout as well as JAX's) and ``head``. So the bridge is a plain copy
 each way and `params_to_numpy(params_from_numpy(t))` gives `t` back exactly
 (`tests/test_torch_port_conditioners.py`).
 """

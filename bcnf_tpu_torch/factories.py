@@ -1,14 +1,14 @@
 """String -> feature-network registry driven by the YAML config schema
 (port of `bcnf_tpu/factories.py`, reference `src/bcnf/factories.py:33-58`).
 
-Every name of the JAX registry is served but `CNN`, which raises
-`NotImplementedError` until the video slice lands (ROADMAP.md, slice 10).
+Every name of the JAX registry is served.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from bcnf_tpu_torch.models.cnn import CNN
 from bcnf_tpu_torch.models.feature_network import (
     ConcatenateCondition,
     DualDomainFC,
@@ -28,6 +28,7 @@ from bcnf_tpu_torch.models.layers import AnyGLU, FFTEnrichLayer, FFTLayer, Linea
 class FeatureNetworkFactory:
     REGISTRY: dict[str, type] = {  # the JAX registry's names (`bcnf_tpu/factories.py:34-49`)
         "FullyConnected": FullyConnectedFeatureNetwork,
+        "CNN": CNN,
         "LSTM": LSTMFeatureNetwork,
         "Transformer": Transformer,
         "ConcatenateCondition": ConcatenateCondition,
@@ -47,8 +48,6 @@ class FeatureNetworkFactory:
         if network is None:
             return Identity()
         cls = FeatureNetworkFactory.REGISTRY.get(network)
-        if network == "CNN":
-            raise NotImplementedError("Feature network CNN is not ported yet (the video slice: ROADMAP.md, slice 10)")
         if cls is None:
             raise NotImplementedError(f"Feature network {network} not implemented")
         kwargs = dict(network_kwargs)

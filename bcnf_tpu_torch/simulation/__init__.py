@@ -1,6 +1,6 @@
-"""The ballistic simulator: priors, physics, cameras, dataset generation
-and resimulation (port of `bcnf_tpu/simulation/`; the video processing
-waits for the video slice)."""
+"""The ballistic simulator: priors, physics, cameras, dataset generation,
+resimulation and real-video ingestion (`video_processing.py`) (port of
+`bcnf_tpu/simulation/`)."""
 
 from bcnf_tpu_torch.simulation.camera import (
     get_cams_position,

@@ -8,9 +8,14 @@ import torch
 def gaussian_observation_noise(generator: torch.Generator, p: torch.Tensor, std: float = 0.1) -> torch.Tensor:
     """Add Gaussian noise, drawn from `generator` on its device, while the
     object is airborne (z > 0)."""
-    noise = std * torch.randn(p.shape, generator=generator, device=generator.device)
-    airborne = p[..., -1:] > 0
-    return p + torch.where(airborne, noise, torch.zeros_like(noise))
+    return add_airborne_noise(p, torch.randn(p.shape, generator=generator, device=generator.device), std)
+
+
+def add_airborne_noise(p: torch.Tensor, eps: torch.Tensor, std: float) -> torch.Tensor:
+    """`p + std * eps` where the object is airborne (z > 0), else `p`: the
+    observation model on given standard-normal draws `eps`."""
+    noise = std * eps
+    return p + torch.where(p[..., -1:] > 0, noise, torch.zeros_like(noise))
 
 
 def simple_2D_camera_observation(

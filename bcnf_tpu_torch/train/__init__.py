@@ -1,5 +1,4 @@
-"""Training-side modules of the port (`bcnf_tpu/train/__init__.py`, without
-the online simulator: ROADMAP.md slice 6)."""
+"""Training-side modules of the port (`bcnf_tpu/train/__init__.py`)."""
 
 from bcnf_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from bcnf_tpu_torch.train.data import DeviceDataset, TrainerDataHandler
@@ -11,6 +10,7 @@ from bcnf_tpu_torch.train.history import (
     TrainerParameterHistoryHandler,
     WandbSink,
 )
+from bcnf_tpu_torch.train.online import OnlineSimulator, train_online
 from bcnf_tpu_torch.train.optim import (
     ReduceLROnPlateau,
     get_learning_rate,
@@ -22,6 +22,8 @@ from bcnf_tpu_torch.train.trainer import Trainer, train_CondRealNVP
 __all__ = [
     "Trainer",
     "train_CondRealNVP",
+    "OnlineSimulator",
+    "train_online",
     "TrainerDataHandler",
     "DeviceDataset",
     "TrainerParameterHistoryHandler",

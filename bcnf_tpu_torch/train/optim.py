@@ -21,7 +21,8 @@ host-side plateau scheduler lowers it between epochs.
 
 from __future__ import annotations
 
-from typing import Any
+import math
+from typing import Any, Callable
 
 import torch
 
@@ -101,6 +102,20 @@ def make_optimizer(
     if name not in _OPTAX_DEFAULTS:
         raise NotImplementedError(f"Optimizer {optimizer} not implemented")
     return OptimizerFactory(name, float(lr), max_grad_norm, dict(kwargs))
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    """optax's `cosine_decay_schedule`: the learning rate of the update after
+    `count` updates, ``init * ((1 - alpha) * 0.5 * (1 + cos(pi * min(count,
+    decay_steps) / decay_steps)) + alpha)``."""
+    if decay_steps <= 0:
+        raise ValueError("decay_steps must be positive")
+
+    def schedule(count: int) -> float:
+        cosine = 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 def set_learning_rate(opt_state: ClippedOptimizer, lr: float) -> ClippedOptimizer:

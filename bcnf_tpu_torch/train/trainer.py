@@ -14,9 +14,12 @@ and validation through K1. A step's metrics stay on the device; the host
 reads them once per epoch. Matmuls and convolutions run in float32 (TF32 is
 switched off), the contract of the JAX package's "highest" precision.
 
-Not ported yet, and refused: data parallelism (`mesh=`, ROADMAP.md slice 11),
-`training.pretrained_features` (slice 10) and `training.remat: true` (the
-kernels already recompute each step's activations in the backward).
+`training.pretrained_features: <path>` grafts a saved feature-network tree
+into the fresh parameters (`models/pretrained.py`), and
+`training.freeze_features` trains the flow alone. Not ported yet, and
+refused: data parallelism (`mesh=`, ROADMAP.md slice 11) and
+`training.remat: true` (the kernels already recompute each step's
+activations in the backward).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, params_to_numpy, tree_leaves
 from bcnf_tpu_torch.config import ParameterIndexMapping
 from bcnf_tpu_torch.errors import TrainingDivergedError
+from bcnf_tpu_torch.models.pretrained import load_pretrained_features
 from bcnf_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from bcnf_tpu_torch.train.data import DeviceDataset, TrainerDataHandler
 from bcnf_tpu_torch.train.history import MetricSink, StdoutSink, TrainerParameterHistoryHandler
@@ -167,8 +171,6 @@ class Trainer:
         if cfg_t.get("remat"):
             raise NotImplementedError("training.remat is not ported: the training kernels recompute "
                                       "each step's activations in the backward already")
-        if cfg_t.get("pretrained_features"):
-            raise NotImplementedError("training.pretrained_features is not ported yet (ROADMAP.md, slice 10)")
         # float32 is the contract: no TF32 in any matmul or convolution
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -196,6 +198,12 @@ class Trainer:
         if params is None:
             params = model.init(torch.Generator().manual_seed(self.seed), device=self.device)
         params = map_tree(lambda t: t.detach().to(self.device), params)
+        # the pretrained-conditioner workflow: saved feature-network weights
+        # replace the fresh ones (`bcnf_tpu/train/trainer.py:259-267`)
+        if cfg_t.get("pretrained_features"):
+            params = load_pretrained_features(params, cfg_t["pretrained_features"])
+            if self.verbose:
+                print(f"Loaded pretrained features from {cfg_t['pretrained_features']}")
         # Glow-style data-dependent ActNorm init, only while the scales are
         # still at their 1.0 default: resumed or pre-trained trees are kept
         if (

@@ -93,11 +93,31 @@ Phases, one line each; any failure exits non-zero and prints no result:
    hybrids (`t_DPTRF_large_hybrid`, `t_DFC_large_hybrid`): one `sample`
    through K1 and one training step each.
 
+14. the video path, `configs/runs/videos_CNN_LSTM_large.yaml` at its
+   published widths (CNN 1->8->16->32 on 2 cameras x 30 frames of 90 x 160,
+   a bidirectional 2-layer LSTM of H 212, a flow of 26 blocks of 5 x 526;
+   67,787,515 params) with BCNF_FUSED_LSTM=1: (a) its CNN on the card
+   against the CPU, features and weight grads; (b) K3a and K3b at H = 212
+   (Hp 224) against their plain versions at B = 64, 100 and 200, their
+   times at B = 64 beside the bound and cuDNN; (c) `train --online` at batch
+   64 for 24 steps, a batch simulated and rendered on the card each step,
+   launches held, then videos/s, a step split (simulate + render, CNN, LSTM,
+   flow forward, backward, clip + Adam) and a profiled step; (d) `generate
+   --output-type videos --renderer analytic` of 200 held-out videos; (e)
+   `sample`, and `eval` at its defaults (K1's launches by rows, the JAX
+   package's report keys, the test NLL of 8 points against the CPU plain
+   path); (f) one epoch of the `train` CLI on 160 videos it generates; (g)
+   `train --online --online-steps 8` on `trajectory_LSTM_noisy_calib2.yaml`
+   (observation noise); (h) `train --pretrained-features` from (c)'s
+   params.pkl with `--freeze-features`: the features stay (c)'s, bit for bit.
+
 The line before the last is the kernel table as JSON (each row with its
 arithmetic, `arith`: float32 FMA, or 3xTF32 on the tensor cores, its bound
-at that arithmetic's peak, and `zoo_launches`, its launches on phase 13's
-paths); the last line is {"ok": true, "device": {...}}. Imports nothing of
-JAX or of `bcnf_tpu`.
+at that arithmetic's peak, `zoo_launches` and `video_launches`, its
+launches on phase 13's and phase 14's video-model runs, and for K3a and K3b
+their `video_*` times and bound at the video model's LSTM shape); the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX or of
+`bcnf_tpu`.
 """
 
 from __future__ import annotations
@@ -577,10 +597,13 @@ def main() -> None:
     kernels += coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev, peaks)
     eval_path(dev, build_dir, peaks)
     zoo = model_zoo(rng, dev, build_dir, peaks)
-    for row in kernels:  # each kernel's launches on phase 13's paths, beside its main-path launches
+    video, lstm_video = video_path(rng, dev, build_dir, peaks)
+    for row in kernels:  # each kernel's launches on phase 13's and 14's paths, beside its main-path launches
         key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward"}.get(
             row["name"], row["name"].split()[0])
         row["zoo_launches"] = zoo.get(key, 0)
+        row["video_launches"] = video.get(key, 0)
+        row.update(lstm_video.get(key, {}))
 
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2331,6 +2354,525 @@ def model_zoo(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> di
     d["inverse"] += zoo_hybrids(rng, dev)
     print(f"    phase 13 took {time.perf_counter() - t0:.1f} s")
     return {"K1 inverse": d["inverse"], "K1 forward": d["forward"], **e}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the video path (CNN encoder, online training, video datasets,
+# pretrained features) on `videos_CNN_LSTM_large` at its published widths
+# ---------------------------------------------------------------------------
+
+VIDEO_CONFIG = "{{BCNF_ROOT}}/configs/runs/videos_CNN_LSTM_large.yaml"
+VIDEO_PARAMS = 67_787_515
+CALIB2_CONFIG = "{{BCNF_ROOT}}/configs/runs/trajectory_LSTM_noisy_calib2.yaml"
+ONLINE_STEPS = 24  # "a few dozen" online steps at the published batch 64
+
+
+def video_counts() -> dict:
+    """`lstm_counts()` with K1's launches by direction: at the video model's
+    padded width 544 K1's inverse runs on `wgmma` and its forward on the row
+    tiles."""
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_ROWS, ROUTE_WGMMA, fused_flow
+
+    c = lstm_counts()
+    del c["K1"]
+    c["K1 inverse"] = fused_flow.route_launches.get(ROUTE_WGMMA, 0)
+    c["K1 forward"] = fused_flow.route_launches.get(ROUTE_ROWS, 0)
+    return c
+
+
+def cnn_at_decisions(net, params: dict, x, decisions: list | None = None) -> tuple:
+    """The forward of a one-tower `CNN` (dropout off) as `CNN.apply`
+    computes it, but with each layer's ReLU mask and 2x2 max-pool argmax
+    taken from `decisions` (a (mask, indices) pair a layer; recorded where
+    None). Returns (features, decisions). ReLU and max-pool route a grad by
+    a comparison, so where two devices' float32 roundings fall on either
+    side of a tie (a pre-activation at 0, two equal maxima), their grads
+    differ by a whole activation's contribution: grads are compared at one
+    device's decisions."""
+    import torch.nn.functional as F
+
+    B, n_cams, T, H, W = x.shape
+    frames = x.transpose(0, 1).reshape(n_cams * B * T, 1, H, W)
+    recorded = []
+    for i, (p, (_, _, _, stride, pad)) in enumerate(zip(params["towers"][0], net.plan)):
+        a = F.conv2d(frames, p["w"], p["b"], stride=stride, padding=pad)
+        if decisions is None:
+            frames, idx = F.max_pool2d(F.relu(a), 2, return_indices=True)
+            mask = a > 0
+        else:
+            mask, idx = (t.to(a.device) for t in decisions[i])
+            frames = (a * mask).flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        recorded.append((mask, idx))
+    y = frames.reshape(n_cams, B, T, -1).permute(1, 2, 0, 3).reshape(B, T, -1)
+    return y @ params["head"]["w"] + params["head"]["b"], recorded
+
+
+def video_cnn_check(cfg: dict, dev) -> float:
+    """(a) The published CNN on the card against the CPU, same weights and
+    2 videos of 2 cameras x 30 frames (dropout off): `CNN.apply`'s features
+    at KERNEL_TOL; every weight grad (pulled back from a standard-normal
+    cotangent) at the flow grad bar, both devices at the card's ReLU and
+    max-pool decisions (those the CPU takes otherwise are counted). Returns
+    the features' max |d|."""
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.factories import FeatureNetworkFactory
+
+    kw = dict(next(fn["kwargs"] for fn in cfg["feature_networks"] if fn["type"] == "CNN"))
+    net = FeatureNetworkFactory.get_feature_network("CNN", kw)
+    params = net.init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.rand((2, 2, 30, *net.input_size), generator=gen)
+    ct = torch.randn((2, 30, net.output_size_lin), generator=gen)
+    card_params = map_tree(lambda t: t.to(dev), params)
+    with torch.no_grad():
+        feats = {"cpu": net.apply(params, x), "cuda": net.apply(card_params, x.to(dev)).cpu()}
+        y_dec, dec = cnn_at_decisions(net, card_params, x.to(dev))
+        _, cpu_dec = cnn_at_decisions(net, params, x)
+    err = (feats["cuda"] - feats["cpu"]).abs().max().item()
+    flips = [(int((m.cpu() != cm).sum()), int((i.cpu() != ci).sum())) for (m, i), (cm, ci) in zip(dec, cpu_dec)]
+    grads = {}
+    for d, p0, xd, ctd in (("cpu", params, x, ct), ("cuda", card_params, x.to(dev), ct.to(dev))):
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), p0)
+        (cnn_at_decisions(net, p, xd, dec)[0] * ctd).sum().backward()
+        grads[d] = [t.grad.cpu() for t in tree_leaves(p)]
+    names = [f"{k} {i}.{j}" for i, tower in enumerate(params["towers"]) for j in range(len(tower)) for k in ("dw", "db")]
+    worst = check_grads("CNN card vs CPU", names + ["dhead.w", "dhead.b"], grads["cuda"], grads["cpu"])
+    print(f"[14 video: CNN] plan {net.plan}, {net.final_output_size} features a camera, head "
+          f"{2 * net.final_output_size} -> {net.output_size_lin}: features on the card vs the CPU max|d| {err:.3e} "
+          f"(tolerance {KERNEL_TOL:g}); weight grads at the card's ReLU and max-pool decisions max|d| {worst:.3e} "
+          f"(the flow grad bar); decisions the CPU takes otherwise, (ReLU, max-pool) by layer: {flips} of "
+          f"{[(int(m.numel()), int(i.numel())) for m, i in dec]}")
+    if not err <= KERNEL_TOL or not torch.equal(y_dec.cpu(), feats["cuda"]):
+        fail(f"the video CNN on the card disagrees with the CPU ({err:.3e}), or the check's forward is not CNN.apply's")
+    return err
+
+
+def video_lstm_kernels(rng, dev, peaks: tuple[float, float, float]) -> dict:
+    """(b) K3a and K3b at the video model's LSTM (H = 212, so Hp = 224 and TN
+    = 7; T = 30) against their plain versions at the online batch 64 and at
+    eval's batches 100 (ranks, diagnostics) and 200 (test NLL), both
+    directions; their times at B = 64 beside the bound and cuDNN. Launches
+    here do not count."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.ops.lstm import lstm_cell_init
+    from bcnf_tpu_torch.ops.lstm_kernel import (
+        fwd_layout,
+        lstm_direction_bwd,
+        lstm_direction_bwd_reference,
+        lstm_direction_fwd,
+        lstm_direction_fwd_reference,
+    )
+
+    T, H, F = 30, 212, 2 * 212  # layer 2's input; the kernels see only xp
+    saved = lstm_direction_fwd.launches, lstm_direction_bwd.launches
+    p = {k: v.to(dev) for k, v in lstm_cell_init(torch.Generator().manual_seed(SEED), F, H).items()}
+    worst = {"K3a": 0.0, "K3b": 0.0}
+    for B in (64, 100, 200):
+        x = torch.from_numpy(rng.normal(size=(B, T, F)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            xp = (torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b_ih"] + p["b_hh"]).contiguous()
+            for reverse in (False, True):
+                hs, cs = lstm_direction_fwd(xp, p["w_hh"], reverse)
+                hs_r, cs_r = lstm_direction_fwd_reference(xp, p["w_hh"], reverse)
+                err = max((hs - hs_r).abs().max().item(), (cs - cs_r).abs().max().item())
+                dhs = torch.randn(hs.shape, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+                got = lstm_direction_bwd(xp, p["w_hh"], hs, cs, dhs, reverse)
+                ref = lstm_direction_bwd_reference(xp, p["w_hh"], hs, cs, dhs, reverse)
+                torch.cuda.synchronize()
+                if not err <= LSTM_TOL:
+                    fail(f"K3a at H={H} (B={B}, reverse={reverse}) disagrees with plain: {err:.3e} > {LSTM_TOL:g}")
+                worst["K3a"] = max(worst["K3a"], err)
+                worst["K3b"] = max(worst["K3b"], check_grads(
+                    f"K3b H={H} B={B} {'reverse' if reverse else 'forward'}", LSTM_GRADS, got, ref, LSTM_GRAD_ATOL,
+                    LSTM_GRAD_RTOL))
+    if (lstm_direction_fwd.launches - saved[0], lstm_direction_bwd.launches - saved[1]) != (6, 6):
+        fail("the LSTM kernels did not count their launches at H=212")
+    B = 64
+    x = torch.from_numpy(rng.normal(size=(B, T, F)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        xp = (torch.matmul(x.transpose(0, 1), p["w_ih"]) + p["b_ih"] + p["b_hh"]).contiguous()
+        hs, cs = lstm_direction_fwd(xp, p["w_hh"], False)
+        dhs = torch.randn(hs.shape, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        t = {
+            "K3a": cuda_ms(lambda: lstm_direction_fwd(xp, p["w_hh"], False), reps=5),
+            "K3a plain": cuda_ms(lambda: lstm_direction_fwd_reference(xp, p["w_hh"], False), reps=3),
+            "K3b": cuda_ms(lambda: lstm_direction_bwd(xp, p["w_hh"], hs, cs, dhs, False), reps=5),
+            "K3b plain": cuda_ms(lambda: lstm_direction_bwd_reference(xp, p["w_hh"], hs, cs, dhs, False), reps=3),
+        }
+        run = cudnn_lstm(p, F, H, False, dev)
+        t["cuDNN forward"] = cuda_ms(lambda: run(x), reps=5)
+    xg = x.clone().requires_grad_(True)
+    dy = dhs.transpose(0, 1).contiguous()
+
+    def fwd_bwd():
+        run(xg).backward(dy)
+
+    t["cuDNN forward + backward"] = cuda_ms(fwd_bwd, reps=5)
+    lstm_direction_fwd.launches, lstm_direction_bwd.launches = saved
+    med = {k: median(v) for k, v in t.items()}
+    fwd_work, bwd_work = lstm_work(T, B, H)
+    lay = fwd_layout(B, H, dev)
+    video = {}
+    for k, work, lib in (("K3a", fwd_work, med["cuDNN forward"]),
+                         ("K3b", bwd_work, med["cuDNN forward + backward"] - med["cuDNN forward"])):
+        bound, by = bound_ms(work, peaks, ARITH_3XTF32)
+        video[k] = {"video_shape": f"B {B}, T {T}, H {H} (Hp 224)", "video_ms": med[k],
+                    "video_plain_ms": med[f"{k} plain"], "video_bound_ms": bound, "video_bound_by": by,
+                    "video_library_ms": lib, "video_max_abs_err": worst[k]}
+    print(f"[14 video: LSTM kernels] K3a/K3b at H={H} (Hp 224, TN 7), T={T}, B=64/100/200, both directions, vs plain: "
+          f"K3a max|d| hs, cs {worst['K3a']:.3e} (tolerance {LSTM_TOL:g}), K3b grads max|d| {worst['K3b']:.3e}; "
+          f"layout at B=64: clusters of 8 blocks own {lay['rows']} rows, {lay['clusters']} cluster(s), "
+          f"{lay['resident_clusters']} resident at once; times at B=64 (CUDA events, median; ms): "
+          f"K3a {med['K3a']:.3f} (bound {video['K3a']['video_bound_ms']:.4f}, {video['K3a']['video_bound_by']}), "
+          f"plain {med['K3a plain']:.3f}, cuDNN forward {med['cuDNN forward']:.3f}; K3b {med['K3b']:.3f} (bound "
+          f"{video['K3b']['video_bound_ms']:.4f}), plain {med['K3b plain']:.3f}, cuDNN backward "
+          f"{video['K3b']['video_library_ms']:.3f}")
+    return video
+
+
+def video_step_split(model, params: dict, opt, sim, batch: int, gen) -> tuple[list[float], list[float]]:
+    """CUDA-event split of one online video step (ms, median of 3):
+    simulate + render, CNN, LSTM, flow forward (with the NLL), backward,
+    clip + Adam; and the steps' losses."""
+    import torch
+
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    nets, fns = params["features"]["nets"], model.features.feature_networks  # concat, CNN, LSTM, concat
+    splits, losses = [], []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        opt.zero_grad()
+        ev[0].record()
+        y, (videos, meta) = sim.sample_batch(gen, batch)
+        ev[1].record()
+        f = fns[1].apply(nets[1], videos, gen, train=True)
+        ev[2].record()
+        h = torch.cat([fns[2].apply(nets[2], f, gen, train=True), meta], dim=-1)
+        ev[3].record()
+        model.encode = lambda *_a, **_k: h  # the flow alone, on this step's condition
+        z, ld = model.forward(params, y, videos, meta, generator=gen, train=True)
+        del model.encode
+        loss = inn_nll_loss(z, ld)
+        ev[4].record()
+        loss.backward()
+        ev[5].record()
+        opt.step()
+        ev[6].record()
+        torch.cuda.synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(6)])
+        losses.append(loss.item())
+    return [sorted(c)[1] for c in zip(*splits)], losses
+
+
+def video_online(cfg: dict, dev, tmp: str) -> tuple[dict, str]:
+    """(c) `train --online` on the published config at its batch 64 for
+    ONLINE_STEPS steps with the fused LSTM: losses, launches held exact;
+    then, on the trained params, videos/s over 5 steps, a step split and a
+    profiled step. Returns the launches and the model directory."""
+    import numpy as np
+    import torch
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, tree_leaves
+    from bcnf_tpu_torch.config import load_config, load_yaml
+    from bcnf_tpu_torch.models import CondRealNVP, count_params
+    from bcnf_tpu_torch.train import make_optimizer
+    from bcnf_tpu_torch.train.online import OnlineSimulator
+
+    model_dir = os.path.join(tmp, "online")
+    fused_lstm(True)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", "-c", VIDEO_CONFIG, "-o", model_dir, "--online", "--online-steps", str(ONLINE_STEPS),
+              "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    t_cli, c = time.perf_counter() - t0, video_counts()
+    with open(os.path.join(model_dir, "config.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(model_dir, "params.pkl"), "rb") as f:
+        trained_np = pickle.load(f)
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f if line.strip()]
+    evals = 4  # train_online's default eval batches, after the last step
+    expected = {"K3a": 4 * (1 + ONLINE_STEPS + evals), "K3b": 4 * ONLINE_STEPS, "K2a": 0, "K2b": 0,
+                "K1 inverse": 0, "K1 forward": evals}
+    losses = [v for k in ("train_loss", "eval_nll") for _, v in meta["history_tail"][k]]
+    if c != expected:
+        fail(f"train --online launched {c}, expected {expected} (2 layers x 2 directions; the ActNorm init, "
+             f"{ONLINE_STEPS} steps, {evals} eval batches through K1's forward)")
+    if not (meta.get("online") is True and np.all(np.isfinite(losses))
+            and all(np.isfinite(a).all() for a in tree_leaves(trained_np))):
+        fail(f"train --online wrote {meta} or non-finite params")
+
+    model = CondRealNVP.from_config(load_config(VIDEO_CONFIG))
+    params = map_tree(lambda t: t.requires_grad_(True), params_from_numpy(trained_np, dev))
+    if count_params(params) != VIDEO_PARAMS:
+        fail(f"videos_CNN_LSTM_large has {count_params(params):,} params, expected {VIDEO_PARAMS:,}")
+    data = cfg["data"]
+    sim = OnlineSimulator(load_yaml(data["config_file"]), model.parameter_index_mapping,
+                          condition_groups=cfg["global"]["conditions"], dt=float(data["dt"]), T=float(data["T"]),
+                          num_cams=int(data["num_cams"]))
+    B = int(cfg["training"]["batch_size"])
+    opt = make_optimizer("Adam", lr=2e-4).init(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    split, step_losses = video_step_split(model, params, opt, sim, B, gen)
+
+    def step():
+        opt.zero_grad()
+        y, conds = sim.sample_batch(gen, B)
+        z, ld = model.forward(params, y, *conds, generator=gen, train=True)
+        (0.5 * torch.sum(z**2, dim=1) - ld).mean().backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    rate = 5 * B / (time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    device_profile(step, f"one online video step at batch {B}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[14 video: train --online] videos_CNN_LSTM_large ({VIDEO_PARAMS:,} params; CNN -> LSTM H 212 -> "
+          f"{model.n_conditions} conditions; flow {model.n_blocks} blocks of {len(model.nested_sizes)} x "
+          f"{model.nested_sizes[0]}, coupling dropout {model.dropout}) from its published config, BCNF_FUSED_LSTM=1: "
+          f"{ONLINE_STEPS} steps at batch {B}, a fresh batch simulated and rendered on the card each step, in "
+          f"{t_cli:.2f} s (CLI, with the ActNorm init and the eval); launches {c} (held); logged "
+          f"{[{k: round(v, 3) for k, v in r.items() if k != 'step'} for r in logged]}; history tail "
+          f"{meta['history_tail']}")
+    print(f"    trained params: {rate:.1f} videos/s (5 steps at batch {B}; each video 2 cameras x {sim.n_steps} frames "
+          f"of 90 x 160); step split (CUDA events, median of 3, ms): simulate + render {split[0]:.2f}, CNN {split[1]:.2f}, "
+          f"LSTM {split[2]:.2f}, flow forward {split[3]:.2f}, backward {split[4]:.2f}, clip + Adam {split[5]:.2f} "
+          f"(sum {sum(split):.2f}); the split's losses {', '.join(f'{v:.3f}' for v in step_losses)}; peak device "
+          f"memory of the profiled step {peak_gb:.2f} GB")
+    if not np.all(np.isfinite(step_losses)):
+        fail(f"online video steps gave non-finite losses {step_losses}")
+    return c, model_dir
+
+
+def video_generate_sample_eval(cfg: dict, model_dir: str, dev, tmp: str) -> tuple[dict, str]:
+    """(d) `generate --output-type videos --renderer analytic` of 200
+    held-out points on the card; (e) `sample` and `eval` at its defaults on
+    the online-trained model: K1's launches by direction, route and rows,
+    `report.json`'s keys, and the test NLL of 8 points on the card against
+    the CPU plain path at phase 12's bar. Returns the launches."""
+    import numpy as np
+    import torch
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.bridge import map_tree, params_from_numpy
+    from bcnf_tpu_torch.config import load_config
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.train.data import TrainerDataHandler
+    from bcnf_tpu_torch.utils.io import load_data
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    from bcnf_tpu_torch.simulation.physics import n_steps_for
+
+    n_test, data = 200, cfg["data"]
+    n_frames = n_steps_for(float(data["T"]), float(data["dt"]))
+    test_set = os.path.join(tmp, "test_videos.pkl")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["generate", "-c", PRIOR_CONFIG, "-o", test_set, "-n", str(n_test), "--output-type", "videos",
+              "--renderer", "analytic", "--no-filter", "--dt", str(data["dt"]), "-T", str(data["T"]),
+              "--seed", str(SEED + 1)])
+    t_gen = time.perf_counter() - t0
+    videos = np.asarray(load_data(test_set, keep_output_type="videos")["videos"])
+    if videos.shape != (n_test, 2, n_frames, 90, 160) or not np.isfinite(videos).all():
+        fail(f"generate --output-type videos gave {videos.shape}, finite={np.isfinite(videos).all()}")
+    print(f"[14 video: generate] {n_test} videos (2 cameras x {n_frames} frames of 90 x 160, analytic renderer, no filter) "
+          f"on the card in {t_gen:.2f} s, with the pickle; mean frame mass {videos.sum(axis=(3, 4)).mean():.3f}")
+
+    zero_counts()
+    out = os.path.join(tmp, "video_samples.npy")
+    with K1Recorder() as k1_sample:
+        cli.main(["sample", "-m", model_dir, "-d", test_set, "-n", "1000", "-o", out, "--seed", "1"])
+    samples = np.load(out)
+    c_sample = video_counts()
+    if samples.shape != (1000, n_test, 19) or not np.isfinite(samples).all() or c_sample["K1 inverse"] != 1:
+        fail(f"sample gave {samples.shape}, finite={np.isfinite(samples).all()}, K1 {k1_sample.summary()}")
+    zero_counts()
+    with K1Recorder() as k1:
+        (report, figs, stages), t_eval = run_eval(["eval", "-m", model_dir, "-d", test_set, "-o",
+                                                   os.path.join(tmp, "video_report")])
+    c_eval = video_counts()
+    launches = k1.summary()
+    expected = {("inverse", "wgmma", 100 * 1000): 2 * 10, ("inverse", "wgmma", 100 * 128): 2 * 4,
+                ("inverse", "wgmma", n_test * 250): 4, ("forward", "rows", n_test): 1}
+    keys = {"test_nll", "n_points", "M_samples", "rank_mean_frac", "max_scaled_cdf_residual",
+            "max_scaled_cdf_residual_all_dims", "scaled_cdf_residual_by_dim", "degenerate_dims", "sup_band_99",
+            "n_nondegenerate_dims", "sup_band_99_joint", "calibration_pass_per_dim_band",
+            "calibration_pass_joint_band", "calibration_verdict_by_dim", "posterior_width_by_dim",
+            "posterior_bias_by_dim", "data_spread_by_dim", "resim_median_mse_mean", "resim_finite_frac",
+            "impact_median_dist", "impact_rmse_within_42m", "impact_inlier_frac", "impact_defined_frac"}
+    with open(os.path.join(tmp, "video_report", "report.json")) as f:
+        written = json.load(f)
+    if launches != expected:
+        fail(f"eval launched K1 {launches}, expected {expected}")
+    if set(written) != keys or not np.isfinite(report["test_nll"]) or report["n_points"] != n_test:
+        fail(f"eval's report.json has keys {sorted(written)}, not the JAX package's")
+    ranks = figs["ranks"]
+    if ranks.shape != (n_test, 19) or ranks.min() < 0 or ranks.max() > report["M_samples"]:
+        fail(f"eval's ranks have shape {ranks.shape} and range {ranks.min()}-{ranks.max()}")
+    # the test NLL of 8 points: the card's forward (K1) against the CPU plain path
+    run_cfg = load_config(VIDEO_CONFIG)
+    model = CondRealNVP.from_config(run_cfg)
+    with open(os.path.join(model_dir, "params.pkl"), "rb") as f:
+        trained_np = pickle.load(f)
+    y_test, conds = TrainerDataHandler().get_data_for_training(
+        {k.lower(): v for k, v in dict(run_cfg, data=dict(run_cfg["data"], path=test_set)).items()},
+        model.parameter_index_mapping)
+    y8, c8 = torch.from_numpy(y_test[:8]), [torch.from_numpy(c[:8]) for c in conds]
+    params = params_from_numpy(trained_np, dev)
+    with torch.no_grad():
+        z_card, ld_card = model.forward(params, y8.to(dev), *[c.to(dev) for c in c8])
+        z_cpu, ld_cpu = model.forward(map_tree(lambda t: t.cpu(), params), y8, *c8)
+    nll_card, nll_cpu = inn_nll_loss(z_card, ld_card).item(), inn_nll_loss(z_cpu, ld_cpu).item()
+    nll_bar = KERNEL_TOL * (z_cpu.abs().sum(dim=1).mean().item() + 1) + 19 * KERNEL_TOL**2
+    nll_d = abs(nll_card - nll_cpu)
+    zero_counts()
+    print(f"[14 video: sample, eval] sample 1000 x {n_test}: K1 {k1_sample.summary()}; eval at its defaults (200 "
+          f"points, M {report['M_samples']}, 1000 resimulation draws) {t_eval:.2f} s, stages (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) +
+          f"; K1 launches (direction, route, rows): {launches}; K3a {c_eval['K3a']}; report.json has the JAX "
+          f"package's {len(keys)} keys; test NLL {report['test_nll']:.3f}, rank mean fraction "
+          f"{report['rank_mean_frac']:.3f}, max scaled CDF residual {report['max_scaled_cdf_residual']:.2f}, "
+          f"resimulation finite {report['resim_finite_frac']:.3f}; test NLL of 8 points on the card {nll_card:.6f} "
+          f"vs the CPU plain path {nll_cpu:.6f}: |d| {nll_d:.2e} (bar {nll_bar:.2e})")
+    if not nll_d <= nll_bar:
+        fail(f"the video model's test NLL on the card is {nll_d:.3e} from the CPU plain path's (bar {nll_bar:.3e})")
+    return {k: c_sample[k] + c_eval[k] for k in c_eval}, test_set
+
+
+def video_offline(dev, tmp: str, online_dir: str) -> dict:
+    """(f) one `Trainer` epoch through the `train` CLI on 160 videos it
+    generates on the card (no dataset on disk), batch 64: 2 steps and a
+    validation batch, launches held; (h) `train --pretrained-features` from
+    (c)'s params.pkl with `--freeze-features` on the same data: the features
+    it writes are (c)'s, bit for bit. Returns the launches of both runs."""
+    import numpy as np
+    import torch
+    import yaml
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.bridge import tree_leaves
+    from bcnf_tpu_torch.config import sub_root_path
+
+    with open(sub_root_path(VIDEO_CONFIG)) as f:
+        cfg = yaml.safe_load(f)
+    data_dir = os.path.join(tmp, "train_videos")
+    cfg["data"].update(path=data_dir, n_samples=160)
+    cfg["training"]["n_epochs"] = 1
+    cfg_path = os.path.join(tmp, "video_run.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    n, B = cfg["data"]["n_samples"], int(cfg["training"]["batch_size"])
+    n_train = n - int(round(cfg["training"]["validation_split"] * n))  # 128 of 160 at the published split
+    steps, val_batches = n_train // B, -(-(n - n_train) // B)
+    expected = {"K3a": 4 * (1 + steps + val_batches), "K3b": 4 * steps, "K2a": 0, "K2b": 0, "K1 inverse": 0,
+                "K1 forward": val_batches}
+    counts = {}
+    for what, extra in (("Trainer epoch", []),
+                        ("pretrained", ["--pretrained-features", os.path.join(online_dir, "params.pkl"),
+                                        "--freeze-features", "-d", os.path.join(data_dir, "data.pkl")])):
+        model_dir = os.path.join(tmp, what.split()[0])
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main(["train", "-c", cfg_path, "-o", model_dir, "--seed", str(SEED), *extra])
+        torch.cuda.synchronize()
+        secs, c = time.perf_counter() - t0, video_counts()
+        counts[what] = c
+        with open(os.path.join(model_dir, "params.pkl"), "rb") as f:
+            trained = pickle.load(f)
+        if c != expected or not all(np.isfinite(a).all() for a in tree_leaves(trained)):
+            fail(f"{what}: train launched {c} (expected {expected}) or wrote non-finite params")
+        if what == "pretrained":
+            with open(os.path.join(online_dir, "params.pkl"), "rb") as f:
+                source = pickle.load(f)
+            same = all(np.array_equal(a, b) for a, b in zip(tree_leaves(trained["features"]),
+                                                            tree_leaves(source["features"])))
+            moved = not np.array_equal(trained["final"]["a"]["layers"][0]["w"], source["final"]["a"]["layers"][0]["w"])
+            print(f"[14 video: pretrained] train --pretrained-features (c)'s params.pkl --freeze-features, 1 epoch "
+                  f"({steps} steps of {B}): {secs:.2f} s; launches {c}; features after the steps equal (c)'s bit for "
+                  f"bit: {same}; the flow moved: {moved}")
+            if not (same and moved):
+                fail("the pretrained features changed under --freeze-features, or the flow did not train")
+        else:
+            print(f"[14 video: Trainer] train CLI on {n} videos generated on the card (no filter, dt "
+                  f"{cfg['data']['dt']}), 1 epoch ({steps} steps of {B} + {val_batches} validation batch(es)): "
+                  f"{secs:.2f} s; launches {c} (held)")
+    return {k: sum(c[k] for c in counts.values()) for k in expected}
+
+
+def calib2_online(dev, tmp: str) -> None:
+    """(g) `train --online --online-steps` on the noisy calibration config
+    calib2 (observation noise 1.5, LSTM H 64): the trajectory branch with
+    noise, as the JAX package's `*_online` calibration runs were trained;
+    the fused LSTM's launches held."""
+    import numpy as np
+    import torch
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.config import load_config
+    from bcnf_tpu_torch.models import CondRealNVP
+
+    steps, model_dir = 8, os.path.join(tmp, "calib2")
+    fused_lstm(True)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", "-c", CALIB2_CONFIG, "-o", model_dir, "--online", "--online-steps", str(steps),
+              "--online-lr-decay", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    secs, c = time.perf_counter() - t0, lstm_counts()
+    with open(os.path.join(model_dir, "config.json")) as f:
+        meta = json.load(f)
+    model = CondRealNVP.from_config(load_config(CALIB2_CONFIG))
+    k1 = 4 if model._fused_flow_takes() else 0
+    expected = {"K3a": 4 * (1 + steps + 4), "K3b": 4 * steps, "K1": k1, "K2a": 0, "K2b": 0}
+    losses = [v for k in ("train_loss", "eval_nll") for _, v in meta["history_tail"][k]]
+    print(f"[14 video: calib2 online] trajectory_LSTM_noisy_calib2 (observation noise "
+          f"{load_config(CALIB2_CONFIG)['data']['observation_noise']}), train --online --online-steps {steps} "
+          f"--online-lr-decay at batch {load_config(CALIB2_CONFIG)['training']['batch_size']}: {secs:.2f} s; launches "
+          f"{c}; history tail {meta['history_tail']}")
+    if c != expected or not np.all(np.isfinite(losses)):
+        fail(f"calib2's online run launched {c} (expected {expected}) or logged non-finite losses {losses}")
+
+
+def video_path(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> tuple[dict, dict]:
+    """Phase 14: (a)-(h). Returns each kernel's launches on the video model's
+    runs ((c), (e), (f), (h); counts zeroed before each and read after) and
+    K3a's and K3b's times at H = 212."""
+    import torch
+    import yaml
+
+    from bcnf_tpu_torch.config import sub_root_path
+
+    t0 = time.perf_counter()
+    with open(sub_root_path(VIDEO_CONFIG)) as f:
+        cfg = yaml.safe_load(f)
+    video_cnn_check(cfg, dev)
+    lstm_video = video_lstm_kernels(rng, dev, peaks)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        c_online, online_dir = video_online(cfg, dev, tmp)
+        c_eval, _ = video_generate_sample_eval(cfg, online_dir, dev, tmp)
+        c_offline = video_offline(dev, tmp, online_dir)
+        calib2_online(dev, tmp)
+    torch.cuda.synchronize()
+    launches = {k: c_online[k] + c_eval[k] + c_offline[k] for k in c_online}
+    print(f"    phase 14 took {time.perf_counter() - t0:.1f} s; the video model's launches ((c), (e), (f), (h)): "
+          f"{launches}")
+    return launches, lstm_video
 
 
 if __name__ == "__main__":

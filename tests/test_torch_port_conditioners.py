@@ -2,8 +2,8 @@
 `VerboseLSTM.apply_verbose` and `DualDomainLSTM` against the JAX package on
 bridged params (dropout off), a cut-down `t_DLSTM_large` built by
 `from_config` in both packages (log_prob, inverse, a short Trainer), and
-every run config but the video (CNN) ones, built at their published widths
-with the JAX package's parameter tree. Tolerances: features 1e-5, flow outputs
+every run config, the video (CNN) ones included, built at its published
+widths with the JAX package's parameter tree. Tolerances: features 1e-5, flow outputs
 1e-4 (tests/test_flow_kernel.py), per-epoch losses rtol 1e-3 (as
 tests/test_torch_port_train.py)."""
 
@@ -27,6 +27,7 @@ from bcnf_tpu_torch.bridge import params_from_numpy, tree_leaves
 from bcnf_tpu_torch.config import load_config, sub_root_path
 from bcnf_tpu_torch.factories import FeatureNetworkFactory
 from bcnf_tpu_torch.models import CondRealNVP, DualDomainLSTM, FullyConnectedFeatureNetwork, VerboseLSTM, count_params
+from bcnf_tpu_torch.models import cnn
 from bcnf_tpu_torch.ops import lstm, nn
 from bcnf_tpu_torch.train import Trainer
 
@@ -176,25 +177,15 @@ def test_small_dlstm_trainer_val_loss_matches_jax(tmp_path):
 # every run config the port's registry serves, at its published widths
 # ---------------------------------------------------------------------------
 
-def _uses_cnn(path: str) -> bool:
-    """Whether the config's feature networks need `CNN`, which the port
-    refuses until the video slice (ROADMAP.md, slice 10)."""
-    with open(path) as f:
-        cfg = yaml.safe_load(f)
-    return any(fn.get("type") == "CNN" for fn in cfg.get("feature_networks") or [])
-
-
 RUN_CONFIGS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(os.path.join(ROOT, "configs/runs/**/*.yaml"),
                                                                  recursive=True))
-BUILDS = [p for p in RUN_CONFIGS if not _uses_cnn(os.path.join(ROOT, p))]
-REFUSED = [p for p in RUN_CONFIGS if p not in BUILDS]
 
 
 def _shape_only_uniform(generator, shape, bound):
     return torch.empty(shape, device="meta")
 
 
-@pytest.mark.parametrize("rel", BUILDS)
+@pytest.mark.parametrize("rel", RUN_CONFIGS)
 def test_run_config_builds_with_the_jax_parameter_count(rel, monkeypatch):
     """The port builds the config and its parameter tree has the JAX
     package's leaf shapes (drawn as shapes only, so the full widths cost no
@@ -202,7 +193,7 @@ def test_run_config_builds_with_the_jax_parameter_count(rel, monkeypatch):
     path = os.path.join(ROOT, rel)
     jm = JaxCondRealNVP.from_config(jax_load_config(path, verify=False))
     ref = jax.eval_shape(jm.init, jax.random.key(0))
-    for mod in (nn, lstm):
+    for mod in (nn, lstm, cnn):
         monkeypatch.setattr(mod, "uniform", _shape_only_uniform)
     tm = CondRealNVP.from_config(load_config(path, verify=False))
     params = tm.init(torch.Generator().manual_seed(0), device="meta")
@@ -210,23 +201,20 @@ def test_run_config_builds_with_the_jax_parameter_count(rel, monkeypatch):
     assert sorted(tuple(t.shape) for t in tree_leaves(params)) == sorted(tuple(a.shape) for a in jax.tree.leaves(ref))
 
 
-@pytest.mark.parametrize("rel", REFUSED)
-def test_run_config_with_an_unported_model_option_raises(rel):
-    """The video configs (CNN) raise, naming the slice that ports them."""
-    with pytest.raises(NotImplementedError, match="not ported yet.*video slice.*slice 10"):
-        CondRealNVP.from_config(load_config(os.path.join(ROOT, rel), verify=False))
-
-
 def test_registry_serves_the_jax_names_it_has_ported():
     from bcnf_tpu.factories import FeatureNetworkFactory as JaxFactory
 
-    assert set(FeatureNetworkFactory.REGISTRY) == set(JaxFactory.REGISTRY) - {"CNN"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FeatureNetworkFactory.get_feature_network("CNN", {})
+    assert set(FeatureNetworkFactory.REGISTRY) == set(JaxFactory.REGISTRY)
     with pytest.raises(NotImplementedError, match="not implemented"):
         FeatureNetworkFactory.get_feature_network("GRU", {})
-    assert (len(RUN_CONFIGS), len(BUILDS), len(REFUSED)) == (99, 91, 8)
-    assert "configs/runs/nll/t_PTRF_large.yaml" in BUILDS and "configs/runs/videos_CNN_LSTM_large.yaml" in REFUSED
+    refused = []
+    for rel in RUN_CONFIGS:
+        try:
+            CondRealNVP.from_config(load_config(os.path.join(ROOT, rel), verify=False))
+        except NotImplementedError:
+            refused.append(rel)
+    assert (len(RUN_CONFIGS), len(RUN_CONFIGS) - len(refused), len(refused)) == (99, 99, 0)
+    assert {"configs/runs/nll/t_PTRF_large.yaml", "configs/runs/videos_CNN_LSTM_large.yaml"} <= set(RUN_CONFIGS)
 
 
 # ---------------------------------------------------------------------------

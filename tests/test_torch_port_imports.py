@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
         "        'train.optim', 'train.checkpoint', 'train.history', 'native', 'simulation.physics',\n"
         "        'simulation.priors', 'simulation.camera', 'simulation.observation', 'simulation.sampling',\n"
         "        'simulation.resimulation', 'eval.calibration', 'plots.eval_plots', 'ops.attention',\n"
-        "        'models.layers', 'models.splines']\n"
+        "        'models.layers', 'models.splines', 'models.cnn', 'models.pretrained', 'train.online',\n"
+        "        'simulation.video_processing', 'plots.debug_plotting']\n"
         "assert all('bcnf_tpu_torch.' + n in names for n in need), names\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'bcnf_tpu' or m.startswith('bcnf_tpu.')]\n"
@@ -59,7 +60,7 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 37
+    assert int(out.stdout.strip()) >= 42
 
 
 def test_resolve_device_rule():
@@ -322,7 +323,8 @@ def test_sample_on_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
-@pytest.mark.parametrize("hidden,batch,steps", [(12, 7, 10), (140, 259, 30), (128, 33, 16), (256, 40, 5)])
+@pytest.mark.parametrize("hidden,batch,steps", [(12, 7, 10), (140, 259, 30), (128, 33, 16), (256, 40, 5),
+                                                (212, 64, 30), (212, 100, 30)])  # the video model's LSTM: Hp 224
 def test_lstm_kernels_match_plain_versions_on_card(cuda, reverse, hidden, batch, steps):
     """K3a's hs, cs and K3b's dxp, dW_hh against the plain versions, ragged
     batches (the bars of tests/test_lstm_kernel.py, dW_hh's atol scaled to
@@ -677,3 +679,75 @@ def test_k1_launches_only_for_couplings_it_covers(cuda, opts, launches):
     torch.cuda.synchronize()
     assert fused_flow.launches == before + launches
     assert out.shape == (50, 4, 5) and torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_video_cnn_on_card_matches_cpu(cuda):
+    """The published video CNN (`videos_CNN_LSTM_large`: 1->8->16->32,
+    kernels 8/5/3, head 16128 -> 1000) on the card against the CPU, float32
+    both sides (TF32 off): features at 1e-4; weight grads at the JAX grad
+    bar (atol 5e-4, rtol 1e-3) at the card's ReLU and max-pool decisions,
+    which float32 rounding may take otherwise at a near-tie
+    (`chip_smoke.cnn_at_decisions`)."""
+    from bcnf_tpu_torch.bridge import tree_leaves
+    from bcnf_tpu_torch.models import CNN
+    from chip_smoke import cnn_at_decisions
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = CNN(hidden_channels=[8, 16, 32], kernel_sizes=[8, 5, 3], strides=[1, 1, 1], output_size_lin=1000,
+              output_size=1000, image_input_size=(90, 160), dropout_prob=0.5)
+    params = net.init(torch.Generator().manual_seed(40))
+    x = torch.from_numpy(np.random.default_rng(41).uniform(size=(2, 2, 5, 90, 160)).astype(np.float32))
+    ct = torch.from_numpy(np.random.default_rng(42).normal(size=(2, 5, 1000)).astype(np.float32))
+    card = map_tree(lambda t: t.to(cuda), params)
+    with torch.no_grad():
+        torch.testing.assert_close(net.apply(card, x.to(cuda)).cpu(), net.apply(params, x), atol=1e-4, rtol=0)
+        _, decisions = cnn_at_decisions(net, card, x.to(cuda))
+    grads = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = map_tree(lambda t: t.detach().to(dev).requires_grad_(True), params)
+        (cnn_at_decisions(net, p, x.to(dev), decisions)[0] * ct.to(dev)).sum().backward()
+        grads[dev.type] = [t.grad.cpu() for t in tree_leaves(p)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_online_video_step_on_card(cuda):
+    """The online simulator on the card assembles the CPU's batch from the
+    same draws (y exactly, trajectories and frames within 1e-4), and online
+    video training takes steps on the card with finite losses."""
+    import os
+
+    from bcnf_tpu_torch.bridge import tree_leaves
+    from bcnf_tpu_torch.config import ParameterIndexMapping, load_yaml
+    from bcnf_tpu_torch.models import CNN
+    from bcnf_tpu_torch.train.online import OnlineSimulator, train_online
+
+    prior = load_yaml(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+                                   "data_prior.yaml"))
+    names = ["x0_x", "x0_y", "x0_z", "v0_x", "v0_y", "v0_z", "g", "w_x", "w_y", "w_z", "b", "m", "a_x", "a_y",
+             "a_z", "r", "A", "Cd", "rho"]
+    sim = OnlineSimulator(prior, ParameterIndexMapping(names), condition_groups=[
+        ["videos"], ["cam_radian", "cam_radius", "cam_angles", "cam_heights"]], dt=0.1, T=0.5, ratio=(3, 2))
+    draws = sim.draw(torch.Generator().manual_seed(43), 8)
+    y_cpu, c_cpu = sim.assemble(draws, 8)
+    y_card, c_card = sim.assemble(map_tree(lambda t: t.to(cuda), draws), 8)
+    assert torch.equal(y_card.cpu(), y_cpu)
+    for a, b in zip(c_card, c_cpu):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+    stack = FeatureNetworkStack([
+        ConcatenateCondition(input_size=None, output_size=(20, 30)),
+        CNN(hidden_channels=[4, 8], kernel_sizes=[3, 3], strides=[1, 1], output_size_lin=16, output_size=16,
+            image_input_size=(20, 30), dropout_prob=0.5),
+        LSTMFeatureNetwork(input_size=16, hidden_size=8, output_size=24, num_layers=1),
+        ConcatenateCondition(input_size=24, output_size=31, dim=-1),
+    ])
+    model = CondRealNVP(size=19, nested_sizes=[16, 16], n_blocks=3, n_conditions=31, feature_network_stack=stack,
+                        act_norm=True, random_state=0, dropout=0.1)
+    trained, history = train_online(model, model.init(device=cuda), sim, n_steps=3, batch_size=8, eval_every=3,
+                                    eval_batches=1, device=cuda)
+    assert all(t.is_cuda and torch.isfinite(t).all() for t in tree_leaves(trained))
+    assert np.isfinite(history["train_loss"][-1][1]) and np.isfinite(history["eval_nll"][-1][1])
+

@@ -270,9 +270,8 @@ def test_stop_rules_and_refusals():
     assert t.meta_scheduler.parameter_history["stop_reason"] == "max_epochs" and len(val) == 3
     for a, b in zip(tree_leaves(best["features"]), tree_leaves(p0["features"])):
         assert torch.equal(a, b)  # frozen conditioner
-    for bad in (dict(remat=True), dict(pretrained_features="x.pkl")):
-        with pytest.raises(NotImplementedError):
-            Trainer(_config(1, 8, **bad), data=(y, [traj]), device="cpu").train(tm, p0)
+    with pytest.raises(NotImplementedError):
+        Trainer(_config(1, 8, remat=True), data=(y, [traj]), device="cpu").train(tm, p0)
     with pytest.raises(NotImplementedError, match="slice 11"):
         Trainer(_config(1, 8), data=(y, [traj]), device="cpu", mesh=object())
 
@@ -362,7 +361,6 @@ def test_train_cli_writes_a_model_dir_jax_loads(tmp_path):
         generated = pickle.load(f)
     assert len(generated["trajectories"]) == 24 and np.asarray(generated["trajectories"]).shape[1:] == (30, 3)
     assert (out / "params.pkl").exists()
-    for flags, slice_no in ((["--online"], 6), (["--dp-devices", "2"], 11), (["--pretrained-features", "p"], 10),
-                            (["--coordinator", "localhost:1"], 11)):
+    for flags, slice_no in ((["--dp-devices", "2"], 11), (["--coordinator", "localhost:1"], 11)):
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             main(["train", "-c", str(cfg_path), "-o", str(out), "-f", "--device", "cpu", *flags])
