@@ -16,14 +16,18 @@ Subcommands:
   diagnostics and resimulation on a test dataset; writes `report.json` (the
   JAX package's keys) and the figures (matplotlib)
 - ``size``   — parameter count for a run config
+- ``hpo``    — checkpointable Gaussian-process hyperparameter search scored
+  by k-fold cross-validation (`hpo/driver.py`); re-running resumes
 
-``generate``, ``train``, ``sample`` and ``eval`` run on the GPU unless
-``--device cpu`` is given. Every run config in ``configs/runs/`` builds, the
-video ones (``CNN`` encoder) included. Still refused, with the slice that
-ports them: ``train --dp-devices > 1`` and the multi-host flags (11),
-``eval --dp-devices > 1`` (11) and ``eval --precision`` other than float32
-(7; ``sample --precision`` raises in `CondRealNVP.precision`). ``hpo`` (7)
-is not offered yet.
+``generate``, ``train``, ``sample``, ``eval`` and ``hpo`` run on the GPU
+unless ``--device cpu`` is given. Every run config in ``configs/runs/``
+builds, the video ones (``CNN`` encoder) included. ``sample --precision``,
+``eval --precision`` (after the test NLL, as in JAX) and
+``training.precision`` take the model's precision strings
+(`models/cnf.py: PRECISIONS`): the reduced ones run the kernels in one TF32
+pass; float32 stays the default. Still refused, with the slice that ports
+them: ``train --dp-devices > 1`` and the multi-host flags (11) and ``eval
+--dp-devices > 1`` (11).
 
 Usage: ``python -m bcnf_tpu_torch generate -c configs/data_prior.yaml -o test.pkl -n 200``,
 ``python -m bcnf_tpu_torch train -c RUN.yaml -o MODEL_DIR``, then
@@ -42,7 +46,7 @@ import sys
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     commands = {"train": _cmd_train, "size": _cmd_size, "sample": _cmd_sample, "generate": _cmd_generate,
-                "eval": _cmd_eval}
+                "eval": _cmd_eval, "hpo": _cmd_hpo}
     commands[args.command_name](args)
 
 
@@ -98,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
     sample_parser.add_argument("-o", "--output", type=str, required=True, help="Output .npy path")
     sample_parser.add_argument("--seed", type=int, default=0)
     sample_parser.add_argument("--precision", type=str, default=None,
-                               help="Matmul precision; only float32 ('highest') is ported")
+                               help="Matmul precision override, e.g. BF16_BF16_F32_X3 (the kernels in one "
+                                    "TF32 pass); default float32")
     sample_parser.add_argument("--device", type=str, default=None,
                                help="Device to sample on (default: cuda; 'cpu' runs the plain path)")
 
@@ -133,9 +138,26 @@ def build_parser() -> argparse.ArgumentParser:
     eval_parser.add_argument("--seed", type=int, default=0)
     eval_parser.add_argument("--dp-devices", type=int, default=0, help="Not ported yet above 1 (ROADMAP.md, slice 11)")
     eval_parser.add_argument("--precision", type=str, default=None,
-                             help="Matmul precision for sampling; only float32 ('highest') is ported")
+                             help="Matmul precision override for sampling, applied after the test NLL, e.g. "
+                                  "BF16_BF16_F32_X3 (the kernels in one TF32 pass); default float32")
     eval_parser.add_argument("--device", type=str, default=None,
                              help="Device to evaluate on (default: cuda; 'cpu' runs the plain path)")
+
+    hpo_parser = subparsers.add_parser("hpo")
+    hpo_parser.add_argument("-d", "--data", type=str, required=True, help="Training dataset pickle")
+    hpo_parser.add_argument("-o", "--output-dir", type=str, required=True,
+                            help="Checkpoint + best.json directory (re-run to resume)")
+    hpo_parser.add_argument("--n-calls", type=int, default=25)
+    hpo_parser.add_argument("--n-initial-points", type=int, default=8)
+    hpo_parser.add_argument("--n-splits", type=int, default=3)
+    hpo_parser.add_argument("--n-epochs", type=int, default=60)
+    hpo_parser.add_argument("--n-samples", type=int, default=1000)
+    hpo_parser.add_argument("--seed", type=int, default=0)
+    hpo_parser.add_argument("--space", type=str, default=None,
+                            help="JSON dict of {dim: [low, high]} overrides for the search space, "
+                                 'e.g. \'{"n_blocks": [16, 32], "lr": [1e-3, 3e-3]}\'')
+    hpo_parser.add_argument("--device", type=str, default=None,
+                            help="Device to train the folds on (default: cuda; 'cpu' runs the plain path)")
     return parser
 
 
@@ -278,6 +300,22 @@ def _train_online(args: argparse.Namespace, cfg: dict, model, params, sinks: lis
     print(f"Online-trained model saved to {resolved} (stop: {history.get('stop_reason')})")
 
 
+def _cmd_hpo(args: argparse.Namespace) -> None:
+    """Checkpointable GP hyperparameter search (`bcnf_tpu/__main__.py:302-314`;
+    re-running the same command resumes from the per-iteration checkpoint)."""
+    from bcnf_tpu_torch.hpo.driver import run_hpo
+
+    summary = run_hpo(
+        args.data, args.output_dir,
+        n_calls=args.n_calls, n_initial_points=args.n_initial_points,
+        n_splits=args.n_splits, n_epochs=args.n_epochs,
+        n_samples=args.n_samples, seed=args.seed,
+        space_bounds=json.loads(args.space) if args.space else None,
+        device=args.device,
+    )
+    print(json.dumps(summary, indent=2, default=float))
+
+
 def _cmd_size(args: argparse.Namespace) -> None:
     from bcnf_tpu_torch.config import load_config
     from bcnf_tpu_torch.models import CondRealNVP, count_params
@@ -297,7 +335,8 @@ def _cmd_sample(args: argparse.Namespace) -> None:
     from bcnf_tpu_torch.utils.misc import get_data_type, resolve_device
 
     device = resolve_device(args.device)
-    # float32 is the contract: no TF32 in any matmul or convolution
+    # float32 is the contract outside the model's work (which runs at its
+    # precision): no TF32 in any matmul or convolution
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -354,13 +393,8 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
     points), then resimulation. Writes `report.json` (the JAX package's keys
     and verdict rules) and returns `(report, figure_data, stage_seconds)`;
     `_cmd_eval` draws the figures from `figure_data`."""
-    not_ported = {
-        "--dp-devices > 1": (args.dp_devices > 1, 11),
-        f"--precision {args.precision}": (args.precision not in (None, "float32", "highest"), 7),
-    }
-    for flag, (given, slice_no) in not_ported.items():
-        if given:
-            raise NotImplementedError(f"eval {flag} is not ported yet (ROADMAP.md, slice {slice_no})")
+    if args.dp_devices > 1:
+        raise NotImplementedError("eval --dp-devices > 1 is not ported yet (ROADMAP.md, slice 11)")
 
     import time
 
@@ -371,6 +405,7 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
     from bcnf_tpu_torch.config import load_config
     from bcnf_tpu_torch.eval.calibration import compute_CDF_residuals, compute_y_hat_ranks, sidak_joint_band
     from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.models.cnf import check_precision
     from bcnf_tpu_torch.simulation.resimulation import impact_points, resimulate
     from bcnf_tpu_torch.train.data import TrainerDataHandler
     from bcnf_tpu_torch.utils.io import load_data
@@ -379,6 +414,8 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.precision:
+        check_precision(args.precision)  # a bad string fails before any work
     os.makedirs(args.output_dir, exist_ok=True)
     with open(os.path.join(args.model_dir, "config.json")) as f:
         config_path = json.load(f)["config_path"]
@@ -408,6 +445,12 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
     test_nll = float(np.concatenate(nlls).mean())
     print(f"test NLL: {test_nll:.3f}")
     stages["nll"] = time.perf_counter() - t0
+
+    # the sampling-only precision override, after the NLL pass so that the
+    # NLL stays comparable across precisions (`bcnf_tpu/__main__.py:463-467`):
+    # it changes the ranks, the diagnostics and the resimulation only
+    if args.precision:
+        model.precision = args.precision
 
     # calibration (the reference protocol: M posterior samples, 32-bin ranks)
     t0 = time.perf_counter()

@@ -1,5 +1,4 @@
-"""Evaluation: calibration (port of `bcnf_tpu/eval/`; cross-validation waits
-for a later slice)."""
+"""Evaluation: calibration and k-fold cross-validation (port of `bcnf_tpu/eval/`)."""
 
 from bcnf_tpu_torch.eval.calibration import (
     CDF,
@@ -8,6 +7,7 @@ from bcnf_tpu_torch.eval.calibration import (
     compute_y_hat_ranks,
     rank_histogram,
 )
+from bcnf_tpu_torch.eval.crossvalidate import cross_validate, kfold_indices
 
 __all__ = [
     "CDF",
@@ -15,4 +15,6 @@ __all__ = [
     "compute_y_hat_ranks",
     "compute_CDF_residuals",
     "rank_histogram",
+    "cross_validate",
+    "kfold_indices",
 ]

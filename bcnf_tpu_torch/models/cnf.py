@@ -16,7 +16,7 @@ The same design as the JAX package, in PyTorch idiom:
   package's Pallas `fused_flow`: in 3xTF32 on the tensor cores by default
   (the inverse on `wgmma` up to the padded width 544, on the row tiles
   above it; the forward on the row tiles), in float32 FMA with
-  `pallas_strict`. Under autograd
+  `pallas_strict`, in one TF32 pass at the reduced precisions. Under autograd
   (training), `forward` runs K2a and its backward K2b (`fused_flow_train`,
   the counterpart of the JAX package's `forward_fused_flow`) behind the same
   gate as `_use_fused_train`. Where a gate is closed for a structural reason
@@ -34,12 +34,24 @@ Every option of the JAX model is ported: affine and RQS couplings
 kernels cover what the JAX package's cover: one-way affine couplings of the
 `Linear` family with GELU (`AffineCoupling.fusable`); every other coupling
 runs the plain composition, as it runs the XLA path in JAX.
+
+**Precision** (`precision`, the JAX model's matmul-precision string; the
+table `FUSED_PRECISION_MODES`): "highest"/"float32" run the kernels in
+3xTF32 and every other product in float32; "default", "bfloat16" and
+"BF16_BF16_F32_X3" run the kernels in one TF32 pass and allow TF32 in cuBLAS
+and cuDNN (`matmul_precision`, the counterpart of
+`jax.default_matmul_precision`, around the model's work where JAX wraps it);
+"BF16_BF16_F32_X6" closes the kernel gate and runs the plain path in
+float32. The CPU computes float32 at every precision, as JAX's does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import os
+from collections.abc import Callable, Iterator
 from typing import Any, Sequence
 
 import numpy as np
@@ -47,8 +59,63 @@ import torch
 
 from bcnf_tpu_torch.bridge import map_tree, tree_leaves
 from bcnf_tpu_torch.models.splines import n_spline_params, rational_quadratic_spline
+from bcnf_tpu_torch.ops.flow_kernel import MODE_3XTF32, MODE_FMA, MODE_TF32
 from bcnf_tpu_torch.ops.nn import Params, dropout, get_activation, get_dense_layer, linear_init
 from bcnf_tpu_torch.utils.misc import resolve_device
+
+# The matmul-precision strings the model takes, and the kernels' mode for
+# each (`_FUSED_PRECISION_MODES`, bcnf_tpu/models/cnf.py:951-973): the
+# "highest"/"float32" contract in 3xTF32 (JAX's "x3"; `pallas_strict` makes
+# K1 float32 FMA, JAX's "highest"), the reduced ones in one TF32 pass (JAX's
+# "default"). "BF16_BF16_F32_X6" is missing from the table, so the kernel
+# gate closes, as in JAX, and the plain path runs in float32; any other
+# string raises: the port knows no other XLA algorithm to mirror.
+FUSED_PRECISION_MODES = {
+    "highest": MODE_3XTF32,
+    "float32": MODE_3XTF32,
+    "default": MODE_TF32,
+    "bfloat16": MODE_TF32,
+    "BF16_BF16_F32_X3": MODE_TF32,
+}
+PRECISIONS = (*FUSED_PRECISION_MODES, "BF16_BF16_F32_X6")
+REDUCED_PRECISIONS = tuple(p for p, m in FUSED_PRECISION_MODES.items() if m == MODE_TF32)
+
+
+def check_precision(precision: str) -> str:
+    """`precision` if the port takes it, else ValueError naming those it takes."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of {PRECISIONS}")
+    return precision
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str) -> Iterator[None]:
+    """The counterpart of `jax.default_matmul_precision`: inside, cuBLAS's
+    float32 products and cuDNN's convolutions may take TF32 at the reduced
+    precisions (`torch.backends.cuda.matmul.allow_tf32` and
+    `torch.backends.cudnn.allow_tf32` on) and run float32 at every other (both
+    off). Both flags are restored on exit, also on an exception. Torch reads
+    them when each op launches, so a backward that should run at the
+    precision runs inside too."""
+    tf32 = check_precision(precision) in REDUCED_PRECISIONS
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _at_precision(method: Callable) -> Callable:
+    """Run a model method inside `matmul_precision(model.precision)`, where
+    the JAX model wraps the same work."""
+
+    @functools.wraps(method)
+    def wrapped(self: "CondRealNVP", *args: Any, **kwargs: Any) -> Any:
+        with matmul_precision(self.precision):
+            return method(self, *args, **kwargs)
+
+    return wrapped
 
 
 def count_params(params: Any) -> int:
@@ -248,24 +315,26 @@ class AffineCoupling(_Coupling):
         rows = y.reshape(-1, self.input_size)
         return rows[:, : self.d_a].contiguous(), rows[:, self.d_a:].contiguous()
 
-    def forward_fused(self, params: Params, y: torch.Tensor, h_proj: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """The coupling through K4 (`bcnf_tpu/models/cnf.py:320-328`; eval
-        only: the kernel has no dropout). `h_proj` is `cond_proj`'s dict."""
+    def forward_fused(self, params: Params, y: torch.Tensor, h_proj: dict,
+                      mode: str = MODE_3XTF32) -> tuple[torch.Tensor, torch.Tensor]:
+        """The coupling through K4 in `mode` (`bcnf_tpu/models/cnf.py:320-328`;
+        eval only: the kernel has no dropout). `h_proj` is `cond_proj`'s dict."""
         from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling, mlp_params_to_kernel_args
 
         proj = h_proj["a"][0]
         x_a, x_b = self._fused_rows(y, proj)
-        z_b, ld = fused_affine_coupling(x_a, x_b, proj, **mlp_params_to_kernel_args(params["a"], self.d_a))
+        z_b, ld = fused_affine_coupling(x_a, x_b, proj, **mlp_params_to_kernel_args(params["a"], self.d_a),
+                                        mode=mode)
         return torch.cat([y[..., : self.d_a], z_b.reshape(y.shape[:-1] + (self.d_b,))], dim=-1), ld.reshape(y.shape[:-1])
 
-    def inverse_fused(self, params: Params, z: torch.Tensor, h_proj: dict) -> torch.Tensor:
-        """The coupling's inverse through K4 (`bcnf_tpu/models/cnf.py:330-337`)."""
+    def inverse_fused(self, params: Params, z: torch.Tensor, h_proj: dict, mode: str = MODE_3XTF32) -> torch.Tensor:
+        """The coupling's inverse through K4 in `mode` (`bcnf_tpu/models/cnf.py:330-337`)."""
         from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling, mlp_params_to_kernel_args
 
         proj = h_proj["a"][0]
         z_a, z_b = self._fused_rows(z, proj)
         y_b = fused_affine_coupling(z_a, z_b, proj, **mlp_params_to_kernel_args(params["a"], self.d_a),
-                                    inverse=True)
+                                    inverse=True, mode=mode)
         return torch.cat([z[..., : self.d_a], y_b.reshape(z.shape[:-1] + (self.d_b,))], dim=-1)
 
 
@@ -379,14 +448,14 @@ class CondRealNVP:
     whole-flow kernel (here the CUDA one). The "highest"/"float32" precision
     runs it in 3xTF32 on the tensor cores, as the JAX model serves that
     contract with its "x3" kernel mode; `pallas_strict=True` forces the
-    exact-float32 kernel (float32 FMA) for sampling and the no-grad forward,
-    as the JAX model's flag forces its exact-float32 mode
-    (`bcnf_tpu/models/cnf.py:1032-1033, 1053-1054`). The training kernels
-    (K2a/K2b) and the per-coupling kernel K4 have no exact-float32 mode in the
-    port: strict does not change them (JAX's K4 has none either).
+    exact-float32 kernel (float32 FMA) for sampling and the no-grad forward
+    at those precisions, as the JAX model's flag forces its exact-float32
+    mode (`bcnf_tpu/models/cnf.py:1032-1033, 1053-1054`). The reduced
+    precisions run K1, K2a, K2b and K4 in one TF32 pass
+    (`FUSED_PRECISION_MODES`). The training kernels (K2a/K2b) and the
+    per-coupling kernel K4 have no exact-float32 mode in the port: strict
+    does not change them (JAX's K4 has none either).
     """
-
-    SUPPORTED_PRECISIONS = ("highest", "float32")
 
     def __init__(
         self,
@@ -446,14 +515,23 @@ class CondRealNVP:
 
     @precision.setter
     def precision(self, value: str) -> None:
-        """Only float32 ("highest") is ported; the TF32 modes that would
-        stand for the JAX package's "default" and x3 are an open question
-        (PERF.md)."""
-        if value not in self.SUPPORTED_PRECISIONS:
-            raise NotImplementedError(
-                f"precision {value!r} is not ported; supported: {self.SUPPORTED_PRECISIONS}"
-            )
-        self._precision = value
+        """One of `PRECISIONS`; any other string raises ValueError."""
+        self._precision = check_precision(value)
+
+    @property
+    def kernel_mode(self) -> str | None:
+        """K1's mode at this precision (None: the gate is closed):
+        `FUSED_PRECISION_MODES`, with `pallas_strict` making the
+        "highest"/"float32" contract float32 FMA."""
+        if self.pallas_strict and self.precision in ("highest", "float32"):
+            return MODE_FMA
+        return FUSED_PRECISION_MODES.get(self.precision)
+
+    @property
+    def train_kernel_mode(self) -> str | None:
+        """The mode of K2a, K2b and K4 at this precision (None: closed);
+        `pallas_strict` does not change them."""
+        return FUSED_PRECISION_MODES.get(self.precision)
 
     # -- construction -----------------------------------------------------
 
@@ -490,6 +568,7 @@ class CondRealNVP:
         return count_params(params)
 
     @torch.no_grad()
+    @_at_precision
     def init_actnorm(self, params: Params, y: torch.Tensor, *conditions: torch.Tensor,
                      eps: float = 1e-6) -> Params:
         """Glow-style data-dependent ActNorm initialization
@@ -562,6 +641,7 @@ class CondRealNVP:
 
     # -- encoding ---------------------------------------------------------
 
+    @_at_precision
     def encode(self, params: Params, conditions: Sequence[torch.Tensor],
                generator: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
         """Run the feature-network stack once (reference `cnf.py:467-473`)."""
@@ -578,9 +658,11 @@ class CondRealNVP:
         layers (`stack_flow_params`), one hidden width for all of them, and a
         shape K1's kernels take in this mode (`_fused_flow_takes`), as JAX's
         `inverse_fused_flow` returns None for a layout it does not take
-        (`bcnf_tpu/models/cnf.py:1058-1059`)."""
+        (`bcnf_tpu/models/cnf.py:1058-1059`), and a precision the kernels
+        have a mode for (`kernel_mode`; JAX's returns None for the rest)."""
         return (
             self.use_pallas
+            and self.kernel_mode is not None
             and not train
             and self.n_conditions > 0
             and self.n_blocks > 1
@@ -602,7 +684,8 @@ class CondRealNVP:
         if H > 32 * KERNEL_TN[-1]:
             return False
         Hp, d_a = padded_width(H), self.coupling.d_a
-        return all(flow_route(Hp, self.size, d_a, inverse, bool(self.pallas_strict)) for inverse in (True, False))
+        mode = self.kernel_mode or MODE_3XTF32
+        return all(flow_route(Hp, self.size, d_a, inverse, mode) for inverse in (True, False))
 
     def _use_fused_coupling(self, train: bool, x: torch.Tensor, *trees: Any) -> bool:
         """Per-coupling kernel gate (`bcnf_tpu/models/cnf.py:762-764`)."""
@@ -617,10 +700,12 @@ class CondRealNVP:
         (`bcnf_tpu/models/cnf.py:1000-1017`): the structural guards of
         `_use_fused`, a dropout-free coupling when training (the kernels draw
         no random bits), a batch of at least `fused_train_min_batch` rows, and
-        a CUDA tensor in place of the TPU platform test."""
+        a CUDA tensor in place of the TPU platform test, at a precision the
+        kernels have a mode for (`train_kernel_mode`)."""
         min_batch = int(os.environ.get("BCNF_FUSED_TRAIN_MIN_BATCH", self.fused_train_min_batch))
         return (
             self.use_pallas
+            and self.train_kernel_mode is not None
             and self.n_conditions > 0
             and self.n_blocks > 1
             and len(self.nested_sizes) >= 2
@@ -653,7 +738,7 @@ class CondRealNVP:
             raise ValueError(f"rows of shape {tuple(x.shape)} do not broadcast against {N} conditions")
         kargs, h_proj = self._fused_flow_args(params, h)
         out = fused_flow(x.reshape(-1, self.size).contiguous(), h_proj, **kargs, inverse=inverse, n_cond=N,
-                         strict=bool(self.pallas_strict))
+                         mode=self.kernel_mode)
         if inverse:
             return out.reshape(x.shape)
         z, ld = out
@@ -668,7 +753,7 @@ class CondRealNVP:
         from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train
 
         kargs, h_proj = self._fused_flow_args(params, h)
-        return fused_flow_train(y.contiguous(), h_proj, **kargs)
+        return fused_flow_train(y.contiguous(), h_proj, **kargs, mode=self.train_kernel_mode)
 
     # -- flow -------------------------------------------------------------
 
@@ -681,6 +766,7 @@ class CondRealNVP:
             return blk, None
         return blk, {k: None if v is None else [t[i] for t in v] for k, v in projs.items()}
 
+    @_at_precision
     def forward(
         self,
         params: Params,
@@ -702,7 +788,7 @@ class CondRealNVP:
 
         def couple(p: Params, x: torch.Tensor, proj: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
             if fused:
-                return self.coupling.forward_fused(p, x, proj)
+                return self.coupling.forward_fused(p, x, proj, self.train_kernel_mode)
             return self.coupling.forward(p, x, h, proj, generator, train)
 
         log_det = y.new_zeros(y.shape[:-1])
@@ -728,6 +814,7 @@ class CondRealNVP:
         h = self.encode(params, conditions, generator, train) if self.features is not None else None
         return self.inverse_given_h(params, z, h, generator=generator, train=train)
 
+    @_at_precision
     def inverse_given_h(self, params: Params, z: torch.Tensor, h: torch.Tensor | None,
                         generator: torch.Generator | None = None, train: bool = False) -> torch.Tensor:
         """Inverse with a pre-encoded condition vector: encode conditions once
@@ -740,7 +827,7 @@ class CondRealNVP:
 
         def uncouple(p: Params, x: torch.Tensor, proj: dict | None) -> torch.Tensor:
             if fused:
-                return self.coupling.inverse_fused(p, x, proj)
+                return self.coupling.inverse_fused(p, x, proj, self.train_kernel_mode)
             return self.coupling.inverse(p, x, h, proj, generator, train)
 
         final_proj = self.coupling.cond_proj(params["final"], h) if h is not None else None
@@ -769,6 +856,7 @@ class CondRealNVP:
             raise ValueError("Model was not built with hybrid=True")
         return h @ params["head"]["w"] + params["head"]["b"]
 
+    @_at_precision
     def sample(
         self,
         params: Params,

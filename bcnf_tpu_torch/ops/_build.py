@@ -5,8 +5,12 @@ shared library with a plain C interface, loaded with `ctypes`. The build runs
 at first use, from the sources in the checkout only, into
 `bcnf_tpu_torch/_build/` (listed in `.gitignore`); the library's file name
 carries a hash of its source and the shared headers, so an edited source is
-rebuilt. `build_all` starts one nvcc per source at once. Nothing here runs at
-import time: the CPU tests import every module.
+rebuilt. `build_all` starts one nvcc per library at once. The three flow
+sources are built twice: as they are (3xTF32, the default mode) and with
+``-DBCNF_TF32_PASSES=1`` into a `*_tf32` library (one TF32 pass, the reduced
+mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
+the first. Nothing here runs at import time: the CPU tests import every
+module.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ SOURCES = {
     "flow_train_kernel": _CSRC / "flow_train_kernel.cu",  # the training backward K2b
     "lstm_kernel": _CSRC / "lstm_kernel.cu",  # the LSTM recurrence K3a and its backward K3b
 }
+ONE_PASS = "_tf32"  # the suffix of a flow library built for the reduced mode
+for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel"):
+    SOURCES[_name + ONE_PASS] = SOURCES[_name]
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,14 +52,18 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + (["-DBCNF_TF32_PASSES=1"] if name.endswith(ONE_PASS) else [])
+
+
 def _library_path(name: str) -> Path:
     text = SOURCES[name].read_bytes() + b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(text + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile the named sources (default: all) that have no library built
+    """Compile the named libraries (default: all) that have no library built
     from the same text yet, one nvcc each, all started together; returns the
     libraries' paths. A failed build raises with nvcc's output."""
     names = list(SOURCES) if names is None else names
@@ -65,7 +76,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     procs = {}
     for name in todo:
         tmp = libs[name].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (cmd, tmp, time.perf_counter(),
                        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -75,7 +86,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
         build_logs[name] = out
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed to build {SOURCES[name].name}:\n{' '.join(cmd)}\n{out}")
+            failed.append(f"nvcc failed to build {name} from {SOURCES[name].name}:\n{' '.join(cmd)}\n{out}")
         else:
             os.replace(tmp, libs[name])
     if failed:
@@ -95,22 +106,23 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
         return _loaded[name]
     lib = ctypes.CDLL(str(build(name)))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "flow_kernel":
+    source = name.removesuffix(ONE_PASS)
+    if source == "flow_kernel":
         lib.bcnf_fused_flow.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
         lib.bcnf_fused_flow.restype = i32
         lib.bcnf_flow_rows.argtypes = [ptr] * 14 + [i32] * 8 + [ptr]
         lib.bcnf_flow_rows.restype = i32
-    elif name == "flow_wgmma":
+    elif source == "flow_wgmma":
         lib.bcnf_flow_inverse_wgmma.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
         lib.bcnf_flow_inverse_wgmma.restype = i32
         lib.bcnf_flow_wgmma_occupancy.argtypes = [i32] * 3
         lib.bcnf_flow_wgmma_occupancy.restype = i32
-    elif name == "flow_train_kernel":
+    elif source == "flow_train_kernel":
         lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 7 + [ptr]
         lib.bcnf_flow_train_bwd.restype = i32
         lib.bcnf_flow_train_bwd_scratch.argtypes = [i32] * 6
         lib.bcnf_flow_train_bwd_scratch.restype = ctypes.c_longlong
-    elif name == "lstm_kernel":
+    elif source == "lstm_kernel":
         lib.bcnf_lstm_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.bcnf_lstm_fwd.restype = i32
         lib.bcnf_lstm_fwd_layout.argtypes = [i32, i32, ctypes.POINTER(i32)]

@@ -12,8 +12,10 @@ K4 is K1 at one step: K1's last step is the final coupling alone (no
 ActNorm, no mix), which is exactly what `_coupling_kernel` computes. So the
 wrapper stacks its coupling's weights with S = 1 (`coupling_flow_args`) and
 launches K1's kernels (`ops/flow_kernel.py::_launch_flow`) on ``[x_a | x_b]``
-in 3xTF32: the inverse on `wgmma` up to the padded width 544, the row tiles
-otherwise (JAX's K4 has no strict mode, nor has the port's). A pass of the
+in 3xTF32, or in one TF32 pass in the reduced mode (JAX's K4 takes its dots
+at the model's precision): the inverse on `wgmma` up to the padded width
+544, the row tiles otherwise (JAX's K4 has no strict mode, nor has the
+port's). A pass of the
 per-coupling path launches one coupling once, so the wrapper prepares that
 coupling's weights once (the padding, and the `wgmma` layout of the inverse).
 
@@ -27,13 +29,14 @@ against on the card.
 
 from __future__ import annotations
 
+import collections
 from collections.abc import Callable
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from bcnf_tpu_torch.ops.flow_kernel import _launch_flow, padded_width
+from bcnf_tpu_torch.ops.flow_kernel import MODE_3XTF32, TF32_MODES, _check_mode, _launch_flow, padded_width
 from bcnf_tpu_torch.ops.nn import gelu
 
 
@@ -70,8 +73,9 @@ def fused_affine_coupling_reference(
 ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
     """Plain PyTorch version of K4 (`_coupling_kernel`,
     `bcnf_tpu/ops/coupling_kernel.py:34-65`): `(z_b, logdet)` forward, `y_b`
-    inverse. `mm` takes every product (the tests pass
-    `tf32.matmul_3xtf32`, the arithmetic of the kernel's hidden products)."""
+    inverse. `mm` takes every product (`tf32.matmul_3xtf32`, the default
+    mode's arithmetic of the kernel's hidden products; `tf32.matmul_tf32`, the
+    one-pass mode's)."""
     d_b = x_b.shape[1]
     rows = torch.arange(x_a.shape[0], device=x_a.device) % n_cond
     a = gelu(mm(x_a, w1y) + b1 + h_proj.index_select(0, rows))
@@ -147,12 +151,15 @@ def fused_affine_coupling(
     bout: torch.Tensor,
     inverse: bool = False,
     n_cond: int | None = None,
+    mode: str = MODE_3XTF32,
 ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
     """One coupling over `(B, d_a)`/`(B, d_b)` halves, row r conditioned on
     `h_proj[r % n_cond]` (`n_cond` defaults to `h_proj`'s rows). Returns
     `(z_b, logdet)` forward or `y_b` inverse. A CPU tensor takes
-    `fused_affine_coupling_reference`; a CUDA tensor launches K1's kernel at
-    one step (or raises)."""
+    `fused_affine_coupling_reference` (float32 in every mode); a CUDA tensor
+    launches K1's kernel at one step in `mode` (3xTF32 or one TF32 pass), or
+    raises. Counts its launches in `launches`, and by mode in `mode_launches`."""
+    _check_mode(mode, TF32_MODES)
     n_cond = h_proj.shape[0] if n_cond is None else n_cond
     wm, bm = list(wm), list(bm)
     if x_a.device.type == "cpu":
@@ -167,11 +174,13 @@ def fused_affine_coupling(
                 n_cond)
     d_a = x_a.shape[1]
     _, y, ld = _launch_flow(torch.cat([x_a, x_b], dim=1), coupling_flow_args(h_proj, w1y, b1, wm, bm, wout, bout),
-                            inverse=inverse, n_cond=n_cond, strict=False)
+                            inverse=inverse, n_cond=n_cond, mode=mode)
     if x_a.shape[0]:
         fused_affine_coupling.launches += 1
+        fused_affine_coupling.mode_launches[mode] += 1
     y_b = y[:, d_a:].contiguous()
     return y_b if inverse else (y_b, ld)
 
 
 fused_affine_coupling.launches = 0  # type: ignore[attr-defined]
+fused_affine_coupling.mode_launches = collections.Counter()  # type: ignore[attr-defined]

@@ -1,6 +1,11 @@
 // C = A^T B over the rows of A and B: the deterministic weight-grad pass
 // shared by the training backward K2b (flow_train_kernel.cu) and the LSTM
-// backward K3b (lstm_kernel.cu), on tensor cores in 3xTF32 (mma_tf32.cuh).
+// backward K3b (lstm_kernel.cu), on tensor cores in 3xTF32 (mma_tf32.cuh),
+// or with P = 1 (K2b's reduced mode) in one TF32 pass for the weight rows.
+// The column sums (the ones row, and a job with m = 0) stay 3xTF32 in both:
+// the JAX kernels take the bias and ActNorm grads as float32 sums, not as
+// products at the kernel's precision; a warp whose 32 rows reach the ones
+// row takes all of its rows in 3xTF32.
 //
 // What bounds it on an H100: operations, 2 m n k FLOP a product, at a third
 // of the dense TF32 rate; its inputs are read once a 64 x 128 output tile.
@@ -60,6 +65,7 @@ __host__ __device__ inline int atb_chunks(const AtbJob& jb) {
 }
 
 // static: each library that includes this header keeps its own copy
+template <int P>
 static __global__ void __launch_bounds__(kThreads, 2) atb_kernel(const AtbJobs jobs) {
   int j = 0;
   while (j + 1 < jobs.n_jobs && static_cast<int>(blockIdx.x) >= jobs.first[j + 1]) ++j;
@@ -81,6 +87,7 @@ static __global__ void __launch_bounds__(kThreads, 2) atb_kernel(const AtbJobs j
   const bool vec_b = (jb.ldb & 3) == 0 && (reinterpret_cast<size_t>(jb.b) & 15) == 0;
   const float* a = jb.m > 0 ? jb.a + static_cast<size_t>(r0) * jb.lda : nullptr;
   const float* b = jb.b + static_cast<size_t>(r0) * jb.ldb;
+  const bool one_pass = P == 1 && m0 + wm + 32 <= jb.m;  // the warp's rows are all weight rows
 
   // rows kt*kAtbK .. +kAtbK of the chunk into stage s: A's columns m0.. (ones
   // at column m, zeros past it and past the chunk's rows), B's columns n0..
@@ -148,7 +155,8 @@ static __global__ void __launch_bounds__(kThreads, 2) atb_kernel(const AtbJobs j
       for (int i = 0; i < 2; ++i) fa[i] = load_a_kmajor(as + kk * kAtbLdA + wm + 16 * i, kAtbLdA, lane);
 #pragma unroll
       for (int jn = 0; jn < 4; ++jn) fb[jn] = load_b_kmajor(bs + kk * kAtbLdB + wn + 8 * jn, kAtbLdB, lane);
-      mma_3xtf32(acc, fa, fb);
+      if (one_pass) mma_passes<1>(acc, fa, fb);
+      else mma_3xtf32(acc, fa, fb);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -176,7 +184,9 @@ static __global__ void __launch_bounds__(kThreads, 2) atb_kernel(const AtbJobs j
       }
 }
 
-// Enqueue every job in one launch; returns the launch's error.
+// Enqueue every job in one launch, its weight rows in P passes; returns the
+// launch's error.
+template <int P = 3>
 static cudaError_t launch_atb(const AtbJob* list, int n_jobs, cudaStream_t stream) {
   if (n_jobs < 1 || n_jobs > kAtbMaxJobs) return cudaErrorInvalidValue;
   AtbJobs jobs = {};
@@ -190,10 +200,10 @@ static cudaError_t launch_atb(const AtbJob* list, int n_jobs, cudaStream_t strea
   }
   jobs.first[n_jobs] = blocks;
   if (blocks == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(atb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(atb_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kAtbSmem));
   if (err != cudaSuccess) return err;
-  atb_kernel<<<blocks, kThreads, kAtbSmem, stream>>>(jobs);
+  atb_kernel<P><<<blocks, kThreads, kAtbSmem, stream>>>(jobs);
   return cudaGetLastError();
 }
 

@@ -58,6 +58,14 @@
 // out). Per k, a warp issues TM*TN = 136 FMAs against TM/4 + TN = 19
 // shared-memory wavefronts, which keeps the inner loop on the FMA pipe.
 //
+// The reduced mode: the library built with BCNF_TF32_PASSES=1 (flow_rows.cuh)
+// runs the row tiles' square hidden products in one TF32 pass, each operand
+// rounded once (mma_tf32.cuh: `mma_passes<1>`; the JAX kernel's "default"
+// mode, which serves the "default", "bfloat16" and "BF16_BF16_F32_X3"
+// precisions), so K1's forward, the wide inverse and K2a are bound at the
+// dense TF32 rate, a third of the 3xTF32 bound; the narrow products, the
+// mixes and the strict kernel are the same in both libraries.
+//
 // Both: the hidden width is zero-padded to Hp = 32*TN by the host (exact:
 // padded units stay 0 because gelu(0) = 0). Rows past B in the ragged last
 // tile are computed on zeros and not stored. nh may be 0 (K4 of a coupling

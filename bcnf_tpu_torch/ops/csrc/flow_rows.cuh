@@ -7,7 +7,8 @@
 // A block of 512 threads (16 warps) owns BM rows (32, or 16 at the widest
 // hidden widths). Their activation tile (BM x Hp, Hp = 32*TN) sits in shared
 // memory. A square hidden product (BM x Hp by Hp x Hp) runs on `mma.sync` in
-// 3xTF32 (mma_tf32.cuh): warp w owns n-tiles w, w+16, ... of all BM rows,
+// kPasses tensor-core passes (mma_tf32.cuh: 3xTF32, or one TF32 pass in the
+// library built for the reduced mode): warp w owns n-tiles w, w+16, ... of all BM rows,
 // the weight streamed from L2 in BK-row (W) or BK-column (W^T, read as it is
 // stored) stages through a 3-stage cp.async ring, one barrier a stage. The
 // narrow products (the d_a inputs, the n_out outputs) stay float32 FMA and
@@ -18,7 +19,19 @@
 #include "flow_common.cuh"
 #include "mma_tf32.cuh"
 
+// The tensor-core passes of the flow kernels' products: 3 (3xTF32, the
+// default mode, which serves the "highest"/"float32" contract) or 1 (one TF32
+// pass, the reduced mode). bcnf_tpu_torch/ops/_build.py compiles each flow
+// source twice, the second time with -DBCNF_TF32_PASSES=1, into a library of
+// its own; the narrow products and the mixes stay float32 FMA in both.
+#ifndef BCNF_TF32_PASSES
+#define BCNF_TF32_PASSES 3
+#endif
+
 namespace bcnf {
+
+constexpr int kPasses = BCNF_TF32_PASSES;
+static_assert(kPasses == 1 || kPasses == 3, "BCNF_TF32_PASSES must be 1 or 3");
 
 constexpr int kRingStages = 3;
 constexpr int kRowThreads = 512;  // the rows kernels' block
@@ -122,7 +135,7 @@ __device__ __forceinline__ void square_product(const float* act, const float* W,
                          : load_b_kmajor(st + kk * S::ldK + 8 * nt, S::ldK, lane);
         }
       }
-      mma_3xtf32(acc, fa, fb, nb);
+      mma_passes<kPasses>(acc, fa, fb, nb);
     }
   }
   cp_async_wait<0>();

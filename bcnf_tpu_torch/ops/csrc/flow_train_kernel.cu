@@ -27,6 +27,14 @@
 // bound is 3 x operations at the dense TF32 rate; the narrow products (the
 // d_a inputs, the n_out outputs, the mixes) stay float32 FMA.
 //
+// The reduced mode (the library built with BCNF_TF32_PASSES=1, flow_rows.cuh:
+// the JAX kernel's "default" mode, which serves the "default", "bfloat16" and
+// "BF16_BF16_F32_X3" precisions) takes the square hidden products and the
+// weight grads in one TF32 pass, each operand rounded once (mma_tf32.cuh:
+// `mma_passes<1>`); its bound is operations at the dense TF32 rate. The narrow
+// products and the mixes stay float32 FMA, and the column sums (bias and
+// ActNorm grads) 3xTF32, as in the default mode (atb.cuh).
+//
 // Design, per step, in reverse order (all launches on the caller's stream):
 // 1. `bwd_rows_kernel`: one block of 512 threads (16 warps, so that each
 //    scheduler has four to hide the fragment loads' and the products'
@@ -352,7 +360,7 @@ extern "C" int bcnf_flow_train_bwd(
       jobs[n_jobs++] = {x1, dhp + k * BHp, dw1y + static_cast<size_t>(k) * d_a * Hp,
                         db1 + static_cast<size_t>(k) * Hp, size, Hp, d_a, Hp, B, B};
       jobs[n_jobs++] = {nullptr, an, nullptr, sums + static_cast<size_t>(k) * n_an, 0, n_an, 0, n_an, B, B};
-      if ((err = launch_atb(jobs, n_jobs, st)) != cudaSuccess) return err;
+      if ((err = launch_atb<kPasses>(jobs, n_jobs, st)) != cudaSuccess) return err;
     }
   }
   if (parts & 4) {

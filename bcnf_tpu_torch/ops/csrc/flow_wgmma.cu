@@ -2,6 +2,14 @@
 // at the padded hidden widths Hp <= 544 (TN <= 17; the flagship's 526 pads to
 // 544). Wider models take the row-tile inverse of flow_kernel.cu.
 //
+// The reduced mode: the library built with BCNF_TF32_PASSES=1 (flow_rows.cuh;
+// the JAX kernel's "default" mode, which serves the "default", "bfloat16" and
+// "BF16_BF16_F32_X3" precisions) issues one `wgmma` a product, a_hi b_hi,
+// each operand rounded once to TF32, and streams hi-only weight stages
+// (`prepare_weights(wm, passes=1)`: 32 Hp bytes a stage, half the default
+// mode's), so its products take a third of the tensor-core work and its
+// stream half the bytes; the ring, the tile and everything else are the same.
+//
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow with inverse=True (the
 // Pallas TPU kernel `_flow_kernel`), and the inverse of
 // bcnf_tpu/ops/coupling_kernel.py::fused_affine_coupling (K4), which the port
@@ -89,14 +97,16 @@ struct WgShape {
   static constexpr int ldA = Hp + 4;      // the activation tile (conflict-free fragment loads)
   static constexpr int NP = 8 * TN;       // columns of one product (two a warpgroup)
   static constexpr int R = NP / 2;        // its accumulator floats a thread
-  static constexpr int stage = 16 * Hp;   // floats of a stage: 8 input rows of W^T, hi then lo
+  static constexpr int halves = kPasses == 3 ? 2 : 1;  // hi and lo, or hi alone
+  static constexpr int stage = 8 * halves * Hp;        // floats of a stage: 8 input rows of W^T, hi (then lo)
   static constexpr int n_stages = Hp / 8;  // stages a layer
 };
 
 // The kernel's dynamic shared memory (bcnf_tpu_torch/ops/flow_kernel.py:
 // kernel_smem mirrors this sum): tile, ring, x, x Q^T, [t | s'], 4 barriers.
 size_t wg_smem(int Hp, int size, int d_a) {
-  return sizeof(float) * (static_cast<size_t>(kWgRows) * (Hp + 4) + static_cast<size_t>(kWgStages) * 16 * Hp +
+  const size_t stage = (kPasses == 3 ? 16 : 8) * static_cast<size_t>(Hp);
+  return sizeof(float) * (static_cast<size_t>(kWgRows) * (Hp + 4) + static_cast<size_t>(kWgStages) * stage +
                           static_cast<size_t>(kWgRows) * (2 * size + 2 * (size - d_a))) +
          2 * kWgStages * sizeof(uint64_t);
 }
@@ -211,7 +221,7 @@ flow_inverse_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj
     }
     consumer_sync();
 
-    // ---- hidden layers: h_{l+1} = gelu(h_l Wm_l + bm_l) on wgmma, 3xTF32
+    // ---- hidden layers: h_{l+1} = gelu(h_l Wm_l + bm_l) on wgmma, kPasses passes
     for (int l = 0; l < nh; ++l) {
       float acc[2][W::R];
 #pragma unroll
@@ -232,19 +242,21 @@ flow_inverse_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj
         // this warp's m64 x k8 fragment of the tile: rows 16 w4 + g (+8), columns 8 s + q (+4)
         const float* a0 = act + (16 * w4 + g) * ldA + 8 * s + q;
         const float v[4] = {a0[0], a0[8 * ldA], a0[4], a0[8 * ldA + 4]};
-        uint32_t ahi[4], alo[4];
+        uint32_t ahi[4], alo[4];  // alo is never read in one pass
         split_tf32(v, ahi, alo);
         mbar_wait(&full[st], ph);
-        // the warpgroup's two products: n-groups wg 2 TN + p TN of the stage's hi and lo halves
+        // the warpgroup's two products: n-groups wg 2 TN + p TN of the stage's hi (and lo) halves
         const float* hi0 = ring + st * W::stage + (wg * 2 * TN) * 64;
-        const float* lo0 = hi0 + 8 * Hp;
         const uint64_t bh0 = smem_desc(hi0, 128, 256), bh1 = smem_desc(hi0 + TN * 64, 128, 256);
-        const uint64_t bl0 = smem_desc(lo0, 128, 256), bl1 = smem_desc(lo0 + TN * 64, 128, 256);
         wgmma_fence();
-        WgmmaTf32<W::NP>::mma(acc[0], alo, bh0);
-        WgmmaTf32<W::NP>::mma(acc[1], alo, bh1);
-        WgmmaTf32<W::NP>::mma(acc[0], ahi, bl0);
-        WgmmaTf32<W::NP>::mma(acc[1], ahi, bl1);
+        if constexpr (kPasses == 3) {
+          const float* lo0 = hi0 + 8 * Hp;
+          const uint64_t bl0 = smem_desc(lo0, 128, 256), bl1 = smem_desc(lo0 + TN * 64, 128, 256);
+          WgmmaTf32<W::NP>::mma(acc[0], alo, bh0);
+          WgmmaTf32<W::NP>::mma(acc[1], alo, bh1);
+          WgmmaTf32<W::NP>::mma(acc[0], ahi, bl0);
+          WgmmaTf32<W::NP>::mma(acc[1], ahi, bl1);
+        }
         WgmmaTf32<W::NP>::mma(acc[0], ahi, bh0);
         WgmmaTf32<W::NP>::mma(acc[1], ahi, bh1);
         wgmma_commit();
@@ -365,8 +377,9 @@ int occupancy(int size, int d_a) {
 // C entry points, loaded with ctypes.
 
 // K1's inverse: y (B, size) from x (B, size); `wstages` is the hidden weights
-// as `prepare_weights` lays them out, (S, nh, Hp/8, 2, Hp/8, 2, 8, 4) floats,
-// 16-byte aligned. Hp must be 32*TN for TN in 1, 2, 4, 8, 12, 16, 17; a
+// as `prepare_weights` lays them out, (S, nh, Hp/8, 2, Hp/8, 2, 8, 4) floats
+// (hi and lo; in the one-pass library (S, nh, Hp/8, 1, Hp/8, 2, 8, 4), hi
+// alone), 16-byte aligned. Hp must be 32*TN for TN in 1, 2, 4, 8, 12, 16, 17; a
 // `size` past the shared memory returns cudaErrorInvalidValue. `parts` is
 // kWgProducts | kWgCopies for the inverse; one of them alone times that part
 // (the other skipped, y not the inverse).

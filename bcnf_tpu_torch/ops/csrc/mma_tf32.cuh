@@ -1,6 +1,7 @@
 // 3xTF32 products on Hopper's tensor cores: the building blocks of the
 // training kernels K2a and K2b (flow_rows.cuh), the LSTM kernels K3a and K3b
-// (lstm_kernel.cu) and the A^T B weight-grad pass (atb.cuh).
+// (lstm_kernel.cu) and the A^T B weight-grad pass (atb.cuh); and the one-pass
+// TF32 product of the flow kernels' reduced mode (`mma_passes<1>`).
 //
 // Which JAX mode it mirrors. The JAX package serves its "highest"/"float32"
 // contract in the fused kernels with a split-operand product on the matrix
@@ -136,6 +137,28 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[NA][NB][4], const FragA 
 #pragma unroll
     for (int j = 0; j < NB; ++j)
       if (j < nb) mma_tf32(acc[i][j], a[i].hi, b[j].hi);
+}
+
+// acc[i][j] += a[i] b[j] in P tensor-core passes a product: P = 3 is
+// mma_3xtf32; P = 1 is one TF32 pass, a_hi b_hi, each operand rounded once to
+// TF32 (tf32_rna, the bits of cvt.rna): the Hopper counterpart of the JAX
+// kernels' reduced "default" mode (one bf16 pass on the TPU's matrix unit),
+// which serves the "default", "bfloat16" and "BF16_BF16_F32_X3" precisions
+// (bcnf_tpu/models/cnf.py, `_FUSED_PRECISION_MODES`). The loaders' lo halves
+// are then never read, and the compiler drops them.
+template <int P, int NA, int NB>
+__device__ __forceinline__ void mma_passes(float (&acc)[NA][NB][4], const FragA (&a)[NA], const FragB (&b)[NB],
+                                           int nb = NB) {
+  static_assert(P == 1 || P == 3, "a product takes one TF32 pass or three (3xTF32)");
+  if constexpr (P == 3) {
+    mma_3xtf32(acc, a, b, nb);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NA; ++i)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j < nb) mma_tf32(acc[i][j], a[i].hi, b[j].hi);
+  }
 }
 
 // 4-byte asynchronous copy (any alignment), for the ragged and unaligned

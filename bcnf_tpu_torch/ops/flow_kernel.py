@@ -9,6 +9,11 @@
     prepared once a call by `prepare_weights`) at padded widths up to 544,
     the row-tile kernel above that (`rows_flow_kernel` in
     `csrc/flow_kernel.cu`); the forward on the row-tile kernel;
+  - the reduced mode (the "default", "bfloat16" and "BF16_BF16_F32_X3"
+    precisions, which the JAX model serves with its "default" kernel mode)
+    runs the same kernels built with one TF32 pass a product (the `*_tf32`
+    libraries, `ops/_build.py`); its `wgmma` inverse streams hi-only weight
+    stages (`prepare_weights(wm, passes=1)`);
   - the strict mode (`CondRealNVP(pallas_strict=True)`, as the JAX model's
     strict flag forces its exact-float32 kernel mode) runs the float32 FMA
     kernel (`flow_kernel` in `csrc/flow_kernel.cu`) both ways.
@@ -18,7 +23,12 @@
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`,
   the row-tile kernel with its step-input store) and whose backward is K2b
   (`fused_flow_train_bwd`, `csrc/flow_train_kernel.cu`). Both run their
-  square hidden products on the tensor cores in 3xTF32 (`csrc/flow_rows.cuh`).
+  square hidden products on the tensor cores in 3xTF32 (`csrc/flow_rows.cuh`),
+  or in one TF32 pass in the reduced mode.
+
+The kernel modes (`KERNEL_MODES`): `MODE_3XTF32`, `MODE_TF32` (one pass) and
+`MODE_FMA` (strict, K1 only). A CPU tensor takes the plain version, float32,
+in every mode, as JAX on the CPU computes float32 at every precision.
 
 This module stacks and pads the kernels' arguments, checks them, launches
 them on PyTorch's current stream, and holds their plain PyTorch versions
@@ -50,9 +60,19 @@ from bcnf_tpu_torch.ops.nn import gelu, gelu_grad
 KERNEL_TN = (1, 2, 4, 8, 12, 16, 17, 24, 32)
 
 
+# The kernels' arithmetic: 3xTF32 (the default mode: JAX's "x3"), one TF32
+# pass (the reduced mode: JAX's "default") and float32 FMA (strict: JAX's
+# "highest" kernel mode; K1 only).
+MODE_3XTF32, MODE_TF32, MODE_FMA = "3xtf32", "tf32", "fma"
+KERNEL_MODES = (MODE_3XTF32, MODE_TF32, MODE_FMA)
+TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K2a, K2b and K4 have no float32 FMA mode
 # K1's routes (`flow_route`): 3xTF32 on `wgmma` (the inverse at TN <= 17),
-# 3xTF32 on the row tiles, and float32 FMA (strict).
+# 3xTF32 on the row tiles, float32 FMA (strict), and the one-pass `wgmma`
+# and row tiles; each route's library (`ops/_build.py`).
 ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
+ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
+ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_kernel",
+                 ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper (csrc/flow_common.cuh: kSmemLimit)
 
@@ -125,9 +145,10 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
     `launch`, `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
-    if route == ROUTE_WGMMA:  # tile, 2 stages of hi and lo, x, x Q^T, [t | s'], 4 barriers
-        return 4 * (64 * (Hp + 4) + 2 * 16 * Hp + 64 * (2 * size + n_out)) + 32
-    if route == ROUTE_ROWS:  # tile, the 3-stage ring, x, x Q, [t | s'], logdet (csrc/flow_rows.cuh)
+    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):  # tile, 2 stages of hi (and lo), x, x Q^T, [t | s'], 4 barriers
+        stage = (16 if route == ROUTE_WGMMA else 8) * Hp
+        return 4 * (64 * (Hp + 4) + 2 * stage + 64 * (2 * size + n_out)) + 32
+    if route in (ROUTE_ROWS, ROUTE_ROWS_TF32):  # tile, the 3-stage ring, x, x Q, [t | s'], logdet (csrc/flow_rows.cuh)
         BM, BK = (32, 16) if tn <= 17 else (16, 8)
         stage = max(BK * (Hp + 8), Hp * (BK + 4))
         return 4 * (BM * (Hp + 4) + 3 * stage + BM * (2 * size + n_out + 1))
@@ -137,20 +158,28 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     raise ValueError(f"unknown route {route!r}")
 
 
-def flow_route(Hp: int, size: int, d_a: int, inverse: bool, strict: bool) -> str | None:
-    """Which of K1's kernels runs this call, by mode and shape: strict takes
-    the float32 FMA kernel; the default mode the `wgmma` inverse where it
-    holds the width and the shape, else the row tiles. None where no kernel
-    takes the shape (its shared memory; then the model's gate stays closed,
-    as JAX's `inverse_fused_flow` returns None)."""
+def _check_mode(mode: str, modes: tuple[str, ...] = KERNEL_MODES) -> None:
+    if mode not in modes:
+        raise ValueError(f"kernel mode {mode!r} is not one of {modes}")
+
+
+def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XTF32) -> str | None:
+    """Which of K1's kernels runs this call, by mode and shape: strict
+    (`MODE_FMA`) takes the float32 FMA kernel; the default and the one-pass
+    mode the `wgmma` inverse where it holds the width and the shape, else
+    the row tiles, each built for its mode. None where no kernel takes the
+    shape (its shared memory; then the model's gate stays closed, as JAX's
+    `inverse_fused_flow` returns None)."""
+    _check_mode(mode)
     if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size:
         return None
-    if strict:
+    wgmma, rows = (ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32) if mode == MODE_TF32 else (ROUTE_WGMMA, ROUTE_ROWS)
+    if mode == MODE_FMA:
         candidates = (ROUTE_FMA,)
     elif inverse and Hp // 32 <= WGMMA_MAX_TN:
-        candidates = (ROUTE_WGMMA, ROUTE_ROWS)
+        candidates = (wgmma, rows)
     else:
-        candidates = (ROUTE_ROWS,)
+        candidates = (rows,)
     return next((r for r in candidates if kernel_smem(r, Hp, size, d_a) <= SMEM_LIMIT), None)
 
 
@@ -160,7 +189,7 @@ def _round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def prepare_weights(wm: torch.Tensor) -> torch.Tensor:
+def prepare_weights(wm: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """The stacked, padded hidden weights `wm` (S, nh, Hp, Hp), stored (in,
     out), as the `wgmma` inverse reads them (`csrc/flow_wgmma.cu`), on `wm`'s
     device: transposed to K-major (out, in), split into ``hi = tf32(w)``
@@ -169,13 +198,17 @@ def prepare_weights(wm: torch.Tensor) -> torch.Tensor:
     holding hi then lo in the order of `wgmma`'s core matrices (8 outputs x 4
     inputs, 128 contiguous bytes; the two along the inputs side by side), so
     that one bulk copy moves a stage. Shape (S, nh, Hp/8 stages, 2 [hi, lo],
-    Hp/8 output groups, 2 input halves, 8 outputs, 4 inputs)."""
+    Hp/8 output groups, 2 input halves, 8 outputs, 4 inputs). With
+    `passes=1` (the one-pass kernel) a stage holds hi alone: (S, nh, Hp/8,
+    1, ...), half the bytes."""
+    if passes not in (1, 3):
+        raise ValueError(f"prepare_weights: a product takes 1 or 3 passes, not {passes}")
     S, nh, Hp, _ = wm.shape
     g = Hp // 8
     # w^T[n, k] with n = 8 ng + r and k = 8 s + 4 kg + c, to (s, ng, kg, r, c)
     wt = wm.transpose(-1, -2).reshape(S, nh, g, 8, g, 2, 4).permute(0, 1, 4, 2, 5, 3, 6).contiguous()
     hi = _round_tf32(wt)
-    return torch.stack([hi, wt - hi], dim=3)
+    return torch.stack([hi, wt - hi] if passes == 3 else [hi], dim=3)
 
 
 def fused_flow_reference(
@@ -197,8 +230,9 @@ def fused_flow_reference(
 ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
     """Plain PyTorch version of K1: the same steps, one op at a time.
     Forward returns `(z, logdet)`, inverse returns `y`. `mm` takes every
-    product (the tests pass `tf32.matmul_3xtf32`, the arithmetic of the
-    default mode's hidden products)."""
+    product of the coupling MLP (`tf32.matmul_3xtf32`, the arithmetic of the
+    default mode's hidden products; `tf32.matmul_tf32`, the one-pass mode's);
+    the mixes stay float32, as the JAX kernel pins them to HIGHEST."""
     B, size = x.shape
     n_steps = h_proj.shape[0]
     d_a = w1y.shape[1]
@@ -222,13 +256,13 @@ def fused_flow_reference(
             x = torch.cat([x[:, :d_a], torch.exp(s) * x[:, d_a:] + t], dim=-1)
             ld = ld + torch.sum(s, dim=-1)
             if inner:
-                x = mm(x, ortho[k])
+                x = x @ ortho[k]
         return x, ld
 
     for k in range(n_steps - 1, -1, -1):
         inner = k < n_steps - 1
         if inner:
-            x = mm(x, ortho[k].T)
+            x = x @ ortho[k].T
         t, s = coeffs(k, x[:, :d_a])
         x = torch.cat([x[:, :d_a], (x[:, d_a:] - t) * torch.exp(-s)], dim=-1)
         if inner:
@@ -288,14 +322,15 @@ def _stream() -> ctypes.c_void_p:
 WG_PRODUCTS, WG_COPIES = 1, 2  # the `wgmma` inverse's parts (csrc/flow_wgmma.cu)
 
 
-def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: bool, n_cond: int, strict: bool,
+def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: bool, n_cond: int, mode: str,
                  wstages: torch.Tensor | None = None, parts: int = WG_PRODUCTS | WG_COPIES,
                  ) -> tuple[str, torch.Tensor, torch.Tensor | None]:
     """Launch K1 on checked CUDA tensors, uncounted, on the route
-    `flow_route` gives; returns `(route, y, logdet or None)`. The `wgmma`
-    route reads the hidden weights as `prepare_weights` gives them: pass
-    them as `wstages`, or they are prepared here. `parts` other than both
-    runs one part of the `wgmma` inverse alone, to time it (chip_smoke.py):
+    `flow_route` gives for `mode`; returns `(route, y, logdet or None)`. The
+    `wgmma` routes read the hidden weights as `prepare_weights` gives them
+    for the mode: pass them as `wstages`, or they are prepared here. `parts`
+    other than both runs one part of the `wgmma` inverse alone, to time it
+    (chip_smoke.py):
     its products on stale weight stages (`WG_PRODUCTS`), or the weights'
     stream without the products (`WG_COPIES`); y is then not the inverse."""
     from bcnf_tpu_torch.ops._build import load_library
@@ -303,24 +338,24 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     B, size = x.shape
     S, _, Hp = args["h_proj"].shape
     d_a, nh = args["w1y"].shape[1], args["wm"].shape[1]
-    route = flow_route(Hp, size, d_a, inverse, strict)
+    route = flow_route(Hp, size, d_a, inverse, mode)
     if route is None:
         raise ValueError(f"fused_flow: no kernel takes size {size}, d_a {d_a} at hidden width {Hp} "
-                         f"({'strict' if strict else '3xTF32'}, {'inverse' if inverse else 'forward'})")
+                         f"({mode}, {'inverse' if inverse else 'forward'})")
     y = torch.empty_like(x)
     ld = None if inverse else torch.empty((B,), dtype=x.dtype, device=x.device)
     if B == 0:
         return route, y, ld
     tensors = [args[n] for n in ("h_proj", "an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")]
+    lib = load_library(ROUTE_LIBRARY[route])
     with torch.cuda.device(x.device):
-        if route == ROUTE_WGMMA:
-            lib = load_library("flow_wgmma")
-            tensors[6] = prepare_weights(args["wm"]) if wstages is None else wstages
+        if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
+            passes = 1 if route == ROUTE_WGMMA_TF32 else 3
+            tensors[6] = prepare_weights(args["wm"], passes) if wstages is None else wstages
             err = lib.bcnf_flow_inverse_wgmma(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
         else:
-            lib = load_library("flow_kernel")
             ld_ptr = ctypes.c_void_p(0 if ld is None else ld.data_ptr())
-            if route == ROUTE_ROWS:  # no step-input store (that is K2a's)
+            if route != ROUTE_FMA:  # no step-input store (that is K2a's)
                 err = lib.bcnf_flow_rows(*_ptrs(x, *tensors, y), ld_ptr, ctypes.c_void_p(0),
                                          B, n_cond, S, size, d_a, nh, Hp, int(inverse), _stream())
             else:
@@ -345,13 +380,14 @@ def fused_flow(
     *,
     inverse: bool,
     n_cond: int,
-    strict: bool = False,
+    mode: str = MODE_3XTF32,
 ) -> tuple[torch.Tensor, torch.Tensor] | torch.Tensor:
     """Run the whole flow in one kernel launch. Forward returns `(z, logdet)`,
-    inverse returns `y`. A CPU tensor takes `fused_flow_reference`; a CUDA
-    tensor launches the kernel of `flow_route` (3xTF32; float32 FMA when
-    `strict`), or raises. Counts its launches in `launches`, and by route in
-    `route_launches`."""
+    inverse returns `y`. A CPU tensor takes `fused_flow_reference` (float32
+    in every mode); a CUDA tensor launches the kernel of `flow_route` for
+    `mode` (3xTF32, one TF32 pass, or float32 FMA), or raises. Counts its
+    launches in `launches`, and by route in `route_launches`."""
+    _check_mode(mode)
     args = dict(h_proj=h_proj, an_scale=an_scale, an_bias=an_bias, ortho=ortho,
                 w1y=w1y, b1=b1, wm=wm, bm=bm, wout=wout, bout=bout)
     if x.device.type == "cpu":
@@ -359,7 +395,7 @@ def fused_flow(
     if x.device.type != "cuda":
         raise ValueError(f"fused_flow runs on CPU or CUDA tensors, not {x.device}")
     _check_args(x, args, n_cond)
-    route, y, ld = _launch_flow(x, args, inverse=inverse, n_cond=n_cond, strict=strict)
+    route, y, ld = _launch_flow(x, args, inverse=inverse, n_cond=n_cond, mode=mode)
     if x.shape[0]:
         fused_flow.launches += 1
         fused_flow.route_launches[route] += 1
@@ -410,8 +446,9 @@ def fused_flow_train_reference(
     """Plain PyTorch version of K2a (`_flow_fwd_train_kernel`,
     `bcnf_tpu/ops/flow_kernel.py:382-431`): returns `(z, logdet, bound)`,
     `bound[k]` being the rows' input to step k. Differentiable by autograd.
-    `mm` takes every product (the tests pass `tf32.matmul_3xtf32`, the
-    arithmetic of the kernel's hidden products)."""
+    `mm` takes every product of the coupling MLP (`tf32.matmul_3xtf32`, the
+    default mode's tensor-core arithmetic; `tf32.matmul_tf32`, the one-pass
+    mode's); the mixes stay float32, as JAX pins them to HIGHEST."""
     B, size = x.shape
     S = h_proj.shape[0]
     d_a = w1y.shape[1]
@@ -429,7 +466,7 @@ def fused_flow_train_reference(
         x = torch.cat([x[:, :d_a], torch.exp(s) * x[:, d_a:] + t], dim=-1)
         ld = ld + torch.sum(s, dim=-1)
         if inner:
-            x = mm(x, ortho[k])
+            x = x @ ortho[k]
     return x, ld, torch.stack(bound)
 
 
@@ -455,8 +492,10 @@ def fused_flow_train_backward_reference(
     step inputs `bound` and the cotangents `dz`, `dld`, returns
     `(dx, dh_proj, dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout, dbout)`.
     The final step's ActNorm grads are zero; the mixes get none. `mm` takes
-    every product (the tests pass `tf32.matmul_3xtf32`, the kernel's
-    tensor-core arithmetic)."""
+    every product of the coupling MLP and its weight grads
+    (`tf32.matmul_3xtf32`, the default mode's tensor-core arithmetic;
+    `tf32.matmul_tf32`, the one-pass mode's); the mixes stay float32 and the
+    bias and ActNorm grads are float32 sums, as in the JAX kernel."""
     S, B, size = bound.shape
     d_a = w1y.shape[1]
     d_b = size - d_a
@@ -475,7 +514,7 @@ def fused_flow_train_backward_reference(
         s = torch.tanh(out[:, d_b:])
         es = torch.exp(s)
 
-        dx2 = mm(dx, ortho[k].T) if inner else dx
+        dx2 = dx @ ortho[k].T if inner else dx
         dz_b = dx2[:, d_a:]
         ds = dz_b * es * x1_b + dld[:, None]
         dout = torch.cat([dz_b, ds * (1.0 - s * s)], dim=-1)
@@ -501,6 +540,13 @@ def fused_flow_train_backward_reference(
     return dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout
 
 
+def _train_library(source: str, mode: str) -> str:
+    """The library of a training kernel in `mode` (`ops/_build.py`)."""
+    from bcnf_tpu_torch.ops._build import ONE_PASS
+
+    return source + ONE_PASS if mode == MODE_TF32 else source
+
+
 def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tensor]) -> None:
     if x.dim() != 2 or h_proj.dim() != 3 or h_proj.shape[1] != x.shape[0]:
         raise ValueError(
@@ -514,10 +560,13 @@ def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, tor
 def fused_flow_train_fwd(
     x: torch.Tensor, h_proj: torch.Tensor, an_scale: torch.Tensor, an_bias: torch.Tensor,
     ortho: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor,
-    wout: torch.Tensor, bout: torch.Tensor,
+    wout: torch.Tensor, bout: torch.Tensor, *, mode: str = MODE_3XTF32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2a: `(z, logdet, bound)` in one launch. A CPU tensor takes
-    `fused_flow_train_reference`; a CUDA tensor launches the kernel (or raises)."""
+    `fused_flow_train_reference` (float32 in every mode); a CUDA tensor
+    launches the kernel built for `mode` (3xTF32 or one TF32 pass), or raises.
+    Counts its launches in `launches`, and by mode in `mode_launches`."""
+    _check_mode(mode, TF32_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
     _check_train_args(x, h_proj, args)
@@ -528,7 +577,7 @@ def fused_flow_train_fwd(
 
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library("flow_kernel")
+    lib = load_library(_train_library("flow_kernel", mode))
     B, size = x.shape
     S, _, Hp = h_proj.shape
     z = torch.empty_like(x)
@@ -543,10 +592,12 @@ def fused_flow_train_fwd(
         )
     _raise_on(err, lib, "fused_flow_train_fwd")
     fused_flow_train_fwd.launches += 1
+    fused_flow_train_fwd.mode_launches[mode] += 1
     return z, ld, bound
 
 
 fused_flow_train_fwd.launches = 0  # type: ignore[attr-defined]
+fused_flow_train_fwd.mode_launches = collections.Counter()  # type: ignore[attr-defined]
 
 
 BWD_ROWS, BWD_WEIGHT_GRADS, BWD_ACTNORM = 1, 2, 4  # K2b's parts
@@ -556,12 +607,15 @@ def fused_flow_train_bwd(
     bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     an_scale: torch.Tensor, an_bias: torch.Tensor, ortho: torch.Tensor, w1y: torch.Tensor,
     b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor, wout: torch.Tensor, bout: torch.Tensor,
+    *, mode: str = MODE_3XTF32,
 ) -> tuple[torch.Tensor, ...]:
     """K2b: every grad of K2a's outputs, in one call of the kernel's entry
     point (which enqueues a few launches per step, `csrc/flow_train_kernel.cu`).
     Returns `(dx, dh_proj, dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout,
-    dbout)`. A CPU tensor takes `fused_flow_train_backward_reference`; a CUDA
-    tensor launches the kernel (or raises)."""
+    dbout)`. A CPU tensor takes `fused_flow_train_backward_reference` (float32
+    in every mode); a CUDA tensor launches the kernel built for `mode`, or
+    raises. Counts its calls in `launches`, and by mode in `mode_launches`."""
+    _check_mode(mode, TF32_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
     _check_train_args(dz, h_proj, args)
@@ -582,13 +636,15 @@ def fused_flow_train_bwd(
              torch.empty_like(bm), torch.empty_like(wout), torch.empty_like(bout))
     if B == 0:
         return tuple(g.zero_() for g in grads)
-    _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM)
+    _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM, mode)
     fused_flow_train_bwd.launches += 1
+    fused_flow_train_bwd.mode_launches[mode] += 1
     return grads
 
 
 def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
-                     args: dict[str, torch.Tensor], grads: tuple[torch.Tensor, ...], parts: int) -> None:
+                     args: dict[str, torch.Tensor], grads: tuple[torch.Tensor, ...], parts: int,
+                     mode: str = MODE_3XTF32) -> None:
     """Launch K2b's parts on checked CUDA tensors into `grads`, uncounted:
     per step the rows kernel (`BWD_ROWS`, with the copy of dz that starts
     the carried dx) and the weight-grad pass (`BWD_WEIGHT_GRADS`), then the
@@ -596,7 +652,7 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     times each alone."""
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library("flow_train_kernel")
+    lib = load_library(_train_library("flow_train_kernel", mode))
     S, B, size = bound.shape
     Hp = h_proj.shape[-1]
     d_a, nh = args["w1y"].shape[1], args["wm"].shape[1]
@@ -611,24 +667,29 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
 
 
 fused_flow_train_bwd.launches = 0  # type: ignore[attr-defined]
+fused_flow_train_bwd.mode_launches = collections.Counter()  # type: ignore[attr-defined]
 
 
 class _FusedFlowTrain(torch.autograd.Function):
     """K2a forward, K2b backward: the custom VJP of the JAX package
-    (`bcnf_tpu/ops/flow_kernel.py:653-672`). The mixes get zero grads."""
+    (`bcnf_tpu/ops/flow_kernel.py:653-672`), both in the kernel mode given
+    first (the backward runs in the forward's mode, whatever the context it
+    runs in). The mixes get zero grads."""
 
     @staticmethod
-    def forward(ctx: Any, x: torch.Tensor, h_proj: torch.Tensor, *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args)
+    def forward(ctx: Any, mode: str, x: torch.Tensor, h_proj: torch.Tensor,
+                *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args, mode=mode)
         ctx.save_for_backward(bound, h_proj, *args)
+        ctx.mode = mode
         return z, ld
 
     @staticmethod
-    def backward(ctx: Any, dz: torch.Tensor, dld: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def backward(ctx: Any, dz: torch.Tensor, dld: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
         bound, h_proj, *args = ctx.saved_tensors  # an unused output's cotangent arrives as zeros
         dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout = fused_flow_train_bwd(
-            bound, h_proj, dz.contiguous(), dld.contiguous(), *args)
-        return dx, dhp, dan_s, dan_b, torch.zeros_like(args[2]), dw1y, db1, dwm, dbm, dwout, dbout
+            bound, h_proj, dz.contiguous(), dld.contiguous(), *args, mode=ctx.mode)
+        return None, dx, dhp, dan_s, dan_b, torch.zeros_like(args[2]), dw1y, db1, dwm, dbm, dwout, dbout
 
 
 def fused_flow_train(
@@ -643,9 +704,12 @@ def fused_flow_train(
     bm: torch.Tensor,
     wout: torch.Tensor,
     bout: torch.Tensor,
+    *,
+    mode: str = MODE_3XTF32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable `(z, logdet)` of the whole flow for training
     (`bcnf_tpu/ops/flow_kernel.py::fused_flow_train`): K2a forward, K2b
-    backward. Arguments as `stack_flow_params`/`pad_hidden` give them, with
-    one condition row per row of `x` (h_proj is (S, B, Hp)); raises otherwise."""
-    return _FusedFlowTrain.apply(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)
+    backward, both in `mode` (3xTF32 or one TF32 pass). Arguments as
+    `stack_flow_params`/`pad_hidden` give them, with one condition row per
+    row of `x` (h_proj is (S, B, Hp)); raises otherwise."""
+    return _FusedFlowTrain.apply(mode, x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)

@@ -1,5 +1,6 @@
-"""The plain PyTorch model of the tensor-core arithmetic of K2a, K2b, K3a and
-K3b, for the tests only: nothing on the main path calls it.
+"""The plain PyTorch model of the tensor-core arithmetic of K1, K2a, K2b,
+K3a, K3b and K4, for the tests and the card's checks only: nothing on the
+main path calls it.
 
 The hand-written training kernels (`csrc/flow_kernel.cu`'s K2a,
 `csrc/flow_train_kernel.cu`), the LSTM kernels (`csrc/lstm_kernel.cu`) and
@@ -11,7 +12,9 @@ float32 ``x`` splits into ``hi = tf32(x)`` (rounded) and ``lo = x - hi``
 Hopper counterpart of the JAX kernels' ``"x3"`` mode (bf16 x 3,
 `bcnf_tpu/ops/flow_kernel.py::_dot`), which serves their ``"highest"``
 contract. The tests hold the plain versions of those kernels, with
-every product replaced by `matmul_3xtf32`, against the JAX kernels.
+every product replaced by `matmul_3xtf32`, against the JAX kernels. The
+flow kernels' reduced mode takes one TF32 pass a product (`matmul_tf32`),
+the counterpart of the JAX kernels' "default" mode.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in a single TF32 pass (both operands rounded once): the
-    control the tests show to fall outside the float32 bars."""
+    """``a @ b`` in a single TF32 pass (both operands rounded once), summed
+    in float32: the arithmetic of the flow kernels' reduced mode (one
+    `mma.sync` or `wgmma` a product, `csrc/mma_tf32.cuh: mma_passes<1>`),
+    and the control the tests show to fall outside the float32 bars."""
     return round_tf32(a) @ round_tf32(b)

@@ -32,6 +32,7 @@ import torch
 
 from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, params_to_numpy
 from bcnf_tpu_torch.config import PARAMETER_ALIASES, ParameterIndexMapping
+from bcnf_tpu_torch.models.cnf import matmul_precision
 from bcnf_tpu_torch.simulation.observation import add_airborne_noise
 from bcnf_tpu_torch.simulation.physics import n_steps_for, simulate_trajectory
 from bcnf_tpu_torch.simulation.priors import sample_ballistic_parameters
@@ -202,7 +203,8 @@ def train_online(
     if mesh is not None:
         raise NotImplementedError("data-parallel online training is not ported yet (ROADMAP.md, slice 11)")
     dev = resolve_device(device)
-    # float32 is the contract: no TF32 in any matmul or convolution
+    # float32 is the contract outside the model's work (whose steps run at
+    # `model.precision`): no TF32 in any matmul or convolution
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     loss_fn = loss_fn or inn_nll_loss
@@ -274,8 +276,9 @@ def train_online(
             set_learning_rate(opt, schedule(step))
         y, conditions = simulator.sample_batch(generator, batch_size)
         opt.zero_grad()
-        metrics = objective(y, conditions)
-        metrics[0].backward()
+        with matmul_precision(model.precision):  # the forward, the hybrid loss and the backward
+            metrics = objective(y, conditions)
+            metrics[0].backward()
         opt.step()
         done = step + 1
         if done % eval_every == 0 or done == n_steps:

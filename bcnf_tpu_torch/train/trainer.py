@@ -33,6 +33,7 @@ import torch
 from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, params_to_numpy, tree_leaves
 from bcnf_tpu_torch.config import ParameterIndexMapping
 from bcnf_tpu_torch.errors import TrainingDivergedError
+from bcnf_tpu_torch.models.cnf import matmul_precision
 from bcnf_tpu_torch.models.pretrained import load_pretrained_features
 from bcnf_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from bcnf_tpu_torch.train.data import DeviceDataset, TrainerDataHandler
@@ -128,10 +129,13 @@ class Trainer:
     def train_step(self, model: Any, params: Any, opt_state: ClippedOptimizer, y: torch.Tensor,
                    conditions: Sequence[torch.Tensor], generator: torch.Generator) -> torch.Tensor:
         """One clipped update in place; returns the batch's metrics on the
-        device, `[loss, nll, mse, mean logdet]`."""
+        device, `[loss, nll, mse, mean logdet]`. The forward, the hybrid loss
+        and the backward run at the model's precision (`matmul_precision`),
+        as JAX traces its grad inside the model's precision context."""
         opt_state.zero_grad()
-        metrics = self.loss_fn(model, params, y, conditions, generator)
-        metrics[0].backward()
+        with matmul_precision(model.precision):
+            metrics = self.loss_fn(model, params, y, conditions, generator)
+            metrics[0].backward()
         if self.config["training"].get("freeze_features", False) and "features" in params:
             for p in tree_leaves(params["features"]):  # flow-only training: zero conditioner grads
                 p.grad = None
@@ -142,7 +146,13 @@ class Trainer:
     def val_step(self, model: Any, params: Any, y: torch.Tensor, conditions: Sequence[torch.Tensor],
                  w: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """Weighted metrics of one padded validation batch (`w` is 1 for real
-        rows, 0 for wrap-around pad rows; `bcnf_tpu/train/trainer.py:185-206`)."""
+        rows, 0 for wrap-around pad rows; `bcnf_tpu/train/trainer.py:185-206`),
+        at the model's precision."""
+        with matmul_precision(model.precision):
+            return self._val_metrics(model, params, y, conditions, w)
+
+    def _val_metrics(self, model: Any, params: Any, y: torch.Tensor, conditions: Sequence[torch.Tensor],
+                     w: torch.Tensor) -> tuple[torch.Tensor, ...]:
         if model.n_conditions > 0:
             z, log_det, h = model.forward(params, y, *conditions, return_features=True)
         else:
@@ -166,12 +176,15 @@ class Trainer:
         """Train `model`, returning the trained parameter tree on the
         trainer's device (reference `Trainer.train`, `src/bcnf/train/trainer.py:50-111`)."""
         cfg_t = self.config["training"]
+        # the matmul precision of the whole run (`bcnf_tpu/train/trainer.py:216-220`):
+        # each step runs inside `matmul_precision(model.precision)`
         if cfg_t.get("precision"):
             model.precision = str(cfg_t["precision"])
         if cfg_t.get("remat"):
             raise NotImplementedError("training.remat is not ported: the training kernels recompute "
                                       "each step's activations in the backward already")
-        # float32 is the contract: no TF32 in any matmul or convolution
+        # float32 is the contract outside the model's work: no TF32 in any
+        # matmul or convolution
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 

@@ -111,8 +111,26 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (observation noise); (h) `train --pretrained-features` from (c)'s
    params.pkl with `--freeze-features`: the features stay (c)'s, bit for bit.
 
+15. the reduced matmul precisions and `hpo`: (a) K1 (the inverse on `wgmma`
+   at the sampling shape and on the row tiles, the forward at the log_prob
+   shape), K2a and K2b at batch 4096 and K4 in one TF32 pass at the
+   flagship's widths, each against its plain one-pass version and the 3xTF32
+   kernel (JAX's reduced-mode bar, 5e-3) and shown not to be the 3xTF32
+   kernel, their CUDA-event times beside 3xTF32's, the one-pass round trip
+   beside the JAX CLI's TPU figure; then the precision path, counts zeroed
+   before it: (b) `sample --precision BF16_BF16_F32_X3` and `eval` at its
+   defaults in float32 and with `--precision default` on 200 generated
+   points (the test NLL equal to the bit; stage seconds), the per-coupling
+   inverse (K4) at "default"; (c) `Trainer.train` at `training.precision:
+   default` on the flagship at batch 4096 with dropout 0 (K2a/K2b in one
+   pass) and on the published config at 256 (plain autograd in TF32), train
+   samples/s and losses beside float32; (d) `hpo` on 512 trajectories
+   generated on the card, 3 calls x 2 folds x 2 epochs, then a re-run that
+   resumes. Fails if a one-pass kernel was not launched on the path.
+
 The line before the last is the kernel table as JSON (each row with its
-arithmetic, `arith`: float32 FMA, or 3xTF32 on the tensor cores, its bound
+arithmetic, `arith`: float32 FMA, 3xTF32 on the tensor cores, or one TF32
+pass (`tf32`, phase 15's rows, with `ms_3xtf32` beside), its bound
 at that arithmetic's peak, `zoo_launches` and `video_launches`, its
 launches on phase 13's and phase 14's video-model runs, and for K3a and K3b
 their `video_*` times and bound at the video model's LSTM shape); the last
@@ -170,7 +188,7 @@ PEAKS = {  # name fragment: (float32 FLOP/s, TF32 FLOP/s, bytes/s)
 # A kernel's arithmetic, and the rate its operations are bounded by: float32
 # FMA at the float32 peak; 3xTF32 (three tensor-core products a product,
 # csrc/mma_tf32.cuh) at a third of the TF32 peak.
-ARITH_FMA, ARITH_3XTF32 = "fp32-fma", "3xtf32"
+ARITH_FMA, ARITH_3XTF32, ARITH_TF32 = "fp32-fma", "3xtf32", "tf32"  # tf32: one pass, at the TF32 peak
 
 
 def fail(msg: str) -> None:
@@ -281,7 +299,7 @@ def route_rows(route: str, Hp: int) -> int:
     """Rows a block of K1's kernel on `route` owns at the padded width Hp
     (csrc/flow_wgmma.cu: 64; csrc/flow_rows.cuh: 32, 16 from Hp 768;
     csrc/flow_kernel.cu's strict kernel: 64, 32 from Hp 768)."""
-    if route == "rows":
+    if route in ("rows", "rows_tf32"):
         return 32 if Hp <= 32 * 17 else 16
     return 64 if Hp <= 32 * 17 else 32
 
@@ -294,7 +312,7 @@ def bound_ms(work: tuple[float, float], peaks: tuple[float, float, float], arith
     """The least time for the work on this card in the given arithmetic: the
     larger of its operations over that arithmetic's rate and its bytes over
     the memory rate; and which of the two it is."""
-    rate = peaks[1] / 3 if arith == ARITH_3XTF32 else peaks[0]
+    rate = {ARITH_3XTF32: peaks[1] / 3, ARITH_TF32: peaks[1]}.get(arith, peaks[0])
     t_ops, t_bytes = 1e3 * work[0] / rate, 1e3 * work[1] / peaks[2]
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -348,6 +366,8 @@ def main() -> None:
     from bcnf_tpu_torch.models import count_params
     from bcnf_tpu_torch.ops import _build
     from bcnf_tpu_torch.ops.flow_kernel import (
+        MODE_3XTF32,
+        MODE_FMA,
         ROUTE_FMA,
         ROUTE_ROWS,
         ROUTE_WGMMA,
@@ -413,8 +433,9 @@ def main() -> None:
             y_r = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=N)
             z_r, ld_r = fused_flow_reference(x, h_proj, **kargs, inverse=False, n_cond=N)
             for m, strict in modes.items():
-                y_k = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N, strict=strict)
-                z_k, ld_k = fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N, strict=strict)
+                y_k = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N, mode=MODE_FMA if strict else MODE_3XTF32)
+                z_k, ld_k = fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N,
+                                       mode=MODE_FMA if strict else MODE_3XTF32)
                 torch.cuda.synchronize()
                 errs[f"inverse{m}"] = max(errs[f"inverse{m}"], (y_k - y_r).abs().max().item())
                 errs[f"forward{m}"] = max(errs[f"forward{m}"], (z_k - z_r).abs().max().item(),
@@ -523,7 +544,8 @@ def main() -> None:
         saved = fused_flow.launches
         for direction, (x, ka, hp, n, n_launches, inv, strict) in shapes.items():
             # the kernel against its plain version at exactly the main path's inputs too
-            out_k = fused_flow(x, hp, **ka, inverse=inv, n_cond=n, strict=strict)
+            kmode = MODE_FMA if strict else MODE_3XTF32
+            out_k = fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=kmode)
             out_p = fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n)
             err = max((a - b).abs().max().item() for a, b in zip(
                 (out_k,) if inv else out_k, (out_p,) if inv else out_p))
@@ -531,8 +553,8 @@ def main() -> None:
                 fail(f"fused_flow {direction} at the main path's shape disagrees with plain: {err:.3e}")
             key = direction.replace(",", "")
             errs[key] = max(errs[key], err)
-            route = flow_route(hp.shape[-1], model.size, ka["w1y"].shape[1], inv, strict)
-            k_times = cuda_ms(lambda: fused_flow(x, hp, **ka, inverse=inv, n_cond=n, strict=strict), reps=5)
+            route = flow_route(hp.shape[-1], model.size, ka["w1y"].shape[1], inv, kmode)
+            k_times = cuda_ms(lambda: fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=kmode), reps=5)
             p_times = cuda_ms(lambda: fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n), reps=3)
             flops, nbytes = flow_work(ka, hp, x.shape[0], H)
             arith = ARITH_FMA if strict else ARITH_3XTF32
@@ -554,7 +576,7 @@ def main() -> None:
         # the wgmma inverse's parts alone (uncounted launches): its products on
         # stale weight stages, and the weights' stream from L2 without the products
         staged, wg_args = prepare_weights(kargs["wm"]), dict(kargs, h_proj=h_proj)
-        part_ms = {name: median(cuda_ms(lambda: _launch_flow(x_inv, wg_args, inverse=True, n_cond=N_COND, strict=False,
+        part_ms = {name: median(cuda_ms(lambda: _launch_flow(x_inv, wg_args, inverse=True, n_cond=N_COND, mode=MODE_3XTF32,
                                                              wstages=staged, parts=parts), reps=3))
                    for name, parts in (("both", WG_PRODUCTS | WG_COPIES), ("products", WG_PRODUCTS),
                                        ("stream", WG_COPIES))}
@@ -598,6 +620,7 @@ def main() -> None:
     eval_path(dev, build_dir, peaks)
     zoo = model_zoo(rng, dev, build_dir, peaks)
     video, lstm_video = video_path(rng, dev, build_dir, peaks)
+    kernels += precision_path(model, params, rng, dev, build_dir, peaks)
     for row in kernels:  # each kernel's launches on phase 13's and 14's paths, beside its main-path launches
         key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward"}.get(
             row["name"], row["name"].split()[0])
@@ -2873,6 +2896,374 @@ def video_path(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> t
     print(f"    phase 14 took {time.perf_counter() - t0:.1f} s; the video model's launches ((c), (e), (f), (h)): "
           f"{launches}")
     return launches, lstm_video
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the reduced matmul precisions (one TF32 pass in K1, K2a, K2b and
+# K4) and the hpo path
+# ---------------------------------------------------------------------------
+
+# The JAX package's bar for its reduced kernel mode against float32
+# (tests/test_flow_kernel.py:130-141): max |d| of values; grads at that bar
+# times max(1, max |plain|). The one-pass kernels are held to it against
+# their plain one-pass versions (`mm=ops/tf32.py::matmul_tf32`, every MLP
+# product rounded; the kernels keep the narrow products float32 FMA) and
+# against the 3xTF32 kernels, and must differ from the 3xTF32 kernel by more
+# than twice its own distance from float32: the one pass is not a no-op.
+REDUCED_TOL = 5e-3
+# the JAX CLI's advertised BF16_BF16_F32_X3 round trip on a TPU
+# (results/precision_sweep.json): printed beside the port's, not a bar
+JAX_X3_ROUND_TRIP = 1.82e-3
+
+
+def one_pass_counts() -> dict:
+    """Launches of the one-pass kernels: K1 by route (the flagship's inverse
+    on `wgmma`, its forward on the row tiles), K2a and K2b by mode."""
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        MODE_TF32, ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32, fused_flow, fused_flow_train_bwd, fused_flow_train_fwd,
+    )
+
+    return {"K1 inverse": fused_flow.route_launches[ROUTE_WGMMA_TF32],
+            "K1 forward": fused_flow.route_launches[ROUTE_ROWS_TF32],
+            "K2a": fused_flow_train_fwd.mode_launches[MODE_TF32], "K2b": fused_flow_train_bwd.mode_launches[MODE_TF32]}
+
+
+def zero_all_counts() -> None:
+    from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_bwd, fused_flow_train_fwd
+
+    zero_counts()
+    fused_affine_coupling.launches = 0
+    for fn in (fused_flow_train_fwd, fused_flow_train_bwd, fused_affine_coupling):
+        fn.mode_launches.clear()
+
+
+def _max_d(a, b) -> float:
+    a, b = (a,) if not isinstance(a, tuple) else a, (b,) if not isinstance(b, tuple) else b
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def _hold_one_pass(what: str, one, three, plain_one, plain_f32) -> tuple[float, float, float]:
+    """One-pass output against its plain one-pass version and the 3xTF32
+    kernel (REDUCED_TOL), and not a no-op; returns (vs plain one pass, vs
+    3xTF32, 3xTF32 vs plain float32)."""
+    e1, e13, e3 = _max_d(one, plain_one), _max_d(one, three), _max_d(three, plain_f32)
+    if not (e1 <= REDUCED_TOL and e13 <= REDUCED_TOL):
+        fail(f"{what}: one pass vs plain one pass {e1:.3e}, vs 3xTF32 {e13:.3e} (bar {REDUCED_TOL:g})")
+    if not e13 > 2 * e3:
+        fail(f"{what}: the one pass is {e13:.3e} from 3xTF32, not more than twice 3xTF32's {e3:.3e} from float32")
+    return e1, e13, e3
+
+
+def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float]) -> tuple[list[dict], dict]:
+    """Phase 15 (a): K1 (the inverse on `wgmma` and on the row tiles, the
+    forward), K2a, K2b and K4 in one TF32 pass at the flagship's widths and
+    the main path's shapes, each held against its plain one-pass version
+    and the 3xTF32 kernel; CUDA-event times beside 3xTF32's; the one-pass
+    round trip. Returns the kernel rows (launches filled in later) and the
+    rows' 3xTF32 times."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops.coupling_kernel import (
+        fused_affine_coupling, fused_affine_coupling_reference, mlp_params_to_kernel_args,
+    )
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    H, d_a = model.nested_sizes[0], model.coupling.d_a
+    randn = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)  # noqa: E731
+    traj, z = randn(N_COND, 30, 3), randn(M_DRAWS * N_COND, model.size)
+    traj_lp, y_lp = randn(LOGPROB_ROWS, 30, 3), randn(LOGPROB_ROWS, model.size)
+    with torch.no_grad():
+        h, h_lp = model.encode(params, (traj,)), model.encode(params, (traj_lp,))
+        kargs, h_proj = model._fused_flow_args(params, h)
+        kargs_f, h_proj_f = model._fused_flow_args(params, h_lp)
+    rows, three_ms = [], {}
+    modes = (fk.MODE_TF32, fk.MODE_3XTF32)
+    print(f"[15 reduced precision: kernels] one TF32 pass against the plain one-pass version (every MLP product "
+          f"rounded to TF32) and the 3xTF32 kernel (bar {REDUCED_TOL:g}, JAX's reduced-mode bar), at the flagship's "
+          f"widths; CUDA events, median of 5 (plain 3):")
+    cases = {  # direction: (x, kargs, h_proj, n_cond, inverse, the row-tile inverse forced)
+        "inverse": (z, kargs, h_proj, N_COND, True, False),
+        "inverse, row tiles": (z[:LOGPROB_ROWS], kargs, h_proj, N_COND, True, True),
+        "forward": (y_lp, kargs_f, h_proj_f, LOGPROB_ROWS, False, False),
+    }
+    wg_max = fk.WGMMA_MAX_TN
+    for direction, (x, ka, hp, n, inv, rows_inverse) in cases.items():
+        if rows_inverse:  # the route of the models wider than Hp 544, at the flagship's width
+            fk.WGMMA_MAX_TN = 0
+        try:
+            with torch.no_grad():
+                outs = {m: fk.fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=m) for m in modes}
+                plain_one = fk.fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n, mm=matmul_tf32)
+                plain = fk.fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n)
+                torch.cuda.synchronize()
+                errs = _hold_one_pass(f"K1 {direction}", outs[fk.MODE_TF32], outs[fk.MODE_3XTF32], plain_one, plain)
+                route = fk.flow_route(hp.shape[-1], model.size, d_a, inv, fk.MODE_TF32)
+                times = {m: cuda_ms(lambda: fk.fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=m), reps=5)
+                         for m in modes}
+                p_times = cuda_ms(lambda: fk.fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n, mm=matmul_tf32),
+                                  reps=3)
+        finally:
+            fk.WGMMA_MAX_TN = wg_max
+        work = flow_work(ka, hp, x.shape[0], H)
+        row = kernel_row(f"fused_flow[{direction}, tf32]", "bcnf_tpu_torch/ops/csrc/" + (
+            "flow_wgmma.cu" if route == fk.ROUTE_WGMMA_TF32 else "flow_kernel.cu"), "bcnf_tpu/ops/flow_kernel.py:162",
+            0, errs[0], times[fk.MODE_TF32], p_times, work, peaks, None, ARITH_TF32)
+        print(f"    K1 {direction} ({route}) rows {x.shape[0]}: one pass {row['ms']:.2f} ms, 3xTF32 "
+              f"{median(times[fk.MODE_3XTF32]):.2f} ms ({median(times[fk.MODE_3XTF32]) / row['ms']:.2f}x); bound "
+              f"{row['bound_ms']:.2f} ms (3xTF32 {bound_ms(work, peaks, ARITH_3XTF32)[0]:.2f}); plain one pass "
+              f"{row['plain_ms']:.2f} ms; max|d| vs plain one pass {errs[0]:.2e}, vs 3xTF32 {errs[1]:.2e} (3xTF32 vs "
+              f"plain float32 {errs[2]:.2e})")
+        if not rows_inverse:
+            rows.append(row)
+            three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
+    with torch.no_grad():
+        y1 = fk.fused_flow(z, h_proj, **kargs, inverse=True, n_cond=N_COND, mode=fk.MODE_TF32)
+        z1, _ = fk.fused_flow(y1, h_proj, **kargs, inverse=False, n_cond=N_COND, mode=fk.MODE_TF32)
+        torch.cuda.synchronize()
+    rt = (z1 - z).abs().max().item()
+    print(f"    one-pass round trip (inverse then forward, {z.shape[0]} rows): max|z - z'| {rt:.3e}; the JAX CLI's "
+          f"BF16_BF16_F32_X3 figure on a TPU: {JAX_X3_ROUND_TRIP:g} (results/precision_sweep.json)")
+    if not rt <= REDUCED_TOL:
+        fail(f"one-pass round trip {rt:.3e} > {REDUCED_TOL:g}")
+
+    # K2a and K2b at batch 4096, rows with their own conditions
+    with torch.no_grad():
+        kt, hpt = model._fused_flow_args(params, model.encode(params, (randn(LOGPROB_ROWS, 30, 3),)))
+    args = [kt[k].contiguous() for k in TRAIN_ARGS]
+    y_t = randn(LOGPROB_ROWS, model.size)
+    fwd = {m: fk.fused_flow_train_fwd(y_t, hpt, *args, mode=m) for m in modes}
+    z_p1, ld_p1, _ = fk.fused_flow_train_reference(y_t, hpt, *args, mm=matmul_tf32)
+    z_p, ld_p, _ = fk.fused_flow_train_reference(y_t, hpt, *args)
+    torch.cuda.synchronize()
+    e_fwd = _hold_one_pass("K2a", fwd[fk.MODE_TF32][:2], fwd[fk.MODE_3XTF32][:2], (z_p1, ld_p1), (z_p, ld_p))
+    bound = fwd[fk.MODE_TF32][2]
+    dz, dld = randn_cotangents(fwd[fk.MODE_TF32][0])
+    g1 = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=fk.MODE_TF32)
+    g3 = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args)
+    gp1 = fk.fused_flow_train_backward_reference(bound, hpt, dz, dld, *args, mm=matmul_tf32)
+    torch.cuda.synchronize()
+    e_bwd, faults = 0.0, []
+    for name, a, b, c in zip(GRAD_NAMES, g1, gp1, g3):
+        mag = b.abs().max().item()
+        d1, d13 = (a - b).abs().max().item(), (a - c).abs().max().item()
+        e_bwd = max(e_bwd, d1)
+        print(f"      K2b one pass {name}: max|plain| {mag:.3e}, max|d| vs plain one pass {d1:.3e}, vs 3xTF32 {d13:.3e}")
+        if not (d1 <= REDUCED_TOL * max(1.0, mag) and d13 <= REDUCED_TOL * max(1.0, mag)):
+            faults.append(f"{name} {d1:.3e}/{d13:.3e} past {REDUCED_TOL:g} x {max(1.0, mag):.3g}")
+    if faults:
+        fail("K2b one pass: " + "; ".join(faults))
+    work = dict(zip(("K2a", "K2b"), train_work(dict(zip(TRAIN_ARGS, args)), hpt, LOGPROB_ROWS, H)))
+    calls = {
+        "K2a": (lambda m: fk.fused_flow_train_fwd(y_t, hpt, *args, mode=m),
+                lambda: fk.fused_flow_train_reference(y_t, hpt, *args, mm=matmul_tf32)),
+        "K2b": (lambda m: fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=m),
+                lambda: fk.fused_flow_train_backward_reference(bound, hpt, dz, dld, *args, mm=matmul_tf32)),
+    }
+    for name, err, src, replaces, fn in (
+        ("K2a", e_fwd[0], "bcnf_tpu_torch/ops/csrc/flow_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:558",
+         "fused_flow_train_fwd"),
+        ("K2b", e_bwd, "bcnf_tpu_torch/ops/csrc/flow_train_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:600",
+         "fused_flow_train_bwd"),
+    ):
+        k_call, p_call = calls[name]
+        times = {m: cuda_ms(lambda: k_call(m), reps=5) for m in modes}
+        row = kernel_row(f"{name}[tf32] {fn}", src, replaces, 0, err, times[fk.MODE_TF32], cuda_ms(p_call, reps=3),
+                         work[name], peaks, None, ARITH_TF32)
+        rows.append(row)
+        three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
+        print(f"    {name} rows {LOGPROB_ROWS}: one pass {row['ms']:.2f} ms, 3xTF32 {three_ms[row['name']]:.2f} ms "
+              f"({three_ms[row['name']] / row['ms']:.2f}x); bound {row['bound_ms']:.2f} ms (3xTF32 "
+              f"{bound_ms(work[name], peaks, ARITH_3XTF32)[0]:.2f}); plain one pass {row['plain_ms']:.2f} ms; "
+              f"max|d| vs plain one pass {err:.2e}")
+
+    # K4: block 0's coupling on the sampling rows (inverse) and the log_prob rows (forward)
+    blk0 = map_tree(lambda t: t[0], params["blocks"]["coupling"])
+    cargs = mlp_params_to_kernel_args(blk0["a"], d_a)
+    with torch.no_grad():
+        for inverse, (x, hc, n) in {True: (z, h, N_COND), False: (y_lp, h_lp, LOGPROB_ROWS)}.items():
+            hp = model.coupling.cond_proj(blk0, hc)["a"][0]
+            x_a, x_b = x[:, :d_a].contiguous(), x[:, d_a:].contiguous()
+            outs = {m: fused_affine_coupling(x_a, x_b, hp, **cargs, inverse=inverse, mode=m) for m in modes}
+            p1 = fused_affine_coupling_reference(x_a, x_b, hp, **cargs, inverse=inverse, n_cond=n, mm=matmul_tf32)
+            p32 = fused_affine_coupling_reference(x_a, x_b, hp, **cargs, inverse=inverse, n_cond=n)
+            torch.cuda.synchronize()
+            direction = "inverse" if inverse else "forward"
+            errs = _hold_one_pass(f"K4 {direction}", outs[fk.MODE_TF32], outs[fk.MODE_3XTF32], p1, p32)
+            times = {m: cuda_ms(lambda: fused_affine_coupling(x_a, x_b, hp, **cargs, inverse=inverse, mode=m), reps=5)
+                     for m in modes}
+            p_times = cuda_ms(lambda: fused_affine_coupling_reference(x_a, x_b, hp, **cargs, inverse=inverse, n_cond=n,
+                                                                      mm=matmul_tf32), reps=3)
+            work = coupling_work(cargs, x.shape[0], n, H, inverse)
+            row = kernel_row(f"K4[tf32] fused_affine_coupling[{direction}]", "bcnf_tpu_torch/ops/csrc/" + (
+                "flow_wgmma.cu" if inverse else "flow_kernel.cu"), "bcnf_tpu/ops/coupling_kernel.py:69", 0, errs[0],
+                times[fk.MODE_TF32], p_times, work, peaks, None, ARITH_TF32)
+            rows.append(row)
+            three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
+            print(f"    K4 {direction} rows {x.shape[0]}: one pass {row['ms']:.3f} ms, 3xTF32 "
+                  f"{three_ms[row['name']]:.3f} ms; bound {row['bound_ms']:.3f} ms (3xTF32 "
+                  f"{bound_ms(work, peaks, ARITH_3XTF32)[0]:.3f}); plain one pass {row['plain_ms']:.3f} ms; max|d| vs "
+                  f"plain one pass {errs[0]:.2e}, vs 3xTF32 {errs[1]:.2e}")
+    return rows, three_ms
+
+
+def precision_training(dev, rng) -> None:
+    """Phase 15 (c): `Trainer.train` on the flagship at batch 4096 with
+    coupling dropout 0 and `training.precision: default` (K2a/K2b in one
+    pass), and on the published config at batch 256 (dropout 0.407: plain
+    autograd, its products in TF32), each beside float32: train samples/s
+    (5 steps after a warm-up) and the losses after the same steps."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.config import load_config
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+
+    for what, B in (("flagship, dropout 0", 4096), ("published config", 256)):
+        cfg = _flagship_train_config(B, 1) if B == 4096 else load_config(CONFIG).to_dict()
+        cfg["training"].update(batch_size=B, n_epochs=1, timeout=None)
+        n = int(round(3 * B / (1 - cfg["training"]["validation_split"])))
+        y = rng.normal(size=(n, 19)).astype(np.float32)
+        traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
+        result = {}
+        for precision in ("highest", "default"):
+            cfg["training"]["precision"] = precision
+            model = CondRealNVP.from_config(cfg)
+            trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED, verbose=False)
+            trained = trainer.train(model, model.init(torch.Generator().manual_seed(SEED), device=dev))
+            hist = trainer.meta_scheduler.parameter_history
+            losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
+            if model.precision != precision or not np.all(np.isfinite(losses)):
+                fail(f"{what}: training.precision {precision} gave model precision {model.precision}, losses {losses}")
+            params = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+            opt = make_optimizer("Adam", lr=2e-4).init(params)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            yb = torch.from_numpy(y[:B]).to(dev)
+            cb = [torch.from_numpy(traj[:B]).to(dev)]
+            trainer.train_step(model, params, opt, yb, cb, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                trainer.train_step(model, params, opt, yb, cb, gen)
+            torch.cuda.synchronize()
+            result[precision] = (5 * B / (time.perf_counter() - t0), losses)
+        print(f"    Trainer.train, {what}, batch {B}, 3 steps + validation: train samples/s float32 "
+              f"{result['highest'][0]:,.0f}, default (one TF32 pass) {result['default'][0]:,.0f} "
+              f"({result['default'][0] / result['highest'][0]:.2f}x); losses after the same steps (train, val) "
+              f"float32 {', '.join(f'{v:.4f}' for v in result['highest'][1])}, default "
+              f"{', '.join(f'{v:.4f}' for v in result['default'][1])}")
+
+
+def precision_path(model, params, rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> list[dict]:
+    """Phase 15: (a) the one-pass kernels; the precision path, its launch
+    counts zeroed before it and read after: (b) `sample --precision
+    BF16_BF16_F32_X3` and `eval` at its defaults in float32 and with
+    `--precision default` on 200 generated test points (the test NLL equal
+    to the bit), the per-coupling inverse (K4) at "default"; (c) training at
+    `training.precision: default`; (d) `hpo` on 512 trajectories generated on
+    the card, 3 calls, 2 folds, 2 epochs, then a re-run that resumes.
+    Returns the one-pass kernel rows."""
+    import numpy as np
+    import torch
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.bridge import params_to_numpy
+    from bcnf_tpu_torch.hpo.gp_minimize import load_checkpoint
+    from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling
+    from bcnf_tpu_torch.ops.flow_kernel import MODE_TF32
+
+    t_start = time.perf_counter()
+    rows, three_ms = one_pass_kernels(model, params, rng, dev, peaks)
+    t_kernels = time.perf_counter() - t_start
+    zero_all_counts()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # -- (b) sample and eval at the reduced precisions
+        with open(os.path.join(tmp, "params.pkl"), "wb") as f:
+            pickle.dump(params_to_numpy(params), f)
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"config_path": CONFIG}, f)
+        test = os.path.join(tmp, "test.pkl")
+        cli.main(["generate", "-c", PRIOR_CONFIG, "-o", test, "-n", "200", "--no-filter", "--dt", "0.067", "-T", "2",
+                  "--seed", "15"])
+        out = os.path.join(tmp, "samples.npy")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["sample", "-m", tmp, "-d", test, "-n", "1000", "-o", out, "--precision", "BF16_BF16_F32_X3"])
+        t_sample = time.perf_counter() - t0
+        s = np.load(out)
+        if s.shape != (1000, 200, model.size) or not np.isfinite(s).all():
+            fail(f"sample --precision BF16_BF16_F32_X3 gave {s.shape}, finite {np.isfinite(s).all()}")
+        reports = {}
+        for precision in (None, "default"):
+            argv = ["eval", "-m", tmp, "-d", test, "-o", os.path.join(tmp, f"report_{precision}")]
+            (report, _, stages), secs = run_eval(argv + (["--precision", precision] if precision else []))
+            reports[precision] = report
+            print(f"    eval at its defaults{' --precision ' + precision if precision else ' (float32)'}: {secs:.2f} s; "
+                  f"stages {', '.join(f'{k} {v:.3f}' for k, v in stages.items())}; test NLL {report['test_nll']!r}")
+        if reports["default"]["test_nll"] != reports[None]["test_nll"]:
+            fail(f"eval --precision default moved the test NLL: {reports['default']['test_nll']!r} against "
+                 f"{reports[None]['test_nll']!r}")
+        z = torch.from_numpy(rng.normal(size=(M_DRAWS, N_COND, model.size)).astype(np.float32)).to(dev)
+        traj = torch.from_numpy(rng.normal(size=(N_COND, 30, 3)).astype(np.float32)).to(dev)
+        k4 = fused_affine_coupling.mode_launches
+        model.use_pallas_coupling, model.precision = True, "default"
+        try:
+            with torch.no_grad():
+                y4 = model.inverse_given_h(params, z, model.encode(params, (traj,)))
+                k4_inverse = k4[MODE_TF32]
+                z4, _ = model.forward(params, y4[0], traj)
+                torch.cuda.synchronize()
+        finally:
+            model.use_pallas_coupling, model.precision = False, "highest"
+        k4_forward = k4[MODE_TF32] - k4_inverse
+        if not (torch.isfinite(y4).all() and torch.isfinite(z4).all()):
+            fail("the per-coupling inverse or forward at precision 'default' is not finite")
+        print(f"[15 reduced precision: path] sample --precision BF16_BF16_F32_X3, 1000 x 200: {t_sample:.2f} s, "
+              f"finite; the test NLL at --precision default equals float32's to the bit; the per-coupling inverse "
+              f"at 'default' ({M_DRAWS} x {N_COND}) and forward ({N_COND} rows) finite")
+
+        # -- (c) training at training.precision: default
+        precision_training(dev, rng)
+        counts = dict(one_pass_counts(), **{"K4 inverse": k4_inverse, "K4 forward": k4_forward})
+
+        # -- (d) hpo on trajectories generated on the card
+        data = os.path.join(tmp, "hpo_data.pkl")
+        cli.main(["generate", "-c", PRIOR_CONFIG, "-o", data, "-n", "512", "--no-filter", "--dt", "0.067", "-T", "2",
+                  "--seed", "16"])
+        hpo_dir = os.path.join(tmp, "hpo")
+        argv = ["hpo", "-d", data, "-o", hpo_dir, "--n-initial-points", "2", "--n-splits", "2", "--n-epochs", "2",
+                "--n-samples", "512"]
+        t0 = time.perf_counter()
+        cli.main(argv + ["--n-calls", "3"])
+        first = load_checkpoint(os.path.join(hpo_dir, "hpo_checkpoint.pkl"))
+        cli.main(argv + ["--n-calls", "4"])
+        t_hpo = time.perf_counter() - t0
+        resumed = load_checkpoint(os.path.join(hpo_dir, "hpo_checkpoint.pkl"))
+        with open(os.path.join(hpo_dir, "best.json")) as f:
+            best = json.load(f)
+        if (len(first["x_iters"]) != 3 or resumed["x_iters"][:3] != first["x_iters"] or best["n_evaluations"] != 4
+                or not np.isfinite(best["best_val_loss"])):
+            fail(f"hpo: {len(first['x_iters'])} then {len(resumed['x_iters'])} evaluations, best {best}")
+        print(f"    hpo on 512 trajectories generated on the card: 3 calls (2 random, 1 from the GP) x 2 folds x 2 "
+              f"epochs, then a re-run resumed to 4, in {t_hpo:.2f} s; best CV val loss {best['best_val_loss']:.3f} at "
+              f"{best['best_params']}")
+    torch.cuda.synchronize()
+    missing = [k for k, v in counts.items() if v < 1]
+    if missing:
+        fail(f"the precision path launched no one-pass {', '.join(missing)}: {counts}")
+    key = {"fused_flow[inverse, tf32]": "K1 inverse", "fused_flow[forward, tf32]": "K1 forward",
+           "K4[tf32] fused_affine_coupling[inverse]": "K4 inverse", "K4[tf32] fused_affine_coupling[forward]": "K4 forward"}
+    for row in rows:
+        row["launches"] = counts[key.get(row["name"], row["name"].split("[")[0])]
+        row["ms_3xtf32"] = three_ms[row["name"]]
+    print(f"    phase 15 took {time.perf_counter() - t_start:.1f} s (kernels {t_kernels:.1f} s); one-pass launches on "
+          f"its path (counts zeroed before (b), read after (c)): {counts}")
+    return rows
 
 
 if __name__ == "__main__":

@@ -134,8 +134,13 @@ def test_eval_refusals_and_device_rule(trained, tmp_path):
     base = ["eval", "-m", str(model_dir), "-d", str(test_set), "-o", str(tmp_path / "r")]
     with pytest.raises(NotImplementedError, match="slice 11"):
         main([*base, "--dp-devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        main([*base, "--precision", "bfloat16", "--device", "cpu"])
+    # the precision override: a string the port does not take fails before any work; a reduced one runs
+    with pytest.raises(ValueError, match="BF16_BF16_F32_X3"):
+        main([*base, "--precision", "tensorfloat32", "--device", "cpu"])
+    assert not (tmp_path / "r").exists()
+    main([*base, "--precision", "bfloat16", "--device", "cpu", "-M", "16", "--max-points", "4", "--skip-resim"])
+    with open(tmp_path / "r" / "report.json") as f:
+        assert np.isfinite(json.load(f)["test_nll"])
     if torch.cuda.is_available():
         pytest.skip("checks the device rule of a host without a GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -190,8 +190,12 @@ def test_kernel_gate():
     for other in (dict(two_way=True), dict(coupling="rqs"), dict(layer="AnyGLU"), dict(layer="LinearFFTEnriched")):
         m = CondRealNVP(nested_sizes=NESTED, **{**kw, **other})
         assert not m.coupling.fusable and not m._use_fused_train(False, x)
-    with pytest.raises(NotImplementedError):
-        CondRealNVP(nested_sizes=NESTED, **{**kw, "precision": "default"})
+    # the precision table: the reduced strings open the gates in one TF32 pass, X6 closes them, others raise
+    assert CondRealNVP(nested_sizes=NESTED, **{**kw, "precision": "default"}).kernel_mode == "tf32"
+    x6 = CondRealNVP(nested_sizes=NESTED, **{**kw, "precision": "BF16_BF16_F32_X6"})
+    assert x6.kernel_mode is None and x6.train_kernel_mode is None
+    with pytest.raises(ValueError, match="BF16_BF16_F32_X6"):
+        CondRealNVP(nested_sizes=NESTED, **{**kw, "precision": "tensorfloat32"})
 
 
 # ---------------------------------------------------------------------------

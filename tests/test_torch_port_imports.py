@@ -51,9 +51,11 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
         "        'simulation.priors', 'simulation.camera', 'simulation.observation', 'simulation.sampling',\n"
         "        'simulation.resimulation', 'eval.calibration', 'plots.eval_plots', 'ops.attention',\n"
         "        'models.layers', 'models.splines', 'models.cnn', 'models.pretrained', 'train.online',\n"
-        "        'simulation.video_processing', 'plots.debug_plotting']\n"
+        "        'simulation.video_processing', 'plots.debug_plotting', 'eval.crossvalidate',\n"
+        "        'hpo.gp_minimize', 'hpo.driver']\n"
         "assert all('bcnf_tpu_torch.' + n in names for n in need), names\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'sklearn' not in sys.modules, 'sklearn was imported'\n"
         "bad = [m for m in sys.modules if m == 'bcnf_tpu' or m.startswith('bcnf_tpu.')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -174,12 +176,79 @@ def test_kernel_matches_reference_on_card(cuda, inverse, hidden, strict):
     x = torch.from_numpy(rng.normal(size=(6 * 37 + 5, 5)).astype(np.float32)).to(cuda)
     route = ROUTE_FMA if strict else ROUTE_WGMMA if inverse and hidden <= 544 else ROUTE_ROWS
     before = fused_flow.launches, fused_flow.route_launches[route]
-    out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, strict=strict)
+    out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, mode="fma" if strict else "3xtf32")
     ref = fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=6)
     torch.cuda.synchronize()
     assert (fused_flow.launches, fused_flow.route_launches[route]) == (before[0] + 1, before[1] + 1)
     for a, b in zip(out if not inverse else (out,), ref if not inverse else (ref,)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+@pytest.mark.parametrize("hidden", [16, 526, 1000])  # wgmma up to Hp 544, row tiles above
+def test_one_pass_kernel_matches_plain_one_pass_on_card(cuda, inverse, hidden):
+    """K1 in one TF32 pass on the one-pass route of its width, ragged rows
+    included, within 5e-3 (the JAX package's reduced-mode bar) of the plain
+    one-pass version; counted once on its route. The float32 plain version
+    is off by more than the 3xTF32 kernel is: the pass is one."""
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    model = _tiny_model(hidden)
+    params = model.init(device=cuda)
+    rng = np.random.default_rng(3)
+    traj = torch.from_numpy(rng.normal(size=(6, 9, 3)).astype(np.float32)).to(cuda)
+    kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
+    x = torch.from_numpy(rng.normal(size=(6 * 37 + 5, 5)).astype(np.float32)).to(cuda)
+    route = ROUTE_WGMMA_TF32 if inverse and hidden <= 544 else ROUTE_ROWS_TF32
+    before = fused_flow.route_launches[route]
+    out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, mode="tf32")
+    three = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6)
+    ref = fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=6, mm=matmul_tf32)
+    f32 = fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=6)
+    torch.cuda.synchronize()
+    assert fused_flow.route_launches[route] == before + 1
+    pick = (lambda o: o) if inverse else (lambda o: o[0])
+    torch.testing.assert_close(pick(out), pick(ref), atol=5e-3, rtol=0)
+    assert (pick(out) - pick(f32)).abs().max() > (pick(three) - pick(f32)).abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [526, 1000])
+def test_one_pass_training_kernels_match_plain_one_pass_on_card(cuda, hidden):
+    """K2a and K2b in one TF32 pass (through `fused_flow_train(mode="tf32")`)
+    against their plain one-pass versions: z and logdet within 5e-3, each
+    grad within 5e-3 max(1, max |plain|); counted once by mode."""
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        fused_flow_train,
+        fused_flow_train_backward_reference,
+        fused_flow_train_bwd,
+        fused_flow_train_fwd,
+        fused_flow_train_reference,
+    )
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[hidden] * 3, n_blocks=4, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0)
+    with torch.no_grad():
+        x, h_proj, args = _train_args(model, model.init(device=cuda), B=300, seed=4, device=cuda)
+    before = fused_flow_train_fwd.mode_launches["tf32"], fused_flow_train_bwd.mode_launches["tf32"]
+    leaves = [t.clone().requires_grad_(True) for t in (x, h_proj, *args)]
+    z, ld = fused_flow_train(*leaves, mode="tf32")
+    dz, dld = torch.randn_like(z), torch.randn_like(ld)
+    grads = torch.autograd.grad((z, ld), leaves, grad_outputs=(dz, dld))
+    torch.cuda.synchronize()
+    assert (fused_flow_train_fwd.mode_launches["tf32"], fused_flow_train_bwd.mode_launches["tf32"]) == (
+        before[0] + 1, before[1] + 1)
+    z_r, ld_r, bound = fused_flow_train_reference(x, h_proj, *args, mm=matmul_tf32)
+    torch.testing.assert_close(z, z_r, atol=5e-3, rtol=0)
+    torch.testing.assert_close(ld, ld_r, atol=5e-3, rtol=0)
+    refs = fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args, mm=matmul_tf32)
+    names = ("x", "h_proj", "an_scale", "an_bias", "w1y", "b1", "wm", "bm", "wout", "bout")
+    for name, g, r in zip(names, [g for i, g in enumerate(grads) if i != 4], refs):
+        torch.testing.assert_close(g, r, atol=5e-3 * max(1.0, r.abs().max().item()), rtol=0, msg=name)
 
 
 @pytest.mark.gpu

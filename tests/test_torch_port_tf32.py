@@ -433,7 +433,7 @@ def test_k1_routes_by_mode_and_width(H, strict):
     from bcnf_tpu_torch.ops.flow_kernel import padded_width
 
     Hp = padded_width(H)
-    routes = {inv: flow_route(Hp, 19, 10, inv, strict) for inv in (True, False)}
+    routes = {inv: flow_route(Hp, 19, 10, inv, "fma" if strict else "3xtf32") for inv in (True, False)}
     if strict:
         assert routes == {True: ROUTE_FMA, False: ROUTE_FMA}
     else:
@@ -446,11 +446,11 @@ def test_k1_routes_follow_shared_memory():
     3xTF32 kernel takes the shape and the model's gate closes, while the
     strict FMA kernel still takes it. The sums are those the launchers check."""
     assert kernel_smem(ROUTE_WGMMA, 544, 19, 10) == 4 * (64 * 548 + 32 * 544 + 64 * (38 + 18)) + 32
-    assert flow_route(544, 29, 15, True, False) == ROUTE_WGMMA
-    assert flow_route(544, 30, 15, True, False) == ROUTE_ROWS
-    assert flow_route(544, 90, 45, True, False) is None and flow_route(544, 90, 45, False, False) is None
-    assert flow_route(544, 90, 45, True, True) == ROUTE_FMA
-    assert flow_route(96, 19, 10, True, False) is None  # not a compiled width
+    assert flow_route(544, 29, 15, True, "3xtf32") == ROUTE_WGMMA
+    assert flow_route(544, 30, 15, True, "3xtf32") == ROUTE_ROWS
+    assert flow_route(544, 90, 45, True, "3xtf32") is None and flow_route(544, 90, 45, False, "3xtf32") is None
+    assert flow_route(544, 90, 45, True, "fma") == ROUTE_FMA
+    assert flow_route(96, 19, 10, True, "3xtf32") is None  # not a compiled width
     from bcnf_tpu_torch.models import CondRealNVP
 
     kw = dict(n_blocks=3, n_conditions=4, feature_network_stack=None)
@@ -475,8 +475,8 @@ def test_model_passes_its_mode_to_k1(strict, monkeypatch):
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     seen = []
 
-    def recording(*a, strict=False, **k):
-        seen.append(strict)
+    def recording(*a, mode="3xtf32", **k):
+        seen.append(mode == "fma")
         return flow_kernel.fused_flow_reference(*a, **k)
 
     monkeypatch.setattr(flow_kernel, "fused_flow", recording)
