@@ -9,12 +9,14 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
 from bcnf_tpu_torch.config import ParameterIndexMapping, load_config
 from bcnf_tpu_torch.errors import TrainingDivergedError
 from bcnf_tpu_torch.models import CondRealNVP, CondRealNVP_v2
+from bcnf_tpu_torch import plots
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CondRealNVP",
     "CondRealNVP_v2",
+    "plots",
     "load_config",
     "ParameterIndexMapping",
     "TrainingDivergedError",

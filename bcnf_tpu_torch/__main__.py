@@ -25,9 +25,19 @@ builds, the video ones (``CNN`` encoder) included. ``sample --precision``,
 ``eval --precision`` (after the test NLL, as in JAX) and
 ``training.precision`` take the model's precision strings
 (`models/cnf.py: PRECISIONS`): the reduced ones run the kernels in one TF32
-pass; float32 stays the default. Still refused, with the slice that ports
-them: ``train --dp-devices > 1`` and the multi-host flags (11) and ``eval
---dp-devices > 1`` (11).
+pass; float32 stays the default.
+
+Data parallelism (`parallel/mesh.py`): ``train --dp-devices N`` trains on a
+mesh of N shards over all processes (the batch rounded down to a multiple
+of N), ``sample``/``eval --dp-devices N`` shard their condition rows (the
+results equal one device's). On CUDA each process takes its first N /
+processes cards and raises when fewer are visible; with ``--device cpu``
+the shards are logical CPU shards. ``train --coordinator host:port
+--num-processes P --process-id I`` joins P processes first (one command
+each; NCCL on CUDA, gloo on the CPU); only process 0 writes files. Every
+process takes its first visible cards, so processes that share a host must
+each see only their own (``CUDA_VISIBLE_DEVICES``): NCCL refuses two ranks
+on one card.
 
 Usage: ``python -m bcnf_tpu_torch generate -c configs/data_prior.yaml -o test.pkl -n 200``,
 ``python -m bcnf_tpu_torch train -c RUN.yaml -o MODEL_DIR``, then
@@ -85,11 +95,15 @@ def build_parser() -> argparse.ArgumentParser:
     train_parser.add_argument("--online-lr-decay", action="store_true",
                               help="Cosine-decay the lr over the --online step budget "
                                    "(also training.online_lr_decay: true)")
-    # the JAX package's flags for paths the port has not reached yet: each raises
-    train_parser.add_argument("--dp-devices", type=int, default=0, help="Not ported yet above 1 (ROADMAP.md, slice 11)")
-    train_parser.add_argument("--coordinator", type=str, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
-    train_parser.add_argument("--num-processes", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
-    train_parser.add_argument("--process-id", type=int, default=None, help="Not ported yet (ROADMAP.md, slice 11)")
+    train_parser.add_argument("--dp-devices", type=int, default=0,
+                              help="Data-parallel over N devices (0 = single-device): a 1-D mesh, params "
+                                   "replicated, batch sharded, grads mean-reduced")
+    train_parser.add_argument("--coordinator", type=str, default=None,
+                              help="Multi-process: the coordinator's address host:port for torch.distributed. "
+                                   "Each process takes its first visible cards: give processes on one host "
+                                   "disjoint CUDA_VISIBLE_DEVICES")
+    train_parser.add_argument("--num-processes", type=int, default=None, help="Multi-process: total process count")
+    train_parser.add_argument("--process-id", type=int, default=None, help="Multi-process: this process's id")
 
     size_parser = subparsers.add_parser("size")
     size_parser.add_argument("-c", "--config", type=str, required=True)
@@ -101,6 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
     sample_parser.add_argument("-n", "--n-samples", type=int, default=1000)
     sample_parser.add_argument("-o", "--output", type=str, required=True, help="Output .npy path")
     sample_parser.add_argument("--seed", type=int, default=0)
+    sample_parser.add_argument("--dp-devices", type=int, default=0,
+                               help="Shard condition rows over an N-device data mesh (0 = single-device)")
     sample_parser.add_argument("--precision", type=str, default=None,
                                help="Matmul precision override, e.g. BF16_BF16_F32_X3 (the kernels in one "
                                     "TF32 pass); default float32")
@@ -136,7 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
     eval_parser.add_argument("--max-points", type=int, default=200, help="Test points to evaluate")
     eval_parser.add_argument("--skip-resim", action="store_true")
     eval_parser.add_argument("--seed", type=int, default=0)
-    eval_parser.add_argument("--dp-devices", type=int, default=0, help="Not ported yet above 1 (ROADMAP.md, slice 11)")
+    eval_parser.add_argument("--dp-devices", type=int, default=0,
+                             help="Shard posterior sampling + resimulation rows over an N-device data mesh "
+                                  "(0 = single-device)")
     eval_parser.add_argument("--precision", type=str, default=None,
                              help="Matmul precision override for sampling, applied after the test NLL, e.g. "
                                   "BF16_BF16_F32_X3 (the kernels in one TF32 pass); default float32")
@@ -162,26 +180,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _cmd_train(args: argparse.Namespace) -> None:
-    """`bcnf_tpu/__main__.py:153-299` for one device."""
-    not_ported = {
-        "--dp-devices > 1": (args.dp_devices > 1, 11),
-        "--coordinator/--num-processes/--process-id": (
-            any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)), 11),
-    }
-    for flag, (given, slice_no) in not_ported.items():
-        if given:
-            raise NotImplementedError(f"train {flag} is not ported yet (ROADMAP.md, slice {slice_no})")
-
+    """`bcnf_tpu/__main__.py:153-299`: the processes join first, then the mesh
+    is built (`--dp-devices` > 1), then the model."""
     import torch
 
     from bcnf_tpu_torch.bridge import params_to_numpy
     from bcnf_tpu_torch.config import load_config, sub_root_path
     from bcnf_tpu_torch.models import CondRealNVP, count_params
+    from bcnf_tpu_torch.parallel import initialize_distributed, is_host_zero, make_mesh
     from bcnf_tpu_torch.train import Trainer
     from bcnf_tpu_torch.train.history import JSONLSink, MultiSink, StdoutSink
     from bcnf_tpu_torch.utils.misc import resolve_device
 
     device = resolve_device(args.device)
+    # the processes join before anything else touches the device
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id, device)
+    mesh = None
+    if args.dp_devices and args.dp_devices > 1:
+        mesh = make_mesh(args.dp_devices, device)
+        print(f"Data-parallel mesh over {args.dp_devices} devices ({mesh.process_count} process(es))")
     model_name = os.path.splitext(os.path.basename(args.config))[0]
     output_dir = args.output_dir or os.path.join("{{BCNF_ROOT}}", "models", "bcnf-models", model_name)
     resolved = sub_root_path(output_dir)
@@ -215,7 +232,7 @@ def _cmd_train(args: argparse.Namespace) -> None:
             cfg["training"]["keep_best"] = True
 
     if args.online or cfg["training"].get("online"):
-        _train_online(args, cfg, model, params, sinks, resolved, device)
+        _train_online(args, cfg, model, params, sinks, resolved, device, mesh)
         return
 
     if args.pretrained_features:
@@ -235,6 +252,7 @@ def _cmd_train(args: argparse.Namespace) -> None:
         checkpoint_dir=os.path.join(resolved, "ckpts") if args.checkpoint_every else None,
         checkpoint_every=args.checkpoint_every,
         device=device,
+        mesh=mesh,
     )
     try:
         params = trainer.train(model, params)
@@ -244,19 +262,23 @@ def _cmd_train(args: argparse.Namespace) -> None:
         for sink in sinks:
             sink.close()
 
-    with open(os.path.join(resolved, "params.pkl"), "wb") as f:
-        pickle.dump(params_to_numpy(params), f)
-    with open(os.path.join(resolved, "config.json"), "w") as f:
-        json.dump({"config_path": args.config}, f)
-    print(f"Model saved to {resolved}")
+    if is_host_zero():
+        with open(os.path.join(resolved, "params.pkl"), "wb") as f:
+            pickle.dump(params_to_numpy(params), f)
+        with open(os.path.join(resolved, "config.json"), "w") as f:
+            json.dump({"config_path": args.config}, f)
+        print(f"Model saved to {resolved}")
 
 
-def _train_online(args: argparse.Namespace, cfg: dict, model, params, sinks: list, resolved: str, device) -> None:
+def _train_online(args: argparse.Namespace, cfg: dict, model, params, sinks: list, resolved: str, device,
+                  mesh) -> None:
     """The online (infinite-data) regime of `train` (`bcnf_tpu/__main__.py:214-263`):
-    a fresh batch simulated on the device every step; `params.pkl` and
+    a fresh batch simulated on the device every step (on a mesh, each shard
+    its part, the batch rounded down to a mesh multiple); `params.pkl` and
     `config.json` with the JAX package's keys."""
     from bcnf_tpu_torch.bridge import params_to_numpy
     from bcnf_tpu_torch.config import load_yaml
+    from bcnf_tpu_torch.parallel import even_batch, is_host_zero
     from bcnf_tpu_torch.train.history import MultiSink
     from bcnf_tpu_torch.train.online import OnlineSimulator, train_online
 
@@ -273,11 +295,14 @@ def _train_online(args: argparse.Namespace, cfg: dict, model, params, sinks: lis
         observation_noise=float(data_cfg.get("observation_noise", 0.0)),
     )
     opt_kwargs = dict(cfg["optimizer"].get("kwargs", {}))
+    batch = int(cfg["training"]["batch_size"])
+    if mesh is not None:
+        batch = even_batch(mesh, batch)  # even per-device shards, as the Trainer rounds
     try:
         params, history = train_online(
             model, params, simulator,
             n_steps=args.online_steps or int(cfg["training"].get("online_steps", 5000)),
-            batch_size=int(cfg["training"]["batch_size"]),
+            batch_size=batch,
             lr=float(opt_kwargs.get("lr", 2e-4)),
             lr_decay=bool(args.online_lr_decay or cfg["training"].get("online_lr_decay", False)),
             hybrid_weight=float(cfg["global"].get("hybrid_weight", 0) or 0),
@@ -288,16 +313,18 @@ def _train_online(args: argparse.Namespace, cfg: dict, model, params, sinks: lis
             checkpoint_every=args.checkpoint_every or 500,
             resume=bool(args.checkpoint_every),
             device=device,
+            mesh=mesh,
         )
     finally:
         for sink in sinks:
             sink.close()
-    with open(os.path.join(resolved, "params.pkl"), "wb") as f:
-        pickle.dump(params_to_numpy(params), f)
-    with open(os.path.join(resolved, "config.json"), "w") as f:
-        json.dump({"config_path": args.config, "online": True,
-                   "history_tail": {k: v[-3:] for k, v in history.items() if isinstance(v, list)}}, f)
-    print(f"Online-trained model saved to {resolved} (stop: {history.get('stop_reason')})")
+    if is_host_zero():
+        with open(os.path.join(resolved, "params.pkl"), "wb") as f:
+            pickle.dump(params_to_numpy(params), f)
+        with open(os.path.join(resolved, "config.json"), "w") as f:
+            json.dump({"config_path": args.config, "online": True,
+                       "history_tail": {k: v[-3:] for k, v in history.items() if isinstance(v, list)}}, f)
+        print(f"Online-trained model saved to {resolved} (stop: {history.get('stop_reason')})")
 
 
 def _cmd_hpo(args: argparse.Namespace) -> None:
@@ -324,6 +351,20 @@ def _cmd_size(args: argparse.Namespace) -> None:
     print(f"Model size: {count_params(model.init(device='cpu')):,} parameters")
 
 
+def _make_eval_mesh(args: argparse.Namespace):
+    """The data mesh of `eval`/`sample --dp-devices N` (`bcnf_tpu/__main__.py:353-365`):
+    one shard on the command's device at N <= 1; else N shards (`make_mesh`)."""
+    from bcnf_tpu_torch.parallel import Mesh, make_mesh
+    from bcnf_tpu_torch.utils.misc import resolve_device
+
+    n = args.dp_devices
+    if n <= 1:
+        return Mesh([resolve_device(args.device)])
+    mesh = make_mesh(n, args.device)
+    print(f"Sharding rows over a {n}-device data mesh")
+    return mesh
+
+
 def _cmd_sample(args: argparse.Namespace) -> None:
     import numpy as np
     import torch
@@ -331,10 +372,12 @@ def _cmd_sample(args: argparse.Namespace) -> None:
     from bcnf_tpu_torch.bridge import params_from_numpy
     from bcnf_tpu_torch.config import load_config
     from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.parallel import replicate, sample_sharded
     from bcnf_tpu_torch.train.data import TrainerDataHandler
     from bcnf_tpu_torch.utils.misc import get_data_type, resolve_device
 
     device = resolve_device(args.device)
+    mesh = _make_eval_mesh(args)
     # float32 is the contract outside the model's work (which runs at its
     # precision): no TF32 in any matmul or convolution
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -356,10 +399,9 @@ def _cmd_sample(args: argparse.Namespace) -> None:
         cfg, model.parameter_index_mapping, get_data_type(config["global"]["dtype"])
     )
     generator = torch.Generator().manual_seed(args.seed)
-    with torch.no_grad():
-        samples = model.sample(
-            params, generator, args.n_samples, *[torch.from_numpy(c) for c in conditions], device=device
-        )
+    conditions = [torch.from_numpy(c) for c in conditions]
+    with torch.no_grad():  # the condition rows sharded, the draws one device's: the same samples on any mesh
+        samples = sample_sharded(mesh, model, replicate(mesh, params), generator, args.n_samples, *conditions)
     np.save(args.output, samples.cpu().numpy())
     print(f"Wrote posterior samples {tuple(samples.shape)} to {args.output}")
 
@@ -392,10 +434,9 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
     residuals, the posterior diagnostics (512 draws in chunks of 128 per 100
     points), then resimulation. Writes `report.json` (the JAX package's keys
     and verdict rules) and returns `(report, figure_data, stage_seconds)`;
-    `_cmd_eval` draws the figures from `figure_data`."""
-    if args.dp_devices > 1:
-        raise NotImplementedError("eval --dp-devices > 1 is not ported yet (ROADMAP.md, slice 11)")
-
+    `_cmd_eval` draws the figures from `figure_data`. With `--dp-devices`
+    the ranks and the resimulation shard their rows over a data mesh, as in
+    JAX (their results equal one device's)."""
     import time
 
     import numpy as np
@@ -412,6 +453,7 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
     from bcnf_tpu_torch.utils.misc import get_data_type, inn_nll_loss, resolve_device
 
     device = resolve_device(args.device)
+    mesh = _make_eval_mesh(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.precision:
@@ -456,7 +498,7 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
     t0 = time.perf_counter()
     ranks = compute_y_hat_ranks(
         model, params, y_dev, *conditions, M_samples=args.m_samples,
-        generator=torch.Generator(device=device).manual_seed(args.seed), device=device,
+        generator=torch.Generator(device=device).manual_seed(args.seed), device=device, mesh=mesh,
     )
     t, resid, _ = compute_CDF_residuals(ranks, args.m_samples)
     names = list(model.parameter_index_mapping.parameters)
@@ -536,7 +578,7 @@ def eval_report(args: argparse.Namespace) -> tuple[dict, dict, dict]:
         X_resim = resimulate(
             model, params, cfg["data"]["T"], cfg["data"]["dt"], data_dict, None, *conditions,
             m_samples=args.resim_samples, generator=torch.Generator(device=device).manual_seed(args.seed + 1),
-            device=device,
+            device=device, mesh=mesh,
         )
         stages["resimulation"] = time.perf_counter() - t0
         X_true = np.asarray(data_dict["trajectories"])

@@ -13,6 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from bcnf_tpu_torch.parallel.mesh import Mesh, replicate, sample_sharded
 from bcnf_tpu_torch.utils.misc import resolve_device
 
 
@@ -67,6 +68,7 @@ def compute_y_hat_ranks(
     sample_batch_size: int = 1000,
     batch_size: int = 100,
     device: str | torch.device | None = None,
+    mesh: Any = None,
 ) -> np.ndarray:
     """Rank of each true theta among M posterior samples, shape `(N, D)`.
 
@@ -75,14 +77,25 @@ def compute_y_hat_ranks(
     rows once. The ranks of a condition batch are summed on `device`
     (default CUDA; the params must live there) in int64 and copied to the
     host once. Draws come from `generator` (default: seed 0 on `device`).
+
+    With `mesh` (`bcnf_tpu/eval/calibration.py:72-109`; without one, a mesh
+    of one shard on `device`) each condition batch's rows are sharded over
+    the mesh (they must divide evenly) and the params replicated; each batch
+    of draws is drawn once for all its rows and each shard samples its rows
+    (`sample_sharded`). The draws are one device's, so the ranks are the
+    single-device run's: exactly where the shards' products round as one
+    device's (the CPU), and but for a sample within that rounding of its
+    true value on a card.
     """
-    dev = resolve_device(device)
+    mesh = mesh if mesh is not None else Mesh([resolve_device(device)])
+    dev = mesh.devices[0]
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     y = torch.as_tensor(y).to(dev)
     conditions = tuple(torch.as_tensor(c).to(dev) for c in conditions)
     N = y.shape[0]
     ranks = np.zeros(tuple(y.shape), dtype=np.int64)
+    replicas = replicate(mesh, params)
     with torch.no_grad():
         for b in range(0, N, batch_size):
             cond_b = [c[b: b + batch_size] for c in conditions]
@@ -91,7 +104,8 @@ def compute_y_hat_ranks(
             drawn = 0
             while drawn < M_samples:
                 m = min(sample_batch_size, M_samples - drawn)
-                acc += (model.sample(params, generator, m, *cond_b, device=dev) < y_b[None]).sum(dim=0)
+                samples = sample_sharded(mesh, model, replicas, generator, m, *cond_b)
+                acc += (samples < y_b[None]).sum(dim=0)
                 drawn += m
             ranks[b: b + batch_size] = acc.cpu().numpy()
     return ranks

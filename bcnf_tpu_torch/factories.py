@@ -1,7 +1,8 @@
 """String -> feature-network registry driven by the YAML config schema
 (port of `bcnf_tpu/factories.py`, reference `src/bcnf/factories.py:33-58`).
 
-Every name of the JAX registry is served.
+Every name of the JAX registry is served; the optimizer and scheduler
+factories resolve in `train/optim.py`.
 """
 
 from __future__ import annotations
@@ -59,3 +60,28 @@ class FeatureNetworkFactory:
                 if not (v is None and k in ("input_size", "output_size"))
             }
         return cls(**kwargs)
+
+
+class OptimizerFactory:
+    """Resolved in `bcnf_tpu_torch.train.optim` (clip, then a `torch.optim`
+    update); listed here for API parity with reference `src/bcnf/factories.py:23-30`
+    (`bcnf_tpu/factories.py:69-77`)."""
+
+    @staticmethod
+    def get_optimizer(optimizer: str, optimizer_kwargs: dict[str, Any]) -> Any:
+        from bcnf_tpu_torch.train.optim import make_optimizer
+
+        return make_optimizer(optimizer, **optimizer_kwargs)
+
+
+class SchedulerFactory:
+    """Reference `src/bcnf/factories.py:13-20` (`bcnf_tpu/factories.py:80-89`):
+    only ReduceLROnPlateau."""
+
+    @staticmethod
+    def get_scheduler(scheduler: str, scheduler_kwargs: dict[str, Any]) -> Any:
+        from bcnf_tpu_torch.train.optim import ReduceLROnPlateau
+
+        if scheduler == "ReduceLROnPlateau":
+            return ReduceLROnPlateau(**scheduler_kwargs)
+        raise NotImplementedError(f"Scheduler {scheduler} not implemented")

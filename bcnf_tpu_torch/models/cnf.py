@@ -118,6 +118,31 @@ def _at_precision(method: Callable) -> Callable:
     return wrapped
 
 
+def _checkpointed(fn: Callable, i: int, y: torch.Tensor, log_det: torch.Tensor,
+                  generator: torch.Generator | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """`fn(i, y, log_det)` under `torch.utils.checkpoint`, its dropout drawn
+    alike both times: the recomputation in the backward replays the
+    generator from its state at the first call, then puts it back, as
+    `jax.checkpoint` replays the block's key."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(y: torch.Tensor, log_det: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        calls[0] += 1
+        if calls[0] == 1 or start is None:
+            return fn(i, y, log_det)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(i, y, log_det)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, y, log_det, use_reentrant=False)
+
+
 def count_params(params: Any) -> int:
     """Total number of scalar parameters in a tree (reference `cnf.py:19-20`)."""
     return sum(int(x.numel()) for x in tree_leaves(params))
@@ -496,6 +521,12 @@ class CondRealNVP:
         self.pallas_strict = pallas_strict
         # the per-coupling kernel K4: opt-in, as in the JAX package (`cnf.py:555-558`)
         self.use_pallas_coupling = False
+        # block-boundary rematerialization of the plain path (`training.remat`;
+        # `bcnf_tpu/models/cnf.py:563-570`): under autograd each inner block
+        # runs in `torch.utils.checkpoint`, so the backward recomputes its
+        # activations from the block's input instead of keeping them. The
+        # training kernels recompute already and ignore it.
+        self.remat = False
         common = dict(
             input_size=size, nested_sizes=nested_sizes, n_conditions=n_conditions,
             layer=layer, layer_kwargs=layer_kwargs, activation=activation,
@@ -687,6 +718,20 @@ class CondRealNVP:
         mode = self.kernel_mode or MODE_3XTF32
         return all(flow_route(Hp, self.size, d_a, inverse, mode) for inverse in (True, False))
 
+    def _fused_train_takes(self) -> bool:
+        """Whether K2a and K2b take this model's shape: the hidden width
+        within the widest compiled one, K2b's weight-grad jobs and both rows
+        kernels' shared memory (`train_kernels_take`, the limits their
+        launchers check). Where they do not, the gate closes and the plain
+        autograd path trains, as JAX's `forward_fused_flow` returns None
+        for a layout its kernel does not take (`bcnf_tpu/ops/flow_kernel.py:692-696`)."""
+        from bcnf_tpu_torch.ops.flow_kernel import KERNEL_TN, padded_width, train_kernels_take
+
+        H = self.nested_sizes[0]
+        if H > 32 * KERNEL_TN[-1]:
+            return False
+        return train_kernels_take(padded_width(H), self.size, self.coupling.d_a, len(self.nested_sizes) - 1)
+
     def _use_fused_coupling(self, train: bool, x: torch.Tensor, *trees: Any) -> bool:
         """Per-coupling kernel gate (`bcnf_tpu/models/cnf.py:762-764`)."""
         return self.use_pallas_coupling and self._use_fused(train, x, *trees)
@@ -701,7 +746,8 @@ class CondRealNVP:
         `_use_fused`, a dropout-free coupling when training (the kernels draw
         no random bits), a batch of at least `fused_train_min_batch` rows, and
         a CUDA tensor in place of the TPU platform test, at a precision the
-        kernels have a mode for (`train_kernel_mode`)."""
+        kernels have a mode for (`train_kernel_mode`) and a shape they take
+        (`_fused_train_takes`)."""
         min_batch = int(os.environ.get("BCNF_FUSED_TRAIN_MIN_BATCH", self.fused_train_min_batch))
         return (
             self.use_pallas
@@ -715,6 +761,7 @@ class CondRealNVP:
             and x.dim() == 2
             and x.shape[0] >= min_batch
             and x.is_cuda
+            and self._fused_train_takes()
         )
 
     def _fused_flow_args(self, params: Params, h: torch.Tensor) -> tuple[dict, torch.Tensor]:
@@ -794,15 +841,21 @@ class CondRealNVP:
         log_det = y.new_zeros(y.shape[:-1])
         if "blocks" in params:
             projs = self.coupling.cond_proj(params["blocks"]["coupling"], h) if h is not None else None
-            for i in range(self.n_blocks - 1):
+
+            def block(i: int, y: torch.Tensor, log_det: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                 blk, proj = self._block(params, projs, i)
                 if self.actnorm is not None:
                     y, ld_an = self.actnorm.forward(blk["actnorm"], y)
                     log_det = log_det + ld_an
                 y, ld_c = couple(blk["coupling"], y, proj)
-                log_det = log_det + ld_c
                 # fixed (non-trainable) mixing matrix, reference `cnf.py:323-324`
-                y = y @ blk["ortho"].detach()
+                return y @ blk["ortho"].detach(), log_det + ld_c
+
+            for i in range(self.n_blocks - 1):
+                if self.remat and torch.is_grad_enabled():
+                    y, log_det = _checkpointed(block, i, y, log_det, generator)
+                else:
+                    y, log_det = block(i, y, log_det)
         final_proj = self.coupling.cond_proj(params["final"], h) if h is not None else None
         y, ld_f = couple(params["final"], y, final_proj)
         log_det = log_det + ld_f
@@ -873,16 +926,32 @@ class CondRealNVP:
         Returns `(n_samples, N, size)`, draws-major, matching the reference's
         `outer=True` broadcast semantics (reference `cnf.py:540-588`).
         Conditions are encoded once. z is drawn from `generator` on its own
-        device and moved, so one seed gives the same z on every device.
-        With `outer` and the whole-flow gate open the inverse is one launch
-        of K1, with or without `use_pallas_coupling` (`bcnf_tpu/models/cnf.py:945-948`).
+        device and moved (`draw_z`), so one seed gives the same z on every
+        device. With `outer` and the whole-flow gate open the inverse is one
+        launch of K1, with or without `use_pallas_coupling` (`bcnf_tpu/models/cnf.py:945-948`).
         """
         dev = resolve_device(device)
         conditions = tuple((c[None] if c.dim() == 1 else c).to(dev) for c in conditions)
-        h = self.encode(params, conditions) if self.features is not None else None
         N = conditions[0].shape[0] if conditions else 1
-        shape = (n_samples, N, self.size) if outer else (n_samples, self.size)
-        z = sigma * torch.randn(shape, generator=generator, device=generator.device).to(dev)
+        z = self.draw_z(generator, n_samples, N, sigma=sigma, outer=outer).to(dev)
+        return self.sample_from_z(params, z, *conditions, outer=outer)
+
+    def draw_z(self, generator: torch.Generator, n_samples: int, n_rows: int, sigma: float = 1.0,
+               outer: bool = True) -> torch.Tensor:
+        """`sample`'s draws, on the generator's device: `(n_samples, n_rows,
+        size)` (`(n_samples, size)` without `outer`). The sharded paths draw
+        them once for all rows and hand each shard its rows' slice, so their
+        samples are one device's (`parallel/mesh.py`)."""
+        shape = (n_samples, n_rows, self.size) if outer else (n_samples, self.size)
+        return sigma * torch.randn(shape, generator=generator, device=generator.device)
+
+    @_at_precision
+    def sample_from_z(self, params: Params, z: torch.Tensor, *conditions: torch.Tensor,
+                      outer: bool = True) -> torch.Tensor:
+        """`sample` on given draws `z` and conditions on `z`'s device: the
+        conditions encoded once, then the inverse (one launch of K1 where its
+        gate is open and `outer`)."""
+        h = self.encode(params, conditions) if self.features is not None else None
         if outer and h is not None and self._use_fused(False, z, h, params):
             return self._fused(params, z, h, inverse=True)
         return self.inverse_given_h(params, z, h)

@@ -307,7 +307,7 @@ extern "C" long long bcnf_flow_train_bwd_scratch(int B, int S, int size, int d_a
 // dan_s/dan_b (S, size), dw1y (S, d_a, Hp), db1 (S, Hp), dwm (S, nh, Hp, Hp),
 // dbm (S, nh, Hp), dwout (S, Hp, n_out), dbout (S, n_out). Hp must be 32*TN
 // for a compiled TN; the weights 16-byte aligned; the rows kernel's shared
-// memory bounds `size` (at Hp = 544, size <= 29; the repo's models have at
+// memory bounds `size` (at Hp = 544, size <= 38; the repo's models have at
 // most 21): a shape past it returns cudaErrorInvalidValue. `parts` (bits) runs the
 // rows kernels (1, with the copy of dz that starts them), the weight-grad
 // passes (2) and the ActNorm grads (4); the wrapper passes 7. Returns the

@@ -45,9 +45,12 @@ tiling rule on ``B`` or ``n_cond``: the kernel masks the ragged last tile.
 
 from __future__ import annotations
 
-import ctypes
 import collections
+import ctypes
+import functools
+import re
 from collections.abc import Callable
+from pathlib import Path
 from typing import Any
 
 import torch
@@ -74,7 +77,23 @@ ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
 ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_kernel",
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
-SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper (csrc/flow_common.cuh: kSmemLimit)
+ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
+# The limits the kernels' launchers check, by the header that defines each:
+# the dynamic shared memory a block may use, and the weight-grad jobs one
+# AtbJobs launch holds (K2b's nh + 3 a step).
+_LIMIT_HEADERS = {"kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh"}
+
+
+@functools.cache
+def kernel_limit(name: str) -> int:
+    """A limit of `_LIMIT_HEADERS`, read from the `constexpr` in its header
+    under `csrc/`, so that the gates and the launchers' checks share one
+    number. Read at first use, not at import."""
+    text = (Path(__file__).resolve().parent / "csrc" / _LIMIT_HEADERS[name]).read_text()
+    match = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*(\d+)\s*;", text)
+    if match is None:
+        raise RuntimeError(f"no constexpr {name} in csrc/{_LIMIT_HEADERS[name]}")
+    return int(match.group(1))
 
 
 def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
@@ -143,15 +162,18 @@ def pad_hidden(kargs: dict, h_proj: torch.Tensor) -> tuple[dict, torch.Tensor]:
 def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     """Bytes of shared memory a block of K1's kernel on `route` takes at this
     shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
-    `launch`, `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`)."""
+    `launch`, `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`), and of K2b's
+    rows kernel (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):  # tile, 2 stages of hi (and lo), x, x Q^T, [t | s'], 4 barriers
         stage = (16 if route == ROUTE_WGMMA else 8) * Hp
         return 4 * (64 * (Hp + 4) + 2 * stage + 64 * (2 * size + n_out)) + 32
-    if route in (ROUTE_ROWS, ROUTE_ROWS_TF32):  # tile, the 3-stage ring, x, x Q, [t | s'], logdet (csrc/flow_rows.cuh)
+    if route in (ROUTE_ROWS, ROUTE_ROWS_TF32, ROUTE_TRAIN_BWD):  # tile, the 3-stage ring (csrc/flow_rows.cuh), then
         BM, BK = (32, 16) if tn <= 17 else (16, 8)
         stage = max(BK * (Hp + 8), Hp * (BK + 4))
-        return 4 * (BM * (Hp + 4) + 3 * stage + BM * (2 * size + n_out + 1))
+        if route == ROUTE_TRAIN_BWD:  # ... K2b's rows' state, BM x (5 size + n_out + d_a + 1)
+            return 4 * (BM * (Hp + 4) + 3 * stage + BM * (5 * size + n_out + d_a + 1))
+        return 4 * (BM * (Hp + 4) + 3 * stage + BM * (2 * size + n_out + 1))  # ... x, x Q, [t | s'], logdet
     if route == ROUTE_FMA:  # tile, x, x Q, [t | s'], logdet, and the least double buffer it takes (BK = 4)
         BM = 64 if tn <= 17 else 32
         return 4 * (BM * Hp + BM * (2 * size + n_out + 1) + 2 * 4 * Hp)
@@ -180,7 +202,21 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
         candidates = (wgmma, rows)
     else:
         candidates = (rows,)
-    return next((r for r in candidates if kernel_smem(r, Hp, size, d_a) <= SMEM_LIMIT), None)
+    return next((r for r in candidates if kernel_smem(r, Hp, size, d_a) <= kernel_limit("kSmemLimit")), None)
+
+
+def train_kernels_take(Hp: int, size: int, d_a: int, nh: int) -> bool:
+    """Whether K2a and K2b take this shape (in either mode): a width they
+    are compiled for, K2b's nh + 3 weight-grad jobs a step within one
+    launch's (`kAtbMaxJobs`), and both rows kernels' shared memory within a
+    block's (`kSmemLimit`); the checks of their launchers
+    (`csrc/flow_kernel.cu`, `csrc/flow_train_kernel.cu`), which return
+    cudaErrorInvalidValue past them."""
+    if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size or nh < 1:
+        return False
+    if nh + 3 > kernel_limit("kAtbMaxJobs"):
+        return False
+    return all(kernel_smem(r, Hp, size, d_a) <= kernel_limit("kSmemLimit") for r in (ROUTE_ROWS, ROUTE_TRAIN_BWD))
 
 
 def _round_tf32(x: torch.Tensor) -> torch.Tensor:

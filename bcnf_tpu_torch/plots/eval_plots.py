@@ -14,15 +14,7 @@ from typing import Any
 import numpy as np
 
 from bcnf_tpu_torch.eval.calibration import brownian_confidence_interval
-
-
-def _pyplot() -> Any:
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
+from bcnf_tpu_torch.plots.base import pyplot as _pyplot
 
 
 def plot_rank_histograms(

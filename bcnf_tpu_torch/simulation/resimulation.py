@@ -2,7 +2,8 @@
 `bcnf_tpu/simulation/resimulation.py`).
 
 The `(M, N)` grid of posterior parameter sets is simulated as one batched
-RK4 integration on the device.
+RK4 integration on the device, or, on a data mesh, as one integration per
+shard of its N axis.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from bcnf_tpu_torch.config import ParameterIndexMapping
+from bcnf_tpu_torch.parallel.mesh import Mesh, batch_sharding, gather, replicate, sample_sharded
 from bcnf_tpu_torch.simulation.physics import n_steps_for, simulate_trajectory
 from bcnf_tpu_torch.utils.misc import resolve_device
 
@@ -59,6 +61,7 @@ def resimulate(
     sample_batch_size: int = 250,
     verbose: bool = False,
     device: str | torch.device | None = None,
+    mesh: Any = None,
 ) -> np.ndarray:
     """Sample posteriors and re-run the simulator on `device` (default CUDA;
     the params must live there); returns `(N, M, T, 3)`.
@@ -66,18 +69,26 @@ def resimulate(
     Without `y_hat`, `m_samples` draws per condition row come from
     `model.sample` in chunks of `sample_batch_size`, from `generator`
     (default: seed 0 on `device`).
+
+    With `mesh` (`bcnf_tpu/simulation/resimulation.py:67-111`; without one,
+    a mesh of one shard on `device`) the condition rows are sharded over the mesh and the params replicated; each chunk of
+    draws is drawn once for all rows (`sample_sharded`), so the draws are one
+    device's. The resimulation grid is sharded over its N axis, each shard
+    integrating its trajectories on its device, and gathered in shard order.
     """
-    dev = resolve_device(device)
+    mesh = mesh if mesh is not None else Mesh([resolve_device(device)])
+    dev = mesh.devices[0]
     mapping: ParameterIndexMapping = model.parameter_index_mapping
     if y_hat is None:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
+        replicas = replicate(mesh, params)
         chunks = []
         drawn = 0
         with torch.no_grad():
             while drawn < m_samples:
                 m = min(sample_batch_size, m_samples - drawn)
-                chunks.append(model.sample(params, generator, m, *conditions, device=dev))
+                chunks.append(sample_sharded(mesh, model, replicas, generator, m, *conditions))
                 drawn += m
         y_hat = torch.cat(chunks, dim=0)  # (M, N, D)
     y_hat = torch.as_tensor(y_hat, dtype=torch.float32).to(dev)
@@ -88,20 +99,26 @@ def resimulate(
         for k, v in data_dict.items()
         if k in _SIM_KEYS and k not in mapping.parameters
     }
-    p = _assemble(y_hat, mapping, fixed)
     if verbose:
-        print(f"Resimulating {N} trajectories {M} times on {dev}")
+        print(f"Resimulating {N} trajectories {M} times on {mesh}")
 
-    def vec(name: str) -> torch.Tensor:
-        return torch.stack([p[f"{name}_x"], p[f"{name}_y"], p[f"{name}_z"]], dim=-1)
+    def run(y_hat: torch.Tensor, fixed: dict[str, np.ndarray]) -> torch.Tensor:
+        p = _assemble(y_hat, mapping, fixed)
 
-    # n_substeps=4: posterior samples can land in the stiff-drag regime where
-    # single-step RK4 at the frame dt is unstable (see the note in sampling.py)
-    X = simulate_trajectory(
-        vec("x0"), vec("v0"), vec("g"), vec("w"), p["b"], p["m"], p["rho"], p["r"], vec("a"),
-        n_steps=n_steps_for(T, dt), dt=dt, break_on_impact=break_on_impact, n_substeps=4,
-    )  # (M, N, T, 3)
-    return X.transpose(0, 1).cpu().numpy()  # (N, M, T, 3)
+        def vec(name: str) -> torch.Tensor:
+            return torch.stack([p[f"{name}_x"], p[f"{name}_y"], p[f"{name}_z"]], dim=-1)
+
+        # n_substeps=4: posterior samples can land in the stiff-drag regime where
+        # single-step RK4 at the frame dt is unstable (see the note in sampling.py)
+        X = simulate_trajectory(
+            vec("x0"), vec("v0"), vec("g"), vec("w"), p["b"], p["m"], p["rho"], p["r"], vec("a"),
+            n_steps=n_steps_for(T, dt), dt=dt, break_on_impact=break_on_impact, n_substeps=4,
+        )  # (M, N, T, 3)
+        return X.transpose(0, 1)  # (N, M, T, 3)
+
+    parts = [run(y_hat[:, s].contiguous().to(d), {k: v[s] if v.ndim else v for k, v in fixed.items()})
+             for s, d in zip(batch_sharding(mesh, N), mesh.devices)]
+    return gather(mesh, parts).cpu().numpy()
 
 
 def impact_points(trajectories: np.ndarray) -> np.ndarray:

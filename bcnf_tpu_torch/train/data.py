@@ -12,7 +12,7 @@ copies a batch from the host.
 from __future__ import annotations
 
 import os
-from typing import Iterator, Sequence
+from typing import Any, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,17 @@ from bcnf_tpu_torch.simulation.sampling import generate_data
 from bcnf_tpu_torch.utils.io import load_data, save_data
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _as_dtype(value: Any, dtype: torch.dtype) -> np.ndarray:
+    """`value` as a NumPy array of `dtype`, as the JAX package's
+    `np.asarray(value, dtype)` gives it. NumPy has no bfloat16: a bfloat16
+    dataset's values are rounded to it (to nearest even, the cast JAX's
+    takes) and held in float32, which float32 parameters promote them to
+    in every product, as they do in JAX."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(np.array(value)).to(torch.bfloat16).to(torch.float32).numpy()
+    return np.asarray(value, dtype=_NUMPY_DTYPES[dtype])
 
 
 class TrainerDataHandler:
@@ -46,9 +57,8 @@ class TrainerDataHandler:
         (reference `trainer_data_handler.py:75-85`; 1-D values get a trailing
         feature axis) and theta from `ParameterIndexMapping.vectorize` (`:86`).
         """
-        if dtype not in _NUMPY_DTYPES:
-            raise NotImplementedError(f"dataset dtype {dtype} is not supported by the port yet")
-        np_dtype = _NUMPY_DTYPES[dtype]
+        if dtype not in (*_NUMPY_DTYPES, torch.bfloat16):
+            raise ValueError(f"dataset dtype {dtype} is not one of float32, float64, bfloat16")
         data_cfg = config["data"]
         path = data_cfg["path"]
         if not os.path.exists(path) or (os.path.isdir(path) and len(os.listdir(path)) == 0):
@@ -93,12 +103,12 @@ class TrainerDataHandler:
             for c in condition_keys:
                 if c not in data and c in key_aliases and key_aliases[c] in data:
                     c = key_aliases[c]
-                value = np.asarray(data[c], dtype=np_dtype)
+                value = _as_dtype(data[c], dtype)
                 if value.ndim == 1:
                     value = value[:, None]
                 condition_values.append(value)
             conditions.append(np.concatenate(condition_values, axis=1))
-        y = np.asarray(parameter_index_mapping.vectorize(data), dtype=np_dtype)
+        y = _as_dtype(parameter_index_mapping.vectorize(data), dtype)
 
         if verbose:
             print(f"Conditions: {[c.shape for c in conditions]}; Parameters: {y.shape}")

@@ -25,22 +25,23 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
-import numpy as np
 import torch
 
 from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, params_to_numpy
 from bcnf_tpu_torch.config import PARAMETER_ALIASES, ParameterIndexMapping
-from bcnf_tpu_torch.models.cnf import matmul_precision
+from bcnf_tpu_torch.parallel.mesh import Mesh, is_host_zero, replicate_trainable, shard_backward, sync_replicas
 from bcnf_tpu_torch.simulation.observation import add_airborne_noise
 from bcnf_tpu_torch.simulation.physics import n_steps_for, simulate_trajectory
 from bcnf_tpu_torch.simulation.priors import sample_ballistic_parameters
 from bcnf_tpu_torch.simulation.sampling import _stage_render, _vectors
 from bcnf_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from bcnf_tpu_torch.train.history import MetricSink
+from bcnf_tpu_torch.train.trainer import hybrid_loss
 from bcnf_tpu_torch.train.optim import cosine_decay_schedule, make_optimizer, set_learning_rate
 from bcnf_tpu_torch.utils.misc import inn_nll_loss, resolve_device
+from bcnf_tpu_torch.utils.prng import fold_in, fold_in_step
 
 
 class OnlineSimulator:
@@ -157,12 +158,6 @@ class OnlineSimulator:
         return self.assemble(self.draw(generator, batch), batch, generator)
 
 
-def _stream_seed(seed: int, index: int) -> int:
-    """The seed of the `index`-th batch of a stream seeded `seed`: JAX's
-    `fold_in(key(seed), index)` in spirit, by NumPy's `SeedSequence`."""
-    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
-
-
 def train_online(
     model: Any,
     params: Any,
@@ -194,15 +189,29 @@ def train_online(
     drawn from its own stream (seed ``seed + 1``, index ``s * eval_batches +
     i``); the wall-clock `timeout`.
 
-    With `checkpoint_dir` the loop saves ``online_{step}.pkl`` every
-    `checkpoint_every` steps and at the end: params, optimizer state, the
-    generator's state, the step and the history. `resume=True` continues
-    from the newest one, and so the exact data stream on the same device.
-    Returns `(params, history)`.
+    Each step's batch and dropout come from a generator seeded with the
+    step's seed and the shard index folded in (as JAX folds the axis index
+    into the step key), so a step's data does not depend on the steps
+    before it. With `checkpoint_dir` the loop saves ``online_{step}.pkl``
+    every `checkpoint_every` steps and at the end: params, optimizer state,
+    the step and the history. `resume=True` continues from the newest one,
+    and so the exact data stream on the same device.
+
+    With `mesh` (`bcnf_tpu/train/online.py:266-294`; without one, a mesh of
+    one shard on `device`) the batch must be a multiple of the mesh size;
+    each local shard draws ``batch / size`` rows from its own stream and
+    runs forward and backward on its replica; grads and metrics go through
+    `pmean` (`shard_backward`), the first replica is updated and copied into
+    the others. Evaluation runs on the first replica, unsharded. A
+    checkpoint holds one replica, so a single-device checkpoint resumes onto
+    the mesh; only `is_host_zero()` writes one. Returns `(params, history)`.
     """
-    if mesh is not None:
-        raise NotImplementedError("data-parallel online training is not ported yet (ROADMAP.md, slice 11)")
-    dev = resolve_device(device)
+    mesh = mesh if mesh is not None else Mesh([resolve_device(device)])
+    if batch_size < 1:
+        raise ValueError(f"online batch_size={batch_size} gives no row to each of {mesh.size} shards")
+    if batch_size % mesh.size != 0:
+        raise ValueError(f"online batch_size={batch_size} must divide the mesh size {mesh.size}")
+    dev = mesh.devices[0]
     # float32 is the contract outside the model's work (whose steps run at
     # `model.precision`): no TF32 in any matmul or convolution
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -223,8 +232,8 @@ def train_online(
         y0, conds0 = simulator.sample_batch(torch.Generator(device=dev).manual_seed(seed + 99), batch_size)
         params = model.init_actnorm(params, y0, *conds0)
     params = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+    replicas = replicate_trainable(mesh, params)
     opt = optimizer.init(params)
-    generator = torch.Generator(device=dev).manual_seed(seed)  # the batches' and the dropout's stream
     step_start = 0
     history: dict[str, Any] = {"train_loss": [], "eval_nll": []}
 
@@ -233,38 +242,38 @@ def train_online(
         if ckpt_path is not None:
             state = load_checkpoint(ckpt_path)
             params = params_from_numpy(state["params"], dev, requires_grad=True)
+            replicas = replicate_trainable(mesh, params)
             opt = optimizer.init(params)
             opt.load_state_dict(state["opt_state"])
-            generator.set_state(state["generator"])
             step_start = int(state["step"])
             history = state.get("history", history)
             history.pop("stop_reason", None)
 
-    def objective(y: torch.Tensor, conditions: tuple) -> torch.Tensor:
-        if n_cond > 0:
-            z, log_det, h = model.forward(params, y, *conditions, generator=generator, train=True,
-                                          return_features=True)
-        else:
-            z, log_det = model.forward(params, y, generator=generator, train=True)
-            h = None
-        nll = loss_fn(z, log_det)
-        mse = torch.zeros((), device=y.device)
-        if hybrid_weight > 0 and h is not None:
-            mse = torch.mean((model.predict_head(params, h) - y) ** 2)
-        return torch.stack([(nll + mse * hybrid_weight) / (1 + hybrid_weight), nll, mse])
+    def objective(p: Any, y: torch.Tensor, conditions: tuple, gen: torch.Generator) -> torch.Tensor:
+        """`[loss, nll, mse, mean logdet]` of a shard's batch."""
+        return torch.stack(hybrid_loss(model, p, y, conditions, gen, hybrid_weight, loss_fn))
+
+    def shard_batches(step: int) -> Iterator[tuple]:
+        """Each local shard's batch of a step and its generator, drawn when
+        the shard's turn comes (outside the model's precision)."""
+        step_seed = fold_in_step(seed, step)
+        for shard, d in zip(mesh.local_shards, mesh.devices):
+            gen = torch.Generator(device=d).manual_seed(fold_in(step_seed, shard))
+            yield (*simulator.sample_batch(gen, batch_size // mesh.size), gen)
 
     @torch.no_grad()
     def eval_nll(index: int) -> float:
         y, conditions = simulator.sample_batch(
-            torch.Generator(device=dev).manual_seed(_stream_seed(seed + 1, index)), batch_size)
+            torch.Generator(device=dev).manual_seed(fold_in(seed + 1, index)), batch_size)
         z, log_det = model.forward(params, y, *conditions) if n_cond > 0 else model.forward(params, y)
         return float(loss_fn(z, log_det))
 
     def save(step: int) -> None:
+        if not is_host_zero():
+            return
         save_checkpoint(
             os.path.join(checkpoint_dir, f"online_{step}.pkl"),
-            {"params": params_to_numpy(params), "opt_state": opt.state_dict(), "generator": generator.get_state(),
-             "step": step, "history": history},
+            {"params": params_to_numpy(params), "opt_state": opt.state_dict(), "step": step, "history": history},
             metadata={"step": step, "batch_size": batch_size, "seed": seed},
         )
 
@@ -274,15 +283,12 @@ def train_online(
     for step in range(step_start, n_steps):
         if schedule is not None:
             set_learning_rate(opt, schedule(step))
-        y, conditions = simulator.sample_batch(generator, batch_size)
-        opt.zero_grad()
-        with matmul_precision(model.precision):  # the forward, the hybrid loss and the backward
-            metrics = objective(y, conditions)
-            metrics[0].backward()
+        metrics = shard_backward(mesh, replicas, shard_batches(step), objective, model.precision)
         opt.step()
+        sync_replicas(replicas)
         done = step + 1
         if done % eval_every == 0 or done == n_steps:
-            train_loss = float(metrics[0].detach())
+            train_loss = float(metrics[0])
             evals = [eval_nll(step * eval_batches + i) for i in range(eval_batches)]
             eval_nll_mean = sum(evals) / len(evals)
             history["train_loss"].append((done, train_loss))

@@ -16,10 +16,26 @@ switched off), the contract of the JAX package's "highest" precision.
 
 `training.pretrained_features: <path>` grafts a saved feature-network tree
 into the fresh parameters (`models/pretrained.py`), and
-`training.freeze_features` trains the flow alone. Not ported yet, and
-refused: data parallelism (`mesh=`, ROADMAP.md slice 11) and
-`training.remat: true` (the kernels already recompute each step's
-activations in the backward).
+`training.freeze_features` trains the flow alone. `training.remat: true`
+checkpoints each block of the plain path (`CondRealNVP.remat`).
+
+Data parallelism (`mesh=`, `parallel/mesh.py`; `bcnf_tpu/train/trainer.py:130-160`):
+without a mesh the Trainer runs on a mesh of one shard on `device`, the same
+steps. The ActNorm data init runs on the unsharded first rows, then the
+params are replicated, one copy per local shard. The batch is rounded down to a
+multiple of the mesh size, so a mean of equal-shard means is the global
+mean. Each step, each local shard runs forward and `backward()` on its
+replica and its slice of the batch, inside the model's precision, drawing
+dropout from its own generator (the epoch's seed with the shard index
+folded in, as JAX folds the axis index into the step key; a mesh of one
+shard draws from the run's generator, as the unsharded step); grads and
+metrics go through `pmean`; clip and Adam update the first replica, which
+is copied into the others: one optimizer state, and replicas that cannot
+drift apart (across processes every rank applies the same update to the
+same all-reduced grads). Validation shards its padded batches and reduces
+weighted sums and weights, so its exact weighted metrics stay exact.
+Checkpoints hold one replica (topology-independent) and are written only
+where `is_host_zero()`. The model's kernel gates read each shard's rows.
 """
 
 from __future__ import annotations
@@ -33,8 +49,18 @@ import torch
 from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, params_to_numpy, tree_leaves
 from bcnf_tpu_torch.config import ParameterIndexMapping
 from bcnf_tpu_torch.errors import TrainingDivergedError
-from bcnf_tpu_torch.models.cnf import matmul_precision
 from bcnf_tpu_torch.models.pretrained import load_pretrained_features
+from bcnf_tpu_torch.models.cnf import matmul_precision
+from bcnf_tpu_torch.parallel.mesh import (
+    Mesh,
+    even_batch,
+    is_host_zero,
+    pmean,
+    replicate_trainable,
+    shard_backward,
+    shard_batch,
+    sync_replicas,
+)
 from bcnf_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from bcnf_tpu_torch.train.data import DeviceDataset, TrainerDataHandler
 from bcnf_tpu_torch.train.history import MetricSink, StdoutSink, TrainerParameterHistoryHandler
@@ -46,6 +72,7 @@ from bcnf_tpu_torch.train.optim import (
     set_learning_rate,
 )
 from bcnf_tpu_torch.utils.misc import get_data_type, inn_nll_loss, resolve_device
+from bcnf_tpu_torch.utils.prng import fold_in, fold_in_step
 
 
 def _trainable(params: Any) -> Any:
@@ -53,9 +80,33 @@ def _trainable(params: Any) -> Any:
     return map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
 
 
+def hybrid_loss(model: Any, params: Any, y: torch.Tensor, conditions: Sequence[torch.Tensor],
+                generator: torch.Generator | None, hybrid_weight: float,
+                nll_fn: Any = inn_nll_loss) -> tuple[torch.Tensor, ...]:
+    """`(loss, nll, mse, mean logdet)` of a training batch, the hybrid
+    objective `(nll + w * mse) / (1 + w)` (mse of the head's prediction
+    when `w > 0`, else 0), with dropout from `generator`: the Trainer's
+    and the online loop's."""
+    if model.n_conditions > 0:
+        z, log_det, h = model.forward(params, y, *conditions, generator=generator, train=True, return_features=True)
+    else:
+        z, log_det = model.forward(params, y, generator=generator, train=True)
+        h = None
+    nll = nll_fn(z, log_det)
+    if hybrid_weight > 0 and h is not None:
+        mse = torch.mean((model.predict_head(params, h) - y) ** 2)
+    else:
+        mse = torch.zeros((), device=y.device)
+    loss = (nll + mse * hybrid_weight) / (1 + hybrid_weight)
+    return loss, nll, mse, torch.mean(log_det)
+
+
 class Trainer:
     """Reference `Trainer` (`src/bcnf/train/trainer.py:20`) on PyTorch; runs on
-    `device` (default CUDA; raises without a card unless `device="cpu"`)."""
+    `device` (default CUDA; raises without a card unless `device="cpu"`), or
+    data-parallel on `mesh` (a `parallel.Mesh`; its first device holds the
+    dataset and the optimizer). Without a mesh, `self.mesh` is one shard on
+    `device`."""
 
     def __init__(
         self,
@@ -73,9 +124,8 @@ class Trainer:
         data: tuple[np.ndarray, list[np.ndarray]] | None = None,
         device: str | torch.device | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training is not ported yet (ROADMAP.md, slice 11)")
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh([resolve_device(device)])
+        self.device = self.mesh.devices[0]
         self.config = config
         self.verbose = verbose
         self.project_name = project_name
@@ -112,63 +162,80 @@ class Trainer:
                 generator: torch.Generator | None) -> tuple[torch.Tensor, ...]:
         """`(loss, nll, mse, mean logdet)` of one training batch
         (`bcnf_tpu/train/trainer.py:113-128`)."""
-        if model.n_conditions > 0:
-            z, log_det, h = model.forward(params, y, *conditions, generator=generator, train=True,
-                                          return_features=True)
-        else:
-            z, log_det = model.forward(params, y, generator=generator, train=True)
-            h = None
-        nll = self.loss_function(z, log_det)
-        if self.hybrid_weight > 0 and h is not None:
-            mse = torch.mean((model.predict_head(params, h) - y) ** 2)
-        else:
-            mse = torch.zeros((), device=y.device)
-        loss = (nll + mse * self.hybrid_weight) / (1 + self.hybrid_weight)
-        return loss, nll, mse, torch.mean(log_det)
+        return hybrid_loss(model, params, y, conditions, generator, self.hybrid_weight, self.loss_function)
 
-    def train_step(self, model: Any, params: Any, opt_state: ClippedOptimizer, y: torch.Tensor,
-                   conditions: Sequence[torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+    def train_step(self, model: Any, replicas: Sequence[Any], opt_state: ClippedOptimizer, y: torch.Tensor,
+                   conditions: Sequence[torch.Tensor], generators: Sequence[torch.Generator | None]) -> torch.Tensor:
         """One clipped update in place; returns the batch's metrics on the
-        device, `[loss, nll, mse, mean logdet]`. The forward, the hybrid loss
-        and the backward run at the model's precision (`matmul_precision`),
-        as JAX traces its grad inside the model's precision context."""
-        opt_state.zero_grad()
-        with matmul_precision(model.precision):
-            metrics = self.loss_fn(model, params, y, conditions, generator)
-            metrics[0].backward()
-        if self.config["training"].get("freeze_features", False) and "features" in params:
-            for p in tree_leaves(params["features"]):  # flow-only training: zero conditioner grads
+        device, `[loss, nll, mse, mean logdet]`. `replicas` holds one param
+        tree per local shard of the mesh, the optimizer's first
+        (`replicate_trainable`), and `generators` their dropout generators
+        (`shard_generators`). The grads come from `shard_grads`; the first
+        replica is updated and copied into the others."""
+        metrics = self.shard_grads(model, replicas, y, conditions, generators)
+        if self.config["training"].get("freeze_features", False) and "features" in replicas[0]:
+            for p in tree_leaves(replicas[0]["features"]):  # flow-only training: zero conditioner grads
                 p.grad = None
         opt_state.step()
-        return torch.stack(metrics).detach()
+        sync_replicas(replicas)
+        return metrics
+
+    def shard_grads(self, model: Any, replicas: Sequence[Any], y: torch.Tensor, conditions: Sequence[torch.Tensor],
+                    generators: Sequence[torch.Generator | None]) -> torch.Tensor:
+        """The data-parallel grads of one batch (`bcnf_tpu/train/trainer.py:130-152`):
+        each local shard runs forward and `backward()` on its replica and its
+        rows of the batch, at the model's precision (as JAX traces its grad
+        inside the model's precision context), with its own dropout
+        generator; the grads (a leaf without one counts as zero) and the
+        metrics go through `pmean` (`shard_backward`). Leaves the mean grads
+        in the first replica's `.grad` and returns the mean `[loss, nll, mse,
+        mean logdet]`."""
+        shards = [(ys, cs, gen) for (ys, cs), gen in zip(shard_batch(self.mesh, (y, list(conditions))), generators)]
+        return shard_backward(self.mesh, replicas, shards,
+                              lambda p, ys, cs, gen: torch.stack(self.loss_fn(model, p, ys, cs, gen)),
+                              model.precision)
+
+    def shard_generators(self, epoch: int) -> list[torch.Generator]:
+        """The local shards' dropout generators of an epoch: its seed with the
+        shard index folded in (a resumed run draws the same masks)."""
+        seed = fold_in_step(self.seed, epoch)
+        return [torch.Generator(device=d).manual_seed(fold_in(seed, shard))
+                for shard, d in zip(self.mesh.local_shards, self.mesh.devices)]
 
     @torch.no_grad()
-    def val_step(self, model: Any, params: Any, y: torch.Tensor, conditions: Sequence[torch.Tensor],
+    def val_step(self, model: Any, replicas: Sequence[Any], y: torch.Tensor, conditions: Sequence[torch.Tensor],
                  w: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """Weighted metrics of one padded validation batch (`w` is 1 for real
         rows, 0 for wrap-around pad rows; `bcnf_tpu/train/trainer.py:185-206`),
-        at the model's precision."""
+        at the model's precision, over the mesh: each shard's weighted sums
+        and weights are reduced (a ratio of means is the ratio of the sums),
+        then the spread of z around the batch's mean in a second reduce.
+        Returns `(metrics, total weight, z mean, z std)`."""
+        shards = shard_batch(self.mesh, (y, list(conditions), w))
+        zs, sums = [], []
         with matmul_precision(model.precision):
-            return self._val_metrics(model, params, y, conditions, w)
-
-    def _val_metrics(self, model: Any, params: Any, y: torch.Tensor, conditions: Sequence[torch.Tensor],
-                     w: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        if model.n_conditions > 0:
-            z, log_det, h = model.forward(params, y, *conditions, return_features=True)
-        else:
-            z, log_det = model.forward(params, y)
-            h = None
-        wsum = torch.sum(w)
-        nll = torch.sum(w * self.loss_function(z, log_det, reduction="none")) / wsum
-        if self.hybrid_weight > 0 and h is not None:
-            mse = torch.sum(w[:, None] * (model.predict_head(params, h) - y) ** 2) / (wsum * y.shape[1])
-        else:
-            mse = torch.zeros((), device=y.device)
+            for replica, (ys, cs, ws) in zip(replicas, shards):
+                if model.n_conditions > 0:
+                    z, log_det, h = model.forward(replica, ys, *cs, return_features=True)
+                else:
+                    z, log_det = model.forward(replica, ys)
+                    h = None
+                if self.hybrid_weight > 0 and h is not None:
+                    s_mse = torch.sum(ws[:, None] * (model.predict_head(replica, h) - ys) ** 2)
+                else:
+                    s_mse = torch.zeros((), device=ys.device)
+                sums.append([torch.sum(ws * self.loss_function(z, log_det, reduction="none")), s_mse,
+                             torch.sum(ws * log_det), torch.sum(ws), torch.sum(ws[:, None] * z, dim=0)])
+                zs.append((z, ws))
+        s_nll, s_mse, s_ld, wsum, s_z = pmean(self.mesh, sums)
+        nll = s_nll / wsum
+        mse = s_mse / (wsum * y.shape[1])
         loss = (nll + mse * self.hybrid_weight) / (1 + self.hybrid_weight)
-        metrics = torch.stack([loss, nll, mse, torch.sum(w * log_det) / wsum])
-        z_mean = torch.sum(w[:, None] * z, dim=0) / wsum
-        z_var = torch.sum(w[:, None] * (z - z_mean) ** 2, dim=0) / wsum
-        return metrics, wsum, z_mean, torch.sqrt(z_var)
+        z_mean = s_z / wsum
+        (s_var,) = pmean(self.mesh, [[torch.sum(ws[:, None] * (z - z_mean.to(z.device)) ** 2, dim=0)]
+                                     for z, ws in zs])
+        metrics = torch.stack([loss, nll, mse, s_ld / wsum])
+        return metrics, wsum * self.mesh.size, z_mean, torch.sqrt(s_var / wsum)
 
     # ------------------------------------------------------------------
 
@@ -180,9 +247,10 @@ class Trainer:
         # each step runs inside `matmul_precision(model.precision)`
         if cfg_t.get("precision"):
             model.precision = str(cfg_t["precision"])
-        if cfg_t.get("remat"):
-            raise NotImplementedError("training.remat is not ported: the training kernels recompute "
-                                      "each step's activations in the backward already")
+        # block-boundary rematerialization of the plain path (the kernels
+        # recompute each step's activations already)
+        if cfg_t.get("remat") is not None:
+            model.remat = bool(cfg_t["remat"])
         # float32 is the contract outside the model's work: no TF32 in any
         # matmul or convolution
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -206,7 +274,7 @@ class Trainer:
         train_set = DeviceDataset(y_tr, c_tr, self.device)
         val_set = DeviceDataset(y_val, c_val, self.device)
 
-        # one generator for the shuffles and the dropout masks, on the device
+        # one generator for the shuffles (and, on one shard, the dropout masks), on the device
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         if params is None:
             params = model.init(torch.Generator().manual_seed(self.seed), device=self.device)
@@ -228,6 +296,7 @@ class Trainer:
             nb = min(1024, train_set.n, int(cfg_t.get("batch_size", 1024)))
             params = model.init_actnorm(params, train_set.y[:nb], *[c[:nb] for c in train_set.conditions])
         params = _trainable(params)
+        replicas = replicate_trainable(self.mesh, params)
         opt_state = optimizer.init(params)
 
         start_epoch = 0
@@ -236,6 +305,7 @@ class Trainer:
             if ckpt_path:
                 state = load_checkpoint(ckpt_path)
                 params = params_from_numpy(state["params"], self.device, requires_grad=True)
+                replicas = replicate_trainable(self.mesh, params)
                 opt_state = optimizer.init(params)
                 opt_state.load_state_dict(state["opt_state"])
                 scheduler.load_state_dict(state["scheduler"])
@@ -270,15 +340,18 @@ class Trainer:
             p = best_params if (track_best and best_params is not None) else p
             return map_tree(lambda t: t.detach(), p)
 
-        # a dataset smaller than the batch would otherwise give no batch
-        batch_size = min(cfg_t["batch_size"], train_set.n)
+        # a dataset smaller than the batch would otherwise give no batch; even shards
+        batch_size = even_batch(self.mesh, min(cfg_t["batch_size"], train_set.n))
 
         for epoch in range(start_epoch, n_epochs):
             ms.update_epoch(epoch)
 
             # ---- training pass: metrics stay on the device until the epoch ends
+            # one shard draws its masks from the run's generator, between the shuffles, as
+            # an unsharded step always has; several draw from their own (`shard_generators`)
+            dropout = [generator] if self.mesh.size == 1 else self.shard_generators(epoch)
             train_metrics = [
-                self.train_step(model, params, opt_state, by, bc, generator)
+                self.train_step(model, replicas, opt_state, by, bc, dropout)
                 for by, bc in train_set.batches(batch_size, generator, drop_remainder=True)
             ]
             tm = np.mean(torch.stack(train_metrics).cpu().numpy(), axis=0)
@@ -290,6 +363,7 @@ class Trainer:
                 with torch.no_grad():
                     for p, b in zip(tree_leaves(params), tree_leaves(best_params)):
                         p.copy_(b)
+                sync_replicas(replicas)
                 opt_state = set_learning_rate(optimizer.init(params), new_lr)
                 n_rescues += 1
                 ms.parameter_history.setdefault("rescues", []).append({"epoch": epoch, "lr": float(new_lr)})
@@ -307,7 +381,7 @@ class Trainer:
                 raise TrainingDivergedError(f"Loss exploded to {train_loss} at epoch {epoch}")
 
             # ---- validation pass over fixed-size padded batches
-            val = [self.val_step(model, params, by, bc, bw) for by, bc, bw in val_set.batches_padded(batch_size)]
+            val = [self.val_step(model, replicas, by, bc, bw) for by, bc, bw in val_set.batches_padded(batch_size)]
             ws = torch.stack([v[1] for v in val]).cpu().numpy().astype(np.float64)
             ws /= ws.sum()
             vm = np.average(torch.stack([v[0] for v in val]).cpu().numpy(), axis=0, weights=ws)
@@ -342,7 +416,8 @@ class Trainer:
 
             ms.update_best_loss()
 
-            if self.checkpoint_every and self.checkpoint_dir and (epoch + 1) % self.checkpoint_every == 0:
+            if (self.checkpoint_every and self.checkpoint_dir and (epoch + 1) % self.checkpoint_every == 0
+                    and is_host_zero()):
                 save_checkpoint(
                     f"{self.checkpoint_dir}/ckpt_{epoch}.pkl",
                     {

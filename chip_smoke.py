@@ -128,11 +128,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
    generated on the card, 3 calls x 2 folds x 2 epochs, then a re-run that
    resumes. Fails if a one-pass kernel was not launched on the path.
 
+16. data parallelism (`parallel/mesh.py`) on the one card: (a) the
+   flagship (dropout 0, BCNF_FUSED_LSTM=1) on a mesh of two shards placed on
+   the card (`Mesh([cuda:0, cuda:0])`): one `Trainer` step at batch 4096
+   against the unsharded step on the same batch and params (the NLL, and
+   every grad pulled back from standard-normal cotangents, at the JAX grad
+   bar), K2a, K2b, K3a and K3b launched exactly twice as often, then
+   `Trainer.train` for 1 epoch of 3 batches and train samples/s beside the
+   unsharded rate; (b) the same step under a one-rank NCCL process group,
+   and the time of the grads' `all_reduce`; (c) sharded calibration ranks of
+   64 points at M = 10,000 equal to the unsharded ranks, K1's launches by
+   rows, and sharded resimulation of 8 points x 100 draws (the grid against
+   one device's on the same draws within 1e-6); (d) `train_online` on
+   `videos_CNN_LSTM_large` on the mesh for 8 steps at batch 64 beside the
+   unsharded run, launches per shard; (e) `sample --dp-devices 1` and `eval
+   --dp-devices 1` on the card, and `train --dp-devices 2`, which must raise
+   the JAX package's message (one card). Fails if a sharded path launched
+   no kernel.
+
 The line before the last is the kernel table as JSON (each row with its
 arithmetic, `arith`: float32 FMA, 3xTF32 on the tensor cores, or one TF32
 pass (`tf32`, phase 15's rows, with `ms_3xtf32` beside), its bound
-at that arithmetic's peak, `zoo_launches` and `video_launches`, its
-launches on phase 13's and phase 14's video-model runs, and for K3a and K3b
+at that arithmetic's peak, `zoo_launches`, `video_launches` and
+`dp_launches`, its launches on phase 13's, phase 14's video-model and
+phase 16's sharded runs, and for K3a and K3b
 their `video_*` times and bound at the video model's LSTM shape); the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or of
 `bcnf_tpu`.
@@ -621,11 +640,13 @@ def main() -> None:
     zoo = model_zoo(rng, dev, build_dir, peaks)
     video, lstm_video = video_path(rng, dev, build_dir, peaks)
     kernels += precision_path(model, params, rng, dev, build_dir, peaks)
-    for row in kernels:  # each kernel's launches on phase 13's and 14's paths, beside its main-path launches
+    dp = parallel_path(rng, dev, build_dir)
+    for row in kernels:  # each kernel's launches on phase 13's, 14's and 16's paths, beside its main-path launches
         key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward"}.get(
             row["name"], row["name"].split()[0])
         row["zoo_launches"] = zoo.get(key, 0)
         row["video_launches"] = video.get(key, 0)
+        row["dp_launches"] = dp.get(key, 0)
         row.update(lstm_video.get(key, {}))
 
     print(smi)
@@ -745,21 +766,21 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
         yb = torch.from_numpy(y[:B]).to(dev)
         cb = [torch.from_numpy(traj[:B]).to(dev)]
         saved = fused_flow_train_fwd.launches, fused_flow_train_bwd.launches
-        trainer.train_step(model, params, opt, yb, cb, gen)
+        trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         reps = 5
         t0 = time.perf_counter()
         for _ in range(reps):
-            metrics = trainer.train_step(model, params, opt, yb, cb, gen)
+            metrics = trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         rates[B] = reps * B / (time.perf_counter() - t0)
         # the same steps with the kernel gate closed: the plain autograd composition
         model.use_pallas = False
-        trainer.train_step(model, params, opt, yb, cb, gen)
+        trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            trainer.train_step(model, params, opt, yb, cb, gen)
+            trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         plain_rates[B] = reps * B / (time.perf_counter() - t0)
         model.use_pallas = True
@@ -826,7 +847,7 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
         split = [sorted(c)[1] for c in zip(*splits)]
         shapes = (yb.detach(), h_proj.detach(), [kargs[k].detach() for k in TRAIN_ARGS], model)
         copies = weight_copies_ms(model, params, dev)
-        device_profile(lambda: trainer.train_step(model, params, opt, yb, cb, gen))
+        device_profile(lambda: trainer.train_step(model, [params], opt, yb, cb, [gen]))
         fused_flow_train_fwd.launches, fused_flow_train_bwd.launches = saved
 
     # K2a/K2b at the main path's batch-4096 inputs: kernel, plain, bound
@@ -1266,11 +1287,11 @@ def train_rates(model, trainer, trained, yb, cb, dev, reps: int = 5) -> tuple[fl
         params = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
         opt = make_optimizer("Adam", lr=2e-4).init(params)
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        trainer.train_step(model, params, opt, yb, cb, gen)
+        trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            trainer.train_step(model, params, opt, yb, cb, gen)
+            trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         rates.append(reps * yb.shape[0] / (time.perf_counter() - t0))
     fused_lstm(True)
@@ -1832,12 +1853,12 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
         opt = make_optimizer("Adam", lr=2e-4).init(params)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         yb, cb = torch.from_numpy(y_all[:B]).to(dev), [torch.from_numpy(conds_all[0][:B]).to(dev)]
-        trainer.train_step(model, params, opt, yb, cb, gen)
+        trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         reps = 5
         t0 = time.perf_counter()
         for _ in range(reps):
-            trainer.train_step(model, params, opt, yb, cb, gen)
+            trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         rate = reps * B / (time.perf_counter() - t0)
         split = step_split(model, params, opt, yb, cb, gen)
@@ -2144,12 +2165,12 @@ def zoo_path_d(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> d
     p = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
     opt = make_optimizer("Adam", lr=2e-4).init(p)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    trainer.train_step(model, p, opt, yb, cb, gen)
+    trainer.train_step(model, [p], opt, yb, cb, [gen])
     torch.cuda.synchronize()
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
-        trainer.train_step(model, p, opt, yb, cb, gen)
+        trainer.train_step(model, [p], opt, yb, cb, [gen])
     torch.cuda.synchronize()
     rate = reps * B / (time.perf_counter() - t0)
     split = step_split(model, p, opt, yb, cb, gen)
@@ -2352,7 +2373,7 @@ def zoo_hybrids(rng, dev) -> int:
         yb, cb = torch.from_numpy(y).to(dev), [torch.from_numpy(tr).to(dev)]
         zero_counts()
         t0 = time.perf_counter()
-        metrics = trainer.train_step(model, p, opt, yb, cb, gen).cpu()
+        metrics = trainer.train_step(model, [p], opt, yb, cb, [gen]).cpu()
         t_step, c = time.perf_counter() - t0, lstm_counts()
         moved = any(not torch.equal(a, b) for a, b in zip(before, tree_leaves(p["head"])))
         print(f"[13 model zoo, hybrid] {name} ({n_params:,} params; {encoder}): sample 1000x{N_COND} in {secs:.3f} s, "
@@ -3145,11 +3166,11 @@ def precision_training(dev, rng) -> None:
             gen = torch.Generator(device=dev).manual_seed(SEED)
             yb = torch.from_numpy(y[:B]).to(dev)
             cb = [torch.from_numpy(traj[:B]).to(dev)]
-            trainer.train_step(model, params, opt, yb, cb, gen)
+            trainer.train_step(model, [params], opt, yb, cb, [gen])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(5):
-                trainer.train_step(model, params, opt, yb, cb, gen)
+                trainer.train_step(model, [params], opt, yb, cb, [gen])
             torch.cuda.synchronize()
             result[precision] = (5 * B / (time.perf_counter() - t0), losses)
         print(f"    Trainer.train, {what}, batch {B}, 3 steps + validation: train samples/s float32 "
@@ -3264,6 +3285,376 @@ def precision_path(model, params, rng, dev, build_dir: str, peaks: tuple[float, 
     print(f"    phase 15 took {time.perf_counter() - t_start:.1f} s (kernels {t_kernels:.1f} s); one-pass launches on "
           f"its path (counts zeroed before (b), read after (c)): {counts}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: data parallelism (parallel/mesh.py) on the one card: a mesh of
+# two shards placed on the same card, and a one-rank NCCL process group
+# ---------------------------------------------------------------------------
+
+DP_BATCH = 4096  # the flagship step of phase 6: 2048 rows a shard keep the training kernels' gate open
+DP_RANK_POINTS, DP_RESIM_POINTS, DP_RESIM_DRAWS = 64, 8, 100
+DP_ONLINE_STEPS, DP_ONLINE_BATCH = 8, 64
+DP_KERNELS = ("K1 inverse", "K1 forward", "K2a", "K2b", "K3a", "K3b")
+# sharded vs unsharded samples on the card: |d| <= DP_SAMPLE_REL * max(1, max|unsharded|). cuBLAS may take
+# another product kernel for a shard's rows, which moves the flagship's samples by a few 1e-6 on an H100;
+# a rank may then differ only where a draw lies within that bound of its true value
+DP_SAMPLE_REL = 1e-5
+
+
+def dp_counts() -> dict:
+    """The launches of phase 16's kernels, K1 by direction (`video_counts`)."""
+    return video_counts()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cotangent_loss(model, params: dict, y, conditions: list, generator) -> tuple:
+    """The objective of phase 16's grad checks, in the Trainer's loss slot:
+    z and logdet pulled back from standard-normal cotangents that ride in
+    the conditions after the trajectories (so a shard takes its rows'),
+    over the rows; then the NLL, 0, the mean logdet. The mean NLL's own
+    grads cancel past float32 in the ActNorm scale grads of a random model
+    (the sharded and unsharded sums then differ by rounding alone)."""
+    import torch
+
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    traj, dz, dld = conditions
+    z, ld = model.forward(params, y, traj, generator=generator, train=True)
+    obj = ((z * dz).sum() + (ld * dld).sum()) / y.shape[0]
+    return obj, inn_nll_loss(z, ld), torch.zeros((), device=y.device), ld.mean()
+
+
+def dp_step_check(trainer, model, params0: dict, yb, cb: list, what: str) -> tuple[dict, dict, list]:
+    """One data-parallel step (`Trainer.shard_grads`) against the unsharded
+    step on the same batch and params: the NLL, and every grad pulled back
+    from standard-normal cotangents (`cotangent_loss`) at the JAX grad bar
+    (each grad's atol capped at GRAD_REL of its max |plain|). Returns the
+    launches of each (sharded, unsharded) and the sharded grads."""
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.models.cnf import matmul_precision
+    from bcnf_tpu_torch.parallel import replicate_trainable
+
+    def trainable():
+        return map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+
+    g = torch.Generator(device=yb.device).manual_seed(SEED + 16)
+    conds = [*cb, torch.randn(yb.shape, generator=g, device=yb.device),
+             torch.randn(yb.shape[:1], generator=g, device=yb.device)]
+    p1 = trainable()
+    torch.cuda.synchronize()
+    zero_counts()
+    with matmul_precision(model.precision):
+        m1 = cotangent_loss(model, p1, yb, conds, None)
+        m1[0].backward()
+    torch.cuda.synchronize()
+    c1 = dp_counts()
+    replicas = replicate_trainable(trainer.mesh, trainable())
+    trainer.loss_fn = cotangent_loss  # the Trainer's sharded step, this objective in its loss slot
+    try:
+        zero_counts()
+        # no generator, as on the unsharded side: the LSTM's dropout stays off in both
+        m2 = trainer.shard_grads(model, replicas, yb, conds, [None] * len(trainer.mesh.devices))
+        torch.cuda.synchronize()
+    finally:
+        del trainer.loss_fn
+    c2 = dp_counts()
+    worst, max_d, mags, where = -1.0, 0.0, [], ""
+    for path, a, b in zip(leaf_paths(replicas[0]), tree_leaves(replicas[0]), tree_leaves(p1)):
+        if b.grad is not None:
+            d, excess, mag = grad_excess(a.grad, b.grad)
+            if excess > worst:
+                worst, where = excess, f"{path} (max|d| {d:.3e}, max|plain| {mag:.3e})"
+            max_d = max(max_d, d)
+            mags.append(mag)
+    loss_s, loss_u = m2[1].item(), m1[1].item()
+    print(f"    {what}: NLL {loss_s:.6f} vs unsharded {loss_u:.6f}; {len(mags)} param grads from standard-normal "
+          f"cotangents max|d| {max_d:.3e} (bar "
+          f"|d| <= min({GRAD_ATOL:g}, {GRAD_REL:g} max|plain|) + {GRAD_RTOL:g}|plain|; max|plain| per grad "
+          f"{min(mags):.3e} to {max(mags):.3e}); launches sharded {c2}, unsharded {c1}")
+    if not abs(loss_s - loss_u) <= KERNEL_TOL * max(1.0, abs(loss_u)) or worst > 0:
+        fail(f"{what}: the sharded step disagrees with the unsharded one: NLL |d| {abs(loss_s - loss_u):.3e}, "
+             f"grads {worst:.3e} past the bar at {where}")
+    return c2, c1, [a.grad for a in tree_leaves(replicas[0])]
+
+
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """The paths of a parameter tree's leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, f"{prefix}.{k}" if prefix else str(k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def dp_rates(trainer, trainer_mesh, model, params0: dict, yb, cb: list, dev, reps: int = 5) -> tuple[float, float]:
+    """Train samples/s of `reps` steps (after a warm-up), unsharded and on the
+    mesh, host clock around synchronised work; the replicas equal after."""
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.parallel import replicate_trainable
+    from bcnf_tpu_torch.train import make_optimizer
+
+    rates = []
+    for t in (trainer, trainer_mesh):
+        params = replicate_trainable(t.mesh, map_tree(lambda x: x.detach().clone().requires_grad_(True), params0))
+        opt = make_optimizer("Adam", lr=2e-4).init(params[0])
+        gen = t.shard_generators(0)
+        t.train_step(model, params, opt, yb, cb, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            t.train_step(model, params, opt, yb, cb, gen)
+        torch.cuda.synchronize()
+        rates.append(reps * yb.shape[0] / (time.perf_counter() - t0))
+        if len(params) > 1 and not all(torch.equal(a, b) for a, b in zip(tree_leaves(params[0]),
+                                                                        tree_leaves(params[1]))):
+            fail("the replicas differ after the sharded updates")
+    return rates[0], rates[1]
+
+
+def parallel_path(rng, dev, build_dir: str) -> dict:
+    """Phase 16: (a) the flagship's training on a 2-shard mesh on the card,
+    (b) the same step under a one-rank NCCL process group, (c) sharded
+    calibration ranks and resimulation, (d) online video training on the
+    mesh, (e) the CLI's `--dp-devices`. Returns the kernels' launches on the
+    sharded paths ((a)'s `Trainer.train`, (c)'s sharded ranks and
+    resimulation, (d); counts zeroed before each and read after)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import yaml
+
+    import bcnf_tpu_torch.__main__ as cli
+    from bcnf_tpu_torch.bridge import params_to_numpy, tree_leaves
+    from bcnf_tpu_torch.config import load_config, load_yaml, sub_root_path
+    from bcnf_tpu_torch.eval.calibration import compute_y_hat_ranks
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.parallel import Mesh, replicate, sample_sharded
+    from bcnf_tpu_torch.simulation.resimulation import resimulate
+    from bcnf_tpu_torch.train import Trainer
+    from bcnf_tpu_torch.train.online import OnlineSimulator, train_online
+
+    t_start = time.perf_counter()
+    card = torch.device("cuda", 0)
+    mesh = Mesh([card, card])  # two shards on the one card: a test device of the sharded path
+    dp_launches = dict.fromkeys(DP_KERNELS, 0)
+    fused_lstm(True)
+
+    # (a) the flagship's data-parallel step and Trainer.train on the mesh
+    cfg = _flagship_train_config(DP_BATCH, 1)
+    model = CondRealNVP.from_config(cfg)
+    n = int(round(3 * DP_BATCH / (1 - cfg["training"]["validation_split"])))  # 3 training batches an epoch
+    y = rng.normal(size=(n, model.size)).astype(np.float32)
+    traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
+    params0 = model.init(torch.Generator().manual_seed(SEED), device=card)
+    trainer = Trainer(cfg, data=(y, [traj]), device=card, seed=SEED)
+    trainer_mesh = Trainer(cfg, data=(y, [traj]), mesh=mesh, seed=SEED)
+    yb = torch.from_numpy(y[:DP_BATCH]).to(card)
+    cb = [torch.from_numpy(traj[:DP_BATCH]).to(card)]
+    c_s, c_u, _ = dp_step_check(trainer_mesh, model, params0, yb, cb,
+                                f"[16 data parallel, (a)] one step at batch {DP_BATCH} on a 2-shard mesh on the card")
+    for k in ("K2a", "K2b", "K3a", "K3b"):
+        if c_u[k] < 1 or c_s[k] != 2 * c_u[k]:
+            fail(f"the 2-shard step launched {k} {c_s[k]} times, not twice the unsharded step's {c_u[k]}")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trained = trainer_mesh.train(model, params0)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    c = dp_counts()
+    hist = trainer_mesh.meta_scheduler.parameter_history
+    losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
+    if (c["K2a"], c["K2b"], c["K3b"]) != (6, 6, 24) or c["K3a"] != 4 * (1 + 6 + c["K1 forward"]) or c["K1 forward"] < 2:
+        fail(f"Trainer.train on the mesh (3 steps of 2 shards) launched {c}")
+    if not (np.all(np.isfinite(losses)) and all(torch.isfinite(t).all() for t in tree_leaves(trained))):
+        fail(f"Trainer.train on the mesh gave non-finite losses or params: {losses}")
+    for k in DP_KERNELS:
+        dp_launches[k] += c[k]
+    rate_u, rate_s = dp_rates(trainer, trainer_mesh, model, params0, yb, cb, card)
+    print(f"    Trainer.train on the mesh, 1 epoch x 3 steps of {DP_BATCH} (2 x {DP_BATCH // 2} rows a step) + "
+          f"validation, in {t_train:.2f} s; launches {c}; losses {', '.join(f'{v:.3f}' for v in losses)}; "
+          f"train samples/s {rate_s:.0f} on the 2-shard mesh, {rate_u:.0f} unsharded (5 steps each, same call)")
+
+    # (b) the same step under a one-rank NCCL process group: the reduce goes through NCCL
+    torch.cuda.set_device(card)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"the one-rank process group runs {dist.get_backend()}, not NCCL")
+        mesh_nccl = Mesh([card], group=dist.group.WORLD)
+        trainer_nccl = Trainer(cfg, data=(y, [traj]), mesh=mesh_nccl, seed=SEED)
+        c_s, c_u, grads = dp_step_check(trainer_nccl, model, params0, yb, cb,
+                                        "[16 (b)] the step on a one-rank NCCL process group")
+        if c_s != c_u or c_s["K2b"] < 1:
+            fail(f"the one-rank NCCL step launched {c_s}, the unsharded step {c_u}")
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        ar_ms = cuda_ms(lambda: dist.all_reduce(flat, group=mesh_nccl.group), reps=5)
+        print(f"    all_reduce of the step's grads ({flat.numel():,} floats, {4 * flat.numel() / 1e6:.0f} MB) on one "
+              f"NCCL rank: {median(ar_ms):.3f} ms (CUDA events, median of 5, range {min(ar_ms):.3f}-{max(ar_ms):.3f})")
+    finally:
+        dist.destroy_process_group()
+
+    # (c) sharded calibration ranks and resimulation against one device's
+    pts = rng.normal(size=(DP_RANK_POINTS, model.size)).astype(np.float32)
+    traj_pts = torch.from_numpy(rng.normal(size=(DP_RANK_POINTS, 30, 3)).astype(np.float32)).to(card)
+    with torch.no_grad():
+        s_u = model.sample(params0, torch.Generator(device=card).manual_seed(1), 1000, traj_pts, device=card)
+        s_s = sample_sharded(mesh, model, replicate(mesh, params0), torch.Generator(device=card).manual_seed(1), 1000,
+                             traj_pts)
+    kw = dict(M_samples=M_DRAWS, sample_batch_size=1000, batch_size=DP_RANK_POINTS, device=card)
+    ranks, counts, secs = [], [], []
+    for m in (None, mesh):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        ranks.append(compute_y_hat_ranks(model, params0, pts, traj_pts, mesh=m,
+                                         generator=torch.Generator(device=card).manual_seed(SEED), **kw))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(dp_counts())
+    n_draws = -(-M_DRAWS // 1000)
+    sample_d = (s_s - s_u).abs().max().item()
+    bound = DP_SAMPLE_REL * max(1.0, s_u.abs().max().item())
+    # near ties: the unsharded ranks' own draws (redrawn from the same seed) within the bound of the true value
+    near = torch.zeros(pts.shape, dtype=torch.int64, device=card)
+    y_pts, gen = torch.from_numpy(pts).to(card), torch.Generator(device=card).manual_seed(SEED)
+    with torch.no_grad():
+        for drawn in range(0, M_DRAWS, 1000):
+            s = model.sample(params0, gen, min(1000, M_DRAWS - drawn), traj_pts, device=card)
+            near += ((s - y_pts[None]).abs() <= bound).sum(dim=0)
+    near = near.cpu().numpy()
+    rank_d = np.abs(ranks[0] - ranks[1])
+    print(f"[16 (c)] calibration ranks of {DP_RANK_POINTS} points at M = {M_DRAWS:,}: unsharded {secs[0]:.2f} s, "
+          f"K1 {counts[0]['K1 inverse']} launches of {1000 * DP_RANK_POINTS:,} rows; sharded {secs[1]:.2f} s, K1 "
+          f"{counts[1]['K1 inverse']} launches of {1000 * DP_RANK_POINTS // 2:,} rows; one batch of 1000 draws, "
+          f"sharded vs unsharded samples max|d| {sample_d:.3e} (bound {bound:.3e} = {DP_SAMPLE_REL:g} x max(1, "
+          f"max|unsharded| {s_u.abs().max().item():.3e})); {int((rank_d > 0).sum())} of {rank_d.size} ranks differ "
+          f"(by at most {int(rank_d.max())}), {int(near.sum())} draws lie within the bound of their true value "
+          f"({int((near > 0).sum())} of {near.size} entries)")
+    if counts[0]["K1 inverse"] != n_draws or counts[1]["K1 inverse"] != 2 * n_draws:
+        fail(f"the ranks launched K1 {counts[0]['K1 inverse']} times unsharded and {counts[1]['K1 inverse']} sharded")
+    if not sample_d <= bound:
+        fail(f"the sharded samples differ from the unsharded ones by {sample_d:.3e}, past {bound:.3e}")
+    if np.any(rank_d > near):
+        fail(f"{int((rank_d > near).sum())} sharded ranks differ from the unsharded ranks by more than the draws "
+             f"within {bound:.3e} of their true value")
+    for k in DP_KERNELS:
+        dp_launches[k] += counts[1][k]
+    # resimulation: the sharded path end to end (its draws sampled on the shards; held to
+    # its shape and K1 launches only: the random-weight flagship's trajectories amplify
+    # the samples' gap of a few 1e-6 past any fixed bar), then the sharded grid against
+    # one device's on the same draws, as the JAX package's test isolates the grid with a
+    # deterministic stand-in (tests/test_parallel.py:141)
+    T, dt = float(cfg["data"]["T"]), float(cfg["data"]["dt"])
+    traj_r = traj_pts[:DP_RESIM_POINTS]
+    zero_counts()
+    X_e = resimulate(model, params0, T, dt, {}, None, traj_r, m_samples=DP_RESIM_DRAWS, mesh=mesh, device=card,
+                     generator=torch.Generator(device=card).manual_seed(SEED + 1))
+    c = dp_counts()
+    with torch.no_grad():
+        y_hat = model.sample(params0, torch.Generator(device=card).manual_seed(SEED + 1), DP_RESIM_DRAWS, traj_r,
+                             device=card)
+    X_u, X_s = (resimulate(model, params0, T, dt, {}, y_hat, traj_r, mesh=m, device=card) for m in (None, mesh))
+    finite = np.isfinite(X_u) & np.isfinite(X_s)
+    d = float(np.abs(X_u - X_s)[finite].max()) if finite.any() else 0.0
+    same = np.array_equal(np.isfinite(X_u), np.isfinite(X_s)) and np.array_equal(X_u[~finite], X_s[~finite],
+                                                                                  equal_nan=True)
+    print(f"    resimulation of {DP_RESIM_POINTS} points x {DP_RESIM_DRAWS} draws, {X_s.shape}: sharded end to end "
+          f"{float(np.isfinite(X_e).mean()):.3f} finite (unsharded on its draws {float(np.isfinite(X_u).mean()):.3f}), "
+          f"launches {c}; the sharded grid vs one device's on the same draws: max|d| {d:.3e} (tolerance 1e-6), the "
+          f"same non-finite entries: {same}")
+    if not (d <= 1e-6 and same and c["K1 inverse"] == 2 and X_e.shape == X_u.shape):
+        fail(f"the sharded resimulation differs from the unsharded one ({d:.3e}, same non-finite entries {same}) "
+             f"or launched K1 {c['K1 inverse']} times")
+    for k in DP_KERNELS:
+        dp_launches[k] += c[k]
+
+    # (d) online video training on the mesh
+    with open(sub_root_path(VIDEO_CONFIG)) as f:
+        vcfg = yaml.safe_load(f)
+    vmodel = CondRealNVP.from_config(load_config(VIDEO_CONFIG))
+    vdata = vcfg["data"]
+    sim = OnlineSimulator(load_yaml(vdata["config_file"]), vmodel.parameter_index_mapping,
+                          condition_groups=vcfg["global"]["conditions"], dt=float(vdata["dt"]), T=float(vdata["T"]),
+                          num_cams=int(vdata["num_cams"]))
+    vparams = vmodel.init(torch.Generator().manual_seed(SEED), device=card)
+    t_online = {}
+    for m in (None, mesh):  # the unsharded run first, as the yardstick of the same call
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        vtrained, vhist = train_online(vmodel, vparams, sim, n_steps=DP_ONLINE_STEPS, batch_size=DP_ONLINE_BATCH,
+                                       lr=2e-4, eval_every=DP_ONLINE_STEPS, eval_batches=1, seed=SEED, mesh=m,
+                                       device=card)
+        torch.cuda.synchronize()
+        t_online[m is not None] = time.perf_counter() - t0
+    c = dp_counts()
+    vals = [v for k in ("train_loss", "eval_nll") for _, v in vhist[k]]
+    print(f"    (d) train_online on videos_CNN_LSTM_large on the 2-shard mesh: {DP_ONLINE_STEPS} steps at batch "
+          f"{DP_ONLINE_BATCH} ({DP_ONLINE_BATCH // 2} videos a shard, each simulated and rendered on the card) + 1 "
+          f"eval batch in {t_online[True]:.2f} s (unsharded, same call: {t_online[False]:.2f} s; both with the "
+          f"ActNorm init); launches {c}, a shard's K3a {(c['K3a'] - 8) // 2}, K3b {c['K3b'] // 2} "
+          f"(4 a pass; the ActNorm init and the eval unsharded); history {vhist['train_loss']}, {vhist['eval_nll']}")
+    if c["K3b"] != 2 * 4 * DP_ONLINE_STEPS or c["K3a"] != 4 * (2 * DP_ONLINE_STEPS + 2):
+        fail(f"train_online on the mesh launched {c}")
+    if not (np.all(np.isfinite(vals)) and all(torch.isfinite(t).all() for t in tree_leaves(vtrained))):
+        fail(f"train_online on the mesh gave non-finite values: {vhist}")
+    for k in DP_KERNELS:
+        dp_launches[k] += c[k]
+    del vmodel, vparams, vtrained, sim
+
+    # (e) the CLI: `sample`/`eval --dp-devices 1` on the card; `train --dp-devices 2` raises (one card)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        with open(os.path.join(tmp, "params.pkl"), "wb") as f:
+            pickle.dump(params_to_numpy(params0), f)
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"config_path": CONFIG}, f)
+        data = {"trajectories": traj_pts.cpu().numpy()}
+        data.update({p: pts[:, i] for i, p in enumerate(model.parameter_index_mapping.parameters)})
+        data_path, out = os.path.join(tmp, "data.pkl"), os.path.join(tmp, "samples.npy")
+        with open(data_path, "wb") as f:
+            pickle.dump(data, f)
+        zero_counts()
+        cli.main(["sample", "-m", tmp, "-d", data_path, "-n", "100", "-o", out, "--dp-devices", "1"])
+        samples, c_sample = np.load(out), dp_counts()
+        zero_counts()
+        (report, _, stages), t_eval = run_eval(["eval", "-m", tmp, "-d", data_path, "-o", os.path.join(tmp, "report"),
+                                                "-M", "1000", "--resim-samples", "100", "--dp-devices", "1"])
+        c_eval = dp_counts()
+        try:
+            cli.main(["train", "-c", CONFIG, "-d", data_path, "-o", os.path.join(tmp, "dp2"), "--dp-devices", "2"])
+            fail("train --dp-devices 2 ran on one card")
+        except ValueError as e:
+            message = str(e)
+        if "Requested a 2-device mesh but only 1 device(s) are visible" not in message:
+            fail(f"train --dp-devices 2 raised {message!r}, not the JAX package's message")
+    if (samples.shape != (100, DP_RANK_POINTS, model.size) or not np.isfinite(samples).all()
+            or c_sample["K1 inverse"] != 1):
+        fail(f"sample --dp-devices 1 gave {samples.shape}, finite={np.isfinite(samples).all()}, launches {c_sample}")
+    if not np.isfinite(report["test_nll"]) or c_eval["K1 inverse"] < 1 or c_eval["K1 forward"] < 1:
+        fail(f"eval --dp-devices 1: test NLL {report['test_nll']}, launches {c_eval}")
+    print(f"    (e) sample --dp-devices 1: {samples.shape} finite, launches {c_sample}; eval --dp-devices 1 "
+          f"({DP_RANK_POINTS} points, M 1000, 100 resimulation draws) in {t_eval:.2f} s, test NLL "
+          f"{report['test_nll']:.3f}, launches {c_eval}; train --dp-devices 2 on one card raised: {message}")
+    fused_lstm(False)
+    missing = [k for k, v in dp_launches.items() if v < 1]
+    if missing:
+        fail(f"the sharded paths launched no {', '.join(missing)}: {dp_launches}")
+    print(f"    phase 16 took {time.perf_counter() - t_start:.1f} s; the sharded paths' launches ((a) Trainer.train, "
+          f"(c), (d)): {dp_launches}")
+    return dp_launches
 
 
 if __name__ == "__main__":

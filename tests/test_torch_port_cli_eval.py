@@ -132,8 +132,6 @@ def test_eval_report_matches_jax_on_the_same_model_and_data(trained, tmp_path, r
 def test_eval_refusals_and_device_rule(trained, tmp_path):
     _, model_dir, test_set = trained
     base = ["eval", "-m", str(model_dir), "-d", str(test_set), "-o", str(tmp_path / "r")]
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        main([*base, "--dp-devices", "2", "--device", "cpu"])
     # the precision override: a string the port does not take fails before any work; a reduced one runs
     with pytest.raises(ValueError, match="BF16_BF16_F32_X3"):
         main([*base, "--precision", "tensorfloat32", "--device", "cpu"])
@@ -141,6 +139,12 @@ def test_eval_refusals_and_device_rule(trained, tmp_path):
     main([*base, "--precision", "bfloat16", "--device", "cpu", "-M", "16", "--max-points", "4", "--skip-resim"])
     with open(tmp_path / "r" / "report.json") as f:
         assert np.isfinite(json.load(f)["test_nll"])
+    # --dp-devices shards the ranks and the resimulation over a mesh of CPU shards
+    # (tests/test_torch_port_cli_parallel.py holds its report against one device's)
+    main([*base, "--dp-devices", "2", "--device", "cpu", "-M", "16", "--max-points", "4", "--resim-samples", "4"])
+    with open(tmp_path / "r" / "report.json") as f:
+        report = json.load(f)
+    assert np.isfinite(report["test_nll"]) and 0 < report["resim_finite_frac"] <= 1
     if torch.cuda.is_available():
         pytest.skip("checks the device rule of a host without a GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -52,17 +52,33 @@ def test_port_imports_no_jax_and_no_bcnf_tpu():
         "        'simulation.resimulation', 'eval.calibration', 'plots.eval_plots', 'ops.attention',\n"
         "        'models.layers', 'models.splines', 'models.cnn', 'models.pretrained', 'train.online',\n"
         "        'simulation.video_processing', 'plots.debug_plotting', 'eval.crossvalidate',\n"
-        "        'hpo.gp_minimize', 'hpo.driver']\n"
+        "        'hpo.gp_minimize', 'hpo.driver', 'parallel', 'parallel.mesh', 'plots.base',\n"
+        "        'plots.data_plots', 'utils.prng', 'utils.profiling', 'utils.summary']\n"
         "assert all('bcnf_tpu_torch.' + n in names for n in need), names\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "assert 'sklearn' not in sys.modules, 'sklearn was imported'\n"
+        "for lib in ('sklearn', 'matplotlib', 'pandas'):\n"
+        "    assert lib not in sys.modules, lib + ' was imported'\n"
         "bad = [m for m in sys.modules if m == 'bcnf_tpu' or m.startswith('bcnf_tpu.')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 42
+    assert int(out.stdout.strip()) >= 50
+
+
+def test_module_lists_of_the_two_packages_match():
+    """Every module of `bcnf_tpu` has its counterpart in the port but
+    `utils/jit.py`, which only sets a TPU compiler flag (read from the
+    files: importing `bcnf_tpu` would load JAX)."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+
+    def modules(pkg: str) -> set[str]:
+        return {str(p.relative_to(root / pkg)) for p in (root / pkg).rglob("*.py")}
+
+    assert modules("bcnf_tpu") - modules("bcnf_tpu_torch") == {"utils/jit.py"}
 
 
 def test_resolve_device_rule():
@@ -350,6 +366,43 @@ def test_train_forward_matches_plain_version_on_card(cuda, hidden, rows):
     assert fused_flow_train_fwd.launches == before + 1
     for name, a, b in zip(("z", "logdet", "bound"), out, ref):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
+
+
+@pytest.mark.gpu
+def test_two_shard_step_on_card_matches_the_unsharded_step(cuda):
+    """The data-parallel step on a mesh of two shards placed on the one card
+    (`Mesh([cuda, cuda])`, as chip_smoke.py's phase 16): each shard's
+    forward and backward run K2a/K2b on its 256 rows (twice the unsharded
+    step's launches), and the mean-reduced grads are the unsharded step's at
+    the JAX grad bar (atol 5e-4, rtol 1e-3)."""
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_bwd, fused_flow_train_fwd
+    from bcnf_tpu_torch.parallel import Mesh, replicate_trainable
+    from bcnf_tpu_torch.train import Trainer
+
+    model = _tiny_model(100)
+    params = model.init(device=cuda)
+    rng = np.random.default_rng(9)
+    y = torch.from_numpy(rng.normal(size=(512, 5)).astype(np.float32)).to(cuda)
+    traj = torch.from_numpy(rng.normal(size=(512, 9, 3)).astype(np.float32)).to(cuda)
+    config = {"global": {"dtype": "float32"}, "optimizer": {"type": "Adam", "kwargs": {"lr": 1e-3}},
+              "lr_scheduler": {"type": "ReduceLROnPlateau", "kwargs": {}},
+              "training": {"validation_split": 0.0, "val_loss_window_size": 1, "val_loss_patience": None,
+                           "val_loss_tolerance_mode": "rel", "val_loss_tolerance": 1e-3, "batch_size": 512,
+                           "n_epochs": 1}}
+    trainer = Trainer(config, data=(y.cpu().numpy(), [traj.cpu().numpy()]), mesh=Mesh([cuda, cuda]))
+    p1 = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+    before = fused_flow_train_fwd.launches
+    z, ld = model.forward(p1, y, traj, train=True)
+    torch.mean(0.5 * torch.sum(z**2, dim=-1) - ld).backward()
+    one = fused_flow_train_fwd.launches - before
+    replicas = replicate_trainable(trainer.mesh, map_tree(lambda t: t.detach().clone().requires_grad_(True), params))
+    before = fused_flow_train_fwd.launches, fused_flow_train_bwd.launches
+    trainer.shard_grads(model, replicas, y, [traj], [None, None])
+    assert one == 1 and (fused_flow_train_fwd.launches, fused_flow_train_bwd.launches) == (before[0] + 2, before[1] + 2)
+    for a, b in zip(tree_leaves(replicas[0]), tree_leaves(p1)):
+        if b.grad is not None:
+            torch.testing.assert_close(a.grad, b.grad, atol=5e-4, rtol=1e-3)
 
 
 @pytest.mark.gpu

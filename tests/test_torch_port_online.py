@@ -39,6 +39,7 @@ from bcnf_tpu_torch.models import (
     FullyConnectedFeatureNetwork,
     LSTMFeatureNetwork,
 )
+from bcnf_tpu_torch.parallel import make_mesh
 from bcnf_tpu_torch.train.online import OnlineSimulator, train_online
 from bcnf_tpu_torch.train.optim import cosine_decay_schedule
 from tests.test_sampling import PRIOR
@@ -203,7 +204,8 @@ def test_train_online_improves_its_eval_nll():
 
 def test_train_online_checkpoint_resume_is_bit_exact(tmp_path):
     """40 steps + resume to 60 reproduces an unbroken 60-step run: the
-    checkpoint restores params, optimizer state, generator and step."""
+    checkpoint restores params, optimizer state and step, and each step's
+    batch comes from its own seed."""
     model, sim = _toy_online_model(), _toy_sim()
     p0 = model.init(device="cpu")
     kw = dict(batch_size=32, lr=2e-3, eval_every=1000, device="cpu")
@@ -219,10 +221,43 @@ def test_train_online_checkpoint_resume_is_bit_exact(tmp_path):
     assert [s for s, _ in hist["eval_nll"]] == [40, 60] and (ckpt / "online_60.pkl").exists()
 
 
-def test_train_online_refuses_a_mesh_and_stops_at_its_timeout():
+def test_train_online_mesh_dp_improves():
+    """Online training on a 4-shard CPU mesh (tests/test_online.py:89): each
+    shard simulates its rows from its own stream, the grads are mean-reduced."""
+    model = _toy_online_model()
+    params, history = train_online(model, model.init(device="cpu"), _toy_sim(), n_steps=40, batch_size=64, lr=2e-3,
+                                   eval_every=20, mesh=make_mesh(4, device="cpu"))
+    evals = [v for _, v in history["eval_nll"]]
+    assert np.isfinite(evals).all() and evals[-1] < evals[0], f"mesh online training did not improve: {evals}"
+    assert all(torch.isfinite(t).all() for t in tree_leaves(params))
+
+
+def test_train_online_checkpoint_resume_onto_mesh(tmp_path):
+    """A single-device online checkpoint resumes onto a mesh
+    (tests/test_online.py:137): the checkpoint holds one replica."""
     model, sim = _toy_online_model(), _toy_sim()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        train_online(model, model.init(device="cpu"), sim, n_steps=1, mesh=object(), device="cpu")
+    ckpt = str(tmp_path / "online_ckpts")
+    train_online(model, model.init(device="cpu"), sim, n_steps=20, batch_size=32, lr=2e-3, eval_every=10,
+                 checkpoint_dir=ckpt, checkpoint_every=10, device="cpu")
+    params, hist = train_online(model, model.init(torch.Generator().manual_seed(1), device="cpu"), sim, n_steps=30,
+                                batch_size=32, lr=2e-3, eval_every=10, checkpoint_dir=ckpt, checkpoint_every=10,
+                                resume=True, mesh=make_mesh(4, device="cpu"))
+    steps = [s for s, _ in hist["eval_nll"]]
+    assert steps == [10, 20, 30]  # the restored history carried on to the new budget
+    assert all(torch.isfinite(t).all() for t in tree_leaves(params))
+
+
+def test_train_online_refuses_a_mesh_and_stops_at_its_timeout():
+    """A mesh trains (a batch that is a multiple of its size; JAX's
+    ValueError otherwise); the timeout stops the loop."""
+    model, sim = _toy_online_model(), _toy_sim()
+    with pytest.raises(ValueError, match="must divide the mesh size 4"):
+        train_online(model, model.init(device="cpu"), sim, n_steps=1, batch_size=6, mesh=make_mesh(4, device="cpu"))
+    with pytest.raises(ValueError, match="gives no row to each of 4 shards"):
+        train_online(model, model.init(device="cpu"), sim, n_steps=1, batch_size=0, mesh=make_mesh(4, device="cpu"))
+    params, history = train_online(model, model.init(device="cpu"), sim, n_steps=1, batch_size=8,
+                                   mesh=make_mesh(2, device="cpu"))
+    assert history["stop_reason"] == "max_steps" and all(torch.isfinite(t).all() for t in tree_leaves(params))
     _, history = train_online(model, model.init(device="cpu"), sim, n_steps=50, batch_size=8, timeout=0.0,
                               device="cpu")
     assert history["stop_reason"] == "timeout" and history["eval_nll"] == []

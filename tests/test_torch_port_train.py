@@ -34,6 +34,7 @@ from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, params_to_numpy, 
 from bcnf_tpu_torch.config import load_config as port_load_config
 from bcnf_tpu_torch.config import sub_root_path
 from bcnf_tpu_torch.models import CondRealNVP, ConcatenateCondition, FeatureNetworkStack, LSTMFeatureNetwork
+from bcnf_tpu_torch.parallel import make_mesh
 from bcnf_tpu_torch.train import (
     DeviceDataset,
     ReduceLROnPlateau,
@@ -270,10 +271,14 @@ def test_stop_rules_and_refusals():
     assert t.meta_scheduler.parameter_history["stop_reason"] == "max_epochs" and len(val) == 3
     for a, b in zip(tree_leaves(best["features"]), tree_leaves(p0["features"])):
         assert torch.equal(a, b)  # frozen conditioner
-    with pytest.raises(NotImplementedError):
-        Trainer(_config(1, 8, remat=True), data=(y, [traj]), device="cpu").train(tm, p0)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        Trainer(_config(1, 8), data=(y, [traj]), device="cpu", mesh=object())
+    # training.remat and a mesh train (held against the plain and the one-device runs in
+    # tests/test_torch_port_utils.py and tests/test_torch_port_parallel.py)
+    for trainer in (Trainer(_config(1, 8, remat=True), data=(y, [traj]), device="cpu"),
+                    Trainer(_config(1, 8), data=(y, [traj]), mesh=make_mesh(2, device="cpu"))):
+        params = trainer.train(tm, p0)
+        assert trainer.meta_scheduler.parameter_history["stop_reason"] == "max_epochs"
+        assert all(torch.isfinite(t).all() for t in tree_leaves(params))
+    assert tm.remat  # training.remat: true set the model's flag
 
 
 def test_train_condrealnvp_functional_api():
@@ -313,6 +318,29 @@ def test_training_gate(monkeypatch):
     assert tm_drop._use_fused_train(False, _CudaRows(512))  # dropout only matters in training
     monkeypatch.setenv("BCNF_FUSED_TRAIN_MIN_BATCH", "1024")
     assert not tm._use_fused_train(True, _CudaRows(512))
+
+
+@pytest.mark.parametrize("size,nested,takes", [
+    (19, [526] * 5, True),     # the flagship
+    (38, [526] * 5, True),     # the widest size K2b's rows kernel holds at Hp 544
+    (39, [526] * 5, False),    # its shared memory refuses one more
+    (19, [526] * 14, True),    # nh = 13: 16 weight-grad jobs a step, kAtbMaxJobs
+    (19, [526] * 15, False),   # nh = 14: 17 jobs
+    (19, [1100] * 5, False),   # past the widest compiled width (32 * 32)
+], ids=["flagship", "size38", "size39", "nh13", "nh14", "width1100"])
+def test_training_gate_closes_on_shapes_the_kernels_do_not_take(size, nested, takes):
+    """`_fused_train_takes` reads the limits the kernels' launchers check
+    (`kSmemLimit`, `kAtbMaxJobs`, from their headers): where K2a/K2b would
+    return cudaErrorInvalidValue the gate closes and plain autograd trains,
+    as JAX falls back to XLA (the card raised at size 39 and at nh 14, and
+    ran size 38 and nh 13)."""
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 6, N_COND_FEATURES, 1)])
+    model = CondRealNVP(size=size, nested_sizes=nested, n_blocks=3, n_conditions=N_COND_FEATURES,
+                        feature_network_stack=stack, act_norm=True)
+    assert model._fused_train_takes() is takes
+    rows = _CudaRows(512)
+    rows.shape = (512, size)
+    assert model._use_fused_train(True, rows) is takes
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +389,9 @@ def test_train_cli_writes_a_model_dir_jax_loads(tmp_path):
         generated = pickle.load(f)
     assert len(generated["trajectories"]) == 24 and np.asarray(generated["trajectories"]).shape[1:] == (30, 3)
     assert (out / "params.pkl").exists()
-    for flags, slice_no in ((["--dp-devices", "2"], 11), (["--coordinator", "localhost:1"], 11)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-            main(["train", "-c", str(cfg_path), "-o", str(out), "-f", "--device", "cpu", *flags])
+    # the data-parallel flags: a 2-shard CPU mesh; a coordinator without --num-processes joins nothing
+    for flags in (["--dp-devices", "2"], ["--coordinator", "localhost:1"]):
+        (out / "params.pkl").unlink()
+        main(["train", "-c", str(cfg_path), "-o", str(out), "-f", "--device", "cpu", *flags])
+        with open(out / "params.pkl", "rb") as f:
+            assert all(np.isfinite(a).all() for a in jax.tree.leaves(pickle.load(f)))
