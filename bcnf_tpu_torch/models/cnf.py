@@ -737,8 +737,11 @@ class CondRealNVP:
         return self.use_pallas_coupling and self._use_fused(train, x, *trees)
 
     # Minimum batch for the training kernels (`bcnf_tpu/models/cnf.py:998`,
-    # overridable per model or by the BCNF_FUSED_TRAIN_MIN_BATCH variable).
-    fused_train_min_batch: int = 256
+    # overridable per model or by the BCNF_FUSED_TRAIN_MIN_BATCH variable):
+    # on an H100 K2a/K2b beat plain autograd at every batch chip_smoke.py
+    # sweeps, 32 to 256 rows (PERF.md, the training floor's table), so the
+    # floor is the least batch measured.
+    fused_train_min_batch: int = 32
 
     def _use_fused_train(self, train: bool, x: torch.Tensor) -> bool:
         """Training-kernel gate: `_use_fused_train` of the JAX package

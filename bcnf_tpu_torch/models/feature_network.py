@@ -7,8 +7,9 @@ reference does (`feature_network.py:46-69`).
 
 `LSTMFeatureNetwork` pools over the **time** axis: the SURVEY.md Q1 fix the
 JAX package carries (`bcnf_tpu/models/feature_network.py:188-229`). Every
-LSTM here runs through `ops/lstm.lstm_apply`, so ``BCNF_FUSED_LSTM=1`` puts
-each of their directions on the fused recurrence kernels. The Transformer's
+LSTM here runs through `ops/lstm.lstm_apply`, so on a CUDA tensor each of
+their directions runs on the fused recurrence kernels (``BCNF_FUSED_LSTM=0``
+keeps the time loop; `ops/lstm._fused_enabled`). The Transformer's
 positional embeddings are the JAX package's full-width ones (SURVEY.md Q10),
 and `DualDomainFC` keeps its two documented divergences from the reference.
 """

@@ -117,6 +117,8 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
         lib.bcnf_flow_inverse_wgmma.restype = i32
         lib.bcnf_flow_wgmma_occupancy.argtypes = [i32] * 3
         lib.bcnf_flow_wgmma_occupancy.restype = i32
+        lib.bcnf_flow_wgmma_clusters.argtypes = [i32] * 3
+        lib.bcnf_flow_wgmma_clusters.restype = i32
     elif source == "flow_train_kernel":
         lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 7 + [ptr]
         lib.bcnf_flow_train_bwd.restype = i32

@@ -15,9 +15,12 @@ launches K1's kernels (`ops/flow_kernel.py::_launch_flow`) on ``[x_a | x_b]``
 in 3xTF32, or in one TF32 pass in the reduced mode (JAX's K4 takes its dots
 at the model's precision): the inverse on `wgmma` up to the padded width
 544, the row tiles otherwise (JAX's K4 has no strict mode, nor has the
-port's). A pass of the
-per-coupling path launches one coupling once, so the wrapper prepares that
-coupling's weights once (the padding, and the `wgmma` layout of the inverse).
+port's). The wrapper prepares a coupling's weights (the padding and
+stacking, and for the `wgmma` inverse the stage layout of its hidden
+weights) once per parameter version and keeps them (`prepared_coupling`),
+so a pass with unchanged weights prepares each coupling once in all, and an
+in-place update of a weight (which bumps its `_version`) or a new weight
+tensor prepares it again.
 
 Row ``r`` is conditioned on ``h_proj[r % n_cond]``, as K1 does, so a
 `(n_samples, N, size)` inverse needs no broadcast copy of the projections.
@@ -36,7 +39,18 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from bcnf_tpu_torch.ops.flow_kernel import MODE_3XTF32, TF32_MODES, _check_mode, _launch_flow, padded_width
+from bcnf_tpu_torch.ops.flow_kernel import (
+    MODE_3XTF32,
+    MODE_TF32,
+    ROUTE_WGMMA,
+    ROUTE_WGMMA_TF32,
+    TF32_MODES,
+    _check_mode,
+    _launch_flow,
+    flow_route,
+    padded_width,
+    prepare_weights,
+)
 from bcnf_tpu_torch.ops.nn import gelu
 
 
@@ -112,20 +126,15 @@ def _check_args(tensors: dict[str, torch.Tensor], n_cond: int) -> None:
         raise ValueError(f"fused_affine_coupling: {B} rows exceed the kernel's 32-bit row indexing")
 
 
-def coupling_flow_args(h_proj: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Tensor],
-                       bm: Sequence[torch.Tensor], wout: torch.Tensor, bout: torch.Tensor) -> dict[str, torch.Tensor]:
-    """One coupling's arguments as K1's at one step (S = 1: the final
-    coupling's slot, whose ActNorm and mix are identity and skipped), the
-    hidden width zero-padded to the kernels' (`ops/flow_kernel.padded_width`;
-    exact, as `pad_hidden`): every tensor of `fused_flow`'s layout, h_proj
-    (1, n_cond, Hp)."""
+def _weight_args(w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Tensor], bm: Sequence[torch.Tensor],
+                 wout: torch.Tensor, bout: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Every argument of `coupling_flow_args` but h_proj."""
     H = w1y.shape[1]
     p = padded_width(H) - H
     size = w1y.shape[0] + wout.shape[1] // 2
     wm_p = F.pad(torch.stack(list(wm)), (0, p, 0, p)) if len(wm) else w1y.new_empty((0, H + p, H + p))
     bm_p = F.pad(torch.stack(list(bm)), (0, p)) if len(bm) else w1y.new_empty((0, H + p))
     args = {
-        "h_proj": F.pad(h_proj, (0, p))[None],
         "an_scale": w1y.new_ones((1, size)),
         "an_bias": w1y.new_zeros((1, size)),
         "ortho": torch.eye(size, dtype=w1y.dtype, device=w1y.device)[None],
@@ -137,6 +146,62 @@ def coupling_flow_args(h_proj: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor
         "bout": bout[None],
     }
     return {k: v.contiguous() for k, v in args.items()}
+
+
+def _pad_projection(h_proj: torch.Tensor, Hp: int) -> torch.Tensor:
+    return F.pad(h_proj, (0, Hp - h_proj.shape[-1]))[None].contiguous()
+
+
+def coupling_flow_args(h_proj: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Tensor],
+                       bm: Sequence[torch.Tensor], wout: torch.Tensor, bout: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One coupling's arguments as K1's at one step (S = 1: the final
+    coupling's slot, whose ActNorm and mix are identity and skipped), the
+    hidden width zero-padded to the kernels' (`ops/flow_kernel.padded_width`;
+    exact, as `pad_hidden`): every tensor of `fused_flow`'s layout, h_proj
+    (1, n_cond, Hp)."""
+    args = _weight_args(w1y, b1, wm, bm, wout, bout)
+    return dict(args, h_proj=_pad_projection(h_proj, args["b1"].shape[-1]))
+
+
+# The prepared weights of the couplings seen last (`prepared_coupling`), the
+# least recently used dropped past PREPARED_CAPACITY: room for every
+# coupling of a 26-block flow in both directions' layouts, twice over.
+PREPARED_CAPACITY = 64
+_prepared: collections.OrderedDict[tuple, dict] = collections.OrderedDict()
+
+
+def _memory_key(t: torch.Tensor) -> tuple:
+    return t.data_ptr(), t.dtype, str(t.device), tuple(t.shape), t.stride()
+
+
+def prepared_coupling(w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Tensor], bm: Sequence[torch.Tensor],
+                      wout: torch.Tensor, bout: torch.Tensor) -> dict:
+    """One coupling's prepared weights: `{"args": every argument of
+    `coupling_flow_args` but h_proj, "wstages": {passes: the `wgmma` stage
+    layout}}` (the layouts filled in by the caller as a route needs them),
+    made once per parameter version. Each weight is known by the memory it
+    views (address, dtype, device, shape, strides: a per-block view `t[k]`
+    of the stacked parameters is a new tensor object at every pass, but the
+    same memory) and checked by its `_version`, which every in-place update
+    of it or of its base bumps. The entry keeps the weights it was made from,
+    so no other tensor can take their memory while it lives. Counts each
+    preparation in `fused_affine_coupling.preparations`."""
+    weights = (w1y, b1, *wm, *bm, wout, bout)
+    key = (len(wm),) + tuple(_memory_key(t) for t in weights)
+    versions = tuple(t._version for t in weights)
+    entry = _prepared.get(key)
+    if entry is not None and entry["versions"] == versions:
+        _prepared.move_to_end(key)
+        return entry
+    with torch.no_grad():
+        entry = {"weights": weights, "versions": versions, "args": _weight_args(w1y, b1, wm, bm, wout, bout),
+                 "wstages": {}}
+    _prepared[key] = entry
+    _prepared.move_to_end(key)
+    while len(_prepared) > PREPARED_CAPACITY:
+        _prepared.popitem(last=False)
+    fused_affine_coupling.preparations += 1
+    return entry
 
 
 def fused_affine_coupling(
@@ -157,8 +222,11 @@ def fused_affine_coupling(
     `h_proj[r % n_cond]` (`n_cond` defaults to `h_proj`'s rows). Returns
     `(z_b, logdet)` forward or `y_b` inverse. A CPU tensor takes
     `fused_affine_coupling_reference` (float32 in every mode); a CUDA tensor
-    launches K1's kernel at one step in `mode` (3xTF32 or one TF32 pass), or
-    raises. Counts its launches in `launches`, and by mode in `mode_launches`."""
+    launches K1's kernel at one step in `mode` (3xTF32 or one TF32 pass) on
+    the coupling's prepared weights (`prepared_coupling`), or raises. Counts
+    its launches in `launches`, by mode in `mode_launches`, and the
+    preparations of its weights in `preparations` (the padded stack) and
+    `stage_preparations` (a `wgmma` stage layout)."""
     _check_mode(mode, TF32_MODES)
     n_cond = h_proj.shape[0] if n_cond is None else n_cond
     wm, bm = list(wm), list(bm)
@@ -172,9 +240,18 @@ def fused_affine_coupling(
     _check_args(dict(x_a=x_a, x_b=x_b, h_proj=h_proj, w1y=w1y, b1=b1, wout=wout, bout=bout,
                      **{f"wm[{i}]": w for i, w in enumerate(wm)}, **{f"bm[{i}]": b for i, b in enumerate(bm)}),
                 n_cond)
-    d_a = x_a.shape[1]
-    _, y, ld = _launch_flow(torch.cat([x_a, x_b], dim=1), coupling_flow_args(h_proj, w1y, b1, wm, bm, wout, bout),
-                            inverse=inverse, n_cond=n_cond, mode=mode)
+    (B, d_a), size = x_a.shape, x_a.shape[1] + x_b.shape[1]
+    entry = prepared_coupling(w1y, b1, wm, bm, wout, bout)
+    args = dict(entry["args"], h_proj=_pad_projection(h_proj, entry["args"]["b1"].shape[-1]))
+    wstages = None
+    if B and flow_route(args["b1"].shape[-1], size, d_a, inverse, mode) in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
+        passes = 1 if mode == MODE_TF32 else 3
+        if passes not in entry["wstages"]:
+            entry["wstages"][passes] = prepare_weights(args["wm"], passes)
+            fused_affine_coupling.stage_preparations += 1
+        wstages = entry["wstages"][passes]
+    _, y, ld = _launch_flow(torch.cat([x_a, x_b], dim=1), args, inverse=inverse, n_cond=n_cond, mode=mode,
+                            wstages=wstages)
     if x_a.shape[0]:
         fused_affine_coupling.launches += 1
         fused_affine_coupling.mode_launches[mode] += 1
@@ -184,3 +261,5 @@ def fused_affine_coupling(
 
 fused_affine_coupling.launches = 0  # type: ignore[attr-defined]
 fused_affine_coupling.mode_launches = collections.Counter()  # type: ignore[attr-defined]
+fused_affine_coupling.preparations = 0  # type: ignore[attr-defined]
+fused_affine_coupling.stage_preparations = 0  # type: ignore[attr-defined]

@@ -1,14 +1,9 @@
-// K1's inverse on Hopper's warpgroup tensor-core products (`wgmma`), 3xTF32,
-// at the padded hidden widths Hp <= 544 (TN <= 17; the flagship's 526 pads to
-// 544). Wider models take the row-tile inverse of flow_kernel.cu.
-//
-// The reduced mode: the library built with BCNF_TF32_PASSES=1 (flow_rows.cuh;
-// the JAX kernel's "default" mode, which serves the "default", "bfloat16" and
-// "BF16_BF16_F32_X3" precisions) issues one `wgmma` a product, a_hi b_hi,
-// each operand rounded once to TF32, and streams hi-only weight stages
-// (`prepare_weights(wm, passes=1)`: 32 Hp bytes a stage, half the default
-// mode's), so its products take a third of the tensor-core work and its
-// stream half the bytes; the ring, the tile and everything else are the same.
+// K1's inverse on Hopper's warpgroup tensor-core products (`wgmma`) at the
+// padded hidden widths Hp <= 544 (TN <= 17; the flagship's 526 pads to 544),
+// built twice: in 3xTF32 (the default mode) and, with BCNF_TF32_PASSES=1, in
+// one TF32 pass (the reduced mode: the JAX kernel's "default" mode, which
+// serves the "default", "bfloat16" and "BF16_BF16_F32_X3" precisions). Wider
+// models take the row-tile inverse of flow_kernel.cu.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow with inverse=True (the
 // Pallas TPU kernel `_flow_kernel`), and the inverse of
@@ -24,13 +19,15 @@
 // layer, [t | s'] = a Wout + bout, s = tanh(s'), x_b <- (x_b - t) exp(-s).
 //
 // What bounds it on an H100: the square hidden products, 4 x 2 x 526^2 FLOP
-// a row and step, ~99% of the work, in 3xTF32 (three tensor-core products a
-// product: a third of the 494.7 TFLOP/s dense TF32 rate), and the weights'
-// traffic from L2: every 64-row block reads each step's hidden weights, hi
-// and lo, once (2.37 MB a layer at Hp 544; for 80,000 rows ~308 GB a call),
-// which at L2's rate of a few TB/s takes about as long as the products.
+// a row and step, ~99% of the work, on the tensor cores (3xTF32: three
+// products a product, a third of the 494.7 TFLOP/s dense TF32 rate; one
+// pass: one product, the full rate), and the weights' traffic from L2: every
+// 64-row block reads each step's hidden weights once (hi and lo in 3xTF32,
+// 2.37 MB a layer at Hp 544, ~308 GB a call for 80,000 rows; hi alone in one
+// pass, half of that), which at L2's rate of a few TB/s takes about as long
+// as the 3xTF32 products and longer than the one-pass products.
 //
-// Design.
+// Design (both builds).
 // - Tile: a block owns 64 rows (one `wgmma` M) for all S steps; their
 //   activations stay in shared memory as float32 (64 x (Hp + 4)), the rows'
 //   state, the mix's output and [t | s'] beside them.
@@ -39,39 +36,72 @@
 //   registers a thread); a producer warpgroup streams the weights (one of
 //   its threads issues the copies). The block's 384 threads start with 168
 //   registers each; `setmaxnreg` takes the producers down to 40 and gives the
-//   consumers 232 from what they release, which holds the accumulators, the
-//   A fragment and its split without spills.
+//   consumers 232 from what they release, which holds the accumulators and
+//   the A fragments without spills.
 // - A operand: from registers. Each consumer loads its m64 x k8 fragment of
-//   the float32 tile and splits it in registers into hi = tf32(a) (rounded)
-//   and lo = a - hi (truncated by the tensor cores): four values a thread and
-//   k-step.
+//   the float32 tile and rounds it in registers to hi = tf32(a) (3xTF32 also
+//   keeps lo = a - hi, truncated by the tensor cores): four values a thread
+//   and k-step.
 // - B operand: the hidden weights prepared once per call on the card
 //   (`prepare_weights`): transposed to K-major, split into hi and lo (the same
-//   bits as the split of mma_tf32.cuh), and laid out stage by stage, 8 input
-//   rows a stage, in the core-matrix order the descriptor reads, so one 1-D
-//   bulk copy (`cp.async.bulk`, no tensor map) moves a stage's hi and lo
-//   (64 Hp bytes: 34,816 at Hp 544).
-// - Products: a_lo b_hi + a_hi b_lo + a_hi b_hi, three `wgmma`s a product a
-//   k-step, into one float32 accumulator (the two small terms first).
-// - Producer: one thread walks the weight stages of every step and layer in
-//   the consumers' order and keeps them in flight through a 2-stage ring of
-//   mbarriers (full: the copy's bytes landed; empty: the 256 consumer threads
-//   are done with it). Two stages are what shared memory holds beside the
-//   tile: 140 KB of tile, 70 KB of ring and the rows' state (~14 KB at the
-//   flagship's size 19) come to ~224 KB of the 227 KB.
+//   bits as the split of mma_tf32.cuh; one pass keeps hi alone), and laid out
+//   stage by stage, 8 input rows a stage, in the core-matrix order the
+//   descriptor reads, so one 1-D bulk copy (`cp.async.bulk`, no tensor map)
+//   moves a stage (64 Hp bytes in 3xTF32: 34,816 at Hp 544; 32 Hp in one pass).
 // - The narrow products (W1y: d_a inputs; Wout: 2 d_b outputs; ~2% of the
 //   work) and the mixes stay float32 FMA and read their weights from global
 //   memory through L1 and L2, as does the ActNorm: the ring has no room for
 //   Wout (83 KB at Hp 544), and they are too small to need it. Wout's product
 //   gives a thread one column and 8 rows, so each weight is loaded once for 8
 //   rows.
-// - Not built: a cluster of 2 blocks that multicasts each stage to both
-//   (which would halve the L2 traffic), and a persistent grid; the first
-//   measurement decides whether either is worth its complexity (PERF.md).
 // - The tensor cores' accumulator truncates; over 544-long dot products the
-//   inverse's samples stay within the 1e-4 bar of the float32 plain version
+//   inverse's samples stay within the 1e-4 bar of the float64 plain version
 //   (measured: PERF.md), so each k-stage is not folded into a separate float32
 //   sum (which would double the accumulator registers).
+//
+// 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, three
+// `wgmma`s a product a k-step, into one float32 accumulator (the two small
+// terms first), waited for before the next k-step; a 2-stage ring of hi and
+// lo stages (full: the copy's bytes landed; empty: the 256 consumer threads
+// are done with it): 140 KB of tile, 70 KB of ring and the rows' state (~14
+// KB at the flagship's size 19) come to ~224 KB of the 227 KB.
+//
+// One pass (redesigned for its own arithmetic): one `wgmma` a product on
+// operands rounded once to TF32. Its two products a k-step are too short to
+// hide a k-step's fixed costs (the fragment's load, the barrier's hand-off,
+// the group's wait), which the 3xTF32 pipeline serialises; and its
+// stream, no longer hidden behind three times the products, bounds it. So:
+// - one `wgmma` group is kept in flight: a k-step issues its products, then
+//   waits for the previous k-step's group (`wgmma_wait<1>`), releases that
+//   stage, and loads and rounds the next fragment into the other of two A
+//   registers sets while its own group runs;
+// - the ring holds 4 hi-only stages (kWgRingTf32) in the 70 KB the 2 hi/lo
+//   stages take in 3xTF32, so two stages are in use while two are in flight;
+// - two blocks form a cluster (kWgClusterTf32) and share every stage: the
+//   blocks issue the ring's slots in turn (slot st by rank st % 2), each
+//   stage one bulk copy multicast to both blocks' rings, which halves the
+//   weights' reads from L2; a slot's `empty` barrier in its issuing block
+//   counts one arrival from each consumer warpgroup of both blocks (remote
+//   arrivals through `mapa`), and its issuing producer announces the bytes
+//   on both blocks' `full` barriers. The grid is rounded up to whole
+//   clusters (a block past the last row runs on masked rows), the blocks
+//   meet at a cluster barrier after initialising their barriers and before
+//   leaving, and a launch the card refuses returns its error. The barriers
+//   keep their default (CTA-scope) semantics, as CUTLASS's cluster
+//   pipelines do: cluster-scope ones measured ~28 ms slower (PERF.md);
+// - the input layer, which the tensor cores wait for, puts each thread on
+//   fixed columns (W1y's column pair loaded once, all its inputs at once,
+//   for 4 rows) and keeps each sum in the 3xTF32 build's order, so the
+//   one-pass outputs are those of the serial one-pass pipeline to the bit.
+// What bounds it now (PERF.md, tools/wgmma_tf32_parts.py): the stream and
+// the FMA layers, neither overlapped with the other. A k-step's two
+// products take ~270 cycles of the SM's tensor cores and need a 17 KB
+// stage, ~64 bytes a cycle an SM; the multicast, which halves L2's reads
+// but not what each SM takes in, did not pay (clusters of 1 measured
+// faster), so the ring's hand-offs and each SM's intake hold the stream,
+// not L2. The FMA layers and the epilogues' GELU run while the tensor
+// cores idle: one block an SM has no second tile to overlap them with, and
+// shared memory has no room for one.
 
 #include "flow_rows.cuh"
 #include "wgmma_tf32.cuh"
@@ -83,7 +113,14 @@ using namespace bcnf;
 constexpr int kWgRows = 64;                    // one wgmma M
 constexpr int kWgConsumers = 256;              // two warpgroups
 constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
-constexpr int kWgStages = 2;                   // the weight ring
+// The weight ring's stages, by arithmetic, and the blocks of a cluster that
+// share each stage (ops/flow_kernel.py: `wgmma_ring` reads these three)
+constexpr int kWgRing3xTf32 = 2;
+constexpr int kWgRingTf32 = 4;
+constexpr int kWgClusterTf32 = 2;
+constexpr int kWgStages = kPasses == 3 ? kWgRing3xTf32 : kWgRingTf32;  // the weight ring
+constexpr int kWgCluster = kPasses == 3 ? 1 : kWgClusterTf32;           // blocks sharing each stage
+static_assert(kWgStages % kWgCluster == 0, "each ring slot has one issuing block");
 constexpr int kWgProducts = 1, kWgCopies = 2;  // the parts a launch runs (both, or one alone to time it)
 // Registers a thread: a block of 12 warps starts with 168 (65,536 / 384); the
 // producer warpgroup gives up all but 40 to the block's pool, from which the
@@ -103,7 +140,7 @@ struct WgShape {
 };
 
 // The kernel's dynamic shared memory (bcnf_tpu_torch/ops/flow_kernel.py:
-// kernel_smem mirrors this sum): tile, ring, x, x Q^T, [t | s'], 4 barriers.
+// kernel_smem mirrors this sum): tile, ring, x, x Q^T, [t | s'], 2 barriers a stage.
 size_t wg_smem(int Hp, int size, int d_a) {
   const size_t stage = (kPasses == 3 ? 16 : 8) * static_cast<size_t>(Hp);
   return sizeof(float) * (static_cast<size_t>(kWgRows) * (Hp + 4) + static_cast<size_t>(kWgStages) * stage +
@@ -112,6 +149,119 @@ size_t wg_smem(int Hp, int size, int d_a) {
 }
 
 __device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kWgConsumers) : "memory"); }
+
+// The one-pass pipeline's pieces (kPasses == 1).
+// A warp's m64 x k8 fragment of the tile at k-step s (rows 16 w4 + g (+8),
+// columns 8 s + q (+4)), rounded to TF32: the hi half of split_tf32.
+template <int ldA>
+__device__ __forceinline__ void load_a_tf32(const float* act, int w4, int g, int q, int s, uint32_t (&a)[4]) {
+  const float* a0 = act + (16 * w4 + g) * ldA + 8 * s + q;
+  a[0] = tf32_rna(a0[0]);
+  a[1] = tf32_rna(a0[8 * ldA]);
+  a[2] = tf32_rna(a0[4]);
+  a[3] = tf32_rna(a0[8 * ldA + 4]);
+}
+
+// A consumer warpgroup is done with ring slot `slot`: one arrival (its first
+// thread's) on the slot's `empty` barrier in the block that issues the slot.
+[[maybe_unused]] __device__ __forceinline__ void release_slot(uint64_t* empty, int slot, bool signals) {
+  if (signals) mbar_arrive_cluster(&empty[slot], static_cast<uint32_t>(slot % kWgCluster));
+}
+
+[[maybe_unused]] __device__ __forceinline__ void next_slot(int& st, uint32_t& ph) {
+  if (++st == kWgStages) {
+    st = 0;
+    ph ^= 1;
+  }
+}
+
+// One k-step of a hidden layer with one `wgmma` group kept in flight: wait
+// for the stage, issue its two products on `cur`, wait for the previous
+// k-step's group (which frees its stage and `nxt`), release that stage, and
+// load and round the next k-step's fragment into `nxt` while this group runs.
+template <int TN>
+__device__ __forceinline__ void one_pass_kstep(float (&acc)[2][WgShape<TN>::R], const uint32_t (&cur)[4],
+                                               uint32_t (&nxt)[4], int s, const float* act, const float* ring,
+                                               uint64_t* full, uint64_t* empty, int& st, uint32_t& ph, int wg,
+                                               int w4, int g, int q, bool signals) {
+  using W = WgShape<TN>;
+  mbar_wait(&full[st], ph);
+  const float* hi0 = ring + st * W::stage + (wg * 2 * TN) * 64;
+  const uint64_t b0 = smem_desc(hi0, 128, 256), b1 = smem_desc(hi0 + TN * 64, 128, 256);
+  wgmma_fence();
+  WgmmaTf32<W::NP>::mma(acc[0], cur, b0);
+  WgmmaTf32<W::NP>::mma(acc[1], cur, b1);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_operands(acc[0]);
+  fence_operands(acc[1]);
+  if (s > 0) release_slot(empty, (st + kWgStages - 1) % kWgStages, signals);
+  if (s + 1 < W::n_stages) load_a_tf32<W::ldA>(act, w4, g, q, s + 1, nxt);
+  next_slot(st, ph);
+}
+
+// One pass: the input layer h_0 = gelu(x_a W1y + b1 + h_proj) with each
+// thread on fixed columns (16 row groups x 16 column lanes): a column pair's
+// W1y values are loaded once for the thread's 4 rows (rg + 16 r), all
+// issued together up to kHoistDa inputs, and its projections' loads too;
+// each sum in input_layer's order.
+template <int TN>
+__device__ __forceinline__ void input_layer_by_columns(float* act, const float* xs, const float* w1, const float* b1k,
+                                                       const float* h_proj_k, int row0, int B, int N, int size,
+                                                       int d_a, int tid) {
+  using W = WgShape<TN>;
+  constexpr int kHoistDa = 16;
+  const int rg = tid >> 4, cl = tid & 15;
+  const float* hp[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = row0 + rg + 16 * r;
+    hp[r] = row < B ? h_proj_k + static_cast<size_t>(row % N) * W::Hp : nullptr;
+  }
+#pragma unroll 1
+  for (int j = 0; j < TN; ++j) {
+    const int col = 2 * (cl + 16 * j);
+    const float2 bias = *reinterpret_cast<const float2*>(b1k + col);
+    float2 a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 h = hp[r] != nullptr ? *reinterpret_cast<const float2*>(hp[r] + col) : make_float2(0.0f, 0.0f);
+      a[r] = make_float2(bias.x + h.x, bias.y + h.y);
+    }
+    if (d_a <= kHoistDa) {
+      float2 w[kHoistDa];
+#pragma unroll
+      for (int i = 0; i < kHoistDa; ++i)
+        if (i < d_a) w[i] = *reinterpret_cast<const float2*>(w1 + i * W::Hp + col);
+#pragma unroll
+      for (int i = 0; i < kHoistDa; ++i) {
+        if (i < d_a) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float xi = xs[(rg + 16 * r) * size + i];
+            a[r].x = fmaf(xi, w[i].x, a[r].x);
+            a[r].y = fmaf(xi, w[i].y, a[r].y);
+          }
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < d_a; ++i) {
+        const float2 w = *reinterpret_cast<const float2*>(w1 + i * W::Hp + col);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float xi = xs[(rg + 16 * r) * size + i];
+          a[r].x = fmaf(xi, w.x, a[r].x);
+          a[r].y = fmaf(xi, w.y, a[r].y);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float2*>(act + (rg + 16 * r) * W::ldA + col) =
+          make_float2(gelu_tanh(a[r].x), gelu_tanh(a[r].y));
+  }
+}
 
 template <int TN>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -143,16 +293,61 @@ flow_inverse_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj
   if (tid == 0) {
     for (int i = 0; i < kWgStages; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kWgConsumers);
+      // one pass: an arrival from each consumer warpgroup of each block of the cluster
+      mbar_init(&empty[i], kPasses == 3 ? kWgConsumers : 2 * kWgCluster);
     }
     mbar_init_fence();
   }
-  __syncthreads();
+  if constexpr (kWgCluster > 1) {
+    cluster_sync();  // every block's barriers are initialised before any block reaches them
+  } else {
+    __syncthreads();
+  }
 
   if (tid >= kWgConsumers) {
     // ---- the producer warpgroup: one thread issues every hidden weight's
     // stages, in the consumers' order
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if constexpr (kPasses == 1) {
+      // one pass: the cluster's blocks issue the ring's slots in turn (slot st
+      // by rank st % kWgCluster), each stage one copy multicast to every block
+      // once every block's consumers have released the slot
+      if (tid == kWgConsumers) {
+        const uint32_t rank = cluster_rank();
+        constexpr uint32_t bytes = W::stage * sizeof(float);
+        int st = 0;
+        uint32_t ph = 0;
+        for (int it = 0; it < S; ++it) {
+          const int k = S - 1 - it;
+          for (int l = 0; l < nh; ++l) {
+            const float* src = wstages + (static_cast<size_t>(k) * nh + l) * W::n_stages * W::stage;
+            for (int s = 0; s < W::n_stages; ++s) {
+              if (static_cast<uint32_t>(st % kWgCluster) == rank) {
+                mbar_wait(&empty[st], ph ^ 1);
+                for (int c = 0; c < kWgCluster; ++c) {
+                  if (parts & kWgCopies) {
+                    mbar_arrive_expect_tx_cluster(&full[st], c, bytes);
+                  } else {
+                    mbar_arrive_cluster(&full[st], c);  // timing the products alone: the stage as it is
+                  }
+                }
+                if (parts & kWgCopies) {
+                  if constexpr (kWgCluster > 1) {
+                    bulk_copy_g2s_multicast(ring + st * W::stage, src + static_cast<size_t>(s) * W::stage, bytes,
+                                            &full[st], static_cast<uint16_t>((1u << kWgCluster) - 1));
+                  } else {
+                    bulk_copy_g2s(ring + st * W::stage, src + static_cast<size_t>(s) * W::stage, bytes, &full[st]);
+                  }
+                }
+              }
+              next_slot(st, ph);
+            }
+          }
+        }
+      }
+      if constexpr (kWgCluster > 1) cluster_sync();  // no block leaves while another may reach its memory
+      return;
+    }
     if (tid == kWgConsumers) {
       int st = 0;
       uint32_t ph = 0;
@@ -211,12 +406,17 @@ flow_inverse_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj
     {
       const float* w1 = w1y + static_cast<size_t>(k) * d_a * Hp;
       const float* b1k = b1 + static_cast<size_t>(k) * Hp;
-      for (int p = tid; p < kWgRows * Hp / 2; p += kWgConsumers) {
-        const int row = p / (Hp / 2), col = 2 * (p % (Hp / 2));
-        const float* hp =
-            row0 + row < B ? h_proj + (static_cast<size_t>(k) * N + (row0 + row) % N) * Hp : nullptr;
-        const float2 a = input_layer<Hp>(xs + row * size, w1, b1k, hp, d_a, col);
-        *reinterpret_cast<float2*>(act + row * ldA + col) = make_float2(gelu_tanh(a.x), gelu_tanh(a.y));
+      if constexpr (kPasses == 1) {
+        input_layer_by_columns<TN>(act, xs, w1, b1k, h_proj + static_cast<size_t>(k) * N * Hp, row0, B, N, size, d_a,
+                                   tid);
+      } else {
+        for (int p = tid; p < kWgRows * Hp / 2; p += kWgConsumers) {
+          const int row = p / (Hp / 2), col = 2 * (p % (Hp / 2));
+          const float* hp =
+              row0 + row < B ? h_proj + (static_cast<size_t>(k) * N + (row0 + row) % N) * Hp : nullptr;
+          const float2 a = input_layer<Hp>(xs + row * size, w1, b1k, hp, d_a, col);
+          *reinterpret_cast<float2*>(act + row * ldA + col) = make_float2(gelu_tanh(a.x), gelu_tanh(a.y));
+        }
       }
     }
     consumer_sync();
@@ -228,45 +428,66 @@ flow_inverse_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj
       for (int p = 0; p < 2; ++p)
 #pragma unroll
         for (int e = 0; e < W::R; ++e) acc[p][e] = 0.0f;
-#pragma unroll 1
-      for (int s = 0; s < W::n_stages; ++s) {
+      if constexpr (kPasses == 1) {
+        const bool signals = (tid & 127) == 0;
         if (!(parts & kWgProducts)) {  // timing the weights' stream alone
-          mbar_wait(&full[st], ph);
-          mbar_arrive(&empty[st]);
-          if (++st == kWgStages) {
-            st = 0;
-            ph ^= 1;
+          for (int s = 0; s < W::n_stages; ++s) {
+            mbar_wait(&full[st], ph);
+            release_slot(empty, st, signals);
+            next_slot(st, ph);
           }
-          continue;
+        } else {
+          uint32_t a0[4], a1[4];  // the fragments of two k-steps: one read by the group in flight
+          load_a_tf32<ldA>(act, w4, g, q, 0, a0);
+#pragma unroll 1
+          for (int s = 0; s < W::n_stages; s += 2) {  // W::n_stages = 4 TN is even
+            one_pass_kstep<TN>(acc, a0, a1, s, act, ring, full, empty, st, ph, wg, w4, g, q, signals);
+            one_pass_kstep<TN>(acc, a1, a0, s + 1, act, ring, full, empty, st, ph, wg, w4, g, q, signals);
+          }
+          wgmma_wait<0>();
+          fence_operands(acc[0]);
+          fence_operands(acc[1]);
+          release_slot(empty, (st + kWgStages - 1) % kWgStages, signals);
         }
-        // this warp's m64 x k8 fragment of the tile: rows 16 w4 + g (+8), columns 8 s + q (+4)
-        const float* a0 = act + (16 * w4 + g) * ldA + 8 * s + q;
-        const float v[4] = {a0[0], a0[8 * ldA], a0[4], a0[8 * ldA + 4]};
-        uint32_t ahi[4], alo[4];  // alo is never read in one pass
-        split_tf32(v, ahi, alo);
-        mbar_wait(&full[st], ph);
-        // the warpgroup's two products: n-groups wg 2 TN + p TN of the stage's hi (and lo) halves
-        const float* hi0 = ring + st * W::stage + (wg * 2 * TN) * 64;
-        const uint64_t bh0 = smem_desc(hi0, 128, 256), bh1 = smem_desc(hi0 + TN * 64, 128, 256);
-        wgmma_fence();
-        if constexpr (kPasses == 3) {
+      } else {
+#pragma unroll 1
+        for (int s = 0; s < W::n_stages; ++s) {
+          if (!(parts & kWgProducts)) {  // timing the weights' stream alone
+            mbar_wait(&full[st], ph);
+            mbar_arrive(&empty[st]);
+            if (++st == kWgStages) {
+              st = 0;
+              ph ^= 1;
+            }
+            continue;
+          }
+          // this warp's m64 x k8 fragment of the tile: rows 16 w4 + g (+8), columns 8 s + q (+4)
+          const float* a0 = act + (16 * w4 + g) * ldA + 8 * s + q;
+          const float v[4] = {a0[0], a0[8 * ldA], a0[4], a0[8 * ldA + 4]};
+          uint32_t ahi[4], alo[4];
+          split_tf32(v, ahi, alo);
+          mbar_wait(&full[st], ph);
+          // the warpgroup's two products: n-groups wg 2 TN + p TN of the stage's hi and lo halves
+          const float* hi0 = ring + st * W::stage + (wg * 2 * TN) * 64;
+          const uint64_t bh0 = smem_desc(hi0, 128, 256), bh1 = smem_desc(hi0 + TN * 64, 128, 256);
+          wgmma_fence();
           const float* lo0 = hi0 + 8 * Hp;
           const uint64_t bl0 = smem_desc(lo0, 128, 256), bl1 = smem_desc(lo0 + TN * 64, 128, 256);
           WgmmaTf32<W::NP>::mma(acc[0], alo, bh0);
           WgmmaTf32<W::NP>::mma(acc[1], alo, bh1);
           WgmmaTf32<W::NP>::mma(acc[0], ahi, bl0);
           WgmmaTf32<W::NP>::mma(acc[1], ahi, bl1);
-        }
-        WgmmaTf32<W::NP>::mma(acc[0], ahi, bh0);
-        WgmmaTf32<W::NP>::mma(acc[1], ahi, bh1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operands(acc[0]);
-        fence_operands(acc[1]);
-        mbar_arrive(&empty[st]);
-        if (++st == kWgStages) {
-          st = 0;
-          ph ^= 1;
+          WgmmaTf32<W::NP>::mma(acc[0], ahi, bh0);
+          WgmmaTf32<W::NP>::mma(acc[1], ahi, bh1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(acc[0]);
+          fence_operands(acc[1]);
+          mbar_arrive(&empty[st]);
+          if (++st == kWgStages) {
+            st = 0;
+            ph ^= 1;
+          }
         }
       }
       consumer_sync();  // every warp is done reading the tile
@@ -330,6 +551,7 @@ flow_inverse_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj
   for (int p = tid; p < kWgRows * size; p += kWgConsumers) {
     if (row0 + p / size < B) y[static_cast<size_t>(row0) * size + p] = xs[p];
   }
+  if constexpr (kWgCluster > 1) cluster_sync();  // the producers' counterpart
 }
 
 template <int TN>
@@ -342,9 +564,57 @@ cudaError_t launch(const float* x, const float* h_proj, const float* an_s, const
   cudaError_t err = cudaFuncSetAttribute(flow_inverse_wgmma<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flow_inverse_wgmma<TN><<<(B + kWgRows - 1) / kWgRows, kWgThreads, smem, stream>>>(
-      x, h_proj, an_s, an_b, ortho, w1y, b1, wstages, bm, wout, bout, y, B, N, S, size, d_a, nh, parts);
+  if constexpr (kWgCluster == 1) {
+    flow_inverse_wgmma<TN><<<(B + kWgRows - 1) / kWgRows, kWgThreads, smem, stream>>>(
+        x, h_proj, an_s, an_b, ortho, w1y, b1, wstages, bm, wout, bout, y, B, N, S, size, d_a, nh, parts);
+  } else {
+    // the grid rounded up to whole clusters; a block past the last row runs
+    // the protocol on masked rows. A refused launch returns its error (no
+    // launch without the cluster stands in for it)
+    const int clusters = (B + kWgRows * kWgCluster - 1) / (kWgRows * kWgCluster);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kWgCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(clusters * kWgCluster));
+    cfg.blockDim = dim3(kWgThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, flow_inverse_wgmma<TN>, x, h_proj, an_s, an_b, ortho, w1y, b1, wstages, bm, wout,
+                             bout, y, B, N, S, size, d_a, nh, parts);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
+}
+
+// Clusters of the wgmma inverse resident on the whole card at once at this
+// shape (kWgCluster blocks each; as the occupancy calculator gives it), or
+// minus a cudaError_t.
+template <int TN>
+int resident_clusters(int size, int d_a) {
+  const size_t smem = wg_smem(32 * TN, size, d_a);
+  if (smem > kSmemLimit) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flow_inverse_wgmma<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kWgCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(kWgCluster));
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, flow_inverse_wgmma<TN>, &cfg);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 template <int TN>
@@ -408,6 +678,18 @@ extern "C" int bcnf_flow_wgmma_occupancy(int Hp, int size, int d_a) {
 #define BCNF_CASE(TN) \
   case TN:            \
     return occupancy<TN>(size, d_a);
+  BCNF_WG_CASES(Hp, BCNF_CASE)
+#undef BCNF_CASE
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Clusters of the wgmma inverse the card holds at once at this shape, or
+// minus a cudaError_t.
+extern "C" int bcnf_flow_wgmma_clusters(int Hp, int size, int d_a) {
+  if (Hp % 32 != 0 || d_a <= 0 || d_a >= size) return -static_cast<int>(cudaErrorInvalidValue);
+#define BCNF_CASE(TN) \
+  case TN:            \
+    return resident_clusters<TN>(size, d_a);
   BCNF_WG_CASES(Hp, BCNF_CASE)
 #undef BCNF_CASE
   return -static_cast<int>(cudaErrorInvalidValue);

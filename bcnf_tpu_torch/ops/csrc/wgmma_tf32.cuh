@@ -83,6 +83,48 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
                : "memory");
 }
 
+// ---- clusters: a block's rank, the cluster-wide barrier, and the
+// mbarrier operations and bulk copies that reach the other blocks' shared
+// memory (a block's own barriers at the same offset in every block)
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of the cluster that runs it (not warp-aligned), arrive then wait.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// Arrive on the barrier at `bar`'s offset in block `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+// The same with `bytes` of copies announced to that barrier's phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx_cluster(uint64_t* bar, uint32_t cta, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.expect_tx.shared::cluster.b64 _, [remote], %2;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(cta), "r"(bytes)
+      : "memory");
+}
+// One bulk copy from global memory to `dst`'s offset in the shared memory of
+// every block of `mask` (bit i: cluster rank i), each completing on its
+// barrier at `bar`'s offset.
+__device__ __forceinline__ void bulk_copy_g2s_multicast(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                                        uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], "
+      "%4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
 // ---- D += A B, m64nNk8, tf32 A from registers, B K-major from shared memory
 // (the same instruction at each width N the flow kernels use: 8 * TN).
 

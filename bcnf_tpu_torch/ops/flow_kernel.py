@@ -78,22 +78,35 @@ ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
-# The limits the kernels' launchers check, by the header that defines each:
-# the dynamic shared memory a block may use, and the weight-grad jobs one
-# AtbJobs launch holds (K2b's nh + 3 a step).
-_LIMIT_HEADERS = {"kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh"}
+# The constants of the kernels' sources that the host side reads, by the
+# source that defines each: the dynamic shared memory a block may use and
+# the weight-grad jobs one AtbJobs launch holds (K2b's nh + 3 a step), the
+# limits the launchers check; the `wgmma` inverse's weight ring by
+# arithmetic, and the blocks of a one-pass cluster (`wgmma_ring`).
+_SOURCE_CONSTANTS = {"kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh", "kWgRing3xTf32": "flow_wgmma.cu",
+                  "kWgRingTf32": "flow_wgmma.cu", "kWgClusterTf32": "flow_wgmma.cu"}
 
 
 @functools.cache
 def kernel_limit(name: str) -> int:
-    """A limit of `_LIMIT_HEADERS`, read from the `constexpr` in its header
-    under `csrc/`, so that the gates and the launchers' checks share one
-    number. Read at first use, not at import."""
-    text = (Path(__file__).resolve().parent / "csrc" / _LIMIT_HEADERS[name]).read_text()
+    """A constant of `_SOURCE_CONSTANTS`, read from the `constexpr` in its
+    source under `csrc/`, so that the gates and the launchers' checks share
+    one number. Read at first use, not at import."""
+    text = (Path(__file__).resolve().parent / "csrc" / _SOURCE_CONSTANTS[name]).read_text()
     match = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*(\d+)\s*;", text)
     if match is None:
-        raise RuntimeError(f"no constexpr {name} in csrc/{_LIMIT_HEADERS[name]}")
+        raise RuntimeError(f"no constexpr {name} in csrc/{_SOURCE_CONSTANTS[name]}")
     return int(match.group(1))
+
+
+def wgmma_ring(route: str) -> tuple[int, int]:
+    """(stages of the weight ring, blocks of a cluster sharing each stage)
+    of the `wgmma` inverse on `route` (`csrc/flow_wgmma.cu`)."""
+    if route == ROUTE_WGMMA:
+        return kernel_limit("kWgRing3xTf32"), 1
+    if route == ROUTE_WGMMA_TF32:
+        return kernel_limit("kWgRingTf32"), kernel_limit("kWgClusterTf32")
+    raise ValueError(f"{route!r} is not a wgmma route")
 
 
 def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
@@ -165,9 +178,9 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     `launch`, `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`), and of K2b's
     rows kernel (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
-    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):  # tile, 2 stages of hi (and lo), x, x Q^T, [t | s'], 4 barriers
-        stage = (16 if route == ROUTE_WGMMA else 8) * Hp
-        return 4 * (64 * (Hp + 4) + 2 * stage + 64 * (2 * size + n_out)) + 32
+    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):  # tile, the ring's stages of hi (and lo), x, x Q^T, [t | s'],
+        stages, stage = wgmma_ring(route)[0], (16 if route == ROUTE_WGMMA else 8) * Hp  # 2 barriers a stage
+        return 4 * (64 * (Hp + 4) + stages * stage + 64 * (2 * size + n_out)) + 16 * stages
     if route in (ROUTE_ROWS, ROUTE_ROWS_TF32, ROUTE_TRAIN_BWD):  # tile, the 3-stage ring (csrc/flow_rows.cuh), then
         BM, BK = (32, 16) if tn <= 17 else (16, 8)
         stage = max(BK * (Hp + 8), Hp * (BK + 4))
@@ -365,10 +378,10 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     `flow_route` gives for `mode`; returns `(route, y, logdet or None)`. The
     `wgmma` routes read the hidden weights as `prepare_weights` gives them
     for the mode: pass them as `wstages`, or they are prepared here. `parts`
-    other than both runs one part of the `wgmma` inverse alone, to time it
-    (chip_smoke.py):
-    its products on stale weight stages (`WG_PRODUCTS`), or the weights'
-    stream without the products (`WG_COPIES`); y is then not the inverse."""
+    other than both runs the `wgmma` inverse with a part left out, to time
+    the rest (chip_smoke.py): its products on stale weight stages
+    (`WG_PRODUCTS`), the weights' stream without the products
+    (`WG_COPIES`), or neither (0); y is then not the inverse."""
     from bcnf_tpu_torch.ops._build import load_library
 
     B, size = x.shape

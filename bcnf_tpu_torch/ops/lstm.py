@@ -4,11 +4,12 @@ recurrence kernels.
 The input projection ``x @ W_ih`` for all timesteps is one matmul before the
 loop (`_direction_scan`, `bcnf_tpu/ops/lstm.py:53-71`); each step then does one
 ``(B, H) @ (H, 4H)`` matmul. The JAX package runs this outside any Pallas
-kernel by default (`ops/lstm.py:27-38`), so plain `torch.matmul` is its
-counterpart here. With ``BCNF_FUSED_LSTM=1`` each direction runs through
-`ops/lstm_kernel.fused_direction` instead (K3a forward, K3b backward), as the
-JAX package routes it (`ops/lstm.py:74-83`). Weights are ``(in, 4H)`` with
-gate order ``i, f, g, o``.
+kernel by default (`ops/lstm.py:27-38`), and the port's time loop is its
+counterpart (plain `torch.matmul`). On a CUDA tensor each direction runs
+through `ops/lstm_kernel.fused_direction` instead (K3a forward, K3b
+backward), as the JAX package routes it under ``BCNF_FUSED_LSTM=1``
+(`ops/lstm.py:74-83`); `_fused_enabled` says when. Weights are ``(in, 4H)``
+with gate order ``i, f, g, o``.
 """
 
 from __future__ import annotations
@@ -31,12 +32,21 @@ def lstm_cell_init(generator: torch.Generator, input_size: int, hidden_size: int
     }
 
 
-def _fused_enabled() -> bool:
-    """Gate for the fused recurrence (`ops/lstm_kernel.py`), off unless
-    ``BCNF_FUSED_LSTM=1``, as in the JAX package (`bcnf_tpu/ops/lstm.py:27-38`),
-    which turned it off by a TPU measurement; the card's numbers are in
-    PERF.md."""
-    return os.environ.get("BCNF_FUSED_LSTM", "0") == "1"
+def _fused_enabled(device: torch.device) -> bool:
+    """Gate for the fused recurrence (`ops/lstm_kernel.py`) on a tensor of
+    `device`: ``BCNF_FUSED_LSTM=1`` takes it and ``0`` (or any other value)
+    keeps the time loop, on any device; unset, a CUDA tensor takes the
+    kernels and a CPU tensor the loop, so the CPU computes what JAX's
+    default computes.
+
+    The default is the card's measurement, not the JAX package's (whose gate
+    is off by a measurement of its own accelerator, `bcnf_tpu/ops/lstm.py:27-38`):
+    on an H100 the kernels beat the time loop at every published
+    configuration `chip_smoke.py` times (PERF.md, the fused LSTM's table)."""
+    flag = os.environ.get("BCNF_FUSED_LSTM", "")
+    if flag:
+        return flag == "1"
+    return device.type == "cuda"
 
 
 def _direction_scan(params: Params, x: torch.Tensor, hidden_size: int, reverse: bool) -> torch.Tensor:
@@ -58,10 +68,10 @@ def _direction_scan(params: Params, x: torch.Tensor, hidden_size: int, reverse: 
 
 
 def _direction(params: Params, x: torch.Tensor, hidden_size: int, reverse: bool) -> torch.Tensor:
-    """One LSTM direction: the fused recurrence when enabled, else the time
-    loop. The fused kernels take any batch, so no batch falls back (the JAX
-    kernel needs one that tiles)."""
-    if _fused_enabled():
+    """One LSTM direction: the fused recurrence where `_fused_enabled` says
+    so for `x`'s device, else the time loop. The fused kernels take any
+    batch, so no batch falls back (the JAX kernel needs one that tiles)."""
+    if _fused_enabled(x.device):
         from bcnf_tpu_torch.ops.lstm_kernel import fused_direction
 
         return fused_direction(params, x, hidden_size, reverse)

@@ -57,13 +57,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
    gate), a step against the time loop's, then `train` -> `sample` CLI.
 11. path C: K4 (the per-coupling kernel: K1's kernels at one step, 3xTF32)
    against its plain version at the flagship widths, 4096 and 4099 rows,
-   forward and inverse; the flagship with `use_pallas_coupling`: the inverse
-   of phase 3's 80,000 sampling rows through 26 K4 launches against K1's
-   samples, and the no-grad forward against K1's; K4's times with the cost
-   of the weights' preparation it does each launch.
+   forward and inverse, and bit-equal to K4 on weights prepared for the
+   launch; the flagship with `use_pallas_coupling`: the inverse of phase 3's
+   80,000 sampling rows through 26 K4 launches against K1's samples, the
+   no-grad forward against K1's, and a second inverse pass: each coupling's
+   weights prepared once over the three passes (its `preparations` and
+   `stage_preparations`); K4's times on its kept weights beside the cost of
+   one preparation and its earlier times.
 
 12. the evaluation path: `generate_data` with the filter and the MC
-   renderer (n = 256, the CLI's dt 1/30 and T 2), the impact loop's steps a
+   renderer (n = 128, the CLI's dt 1/30 and T 2), the impact loop's steps a
    batch and its CUDA-graph replays against its eager loop; the `train` CLI
    on the flagship's published config (coupling dropout 0.407, batch 256)
    with no dataset on disk, so its 5000 trajectories are generated on the
@@ -73,8 +76,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
    draws; its figures only where matplotlib is installed), K1's launches by
    direction, route and rows, each stage's seconds; then the card's test
    NLL against the CPU plain path, one rank batch through K1 against the
-   plain version on the same z (near-ties excepted), and 4096 resimulated
-   trajectories against the CPU.
+   plain version in float64 on the same z (the float32 plain version's own
+   distance beside it; ranks against the float32 plain version's, near-ties
+   excepted), and 4096 resimulated trajectories against the CPU; the
+   published config's training step and `eval` also timed with the encoder
+   on K3a/K3b (phase 17's table).
 
 13. the model zoo, at published widths with random weights from the seed:
    path D, `configs/runs/nll/t_PTRF_large.yaml` (the Transformer encoder,
@@ -100,7 +106,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
    against the CPU, features and weight grads; (b) K3a and K3b at H = 212
    (Hp 224) against their plain versions at B = 64, 100 and 200, their
    times at B = 64 beside the bound and cuDNN; (c) `train --online` at batch
-   64 for 24 steps, a batch simulated and rendered on the card each step,
+   64 for 16 steps, a batch simulated and rendered on the card each step,
    launches held, then videos/s, a step split (simulate + render, CNN, LSTM,
    flow forward, backward, clip + Adam) and a profiled step; (d) `generate
    --output-type videos --renderer analytic` of 200 held-out videos; (e)
@@ -116,8 +122,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    shape), K2a and K2b at batch 4096 and K4 in one TF32 pass at the
    flagship's widths, each against its plain one-pass version and the 3xTF32
    kernel (JAX's reduced-mode bar, 5e-3) and shown not to be the 3xTF32
-   kernel, their CUDA-event times beside 3xTF32's, the one-pass round trip
-   beside the JAX CLI's TPU figure; then the precision path, counts zeroed
+   kernel, their CUDA-event times beside 3xTF32's, the one-pass `wgmma`
+   inverse's parts (products alone, stream alone, both, neither) and layout,
+   the one-pass round trip beside the JAX CLI's TPU figure; then the
+   precision path, counts zeroed
    before it: (b) `sample --precision BF16_BF16_F32_X3` and `eval` at its
    defaults in float32 and with `--precision default` on 200 generated
    points (the test NLL equal to the bit; stage seconds), the per-coupling
@@ -145,6 +153,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
    --dp-devices 1` on the card, and `train --dp-devices 2`, which must raise
    the JAX package's message (one card). Fails if a sharded path launched
    no kernel.
+
+17. the policies set from the card's numbers: (a) the fused LSTM's table,
+   each published configuration timed in this run with the encoder on
+   K3a/K3b and on the time loop (phases 9, 10, 12, 14: the flagship's step
+   at 4096 and 256 with dropout 0 and at its published dropout, t_DLSTM's
+   step at 256, the online video step at 64, the flagship's `eval`), then,
+   with BCNF_FUSED_LSTM unset, the flagship's `sample` on the card through
+   K3a/K3b (the default); fails where the kernels lose a case by more than
+   LSTM_LOSS; (b) the training floor: the flagship's dropout-0 step at 32,
+   64, 128 and 256 rows with K2a/K2b and without, beside the model's
+   `fused_train_min_batch`.
 
 The line before the last is the kernel table as JSON (each row with its
 arithmetic, `arith`: float32 FMA, 3xTF32 on the tensor cores, or one TF32
@@ -192,6 +211,10 @@ GRAD_ATOL, GRAD_RTOL, GRAD_REL = 5e-4, 1e-3, 1e-4
 # its LSTM kernel (tests/test_lstm_kernel.py:30, 48), hs and cs 1e-5, grads
 # atol 1e-4 (capped at GRAD_REL of the grad's largest value) and rtol 1e-4
 LSTM_TOL, LSTM_GRAD_ATOL, LSTM_GRAD_RTOL = 1e-5, 1e-4, 1e-4
+# the fused LSTM's default (phase 17): each published configuration's time
+# with the encoder on K3a/K3b and on the time loop, in this run:
+# case -> (kernels, loop, unit); a unit of "s" is better lower
+LSTM_TABLE: dict[str, tuple[float, float, str]] = {}
 DLSTM_CONFIG = "{{BCNF_ROOT}}/configs/runs/nll/t_DLSTM_large.yaml"
 DLSTM_PARAMS = 37_053_181
 TRAIN_ARGS = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
@@ -204,6 +227,12 @@ PEAKS = {  # name fragment: (float32 FLOP/s, TF32 FLOP/s, bytes/s)
     "H100": (66.9e12, 494.7e12, 3.35e12),  # SXM5
     "H200": (66.9e12, 494.7e12, 4.8e12),
 }
+# K1's times at the main path's shapes in earlier runs on an H100 80GB HBM3
+# at 700 W (PERF.md's kernel table), printed beside this run's
+K1_EARLIER_MS = {"inverse": 73.69, "forward": 8.52, "inverse, strict": 162.63, "forward, strict": 16.70}
+# K4's times when it padded and stacked its weights at every launch, and its
+# plain version's, in the same earlier runs (PERF.md)
+K4_EARLIER_MS = {"inverse": (2.951, 6.504), "forward": (0.803, 0.535)}
 # A kernel's arithmetic, and the rate its operations are bounded by: float32
 # FMA at the float32 peak; 3xTF32 (three tensor-core products a product,
 # csrc/mma_tf32.cuh) at a third of the TF32 peak.
@@ -421,8 +450,13 @@ def main() -> None:
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
                 kernel = kernel_label(ln)
-            elif "registers" in ln or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln):
+            elif ("registers" in ln or "wgmma" in ln.lower() or "warning" in ln.lower()
+                  or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)):
                 print(f"    ptxas {name} {kernel}: {ln.strip().removeprefix('ptxas info    : ')}")
+    # phases 2-8 and 11-13 run the encoders' time loop (their numbers and
+    # checks are the loop's); the phases that run K3a/K3b set the variable
+    # themselves, and phase 17 unsets it to drive the default
+    fused_lstm(False)
 
     dev = torch.device("cuda")
     model = CondRealNVP.from_config(load_config(CONFIG))
@@ -586,7 +620,8 @@ def main() -> None:
             l2_gb = -(-x.shape[0] // tile) * 4 * sum(int(v.numel()) for v in ka.values()) / 1e9
             if route == ROUTE_WGMMA:
                 l2_gb += -(-x.shape[0] // tile) * 4 * int(ka["wm"].numel()) / 1e9  # hi and lo of the hidden weights
-            print(f"    fused_flow[{direction}] ({route}, {arith}) rows {x.shape[0]}: {ms:.2f} ms (bound {bound:.2f} ms, "
+            print(f"    fused_flow[{direction}] ({route}, {arith}) rows {x.shape[0]}: {ms:.2f} ms (earlier runs: "
+                  f"{K1_EARLIER_MS[direction]} ms; bound {bound:.2f} ms, "
                   f"float32-FMA bound {fma_bound:.2f} ms, {flops / 1e12:.2f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, "
                   f"median of {len(k_times)}, range {min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms "
                   f"(range {min(p_times):.2f}-{max(p_times):.2f}); max|d| vs plain {err:.2e}; weights read from L2 "
@@ -641,6 +676,7 @@ def main() -> None:
     video, lstm_video = video_path(rng, dev, build_dir, peaks)
     kernels += precision_path(model, params, rng, dev, build_dir, peaks)
     dp = parallel_path(rng, dev, build_dir)
+    card_policies(model, params, rng, dev)
     for row in kernels:  # each kernel's launches on phase 13's, 14's and 16's paths, beside its main-path launches
         key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward"}.get(
             row["name"], row["name"].split()[0])
@@ -1419,6 +1455,8 @@ def lstm_path_a(model, params, traj, samples, rng, dev, build_dir: str, lstm_tim
               f"{4096 / sum(split) * 1e3:.0f} samples/s")
     print(f"    train samples/s, flagship: {rates[4096][0]:.0f} at batch 4096 and {rates[256][0]:.0f} at 256 with the "
           f"fused LSTM; {rates[4096][1]:.0f} and {rates[256][1]:.0f} with the time loop (same call)")
+    for B in (4096, 256):
+        LSTM_TABLE[f"flagship (dropout 0), train step at {B}"] = (*rates[B], "train samples/s")
     add(cli_round_trip(_flagship_train_config(256, 2), rng, build_dir, 4, "flagship CLI"))
     fused_lstm(False)
     return totals
@@ -1477,6 +1515,7 @@ def dlstm_path_b(rng, dev, build_dir: str) -> None:
         if B == 256:
             step_against_loop(m, trained, yb, cb, dev, f"t_DLSTM_large batch {B}", (16, 16))
         rates[B] = train_rates(m, trainer, trained, yb, cb, dev)
+    LSTM_TABLE["t_DLSTM_large, published config, train step at 256"] = (*rates[256], "train samples/s")
     print(f"    train samples/s, t_DLSTM_large: {rates[256][0]:.0f} at batch 256 and {rates[4096][0]:.0f} at 4096 with "
           f"the fused LSTM; {rates[256][1]:.0f} and {rates[4096][1]:.0f} with the time loop (same call)")
     ccfg = load_config(DLSTM_CONFIG).to_dict()
@@ -1507,13 +1546,14 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
     import torch
 
     from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.ops import coupling_kernel
     from bcnf_tpu_torch.ops.coupling_kernel import (
         coupling_flow_args,
         fused_affine_coupling,
         fused_affine_coupling_reference,
         mlp_params_to_kernel_args,
     )
-    from bcnf_tpu_torch.ops.flow_kernel import fused_flow, prepare_weights
+    from bcnf_tpu_torch.ops.flow_kernel import MODE_3XTF32, _launch_flow, fused_flow, prepare_weights
 
     cp = model.coupling
     blk0 = map_tree(lambda t: t[0], params["blocks"]["coupling"])
@@ -1533,6 +1573,13 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                 torch.cuda.synchronize()
                 errs[inverse] = max([errs[inverse]] + [(a - b).abs().max().item() for a, b in zip(
                     (out,) if inverse else out, (ref,) if inverse else ref)])
+                # the prepared (cached) weights against weights prepared for this launch alone
+                _, y_u, ld_u = _launch_flow(x, coupling_flow_args(h_proj, **args), inverse=inverse, n_cond=N,
+                                            mode=MODE_3XTF32)
+                if not (torch.equal(out if inverse else out[0], y_u[:, cp.d_a:])
+                        and (inverse or torch.equal(out[1], ld_u))):
+                    fail(f"K4 on its prepared weights is not bit-equal to K4 on weights prepared for the launch "
+                         f"({'inverse' if inverse else 'forward'}, B={B})")
     if fused_affine_coupling.launches != saved + 4:
         fail("fused_affine_coupling did not count its launches")
     print(f"[11 path C] K4 vs plain at H={H}, B=4096/N=8 and ragged B=4099/N=7: max|d| forward (z_b, logdet) "
@@ -1545,19 +1592,34 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
     # no-grad forward over the log_prob batch, through K4 in every coupling
     h = model.encode(params, (traj.to(dev),))
     model.use_pallas_coupling = True
-    launches = {}
+    launches, preps = {}, []
+
+    def prepared() -> tuple[int, int]:  # (padded stacks, wgmma stage layouts) since the last call
+        got = (fused_affine_coupling.preparations, fused_affine_coupling.stage_preparations)
+        fused_affine_coupling.preparations = fused_affine_coupling.stage_preparations = 0
+        return got
+
     with torch.no_grad():
         fused_affine_coupling.launches = fused_flow.launches = 0
+        coupling_kernel._prepared.clear()
+        prepared()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y4 = model.inverse_given_h(params, z_all.to(dev), h)
         torch.cuda.synchronize()
         t_inv = time.perf_counter() - t0
+        preps.append(prepared())
         launches[True], k1_inv = fused_affine_coupling.launches, fused_flow.launches
         fused_affine_coupling.launches = 0
         z4, ld4 = model.forward(params, y_lp, cond_lp)
         torch.cuda.synchronize()
+        preps.append(prepared())
         launches[False], k1_fwd = fused_affine_coupling.launches, fused_flow.launches - k1_inv
+        t0 = time.perf_counter()
+        y4_again = model.inverse_given_h(params, z_all.to(dev), h)
+        torch.cuda.synchronize()
+        t_inv_again = time.perf_counter() - t0
+        preps.append(prepared())
         model.use_pallas_coupling = False
         z1, ld1 = model.forward(params, y_lp, cond_lp)
     inv_err = (y4 - samples).abs().max().item()
@@ -1566,8 +1628,14 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
           f"(K4 launches {launches[True]}, K1 {k1_inv}), max|d| vs K1's samples {inv_err:.3e}; no-grad forward on "
           f"{y_lp.shape[0]} rows (K4 launches {launches[False]}, K1 {k1_fwd}), max|d| z, logdet vs K1's {fwd_err:.3e}")
     n_couplings = model.n_blocks
+    print(f"    K4's weight preparations (padded stacks, wgmma stage layouts): the first inverse pass {preps[0]}, "
+          f"the forward pass {preps[1]}, a second inverse pass {preps[2]} ({t_inv_again:.3f} s, first {t_inv:.3f} s); "
+          f"expected ({n_couplings}, {n_couplings}), (0, 0), (0, 0): each coupling prepared once")
     if (launches[True], k1_inv, launches[False], k1_fwd) != (n_couplings, 0, n_couplings, 0):
         fail(f"path C launched K4 {launches[True]}/{launches[False]} and K1 {k1_inv}/{k1_fwd} times")
+    if preps != [(n_couplings, n_couplings), (0, 0), (0, 0)] or not torch.equal(y4, y4_again):
+        fail(f"K4 prepared its weights {preps} times over three passes with unchanged weights, or the second "
+             f"inverse pass differs from the first")
     if not (inv_err <= KERNEL_TOL and fwd_err <= KERNEL_TOL) or not torch.isfinite(y4).all():
         fail(f"path C disagrees with K1: inverse {inv_err:.3e}, forward {fwd_err:.3e}")
 
@@ -1590,11 +1658,12 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                               reps=3)
             work = coupling_work(args, x.shape[0], n, H, inverse)
             direction = "inverse" if inverse else "forward"
-            # what the wrapper prepares each launch: the padded one-step stack, and for
-            # the wgmma inverse the hi/lo stage layout of its hidden weights
+            # what the wrapper prepares once per parameter version: the padded one-step
+            # stack, and for the wgmma inverse the hi/lo stage layout of its hidden weights
             prep = (lambda: prepare_weights(coupling_flow_args(hp, **args)["wm"])) if inverse else (
                 lambda: coupling_flow_args(hp, **args))
             prep_ms = median(cuda_ms(prep, reps=5))
+            before_ms, before_plain_ms = K4_EARLIER_MS[direction]
             src = "bcnf_tpu_torch/ops/csrc/" + ("flow_wgmma.cu" if inverse else "flow_kernel.cu")
             rows.append(kernel_row(f"K4 fused_affine_coupling[{direction}]", src,
                                    "bcnf_tpu/ops/coupling_kernel.py:69", launches[inverse], max(errs[inverse], err),
@@ -1603,8 +1672,10 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
             print(f"    K4[{direction}] ({'wgmma' if inverse else 'rows'}, 3xtf32) rows {x.shape[0]}: "
                   f"{median(k_times):.3f} ms (bound {rows[-1]['bound_ms']:.3f} ms, float32-FMA bound {fma_bound:.3f} ms, "
                   f"{work[0] / 1e9:.1f} GFLOP -> {work[0] / median(k_times) / 1e9:.1f} TFLOP/s, range "
-                  f"{min(k_times):.3f}-{max(k_times):.3f}; of which the weights' preparation {prep_ms:.3f} ms), "
-                  f"plain {median(p_times):.3f} ms; max|d| vs plain {err:.2e}; x {n_couplings} couplings a pass")
+                  f"{min(k_times):.3f}-{max(k_times):.3f}; on its prepared weights, whose preparation takes "
+                  f"{prep_ms:.3f} ms once per parameter version), plain {median(p_times):.3f} ms; before the "
+                  f"weights were kept (earlier runs): {before_ms} ms against plain {before_plain_ms} ms; max|d| vs plain "
+                  f"{err:.2e}; x {n_couplings} couplings a pass")
     fused_affine_coupling.launches = saved
     return rows
 
@@ -1730,7 +1801,7 @@ def run_eval(argv: list[str]) -> tuple[tuple[dict, dict, dict], float]:
     return captured["out"], time.perf_counter() - t0
 
 
-def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate: int = 256,
+def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate: int = 128,
               n_test: int = 200, m_samples: int = 10_000, resim_samples: int = 1000) -> None:
     """Phase 12: `generate` (filter, MC renderer), the flagship trained by the
     `train` CLI from its published config with no dataset (generated on the
@@ -1853,14 +1924,20 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
         opt = make_optimizer("Adam", lr=2e-4).init(params)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         yb, cb = torch.from_numpy(y_all[:B]).to(dev), [torch.from_numpy(conds_all[0][:B]).to(dev)]
-        trainer.train_step(model, [params], opt, yb, cb, [gen])
-        torch.cuda.synchronize()
-        reps = 5
-        t0 = time.perf_counter()
-        for _ in range(reps):
+        rates = {}
+        for on in (True, False):  # the encoder on K3a/K3b, then on the time loop
+            fused_lstm(on)
             trainer.train_step(model, [params], opt, yb, cb, [gen])
-        torch.cuda.synchronize()
-        rate = reps * B / (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            reps = 5
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                trainer.train_step(model, [params], opt, yb, cb, [gen])
+            torch.cuda.synchronize()
+            rates[on] = reps * B / (time.perf_counter() - t0)
+        rate = rates[False]
+        LSTM_TABLE[f"flagship, published config (dropout {cfg['model']['kwargs']['dropout']}), train step at {B}"] = (
+            rates[True], rates[False], "train samples/s")
         split = step_split(model, params, opt, yb, cb, gen)
         if fused_flow_train_fwd.launches or fused_flow_train_bwd.launches:
             fail("the published-dropout training steps launched the training kernels")
@@ -1882,6 +1959,13 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
         with K1Recorder() as k1:
             (report, figs, stages), t_eval = run_eval(argv)
         launches = k1.summary()
+        # the same eval with the encoder on K3a/K3b, then on the time loop again (timed only)
+        again = {}
+        for on in (True, False):
+            fused_lstm(on)
+            again[on] = run_eval(argv[:6] + [os.path.join(tmp, f"report_{on}")] + argv[7:])[1]
+        LSTM_TABLE[f"flagship eval at its defaults ({n_test} points, M {m_samples})"] = (
+            again[True], min(t_eval, again[False]), "s")
         rank_batches = -(-n_test // 100)
         expected = {("inverse", "wgmma", min(100, n_test) * 1000): rank_batches * -(-m_samples // 1000),
                     ("inverse", "wgmma", min(100, n_test) * 128): rank_batches * 4,
@@ -1927,6 +2011,11 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
             x = z.reshape(-1, 19).contiguous()
             y_k = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=cond_b.shape[0]).reshape(z.shape)
             y_p = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=cond_b.shape[0]).reshape(z.shape)
+            # the truth K1 is held to: the plain version in float64 on the same rows, weights,
+            # projections and z (cast on the card); the float32 plain version's own distance beside it
+            y_64 = fused_flow_reference(x.double(), h_proj.double(), **{k: v.double() for k, v in kargs.items()},
+                                        inverse=True, n_cond=cond_b.shape[0]).reshape(z.shape)
+            err_64, err_p64 = (y_k - y_64).abs().max().item(), (y_p - y_64).abs().max().item()
             torch.cuda.synchronize()
             k_ms = median(cuda_ms(lambda: fused_flow(x, h_proj, **kargs, inverse=True, n_cond=cond_b.shape[0]), reps=3))
             p_ms = median(cuda_ms(lambda: fused_flow_reference(x, h_proj, **kargs, inverse=True,
@@ -1936,7 +2025,7 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
             fused_flow.route_launches.update(saved[1])
         rk, rp = (y_k < y_b[None]).sum(dim=0), (y_p < y_b[None]).sum(dim=0)
         ties = ((y_p - y_b[None]).abs() < TIE).sum(dim=0)
-        rank_d, err = (rk - rp).abs(), (y_k - y_p).abs().max().item()
+        rank_d, err = (rk - rp).abs(), (y_k - y_p).abs().max().item()  # err: printed beside the bar
         flops, nbytes = flow_work(kargs, h_proj, x.shape[0], model.nested_sizes[0])
         bound = bound_ms((flops, nbytes), peaks, ARITH_3XTF32)[0]
         # resimulation on the card against the CPU: 64 draws x 64 points
@@ -1957,7 +2046,9 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
         ok_resim, worst_resim, n_finite = trajectories_agree(X_card, X_cpu)
         print(f"    held: test NLL on the card {report['test_nll']:.6f} vs the CPU plain path {nll_cpu:.6f}: |d| "
               f"{nll_d:.2e} (bar {nll_bar:.2e} = 1e-4 (mean sum|z| + 1) + 19e-8); rank batch {tuple(z.shape)} through "
-              f"K1 vs plain on the same z: max|dy| {err:.2e}, {int((rank_d > 0).sum())} of {rank_d.numel()} ranks "
+              f"K1 vs the plain version in float64 on the same z: max|dy| {err_64:.2e} (bar {KERNEL_TOL:g}; the "
+              f"float32 plain version's own distance from float64 {err_p64:.2e}, K1 vs float32 plain {err:.2e}); "
+              f"ranks vs the float32 plain version's: {int((rank_d > 0).sum())} of {rank_d.numel()} ranks "
               f"differ, by at most {int(rank_d.max())}, near-ties (|y_hat - y| < {TIE:g}) {int(ties.sum())}; "
               f"{X_card.shape[0] * X_card.shape[1]} resimulated trajectories vs the CPU: worst |d|/(1+max|row|) "
               f"{worst_resim:.2e} (bar {TRAJ_REL:g}), {n_finite} finite")
@@ -1969,9 +2060,9 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
             fail(f"resimulate gave shape {X_card_all.shape}")
         if not nll_d <= nll_bar:
             fail(f"test NLL on the card is {nll_d:.3e} from the CPU plain path's (bar {nll_bar:.3e})")
-        if not err <= KERNEL_TOL or bool((rank_d > ties).any()):
-            fail(f"the rank batch through K1 disagrees with the plain version: max|dy| {err:.3e}, ranks beyond "
-                 f"their near-ties at {int((rank_d > ties).sum())} places")
+        if not err_64 <= KERNEL_TOL or bool((rank_d > ties).any()):
+            fail(f"the rank batch through K1 disagrees with the float64 plain version: max|dy| {err_64:.3e}, ranks "
+                 f"beyond their near-ties at {int((rank_d > ties).sum())} places")
         if not ok_resim:
             fail(f"resimulation on the card disagrees with the CPU: {worst_resim:.3e} > {TRAJ_REL:g}")
 
@@ -2409,7 +2500,7 @@ def model_zoo(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> di
 VIDEO_CONFIG = "{{BCNF_ROOT}}/configs/runs/videos_CNN_LSTM_large.yaml"
 VIDEO_PARAMS = 67_787_515
 CALIB2_CONFIG = "{{BCNF_ROOT}}/configs/runs/trajectory_LSTM_noisy_calib2.yaml"
-ONLINE_STEPS = 24  # "a few dozen" online steps at the published batch 64
+ONLINE_STEPS = 16  # online steps at the published batch 64
 
 
 def video_counts() -> dict:
@@ -2675,13 +2766,19 @@ def video_online(cfg: dict, dev, tmp: str) -> tuple[dict, str]:
         (0.5 * torch.sum(z**2, dim=1) - ld).mean().backward()
         opt.step()
 
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
+    video_rates = {}
+    for on in (True, False):  # K3a/K3b, then the time loop
+        fused_lstm(on)
         step()
-    torch.cuda.synchronize()
-    rate = 5 * B / (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        video_rates[on] = 5 * B / (time.perf_counter() - t0)
+    fused_lstm(True)
+    rate = video_rates[True]
+    LSTM_TABLE[f"videos_CNN_LSTM_large, online step at {B}"] = (video_rates[True], video_rates[False], "videos/s")
     torch.cuda.reset_peak_memory_stats()
     device_profile(step, f"one online video step at batch {B}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2976,6 +3073,44 @@ def _hold_one_pass(what: str, one, three, plain_one, plain_f32) -> tuple[float, 
     return e1, e13, e3
 
 
+def one_pass_wgmma_parts(x, kargs: dict, h_proj, n_cond: int, ms: float, work: tuple[float, float], dev) -> None:
+    """Phase 15 (a): the one-pass `wgmma` inverse's parts alone, uncounted
+    launches at the sampling shape: its products on stale weight stages,
+    the weights' stream without the products (GB read from L2: each stage
+    once a cluster, which multicasts it to its blocks), both, and neither
+    (the rest of the kernel with the ring's hand-offs); its layout (blocks,
+    clusters, resident clusters, waves)."""
+    import torch
+
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops._build import load_library
+
+    staged, args = fk.prepare_weights(kargs["wm"], passes=1), dict(kargs, h_proj=h_proj)
+    part_ms = {name: median(cuda_ms(lambda: fk._launch_flow(x, args, inverse=True, n_cond=n_cond, mode=fk.MODE_TF32,
+                                                             wstages=staged, parts=parts), reps=3))
+               for name, parts in (("both", fk.WG_PRODUCTS | fk.WG_COPIES), ("products", fk.WG_PRODUCTS),
+                                   ("stream", fk.WG_COPIES), ("neither", 0))}
+    stages, cluster = fk.wgmma_ring(fk.ROUTE_WGMMA_TF32)
+    blocks = -(-x.shape[0] // 64)
+    clusters = -(-blocks // cluster)
+    stream_gb = clusters * 4 * int(staged.numel()) / 1e9
+    Hp, size, d_a = h_proj.shape[-1], x.shape[1], kargs["w1y"].shape[1]
+    lib = load_library(fk.ROUTE_LIBRARY[fk.ROUTE_WGMMA_TF32])
+    per_sm = lib.bcnf_flow_wgmma_occupancy(Hp, size, d_a)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = lib.bcnf_flow_wgmma_clusters(Hp, size, d_a)
+    if per_sm < 1 or resident < 1:
+        fail(f"the one-pass wgmma inverse fits {per_sm} block(s) on an SM, {resident} clusters on the card")
+    print(f"    one-pass wgmma inverse parts (CUDA events, median of 3, ms; {stages}-stage ring, clusters of "
+          f"{cluster}): as built {part_ms['both']:.2f} (timed above: {ms:.2f}); its products alone (stale stages) "
+          f"{part_ms['products']:.2f} ({work[0] / part_ms['products'] / 1e9:.1f} TFLOP/s); the hidden weights' "
+          f"stream alone {part_ms['stream']:.2f} ({stream_gb:.0f} GB of hi stages from L2 -> "
+          f"{stream_gb / part_ms['stream']:.2f} TB/s); neither (the FMA layers, the epilogues and the ring's "
+          f"hand-offs) {part_ms['neither']:.2f}; layout: {blocks} blocks of 64 rows in {clusters} clusters, "
+          f"{resident} clusters resident at once on {sms} SMs ({per_sm} block(s) an SM): {clusters / resident:.2f} "
+          f"waves")
+
+
 def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float]) -> tuple[list[dict], dict]:
     """Phase 15 (a): K1 (the inverse on `wgmma` and on the row tiles, the
     forward), K2a, K2b and K4 in one TF32 pass at the flagship's widths and
@@ -3041,6 +3176,8 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
         if not rows_inverse:
             rows.append(row)
             three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
+        if route == fk.ROUTE_WGMMA_TF32:
+            one_pass_wgmma_parts(x, ka, hp, n, row["ms"], work, dev)
     with torch.no_grad():
         y1 = fk.fused_flow(z, h_proj, **kargs, inverse=True, n_cond=N_COND, mode=fk.MODE_TF32)
         z1, _ = fk.fused_flow(y1, h_proj, **kargs, inverse=False, n_cond=N_COND, mode=fk.MODE_TF32)
@@ -3125,9 +3262,10 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
             rows.append(row)
             three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
             print(f"    K4 {direction} rows {x.shape[0]}: one pass {row['ms']:.3f} ms, 3xTF32 "
-                  f"{three_ms[row['name']]:.3f} ms; bound {row['bound_ms']:.3f} ms (3xTF32 "
-                  f"{bound_ms(work, peaks, ARITH_3XTF32)[0]:.3f}); plain one pass {row['plain_ms']:.3f} ms; max|d| vs "
-                  f"plain one pass {errs[0]:.2e}, vs 3xTF32 {errs[1]:.2e}")
+                  f"{three_ms[row['name']]:.3f} ms (earlier runs, its weights prepared at every launch: 3xTF32 "
+                  f"{K4_EARLIER_MS[direction][0]} ms, plain {K4_EARLIER_MS[direction][1]} ms); bound "
+                  f"{row['bound_ms']:.3f} ms (3xTF32 {bound_ms(work, peaks, ARITH_3XTF32)[0]:.3f}); plain one pass "
+                  f"{row['plain_ms']:.3f} ms; max|d| vs plain one pass {errs[0]:.2e}, vs 3xTF32 {errs[1]:.2e}")
     return rows, three_ms
 
 
@@ -3231,6 +3369,22 @@ def precision_path(model, params, rng, dev, build_dir: str, peaks: tuple[float, 
                  f"{reports[None]['test_nll']!r}")
         z = torch.from_numpy(rng.normal(size=(M_DRAWS, N_COND, model.size)).astype(np.float32)).to(dev)
         traj = torch.from_numpy(rng.normal(size=(N_COND, 30, 3)).astype(np.float32)).to(dev)
+        # posterior sampling, 10,000 x 8, at float32 and at "default" (host clock, after a warm-up each)
+        rates = {}
+        try:
+            for precision in ("highest", "default"):
+                model.precision = precision
+                with torch.no_grad():
+                    model.sample(params, torch.Generator().manual_seed(SEED), 16, traj, device=dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.sample(params, torch.Generator().manual_seed(SEED), M_DRAWS, traj, device=dev)
+                    torch.cuda.synchronize()
+                rates[precision] = M_DRAWS * N_COND / (time.perf_counter() - t0)
+        finally:
+            model.precision = "highest"
+        print(f"    sample {M_DRAWS} x {N_COND}: {rates['highest']:.0f} samples/s at float32 (3xTF32 K1), "
+              f"{rates['default']:.0f} at precision 'default' (one-pass K1)")
         k4 = fused_affine_coupling.mode_launches
         model.use_pallas_coupling, model.precision = True, "default"
         try:
@@ -3655,6 +3809,106 @@ def parallel_path(rng, dev, build_dir: str) -> dict:
     print(f"    phase 16 took {time.perf_counter() - t_start:.1f} s; the sharded paths' launches ((a) Trainer.train, "
           f"(c), (d)): {dp_launches}")
     return dp_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the policies set from the card's numbers (the fused LSTM's
+# default, the training kernels' batch floor)
+# ---------------------------------------------------------------------------
+
+# the kernels lose a case of the fused LSTM's table past the host-bound spread
+# (phase 9's rates move by up to 2x between calls; within one call less)
+LSTM_LOSS = 0.75
+FLOOR_BATCHES = (32, 64, 128, 256)
+
+
+def train_floor_sweep(rng, dev) -> None:
+    """Phase 17 (b): the flagship's dropout-0 training step at 32, 64, 128
+    and 256 rows with the training kernels (K2a/K2b) and without, forced by
+    BCNF_FUSED_TRAIN_MIN_BATCH, in turns (kernels, plain, kernels, plain;
+    the better of each side's two rates); the least batch from which the
+    kernels win at every size measured, beside the model's floor."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_fwd
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+
+    cfg = _flagship_train_config(FLOOR_BATCHES[-1], 1)
+    model = CondRealNVP.from_config(cfg)
+    n = 2 * FLOOR_BATCHES[-1]
+    y = rng.normal(size=(n, model.size)).astype(np.float32)
+    traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
+    trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED)
+    params0 = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    rates, reps = {}, 5
+    for B in FLOOR_BATCHES:
+        yb, cb = torch.from_numpy(y[:B]).to(dev), [torch.from_numpy(traj[:B]).to(dev)]
+        for kernels in (True, False, True, False):
+            os.environ["BCNF_FUSED_TRAIN_MIN_BATCH"] = "1" if kernels else str(1 << 30)
+            params = map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+            opt = make_optimizer("Adam", lr=2e-4).init(params)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            before = fused_flow_train_fwd.launches
+            trainer.train_step(model, [params], opt, yb, cb, [gen])
+            torch.cuda.synchronize()
+            if (fused_flow_train_fwd.launches - before == 1) != kernels:
+                fail(f"the training floor sweep at {B} rows: K2a launched {fused_flow_train_fwd.launches - before} "
+                     f"times (kernels forced {'on' if kernels else 'off'})")
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                trainer.train_step(model, [params], opt, yb, cb, [gen])
+            torch.cuda.synchronize()
+            rate = reps * B / (time.perf_counter() - t0)
+            rates[B, kernels] = max(rates.get((B, kernels), 0.0), rate)
+    del os.environ["BCNF_FUSED_TRAIN_MIN_BATCH"]
+    wins = [rates[B, True] > rates[B, False] for B in FLOOR_BATCHES]
+    floor = next((B for i, B in enumerate(FLOOR_BATCHES) if all(wins[i:])), None)
+    print("    (b) the training kernels' batch floor: the flagship's dropout-0 step, train samples/s with K2a/K2b "
+          "and with plain autograd (better of two turns each, 5 steps a turn): " + "; ".join(
+              f"{B} rows {rates[B, True]:.0f} vs {rates[B, False]:.0f} ({rates[B, True] / rates[B, False]:.2f}x)"
+              for B in FLOOR_BATCHES) +
+          f"; the least batch from which the kernels win at every size measured: {floor}; the model's "
+          f"fused_train_min_batch: {model.fused_train_min_batch}")
+
+
+def card_policies(model, params, rng, dev) -> None:
+    """Phase 17: (a) the fused LSTM's table (phases 9, 10, 12 and 14: each
+    published configuration with the encoder on K3a/K3b and on the time
+    loop, in this run) and the default it sets: with BCNF_FUSED_LSTM unset
+    a CUDA tensor takes K3a/K3b, a CPU tensor the time loop; fails where the
+    kernels lose a case past LSTM_LOSS; (b) the training floor sweep."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.ops.lstm import _fused_enabled
+
+    t0 = time.perf_counter()
+    os.environ.pop("BCNF_FUSED_LSTM", None)  # the port's default from here on
+    print("[17 the card's policies] (a) the fused LSTM (K3a/K3b) against the encoders' time loop, this run:")
+    losses = []
+    for case, (kernels, loop, unit) in LSTM_TABLE.items():
+        gain = loop / kernels if unit == "s" else kernels / loop
+        print(f"      {case}: {kernels:.4g} with K3a/K3b, {loop:.4g} with the time loop ({unit}): {gain:.2f}x")
+        if gain < LSTM_LOSS:
+            losses.append(f"{case} ({gain:.2f}x)")
+    traj = torch.from_numpy(rng.normal(size=(N_COND, 30, 3)).astype(np.float32))
+    with torch.no_grad():
+        zero_counts()
+        out = model.sample(params, torch.Generator().manual_seed(SEED), 1000, traj, device=dev)
+        torch.cuda.synchronize()
+        c = lstm_counts()
+    default = {"cuda": _fused_enabled(torch.device("cuda")), "cpu": _fused_enabled(torch.device("cpu"))}
+    print(f"    BCNF_FUSED_LSTM unset: the fused recurrence on a CUDA tensor {default['cuda']}, on a CPU tensor "
+          f"{default['cpu']}; the flagship's `sample` on the card launched K3a {c['K3a']}, K1 {c['K1']}")
+    if default != {"cuda": True, "cpu": False} or (c["K3a"], c["K1"]) != (4, 1) or not torch.isfinite(out).all():
+        fail(f"the fused LSTM's default: {default}, the flagship's sample launched K3a {c['K3a']}, K1 {c['K1']}")
+    if losses:
+        fail(f"the fused LSTM is the default on the card but loses {', '.join(losses)} past {LSTM_LOSS:g}x")
+    train_floor_sweep(rng, dev)
+    print(f"    phase 17 took {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

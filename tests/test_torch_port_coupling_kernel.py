@@ -215,3 +215,76 @@ def test_kernel_arguments_are_checked_before_a_launch(bad):
               "x_b": torch.zeros(9, 5).T, "dtype": torch.zeros(5, 10, dtype=torch.float64)}[bad]
     with pytest.raises((ValueError, TypeError)):
         _check_args({**args, ("x_a" if bad == "dtype" else bad): broken}, n_cond=2)
+
+
+def _weights(args):
+    return {k: args[k] for k in ("w1y", "b1", "wm", "bm", "wout", "bout")}
+
+
+def test_prepared_coupling_once_per_parameter_version(coupling):
+    """K4 prepares a coupling's weights once per parameter version: new views
+    of the same parameters reuse the entry; an in-place update (which bumps
+    `_version`) or a new tensor prepares them again; the prepared arguments
+    equal `coupling_flow_args`' uncached ones."""
+    layer, params, port, tp, y, h = coupling
+    tp = {"a": {"layers": [{k: v.clone() for k, v in p.items()} for p in tp["a"]["layers"]]}}
+    coupling_kernel._prepared.clear()
+    before = fused_affine_coupling.preparations
+    entry = coupling_kernel.prepared_coupling(**_weights(mlp_params_to_kernel_args(tp["a"], port.d_a)))
+    for _ in range(3):  # each call slices new views of the same memory, as a model's per-block loop does
+        assert coupling_kernel.prepared_coupling(**_weights(mlp_params_to_kernel_args(tp["a"], port.d_a))) is entry
+    assert fused_affine_coupling.preparations == before + 1
+    h_proj = port.cond_proj(tp, torch.from_numpy(h))["a"][0]
+    args = mlp_params_to_kernel_args(tp["a"], port.d_a)
+    uncached = coupling_kernel.coupling_flow_args(h_proj, **args)
+    cached = dict(entry["args"], h_proj=coupling_kernel._pad_projection(h_proj, entry["args"]["b1"].shape[-1]))
+    assert cached.keys() == uncached.keys()
+    for key, t in uncached.items():
+        assert torch.equal(cached[key], t), key
+
+    tp["a"]["layers"][-1]["w"].add_(1.0)  # in place, as an optimizer step: the entry is stale
+    fresh = coupling_kernel.prepared_coupling(**_weights(mlp_params_to_kernel_args(tp["a"], port.d_a)))
+    assert fresh is not entry and fused_affine_coupling.preparations == before + 2
+    assert torch.equal(fresh["args"]["wout"][0, : NESTED[-1]], tp["a"]["layers"][-1]["w"])
+    tp["a"]["layers"][1]["w"] = tp["a"]["layers"][1]["w"].clone()  # a new tensor of the same values
+    assert coupling_kernel.prepared_coupling(**_weights(mlp_params_to_kernel_args(tp["a"], port.d_a))) is not fresh
+    assert fused_affine_coupling.preparations == before + 3
+
+
+def test_prepared_couplings_keep_the_most_recent(coupling, monkeypatch):
+    """Past PREPARED_CAPACITY couplings the least recently used is dropped
+    (and prepared again when it returns); the rest stay."""
+    layer, params, port, tp, y, h = coupling
+    monkeypatch.setattr(coupling_kernel, "PREPARED_CAPACITY", 2)
+    coupling_kernel._prepared.clear()
+    copies = [{"a": {"layers": [{k: v.clone() for k, v in p.items()} for p in tp["a"]["layers"]]}} for _ in range(3)]
+    weights = [_weights(mlp_params_to_kernel_args(c["a"], port.d_a)) for c in copies]
+    before = fused_affine_coupling.preparations
+    for w in weights:
+        coupling_kernel.prepared_coupling(**w)
+    assert len(coupling_kernel._prepared) == 2 and fused_affine_coupling.preparations == before + 3
+    coupling_kernel.prepared_coupling(**weights[2])  # kept
+    assert fused_affine_coupling.preparations == before + 3
+    coupling_kernel.prepared_coupling(**weights[0])  # dropped: prepared again
+    assert fused_affine_coupling.preparations == before + 4
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_k1_at_one_step_on_prepared_weights_matches_jax(coupling, inverse):
+    """What the kernel computes on the prepared weights (K1 at one step, the
+    plain version) against JAX's `fused_affine_coupling` in interpret mode."""
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_reference
+
+    layer, params, port, tp, y, h = coupling
+    coupling_kernel._prepared.clear()
+    args = mlp_params_to_kernel_args(tp["a"], port.d_a)
+    entry = coupling_kernel.prepared_coupling(**_weights(args))
+    h_proj = port.cond_proj(tp, torch.from_numpy(h))["a"][0]
+    flow_args = dict(entry["args"], h_proj=coupling_kernel._pad_projection(h_proj, entry["args"]["b1"].shape[-1]))
+    out = fused_flow_reference(torch.from_numpy(y), **flow_args, inverse=inverse, n_cond=B)
+    ref = _jax_kernel(layer, params, y, h, inverse)
+    if inverse:
+        np.testing.assert_allclose(out[:, port.d_a:].numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    else:
+        np.testing.assert_allclose(out[0][:, port.d_a:].numpy(), np.asarray(ref[0]), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(out[1].numpy(), np.asarray(ref[1]), atol=1e-4, rtol=0)

@@ -167,6 +167,26 @@ def test_k3a_parts_patches_apply_to_the_kernel_source():
         assert "case 4: CALL(4)" in out and "case 5: CALL(5)" in out and "case 6: CALL(6)" not in out, name
 
 
+def test_wgmma_tf32_parts_patches_apply_to_the_kernel_source():
+    """tools/wgmma_tf32_parts.py's variants are text patches of
+    csrc/flow_wgmma.cu: each still finds its target once, and each changes
+    the source."""
+    import importlib.util
+    from pathlib import Path
+
+    from bcnf_tpu_torch.ops._build import SOURCES
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "wgmma_tf32_parts.py"
+    spec = importlib.util.spec_from_file_location("wgmma_tf32_parts", path)
+    parts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parts)
+    src = SOURCES["flow_wgmma_tf32"].read_text()
+    assert parts.PATCHES["as built"] == []
+    for name, pairs in parts.PATCHES.items():
+        for old, new in pairs:
+            assert src.count(old) == 1 and old != new, name
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -406,10 +426,11 @@ def test_two_shard_step_on_card_matches_the_unsharded_step(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,launched", [(256, 1), (255, 0)])
+@pytest.mark.parametrize("rows,launched", [(32, 1), (31, 0)])
 def test_training_forward_on_card_takes_the_kernels_from_the_batch_floor(cuda, rows, launched):
-    """Under autograd a CUDA batch of >= 256 rows goes through K2a/K2b; one
-    row fewer takes the plain path; both give the CPU's loss and grads."""
+    """Under autograd a CUDA batch of >= 32 rows (the floor the card's sweep
+    set) goes through K2a/K2b; one row fewer takes the plain path; both give
+    the CPU's loss and grads."""
     from bcnf_tpu_torch.bridge import map_tree, tree_leaves
     from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_bwd, fused_flow_train_fwd
 

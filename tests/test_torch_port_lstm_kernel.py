@@ -192,3 +192,32 @@ def test_gate_padding_keeps_each_gate_block_in_place():
         mask[:H, 32 * g: 32 * g + H] = True
     assert torch.count_nonzero(wp[~mask]) == 0
 
+
+
+@pytest.mark.parametrize("flag", [None, "0", "1"], ids=["unset", "0", "1"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fused_lstm_gate_by_variable_and_device(monkeypatch, flag, device):
+    """The gate reads the variable and the tensor's device alone: unset, a
+    CUDA tensor takes K3a/K3b (the card's measurement) and a CPU tensor the
+    time loop; ``0`` keeps the loop and ``1`` takes the kernels everywhere."""
+    if flag is None:
+        monkeypatch.delenv("BCNF_FUSED_LSTM", raising=False)
+    else:
+        monkeypatch.setenv("BCNF_FUSED_LSTM", flag)
+    expected = {None: device == "cuda", "0": False, "1": True}[flag]
+    assert lstm._fused_enabled(torch.device(device)) is expected
+
+
+def test_unset_gate_keeps_cpu_outputs_equal_to_jax_lstm(monkeypatch):
+    """With the variable unset a CPU tensor runs the time loop, as JAX's
+    default runs its scan: 2 layers, bidirectional, no launch."""
+    rng = np.random.default_rng(8)
+    params = {"layers": [{"fwd": _cell_params(rng, F), "bwd": _cell_params(rng, F)},
+                         {"fwd": _cell_params(rng, 2 * H), "bwd": _cell_params(rng, 2 * H)}]}
+    x = rng.normal(size=(B, T, F)).astype(np.float32)
+    monkeypatch.delenv("BCNF_FUSED_LSTM", raising=False)
+    ref = jax_lstm.lstm_apply(_jax(params), jnp.asarray(x), H)
+    before = lstm_direction_fwd.launches
+    ours = lstm.lstm_apply(params_from_numpy(params, "cpu"), torch.from_numpy(x), H)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    assert lstm_direction_fwd.launches == before

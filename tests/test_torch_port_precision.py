@@ -318,16 +318,59 @@ def test_prepare_weights_one_pass_stages_hold_hi_alone():
 def test_one_pass_routes_and_shared_memory(H):
     """The one-pass mode takes the routes of the default mode, built with one
     pass: the inverse on `wgmma` up to Hp 544, the row tiles above and for
-    the forward; its `wgmma` stages are half as large."""
-    from bcnf_tpu_torch.ops.flow_kernel import padded_width
+    the forward; its `wgmma` stages are half as large (hi alone), and its
+    ring holds twice as many in the same bytes (`wgmma_ring`)."""
+    from bcnf_tpu_torch.ops.flow_kernel import padded_width, wgmma_ring
 
     Hp = padded_width(H)
     assert flow_route(Hp, 19, 10, True, MODE_TF32) == (ROUTE_WGMMA_TF32 if Hp <= 544 else ROUTE_ROWS_TF32)
     assert flow_route(Hp, 19, 10, False, MODE_TF32) == ROUTE_ROWS_TF32
     if Hp <= 544:
-        assert kernel_smem(ROUTE_WGMMA, Hp, 19, 10) - kernel_smem(ROUTE_WGMMA_TF32, Hp, 19, 10) == 4 * 2 * 8 * Hp
+        (ring3, _), (ring1, _) = wgmma_ring(ROUTE_WGMMA), wgmma_ring(ROUTE_WGMMA_TF32)
+        assert ring1 == 2 * ring3
+        stages = 4 * 16 * Hp * ring3 - 4 * 8 * Hp * ring1  # the rings' bytes: equal
+        barriers = 16 * (ring3 - ring1)
+        assert kernel_smem(ROUTE_WGMMA, Hp, 19, 10) - kernel_smem(ROUTE_WGMMA_TF32, Hp, 19, 10) == stages + barriers
     with pytest.raises(ValueError, match="kernel mode"):
         flow_route(Hp, 19, 10, True, "x3")
+
+
+def _wg_smem(Hp: int, size: int, d_a: int, passes: int, stages: int) -> int:
+    """`wg_smem` of csrc/flow_wgmma.cu, term for term: the tile, the ring's
+    stages, the rows' state, the mix's output and [t | s'], then two 8-byte
+    barriers a stage."""
+    stage = (16 if passes == 3 else 8) * Hp
+    return 4 * (64 * (Hp + 4) + stages * stage + 64 * (2 * size + 2 * (size - d_a))) + 2 * stages * 8
+
+
+@pytest.mark.parametrize("route,passes", [(ROUTE_WGMMA, 3), (ROUTE_WGMMA_TF32, 1)])
+def test_wgmma_smem_is_the_sum_the_kernel_computes(route, passes):
+    """`kernel_smem` of a `wgmma` route is `wg_smem`'s sum with the ring's
+    stage count read from csrc/flow_wgmma.cu (`kWgStages` is defined from the
+    two constants `wgmma_ring` reads, and `wg_smem` and the kernel size the
+    ring by it), at every width the kernel is built for; past the block's
+    shared memory `flow_route` takes the row tiles, then no kernel."""
+    import re
+    from pathlib import Path
+
+    from bcnf_tpu_torch.ops.flow_kernel import KERNEL_TN, WGMMA_MAX_TN, kernel_limit, wgmma_ring
+
+    source = (Path(flow_kernel.__file__).parent / "csrc" / "flow_wgmma.cu").read_text()
+    assert re.search(r"constexpr int kWgStages = kPasses == 3 \? kWgRing3xTf32 : kWgRingTf32;", source)
+    body = source[source.index("size_t wg_smem("):]
+    assert "kWgStages) * stage" in body[: body.index("}")]
+    stages, cluster = wgmma_ring(route)
+    assert stages == kernel_limit("kWgRing3xTf32" if passes == 3 else "kWgRingTf32")
+    assert cluster == (1 if passes == 3 else kernel_limit("kWgClusterTf32"))
+    for tn in (t for t in KERNEL_TN if t <= WGMMA_MAX_TN):
+        for size, d_a in ((19, 9), (7, 3), (29, 15)):
+            assert kernel_smem(route, 32 * tn, size, d_a) == _wg_smem(32 * tn, size, d_a, passes, stages)
+    mode = MODE_3XTF32 if passes == 3 else MODE_TF32
+    fits = [size for size in range(2, 120) if kernel_smem(route, 544, size, size // 2) <= kernel_limit("kSmemLimit")]
+    last = max(fits)
+    assert flow_route(544, last, last // 2, True, mode) == route
+    assert flow_route(544, last + 1, (last + 1) // 2, True, mode) != route
+    assert flow_route(544, 200, 100, True, mode) is None
 
 
 def test_wrappers_take_the_mode_and_run_float32_on_the_cpu():

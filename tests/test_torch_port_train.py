@@ -306,13 +306,14 @@ class _CudaRows:
 
 def test_training_gate(monkeypatch):
     """`_use_fused_train` of the JAX package: closed for coupling dropout in
-    training, for a batch under the floor (256, or BCNF_FUSED_TRAIN_MIN_BATCH)
-    and for a CPU tensor; the plain autograd path runs there."""
+    training, for a batch under the floor (32, the card's sweep, or
+    BCNF_FUSED_TRAIN_MIN_BATCH) and for a CPU tensor; the plain autograd path
+    runs there."""
     _, tm = _models()
     _, tm_drop = _models(dropout=0.2)
-    assert tm.fused_train_min_batch == 256
-    assert tm._use_fused_train(True, _CudaRows(256))
-    assert not tm._use_fused_train(True, _CudaRows(255))
+    assert tm.fused_train_min_batch == 32
+    assert tm._use_fused_train(True, _CudaRows(32))
+    assert not tm._use_fused_train(True, _CudaRows(31))
     assert not tm._use_fused_train(True, torch.zeros(512, SIZE))  # a CPU tensor
     assert not tm_drop._use_fused_train(True, _CudaRows(512))
     assert tm_drop._use_fused_train(False, _CudaRows(512))  # dropout only matters in training
