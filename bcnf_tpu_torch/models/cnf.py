@@ -719,18 +719,20 @@ class CondRealNVP:
         return all(flow_route(Hp, self.size, d_a, inverse, mode) for inverse in (True, False))
 
     def _fused_train_takes(self) -> bool:
-        """Whether K2a and K2b take this model's shape: the hidden width
-        within the widest compiled one, K2b's weight-grad jobs and both rows
-        kernels' shared memory (`train_kernels_take`, the limits their
-        launchers check). Where they do not, the gate closes and the plain
-        autograd path trains, as JAX's `forward_fused_flow` returns None
+        """Whether K2a and K2b take this model's shape in its kernel mode: the
+        hidden width within the widest compiled one, and a K2b route for the
+        mode (`train_kernels_take`: the row tiles' weight-grad jobs and both
+        rows kernels' shared memory, or the one-pass `wgmma` route's, the
+        limits their launchers check). Where they do not, the gate closes
+        and the plain autograd path trains, as JAX's `forward_fused_flow` returns None
         for a layout its kernel does not take (`bcnf_tpu/ops/flow_kernel.py:692-696`)."""
         from bcnf_tpu_torch.ops.flow_kernel import KERNEL_TN, padded_width, train_kernels_take
 
         H = self.nested_sizes[0]
         if H > 32 * KERNEL_TN[-1]:
             return False
-        return train_kernels_take(padded_width(H), self.size, self.coupling.d_a, len(self.nested_sizes) - 1)
+        return train_kernels_take(padded_width(H), self.size, self.coupling.d_a, len(self.nested_sizes) - 1,
+                                  self.train_kernel_mode or MODE_3XTF32)
 
     def _use_fused_coupling(self, train: bool, x: torch.Tensor, *trees: Any) -> bool:
         """Per-coupling kernel gate (`bcnf_tpu/models/cnf.py:762-764`)."""

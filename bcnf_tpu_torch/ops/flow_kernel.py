@@ -22,7 +22,10 @@
   (`fwd_call`/`bwd_call` of `_make_fused_flow_train`): a
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`,
   the row-tile kernel with its step-input store) and whose backward is K2b
-  (`fused_flow_train_bwd`, `csrc/flow_train_kernel.cu`). Both run their
+  (`fused_flow_train_bwd`, on the route `train_bwd_route` gives: the row
+  tiles of `csrc/flow_train_kernel.cu`, or in the reduced mode at padded
+  widths up to 544 the `wgmma` route of `csrc/flow_train_wgmma.cu` on
+  weights `prepare_train_weights` lays out once a call). Both run their
   square hidden products on the tensor cores in 3xTF32 (`csrc/flow_rows.cuh`),
   or in one TF32 pass in the reduced mode.
 
@@ -78,13 +81,24 @@ ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
+# K2b's routes (`train_bwd_route`): the row tiles in 3xTF32 (`ROUTE_ROWS`) and
+# in one pass (`ROUTE_ROWS_TF32`), and the one-pass `wgmma` route
+# (`ROUTE_WGMMA_TF32`, csrc/flow_train_wgmma.cu); each route's library.
+TRAIN_BWD_LIBRARY = {ROUTE_ROWS: "flow_train_kernel", ROUTE_ROWS_TF32: "flow_train_kernel_tf32",
+                     ROUTE_WGMMA_TF32: "flow_train_wgmma_tf32"}
+ROUTE_TRAIN_BWD_WGMMA = "train_bwd_wgmma"  # its rows kernel, for `kernel_smem` (csrc/flow_train_wgmma.cu: tw_smem)
+TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 forces the one-pass row tiles
 # The constants of the kernels' sources that the host side reads, by the
 # source that defines each: the dynamic shared memory a block may use and
 # the weight-grad jobs one AtbJobs launch holds (K2b's nh + 3 a step), the
 # limits the launchers check; the `wgmma` inverse's weight ring by
-# arithmetic, and the blocks of a one-pass cluster (`wgmma_ring`).
+# arithmetic, and the blocks of a one-pass cluster (`wgmma_ring`); K2b's
+# `wgmma` route's rows a cluster, blocks a cluster and weight ring (stages of
+# kTwStageK rows).
 _SOURCE_CONSTANTS = {"kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh", "kWgRing3xTf32": "flow_wgmma.cu",
-                  "kWgRingTf32": "flow_wgmma.cu", "kWgClusterTf32": "flow_wgmma.cu"}
+                  "kWgRingTf32": "flow_wgmma.cu", "kWgClusterTf32": "flow_wgmma.cu",
+                  "kTwRows": "flow_train_wgmma.cu", "kTwCluster": "flow_train_wgmma.cu",
+                  "kTwRing": "flow_train_wgmma.cu", "kTwStageK": "flow_train_wgmma.cu"}
 
 
 @functools.cache
@@ -176,8 +190,13 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     """Bytes of shared memory a block of K1's kernel on `route` takes at this
     shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
     `launch`, `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`), and of K2b's
-    rows kernel (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`)."""
+    rows kernels (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`;
+    `ROUTE_TRAIN_BWD_WGMMA`: `csrc/flow_train_wgmma.cu`: `tw_smem`)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
+    if route == ROUTE_TRAIN_BWD_WGMMA:  # barriers, tile, ring, then x1, dx2, [t | s'], dout and x1_a in TF32,
+        rows, stage = kernel_limit("kTwRows"), kernel_limit("kTwStageK") * Hp // 2  # the exchanged halves, dld
+        state = rows * (2 * size + 2 * n_out + d_a + 2 * max(n_out, d_a) + 1)
+        return 4 * (16 + rows * (Hp + 4) + kernel_limit("kTwRing") * stage + state)
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):  # tile, the ring's stages of hi (and lo), x, x Q^T, [t | s'],
         stages, stage = wgmma_ring(route)[0], (16 if route == ROUTE_WGMMA else 8) * Hp  # 2 barriers a stage
         return 4 * (64 * (Hp + 4) + stages * stage + 64 * (2 * size + n_out)) + 16 * stages
@@ -218,18 +237,41 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
     return next((r for r in candidates if kernel_smem(r, Hp, size, d_a) <= kernel_limit("kSmemLimit")), None)
 
 
-def train_kernels_take(Hp: int, size: int, d_a: int, nh: int) -> bool:
-    """Whether K2a and K2b take this shape (in either mode): a width they
-    are compiled for, K2b's nh + 3 weight-grad jobs a step within one
-    launch's (`kAtbMaxJobs`), and both rows kernels' shared memory within a
-    block's (`kSmemLimit`); the checks of their launchers
-    (`csrc/flow_kernel.cu`, `csrc/flow_train_kernel.cu`), which return
-    cudaErrorInvalidValue past them."""
+def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF32) -> str | None:
+    """Which of K2b's kernels runs this call, by mode and shape: the one-pass
+    mode the `wgmma` route (`csrc/flow_train_wgmma.cu`) at the widths it
+    holds (`TRAIN_WGMMA_MAX_TN`) where its rows kernel takes the shape (its
+    shared memory, and n_out and d_a within what its weight ring stages), at
+    every batch (the card's sweep found the row tiles faster at none of 32,
+    64, 128, 256 and 4096 rows: PERF.md), else the one-pass row tiles; the
+    3xTF32 mode the row tiles (`csrc/flow_train_kernel.cu`). The row
+    tiles take nh + 3 weight-grad jobs a step within one launch's
+    (`kAtbMaxJobs`) and their rows kernel's shared memory within a block's
+    (`kSmemLimit`). None where no kernel takes the shape: the launchers
+    return cudaErrorInvalidValue past these limits."""
+    _check_mode(mode, TF32_MODES)
+    if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size or nh < 1:
+        return None
+    limit, ring = kernel_limit("kSmemLimit"), kernel_limit("kTwStageK")  # the wgmma route's narrow weights pass
+    if (mode == MODE_TF32 and Hp // 32 <= TRAIN_WGMMA_MAX_TN  # through its ring (csrc: tw_takes)
+            and 2 * (size - d_a) <= kernel_limit("kTwRing") * ring and d_a <= ring
+            and kernel_smem(ROUTE_TRAIN_BWD_WGMMA, Hp, size, d_a) <= limit):
+        return ROUTE_WGMMA_TF32
+    if nh + 3 <= kernel_limit("kAtbMaxJobs") and kernel_smem(ROUTE_TRAIN_BWD, Hp, size, d_a) <= limit:
+        return ROUTE_ROWS_TF32 if mode == MODE_TF32 else ROUTE_ROWS
+    return None
+
+
+def train_kernels_take(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF32) -> bool:
+    """Whether K2a and K2b take this shape in `mode`: a width they are
+    compiled for, K2a's row tiles' shared memory within a block's
+    (`kSmemLimit`, `csrc/flow_kernel.cu`), and a K2b route
+    (`train_bwd_route`, which reads its kernels' limits from their sources)."""
     if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size or nh < 1:
         return False
-    if nh + 3 > kernel_limit("kAtbMaxJobs"):
+    if kernel_smem(ROUTE_ROWS, Hp, size, d_a) > kernel_limit("kSmemLimit"):
         return False
-    return all(kernel_smem(r, Hp, size, d_a) <= kernel_limit("kSmemLimit") for r in (ROUTE_ROWS, ROUTE_TRAIN_BWD))
+    return train_bwd_route(Hp, size, d_a, nh, mode) is not None
 
 
 def _round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -258,6 +300,54 @@ def prepare_weights(wm: torch.Tensor, passes: int = 3) -> torch.Tensor:
     wt = wm.transpose(-1, -2).reshape(S, nh, g, 8, g, 2, 4).permute(0, 1, 4, 2, 5, 3, 6).contiguous()
     hi = _round_tf32(wt)
     return torch.stack([hi, wt - hi] if passes == 3 else [hi], dim=3)
+
+
+def prepare_train_weights(wm: torch.Tensor) -> torch.Tensor:
+    """`prepare_train_weights_reference`'s layout of `wm` on its device: on a
+    CUDA tensor one launch of `csrc/flow_train_wgmma.cu`'s `prepare_kernel`
+    (counted in `launches`), or raises; on a CPU tensor the plain version."""
+    S, nh, Hp, _ = wm.shape
+    if Hp % 32:
+        raise ValueError(f"prepare_train_weights: the padded width {Hp} is not a multiple of 32")
+    if wm.device.type == "cpu":
+        return prepare_train_weights_reference(wm)
+    if wm.device.type != "cuda" or wm.dtype != torch.float32:
+        raise ValueError(f"prepare_train_weights takes float32 CPU or CUDA tensors, not {wm.dtype} on {wm.device}")
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WGMMA_TF32])
+    w = wm.contiguous()
+    out = torch.empty((S, nh, 2, 2, Hp // 8, Hp // 16, 2, 8, 4), dtype=wm.dtype, device=wm.device)
+    with torch.cuda.device(wm.device):
+        err = lib.bcnf_prepare_train_weights(*_ptrs(w, out), S * nh, Hp, _stream())
+    _raise_on(err, lib, "prepare_train_weights")
+    prepare_train_weights.launches += 1
+    return out
+
+
+prepare_train_weights.launches = 0  # type: ignore[attr-defined]
+
+
+def prepare_train_weights_reference(wm: torch.Tensor) -> torch.Tensor:
+    """The stacked, padded hidden weights `wm` (S, nh, Hp, Hp), stored (in,
+    out), as K2b's `wgmma` route reads them (`csrc/flow_train_wgmma.cu`), on
+    `wm`'s device: rounded to TF32 (`tf32_rna`) and laid out for each
+    product's B operand, K-major: the recompute's ``h Wm`` reads Wm^T
+    (direction 0), the backward's ``da Wm^T`` reads Wm as stored (direction
+    1). Each is split by output column between the two blocks of a cluster
+    (rank r owns columns r Hp/2 ..), and each rank's part is laid out k-group
+    by k-group (8 input rows), in `wgmma`'s core-matrix order (8 outputs x 4
+    inputs, 128 contiguous bytes; the two along the inputs side by side), so
+    that one bulk copy moves a ring stage of 16 rows. Shape (S, nh, 2
+    directions, 2 ranks, Hp/8 k-groups, Hp/16 output groups, 2 input halves,
+    8 outputs, 4 inputs)."""
+    S, nh, Hp, _ = wm.shape
+    w = _round_tf32(wm.contiguous())  # elementwise, so before the layout: one pass over Wm
+    out = torch.empty((S, nh, 2, 2, Hp // 8, Hp // 16, 2, 8, 4), dtype=wm.dtype, device=wm.device)
+    # B(k, n) at [n // (Hp/2)][k // 8][(n % (Hp/2)) // 8][(k % 8) // 4][n % 8][k % 4], from T[n, k] = B(k, n)
+    for d, t in enumerate((w.transpose(-1, -2), w)):  # T: Wm^T (the recompute's h Wm), Wm (the backward's da Wm^T)
+        out[:, :, d] = t.reshape(S, nh, 2, Hp // 16, 8, Hp // 8, 2, 4).permute(0, 1, 2, 5, 3, 6, 4, 7)
+    return out
 
 
 def fused_flow_reference(
@@ -659,11 +749,14 @@ def fused_flow_train_bwd(
     *, mode: str = MODE_3XTF32,
 ) -> tuple[torch.Tensor, ...]:
     """K2b: every grad of K2a's outputs, in one call of the kernel's entry
-    point (which enqueues a few launches per step, `csrc/flow_train_kernel.cu`).
-    Returns `(dx, dh_proj, dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout,
-    dbout)`. A CPU tensor takes `fused_flow_train_backward_reference` (float32
-    in every mode); a CUDA tensor launches the kernel built for `mode`, or
-    raises. Counts its calls in `launches`, and by mode in `mode_launches`."""
+    point (which enqueues a few launches per step). Returns `(dx, dh_proj,
+    dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout, dbout)`. A CPU tensor
+    takes `fused_flow_train_backward_reference` (float32 in every mode); a
+    CUDA tensor launches the kernels of `train_bwd_route` for `mode` (the row
+    tiles of `csrc/flow_train_kernel.cu`, or in one pass at Hp <= 544 the
+    `wgmma` route of `csrc/flow_train_wgmma.cu`), or raises. Counts its calls
+    in `launches`, by mode in `mode_launches` and by route in
+    `route_launches`."""
     _check_mode(mode, TF32_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
@@ -685,38 +778,65 @@ def fused_flow_train_bwd(
              torch.empty_like(bm), torch.empty_like(wout), torch.empty_like(bout))
     if B == 0:
         return tuple(g.zero_() for g in grads)
-    _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM, mode)
+    route = _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM, mode)
     fused_flow_train_bwd.launches += 1
     fused_flow_train_bwd.mode_launches[mode] += 1
+    fused_flow_train_bwd.route_launches[route] += 1
     return grads
 
 
 def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
                      args: dict[str, torch.Tensor], grads: tuple[torch.Tensor, ...], parts: int,
-                     mode: str = MODE_3XTF32) -> None:
-    """Launch K2b's parts on checked CUDA tensors into `grads`, uncounted:
-    per step the rows kernel (`BWD_ROWS`, with the copy of dz that starts
-    the carried dx) and the weight-grad pass (`BWD_WEIGHT_GRADS`), then the
-    ActNorm grads (`BWD_ACTNORM`). The wrapper runs all three; chip_smoke.py
-    times each alone."""
+                     mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None) -> str:
+    """Launch K2b's parts on checked CUDA tensors into `grads`, uncounted, on
+    the route `train_bwd_route` gives; returns the route. Per step the rows
+    kernels (`BWD_ROWS`, with the copy of dz that starts the carried dx) and
+    the weight-grad pass (`BWD_WEIGHT_GRADS`), then the rest (`BWD_ACTNORM`:
+    the ActNorm grads; on the `wgmma` route also dWout, dbout, dW1y and db1,
+    summed from the rows kernels' partials). The wrapper runs all three;
+    chip_smoke.py times each alone. The `wgmma` route reads the hidden
+    weights as `prepare_train_weights` lays them out: pass them as
+    `wstages`, or they are prepared here."""
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library(_train_library("flow_train_kernel", mode))
     S, B, size = bound.shape
     Hp = h_proj.shape[-1]
     d_a, nh = args["w1y"].shape[1], args["wm"].shape[1]
-    scratch = torch.empty((lib.bcnf_flow_train_bwd_scratch(B, S, size, d_a, nh, Hp),),
-                          dtype=torch.float32, device=dz.device)
+    route = train_bwd_route(Hp, size, d_a, nh, mode)
+    if route is None:
+        raise ValueError(f"fused_flow_train_bwd: no kernel takes size {size}, d_a {d_a}, {nh} hidden layers at "
+                         f"hidden width {Hp} ({mode})")
+    lib = load_library(TRAIN_BWD_LIBRARY[route])
+    tensors = list(args.values())
+    if route == ROUTE_WGMMA_TF32:
+        tensors[5] = prepare_train_weights(args["wm"]) if wstages is None else wstages
+        n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_wgmma
+    else:
+        n_scratch, entry = lib.bcnf_flow_train_bwd_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dz.device)
     with torch.cuda.device(dz.device):
-        err = lib.bcnf_flow_train_bwd(
-            *_ptrs(bound, h_proj, dz, dld, *args.values(), *grads, scratch),
-            B, S, size, d_a, nh, Hp, parts, _stream(),
-        )
-    _raise_on(err, lib, "fused_flow_train_bwd")
+        err = entry(*_ptrs(bound, h_proj, dz, dld, *tensors, *grads, scratch), B, S, size, d_a, nh, Hp, parts,
+                    _stream())
+    _raise_on(err, lib, f"fused_flow_train_bwd ({route})")
+    return route
+
+
+def train_bwd_wgmma_layout(Hp: int, size: int, d_a: int, nh: int, B: int) -> tuple[int, int, int, int]:
+    """K2b's `wgmma` route at this shape on the current card (the occupancy
+    calculator's numbers, `csrc/flow_train_wgmma.cu`): the rows kernel's
+    blocks, its clusters resident at once on the card, the weight-grad
+    pass's blocks a step, and its blocks resident on an SM."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WGMMA_TF32])
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.bcnf_flow_train_wgmma_layout(Hp, size, d_a, nh, B, out), lib, "train_bwd_wgmma_layout")
+    return tuple(out)
 
 
 fused_flow_train_bwd.launches = 0  # type: ignore[attr-defined]
 fused_flow_train_bwd.mode_launches = collections.Counter()  # type: ignore[attr-defined]
+fused_flow_train_bwd.route_launches = collections.Counter()  # type: ignore[attr-defined]
 
 
 class _FusedFlowTrain(torch.autograd.Function):

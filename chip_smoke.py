@@ -124,17 +124,27 @@ Phases, one line each; any failure exits non-zero and prints no result:
    kernel (JAX's reduced-mode bar, 5e-3) and shown not to be the 3xTF32
    kernel, their CUDA-event times beside 3xTF32's, the one-pass `wgmma`
    inverse's parts (products alone, stream alone, both, neither) and layout,
-   the one-pass round trip beside the JAX CLI's TPU figure; then the
-   precision path, counts zeroed
+   the one-pass round trip beside the JAX CLI's TPU figure; K2b's `wgmma`
+   route (csrc/flow_train_wgmma.cu) and the one-pass row tiles forced on the
+   same inputs, each with its time, parts (rows, weight grads, the rest),
+   bound, rate, blocks and waves, the `wgmma` route's weight preparation
+   against its plain version (to the bit) and its ptxas lines; fails where
+   the route is past the bar, further from the plain one-pass version than
+   twice the row tiles, not equal to the bit between two calls, or not
+   faster than the row tiles; then the precision path, counts zeroed
    before it: (b) `sample --precision BF16_BF16_F32_X3` and `eval` at its
    defaults in float32 and with `--precision default` on 200 generated
    points (the test NLL equal to the bit; stage seconds), the per-coupling
    inverse (K4) at "default"; (c) `Trainer.train` at `training.precision:
    default` on the flagship at batch 4096 with dropout 0 (K2a/K2b in one
-   pass) and on the published config at 256 (plain autograd in TF32), train
-   samples/s and losses beside float32; (d) `hpo` on 512 trajectories
-   generated on the card, 3 calls x 2 folds x 2 epochs, then a re-run that
-   resumes. Fails if a one-pass kernel was not launched on the path.
+   pass; K2b on `wgmma`, then with the row tiles forced: samples/s, the
+   losses within the one-pass bar) and on the published config at 256
+   (plain autograd in TF32), train samples/s and losses beside float32; the
+   one-pass training floor sweep (the flagship's dropout-0 step at 32-256
+   rows with K2b on `wgmma`, on the row tiles and on plain autograd); (d)
+   `hpo` on 512 trajectories generated on the card, 3 calls x 2 folds x 2
+   epochs, then a re-run that resumes. Fails if a one-pass kernel (K2b by
+   route, its weight preparation) was not launched on the path.
 
 16. data parallelism (`parallel/mesh.py`) on the one card: (a) the
    flagship (dropout 0, BCNF_FUSED_LSTM=1) on a mesh of two shards placed on
@@ -178,6 +188,7 @@ line is {"ok": true, "device": {...}}. Imports nothing of JAX or of
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -3036,24 +3047,160 @@ JAX_X3_ROUND_TRIP = 1.82e-3
 
 def one_pass_counts() -> dict:
     """Launches of the one-pass kernels: K1 by route (the flagship's inverse
-    on `wgmma`, its forward on the row tiles), K2a and K2b by mode."""
+    on `wgmma`, its forward on the row tiles), K2a by mode, K2b by route (the
+    flagship's on `wgmma`; the row tiles where phase 15 (c) forces them)."""
     from bcnf_tpu_torch.ops.flow_kernel import (
         MODE_TF32, ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32, fused_flow, fused_flow_train_bwd, fused_flow_train_fwd,
+        prepare_train_weights,
     )
 
     return {"K1 inverse": fused_flow.route_launches[ROUTE_WGMMA_TF32],
             "K1 forward": fused_flow.route_launches[ROUTE_ROWS_TF32],
-            "K2a": fused_flow_train_fwd.mode_launches[MODE_TF32], "K2b": fused_flow_train_bwd.mode_launches[MODE_TF32]}
+            "K2a": fused_flow_train_fwd.mode_launches[MODE_TF32],
+            "K2b": fused_flow_train_bwd.route_launches[ROUTE_WGMMA_TF32],
+            "K2b row tiles": fused_flow_train_bwd.route_launches[ROUTE_ROWS_TF32],
+            "K2b prep": prepare_train_weights.launches}
 
 
 def zero_all_counts() -> None:
     from bcnf_tpu_torch.ops.coupling_kernel import fused_affine_coupling
-    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_bwd, fused_flow_train_fwd
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_bwd, fused_flow_train_fwd, prepare_train_weights
 
     zero_counts()
-    fused_affine_coupling.launches = 0
+    fused_affine_coupling.launches = prepare_train_weights.launches = 0
     for fn in (fused_flow_train_fwd, fused_flow_train_bwd, fused_affine_coupling):
         fn.mode_launches.clear()
+    fused_flow_train_bwd.route_launches.clear()
+
+
+@contextlib.contextmanager
+def row_tiles_forced():
+    """K2b's one-pass row tiles in place of its `wgmma` route, by the module
+    constant that forces them (`TRAIN_WGMMA_MAX_TN = 0`)."""
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    max_tn = fk.TRAIN_WGMMA_MAX_TN
+    fk.TRAIN_WGMMA_MAX_TN = 0
+    try:
+        yield
+    finally:
+        fk.TRAIN_WGMMA_MAX_TN = max_tn
+
+
+def _worst_rel(grads, ref) -> float:
+    """The largest max |d| over the grads, each over max(1, max |ref|)."""
+    return max((a - b).abs().max().item() / max(1.0, b.abs().max().item()) for a, b in zip(grads, ref))
+
+
+def one_pass_k2b(bound, hpt, dz, dld, args: list, g3, work: tuple[float, float], peaks, dev) -> list[dict]:
+    """Phase 15 (a), K2b in one pass at the flagship's batch-4096 inputs: its
+    `wgmma` route (csrc/flow_train_wgmma.cu) and the one-pass row tiles
+    forced on the same inputs, each held against the plain one-pass version
+    (every grad within REDUCED_TOL max(1, max |plain|)) and the 3xTF32 kernel
+    `g3`; the `wgmma` route no further from the plain one-pass version than
+    twice the row tiles' own distance, and two of its calls equal to the bit.
+    Each route's time (median of 5), its parts (rows, weight grads, the rest,
+    on weights prepared once, and the weight preparation alone), its bound
+    and rate, its blocks and waves; the new kernels' ptxas lines. Returns the
+    two kernel rows (launches filled in later)."""
+    import torch
+
+    from bcnf_tpu_torch.ops import _build
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    named = dict(zip(TRAIN_ARGS, args))
+    B, Hp = dz.shape[0], hpt.shape[-1]
+    size, d_a, nh = dz.shape[1], named["w1y"].shape[1], named["wm"].shape[1]
+    with torch.no_grad():
+        plain = fk.fused_flow_train_backward_reference(bound, hpt, dz, dld, *args, mm=matmul_tf32)
+        wg = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=fk.MODE_TF32)
+        wg2 = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=fk.MODE_TF32)
+        with row_tiles_forced():
+            tiles = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=fk.MODE_TF32)
+        torch.cuda.synchronize()
+    route = fk.train_bwd_route(Hp, size, d_a, nh, fk.MODE_TF32)
+    if route != fk.ROUTE_WGMMA_TF32:
+        fail(f"K2b one pass at the flagship's shape takes route {route}, not {fk.ROUTE_WGMMA_TF32}")
+    faults = []
+    for what, got in (("wgmma", wg), ("row tiles", tiles)):
+        for name, a, p, c in zip(GRAD_NAMES, got, plain, g3):
+            bar = REDUCED_TOL * max(1.0, p.abs().max().item())
+            if not ((a - p).abs().max().item() <= bar and (a - c).abs().max().item() <= bar):
+                faults.append(f"{what} {name} {(a - p).abs().max().item():.3e}/{(a - c).abs().max().item():.3e} "
+                              f"past {bar:.3g}")
+    if faults:
+        fail("K2b one pass (vs plain one pass / vs 3xTF32): " + "; ".join(faults))
+    if not all(torch.equal(a, b) for a, b in zip(wg, wg2)):
+        fail("K2b one pass on wgmma: two calls on the same inputs differ")
+    dist = {"wgmma": _worst_rel(wg, plain), "row tiles": _worst_rel(tiles, plain)}
+    if not dist["wgmma"] <= 2 * dist["row tiles"]:
+        fail(f"K2b one pass on wgmma is {dist['wgmma']:.3e} from the plain one-pass version, past twice the row "
+             f"tiles' {dist['row tiles']:.3e} (largest max|d| / max(1, max|plain|) over the grads)")
+    kernel = "?"
+    for line in _build.build_logs.get(fk.TRAIN_BWD_LIBRARY[fk.ROUTE_WGMMA_TF32], "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = kernel_label(line)
+        elif ("registers" in line or "spill" in line) and "17>" in kernel:
+            print(f"    ptxas K2b wgmma route {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
+
+    wstages = fk.prepare_train_weights(named["wm"])
+    wstages_plain = fk.prepare_train_weights_reference(named["wm"])
+    torch.cuda.synchronize()
+    if not torch.equal(wstages.view(torch.int32), wstages_plain.view(torch.int32)):
+        fail("K2b's weight preparation on the card differs from its plain version")
+    prep = median(cuda_ms(lambda: fk.prepare_train_weights(named["wm"]), reps=5))
+    w_bytes = 4.0 * named["wm"].numel()
+    prep_row = kernel_row("K2b[tf32] prepare_train_weights", "bcnf_tpu_torch/ops/csrc/flow_train_wgmma.cu",
+                          "bcnf_tpu/ops/flow_kernel.py:600", 0, 0.0, cuda_ms(lambda: fk.prepare_train_weights(
+                              named["wm"]), reps=5), cuda_ms(lambda: fk.prepare_train_weights_reference(named["wm"]),
+                                                             reps=3), (0.0, 3 * w_bytes), peaks, None, ARITH_TF32)
+    print(f"    K2b's weight preparation (prepare_kernel, both layouts in TF32; equal to its plain version to the bit): "
+          f"{prep_row['ms']:.3f} ms, bound {prep_row['bound_ms']:.3f} ms ({prep_row['bound_by']}: "
+          f"{3 * w_bytes / 1e6:.0f} MB), plain {prep_row['plain_ms']:.3f} ms")
+    p_times = cuda_ms(lambda: fk.fused_flow_train_backward_reference(bound, hpt, dz, dld, *args, mm=matmul_tf32),
+                      reps=3)
+    all_parts = fk.BWD_ROWS | fk.BWD_WEIGHT_GRADS | fk.BWD_ACTNORM
+    rows = []
+    for what, forced, got, src in (("wgmma", False, wg, "flow_train_wgmma.cu"),
+                                   ("row tiles", True, tiles, "flow_train_kernel.cu")):
+        with row_tiles_forced() if forced else contextlib.nullcontext():
+            out = tuple(torch.empty_like(t) for t in wg)
+            w = None if forced else wstages
+            times = cuda_ms(lambda: fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=fk.MODE_TF32), reps=5)
+            parts = {name: median(cuda_ms(lambda: fk._train_bwd_parts(bound, hpt, dz, dld, named, out, bits,
+                                                                      fk.MODE_TF32, w), reps=5))
+                     for name, bits in (("rows", fk.BWD_ROWS), ("weight grads", fk.BWD_WEIGHT_GRADS),
+                                        ("rest", fk.BWD_ACTNORM), ("all", all_parts))}
+        name = "K2b[tf32] fused_flow_train_bwd" if not forced else "K2b[tf32, row tiles] fused_flow_train_bwd"
+        row = kernel_row(name, "bcnf_tpu_torch/ops/csrc/" + src, "bcnf_tpu/ops/flow_kernel.py:600", 0,
+                         max((a - p).abs().max().item() for a, p in zip(got, plain)), times, p_times, work, peaks,
+                         None, ARITH_TF32)
+        row["parts_ms"] = parts
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if not forced:
+            row["prep_ms"] = prep
+            blocks, resident, gw_blocks, gw_per_sm = fk.train_bwd_wgmma_layout(Hp, size, d_a, nh, B)
+            layout = (f"rows kernel {blocks} blocks in {blocks // 2} clusters of 2, {resident} clusters resident at "
+                      f"once on {sms} SMs: {blocks / 2 / resident:.2f} waves; weight-grad pass {gw_blocks} blocks, "
+                      f"{gw_per_sm} an SM: {gw_blocks / (gw_per_sm * sms):.2f} waves")
+        else:
+            bm = 32 if Hp <= 544 else 16
+            layout = f"rows kernel {-(-B // bm)} blocks of {bm} rows, one an SM: {-(-B // bm) / sms:.2f} waves"
+        rows.append(row)
+        print(f"    K2b one pass, {what} ({src}), rows {B}: {row['ms']:.3f} ms ({work[0] / row['ms'] / 1e9:.1f} "
+              f"TFLOP/s); bound {row['bound_ms']:.3f} ms ({row['bound_by']}); parts alone: rows {parts['rows']:.3f}, "
+              f"weight grads {parts['weight grads']:.3f}, the rest {parts['rest']:.3f} (all {parts['all']:.3f})"
+              + (f"; the weight preparation {prep:.3f} ms a call" if not forced else "") +
+              f"; {layout}; max|d| vs plain one pass {row['max_abs_err']:.3e} (largest over max(1, max|plain|) "
+              f"{dist[what]:.3e}), vs 3xTF32 {max((a - c).abs().max().item() for a, c in zip(got, g3)):.3e}")
+    print(f"    K2b one pass: wgmma {rows[0]['ms']:.3f} ms against the row tiles' {rows[1]['ms']:.3f} ms on the same "
+          f"inputs ({rows[1]['ms'] / rows[0]['ms']:.2f}x); its outputs equal between two calls; its distance from the "
+          f"plain one-pass version {dist['wgmma']:.3e} against the row tiles' {dist['row tiles']:.3e}")
+    if not rows[0]["ms"] < rows[1]["ms"]:
+        fail(f"K2b's wgmma route ({rows[0]['ms']:.3f} ms) is not faster than the one-pass row tiles "
+             f"({rows[1]['ms']:.3f} ms) at the flagship's batch-4096 inputs")
+    return rows + [prep_row]
 
 
 def _max_d(a, b) -> float:
@@ -3204,39 +3351,26 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
     g3 = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args)
     gp1 = fk.fused_flow_train_backward_reference(bound, hpt, dz, dld, *args, mm=matmul_tf32)
     torch.cuda.synchronize()
-    e_bwd, faults = 0.0, []
     for name, a, b, c in zip(GRAD_NAMES, g1, gp1, g3):
-        mag = b.abs().max().item()
-        d1, d13 = (a - b).abs().max().item(), (a - c).abs().max().item()
-        e_bwd = max(e_bwd, d1)
-        print(f"      K2b one pass {name}: max|plain| {mag:.3e}, max|d| vs plain one pass {d1:.3e}, vs 3xTF32 {d13:.3e}")
-        if not (d1 <= REDUCED_TOL * max(1.0, mag) and d13 <= REDUCED_TOL * max(1.0, mag)):
-            faults.append(f"{name} {d1:.3e}/{d13:.3e} past {REDUCED_TOL:g} x {max(1.0, mag):.3g}")
-    if faults:
-        fail("K2b one pass: " + "; ".join(faults))
+        print(f"      K2b one pass {name}: max|plain| {b.abs().max().item():.3e}, max|d| vs plain one pass "
+              f"{(a - b).abs().max().item():.3e}, vs 3xTF32 {(a - c).abs().max().item():.3e}")
     work = dict(zip(("K2a", "K2b"), train_work(dict(zip(TRAIN_ARGS, args)), hpt, LOGPROB_ROWS, H)))
-    calls = {
-        "K2a": (lambda m: fk.fused_flow_train_fwd(y_t, hpt, *args, mode=m),
-                lambda: fk.fused_flow_train_reference(y_t, hpt, *args, mm=matmul_tf32)),
-        "K2b": (lambda m: fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=m),
-                lambda: fk.fused_flow_train_backward_reference(bound, hpt, dz, dld, *args, mm=matmul_tf32)),
-    }
-    for name, err, src, replaces, fn in (
-        ("K2a", e_fwd[0], "bcnf_tpu_torch/ops/csrc/flow_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:558",
-         "fused_flow_train_fwd"),
-        ("K2b", e_bwd, "bcnf_tpu_torch/ops/csrc/flow_train_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:600",
-         "fused_flow_train_bwd"),
-    ):
-        k_call, p_call = calls[name]
-        times = {m: cuda_ms(lambda: k_call(m), reps=5) for m in modes}
-        row = kernel_row(f"{name}[tf32] {fn}", src, replaces, 0, err, times[fk.MODE_TF32], cuda_ms(p_call, reps=3),
-                         work[name], peaks, None, ARITH_TF32)
+    times = {m: cuda_ms(lambda: fk.fused_flow_train_fwd(y_t, hpt, *args, mode=m), reps=5) for m in modes}
+    row = kernel_row("K2a[tf32] fused_flow_train_fwd", "bcnf_tpu_torch/ops/csrc/flow_kernel.cu",
+                     "bcnf_tpu/ops/flow_kernel.py:558", 0, e_fwd[0], times[fk.MODE_TF32],
+                     cuda_ms(lambda: fk.fused_flow_train_reference(y_t, hpt, *args, mm=matmul_tf32), reps=3),
+                     work["K2a"], peaks, None, ARITH_TF32)
+    rows.append(row)
+    three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
+    print(f"    K2a rows {LOGPROB_ROWS}: one pass {row['ms']:.2f} ms, 3xTF32 {three_ms[row['name']]:.2f} ms "
+          f"({three_ms[row['name']] / row['ms']:.2f}x); bound {row['bound_ms']:.2f} ms (3xTF32 "
+          f"{bound_ms(work['K2a'], peaks, ARITH_3XTF32)[0]:.2f}); plain one pass {row['plain_ms']:.2f} ms; "
+          f"max|d| vs plain one pass {e_fwd[0]:.2e}")
+    k2b_three = median(cuda_ms(lambda: fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args), reps=5))
+    for row in one_pass_k2b(bound, hpt, dz, dld, args, g3, work["K2b"], peaks, dev):
         rows.append(row)
-        three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
-        print(f"    {name} rows {LOGPROB_ROWS}: one pass {row['ms']:.2f} ms, 3xTF32 {three_ms[row['name']]:.2f} ms "
-              f"({three_ms[row['name']] / row['ms']:.2f}x); bound {row['bound_ms']:.2f} ms (3xTF32 "
-              f"{bound_ms(work[name], peaks, ARITH_3XTF32)[0]:.2f}); plain one pass {row['plain_ms']:.2f} ms; "
-              f"max|d| vs plain one pass {err:.2e}")
+        three_ms[row["name"]] = k2b_three if "fused_flow_train_bwd" in row["name"] else None
+    print(f"    K2b 3xTF32 (row tiles) {k2b_three:.3f} ms; bound {bound_ms(work['K2b'], peaks, ARITH_3XTF32)[0]:.3f} ms")
 
     # K4: block 0's coupling on the sampling rows (inverse) and the log_prob rows (forward)
     blk0 = map_tree(lambda t: t[0], params["blocks"]["coupling"])
@@ -3272,9 +3406,11 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
 def precision_training(dev, rng) -> None:
     """Phase 15 (c): `Trainer.train` on the flagship at batch 4096 with
     coupling dropout 0 and `training.precision: default` (K2a/K2b in one
-    pass), and on the published config at batch 256 (dropout 0.407: plain
+    pass: K2b on its `wgmma` route, then with the one-pass row tiles forced),
+    and on the published config at batch 256 (dropout 0.407: plain
     autograd, its products in TF32), each beside float32: train samples/s
-    (5 steps after a warm-up) and the losses after the same steps."""
+    (5 steps after a warm-up) and the losses after the same steps; the two
+    K2b routes' losses within the one-pass bar of each other."""
     import numpy as np
     import torch
 
@@ -3290,32 +3426,103 @@ def precision_training(dev, rng) -> None:
         y = rng.normal(size=(n, 19)).astype(np.float32)
         traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
         result = {}
-        for precision in ("highest", "default"):
+        runs = ("highest", "default", "default, row tiles") if B == 4096 else ("highest", "default")
+        for run in runs:
+            precision = run.split(",")[0]
             cfg["training"]["precision"] = precision
-            model = CondRealNVP.from_config(cfg)
-            trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED, verbose=False)
-            trained = trainer.train(model, model.init(torch.Generator().manual_seed(SEED), device=dev))
-            hist = trainer.meta_scheduler.parameter_history
-            losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
-            if model.precision != precision or not np.all(np.isfinite(losses)):
-                fail(f"{what}: training.precision {precision} gave model precision {model.precision}, losses {losses}")
-            params = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
-            opt = make_optimizer("Adam", lr=2e-4).init(params)
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            yb = torch.from_numpy(y[:B]).to(dev)
-            cb = [torch.from_numpy(traj[:B]).to(dev)]
-            trainer.train_step(model, [params], opt, yb, cb, [gen])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
+            with row_tiles_forced() if run.endswith("row tiles") else contextlib.nullcontext():
+                model = CondRealNVP.from_config(cfg)
+                trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED, verbose=False)
+                trained = trainer.train(model, model.init(torch.Generator().manual_seed(SEED), device=dev))
+                hist = trainer.meta_scheduler.parameter_history
+                losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
+                if model.precision != precision or not np.all(np.isfinite(losses)):
+                    fail(f"{what}: training.precision {precision} gave model precision {model.precision}, "
+                         f"losses {losses}")
+                params = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+                opt = make_optimizer("Adam", lr=2e-4).init(params)
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                yb = torch.from_numpy(y[:B]).to(dev)
+                cb = [torch.from_numpy(traj[:B]).to(dev)]
                 trainer.train_step(model, [params], opt, yb, cb, [gen])
-            torch.cuda.synchronize()
-            result[precision] = (5 * B / (time.perf_counter() - t0), losses)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    trainer.train_step(model, [params], opt, yb, cb, [gen])
+                torch.cuda.synchronize()
+            result[run] = (5 * B / (time.perf_counter() - t0), losses)
         print(f"    Trainer.train, {what}, batch {B}, 3 steps + validation: train samples/s float32 "
               f"{result['highest'][0]:,.0f}, default (one TF32 pass) {result['default'][0]:,.0f} "
               f"({result['default'][0] / result['highest'][0]:.2f}x); losses after the same steps (train, val) "
               f"float32 {', '.join(f'{v:.4f}' for v in result['highest'][1])}, default "
               f"{', '.join(f'{v:.4f}' for v in result['default'][1])}")
+        if "default, row tiles" in result:
+            (wg, wg_losses), (tiles, tile_losses) = result["default"], result["default, row tiles"]
+            far = [(a, b) for a, b in zip(wg_losses, tile_losses) if not abs(a - b) <= REDUCED_TOL * max(1.0, abs(b))]
+            print(f"    the same at default with K2b's one-pass row tiles forced: {tiles:,.0f} train samples/s against "
+                  f"{wg:,.0f} with its wgmma route ({wg / tiles:.2f}x); losses "
+                  f"{', '.join(f'{v:.4f}' for v in tile_losses)}")
+            if far:
+                fail(f"{what} at default: the wgmma route's losses and the row tiles' differ past the one-pass bar: "
+                     f"{far}")
+
+
+def one_pass_floor_sweep(rng, dev) -> None:
+    """Phase 15 (c): the one-pass training floor sweep, the flagship's
+    dropout-0 step at `training.precision: default` at 32, 64, 128 and 256
+    rows with K2b on its `wgmma` route, with the one-pass row tiles forced,
+    and with plain autograd (BCNF_FUSED_TRAIN_MIN_BATCH past the batch), in
+    turns (wgmma, row tiles, plain, twice; the better of each side's two
+    rates); the least batch from which the `wgmma` route beats the row tiles
+    at every size measured (the route takes every batch)."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+
+    cfg = _flagship_train_config(FLOOR_BATCHES[-1], 1)
+    cfg["training"]["precision"] = "default"
+    model = CondRealNVP.from_config(cfg)
+    model.precision = "default"  # as Trainer.train sets it from the config
+    n = 2 * FLOOR_BATCHES[-1]
+    y = rng.normal(size=(n, model.size)).astype(np.float32)
+    traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
+    trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED)
+    params0 = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    rates, reps, sides = {}, 5, ("wgmma", "row tiles", "plain")
+    expect = {"wgmma": fk.ROUTE_WGMMA_TF32, "row tiles": fk.ROUTE_ROWS_TF32, "plain": None}
+    for B in FLOOR_BATCHES:
+        yb, cb = torch.from_numpy(y[:B]).to(dev), [torch.from_numpy(traj[:B]).to(dev)]
+        for side in sides + sides:
+            os.environ["BCNF_FUSED_TRAIN_MIN_BATCH"] = "1" if side != "plain" else str(1 << 30)
+            with row_tiles_forced() if side == "row tiles" else contextlib.nullcontext():
+                params = map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+                opt = make_optimizer("Adam", lr=2e-4).init(params)
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                before = dict(fk.fused_flow_train_bwd.route_launches)
+                trainer.train_step(model, [params], opt, yb, cb, [gen])
+                torch.cuda.synchronize()
+                ran = [r for r, c in fk.fused_flow_train_bwd.route_launches.items() if c != before.get(r, 0)]
+                if ran != ([expect[side]] if expect[side] else []):
+                    fail(f"the one-pass floor sweep at {B} rows ({side}): K2b ran on {ran}")
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    trainer.train_step(model, [params], opt, yb, cb, [gen])
+                torch.cuda.synchronize()
+            rates[B, side] = max(rates.get((B, side), 0.0), reps * B / (time.perf_counter() - t0))
+    del os.environ["BCNF_FUSED_TRAIN_MIN_BATCH"]
+    wins = [rates[B, "wgmma"] > rates[B, "row tiles"] for B in FLOOR_BATCHES]
+    floor = next((B for i, B in enumerate(FLOOR_BATCHES) if all(wins[i:])), None)
+    print("    one-pass training floor sweep, the flagship's dropout-0 step at default, train samples/s with K2b "
+          "on wgmma / on the row tiles / plain autograd (better of two turns each, 5 steps a turn): " + "; ".join(
+              f"{B} rows {rates[B, 'wgmma']:.0f} / {rates[B, 'row tiles']:.0f} / {rates[B, 'plain']:.0f} "
+              f"({rates[B, 'wgmma'] / rates[B, 'row tiles']:.2f}x, {rates[B, 'wgmma'] / rates[B, 'plain']:.2f}x)"
+              for B in FLOOR_BATCHES) +
+          f"; the least batch from which wgmma beats the row tiles at every size measured: {floor} (the route "
+          f"takes every batch)")
 
 
 def precision_path(model, params, rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> list[dict]:
@@ -3404,6 +3611,7 @@ def precision_path(model, params, rng, dev, build_dir: str, peaks: tuple[float, 
 
         # -- (c) training at training.precision: default
         precision_training(dev, rng)
+        one_pass_floor_sweep(rng, dev)
         counts = dict(one_pass_counts(), **{"K4 inverse": k4_inverse, "K4 forward": k4_forward})
 
         # -- (d) hpo on trajectories generated on the card
@@ -3432,7 +3640,9 @@ def precision_path(model, params, rng, dev, build_dir: str, peaks: tuple[float, 
     if missing:
         fail(f"the precision path launched no one-pass {', '.join(missing)}: {counts}")
     key = {"fused_flow[inverse, tf32]": "K1 inverse", "fused_flow[forward, tf32]": "K1 forward",
-           "K4[tf32] fused_affine_coupling[inverse]": "K4 inverse", "K4[tf32] fused_affine_coupling[forward]": "K4 forward"}
+           "K4[tf32] fused_affine_coupling[inverse]": "K4 inverse", "K4[tf32] fused_affine_coupling[forward]": "K4 forward",
+           "K2b[tf32, row tiles] fused_flow_train_bwd": "K2b row tiles",
+           "K2b[tf32] prepare_train_weights": "K2b prep"}
     for row in rows:
         row["launches"] = counts[key.get(row["name"], row["name"].split("[")[0])]
         row["ms_3xtf32"] = three_ms[row["name"]]

@@ -683,6 +683,123 @@ def test_train_backward_matches_plain_version_on_card(cuda, hidden, rows):
     assert all(torch.isnan(t).all() for t in rows_only[2:])
 
 
+def _one_pass_bwd_case(cuda, hidden: int, nh: int, rows: int, seed: int) -> tuple:
+    """K2b's inputs for a size-19 flow of 3 steps with `nh` hidden layers of
+    width `hidden`: the step inputs from the plain one-pass forward, seeded
+    standard-normal cotangents; and the plain one-pass version's grads."""
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_backward_reference, fused_flow_train_reference
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[hidden] * (nh + 1), n_blocks=3, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0)
+    with torch.no_grad():
+        x, h_proj, args = _train_args(model, model.init(device=cuda), B=rows, seed=seed, device=cuda)
+        z, _, bound = fused_flow_train_reference(x, h_proj, *args, mm=matmul_tf32)
+        g = torch.Generator(device=cuda).manual_seed(seed + 1)
+        dz, dld = torch.randn(z.shape, generator=g, device=cuda), torch.randn((rows,), generator=g, device=cuda)
+        plain = fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args, mm=matmul_tf32)
+    return bound, h_proj, dz, dld, args, plain
+
+
+def _worst(grads, plain) -> float:
+    """The largest max |d| over the ten grads, each over max(1, max |plain|)."""
+    return max((a - p).abs().max().item() / max(1.0, p.abs().max().item()) for a, p in zip(grads, plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [32, 33, 100, 4096, 4099])
+@pytest.mark.parametrize("nh", [1, 4])
+@pytest.mark.parametrize("hidden", [16, 100, 526])  # Hp 32, 128, 544
+def test_one_pass_train_backward_on_wgmma_matches_plain_one_pass_on_card(cuda, monkeypatch, hidden, nh, rows):
+    """K2b's one-pass `wgmma` route against the plain one-pass version: every
+    grad within 5e-3 max(1, max |plain|) (JAX's reduced-mode bar), no further
+    from it than twice the one-pass row tiles' own distance, two calls equal
+    to the bit; counted once on its route."""
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    bound, h_proj, dz, dld, args, plain = _one_pass_bwd_case(cuda, hidden, nh, rows, seed=30)
+    assert fk.train_bwd_route(h_proj.shape[-1], 19, 10, nh, fk.MODE_TF32) == fk.ROUTE_WGMMA_TF32
+    before = fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WGMMA_TF32]
+    with torch.no_grad():
+        first = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_TF32)
+        second = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_TF32)
+        monkeypatch.setattr(fk, "TRAIN_WGMMA_MAX_TN", 0)
+        tiles = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_TF32)
+        torch.cuda.synchronize()
+    assert fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WGMMA_TF32] == before + 2
+    names = ("x", "h_proj", "an_scale", "an_bias", "w1y", "b1", "wm", "bm", "wout", "bout")
+    for name, a, b, p in zip(names, first, second, plain):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, p, atol=5e-3 * max(1.0, p.abs().max().item()), rtol=0, msg=name)
+    assert _worst(first, plain) <= 2 * _worst(tiles, plain)
+
+
+@pytest.mark.gpu
+def test_one_pass_train_backward_on_wgmma_parts_on_card(cuda):
+    """The `parts` mask on the `wgmma` route: the rows kernels alone give the
+    call's dx and dh_proj and write no weight grad; the weight-grad passes
+    alone write dWm and dbm only, the rest alone the other weight grads and
+    the ActNorm's only (each part alone, so they can be timed one by one);
+    the weights prepared on the card are the plain version's to the bit,
+    one counted launch."""
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        BWD_ACTNORM, BWD_ROWS, BWD_WEIGHT_GRADS, MODE_TF32, ROUTE_WGMMA_TF32, _train_bwd_parts, fused_flow_train_bwd,
+        prepare_train_weights, prepare_train_weights_reference,
+    )
+
+    bound, h_proj, dz, dld, args, _ = _one_pass_bwd_case(cuda, 526, 4, 259, seed=31)
+    names = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+    with torch.no_grad():
+        grads = fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=MODE_TF32)
+        parted = tuple(torch.full_like(t, float("nan")) for t in grads)
+        before = prepare_train_weights.launches
+        wstages = prepare_train_weights(args[5])
+        torch.cuda.synchronize()
+        assert prepare_train_weights.launches == before + 1
+        assert torch.equal(wstages.cpu().view(torch.int32), prepare_train_weights_reference(args[5].cpu()).view(torch.int32))
+        route = _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(names, args)), parted, BWD_ROWS, MODE_TF32, wstages)
+        torch.cuda.synchronize()
+        assert route == ROUTE_WGMMA_TF32
+        assert torch.equal(parted[0], grads[0]) and torch.equal(parted[1], grads[1])
+        assert all(torch.isnan(t).all() for t in parted[2:])
+        for part, written in ((BWD_WEIGHT_GRADS, (6, 7)), (BWD_ACTNORM, (2, 3, 4, 5, 8, 9))):
+            alone = tuple(torch.full_like(t, float("nan")) for t in grads)
+            _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(names, args)), alone, part, MODE_TF32, wstages)
+            torch.cuda.synchronize()
+            assert all(torch.isnan(t).all() for i, t in enumerate(alone) if i not in written), part
+            assert not any(torch.isnan(alone[i]).all() for i in written), part
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,mode,forced,route", [
+    (526, "tf32", False, "wgmma_tf32"), (526, "tf32", True, "rows_tf32"), (526, "3xtf32", False, "rows"),
+    (700, "tf32", False, "rows_tf32"),
+], ids=["one_pass_544", "one_pass_544_forced_tiles", "3xtf32_544", "one_pass_768"])
+def test_training_step_counts_the_train_backward_route_on_card(cuda, monkeypatch, hidden, mode, forced, route):
+    """`fused_flow_train` through autograd runs K2b on the route of its mode
+    and width, counted once in `route_launches`: the one-pass mode on `wgmma`
+    at Hp 544 (on the row tiles when `TRAIN_WGMMA_MAX_TN` is 0, and at Hp
+    768), 3xTF32 on the row tiles."""
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    if forced:
+        monkeypatch.setattr(fk, "TRAIN_WGMMA_MAX_TN", 0)
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[hidden] * 3, n_blocks=3, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0)
+    with torch.no_grad():
+        x, h_proj, args = _train_args(model, model.init(device=cuda), B=64, seed=32, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, h_proj, *args)]
+    before = dict(fk.fused_flow_train_bwd.route_launches)
+    z, ld = fk.fused_flow_train(*leaves, mode=mode)
+    grads = torch.autograd.grad((z.square().sum() - ld.sum()), leaves)
+    torch.cuda.synchronize()
+    after = fk.fused_flow_train_bwd.route_launches
+    assert {r: after[r] - before.get(r, 0) for r in after if after[r] != before.get(r, 0)} == {route: 1}
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
 @pytest.mark.gpu
 def test_resimulation_on_card_matches_cpu(cuda):
     from bcnf_tpu_torch.config import ParameterIndexMapping
