@@ -10,7 +10,8 @@ sources are built twice: as they are (3xTF32, the default mode) and with
 ``-DBCNF_TF32_PASSES=1`` into a `*_tf32` library (one TF32 pass, the reduced
 mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
 the first; K2b's one-pass `wgmma` route (`csrc/flow_train_wgmma.cu`) is
-built in that mode only. Nothing here runs at import time: the CPU tests
+built in that mode only, and the strict K1 (`csrc/flow_fma.cu`, float32
+FMA) once. Nothing here runs at import time: the CPU tests
 import every module.
 """
 
@@ -26,7 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "ops" / "csrc"
 SOURCES = {
-    "flow_kernel": _CSRC / "flow_kernel.cu",  # K1 on the row tiles and strict, K4, the training forward K2a
+    "flow_kernel": _CSRC / "flow_kernel.cu",  # K1 on the row tiles, K4, the training forward K2a
+    "flow_fma": _CSRC / "flow_fma.cu",  # K1 in exact float32 (strict), both directions
     "flow_wgmma": _CSRC / "flow_wgmma.cu",  # K1's (and K4's) inverse on wgmma, Hp <= 544
     "flow_train_kernel": _CSRC / "flow_train_kernel.cu",  # the training backward K2b
     "lstm_kernel": _CSRC / "lstm_kernel.cu",  # the LSTM recurrence K3a and its backward K3b
@@ -111,10 +113,13 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     source = name.removesuffix(ONE_PASS)
     if source == "flow_kernel":
-        lib.bcnf_fused_flow.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
-        lib.bcnf_fused_flow.restype = i32
         lib.bcnf_flow_rows.argtypes = [ptr] * 14 + [i32] * 8 + [ptr]
         lib.bcnf_flow_rows.restype = i32
+    elif source == "flow_fma":
+        lib.bcnf_fused_flow.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
+        lib.bcnf_fused_flow.restype = i32
+        lib.bcnf_flow_fma_layout.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+        lib.bcnf_flow_fma_layout.restype = i32
     elif source == "flow_wgmma":
         lib.bcnf_flow_inverse_wgmma.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
         lib.bcnf_flow_inverse_wgmma.restype = i32

@@ -16,7 +16,8 @@
     stages (`prepare_weights(wm, passes=1)`);
   - the strict mode (`CondRealNVP(pallas_strict=True)`, as the JAX model's
     strict flag forces its exact-float32 kernel mode) runs the float32 FMA
-    kernel (`flow_kernel` in `csrc/flow_kernel.cu`) both ways.
+    kernel (`csrc/flow_fma.cu`) both ways: persistent blocks, one an SM,
+    over balanced ranges of row groups (`fma_layout`).
 - K4, the per-coupling kernel, is K1 at one step (`ops/coupling_kernel.py`).
 - K2a/K2b, `fused_flow_train`, replace `fused_flow_train` and its custom VJP
   (`fwd_call`/`bwd_call` of `_make_fused_flow_train`): a
@@ -77,7 +78,7 @@ TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K2a, K2b and K4 
 # and row tiles; each route's library (`ops/_build.py`).
 ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
 ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
-ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_kernel",
+ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_fma",
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
@@ -94,11 +95,15 @@ TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 
 # limits the launchers check; the `wgmma` inverse's weight ring by
 # arithmetic, and the blocks of a one-pass cluster (`wgmma_ring`); K2b's
 # `wgmma` route's rows a cluster, blocks a cluster and weight ring (stages of
-# kTwStageK rows).
+# kTwStageK rows); the strict kernel's consumer warps, rows a lane, the
+# widest TN at that many rows, weight rows a stage and the bounds of its
+# ring (`fma_layout`).
 _SOURCE_CONSTANTS = {"kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh", "kWgRing3xTf32": "flow_wgmma.cu",
                   "kWgRingTf32": "flow_wgmma.cu", "kWgClusterTf32": "flow_wgmma.cu",
                   "kTwRows": "flow_train_wgmma.cu", "kTwCluster": "flow_train_wgmma.cu",
-                  "kTwRing": "flow_train_wgmma.cu", "kTwStageK": "flow_train_wgmma.cu"}
+                  "kTwRing": "flow_train_wgmma.cu", "kTwStageK": "flow_train_wgmma.cu",
+                  **{name: "flow_fma.cu" for name in ("kFmaWarps", "kFmaLaneRows", "kFmaWideTN", "kFmaStageRows",
+                                                       "kFmaRingMin", "kFmaRingMax")}}
 
 
 @functools.cache
@@ -189,7 +194,8 @@ def pad_hidden(kargs: dict, h_proj: torch.Tensor) -> tuple[dict, torch.Tensor]:
 def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     """Bytes of shared memory a block of K1's kernel on `route` takes at this
     shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
-    `launch`, `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`), and of K2b's
+    `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`; `csrc/flow_fma.cu`:
+    `fma_smem`, at its least), and of K2b's
     rows kernels (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`;
     `ROUTE_TRAIN_BWD_WGMMA`: `csrc/flow_train_wgmma.cu`: `tw_smem`)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
@@ -206,10 +212,67 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
         if route == ROUTE_TRAIN_BWD:  # ... K2b's rows' state, BM x (5 size + n_out + d_a + 1)
             return 4 * (BM * (Hp + 4) + 3 * stage + BM * (5 * size + n_out + d_a + 1))
         return 4 * (BM * (Hp + 4) + 3 * stage + BM * (2 * size + n_out + 1))  # ... x, x Q, [t | s'], logdet
-    if route == ROUTE_FMA:  # tile, x, x Q, [t | s'], logdet, and the least double buffer it takes (BK = 4)
-        BM = 64 if tn <= 17 else 32
-        return 4 * (BM * Hp + BM * (2 * size + n_out + 1) + 2 * 4 * Hp)
+    if route == ROUTE_FMA:  # the shortest ring
+        return fma_smem(Hp, size, d_a, kernel_limit("kFmaRingMin"))
     raise ValueError(f"unknown route {route!r}")
+
+
+def fma_lane_rows(Hp: int) -> int:
+    """Rows a lane of the strict kernel holds at the padded width Hp
+    (`csrc/flow_fma.cu`: `fma_lane_rows`): kFmaLaneRows, half that above
+    kFmaWideTN; a round is 8 times that many rows."""
+    return kernel_limit("kFmaLaneRows") // (1 if Hp // 32 <= kernel_limit("kFmaWideTN") else 2)
+
+
+def fma_stage(Hp: int, size: int, d_a: int) -> int:
+    """Floats a ring stage of the strict kernel holds (`fma_stage`): its
+    weight rows (kFmaStageRows, half that above kFmaWideTN), and at least 4
+    rows of Wout."""
+    rows = kernel_limit("kFmaStageRows") // (1 if Hp // 32 <= kernel_limit("kFmaWideTN") else 2)
+    return max(rows * Hp, 8 * (size - d_a))
+
+
+def fma_smem(Hp: int, size: int, d_a: int, stages: int) -> int:
+    """Bytes of shared memory a block of the strict kernel takes with a ring
+    of `stages` stages (`fma_smem`): the ring's two barriers a stage, the
+    transposed tile (Hp x (8 R + 4), R rows a lane), the ring, and the
+    round's 8 R rows of [x | x Q | t s' | logdet]."""
+    rows = 8 * fma_lane_rows(Hp)
+    return 16 * stages + 4 * (Hp * (rows + 4) + stages * fma_stage(Hp, size, d_a) + rows * (4 * size - 2 * d_a + 1))
+
+
+def fma_layout(B: int, Hp: int, size: int, d_a: int, sms: int) -> tuple[int, int, int, int, int]:
+    """The strict kernel's launch at this shape on a card of `sms` SMs
+    (`csrc/flow_fma.cu`: `fma_layout`): (rows a lane, blocks, ring stages,
+    floats a stage, bytes of shared memory). The ring takes as many stages
+    as fit, up to kFmaRingMax; one block an SM, at most one a row group (4
+    times a lane's rows). None of it fits: ValueError."""
+    lo, hi, limit = kernel_limit("kFmaRingMin"), kernel_limit("kFmaRingMax"), kernel_limit("kSmemLimit")
+    stages = next((r for r in range(hi, lo - 1, -1) if fma_smem(Hp, size, d_a, r) <= limit), 0)
+    if not stages:
+        raise ValueError(f"the strict kernel takes no block at Hp {Hp}, size {size}, d_a {d_a}")
+    rows = fma_lane_rows(Hp)
+    return rows, min(-(-B // (4 * rows)), sms), stages, fma_stage(Hp, size, d_a), fma_smem(Hp, size, d_a, stages)
+
+
+def fma_card_layout(B: int, Hp: int, size: int, d_a: int) -> tuple[int, int, int, int, int]:
+    """`fma_layout` as the strict kernel's launcher computes it on the current
+    card (`csrc/flow_fma.cu`: `bcnf_flow_fma_layout`)."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library(ROUTE_LIBRARY[ROUTE_FMA])
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib.bcnf_flow_fma_layout(B, size, d_a, Hp, out), lib, "fma_card_layout")
+    return tuple(out)
+
+
+def fma_groups(B: int, rows: int, blocks: int) -> list[tuple[int, int]]:
+    """Each block's contiguous range [g0, g1) of the strict kernel's
+    ceil(B / 4 rows) row groups (group g: rows 4 rows g .. 4 rows g + 4 rows
+    - 1, `rows` a lane; `csrc/flow_fma.cu`: `block_groups`). A block walks
+    its range in rounds of 2 groups, each group's rows on 4 warps."""
+    groups = -(-B // (4 * rows))
+    return [(b * groups // blocks, (b + 1) * groups // blocks) for b in range(blocks)]
 
 
 def _check_mode(mode: str, modes: tuple[str, ...] = KERNEL_MODES) -> None:

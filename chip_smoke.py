@@ -10,7 +10,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship widths, on a tiled and on a ragged shape: K1 in its default
    mode (3xTF32: the inverse on `wgmma`, the forward on the row tiles) and in
-   strict mode (float32 FMA).
+   strict mode (float32 FMA, csrc/flow_fma.cu); the strict K1 also at the
+   padded widths 32, 128, 544 and 1024 and with no square hidden layer (nh =
+   0), N not dividing B, both directions, each equal to the bit between two
+   calls; the `flow_fma` library's SASS holds no tensor-core instruction.
 3. main path: the flagship `trajectory_LSTM_large` model (48,852,615
    params, random weights from a seed) on the card: posterior sampling of
    10,000 draws for 8 trajectories, then `log_prob` and the round trip on
@@ -18,7 +21,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    K1's launches by route are read for each; samples/s, the split of a
    `sample` call (with the `wgmma` weight preparation), the `wgmma`
    inverse's blocks and waves, and each K1 kernel's time beside its bound
-   and its plain version's time.
+   and its plain version's time; the strict K1 with its layout (rows a
+   lane, blocks, rounds, ring stages), on the main path's inputs equal to
+   the bit between two calls and, on the 80,000 sampling rows, no further
+   from the plain version in float64 than twice the float32 plain version.
 4. entry point: the `sample` CLI on a model directory written here.
 5. training kernels: K2a (the whole-flow training forward) and K2b (its
    backward), both on tensor cores in 3xTF32, against their plain PyTorch versions
@@ -241,6 +247,8 @@ PEAKS = {  # name fragment: (float32 FLOP/s, TF32 FLOP/s, bytes/s)
 # K1's times at the main path's shapes in earlier runs on an H100 80GB HBM3
 # at 700 W (PERF.md's kernel table), printed beside this run's
 K1_EARLIER_MS = {"inverse": 73.69, "forward": 8.52, "inverse, strict": 162.63, "forward, strict": 16.70}
+# tensor-core instructions, none of which the strict K1's library may hold
+TENSOR_CORE_SASS = ("HMMA", "HGMMA", "IMMA", "IGMMA", "DMMA", "BMMA", "BGMMA", "QMMA", "QGMMA")
 # K4's times when it padded and stacked its weights at every launch, and its
 # plain version's, in the same earlier runs (PERF.md)
 K4_EARLIER_MS = {"inverse": (2.951, 6.504), "forward": (0.803, 0.535)}
@@ -356,11 +364,77 @@ def zero_flow_counts() -> None:
 
 def route_rows(route: str, Hp: int) -> int:
     """Rows a block of K1's kernel on `route` owns at the padded width Hp
-    (csrc/flow_wgmma.cu: 64; csrc/flow_rows.cuh: 32, 16 from Hp 768;
-    csrc/flow_kernel.cu's strict kernel: 64, 32 from Hp 768)."""
+    (csrc/flow_wgmma.cu: 64; csrc/flow_rows.cuh: 32, 16 from Hp 768; the
+    strict kernel, csrc/flow_fma.cu, is laid out by `fma_layout`)."""
     if route in ("rows", "rows_tf32"):
         return 32 if Hp <= 32 * 17 else 16
-    return 64 if Hp <= 32 * 17 else 32
+    return 64
+
+
+def strict_sass_check(lib_path: str) -> int:
+    """The strict K1's library (`flow_fma`) holds no tensor-core instruction
+    (`cuobjdump -sass`); returns its count of FFMA instructions."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump"), "-sass", lib_path],
+                          capture_output=True, text=True, check=True).stdout
+    found = sorted({m for m in re.findall(r"\b([A-Z]+MMA)\b", sass) if m in TENSOR_CORE_SASS})
+    if found:
+        fail(f"the strict K1's library holds tensor-core instructions: {', '.join(found)}")
+    n_ffma = len(re.findall(r"\bFFMA\b", sass))
+    if n_ffma == 0:
+        fail("the strict K1's library holds no FFMA instruction: cuobjdump read nothing")
+    return n_ffma
+
+
+def strict_widths_check(dev) -> None:
+    """Phase 2's strict K1 at the padded widths 32, 128, 544 and 1024 and
+    with no square hidden layer (nh = 0), random weights from the seed, N
+    not dividing B, both directions: within KERNEL_TOL of the plain version,
+    equal to the bit between two calls, one launch each on the FMA route."""
+    import torch
+
+    from bcnf_tpu_torch.ops.flow_kernel import (MODE_FMA, ROUTE_FMA, fma_card_layout, fused_flow,
+                                                fused_flow_reference, pad_hidden)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    worst, cases = 0.0, []
+    for H, nh, S, B, N in ((16, 2, 4, 4099, 7), (100, 4, 4, 4099, 7), (526, 4, 6, 4099, 7), (1000, 2, 4, 1001, 9),
+                           (526, 0, 6, 4099, 7), (16, 0, 4, 37, 5)):
+        size, d_a = 19, 10
+        w = {"an_scale": 1 + 0.1 * randn(S, size), "an_bias": 0.1 * randn(S, size),
+             "ortho": torch.linalg.qr(randn(S, size, size))[0].contiguous(),
+             "w1y": randn(S, d_a, H, scale=d_a ** -0.5), "b1": randn(S, H, scale=0.1),
+             "wm": randn(S, nh, H, H, scale=H ** -0.5), "bm": randn(S, nh, H, scale=0.1),
+             "wout": randn(S, H, 2 * (size - d_a), scale=0.3 * H ** -0.5), "bout": randn(S, 2 * (size - d_a), scale=0.1)}
+        kargs, h_proj = pad_hidden(w, randn(S, N, H, scale=0.5))
+        x = randn(B, size)
+        for inverse in (True, False):
+            before = fused_flow.route_launches[ROUTE_FMA]
+            one = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=N, mode=MODE_FMA)
+            two = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=N, mode=MODE_FMA)
+            ref = fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=N)
+            torch.cuda.synchronize()
+            if fused_flow.route_launches[ROUTE_FMA] != before + 2:
+                fail(f"the strict K1 at H {H}, nh {nh} did not launch on its route twice")
+            wrap = (lambda t: (t,)) if inverse else tuple
+            err = max((a - b).abs().max().item() for a, b in zip(wrap(one), wrap(ref)))
+            bits = all(torch.equal(a, b) for a, b in zip(wrap(one), wrap(two)))
+            worst = max(worst, err)
+            cases.append(f"Hp {h_proj.shape[-1]} nh {nh} {'inv' if inverse else 'fwd'} {err:.1e}")
+            if not err <= KERNEL_TOL or not bits or not all(torch.isfinite(t).all() for t in wrap(one)):
+                fail(f"the strict K1 at H {H}, nh {nh}, B {B}, N {N} ({'inverse' if inverse else 'forward'}): "
+                     f"max|d| {err:.3e} (tolerance {KERNEL_TOL:g}), equal between calls: {bits}")
+        cases[-1] += f" (layout {fma_card_layout(B, h_proj.shape[-1], size, d_a)})"
+    print(f"[2 kernels, strict] flow_fma vs plain, size 19, d_a 10, B = 4099/N = 7 (1001/9 at Hp 1024, 37/5 at "
+          f"nh 0, Hp 32), each equal to the bit between two calls; max|d|: {'; '.join(cases)} (worst {worst:.3e}, "
+          f"tolerance {KERNEL_TOL:g})")
 
 
 def median(xs: list[float]) -> float:
@@ -433,6 +507,8 @@ def main() -> None:
         WG_COPIES,
         WG_PRODUCTS,
         _launch_flow,
+        fma_card_layout,
+        fma_groups,
         flow_route,
         fused_flow,
         fused_flow_reference,
@@ -464,6 +540,8 @@ def main() -> None:
             elif ("registers" in ln or "wgmma" in ln.lower() or "warning" in ln.lower()
                   or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)):
                 print(f"    ptxas {name} {kernel}: {ln.strip().removeprefix('ptxas info    : ')}")
+    n_ffma = strict_sass_check(str(_build.build("flow_fma")))
+    print(f"    flow_fma SASS (cuobjdump): {n_ffma} FFMA, no tensor-core instruction ({'/'.join(TENSOR_CORE_SASS)})")
     # phases 2-8 and 11-13 run the encoders' time loop (their numbers and
     # checks are the loop's); the phases that run K3a/K3b set the variable
     # themselves, and phase 17 unsets it to drive the default
@@ -513,6 +591,7 @@ def main() -> None:
     for d, e in errs.items():
         if not e <= KERNEL_TOL:
             fail(f"fused_flow {d} disagrees with its plain version: {e:.3e} > {KERNEL_TOL:g}")
+    strict_widths_check(dev)
 
     # ---- 3. main path: posterior sampling, then log_prob + round trip, in
     # the default mode (3xTF32) and then in strict mode (float32 FMA)
@@ -618,25 +697,54 @@ def main() -> None:
             key = direction.replace(",", "")
             errs[key] = max(errs[key], err)
             route = flow_route(hp.shape[-1], model.size, ka["w1y"].shape[1], inv, kmode)
+            if strict:  # two calls equal to the bit; the inverse against the plain version in float64
+                again = fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=kmode)
+                if not all(torch.equal(a, b) for a, b in zip((out_k,) if inv else out_k, (again,) if inv else again)):
+                    fail(f"fused_flow {direction}: two calls differ (the strict kernel must sum in a fixed order)")
+                if inv:
+                    p64 = fused_flow_reference(x.double(), hp.double(), **{k: v.double() for k, v in ka.items()},
+                                               inverse=True, n_cond=n)
+                    d32, dk = (out_p.double() - p64).abs().max().item(), (out_k.double() - p64).abs().max().item()
+                    del p64
+                    print(f"    fused_flow[{direction}] against the plain version in float64 on the {x.shape[0]} "
+                          f"sampling rows: max|d| {dk:.3e}, the float32 plain version's {d32:.3e} (bar: twice it)")
+                    if not dk <= 2 * d32:
+                        fail(f"fused_flow {direction}: {dk:.3e} from float64, past twice the float32 plain "
+                             f"version's {d32:.3e}")
             k_times = cuda_ms(lambda: fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=kmode), reps=5)
             p_times = cuda_ms(lambda: fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n), reps=3)
             flops, nbytes = flow_work(ka, hp, x.shape[0], H)
             arith = ARITH_FMA if strict else ARITH_3XTF32
-            src = "bcnf_tpu_torch/ops/csrc/" + ("flow_wgmma.cu" if route == ROUTE_WGMMA else "flow_kernel.cu")
+            src = "bcnf_tpu_torch/ops/csrc/" + {ROUTE_WGMMA: "flow_wgmma.cu", ROUTE_FMA: "flow_fma.cu"}.get(
+                route, "flow_kernel.cu")
             kernels.append(kernel_row(f"fused_flow[{direction}]", src, "bcnf_tpu/ops/flow_kernel.py:162", n_launches,
                                       errs[key], k_times, p_times, (flops, nbytes), peaks, None, arith))
             ms, plain_ms, bound = kernels[-1]["ms"], kernels[-1]["plain_ms"], kernels[-1]["bound_ms"]
             fma_bound = bound_ms((flops, nbytes), peaks, ARITH_FMA)[0]
-            tile = route_rows(route, hp.shape[-1])
-            l2_gb = -(-x.shape[0] // tile) * 4 * sum(int(v.numel()) for v in ka.values()) / 1e9
-            if route == ROUTE_WGMMA:
-                l2_gb += -(-x.shape[0] // tile) * 4 * int(ka["wm"].numel()) / 1e9  # hi and lo of the hidden weights
+            weights_gb = 4 * sum(int(v.numel()) for v in ka.values()) / 1e9
+            if route == ROUTE_FMA:  # every block streams the weights once a round
+                lane_rows, blocks, stages, _, smem = fma_card_layout(x.shape[0], hp.shape[-1], model.size,
+                                                                      ka["w1y"].shape[1])
+                groups = fma_groups(x.shape[0], lane_rows, blocks)
+                rounds = max(-(-(g1 - g0) // 2) for g0, g1 in groups)
+                l2_gb, tile = blocks * rounds * weights_gb, 8 * lane_rows
+                busy = sum(g1 - g0 for g0, g1 in groups) / (blocks * rounds * 2)
+                print(f"    fused_flow[{direction}] layout: {lane_rows} rows a lane ({tile} a round, two groups of "
+                      f"{4 * lane_rows}), {blocks} blocks (one an SM, {sms} SMs), {rounds} rounds ({busy:.1%} of the "
+                      f"groups' slots busy: {rounds * blocks / sms:.2f} waves of rounds), a {stages}-stage ring, "
+                      f"{smem} bytes of shared memory")
+            else:
+                tile = route_rows(route, hp.shape[-1])
+                l2_gb = -(-x.shape[0] // tile) * weights_gb
+                if route == ROUTE_WGMMA:
+                    l2_gb += -(-x.shape[0] // tile) * 4 * int(ka["wm"].numel()) / 1e9  # hi and lo of the hidden weights
             print(f"    fused_flow[{direction}] ({route}, {arith}) rows {x.shape[0]}: {ms:.2f} ms (earlier runs: "
                   f"{K1_EARLIER_MS[direction]} ms; bound {bound:.2f} ms, "
                   f"float32-FMA bound {fma_bound:.2f} ms, {flops / 1e12:.2f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, "
                   f"median of {len(k_times)}, range {min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms "
                   f"(range {min(p_times):.2f}-{max(p_times):.2f}); max|d| vs plain {err:.2e}; weights read from L2 "
-                  f"per call ~{l2_gb:.0f} GB ({tile}-row blocks) -> {l2_gb / ms:.2f} TB/s")
+                  f"per call ~{l2_gb:.0f} GB ({tile}-row {'rounds' if route == ROUTE_FMA else 'blocks'}) -> "
+                  f"{l2_gb / ms:.2f} TB/s")
         fused_flow.launches = saved
         # the wgmma inverse's parts alone (uncounted launches): its products on
         # stale weight stages, and the weights' stream from L2 without the products

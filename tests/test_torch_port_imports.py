@@ -220,6 +220,59 @@ def test_kernel_matches_reference_on_card(cuda, inverse, hidden, strict):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
 
+def _float32_ulps(t: torch.Tensor, n: int) -> float:
+    """n float32 rounding steps at the largest magnitude of t."""
+    return n * float(torch.finfo(torch.float32).eps) * max(1.0, t.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+@pytest.mark.parametrize("rows,n_cond", [(6 * 37 + 5, 6), (4099, 7), (64, 64)], ids=["ragged", "n_not_dividing", "one_round"])
+@pytest.mark.parametrize("hidden", [16, 100, 526, 1000])  # Hp 32, 128, 544, 1024: csrc/flow_fma.cu, float32 FMA
+def test_strict_kernel_against_float64_on_card(cuda, hidden, rows, n_cond, inverse):
+    """The strict K1 (`MODE_FMA`, csrc/flow_fma.cu) against the plain version
+    in float64: no further from it than twice the float32 plain version's
+    own distance (plus 4 float32 steps at the largest value, the floor of
+    two float32 orders of summation), so it is float32 arithmetic and not a
+    reduced one; within the flow bar of the float32 plain version; and two
+    calls equal to the bit (no atomics, a fixed order of every sum)."""
+    from bcnf_tpu_torch.ops.flow_kernel import MODE_FMA, ROUTE_FMA
+
+    model = _tiny_model(hidden)
+    params = model.init(device=cuda)
+    rng = np.random.default_rng(hidden + rows)
+    traj = torch.from_numpy(rng.normal(size=(n_cond, 9, 3)).astype(np.float32)).to(cuda)
+    kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
+    x = torch.from_numpy(rng.normal(size=(rows, 5)).astype(np.float32)).to(cuda)
+    before = fused_flow.route_launches[ROUTE_FMA]
+    one = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=n_cond, mode=MODE_FMA)
+    two = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=n_cond, mode=MODE_FMA)
+    torch.cuda.synchronize()
+    assert fused_flow.route_launches[ROUTE_FMA] == before + 2
+    p32 = fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=n_cond)
+    p64 = fused_flow_reference(x.double(), h_proj.double(), **{k: v.double() for k, v in kargs.items()},
+                               inverse=inverse, n_cond=n_cond)
+    wrap = (lambda t: (t,)) if inverse else tuple
+    for a, b, c, d in zip(wrap(one), wrap(two), wrap(p32), wrap(p64)):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=0)
+        d32, dk = (c.double() - d).abs().max().item(), (a.double() - d).abs().max().item()
+        assert dk <= 2 * d32 + _float32_ulps(d, 4), (dk, d32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 63, 4096, 4099, 80_000])
+@pytest.mark.parametrize("Hp,size,d_a", [(544, 19, 10), (32, 5, 2), (1024, 19, 10), (544, 90, 33)])
+def test_strict_layout_on_card_is_the_host_copy(cuda, Hp, size, d_a, B):
+    """The strict kernel's launcher picks the layout `fma_layout` computes
+    for this card's SM count (rows a warp, blocks, ring stages, floats a
+    stage, shared memory)."""
+    from bcnf_tpu_torch.ops.flow_kernel import fma_card_layout, fma_layout
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fma_card_layout(B, Hp, size, d_a) == fma_layout(B, Hp, size, d_a, sms)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
 @pytest.mark.parametrize("hidden", [16, 526, 1000])  # wgmma up to Hp 544, row tiles above
