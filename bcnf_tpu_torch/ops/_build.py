@@ -9,9 +9,9 @@ rebuilt. `build_all` starts one nvcc per library at once. The three flow
 sources are built twice: as they are (3xTF32, the default mode) and with
 ``-DBCNF_TF32_PASSES=1`` into a `*_tf32` library (one TF32 pass, the reduced
 mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
-the first; K2b's one-pass `wgmma` route (`csrc/flow_train_wgmma.cu`) is
-built in that mode only, and the strict K1 (`csrc/flow_fma.cu`, float32
-FMA) once. Nothing here runs at import time: the CPU tests
+the first; K2b's one-pass `wgmma` route (`csrc/flow_train_wgmma.cu`) and
+the one-pass `wgmma` forward (`csrc/flow_fwd_wgmma.cu`) are built in that
+mode only, and the strict K1 (`csrc/flow_fma.cu`, float32 FMA) once. Nothing here runs at import time: the CPU tests
 import every module.
 """
 
@@ -36,8 +36,10 @@ SOURCES = {
 ONE_PASS = "_tf32"  # the suffix of a flow library built for the reduced mode
 for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel"):
     SOURCES[_name + ONE_PASS] = SOURCES[_name]
-# K2b's one-pass route on wgmma, Hp <= 544: built for the reduced mode only
+# K2b's one-pass route on wgmma, Hp <= 544, and the one-pass forward (K1's,
+# K2a's and K4's) on wgmma: built for the reduced mode only
 SOURCES["flow_train_wgmma" + ONE_PASS] = _CSRC / "flow_train_wgmma.cu"
+SOURCES["flow_fwd_wgmma" + ONE_PASS] = _CSRC / "flow_fwd_wgmma.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -141,6 +143,11 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
         lib.bcnf_flow_train_wgmma_layout.restype = i32
         lib.bcnf_prepare_train_weights.argtypes = [ptr, ptr, i32, i32, ptr]
         lib.bcnf_prepare_train_weights.restype = i32
+    elif source == "flow_fwd_wgmma":
+        lib.bcnf_flow_fwd_wgmma.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
+        lib.bcnf_flow_fwd_wgmma.restype = i32
+        lib.bcnf_flow_fwd_wgmma_layout.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+        lib.bcnf_flow_fwd_wgmma_layout.restype = i32
     elif source == "lstm_kernel":
         lib.bcnf_lstm_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.bcnf_lstm_fwd.restype = i32

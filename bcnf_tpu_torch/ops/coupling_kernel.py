@@ -14,10 +14,12 @@ wrapper stacks its coupling's weights with S = 1 (`coupling_flow_args`) and
 launches K1's kernels (`ops/flow_kernel.py::_launch_flow`) on ``[x_a | x_b]``
 in 3xTF32, or in one TF32 pass in the reduced mode (JAX's K4 takes its dots
 at the model's precision): the inverse on `wgmma` up to the padded width
-544, the row tiles otherwise (JAX's K4 has no strict mode, nor has the
-port's). The wrapper prepares a coupling's weights (the padding and
-stacking, and for the `wgmma` inverse the stage layout of its hidden
-weights) once per parameter version and keeps them (`prepared_coupling`),
+544, the row tiles otherwise; the one-pass forward on the `wgmma` forward up
+to 544 (`csrc/flow_fwd_wgmma.cu`), the row tiles otherwise (JAX's K4 has no
+strict mode, nor has the port's). The wrapper prepares a coupling's weights
+(the padding and stacking, and for a `wgmma` route the layout of its hidden
+weights that route reads) once per parameter version and keeps them
+(`prepared_coupling`),
 so a pass with unchanged weights prepares each coupling once in all, and an
 in-place update of a weight (which bumps its `_version`) or a new weight
 tensor prepares it again.
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 
 from bcnf_tpu_torch.ops.flow_kernel import (
     MODE_3XTF32,
-    MODE_TF32,
+    ROUTE_FWD_WGMMA_TF32,
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
     TF32_MODES,
@@ -49,6 +51,7 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     _launch_flow,
     flow_route,
     padded_width,
+    prepare_train_weights,
     prepare_weights,
 )
 from bcnf_tpu_torch.ops.nn import gelu
@@ -177,8 +180,9 @@ def _memory_key(t: torch.Tensor) -> tuple:
 def prepared_coupling(w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Tensor], bm: Sequence[torch.Tensor],
                       wout: torch.Tensor, bout: torch.Tensor) -> dict:
     """One coupling's prepared weights: `{"args": every argument of
-    `coupling_flow_args` but h_proj, "wstages": {passes: the `wgmma` stage
-    layout}}` (the layouts filled in by the caller as a route needs them),
+    `coupling_flow_args` but h_proj, "wstages": {route: the layout of the
+    hidden weights that `wgmma` route reads}}` (the layouts filled in by the
+    caller as a route needs them),
     made once per parameter version. Each weight is known by the memory it
     views (address, dtype, device, shape, strides: a per-block view `t[k]`
     of the stacked parameters is a new tensor object at every pass, but the
@@ -226,7 +230,7 @@ def fused_affine_coupling(
     the coupling's prepared weights (`prepared_coupling`), or raises. Counts
     its launches in `launches`, by mode in `mode_launches`, and the
     preparations of its weights in `preparations` (the padded stack) and
-    `stage_preparations` (a `wgmma` stage layout)."""
+    `stage_preparations` (a `wgmma` route's layout)."""
     _check_mode(mode, TF32_MODES)
     n_cond = h_proj.shape[0] if n_cond is None else n_cond
     wm, bm = list(wm), list(bm)
@@ -244,12 +248,13 @@ def fused_affine_coupling(
     entry = prepared_coupling(w1y, b1, wm, bm, wout, bout)
     args = dict(entry["args"], h_proj=_pad_projection(h_proj, entry["args"]["b1"].shape[-1]))
     wstages = None
-    if B and flow_route(args["b1"].shape[-1], size, d_a, inverse, mode) in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
-        passes = 1 if mode == MODE_TF32 else 3
-        if passes not in entry["wstages"]:
-            entry["wstages"][passes] = prepare_weights(args["wm"], passes)
+    route = flow_route(args["b1"].shape[-1], size, d_a, inverse, mode)
+    if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, ROUTE_FWD_WGMMA_TF32):
+        if route not in entry["wstages"]:
+            entry["wstages"][route] = (prepare_train_weights(args["wm"]) if route == ROUTE_FWD_WGMMA_TF32 else
+                                       prepare_weights(args["wm"], 1 if route == ROUTE_WGMMA_TF32 else 3))
             fused_affine_coupling.stage_preparations += 1
-        wstages = entry["wstages"][passes]
+        wstages = entry["wstages"][route]
     _, y, ld = _launch_flow(torch.cat([x_a, x_b], dim=1), args, inverse=inverse, n_cond=n_cond, mode=mode,
                             wstages=wstages)
     if x_a.shape[0]:

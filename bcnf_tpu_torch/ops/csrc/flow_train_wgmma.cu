@@ -171,19 +171,6 @@ __device__ __forceinline__ size_t daA_index(int r, int f, int MT) {
   return ((static_cast<size_t>(r >> 5) * MT + (f >> 6)) << 11) + ((r & 31) << 6) + ((f & 63) ^ ((r & 3) << 3));
 }
 
-__device__ __forceinline__ uint32_t map_peer(const void* p, uint32_t cta) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(cta));
-  return r;
-}
-__device__ __forceinline__ void st_peer2(uint32_t addr, float a, float b) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
-}
-__device__ __forceinline__ void st_peer(uint32_t addr, float a) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a) : "memory");
-}
-__device__ __forceinline__ float rna(float x) { return __uint_as_float(tf32_rna(x)); }
-
 struct TwScratch {
   float* gs;    // gelu'(a_l), l <= nh: each block's in its threads' fragment order
   float* hT;    // h_l, l < nh, in the B stage layout (plane l)

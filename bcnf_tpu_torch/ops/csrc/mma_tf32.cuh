@@ -45,6 +45,8 @@ namespace bcnf {
 // in two integer operations where ptxas lowers cvt.rna to four with a NaN
 // guard.
 __device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+// The same, kept in a float.
+__device__ __forceinline__ float rna(float x) { return __uint_as_float(tf32_rna(x)); }
 
 struct FragA {
   uint32_t hi[4], lo[4];

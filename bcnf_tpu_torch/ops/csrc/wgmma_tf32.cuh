@@ -96,6 +96,19 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
+// The shared::cluster address of `p`'s offset in block `cta`'s shared memory,
+// and stores of one or two floats there (distributed shared memory).
+__device__ __forceinline__ uint32_t map_peer(const void* p, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(cta));
+  return r;
+}
+__device__ __forceinline__ void st_peer2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+__device__ __forceinline__ void st_peer(uint32_t addr, float a) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(a) : "memory");
+}
 // Arrive on the barrier at `bar`'s offset in block `cta` of the cluster.
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
   asm volatile(

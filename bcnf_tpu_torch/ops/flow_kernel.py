@@ -13,7 +13,9 @@
     precisions, which the JAX model serves with its "default" kernel mode)
     runs the same kernels built with one TF32 pass a product (the `*_tf32`
     libraries, `ops/_build.py`); its `wgmma` inverse streams hi-only weight
-    stages (`prepare_weights(wm, passes=1)`);
+    stages (`prepare_weights(wm, passes=1)`), and its forward at padded
+    widths up to 544 runs the `wgmma` forward of `csrc/flow_fwd_wgmma.cu` on
+    the weights `prepare_train_weights` lays out;
   - the strict mode (`CondRealNVP(pallas_strict=True)`, as the JAX model's
     strict flag forces its exact-float32 kernel mode) runs the float32 FMA
     kernel (`csrc/flow_fma.cu`) both ways: persistent blocks, one an SM,
@@ -21,12 +23,15 @@
 - K4, the per-coupling kernel, is K1 at one step (`ops/coupling_kernel.py`).
 - K2a/K2b, `fused_flow_train`, replace `fused_flow_train` and its custom VJP
   (`fwd_call`/`bwd_call` of `_make_fused_flow_train`): a
-  `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`,
-  the row-tile kernel with its step-input store) and whose backward is K2b
+  `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`, on
+  the forward route `flow_route` gives: the row-tile kernel with its
+  step-input store, or in the reduced mode at padded widths up to 544 the
+  `wgmma` forward of `csrc/flow_fwd_wgmma.cu`) and whose backward is K2b
   (`fused_flow_train_bwd`, on the route `train_bwd_route` gives: the row
   tiles of `csrc/flow_train_kernel.cu`, or in the reduced mode at padded
-  widths up to 544 the `wgmma` route of `csrc/flow_train_wgmma.cu` on
-  weights `prepare_train_weights` lays out once a call). Both run their
+  widths up to 544 the `wgmma` route of `csrc/flow_train_wgmma.cu`). Both
+  `wgmma` routes read the hidden weights as `prepare_train_weights` lays
+  them out, prepared once a step and handed from K2a to K2b. Both run their
   square hidden products on the tensor cores in 3xTF32 (`csrc/flow_rows.cuh`),
   or in one TF32 pass in the reduced mode.
 
@@ -78,9 +83,12 @@ TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K2a, K2b and K4 
 # and row tiles; each route's library (`ops/_build.py`).
 ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
 ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
+ROUTE_FWD_WGMMA_TF32 = "fwd_wgmma_tf32"  # the one-pass forward on wgmma (K1, K2a, K4; csrc/flow_fwd_wgmma.cu)
 ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_fma",
-                 ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32"}
+                 ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32",
+                 ROUTE_FWD_WGMMA_TF32: "flow_fwd_wgmma_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
+FWD_WGMMA_MAX_TN = 17  # the widest width the one-pass wgmma forward holds (Hp 544); 0 forces the one-pass row tiles
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
 # K2b's routes (`train_bwd_route`): the row tiles in 3xTF32 (`ROUTE_ROWS`) and
 # in one pass (`ROUTE_ROWS_TF32`), and the one-pass `wgmma` route
@@ -97,13 +105,17 @@ TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 
 # `wgmma` route's rows a cluster, blocks a cluster and weight ring (stages of
 # kTwStageK rows); the strict kernel's consumer warps, rows a lane, the
 # widest TN at that many rows, weight rows a stage and the bounds of its
-# ring (`fma_layout`).
+# ring (`fma_layout`); the one-pass `wgmma` forward's rows a cluster, blocks
+# a cluster, weight rows a stage, the bounds of its ring and the floats of
+# its barriers (`fwd_wgmma_ring`).
 _SOURCE_CONSTANTS = {"kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh", "kWgRing3xTf32": "flow_wgmma.cu",
                   "kWgRingTf32": "flow_wgmma.cu", "kWgClusterTf32": "flow_wgmma.cu",
                   "kTwRows": "flow_train_wgmma.cu", "kTwCluster": "flow_train_wgmma.cu",
                   "kTwRing": "flow_train_wgmma.cu", "kTwStageK": "flow_train_wgmma.cu",
                   **{name: "flow_fma.cu" for name in ("kFmaWarps", "kFmaLaneRows", "kFmaWideTN", "kFmaStageRows",
-                                                       "kFmaRingMin", "kFmaRingMax")}}
+                                                       "kFmaRingMin", "kFmaRingMax")},
+                  **{name: "flow_fwd_wgmma.cu" for name in ("kFwRows", "kFwCluster", "kFwStageK", "kFwRingMin",
+                                                             "kFwRingMax", "kFwBarrierFloats")}}
 
 
 @functools.cache
@@ -195,10 +207,13 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     """Bytes of shared memory a block of K1's kernel on `route` takes at this
     shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
     `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`; `csrc/flow_fma.cu`:
-    `fma_smem`, at its least), and of K2b's
-    rows kernels (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`;
-    `ROUTE_TRAIN_BWD_WGMMA`: `csrc/flow_train_wgmma.cu`: `tw_smem`)."""
+    `fma_smem`, at its least; `csrc/flow_fwd_wgmma.cu`: `fw_smem`, at its
+    least), and of K2b's rows kernels (`ROUTE_TRAIN_BWD`;
+    `csrc/flow_train_kernel.cu`: `launch_rows`; `ROUTE_TRAIN_BWD_WGMMA`:
+    `csrc/flow_train_wgmma.cu`: `tw_smem`)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
+    if route == ROUTE_FWD_WGMMA_TF32:  # the shortest ring
+        return fwd_wgmma_smem(Hp, size, d_a, kernel_limit("kFwRingMin"))
     if route == ROUTE_TRAIN_BWD_WGMMA:  # barriers, tile, ring, then x1, dx2, [t | s'], dout and x1_a in TF32,
         rows, stage = kernel_limit("kTwRows"), kernel_limit("kTwStageK") * Hp // 2  # the exchanged halves, dld
         state = rows * (2 * size + 2 * n_out + d_a + 2 * max(n_out, d_a) + 1)
@@ -275,18 +290,62 @@ def fma_groups(B: int, rows: int, blocks: int) -> list[tuple[int, int]]:
     return [(b * groups // blocks, (b + 1) * groups // blocks) for b in range(blocks)]
 
 
+def fwd_wgmma_smem(Hp: int, size: int, d_a: int, stages: int) -> int:
+    """Bytes of shared memory a block of the one-pass `wgmma` forward takes
+    with a ring of `stages` stages (`csrc/flow_fwd_wgmma.cu`: `fw_smem`):
+    the ring's barriers, the 64-row tile, the stages (kFwStageK weight rows of
+    the block's Hp/2 columns), and the rows' state: x and the mix's output,
+    each rank's half of [t | s'], logdet."""
+    rows, n_out = kernel_limit("kFwRows"), 2 * (size - d_a)
+    return 4 * (kernel_limit("kFwBarrierFloats") + rows * (Hp + 4) + stages * kernel_limit("kFwStageK") * Hp // 2
+                + rows * (2 * size + 2 * n_out + 1))
+
+
+def fwd_wgmma_ring(Hp: int, size: int, d_a: int) -> int:
+    """The ring's stages of the one-pass `wgmma` forward at this shape
+    (`csrc/flow_fwd_wgmma.cu`: `fw_ring`): as many as fit in a block's shared
+    memory, at most kFwRingMax, at least kFwRingMin and Wout's stages (a
+    stage carries as many of Wout's Hp/2 rows of the block as its floats
+    hold, a multiple of 4: `wout_rows`); 0 where the kernel refuses the
+    shape (W1y's d_a rows past one stage of kFwStageK, Wout's rows past the
+    ring, or no ring beside the tile)."""
+    NB, stage_k = Hp // 2, kernel_limit("kFwStageK")
+    rows = min((stage_k * NB // (2 * (size - d_a))) & ~3, NB)
+    if d_a > stage_k or rows < 4:
+        return 0
+    least = max(kernel_limit("kFwRingMin"), -(-NB // rows))
+    return next((r for r in range(kernel_limit("kFwRingMax"), least - 1, -1)
+                 if fwd_wgmma_smem(Hp, size, d_a, r) <= kernel_limit("kSmemLimit")), 0)
+
+
+def fwd_wgmma_card_layout(Hp: int, size: int, d_a: int, B: int) -> tuple[int, int, int, int]:
+    """The one-pass `wgmma` forward's launch at this shape on the current
+    card (`csrc/flow_fwd_wgmma.cu`: `bcnf_flow_fwd_wgmma_layout`): ring
+    stages, bytes of shared memory, blocks, and clusters resident at once."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library(ROUTE_LIBRARY[ROUTE_FWD_WGMMA_TF32])
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.bcnf_flow_fwd_wgmma_layout(Hp, size, d_a, B, out), lib, "fwd_wgmma_card_layout")
+    return tuple(out)
+
+
 def _check_mode(mode: str, modes: tuple[str, ...] = KERNEL_MODES) -> None:
     if mode not in modes:
         raise ValueError(f"kernel mode {mode!r} is not one of {modes}")
 
 
 def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XTF32) -> str | None:
-    """Which of K1's kernels runs this call, by mode and shape: strict
-    (`MODE_FMA`) takes the float32 FMA kernel; the default and the one-pass
-    mode the `wgmma` inverse where it holds the width and the shape, else
-    the row tiles, each built for its mode. None where no kernel takes the
-    shape (its shared memory; then the model's gate stays closed, as JAX's
-    `inverse_fused_flow` returns None)."""
+    """Which of K1's kernels runs this call (and, forward, which runs K2a's
+    and K4's), by mode and shape: strict (`MODE_FMA`) takes the float32 FMA
+    kernel; the default and the one-pass mode the `wgmma` inverse where it
+    holds the width and the shape, else the row tiles, each built for its
+    mode; the one-pass forward the `wgmma` forward (`csrc/flow_fwd_wgmma.cu`)
+    at the widths it holds (`FWD_WGMMA_MAX_TN`) where its ring takes the
+    shape (`fwd_wgmma_ring`), at every batch (PERF.md: the card's row sweep),
+    else the one-pass row tiles; the 3xTF32 forward the row tiles. None where
+    no kernel takes the shape (its shared memory; then the model's gate stays
+    closed, as JAX's `inverse_fused_flow` returns None)."""
     _check_mode(mode)
     if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size:
         return None
@@ -295,9 +354,13 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
         candidates = (ROUTE_FMA,)
     elif inverse and Hp // 32 <= WGMMA_MAX_TN:
         candidates = (wgmma, rows)
+    elif not inverse and mode == MODE_TF32 and Hp // 32 <= FWD_WGMMA_MAX_TN:
+        candidates = (ROUTE_FWD_WGMMA_TF32, rows)
     else:
         candidates = (rows,)
-    return next((r for r in candidates if kernel_smem(r, Hp, size, d_a) <= kernel_limit("kSmemLimit")), None)
+    limit = kernel_limit("kSmemLimit")
+    return next((r for r in candidates if (fwd_wgmma_ring(Hp, size, d_a) > 0 if r == ROUTE_FWD_WGMMA_TF32
+                                           else kernel_smem(r, Hp, size, d_a) <= limit)), None)
 
 
 def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF32) -> str | None:
@@ -326,13 +389,10 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
 
 
 def train_kernels_take(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF32) -> bool:
-    """Whether K2a and K2b take this shape in `mode`: a width they are
-    compiled for, K2a's row tiles' shared memory within a block's
-    (`kSmemLimit`, `csrc/flow_kernel.cu`), and a K2b route
-    (`train_bwd_route`, which reads its kernels' limits from their sources)."""
-    if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size or nh < 1:
-        return False
-    if kernel_smem(ROUTE_ROWS, Hp, size, d_a) > kernel_limit("kSmemLimit"):
+    """Whether K2a and K2b take this shape in `mode`: a K2a route (the
+    forward's, `flow_route`) and a K2b route (`train_bwd_route`), each read
+    from its kernels' limits in their sources; nh >= 1."""
+    if nh < 1 or flow_route(Hp, size, d_a, False, mode) is None:
         return False
     return train_bwd_route(Hp, size, d_a, nh, mode) is not None
 
@@ -368,11 +428,13 @@ def prepare_weights(wm: torch.Tensor, passes: int = 3) -> torch.Tensor:
 def prepare_train_weights(wm: torch.Tensor) -> torch.Tensor:
     """`prepare_train_weights_reference`'s layout of `wm` on its device: on a
     CUDA tensor one launch of `csrc/flow_train_wgmma.cu`'s `prepare_kernel`
-    (counted in `launches`), or raises; on a CPU tensor the plain version."""
+    (counted in `launches`), or raises; on a CPU tensor, or a stack of no
+    layer (nothing to lay out), the plain version. K2b's and the one-pass
+    forward's `wgmma` routes read it: the forward direction 0, K2b both."""
     S, nh, Hp, _ = wm.shape
     if Hp % 32:
         raise ValueError(f"prepare_train_weights: the padded width {Hp} is not a multiple of 32")
-    if wm.device.type == "cpu":
+    if wm.device.type == "cpu" or wm.numel() == 0:
         return prepare_train_weights_reference(wm)
     if wm.device.type != "cuda" or wm.dtype != torch.float32:
         raise ValueError(f"prepare_train_weights takes float32 CPU or CUDA tensors, not {wm.dtype} on {wm.device}")
@@ -529,8 +591,9 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
                  ) -> tuple[str, torch.Tensor, torch.Tensor | None]:
     """Launch K1 on checked CUDA tensors, uncounted, on the route
     `flow_route` gives for `mode`; returns `(route, y, logdet or None)`. The
-    `wgmma` routes read the hidden weights as `prepare_weights` gives them
-    for the mode: pass them as `wstages`, or they are prepared here. `parts`
+    `wgmma` inverses read the hidden weights as `prepare_weights` gives them
+    for the mode, the `wgmma` forward as `prepare_train_weights` does: pass
+    them as `wstages`, or they are prepared here. `parts`
     other than both runs the `wgmma` inverse with a part left out, to time
     the rest (chip_smoke.py): its products on stale weight stages
     (`WG_PRODUCTS`), the weights' stream without the products
@@ -555,6 +618,10 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
             passes = 1 if route == ROUTE_WGMMA_TF32 else 3
             tensors[6] = prepare_weights(args["wm"], passes) if wstages is None else wstages
             err = lib.bcnf_flow_inverse_wgmma(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
+        elif route == ROUTE_FWD_WGMMA_TF32:  # no step-input store (that is K2a's)
+            tensors[6] = prepare_train_weights(args["wm"]) if wstages is None else wstages
+            err = lib.bcnf_flow_fwd_wgmma(*_ptrs(x, *tensors, y, ld), ctypes.c_void_p(0),
+                                          B, n_cond, S, size, d_a, nh, Hp, _stream())
         else:
             ld_ptr = ctypes.c_void_p(0 if ld is None else ld.data_ptr())
             if route != ROUTE_FMA:  # no step-input store (that is K2a's)
@@ -742,13 +809,6 @@ def fused_flow_train_backward_reference(
     return dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout
 
 
-def _train_library(source: str, mode: str) -> str:
-    """The library of a training kernel in `mode` (`ops/_build.py`)."""
-    from bcnf_tpu_torch.ops._build import ONE_PASS
-
-    return source + ONE_PASS if mode == MODE_TF32 else source
-
-
 def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tensor]) -> None:
     if x.dim() != 2 or h_proj.dim() != 3 or h_proj.shape[1] != x.shape[0]:
         raise ValueError(
@@ -762,12 +822,16 @@ def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, tor
 def fused_flow_train_fwd(
     x: torch.Tensor, h_proj: torch.Tensor, an_scale: torch.Tensor, an_bias: torch.Tensor,
     ortho: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor,
-    wout: torch.Tensor, bout: torch.Tensor, *, mode: str = MODE_3XTF32,
+    wout: torch.Tensor, bout: torch.Tensor, *, mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2a: `(z, logdet, bound)` in one launch. A CPU tensor takes
     `fused_flow_train_reference` (float32 in every mode); a CUDA tensor
-    launches the kernel built for `mode` (3xTF32 or one TF32 pass), or raises.
-    Counts its launches in `launches`, and by mode in `mode_launches`."""
+    launches the forward kernel `flow_route` gives for `mode` (the row tiles
+    with their step-input store in 3xTF32 or one TF32 pass, or the one-pass
+    `wgmma` forward, which reads the hidden weights as
+    `prepare_train_weights` lays them out: pass them as `wstages`, or they are
+    prepared here), or raises. Counts its launches in `launches`, by mode in
+    `mode_launches` and by route in `route_launches`."""
     _check_mode(mode, TF32_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
@@ -779,27 +843,52 @@ def fused_flow_train_fwd(
 
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library(_train_library("flow_kernel", mode))
     B, size = x.shape
     S, _, Hp = h_proj.shape
+    d_a, nh = w1y.shape[1], wm.shape[1]
+    route = flow_route(Hp, size, d_a, False, mode)
+    if route is None:
+        raise ValueError(f"fused_flow_train_fwd: no kernel takes size {size}, d_a {d_a} at hidden width {Hp} ({mode})")
     z = torch.empty_like(x)
     ld = torch.empty((B,), dtype=x.dtype, device=x.device)
     bound = torch.empty((S, B, size), dtype=x.dtype, device=x.device)
     if B == 0:
         return z, ld, bound
-    with torch.cuda.device(x.device):  # the row-tile kernel with its step-input store, N = B
-        err = lib.bcnf_flow_rows(
-            *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
-            B, B, S, size, w1y.shape[1], wm.shape[1], Hp, 0, _stream(),
-        )
-    _raise_on(err, lib, "fused_flow_train_fwd")
+    lib = load_library(ROUTE_LIBRARY[route])
+    with torch.cuda.device(x.device):  # the forward with its step-input store, N = B
+        if route == ROUTE_FWD_WGMMA_TF32:
+            staged = prepare_train_weights(wm) if wstages is None else wstages
+            err = lib.bcnf_flow_fwd_wgmma(
+                *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
+                B, B, S, size, d_a, nh, Hp, _stream())
+        else:
+            err = lib.bcnf_flow_rows(
+                *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
+                B, B, S, size, d_a, nh, Hp, 0, _stream())
+    _raise_on(err, lib, f"fused_flow_train_fwd ({route})")
     fused_flow_train_fwd.launches += 1
     fused_flow_train_fwd.mode_launches[mode] += 1
+    fused_flow_train_fwd.route_launches[route] += 1
     return z, ld, bound
 
 
 fused_flow_train_fwd.launches = 0  # type: ignore[attr-defined]
 fused_flow_train_fwd.mode_launches = collections.Counter()  # type: ignore[attr-defined]
+fused_flow_train_fwd.route_launches = collections.Counter()  # type: ignore[attr-defined]
+
+
+def train_weights(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: int, mode: str) -> torch.Tensor | None:
+    """The hidden weights of a training step as `prepare_train_weights` lays
+    them out, prepared once for K2a and K2b where either runs on its `wgmma`
+    route (a CUDA tensor in the one-pass mode at the widths those routes
+    hold); None where neither reads them."""
+    if x.device.type != "cuda":
+        return None
+    Hp, size, nh = h_proj.shape[-1], x.shape[1], wm.shape[1]
+    if (flow_route(Hp, size, d_a, False, mode) == ROUTE_FWD_WGMMA_TF32
+            or train_bwd_route(Hp, size, d_a, nh, mode) == ROUTE_WGMMA_TF32):
+        return prepare_train_weights(wm)
+    return None
 
 
 BWD_ROWS, BWD_WEIGHT_GRADS, BWD_ACTNORM = 1, 2, 4  # K2b's parts
@@ -809,7 +898,7 @@ def fused_flow_train_bwd(
     bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     an_scale: torch.Tensor, an_bias: torch.Tensor, ortho: torch.Tensor, w1y: torch.Tensor,
     b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor, wout: torch.Tensor, bout: torch.Tensor,
-    *, mode: str = MODE_3XTF32,
+    *, mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """K2b: every grad of K2a's outputs, in one call of the kernel's entry
     point (which enqueues a few launches per step). Returns `(dx, dh_proj,
@@ -817,9 +906,10 @@ def fused_flow_train_bwd(
     takes `fused_flow_train_backward_reference` (float32 in every mode); a
     CUDA tensor launches the kernels of `train_bwd_route` for `mode` (the row
     tiles of `csrc/flow_train_kernel.cu`, or in one pass at Hp <= 544 the
-    `wgmma` route of `csrc/flow_train_wgmma.cu`), or raises. Counts its calls
-    in `launches`, by mode in `mode_launches` and by route in
-    `route_launches`."""
+    `wgmma` route of `csrc/flow_train_wgmma.cu`, on `wstages` as
+    `prepare_train_weights` lays out `wm`, or on weights it prepares), or
+    raises. Counts its calls in `launches`, by mode in `mode_launches` and by
+    route in `route_launches`."""
     _check_mode(mode, TF32_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
@@ -841,7 +931,8 @@ def fused_flow_train_bwd(
              torch.empty_like(bm), torch.empty_like(wout), torch.empty_like(bout))
     if B == 0:
         return tuple(g.zero_() for g in grads)
-    route = _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM, mode)
+    route = _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM, mode,
+                             wstages)
     fused_flow_train_bwd.launches += 1
     fused_flow_train_bwd.mode_launches[mode] += 1
     fused_flow_train_bwd.route_launches[route] += 1
@@ -906,21 +997,25 @@ class _FusedFlowTrain(torch.autograd.Function):
     """K2a forward, K2b backward: the custom VJP of the JAX package
     (`bcnf_tpu/ops/flow_kernel.py:653-672`), both in the kernel mode given
     first (the backward runs in the forward's mode, whatever the context it
-    runs in). The mixes get zero grads."""
+    runs in). The mixes get zero grads. Where K2a or K2b runs on its `wgmma`
+    route, the hidden weights are prepared once in the forward
+    (`train_weights`) and held for the backward: twice Wm's bytes (246 MB at
+    the flagship's 26 steps of 4 layers at Hp 544) from K2a to K2b."""
 
     @staticmethod
     def forward(ctx: Any, mode: str, x: torch.Tensor, h_proj: torch.Tensor,
                 *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args, mode=mode)
+        wstages = train_weights(x, h_proj, args[5], args[3].shape[1], mode)
+        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args, mode=mode, wstages=wstages)
         ctx.save_for_backward(bound, h_proj, *args)
-        ctx.mode = mode
+        ctx.mode, ctx.wstages = mode, wstages
         return z, ld
 
     @staticmethod
     def backward(ctx: Any, dz: torch.Tensor, dld: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
         bound, h_proj, *args = ctx.saved_tensors  # an unused output's cotangent arrives as zeros
         dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout = fused_flow_train_bwd(
-            bound, h_proj, dz.contiguous(), dld.contiguous(), *args, mode=ctx.mode)
+            bound, h_proj, dz.contiguous(), dld.contiguous(), *args, mode=ctx.mode, wstages=ctx.wstages)
         return None, dx, dhp, dan_s, dan_b, torch.zeros_like(args[2]), dw1y, db1, dwm, dbm, dwout, dbout
 
 

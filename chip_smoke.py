@@ -130,7 +130,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
    kernel (JAX's reduced-mode bar, 5e-3) and shown not to be the 3xTF32
    kernel, their CUDA-event times beside 3xTF32's, the one-pass `wgmma`
    inverse's parts (products alone, stream alone, both, neither) and layout,
-   the one-pass round trip beside the JAX CLI's TPU figure; K2b's `wgmma`
+   the one-pass round trip beside the JAX CLI's TPU figure; K1's forward
+   (4096 log_prob rows) and K2a on the `wgmma` forward
+   (csrc/flow_fwd_wgmma.cu) and on the one-pass row tiles forced on the same
+   inputs, each with its time (the `wgmma` forward's also with its weight
+   preparation), bound and layout, the `wgmma` forward equal to the bit
+   between two calls and no further from the plain one-pass version than
+   twice the row tiles; K2b's `wgmma`
    route (csrc/flow_train_wgmma.cu) and the one-pass row tiles forced on the
    same inputs, each with its time, parts (rows, weight grads, the rest),
    bound, rate, blocks and waves, the `wgmma` route's weight preparation
@@ -143,8 +149,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    points (the test NLL equal to the bit; stage seconds), the per-coupling
    inverse (K4) at "default"; (c) `Trainer.train` at `training.precision:
    default` on the flagship at batch 4096 with dropout 0 (K2a/K2b in one
-   pass; K2b on `wgmma`, then with the row tiles forced: samples/s, the
-   losses within the one-pass bar) and on the published config at 256
+   pass, both on `wgmma`, then with K2b's row tiles forced, then with K2a's:
+   samples/s, the losses within the one-pass bar, the hidden weights
+   prepared once a step) and on the published config at 256
    (plain autograd in TF32), train samples/s and losses beside float32; the
    one-pass training floor sweep (the flagship's dropout-0 step at 32-256
    rows with K2b on `wgmma`, on the row tiles and on plain autograd); (d)
@@ -179,7 +186,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    K3a/K3b (the default); fails where the kernels lose a case by more than
    LSTM_LOSS; (b) the training floor: the flagship's dropout-0 step at 32,
    64, 128 and 256 rows with K2a/K2b and without, beside the model's
-   `fused_train_min_batch`.
+   `fused_train_min_batch`; the one-pass forward's routes by rows: K2a at
+   32-256 and 4096 rows, K1's forward at 200, 2048 and 4096, on the `wgmma`
+   forward and on the row tiles (fails where the row tiles win: the route
+   has no row floor).
 
 The line before the last is the kernel table as JSON (each row with its
 arithmetic, `arith`: float32 FMA, 3xTF32 on the tensor cores, or one TF32
@@ -3154,17 +3164,21 @@ JAX_X3_ROUND_TRIP = 1.82e-3
 
 
 def one_pass_counts() -> dict:
-    """Launches of the one-pass kernels: K1 by route (the flagship's inverse
-    on `wgmma`, its forward on the row tiles), K2a by mode, K2b by route (the
-    flagship's on `wgmma`; the row tiles where phase 15 (c) forces them)."""
+    """Launches of the one-pass kernels by route: K1 (the flagship's inverse
+    on `wgmma`, its forward on the `wgmma` forward; the forward's row tiles
+    where phase 15 (c) forces them), K2a (the `wgmma` forward; the row tiles
+    where forced), K2b (the flagship's on `wgmma`; the row tiles where
+    forced), and the weight preparation K2a and K2b share."""
     from bcnf_tpu_torch.ops.flow_kernel import (
-        MODE_TF32, ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32, fused_flow, fused_flow_train_bwd, fused_flow_train_fwd,
-        prepare_train_weights,
+        ROUTE_FWD_WGMMA_TF32, ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32, fused_flow, fused_flow_train_bwd,
+        fused_flow_train_fwd, prepare_train_weights,
     )
 
     return {"K1 inverse": fused_flow.route_launches[ROUTE_WGMMA_TF32],
-            "K1 forward": fused_flow.route_launches[ROUTE_ROWS_TF32],
-            "K2a": fused_flow_train_fwd.mode_launches[MODE_TF32],
+            "K1 forward": fused_flow.route_launches[ROUTE_FWD_WGMMA_TF32],
+            "K1 forward row tiles": fused_flow.route_launches[ROUTE_ROWS_TF32],
+            "K2a": fused_flow_train_fwd.route_launches[ROUTE_FWD_WGMMA_TF32],
+            "K2a row tiles": fused_flow_train_fwd.route_launches[ROUTE_ROWS_TF32],
             "K2b": fused_flow_train_bwd.route_launches[ROUTE_WGMMA_TF32],
             "K2b row tiles": fused_flow_train_bwd.route_launches[ROUTE_ROWS_TF32],
             "K2b prep": prepare_train_weights.launches}
@@ -3178,21 +3192,23 @@ def zero_all_counts() -> None:
     fused_affine_coupling.launches = prepare_train_weights.launches = 0
     for fn in (fused_flow_train_fwd, fused_flow_train_bwd, fused_affine_coupling):
         fn.mode_launches.clear()
+    fused_flow_train_fwd.route_launches.clear()
     fused_flow_train_bwd.route_launches.clear()
 
 
 @contextlib.contextmanager
-def row_tiles_forced():
-    """K2b's one-pass row tiles in place of its `wgmma` route, by the module
-    constant that forces them (`TRAIN_WGMMA_MAX_TN = 0`)."""
+def row_tiles_forced(max_tn: str = "TRAIN_WGMMA_MAX_TN"):
+    """The one-pass row tiles in place of a `wgmma` route, by the module
+    constant that forces them: K2b's (`TRAIN_WGMMA_MAX_TN = 0`), or the
+    forward's, K1's, K2a's and K4's (`FWD_WGMMA_MAX_TN = 0`)."""
     from bcnf_tpu_torch.ops import flow_kernel as fk
 
-    max_tn = fk.TRAIN_WGMMA_MAX_TN
-    fk.TRAIN_WGMMA_MAX_TN = 0
+    widest = getattr(fk, max_tn)
+    setattr(fk, max_tn, 0)
     try:
         yield
     finally:
-        fk.TRAIN_WGMMA_MAX_TN = max_tn
+        setattr(fk, max_tn, widest)
 
 
 def _worst_rel(grads, ref) -> float:
@@ -3366,6 +3382,98 @@ def one_pass_wgmma_parts(x, kargs: dict, h_proj, n_cond: int, ms: float, work: t
           f"waves")
 
 
+def one_pass_forward(x1, ka: dict, hp1, x2, hp2, args: list, H: int, peaks, dev) -> tuple[list[dict], dict, object]:
+    """Phase 15 (a), the one-pass forward at the flagship's widths and 4096
+    rows on both of its routes: K1's forward (`log_prob`'s rows, N = 4096)
+    and K2a (rows with their own conditions, their step inputs stored) on the
+    `wgmma` forward (csrc/flow_fwd_wgmma.cu) and on the one-pass row tiles
+    forced on the same inputs; each held against its plain one-pass version
+    and the 3xTF32 kernel (REDUCED_TOL), the `wgmma` forward no further from
+    the plain one-pass version than twice the row tiles' distance and equal
+    to the bit between two calls. CUDA-event times (median of 5): the `wgmma`
+    forward on weights prepared once, the same with its preparation (K1's
+    forward prepares at every call; K2a shares one preparation a step with
+    K2b), the row tiles; the route's layout and ptxas lines. Returns the four
+    kernel rows (launches filled in later; K1's time with its preparation,
+    K2a's on handed-over weights), their 3xTF32 times, and K2a's step inputs."""
+    import torch
+
+    from bcnf_tpu_torch.ops import _build
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    named = dict(zip(TRAIN_ARGS, args))
+    B, size, Hp = x1.shape[0], x1.shape[1], hp1.shape[-1]
+    d_a = named["w1y"].shape[1]
+    ws = fk.prepare_train_weights(named["wm"])
+    kernel = "?"
+
+    def k1(mode, wstages=None):
+        if wstages is None:
+            return fk.fused_flow(x1, hp1, **ka, inverse=False, n_cond=B, mode=mode)
+        return fk._launch_flow(x1, dict(ka, h_proj=hp1), inverse=False, n_cond=B, mode=mode, wstages=wstages)[1:]
+
+    cases = {  # name: (run, plain, work, the wgmma forward's row name, the row tiles', the TPU kernel)
+        "K1 forward": (k1, lambda mm: fk.fused_flow_reference(x1, hp1, **ka, inverse=False, n_cond=B, mm=mm),
+                       flow_work(ka, hp1, B, H), "fused_flow[forward, tf32]", "fused_flow[forward, tf32, row tiles]",
+                       "bcnf_tpu/ops/flow_kernel.py:162"),
+        "K2a": (lambda mode, wstages=None: fk.fused_flow_train_fwd(x2, hp2, *args, mode=mode, wstages=wstages),
+                lambda mm: fk.fused_flow_train_reference(x2, hp2, *args, mm=mm), train_work(named, hp2, B, H)[0],
+                "K2a[tf32] fused_flow_train_fwd", "K2a[tf32, row tiles] fused_flow_train_fwd",
+                "bcnf_tpu/ops/flow_kernel.py:558"),
+    }
+    for line in _build.build_logs.get(fk.ROUTE_LIBRARY[fk.ROUTE_FWD_WGMMA_TF32], "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = kernel_label(line)
+        elif ("registers" in line or "spill" in line) and "<17," in kernel:
+            print(f"    ptxas the wgmma forward {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
+    ring, smem, blocks, resident = fk.fwd_wgmma_card_layout(Hp, size, d_a, B)
+    rows, three_ms, bound = [], {}, None
+    for what, (run, plain, work, name, tiles_name, replaces) in cases.items():
+        with torch.no_grad():
+            one, two = run(fk.MODE_TF32), run(fk.MODE_TF32)
+            three = run(fk.MODE_3XTF32)
+            with row_tiles_forced("FWD_WGMMA_MAX_TN"):
+                tiles = run(fk.MODE_TF32)
+            plain_one, plain_f32 = plain(matmul_tf32), plain(torch.matmul)
+            torch.cuda.synchronize()
+        e_wg = _hold_one_pass(f"{what} on the wgmma forward", one, three, plain_one, plain_f32)
+        e_tiles = _hold_one_pass(f"{what} on the row tiles", tiles, three, plain_one, plain_f32)
+        if not all(torch.equal(a, b) for a, b in zip(one, two)):
+            fail(f"{what} on the wgmma forward: two calls on the same inputs differ")
+        if not e_wg[0] <= 2 * e_tiles[0]:
+            fail(f"{what} on the wgmma forward is {e_wg[0]:.3e} from the plain one-pass version, past twice the row "
+                 f"tiles' {e_tiles[0]:.3e}")
+        with torch.no_grad():
+            times = {"kernel": cuda_ms(lambda: run(fk.MODE_TF32, ws), reps=5),
+                     "with its preparation": cuda_ms(lambda: run(fk.MODE_TF32), reps=5)}
+            with row_tiles_forced("FWD_WGMMA_MAX_TN"):
+                times["row tiles"] = cuda_ms(lambda: run(fk.MODE_TF32), reps=5)
+            three_t = median(cuda_ms(lambda: run(fk.MODE_3XTF32), reps=5))
+            p_times = cuda_ms(lambda: plain(matmul_tf32), reps=3)
+        main = times["with its preparation"] if what == "K1 forward" else times["kernel"]
+        row = kernel_row(name, "bcnf_tpu_torch/ops/csrc/flow_fwd_wgmma.cu", replaces, 0, e_wg[0], main, p_times,
+                         work, peaks, None, ARITH_TF32)
+        row["kernel_ms"], row["with_preparation_ms"] = median(times["kernel"]), median(times["with its preparation"])
+        tiles_row = kernel_row(tiles_name, "bcnf_tpu_torch/ops/csrc/flow_kernel.cu", replaces, 0, e_tiles[0],
+                               times["row tiles"], p_times, work, peaks, None, ARITH_TF32)
+        rows += [row, tiles_row]
+        three_ms[name] = three_ms[tiles_name] = three_t
+        if what == "K2a":
+            bound = one[2]
+        print(f"    {what} one pass, rows {B}: the wgmma forward {row['kernel_ms']:.3f} ms on weights prepared once "
+              f"({work[0] / row['kernel_ms'] / 1e9:.1f} TFLOP/s), {row['with_preparation_ms']:.3f} ms with its "
+              f"preparation; the row tiles {tiles_row['ms']:.3f} ms ({tiles_row['ms'] / row['kernel_ms']:.2f}x the "
+              f"kernel); 3xTF32 {three_t:.3f} ms; bound {row['bound_ms']:.3f} ms ({row['bound_by']}); plain one pass "
+              f"{row['plain_ms']:.2f} ms; max|d| vs plain one pass {e_wg[0]:.3e} (row tiles {e_tiles[0]:.3e}), vs "
+              f"3xTF32 {e_wg[1]:.3e} (3xTF32 vs plain float32 {e_wg[2]:.2e}); two calls equal to the bit")
+    print(f"    the wgmma forward's layout at {B} rows: {blocks} blocks in {blocks // 2} clusters of 2, {resident} "
+          f"clusters resident at once: {blocks / 2 / resident:.2f} waves; a {ring}-stage ring, {smem} bytes of shared "
+          f"memory; the weight preparation {median(cuda_ms(lambda: fk.prepare_train_weights(named['wm']), reps=5)):.3f} "
+          f"ms")
+    return rows, three_ms, bound
+
+
 def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float]) -> tuple[list[dict], dict]:
     """Phase 15 (a): K1 (the inverse on `wgmma` and on the row tiles, the
     forward), K2a, K2b and K4 in one TF32 pass at the flagship's widths and
@@ -3399,7 +3507,6 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
     cases = {  # direction: (x, kargs, h_proj, n_cond, inverse, the row-tile inverse forced)
         "inverse": (z, kargs, h_proj, N_COND, True, False),
         "inverse, row tiles": (z[:LOGPROB_ROWS], kargs, h_proj, N_COND, True, True),
-        "forward": (y_lp, kargs_f, h_proj_f, LOGPROB_ROWS, False, False),
     }
     wg_max = fk.WGMMA_MAX_TN
     for direction, (x, ka, hp, n, inv, rows_inverse) in cases.items():
@@ -3443,18 +3550,15 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
     if not rt <= REDUCED_TOL:
         fail(f"one-pass round trip {rt:.3e} > {REDUCED_TOL:g}")
 
-    # K2a and K2b at batch 4096, rows with their own conditions
+    # K1's forward at the log_prob rows, K2a and K2b at batch 4096 (rows with their own conditions)
     with torch.no_grad():
         kt, hpt = model._fused_flow_args(params, model.encode(params, (randn(LOGPROB_ROWS, 30, 3),)))
     args = [kt[k].contiguous() for k in TRAIN_ARGS]
     y_t = randn(LOGPROB_ROWS, model.size)
-    fwd = {m: fk.fused_flow_train_fwd(y_t, hpt, *args, mode=m) for m in modes}
-    z_p1, ld_p1, _ = fk.fused_flow_train_reference(y_t, hpt, *args, mm=matmul_tf32)
-    z_p, ld_p, _ = fk.fused_flow_train_reference(y_t, hpt, *args)
-    torch.cuda.synchronize()
-    e_fwd = _hold_one_pass("K2a", fwd[fk.MODE_TF32][:2], fwd[fk.MODE_3XTF32][:2], (z_p1, ld_p1), (z_p, ld_p))
-    bound = fwd[fk.MODE_TF32][2]
-    dz, dld = randn_cotangents(fwd[fk.MODE_TF32][0])
+    fwd_rows, fwd_three, bound = one_pass_forward(y_lp, kargs_f, h_proj_f, y_t, hpt, args, H, peaks, dev)
+    rows += fwd_rows
+    three_ms.update(fwd_three)
+    dz, dld = randn_cotangents(y_t)
     g1 = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args, mode=fk.MODE_TF32)
     g3 = fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args)
     gp1 = fk.fused_flow_train_backward_reference(bound, hpt, dz, dld, *args, mm=matmul_tf32)
@@ -3463,17 +3567,6 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
         print(f"      K2b one pass {name}: max|plain| {b.abs().max().item():.3e}, max|d| vs plain one pass "
               f"{(a - b).abs().max().item():.3e}, vs 3xTF32 {(a - c).abs().max().item():.3e}")
     work = dict(zip(("K2a", "K2b"), train_work(dict(zip(TRAIN_ARGS, args)), hpt, LOGPROB_ROWS, H)))
-    times = {m: cuda_ms(lambda: fk.fused_flow_train_fwd(y_t, hpt, *args, mode=m), reps=5) for m in modes}
-    row = kernel_row("K2a[tf32] fused_flow_train_fwd", "bcnf_tpu_torch/ops/csrc/flow_kernel.cu",
-                     "bcnf_tpu/ops/flow_kernel.py:558", 0, e_fwd[0], times[fk.MODE_TF32],
-                     cuda_ms(lambda: fk.fused_flow_train_reference(y_t, hpt, *args, mm=matmul_tf32), reps=3),
-                     work["K2a"], peaks, None, ARITH_TF32)
-    rows.append(row)
-    three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
-    print(f"    K2a rows {LOGPROB_ROWS}: one pass {row['ms']:.2f} ms, 3xTF32 {three_ms[row['name']]:.2f} ms "
-          f"({three_ms[row['name']] / row['ms']:.2f}x); bound {row['bound_ms']:.2f} ms (3xTF32 "
-          f"{bound_ms(work['K2a'], peaks, ARITH_3XTF32)[0]:.2f}); plain one pass {row['plain_ms']:.2f} ms; "
-          f"max|d| vs plain one pass {e_fwd[0]:.2e}")
     k2b_three = median(cuda_ms(lambda: fk.fused_flow_train_bwd(bound, hpt, dz, dld, *args), reps=5))
     for row in one_pass_k2b(bound, hpt, dz, dld, args, g3, work["K2b"], peaks, dev):
         rows.append(row)
@@ -3499,7 +3592,7 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
                                                                       mm=matmul_tf32), reps=3)
             work = coupling_work(cargs, x.shape[0], n, H, inverse)
             row = kernel_row(f"K4[tf32] fused_affine_coupling[{direction}]", "bcnf_tpu_torch/ops/csrc/" + (
-                "flow_wgmma.cu" if inverse else "flow_kernel.cu"), "bcnf_tpu/ops/coupling_kernel.py:69", 0, errs[0],
+                "flow_wgmma.cu" if inverse else "flow_fwd_wgmma.cu"), "bcnf_tpu/ops/coupling_kernel.py:69", 0, errs[0],
                 times[fk.MODE_TF32], p_times, work, peaks, None, ARITH_TF32)
             rows.append(row)
             three_ms[row["name"]] = median(times[fk.MODE_3XTF32])
@@ -3514,19 +3607,23 @@ def one_pass_kernels(model, params, rng, dev, peaks: tuple[float, float, float])
 def precision_training(dev, rng) -> None:
     """Phase 15 (c): `Trainer.train` on the flagship at batch 4096 with
     coupling dropout 0 and `training.precision: default` (K2a/K2b in one
-    pass: K2b on its `wgmma` route, then with the one-pass row tiles forced),
-    and on the published config at batch 256 (dropout 0.407: plain
-    autograd, its products in TF32), each beside float32: train samples/s
-    (5 steps after a warm-up) and the losses after the same steps; the two
-    K2b routes' losses within the one-pass bar of each other."""
+    pass: both on their `wgmma` routes, then with K2b's one-pass row tiles
+    forced, then with K2a's), and on the published config at batch 256
+    (dropout 0.407: plain autograd, its products in TF32), each beside
+    float32: train samples/s (5 steps after a warm-up) and the losses after
+    the same steps; each forced run's losses within the one-pass bar of the
+    `wgmma` routes'; at `default` the hidden weights prepared once a step
+    (`prepare_train_weights.launches`), whichever route reads them."""
     import numpy as np
     import torch
 
     from bcnf_tpu_torch.bridge import map_tree
     from bcnf_tpu_torch.config import load_config
     from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.ops.flow_kernel import prepare_train_weights
     from bcnf_tpu_torch.train import Trainer, make_optimizer
 
+    forced = {"default, row tiles": "TRAIN_WGMMA_MAX_TN", "default, K2a row tiles": "FWD_WGMMA_MAX_TN"}
     for what, B in (("flagship, dropout 0", 4096), ("published config", 256)):
         cfg = _flagship_train_config(B, 1) if B == 4096 else load_config(CONFIG).to_dict()
         cfg["training"].update(batch_size=B, n_epochs=1, timeout=None)
@@ -3534,11 +3631,11 @@ def precision_training(dev, rng) -> None:
         y = rng.normal(size=(n, 19)).astype(np.float32)
         traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
         result = {}
-        runs = ("highest", "default", "default, row tiles") if B == 4096 else ("highest", "default")
+        runs = ("highest", "default", *forced) if B == 4096 else ("highest", "default")
         for run in runs:
             precision = run.split(",")[0]
             cfg["training"]["precision"] = precision
-            with row_tiles_forced() if run.endswith("row tiles") else contextlib.nullcontext():
+            with row_tiles_forced(forced[run]) if run in forced else contextlib.nullcontext():
                 model = CondRealNVP.from_config(cfg)
                 trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED, verbose=False)
                 trained = trainer.train(model, model.init(torch.Generator().manual_seed(SEED), device=dev))
@@ -3554,25 +3651,31 @@ def precision_training(dev, rng) -> None:
                 cb = [torch.from_numpy(traj[:B]).to(dev)]
                 trainer.train_step(model, [params], opt, yb, cb, [gen])
                 torch.cuda.synchronize()
+                prepared = prepare_train_weights.launches
                 t0 = time.perf_counter()
                 for _ in range(5):
                     trainer.train_step(model, [params], opt, yb, cb, [gen])
                 torch.cuda.synchronize()
+                prepared = prepare_train_weights.launches - prepared
             result[run] = (5 * B / (time.perf_counter() - t0), losses)
+            if B == 4096 and run != "highest" and prepared != 5:
+                fail(f"{what} at {run}: the hidden weights were prepared {prepared} times in 5 steps, not once a step")
         print(f"    Trainer.train, {what}, batch {B}, 3 steps + validation: train samples/s float32 "
               f"{result['highest'][0]:,.0f}, default (one TF32 pass) {result['default'][0]:,.0f} "
               f"({result['default'][0] / result['highest'][0]:.2f}x); losses after the same steps (train, val) "
               f"float32 {', '.join(f'{v:.4f}' for v in result['highest'][1])}, default "
               f"{', '.join(f'{v:.4f}' for v in result['default'][1])}")
-        if "default, row tiles" in result:
-            (wg, wg_losses), (tiles, tile_losses) = result["default"], result["default, row tiles"]
+        for run, kernel in (("default, row tiles", "K2b"), ("default, K2a row tiles", "K2a")):
+            if run not in result:
+                continue
+            (wg, wg_losses), (tiles, tile_losses) = result["default"], result[run]
             far = [(a, b) for a, b in zip(wg_losses, tile_losses) if not abs(a - b) <= REDUCED_TOL * max(1.0, abs(b))]
-            print(f"    the same at default with K2b's one-pass row tiles forced: {tiles:,.0f} train samples/s against "
-                  f"{wg:,.0f} with its wgmma route ({wg / tiles:.2f}x); losses "
-                  f"{', '.join(f'{v:.4f}' for v in tile_losses)}")
+            print(f"    the same at default with {kernel}'s one-pass row tiles forced: {tiles:,.0f} train samples/s "
+                  f"against {wg:,.0f} with both on their wgmma routes ({wg / tiles:.3f}x); losses "
+                  f"{', '.join(f'{v:.4f}' for v in tile_losses)}; the hidden weights prepared once a step")
             if far:
-                fail(f"{what} at default: the wgmma route's losses and the row tiles' differ past the one-pass bar: "
-                     f"{far}")
+                fail(f"{what} at default: the wgmma routes' losses and those with {kernel}'s row tiles differ past "
+                     f"the one-pass bar: {far}")
 
 
 def one_pass_floor_sweep(rng, dev) -> None:
@@ -3748,6 +3851,8 @@ def precision_path(model, params, rng, dev, build_dir: str, peaks: tuple[float, 
     if missing:
         fail(f"the precision path launched no one-pass {', '.join(missing)}: {counts}")
     key = {"fused_flow[inverse, tf32]": "K1 inverse", "fused_flow[forward, tf32]": "K1 forward",
+           "fused_flow[forward, tf32, row tiles]": "K1 forward row tiles",
+           "K2a[tf32, row tiles] fused_flow_train_fwd": "K2a row tiles",
            "K4[tf32] fused_affine_coupling[inverse]": "K4 inverse", "K4[tf32] fused_affine_coupling[forward]": "K4 forward",
            "K2b[tf32, row tiles] fused_flow_train_bwd": "K2b row tiles",
            "K2b[tf32] prepare_train_weights": "K2b prep"}
@@ -4138,6 +4243,10 @@ def parallel_path(rng, dev, build_dir: str) -> dict:
 # (phase 9's rates move by up to 2x between calls; within one call less)
 LSTM_LOSS = 0.75
 FLOOR_BATCHES = (32, 64, 128, 256)
+# the one-pass forward's row sweep: K2a at the floor sweep's batches and the
+# flagship's 4096; K1's forward at `eval`'s 200 test points, a 2-shard
+# validation's 2048 rows and `log_prob`'s 4096
+FWD_SWEEP = {"K2a": (*FLOOR_BATCHES, 4096), "K1 forward": (200, 2048, 4096)}
 
 
 def train_floor_sweep(rng, dev) -> None:
@@ -4192,12 +4301,66 @@ def train_floor_sweep(rng, dev) -> None:
           f"fused_train_min_batch: {model.fused_train_min_batch}")
 
 
+def fwd_row_sweep(model, params, rng, dev) -> None:
+    """Phase 17 (b): the one-pass forward's routes by rows at the flagship's
+    widths: K2a at 32, 64, 128, 256 and 4096 rows (on weights prepared once,
+    as a training step hands them over) and K1's forward at 200, 2048 and
+    4096 rows (each call preparing its weights), on the `wgmma` forward and
+    on the forced one-pass row tiles, in turns (wgmma, row tiles, row tiles,
+    wgmma; CUDA events, median of 5 a turn, the better turn of each side);
+    the least row count from which the `wgmma` forward wins at every size
+    measured. Fails where the route takes the `wgmma` forward (it has no row
+    floor) and the row tiles were faster."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    with torch.no_grad():
+        traj = torch.from_numpy(rng.normal(size=(4096, 30, 3)).astype(np.float32)).to(dev)
+        kt, hpt = model._fused_flow_args(params, model.encode(params, (traj,)))
+    args = [kt[k].contiguous() for k in TRAIN_ARGS]
+    x = torch.from_numpy(rng.normal(size=(4096, model.size)).astype(np.float32)).to(dev)
+    ws = fk.prepare_train_weights(kt["wm"])
+    Hp, d_a = hpt.shape[-1], kt["w1y"].shape[1]
+    if fk.flow_route(Hp, model.size, d_a, False, fk.MODE_TF32) != fk.ROUTE_FWD_WGMMA_TF32:
+        fail("the flagship's one-pass forward does not take the wgmma forward")
+    best, lines, losses = {}, [], []
+    for what, sizes in FWD_SWEEP.items():
+        for B in sizes:
+            xb, hb = x[:B].contiguous(), hpt[:, :B].contiguous()
+            if what == "K2a":
+                def run():
+                    return fk.fused_flow_train_fwd(xb, hb, *args, mode=fk.MODE_TF32, wstages=ws)
+            else:
+                def run():
+                    return fk.fused_flow(xb, hb, **kt, inverse=False, n_cond=B, mode=fk.MODE_TF32)
+            with torch.no_grad():
+                for side in ("wgmma", "row tiles", "row tiles", "wgmma"):
+                    with row_tiles_forced("FWD_WGMMA_MAX_TN") if side == "row tiles" else contextlib.nullcontext():
+                        t = median(cuda_ms(run, reps=5))
+                    best[what, B, side] = min(best.get((what, B, side), float("inf")), t)
+            wg, tiles = best[what, B, "wgmma"], best[what, B, "row tiles"]
+            lines.append(f"{B} rows {wg:.3f} / {tiles:.3f} ms ({tiles / wg:.2f}x)")
+            if not wg < tiles:
+                losses.append(f"{what} at {B} rows ({wg:.3f} against {tiles:.3f} ms)")
+        wins = [best[what, B, "wgmma"] < best[what, B, "row tiles"] for B in sizes]
+        floor = next((B for i, B in enumerate(sizes) if all(wins[i:])), None)
+        print(f"    (b) the one-pass forward's routes by rows, {what} (the wgmma forward / the row tiles, better of two "
+              f"turns, median of 5 each): " + "; ".join(lines[-len(sizes):]) +
+              f"; the least rows from which the wgmma forward wins at every size measured: {floor}")
+    if losses:
+        fail("the one-pass forward takes the wgmma forward at every batch, but the row tiles were faster: "
+             + "; ".join(losses))
+
+
 def card_policies(model, params, rng, dev) -> None:
     """Phase 17: (a) the fused LSTM's table (phases 9, 10, 12 and 14: each
     published configuration with the encoder on K3a/K3b and on the time
     loop, in this run) and the default it sets: with BCNF_FUSED_LSTM unset
     a CUDA tensor takes K3a/K3b, a CPU tensor the time loop; fails where the
-    kernels lose a case past LSTM_LOSS; (b) the training floor sweep."""
+    kernels lose a case past LSTM_LOSS; (b) the training floor sweep and
+    the one-pass forward's row sweep."""
     import numpy as np
     import torch
 
@@ -4226,6 +4389,7 @@ def card_policies(model, params, rng, dev) -> None:
     if losses:
         fail(f"the fused LSTM is the default on the card but loses {', '.join(losses)} past {LSTM_LOSS:g}x")
     train_floor_sweep(rng, dev)
+    fwd_row_sweep(model, params, rng, dev)
     print(f"    phase 17 took {time.perf_counter() - t0:.1f} s")
 
 

@@ -147,6 +147,25 @@ def test_padded_width_is_exact_zero_padding():
     )
 
 
+def test_smoke_tools_and_port_scripts_import_no_jax():
+    """chip_smoke.py, every tool under tools/ and the port's script
+    scripts/k3a_parts.py import neither JAX nor the JAX package (an AST walk
+    of every import statement, top level or inside a function): they run on
+    the card's machine, which has no JAX."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    files = [root / "chip_smoke.py", root / "scripts" / "k3a_parts.py", *sorted((root / "tools").glob("*.py"))]
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            found += [f"{path.name}: {n}" for n in names if n.split(".")[0] in ("jax", "jaxlib", "bcnf_tpu", "optax")]
+    assert len(files) >= 8 and not found, found
+
+
 def test_k3a_parts_patches_apply_to_the_kernel_source():
     """scripts/k3a_parts.py's variants are text patches of the forward LSTM
     kernel: each still finds its target, and each variant dispatches only
@@ -277,11 +296,12 @@ def test_strict_layout_on_card_is_the_host_copy(cuda, Hp, size, d_a, B):
 @pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
 @pytest.mark.parametrize("hidden", [16, 526, 1000])  # wgmma up to Hp 544, row tiles above
 def test_one_pass_kernel_matches_plain_one_pass_on_card(cuda, inverse, hidden):
-    """K1 in one TF32 pass on the one-pass route of its width, ragged rows
-    included, within 5e-3 (the JAX package's reduced-mode bar) of the plain
-    one-pass version; counted once on its route. The float32 plain version
-    is off by more than the 3xTF32 kernel is: the pass is one."""
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32
+    """K1 in one TF32 pass on the one-pass route of its width (`wgmma` up to
+    Hp 544 both ways, the row tiles above), ragged rows included, within
+    5e-3 (the JAX package's reduced-mode bar) of the plain one-pass version;
+    counted once on its route. The float32 plain version is off by more than
+    the 3xTF32 kernel is: the pass is one."""
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA_TF32, ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32
     from bcnf_tpu_torch.ops.tf32 import matmul_tf32
 
     model = _tiny_model(hidden)
@@ -290,7 +310,7 @@ def test_one_pass_kernel_matches_plain_one_pass_on_card(cuda, inverse, hidden):
     traj = torch.from_numpy(rng.normal(size=(6, 9, 3)).astype(np.float32)).to(cuda)
     kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
     x = torch.from_numpy(rng.normal(size=(6 * 37 + 5, 5)).astype(np.float32)).to(cuda)
-    route = ROUTE_WGMMA_TF32 if inverse and hidden <= 544 else ROUTE_ROWS_TF32
+    route = ROUTE_ROWS_TF32 if hidden > 544 else ROUTE_WGMMA_TF32 if inverse else ROUTE_FWD_WGMMA_TF32
     before = fused_flow.route_launches[route]
     out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, mode="tf32")
     three = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6)

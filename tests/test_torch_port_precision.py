@@ -317,14 +317,15 @@ def test_prepare_weights_one_pass_stages_hold_hi_alone():
 @pytest.mark.parametrize("H", [16, 526, 700])
 def test_one_pass_routes_and_shared_memory(H):
     """The one-pass mode takes the routes of the default mode, built with one
-    pass: the inverse on `wgmma` up to Hp 544, the row tiles above and for
-    the forward; its `wgmma` stages are half as large (hi alone), and its
-    ring holds twice as many in the same bytes (`wgmma_ring`)."""
-    from bcnf_tpu_torch.ops.flow_kernel import padded_width, wgmma_ring
+    pass: the inverse on `wgmma` up to Hp 544, the row tiles above; its
+    forward the one-pass `wgmma` forward up to Hp 544 and the row tiles
+    above; its `wgmma` stages are half as large (hi alone), and its ring
+    holds twice as many in the same bytes (`wgmma_ring`)."""
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA_TF32, padded_width, wgmma_ring
 
     Hp = padded_width(H)
     assert flow_route(Hp, 19, 10, True, MODE_TF32) == (ROUTE_WGMMA_TF32 if Hp <= 544 else ROUTE_ROWS_TF32)
-    assert flow_route(Hp, 19, 10, False, MODE_TF32) == ROUTE_ROWS_TF32
+    assert flow_route(Hp, 19, 10, False, MODE_TF32) == (ROUTE_FWD_WGMMA_TF32 if Hp <= 544 else ROUTE_ROWS_TF32)
     if Hp <= 544:
         (ring3, _), (ring1, _) = wgmma_ring(ROUTE_WGMMA), wgmma_ring(ROUTE_WGMMA_TF32)
         assert ring1 == 2 * ring3
