@@ -18,8 +18,9 @@ The same design as the JAX package, in PyTorch idiom:
   above it; the forward on the row tiles), in float32 FMA with
   `pallas_strict`, in one TF32 pass at the reduced precisions. Under autograd
   (training), `forward` runs K2a and its backward K2b (`fused_flow_train`,
-  the counterpart of the JAX package's `forward_fused_flow`) behind the same
-  gate as `_use_fused_train`. Where a gate is closed for a structural reason
+  the counterpart of the JAX package's `forward_fused_flow`) behind the gate
+  `_use_fused_train`, in K1's mode (`train_kernel_mode`: float32 FMA too
+  with `pallas_strict`). Where a gate is closed for a structural reason
   (dropout in training, a small batch, a CPU tensor), the plain composition
   below runs: the counterpart of the JAX XLA path.
 - **The per-coupling kernel.** A model with `use_pallas_coupling = True`
@@ -473,13 +474,13 @@ class CondRealNVP:
     whole-flow kernel (here the CUDA one). The "highest"/"float32" precision
     runs it in 3xTF32 on the tensor cores, as the JAX model serves that
     contract with its "x3" kernel mode; `pallas_strict=True` forces the
-    exact-float32 kernel (float32 FMA) for sampling and the no-grad forward
-    at those precisions, as the JAX model's flag forces its exact-float32
-    mode (`bcnf_tpu/models/cnf.py:1032-1033, 1053-1054`). The reduced
-    precisions run K1, K2a, K2b and K4 in one TF32 pass
-    (`FUSED_PRECISION_MODES`). The training kernels (K2a/K2b) and the
-    per-coupling kernel K4 have no exact-float32 mode in the port: strict
-    does not change them (JAX's K4 has none either).
+    exact-float32 kernels (float32 FMA) at those precisions for sampling and
+    the no-grad forward (K1) and for training (K2a, K2b), as the JAX model's
+    flag forces its exact-float32 mode (`bcnf_tpu/models/cnf.py:1032-1033,
+    1053-1054`). The reduced precisions run K1, K2a, K2b and K4 in one TF32
+    pass (`FUSED_PRECISION_MODES`). The per-coupling kernel K4 has no
+    exact-float32 mode: strict does not change it (`coupling_kernel_mode`;
+    JAX's K4 takes no strict flag).
     """
 
     def __init__(
@@ -560,8 +561,15 @@ class CondRealNVP:
 
     @property
     def train_kernel_mode(self) -> str | None:
-        """The mode of K2a, K2b and K4 at this precision (None: closed);
-        `pallas_strict` does not change them."""
+        """The mode of K2a and K2b at this precision (None: closed): K1's,
+        as JAX's `forward_fused_flow` takes its exact-float32 mode under
+        `pallas_strict` at "highest"/"float32"."""
+        return self.kernel_mode
+
+    @property
+    def coupling_kernel_mode(self) -> str | None:
+        """The mode of K4 at this precision (None: closed), which
+        `pallas_strict` does not change (JAX's K4 takes no strict flag)."""
         return FUSED_PRECISION_MODES.get(self.precision)
 
     # -- construction -----------------------------------------------------
@@ -840,7 +848,7 @@ class CondRealNVP:
 
         def couple(p: Params, x: torch.Tensor, proj: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
             if fused:
-                return self.coupling.forward_fused(p, x, proj, self.train_kernel_mode)
+                return self.coupling.forward_fused(p, x, proj, self.coupling_kernel_mode)
             return self.coupling.forward(p, x, h, proj, generator, train)
 
         log_det = y.new_zeros(y.shape[:-1])
@@ -885,7 +893,7 @@ class CondRealNVP:
 
         def uncouple(p: Params, x: torch.Tensor, proj: dict | None) -> torch.Tensor:
             if fused:
-                return self.coupling.inverse_fused(p, x, proj, self.train_kernel_mode)
+                return self.coupling.inverse_fused(p, x, proj, self.coupling_kernel_mode)
             return self.coupling.inverse(p, x, h, proj, generator, train)
 
         final_proj = self.coupling.cond_proj(params["final"], h) if h is not None else None

@@ -11,8 +11,10 @@ sources are built twice: as they are (3xTF32, the default mode) and with
 mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
 the first; K2b's one-pass `wgmma` route (`csrc/flow_train_wgmma.cu`) and
 the one-pass `wgmma` forward (`csrc/flow_fwd_wgmma.cu`) are built in that
-mode only, and the strict K1 (`csrc/flow_fma.cu`, float32 FMA) once. Nothing here runs at import time: the CPU tests
-import every module.
+mode only, and the strict K1 and K2a (`csrc/flow_fma.cu`, float32 FMA) and
+the strict K2b (`csrc/flow_train_fma.cu`, which takes flow_fma.cu's device
+parts: its hash covers both sources) once. Nothing here runs at import
+time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "ops" / "csrc"
 SOURCES = {
     "flow_kernel": _CSRC / "flow_kernel.cu",  # K1 on the row tiles, K4, the training forward K2a
-    "flow_fma": _CSRC / "flow_fma.cu",  # K1 in exact float32 (strict), both directions
+    "flow_fma": _CSRC / "flow_fma.cu",  # K1 in exact float32 (strict), both directions, and the strict K2a
+    "flow_train_fma": _CSRC / "flow_train_fma.cu",  # the strict training backward K2b (float32 FMA)
     "flow_wgmma": _CSRC / "flow_wgmma.cu",  # K1's (and K4's) inverse on wgmma, Hp <= 544
     "flow_train_kernel": _CSRC / "flow_train_kernel.cu",  # the training backward K2b
     "lstm_kernel": _CSRC / "lstm_kernel.cu",  # the LSTM recurrence K3a and its backward K3b
@@ -63,8 +66,13 @@ def _flags(name: str) -> list[str]:
     return NVCC_FLAGS + (["-DBCNF_TF32_PASSES=1"] if name.endswith(ONE_PASS) else [])
 
 
+# sources a library's source includes beside the headers
+_INCLUDED = {"flow_train_fma": (_CSRC / "flow_fma.cu",)}
+
+
 def _library_path(name: str) -> Path:
-    text = SOURCES[name].read_bytes() + b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    text = (SOURCES[name].read_bytes() + b"".join(p.read_bytes() for p in _INCLUDED.get(name, ()))
+            + b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh"))))
     digest = hashlib.sha1(text + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -120,8 +128,17 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     elif source == "flow_fma":
         lib.bcnf_fused_flow.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
         lib.bcnf_fused_flow.restype = i32
+        lib.bcnf_fused_flow_train.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+        lib.bcnf_fused_flow_train.restype = i32
         lib.bcnf_flow_fma_layout.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
         lib.bcnf_flow_fma_layout.restype = i32
+    elif source == "flow_train_fma":
+        lib.bcnf_flow_train_bwd_fma.argtypes = [ptr] * 24 + [i32] * 7 + [ptr]
+        lib.bcnf_flow_train_bwd_fma.restype = i32
+        lib.bcnf_flow_train_fma_scratch.argtypes = [i32] * 6
+        lib.bcnf_flow_train_fma_scratch.restype = ctypes.c_longlong
+        lib.bcnf_flow_train_fma_layout.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+        lib.bcnf_flow_train_fma_layout.restype = i32
     elif source == "flow_wgmma":
         lib.bcnf_flow_inverse_wgmma.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
         lib.bcnf_flow_inverse_wgmma.restype = i32

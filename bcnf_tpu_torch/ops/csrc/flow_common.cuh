@@ -29,6 +29,14 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
   return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * kGeluK0 * (1.0f + 3.0f * kGeluK1 * x * x);
 }
 
+// gelu_tanh(x) and gelu_tanh_grad(x) from one tanh: the same expressions,
+// so the same values.
+__device__ __forceinline__ void gelu_and_grad(float x, float& h, float& d) {
+  const float t = tanhf(kGeluK0 * (x + kGeluK1 * x * x * x));
+  h = 0.5f * x * (1.0f + t);
+  d = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * kGeluK0 * (1.0f + 3.0f * kGeluK1 * x * x);
+}
+
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -36,6 +44,13 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 4-byte asynchronous copy (any alignment), for the ragged and unaligned
+// edges that the 16-byte cp_async16 cannot take.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
 template <int N>

@@ -1,12 +1,20 @@
 // K1 in exact float32 on the FMA pipe (the strict mode, `pallas_strict`):
 // the whole conditional RealNVP flow, forward or inverse, in one launch,
-// every product and every sum in float32, no tensor-core instruction.
+// every product and every sum in float32, no tensor-core instruction; and
+// the strict K2a, the same forward storing each step's input rows.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow at precision="highest"
 // (the Pallas TPU kernel `_flow_kernel` in its exact-float32 mode), which the
-// JAX model's strict flag selects (bcnf_tpu/models/cnf.py). Host side and
-// plain PyTorch version: bcnf_tpu_torch/ops/flow_kernel.py (`fused_flow`
-// with mode=MODE_FMA, `fused_flow_reference`, `fma_layout`).
+// JAX model's strict flag selects (bcnf_tpu/models/cnf.py), and `fwd_call`
+// of `_make_fused_flow_train` at precision="highest" (K2a,
+// `_flow_fwd_train_kernel`). Host side and plain PyTorch versions:
+// bcnf_tpu_torch/ops/flow_kernel.py (`fused_flow` and `fused_flow_train_fwd`
+// with mode=MODE_FMA, `fused_flow_reference`, `fused_flow_train_reference`,
+// `fma_layout`). K1's kernel (`fma_flow_kernel`) and K2a's
+// (`fma_flow_train_kernel`, with kBound) share one body, `fma_flow`; K1's
+// SASS is its own kernel's as before the store was added. The strict K2b
+// (flow_train_fma.cu) includes the device parts of this file, above
+// `BCNF_FMA_DEVICE_ONLY`.
 //
 // What it computes, for every row r (conditioned on h_proj[k, r % N]):
 //   forward: for k = 0 .. S-1: ActNorm, coupling, x <- x Q_k (steps < S-1);
@@ -290,14 +298,27 @@ __device__ __forceinline__ void block_groups(int groups, int& g0, int& g1) {
   g1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * groups / gridDim.x);
 }
 
-template <int TN>
-__global__ void __launch_bounds__(kFmaThreads, 1)
-fma_flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, const float* __restrict__ an_s,
-                const float* __restrict__ an_b, const float* __restrict__ ortho, const float* __restrict__ w1y,
-                const float* __restrict__ b1, const float* __restrict__ wm, const float* __restrict__ bm,
-                const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ y,
-                float* __restrict__ ld_out, int B, int N, int S, int size, int d_a, int nh, int inverse,
-                int stages, int groups) {
+// The card's SMs (0 where it cannot be read).
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+#ifndef BCNF_FMA_DEVICE_ONLY  // flow_train_fma.cu takes the helpers above, not the kernels below
+
+// The flow over the block's rounds; with kBound (K2a's forward, N = B) each
+// step's input rows are also stored to bound[k] (S x B x size).
+template <int TN, bool kBound>
+__device__ __forceinline__ void fma_flow(const float* __restrict__ x, const float* __restrict__ h_proj,
+                                         const float* __restrict__ an_s, const float* __restrict__ an_b,
+                                         const float* __restrict__ ortho, const float* __restrict__ w1y,
+                                         const float* __restrict__ b1, const float* __restrict__ wm,
+                                         const float* __restrict__ bm, const float* __restrict__ wout,
+                                         const float* __restrict__ bout, float* __restrict__ y,
+                                         float* __restrict__ ld_out, float* __restrict__ bound, int B, int N, int S,
+                                         int size, int d_a, int nh, int inverse, int stages, int groups) {
   using Sh = FmaShape<TN>;
   constexpr int Hp = Sh::Hp, BK = Sh::BK, ldT = Sh::ldT, R = Sh::R, G = Sh::G, BM = Sh::BM;
   const int d_b = size - d_a, n_out = 2 * d_b;
@@ -402,6 +423,15 @@ fma_flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, c
           load_cols<TN>(h_proj + (static_cast<size_t>(k) * N + (row0 + prod_row + r) % N) * Hp, cq, lc, h);
 #pragma unroll
           for (int j = 0; j < TN; ++j) acc[r][j] = b[j] + h[j];
+        }
+      }
+
+      if constexpr (kBound) {  // the step's input rows, before its ActNorm
+        if (active) {
+          for (int p = lane; p < R * size; p += 32) {
+            const int q = own_row * size + p;
+            if (row0 + q / size < B) bound[(static_cast<size_t>(k) * B + row0) * size + q] = xs[q];
+          }
         }
       }
 
@@ -529,6 +559,32 @@ fma_flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, c
   }
 }
 
+// K1: the flow, forward or inverse.
+template <int TN>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+fma_flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, const float* __restrict__ an_s,
+                const float* __restrict__ an_b, const float* __restrict__ ortho, const float* __restrict__ w1y,
+                const float* __restrict__ b1, const float* __restrict__ wm, const float* __restrict__ bm,
+                const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ y,
+                float* __restrict__ ld_out, int B, int N, int S, int size, int d_a, int nh, int inverse,
+                int stages, int groups) {
+  fma_flow<TN, false>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld_out, nullptr, B, N, S, size,
+                      d_a, nh, inverse, stages, groups);
+}
+
+// K2a: the forward with its step-input store.
+template <int TN>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+fma_flow_train_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, const float* __restrict__ an_s,
+                      const float* __restrict__ an_b, const float* __restrict__ ortho, const float* __restrict__ w1y,
+                      const float* __restrict__ b1, const float* __restrict__ wm, const float* __restrict__ bm,
+                      const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ z,
+                      float* __restrict__ ld_out, float* __restrict__ bound, int B, int S, int size, int d_a, int nh,
+                      int stages, int groups) {
+  fma_flow<TN, true>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld_out, bound, B, B, S, size, d_a,
+                     nh, 0, stages, groups);
+}
+
 // The launch's layout: blocks, ring stages and shared memory, or
 // cudaErrorInvalidValue where no ring fits (the host's copy:
 // ops/flow_kernel.py::fma_layout).
@@ -543,41 +599,39 @@ cudaError_t fma_layout(int TN, int B, int size, int d_a, int sms, int* blocks, i
   return cudaSuccess;
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms;
-}
-
+// K1 (bound null) or K2a (the forward, N = B, storing the step inputs to bound).
 template <int TN>
 cudaError_t fma_launch(const float* x, const float* h_proj, const float* an_s, const float* an_b, const float* ortho,
                        const float* w1y, const float* b1, const float* wm, const float* bm, const float* wout,
-                       const float* bout, float* y, float* ld, int B, int N, int S, int size, int d_a, int nh,
-                       int inverse, int sms, cudaStream_t stream) {
+                       const float* bout, float* y, float* ld, float* bound, int B, int N, int S, int size, int d_a,
+                       int nh, int inverse, int sms, cudaStream_t stream) {
   int blocks, stages;
   size_t smem;
   cudaError_t err = fma_layout(TN, B, size, d_a, sms, &blocks, &stages, &smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fma_flow_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const int groups = (B + FmaShape<TN>::G - 1) / FmaShape<TN>::G;
-  fma_flow_kernel<TN><<<blocks, kFmaThreads, smem, stream>>>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout,
-                                                             y, ld, B, N, S, size, d_a, nh, inverse, stages, groups);
+  if (bound == nullptr) {
+    err = cudaFuncSetAttribute(fma_flow_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    fma_flow_kernel<TN><<<blocks, kFmaThreads, smem, stream>>>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout,
+                                                               bout, y, ld, B, N, S, size, d_a, nh, inverse, stages,
+                                                               groups);
+  } else {
+    err = cudaFuncSetAttribute(fma_flow_train_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    fma_flow_train_kernel<TN><<<blocks, kFmaThreads, smem, stream>>>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm,
+                                                                     wout, bout, y, ld, bound, B, S, size, d_a, nh,
+                                                                     stages, groups);
+  }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry points, loaded with ctypes. Hp (the padded hidden width) must be
-// 32*TN for a compiled TN; each returns the cudaError_t of its launch.
-
-// K1 in exact float32 (the strict mode): the flow, forward (y = z, ld =
-// logdet) or inverse, on float32 FMA. Row r takes h_proj[k, r % N].
-extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float* an_s, const float* an_b,
-                               const float* ortho, const float* w1y, const float* b1, const float* wm, const float* bm,
-                               const float* wout, const float* bout, float* y, float* ld, int B, int N, int S,
-                               int size, int d_a, int nh, int Hp, int inverse, void* stream) {
+// Check a call and launch it at its TN: K1 (bound null) or K2a.
+int fma_call(const float* x, const float* h_proj, const float* an_s, const float* an_b, const float* ortho,
+             const float* w1y, const float* b1, const float* wm, const float* bm, const float* wout, const float* bout,
+             float* y, float* ld, float* bound, int B, int N, int S, int size, int d_a, int nh, int Hp, int inverse,
+             void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 0 || Hp % 32 != 0 ||
       (!inverse && ld == nullptr) ||
       ((reinterpret_cast<size_t>(w1y) | reinterpret_cast<size_t>(wm) | reinterpret_cast<size_t>(wout) |
@@ -588,8 +642,8 @@ extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BCNF_CASE(TN)                                                                                                \
   case TN:                                                                                                           \
-    return fma_launch<TN>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, B, N, S, size, d_a, nh, \
-                          inverse, sms, st);
+    return fma_launch<TN>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, bound, B, N, S, size, d_a, \
+                          nh, inverse, sms, st);
   switch (Hp / 32) {
     BCNF_CASE(1)
     BCNF_CASE(2)
@@ -604,6 +658,36 @@ extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float*
       return cudaErrorInvalidValue;
   }
 #undef BCNF_CASE
+}
+
+#endif  // BCNF_FMA_DEVICE_ONLY
+
+}  // namespace
+
+#ifndef BCNF_FMA_DEVICE_ONLY
+
+// C entry points, loaded with ctypes. Hp (the padded hidden width) must be
+// 32*TN for a compiled TN; each returns the cudaError_t of its launch.
+
+// K1 in exact float32 (the strict mode): the flow, forward (y = z, ld =
+// logdet) or inverse, on float32 FMA. Row r takes h_proj[k, r % N].
+extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float* an_s, const float* an_b,
+                               const float* ortho, const float* w1y, const float* b1, const float* wm, const float* bm,
+                               const float* wout, const float* bout, float* y, float* ld, int B, int N, int S,
+                               int size, int d_a, int nh, int Hp, int inverse, void* stream) {
+  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, nullptr, B, N, S, size, d_a, nh,
+                  Hp, inverse, stream);
+}
+
+// K2a in exact float32: the forward (z, ld = logdet) with each step's input
+// rows stored to bound (S x B x size); row r takes h_proj[k, r] (N = B).
+extern "C" int bcnf_fused_flow_train(const float* x, const float* h_proj, const float* an_s, const float* an_b,
+                                     const float* ortho, const float* w1y, const float* b1, const float* wm,
+                                     const float* bm, const float* wout, const float* bout, float* z, float* ld,
+                                     float* bound, int B, int S, int size, int d_a, int nh, int Hp, void* stream) {
+  if (bound == nullptr) return cudaErrorInvalidValue;
+  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, B, B, S, size, d_a, nh, Hp,
+                  0, stream);
 }
 
 // The layout a call at this shape takes on the current card: out[0..4] =
@@ -626,3 +710,5 @@ extern "C" int bcnf_flow_fma_layout(int B, int size, int d_a, int Hp, int* out) 
 extern "C" const char* bcnf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // BCNF_FMA_DEVICE_ONLY

@@ -37,14 +37,6 @@ constexpr int kRingStages = 3;
 constexpr int kRowThreads = 512;  // the rows kernels' block
 constexpr int kRowWarps = kRowThreads / 32;
 
-// gelu_tanh(x) and gelu_tanh_grad(x) (flow_common.cuh) from one tanh: the
-// same expressions, so the same values.
-__device__ __forceinline__ void gelu_and_grad(float x, float& h, float& d) {
-  const float t = tanhf(kGeluK0 * (x + kGeluK1 * x * x * x));
-  h = 0.5f * x * (1.0f + t);
-  d = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * kGeluK0 * (1.0f + 3.0f * kGeluK1 * x * x);
-}
-
 // Copy n floats (n a multiple of 4, both ends 16-byte aligned) with all of
 // the rows kernel's threads.
 __device__ __forceinline__ void load_floats(float* dst, const float* src, int n, int tid) {

@@ -163,11 +163,4 @@ __device__ __forceinline__ void mma_passes(float (&acc)[NA][NB][4], const FragA 
   }
 }
 
-// 4-byte asynchronous copy (any alignment), for the ragged and unaligned
-// edges that flow_common.cuh's 16-byte cp_async16 cannot take.
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
 }  // namespace bcnf

@@ -26,18 +26,21 @@
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`, on
   the forward route `flow_route` gives: the row-tile kernel with its
   step-input store, or in the reduced mode at padded widths up to 544 the
-  `wgmma` forward of `csrc/flow_fwd_wgmma.cu`) and whose backward is K2b
-  (`fused_flow_train_bwd`, on the route `train_bwd_route` gives: the row
-  tiles of `csrc/flow_train_kernel.cu`, or in the reduced mode at padded
-  widths up to 544 the `wgmma` route of `csrc/flow_train_wgmma.cu`). Both
-  `wgmma` routes read the hidden weights as `prepare_train_weights` lays
-  them out, prepared once a step and handed from K2a to K2b. Both run their
-  square hidden products on the tensor cores in 3xTF32 (`csrc/flow_rows.cuh`),
-  or in one TF32 pass in the reduced mode.
+  `wgmma` forward of `csrc/flow_fwd_wgmma.cu`; strict, the FMA kernel with
+  its step-input store) and whose backward is K2b (`fused_flow_train_bwd`,
+  on the route `train_bwd_route` gives: the row tiles of
+  `csrc/flow_train_kernel.cu`, or in the reduced mode at padded widths up to
+  544 the `wgmma` route of `csrc/flow_train_wgmma.cu`, or strict the float32
+  FMA kernels of `csrc/flow_train_fma.cu`). Both `wgmma` routes read the
+  hidden weights as `prepare_train_weights` lays them out, prepared once a
+  step and handed from K2a to K2b. The tensor-core routes run their square
+  hidden products in 3xTF32 (`csrc/flow_rows.cuh`), or in one TF32 pass in
+  the reduced mode; the strict routes every product in float32 FMA.
 
 The kernel modes (`KERNEL_MODES`): `MODE_3XTF32`, `MODE_TF32` (one pass) and
-`MODE_FMA` (strict, K1 only). A CPU tensor takes the plain version, float32,
-in every mode, as JAX on the CPU computes float32 at every precision.
+`MODE_FMA` (strict: K1, K2a and K2b; `TRAIN_MODES`). K4 has the first two
+(`TF32_MODES`). A CPU tensor takes the plain version, float32, in every
+mode, as JAX on the CPU computes float32 at every precision.
 
 This module stacks and pads the kernels' arguments, checks them, launches
 them on PyTorch's current stream, and holds their plain PyTorch versions
@@ -74,10 +77,11 @@ KERNEL_TN = (1, 2, 4, 8, 12, 16, 17, 24, 32)
 
 # The kernels' arithmetic: 3xTF32 (the default mode: JAX's "x3"), one TF32
 # pass (the reduced mode: JAX's "default") and float32 FMA (strict: JAX's
-# "highest" kernel mode; K1 only).
+# "highest" kernel mode; K1, K2a and K2b).
 MODE_3XTF32, MODE_TF32, MODE_FMA = "3xtf32", "tf32", "fma"
 KERNEL_MODES = (MODE_3XTF32, MODE_TF32, MODE_FMA)
-TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K2a, K2b and K4 have no float32 FMA mode
+TRAIN_MODES = KERNEL_MODES  # K2a's and K2b's modes
+TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K4 has no float32 FMA mode (nor has JAX's)
 # K1's routes (`flow_route`): 3xTF32 on `wgmma` (the inverse at TN <= 17),
 # 3xTF32 on the row tiles, float32 FMA (strict), and the one-pass `wgmma`
 # and row tiles; each route's library (`ops/_build.py`).
@@ -91,10 +95,12 @@ WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow
 FWD_WGMMA_MAX_TN = 17  # the widest width the one-pass wgmma forward holds (Hp 544); 0 forces the one-pass row tiles
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
 # K2b's routes (`train_bwd_route`): the row tiles in 3xTF32 (`ROUTE_ROWS`) and
-# in one pass (`ROUTE_ROWS_TF32`), and the one-pass `wgmma` route
-# (`ROUTE_WGMMA_TF32`, csrc/flow_train_wgmma.cu); each route's library.
+# in one pass (`ROUTE_ROWS_TF32`), the one-pass `wgmma` route
+# (`ROUTE_WGMMA_TF32`, csrc/flow_train_wgmma.cu) and the strict float32 FMA
+# route (`ROUTE_FMA`, csrc/flow_train_fma.cu); each route's library.
 TRAIN_BWD_LIBRARY = {ROUTE_ROWS: "flow_train_kernel", ROUTE_ROWS_TF32: "flow_train_kernel_tf32",
-                     ROUTE_WGMMA_TF32: "flow_train_wgmma_tf32"}
+                     ROUTE_WGMMA_TF32: "flow_train_wgmma_tf32", ROUTE_FMA: "flow_train_fma"}
+ROUTE_TRAIN_BWD_FMA = "train_bwd_fma"  # the strict K2b's rows kernel, for `kernel_smem` (csrc: ft_smem)
 ROUTE_TRAIN_BWD_WGMMA = "train_bwd_wgmma"  # its rows kernel, for `kernel_smem` (csrc/flow_train_wgmma.cu: tw_smem)
 TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 forces the one-pass row tiles
 # The constants of the kernels' sources that the host side reads, by the
@@ -107,8 +113,8 @@ TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 
 # widest TN at that many rows, weight rows a stage and the bounds of its
 # ring (`fma_layout`); the one-pass `wgmma` forward's rows a cluster, blocks
 # a cluster, weight rows a stage, the bounds of its ring and the floats of
-# its barriers (`fwd_wgmma_ring`).
-_SOURCE_CONSTANTS = {"kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh", "kWgRing3xTf32": "flow_wgmma.cu",
+# its barriers (`fwd_wgmma_ring`); the strict K2b's weight-grad jobs a launch.
+_SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh", "kWgRing3xTf32": "flow_wgmma.cu",
                   "kWgRingTf32": "flow_wgmma.cu", "kWgClusterTf32": "flow_wgmma.cu",
                   "kTwRows": "flow_train_wgmma.cu", "kTwCluster": "flow_train_wgmma.cu",
                   "kTwRing": "flow_train_wgmma.cu", "kTwStageK": "flow_train_wgmma.cu",
@@ -210,8 +216,11 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     `fma_smem`, at its least; `csrc/flow_fwd_wgmma.cu`: `fw_smem`, at its
     least), and of K2b's rows kernels (`ROUTE_TRAIN_BWD`;
     `csrc/flow_train_kernel.cu`: `launch_rows`; `ROUTE_TRAIN_BWD_WGMMA`:
-    `csrc/flow_train_wgmma.cu`: `tw_smem`)."""
+    `csrc/flow_train_wgmma.cu`: `tw_smem`; `ROUTE_TRAIN_BWD_FMA`:
+    `csrc/flow_train_fma.cu`: `ft_smem`, at its least)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
+    if route == ROUTE_TRAIN_BWD_FMA:  # the shortest ring
+        return fma_train_smem(Hp, size, d_a, kernel_limit("kFmaRingMin"))
     if route == ROUTE_FWD_WGMMA_TF32:  # the shortest ring
         return fwd_wgmma_smem(Hp, size, d_a, kernel_limit("kFwRingMin"))
     if route == ROUTE_TRAIN_BWD_WGMMA:  # barriers, tile, ring, then x1, dx2, [t | s'], dout and x1_a in TF32,
@@ -278,6 +287,48 @@ def fma_card_layout(B: int, Hp: int, size: int, d_a: int) -> tuple[int, int, int
     lib = load_library(ROUTE_LIBRARY[ROUTE_FMA])
     out = (ctypes.c_int * 5)()
     _raise_on(lib.bcnf_flow_fma_layout(B, size, d_a, Hp, out), lib, "fma_card_layout")
+    return tuple(out)
+
+
+def fma_train_stage(Hp: int, size: int, d_a: int) -> int:
+    """Floats a ring stage of the strict K2b's rows kernel holds
+    (`csrc/flow_train_fma.cu`: `ft_stage`): the strict K1's stage, and at
+    least 4 rows of W1y^T (d_a rounded up to even floats a row)."""
+    return max(fma_stage(Hp, size, d_a), 4 * (d_a + d_a % 2))
+
+
+def fma_train_smem(Hp: int, size: int, d_a: int, stages: int) -> int:
+    """Bytes of shared memory a block of the strict K2b's rows kernel takes
+    with a ring of `stages` stages (`ft_smem`): the ring's two barriers a
+    stage, the transposed tile, the ring, and the round's 8 R rows of [x_k |
+    x1 | dy | dx2 | [t | s'] | dz_b e^s | da_0 W1y^T | dld]."""
+    rows = 8 * fma_lane_rows(Hp)
+    state = 4 * size + 3 * (size - d_a) + d_a + d_a % 2 + 1
+    return 16 * stages + 4 * (Hp * (rows + 4) + stages * fma_train_stage(Hp, size, d_a) + rows * state)
+
+
+def fma_train_layout(B: int, Hp: int, size: int, d_a: int, sms: int) -> tuple[int, int, int, int, int]:
+    """The strict K2b's rows kernel's launch at this shape on a card of `sms`
+    SMs (`csrc/flow_train_fma.cu`: `ft_layout`), as `fma_layout` gives the
+    strict K1's: (rows a lane, blocks, ring stages, floats a stage, bytes of
+    shared memory). None of it fits: ValueError."""
+    lo, hi, limit = kernel_limit("kFmaRingMin"), kernel_limit("kFmaRingMax"), kernel_limit("kSmemLimit")
+    stages = next((r for r in range(hi, lo - 1, -1) if fma_train_smem(Hp, size, d_a, r) <= limit), 0)
+    if not stages:
+        raise ValueError(f"the strict K2b takes no block at Hp {Hp}, size {size}, d_a {d_a}")
+    rows = fma_lane_rows(Hp)
+    return (rows, min(-(-B // (4 * rows)), sms), stages, fma_train_stage(Hp, size, d_a),
+            fma_train_smem(Hp, size, d_a, stages))
+
+
+def fma_train_card_layout(B: int, Hp: int, size: int, d_a: int) -> tuple[int, int, int, int, int]:
+    """`fma_train_layout` as the strict K2b's launcher computes it on the
+    current card (`csrc/flow_train_fma.cu`: `bcnf_flow_train_fma_layout`)."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_FMA])
+    out = (ctypes.c_int * 5)()
+    _raise_on(lib.bcnf_flow_train_fma_layout(B, size, d_a, Hp, out), lib, "fma_train_card_layout")
     return tuple(out)
 
 
@@ -364,7 +415,10 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
 
 
 def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF32) -> str | None:
-    """Which of K2b's kernels runs this call, by mode and shape: the one-pass
+    """Which of K2b's kernels runs this call, by mode and shape: strict
+    (`MODE_FMA`) the float32 FMA kernels (`csrc/flow_train_fma.cu`), with nh +
+    3 weight-grad jobs a step within one launch's (`kFtMaxJobs`) and its rows
+    kernel's shortest ring within a block's shared memory; the one-pass
     mode the `wgmma` route (`csrc/flow_train_wgmma.cu`) at the widths it
     holds (`TRAIN_WGMMA_MAX_TN`) where its rows kernel takes the shape (its
     shared memory, and n_out and d_a within what its weight ring stages), at
@@ -375,10 +429,13 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
     (`kAtbMaxJobs`) and their rows kernel's shared memory within a block's
     (`kSmemLimit`). None where no kernel takes the shape: the launchers
     return cudaErrorInvalidValue past these limits."""
-    _check_mode(mode, TF32_MODES)
+    _check_mode(mode, TRAIN_MODES)
     if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size or nh < 1:
         return None
-    limit, ring = kernel_limit("kSmemLimit"), kernel_limit("kTwStageK")  # the wgmma route's narrow weights pass
+    limit, ring = kernel_limit("kSmemLimit"), kernel_limit("kTwStageK")
+    if mode == MODE_FMA:
+        return ROUTE_FMA if (nh + 3 <= kernel_limit("kFtMaxJobs")
+                             and kernel_smem(ROUTE_TRAIN_BWD_FMA, Hp, size, d_a) <= limit) else None  # the wgmma route's narrow weights pass
     if (mode == MODE_TF32 and Hp // 32 <= TRAIN_WGMMA_MAX_TN  # through its ring (csrc: tw_takes)
             and 2 * (size - d_a) <= kernel_limit("kTwRing") * ring and d_a <= ring
             and kernel_smem(ROUTE_TRAIN_BWD_WGMMA, Hp, size, d_a) <= limit):
@@ -827,12 +884,13 @@ def fused_flow_train_fwd(
     """K2a: `(z, logdet, bound)` in one launch. A CPU tensor takes
     `fused_flow_train_reference` (float32 in every mode); a CUDA tensor
     launches the forward kernel `flow_route` gives for `mode` (the row tiles
-    with their step-input store in 3xTF32 or one TF32 pass, or the one-pass
+    with their step-input store in 3xTF32 or one TF32 pass, the one-pass
     `wgmma` forward, which reads the hidden weights as
     `prepare_train_weights` lays them out: pass them as `wstages`, or they are
-    prepared here), or raises. Counts its launches in `launches`, by mode in
-    `mode_launches` and by route in `route_launches`."""
-    _check_mode(mode, TF32_MODES)
+    prepared here; strict, the float32 FMA kernel with its step-input store),
+    or raises. Counts its launches in `launches`, by mode in `mode_launches`
+    and by route in `route_launches`."""
+    _check_mode(mode, TRAIN_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
     _check_train_args(x, h_proj, args)
@@ -861,6 +919,10 @@ def fused_flow_train_fwd(
             err = lib.bcnf_flow_fwd_wgmma(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
                 B, B, S, size, d_a, nh, Hp, _stream())
+        elif route == ROUTE_FMA:
+            err = lib.bcnf_fused_flow_train(
+                *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
+                B, S, size, d_a, nh, Hp, _stream())
         else:
             err = lib.bcnf_flow_rows(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
@@ -905,12 +967,13 @@ def fused_flow_train_bwd(
     dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout, dbout)`. A CPU tensor
     takes `fused_flow_train_backward_reference` (float32 in every mode); a
     CUDA tensor launches the kernels of `train_bwd_route` for `mode` (the row
-    tiles of `csrc/flow_train_kernel.cu`, or in one pass at Hp <= 544 the
+    tiles of `csrc/flow_train_kernel.cu`, in one pass at Hp <= 544 the
     `wgmma` route of `csrc/flow_train_wgmma.cu`, on `wstages` as
-    `prepare_train_weights` lays out `wm`, or on weights it prepares), or
-    raises. Counts its calls in `launches`, by mode in `mode_launches` and by
-    route in `route_launches`."""
-    _check_mode(mode, TF32_MODES)
+    `prepare_train_weights` lays out `wm`, or on weights it prepares; strict,
+    the float32 FMA kernels of `csrc/flow_train_fma.cu`), or raises. Counts
+    its calls in `launches`, by mode in `mode_launches` and by route in
+    `route_launches`."""
+    _check_mode(mode, TRAIN_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
     _check_train_args(dz, h_proj, args)
@@ -965,6 +1028,8 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     if route == ROUTE_WGMMA_TF32:
         tensors[5] = prepare_train_weights(args["wm"]) if wstages is None else wstages
         n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_wgmma
+    elif route == ROUTE_FMA:
+        n_scratch, entry = lib.bcnf_flow_train_fma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_fma
     else:
         n_scratch, entry = lib.bcnf_flow_train_bwd_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dz.device)
@@ -1036,7 +1101,7 @@ def fused_flow_train(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable `(z, logdet)` of the whole flow for training
     (`bcnf_tpu/ops/flow_kernel.py::fused_flow_train`): K2a forward, K2b
-    backward, both in `mode` (3xTF32 or one TF32 pass). Arguments as
+    backward, both in `mode` (3xTF32, one TF32 pass or float32 FMA). Arguments as
     `stack_flow_params`/`pad_hidden` give them, with one condition row per
     row of `x` (h_proj is (S, B, Hp)); raises otherwise."""
     return _FusedFlowTrain.apply(mode, x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)

@@ -13,7 +13,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
    strict mode (float32 FMA, csrc/flow_fma.cu); the strict K1 also at the
    padded widths 32, 128, 544 and 1024 and with no square hidden layer (nh =
    0), N not dividing B, both directions, each equal to the bit between two
-   calls; the `flow_fma` library's SASS holds no tensor-core instruction.
+   calls; the strict libraries' SASS (`flow_fma`: the strict K1 and K2a;
+   `flow_train_fma`: the strict K2b) holds no tensor-core instruction.
 3. main path: the flagship `trajectory_LSTM_large` model (48,852,615
    params, random weights from a seed) on the card: posterior sampling of
    10,000 draws for 8 trajectories, then `log_prob` and the round trip on
@@ -39,6 +40,18 @@ Phases, one line each; any failure exits non-zero and prints no result:
    kernels and with the gate closed, a CUDA-event split of one step, and
    K2a/K2b's times beside their bounds and their plain versions' times;
    K2b's parts alone: its 26 rows kernels, its 26 weight-grad passes.
+6b. strict training (`pallas_strict`: K2a and K2b in float32 FMA,
+   csrc/flow_fma.cu's `fma_flow_train_kernel` and csrc/flow_train_fma.cu):
+   both at the flagship widths, B = 4096 and a ragged 4099, against their
+   plain versions with TF32 off (K2a within 1e-4, K2b at the grad bar),
+   each no further from the plain version in float64 than twice the float32
+   plain version, equal to the bit between two calls; the flagship built
+   with `pallas_strict` (dropout 0) trained by `Trainer.train` for 3 steps at
+   batch 4096, K2a/K2b launched 3 times each, all in float32 FMA on the FMA
+   route, counts zeroed before and read after; one step against the plain
+   float32 autograd step (loss and grads at the bars); train samples/s both
+   ways; the strict K2a's and K2b's times beside their bounds and plain
+   versions, their layouts, K2b's parts (rows kernels, weight-grad passes).
 7. entry point: the `train` CLI on a written dataset with a copy of the
    flagship config (`model.kwargs.dropout: 0`, 2 epochs), then `sample` from
    the model directory it wrote.
@@ -83,8 +96,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    direction, route and rows, each stage's seconds; then the card's test
    NLL against the CPU plain path, one rank batch through K1 against the
    plain version in float64 on the same z (the float32 plain version's own
-   distance beside it; ranks against the float32 plain version's, near-ties
-   excepted), and 4096 resimulated trajectories against the CPU; the
+   distance beside it, and the margin as a share of the bar; ranks against
+   the float32 plain version's, near-ties excepted), and 4096 resimulated
+   trajectories against the CPU; the
    published config's training step and `eval` also timed with the encoder
    on K3a/K3b (phase 17's table).
 
@@ -381,9 +395,10 @@ def route_rows(route: str, Hp: int) -> int:
     return 64
 
 
-def strict_sass_check(lib_path: str) -> int:
-    """The strict K1's library (`flow_fma`) holds no tensor-core instruction
-    (`cuobjdump -sass`); returns its count of FFMA instructions."""
+def strict_sass_check(lib_path: str, what: str = "the strict K1's library") -> int:
+    """A strict library (`flow_fma`: the strict K1 and K2a; `flow_train_fma`:
+    the strict K2b) holds no tensor-core instruction (`cuobjdump -sass`);
+    returns its count of FFMA instructions."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -392,10 +407,10 @@ def strict_sass_check(lib_path: str) -> int:
                           capture_output=True, text=True, check=True).stdout
     found = sorted({m for m in re.findall(r"\b([A-Z]+MMA)\b", sass) if m in TENSOR_CORE_SASS})
     if found:
-        fail(f"the strict K1's library holds tensor-core instructions: {', '.join(found)}")
+        fail(f"{what} holds tensor-core instructions: {', '.join(found)}")
     n_ffma = len(re.findall(r"\bFFMA\b", sass))
     if n_ffma == 0:
-        fail("the strict K1's library holds no FFMA instruction: cuobjdump read nothing")
+        fail(f"{what} holds no FFMA instruction: cuobjdump read nothing")
     return n_ffma
 
 
@@ -550,8 +565,9 @@ def main() -> None:
             elif ("registers" in ln or "wgmma" in ln.lower() or "warning" in ln.lower()
                   or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)):
                 print(f"    ptxas {name} {kernel}: {ln.strip().removeprefix('ptxas info    : ')}")
-    n_ffma = strict_sass_check(str(_build.build("flow_fma")))
-    print(f"    flow_fma SASS (cuobjdump): {n_ffma} FFMA, no tensor-core instruction ({'/'.join(TENSOR_CORE_SASS)})")
+    for lib, what in (("flow_fma", "the strict K1's and K2a's library"), ("flow_train_fma", "the strict K2b's library")):
+        n_ffma = strict_sass_check(str(_build.build(lib)), what)
+        print(f"    {lib} SASS (cuobjdump): {n_ffma} FFMA, no tensor-core instruction ({'/'.join(TENSOR_CORE_SASS)})")
     # phases 2-8 and 11-13 run the encoders' time loop (their numbers and
     # checks are the loop's); the phases that run K3a/K3b set the variable
     # themselves, and phase 17 unsets it to drive the default
@@ -793,6 +809,7 @@ def main() -> None:
 
     check_train_kernels(model, k_params, rng, dev)
     kernels += train_main_path(rng, dev, peaks)
+    kernels += strict_training(model, k_params, rng, dev, peaks)
     train_cli(rng, build_dir)
     lstm_times = check_lstm_kernels(rng, dev)
     k2b_ms = next(row["ms"] for row in kernels if row["name"].startswith("K2b"))
@@ -1075,6 +1092,221 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
           f"to the param tree) {copies[1]:.2f} ms")
     print(f"    train samples/s: {rates[4096]:.0f} at batch 4096, {rates[256]:.0f} at batch 256; with the gate "
           f"closed (plain autograd): {plain_rates[4096]:.0f} and {plain_rates[256]:.0f}")
+    return rows
+
+
+def _strict_f64(x, h_proj, args: list, dz, dld) -> tuple:
+    """The strict K2a's and K2b's plain versions in float64 on the card, on
+    the float32 inputs cast: (z, logdet, bound), then the 10 grads."""
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_backward_reference, fused_flow_train_reference
+
+    a64 = [t.double() for t in args]
+    out = fused_flow_train_reference(x.double(), h_proj.double(), *a64)
+    return out, fused_flow_train_backward_reference(out[2], h_proj.double(), dz.double(), dld.double(), *a64)
+
+
+def _rel_from(got, ref) -> float:
+    """The largest of each output's max |got - ref| over its max |ref|."""
+    return max((g.double() - r).abs().max().item() / max(r.abs().max().item(), 1e-30) for g, r in zip(got, ref))
+
+
+def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
+    """Phase 6b: strict training (`pallas_strict`, K2a and K2b in float32
+    FMA: csrc/flow_fma.cu's `fma_flow_train_kernel`, csrc/flow_train_fma.cu).
+    (a) Both at the flagship's widths on B = 4096 and a ragged 4099 against
+    their plain versions (TF32 off): K2a within KERNEL_TOL, K2b at the grad
+    bar; each no further from the plain version in float64 than twice the
+    float32 plain version (K2a over z, logdet and the step inputs; K2b over
+    its grads, each relative to its largest value), equal to the bit between
+    two calls. (b) The flagship built with `pallas_strict` at dropout 0:
+    `Trainer.train` for 3 steps at batch 4096, counts zeroed before and read
+    after (K2a and K2b 3 each, all float32 FMA on the FMA route, nothing of
+    another mode); one step through the kernels against the plain float32
+    autograd step; train samples/s both ways. (c) Their times at the main
+    path's inputs beside their bounds and plain versions, K2b's parts. Returns
+    the "K2a, strict" and "K2b, strict" rows of the kernel table."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        BWD_ROWS,
+        BWD_WEIGHT_GRADS,
+        MODE_FMA,
+        ROUTE_FMA,
+        _train_bwd_parts,
+        fma_card_layout,
+        fma_train_card_layout,
+        fused_flow_train_backward_reference,
+        fused_flow_train_bwd,
+        fused_flow_train_fwd,
+        fused_flow_train_reference,
+    )
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    counters = (fused_flow_train_fwd, fused_flow_train_bwd)
+
+    def counts() -> list[tuple[int, dict, dict]]:
+        return [(c.launches, dict(c.mode_launches), dict(c.route_launches)) for c in counters]
+
+    def zero() -> None:
+        for c in counters:
+            c.launches = 0
+            c.mode_launches.clear()
+            c.route_launches.clear()
+
+    saved = counts()
+    # (a) the kernels against their plain versions, float32 and float64
+    print("[6b strict training: kernels] K2a and K2b in float32 FMA at the flagship widths, B=4096 and ragged "
+          "B=4099, against their plain versions (TF32 off) and the plain versions in float64:")
+    fwd_err, bwd_err = 0.0, 0.0
+    main = None
+    for B in (4096, 4099):
+        traj = torch.from_numpy(rng.normal(size=(B, 30, 3)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            kargs, h_proj = model._fused_flow_args(k_params, model.encode(k_params, (traj,)))
+            args = [kargs[n] for n in TRAIN_ARGS]
+            x = torch.from_numpy(rng.normal(size=(B, model.size)).astype(np.float32)).to(dev)
+            one = fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA)
+            two = fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA)
+            ref = fused_flow_train_reference(x, h_proj, *args)
+            dz, dld = randn_cotangents(ref[0])
+            g1 = fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=MODE_FMA)
+            g2 = fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=MODE_FMA)
+            g_p = fused_flow_train_backward_reference(ref[2], h_proj, dz, dld, *args)
+            out64, g64 = _strict_f64(x, h_proj, args, dz, dld)
+            torch.cuda.synchronize()
+        e = max((a - b).abs().max().item() for a, b in zip(one, ref))
+        fwd_err = max(fwd_err, e)
+        bwd_err = max(bwd_err, check_grads(f"K2b strict B={B}", GRAD_NAMES, g1, g_p))
+        bits = all(torch.equal(a, b) for a, b in zip(one, two)) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+        f_k, f_p = _rel_from(one, out64), _rel_from(ref, out64)
+        b_k, b_p = _rel_from(g1, g64), _rel_from(g_p, g64)
+        print(f"    B={B}: K2a max|d| vs plain over z, logdet, step inputs {e:.3e} (tolerance {KERNEL_TOL:g}); "
+              f"from float64 (max |d| / max |ref| over the outputs): K2a {f_k:.3e}, float32 plain {f_p:.3e}; "
+              f"K2b {b_k:.3e}, float32 plain {b_p:.3e} (bar: twice the plain's); equal to the bit between two "
+              f"calls: {bits}")
+        if not e <= KERNEL_TOL or not f_k <= 2 * f_p or not b_k <= 2 * b_p or not bits:
+            fail(f"the strict K2a/K2b at B={B}: K2a {e:.3e} from plain (tolerance {KERNEL_TOL:g}); from float64 K2a "
+                 f"{f_k:.3e} vs plain {f_p:.3e}, K2b {b_k:.3e} vs plain {b_p:.3e}; equal between calls: {bits}")
+        if B == 4096:
+            main = (x, h_proj, args, ref[2], dz, dld, e, max((a - b).abs().max().item() for a, b in zip(g1, g_p)))
+    after = counts()
+    if [a[0] - b[0] for a, b in zip(after, saved)] != [4, 4] or [a[1].get(MODE_FMA, 0) - b[1].get(MODE_FMA, 0)
+                                                                 for a, b in zip(after, saved)] != [4, 4]:
+        fail(f"the strict kernels' checks did not count 4 launches each in float32 FMA: {after} after {saved}")
+
+    # (b) the flagship with pallas_strict: Trainer.train, counts zeroed before and read after
+    cfg = _flagship_train_config(4096, 1)
+    smodel = CondRealNVP.from_config(cfg)
+    smodel.pallas_strict = True
+    B = 4096
+    n = int(round(3 * B / (1 - cfg["training"]["validation_split"])))
+    y = rng.normal(size=(n, smodel.size)).astype(np.float32)
+    traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
+    params0 = smodel.init(torch.Generator().manual_seed(SEED), device=dev)
+    trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    zero()
+    t0 = time.perf_counter()
+    trained = trainer.train(smodel, params0)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    run = counts()
+    hist = trainer.meta_scheduler.parameter_history
+    losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
+    want = (3, {MODE_FMA: 3}, {ROUTE_FMA: 3})
+    if run != [want, want]:
+        fail(f"Trainer.train of the strict flagship launched K2a, K2b as {run}, not 3 each in float32 FMA")
+    if not (np.all(np.isfinite(losses)) and all(torch.isfinite(t).all() for t in tree_leaves(trained))):
+        fail(f"Trainer.train of the strict flagship gave non-finite losses or params: {losses}")
+    yb, cb = torch.from_numpy(y[:B]).to(dev), [torch.from_numpy(traj[:B]).to(dev)]
+    step_losses, grads, used = [], [], []
+    for kernels in (True, False):  # one step through the kernels, then plain float32 autograd (TF32 off)
+        smodel.use_pallas = kernels
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+        before = fused_flow_train_fwd.launches + fused_flow_train_bwd.launches
+        z, ld = smodel.forward(p, yb, *cb, train=True)
+        dzs, dlds = randn_cotangents(z)
+        ((z * dzs).sum() + (ld * dlds).sum()).backward()
+        used.append(fused_flow_train_fwd.launches + fused_flow_train_bwd.launches - before)
+        step_losses.append(inn_nll_loss(z, ld).item())
+        grads.append([t.grad for t in tree_leaves(p)])
+    smodel.use_pallas = True
+    worst, max_d = -1.0, 0.0
+    for a, b in zip(*grads):
+        if a is not None and b is not None:
+            d, excess, _ = grad_excess(a, b)
+            worst, max_d = max(worst, excess), max(max_d, d)
+    loss_d = abs(step_losses[0] - step_losses[1])
+    rates = {}
+    params = map_tree(lambda t: t.detach().clone().requires_grad_(True), trained)
+    opt = make_optimizer("Adam", lr=2e-4).init(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for kernels in (True, False):
+        smodel.use_pallas = kernels
+        trainer.train_step(smodel, [params], opt, yb, cb, [gen])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            trainer.train_step(smodel, [params], opt, yb, cb, [gen])
+        torch.cuda.synchronize()
+        rates[kernels] = 5 * B / (time.perf_counter() - t0)
+    smodel.use_pallas = True
+    print(f"[6b strict training, batch {B}] Trainer.train of the flagship with pallas_strict (dropout 0): 1 epoch x 3 "
+          f"steps + validation in {t_train:.2f} s; launches K2a {run[0][0]} {run[0][1]} {run[0][2]}, K2b {run[1][0]} "
+          f"{run[1][1]} {run[1][2]}; losses {', '.join(f'{v:.3f}' for v in losses)}; a step through the strict "
+          f"K2a/K2b vs the plain float32 autograd step: loss {step_losses[0]:.5f} vs {step_losses[1]:.5f}, grads "
+          f"max|d| {max_d:.3e} (launches {used}); {rates[True]:.0f} train samples/s through the strict kernels, "
+          f"{rates[False]:.0f} on plain float32 autograd (cuBLAS SGEMM)")
+    if used != [2, 0] or not loss_d <= KERNEL_TOL * max(1.0, abs(step_losses[1])) or worst > 0:
+        fail(f"the strict training step disagrees with the plain one: launches {used}, loss |d| {loss_d:.3e}, "
+             f"grads {worst:.3e} past the bar")
+
+    # (c) times at the main path's batch-4096 inputs
+    x, h_proj, args, bound, dz, dld, e_fwd, e_bwd = main
+    H = model.nested_sizes[0]
+    with torch.no_grad():
+        times = {
+            "K2a": (cuda_ms(lambda: fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA), reps=5),
+                    cuda_ms(lambda: fused_flow_train_reference(x, h_proj, *args), reps=3)),
+            "K2b": (cuda_ms(lambda: fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=MODE_FMA), reps=5),
+                    cuda_ms(lambda: fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args), reps=3)),
+        }
+        outs = tuple(torch.empty_like(t) for t in (dz, h_proj, *args[:2], *args[3:]))
+        part_ms = {name: median(cuda_ms(lambda: _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(TRAIN_ARGS, args)),
+                                                                 outs, part, MODE_FMA), reps=3))
+                   for name, part in (("rows", BWD_ROWS), ("weight grads", BWD_WEIGHT_GRADS))}
+    for c, (n_l, modes, routes) in zip(counters, saved):  # the counts as this phase found them
+        c.launches = n_l
+        c.mode_launches.clear()
+        c.mode_launches.update(modes)
+        c.route_launches.clear()
+        c.route_launches.update(routes)
+    work = dict(zip(("K2a", "K2b"), train_work(dict(zip(TRAIN_ARGS, args)), h_proj, B, H)))
+    Hp, d_a = h_proj.shape[-1], args[3].shape[1]
+    layouts = {"K2a": fma_card_layout(B, Hp, model.size, d_a), "K2b": fma_train_card_layout(B, Hp, model.size, d_a)}
+    rows = []
+    for name, err, src, replaces in (
+        ("K2a", e_fwd, "bcnf_tpu_torch/ops/csrc/flow_fma.cu", "bcnf_tpu/ops/flow_kernel.py:558"),
+        ("K2b", e_bwd, "bcnf_tpu_torch/ops/csrc/flow_train_fma.cu", "bcnf_tpu/ops/flow_kernel.py:600"),
+    ):
+        k_times, p_times = times[name]
+        rows.append(kernel_row(f"{name}[fma] fused_flow_train_{'fwd' if name == 'K2a' else 'bwd'}", src, replaces,
+                               run[0 if name == "K2a" else 1][0], err, k_times, p_times, work[name], peaks, None,
+                               ARITH_FMA))
+        r = rows[-1]
+        print(f"    {name}, strict, rows {B} (layout: rows a lane, blocks, ring stages, floats a stage, smem "
+              f"{layouts[name]}): {r['ms']:.2f} ms (float32-FMA bound {r['bound_ms']:.2f} ms, {r['bound_by']}; "
+              f"{work[name][0] / 1e12:.3f} TFLOP -> {work[name][0] / r['ms'] / 1e9:.1f} TFLOP/s, median of "
+              f"{len(k_times)}, range {min(k_times):.2f}-{max(k_times):.2f}), plain float32 {r['plain_ms']:.2f} ms; "
+              f"max|d| vs plain {err:.2e}")
+    k2b_ms = rows[1]["ms"]
+    print(f"    K2b, strict, parts (CUDA events, median of 3, ms): 26 rows kernels (with the transposed weights' "
+          f"copies) {part_ms['rows']:.2f}, 26 weight-grad passes {part_ms['weight grads']:.2f}, the rest "
+          f"{k2b_ms - part_ms['rows'] - part_ms['weight grads']:.2f}")
     return rows
 
 
@@ -2175,7 +2407,8 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
         ok_resim, worst_resim, n_finite = trajectories_agree(X_card, X_cpu)
         print(f"    held: test NLL on the card {report['test_nll']:.6f} vs the CPU plain path {nll_cpu:.6f}: |d| "
               f"{nll_d:.2e} (bar {nll_bar:.2e} = 1e-4 (mean sum|z| + 1) + 19e-8); rank batch {tuple(z.shape)} through "
-              f"K1 vs the plain version in float64 on the same z: max|dy| {err_64:.2e} (bar {KERNEL_TOL:g}; the "
+              f"K1 vs the plain version in float64 on the same z: max|dy| {err_64:.2e} ({err_64 / KERNEL_TOL:.1%} of the bar "
+              f"{KERNEL_TOL:g}: ROADMAP's fault 2, the tensor cores' truncated accumulation; the "
               f"float32 plain version's own distance from float64 {err_p64:.2e}, K1 vs float32 plain {err:.2e}); "
               f"ranks vs the float32 plain version's: {int((rank_d > 0).sum())} of {rank_d.numel()} ranks "
               f"differ, by at most {int(rank_d.max())}, near-ties (|y_hat - y| < {TIE:g}) {int(ties.sum())}; "

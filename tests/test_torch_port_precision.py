@@ -226,26 +226,32 @@ def _model(**kw) -> CondRealNVP:
                        feature_network_stack=stack, act_norm=True, random_state=0, **kw)
 
 
-TABLE = {  # precision -> (K1's mode, K1's mode with pallas_strict, the mode of K2a/K2b/K4, TF32 allowed)
-    "highest": (MODE_3XTF32, MODE_FMA, MODE_3XTF32, False),
-    "float32": (MODE_3XTF32, MODE_FMA, MODE_3XTF32, False),
-    "default": (MODE_TF32, MODE_TF32, MODE_TF32, True),
-    "bfloat16": (MODE_TF32, MODE_TF32, MODE_TF32, True),
-    "BF16_BF16_F32_X3": (MODE_TF32, MODE_TF32, MODE_TF32, True),
-    "BF16_BF16_F32_X6": (None, None, None, False),  # missing from JAX's table: every gate closes
+TABLE = {  # precision -> (K1's mode, K1's mode with pallas_strict, the mode of K2a/K2b with pallas_strict,
+    #                        the mode of K4 (with or without pallas_strict), TF32 allowed)
+    "highest": (MODE_3XTF32, MODE_FMA, MODE_FMA, MODE_3XTF32, False),
+    "float32": (MODE_3XTF32, MODE_FMA, MODE_FMA, MODE_3XTF32, False),
+    "default": (MODE_TF32, MODE_TF32, MODE_TF32, MODE_TF32, True),
+    "bfloat16": (MODE_TF32, MODE_TF32, MODE_TF32, MODE_TF32, True),
+    "BF16_BF16_F32_X3": (MODE_TF32, MODE_TF32, MODE_TF32, MODE_TF32, True),
+    "BF16_BF16_F32_X6": (None, None, None, None, False),  # missing from JAX's table: every gate closes
 }
 
 
 @pytest.mark.parametrize("precision", list(TABLE))
 def test_precision_table_opens_the_gates_it_names(precision):
     """Which string opens which kernel gate in which mode (JAX's
-    `_FUSED_PRECISION_MODES`; strict changes only highest/float32), with the
-    gates' structural guards stood in for by a CPU tensor's."""
-    k1, k1_strict, train, tf32 = TABLE[precision]
+    `_FUSED_PRECISION_MODES`; strict changes only highest/float32, and there
+    K1, K2a and K2b, as JAX's `forward_fused_flow` and `inverse_fused_flow`
+    do, not K4, whose JAX kernel takes no strict flag), with the gates'
+    structural guards stood in for by a CPU tensor's."""
+    k1, k1_strict, train_strict, k4, tf32 = TABLE[precision]
     assert _model(precision=precision).kernel_mode == k1
     assert _model(precision=precision, pallas_strict=True).kernel_mode == k1_strict
-    assert _model(precision=precision, pallas_strict=True).train_kernel_mode == train
-    assert FUSED_PRECISION_MODES.get(precision) == train and precision in PRECISIONS
+    assert _model(precision=precision).train_kernel_mode == k1
+    assert _model(precision=precision, pallas_strict=True).train_kernel_mode == train_strict
+    assert _model(precision=precision).coupling_kernel_mode == k4
+    assert _model(precision=precision, pallas_strict=True).coupling_kernel_mode == k4
+    assert FUSED_PRECISION_MODES.get(precision) == k4 and precision in PRECISIONS
     with matmul_precision(precision):
         assert torch.backends.cuda.matmul.allow_tf32 is tf32 and torch.backends.cudnn.allow_tf32 is tf32
     assert _model(precision=precision)._fused_flow_takes()  # the shape every mode's kernels take
@@ -376,7 +382,8 @@ def test_wgmma_smem_is_the_sum_the_kernel_computes(route, passes):
 
 def test_wrappers_take_the_mode_and_run_float32_on_the_cpu():
     """On CPU tensors every wrapper is its plain version in float32, in any
-    mode; a mode a kernel does not have raises."""
+    mode, the training pair's strict one too; a mode a kernel does not have
+    (K4's float32 FMA, any unknown string) raises."""
     rng = np.random.default_rng(12)
     model = _model()
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -391,8 +398,10 @@ def test_wrappers_take_the_mode_and_run_float32_on_the_cpu():
     z_a, z_b = fused_flow_train(x, h_proj, **kargs, mode=MODE_TF32)
     z_r, ld_r, _ = fused_flow_train_reference(x, h_proj, *[kargs[n] for n in ARG_NAMES])
     assert torch.equal(z_a, z_r) and torch.equal(z_b, ld_r)
+    z_a, z_b = fused_flow_train(x, h_proj, **kargs, mode=MODE_FMA)
+    assert torch.equal(z_a, z_r) and torch.equal(z_b, ld_r)
     with pytest.raises(ValueError, match="kernel mode"):
-        fused_flow_train(x, h_proj, **kargs, mode=MODE_FMA)
+        fused_flow_train(x, h_proj, **kargs, mode="default")
     args = mlp_params_to_kernel_args(params["final"]["a"], model.coupling.d_a)
     proj = model.coupling.cond_proj(params["final"], h)["a"][0]
     with pytest.raises(ValueError, match="kernel mode"):

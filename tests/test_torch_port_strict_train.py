@@ -1,0 +1,411 @@
+"""Strict training (`CondRealNVP(pallas_strict=True)` at "highest"/"float32"):
+K2a and K2b in exact float32, the counterparts of JAX's training kernels at
+`precision="highest"` (bcnf_tpu/ops/flow_kernel.py: `fwd_call`, `bwd_call`
+of `_make_fused_flow_train`), on the float32 FMA kernels
+(csrc/flow_fma.cu's `fma_flow_train_kernel`, csrc/flow_train_fma.cu).
+
+On the CPU: the strict model's loss and grads through `forward_fused_flow`
+against JAX's strict model trained through its Pallas kernels in interpret
+mode (the JAX grad bars, tests/test_flow_kernel.py:307, 313); the modes (K2a
+and K2b float32 FMA, K4 unchanged); the routes, which take every shape the
+3xTF32 K2b takes, and the limits they read from the kernel's source. The
+`gpu` tests hold the kernels against their plain versions on a card:
+`python -m pytest tests/test_torch_port_strict_train.py -m gpu --noconftest`
+(JAX is imported only inside the tests that compare with it, so the file
+also runs where JAX is not installed)."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from bcnf_tpu_torch.models import (
+    CondRealNVP,
+    ConcatenateCondition,
+    FeatureNetworkStack,
+    FullyConnectedFeatureNetwork,
+    LSTMFeatureNetwork,
+)
+from bcnf_tpu_torch.ops import flow_kernel as fk
+
+CSRC = Path(fk.__file__).resolve().parent / "csrc"
+SIZE, N_COND_FEATURES, NESTED, N_BLOCKS, B = 7, 16, [32, 32, 32], 4, 16
+ARG_NAMES = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+GRAD_NAMES = ("x", "h_proj", "an_scale", "an_bias", "w1y", "b1", "wm", "bm", "wout", "bout")
+
+
+def _port_model(precision: str = "highest", strict: bool = True) -> CondRealNVP:
+    stack = FeatureNetworkStack([ConcatenateCondition(input_size=None, output_size=6),
+                                 FullyConnectedFeatureNetwork(sizes=[6, 32, N_COND_FEATURES])])
+    return CondRealNVP(size=SIZE, nested_sizes=NESTED, n_blocks=N_BLOCKS, n_conditions=N_COND_FEATURES,
+                       feature_network_stack=stack, act_norm=True, random_state=0, precision=precision,
+                       pallas_strict=strict)
+
+
+# ---------------------------------------------------------------------------
+# (a) the strict model against JAX's, trained through its kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("precision", ["highest", "float32"])
+def test_strict_training_matches_jax_strict_kernels(precision, monkeypatch):
+    """The NLL and every param's grad of a strict model through
+    `forward_fused_flow` on CPU tensors (K2a, K2b: their float32 plain
+    versions) against JAX's strict model through its training kernels at
+    "highest" in interpret mode, on weights bridged from JAX's."""
+    import jax
+    import jax.numpy as jnp
+
+    from bcnf_tpu.models import CondRealNVP as JaxCondRealNVP
+    from bcnf_tpu.models import ConcatenateCondition as JaxConcat
+    from bcnf_tpu.models import FeatureNetworkStack as JaxStack
+    from bcnf_tpu.models import FullyConnectedFeatureNetwork as JaxFC
+    from bcnf_tpu.models.cnf import spmd_local
+    from bcnf_tpu.ops import flow_kernel as jax_fk
+    from bcnf_tpu.utils.misc import inn_nll_loss as jax_nll
+    from bcnf_tpu_torch.bridge import map_tree, params_from_numpy, tree_leaves
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    stack = JaxStack([JaxConcat(input_size=None, output_size=6), JaxFC(sizes=[6, 32, N_COND_FEATURES])])
+    jm = JaxCondRealNVP(size=SIZE, nested_sizes=NESTED, n_blocks=N_BLOCKS, n_conditions=N_COND_FEATURES,
+                        feature_network_stack=stack, act_norm=True, random_state=0, precision=precision,
+                        pallas_strict=True)
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    rng = np.random.default_rng(0)
+    an = jp["blocks"]["actnorm"]  # off identity, so the ActNorm grads are exercised
+    an["scale"] = (1.0 + 0.2 * rng.normal(size=(N_BLOCKS - 1, SIZE))).astype(np.float32)
+    an["bias"] = (0.2 * rng.normal(size=(N_BLOCKS - 1, SIZE))).astype(np.float32)
+    y = rng.normal(size=(B, SIZE)).astype(np.float32)
+    cond = rng.normal(size=(B, 6)).astype(np.float32)
+
+    seen = []
+    real = jax_fk.fused_flow_train
+    monkeypatch.setattr(jax_fk, "fused_flow_train",
+                        lambda *a, **kw: seen.append((kw["precision"], kw["interpret"])) or real(*a, **kw))
+    monkeypatch.setenv("BCNF_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("BCNF_FUSED_TRAIN_MIN_BATCH", "1")
+
+    def jax_loss(p):
+        z, ld = jm.forward(p, jnp.asarray(y), jnp.asarray(cond), train=True)
+        return jax_nll(z, ld)
+
+    with spmd_local():
+        v_ref, g_ref = jax.value_and_grad(jax_loss)(jax.tree.map(jnp.asarray, jp))
+    assert seen and set(seen) == {("highest", True)}  # JAX's exact-float32 training kernels ran
+
+    tm = _port_model(precision)
+    assert tm.train_kernel_mode == fk.MODE_FMA
+    modes = []
+    real_train = fk.fused_flow_train
+    monkeypatch.setattr(fk, "fused_flow_train", lambda *a, **kw: modes.append(kw["mode"]) or real_train(*a, **kw))
+    tp = params_from_numpy(jp, "cpu", requires_grad=True)
+    h = tm.encode(tp, (torch.from_numpy(cond),))
+    z, ld = tm.forward_fused_flow(tp, torch.from_numpy(y), h)
+    loss = inn_nll_loss(z, ld)
+    loss.backward()
+    assert modes == [fk.MODE_FMA]
+    np.testing.assert_allclose(loss.item(), float(v_ref), atol=1e-5, rtol=0)
+    flat_ref = jax.tree.leaves_with_path(jax.tree.map(np.asarray, g_ref))
+    ours = list(tree_leaves(map_tree(lambda t: t.grad, tp)))
+    assert len(ours) == len(flat_ref)
+    for (path, ref), g in zip(flat_ref, ours):
+        if "ortho" in jax.tree_util.keystr(path):
+            assert (g is None or not g.any()) and not np.any(ref)  # the fixed mixes: zero grads in both packages
+            continue
+        np.testing.assert_allclose(g.numpy(), ref, atol=5e-4, rtol=1e-3, err_msg=jax.tree_util.keystr(path))
+
+
+# ---------------------------------------------------------------------------
+# (b) the modes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("precision,strict,train,coupling", [
+    ("highest", True, fk.MODE_FMA, fk.MODE_3XTF32),
+    ("float32", True, fk.MODE_FMA, fk.MODE_3XTF32),
+    ("highest", False, fk.MODE_3XTF32, fk.MODE_3XTF32),
+    ("default", True, fk.MODE_TF32, fk.MODE_TF32),
+    ("BF16_BF16_F32_X6", True, None, None),
+])
+def test_strict_sets_the_training_kernels_mode_and_not_k4s(precision, strict, train, coupling):
+    """Strict at "highest"/"float32" runs K2a/K2b in float32 FMA, as JAX's
+    `forward_fused_flow` takes its "highest" kernel mode; K4 keeps the
+    precision's mode (JAX's K4 takes no strict flag); the training gate
+    opens wherever its shape is taken, in that mode."""
+    model = _port_model(precision, strict)
+    assert model.train_kernel_mode == train and model.coupling_kernel_mode == coupling
+    assert model.train_kernel_mode == model.kernel_mode
+    if train is not None:
+        assert model._fused_train_takes()
+
+
+def test_strict_per_coupling_path_hands_k4_its_tensor_core_mode(monkeypatch):
+    """With `use_pallas_coupling`, a strict model's per-coupling inverse and
+    forward hand K4 the 3xTF32 mode (the gate opened on CPU tensors)."""
+    model = _port_model()
+    model.use_pallas_coupling = True
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    seen = []
+    for name in ("forward_fused", "inverse_fused"):
+        real = getattr(model.coupling, name)
+        monkeypatch.setattr(model.coupling, name,
+                            lambda p, x, proj, mode, real=real: seen.append(mode) or real(p, x, proj, mode))
+    monkeypatch.setattr(CondRealNVP, "_use_fused", lambda self, train, x, *trees: True)
+    cond = torch.randn((5, 6), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        z = torch.randn((5, SIZE), generator=torch.Generator().manual_seed(2))
+        model.inverse(params, z, cond)
+        model.forward(params, z, cond)
+    assert seen and set(seen) == {fk.MODE_3XTF32}
+
+
+def test_fused_flow_train_takes_the_strict_mode_on_the_cpu():
+    """On CPU tensors `fused_flow_train(mode=MODE_FMA)` is its float32 plain
+    version, forward and backward, and counts nothing."""
+    model = _port_model()
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(3)
+    h = model.encode(params, (torch.from_numpy(rng.normal(size=(B, 6)).astype(np.float32)),))
+    kargs, h_proj = model._fused_flow_args(params, h.detach())
+    args = [kargs[n] for n in ARG_NAMES]
+    x = torch.from_numpy(rng.normal(size=(B, SIZE)).astype(np.float32))
+    before = (fk.fused_flow_train_fwd.launches, fk.fused_flow_train_bwd.launches)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, h_proj, *args)]
+    z, ld = fk.fused_flow_train(*leaves, mode=fk.MODE_FMA)
+    z_r, ld_r, bound = fk.fused_flow_train_reference(x, h_proj.detach(), *[a.detach() for a in args])
+    assert torch.equal(z, z_r) and torch.equal(ld, ld_r)
+    dz, dld = torch.randn_like(z), torch.randn_like(ld)
+    grads = torch.autograd.grad((z, ld), leaves, grad_outputs=(dz, dld))
+    refs = fk.fused_flow_train_backward_reference(bound, h_proj.detach(), dz, dld, *[a.detach() for a in args])
+    for name, g, r in zip(GRAD_NAMES, [g for i, g in enumerate(grads) if i != 4], refs):
+        assert torch.equal(g, r), name
+    assert (fk.fused_flow_train_fwd.launches, fk.fused_flow_train_bwd.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# (c) the routes and the limits they read from the kernel's source
+# ---------------------------------------------------------------------------
+
+
+def _source_constant(name: str, source: str = "flow_train_fma.cu") -> int:
+    text = (CSRC / source).read_text()
+    return int(re.search(rf"constexpr\s+int\s+{name}\s*=\s*(\d+)\s*;", text).group(1))
+
+
+def test_strict_training_constants_are_read_from_the_kernel_source():
+    """The route's job limit is the source's `kFtMaxJobs`; the rows kernel's
+    ring bounds are the strict K1's (`kFmaRingMin`, `kFmaRingMax`)."""
+    assert fk.kernel_limit("kFtMaxJobs") == _source_constant("kFtMaxJobs") == 32
+    for name in ("kFmaRingMin", "kFmaRingMax", "kFmaStageRows", "kFmaLaneRows", "kFmaWideTN"):
+        assert fk.kernel_limit(name) == _source_constant(name, "flow_fma.cu")
+    assert '#include "flow_fma.cu"' in (CSRC / "flow_train_fma.cu").read_text()
+
+
+@pytest.mark.parametrize("tn", fk.KERNEL_TN)
+def test_strict_training_routes_take_every_shape_the_3xtf32_k2b_takes(tn):
+    """At every compiled width, size, split and depth where the 3xTF32 K2b
+    has a route, the strict K2b and the strict K2a have theirs (the FMA
+    kernels); nh 0 and splits outside (0, size) have none."""
+    Hp, taken = 32 * tn, 0
+    for size in range(2, 40, 3):
+        for d_a in sorted({1, size // 2, (size + 1) // 2, size - 1}):
+            for nh in (1, 2, 4, 13):
+                if fk.train_bwd_route(Hp, size, d_a, nh, fk.MODE_3XTF32) is None:
+                    continue
+                taken += 1
+                assert fk.train_bwd_route(Hp, size, d_a, nh, fk.MODE_FMA) == fk.ROUTE_FMA, (Hp, size, d_a, nh)
+                assert fk.flow_route(Hp, size, d_a, False, fk.MODE_FMA) == fk.ROUTE_FMA
+                assert fk.train_kernels_take(Hp, size, d_a, nh, fk.MODE_FMA)
+    assert taken > 50
+    assert fk.train_bwd_route(Hp, 19, 10, 0, fk.MODE_FMA) is None
+    assert fk.train_bwd_route(Hp, 19, 19, 4, fk.MODE_FMA) is None
+    assert fk.train_bwd_route(Hp, 19, 10, fk.kernel_limit("kFtMaxJobs") - 2, fk.MODE_FMA) is None
+    assert fk.TRAIN_BWD_LIBRARY[fk.ROUTE_FMA] == "flow_train_fma" and fk.ROUTE_LIBRARY[fk.ROUTE_FMA] == "flow_fma"
+
+
+@pytest.mark.parametrize("tn", fk.KERNEL_TN)
+def test_strict_training_shared_memory_is_the_source_sum(tn):
+    """`fma_train_smem` is `ft_smem`: the ring's barriers, the strict K1's
+    transposed tile, the ring of `ft_stage` floats a stage (the strict K1's
+    stage, and at least 4 rows of W1y^T, d_a rounded up to even), and the
+    round's rows of the backward's state; the layout takes as many stages as
+    fit, and the route closes where even the shortest ring does not."""
+    Hp, limit = 32 * tn, fk.kernel_limit("kSmemLimit")
+    R = fk.fma_lane_rows(Hp)
+    for size, d_a in ((19, 10), (7, 4), (38, 19), (120, 60), (200, 100)):
+        d_ap = d_a + d_a % 2
+        stage = max(fk.fma_stage(Hp, size, d_a), 4 * d_ap)
+        assert fk.fma_train_stage(Hp, size, d_a) == stage
+
+        def smem(stages):
+            return 16 * stages + 4 * (Hp * (8 * R + 4) + stages * stage
+                                      + 8 * R * (4 * size + 3 * (size - d_a) + d_ap + 1))
+
+        assert fk.kernel_smem(fk.ROUTE_TRAIN_BWD_FMA, Hp, size, d_a) == smem(fk.kernel_limit("kFmaRingMin"))
+        if smem(fk.kernel_limit("kFmaRingMin")) > limit:
+            assert fk.train_bwd_route(Hp, size, d_a, 4, fk.MODE_FMA) is None
+            with pytest.raises(ValueError):
+                fk.fma_train_layout(4096, Hp, size, d_a, 132)
+            continue
+        rows, blocks, stages, floats, nbytes = fk.fma_train_layout(4096, Hp, size, d_a, 132)
+        assert (rows, floats, nbytes) == (R, stage, smem(stages)) and nbytes <= limit
+        assert stages == fk.kernel_limit("kFmaRingMax") or smem(stages + 1) > limit
+        assert blocks == min(-(-4096 // (4 * R)), 132)
+
+
+def test_strict_training_layout_at_the_flagship_shape():
+    """At the flagship's shape (Hp 544, size 19, d_a 10) the rows kernel
+    takes 4 rows a lane, a 4-stage ring of 16-row stages (232,256 of the
+    232,448 bytes a block may use) and one block an SM at 4096 rows; 37
+    blocks at 37 groups."""
+    assert fk.fma_train_layout(4096, 544, 19, 10, 132) == (4, 132, 4, 8704, 232_256)
+    assert fk.fma_train_layout(4096 + 3, 544, 19, 10, 132)[1] == 132
+    assert fk.fma_train_layout(37 * 16, 544, 19, 10, 132)[1] == 37
+
+
+# ---------------------------------------------------------------------------
+# (d) on a card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _card_case(cuda, hidden: int, nh: int, rows: int, seed: int, size: int = 19):
+    """A flow of 3 steps with `nh` hidden layers of width `hidden` on the card
+    (ActNorm off identity): x, h_proj (one condition row a row), the nine
+    kernel arguments."""
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=size, nested_sizes=[hidden] * (nh + 1), n_blocks=3, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0, pallas_strict=True)
+    params = model.init(device=cuda)
+    rng = np.random.default_rng(seed)
+    an = params["blocks"]["actnorm"]
+    params = dict(params, blocks=dict(params["blocks"], actnorm={
+        "scale": an["scale"] + torch.from_numpy(0.2 * rng.normal(size=an["scale"].shape).astype(np.float32)).to(cuda),
+        "bias": torch.from_numpy(0.2 * rng.normal(size=an["bias"].shape).astype(np.float32)).to(cuda),
+    }))
+    with torch.no_grad():
+        traj = torch.from_numpy(rng.normal(size=(rows, 9, 3)).astype(np.float32)).to(cuda)
+        kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
+        x = torch.from_numpy(rng.normal(size=(rows, size)).astype(np.float32)).to(cuda)
+    return x, h_proj, [kargs[n] for n in ARG_NAMES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,nh,rows", [(16, 2, 37), (100, 4, 6 * 37 + 5), (526, 4, 203), (1000, 2, 101),
+                                            (526, 1, 4099)])
+def test_strict_training_kernels_match_plain_versions_on_card(cuda, hidden, nh, rows):
+    """The strict K2a's z, logdet and step inputs within 1e-4 of its plain
+    version, the strict K2b's grads at the JAX grad bar, each bit-equal
+    between two calls and counted on its route and mode."""
+    x, h_proj, args = _card_case(cuda, hidden, nh, rows, seed=hidden + rows)
+    before = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FMA], fk.fused_flow_train_bwd.route_launches[fk.ROUTE_FMA],
+              fk.fused_flow_train_fwd.mode_launches[fk.MODE_FMA], fk.fused_flow_train_bwd.mode_launches[fk.MODE_FMA])
+    with torch.no_grad():
+        one = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA)
+        two = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA)
+        ref = fk.fused_flow_train_reference(x, h_proj, *args)
+        gen = torch.Generator(device=cuda).manual_seed(rows)
+        dz = torch.randn(x.shape, generator=gen, device=cuda)
+        dld = torch.randn((rows,), generator=gen, device=cuda)
+        g1 = fk.fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=fk.MODE_FMA)
+        g2 = fk.fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=fk.MODE_FMA)
+        grefs = fk.fused_flow_train_backward_reference(ref[2], h_proj, dz, dld, *args)
+        torch.cuda.synchronize()
+    for name, a, b, c in zip(("z", "logdet", "bound"), one, two, ref):
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=0, msg=name)
+        assert torch.equal(a, b), name
+    for name, a, b, c in zip(GRAD_NAMES, g1, g2, grefs):
+        torch.testing.assert_close(a, c, atol=5e-4, rtol=1e-3, msg=name)
+        assert torch.equal(a, b), name
+    after = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FMA], fk.fused_flow_train_bwd.route_launches[fk.ROUTE_FMA],
+             fk.fused_flow_train_fwd.mode_launches[fk.MODE_FMA], fk.fused_flow_train_bwd.mode_launches[fk.MODE_FMA])
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hp,size,d_a,rows", [(544, 19, 10, 4096), (1024, 19, 10, 101), (32, 7, 4, 37)])
+def test_strict_training_layout_on_card_is_the_host_copy(cuda, Hp, size, d_a, rows):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fk.fma_train_card_layout(rows, Hp, size, d_a) == fk.fma_train_layout(rows, Hp, size, d_a, sms)
+
+
+@pytest.mark.gpu
+def test_strict_training_step_launches_only_the_strict_kernels_on_card(cuda):
+    """A strict model's training forward and backward (dropout 0, a batch
+    past the floor) launch K2a and K2b once each, both in float32 FMA on
+    their FMA routes, and nothing of the 3xTF32 or one-pass routes; the loss
+    and grads match the plain autograd step in float32 (TF32 off)."""
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.utils.misc import inn_nll_loss
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[100] * 3, n_blocks=4, n_conditions=8, feature_network_stack=stack,
+                        act_norm=True, random_state=0, pallas_strict=True)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(rng.normal(size=(256, 19)).astype(np.float32)).to(cuda)
+    traj = torch.from_numpy(rng.normal(size=(256, 9, 3)).astype(np.float32)).to(cuda)
+    counters = (fk.fused_flow_train_fwd, fk.fused_flow_train_bwd)
+    for c in counters:
+        c.launches = 0
+        c.mode_launches.clear()
+        c.route_launches.clear()
+    losses, grads = [], []
+    for kernels in (True, False):
+        model.use_pallas = kernels
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+        z, ld = model.forward(p, y, traj, train=True)
+        loss = inn_nll_loss(z, ld)
+        loss.backward()
+        torch.cuda.synchronize()
+        losses.append(loss.item())
+        grads.append([t.grad for t in tree_leaves(p)])
+    for c in counters:
+        assert c.launches == 1 and dict(c.mode_launches) == {fk.MODE_FMA: 1}
+        assert dict(c.route_launches) == {fk.ROUTE_FMA: 1}
+    assert abs(losses[0] - losses[1]) <= 1e-4 * max(1.0, abs(losses[1]))
+    for a, b in zip(*grads):
+        if b is None:  # the fixed mixes: detached on the plain path, zero grads through the kernels
+            assert a is None or not a.any()
+        else:
+            torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K1's 3xTF32 inverse: the fold variants of tools/k1_3xtf32_fold.py
+# ---------------------------------------------------------------------------
+
+
+def test_fold_tool_patches_apply_to_the_kernel_source():
+    """Each variant of tools/k1_3xtf32_fold.py patches csrc/flow_wgmma.cu at
+    exactly one place, and the `wgmma` widths it adds are written as
+    csrc/wgmma_tf32.cuh writes the ones it has (the tool imports neither JAX
+    nor the JAX package: tests/test_torch_port_imports.py)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("k1_fold", Path(__file__).resolve().parent.parent / "tools"
+                                                  / "k1_3xtf32_fold.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = (CSRC / "flow_wgmma.cu").read_text()
+    assert set(tool.PATCHES) == {"as built", "fold", "fold_halves"}
+    for name, patches in tool.PATCHES.items():
+        for old, new in patches:
+            assert source.count(old) == 1 and old != new, name
+    header = (CSRC / "wgmma_tf32.cuh").read_text()
+
+    def norm(text: str) -> str:  # whitespace and string-literal splits aside
+        return re.sub(r"\s+", " ", text).strip().replace('" "', "")
+
+    for n in (64, 96, 136):
+        written = re.search(rf"template <>\nstruct WgmmaTf32<{n}> \{{.*?\n\}};\n", header, re.S).group(0)
+        assert norm(written) == norm(tool.wgmma_spec(n))

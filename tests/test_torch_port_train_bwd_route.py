@@ -66,7 +66,9 @@ def test_route_falls_back_where_the_wgmma_kernel_refuses_the_shape(size, d_a, nh
 
 def test_route_rejects_other_modes_and_widths():
     with pytest.raises(ValueError, match="kernel mode"):
-        fk.train_bwd_route(544, 19, 10, 4, fk.MODE_FMA)
+        fk.train_bwd_route(544, 19, 10, 4, "default")
+    assert fk.train_bwd_route(544, 19, 10, 4, fk.MODE_FMA) == fk.ROUTE_FMA  # strict: the float32 FMA kernels
+    assert fk.train_bwd_route(560, 19, 10, 4, fk.MODE_FMA) is None
     assert fk.train_bwd_route(560, 19, 10, 4, fk.MODE_TF32) is None  # not a compiled width
     assert fk.train_bwd_route(544, 19, 0, 4, fk.MODE_TF32) is None
 
