@@ -114,6 +114,19 @@ def build(name: str) -> Path:
     return build_all([name])[name]
 
 
+def resource_usage(name: str) -> dict[str, dict[str, int]]:
+    """Each kernel's resources in a built library, by mangled name, as
+    `cuobjdump -res-usage` reads them from the binary: registers a thread
+    (REG, the launch count), and the bytes a thread keeps on the stack
+    (STACK, where ptxas spills registers) and in local memory (LOCAL)."""
+    import re
+
+    out = subprocess.run([os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-res-usage", str(build(name))],
+                         capture_output=True, text=True, check=True).stdout
+    found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", out)
+    return {fn: {"REG": int(r), "STACK": int(s), "LOCAL": int(loc)} for fn, r, s, loc in found}
+
+
 def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     """Build (at first use) and load one kernel library, with its C entry
     points typed."""

@@ -126,6 +126,29 @@ __device__ __forceinline__ void mbar_arrive_expect_tx_cluster(uint64_t* bar, uin
       "r"(cta), "r"(bytes)
       : "memory");
 }
+// A point-to-point hand-off between the blocks of a cluster: arrive on the
+// barrier at `bar`'s offset in block `cta`, releasing this thread's earlier
+// reads and writes (distributed shared memory included) at cluster scope; and
+// wait for a phase of a block's own barrier, acquiring at cluster scope what
+// its arrivals released.
+__device__ __forceinline__ void mbar_arrive_release_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait_acquire_cluster(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
 // One bulk copy from global memory to `dst`'s offset in the shared memory of
 // every block of `mask` (bit i: cluster rank i), each completing on its
 // barrier at `bar`'s offset.
@@ -139,40 +162,44 @@ __device__ __forceinline__ void bulk_copy_g2s_multicast(void* dst, const void* s
 }
 
 // ---- D += A B, m64nNk8, tf32 A from registers, B K-major from shared memory
-// (the same instruction at each width N the flow kernels use: 8 * TN).
+// (the same instruction at each width N the flow kernels use: 8 * TN);
+// `scale_d` 0 drops D's old values: D = A B, a fresh sum (no zeroing needed).
 
 template <int N>
 struct WgmmaTf32;
 
 template <>
 struct WgmmaTf32<8> {
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3}, "
         "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct WgmmaTf32<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, "
         "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct WgmmaTf32<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -180,13 +207,14 @@ struct WgmmaTf32<32> {
         "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct WgmmaTf32<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -197,13 +225,14 @@ struct WgmmaTf32<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct WgmmaTf32<96> {
-  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
@@ -217,13 +246,14 @@ struct WgmmaTf32<96> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct WgmmaTf32<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -240,13 +270,14 @@ struct WgmmaTf32<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct WgmmaTf32<136> {
-  static __device__ __forceinline__ void mma(float (&d)[68], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void mma(float (&d)[68], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n136k8.f32.tf32.tf32 "
@@ -265,7 +296,7 @@ struct WgmmaTf32<136> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
           "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 

@@ -5,8 +5,10 @@
   (`flow_route`), never by catching a failure:
   - the default mode (the "highest"/"float32" contract, which the JAX model
     serves with its "x3" kernel mode) runs 3xTF32 on the tensor cores: the
-    inverse on `wgmma` (`csrc/flow_wgmma.cu`, with the hidden weights
-    prepared once a call by `prepare_weights`) at padded widths up to 544,
+    inverse on `wgmma` (`csrc/flow_wgmma.cu`: 2-block clusters splitting
+    each hidden layer's columns, each k-stage's three passes folded into a
+    float32 sum; the hidden weights prepared once a call by
+    `prepare_weights`) at padded widths up to 544,
     the row-tile kernel above that (`rows_flow_kernel` in
     `csrc/flow_kernel.cu`); the forward on the row-tile kernel;
   - the reduced mode (the "default", "bfloat16" and "BF16_BF16_F32_X3"
@@ -106,16 +108,18 @@ TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 
 # The constants of the kernels' sources that the host side reads, by the
 # source that defines each: the dynamic shared memory a block may use and
 # the weight-grad jobs one AtbJobs launch holds (K2b's nh + 3 a step), the
-# limits the launchers check; the `wgmma` inverse's weight ring by
-# arithmetic, and the blocks of a one-pass cluster (`wgmma_ring`); K2b's
+# limits the launchers check; the `wgmma` inverse's weight ring and blocks of
+# a cluster by arithmetic (`wgmma_ring`), the k-steps a 3xTF32 stage holds
+# and its cluster's hand-off barriers; K2b's
 # `wgmma` route's rows a cluster, blocks a cluster and weight ring (stages of
 # kTwStageK rows); the strict kernel's consumer warps, rows a lane, the
 # widest TN at that many rows, weight rows a stage and the bounds of its
 # ring (`fma_layout`); the one-pass `wgmma` forward's rows a cluster, blocks
 # a cluster, weight rows a stage, the bounds of its ring and the floats of
 # its barriers (`fwd_wgmma_ring`); the strict K2b's weight-grad jobs a launch.
-_SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh", "kWgRing3xTf32": "flow_wgmma.cu",
-                  "kWgRingTf32": "flow_wgmma.cu", "kWgClusterTf32": "flow_wgmma.cu",
+_SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh",
+                  **{name: "flow_wgmma.cu" for name in ("kWgRing3xTf32", "kWgCluster3xTf32", "kWgRingTf32",
+                                                         "kWgClusterTf32", "kWgStageK", "kWgXchBarriers")},
                   "kTwRows": "flow_train_wgmma.cu", "kTwCluster": "flow_train_wgmma.cu",
                   "kTwRing": "flow_train_wgmma.cu", "kTwStageK": "flow_train_wgmma.cu",
                   **{name: "flow_fma.cu" for name in ("kFmaWarps", "kFmaLaneRows", "kFmaWideTN", "kFmaStageRows",
@@ -137,13 +141,24 @@ def kernel_limit(name: str) -> int:
 
 
 def wgmma_ring(route: str) -> tuple[int, int]:
-    """(stages of the weight ring, blocks of a cluster sharing each stage)
-    of the `wgmma` inverse on `route` (`csrc/flow_wgmma.cu`)."""
+    """(stages of the weight ring, blocks of a cluster) of the `wgmma`
+    inverse on `route` (`csrc/flow_wgmma.cu`): in 3xTF32 the blocks of a
+    cluster own the same 64 rows, each half of every hidden layer's columns;
+    in one pass each block owns its 64 rows and the cluster shares each stage."""
     if route == ROUTE_WGMMA:
-        return kernel_limit("kWgRing3xTf32"), 1
+        return kernel_limit("kWgRing3xTf32"), kernel_limit("kWgCluster3xTf32")
     if route == ROUTE_WGMMA_TF32:
         return kernel_limit("kWgRingTf32"), kernel_limit("kWgClusterTf32")
     raise ValueError(f"{route!r} is not a wgmma route")
+
+
+def wgmma_grid(route: str, B: int) -> int:
+    """Blocks the `wgmma` inverse on `route` launches for B rows, in whole
+    clusters (`csrc/flow_wgmma.cu`: `launch`): 3xTF32 a cluster a 64-row
+    tile; one pass the 64-row tiles rounded up to whole clusters (a block
+    past the last row runs on masked rows)."""
+    cluster, tiles = wgmma_ring(route)[1], -(-B // 64)
+    return cluster * (tiles if route == ROUTE_WGMMA else -(-tiles // cluster))
 
 
 def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
@@ -227,9 +242,11 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
         rows, stage = kernel_limit("kTwRows"), kernel_limit("kTwStageK") * Hp // 2  # the exchanged halves, dld
         state = rows * (2 * size + 2 * n_out + d_a + 2 * max(n_out, d_a) + 1)
         return 4 * (16 + rows * (Hp + 4) + kernel_limit("kTwRing") * stage + state)
-    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):  # tile, the ring's stages of hi (and lo), x, x Q^T, [t | s'],
-        stages, stage = wgmma_ring(route)[0], (16 if route == ROUTE_WGMMA else 8) * Hp  # 2 barriers a stage
-        return 4 * (64 * (Hp + 4) + stages * stage + 64 * (2 * size + n_out)) + 16 * stages
+    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):  # tile, the ring's stages (8 Hp floats a k-step: hi of every
+        three = route == ROUTE_WGMMA  # column, or hi and lo of a block's half), x, x Q^T, [t | s'], 2 barriers a
+        stages, stage = wgmma_ring(route)[0], 8 * Hp * (kernel_limit("kWgStageK") if three else 1)  # stage (+ the
+        barriers = 2 * stages + (kernel_limit("kWgXchBarriers") if three else 0)  # 3xTF32 cluster's hand-offs)
+        return 4 * (64 * (Hp + 4) + stages * stage + 64 * (2 * size + n_out)) + 8 * barriers
     if route in (ROUTE_ROWS, ROUTE_ROWS_TF32, ROUTE_TRAIN_BWD):  # tile, the 3-stage ring (csrc/flow_rows.cuh), then
         BM, BK = (32, 16) if tn <= 17 else (16, 8)
         stage = max(BK * (Hp + 8), Hp * (BK + 4))
@@ -460,18 +477,22 @@ def _round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def prepare_weights(wm: torch.Tensor, passes: int = 3) -> torch.Tensor:
+def prepare_weights(wm: torch.Tensor, passes: int = 3, stage_k: int | None = None) -> torch.Tensor:
     """The stacked, padded hidden weights `wm` (S, nh, Hp, Hp), stored (in,
     out), as the `wgmma` inverse reads them (`csrc/flow_wgmma.cu`), on `wm`'s
     device: transposed to K-major (out, in), split into ``hi = tf32(w)``
     (rounded) and ``lo = w - hi`` (exact; the tensor cores read its top 19
-    bits), and laid out stage by stage, 8 input rows a stage, each stage
-    holding hi then lo in the order of `wgmma`'s core matrices (8 outputs x 4
-    inputs, 128 contiguous bytes; the two along the inputs side by side), so
-    that one bulk copy moves a stage. Shape (S, nh, Hp/8 stages, 2 [hi, lo],
-    Hp/8 output groups, 2 input halves, 8 outputs, 4 inputs). With
-    `passes=1` (the one-pass kernel) a stage holds hi alone: (S, nh, Hp/8,
-    1, ...), half the bytes."""
+    bits), and laid out stage by stage, 8 input rows a stage, in the order of
+    `wgmma`'s core matrices (8 outputs x 4 inputs, 128 contiguous bytes; the
+    two along the inputs side by side). In 3xTF32 a stage holds `stage_k`
+    k-steps (default: the kernel's `kWgStageK`), split by output column
+    between the two blocks of a cluster (rank r owns columns r Hp/2 ..),
+    each rank's part holding its k-steps' hi then lo, so that one bulk copy
+    moves a block's part of a stage: shape (S, nh, Hp/8/stage_k stages, 2
+    ranks, stage_k k-steps, 2 [hi, lo], Hp/16 output groups, 2 input halves,
+    8 outputs, 4 inputs). With `passes=1` (the one-pass kernel) a stage holds
+    one k-step, hi alone, of every column: (S, nh, Hp/8, 1, Hp/8, 2, 8, 4),
+    half the bytes."""
     if passes not in (1, 3):
         raise ValueError(f"prepare_weights: a product takes 1 or 3 passes, not {passes}")
     S, nh, Hp, _ = wm.shape
@@ -479,7 +500,12 @@ def prepare_weights(wm: torch.Tensor, passes: int = 3) -> torch.Tensor:
     # w^T[n, k] with n = 8 ng + r and k = 8 s + 4 kg + c, to (s, ng, kg, r, c)
     wt = wm.transpose(-1, -2).reshape(S, nh, g, 8, g, 2, 4).permute(0, 1, 4, 2, 5, 3, 6).contiguous()
     hi = _round_tf32(wt)
-    return torch.stack([hi, wt - hi] if passes == 3 else [hi], dim=3)
+    if passes == 1:
+        return hi.unsqueeze(3)
+    k = kernel_limit("kWgStageK") if stage_k is None else stage_k
+    # s = k j + u and ng = (Hp/16) rank + ng', to (j, rank, u, ng', kg, r, c)
+    wt, hi = (t.reshape(S, nh, g // k, k, 2, g // 2, 2, 8, 4).transpose(3, 4) for t in (wt, hi))
+    return torch.stack([hi, wt - hi], dim=5).contiguous()
 
 
 def prepare_train_weights(wm: torch.Tensor) -> torch.Tensor:
@@ -640,21 +666,24 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-WG_PRODUCTS, WG_COPIES = 1, 2  # the `wgmma` inverse's parts (csrc/flow_wgmma.cu)
+# the `wgmma` inverse's parts (csrc/flow_wgmma.cu): its products, the weights'
+# stream, and the exchange between the blocks of a 3xTF32 cluster
+WG_PRODUCTS, WG_COPIES, WG_EXCHANGE = 1, 2, 4
 
 
 def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: bool, n_cond: int, mode: str,
-                 wstages: torch.Tensor | None = None, parts: int = WG_PRODUCTS | WG_COPIES,
+                 wstages: torch.Tensor | None = None, parts: int = WG_PRODUCTS | WG_COPIES | WG_EXCHANGE,
                  ) -> tuple[str, torch.Tensor, torch.Tensor | None]:
     """Launch K1 on checked CUDA tensors, uncounted, on the route
     `flow_route` gives for `mode`; returns `(route, y, logdet or None)`. The
     `wgmma` inverses read the hidden weights as `prepare_weights` gives them
     for the mode, the `wgmma` forward as `prepare_train_weights` does: pass
     them as `wstages`, or they are prepared here. `parts`
-    other than both runs the `wgmma` inverse with a part left out, to time
-    the rest (chip_smoke.py): its products on stale weight stages
-    (`WG_PRODUCTS`), the weights' stream without the products
-    (`WG_COPIES`), or neither (0); y is then not the inverse."""
+    other than all three runs the `wgmma` inverse with a part left out, to
+    time the rest (chip_smoke.py): its products alone, on stale weight
+    stages (`WG_PRODUCTS`), the weights' stream without the products
+    (`WG_COPIES`), or each 3xTF32 block on its own half without the exchange
+    (no `WG_EXCHANGE`); y is then not the inverse."""
     from bcnf_tpu_torch.ops._build import load_library
 
     B, size = x.shape

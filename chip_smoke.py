@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit, versions; build every kernel
-   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`).
+   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`); the registers
+   and spill bytes of each instance of K1's `wgmma` inverse, both builds
+   (fails on any spill in the 3xTF32 library, `flow_wgmma`).
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship widths, on a tiled and on a ragged shape: K1 in its default
    mode (3xTF32: the inverse on `wgmma`, the forward on the row tiles) and in
@@ -14,18 +16,24 @@ Phases, one line each; any failure exits non-zero and prints no result:
    padded widths 32, 128, 544 and 1024 and with no square hidden layer (nh =
    0), N not dividing B, both directions, each equal to the bit between two
    calls; the strict libraries' SASS (`flow_fma`: the strict K1 and K2a;
-   `flow_train_fma`: the strict K2b) holds no tensor-core instruction.
+   `flow_train_fma`: the strict K2b) holds no tensor-core instruction; the
+   3xTF32 `wgmma` inverse (2-block clusters, each k-stage folded into a
+   float32 sum) at TN 1, 4, 16 and 17 on 64 k + 1 rows over an odd count of
+   tiles, equal to the bit between two calls, from the plain version in
+   float64 no further than twice the float32 plain version.
 3. main path: the flagship `trajectory_LSTM_large` model (48,852,615
    params, random weights from a seed) on the card: posterior sampling of
    10,000 draws for 8 trajectories, then `log_prob` and the round trip on
    4096 of them, first in the default mode and then with `pallas_strict`;
    K1's launches by route are read for each; samples/s, the split of a
    `sample` call (with the `wgmma` weight preparation), the `wgmma`
-   inverse's blocks and waves, and each K1 kernel's time beside its bound
-   and its plain version's time; the strict K1 with its layout (rows a
-   lane, blocks, rounds, ring stages), on the main path's inputs equal to
-   the bit between two calls and, on the 80,000 sampling rows, no further
-   from the plain version in float64 than twice the float32 plain version.
+   inverse's blocks, clusters and waves and its parts (products, stream,
+   both without the cluster's exchange, neither), and each K1 kernel's time
+   beside its bound and its plain version's time; the strict K1 with its
+   layout (rows a lane, blocks, rounds, ring stages); both inverses on the
+   main path's inputs equal to the bit between two calls and, on the 80,000
+   sampling rows, no further from the plain version in float64 than twice
+   the float32 plain version.
 4. entry point: the `sample` CLI on a model directory written here.
 5. training kernels: K2a (the whole-flow training forward) and K2b (its
    backward), both on tensor cores in 3xTF32, against their plain PyTorch versions
@@ -77,7 +85,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
 11. path C: K4 (the per-coupling kernel: K1's kernels at one step, 3xTF32)
    against its plain version at the flagship widths, 4096 and 4099 rows,
    forward and inverse, and bit-equal to K4 on weights prepared for the
-   launch; the flagship with `use_pallas_coupling`: the inverse of phase 3's
+   launch, its inverse equal to the bit between two calls and no further
+   from the plain version in float64 than twice the float32 plain version;
+   the flagship with `use_pallas_coupling`: the inverse of phase 3's
    80,000 sampling rows through 26 K4 launches against K1's samples, the
    no-grad forward against K1's, and a second inverse pass: each coupling's
    weights prepared once over the three passes (its `preparations` and
@@ -95,9 +105,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    draws; its figures only where matplotlib is installed), K1's launches by
    direction, route and rows, each stage's seconds; then the card's test
    NLL against the CPU plain path, one rank batch through K1 against the
-   plain version in float64 on the same z (the float32 plain version's own
-   distance beside it, and the margin as a share of the bar; ranks against
-   the float32 plain version's, near-ties excepted), and 4096 resimulated
+   plain version in float64 on the same z (at most half the 1e-4 bar and
+   twice the float32 plain version's own distance; ranks against the
+   float32 plain version's, near-ties excepted), and 4096 resimulated
    trajectories against the CPU; the
    published config's training step and `eval` also timed with the encoder
    on K3a/K3b (phase 17's table).
@@ -106,8 +116,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    path D, `configs/runs/nll/t_PTRF_large.yaml` (the Transformer encoder,
    37,046,525 params): sampling 10,000 x 8 through K1 (1 launch) against
    the plain path and the CPU, the encoder against the CPU, `log_prob` and
-   the round trip on 4096 rows, K1's time at its sampling shape beside its
-   bound, `Trainer.train` at batch 256 with the published dropout (plain
+   the round trip on 4096 rows, K1's time at its sampling shape (Hp 512)
+   beside its bound, equal to the bit between two calls and no further from
+   the plain version in float64 than twice the float32 plain version,
+   `Trainer.train` at batch 256 with the published dropout (plain
    autograd), train samples/s and a step split, then `train` -> `sample`;
    path E, `configs/runs/dev/trajectory_SFrExp_LSTM_SiGLU_2_large.yaml`
    (signed FrExp -> LSTM, a two-way AnyGLU flow, 48,543,591 params) with
@@ -232,6 +244,11 @@ CONFIG = "{{BCNF_ROOT}}/configs/runs/trajectory_LSTM_large.yaml"  # resolves to 
 FLAGSHIP_PARAMS = 48_852_615
 N_COND, M_DRAWS, LOGPROB_ROWS = 8, 10_000, 4096  # calibration protocol: M = 10,000 (bench.py:187)
 SEED = 0
+# K1's 3xTF32 inverse on phase 12's rank batch against the plain version in
+# float64: at most this share of KERNEL_TOL (and twice the float32 plain
+# version's own distance). Before each k-stage was folded into a float32 sum
+# the tensor cores' truncated accumulation took it to 91-95% (PERF.md).
+RANK_MARGIN = 0.5
 # Kernel vs plain, both float32 on the card: they differ only in the order of
 # the sums (526-long dot products, 6 layers x 26 steps), which moves results
 # by ~1e-6..1e-5 here; 1e-4 is the JAX package's own kernel-vs-XLA bar
@@ -414,6 +431,41 @@ def strict_sass_check(lib_path: str, what: str = "the strict K1's library") -> i
     return n_ffma
 
 
+def wgmma_spill_check() -> None:
+    """Phase 1: the registers and spill bytes of each instance of K1's
+    `wgmma` inverse in both builds, from this run's ptxas output (where this
+    run built the library) and from the built library (`cuobjdump
+    -res-usage`: STACK and LOCAL bytes a thread); fails on any spill in the
+    3xTF32 library (`flow_wgmma`)."""
+    import re
+
+    from bcnf_tpu_torch.ops import _build
+
+    for lib in ("flow_wgmma", "flow_wgmma_tf32"):
+        ptxas, kernel = {}, "?"
+        for ln in _build.build_logs.get(lib, "").splitlines():
+            if "Compiling entry function" in ln:
+                kernel = kernel_label(ln)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                ptxas[kernel] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                ptxas[kernel + " registers"] = int(m.group(1))
+        usage = _build.resource_usage(lib)
+        parts = []
+        for fn, u in usage.items():
+            name = kernel_label(f"'{fn}'")
+            spill = ptxas.get(name, "not rebuilt in this run")
+            parts.append(f"{name} {u['REG']} registers, stack {u['STACK']} B, local {u['LOCAL']} B, ptxas spill "
+                         f"bytes {spill}")
+            if lib == "flow_wgmma" and (u["STACK"] or u["LOCAL"] or (isinstance(spill, int) and spill)):
+                fail(f"the 3xTF32 wgmma inverse {name} spills: {parts[-1]}")
+        print(f"    {lib} resources: " + "; ".join(parts))
+        if not usage:
+            fail(f"cuobjdump -res-usage read no kernel from {lib}")
+
+
 def strict_widths_check(dev) -> None:
     """Phase 2's strict K1 at the padded widths 32, 128, 544 and 1024 and
     with no square hidden layer (nh = 0), random weights from the seed, N
@@ -460,6 +512,59 @@ def strict_widths_check(dev) -> None:
     print(f"[2 kernels, strict] flow_fma vs plain, size 19, d_a 10, B = 4099/N = 7 (1001/9 at Hp 1024, 37/5 at "
           f"nh 0, Hp 32), each equal to the bit between two calls; max|d|: {'; '.join(cases)} (worst {worst:.3e}, "
           f"tolerance {KERNEL_TOL:g})")
+
+
+def wgmma_widths_check(dev) -> None:
+    """Phase 2's 3xTF32 `wgmma` inverse (2-block clusters splitting the
+    columns, each k-stage folded) at TN 1, 4, 16 and 17 (Hp 32, 128, 512,
+    544), random weights from the seed, 64 k + 1 rows over an odd count of
+    64-row tiles, N not dividing B: within KERNEL_TOL of the plain version,
+    from the plain version in float64 no further than twice the float32
+    plain version's own distance (plus 4 float32 steps at the largest value),
+    equal to the bit between two calls, two launches on its route."""
+    import torch
+
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_WGMMA, fused_flow, fused_flow_reference, pad_hidden, wgmma_grid
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    cases, worst = [], 0.0
+    for H, B in ((16, 257), (100, 4097), (500, 257), (526, 4097)):
+        S, nh, N, size, d_a = 6, 4, 7, 19, 10
+        w = {"an_scale": 1 + 0.1 * randn(S, size), "an_bias": 0.1 * randn(S, size),
+             "ortho": torch.linalg.qr(randn(S, size, size))[0].contiguous(),
+             "w1y": randn(S, d_a, H, scale=d_a ** -0.5), "b1": randn(S, H, scale=0.1),
+             "wm": randn(S, nh, H, H, scale=H ** -0.5), "bm": randn(S, nh, H, scale=0.1),
+             "wout": randn(S, H, 2 * (size - d_a), scale=0.3 * H ** -0.5), "bout": randn(S, 2 * (size - d_a), scale=0.1)}
+        kargs, h_proj = pad_hidden(w, randn(S, N, H, scale=0.5))
+        x = randn(B, size)
+        before = fused_flow.route_launches[ROUTE_WGMMA]
+        one = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N)
+        two = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N)
+        p32 = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=N)
+        p64 = fused_flow_reference(x.double(), h_proj.double(), **{k: v.double() for k, v in kargs.items()},
+                                   inverse=True, n_cond=N)
+        torch.cuda.synchronize()
+        err = (one - p32).abs().max().item()
+        d32, dk = (p32.double() - p64).abs().max().item(), (one.double() - p64).abs().max().item()
+        floor = 4 * float(torch.finfo(torch.float32).eps) * max(1.0, p64.abs().max().item())
+        bits = torch.equal(one, two)
+        worst = max(worst, err)
+        Hp = h_proj.shape[-1]
+        cases.append(f"Hp {Hp} B {B} ({wgmma_grid(ROUTE_WGMMA, B)} blocks): {err:.1e}, from float64 {dk:.2e} "
+                     f"(float32 plain {d32:.2e})")
+        if fused_flow.route_launches[ROUTE_WGMMA] != before + 2:
+            fail(f"the 3xTF32 inverse at Hp {Hp} did not launch twice on {ROUTE_WGMMA}")
+        if not err <= KERNEL_TOL or not bits or not dk <= 2 * d32 + floor or not torch.isfinite(one).all():
+            fail(f"the 3xTF32 wgmma inverse at Hp {Hp}, B {B}: max|d| {err:.3e} (tolerance {KERNEL_TOL:g}), from "
+                 f"float64 {dk:.3e} against the float32 plain version's {d32:.3e} (bar twice it + {floor:.1e}), equal "
+                 f"between calls: {bits}")
+    print(f"[2 kernels, wgmma] flow_wgmma (3xTF32, 2-block clusters, k-stages folded) vs plain, size 19, nh 4, 6 "
+          f"steps, N = 7, each equal to the bit between two calls; max|d|: {'; '.join(cases)} (worst {worst:.3e}, "
+          f"tolerance {KERNEL_TOL:g}; from float64 at most twice the float32 plain version's)")
 
 
 def median(xs: list[float]) -> float:
@@ -530,6 +635,7 @@ def main() -> None:
         ROUTE_ROWS,
         ROUTE_WGMMA,
         WG_COPIES,
+        WG_EXCHANGE,
         WG_PRODUCTS,
         _launch_flow,
         fma_card_layout,
@@ -538,6 +644,7 @@ def main() -> None:
         fused_flow,
         fused_flow_reference,
         prepare_weights,
+        wgmma_grid,
     )
 
     # ---- 1. device + build
@@ -565,6 +672,7 @@ def main() -> None:
             elif ("registers" in ln or "wgmma" in ln.lower() or "warning" in ln.lower()
                   or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)):
                 print(f"    ptxas {name} {kernel}: {ln.strip().removeprefix('ptxas info    : ')}")
+    wgmma_spill_check()
     for lib, what in (("flow_fma", "the strict K1's and K2a's library"), ("flow_train_fma", "the strict K2b's library")):
         n_ffma = strict_sass_check(str(_build.build(lib)), what)
         print(f"    {lib} SASS (cuobjdump): {n_ffma} FFMA, no tensor-core instruction ({'/'.join(TENSOR_CORE_SASS)})")
@@ -618,6 +726,7 @@ def main() -> None:
         if not e <= KERNEL_TOL:
             fail(f"fused_flow {d} disagrees with its plain version: {e:.3e} > {KERNEL_TOL:g}")
     strict_widths_check(dev)
+    wgmma_widths_check(dev)
 
     # ---- 3. main path: posterior sampling, then log_prob + round trip, in
     # the default mode (3xTF32) and then in strict mode (float32 FMA)
@@ -695,13 +804,15 @@ def main() -> None:
               f"the wgmma weight preparation {prep_ms:.2f} ms (CUDA events, median of 5; {wm_mb:.0f} MB in, "
               f"{2 * wm_mb:.0f} MB out)")
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        per_sm = _build.load_library("flow_wgmma").bcnf_flow_wgmma_occupancy(h_proj.shape[-1], model.size,
-                                                                              model.coupling.d_a)
-        blocks = -(-x_inv.shape[0] // 64)
-        if per_sm < 1:
-            fail(f"the wgmma inverse fits no block on an SM ({per_sm})")
-        print(f"    wgmma inverse layout: {blocks} blocks of 64 rows, {per_sm} an SM on {sms} SMs: "
-              f"{blocks / (per_sm * sms):.2f} waves")
+        wg_lib = _build.load_library("flow_wgmma")
+        per_sm = wg_lib.bcnf_flow_wgmma_occupancy(h_proj.shape[-1], model.size, model.coupling.d_a)
+        resident = wg_lib.bcnf_flow_wgmma_clusters(h_proj.shape[-1], model.size, model.coupling.d_a)
+        blocks = wgmma_grid(ROUTE_WGMMA, x_inv.shape[0])
+        if per_sm < 1 or resident < 1:
+            fail(f"the wgmma inverse fits no block on an SM ({per_sm}) or no cluster on the card ({resident})")
+        print(f"    wgmma inverse layout: {blocks} blocks in clusters of 2 (a cluster a 64-row tile, each block half "
+              f"the columns), {per_sm} block an SM on {sms} SMs, {resident} clusters resident at once: "
+              f"{blocks / 2 / resident:.2f} waves")
         hl = model.encode(params, (cond_lp,))
         kargs_f, h_proj_f = model._fused_flow_args(params, hl)
         shapes = {
@@ -723,10 +834,10 @@ def main() -> None:
             key = direction.replace(",", "")
             errs[key] = max(errs[key], err)
             route = flow_route(hp.shape[-1], model.size, ka["w1y"].shape[1], inv, kmode)
-            if strict:  # two calls equal to the bit; the inverse against the plain version in float64
+            if strict or route == ROUTE_WGMMA:  # two calls equal to the bit; the inverse against float64
                 again = fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=kmode)
                 if not all(torch.equal(a, b) for a, b in zip((out_k,) if inv else out_k, (again,) if inv else again)):
-                    fail(f"fused_flow {direction}: two calls differ (the strict kernel must sum in a fixed order)")
+                    fail(f"fused_flow {direction}: two calls differ (the kernel must sum in a fixed order)")
                 if inv:
                     p64 = fused_flow_reference(x.double(), hp.double(), **{k: v.double() for k, v in ka.items()},
                                                inverse=True, n_cond=n)
@@ -777,13 +888,15 @@ def main() -> None:
         staged, wg_args = prepare_weights(kargs["wm"]), dict(kargs, h_proj=h_proj)
         part_ms = {name: median(cuda_ms(lambda: _launch_flow(x_inv, wg_args, inverse=True, n_cond=N_COND, mode=MODE_3XTF32,
                                                              wstages=staged, parts=parts), reps=3))
-                   for name, parts in (("both", WG_PRODUCTS | WG_COPIES), ("products", WG_PRODUCTS),
-                                       ("stream", WG_COPIES))}
+                   for name, parts in (("all", WG_PRODUCTS | WG_COPIES | WG_EXCHANGE), ("products", WG_PRODUCTS),
+                                       ("stream", WG_COPIES), ("no exchange", WG_PRODUCTS | WG_COPIES),
+                                       ("neither", 0))}
         stream_gb = -(-x_inv.shape[0] // 64) * 4 * int(staged.numel()) / 1e9
-        print(f"    wgmma inverse parts (CUDA events, median of 3, ms): as built {part_ms['both']:.2f}; its products "
+        print(f"    wgmma inverse parts (CUDA events, median of 3, ms): as built {part_ms['all']:.2f}; its products "
               f"alone (stale stages) {part_ms['products']:.2f} ({flow_work(kargs, h_proj, x_inv.shape[0], H)[0] / part_ms['products'] / 1e9:.1f} "
               f"TFLOP/s); the hidden weights' stream alone {part_ms['stream']:.2f} ({stream_gb:.0f} GB of hi and lo from "
-              f"L2 -> {stream_gb / part_ms['stream']:.2f} TB/s)")
+              f"L2 -> {stream_gb / part_ms['stream']:.2f} TB/s); both without the cluster's exchange "
+              f"{part_ms['no exchange']:.2f}; neither (the FMA layers, the GELU, the hand-offs) {part_ms['neither']:.2f}")
 
     # ---- 4. the sample CLI on a model directory as `bcnf-tpu train` writes it
     build_dir = os.path.join(HERE, "bcnf_tpu_torch", "_build")
@@ -1922,6 +2035,7 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
     H = model.nested_sizes[0]
     saved = fused_affine_coupling.launches
     errs = {False: 0.0, True: 0.0}
+    k4_64 = []
     with torch.no_grad():
         for B, N in ((4096, 8), (4099, 7)):
             h = model.encode(params, (torch.from_numpy(rng.normal(size=(N, 30, 3)).astype(np.float32)).to(dev),))
@@ -1934,6 +2048,17 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                 torch.cuda.synchronize()
                 errs[inverse] = max([errs[inverse]] + [(a - b).abs().max().item() for a, b in zip(
                     (out,) if inverse else out, (ref,) if inverse else ref)])
+                if inverse:  # K1's 3xTF32 wgmma inverse at one step: bit-equal between calls, near float64
+                    again = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=True)
+                    p64 = fused_affine_coupling_reference(x_a.double(), x_b.double(), h_proj.double(),
+                                                          **map_tree(lambda v: v.double(), args), inverse=True,
+                                                          n_cond=N)
+                    d32, dk = (ref.double() - p64).abs().max().item(), (out.double() - p64).abs().max().item()
+                    floor = 4 * float(torch.finfo(torch.float32).eps) * max(1.0, p64.abs().max().item())
+                    k4_64.append(f"B={B}: {dk:.2e} (float32 plain {d32:.2e})")
+                    if not torch.equal(out, again) or not dk <= 2 * d32 + floor:
+                        fail(f"K4's 3xTF32 inverse (B={B}): equal between calls {torch.equal(out, again)}, from float64 "
+                             f"{dk:.3e} against twice the float32 plain version's {d32:.3e} + {floor:.1e}")
                 # the prepared (cached) weights against weights prepared for this launch alone
                 _, y_u, ld_u = _launch_flow(x, coupling_flow_args(h_proj, **args), inverse=inverse, n_cond=N,
                                             mode=MODE_3XTF32)
@@ -1941,10 +2066,12 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                         and (inverse or torch.equal(out[1], ld_u))):
                     fail(f"K4 on its prepared weights is not bit-equal to K4 on weights prepared for the launch "
                          f"({'inverse' if inverse else 'forward'}, B={B})")
-    if fused_affine_coupling.launches != saved + 4:
+    if fused_affine_coupling.launches != saved + 6:
         fail("fused_affine_coupling did not count its launches")
     print(f"[11 path C] K4 vs plain at H={H}, B=4096/N=8 and ragged B=4099/N=7: max|d| forward (z_b, logdet) "
-          f"{errs[False]:.3e}, inverse {errs[True]:.3e} (tolerance {KERNEL_TOL:g})")
+          f"{errs[False]:.3e}, inverse {errs[True]:.3e} (tolerance {KERNEL_TOL:g}); the inverse equal to the bit "
+          f"between two calls, from the plain version in float64 {'; '.join(k4_64)} (bar: twice the float32 plain "
+          f"version's)")
     for inverse, e in errs.items():
         if not e <= KERNEL_TOL:
             fail(f"K4 {'inverse' if inverse else 'forward'} disagrees with its plain version: {e:.3e}")
@@ -2408,8 +2535,8 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
         print(f"    held: test NLL on the card {report['test_nll']:.6f} vs the CPU plain path {nll_cpu:.6f}: |d| "
               f"{nll_d:.2e} (bar {nll_bar:.2e} = 1e-4 (mean sum|z| + 1) + 19e-8); rank batch {tuple(z.shape)} through "
               f"K1 vs the plain version in float64 on the same z: max|dy| {err_64:.2e} ({err_64 / KERNEL_TOL:.1%} of the bar "
-              f"{KERNEL_TOL:g}: ROADMAP's fault 2, the tensor cores' truncated accumulation; the "
-              f"float32 plain version's own distance from float64 {err_p64:.2e}, K1 vs float32 plain {err:.2e}); "
+              f"{KERNEL_TOL:g}, held to {RANK_MARGIN:.0%} of it and to twice the float32 plain version's own distance "
+              f"from float64, {err_p64:.2e}: each k-stage folded into a float32 sum; K1 vs float32 plain {err:.2e}); "
               f"ranks vs the float32 plain version's: {int((rank_d > 0).sum())} of {rank_d.numel()} ranks "
               f"differ, by at most {int(rank_d.max())}, near-ties (|y_hat - y| < {TIE:g}) {int(ties.sum())}; "
               f"{X_card.shape[0] * X_card.shape[1]} resimulated trajectories vs the CPU: worst |d|/(1+max|row|) "
@@ -2422,8 +2549,9 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
             fail(f"resimulate gave shape {X_card_all.shape}")
         if not nll_d <= nll_bar:
             fail(f"test NLL on the card is {nll_d:.3e} from the CPU plain path's (bar {nll_bar:.3e})")
-        if not err_64 <= KERNEL_TOL or bool((rank_d > ties).any()):
-            fail(f"the rank batch through K1 disagrees with the float64 plain version: max|dy| {err_64:.3e}, ranks "
+        if not err_64 <= min(RANK_MARGIN * KERNEL_TOL, 2 * err_p64) or bool((rank_d > ties).any()):
+            fail(f"the rank batch through K1 disagrees with the float64 plain version: max|dy| {err_64:.3e} (bar "
+                 f"{RANK_MARGIN:.0%} of {KERNEL_TOL:g} and twice the float32 plain version's {err_p64:.3e}), ranks "
                  f"beyond their near-ties at {int((rank_d > ties).sum())} places")
         if not ok_resim:
             fail(f"resimulation on the card disagrees with the CPU: {worst_resim:.3e} > {TRAJ_REL:g}")
@@ -2585,6 +2713,14 @@ def zoo_path_d(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> d
         saved = fused_flow.launches, dict(fused_flow.route_launches)
         k_times = cuda_ms(lambda: fused_flow(x_inv, h_proj, **kargs, inverse=True, n_cond=N_COND), reps=5)
         p_times = cuda_ms(lambda: fused_flow_reference(x_inv, h_proj, **kargs, inverse=True, n_cond=N_COND), reps=3)
+        # at Hp 512 (TN 16): two calls equal to the bit, and against the plain version in float64
+        one, two = (fused_flow(x_inv, h_proj, **kargs, inverse=True, n_cond=N_COND) for _ in range(2))
+        p32 = fused_flow_reference(x_inv, h_proj, **kargs, inverse=True, n_cond=N_COND)
+        p64 = fused_flow_reference(x_inv.double(), h_proj.double(), **{k: v.double() for k, v in kargs.items()},
+                                   inverse=True, n_cond=N_COND)
+        d32, dk = (p32.double() - p64).abs().max().item(), (one.double() - p64).abs().max().item()
+        bits = torch.equal(one, two)
+        del p64
         fused_flow.launches = saved[0]
         fused_flow.route_launches.clear()
         fused_flow.route_launches.update(saved[1])
@@ -2593,7 +2729,11 @@ def zoo_path_d(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> d
     print(f"    K1 inverse (wgmma, 3xtf32) at t_PTRF_large's {x_inv.shape[0]:,} rows (size {model.size}, hidden {H}, "
           f"{kargs['an_scale'].shape[0]} steps): {median(k_times):.2f} ms (range {min(k_times):.2f}-{max(k_times):.2f}; "
           f"bound {bound:.2f} ms, {by}; {work[0] / 1e12:.2f} TFLOP -> {work[0] / median(k_times) / 1e9:.1f} TFLOP/s), "
-          f"plain {median(p_times):.2f} ms")
+          f"plain {median(p_times):.2f} ms; equal to the bit between two calls: {bits}; from the plain version in "
+          f"float64 {dk:.3e}, the float32 plain version's {d32:.3e} (bar: twice it)")
+    if not bits or not dk <= 2 * d32:
+        fail(f"t_PTRF_large's K1 inverse: equal between calls {bits}, from float64 {dk:.3e} against twice the float32 "
+             f"plain version's {d32:.3e}")
 
     # Trainer.train at batch 256 with the published dropout 0.5: the flow on plain autograd
     B = 256

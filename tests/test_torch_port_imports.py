@@ -388,6 +388,96 @@ def test_wgmma_inverse_at_the_flagship_width_on_card(cuda, rows):
     assert _build.load_library("flow_wgmma").bcnf_flow_wgmma_occupancy(544, 19, 10) == 1
 
 
+def _wide_model(hidden: int, n_blocks: int = 4) -> CondRealNVP:
+    """The flagship's flow shape (size 19, 4 hidden layers) at `hidden`."""
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    return CondRealNVP(size=19, nested_sizes=[hidden] * 5, n_blocks=n_blocks, n_conditions=8,
+                       feature_network_stack=stack, act_norm=True, random_state=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n_cond", [(257, 7), (4097, 9), (64, 64)], ids=["odd_tiles", "64k_plus_1", "one_tile"])
+@pytest.mark.parametrize("hidden", [32, 100, 500, 526])  # Hp 32, 128, 512, 544: TN 1, 4, 16, 17
+def test_3xtf32_wgmma_inverse_against_float64_on_card(cuda, hidden, rows, n_cond):
+    """K1's 3xTF32 inverse on `wgmma` (2-block clusters splitting each hidden
+    layer's columns, each k-stage's three passes folded into a float32 sum)
+    at TN 1, 4, 16 and 17 and ragged rows (64 k + 1 over an odd count of
+    64-row tiles), against the plain version in float64: no further from it
+    than twice the float32 plain version's own distance (plus 4 float32
+    steps at the largest value, the floor of two float32 orders of
+    summation); within the flow bar of the float32 plain version; two calls
+    equal to the bit (no atomics, one order of every sum); counted once a
+    call on its route."""
+    model = _wide_model(hidden)
+    with torch.no_grad():
+        _, h_proj, args = _train_args(model, model.init(device=cuda), B=n_cond, seed=hidden + rows, device=cuda)
+        kargs = dict(zip(("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout"), args))
+        x = torch.randn((rows, 19), generator=torch.Generator(device=cuda).manual_seed(rows), device=cuda)
+        before = fused_flow.route_launches["wgmma"]
+        one = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=n_cond)
+        two = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=n_cond)
+        p32 = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=n_cond)
+        p64 = fused_flow_reference(x.double(), h_proj.double(), **{k: v.double() for k, v in kargs.items()},
+                                   inverse=True, n_cond=n_cond)
+        torch.cuda.synchronize()
+    assert fused_flow.route_launches["wgmma"] == before + 2
+    assert torch.equal(one, two)
+    torch.testing.assert_close(one, p32, atol=1e-4, rtol=0)
+    d32, dk = (p32.double() - p64).abs().max().item(), (one.double() - p64).abs().max().item()
+    assert dk <= 2 * d32 + _float32_ulps(p64, 4), (dk, d32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [257, 4099])
+def test_k4_3xtf32_inverse_at_one_step_on_card(cuda, rows):
+    """K4's 3xTF32 inverse (K1's `wgmma` kernel at one step, on the weight
+    stages it keeps) at the flagship's width (Hp 544): within the flow bar
+    of its plain version, from the plain version in float64 no further than
+    twice the float32 plain version's own distance, two calls equal to the
+    bit, counted on K4."""
+    model = _wide_model(526, n_blocks=2)
+    params = model.init(device=cuda)
+    cp = model.coupling
+    blk0 = map_tree(lambda t: t[0], params["blocks"]["coupling"])
+    args = mlp_params_to_kernel_args(blk0["a"], cp.d_a)
+    rng = np.random.default_rng(rows)
+    with torch.no_grad():
+        h = model.encode(params, (torch.from_numpy(rng.normal(size=(7, 9, 3)).astype(np.float32)).to(cuda),))
+        h_proj = cp.cond_proj(blk0, h)["a"][0]
+        x = torch.from_numpy(rng.normal(size=(rows, 19)).astype(np.float32)).to(cuda)
+        x_a, x_b = x[:, : cp.d_a].contiguous(), x[:, cp.d_a:].contiguous()
+        before = fused_affine_coupling.launches
+        one = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=True)
+        two = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=True)
+        p32 = fused_affine_coupling_reference(x_a, x_b, h_proj, **args, inverse=True, n_cond=7)
+        p64 = fused_affine_coupling_reference(x_a.double(), x_b.double(), h_proj.double(),
+                                              **map_tree(lambda t: t.double(), args), inverse=True, n_cond=7)
+        torch.cuda.synchronize()
+    assert fused_affine_coupling.launches == before + 2
+    assert torch.equal(one, two)
+    torch.testing.assert_close(one, p32, atol=1e-4, rtol=0)
+    d32, dk = (p32.double() - p64).abs().max().item(), (one.double() - p64).abs().max().item()
+    assert dk <= 2 * d32 + _float32_ulps(p64, 4), (dk, d32)
+
+
+@pytest.mark.gpu
+def test_3xtf32_wgmma_library_spills_nothing_on_card(cuda):
+    """The 3xTF32 `flow_wgmma` library as built: each of its 7 kernel
+    instances (TN 1, 2, 4, 8, 12, 16, 17) keeps nothing on the stack or in
+    local memory (where ptxas spills registers), and its SASS holds no
+    local-memory load or store."""
+    import re
+    from pathlib import Path
+
+    from bcnf_tpu_torch.ops import _build
+
+    usage = _build.resource_usage("flow_wgmma")
+    assert len(usage) == 7 and all(u["STACK"] == 0 and u["LOCAL"] == 0 for u in usage.values()), usage
+    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(_build.build("flow_wgmma"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert sass.count("Function : ") == 7 and not re.search(r"\b(LDL|STL)\b", sass)
+
+
 def _train_args(model: CondRealNVP, params: dict, B: int, seed: int, device) -> tuple:
     """K2a/K2b arguments in the training layout (one condition row per row),
     ActNorm moved off identity so its grads are exercised."""

@@ -63,7 +63,7 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     kernel_smem,
     prepare_weights,
 )
-from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+from bcnf_tpu_torch.ops.tf32 import matmul_tf32, round_tf32
 from bcnf_tpu_torch.train.trainer import Trainer
 
 REDUCED_BAR = 5e-3  # max |d| of JAX's reduced kernel mode against float32 (tests/test_flow_kernel.py:130-141)
@@ -310,12 +310,19 @@ def test_cpu_computes_float32_at_every_precision():
 
 def test_prepare_weights_one_pass_stages_hold_hi_alone():
     """The one-pass `wgmma` inverse's weight stages: the 3xTF32 layout's hi
-    halves, nothing else (half the bytes a stage)."""
+    halves of both cluster ranks side by side, nothing else (half the bytes a
+    stage); the one-pass layout is the one it has always been: stage s of
+    w^T, output groups in order, in `wgmma`'s core-matrix order."""
     rng = np.random.default_rng(9)
     wm = torch.from_numpy(rng.normal(size=(2, 3, 64, 64)).astype(np.float32))
     three, one = prepare_weights(wm), prepare_weights(wm, passes=1)
     assert one.shape == (2, 3, 8, 1, 8, 2, 8, 4) and one.is_contiguous()
-    assert torch.equal(one[:, :, :, 0], three[:, :, :, 0])
+    # three: (S, nh, stage j, rank, k-step u, [hi, lo], ng', kg, r, c); the k-step is K j + u, ng = 4 rank + ng'
+    hi3 = three[:, :, :, :, :, 0].transpose(3, 4).reshape(2, 3, 8, 8, 2, 8, 4)
+    assert torch.equal(one[:, :, :, 0], hi3)
+    # w^T[n, k], n = 8 ng + r, k = 8 s + 4 kg + c, at one[..., s, 0, ng, kg, r, c]
+    wt = wm.transpose(-1, -2).reshape(2, 3, 8, 8, 8, 2, 4).permute(0, 1, 4, 2, 5, 3, 6)
+    assert torch.equal(one[:, :, :, 0], round_tf32(wt.contiguous()))
     with pytest.raises(ValueError):
         prepare_weights(wm, passes=2)
 
@@ -326,7 +333,8 @@ def test_one_pass_routes_and_shared_memory(H):
     pass: the inverse on `wgmma` up to Hp 544, the row tiles above; its
     forward the one-pass `wgmma` forward up to Hp 544 and the row tiles
     above; its `wgmma` stages are half as large (hi alone), and its ring
-    holds twice as many in the same bytes (`wgmma_ring`)."""
+    holds as many in the same bytes as the 3xTF32 ring, whose stages are a
+    block's half of hi and lo (`wgmma_ring`)."""
     from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA_TF32, padded_width, wgmma_ring
 
     Hp = padded_width(H)
@@ -334,9 +342,10 @@ def test_one_pass_routes_and_shared_memory(H):
     assert flow_route(Hp, 19, 10, False, MODE_TF32) == (ROUTE_FWD_WGMMA_TF32 if Hp <= 544 else ROUTE_ROWS_TF32)
     if Hp <= 544:
         (ring3, _), (ring1, _) = wgmma_ring(ROUTE_WGMMA), wgmma_ring(ROUTE_WGMMA_TF32)
-        assert ring1 == 2 * ring3
-        stages = 4 * 16 * Hp * ring3 - 4 * 8 * Hp * ring1  # the rings' bytes: equal
-        barriers = 16 * (ring3 - ring1)
+        k = flow_kernel.kernel_limit("kWgStageK")
+        assert ring1 == ring3 * k
+        stages = 4 * 8 * Hp * ring3 * k - 4 * 8 * Hp * ring1  # the rings' bytes: equal
+        barriers = 16 * (ring3 - ring1) + 8 * 2  # and the 3xTF32 cluster's two hand-off barriers
         assert kernel_smem(ROUTE_WGMMA, Hp, 19, 10) - kernel_smem(ROUTE_WGMMA_TF32, Hp, 19, 10) == stages + barriers
     with pytest.raises(ValueError, match="kernel mode"):
         flow_route(Hp, 19, 10, True, "x3")
@@ -344,10 +353,13 @@ def test_one_pass_routes_and_shared_memory(H):
 
 def _wg_smem(Hp: int, size: int, d_a: int, passes: int, stages: int) -> int:
     """`wg_smem` of csrc/flow_wgmma.cu, term for term: the tile, the ring's
-    stages, the rows' state, the mix's output and [t | s'], then two 8-byte
-    barriers a stage."""
-    stage = (16 if passes == 3 else 8) * Hp
-    return 4 * (64 * (Hp + 4) + stages * stage + 64 * (2 * size + 2 * (size - d_a))) + 2 * stages * 8
+    stages (8 Hp floats a k-step: one pass hi of every column, a k-step a
+    stage; 3xTF32 hi and lo of a block's half, `kWgStageK` k-steps a stage),
+    the rows' state, the mix's output and [t | s'], then two 8-byte barriers
+    a stage and, in 3xTF32, the cluster's two hand-off barriers."""
+    stage = 8 * Hp * (flow_kernel.kernel_limit("kWgStageK") if passes == 3 else 1)
+    return (4 * (64 * (Hp + 4) + stages * stage + 64 * (2 * size + 2 * (size - d_a)))
+            + (2 * stages + (2 if passes == 3 else 0)) * 8)
 
 
 @pytest.mark.parametrize("route,passes", [(ROUTE_WGMMA, 3), (ROUTE_WGMMA_TF32, 1)])
@@ -366,9 +378,11 @@ def test_wgmma_smem_is_the_sum_the_kernel_computes(route, passes):
     assert re.search(r"constexpr int kWgStages = kPasses == 3 \? kWgRing3xTf32 : kWgRingTf32;", source)
     body = source[source.index("size_t wg_smem("):]
     assert "kWgStages) * stage" in body[: body.index("}")]
+    assert "(2 * kWgStages + (kPasses == 3 ? kWgXchBarriers : 0)) * sizeof(uint64_t)" in body[: body.index("}")]
     stages, cluster = wgmma_ring(route)
     assert stages == kernel_limit("kWgRing3xTf32" if passes == 3 else "kWgRingTf32")
-    assert cluster == (1 if passes == 3 else kernel_limit("kWgClusterTf32"))
+    assert cluster == kernel_limit("kWgCluster3xTf32" if passes == 3 else "kWgClusterTf32")
+    assert kernel_limit("kWgXchBarriers") == 2
     for tn in (t for t in KERNEL_TN if t <= WGMMA_MAX_TN):
         for size, d_a in ((19, 9), (7, 3), (29, 15)):
             assert kernel_smem(route, 32 * tn, size, d_a) == _wg_smem(32 * tn, size, d_a, passes, stages)

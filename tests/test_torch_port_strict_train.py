@@ -381,15 +381,19 @@ def test_strict_training_step_launches_only_the_strict_kernels_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K1's 3xTF32 inverse: the fold variants of tools/k1_3xtf32_fold.py
+# K1's 3xTF32 inverse: the variants of tools/k1_3xtf32_fold.py
 # ---------------------------------------------------------------------------
 
 
 def test_fold_tool_patches_apply_to_the_kernel_source():
     """Each variant of tools/k1_3xtf32_fold.py patches csrc/flow_wgmma.cu at
-    exactly one place, and the `wgmma` widths it adds are written as
-    csrc/wgmma_tf32.cuh writes the ones it has (the tool imports neither JAX
-    nor the JAX package: tests/test_torch_port_imports.py)."""
+    exactly one place: ring stages of one k-step (`stage1`, with its weight
+    layout), the warpgroups issuing in turn (`pingpong`), and with stages of
+    one k-step another product of a layer (two fresh half
+    accumulators taking turns, with the `wgmma` widths they need, written as
+    csrc/wgmma_tf32.cuh writes the ones it has; no fresh accumulator)
+    inserted before the kernel's own and called in its place (the tool
+    imports neither JAX nor the JAX package: tests/test_torch_port_imports.py)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("k1_fold", Path(__file__).resolve().parent.parent / "tools"
@@ -397,15 +401,20 @@ def test_fold_tool_patches_apply_to_the_kernel_source():
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     source = (CSRC / "flow_wgmma.cu").read_text()
-    assert set(tool.PATCHES) == {"as built", "fold", "fold_halves"}
+    assert set(tool.PATCHES) == {"as built", "stage1", "pingpong", "halves", "unfolded"}
+    assert tool.PATCHES["as built"] == []
+    assert tool.STAGE_KS == {"stage1": 1, "halves": 1, "unfolded": 1}
     for name, patches in tool.PATCHES.items():
         for old, new in patches:
             assert source.count(old) == 1 and old != new, name
+    assert source.count("fold_product<TN>(") == 1  # its one call
+    assert tool.PARTS == {"products": 1, "stream": 2, "no exchange": 3, "neither": 0}
     header = (CSRC / "wgmma_tf32.cuh").read_text()
 
     def norm(text: str) -> str:  # whitespace and string-literal splits aside
         return re.sub(r"\s+", " ", text).strip().replace('" "', "")
 
-    for n in (64, 96, 136):
+    for n in (64, 96, 136):  # the widths the halves variant adds are written as the header writes its own
         written = re.search(rf"template <>\nstruct WgmmaTf32<{n}> \{{.*?\n\}};\n", header, re.S).group(0)
         assert norm(written) == norm(tool.wgmma_spec(n))
+    assert all(f"kWg{n} = {v}" in source for n, v in (("Products", 1), ("Copies", 2), ("Exchange", 4)))

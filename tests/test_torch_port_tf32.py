@@ -51,12 +51,16 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     ROUTE_FMA,
     ROUTE_ROWS,
     ROUTE_WGMMA,
+    ROUTE_WGMMA_TF32,
     flow_route,
     fused_flow_reference,
     fused_flow_train_backward_reference,
     fused_flow_train_reference,
+    kernel_limit,
     kernel_smem,
     prepare_weights,
+    wgmma_grid,
+    wgmma_ring,
 )
 from bcnf_tpu_torch.ops.lstm_kernel import lstm_direction_bwd_reference, lstm_direction_fwd_reference
 from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32, round_tf32, split_tf32, truncate_tf32
@@ -383,44 +387,52 @@ def test_k4_is_k1_at_one_step(coupling_case, inverse, mm):
         torch.testing.assert_close(k1[1], k4[1], atol=1e-6, rtol=0)
 
 
-def _unstage(staged: torch.Tensor, Hp: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Read `prepare_weights`' layout back as the `wgmma` inverse reads it:
-    stage s holds input rows 8 s .. 8 s + 7; in each of its halves (hi, lo)
-    output n = 8 ng + r and input 8 s + 4 kg + c sit at float
-    64 ng + 32 kg + 4 r + c (core matrices of 8 x 4, 32 floats, the two along
-    the inputs side by side: the descriptor's 128-byte leading and 256-byte
-    stride offsets, csrc/flow_wgmma.cu). Returns (hi, lo) as (S, nh, in, out)."""
-    S, nh = staged.shape[:2]
-    flat = staged.reshape(S, nh, Hp // 8, 2, 16 * Hp // 2)
-    parts = []
-    for half in range(2):
-        w = torch.empty((S, nh, Hp, Hp))
-        for s in range(Hp // 8):
-            for n in range(Hp):
-                ng, r = divmod(n, 8)
-                for kk in range(8):
-                    kg, c = divmod(kk, 4)
-                    w[:, :, 8 * s + kk, n] = flat[:, :, s, half, 64 * ng + 32 * kg + 4 * r + c]
-        parts.append(w)
-    return parts[0], parts[1]
+def _unstage(staged: torch.Tensor, Hp: int, rank: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Read `prepare_weights`' layout back as block `rank` of a 3xTF32
+    cluster of the `wgmma` inverse reads it: a stage of K k-steps (K =
+    `kWgStageK`), one bulk copy of K 8 Hp floats, sits (2 j + rank) K 8 Hp
+    floats into the layer for its stage j; its k-step u (input rows
+    8 (j K + u) ..) u 8 Hp floats on; there output n' = 8 ng + r of the
+    block's columns rank Hp/2 .. and input 8 s + 4 kg + c sit at float
+    64 ng + 32 kg + 4 r + c of hi, lo 4 Hp floats on (core matrices of 8 x 4,
+    32 floats, the two along the inputs side by side: the descriptor's
+    128-byte leading and 256-byte stride offsets; csrc/flow_wgmma.cu).
+    Returns (hi, lo) as (S, nh, in, the block's Hp/2 outputs)."""
+    S, nh, K = staged.shape[0], staged.shape[1], staged.shape[4]
+    flat = staged.reshape(S, nh, -1)
+    k, n = np.meshgrid(np.arange(Hp), np.arange(Hp // 2), indexing="ij")
+    s, kk = np.divmod(k, 8)
+    j, u = np.divmod(s, K)
+    kg, c = np.divmod(kk, 4)
+    ng, r = np.divmod(n, 8)
+    at = torch.from_numpy((2 * j + rank) * K * 8 * Hp + u * 8 * Hp + 64 * ng + 32 * kg + 4 * r + c)
+    return flat[:, :, at], flat[:, :, at + 4 * Hp]
 
 
-@pytest.mark.parametrize("S,nh,Hp", [(2, 3, 32), (1, 2, 64), (2, 0, 32)], ids=["three_layers", "one_step", "no_hidden"])
-def test_prepare_weights_splits_and_lays_out_stages(S, nh, Hp):
-    """The `wgmma` inverse's weights: hi + lo is w bit for bit; hi is the
-    rounded TF32 of `split_tf32`, lo truncated as the tensor cores read it is
-    its lo; the stage layout reads back to wm; 16 Hp floats a stage."""
+@pytest.mark.parametrize("S,nh,Hp,rank", [(2, 3, 32, 0), (1, 2, 64, 1), (2, 0, 32, 0), (1, 2, 32, 0), (1, 2, 32, 1),
+                                          (1, 1, 512, 0), (1, 1, 512, 1), (1, 1, 544, 0), (1, 1, 544, 1)],
+                         ids=["three_layers", "one_step", "no_hidden", "hp32_rank0", "hp32_rank1", "hp512_rank0",
+                              "hp512_rank1", "hp544_rank0", "hp544_rank1"])
+@pytest.mark.parametrize("stage_k", [None, 1], ids=["stage_k_source", "stage_k1"])
+def test_prepare_weights_splits_and_lays_out_stages(S, nh, Hp, rank, stage_k):
+    """The `wgmma` inverse's weights in 3xTF32: hi + lo is w bit for bit; hi
+    is the rounded TF32 of `split_tf32`, lo truncated as the tensor cores read
+    it is its lo; each block's stages read back to its columns of wm; 8 Hp
+    floats a block's part of a k-step, 16 Hp a k-step; a stage of the
+    kernel's k-steps (`kWgStageK`, read from the source) or of 1."""
     rng = np.random.default_rng(9)
     wm = torch.from_numpy((rng.normal(size=(S, nh, Hp, Hp)) * 10.0 ** rng.integers(-3, 3, size=(S, nh, Hp, Hp)))
                           .astype(np.float32))
-    staged = prepare_weights(wm)
-    assert staged.shape == (S, nh, Hp // 8, 2, Hp // 8, 2, 8, 4) and staged.is_contiguous()
+    staged = prepare_weights(wm, stage_k=stage_k)
+    K = kernel_limit("kWgStageK") if stage_k is None else stage_k
+    assert staged.shape == (S, nh, Hp // 8 // K, 2, K, 2, Hp // 16, 2, 8, 4) and staged.is_contiguous()
     if nh == 0:
         return
-    assert staged[0, 0, 0].numel() == 16 * Hp
-    hi, lo = _unstage(staged, Hp)
-    assert torch.equal(hi + lo, wm)
-    ref_hi, ref_lo = split_tf32(wm)
+    assert staged[0, 0, 0].numel() == 16 * Hp * K and staged[0, 0, 0, rank, 0].numel() == 8 * Hp
+    hi, lo = _unstage(staged, Hp, rank)
+    cols = slice(rank * Hp // 2, (rank + 1) * Hp // 2)
+    assert torch.equal(hi + lo, wm[..., cols])
+    ref_hi, ref_lo = split_tf32(wm[..., cols])
     assert torch.equal(hi, ref_hi) and torch.equal(truncate_tf32(lo), ref_lo)
 
 
@@ -444,8 +456,13 @@ def test_k1_routes_follow_shared_memory():
     """At Hp 544 the `wgmma` inverse holds the rows' state up to size 29; a
     larger size takes the row tiles, which hold up to ~80; past them no
     3xTF32 kernel takes the shape and the model's gate closes, while the
-    strict FMA kernel still takes it. The sums are those the launchers check."""
-    assert kernel_smem(ROUTE_WGMMA, 544, 19, 10) == 4 * (64 * 548 + 32 * 544 + 64 * (38 + 18)) + 32
+    strict FMA kernel still takes it. The sums are those the launchers check:
+    the 3xTF32 `wgmma` inverse's tile, its ring (4 k-steps of 8 Hp floats:
+    a block's half of hi and lo), the rows' state, 2 barriers a ring stage
+    and 2 hand-off barriers."""
+    ring = kernel_limit("kWgRing3xTf32")
+    assert ring * kernel_limit("kWgStageK") == 4
+    assert kernel_smem(ROUTE_WGMMA, 544, 19, 10) == 4 * (64 * 548 + 4 * 8 * 544 + 64 * (38 + 18)) + 8 * (2 * ring + 2)
     assert flow_route(544, 29, 15, True, "3xtf32") == ROUTE_WGMMA
     assert flow_route(544, 30, 15, True, "3xtf32") == ROUTE_ROWS
     assert flow_route(544, 90, 45, True, "3xtf32") is None and flow_route(544, 90, 45, False, "3xtf32") is None
@@ -458,6 +475,45 @@ def test_k1_routes_follow_shared_memory():
     assert not CondRealNVP(size=90, nested_sizes=[526, 526], **kw)._fused_flow_takes()
     assert CondRealNVP(size=90, nested_sizes=[526, 526], pallas_strict=True, **kw)._fused_flow_takes()
     assert not CondRealNVP(size=19, nested_sizes=[1100, 1100], **kw)._fused_flow_takes()
+
+
+@pytest.mark.parametrize("Hp", [32 * tn for tn in (1, 2, 4, 8, 12, 16, 17)])
+def test_wgmma_ring_and_shared_memory_at_the_cluster_constants(Hp):
+    """`wgmma_ring` reads each build's ring and cluster from
+    csrc/flow_wgmma.cu: in 3xTF32 clusters of 2 blocks that split the
+    columns. A block streams hi and lo of its Hp/2 columns, 8 Hp floats a
+    k-step (17,408 bytes at Hp 544), `kWgStageK` k-steps a stage, so the ring
+    holds 4 k-steps in the bytes that held 2 whole ones; `kernel_smem` is the
+    launcher's sum, within a block's shared memory at every width the kernel
+    is built for."""
+    stages, k = kernel_limit("kWgRing3xTf32"), kernel_limit("kWgStageK")
+    assert wgmma_ring(ROUTE_WGMMA) == (stages, kernel_limit("kWgCluster3xTf32")) and wgmma_ring(ROUTE_WGMMA)[1] == 2
+    assert 4 * 8 * 544 == 17_408 and stages * k == 4
+    ring = 4 * stages * k * 8 * Hp
+    assert ring == 4 * (2 * 16 * Hp)
+    assert kernel_smem(ROUTE_WGMMA, Hp, 19, 10) == 4 * 64 * (Hp + 4) + ring + 4 * 64 * (38 + 18) + 8 * (2 * stages + 2)
+    assert kernel_smem(ROUTE_WGMMA, Hp, 19, 10) <= kernel_limit("kSmemLimit")
+    assert flow_route(Hp, 19, 10, True, "3xtf32") == ROUTE_WGMMA
+
+
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 128, 257, 4099, 80_000, 100_000])
+def test_wgmma_grid_rounds_to_whole_clusters(B):
+    """The `wgmma` inverse's grid in whole clusters (csrc/flow_wgmma.cu:
+    `launch`): in 3xTF32 a cluster of two blocks a 64-row tile, both on its
+    rows, so no block runs on masked rows alone; in one pass a block a tile,
+    the tiles rounded up to whole clusters of two (at an odd count of tiles a
+    block runs on masked rows only)."""
+    import re
+    from pathlib import Path
+
+    tiles = -(-B // 64)
+    assert wgmma_grid(ROUTE_WGMMA, B) == 2 * tiles
+    assert wgmma_grid(ROUTE_WGMMA_TF32, B) == tiles + tiles % 2
+    with pytest.raises(ValueError):
+        wgmma_grid(ROUTE_ROWS, B)
+    source = (Path(flow_kernel.__file__).parent / "csrc" / "flow_wgmma.cu").read_text()
+    assert re.search(r"const int clusters = kPasses == 3 \? tiles : \(tiles \+ kWgCluster - 1\) / kWgCluster;", source)
+    assert "cfg.gridDim = dim3(static_cast<unsigned>(clusters * kWgCluster));" in source
 
 
 @pytest.mark.parametrize("strict", [False, True], ids=["3xtf32", "strict"])
