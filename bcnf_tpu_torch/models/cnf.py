@@ -730,8 +730,8 @@ class CondRealNVP:
         """Whether K2a and K2b take this model's shape in its kernel mode: the
         hidden width within the widest compiled one, and a K2b route for the
         mode (`train_kernels_take`: the row tiles' weight-grad jobs and both
-        rows kernels' shared memory, or the one-pass `wgmma` route's, the
-        limits their launchers check). Where they do not, the gate closes
+        rows kernels' shared memory, or the `wgmma` route's, the limits
+        their launchers check). Where they do not, the gate closes
         and the plain autograd path trains, as JAX's `forward_fused_flow` returns None
         for a layout its kernel does not take (`bcnf_tpu/ops/flow_kernel.py:692-696`)."""
         from bcnf_tpu_torch.ops.flow_kernel import KERNEL_TN, padded_width, train_kernels_take

@@ -9,9 +9,9 @@ rebuilt. `build_all` starts one nvcc per library at once. The three flow
 sources are built twice: as they are (3xTF32, the default mode) and with
 ``-DBCNF_TF32_PASSES=1`` into a `*_tf32` library (one TF32 pass, the reduced
 mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
-the first; K2b's one-pass `wgmma` route (`csrc/flow_train_wgmma.cu`) and
-the one-pass `wgmma` forward (`csrc/flow_fwd_wgmma.cu`) are built in that
-mode only, and the strict K1 and K2a (`csrc/flow_fma.cu`, float32 FMA) and
+the first; so are K2b's `wgmma` route (`csrc/flow_train_wgmma.cu`) and the
+`wgmma` forward (`csrc/flow_fwd_wgmma.cu`), 13 libraries in all; the strict
+K1 and K2a (`csrc/flow_fma.cu`, float32 FMA) and
 the strict K2b (`csrc/flow_train_fma.cu`, which takes flow_fma.cu's device
 parts: its hash covers both sources) once. Nothing here runs at import
 time: the CPU tests import every module.
@@ -37,12 +37,12 @@ SOURCES = {
     "lstm_kernel": _CSRC / "lstm_kernel.cu",  # the LSTM recurrence K3a and its backward K3b
 }
 ONE_PASS = "_tf32"  # the suffix of a flow library built for the reduced mode
-for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel"):
+# K2b's route on wgmma, Hp <= 544, and the forward (K1's, K2a's and K4's) on
+# wgmma, each in 3xTF32 and (below) in one pass
+SOURCES["flow_train_wgmma"] = _CSRC / "flow_train_wgmma.cu"
+SOURCES["flow_fwd_wgmma"] = _CSRC / "flow_fwd_wgmma.cu"
+for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel", "flow_train_wgmma", "flow_fwd_wgmma"):
     SOURCES[_name + ONE_PASS] = SOURCES[_name]
-# K2b's one-pass route on wgmma, Hp <= 544, and the one-pass forward (K1's,
-# K2a's and K4's) on wgmma: built for the reduced mode only
-SOURCES["flow_train_wgmma" + ONE_PASS] = _CSRC / "flow_train_wgmma.cu"
-SOURCES["flow_fwd_wgmma" + ONE_PASS] = _CSRC / "flow_fwd_wgmma.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,8 +14,8 @@ wrapper stacks its coupling's weights with S = 1 (`coupling_flow_args`) and
 launches K1's kernels (`ops/flow_kernel.py::_launch_flow`) on ``[x_a | x_b]``
 in 3xTF32, or in one TF32 pass in the reduced mode (JAX's K4 takes its dots
 at the model's precision): the inverse on `wgmma` up to the padded width
-544, the row tiles otherwise; the one-pass forward on the `wgmma` forward up
-to 544 (`csrc/flow_fwd_wgmma.cu`), the row tiles otherwise (JAX's K4 has no
+544, the row tiles otherwise; the forward in either mode on the `wgmma`
+forward up to 544 (`csrc/flow_fwd_wgmma.cu`), the row tiles otherwise (JAX's K4 has no
 strict mode, nor has the port's). The wrapper prepares a coupling's weights
 (the padding and stacking, and for a `wgmma` route the layout of its hidden
 weights that route reads) once per parameter version and keeps them
@@ -42,8 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from bcnf_tpu_torch.ops.flow_kernel import (
+    FWD_WGMMA_ROUTES,
     MODE_3XTF32,
-    ROUTE_FWD_WGMMA_TF32,
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
     TF32_MODES,
@@ -51,8 +51,7 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     _launch_flow,
     flow_route,
     padded_width,
-    prepare_train_weights,
-    prepare_weights,
+    route_weights,
 )
 from bcnf_tpu_torch.ops.nn import gelu
 
@@ -249,10 +248,9 @@ def fused_affine_coupling(
     args = dict(entry["args"], h_proj=_pad_projection(h_proj, entry["args"]["b1"].shape[-1]))
     wstages = None
     route = flow_route(args["b1"].shape[-1], size, d_a, inverse, mode)
-    if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, ROUTE_FWD_WGMMA_TF32):
+    if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, *FWD_WGMMA_ROUTES):
         if route not in entry["wstages"]:
-            entry["wstages"][route] = (prepare_train_weights(args["wm"]) if route == ROUTE_FWD_WGMMA_TF32 else
-                                       prepare_weights(args["wm"], 1 if route == ROUTE_WGMMA_TF32 else 3))
+            entry["wstages"][route] = route_weights(route, args["wm"])
             fused_affine_coupling.stage_preparations += 1
         wstages = entry["wstages"][route]
     _, y, ld = _launch_flow(torch.cat([x_a, x_b], dim=1), args, inverse=inverse, n_cond=n_cond, mode=mode,

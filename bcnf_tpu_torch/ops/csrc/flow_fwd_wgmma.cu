@@ -1,11 +1,21 @@
-// The one-pass whole-flow forward on Hopper's warpgroup tensor-core products
-// (`wgmma`): K1's forward and the training forward K2a in the reduced mode
-// (one TF32 pass a product: the JAX kernel's "default" mode, which serves the
-// "default", "bfloat16" and "BF16_BF16_F32_X3" precisions) at the padded
-// hidden widths Hp <= 544 (the flagship's 526 pads to 544), all S steps in one
-// launch. Built with BCNF_TF32_PASSES=1 only. Wider models, the 3xTF32 mode
-// and the inverse keep their kernels (flow_kernel.cu's row tiles,
-// flow_wgmma.cu); the strict mode is flow_fma.cu.
+// The whole-flow forward on Hopper's warpgroup tensor-core products
+// (`wgmma`): K1's forward and the training forward K2a at the padded hidden
+// widths Hp <= 544 (the flagship's 526 pads to 544), all S steps in one
+// launch, built twice (bcnf_tpu_torch/ops/_build.py):
+// - as it is (library `flow_fwd_wgmma`), 3xTF32, the default mode (the JAX
+//   kernel's "x3" mode, which serves the "highest"/"float32" contract): every
+//   hidden product three `wgmma`s a k-step, a_lo b_hi + a_hi b_lo + a_hi
+//   b_hi, A split as it is loaded, B's hi and lo prepared once a step
+//   (`prepare_train_weights(wm, passes=3)`); the passes go straight into the
+//   running accumulator (unlike K2b's, no fold: K2a's distance from float64
+//   sits at the row tiles' it replaces, PERF.md); K2a takes it, and K1's
+//   forward and K4's, which the card's row sweeps found faster on it at every
+//   row count measured (PERF.md);
+// - with BCNF_TF32_PASSES=1 (library `flow_fwd_wgmma_tf32`), the reduced
+//   mode (one TF32 pass a product: the JAX kernel's "default" mode, which
+//   serves the "default", "bfloat16" and "BF16_BF16_F32_X3" precisions).
+// Wider models and the inverse keep their kernels (flow_kernel.cu's row
+// tiles, flow_wgmma.cu); the strict mode is flow_fma.cu.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py, `fused_flow` with inverse=False (the
 // Pallas TPU kernel `_flow_kernel`), `fwd_call` of `_make_fused_flow_train`
@@ -14,13 +24,14 @@
 // which the port runs as K1 at one step). Host side and plain PyTorch
 // versions (`flow_route`, `fused_flow`, `fused_flow_train_fwd`,
 // `fused_flow_reference` and `fused_flow_train_reference` with
-// `mm=ops/tf32.py::matmul_tf32`): bcnf_tpu_torch/ops/flow_kernel.py. What it
+// `mm=ops/tf32.py::matmul_3xtf32` or `matmul_tf32`): bcnf_tpu_torch/ops/flow_kernel.py. What it
 // computes is flow_kernel.cu's forward, step by step: row r takes its
 // condition h_proj[k, r % N] (N = B for K2a); with `bound` (K2a) each step's
 // input rows go to bound[k].
 //
 // What bounds it on an H100: the square hidden products, 239 GFLOP at the
-// flagship's 4096 rows, 0.48 ms at the dense TF32 rate (494.7 TFLOP/s). A
+// flagship's 4096 rows, 0.48 ms at the dense TF32 rate (494.7 TFLOP/s) in one
+// pass, 1.45 ms in 3xTF32 (twice the weights' bytes, three products). A
 // 64-row tile uses each weight element it streams for 64 rows only, so the
 // products need ~64 bytes of weights a cycle an SM to run at that rate, and an
 // SM takes in ~40 GB/s (22 bytes a cycle) from L2 when every SM streams
@@ -35,7 +46,9 @@
 //   of the Hp hidden columns, so 4096 rows fill 128 SMs. A block's 256
 //   threads are two warpgroups, each one m64n(8 TN)k8 product a k-step (n136
 //   at Hp 544), A from registers (the float32 activation tile, 64 x Hp, in
-//   shared memory, rounded to TF32 as loaded), B from the weight ring. After
+//   shared memory, rounded to TF32 or split into hi and lo as loaded), B from
+//   the weight ring (in 3xTF32 a hidden stage is one k-step's hi and lo, the
+//   floats of two one-pass k-steps, feeding three products). After
 //   each hidden layer a block writes its columns of the next activation into
 //   its own tile and its partner's (distributed shared memory) between two
 //   cluster barriers (both blocks done reading, both tiles whole); the last
@@ -74,8 +87,6 @@
 #include "flow_rows.cuh"
 #include "wgmma_tf32.cuh"
 
-static_assert(bcnf::kPasses == 1, "flow_fwd_wgmma.cu is the one-pass route: build it with -DBCNF_TF32_PASSES=1");
-
 namespace {
 
 using namespace bcnf;
@@ -83,7 +94,9 @@ using namespace bcnf;
 constexpr int kFwRows = 64;       // rows a cluster: one wgmma M
 constexpr int kFwCluster = 2;     // blocks of a cluster: prepare_train_weights splits each layer for two ranks
 constexpr int kFwThreads = 256;   // two warpgroups
-constexpr int kFwStageK = 16;     // weight rows (k) a hidden ring stage: two k-steps
+constexpr int kFwStageK = 16;     // weight rows (k) a one-pass hidden ring stage: two k-steps; every stage is kFwStageK x NB floats
+constexpr int kFwParts = kPasses == 3 ? 2 : 1;  // a hidden weight's prepared parts: hi (and lo in 3xTF32)
+constexpr int kFwSteps = kFwStageK / 8 / kFwParts;  // k-steps a hidden stage: two of hi, or one of hi and lo
 constexpr int kFwRingMin = 2;     // the ring's stages: at least 2 (a stage is issued ring - 1 ahead of its use)
 constexpr int kFwRingMax = 8;     // ... and at most 8
 constexpr int kFwBarrierFloats = 16;  // the ring's 8-byte barriers at the start of shared memory
@@ -97,8 +110,9 @@ struct FwShape {
   static constexpr int NW = 8 * TN;              // a warpgroup's: one m64nNk8 product
   static constexpr int R = 4 * TN;               // its accumulator floats a thread
   static constexpr int stage = kFwStageK * NB;   // floats of a ring stage
-  static constexpr int n_stages = Hp / kFwStageK;  // stages a hidden layer (2 TN, even)
-  static constexpr int layer = Hp * NB;          // a rank's part of a layer's prepared weight
+  static constexpr int stage_k = 8 * kFwSteps;   // weight rows (k) a hidden stage
+  static constexpr int n_stages = Hp / stage_k;  // stages a hidden layer (2 TN, or 4 TN in 3xTF32: even)
+  static constexpr int layer = Hp * NB * kFwParts;  // a rank's part of a layer's prepared weight
 };
 
 // Rows of Wout (n_out floats each) a ring stage of a block of NB columns
@@ -246,24 +260,36 @@ fwd_rows_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj, co
   };
   float acc[R];
 
-  // A fragments of k-steps kcol and kcol + 8 of the tile, rounded to TF32.
+  // A fragments of a stage's k-steps from column kcol of the tile: in one
+  // pass k-steps kcol and kcol + 8, rounded to TF32; in 3xTF32 k-step kcol's
+  // hi (a[0]) and lo (a[1]).
   auto load_a = [&](int kcol, uint32_t(&a)[2][4]) {
+    if constexpr (kPasses == 1) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const float* p = act + (16 * w4 + g) * ldA + kcol + 8 * kk + q;
-      a[kk][0] = tf32_rna(p[0]);
-      a[kk][1] = tf32_rna(p[8 * ldA]);
-      a[kk][2] = tf32_rna(p[4]);
-      a[kk][3] = tf32_rna(p[8 * ldA + 4]);
+      for (int kk = 0; kk < 2; ++kk) {
+        const float* p = act + (16 * w4 + g) * ldA + kcol + 8 * kk + q;
+        a[kk][0] = tf32_rna(p[0]);
+        a[kk][1] = tf32_rna(p[8 * ldA]);
+        a[kk][2] = tf32_rna(p[4]);
+        a[kk][3] = tf32_rna(p[8 * ldA + 4]);
+      }
+    } else {
+      split_a_frag(act + (16 * w4 + g) * ldA + kcol + q, ldA, a[0], a[1]);
     }
   };
-  // One stage: its two products on `cur`, the next stage's fragments into
-  // `nxt` while they run, then the previous stage's slot freed and refilled.
+  // One stage: its products on `cur` (two k-steps in one pass; one k-step's
+  // three passes in 3xTF32, B's hi then lo in the stage), the next stage's
+  // fragments into `nxt` while they run, then the previous stage's slot freed
+  // and refilled.
   auto stage = [&](const uint32_t(&cur)[2][4], uint32_t(&nxt)[2][4], int next_kcol) {
     const float* st = wait_ahead(0) + wg * TN * 64;
     wgmma_fence();
-    WgmmaTf32<NW>::mma(acc, cur[0], smem_desc(st, 128, 256));
-    WgmmaTf32<NW>::mma(acc, cur[1], smem_desc(st + 2 * TN * 64, 128, 256));
+    if constexpr (kPasses == 1) {
+      WgmmaTf32<NW>::mma(acc, cur[0], smem_desc(st, 128, 256));
+      WgmmaTf32<NW>::mma(acc, cur[1], smem_desc(st + 2 * TN * 64, 128, 256));
+    } else {
+      wgmma_3xtf32<NW>(acc, cur[0], cur[1], smem_desc(st, 128, 256), smem_desc(st + 2 * TN * 64, 128, 256));
+    }
     wgmma_commit();
     wgmma_wait<1>();  // stage t - 1's group is done
     fence_operands(acc);
@@ -280,8 +306,8 @@ fwd_rows_wgmma(const float* __restrict__ x, const float* __restrict__ h_proj, co
     load_a(0, fa);
 #pragma unroll 1
     for (int j = 0; j < W::n_stages; j += 2) {
-      stage(fa, fb, kFwStageK * (j + 1));
-      stage(fb, fa, kFwStageK * (j + 2));
+      stage(fa, fb, W::stage_k * (j + 1));
+      stage(fb, fa, W::stage_k * (j + 2));
     }
     wgmma_wait<0>();
     fence_operands(acc);
@@ -507,7 +533,8 @@ cudaError_t layout(int size, int d_a, int B, int* out) {
 // step's input rows, (S, B, size); call it with N = B, h_proj (S, B, Hp)) on
 // this route. Row r takes h_proj[k, r % N]. `wstages` is the hidden weights
 // as `prepare_train_weights` lays them out ((S, nh, 2, 2, Hp/8, Hp/16, 2, 8,
-// 4) floats in TF32; unread when nh is 0); it, h_proj, w1y and wout must be
+// 4) floats in TF32, in 3xTF32 (S, nh, 2, 2, Hp/8, 2, Hp/16, 2, 8, 4); unread
+// when nh is 0); it, h_proj, w1y and wout must be
 // 16-byte aligned. Hp must be 32*TN for TN in 1, 2, 4, 8, 12, 16, 17; a shape
 // `fw_ring` refuses returns cudaErrorInvalidValue. Returns the launch's
 // cudaError_t.

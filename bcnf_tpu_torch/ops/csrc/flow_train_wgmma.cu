@@ -1,77 +1,97 @@
-// K2b's one-pass route on Hopper's warpgroup tensor-core products (`wgmma`):
-// the training backward of the whole flow in the reduced mode (one TF32 pass
-// a product: the JAX kernel's "default" mode, which serves the "default",
-// "bfloat16" and "BF16_BF16_F32_X3" precisions) at the padded hidden widths
-// Hp <= 544 (the flagship's 526 pads to 544). Built with BCNF_TF32_PASSES=1
-// only. Wider models, and the 3xTF32 mode, take the row tiles of
-// flow_train_kernel.cu.
+// K2b on Hopper's warpgroup tensor-core products (`wgmma`): the training
+// backward of the whole flow at the padded hidden widths Hp <= 544 (the
+// flagship's 526 pads to 544), built twice (bcnf_tpu_torch/ops/_build.py):
+// - as it is (library `flow_train_wgmma`), 3xTF32, the default mode (the
+//   JAX kernel's "x3" mode, which serves the "highest"/"float32" contract):
+//   every square product is three `wgmma`s a k-step, a_lo b_hi + a_hi b_lo +
+//   a_hi b_hi, A split as it is loaded (hi = tf32_rna(x), lo = x - hi), B's hi
+//   and lo prepared once a step (`prepare_train_weights(wm, passes=3)`);
+// - with BCNF_TF32_PASSES=1 (library `flow_train_wgmma_tf32`), the reduced
+//   mode (one TF32 pass a product: the JAX kernel's "default" mode, which
+//   serves the "default", "bfloat16" and "BF16_BF16_F32_X3" precisions).
+// Wider models keep the row tiles of flow_train_kernel.cu; the strict mode is
+// flow_train_fma.cu.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py, `bwd_call` of
 // `_make_fused_flow_train` (the Pallas TPU kernel `_flow_bwd_train_kernel`).
 // Host side and plain PyTorch version (`fused_flow_train_bwd`,
 // `train_bwd_route`, `prepare_train_weights`,
-// `fused_flow_train_backward_reference` with `mm=ops/tf32.py::matmul_tf32`):
-// bcnf_tpu_torch/ops/flow_kernel.py. What it computes is flow_train_kernel.cu's
-// header, step by step: for k = S-1 .. 0 the step's MLP recomputed from the
-// step inputs K2a stored, its backward, and every weight grad summed over the
-// B rows.
+// `fused_flow_train_backward_reference` with `mm=ops/tf32.py::matmul_3xtf32`
+// or `matmul_tf32`): bcnf_tpu_torch/ops/flow_kernel.py. What it computes is
+// flow_train_kernel.cu's header, step by step: for k = S-1 .. 0 the step's MLP
+// recomputed from the step inputs K2a stored, its backward, and every weight
+// grad summed over the B rows.
 //
 // What bounds it on an H100: the square products, three equal thirds (the
 // recompute h_l Wm_l, the backward da_{l+1} Wm_l^T, the weight grads
 // h_l^T da_{l+1}), 717 GFLOP at the flagship's 4096 rows: 1.45 ms at the
-// dense TF32 rate. A 64-row tile uses each weight element it streams for 64
-// rows only, so the recompute and backward products need ~64 bytes of
-// weights a cycle an SM to run at that rate, and an SM takes in ~40 GB/s (22
-// bytes a cycle) from L2 when every SM streams (PERF.md): the weights' stream,
-// not the tensor cores, holds the products; the FMA layers, the epilogues and
-// the scratch they write add to it, since one block an SM has no second tile
-// to overlap them with. The design keeps what is not a product short.
+// dense TF32 rate in one pass, 4.35 ms in 3xTF32 (three products a product). A
+// 64-row tile uses each weight element it streams for 64 rows only, so the
+// recompute and backward products need ~64 bytes of weights a cycle an SM to
+// run at the one-pass rate, and an SM takes in ~40 GB/s (22 bytes a cycle)
+// from L2 when every SM streams (PERF.md): the weights' stream, not the
+// tensor cores, holds the one-pass products; in 3xTF32 each streamed stage
+// (one k-step's hi and lo, the same bytes as two one-pass k-steps) feeds
+// three products while it is resident. The FMA layers, the epilogues and the
+// scratch they write add to it, since one block an SM has no second tile to
+// overlap them with. The design keeps what is not a product short.
 //
 // Design, per step (two launches a step and one a call, on the caller's
 // stream; `parts` runs each kind alone):
 // 1. `bwd_rows_wgmma` (BWD_ROWS): a cluster of 2 blocks owns 64 rows (one
 //    `wgmma` M); each block owns half of the Hp hidden columns, so 4096 rows
 //    fill 128 SMs. A block's 256 threads are two warpgroups, each one
-//    m64n(8 TN)k8 product a k-step (n136 at Hp 544), A from registers (the
-//    float32 activation tile in shared memory, rounded to TF32 as loaded,
-//    tf32_rna), B from a 3-stage ring of 16 weight rows a stage, one bulk copy
-//    a stage (`cp.async.bulk`, issued by thread 0 once a block-wide barrier
-//    has freed the slot; one `wgmma` group in flight). The weights are
-//    prepared once a call (`prepare_kernel`): rounded to TF32 and laid out
-//    stage by stage for each block's columns, Wm^T for the recompute and Wm
-//    as stored for the backward. After each layer a block writes its columns
-//    of the next activation (or cotangent) into its own tile and its
-//    partner's (distributed shared memory), between two cluster barriers
-//    (both blocks done reading, both tiles whole). gelu'(a_l) goes to a
-//    block-private scratch in the threads' own fragment order (coalesced,
-//    read back by the same threads, each chunk's loads issued together); h_l
-//    (rounded to TF32: the weight-grad pass's B) and da_{l+1} go out from the
-//    registers in the weight-grad pass's stage layouts (below), rows past B
-//    as zeros. The narrow products (the d_a
+//    m64n(8 TN)k8 product a k-step and pass (n136 at Hp 544), A from
+//    registers (the float32 activation tile in shared memory, rounded to TF32
+//    as loaded, tf32_rna, or split into hi and lo), B from a 3-stage ring of
+//    kTwStageK x Hp/2 floats a stage (two k-steps of hi, or one k-step of hi
+//    and lo), one bulk copy a stage (`cp.async.bulk`, issued by thread 0 once a
+//    block-wide barrier has freed the slot; in one pass one `wgmma` group in
+//    flight across the refill; in 3xTF32 each stage's three passes go into a
+//    fresh accumulator kFoldGroups n-groups at a time, each waited for and
+//    added to float32 running sums, `fold_groups`: the tensor cores'
+//    accumulator truncates, and summed straight through 204 passes K2b drifted
+//    further from float64 than the row tiles; a fresh accumulator of all 17
+//    n-groups, or of half of them, spilled beside the running sums). The
+//    weights are prepared once a call or step (`prepare_kernel`): rounded to
+//    TF32 (and their lo beside) and laid out stage by stage for each block's
+//    columns, Wm^T for the recompute and Wm as stored for the backward. After
+//    each layer a block writes its columns of the next activation (or
+//    cotangent) into its own tile and its partner's (distributed shared
+//    memory), between two cluster barriers (both blocks done reading, both
+//    tiles whole). gelu'(a_l) goes to a block-private scratch in the threads'
+//    own fragment order (coalesced, read back by the same threads, each
+//    chunk's loads issued together); h_l (rounded to TF32, and in 3xTF32 its
+//    lo = h_l - hi in a plane of its own: the weight-grad pass's B) and
+//    da_{l+1} go out from the registers in the weight-grad pass's stage
+//    layouts (below), rows past B as zeros. The narrow products (the d_a
 //    inputs W1y, the n_out outputs Wout, dh = dout Wout^T, dx_a = da_0 W1y^T)
 //    and the mixes stay float32 FMA, their weights staged through the ring
 //    while it holds no stage (W1y in its third slot before the first product,
-//    Wout after the recompute, W1y after the backward); a block takes its
-//    columns' share, and the two halves of the output layer and of dx_a are
-//    added in one order (rank 0's then rank 1's) in both blocks. dWout, dW1y
-//    (both operands rounded to TF32, as the plain one-pass version's
-//    products), the bias column sums of dout and da_0 and the ActNorm sums
+//    Wout after the recompute, W1y after the backward; each within a stage's
+//    floats, tw_takes); a block takes its columns' share, and the two halves
+//    of the output layer and of dx_a are added in one order (rank 0's then
+//    rank 1's) in both blocks. dWout and dW1y (in one pass on operands
+//    rounded to TF32, as the plain one-pass version's products; in 3xTF32 on
+//    the float32 operands, float32 FMA: no further from the exact product
+//    than 3xTF32), the bias column sums of dout and da_0 and the ActNorm sums
 //    (float32) are taken over the cluster's 64 rows into a partial per step
-//    and cluster: no scratch plane for them, and no 3xTF32 pass. The rows
-//    kernel needs 250 registers a thread at Hp 544; an array more live in an
-//    epilogue spills, and the spills cost ~1 ms a call (PERF.md).
+//    and cluster: no scratch plane for them. The rows kernel needs 250
+//    registers a thread at Hp 544 in one pass, 251 in 3xTF32 with its fold;
+//    an array more live spills, and the spills cost ~1 ms a call (PERF.md).
 // 2. `dwm_wgmma` (BWD_WEIGHT_GRADS): dWm_l^T = da_{l+1}^T h_l over the rows,
 //    a block a 64 x (8 TN) tile of one layer (nh x ceil(Hp/64) x 4 blocks a
 //    step, two an SM), one warpgroup: A = da_{l+1} from registers, rounded to
-//    TF32 as loaded (32-row blocks of 64 features, XOR-swizzled so the
-//    fragment loads are conflict-free), B = h_l as the rows kernel rounded it
-//    (32 rows x 8 TN features in the core-matrix order the descriptor reads);
-//    a stage is kGwRows rows, one bulk copy of each a 32-row block. Each
-//    stage's product goes into a fresh accumulator that is then added to a
-//    float32 running sum (the tensor cores' accumulator truncates), rows in
-//    one order, no atomics. The bias grads dbm_l are
-//    float32 sums of A's raw values, taken as they are loaded. Held by each
-//    SM's intake: a stage's A is read by 4 blocks, its B by ceil(Hp/64).
+//    TF32 (or split into hi and lo) as loaded (32-row blocks of 64 features,
+//    XOR-swizzled so the fragment loads are conflict-free), B = h_l as the
+//    rows kernel rounded it (and its lo) (32 rows x 8 TN features in the
+//    core-matrix order the descriptor reads); a stage is kGwRows rows, one
+//    bulk copy of each a 32-row block. Each stage's product goes into a fresh
+//    accumulator that is then added to a float32 running sum (the tensor
+//    cores' accumulator truncates), rows in one order, no atomics. The bias
+//    grads dbm_l are float32 sums of A's raw values, taken as they are
+//    loaded (in 3xTF32 a stage's part first, then added to the sum). Held by
+//    each SM's intake: a stage's A is read by 4 blocks, its B by ceil(Hp/64).
 // 3. `tw_reduce` (BWD_ACTNORM, once after the last step): the partials summed
 //    over the clusters in cluster order into dWout, dbout, dW1y, db1 and the
 //    ActNorm grads (zero at the final step).
@@ -80,8 +100,6 @@
 #include "flow_rows.cuh"
 #include "wgmma_tf32.cuh"
 
-static_assert(bcnf::kPasses == 1, "flow_train_wgmma.cu is the one-pass route: build it with -DBCNF_TF32_PASSES=1");
-
 namespace {
 
 using namespace bcnf;
@@ -89,10 +107,13 @@ using namespace bcnf;
 constexpr int kTwRows = 64;       // rows a cluster: one wgmma M
 constexpr int kTwCluster = 2;     // blocks of a cluster, each owning half of the hidden columns
 constexpr int kTwThreads = 256;   // two warpgroups
-constexpr int kTwStageK = 16;     // weight rows (k) a ring stage: two k-steps
+constexpr int kTwStageK = 16;     // weight rows (k) a one-pass ring stage: two k-steps; every stage is kTwStageK x NB floats
 constexpr int kTwRing = 3;        // stages of the rows kernel's weight ring
 constexpr int kTwBarrierFloats = 16;  // the ring's barriers at the start of shared memory
-constexpr int kGwRows = 64;       // rows (k) a stage of the weight-grad pass
+constexpr int kTwParts = kPasses == 3 ? 2 : 1;  // a weight's prepared parts: hi (and lo in 3xTF32)
+constexpr int kTwSteps = kTwStageK / 8 / kTwParts;  // k-steps a stage: two of hi, or one of hi and lo
+constexpr int kGwRows = kPasses == 3 ? 32 : 64;  // rows (k) a stage of the weight-grad pass (two blocks an SM)
+constexpr int kFoldGroups = 6;    // 3xTF32: n-groups (8 columns) a fresh accumulator of the rows kernel folds at once
 constexpr int kGwRing = 2;        // its stages
 constexpr int kGwThreads = 128;   // one warpgroup
 constexpr int kGwTile = 64;       // A features (dWm columns) a block: one wgmma M
@@ -105,8 +126,9 @@ struct TwShape {
   static constexpr int NW = 8 * TN;              // a warpgroup's: one m64nNk8 product
   static constexpr int R = 4 * TN;               // its accumulator floats a thread
   static constexpr int stage = kTwStageK * NB;   // floats of a ring stage
-  static constexpr int n_stages = Hp / kTwStageK;  // stages a layer (2 TN, even)
-  static constexpr int layer = Hp * NB;          // a block's part of a layer's prepared weight
+  static constexpr int stage_k = 8 * kTwSteps;   // weight rows (k) a stage
+  static constexpr int n_stages = Hp / stage_k;  // stages a layer (2 TN, or 4 TN in 3xTF32: even)
+  static constexpr int layer = Hp * NB * kTwParts;  // a block's part of a layer's prepared weight
   static constexpr int MT = (Hp + kGwTile - 1) / kGwTile;  // the weight-grad pass's A tiles
 };
 
@@ -128,17 +150,19 @@ size_t tw_smem(int Hp, int size, int d_a) {
 }
 
 // Whether the rows kernel takes this shape beside its shared memory: the
-// narrow products' weights pass through the ring (Wout's NB x n_out rows
-// through all of it, W1y's d_a x NB columns through one stage), so n_out <=
-// kTwRing kTwStageK and d_a <= kTwStageK (bcnf_tpu_torch/ops/flow_kernel.py:
-// train_bwd_route mirrors this).
+// narrow products' weights pass through the ring (Wout's NB x n_out floats
+// through all of it, W1y's d_a x NB through one stage), reckoned in a stage's
+// floats (kTwStageK x NB, in either mode), so n_out <= kTwRing kTwStageK and
+// d_a <= kTwStageK (bcnf_tpu_torch/ops/flow_kernel.py: train_bwd_route
+// mirrors this).
 bool tw_takes(int Hp, int size, int d_a) {
   return 2 * (size - d_a) <= kTwRing * kTwStageK && d_a <= kTwStageK && tw_smem(Hp, size, d_a) <= kSmemLimit;
 }
 
-// The weight-grad pass's: barriers and kGwRing stages of A (kGwRows x 64) and B (kGwRows x Hp/4).
+// The weight-grad pass's: barriers and kGwRing stages of A (kGwRows x 64) and
+// B (kGwRows x Hp/4, and its lo in 3xTF32).
 size_t gw_smem(int Hp) {
-  return sizeof(float) * (kTwBarrierFloats + static_cast<size_t>(kGwRing) * kGwRows * (kGwTile + Hp / 4));
+  return sizeof(float) * (kTwBarrierFloats + static_cast<size_t>(kGwRing) * kGwRows * (kGwTile + kTwParts * Hp / 4));
 }
 static_assert(kGwRows % 32 == 0, "a weight-grad stage is whole 32-row blocks of the stage layouts");
 
@@ -173,10 +197,34 @@ __device__ __forceinline__ size_t daA_index(int r, int f, int MT) {
 
 struct TwScratch {
   float* gs;    // gelu'(a_l), l <= nh: each block's in its threads' fragment order
-  float* hT;    // h_l, l < nh, in the B stage layout (plane l)
+  float* hT;    // h_l, l < nh, in the B stage layout (plane l; in 3xTF32 hi, and its lo in plane nh + l)
   float* daA;   // da_{l+1}, l < nh, in the A stage layout (plane l)
   float* part;  // a Partial per step and cluster
 };
+
+// 3xTF32's fold: the warpgroup's n-groups G0 .. G0 + G of a stage (G at most
+// kFoldGroups), the stage's k-step in three passes into the fresh accumulator
+// `part` (B's n-group j 64 floats on from `st`, its lo 2 TN x 64 floats on),
+// waited for and added to the float32 running sums acc[4 G0 ..]; then the next
+// n-groups. The tensor cores' accumulator truncates: summed straight into
+// `acc`, the 204 passes of a 544-long product left K2b further from float64
+// than the row tiles on trained weights; a fresh accumulator of every n-group
+// (68 floats at TN 17) or of half of them spilled at 255 registers (PERF.md).
+template <int TN, int G0>
+__device__ __forceinline__ void fold_groups(float (&acc)[4 * TN], float (&part)[4 * (TN < kFoldGroups ? TN : kFoldGroups)],
+                                            const uint32_t (&ahi)[4], const uint32_t (&alo)[4], const float* st) {
+  constexpr int G = TN - G0 < kFoldGroups ? TN - G0 : kFoldGroups;
+  float(&p)[4 * G] = *reinterpret_cast<float(*)[4 * G]>(part);
+  wgmma_fence();
+  wgmma_3xtf32<8 * G>(p, ahi, alo, smem_desc(st + G0 * 64, 128, 256), smem_desc(st + 2 * TN * 64 + G0 * 64, 128, 256),
+                      true);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(p);
+#pragma unroll
+  for (int e = 0; e < 4 * G; ++e) acc[4 * G0 + e] += p[e];
+  if constexpr (G0 + G < TN) fold_groups<TN, G0 + G>(acc, part, ahi, alo, st);
+}
 
 template <int TN>
 __global__ void __launch_bounds__(kTwThreads, 1)
@@ -261,7 +309,7 @@ bwd_rows_wgmma(const float* __restrict__ bound, const float* __restrict__ h_proj
     const float x = row0 + r < B ? bound[(static_cast<size_t>(k) * B + row0) * size + p] : 0.0f;
     const float v = inner ? x * sck[i] + bik[i] : x;
     x1s[p] = v;
-    if (i < d_a) x1r[r * d_a + i] = rna(v);
+    if (i < d_a) x1r[r * d_a + i] = kPasses == 1 ? rna(v) : v;
   }
   if (tid < kTwRows) dlds[tid] = row0 + tid < B ? dld[row0 + tid] : 0.0f;
   cluster_sync();  // both blocks' shared memory is live (and the barriers initialised) before either reaches it
@@ -288,32 +336,49 @@ bwd_rows_wgmma(const float* __restrict__ bound, const float* __restrict__ h_proj
     }
   };
   float acc[R];
+  // 3xTF32: a stage's three passes go into this fresh accumulator
+  // (`fold_groups`, kFoldGroups n-groups at a time)
+  [[maybe_unused]] float part[kPasses == 3 ? 4 * (TN < kFoldGroups ? TN : kFoldGroups) : 1];
 
-  // A fragments of k-steps kcol and kcol + 8 of the tile, rounded to TF32.
+  // A fragments of a stage's k-steps from column kcol of the tile: in one
+  // pass k-steps kcol and kcol + 8, rounded to TF32; in 3xTF32 k-step kcol's
+  // hi (a[0]) and lo (a[1]).
   auto load_a = [&](int kcol, uint32_t(&a)[2][4]) {
+    if constexpr (kPasses == 1) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const float* p = act + (16 * w4 + g) * ldA + kcol + 8 * kk + q;
-      a[kk][0] = tf32_rna(p[0]);
-      a[kk][1] = tf32_rna(p[8 * ldA]);
-      a[kk][2] = tf32_rna(p[4]);
-      a[kk][3] = tf32_rna(p[8 * ldA + 4]);
+      for (int kk = 0; kk < 2; ++kk) {
+        const float* p = act + (16 * w4 + g) * ldA + kcol + 8 * kk + q;
+        a[kk][0] = tf32_rna(p[0]);
+        a[kk][1] = tf32_rna(p[8 * ldA]);
+        a[kk][2] = tf32_rna(p[4]);
+        a[kk][3] = tf32_rna(p[8 * ldA + 4]);
+      }
+    } else {
+      split_a_frag(act + (16 * w4 + g) * ldA + kcol + q, ldA, a[0], a[1]);
     }
   };
   int t = 0;  // the next ring stage to consume (every thread keeps the count)
-  // One stage: its two products on `cur`, the next stage's fragments into
-  // `nxt` while they run, then the previous stage's slot freed and refilled.
+  // One stage: its products on `cur` (two k-steps in one pass; one k-step's
+  // three passes in 3xTF32, B's hi then lo in the stage), the next stage's
+  // fragments into `nxt` while they run, then the previous stage's slot freed
+  // and refilled. One pass keeps a group in flight across the refill; 3xTF32
+  // waits for the stage's group and folds it.
   auto stage = [&](const uint32_t(&cur)[2][4], uint32_t(&nxt)[2][4], int next_kcol) {
     const int slot = t % kTwRing;
     mbar_wait(&full[slot], static_cast<uint32_t>(t / kTwRing) & 1u);
     const float* st = ring + slot * W::stage + wg * TN * 64;
     wgmma_fence();
-    WgmmaTf32<NW>::mma(acc, cur[0], smem_desc(st, 128, 256));
-    WgmmaTf32<NW>::mma(acc, cur[1], smem_desc(st + 2 * TN * 64, 128, 256));
-    wgmma_commit();
-    wgmma_wait<1>();  // stage t - 1's group, which read `nxt`, is done
-    fence_operands(acc);
-    if (next_kcol < Hp) load_a(next_kcol, nxt);
+    if constexpr (kPasses == 1) {
+      WgmmaTf32<NW>::mma(acc, cur[0], smem_desc(st, 128, 256));
+      WgmmaTf32<NW>::mma(acc, cur[1], smem_desc(st + 2 * TN * 64, 128, 256));
+      wgmma_commit();
+      wgmma_wait<1>();  // stage t - 1's group, which read `nxt`, is done
+      fence_operands(acc);
+      if (next_kcol < Hp) load_a(next_kcol, nxt);
+    } else {
+      fold_groups<TN, 0>(acc, part, cur[0], cur[1], st);
+      if (next_kcol < Hp) load_a(next_kcol, nxt);  // once `cur` is free
+    }
     __syncthreads();  // every warpgroup is done with stage t - 1
     if (tid == 0) issue(t + kTwRing - 1);
     ++t;
@@ -326,15 +391,16 @@ bwd_rows_wgmma(const float* __restrict__ bound, const float* __restrict__ h_proj
     load_a(0, fa);
 #pragma unroll 1
     for (int j = 0; j < W::n_stages; j += 2) {
-      stage(fa, fb, kTwStageK * (j + 1));
-      stage(fb, fa, kTwStageK * (j + 2));
+      stage(fa, fb, W::stage_k * (j + 1));
+      stage(fb, fa, W::stage_k * (j + 2));
     }
     wgmma_wait<0>();
     fence_operands(acc);
   };
   // h = gelu(acc + bias) into the tile (and the partner's when `exchange`),
   // gelu' to layer L's scratch, h in TF32 to `h_out` (the weight-grad pass's
-  // B layout; rows past B as zeros) unless null
+  // B layout; rows past B as zeros; in 3xTF32 its lo = h - hi nh planes on)
+  // unless null
   auto forward_out = [&](int L, const float* bias, bool exchange, float* h_out) {
     float* gl = gblk + static_cast<size_t>(L) * rows_c * Hp;
     auto load = [&](int, int, int col) {
@@ -352,6 +418,11 @@ bwd_rows_wgmma(const float* __restrict__ bound, const float* __restrict__ h_proj
         float* o = h_out + hT_index(row0 + row, col, Hp);  // col + 1 is 4 floats on
         o[0] = valid ? rna(h0) : 0.0f;
         o[4] = valid ? rna(h1) : 0.0f;
+        if constexpr (kPasses == 3) {
+          float* lo = o + static_cast<size_t>(nh) * rows_c * Hp;
+          lo[0] = valid ? h0 - rna(h0) : 0.0f;
+          lo[4] = valid ? h1 - rna(h1) : 0.0f;
+        }
       }
     });
   };
@@ -488,17 +559,19 @@ bwd_rows_wgmma(const float* __restrict__ bound, const float* __restrict__ h_proj
     const float dsp = ds * (1.0f - s * s);
     outs[r * n_out + j] = dzb;  // dt
     outs[r * n_out + d_b + j] = dsp;
-    doutr[r * n_out + j] = rna(dzb);
-    doutr[r * n_out + d_b + j] = rna(dsp);
+    doutr[r * n_out + j] = kPasses == 1 ? rna(dzb) : dzb;
+    doutr[r * n_out + d_b + j] = kPasses == 1 ? rna(dsp) : dsp;
     dx2s[r * size + d_a + j] = dzb * es;  // dx1's x_b part
   }
   __syncthreads();
 
-  // the block's columns of h_nh in TF32 (the output layer has read them)
-  round_tile();
+  // the block's columns of h_nh in TF32 (the output layer has read them; in
+  // 3xTF32 dWout takes them as they are)
+  if constexpr (kPasses == 1) round_tile();
   __syncthreads();
   // ---- the cluster's partials: dWout = h_nh^T dout (the block's rows of it,
-  // operands in TF32; a thread 4 outputs of a row), dbout = sum dout (rank 0)
+  // operands in TF32, or float32 in 3xTF32; a thread 4 outputs of a row),
+  // dbout = sum dout (rank 0)
   {
     const int groups = (n_out + 3) / 4;
     for (int item = tid; item < NB * groups; item += kTwThreads) {
@@ -619,7 +692,7 @@ bwd_rows_wgmma(const float* __restrict__ bound, const float* __restrict__ h_proj
     dx2s[p] = d;
     if (rank == 0 && row0 + r < B) dxy[static_cast<size_t>(row0) * size + p] = inner ? d * sck[i] : d;
   }
-  round_tile();  // da_0 in TF32 (dx_a and db1 have read it)
+  if constexpr (kPasses == 1) round_tile();  // da_0 in TF32 (dx_a and db1 have read it)
   __syncthreads();
   if (rank == 0 && tid <= 2 * size) {
     float s = 0.0f;
@@ -635,8 +708,8 @@ bwd_rows_wgmma(const float* __restrict__ bound, const float* __restrict__ h_proj
     }
     pk[pt.an + tid] = s;
   }
-  // dW1y = x1_a^T da_0 (operands in TF32; the block's columns; a thread one
-  // column and 4 inputs)
+  // dW1y = x1_a^T da_0 (operands in TF32, or float32 in 3xTF32; the block's
+  // columns; a thread one column and 4 inputs)
   {
     const int groups = (d_a + 3) / 4;
     for (int item = tid; item < NB * groups; item += kTwThreads) {
@@ -665,8 +738,10 @@ dwm_wgmma(const float* __restrict__ daA, const float* __restrict__ hT, float* __
           float* __restrict__ dbm, int rows, int k, int nh) {
   using W = TwShape<TN>;
   constexpr int Hp = W::Hp, NW = W::NW, R = W::R, MT = W::MT;
-  // a stage: kGwRows / 32 row blocks of 32, each A (32 x 64) then B (32 x NW), as the stage layouts hold them
-  constexpr int a_floats = 32 * kGwTile, sub = a_floats + 32 * NW, subs = kGwRows / 32, stage = subs * sub;
+  // a stage: kGwRows / 32 row blocks of 32, each A (32 x 64) then B (32 x NW; then its lo in 3xTF32), as the
+  // stage layouts hold them
+  constexpr int a_floats = 32 * kGwTile, sub = a_floats + kTwParts * 32 * NW, subs = kGwRows / 32,
+                stage = subs * sub;
   const int l = blockIdx.x / (MT * 4), mt = (blockIdx.x / 4) % MT, nt = blockIdx.x % 4;
   const int n_rs = rows / kGwRows;
 
@@ -676,6 +751,7 @@ dwm_wgmma(const float* __restrict__ daA, const float* __restrict__ hT, float* __
   const int tid = threadIdx.x, w4 = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const float* a_src = daA + static_cast<size_t>(l) * rows * MT * kGwTile + mt * a_floats;
   const float* b_src = hT + static_cast<size_t>(l) * rows * Hp + nt * TN * 256;
+  [[maybe_unused]] const float* b_lo = b_src + static_cast<size_t>(nh) * rows * Hp;  // h_l's lo (3xTF32)
 
   auto issue = [&](int s) {
     if (s >= n_rs) return;
@@ -686,6 +762,9 @@ dwm_wgmma(const float* __restrict__ daA, const float* __restrict__ hT, float* __
       const size_t rs = static_cast<size_t>(s) * subs + u;  // the 32-row block
       bulk_copy_g2s(dst + u * sub, a_src + rs * MT * a_floats, a_floats * sizeof(float), &full[slot]);
       bulk_copy_g2s(dst + u * sub + a_floats, b_src + rs * (Hp / 8) * 256, 32 * NW * sizeof(float), &full[slot]);
+      if constexpr (kPasses == 3)
+        bulk_copy_g2s(dst + u * sub + a_floats + 32 * NW, b_lo + rs * (Hp / 8) * 256, 32 * NW * sizeof(float),
+                      &full[slot]);
     }
   };
   if (tid == 0) {
@@ -706,26 +785,49 @@ dwm_wgmma(const float* __restrict__ daA, const float* __restrict__ hT, float* __
     mbar_wait(&full[slot], static_cast<uint32_t>(s / kGwRing) & 1u);
     const float* st = ring + slot * stage;
     uint32_t a[kGwRows / 8][4];
+    [[maybe_unused]] uint32_t alo[kPasses == 3 ? kGwRows / 8 : 1][4];  // A's lo (3xTF32)
+    // 3xTF32: the stage's part of the column sums, added to them once a
+    // stage (a sum of the rows in one long chain drifts past the float32
+    // plain version's; blocked by stage it does not)
+    [[maybe_unused]] float ps0 = 0.0f, ps1 = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < kGwRows / 8; ++kk) {
       const float* r0 = st + (kk / 4) * sub + (8 * (kk % 4) + q) * kGwTile;
       const float* r1 = r0 + 4 * kGwTile;
       const float v0 = r0[m0 ^ sw], v1 = r0[(m0 + 8) ^ sw], v2 = r1[m0 ^ sw], v3 = r1[(m0 + 8) ^ sw];
-      sa0 += v0;
-      sa0 += v2;
-      sa1 += v1;
-      sa1 += v3;
-      a[kk][0] = tf32_rna(v0);
-      a[kk][1] = tf32_rna(v1);
-      a[kk][2] = tf32_rna(v2);
-      a[kk][3] = tf32_rna(v3);
+      if constexpr (kPasses == 1) {
+        sa0 += v0;
+        sa0 += v2;
+        sa1 += v1;
+        sa1 += v3;
+        a[kk][0] = tf32_rna(v0);
+        a[kk][1] = tf32_rna(v1);
+        a[kk][2] = tf32_rna(v2);
+        a[kk][3] = tf32_rna(v3);
+      } else {
+        ps0 += v0;
+        ps0 += v2;
+        ps1 += v1;
+        ps1 += v3;
+        const float v[4] = {v0, v1, v2, v3};
+        split_tf32(v, a[kk], alo[kk]);
+      }
+    }
+    if constexpr (kPasses == 3) {
+      sa0 += ps0;
+      sa1 += ps1;
     }
 #pragma unroll
     for (int e = 0; e < R; ++e) acc[e] = 0.0f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kGwRows / 8; ++kk)
-      WgmmaTf32<NW>::mma(acc, a[kk], smem_desc(st + (kk / 4) * sub + a_floats + 2 * (kk % 4) * 32, 128, 1024));
+    for (int kk = 0; kk < kGwRows / 8; ++kk) {
+      const float* b = st + (kk / 4) * sub + a_floats + 2 * (kk % 4) * 32;
+      if constexpr (kPasses == 1)
+        WgmmaTf32<NW>::mma(acc, a[kk], smem_desc(b, 128, 1024));
+      else  // B's lo 32 NW floats on
+        wgmma_3xtf32<NW>(acc, a[kk], alo[kk], smem_desc(b, 128, 1024), smem_desc(b + 32 * NW, 128, 1024));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
@@ -799,7 +901,9 @@ __global__ void tw_reduce(const float* __restrict__ part, const float* __restric
 // input quad k, output n) rounds Wm[k..k+3][n] (the recompute's B(k, n), from
 // Wm^T) and Wm[n][k..k+3] (the backward's) to TF32 and stores each as the 4
 // inputs of a core matrix's row, at [direction][rank][k / 8][(n % Hp/2) / 8]
-// [(k % 8) / 4][n % 8][k % 4]. Bound by bytes: Wm read, both layouts written.
+// [(k % 8) / 4][n % 8][k % 4]; in 3xTF32 at [direction][rank][k / 8][hi, lo]
+// [(n % Hp/2) / 8][(k % 8) / 4][n % 8][k % 4], lo = w - hi beside hi. Bound by
+// bytes: Wm read, both layouts written.
 __global__ void prepare_kernel(const float* __restrict__ wm, float* __restrict__ out, int layers, int Hp) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int n = static_cast<int>(idx % Hp), kq = static_cast<int>((idx / Hp) % (Hp / 4));
@@ -807,6 +911,22 @@ __global__ void prepare_kernel(const float* __restrict__ wm, float* __restrict__
   if (layer >= layers) return;
   const int k = 4 * kq, half = Hp / 2;
   const float* w = wm + layer * Hp * Hp;
+  if constexpr (kPasses == 3) {
+    const size_t group = (static_cast<size_t>(n / half) * (Hp / 8) + k / 8) * 2;  // [rank][k / 8][hi]
+    const size_t off = (((group * (half / 8) + (n % half) / 8) * 2 + (k % 8) / 4) * 8 + n % 8) * 4;
+    const size_t lo = static_cast<size_t>(half) * 8, dir = 2 * static_cast<size_t>(Hp) * Hp;
+    float* o = out + layer * 2 * dir;
+    const float4 a = make_float4(w[static_cast<size_t>(k) * Hp + n], w[static_cast<size_t>(k + 1) * Hp + n],
+                                 w[static_cast<size_t>(k + 2) * Hp + n], w[static_cast<size_t>(k + 3) * Hp + n]);
+    const float4 b = *reinterpret_cast<const float4*>(w + static_cast<size_t>(n) * Hp + k);
+    const float4 ah = make_float4(rna(a.x), rna(a.y), rna(a.z), rna(a.w));
+    const float4 bh = make_float4(rna(b.x), rna(b.y), rna(b.z), rna(b.w));
+    *reinterpret_cast<float4*>(o + off) = ah;
+    *reinterpret_cast<float4*>(o + off + lo) = make_float4(a.x - ah.x, a.y - ah.y, a.z - ah.z, a.w - ah.w);
+    *reinterpret_cast<float4*>(o + dir + off) = bh;
+    *reinterpret_cast<float4*>(o + dir + off + lo) = make_float4(b.x - bh.x, b.y - bh.y, b.z - bh.z, b.w - bh.w);
+    return;
+  }
   const size_t off =
       ((((static_cast<size_t>(n / half) * (Hp / 8) + k / 8) * (half / 8) + (n % half) / 8) * 2 + (k % 8) / 4) * 8 +
        n % 8) * 4;
@@ -896,7 +1016,7 @@ size_t scratch_floats(int B, int S, int size, int d_a, int nh, int Hp) {
   const size_t rows = clusters * kTwRows;
   const size_t mp = static_cast<size_t>((Hp + kGwTile - 1) / kGwTile) * kGwTile;
   return (static_cast<size_t>(nh) + 1) * rows * Hp  // gelu'(a_l)
-         + static_cast<size_t>(nh) * rows * Hp       // h_l, B layout
+         + static_cast<size_t>(kTwParts) * nh * rows * Hp  // h_l, B layout (hi, and lo in 3xTF32)
          + static_cast<size_t>(nh) * rows * mp       // da_{l+1}, A layout
          + static_cast<size_t>(S) * clusters * Partial(Hp, size, d_a).floats;
 }
@@ -926,7 +1046,8 @@ extern "C" long long bcnf_flow_train_wgmma_scratch(int B, int S, int size, int d
 // K2b on this route: arguments as flow_train_kernel.cu's `bcnf_flow_train_bwd`,
 // with `wstages` (the hidden weights as `prepare_train_weights` lays them
 // out: (S, nh, 2 [Wm^T, Wm], 2 ranks, Hp/8, Hp/16, 2, 8, 4) floats in TF32,
-// 16-byte aligned) in place of wm. Hp must be 32*TN for TN in 1, 2, 4, 8,
+// in 3xTF32 (S, nh, 2, 2 ranks, Hp/8, 2 [hi, lo], Hp/16, 2, 8, 4); 16-byte
+// aligned) in place of wm. Hp must be 32*TN for TN in 1, 2, 4, 8,
 // 12, 16, 17; a shape `tw_takes` refuses (the rows kernel's shared memory,
 // n_out > 48, d_a > 16) returns cudaErrorInvalidValue. `parts` (bits) runs the rows kernels (1, with the
 // copy of dz that starts them), the weight-grad passes (2) and the final
@@ -949,7 +1070,7 @@ extern "C" int bcnf_flow_train_bwd_wgmma(
   TwScratch sc;
   sc.gs = scratch;
   sc.hT = sc.gs + (nh + 1) * rows * Hp;
-  sc.daA = sc.hT + nh * rows * Hp;
+  sc.daA = sc.hT + static_cast<size_t>(kTwParts) * nh * rows * Hp;
   sc.part = sc.daA + nh * rows * mp;
 
   cudaError_t err;
@@ -977,7 +1098,8 @@ extern "C" int bcnf_flow_train_bwd_wgmma(
 }
 
 // `prepare_kernel` over `layers` (S nh) stacked Hp x Hp weights `wm` into
-// `out` ((S, nh, 2, 2, Hp/8, Hp/16, 2, 8, 4) floats); both 16-byte aligned.
+// `out` ((S, nh, 2, 2, Hp/8, Hp/16, 2, 8, 4) floats, in 3xTF32 (S, nh, 2, 2,
+// Hp/8, 2, Hp/16, 2, 8, 4)); both 16-byte aligned.
 extern "C" int bcnf_prepare_train_weights(const float* wm, float* out, int layers, int Hp, void* stream) {
   if (layers <= 0 || Hp <= 0 || Hp % 32 != 0 ||
       ((reinterpret_cast<size_t>(wm) | reinterpret_cast<size_t>(out)) & 15) != 0)

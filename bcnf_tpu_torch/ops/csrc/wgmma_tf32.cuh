@@ -18,12 +18,17 @@
 // registers it reads were written, wgmma_commit to close a group,
 // wgmma_wait<0> before reading D; fence_operands keeps the compiler from
 // moving reads and writes of D across those points.
+// 3xTF32 (mma_tf32.cuh's arithmetic on `wgmma`): A's fragment split into hi
+// and lo as it is loaded (`split_a_frag`), B's hi and lo laid out beside each
+// other in shared memory, and a product as three `wgmma`s (`wgmma_3xtf32`).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mma_tf32.cuh"
 
 namespace bcnf {
 
@@ -212,6 +217,34 @@ struct WgmmaTf32<32> {
 };
 
 template <>
+struct WgmmaTf32<40> {
+  static __device__ __forceinline__ void mma(float (&d)[20], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+        "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<48> {
+  static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaTf32<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
                                              uint32_t scale_d = 1) {
@@ -225,6 +258,20 @@ struct WgmmaTf32<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<72> {
+  static __device__ __forceinline__ void mma(float (&d)[36], const uint32_t (&a)[4], uint64_t desc,
+                                             uint32_t scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+        "{%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
@@ -300,5 +347,25 @@ struct WgmmaTf32<136> {
   }
 };
 
+// The A fragment of a k-step whose thread's (row g, column q) element is p[0]
+// in a row-major tile of leading dimension ld (rows 8 on, columns 4 on: the A
+// layout above), split into hi = tf32_rna(x) and lo = x - hi (exact; the
+// tensor cores truncate it to TF32).
+__device__ __forceinline__ void split_a_frag(const float* p, int ld, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float v[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
+  split_tf32(v, hi, lo);
+}
+
+// D += A B in 3xTF32: three products into D's accumulator, the two small
+// terms first (mma_tf32.cuh's order): a_lo b_hi + a_hi b_lo + a_hi b_hi; `bh`
+// and `bl` describe B's hi and lo; `fresh` drops D's old values (D = A B).
+// The caller fences and commits.
+template <int N, int R>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[R], const uint32_t (&ahi)[4], const uint32_t (&alo)[4],
+                                             uint64_t bh, uint64_t bl, bool fresh = false) {
+  WgmmaTf32<N>::mma(d, alo, bh, fresh ? 0u : 1u);
+  WgmmaTf32<N>::mma(d, ahi, bl);
+  WgmmaTf32<N>::mma(d, ahi, bh);
+}
 
 }  // namespace bcnf

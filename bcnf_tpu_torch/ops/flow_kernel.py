@@ -8,9 +8,11 @@
     inverse on `wgmma` (`csrc/flow_wgmma.cu`: 2-block clusters splitting
     each hidden layer's columns, each k-stage's three passes folded into a
     float32 sum; the hidden weights prepared once a call by
-    `prepare_weights`) at padded widths up to 544,
+    `prepare_weights`) at padded widths up to 544, and the forward there on
+    the `wgmma` forward of `csrc/flow_fwd_wgmma.cu` (three passes a k-step,
+    on the hi/lo weights `prepare_train_weights(wm, passes=3)` lays out);
     the row-tile kernel above that (`rows_flow_kernel` in
-    `csrc/flow_kernel.cu`); the forward on the row-tile kernel;
+    `csrc/flow_kernel.cu`);
   - the reduced mode (the "default", "bfloat16" and "BF16_BF16_F32_X3"
     precisions, which the JAX model serves with its "default" kernel mode)
     runs the same kernels built with one TF32 pass a product (the `*_tf32`
@@ -27,17 +29,18 @@
   (`fwd_call`/`bwd_call` of `_make_fused_flow_train`): a
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`, on
   the forward route `flow_route` gives: the row-tile kernel with its
-  step-input store, or in the reduced mode at padded widths up to 544 the
-  `wgmma` forward of `csrc/flow_fwd_wgmma.cu`; strict, the FMA kernel with
-  its step-input store) and whose backward is K2b (`fused_flow_train_bwd`,
-  on the route `train_bwd_route` gives: the row tiles of
-  `csrc/flow_train_kernel.cu`, or in the reduced mode at padded widths up to
-  544 the `wgmma` route of `csrc/flow_train_wgmma.cu`, or strict the float32
-  FMA kernels of `csrc/flow_train_fma.cu`). Both `wgmma` routes read the
-  hidden weights as `prepare_train_weights` lays them out, prepared once a
-  step and handed from K2a to K2b. The tensor-core routes run their square
-  hidden products in 3xTF32 (`csrc/flow_rows.cuh`), or in one TF32 pass in
-  the reduced mode; the strict routes every product in float32 FMA.
+  step-input store, or at padded widths up to 544 the `wgmma` forward of
+  `csrc/flow_fwd_wgmma.cu`; strict, the FMA kernel with its step-input
+  store) and whose backward is K2b (`fused_flow_train_bwd`, on the route
+  `train_bwd_route` gives: the row tiles of `csrc/flow_train_kernel.cu`, or
+  at padded widths up to 544 the `wgmma` route of
+  `csrc/flow_train_wgmma.cu`, or strict the float32 FMA kernels of
+  `csrc/flow_train_fma.cu`). Both `wgmma` routes read the hidden weights as
+  `prepare_train_weights` lays them out for their mode (hi, and in 3xTF32
+  lo beside it), prepared once a step and handed from K2a to K2b. The
+  tensor-core routes run their square hidden products in 3xTF32, or in one
+  TF32 pass in the reduced mode; the strict routes every product in float32
+  FMA.
 
 The kernel modes (`KERNEL_MODES`): `MODE_3XTF32`, `MODE_TF32` (one pass) and
 `MODE_FMA` (strict: K1, K2a and K2b; `TRAIN_MODES`). K4 has the first two
@@ -62,6 +65,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 import re
 from collections.abc import Callable
 from pathlib import Path
@@ -89,22 +93,26 @@ TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K4 has no float3
 # and row tiles; each route's library (`ops/_build.py`).
 ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
 ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
-ROUTE_FWD_WGMMA_TF32 = "fwd_wgmma_tf32"  # the one-pass forward on wgmma (K1, K2a, K4; csrc/flow_fwd_wgmma.cu)
+# the forward on wgmma (K1, K2a, K4; csrc/flow_fwd_wgmma.cu), in 3xTF32 and in one pass
+ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32 = "fwd_wgmma", "fwd_wgmma_tf32"
+FWD_WGMMA_ROUTES = (ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32)
 ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_fma",
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32",
-                 ROUTE_FWD_WGMMA_TF32: "flow_fwd_wgmma_tf32"}
+                 ROUTE_FWD_WGMMA: "flow_fwd_wgmma", ROUTE_FWD_WGMMA_TF32: "flow_fwd_wgmma_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
-FWD_WGMMA_MAX_TN = 17  # the widest width the one-pass wgmma forward holds (Hp 544); 0 forces the one-pass row tiles
+FWD_WGMMA_MAX_TN = 17  # the widest width the wgmma forward holds (Hp 544); 0 forces the row tiles in both modes
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
 # K2b's routes (`train_bwd_route`): the row tiles in 3xTF32 (`ROUTE_ROWS`) and
-# in one pass (`ROUTE_ROWS_TF32`), the one-pass `wgmma` route
-# (`ROUTE_WGMMA_TF32`, csrc/flow_train_wgmma.cu) and the strict float32 FMA
-# route (`ROUTE_FMA`, csrc/flow_train_fma.cu); each route's library.
+# in one pass (`ROUTE_ROWS_TF32`), the `wgmma` route in 3xTF32
+# (`ROUTE_WGMMA`) and in one pass (`ROUTE_WGMMA_TF32`), both
+# csrc/flow_train_wgmma.cu, and the strict float32 FMA route (`ROUTE_FMA`,
+# csrc/flow_train_fma.cu); each route's library.
 TRAIN_BWD_LIBRARY = {ROUTE_ROWS: "flow_train_kernel", ROUTE_ROWS_TF32: "flow_train_kernel_tf32",
-                     ROUTE_WGMMA_TF32: "flow_train_wgmma_tf32", ROUTE_FMA: "flow_train_fma"}
+                     ROUTE_WGMMA: "flow_train_wgmma", ROUTE_WGMMA_TF32: "flow_train_wgmma_tf32",
+                     ROUTE_FMA: "flow_train_fma"}
 ROUTE_TRAIN_BWD_FMA = "train_bwd_fma"  # the strict K2b's rows kernel, for `kernel_smem` (csrc: ft_smem)
 ROUTE_TRAIN_BWD_WGMMA = "train_bwd_wgmma"  # its rows kernel, for `kernel_smem` (csrc/flow_train_wgmma.cu: tw_smem)
-TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 forces the one-pass row tiles
+TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 forces the row tiles in both modes
 # The constants of the kernels' sources that the host side reads, by the
 # source that defines each: the dynamic shared memory a block may use and
 # the weight-grad jobs one AtbJobs launch holds (K2b's nh + 3 a step), the
@@ -236,7 +244,7 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     tn, n_out = Hp // 32, 2 * (size - d_a)
     if route == ROUTE_TRAIN_BWD_FMA:  # the shortest ring
         return fma_train_smem(Hp, size, d_a, kernel_limit("kFmaRingMin"))
-    if route == ROUTE_FWD_WGMMA_TF32:  # the shortest ring
+    if route in FWD_WGMMA_ROUTES:  # the shortest ring
         return fwd_wgmma_smem(Hp, size, d_a, kernel_limit("kFwRingMin"))
     if route == ROUTE_TRAIN_BWD_WGMMA:  # barriers, tile, ring, then x1, dx2, [t | s'], dout and x1_a in TF32,
         rows, stage = kernel_limit("kTwRows"), kernel_limit("kTwStageK") * Hp // 2  # the exchanged halves, dld
@@ -386,13 +394,13 @@ def fwd_wgmma_ring(Hp: int, size: int, d_a: int) -> int:
                  if fwd_wgmma_smem(Hp, size, d_a, r) <= kernel_limit("kSmemLimit")), 0)
 
 
-def fwd_wgmma_card_layout(Hp: int, size: int, d_a: int, B: int) -> tuple[int, int, int, int]:
-    """The one-pass `wgmma` forward's launch at this shape on the current
+def fwd_wgmma_card_layout(Hp: int, size: int, d_a: int, B: int, mode: str = MODE_TF32) -> tuple[int, int, int, int]:
+    """The `wgmma` forward's launch in `mode` at this shape on the current
     card (`csrc/flow_fwd_wgmma.cu`: `bcnf_flow_fwd_wgmma_layout`): ring
     stages, bytes of shared memory, blocks, and clusters resident at once."""
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library(ROUTE_LIBRARY[ROUTE_FWD_WGMMA_TF32])
+    lib = load_library(ROUTE_LIBRARY[ROUTE_FWD_WGMMA if mode == MODE_3XTF32 else ROUTE_FWD_WGMMA_TF32])
     out = (ctypes.c_int * 4)()
     _raise_on(lib.bcnf_flow_fwd_wgmma_layout(Hp, size, d_a, B, out), lib, "fwd_wgmma_card_layout")
     return tuple(out)
@@ -408,26 +416,27 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
     and K4's), by mode and shape: strict (`MODE_FMA`) takes the float32 FMA
     kernel; the default and the one-pass mode the `wgmma` inverse where it
     holds the width and the shape, else the row tiles, each built for its
-    mode; the one-pass forward the `wgmma` forward (`csrc/flow_fwd_wgmma.cu`)
-    at the widths it holds (`FWD_WGMMA_MAX_TN`) where its ring takes the
-    shape (`fwd_wgmma_ring`), at every batch (PERF.md: the card's row sweep),
-    else the one-pass row tiles; the 3xTF32 forward the row tiles. None where
-    no kernel takes the shape (its shared memory; then the model's gate stays
-    closed, as JAX's `inverse_fused_flow` returns None)."""
+    mode; the forward of either mode the `wgmma` forward
+    (`csrc/flow_fwd_wgmma.cu`, built for the mode) at the widths it holds
+    (`FWD_WGMMA_MAX_TN`) where its ring takes the shape (`fwd_wgmma_ring`), at
+    every batch (PERF.md: the card's row sweeps), else the row tiles. None
+    where no kernel takes the shape (its shared memory; then the model's gate
+    stays closed, as JAX's `inverse_fused_flow` returns None)."""
     _check_mode(mode)
     if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size:
         return None
-    wgmma, rows = (ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32) if mode == MODE_TF32 else (ROUTE_WGMMA, ROUTE_ROWS)
+    one = mode == MODE_TF32
+    wgmma, rows = (ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32) if one else (ROUTE_WGMMA, ROUTE_ROWS)
     if mode == MODE_FMA:
         candidates = (ROUTE_FMA,)
     elif inverse and Hp // 32 <= WGMMA_MAX_TN:
         candidates = (wgmma, rows)
-    elif not inverse and mode == MODE_TF32 and Hp // 32 <= FWD_WGMMA_MAX_TN:
-        candidates = (ROUTE_FWD_WGMMA_TF32, rows)
+    elif not inverse and Hp // 32 <= FWD_WGMMA_MAX_TN:
+        candidates = (ROUTE_FWD_WGMMA_TF32 if one else ROUTE_FWD_WGMMA, rows)
     else:
         candidates = (rows,)
     limit = kernel_limit("kSmemLimit")
-    return next((r for r in candidates if (fwd_wgmma_ring(Hp, size, d_a) > 0 if r == ROUTE_FWD_WGMMA_TF32
+    return next((r for r in candidates if (fwd_wgmma_ring(Hp, size, d_a) > 0 if r in FWD_WGMMA_ROUTES
                                            else kernel_smem(r, Hp, size, d_a) <= limit)), None)
 
 
@@ -435,17 +444,18 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
     """Which of K2b's kernels runs this call, by mode and shape: strict
     (`MODE_FMA`) the float32 FMA kernels (`csrc/flow_train_fma.cu`), with nh +
     3 weight-grad jobs a step within one launch's (`kFtMaxJobs`) and its rows
-    kernel's shortest ring within a block's shared memory; the one-pass
-    mode the `wgmma` route (`csrc/flow_train_wgmma.cu`) at the widths it
-    holds (`TRAIN_WGMMA_MAX_TN`) where its rows kernel takes the shape (its
-    shared memory, and n_out and d_a within what its weight ring stages), at
-    every batch (the card's sweep found the row tiles faster at none of 32,
-    64, 128, 256 and 4096 rows: PERF.md), else the one-pass row tiles; the
-    3xTF32 mode the row tiles (`csrc/flow_train_kernel.cu`). The row
-    tiles take nh + 3 weight-grad jobs a step within one launch's
-    (`kAtbMaxJobs`) and their rows kernel's shared memory within a block's
-    (`kSmemLimit`). None where no kernel takes the shape: the launchers
-    return cudaErrorInvalidValue past these limits."""
+    kernel's shortest ring within a block's shared memory; the 3xTF32 and
+    the one-pass mode the `wgmma` route (`csrc/flow_train_wgmma.cu`, built
+    for the mode) at the widths it holds (`TRAIN_WGMMA_MAX_TN`) where its rows
+    kernel takes the shape (its shared memory, and n_out and d_a within what
+    its weight ring stages, reckoned in a stage's floats, kTwStageK x Hp/2 in
+    either mode), at every batch (the card's sweeps found the row tiles
+    faster at none of 32, 64, 128, 256 and 4096 rows: PERF.md), else the row
+    tiles of the mode (`csrc/flow_train_kernel.cu`). The row tiles take nh +
+    3 weight-grad jobs a step within one launch's (`kAtbMaxJobs`) and their
+    rows kernel's shared memory within a block's (`kSmemLimit`). None where
+    no kernel takes the shape: the launchers return cudaErrorInvalidValue
+    past these limits."""
     _check_mode(mode, TRAIN_MODES)
     if Hp % 32 or Hp // 32 not in KERNEL_TN or not 0 < d_a < size or nh < 1:
         return None
@@ -453,10 +463,10 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
     if mode == MODE_FMA:
         return ROUTE_FMA if (nh + 3 <= kernel_limit("kFtMaxJobs")
                              and kernel_smem(ROUTE_TRAIN_BWD_FMA, Hp, size, d_a) <= limit) else None  # the wgmma route's narrow weights pass
-    if (mode == MODE_TF32 and Hp // 32 <= TRAIN_WGMMA_MAX_TN  # through its ring (csrc: tw_takes)
+    if (Hp // 32 <= TRAIN_WGMMA_MAX_TN  # through its ring (csrc: tw_takes)
             and 2 * (size - d_a) <= kernel_limit("kTwRing") * ring and d_a <= ring
             and kernel_smem(ROUTE_TRAIN_BWD_WGMMA, Hp, size, d_a) <= limit):
-        return ROUTE_WGMMA_TF32
+        return ROUTE_WGMMA_TF32 if mode == MODE_TF32 else ROUTE_WGMMA
     if nh + 3 <= kernel_limit("kAtbMaxJobs") and kernel_smem(ROUTE_TRAIN_BWD, Hp, size, d_a) <= limit:
         return ROUTE_ROWS_TF32 if mode == MODE_TF32 else ROUTE_ROWS
     return None
@@ -508,39 +518,75 @@ def prepare_weights(wm: torch.Tensor, passes: int = 3, stage_k: int | None = Non
     return torch.stack([hi, wt - hi], dim=5).contiguous()
 
 
-def prepare_train_weights(wm: torch.Tensor) -> torch.Tensor:
-    """`prepare_train_weights_reference`'s layout of `wm` on its device: on a
-    CUDA tensor one launch of `csrc/flow_train_wgmma.cu`'s `prepare_kernel`
-    (counted in `launches`), or raises; on a CPU tensor, or a stack of no
-    layer (nothing to lay out), the plain version. K2b's and the one-pass
-    forward's `wgmma` routes read it: the forward direction 0, K2b both."""
+def _weights_shape(S: int, nh: int, Hp: int, passes: int) -> tuple[int, ...]:
+    """The shape of `prepare_weights`'s layout."""
+    if passes == 1:
+        return (S, nh, Hp // 8, 1, Hp // 8, 2, 8, 4)
+    k = kernel_limit("kWgStageK")
+    return (S, nh, Hp // 8 // k, 2, k, 2, Hp // 16, 2, 8, 4)
+
+
+def _train_weights_shape(S: int, nh: int, Hp: int, passes: int) -> tuple[int, ...]:
+    """The shape of `prepare_train_weights`'s layout."""
+    parts = (2,) if passes == 3 else ()  # hi, lo
+    return (S, nh, 2, 2, Hp // 8, *parts, Hp // 16, 2, 8, 4)
+
+
+def _checked_wstages(wstages: torch.Tensor, shape: tuple[int, ...], wm: torch.Tensor, what: str) -> torch.Tensor:
+    """`wstages` if it holds as many floats as the layout a route reads
+    (`shape`; a layout of the other mode holds half or twice as many), for
+    `wm`'s layers, contiguous float32 on `wm`'s device; else raises: the
+    route's bulk copies read that many bytes from it, whatever it holds. (It
+    is checked by its size: a tool's variant build of the inverse may stage
+    another number of k-steps.)"""
+    if (tuple(wstages.shape[:2]) != shape[:2] or wstages.numel() != math.prod(shape)
+            or wstages.dtype != torch.float32 or wstages.device != wm.device or not wstages.is_contiguous()):
+        raise ValueError(f"{what}: wstages must be the hidden weights laid out for its route, contiguous float32 of "
+                         f"shape {shape} on {wm.device}; got {tuple(wstages.shape)} {wstages.dtype} on "
+                         f"{wstages.device}")
+    return wstages
+
+
+def prepare_train_weights(wm: torch.Tensor, passes: int = 1) -> torch.Tensor:
+    """`prepare_train_weights_reference`'s layout of `wm` for a product of
+    `passes` passes (1, or 3 for 3xTF32) on its device: on a CUDA tensor one
+    launch of `csrc/flow_train_wgmma.cu`'s `prepare_kernel` from the library
+    built for that mode (counted in `launches`, and by passes in
+    `pass_launches`), or raises; on a CPU tensor, or a stack of no layer
+    (nothing to lay out), the plain version. K2b's and the forward's `wgmma`
+    routes of the mode read it: the forward direction 0, K2b both."""
+    if passes not in (1, 3):
+        raise ValueError(f"prepare_train_weights: a product takes 1 or 3 passes, not {passes}")
     S, nh, Hp, _ = wm.shape
     if Hp % 32:
         raise ValueError(f"prepare_train_weights: the padded width {Hp} is not a multiple of 32")
     if wm.device.type == "cpu" or wm.numel() == 0:
-        return prepare_train_weights_reference(wm)
+        return prepare_train_weights_reference(wm, passes)
     if wm.device.type != "cuda" or wm.dtype != torch.float32:
         raise ValueError(f"prepare_train_weights takes float32 CPU or CUDA tensors, not {wm.dtype} on {wm.device}")
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WGMMA_TF32])
+    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WGMMA if passes == 3 else ROUTE_WGMMA_TF32])
     w = wm.contiguous()
-    out = torch.empty((S, nh, 2, 2, Hp // 8, Hp // 16, 2, 8, 4), dtype=wm.dtype, device=wm.device)
+    out = torch.empty(_train_weights_shape(S, nh, Hp, passes), dtype=wm.dtype, device=wm.device)
     with torch.cuda.device(wm.device):
         err = lib.bcnf_prepare_train_weights(*_ptrs(w, out), S * nh, Hp, _stream())
     _raise_on(err, lib, "prepare_train_weights")
     prepare_train_weights.launches += 1
+    prepare_train_weights.pass_launches[passes] += 1
     return out
 
 
 prepare_train_weights.launches = 0  # type: ignore[attr-defined]
+prepare_train_weights.pass_launches = collections.Counter()  # type: ignore[attr-defined]
 
 
-def prepare_train_weights_reference(wm: torch.Tensor) -> torch.Tensor:
+def prepare_train_weights_reference(wm: torch.Tensor, passes: int = 1) -> torch.Tensor:
     """The stacked, padded hidden weights `wm` (S, nh, Hp, Hp), stored (in,
-    out), as K2b's `wgmma` route reads them (`csrc/flow_train_wgmma.cu`), on
-    `wm`'s device: rounded to TF32 (`tf32_rna`) and laid out for each
-    product's B operand, K-major: the recompute's ``h Wm`` reads Wm^T
+    out), as K2b's and the forward's `wgmma` routes read them
+    (`csrc/flow_train_wgmma.cu`, `csrc/flow_fwd_wgmma.cu`), on `wm`'s device:
+    rounded to TF32 (`tf32_rna`) and laid out for each product's B operand,
+    K-major: the recompute's (and the forward's) ``h Wm`` reads Wm^T
     (direction 0), the backward's ``da Wm^T`` reads Wm as stored (direction
     1). Each is split by output column between the two blocks of a cluster
     (rank r owns columns r Hp/2 ..), and each rank's part is laid out k-group
@@ -548,14 +594,38 @@ def prepare_train_weights_reference(wm: torch.Tensor) -> torch.Tensor:
     inputs, 128 contiguous bytes; the two along the inputs side by side), so
     that one bulk copy moves a ring stage of 16 rows. Shape (S, nh, 2
     directions, 2 ranks, Hp/8 k-groups, Hp/16 output groups, 2 input halves,
-    8 outputs, 4 inputs)."""
+    8 outputs, 4 inputs). With `passes=3` (3xTF32) each k-group holds hi =
+    tf32(w) and then lo = w - hi (exact; the tensor cores read its top 19
+    bits) in the same order: (S, nh, 2, 2, Hp/8, 2 [hi, lo], Hp/16, 2, 8, 4),
+    so that a ring stage of the same bytes is one k-group's hi and lo."""
+    if passes not in (1, 3):
+        raise ValueError(f"prepare_train_weights_reference: a product takes 1 or 3 passes, not {passes}")
     S, nh, Hp, _ = wm.shape
-    w = _round_tf32(wm.contiguous())  # elementwise, so before the layout: one pass over Wm
-    out = torch.empty((S, nh, 2, 2, Hp // 8, Hp // 16, 2, 8, 4), dtype=wm.dtype, device=wm.device)
+    w = wm.contiguous()
+    hi = _round_tf32(w)  # elementwise, so before the layout: one pass over Wm
+    out = torch.empty(_train_weights_shape(S, nh, Hp, passes), dtype=wm.dtype, device=wm.device)
     # B(k, n) at [n // (Hp/2)][k // 8][(n % (Hp/2)) // 8][(k % 8) // 4][n % 8][k % 4], from T[n, k] = B(k, n)
-    for d, t in enumerate((w.transpose(-1, -2), w)):  # T: Wm^T (the recompute's h Wm), Wm (the backward's da Wm^T)
-        out[:, :, d] = t.reshape(S, nh, 2, Hp // 16, 8, Hp // 8, 2, 4).permute(0, 1, 2, 5, 3, 6, 4, 7)
+    for part, v in enumerate((hi,) if passes == 1 else (hi, w - hi)):
+        dst = out if passes == 1 else out[:, :, :, :, :, part]
+        for d, t in enumerate((v.transpose(-1, -2), v)):  # T: Wm^T (the recompute's h Wm), Wm (the backward's da Wm^T)
+            dst[:, :, d] = t.reshape(S, nh, 2, Hp // 16, 8, Hp // 8, 2, 4).permute(0, 1, 2, 5, 3, 6, 4, 7)
     return out
+
+
+def route_weights(route: str, wm: torch.Tensor, wstages: torch.Tensor | None = None) -> torch.Tensor:
+    """The hidden weights `wm` laid out as K1's `wgmma` route `route` reads
+    them: `prepare_weights` for the inverses, `prepare_train_weights` for the
+    forwards, each for the route's mode; or `wstages`, a caller's layout,
+    checked against the route's."""
+    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
+        passes, prepare, shape = 1 if route == ROUTE_WGMMA_TF32 else 3, prepare_weights, _weights_shape
+    elif route in FWD_WGMMA_ROUTES:
+        passes, prepare, shape = 1 if route == ROUTE_FWD_WGMMA_TF32 else 3, prepare_train_weights, _train_weights_shape
+    else:
+        raise ValueError(f"{route!r} is not a wgmma route")
+    if wstages is None:
+        return prepare(wm, passes)
+    return _checked_wstages(wstages, shape(*wm.shape[:3], passes), wm, f"the {route} route")
 
 
 def fused_flow_reference(
@@ -701,11 +771,10 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     lib = load_library(ROUTE_LIBRARY[route])
     with torch.cuda.device(x.device):
         if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
-            passes = 1 if route == ROUTE_WGMMA_TF32 else 3
-            tensors[6] = prepare_weights(args["wm"], passes) if wstages is None else wstages
+            tensors[6] = route_weights(route, args["wm"], wstages)
             err = lib.bcnf_flow_inverse_wgmma(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
-        elif route == ROUTE_FWD_WGMMA_TF32:  # no step-input store (that is K2a's)
-            tensors[6] = prepare_train_weights(args["wm"]) if wstages is None else wstages
+        elif route in FWD_WGMMA_ROUTES:  # no step-input store (that is K2a's)
+            tensors[6] = route_weights(route, args["wm"], wstages)
             err = lib.bcnf_flow_fwd_wgmma(*_ptrs(x, *tensors, y, ld), ctypes.c_void_p(0),
                                           B, n_cond, S, size, d_a, nh, Hp, _stream())
         else:
@@ -913,11 +982,11 @@ def fused_flow_train_fwd(
     """K2a: `(z, logdet, bound)` in one launch. A CPU tensor takes
     `fused_flow_train_reference` (float32 in every mode); a CUDA tensor
     launches the forward kernel `flow_route` gives for `mode` (the row tiles
-    with their step-input store in 3xTF32 or one TF32 pass, the one-pass
-    `wgmma` forward, which reads the hidden weights as
-    `prepare_train_weights` lays them out: pass them as `wstages`, or they are
-    prepared here; strict, the float32 FMA kernel with its step-input store),
-    or raises. Counts its launches in `launches`, by mode in `mode_launches`
+    with their step-input store in 3xTF32 or one TF32 pass, the `wgmma`
+    forward of either mode, which reads the hidden weights as
+    `prepare_train_weights` lays them out for the mode: pass them as
+    `wstages`, or they are prepared here; strict, the float32 FMA kernel with
+    its step-input store), or raises. Counts its launches in `launches`, by mode in `mode_launches`
     and by route in `route_launches`."""
     _check_mode(mode, TRAIN_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
@@ -943,8 +1012,8 @@ def fused_flow_train_fwd(
         return z, ld, bound
     lib = load_library(ROUTE_LIBRARY[route])
     with torch.cuda.device(x.device):  # the forward with its step-input store, N = B
-        if route == ROUTE_FWD_WGMMA_TF32:
-            staged = prepare_train_weights(wm) if wstages is None else wstages
+        if route in FWD_WGMMA_ROUTES:
+            staged = route_weights(route, wm, wstages)
             err = lib.bcnf_flow_fwd_wgmma(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
                 B, B, S, size, d_a, nh, Hp, _stream())
@@ -970,15 +1039,16 @@ fused_flow_train_fwd.route_launches = collections.Counter()  # type: ignore[attr
 
 def train_weights(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: int, mode: str) -> torch.Tensor | None:
     """The hidden weights of a training step as `prepare_train_weights` lays
-    them out, prepared once for K2a and K2b where either runs on its `wgmma`
-    route (a CUDA tensor in the one-pass mode at the widths those routes
-    hold); None where neither reads them."""
-    if x.device.type != "cuda":
+    them out for `mode` (hi; in 3xTF32 hi and lo), prepared once for K2a and
+    K2b where either runs on its `wgmma` route (a CUDA tensor in the 3xTF32
+    or the one-pass mode at the widths those routes hold); None where
+    neither reads them."""
+    if x.device.type != "cuda" or mode not in TF32_MODES:
         return None
     Hp, size, nh = h_proj.shape[-1], x.shape[1], wm.shape[1]
-    if (flow_route(Hp, size, d_a, False, mode) == ROUTE_FWD_WGMMA_TF32
-            or train_bwd_route(Hp, size, d_a, nh, mode) == ROUTE_WGMMA_TF32):
-        return prepare_train_weights(wm)
+    if (flow_route(Hp, size, d_a, False, mode) in FWD_WGMMA_ROUTES
+            or train_bwd_route(Hp, size, d_a, nh, mode) in (ROUTE_WGMMA, ROUTE_WGMMA_TF32)):
+        return prepare_train_weights(wm, 3 if mode == MODE_3XTF32 else 1)
     return None
 
 
@@ -996,10 +1066,10 @@ def fused_flow_train_bwd(
     dan_scale, dan_bias, dw1y, db1, dwm, dbm, dwout, dbout)`. A CPU tensor
     takes `fused_flow_train_backward_reference` (float32 in every mode); a
     CUDA tensor launches the kernels of `train_bwd_route` for `mode` (the row
-    tiles of `csrc/flow_train_kernel.cu`, in one pass at Hp <= 544 the
-    `wgmma` route of `csrc/flow_train_wgmma.cu`, on `wstages` as
-    `prepare_train_weights` lays out `wm`, or on weights it prepares; strict,
-    the float32 FMA kernels of `csrc/flow_train_fma.cu`), or raises. Counts
+    tiles of `csrc/flow_train_kernel.cu`, at Hp <= 544 the `wgmma` route of
+    `csrc/flow_train_wgmma.cu` built for the mode, on `wstages` as
+    `prepare_train_weights` lays out `wm` for it, or on weights it prepares;
+    strict, the float32 FMA kernels of `csrc/flow_train_fma.cu`), or raises. Counts
     its calls in `launches`, by mode in `mode_launches` and by route in
     `route_launches`."""
     _check_mode(mode, TRAIN_MODES)
@@ -1052,10 +1122,13 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     if route is None:
         raise ValueError(f"fused_flow_train_bwd: no kernel takes size {size}, d_a {d_a}, {nh} hidden layers at "
                          f"hidden width {Hp} ({mode})")
-    lib = load_library(TRAIN_BWD_LIBRARY[route])
     tensors = list(args.values())
-    if route == ROUTE_WGMMA_TF32:
-        tensors[5] = prepare_train_weights(args["wm"]) if wstages is None else wstages
+    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
+        passes = 3 if route == ROUTE_WGMMA else 1
+        tensors[5] = prepare_train_weights(args["wm"], passes) if wstages is None else _checked_wstages(
+            wstages, _train_weights_shape(S, nh, Hp, passes), args["wm"], f"fused_flow_train_bwd ({route})")
+    lib = load_library(TRAIN_BWD_LIBRARY[route])
+    if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
         n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_wgmma
     elif route == ROUTE_FMA:
         n_scratch, entry = lib.bcnf_flow_train_fma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_fma
@@ -1069,14 +1142,15 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     return route
 
 
-def train_bwd_wgmma_layout(Hp: int, size: int, d_a: int, nh: int, B: int) -> tuple[int, int, int, int]:
-    """K2b's `wgmma` route at this shape on the current card (the occupancy
-    calculator's numbers, `csrc/flow_train_wgmma.cu`): the rows kernel's
-    blocks, its clusters resident at once on the card, the weight-grad
-    pass's blocks a step, and its blocks resident on an SM."""
+def train_bwd_wgmma_layout(Hp: int, size: int, d_a: int, nh: int, B: int,
+                           mode: str = MODE_TF32) -> tuple[int, int, int, int]:
+    """K2b's `wgmma` route in `mode` at this shape on the current card (the
+    occupancy calculator's numbers, `csrc/flow_train_wgmma.cu`): the rows
+    kernel's blocks, its clusters resident at once on the card, the
+    weight-grad pass's blocks a step, and its blocks resident on an SM."""
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WGMMA_TF32])
+    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WGMMA if mode == MODE_3XTF32 else ROUTE_WGMMA_TF32])
     out = (ctypes.c_int * 4)()
     _raise_on(lib.bcnf_flow_train_wgmma_layout(Hp, size, d_a, nh, B, out), lib, "train_bwd_wgmma_layout")
     return tuple(out)
@@ -1093,8 +1167,9 @@ class _FusedFlowTrain(torch.autograd.Function):
     first (the backward runs in the forward's mode, whatever the context it
     runs in). The mixes get zero grads. Where K2a or K2b runs on its `wgmma`
     route, the hidden weights are prepared once in the forward
-    (`train_weights`) and held for the backward: twice Wm's bytes (246 MB at
-    the flagship's 26 steps of 4 layers at Hp 544) from K2a to K2b."""
+    (`train_weights`) and held for the backward: twice Wm's bytes in one pass
+    (246 MB at the flagship's 26 steps of 4 layers at Hp 544), four times in
+    3xTF32 (hi and lo, 492 MB), from K2a to K2b."""
 
     @staticmethod
     def forward(ctx: Any, mode: str, x: torch.Tensor, h_proj: torch.Tensor,

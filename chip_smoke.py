@@ -6,12 +6,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit, versions; build every kernel
-   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`); the registers
-   and spill bytes of each instance of K1's `wgmma` inverse, both builds
-   (fails on any spill in the 3xTF32 library, `flow_wgmma`).
+   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`, 13 libraries,
+   one nvcc each, all started together); the registers and spill bytes of
+   each instance of K1's `wgmma` inverse, the `wgmma` forward and K2b's
+   `wgmma` route, both builds of each (fails on any spill in the 3xTF32
+   libraries, `flow_wgmma`, `flow_fwd_wgmma` and `flow_train_wgmma`).
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship widths, on a tiled and on a ragged shape: K1 in its default
-   mode (3xTF32: the inverse on `wgmma`, the forward on the row tiles) and in
+   mode (3xTF32: the inverse on `wgmma`, the forward on the `wgmma`
+   forward) and in
    strict mode (float32 FMA, csrc/flow_fma.cu); the strict K1 also at the
    padded widths 32, 128, 544 and 1024 and with no square hidden layer (nh =
    0), N not dividing B, both directions, each equal to the bit between two
@@ -36,18 +39,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
    the float32 plain version.
 4. entry point: the `sample` CLI on a model directory written here.
 5. training kernels: K2a (the whole-flow training forward) and K2b (its
-   backward), both on tensor cores in 3xTF32, against their plain PyTorch versions
-   at the flagship widths, B = 4096 and a ragged B = 4099, every output and
-   every grad (pulled back from standard-normal cotangents; each grad's
-   largest value printed beside its error).
-6. training main path: `Trainer.train` on the full flagship (coupling
-   dropout 0, as bench.py's flagship) at batch 4096 (2 epochs of 3 batches)
-   and at batch 256 (1 epoch of 3 batches), on random y and trajectories
-   from a seed, launches counted; one step through the kernels against the
-   plain autograd step on the same batch; train samples/s through the
-   kernels and with the gate closed, a CUDA-event split of one step, and
-   K2a/K2b's times beside their bounds and their plain versions' times;
-   K2b's parts alone: its 26 rows kernels, its 26 weight-grad passes.
+   backward), 3xTF32 on their `wgmma` routes (csrc/flow_fwd_wgmma.cu,
+   csrc/flow_train_wgmma.cu), against their float32 plain PyTorch versions
+   and their plain 3xTF32 versions at the flagship widths, B = 4096 and a
+   ragged B = 4099, every output and every grad (pulled back from
+   standard-normal cotangents; each grad's largest value printed beside its
+   error), two calls equal to the bit, launched on their routes; then,
+   beside the row tiles forced, against the plain version in float64 on the
+   flagship's random weights (fails where a `wgmma` route is further than
+   the larger of the row tiles' distance and twice the float32 plain
+   version's; phase 12 repeats it on its trained weights).
+6. training main path: `Trainer.train` at float32 on the full flagship
+   (coupling dropout 0, as bench.py's flagship) at batch 4096 (2 epochs of 3
+   batches) and at batch 256 (1 epoch of 3 batches), on random y and
+   trajectories from a seed, launches counted by route and mode (K2a on the
+   3xTF32 `wgmma` forward, K2b on its 3xTF32 `wgmma` route, the hi/lo
+   weights prepared once a step), then the same runs with the row tiles
+   forced (losses within KERNEL_TOL of max(1, |loss|)); one step through
+   the kernels against the plain autograd step on the same batch; train
+   samples/s on each route and with the gate closed, a CUDA-event split of
+   one step; K2a and K2b on both routes at the main path's inputs (in turns)
+   beside their bounds and plain versions, K2b's parts alone on each (its
+   26 rows kernels, 26 weight-grad passes, the rest), the `wgmma` routes'
+   blocks and waves and ptxas lines, the hi/lo preparation against its plain
+   version; fails where a `wgmma` route is not faster than the row tiles.
 6b. strict training (`pallas_strict`: K2a and K2b in float32 FMA,
    csrc/flow_fma.cu's `fma_flow_train_kernel` and csrc/flow_train_fma.cu):
    both at the flagship widths, B = 4096 and a ragged 4099, against their
@@ -92,7 +107,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
    no-grad forward against K1's, and a second inverse pass: each coupling's
    weights prepared once over the three passes (its `preparations` and
    `stage_preparations`); K4's times on its kept weights beside the cost of
-   one preparation and its earlier times.
+   one preparation and its earlier times; K4's forward on the 3xTF32
+   `wgmma` forward against the row tiles forced (fails where they win).
 
 12. the evaluation path: `generate_data` with the filter and the MC
    renderer (n = 128, the CLI's dt 1/30 and T 2), the impact loop's steps a
@@ -100,7 +116,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    on the flagship's published config (coupling dropout 0.407, batch 256)
    with no dataset on disk, so its 5000 trajectories are generated on the
    card, 1 epoch (K2a/K2b not launched: their gate is closed), train
-   samples/s and a CUDA-event split of one step; `generate` of a held-out
+   samples/s and a CUDA-event split of one step; the 3xTF32 K2a and K2b on
+   its trained weights and first 4096 training rows against the plain
+   version in float64 beside the row tiles (as phase 5 on random weights);
+   `generate` of a held-out
    set of 200 and `eval` with its defaults (M = 10,000, 1000 resimulation
    draws; its figures only where matplotlib is installed), K1's launches by
    direction, route and rows, each stage's seconds; then the card's test
@@ -215,7 +234,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    `fused_train_min_batch`; the one-pass forward's routes by rows: K2a at
    32-256 and 4096 rows, K1's forward at 200, 2048 and 4096, on the `wgmma`
    forward and on the row tiles (fails where the row tiles win: the route
-   has no row floor).
+   has no row floor), in one pass and in 3xTF32; the float32 training
+   floor on the 3xTF32 `wgmma` routes, on the row tiles and on plain
+   autograd, and K2a + K2b of a step on both routes (fails where the row
+   tiles win).
 
 The line before the last is the kernel table as JSON (each row with its
 arithmetic, `arith`: float32 FMA, 3xTF32 on the tensor cores, or one TF32
@@ -431,17 +453,24 @@ def strict_sass_check(lib_path: str, what: str = "the strict K1's library") -> i
     return n_ffma
 
 
+# the libraries whose every kernel instance must keep its registers (phase 1):
+# K1's 3xTF32 `wgmma` inverse, and the 3xTF32 `wgmma` forward and K2b route
+NO_SPILL = ("flow_wgmma", "flow_fwd_wgmma", "flow_train_wgmma")
+
+
 def wgmma_spill_check() -> None:
     """Phase 1: the registers and spill bytes of each instance of K1's
-    `wgmma` inverse in both builds, from this run's ptxas output (where this
-    run built the library) and from the built library (`cuobjdump
+    `wgmma` inverse, the `wgmma` forward (K1's, K2a's, K4's) and K2b's
+    `wgmma` route, each in both builds, from this run's ptxas output (where
+    this run built the library) and from the built library (`cuobjdump
     -res-usage`: STACK and LOCAL bytes a thread); fails on any spill in the
-    3xTF32 library (`flow_wgmma`)."""
+    3xTF32 libraries (`NO_SPILL`)."""
     import re
 
     from bcnf_tpu_torch.ops import _build
 
-    for lib in ("flow_wgmma", "flow_wgmma_tf32"):
+    for lib in ("flow_wgmma", "flow_wgmma_tf32", "flow_fwd_wgmma", "flow_fwd_wgmma_tf32", "flow_train_wgmma",
+                "flow_train_wgmma_tf32"):
         ptxas, kernel = {}, "?"
         for ln in _build.build_logs.get(lib, "").splitlines():
             if "Compiling entry function" in ln:
@@ -459,8 +488,8 @@ def wgmma_spill_check() -> None:
             spill = ptxas.get(name, "not rebuilt in this run")
             parts.append(f"{name} {u['REG']} registers, stack {u['STACK']} B, local {u['LOCAL']} B, ptxas spill "
                          f"bytes {spill}")
-            if lib == "flow_wgmma" and (u["STACK"] or u["LOCAL"] or (isinstance(spill, int) and spill)):
-                fail(f"the 3xTF32 wgmma inverse {name} spills: {parts[-1]}")
+            if lib in NO_SPILL and (u["STACK"] or u["LOCAL"] or (isinstance(spill, int) and spill)):
+                fail(f"{lib}'s {name} spills: {parts[-1]}")
         print(f"    {lib} resources: " + "; ".join(parts))
         if not usage:
             fail(f"cuobjdump -res-usage read no kernel from {lib}")
@@ -632,6 +661,7 @@ def main() -> None:
         MODE_3XTF32,
         MODE_FMA,
         ROUTE_FMA,
+        ROUTE_FWD_WGMMA,
         ROUTE_ROWS,
         ROUTE_WGMMA,
         WG_COPIES,
@@ -697,10 +727,11 @@ def main() -> None:
         "bias": 0.1 * torch.from_numpy(rng.normal(size=an["bias"].shape).astype(np.float32)).to(dev),
     }))
     # K1 in both modes: the default 3xTF32 (the inverse on wgmma, the forward
-    # on the row tiles) and strict (float32 FMA), each against the plain version
+    # on the wgmma forward) and strict (float32 FMA), each against the plain version
     modes = {"": False, " strict": True}
     errs = {f"{d}{m}": 0.0 for m in modes for d in ("inverse", "forward")}
-    before = fused_flow.launches
+    errs["forward row tiles"] = 0.0  # the 3xTF32 forward's row tiles, forced (Hp 768/1024 and forced runs take them)
+    before, tiles_before = fused_flow.launches, fused_flow.route_launches[ROUTE_ROWS]
     for B, N in ((4096, 8), (4099, 7)):
         traj = torch.from_numpy(rng.normal(size=(N, 30, 3)).astype(np.float32)).to(dev)
         with torch.no_grad():
@@ -716,12 +747,17 @@ def main() -> None:
                 errs[f"inverse{m}"] = max(errs[f"inverse{m}"], (y_k - y_r).abs().max().item())
                 errs[f"forward{m}"] = max(errs[f"forward{m}"], (z_k - z_r).abs().max().item(),
                                           (ld_k - ld_r).abs().max().item())
-    if fused_flow.launches != before + 8:
-        fail("fused_flow did not count its launches")
+            with row_tiles_forced("FWD_WGMMA_MAX_TN"):
+                z_k, ld_k = fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N, mode=MODE_3XTF32)
+                torch.cuda.synchronize()
+            errs["forward row tiles"] = max(errs["forward row tiles"], (z_k - z_r).abs().max().item(),
+                                            (ld_k - ld_r).abs().max().item())
+    if fused_flow.launches != before + 10 or fused_flow.route_launches[ROUTE_ROWS] != tiles_before + 2:
+        fail("fused_flow did not count its launches, or the forced forward did not run on the row tiles")
     print(f"[2 kernels] fused_flow vs plain at H={H}, B=4096/N=8 and ragged B=4099/N=7: 3xTF32 max|dy| inverse "
-          f"(wgmma) {errs['inverse']:.3e}, max|dz|,|dlogdet| forward (row tiles) {errs['forward']:.3e}; strict "
-          f"(FMA) inverse {errs['inverse strict']:.3e}, forward {errs['forward strict']:.3e} "
-          f"(tolerance {KERNEL_TOL:g})")
+          f"(wgmma) {errs['inverse']:.3e}, max|dz|,|dlogdet| forward (wgmma forward) {errs['forward']:.3e}, the "
+          f"forward on its row tiles forced {errs['forward row tiles']:.3e}; strict (FMA) inverse "
+          f"{errs['inverse strict']:.3e}, forward {errs['forward strict']:.3e} (tolerance {KERNEL_TOL:g})")
     for d, e in errs.items():
         if not e <= KERNEL_TOL:
             fail(f"fused_flow {d} disagrees with its plain version: {e:.3e} > {KERNEL_TOL:g}")
@@ -740,7 +776,7 @@ def main() -> None:
     launches, run = {}, {}
     for mode, strict in (("3xtf32", False), ("strict", True)):
         model.pallas_strict = strict
-        inv_route, fwd_route = (ROUTE_FMA, ROUTE_FMA) if strict else (ROUTE_WGMMA, ROUTE_ROWS)
+        inv_route, fwd_route = (ROUTE_FMA, ROUTE_FMA) if strict else (ROUTE_WGMMA, ROUTE_FWD_WGMMA)
         with torch.no_grad():
             model.sample(params, torch.Generator().manual_seed(SEED), 16, traj, device=dev)  # warm-up
             torch.cuda.synchronize()
@@ -834,7 +870,7 @@ def main() -> None:
             key = direction.replace(",", "")
             errs[key] = max(errs[key], err)
             route = flow_route(hp.shape[-1], model.size, ka["w1y"].shape[1], inv, kmode)
-            if strict or route == ROUTE_WGMMA:  # two calls equal to the bit; the inverse against float64
+            if strict or route in (ROUTE_WGMMA, ROUTE_FWD_WGMMA):  # two calls equal to the bit; the inverse vs float64
                 again = fused_flow(x, hp, **ka, inverse=inv, n_cond=n, mode=kmode)
                 if not all(torch.equal(a, b) for a, b in zip((out_k,) if inv else out_k, (again,) if inv else again)):
                     fail(f"fused_flow {direction}: two calls differ (the kernel must sum in a fixed order)")
@@ -852,8 +888,8 @@ def main() -> None:
             p_times = cuda_ms(lambda: fused_flow_reference(x, hp, **ka, inverse=inv, n_cond=n), reps=3)
             flops, nbytes = flow_work(ka, hp, x.shape[0], H)
             arith = ARITH_FMA if strict else ARITH_3XTF32
-            src = "bcnf_tpu_torch/ops/csrc/" + {ROUTE_WGMMA: "flow_wgmma.cu", ROUTE_FMA: "flow_fma.cu"}.get(
-                route, "flow_kernel.cu")
+            src = "bcnf_tpu_torch/ops/csrc/" + {ROUTE_WGMMA: "flow_wgmma.cu", ROUTE_FMA: "flow_fma.cu",
+                                                ROUTE_FWD_WGMMA: "flow_fwd_wgmma.cu"}.get(route, "flow_kernel.cu")
             kernels.append(kernel_row(f"fused_flow[{direction}]", src, "bcnf_tpu/ops/flow_kernel.py:162", n_launches,
                                       errs[key], k_times, p_times, (flops, nbytes), peaks, None, arith))
             ms, plain_ms, bound = kernels[-1]["ms"], kernels[-1]["plain_ms"], kernels[-1]["bound_ms"]
@@ -873,8 +909,8 @@ def main() -> None:
             else:
                 tile = route_rows(route, hp.shape[-1])
                 l2_gb = -(-x.shape[0] // tile) * weights_gb
-                if route == ROUTE_WGMMA:
-                    l2_gb += -(-x.shape[0] // tile) * 4 * int(ka["wm"].numel()) / 1e9  # hi and lo of the hidden weights
+                if route in (ROUTE_WGMMA, ROUTE_FWD_WGMMA):  # hi and lo of the hidden weights
+                    l2_gb += -(-x.shape[0] // tile) * 4 * int(ka["wm"].numel()) / 1e9
             print(f"    fused_flow[{direction}] ({route}, {arith}) rows {x.shape[0]}: {ms:.2f} ms (earlier runs: "
                   f"{K1_EARLIER_MS[direction]} ms; bound {bound:.2f} ms, "
                   f"float32-FMA bound {fma_bound:.2f} ms, {flops / 1e12:.2f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, "
@@ -938,7 +974,7 @@ def main() -> None:
     card_policies(model, params, rng, dev)
     for row in kernels:  # each kernel's launches on phase 13's, 14's and 16's paths, beside its main-path launches
         key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward"}.get(
-            row["name"], row["name"].split()[0])
+            row["name"], row["name"].split()[0].removesuffix("[3xtf32]"))
         row["zoo_launches"] = zoo.get(key, 0)
         row["video_launches"] = video.get(key, 0)
         row["dp_launches"] = dp.get(key, 0)
@@ -949,25 +985,105 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
+@contextlib.contextmanager
+def train_row_tiles():
+    """The row tiles of K2a and K2b in place of both `wgmma` routes (either
+    mode): `FWD_WGMMA_MAX_TN = TRAIN_WGMMA_MAX_TN = 0`."""
+    with row_tiles_forced("FWD_WGMMA_MAX_TN"), row_tiles_forced("TRAIN_WGMMA_MAX_TN"):
+        yield
+
+
+def train_pair_margin(model, weights: dict, x, traj, what: str) -> float:
+    """K2a and K2b in 3xTF32 on their `wgmma` routes and on the row tiles
+    forced, at `weights` on the rows x with their own trajectories: each
+    output's distance from the plain version evaluated in float64 (z and
+    logdet; the 10 grads pulled back from seeded standard-normal cotangents,
+    on the float32 plain version's step inputs), beside the float32 plain
+    version's. Fails where the `wgmma` routes are further from it than the
+    larger of the row tiles' distance and twice the float32 plain version's.
+    Prints each output's share of that bar, and K2a's distance from the row
+    tiles (where the two sum in the same order, their outputs tie). Returns
+    the worst share. Launches here are not counted (the counts are
+    restored)."""
+    import torch
+
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    counters = (fk.fused_flow_train_fwd, fk.fused_flow_train_bwd)
+    saved = [(c.launches, dict(c.mode_launches), dict(c.route_launches)) for c in counters]
+    saved_prep = fk.prepare_train_weights.launches, dict(fk.prepare_train_weights.pass_launches)
+    with torch.no_grad():
+        kargs, hp = model._fused_flow_args(weights, model.encode(weights, (traj,)))
+        args = [kargs[n].detach() for n in TRAIN_ARGS]
+        z, ld, bound = fk.fused_flow_train_reference(x, hp, *args)
+        dz, dld = randn_cotangents(z)
+        f64 = [t.double() for t in args]
+        ref64 = (*fk.fused_flow_train_reference(x.double(), hp.double(), *f64)[:2],
+                 *fk.fused_flow_train_backward_reference(bound.double(), hp.double(), dz.double(), dld.double(), *f64))
+        outs = {"float32 plain": (z, ld, *fk.fused_flow_train_backward_reference(bound, hp, dz, dld, *args)),
+                "wgmma": (*fk.fused_flow_train_fwd(x, hp, *args)[:2], *fk.fused_flow_train_bwd(bound, hp, dz, dld, *args))}
+        with train_row_tiles():
+            outs["row tiles"] = (*fk.fused_flow_train_fwd(x, hp, *args)[:2],
+                                 *fk.fused_flow_train_bwd(bound, hp, dz, dld, *args))
+        torch.cuda.synchronize()
+    for c, (n, modes, routes) in zip(counters, saved):
+        c.launches = n
+        c.mode_launches.clear()
+        c.mode_launches.update(modes)
+        c.route_launches.clear()
+        c.route_launches.update(routes)
+    fk.prepare_train_weights.launches = saved_prep[0]
+    fk.prepare_train_weights.pass_launches.clear()
+    fk.prepare_train_weights.pass_launches.update(saved_prep[1])
+    worst, lines, faults = 0.0, [], []
+    for i, name in enumerate(("z", "logdet", *GRAD_NAMES)):
+        d = {k: (v[i].double() - ref64[i]).abs().max().item() for k, v in outs.items()}
+        bar = max(d["row tiles"], 2 * d["float32 plain"])
+        worst = max(worst, d["wgmma"] / bar)
+        lines.append(f"{name} {d['wgmma']:.4e}/{d['row tiles']:.4e}/{d['float32 plain']:.4e} "
+                     f"({d['wgmma'] / bar:.4f})")
+        if not d["wgmma"] <= bar:
+            faults.append(f"{name} {d['wgmma']:.4e} past {bar:.4e}")
+    ties = [(outs["wgmma"][i] - outs["row tiles"][i]).abs().max().item() for i in range(2)]
+    print(f"    3xTF32 K2a/K2b against the plain version in float64, {what}, {x.shape[0]} rows (wgmma / row tiles / "
+          f"float32 plain (share of the bar)): {'; '.join(lines)}; the wgmma routes at most {worst:.4f} of "
+          f"max(row tiles, twice the float32 plain version); K2a's z and logdet from the row tiles' max|d| "
+          f"{ties[0]:.3e}, {ties[1]:.3e}")
+    if faults:
+        fail(f"the 3xTF32 wgmma training routes on {what}: " + "; ".join(faults))
+    return worst
+
+
 def check_train_kernels(model, k_params: dict, rng, dev) -> None:
-    """Phase 5: K2a and K2b against their plain versions at the flagship
-    widths, on B = 4096 and a ragged B = 4099 (rows with their own
-    conditions), fed standard-normal cotangents. Launches here do not count."""
+    """Phase 5: K2a and K2b (3xTF32, on their `wgmma` routes at the
+    flagship's Hp 544) against their plain versions at the flagship widths,
+    on B = 4096 and a ragged B = 4099 (rows with their own conditions), fed
+    standard-normal cotangents: against the float32 plain version and the
+    plain 3xTF32 version (`mm=matmul_3xtf32`), each at the bars (K2a's z,
+    logdet and step inputs 1e-4, K2b's grads `check_grads`); two calls equal
+    to the bit; each launched on its `wgmma` route; then against the plain
+    version in float64 beside the row tiles forced (`train_pair_margin`).
+    Launches here do not count."""
     import numpy as np
     import torch
 
     from bcnf_tpu_torch.ops.flow_kernel import (
+        ROUTE_FWD_WGMMA,
+        ROUTE_WGMMA,
         fused_flow_train_backward_reference,
         fused_flow_train_bwd,
         fused_flow_train_fwd,
         fused_flow_train_reference,
     )
+    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32
 
     saved = fused_flow_train_fwd.launches, fused_flow_train_bwd.launches
+    routes = fused_flow_train_fwd.route_launches[ROUTE_FWD_WGMMA], fused_flow_train_bwd.route_launches[ROUTE_WGMMA]
     print(f"[5 training kernels] K2a vs plain at the flagship widths, B=4096 and ragged B=4099; K2b vs plain, "
           f"10 grads from standard-normal cotangents (bar |d| <= min({GRAD_ATOL:g}, "
-          f"{GRAD_REL:g} max|plain|) + {GRAD_RTOL:g}|plain|):")
-    fwd_err, bwd_err = 0.0, 0.0
+          f"{GRAD_REL:g} max|plain|) + {GRAD_RTOL:g}|plain|); both on their 3xTF32 wgmma routes, against the float32 "
+          f"plain version and the plain 3xTF32 version:")
+    fwd_err, fwd3_err, bwd_err, bwd3_err = 0.0, 0.0, 0.0, 0.0
     for B in (4096, 4099):
         traj = torch.from_numpy(rng.normal(size=(B, 30, 3)).astype(np.float32)).to(dev)
         with torch.no_grad():
@@ -975,20 +1091,37 @@ def check_train_kernels(model, k_params: dict, rng, dev) -> None:
             args = [kargs[n] for n in TRAIN_ARGS]
             x = torch.from_numpy(rng.normal(size=(B, model.size)).astype(np.float32)).to(dev)
             out_k = fused_flow_train_fwd(x, h_proj, *args)
+            again = fused_flow_train_fwd(x, h_proj, *args)
             z, ld, bound = fused_flow_train_reference(x, h_proj, *args)
+            three = fused_flow_train_reference(x, h_proj, *args, mm=matmul_3xtf32)
             fwd_err = max([fwd_err] + [(a - b).abs().max().item() for a, b in zip(out_k, (z, ld, bound))])
+            fwd3_err = max([fwd3_err] + [(a - b).abs().max().item() for a, b in zip(out_k, three)])
             dz, dld = randn_cotangents(z)
             grads_k = fused_flow_train_bwd(bound, h_proj, dz, dld, *args)
+            grads_again = fused_flow_train_bwd(bound, h_proj, dz, dld, *args)
             grads_p = fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args)
+            grads_3 = fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args, mm=matmul_3xtf32)
             torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((*out_k, *grads_k), (*again, *grads_again))):
+            fail(f"K2a/K2b at B={B}: two calls on the same inputs differ")
         bwd_err = max(bwd_err, check_grads(f"K2b B={B}", GRAD_NAMES, grads_k, grads_p))
-    if fused_flow_train_fwd.launches != saved[0] + 2 or fused_flow_train_bwd.launches != saved[1] + 2:
+        bwd3_err = max(bwd3_err, check_grads(f"K2b B={B} vs plain 3xTF32", GRAD_NAMES, grads_k, grads_3))
+    if fused_flow_train_fwd.launches != saved[0] + 4 or fused_flow_train_bwd.launches != saved[1] + 4:
         fail("the training kernels did not count their launches")
+    moved = (fused_flow_train_fwd.route_launches[ROUTE_FWD_WGMMA] - routes[0],
+             fused_flow_train_bwd.route_launches[ROUTE_WGMMA] - routes[1])
+    if moved != (4, 4):
+        fail(f"K2a/K2b ran {moved} times on their 3xTF32 wgmma routes, not 4 each")
     fused_flow_train_fwd.launches, fused_flow_train_bwd.launches = saved
-    print(f"    K2a max|d| over z, logdet, step inputs {fwd_err:.3e} (tolerance {KERNEL_TOL:g}); "
-          f"K2b max|d| over the 10 grads {bwd_err:.3e}")
-    if not fwd_err <= KERNEL_TOL:
-        fail(f"K2a disagrees with its plain version: {fwd_err:.3e} > {KERNEL_TOL:g}")
+    fused_flow_train_fwd.route_launches[ROUTE_FWD_WGMMA], fused_flow_train_bwd.route_launches[ROUTE_WGMMA] = routes
+    print(f"    K2a max|d| over z, logdet, step inputs {fwd_err:.3e} vs float32 plain, {fwd3_err:.3e} vs plain 3xTF32 "
+          f"(tolerance {KERNEL_TOL:g}); K2b max|d| over the 10 grads {bwd_err:.3e} / {bwd3_err:.3e}; two calls of "
+          f"each equal to the bit")
+    if not (fwd_err <= KERNEL_TOL and fwd3_err <= KERNEL_TOL):
+        fail(f"K2a disagrees with its plain versions: {fwd_err:.3e} / {fwd3_err:.3e} > {KERNEL_TOL:g}")
+    x = torch.from_numpy(rng.normal(size=(4096, model.size)).astype(np.float32)).to(dev)
+    traj = torch.from_numpy(rng.normal(size=(4096, 30, 3)).astype(np.float32)).to(dev)
+    train_pair_margin(model, k_params, x, traj, "the flagship's random weights")
 
 
 def _flagship_train_config(batch_size: int, n_epochs: int) -> dict:
@@ -1002,17 +1135,47 @@ def _flagship_train_config(batch_size: int, n_epochs: int) -> dict:
     return cfg
 
 
+def train_counts() -> dict:
+    """The training kernels' launches: K2a and K2b by route and by mode, and
+    the hidden weights' preparations by passes."""
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_bwd, fused_flow_train_fwd, prepare_train_weights
+
+    return {"K2a": dict(fused_flow_train_fwd.route_launches), "K2b": dict(fused_flow_train_bwd.route_launches),
+            "K2a modes": dict(fused_flow_train_fwd.mode_launches), "K2b modes": dict(fused_flow_train_bwd.mode_launches),
+            "prepared": dict(prepare_train_weights.pass_launches)}
+
+
+def zero_train_counts() -> None:
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_bwd, fused_flow_train_fwd, prepare_train_weights
+
+    for fn in (fused_flow_train_fwd, fused_flow_train_bwd):
+        fn.launches = 0
+        fn.route_launches.clear()
+        fn.mode_launches.clear()
+    prepare_train_weights.launches = 0
+    prepare_train_weights.pass_launches.clear()
+
+
 def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
-    """Phase 6: the training main path on the full flagship; returns the
-    K2a/K2b rows of the kernel table."""
+    """Phase 6: the training main path on the full flagship at float32: K2a
+    and K2b in 3xTF32 on their `wgmma` routes, then the same runs with the
+    row tiles forced beside them; returns the kernel table's rows: K2a and
+    K2b on `wgmma`, the row tiles beside them, and the hi/lo weight
+    preparation."""
     import numpy as np
     import torch
 
     from bcnf_tpu_torch.bridge import map_tree, tree_leaves
     from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.ops import _build
+    from bcnf_tpu_torch.ops import flow_kernel as fk
     from bcnf_tpu_torch.ops.flow_kernel import (
+        BWD_ACTNORM,
         BWD_ROWS,
         BWD_WEIGHT_GRADS,
+        ROUTE_FWD_WGMMA,
+        ROUTE_ROWS,
+        ROUTE_WGMMA,
         _train_bwd_parts,
         fused_flow,
         fused_flow_train,
@@ -1020,6 +1183,8 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
         fused_flow_train_bwd,
         fused_flow_train_fwd,
         fused_flow_train_reference,
+        prepare_train_weights,
+        prepare_train_weights_reference,
     )
     from bcnf_tpu_torch.train import Trainer, make_optimizer
     from bcnf_tpu_torch.utils.misc import inn_nll_loss
@@ -1027,8 +1192,8 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
     def trainable(p):
         return map_tree(lambda t: t.detach().clone().requires_grad_(True), p)
 
-    launches = {"K2a": 0, "K2b": 0}
-    rates, plain_rates, shapes = {}, {}, None
+    launches = {"K2a": 0, "K2b": 0, "prep": 0}
+    rates, plain_rates, tile_rates, shapes = {}, {}, {}, None
     for B, n_epochs in ((4096, 2), (256, 1)):
         cfg = _flagship_train_config(B, n_epochs)
         model = CondRealNVP.from_config(cfg)
@@ -1036,23 +1201,42 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
         y = rng.normal(size=(n, model.size)).astype(np.float32)  # random y and trajectories, as bench.py
         traj = rng.normal(size=(n, 30, 3)).astype(np.float32)
         params0 = model.init(torch.Generator().manual_seed(SEED), device=dev)
-        trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED)
-        torch.cuda.synchronize()
-        fused_flow_train_fwd.launches = fused_flow_train_bwd.launches = fused_flow.launches = 0
-        t0 = time.perf_counter()
-        trained = trainer.train(model, params0)
-        torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        k2a, k2b, k1 = fused_flow_train_fwd.launches, fused_flow_train_bwd.launches, fused_flow.launches
+        steps = 3 * n_epochs
+        runs = {}
+        for side in ("wgmma", "row tiles"):  # the same run, then with the row tiles forced
+            trainer = Trainer(cfg, data=(y, [traj]), device=dev, seed=SEED)
+            torch.cuda.synchronize()
+            zero_train_counts()
+            zero_flow_counts()
+            t0 = time.perf_counter()
+            with train_row_tiles() if side == "row tiles" else contextlib.nullcontext():
+                trained = trainer.train(model, map_tree(lambda t: t.detach().clone(), params0))
+            torch.cuda.synchronize()
+            hist = trainer.meta_scheduler.parameter_history
+            runs[side] = (time.perf_counter() - t0, train_counts(), dict(fused_flow.route_launches),
+                          [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]], trained, trainer)
+        t_train, counts, k1, losses, trained, trainer = runs["wgmma"]
+        k2a, k2b = sum(counts["K2a"].values()), sum(counts["K2b"].values())
         launches["K2a"] += k2a
         launches["K2b"] += k2b
-        hist = trainer.meta_scheduler.parameter_history
-        losses = [v for _, v in hist["train_loss"]] + [v for _, v in hist["val_loss"]]
-        steps = 3 * n_epochs
-        if k2a != steps or k2b != steps:
-            fail(f"Trainer.train at batch {B} launched K2a {k2a} and K2b {k2b} times for {steps} steps")
+        launches["prep"] += steps
+        # the hidden weights prepared once a step, and once a validation call of K1's 3xTF32 wgmma forward
+        # (which prepares its own at every call)
+        want = {"K2a": {ROUTE_FWD_WGMMA: steps}, "K2b": {ROUTE_WGMMA: steps}, "K2a modes": {"3xtf32": steps},
+                "K2b modes": {"3xtf32": steps}, "prepared": {3: steps + k1.get(ROUTE_FWD_WGMMA, 0)}}
+        if counts != want:
+            fail(f"Trainer.train at batch {B} counted {counts} for {steps} steps, not {want}")
+        tile_counts = runs["row tiles"][1]
+        if (tile_counts["K2a"], tile_counts["K2b"], tile_counts["prepared"], set(runs["row tiles"][2])) != (
+                {ROUTE_ROWS: steps}, {ROUTE_ROWS: steps}, {}, {ROUTE_ROWS}):
+            fail(f"Trainer.train at batch {B} with the row tiles forced counted {tile_counts}")
         if not (np.all(np.isfinite(losses)) and all(torch.isfinite(t).all() for t in tree_leaves(trained))):
             fail(f"Trainer.train at batch {B} gave non-finite losses or params: {losses}")
+        tile_losses = runs["row tiles"][3]
+        loss_d = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, tile_losses))
+        if len(losses) != len(tile_losses) or not loss_d <= KERNEL_TOL:
+            fail(f"Trainer.train at batch {B}: the wgmma routes' losses {losses} and the row tiles' {tile_losses} "
+                 f"differ by {loss_d:.3e} (bar {KERNEL_TOL:g} of max(1, |loss|))")
 
         # train samples/s: training steps alone, host clock around synchronised work
         params = trainable(trained)
@@ -1069,7 +1253,15 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
             metrics = trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
         rates[B] = reps * B / (time.perf_counter() - t0)
-        # the same steps with the kernel gate closed: the plain autograd composition
+        # the same steps on the row tiles, then with the kernel gate closed: the plain autograd composition
+        with train_row_tiles():
+            trainer.train_step(model, [params], opt, yb, cb, [gen])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                trainer.train_step(model, [params], opt, yb, cb, [gen])
+            torch.cuda.synchronize()
+            tile_rates[B] = reps * B / (time.perf_counter() - t0)
         model.use_pallas = False
         trainer.train_step(model, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
@@ -1079,10 +1271,14 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
         torch.cuda.synchronize()
         plain_rates[B] = reps * B / (time.perf_counter() - t0)
         model.use_pallas = True
-        print(f"[6 training, batch {B}] Trainer.train: {n_epochs} epoch(s) x 3 steps + validation in "
-              f"{t_train:.2f} s; launches K2a {k2a}, K2b {k2b}, K1 (validation) {k1}; losses "
-              f"{', '.join(f'{v:.3f}' for v in losses)}; {rates[B]:.0f} train samples/s through the kernels, "
-              f"{plain_rates[B]:.0f} with the gate closed (plain autograd) (last step loss {metrics[0].item():.3f})")
+        print(f"[6 training, batch {B}] Trainer.train at float32: {n_epochs} epoch(s) x 3 steps + validation in "
+              f"{t_train:.2f} s; launches {counts}, K1 (validation) {k1} (each K1 call prepares its own weights); "
+              f"losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}; with the row tiles forced ({runs['row tiles'][0]:.2f} s, "
+              f"launches {tile_counts['K2a']} / {tile_counts['K2b']}): losses within {loss_d:.2e} of max(1, |loss|); "
+              f"{rates[B]:.0f} train samples/s through the wgmma routes, {tile_rates[B]:.0f} through the row tiles "
+              f"({rates[B] / tile_rates[B]:.3f}x), {plain_rates[B]:.0f} with the gate closed (plain autograd) (last "
+              f"step loss {metrics[0].item():.3f})")
         if B != 4096:
             fused_flow_train_fwd.launches, fused_flow_train_bwd.launches = saved
             continue
@@ -1145,66 +1341,140 @@ def train_main_path(rng, dev, peaks: tuple[float, float, float]) -> list[dict]:
         device_profile(lambda: trainer.train_step(model, [params], opt, yb, cb, [gen]))
         fused_flow_train_fwd.launches, fused_flow_train_bwd.launches = saved
 
-    # K2a/K2b at the main path's batch-4096 inputs: kernel, plain, bound
+    # K2a/K2b at the main path's batch-4096 inputs, on their wgmma routes and on
+    # the row tiles forced: plain versions, bits, times, parts, bound, layout
     x, h_proj, args, model = shapes
     H = model.nested_sizes[0]
-    saved = fused_flow_train_fwd.launches, fused_flow_train_bwd.launches
+    named = dict(zip(TRAIN_ARGS, args))
+    B, Hp, size, d_a, nh = x.shape[0], h_proj.shape[-1], x.shape[1], named["w1y"].shape[1], named["wm"].shape[1]
+    S = h_proj.shape[0]
+    saved = train_counts()
     with torch.no_grad():
-        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args)
+        ws = prepare_train_weights(named["wm"], passes=3)
+        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args, wstages=ws)
         z_r, ld_r, bound_r = fused_flow_train_reference(x, h_proj, *args)
         fwd_err = max((a - b).abs().max().item() for a, b in zip((z, ld, bound), (z_r, ld_r, bound_r)))
-        B = x.shape[0]
         dz, dld = randn_cotangents(z)
-        grads_k = fused_flow_train_bwd(bound, h_proj, dz, dld, *args)
+        grads_k = fused_flow_train_bwd(bound, h_proj, dz, dld, *args, wstages=ws)
         grads_p = fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args)
+        with train_row_tiles():
+            tiles_fwd = fused_flow_train_fwd(x, h_proj, *args)
+            tiles_bwd = fused_flow_train_bwd(bound, h_proj, dz, dld, *args)
         if not fwd_err <= KERNEL_TOL:
             fail(f"K2a at the main path's inputs disagrees with plain: {fwd_err:.3e} > {KERNEL_TOL:g}")
-        print(f"    K2a/K2b at the main path's batch-{B} inputs: K2a max|d| {fwd_err:.3e}; K2b:")
+        tiles_fwd_err = max((a - b).abs().max().item() for a, b in zip(tiles_fwd, (z_r, ld_r, bound_r)))
+        if not tiles_fwd_err <= KERNEL_TOL:
+            fail(f"K2a's row tiles at the main path's inputs disagree with plain: {tiles_fwd_err:.3e} > {KERNEL_TOL:g}")
+        print(f"    K2a/K2b at the main path's batch-{B} inputs: K2a max|d| {fwd_err:.3e} (row tiles "
+              f"{tiles_fwd_err:.3e}); K2b (wgmma, then the row tiles):")
         bwd_err = check_grads("K2b main path", GRAD_NAMES, grads_k, grads_p)
-        times = {
-            "K2a": (cuda_ms(lambda: fused_flow_train_fwd(x, h_proj, *args), reps=5),
-                    cuda_ms(lambda: fused_flow_train_reference(x, h_proj, *args), reps=3)),
-            "K2b": (cuda_ms(lambda: fused_flow_train_bwd(bound, h_proj, dz, dld, *args), reps=5),
-                    cuda_ms(lambda: fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args), reps=3)),
-        }
-        # K2b's parts alone, on the same inputs: the 26 rows kernels, then the 26 weight-grad passes
+        tiles_bwd_err = check_grads("K2b main path, row tiles", GRAD_NAMES, tiles_bwd, grads_p)
+        p_times = {"K2a": cuda_ms(lambda: fused_flow_train_reference(x, h_proj, *args), reps=3),
+                   "K2b": cuda_ms(lambda: fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args), reps=3)}
+        times, part_ms = {}, {}
         outs = tuple(torch.empty_like(t) for t in grads_k)
-        part_ms = {name: median(cuda_ms(lambda: _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(TRAIN_ARGS, args)),
-                                                                 outs, part), reps=5))
-                   for name, part in (("rows", BWD_ROWS), ("weight grads", BWD_WEIGHT_GRADS))}
-    fused_flow_train_fwd.launches, fused_flow_train_bwd.launches = saved
-    work = dict(zip(("K2a", "K2b"), train_work({k: v for k, v in zip(TRAIN_ARGS, args)}, h_proj, B, H)))
+        for side in ("wgmma", "row tiles", "row tiles", "wgmma"):  # in turns
+            w = ws if side == "wgmma" else None
+            with train_row_tiles() if side == "row tiles" else contextlib.nullcontext():
+                times.setdefault(("K2a", side), []).extend(
+                    cuda_ms(lambda: fused_flow_train_fwd(x, h_proj, *args, wstages=w), reps=3))
+                times.setdefault(("K2b", side), []).extend(
+                    cuda_ms(lambda: fused_flow_train_bwd(bound, h_proj, dz, dld, *args, wstages=w), reps=3))
+                for part, bits in (("rows", BWD_ROWS), ("weight grads", BWD_WEIGHT_GRADS), ("rest", BWD_ACTNORM)):
+                    part_ms.setdefault((part, side), []).extend(cuda_ms(
+                        lambda: _train_bwd_parts(bound, h_proj, dz, dld, named, outs, bits, fk.MODE_3XTF32, w), reps=3))
+        ws_plain = prepare_train_weights_reference(named["wm"], passes=3)
+        if not torch.equal(ws.view(torch.int32), ws_plain.view(torch.int32)):
+            fail("the 3xTF32 weight preparation on the card differs from its plain version")
+        prep_times = cuda_ms(lambda: prepare_train_weights(named["wm"], passes=3), reps=5)
+        prep_plain = cuda_ms(lambda: prepare_train_weights_reference(named["wm"], passes=3), reps=3)
+        del ws_plain
+    zero_train_counts()
+    for fn, key in ((fused_flow_train_fwd, "K2a"), (fused_flow_train_bwd, "K2b")):
+        fn.route_launches.update(saved[key])
+        fn.mode_launches.update(saved[key + " modes"])
+        fn.launches = sum(saved[key].values())
+    prepare_train_weights.pass_launches.update(saved["prepared"])
+    prepare_train_weights.launches = sum(saved["prepared"].values())
+    part_ms = {k: median(v) for k, v in part_ms.items()}
+    work = dict(zip(("K2a", "K2b"), train_work(named, h_proj, B, H)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, resident, gw_blocks, gw_per_sm = fk.train_bwd_wgmma_layout(Hp, size, d_a, nh, B, fk.MODE_3XTF32)
+    ring, smem, fblocks, fresident = fk.fwd_wgmma_card_layout(Hp, size, d_a, B, fk.MODE_3XTF32)
+    tile_blocks = -(-B // (32 if Hp <= 32 * 17 else 16))  # the rows kernels' tiles (csrc/flow_rows.cuh)
+    layouts = {
+        ("K2a", "wgmma"): f"{fblocks} blocks in clusters of 2, {fresident} clusters resident: "
+                          f"{fblocks / 2 / fresident:.2f} waves; a {ring}-stage ring of one k-step's hi and lo, "
+                          f"{smem} bytes of shared memory",
+        ("K2b", "wgmma"): f"rows kernel {blocks} blocks in clusters of 2, {resident} clusters resident: "
+                          f"{blocks / 2 / resident:.2f} waves; weight-grad pass {gw_blocks} blocks, {gw_per_sm} an SM: "
+                          f"{gw_blocks / (gw_per_sm * sms):.2f} waves",
+    }
+    for kernel in ("K2a", "K2b"):
+        layouts[(kernel, "row tiles")] = f"{tile_blocks} blocks of 32 rows, one an SM: {tile_blocks / sms:.2f} waves"
+    for lib, marks in (("flow_fwd_wgmma", ("<17,",)), ("flow_train_wgmma", ("bwd_rows_wgmma<17>", "dwm_wgmma<17>"))):
+        kernel = "?"
+        for line in _build.build_logs.get(lib, "").splitlines():
+            if "Compiling entry function" in line:
+                kernel = kernel_label(line)
+            elif ("registers" in line or "spill" in line) and any(m in kernel for m in marks):
+                print(f"    ptxas {lib} {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
     rows = []
-    for name, err, src, replaces, fn, arith in (
-        ("K2a", fwd_err, "bcnf_tpu_torch/ops/csrc/flow_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:558",
-         "fused_flow_train_fwd", ARITH_3XTF32),
-        ("K2b", bwd_err, "bcnf_tpu_torch/ops/csrc/flow_train_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:600",
-         "fused_flow_train_bwd", ARITH_3XTF32),
+    for name, side, err, src, replaces, fn in (
+        ("K2a[3xtf32]", "wgmma", fwd_err, "flow_fwd_wgmma.cu", "bcnf_tpu/ops/flow_kernel.py:558", "fused_flow_train_fwd"),
+        ("K2b[3xtf32]", "wgmma", bwd_err, "flow_train_wgmma.cu", "bcnf_tpu/ops/flow_kernel.py:600",
+         "fused_flow_train_bwd"),
+        ("K2a[3xtf32, row tiles]", "row tiles", tiles_fwd_err, "flow_kernel.cu", "bcnf_tpu/ops/flow_kernel.py:558",
+         "fused_flow_train_fwd"),
+        ("K2b[3xtf32, row tiles]", "row tiles", tiles_bwd_err, "flow_train_kernel.cu",
+         "bcnf_tpu/ops/flow_kernel.py:600", "fused_flow_train_bwd"),
     ):
-        k_times, p_times = times[name]
-        flops = work[name][0]
-        rows.append(kernel_row(f"{name} {fn}", src, replaces, launches[name], err, k_times, p_times, work[name],
-                               peaks, None, arith))
+        kernel = name[:3]
+        k_times = times[(kernel, side)]
+        flops = work[kernel][0]
+        rows.append(kernel_row(f"{name} {fn}", "bcnf_tpu_torch/ops/csrc/" + src, replaces,
+                               launches[kernel] if side == "wgmma" else 0, err, k_times, p_times[kernel], work[kernel],
+                               peaks, None, ARITH_3XTF32))
         ms, plain_ms, bound = rows[-1]["ms"], rows[-1]["plain_ms"], rows[-1]["bound_ms"]
-        fma_bound = bound_ms(work[name], peaks, ARITH_FMA)[0]
-        blocks = -(-B // (32 if h_proj.shape[-1] <= 32 * 17 else 16))  # the rows kernels' tiles (csrc/flow_rows.cuh)
-        print(f"    {name} rows {B} ({blocks} blocks): {ms:.2f} ms ({arith}; bound {bound:.2f} ms, float32-FMA bound {fma_bound:.2f} ms, "
-              f"{flops / 1e12:.3f} TFLOP -> {flops / ms / 1e9:.1f} TFLOP/s, median of {len(k_times)}, range "
-              f"{min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms (range {min(p_times):.2f}-"
-              f"{max(p_times):.2f}); max|d| vs plain {err:.2e}")
+        fma_bound = bound_ms(work[kernel], peaks, ARITH_FMA)[0]
+        parts = ""
+        if kernel == "K2b":
+            rows[-1]["parts_ms"] = {p: part_ms[(p, side)] for p in ("rows", "weight grads", "rest")}
+            parts = (f"; parts alone: {S} rows kernels {part_ms[('rows', side)]:.2f}, {S} weight-grad passes "
+                     f"{part_ms[('weight grads', side)]:.2f}, the rest {part_ms[('rest', side)]:.2f}")
+        print(f"    {name} ({src}) rows {B}: {ms:.2f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound {bound:.2f} ms "
+              f"({rows[-1]['bound_by']}), float32-FMA bound {fma_bound:.2f} ms; median of {len(k_times)} in turns, "
+              f"range {min(k_times):.2f}-{max(k_times):.2f}), plain {plain_ms:.2f} ms; max|d| vs plain {err:.2e}"
+              f"{parts}; {layouts[(kernel, side)]}")
+    w_bytes = 4.0 * named["wm"].numel()
+    prep_row = kernel_row("K2b[3xtf32] prepare_train_weights", "bcnf_tpu_torch/ops/csrc/flow_train_wgmma.cu",
+                          "bcnf_tpu/ops/flow_kernel.py:600", launches["prep"], 0.0, prep_times, prep_plain,
+                          (0.0, 5 * w_bytes), peaks, None, ARITH_3XTF32)
+    print(f"    the hi/lo weight preparation (prepare_kernel, 3 passes: both directions' hi and lo, once a step, "
+          f"{launches['prep']} on the main path; equal to its plain version to the bit): {prep_row['ms']:.3f} ms, "
+          f"bound {prep_row['bound_ms']:.3f} ms ({prep_row['bound_by']}: {5 * w_bytes / 1e6:.0f} MB), plain "
+          f"{prep_row['plain_ms']:.3f} ms")
+    for kernel in ("K2a", "K2b"):
+        wg, tiles = median(times[(kernel, "wgmma")]), median(times[(kernel, "row tiles")])
+        print(f"    {kernel} 3xTF32: wgmma {wg:.3f} ms against the row tiles' {tiles:.3f} ms on the same inputs "
+              f"({tiles / wg:.2f}x)")
+        if not wg < tiles:
+            fail(f"{kernel}'s 3xTF32 wgmma route ({wg:.3f} ms) is not faster than the row tiles ({tiles:.3f} ms) at "
+                 f"the flagship's batch-{B} inputs")
+    rows.append(prep_row)
     k2b_ms = rows[1]["ms"]
-    print(f"    K2b parts (CUDA events, median of 5, ms): 26 rows kernels {part_ms['rows']:.2f}, 26 weight-grad "
-          f"passes {part_ms['weight grads']:.2f}, the rest (dz copy, ActNorm grads, scratch, gaps) "
-          f"{k2b_ms - part_ms['rows'] - part_ms['weight grads']:.2f}")
     print(f"    step split at batch 4096 (CUDA events, median of 3, ms): encoder forward {split[0]:.2f}, "
-          f"condition projections + stacking {split[1]:.2f}, K2a {split[2]:.2f}, loss {split[3]:.2f}, "
-          f"backward {split[4]:.2f} (K2b alone {k2b_ms:.2f}, so the rest of autograd ~{split[4] - k2b_ms:.2f}), "
-          f"clip + Adam {split[5]:.2f}; step {sum(split):.2f} = {4096 / sum(split) * 1e3:.0f} samples/s")
+          f"condition projections + stacking {split[1]:.2f}, K2a with the weight preparation {split[2]:.2f}, loss "
+          f"{split[3]:.2f}, backward {split[4]:.2f} (K2b alone {k2b_ms:.2f}, so the rest of autograd "
+          f"~{split[4] - k2b_ms:.2f}), clip + Adam {split[5]:.2f}; step {sum(split):.2f} = "
+          f"{4096 / sum(split) * 1e3:.0f} samples/s")
     print(f"    per-step weight copies (stack_flow_params + pad_hidden, {copies[2] / 1e6:.0f} MB of kernel "
           f"arguments; CUDA events, median of 5): forward {copies[0]:.2f} ms, its backward (grads sliced back "
           f"to the param tree) {copies[1]:.2f} ms")
-    print(f"    train samples/s: {rates[4096]:.0f} at batch 4096, {rates[256]:.0f} at batch 256; with the gate "
-          f"closed (plain autograd): {plain_rates[4096]:.0f} and {plain_rates[256]:.0f}")
+    print(f"    train samples/s at float32: {rates[4096]:.0f} at batch 4096, {rates[256]:.0f} at batch 256 on the "
+          f"wgmma routes; {tile_rates[4096]:.0f} and {tile_rates[256]:.0f} on the row tiles "
+          f"({rates[4096] / tile_rates[4096]:.3f}x, {rates[256] / tile_rates[256]:.3f}x); with the gate closed "
+          f"(plain autograd): {plain_rates[4096]:.0f} and {plain_rates[256]:.0f}")
     return rows
 
 
@@ -2027,14 +2297,27 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
         fused_affine_coupling_reference,
         mlp_params_to_kernel_args,
     )
-    from bcnf_tpu_torch.ops.flow_kernel import MODE_3XTF32, _launch_flow, fused_flow, prepare_weights
+    from bcnf_tpu_torch.ops.flow_kernel import (
+        FWD_WGMMA_ROUTES,
+        MODE_3XTF32,
+        ROUTE_ROWS,
+        _launch_flow,
+        flow_route,
+        fused_flow,
+        padded_width,
+        prepare_train_weights,
+        prepare_weights,
+    )
 
     cp = model.coupling
+    fwd_route = flow_route(padded_width(model.nested_sizes[0]), model.size, cp.d_a, False, MODE_3XTF32)
+    fwd_staged = fwd_route in FWD_WGMMA_ROUTES  # K4's forward keeps a wgmma layout of its hidden weights too
     blk0 = map_tree(lambda t: t[0], params["blocks"]["coupling"])
     args = mlp_params_to_kernel_args(blk0["a"], cp.d_a)
     H = model.nested_sizes[0]
     saved = fused_affine_coupling.launches
     errs = {False: 0.0, True: 0.0}
+    tiles_err = 0.0  # the forward's row tiles, forced
     k4_64 = []
     with torch.no_grad():
         for B, N in ((4096, 8), (4099, 7)):
@@ -2048,6 +2331,13 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                 torch.cuda.synchronize()
                 errs[inverse] = max([errs[inverse]] + [(a - b).abs().max().item() for a, b in zip(
                     (out,) if inverse else out, (ref,) if inverse else ref)])
+                if not inverse:
+                    with row_tiles_forced("FWD_WGMMA_MAX_TN"):
+                        if flow_route(padded_width(H), model.size, cp.d_a, False, MODE_3XTF32) != ROUTE_ROWS:
+                            fail("K4's forward with FWD_WGMMA_MAX_TN = 0 is not on the row tiles")
+                        tiles = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=False)
+                        torch.cuda.synchronize()
+                    tiles_err = max([tiles_err] + [(a - b).abs().max().item() for a, b in zip(tiles, ref)])
                 if inverse:  # K1's 3xTF32 wgmma inverse at one step: bit-equal between calls, near float64
                     again = fused_affine_coupling(x_a, x_b, h_proj, **args, inverse=True)
                     p64 = fused_affine_coupling_reference(x_a.double(), x_b.double(), h_proj.double(),
@@ -2066,15 +2356,16 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
                         and (inverse or torch.equal(out[1], ld_u))):
                     fail(f"K4 on its prepared weights is not bit-equal to K4 on weights prepared for the launch "
                          f"({'inverse' if inverse else 'forward'}, B={B})")
-    if fused_affine_coupling.launches != saved + 6:
+    if fused_affine_coupling.launches != saved + 8:
         fail("fused_affine_coupling did not count its launches")
     print(f"[11 path C] K4 vs plain at H={H}, B=4096/N=8 and ragged B=4099/N=7: max|d| forward (z_b, logdet) "
-          f"{errs[False]:.3e}, inverse {errs[True]:.3e} (tolerance {KERNEL_TOL:g}); the inverse equal to the bit "
+          f"{errs[False]:.3e}, on its row tiles forced {tiles_err:.3e}, inverse {errs[True]:.3e} (tolerance "
+          f"{KERNEL_TOL:g}); the inverse equal to the bit "
           f"between two calls, from the plain version in float64 {'; '.join(k4_64)} (bar: twice the float32 plain "
           f"version's)")
-    for inverse, e in errs.items():
+    for what, e in (("forward", errs[False]), ("inverse", errs[True]), ("forward on the row tiles", tiles_err)):
         if not e <= KERNEL_TOL:
-            fail(f"K4 {'inverse' if inverse else 'forward'} disagrees with its plain version: {e:.3e}")
+            fail(f"K4 {what} disagrees with its plain version: {e:.3e}")
 
     # path C: the flagship's inverse over phase 3's sampling rows, and its
     # no-grad forward over the log_prob batch, through K4 in every coupling
@@ -2116,12 +2407,14 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
           f"(K4 launches {launches[True]}, K1 {k1_inv}), max|d| vs K1's samples {inv_err:.3e}; no-grad forward on "
           f"{y_lp.shape[0]} rows (K4 launches {launches[False]}, K1 {k1_fwd}), max|d| z, logdet vs K1's {fwd_err:.3e}")
     n_couplings = model.n_blocks
+    want = [(n_couplings, n_couplings), (0, n_couplings if fwd_staged else 0), (0, 0)]
     print(f"    K4's weight preparations (padded stacks, wgmma stage layouts): the first inverse pass {preps[0]}, "
-          f"the forward pass {preps[1]}, a second inverse pass {preps[2]} ({t_inv_again:.3f} s, first {t_inv:.3f} s); "
-          f"expected ({n_couplings}, {n_couplings}), (0, 0), (0, 0): each coupling prepared once")
+          f"the forward pass {preps[1]} (its route {fwd_route}), a second inverse pass {preps[2]} ({t_inv_again:.3f} "
+          f"s, first {t_inv:.3f} s); expected {', '.join(map(str, want))}: each coupling's stack prepared once, and "
+          f"each layout a route reads once")
     if (launches[True], k1_inv, launches[False], k1_fwd) != (n_couplings, 0, n_couplings, 0):
         fail(f"path C launched K4 {launches[True]}/{launches[False]} and K1 {k1_inv}/{k1_fwd} times")
-    if preps != [(n_couplings, n_couplings), (0, 0), (0, 0)] or not torch.equal(y4, y4_again):
+    if preps != want or not torch.equal(y4, y4_again):
         fail(f"K4 prepared its weights {preps} times over three passes with unchanged weights, or the second "
              f"inverse pass differs from the first")
     if not (inv_err <= KERNEL_TOL and fwd_err <= KERNEL_TOL) or not torch.isfinite(y4).all():
@@ -2147,17 +2440,31 @@ def coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev
             work = coupling_work(args, x.shape[0], n, H, inverse)
             direction = "inverse" if inverse else "forward"
             # what the wrapper prepares once per parameter version: the padded one-step
-            # stack, and for the wgmma inverse the hi/lo stage layout of its hidden weights
+            # stack, and for a wgmma route the hi/lo layout of its hidden weights
             prep = (lambda: prepare_weights(coupling_flow_args(hp, **args)["wm"])) if inverse else (
-                lambda: coupling_flow_args(hp, **args))
+                (lambda: prepare_train_weights(coupling_flow_args(hp, **args)["wm"], passes=3)) if fwd_staged else
+                (lambda: coupling_flow_args(hp, **args)))
             prep_ms = median(cuda_ms(prep, reps=5))
             before_ms, before_plain_ms = K4_EARLIER_MS[direction]
-            src = "bcnf_tpu_torch/ops/csrc/" + ("flow_wgmma.cu" if inverse else "flow_kernel.cu")
+            src = "bcnf_tpu_torch/ops/csrc/" + ("flow_wgmma.cu" if inverse else
+                                                "flow_fwd_wgmma.cu" if fwd_staged else "flow_kernel.cu")
             rows.append(kernel_row(f"K4 fused_affine_coupling[{direction}]", src,
                                    "bcnf_tpu/ops/coupling_kernel.py:69", launches[inverse], max(errs[inverse], err),
                                    k_times, p_times, work, peaks, None, ARITH_3XTF32))
             fma_bound = bound_ms(work, peaks, ARITH_FMA)[0]
-            print(f"    K4[{direction}] ({'wgmma' if inverse else 'rows'}, 3xtf32) rows {x.shape[0]}: "
+            if not inverse and fwd_staged:  # the forward's row tiles forced on the same inputs, in turns
+                tiles_ms = []
+                for side in ("row tiles", "wgmma", "wgmma", "row tiles"):
+                    with row_tiles_forced("FWD_WGMMA_MAX_TN") if side == "row tiles" else contextlib.nullcontext():
+                        t = cuda_ms(lambda: fused_affine_coupling(x_a, x_b, hp, **args, inverse=False), reps=5)
+                    (tiles_ms if side == "row tiles" else k_times).extend(t)
+                rows[-1]["ms"], rows[-1]["row_tiles_ms"] = median(k_times), median(tiles_ms)
+                print(f"    K4[forward] on the 3xTF32 wgmma forward {median(k_times):.3f} ms against the row tiles' "
+                      f"{median(tiles_ms):.3f} ms (in turns, medians of {len(k_times)} and {len(tiles_ms)})")
+                if not median(k_times) < median(tiles_ms):
+                    fail(f"K4's forward on the 3xTF32 wgmma forward ({median(k_times):.3f} ms) is not faster than "
+                         f"the row tiles ({median(tiles_ms):.3f} ms)")
+            print(f"    K4[{direction}] ({'wgmma' if inverse else fwd_route}, 3xtf32) rows {x.shape[0]}: "
                   f"{median(k_times):.3f} ms (bound {rows[-1]['bound_ms']:.3f} ms, float32-FMA bound {fma_bound:.3f} ms, "
                   f"{work[0] / 1e9:.1f} GFLOP -> {work[0] / median(k_times) / 1e9:.1f} TFLOP/s, range "
                   f"{min(k_times):.3f}-{max(k_times):.3f}; on its prepared weights, whose preparation takes "
@@ -2436,6 +2743,15 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
               f"time-loop encoder); step split (CUDA events, median of 3, ms): encoder forward {split[0]:.2f}, "
               f"flow forward {split[1]:.2f}, backward {split[2]:.2f}, clip + Adam {split[3]:.2f} "
               f"(sum {sum(split):.2f})")
+        # the 3xTF32 training pair on these trained weights and the first 4096 training rows, against the
+        # plain version in float64 beside the row tiles (the kernels called directly: the published dropout
+        # closes their gate in training)
+        fused_lstm(False)
+        rows_12 = min(4096, len(y_all))
+        train_pair_margin(model, params_from_numpy(trained_np, dev),
+                          torch.from_numpy(np.ascontiguousarray(y_all[:rows_12], dtype=np.float32)).to(dev),
+                          torch.from_numpy(np.ascontiguousarray(conds_all[0][:rows_12], dtype=np.float32)).to(dev),
+                          "phase 12's trained weights")
 
         # -- 12.3: eval with its defaults on a held-out generated set
         test_set = os.path.join(tmp, "test.pkl")
@@ -2458,7 +2774,7 @@ def eval_path(dev, build_dir: str, peaks: tuple[float, float, float], n_generate
         expected = {("inverse", "wgmma", min(100, n_test) * 1000): rank_batches * -(-m_samples // 1000),
                     ("inverse", "wgmma", min(100, n_test) * 128): rank_batches * 4,
                     ("inverse", "wgmma", n_test * 250): -(-resim_samples // 250),
-                    ("forward", "rows", n_test): 1}
+                    ("forward", "fwd_wgmma", n_test): 1}
         if launches != expected:
             fail(f"eval launched K1 {launches}, expected {expected}")
         keys = {"test_nll", "n_points", "M_samples", "rank_mean_frac", "max_scaled_cdf_residual",
@@ -2668,7 +2984,7 @@ def zoo_path_d(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> d
 
     from bcnf_tpu_torch.bridge import map_tree
     from bcnf_tpu_torch.config import load_config
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_ROWS, ROUTE_WGMMA, fused_flow, fused_flow_reference
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA, ROUTE_WGMMA, fused_flow, fused_flow_reference
     from bcnf_tpu_torch.train import Trainer, make_optimizer
 
     cfg, model, params = zoo_model(PTRF_CONFIG, PTRF_PARAMS, "Transformer", dev)
@@ -2690,8 +3006,8 @@ def zoo_path_d(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> d
         h = model.encode(params, (traj.to(dev),))
     enc_err = (h.cpu() - h_cpu).abs().max().item()
     rt_err, _, fwd_routes = zoo_round_trip(model, params, out, traj, z, dev)
-    if fwd_routes != {ROUTE_ROWS: 2}:
-        fail(f"t_PTRF_large log_prob and round trip launched K1 {fwd_routes}, not twice on {ROUTE_ROWS}")
+    if fwd_routes != {ROUTE_FWD_WGMMA: 2}:
+        fail(f"t_PTRF_large log_prob and round trip launched K1 {fwd_routes}, not twice on {ROUTE_FWD_WGMMA}")
     launches["forward"] += 2
     enc = model.features.feature_networks[-1]
     print(f"[13 model zoo, path D] t_PTRF_large ({PTRF_PARAMS:,} params; Transformer {enc.n_blocks} x {enc.trf_size}, "
@@ -3007,14 +3323,14 @@ ONLINE_STEPS = 16  # online steps at the published batch 64
 
 def video_counts() -> dict:
     """`lstm_counts()` with K1's launches by direction: at the video model's
-    padded width 544 K1's inverse runs on `wgmma` and its forward on the row
-    tiles."""
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_ROWS, ROUTE_WGMMA, fused_flow
+    padded width 544 K1's inverse runs on `wgmma` and its forward on the
+    3xTF32 `wgmma` forward."""
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA, ROUTE_WGMMA, fused_flow
 
     c = lstm_counts()
     del c["K1"]
     c["K1 inverse"] = fused_flow.route_launches.get(ROUTE_WGMMA, 0)
-    c["K1 forward"] = fused_flow.route_launches.get(ROUTE_ROWS, 0)
+    c["K1 forward"] = fused_flow.route_launches.get(ROUTE_FWD_WGMMA, 0)
     return c
 
 
@@ -3350,7 +3666,7 @@ def video_generate_sample_eval(cfg: dict, model_dir: str, dev, tmp: str) -> tupl
     c_eval = video_counts()
     launches = k1.summary()
     expected = {("inverse", "wgmma", 100 * 1000): 2 * 10, ("inverse", "wgmma", 100 * 128): 2 * 4,
-                ("inverse", "wgmma", n_test * 250): 4, ("forward", "rows", n_test): 1}
+                ("inverse", "wgmma", n_test * 250): 4, ("forward", "fwd_wgmma", n_test): 1}
     keys = {"test_nll", "n_points", "M_samples", "rank_mean_frac", "max_scaled_cdf_residual",
             "max_scaled_cdf_residual_all_dims", "scaled_cdf_residual_by_dim", "degenerate_dims", "sup_band_99",
             "n_nondegenerate_dims", "sup_band_99_joint", "calibration_pass_per_dim_band",
@@ -3554,7 +3870,7 @@ def one_pass_counts() -> dict:
             "K2a row tiles": fused_flow_train_fwd.route_launches[ROUTE_ROWS_TF32],
             "K2b": fused_flow_train_bwd.route_launches[ROUTE_WGMMA_TF32],
             "K2b row tiles": fused_flow_train_bwd.route_launches[ROUTE_ROWS_TF32],
-            "K2b prep": prepare_train_weights.launches}
+            "K2b prep": prepare_train_weights.pass_launches[1]}
 
 
 def zero_all_counts() -> None:
@@ -3563,6 +3879,7 @@ def zero_all_counts() -> None:
 
     zero_counts()
     fused_affine_coupling.launches = prepare_train_weights.launches = 0
+    prepare_train_weights.pass_launches.clear()
     for fn in (fused_flow_train_fwd, fused_flow_train_bwd, fused_affine_coupling):
         fn.mode_launches.clear()
     fused_flow_train_fwd.route_launches.clear()
@@ -4623,17 +4940,23 @@ FWD_SWEEP = {"K2a": (*FLOOR_BATCHES, 4096), "K1 forward": (200, 2048, 4096)}
 
 
 def train_floor_sweep(rng, dev) -> None:
-    """Phase 17 (b): the flagship's dropout-0 training step at 32, 64, 128
-    and 256 rows with the training kernels (K2a/K2b) and without, forced by
-    BCNF_FUSED_TRAIN_MIN_BATCH, in turns (kernels, plain, kernels, plain;
-    the better of each side's two rates); the least batch from which the
-    kernels win at every size measured, beside the model's floor."""
+    """Phase 17 (b): the flagship's dropout-0 training step at float32 at 32,
+    64, 128 and 256 rows with the training kernels (K2a/K2b on their 3xTF32
+    `wgmma` routes), with the kernels on the row tiles forced, and without
+    (plain autograd, forced by BCNF_FUSED_TRAIN_MIN_BATCH), in turns (wgmma,
+    plain, row tiles, row tiles, plain, wgmma; the better of each side's two
+    rates); the least batch from which the kernels win at every size
+    measured, beside the model's floor; then K2a + K2b of one step (with the
+    step's weight preparation on the `wgmma` side) at each batch on both
+    routes, CUDA events in turns (median of 5 a turn, the better turn of
+    each side). Fails where the row tiles' kernels are faster than the
+    `wgmma` routes' (those take every batch)."""
     import numpy as np
     import torch
 
     from bcnf_tpu_torch.bridge import map_tree
     from bcnf_tpu_torch.models import CondRealNVP
-    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_fwd
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA, ROUTE_ROWS, fused_flow_train_fwd
     from bcnf_tpu_torch.train import Trainer, make_optimizer
 
     cfg = _flagship_train_config(FLOOR_BATCHES[-1], 1)
@@ -4646,44 +4969,78 @@ def train_floor_sweep(rng, dev) -> None:
     rates, reps = {}, 5
     for B in FLOOR_BATCHES:
         yb, cb = torch.from_numpy(y[:B]).to(dev), [torch.from_numpy(traj[:B]).to(dev)]
-        for kernels in (True, False, True, False):
+        for side in ("wgmma", "plain", "row tiles", "row tiles", "plain", "wgmma"):
+            kernels = side != "plain"
             os.environ["BCNF_FUSED_TRAIN_MIN_BATCH"] = "1" if kernels else str(1 << 30)
             params = map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
             opt = make_optimizer("Adam", lr=2e-4).init(params)
             gen = torch.Generator(device=dev).manual_seed(SEED)
-            before = fused_flow_train_fwd.launches
-            trainer.train_step(model, [params], opt, yb, cb, [gen])
-            torch.cuda.synchronize()
-            if (fused_flow_train_fwd.launches - before == 1) != kernels:
-                fail(f"the training floor sweep at {B} rows: K2a launched {fused_flow_train_fwd.launches - before} "
-                     f"times (kernels forced {'on' if kernels else 'off'})")
-            t0 = time.perf_counter()
-            for _ in range(reps):
+            with train_row_tiles() if side == "row tiles" else contextlib.nullcontext():
+                before = dict(fused_flow_train_fwd.route_launches)
                 trainer.train_step(model, [params], opt, yb, cb, [gen])
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                moved = {r: n - before.get(r, 0) for r, n in fused_flow_train_fwd.route_launches.items()
+                         if n != before.get(r, 0)}
+                want = {} if not kernels else {ROUTE_ROWS if side == "row tiles" else ROUTE_FWD_WGMMA: 1}
+                if moved != want:
+                    fail(f"the training floor sweep at {B} rows ({side}): K2a launched {moved}, not {want}")
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    trainer.train_step(model, [params], opt, yb, cb, [gen])
+                torch.cuda.synchronize()
             rate = reps * B / (time.perf_counter() - t0)
-            rates[B, kernels] = max(rates.get((B, kernels), 0.0), rate)
+            rates[B, side] = max(rates.get((B, side), 0.0), rate)
     del os.environ["BCNF_FUSED_TRAIN_MIN_BATCH"]
-    wins = [rates[B, True] > rates[B, False] for B in FLOOR_BATCHES]
+    wins = [rates[B, "wgmma"] > rates[B, "plain"] for B in FLOOR_BATCHES]
     floor = next((B for i, B in enumerate(FLOOR_BATCHES) if all(wins[i:])), None)
-    print("    (b) the training kernels' batch floor: the flagship's dropout-0 step, train samples/s with K2a/K2b "
-          "and with plain autograd (better of two turns each, 5 steps a turn): " + "; ".join(
-              f"{B} rows {rates[B, True]:.0f} vs {rates[B, False]:.0f} ({rates[B, True] / rates[B, False]:.2f}x)"
-              for B in FLOOR_BATCHES) +
+    print("    (b) the training kernels' batch floor: the flagship's dropout-0 step at float32, train samples/s "
+          "with K2a/K2b on the 3xTF32 wgmma routes, on the row tiles, and with plain autograd (better of two turns "
+          "each, 5 steps a turn): " + "; ".join(
+              f"{B} rows {rates[B, 'wgmma']:.0f} / {rates[B, 'row tiles']:.0f} / {rates[B, 'plain']:.0f} "
+              f"({rates[B, 'wgmma'] / rates[B, 'plain']:.2f}x plain, {rates[B, 'wgmma'] / rates[B, 'row tiles']:.2f}x "
+              f"the row tiles)" for B in FLOOR_BATCHES) +
           f"; the least batch from which the kernels win at every size measured: {floor}; the model's "
           f"fused_train_min_batch: {model.fused_train_min_batch}")
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    kernel_ms, lost = {}, []
+    for B in FLOOR_BATCHES:
+        with torch.no_grad():
+            kargs, hp = model._fused_flow_args(params0, model.encode(params0, (torch.from_numpy(traj[:B]).to(dev),)))
+            args = [kargs[k].contiguous() for k in TRAIN_ARGS]
+            xb = torch.from_numpy(y[:B]).to(dev)
+            _, _, bound = fk.fused_flow_train_reference(xb, hp, *args)
+            dz, dld = randn_cotangents(xb)
+
+            def step():
+                ws = fk.train_weights(xb, hp, args[5], args[3].shape[1], fk.MODE_3XTF32)
+                fk.fused_flow_train_fwd(xb, hp, *args, wstages=ws)
+                fk.fused_flow_train_bwd(bound, hp, dz, dld, *args, wstages=ws)
+
+            for side in ("wgmma", "row tiles", "row tiles", "wgmma"):
+                with train_row_tiles() if side == "row tiles" else contextlib.nullcontext():
+                    t = median(cuda_ms(step, reps=5))
+                kernel_ms[B, side] = min(kernel_ms.get((B, side), float("inf")), t)
+        if not kernel_ms[B, "wgmma"] < kernel_ms[B, "row tiles"]:
+            lost.append(f"{B} rows ({kernel_ms[B, 'wgmma']:.3f} against {kernel_ms[B, 'row tiles']:.3f} ms)")
+    print("    (b) K2a + K2b of one float32 step (CUDA events, better of two turns, median of 5 each; the wgmma side "
+          "with its weight preparation), the 3xTF32 wgmma routes / the row tiles: " + "; ".join(
+              f"{B} rows {kernel_ms[B, 'wgmma']:.3f} / {kernel_ms[B, 'row tiles']:.3f} ms "
+              f"({kernel_ms[B, 'row tiles'] / kernel_ms[B, 'wgmma']:.2f}x)" for B in FLOOR_BATCHES))
+    if lost:
+        fail("the 3xTF32 wgmma training routes take every batch, but the row tiles were faster at " + "; ".join(lost))
 
 
 def fwd_row_sweep(model, params, rng, dev) -> None:
-    """Phase 17 (b): the one-pass forward's routes by rows at the flagship's
-    widths: K2a at 32, 64, 128, 256 and 4096 rows (on weights prepared once,
-    as a training step hands them over) and K1's forward at 200, 2048 and
-    4096 rows (each call preparing its weights), on the `wgmma` forward and
-    on the forced one-pass row tiles, in turns (wgmma, row tiles, row tiles,
-    wgmma; CUDA events, median of 5 a turn, the better turn of each side);
-    the least row count from which the `wgmma` forward wins at every size
-    measured. Fails where the route takes the `wgmma` forward (it has no row
-    floor) and the row tiles were faster."""
+    """Phase 17 (b): the forward's routes by rows at the flagship's widths,
+    in one pass and in 3xTF32: K2a at 32, 64, 128, 256 and 4096 rows (on
+    weights prepared once, as a training step hands them over) and K1's
+    forward at 200, 2048 and 4096 rows (each call preparing its weights), on
+    the mode's `wgmma` forward and on its forced row tiles, in turns (wgmma,
+    row tiles, row tiles, wgmma; CUDA events, median of 5 a turn, the better
+    turn of each side); the least row count from which the `wgmma` forward
+    wins at every size measured. Fails where the route takes the `wgmma`
+    forward (it has no row floor) and the row tiles were faster."""
     import numpy as np
     import torch
 
@@ -4694,37 +5051,49 @@ def fwd_row_sweep(model, params, rng, dev) -> None:
         kt, hpt = model._fused_flow_args(params, model.encode(params, (traj,)))
     args = [kt[k].contiguous() for k in TRAIN_ARGS]
     x = torch.from_numpy(rng.normal(size=(4096, model.size)).astype(np.float32)).to(dev)
-    ws = fk.prepare_train_weights(kt["wm"])
     Hp, d_a = hpt.shape[-1], kt["w1y"].shape[1]
-    if fk.flow_route(Hp, model.size, d_a, False, fk.MODE_TF32) != fk.ROUTE_FWD_WGMMA_TF32:
-        fail("the flagship's one-pass forward does not take the wgmma forward")
     best, lines, losses = {}, [], []
-    for what, sizes in FWD_SWEEP.items():
-        for B in sizes:
-            xb, hb = x[:B].contiguous(), hpt[:, :B].contiguous()
-            if what == "K2a":
-                def run():
-                    return fk.fused_flow_train_fwd(xb, hb, *args, mode=fk.MODE_TF32, wstages=ws)
-            else:
-                def run():
-                    return fk.fused_flow(xb, hb, **kt, inverse=False, n_cond=B, mode=fk.MODE_TF32)
-            with torch.no_grad():
-                for side in ("wgmma", "row tiles", "row tiles", "wgmma"):
-                    with row_tiles_forced("FWD_WGMMA_MAX_TN") if side == "row tiles" else contextlib.nullcontext():
-                        t = median(cuda_ms(run, reps=5))
-                    best[what, B, side] = min(best.get((what, B, side), float("inf")), t)
-            wg, tiles = best[what, B, "wgmma"], best[what, B, "row tiles"]
-            lines.append(f"{B} rows {wg:.3f} / {tiles:.3f} ms ({tiles / wg:.2f}x)")
-            if not wg < tiles:
-                losses.append(f"{what} at {B} rows ({wg:.3f} against {tiles:.3f} ms)")
-        wins = [best[what, B, "wgmma"] < best[what, B, "row tiles"] for B in sizes]
-        floor = next((B for i, B in enumerate(sizes) if all(wins[i:])), None)
-        print(f"    (b) the one-pass forward's routes by rows, {what} (the wgmma forward / the row tiles, better of two "
-              f"turns, median of 5 each): " + "; ".join(lines[-len(sizes):]) +
-              f"; the least rows from which the wgmma forward wins at every size measured: {floor}")
+    for mode, route in ((fk.MODE_TF32, fk.ROUTE_FWD_WGMMA_TF32), (fk.MODE_3XTF32, fk.ROUTE_FWD_WGMMA)):
+        if fk.flow_route(Hp, model.size, d_a, False, mode) != route:
+            fail(f"the flagship's forward in {mode} does not take its wgmma forward")
+        ws = fk.prepare_train_weights(kt["wm"], passes=1 if mode == fk.MODE_TF32 else 3)
+        for what, sizes in FWD_SWEEP.items():
+            sweep_one(what, sizes, mode, ws, x, hpt, args, kt, best, lines, losses)
     if losses:
-        fail("the one-pass forward takes the wgmma forward at every batch, but the row tiles were faster: "
+        fail("the forward takes the wgmma forward at every batch, but the row tiles were faster: "
              + "; ".join(losses))
+
+
+def sweep_one(what: str, sizes, mode: str, ws, x, hpt, args, kt, best: dict, lines: list, losses: list) -> None:
+    """One line of `fwd_row_sweep`: `what` (K2a or K1's forward) in `mode` at
+    each row count of `sizes`, the `wgmma` forward against its row tiles."""
+    import torch
+
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    for B in sizes:
+        xb, hb = x[:B].contiguous(), hpt[:, :B].contiguous()
+        if what == "K2a":
+            def run():
+                return fk.fused_flow_train_fwd(xb, hb, *args, mode=mode, wstages=ws)
+        else:
+            def run():
+                return fk.fused_flow(xb, hb, **kt, inverse=False, n_cond=B, mode=mode)
+        with torch.no_grad():
+            for side in ("wgmma", "row tiles", "row tiles", "wgmma"):
+                with row_tiles_forced("FWD_WGMMA_MAX_TN") if side == "row tiles" else contextlib.nullcontext():
+                    t = median(cuda_ms(run, reps=5))
+                best[what, mode, B, side] = min(best.get((what, mode, B, side), float("inf")), t)
+        wg, tiles = best[what, mode, B, "wgmma"], best[what, mode, B, "row tiles"]
+        lines.append(f"{B} rows {wg:.3f} / {tiles:.3f} ms ({tiles / wg:.2f}x)")
+        if not wg < tiles:
+            losses.append(f"{what} ({mode}) at {B} rows ({wg:.3f} against {tiles:.3f} ms)")
+    wins = [best[what, mode, B, "wgmma"] < best[what, mode, B, "row tiles"] for B in sizes]
+    floor = next((B for i, B in enumerate(sizes) if all(wins[i:])), None)
+    print(f"    (b) the {'one-pass' if mode == fk.MODE_TF32 else '3xTF32'} forward's routes by rows, {what} (the "
+          f"wgmma forward / the row tiles, better of two turns, median of 5 each): " +
+          "; ".join(lines[-len(sizes):]) +
+          f"; the least rows from which the wgmma forward wins at every size measured: {floor}")
 
 
 def card_policies(model, params, rng, dev) -> None:

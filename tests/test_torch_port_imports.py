@@ -219,9 +219,10 @@ def cuda():
 @pytest.mark.parametrize("hidden", [16, 100, 526, 1000])  # wgmma up to Hp 544, row tiles above; FMA strict
 def test_kernel_matches_reference_on_card(cuda, inverse, hidden, strict):
     """A CUDA tensor launches K1 on the route of its mode and width (counted
-    once, and once on that route), ragged rows included, within the flow bar
+    once, and once on that route: in 3xTF32 the `wgmma` inverse and the
+    `wgmma` forward up to Hp 544), ragged rows included, within the flow bar
     of the float32 plain version."""
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FMA, ROUTE_ROWS, ROUTE_WGMMA
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FMA, ROUTE_FWD_WGMMA, ROUTE_ROWS, ROUTE_WGMMA
 
     model = _tiny_model(hidden)
     params = model.init(device=cuda)
@@ -229,7 +230,7 @@ def test_kernel_matches_reference_on_card(cuda, inverse, hidden, strict):
     traj = torch.from_numpy(rng.normal(size=(6, 9, 3)).astype(np.float32)).to(cuda)
     kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
     x = torch.from_numpy(rng.normal(size=(6 * 37 + 5, 5)).astype(np.float32)).to(cuda)
-    route = ROUTE_FMA if strict else ROUTE_WGMMA if inverse and hidden <= 544 else ROUTE_ROWS
+    route = (ROUTE_FMA if strict else ROUTE_ROWS if hidden > 544 else ROUTE_WGMMA if inverse else ROUTE_FWD_WGMMA)
     before = fused_flow.launches, fused_flow.route_launches[route]
     out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, mode="fma" if strict else "3xtf32")
     ref = fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=6)
@@ -898,6 +899,113 @@ def test_one_pass_train_backward_on_wgmma_matches_plain_one_pass_on_card(cuda, m
     assert _worst(first, plain) <= 2 * _worst(tiles, plain)
 
 
+def _three_pass_case(cuda, hidden: int, nh: int, rows: int, seed: int) -> tuple:
+    """K2a's and K2b's inputs for a size-19 flow of 3 steps with `nh` hidden
+    layers of width `hidden`, the step inputs from the plain 3xTF32 forward,
+    seeded standard-normal cotangents; and the plain 3xTF32 versions' outputs
+    (z, logdet, step inputs) and grads."""
+    from bcnf_tpu_torch.ops.flow_kernel import fused_flow_train_backward_reference, fused_flow_train_reference
+    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32
+
+    stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 4, 8, 1)])
+    model = CondRealNVP(size=19, nested_sizes=[hidden] * (nh + 1), n_blocks=3, n_conditions=8,
+                        feature_network_stack=stack, act_norm=True, random_state=0)
+    with torch.no_grad():
+        x, h_proj, args = _train_args(model, model.init(device=cuda), B=rows, seed=seed, device=cuda)
+        fwd = fused_flow_train_reference(x, h_proj, *args, mm=matmul_3xtf32)
+        g = torch.Generator(device=cuda).manual_seed(seed + 1)
+        dz, dld = torch.randn((rows, 19), generator=g, device=cuda), torch.randn((rows,), generator=g, device=cuda)
+        bwd = fused_flow_train_backward_reference(fwd[2], h_proj, dz, dld, *args, mm=matmul_3xtf32)
+    return x, h_proj, args, dz, dld, fwd, bwd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [32, 33, 100, 4096, 4099])
+@pytest.mark.parametrize("hidden,nh", [(16, 1), (16, 4), (100, 1), (100, 4), (526, 1), (526, 4), (526, 14)])
+def test_3xtf32_training_kernels_on_wgmma_match_plain_3xtf32_on_card(cuda, hidden, nh, rows):
+    """K2a and K2b in 3xTF32 on their `wgmma` routes (csrc/flow_fwd_wgmma.cu,
+    csrc/flow_train_wgmma.cu) against the plain 3xTF32 versions
+    (`mm=matmul_3xtf32`): z, logdet and the step inputs within 1e-4 (the JAX
+    package's kernel bar), every grad at the JAX grad bar with its atol
+    capped at 1e-4 of the grad's largest value; two calls of each equal to
+    the bit; each counted twice on its route, on weights prepared in 3xTF32.
+    Hp 32, 128, 544 with 1 and 4 hidden layers, and 14 at 544 (17 weight-grad
+    jobs a step, past the row tiles' limit: the shape the `wgmma` route opens
+    to training at float32)."""
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    x, h_proj, args, dz, dld, fwd, bwd = _three_pass_case(cuda, hidden, nh, rows, seed=40)
+    Hp = h_proj.shape[-1]
+    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_FWD_WGMMA
+    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == fk.ROUTE_WGMMA
+    before = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FWD_WGMMA],
+              fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WGMMA], fk.prepare_train_weights.pass_launches[3])
+    with torch.no_grad():
+        one, two = fk.fused_flow_train_fwd(x, h_proj, *args), fk.fused_flow_train_fwd(x, h_proj, *args)
+        first = fk.fused_flow_train_bwd(fwd[2], h_proj, dz, dld, *args)
+        second = fk.fused_flow_train_bwd(fwd[2], h_proj, dz, dld, *args)
+        torch.cuda.synchronize()
+    assert (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FWD_WGMMA],
+            fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WGMMA],
+            fk.prepare_train_weights.pass_launches[3]) == (before[0] + 2, before[1] + 2, before[2] + 4)
+    for name, a, b, p in zip(("z", "logdet", "bound"), one, two, fwd):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, p, atol=1e-4, rtol=0, msg=name)
+    names = ("x", "h_proj", "an_scale", "an_bias", "w1y", "b1", "wm", "bm", "wout", "bout")
+    for name, a, b, p in zip(names, first, second, bwd):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, p, atol=min(5e-4, 1e-4 * p.abs().max().item()), rtol=1e-3, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [100, 526])
+def test_3xtf32_training_step_prepares_the_weights_once_on_card(cuda, hidden):
+    """`fused_flow_train` in 3xTF32 through autograd at Hp <= 544: K2a on the
+    3xTF32 `wgmma` forward and K2b on the 3xTF32 `wgmma` route, once each,
+    both on one preparation of the hi/lo weights (`prepare_train_weights`
+    with 3 passes, counted once); the step's z and logdet equal to the bit
+    to K2a's, and its grads to K2b's on the same weights prepared apart."""
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    x, h_proj, args, _, _, _, _ = _three_pass_case(cuda, hidden, 4, 259, seed=41)
+    leaves = [t.clone().requires_grad_(True) for t in (x, h_proj, *args)]
+    counters = (fk.fused_flow_train_fwd.route_launches, fk.fused_flow_train_bwd.route_launches,
+                fk.prepare_train_weights.pass_launches)
+    before = [dict(c) for c in counters]
+    z, ld = fk.fused_flow_train(*leaves)
+    grads = torch.autograd.grad((z.square().sum() - ld.sum()), leaves)
+    torch.cuda.synchronize()
+    moved = [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)} for c, b in zip(counters, before)]
+    assert moved == [{fk.ROUTE_FWD_WGMMA: 1}, {fk.ROUTE_WGMMA: 1}, {3: 1}]
+    with torch.no_grad():
+        ws = fk.prepare_train_weights(args[5], passes=3)
+        z2, ld2, bound = fk.fused_flow_train_fwd(x, h_proj, *args, wstages=ws)
+        dx, dhp, *rest = fk.fused_flow_train_bwd(bound, h_proj, (2 * z2).contiguous(), -torch.ones_like(ld2), *args,
+                                                 wstages=ws)
+        torch.cuda.synchronize()
+    assert torch.equal(z, z2) and torch.equal(ld, ld2)
+    assert torch.equal(grads[0], dx) and torch.equal(grads[1], dhp)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.gpu
+def test_3xtf32_weight_preparation_on_card_is_its_plain_version(cuda):
+    """`prepare_train_weights(wm, passes=3)` on the card (the 3xTF32 library's
+    `prepare_kernel`) equals its plain version to the bit (hi in TF32 and lo
+    = w - hi beside it, both directions, both ranks), and its hi part the
+    one-pass layout."""
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    g = torch.Generator(device=cuda).manual_seed(42)
+    for Hp in (32, 128, 544):
+        wm = torch.randn((3, 2, Hp, Hp), generator=g, device=cuda)
+        got = fk.prepare_train_weights(wm, passes=3)
+        torch.cuda.synchronize()
+        want = fk.prepare_train_weights_reference(wm.cpu(), passes=3)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), Hp
+        assert torch.equal(got[:, :, :, :, :, 0], fk.prepare_train_weights(wm, passes=1)), Hp
+
+
 @pytest.mark.gpu
 def test_one_pass_train_backward_on_wgmma_parts_on_card(cuda):
     """The `parts` mask on the `wgmma` route: the rows kernels alone give the
@@ -936,14 +1044,15 @@ def test_one_pass_train_backward_on_wgmma_parts_on_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hidden,mode,forced,route", [
-    (526, "tf32", False, "wgmma_tf32"), (526, "tf32", True, "rows_tf32"), (526, "3xtf32", False, "rows"),
-    (700, "tf32", False, "rows_tf32"),
-], ids=["one_pass_544", "one_pass_544_forced_tiles", "3xtf32_544", "one_pass_768"])
+    (526, "tf32", False, "wgmma_tf32"), (526, "tf32", True, "rows_tf32"), (526, "3xtf32", False, "wgmma"),
+    (700, "tf32", False, "rows_tf32"), (526, "3xtf32", True, "rows"), (700, "3xtf32", False, "rows"),
+], ids=["one_pass_544", "one_pass_544_forced_tiles", "3xtf32_544", "one_pass_768", "3xtf32_544_forced_tiles",
+        "3xtf32_768"])
 def test_training_step_counts_the_train_backward_route_on_card(cuda, monkeypatch, hidden, mode, forced, route):
     """`fused_flow_train` through autograd runs K2b on the route of its mode
-    and width, counted once in `route_launches`: the one-pass mode on `wgmma`
-    at Hp 544 (on the row tiles when `TRAIN_WGMMA_MAX_TN` is 0, and at Hp
-    768), 3xTF32 on the row tiles."""
+    and width, counted once in `route_launches`: each tensor-core mode on its
+    `wgmma` build at Hp 544 (on its row tiles when `TRAIN_WGMMA_MAX_TN` is 0,
+    and at Hp 768)."""
     from bcnf_tpu_torch.ops import flow_kernel as fk
 
     if forced:

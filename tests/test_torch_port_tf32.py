@@ -49,6 +49,7 @@ from bcnf_tpu_torch.ops.coupling_kernel import (
 )
 from bcnf_tpu_torch.ops.flow_kernel import (
     ROUTE_FMA,
+    ROUTE_FWD_WGMMA,
     ROUTE_ROWS,
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
@@ -440,8 +441,9 @@ def test_prepare_weights_splits_and_lays_out_stages(S, nh, Hp, rank, stage_k):
 @pytest.mark.parametrize("H", [16, 100, 526, 700, 1000])
 def test_k1_routes_by_mode_and_width(H, strict):
     """Strict runs the float32 FMA kernel both ways; the default mode runs
-    the forward on the row tiles and the inverse on `wgmma` up to the padded
-    width 544, on the row tiles above it (flagship shape: size 19)."""
+    the inverse on `wgmma` and the forward on the 3xTF32 `wgmma` forward up
+    to the padded width 544, both on the row tiles above it (flagship shape:
+    size 19)."""
     from bcnf_tpu_torch.ops.flow_kernel import padded_width
 
     Hp = padded_width(H)
@@ -449,7 +451,8 @@ def test_k1_routes_by_mode_and_width(H, strict):
     if strict:
         assert routes == {True: ROUTE_FMA, False: ROUTE_FMA}
     else:
-        assert routes == {True: ROUTE_WGMMA if Hp <= 544 else ROUTE_ROWS, False: ROUTE_ROWS}
+        assert routes == {True: ROUTE_WGMMA if Hp <= 544 else ROUTE_ROWS,
+                          False: ROUTE_FWD_WGMMA if Hp <= 544 else ROUTE_ROWS}
 
 
 def test_k1_routes_follow_shared_memory():
@@ -572,3 +575,59 @@ def test_main_path_does_not_import_the_tf32_model():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.fixture(scope="module", params=["x3", "highest"])
+def jax_flagship_shape(request):
+    """A flow of the flagship's size 19 (d_a 10, n_out 18) and its 4 square
+    hidden layers at a narrow width (32), 3 steps, the ActNorm off identity;
+    the JAX model's seeded params, one precision per instance."""
+    stack = JaxStack([JaxConcat(input_size=None, output_size=6), JaxFC(sizes=[6, 32, N_COND_FEATURES])])
+    model = JaxCondRealNVP(size=19, nested_sizes=[32] * 5, n_blocks=3, n_conditions=N_COND_FEATURES,
+                           feature_network_stack=stack, act_norm=True, random_state=0)
+    params = model.init(jax.random.key(1))
+    rng = np.random.default_rng(6)
+    blocks = dict(params["blocks"])
+    blocks["actnorm"] = {"scale": jnp.asarray((1.0 + 0.2 * rng.normal(size=(2, 19))).astype(np.float32)),
+                         "bias": jnp.asarray((0.2 * rng.normal(size=(2, 19))).astype(np.float32))}
+    return model, dict(params, blocks=blocks), request.param
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_training_in_3xtf32_at_the_flagship_shape_matches_jax_kernels(jax_flagship_shape, direction):
+    """The plain 3xTF32 K2a and K2b (every product `matmul_3xtf32`), which
+    the 3xTF32 `wgmma` routes are held against on the card, against JAX's
+    training kernels in interpret mode (`_flow_fwd_train_kernel`,
+    `_flow_bwd_train_kernel` through the custom VJP) at "highest" and "x3",
+    at the flagship's size 19 / d_a 10 with nh 4 at width 32: z and logdet
+    at the flow forward bar, all ten grads at the flow grad bar."""
+    model, params, precision = jax_flagship_shape
+    B = 16
+    rng = np.random.default_rng(8)
+    h = jnp.asarray(rng.normal(size=(B, N_COND_FEATURES)).astype(np.float32))
+    kargs, h_proj = model._fused_flow_args(params, h)
+    assert np.asarray(kargs["w1y"]).shape[1] == 10 and np.asarray(kargs["wm"]).shape[1] == 4
+    y = jnp.asarray(rng.normal(size=(B, 19)).astype(np.float32))
+    args = [torch.from_numpy(np.array(kargs[n])) for n in ARG_NAMES]
+    hp = torch.from_numpy(np.array(h_proj))
+    yt = torch.from_numpy(np.array(y))
+
+    def f(y, h_proj, kargs):
+        return jax_fused_flow_train(y, h_proj, kargs, block_b=8, precision=precision, interpret=True)
+
+    if direction == "forward":
+        z_ref, ld_ref = f(y, h_proj, kargs)
+        z, ld, _ = fused_flow_train_reference(yt, hp, *args, mm=matmul_3xtf32)
+        np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=FLOW_FWD_ATOL, rtol=0, err_msg="z")
+        np.testing.assert_allclose(ld.numpy(), np.asarray(ld_ref), atol=FLOW_FWD_ATOL, rtol=0, err_msg="logdet")
+        return
+    dz = rng.normal(size=(B, 19)).astype(np.float32)
+    dld = rng.normal(size=(B,)).astype(np.float32)
+    _, vjp = jax.vjp(f, y, h_proj, kargs)
+    dy_ref, dhp_ref, dk_ref = vjp((jnp.asarray(dz), jnp.asarray(dld)))
+    refs = (dy_ref, dhp_ref, *(dk_ref[n] for n in GRAD_NAMES[2:]))
+    _, _, bound = fused_flow_train_reference(yt, hp, *args)
+    got = fused_flow_train_backward_reference(bound, hp, torch.from_numpy(dz), torch.from_numpy(dld), *args,
+                                              mm=matmul_3xtf32)
+    for name, g, r in zip(GRAD_NAMES, got, refs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=FLOW_ATOL, rtol=FLOW_RTOL, err_msg=name)

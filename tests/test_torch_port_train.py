@@ -325,16 +325,18 @@ def test_training_gate(monkeypatch):
     (19, [526] * 5, True),     # the flagship
     (38, [526] * 5, True),     # the widest size K2b's rows kernel holds at Hp 544
     (39, [526] * 5, False),    # its shared memory refuses one more
-    (19, [526] * 14, True),    # nh = 13: 16 weight-grad jobs a step, kAtbMaxJobs
-    (19, [526] * 15, False),   # nh = 14: 17 jobs
+    (19, [526] * 14, True),    # nh = 13: 16 weight-grad jobs a step, the row tiles' kAtbMaxJobs
+    (19, [526] * 15, True),    # nh = 14: 17 jobs, past the row tiles; the 3xTF32 wgmma route has no job limit
     (19, [1100] * 5, False),   # past the widest compiled width (32 * 32)
 ], ids=["flagship", "size38", "size39", "nh13", "nh14", "width1100"])
 def test_training_gate_closes_on_shapes_the_kernels_do_not_take(size, nested, takes):
     """`_fused_train_takes` reads the limits the kernels' launchers check
     (`kSmemLimit`, `kAtbMaxJobs`, from their headers): where K2a/K2b would
     return cudaErrorInvalidValue the gate closes and plain autograd trains,
-    as JAX falls back to XLA (the card raised at size 39 and at nh 14, and
-    ran size 38 and nh 13)."""
+    as JAX falls back to XLA (the card raised at size 39, and on the row
+    tiles at nh 14, and ran size 38 and nh 13). At Hp 544 the flagship's
+    size takes the 3xTF32 `wgmma` route, which has no weight-grad job limit;
+    size 38 (d_a 19, past what its ring stages) the row tiles."""
     stack = FeatureNetworkStack([ConcatenateCondition(None, 3), LSTMFeatureNetwork(3, 6, N_COND_FEATURES, 1)])
     model = CondRealNVP(size=size, nested_sizes=nested, n_blocks=3, n_conditions=N_COND_FEATURES,
                         feature_network_stack=stack, act_norm=True)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the one-pass `wgmma` forward spends its time, on one NVIDIA GPU: the
-kernel as built (`bcnf_tpu_torch/ops/csrc/flow_fwd_wgmma.cu`, built with
-BCNF_TF32_PASSES=1) and variants of it, each timed as K2a (with its
-step-input store) and as K1's forward.
+"""Where the `wgmma` forward spends its time, on one NVIDIA GPU: the kernel
+as built (`bcnf_tpu_torch/ops/csrc/flow_fwd_wgmma.cu`, built with
+BCNF_TF32_PASSES=1 for the one-pass mode, or as it is for 3xTF32 with
+`--passes 3`) and variants of it, each timed as K2a (with its step-input
+store) and as K1's forward.
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/fwd_wgmma_parts.py [VARIANT ...]
+    python3 tools/fwd_wgmma_parts.py [--passes 3] [VARIANT ...]
 
 Each variant is the source's text with a patch, compiled by nvcc into
 `bcnf_tpu_torch/_build/fwd_wgmma_parts/`:
@@ -37,8 +38,9 @@ is printed beside it. A variant that takes a part out computes wrong values;
 its time is read, beside the largest |d| of its z from the kernel as built.
 Each is launched at the flagship's shape (4096 rows of size 19, d_a 10, 26
 steps of 4 hidden layers at H 526, Hp 544; random weights from seed 0,
-prepared once) through the C entry point; the one-pass row tiles
-(`flow_kernel_tf32`) are timed beside, on the same inputs.
+prepared once for the mode) through the C entry point; the mode's row
+tiles (`flow_kernel_tf32`, or `flow_kernel` in 3xTF32) are timed beside, on
+the same inputs.
 Times: CUDA events around one call, median of 5 after a warm-up.
 """
 
@@ -50,8 +52,12 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_MMA = ("    WgmmaTf32<NW>::mma(acc, cur[0], smem_desc(st, 128, 256));\n"
-        "    WgmmaTf32<NW>::mma(acc, cur[1], smem_desc(st + 2 * TN * 64, 128, 256));\n")
+_MMA = ("    if constexpr (kPasses == 1) {\n"
+        "      WgmmaTf32<NW>::mma(acc, cur[0], smem_desc(st, 128, 256));\n"
+        "      WgmmaTf32<NW>::mma(acc, cur[1], smem_desc(st + 2 * TN * 64, 128, 256));\n"
+        "    } else {\n"
+        "      wgmma_3xtf32<NW>(acc, cur[0], cur[1], smem_desc(st, 128, 256), smem_desc(st + 2 * TN * 64, 128, 256));\n"
+        "    }\n")
 _COPY = ("      mbar_arrive_expect_tx(bar, W::stage * sizeof(float));\n"
          "      bulk_copy_g2s(dst, src, W::stage * sizeof(float), bar);\n")
 _NO_COPY = "      mbar_arrive(bar);\n      (void)src;\n"
@@ -86,13 +92,14 @@ PATCHES = {
 }
 
 
-def build(names: list[str]) -> dict[str, str]:
-    """One nvcc per variant, all started together; returns the libraries."""
+def build(names: list[str], passes: int = 1) -> dict[str, str]:
+    """One nvcc per variant, all started together, built for `passes` (1 or
+    3); returns the libraries."""
     sys.path.insert(0, HERE)
     from bcnf_tpu_torch.ops import _build
 
     csrc = os.path.join(HERE, "bcnf_tpu_torch", "ops", "csrc")
-    out_dir = os.path.join(HERE, "bcnf_tpu_torch", "_build", "fwd_wgmma_parts")
+    out_dir = os.path.join(HERE, "bcnf_tpu_torch", "_build", "fwd_wgmma_parts", f"passes{passes}")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(csrc, "flow_fwd_wgmma.cu")) as f:
         text = f.read()
@@ -107,7 +114,8 @@ def build(names: list[str]) -> dict[str, str]:
         with open(path, "w") as f:
             f.write(src)
         lib = path[:-3] + ".so"
-        cmd = [_build._nvcc(), *_build._flags("flow_fwd_wgmma_tf32"), "-I", csrc, "-o", lib, path]
+        flags = _build._flags("flow_fwd_wgmma_tf32" if passes == 1 else "flow_fwd_wgmma")
+        cmd = [_build._nvcc(), *flags, "-I", csrc, "-o", lib, path]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -132,15 +140,24 @@ def ptxas_summary(log: str) -> str:
 
 
 def main() -> None:
-    names = ["as built"] + (sys.argv[1:] or [n for n in PATCHES if n != "as built"])
-    libs = build(names)
+    args = sys.argv[1:]
+    passes = 1
+    if "--passes" in args:
+        i = args.index("--passes")
+        passes = int(args[i + 1])
+        args = args[:i] + args[i + 2:]
+    if passes not in (1, 3) or any(a not in PATCHES for a in args):
+        raise SystemExit(__doc__)
+    names = ["as built"] + (args or [n for n in PATCHES if n != "as built"])
+    libs = build(names, passes)
     import torch
 
     from bcnf_tpu_torch.ops import flow_kernel as fk
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    print(smi)
+    print(f"{smi}; {passes} pass(es) a product")
+    mode = fk.MODE_TF32 if passes == 1 else fk.MODE_3XTF32
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     S, size, d_a, nh, H, B = 26, 19, 10, 4, 526, 4096
@@ -157,7 +174,7 @@ def main() -> None:
     Hp = h_proj.shape[-1]
     names9 = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
     tensors = [kargs[n] for n in names9]
-    tensors[5] = fk.prepare_train_weights(kargs["wm"])
+    tensors[5] = fk.prepare_train_weights(kargs["wm"], passes)
     x = randn(B, size)
     z, ld, bound = torch.empty_like(x), torch.empty(B, device=dev), torch.empty(S, B, size, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -178,10 +195,11 @@ def main() -> None:
     args = dict(kargs, h_proj=h_proj)
     max_tn = fk.FWD_WGMMA_MAX_TN
     fk.FWD_WGMMA_MAX_TN = 0
-    tiles = timed(lambda: fk._launch_flow(x, args, inverse=False, n_cond=B, mode=fk.MODE_TF32))
+    tiles = timed(lambda: fk._launch_flow(x, args, inverse=False, n_cond=B, mode=mode))
     fk.FWD_WGMMA_MAX_TN = max_tn
-    print(f"the one-pass row tiles (flow_kernel_tf32), K1's forward: {tiles:.3f} ms; the weight preparation "
-          f"{timed(lambda: fk.prepare_train_weights(kargs['wm'])):.3f} ms", flush=True)
+    print(f"the row tiles ({fk.ROUTE_LIBRARY[fk.ROUTE_ROWS_TF32 if passes == 1 else fk.ROUTE_ROWS]}), K1's forward: "
+          f"{tiles:.3f} ms; the weight preparation {timed(lambda: fk.prepare_train_weights(kargs['wm'], passes)):.3f} ms",
+          flush=True)
     built = None
     for name, path in libs.items():
         lib = ctypes.CDLL(path)

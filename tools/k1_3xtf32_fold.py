@@ -178,7 +178,6 @@ __device__ __forceinline__ void unfolded_product(float (&acc)[4 * TN], const flo
 }
 
 """
-INCLUDE = '#include "wgmma_tf32.cuh"\n'
 
 
 def wgmma_spec(n: int) -> str:
@@ -198,8 +197,6 @@ def wgmma_spec(n: int) -> str:
             f'        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));\n  }}\n}};\n')
 
 
-# the halves' widths the header does not have (n72 + n64 at TN 17, n48 + n48 at TN 12)
-WIDTHS = (INCLUDE, INCLUDE + "\nnamespace bcnf {\n" + wgmma_spec(48) + wgmma_spec(72) + "}  // namespace bcnf\n")
 # stages of one k-step (17,408 bytes a block at Hp 544), a ring of 4
 STAGE1 = [("constexpr int kWgStageK = 2;", "constexpr int kWgStageK = 1;"),
           ("constexpr int kWgRing3xTf32 = 2;", "constexpr int kWgRing3xTf32 = 4;")]
@@ -223,7 +220,7 @@ PATCHES = {
     "as built": [],
     "stage1": STAGE1,
     "pingpong": PINGPONG,
-    "halves": STAGE1 + [WIDTHS, (ANCHOR, HALVES + ANCHOR), (CALL, CALL.replace("fold_product", "halves_product"))],
+    "halves": STAGE1 + [(ANCHOR, HALVES + ANCHOR), (CALL, CALL.replace("fold_product", "halves_product"))],
     "unfolded": STAGE1 + [(ANCHOR, UNFOLDED + ANCHOR), (CALL, CALL.replace("fold_product", "unfolded_product"))],
 }
 # the k-steps a stage of each variant holds (its weight layout: `prepare_weights(stage_k=)`)
