@@ -1,7 +1,9 @@
 // K1 in exact float32 on the FMA pipe (the strict mode, `pallas_strict`):
 // the whole conditional RealNVP flow, forward or inverse, in one launch,
 // every product and every sum in float32, no tensor-core instruction; and
-// the strict K2a, the same forward storing each step's input rows.
+// the strict K2a, the same forward storing each step's input rows and
+// keeping, for the strict K2b, each layer's activations and gelu' and each
+// step's s (`fma_keep_act`, `fma_keep_s`).
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow at precision="highest"
 // (the Pallas TPU kernel `_flow_kernel` in its exact-float32 mode), which the
@@ -227,6 +229,85 @@ __device__ __forceinline__ void store_act(float* at, const float (&acc)[R][TN], 
   }
 }
 
+// The activations the strict K2a keeps for the strict K2b
+// (flow_train_fma.cu), which then recomputes nothing of the MLP: for each
+// step k, h_l = gelu(a_l) for l = 0 .. nh, then gelu'(a_l) for l = 0 .. nh,
+// each B x Hp rows; after every step's, the output layer's s = tanh(s') of
+// every step (B x d_b each). Offsets in floats (the host's copy:
+// ops/flow_kernel.py::fma_keep_floats).
+__host__ __device__ inline size_t fma_keep_act(int k, int l, bool grad, int B, int nh, int Hp) {
+  return ((static_cast<size_t>(k) * 2 + (grad ? 1 : 0)) * (nh + 1) + l) * B * Hp;
+}
+__host__ __device__ inline size_t fma_keep_s(int k, int B, int S, int nh, int Hp, int d_b) {
+  return static_cast<size_t>(S) * 2 * (nh + 1) * B * Hp + static_cast<size_t>(k) * B * d_b;
+}
+__host__ __device__ inline size_t fma_keep_floats(int B, int S, int nh, int Hp, int d_b) {
+  return fma_keep_s(S, B, S, nh, Hp, d_b);
+}
+
+// v[r] for the lane's R rows into column `col` of the transposed tile.
+template <int R>
+__device__ __forceinline__ void store_col(float* at, int col, int ldT, const float (&v)[R]) {
+  float* dst = at + col * ldT;
+  if constexpr (R == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  }
+}
+
+// store_act, keeping what the strict K2b reads: h = gelu(acc + bias) into
+// the tile, and h and gelu'(acc + bias) to the layer's kept rows hs, gs (B
+// x Hp; rows past B not stored; streaming stores, read once, much later).
+// `row` is the lane's first row; bias may be null. h is store_act's value
+// (gelu_and_grad: the same expression).
+template <int R, int TN>
+__device__ __forceinline__ void keep_act(float* at, const float (&acc)[R][TN], const float* bias, float* hs,
+                                         float* gs, int row, int B, int cq, int lc) {
+  using Sh = FmaShape<TN>;
+  float b[TN];
+  if (bias != nullptr) {
+    load_cols<TN>(bias, cq, lc, b);
+  } else {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b[j] = 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < Sh::Q4; ++q) {  // 4 adjacent columns: 16-byte stores
+    float h[4][R], g[4][R];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) gelu_and_grad(acc[r][4 * q + c] + b[4 * q + c], h[c][r], g[c][r]);
+      store_col<R>(at, Sh::col(4 * q + c, cq, lc), Sh::ldT, h[c]);
+    }
+    const int col = Sh::col(4 * q, cq, lc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (row + r < B) {
+        const size_t o = static_cast<size_t>(row + r) * Sh::Hp + col;
+        __stcs(reinterpret_cast<float4*>(hs + o), make_float4(h[0][r], h[1][r], h[2][r], h[3][r]));
+        __stcs(reinterpret_cast<float4*>(gs + o), make_float4(g[0][r], g[1][r], g[2][r], g[3][r]));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Sh::Q1; ++i) {
+    const int j = 4 * Sh::Q4 + i, col = Sh::col(j, cq, lc);
+    float h[R], g[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) gelu_and_grad(acc[r][j] + b[j], h[r], g[r]);
+    store_col<R>(at, col, Sh::ldT, h);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (row + r < B) {
+        __stcs(hs + static_cast<size_t>(row + r) * Sh::Hp + col, h[r]);
+        __stcs(gs + static_cast<size_t>(row + r) * Sh::Hp + col, g[r]);
+      }
+    }
+  }
+}
+
 // outs[r][c] += sum_kk at[kk][r] ws[kk][c] over nk rows of Wout (n_out
 // columns a row), for a warp's R rows: KQ = 32 / R lanes share a row, lane
 // kq summing kk = kq, kq + KQ, ..; their parts are added by xor shuffles and
@@ -309,7 +390,8 @@ int sm_count() {
 #ifndef BCNF_FMA_DEVICE_ONLY  // flow_train_fma.cu takes the helpers above, not the kernels below
 
 // The flow over the block's rounds; with kBound (K2a's forward, N = B) each
-// step's input rows are also stored to bound[k] (S x B x size).
+// step's input rows are also stored to bound[k] (S x B x size) and each
+// layer's activations and s to keep (fma_keep_act, fma_keep_s).
 template <int TN, bool kBound>
 __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const float* __restrict__ h_proj,
                                          const float* __restrict__ an_s, const float* __restrict__ an_b,
@@ -317,7 +399,8 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
                                          const float* __restrict__ b1, const float* __restrict__ wm,
                                          const float* __restrict__ bm, const float* __restrict__ wout,
                                          const float* __restrict__ bout, float* __restrict__ y,
-                                         float* __restrict__ ld_out, float* __restrict__ bound, int B, int N, int S,
+                                         float* __restrict__ ld_out, float* __restrict__ bound,
+                                         float* __restrict__ keep, int B, int N, int S,
                                          int size, int d_a, int nh, int inverse, int stages, int groups) {
   using Sh = FmaShape<TN>;
   constexpr int Hp = Sh::Hp, BK = Sh::BK, ldT = Sh::ldT, R = Sh::R, G = Sh::G, BM = Sh::BM;
@@ -469,7 +552,13 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
         if (active) input_product<R, TN>(ws, min(BK, d_a - j * BK), xs + prod_row * size + j * BK, size, acc, cq, lc);
         release();
       }
-      if (active) store_act<R, TN>(at, acc, nullptr, cq, lc);
+      if constexpr (kBound) {
+        if (active)
+          keep_act<R, TN>(at, acc, nullptr, keep + fma_keep_act(k, 0, false, B, nh, Hp),
+                          keep + fma_keep_act(k, 0, true, B, nh, Hp), row0 + prod_row, B, cq, lc);
+      } else {
+        if (active) store_act<R, TN>(at, acc, nullptr, cq, lc);
+      }
       group_sync(rg);
 
       // ---- hidden layers: a <- gelu(a Wm_l + bm_l)
@@ -485,7 +574,14 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
           release();
         }
         group_sync(rg);  // every warp of the group is done reading the tile
-        if (active) store_act<R, TN>(at, acc, bm + (static_cast<size_t>(k) * nh + l) * Hp, cq, lc);
+        if constexpr (kBound) {
+          if (active)
+            keep_act<R, TN>(at, acc, bm + (static_cast<size_t>(k) * nh + l) * Hp,
+                            keep + fma_keep_act(k, l + 1, false, B, nh, Hp),
+                            keep + fma_keep_act(k, l + 1, true, B, nh, Hp), row0 + prod_row, B, cq, lc);
+        } else {
+          if (active) store_act<R, TN>(at, acc, bm + (static_cast<size_t>(k) * nh + l) * Hp, cq, lc);
+        }
         group_sync(rg);
       }
 
@@ -515,6 +611,10 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
           if (!inverse) {
             *xb = expf(s) * *xb + o[r * n_out + j];
             o[r * n_out + d_b + j] = s;
+            if constexpr (kBound) {
+              if (row0 + own_row + r < B)
+                keep[fma_keep_s(k, B, S, nh, Hp, d_b) + static_cast<size_t>(row0 + own_row + r) * d_b + j] = s;
+            }
           } else {
             *xb = (*xb - o[r * n_out + j]) * expf(-s);
           }
@@ -568,21 +668,21 @@ fma_flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, c
                 const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ y,
                 float* __restrict__ ld_out, int B, int N, int S, int size, int d_a, int nh, int inverse,
                 int stages, int groups) {
-  fma_flow<TN, false>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld_out, nullptr, B, N, S, size,
-                      d_a, nh, inverse, stages, groups);
+  fma_flow<TN, false>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld_out, nullptr, nullptr, B, N, S,
+                      size, d_a, nh, inverse, stages, groups);
 }
 
-// K2a: the forward with its step-input store.
+// K2a: the forward with its step-input store and its keep.
 template <int TN>
 __global__ void __launch_bounds__(kFmaThreads, 1)
 fma_flow_train_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, const float* __restrict__ an_s,
                       const float* __restrict__ an_b, const float* __restrict__ ortho, const float* __restrict__ w1y,
                       const float* __restrict__ b1, const float* __restrict__ wm, const float* __restrict__ bm,
                       const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ z,
-                      float* __restrict__ ld_out, float* __restrict__ bound, int B, int S, int size, int d_a, int nh,
-                      int stages, int groups) {
-  fma_flow<TN, true>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld_out, bound, B, B, S, size, d_a,
-                     nh, 0, stages, groups);
+                      float* __restrict__ ld_out, float* __restrict__ bound, float* __restrict__ keep, int B, int S,
+                      int size, int d_a, int nh, int stages, int groups) {
+  fma_flow<TN, true>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld_out, bound, keep, B, B, S, size,
+                     d_a, nh, 0, stages, groups);
 }
 
 // The launch's layout: blocks, ring stages and shared memory, or
@@ -599,12 +699,13 @@ cudaError_t fma_layout(int TN, int B, int size, int d_a, int sms, int* blocks, i
   return cudaSuccess;
 }
 
-// K1 (bound null) or K2a (the forward, N = B, storing the step inputs to bound).
+// K1 (bound and keep null) or K2a (the forward, N = B, storing the step
+// inputs to bound and the activations the strict K2b reads to keep).
 template <int TN>
 cudaError_t fma_launch(const float* x, const float* h_proj, const float* an_s, const float* an_b, const float* ortho,
                        const float* w1y, const float* b1, const float* wm, const float* bm, const float* wout,
-                       const float* bout, float* y, float* ld, float* bound, int B, int N, int S, int size, int d_a,
-                       int nh, int inverse, int sms, cudaStream_t stream) {
+                       const float* bout, float* y, float* ld, float* bound, float* keep, int B, int N, int S, int size,
+                       int d_a, int nh, int inverse, int sms, cudaStream_t stream) {
   int blocks, stages;
   size_t smem;
   cudaError_t err = fma_layout(TN, B, size, d_a, sms, &blocks, &stages, &smem);
@@ -621,8 +722,8 @@ cudaError_t fma_launch(const float* x, const float* h_proj, const float* an_s, c
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     fma_flow_train_kernel<TN><<<blocks, kFmaThreads, smem, stream>>>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm,
-                                                                     wout, bout, y, ld, bound, B, S, size, d_a, nh,
-                                                                     stages, groups);
+                                                                     wout, bout, y, ld, bound, keep, B, S, size, d_a,
+                                                                     nh, stages, groups);
   }
   return cudaGetLastError();
 }
@@ -630,20 +731,21 @@ cudaError_t fma_launch(const float* x, const float* h_proj, const float* an_s, c
 // Check a call and launch it at its TN: K1 (bound null) or K2a.
 int fma_call(const float* x, const float* h_proj, const float* an_s, const float* an_b, const float* ortho,
              const float* w1y, const float* b1, const float* wm, const float* bm, const float* wout, const float* bout,
-             float* y, float* ld, float* bound, int B, int N, int S, int size, int d_a, int nh, int Hp, int inverse,
-             void* stream) {
+             float* y, float* ld, float* bound, float* keep, int B, int N, int S, int size, int d_a, int nh, int Hp,
+             int inverse, void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 0 || Hp % 32 != 0 ||
-      (!inverse && ld == nullptr) ||
+      (!inverse && ld == nullptr) || ((keep == nullptr) != (bound == nullptr)) ||
       ((reinterpret_cast<size_t>(w1y) | reinterpret_cast<size_t>(wm) | reinterpret_cast<size_t>(wout) |
-        reinterpret_cast<size_t>(h_proj) | reinterpret_cast<size_t>(b1) | reinterpret_cast<size_t>(bm)) & 15) != 0)
+        reinterpret_cast<size_t>(h_proj) | reinterpret_cast<size_t>(b1) | reinterpret_cast<size_t>(bm) |
+        reinterpret_cast<size_t>(keep)) & 15) != 0)
     return cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BCNF_CASE(TN)                                                                                                \
   case TN:                                                                                                           \
-    return fma_launch<TN>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, bound, B, N, S, size, d_a, \
-                          nh, inverse, sms, st);
+    return fma_launch<TN>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, bound, keep, B, N, S, size, \
+                          d_a, nh, inverse, sms, st);
   switch (Hp / 32) {
     BCNF_CASE(1)
     BCNF_CASE(2)
@@ -675,19 +777,27 @@ extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float*
                                const float* ortho, const float* w1y, const float* b1, const float* wm, const float* bm,
                                const float* wout, const float* bout, float* y, float* ld, int B, int N, int S,
                                int size, int d_a, int nh, int Hp, int inverse, void* stream) {
-  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, nullptr, B, N, S, size, d_a, nh,
-                  Hp, inverse, stream);
+  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, y, ld, nullptr, nullptr, B, N, S, size,
+                  d_a, nh, Hp, inverse, stream);
 }
 
 // K2a in exact float32: the forward (z, ld = logdet) with each step's input
-// rows stored to bound (S x B x size); row r takes h_proj[k, r] (N = B).
+// rows stored to bound (S x B x size) and the activations the strict K2b
+// reads to keep (16-byte aligned, bcnf_flow_fma_keep floats); row r takes
+// h_proj[k, r] (N = B).
 extern "C" int bcnf_fused_flow_train(const float* x, const float* h_proj, const float* an_s, const float* an_b,
                                      const float* ortho, const float* w1y, const float* b1, const float* wm,
                                      const float* bm, const float* wout, const float* bout, float* z, float* ld,
-                                     float* bound, int B, int S, int size, int d_a, int nh, int Hp, void* stream) {
-  if (bound == nullptr) return cudaErrorInvalidValue;
-  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, B, B, S, size, d_a, nh, Hp,
-                  0, stream);
+                                     float* bound, float* keep, int B, int S, int size, int d_a, int nh, int Hp,
+                                     void* stream) {
+  if (bound == nullptr || keep == nullptr) return cudaErrorInvalidValue;
+  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, keep, B, B, S, size, d_a,
+                  nh, Hp, 0, stream);
+}
+
+// Floats of the strict K2a's keep (fma_keep_floats).
+extern "C" long long bcnf_flow_fma_keep(int B, int S, int size, int d_a, int nh, int Hp) {
+  return static_cast<long long>(fma_keep_floats(B, S, nh, Hp, size - d_a));
 }
 
 // The layout a call at this shape takes on the current card: out[0..4] =

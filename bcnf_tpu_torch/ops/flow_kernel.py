@@ -38,6 +38,9 @@
   `csrc/flow_train_fma.cu`). Both `wgmma` routes read the hidden weights as
   `prepare_train_weights` lays them out for their mode (hi, and in 3xTF32
   lo beside it), prepared once a step and handed from K2a to K2b. The
+  strict K2b recomputes nothing of the MLP: the strict K2a keeps each
+  layer's activations and gelu' for it (`train_keep`, which both require),
+  handed from K2a to K2b in the same way. The
   tensor-core routes run their square hidden products in 3xTF32, or in one
   TF32 pass in the reduced mode; the strict routes every product in float32
   FMA.
@@ -50,8 +53,9 @@ mode, as JAX on the CPU computes float32 at every precision.
 This module stacks and pads the kernels' arguments, checks them, launches
 them on PyTorch's current stream, and holds their plain PyTorch versions
 (`fused_flow_reference`, `fused_flow_train_reference`,
-`fused_flow_train_backward_reference`), which serve CPU tensors (the tests)
-and which `chip_smoke.py` holds the kernels against on the card.
+`fused_flow_train_backward_reference`, and `train_keep_reference`, what the
+strict K2a keeps), which serve CPU tensors (the tests) and which
+`chip_smoke.py` holds the kernels against on the card.
 
 Layout contract (the same as the JAX kernel's): rows are draws-major, row
 ``r`` uses the condition projection ``h_proj[step, r % n_cond]``; step ``K``
@@ -124,8 +128,10 @@ TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 
 # widest TN at that many rows, weight rows a stage and the bounds of its
 # ring (`fma_layout`); the one-pass `wgmma` forward's rows a cluster, blocks
 # a cluster, weight rows a stage, the bounds of its ring and the floats of
-# its barriers (`fwd_wgmma_ring`); the strict K2b's weight-grad jobs a launch.
-_SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh",
+# its barriers (`fwd_wgmma_ring`); the strict K2b's weight-grad jobs a step
+# and that pass's output tile and rows a stage (`fma_atb_tiles`).
+_SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kFtTile": "flow_train_fma.cu", "kFtK": "flow_train_fma.cu",
+                     "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh",
                   **{name: "flow_wgmma.cu" for name in ("kWgRing3xTf32", "kWgCluster3xTf32", "kWgRingTf32",
                                                          "kWgClusterTf32", "kWgStageK", "kWgXchBarriers")},
                   "kTwRows": "flow_train_wgmma.cu", "kTwCluster": "flow_train_wgmma.cu",
@@ -346,14 +352,61 @@ def fma_train_layout(B: int, Hp: int, size: int, d_a: int, sms: int) -> tuple[in
             fma_train_smem(Hp, size, d_a, stages))
 
 
-def fma_train_card_layout(B: int, Hp: int, size: int, d_a: int) -> tuple[int, int, int, int, int]:
+def fma_atb_jobs(size: int, d_a: int, nh: int, Hp: int) -> list[tuple[str, int, int, bool]]:
+    """The strict K2b's weight-grad jobs of a step, in the order of its
+    launch (`csrc/flow_train_fma.cu`: `atb_jobs`): (name, m, n, with the
+    column sums as row m) of C = A^T B over the rows, A's column m all ones:
+    dWm_l with dbm_l (h_l^T da_{l+1}) for each hidden layer, dWout with dbout,
+    dW1y with db1, and the ActNorm rows' column sums alone (m 0)."""
+    n_out = 2 * (size - d_a)
+    return ([(f"dwm{l}", Hp, Hp, True) for l in range(nh)]
+            + [("dwout", Hp, n_out, True), ("dw1y", d_a, Hp, True), ("actnorm", 0, 2 * size + 1, True)])
+
+
+def fma_atb_tiles(size: int, d_a: int, nh: int, Hp: int) -> list[tuple[int, int, int, int, int]]:
+    """The blocks of one step of the strict K2b's weight-grad pass, in
+    launch order (`ft_atb_kernel`; the launch is S times these): (job, m0,
+    n0, row halves, column halves) of each kFtTile x kFtTile output tile of
+    the job's m rows (+1 for the sums' row) and n columns; a tile whose rows
+    or columns end within its first half runs that half alone (1), else both
+    (2)."""
+    tile = kernel_limit("kFtTile")
+    out = []
+    for j, (_, m, n, sums) in enumerate(fma_atb_jobs(size, d_a, nh, Hp)):
+        mt = m + int(sums)
+        for m0 in range(0, mt, tile):
+            for n0 in range(0, n, tile):
+                out.append((j, m0, n0, 1 + (mt - m0 > tile // 2), 1 + (n - n0 > tile // 2)))
+    return out
+
+
+def fma_keep_floats(B: int, S: int, size: int, d_a: int, nh: int, Hp: int) -> int:
+    """Floats the strict K2a keeps for the strict K2b (`csrc/flow_fma.cu`:
+    `fma_keep_floats`): h_l and gelu'(a_l) of every step and layer (2 (nh +
+    1) S B Hp), then s = tanh(s') of every step (S B d_b)."""
+    return 2 * (nh + 1) * S * B * Hp + S * B * (size - d_a)
+
+
+def fma_train_scratch_floats(B: int, S: int, size: int, d_a: int, nh: int, Hp: int) -> int:
+    """Floats of the strict K2b's scratch (`csrc/flow_train_fma.cu`:
+    `scratch_parts`), each part rounded up to 4: the transposed Wm, Wout and
+    W1y (d_a rounded up to even), da_1 .. da_nh, dout, x1 and the ActNorm rows
+    of every step, the ActNorm column sums."""
+    n_out, n_an = 2 * (size - d_a), 2 * size + 1
+    parts = (S * nh * Hp * Hp, S * n_out * Hp, S * Hp * (d_a + d_a % 2), S * B * nh * Hp, S * B * n_out,
+             S * B * size, S * B * n_an, S * n_an)
+    return sum(-(-p // 4) * 4 for p in parts)
+
+
+def fma_train_card_layout(B: int, S: int, Hp: int, size: int, d_a: int, nh: int) -> tuple[int, ...]:
     """`fma_train_layout` as the strict K2b's launcher computes it on the
-    current card (`csrc/flow_train_fma.cu`: `bcnf_flow_train_fma_layout`)."""
+    current card, then the weight-grad pass's blocks, S times
+    `len(fma_atb_tiles)` (`csrc/flow_train_fma.cu`: `bcnf_flow_train_fma_layout`)."""
     from bcnf_tpu_torch.ops._build import load_library
 
     lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_FMA])
-    out = (ctypes.c_int * 5)()
-    _raise_on(lib.bcnf_flow_train_fma_layout(B, size, d_a, Hp, out), lib, "fma_train_card_layout")
+    out = (ctypes.c_int * 6)()
+    _raise_on(lib.bcnf_flow_train_fma_layout(B, S, size, d_a, nh, Hp, out), lib, "fma_train_card_layout")
     return tuple(out)
 
 
@@ -964,6 +1017,35 @@ def fused_flow_train_backward_reference(
     return dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout
 
 
+def train_keep_reference(
+    bound: torch.Tensor,
+    h_proj: torch.Tensor,
+    an_scale: torch.Tensor,
+    an_bias: torch.Tensor,
+    ortho: torch.Tensor,
+    w1y: torch.Tensor,
+    b1: torch.Tensor,
+    wm: torch.Tensor,
+    bm: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of what the strict K2a keeps for the strict K2b,
+    from the step inputs `bound`, laid out as `fma_keep_floats` counts it:
+    for each step k, h_l = gelu(a_l) for l = 0 .. nh, then gelu'(a_l) for l =
+    0 .. nh, each (B, Hp); after every step's, each step's s = tanh(s'), (B,
+    d_b). With it the strict K2b runs on the plain version's inputs."""
+    S, B, size = bound.shape
+    d_a = w1y.shape[1]
+    acts_and_grads, ss = [], []
+    for k in range(S):
+        x1 = bound[k] * an_scale[k] + an_bias[k] if k < S - 1 else bound[k]
+        acts, hs = _train_step_mlp(k, x1[:, :d_a], h_proj, w1y, b1, wm, bm)
+        ss.append(torch.tanh((hs[-1] @ wout[k] + bout[k])[:, d_a - size:]))
+        acts_and_grads += hs + [gelu_grad(a) for a in acts]
+    return torch.cat([t.reshape(-1) for t in acts_and_grads + ss])
+
+
 def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tensor]) -> None:
     if x.dim() != 2 or h_proj.dim() != 3 or h_proj.shape[1] != x.shape[0]:
         raise ValueError(
@@ -978,6 +1060,7 @@ def fused_flow_train_fwd(
     x: torch.Tensor, h_proj: torch.Tensor, an_scale: torch.Tensor, an_bias: torch.Tensor,
     ortho: torch.Tensor, w1y: torch.Tensor, b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor,
     wout: torch.Tensor, bout: torch.Tensor, *, mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None,
+    keep: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2a: `(z, logdet, bound)` in one launch. A CPU tensor takes
     `fused_flow_train_reference` (float32 in every mode); a CUDA tensor
@@ -986,8 +1069,10 @@ def fused_flow_train_fwd(
     forward of either mode, which reads the hidden weights as
     `prepare_train_weights` lays them out for the mode: pass them as
     `wstages`, or they are prepared here; strict, the float32 FMA kernel with
-    its step-input store), or raises. Counts its launches in `launches`, by mode in `mode_launches`
-    and by route in `route_launches`."""
+    its step-input store, which also fills `keep` with what the strict K2b
+    reads: pass `train_keep`'s buffer, else it raises), or raises. Counts its
+    launches in `launches`, by mode in `mode_launches` and by route in
+    `route_launches`."""
     _check_mode(mode, TRAIN_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
@@ -1005,6 +1090,8 @@ def fused_flow_train_fwd(
     route = flow_route(Hp, size, d_a, False, mode)
     if route is None:
         raise ValueError(f"fused_flow_train_fwd: no kernel takes size {size}, d_a {d_a} at hidden width {Hp} ({mode})")
+    if route == ROUTE_FMA or keep is not None:
+        _checked_keep(keep, route, B, S, size, d_a, nh, Hp, x.device, "fused_flow_train_fwd")
     z = torch.empty_like(x)
     ld = torch.empty((B,), dtype=x.dtype, device=x.device)
     bound = torch.empty((S, B, size), dtype=x.dtype, device=x.device)
@@ -1020,7 +1107,7 @@ def fused_flow_train_fwd(
         elif route == ROUTE_FMA:
             err = lib.bcnf_fused_flow_train(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
-                B, S, size, d_a, nh, Hp, _stream())
+                ctypes.c_void_p(keep.data_ptr()), B, S, size, d_a, nh, Hp, _stream())
         else:
             err = lib.bcnf_flow_rows(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
@@ -1052,6 +1139,34 @@ def train_weights(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: 
     return None
 
 
+def train_keep(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: int, mode: str) -> torch.Tensor | None:
+    """An empty buffer for what the strict K2a keeps for the strict K2b
+    (`fma_keep_floats`: each step's h_l and gelu'(a_l), and s; 2.32 GB at the
+    flagship's 4096 rows), where K2a runs on its float32 FMA route (a CUDA
+    tensor in `MODE_FMA`), which requires it; None elsewhere. K2a fills it,
+    K2b reads it: the training step hands it from one to the other."""
+    if x.device.type != "cuda" or mode != MODE_FMA:
+        return None
+    (B, size), (S, _, Hp), nh = x.shape, h_proj.shape, wm.shape[1]
+    if flow_route(Hp, size, d_a, False, mode) != ROUTE_FMA:
+        return None
+    return torch.empty((fma_keep_floats(B, S, size, d_a, nh, Hp),), dtype=torch.float32, device=x.device)
+
+
+def _checked_keep(keep: torch.Tensor | None, route: str, B: int, S: int, size: int, d_a: int, nh: int, Hp: int,
+                  device: torch.device, what: str) -> torch.Tensor:
+    """`keep` if it is what `train_keep` gives for this call, else raises."""
+    n = fma_keep_floats(B, S, size, d_a, nh, Hp)
+    if keep is None:
+        raise ValueError(f"{what}: the strict route needs the strict K2a's keep ({n} float32): pass "
+                         f"keep=train_keep(...) to fused_flow_train_fwd and the same buffer to fused_flow_train_bwd")
+    if (route != ROUTE_FMA or keep.dtype != torch.float32 or keep.device != device or not keep.is_contiguous()
+            or keep.numel() != n or keep.data_ptr() % 16):
+        raise ValueError(f"{what}: keep must be {n} contiguous float32 on {device}, 16-byte aligned, on the strict "
+                         f"route (got {keep.numel()} {keep.dtype} on {keep.device}, route {route})")
+    return keep
+
+
 BWD_ROWS, BWD_WEIGHT_GRADS, BWD_ACTNORM = 1, 2, 4  # K2b's parts
 
 
@@ -1059,7 +1174,7 @@ def fused_flow_train_bwd(
     bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
     an_scale: torch.Tensor, an_bias: torch.Tensor, ortho: torch.Tensor, w1y: torch.Tensor,
     b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor, wout: torch.Tensor, bout: torch.Tensor,
-    *, mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None,
+    *, mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None, keep: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """K2b: every grad of K2a's outputs, in one call of the kernel's entry
     point (which enqueues a few launches per step). Returns `(dx, dh_proj,
@@ -1069,7 +1184,9 @@ def fused_flow_train_bwd(
     tiles of `csrc/flow_train_kernel.cu`, at Hp <= 544 the `wgmma` route of
     `csrc/flow_train_wgmma.cu` built for the mode, on `wstages` as
     `prepare_train_weights` lays out `wm` for it, or on weights it prepares;
-    strict, the float32 FMA kernels of `csrc/flow_train_fma.cu`), or raises. Counts
+    strict, the float32 FMA kernels of `csrc/flow_train_fma.cu`, on what the
+    strict K2a kept in `keep` for these inputs: without it, it raises), or
+    raises. Counts
     its calls in `launches`, by mode in `mode_launches` and by route in
     `route_launches`."""
     _check_mode(mode, TRAIN_MODES)
@@ -1094,7 +1211,7 @@ def fused_flow_train_bwd(
     if B == 0:
         return tuple(g.zero_() for g in grads)
     route = _train_bwd_parts(bound, h_proj, dz, dld, args, grads, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM, mode,
-                             wstages)
+                             wstages, keep)
     fused_flow_train_bwd.launches += 1
     fused_flow_train_bwd.mode_launches[mode] += 1
     fused_flow_train_bwd.route_launches[route] += 1
@@ -1103,16 +1220,19 @@ def fused_flow_train_bwd(
 
 def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
                      args: dict[str, torch.Tensor], grads: tuple[torch.Tensor, ...], parts: int,
-                     mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None) -> str:
+                     mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None,
+                     keep: torch.Tensor | None = None) -> str:
     """Launch K2b's parts on checked CUDA tensors into `grads`, uncounted, on
-    the route `train_bwd_route` gives; returns the route. Per step the rows
-    kernels (`BWD_ROWS`, with the copy of dz that starts the carried dx) and
-    the weight-grad pass (`BWD_WEIGHT_GRADS`), then the rest (`BWD_ACTNORM`:
-    the ActNorm grads; on the `wgmma` route also dWout, dbout, dW1y and db1,
-    summed from the rows kernels' partials). The wrapper runs all three;
-    chip_smoke.py times each alone. The `wgmma` route reads the hidden
-    weights as `prepare_train_weights` lays them out: pass them as
-    `wstages`, or they are prepared here."""
+    the route `train_bwd_route` gives; returns the route. The rows kernels
+    (`BWD_ROWS`; on the tensor-core routes one a step, with the copy of dz
+    that starts the carried dx; strict, one for every step) and the
+    weight-grad passes (`BWD_WEIGHT_GRADS`; one a step, strict one for every
+    step), then the rest (`BWD_ACTNORM`: the ActNorm grads; on the `wgmma`
+    route also dWout, dbout, dW1y and db1, summed from the rows kernels'
+    partials). The wrapper runs all three; chip_smoke.py times each alone.
+    The `wgmma` route reads the hidden weights as `prepare_train_weights`
+    lays them out: pass them as `wstages`, or they are prepared here. The
+    strict route reads what the strict K2a kept in `keep` (required)."""
     from bcnf_tpu_torch.ops._build import load_library
 
     S, B, size = bound.shape
@@ -1127,6 +1247,8 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
         passes = 3 if route == ROUTE_WGMMA else 1
         tensors[5] = prepare_train_weights(args["wm"], passes) if wstages is None else _checked_wstages(
             wstages, _train_weights_shape(S, nh, Hp, passes), args["wm"], f"fused_flow_train_bwd ({route})")
+    if route == ROUTE_FMA or keep is not None:
+        tensors.append(_checked_keep(keep, route, B, S, size, d_a, nh, Hp, dz.device, "fused_flow_train_bwd"))
     lib = load_library(TRAIN_BWD_LIBRARY[route])
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
         n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_wgmma
@@ -1169,22 +1291,25 @@ class _FusedFlowTrain(torch.autograd.Function):
     route, the hidden weights are prepared once in the forward
     (`train_weights`) and held for the backward: twice Wm's bytes in one pass
     (246 MB at the flagship's 26 steps of 4 layers at Hp 544), four times in
-    3xTF32 (hi and lo, 492 MB), from K2a to K2b."""
+    3xTF32 (hi and lo, 492 MB), from K2a to K2b. Strict, K2a keeps each
+    layer's activations and gelu' for K2b (`train_keep`, 2.32 GB at the
+    flagship's 4096 rows)."""
 
     @staticmethod
     def forward(ctx: Any, mode: str, x: torch.Tensor, h_proj: torch.Tensor,
                 *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
         wstages = train_weights(x, h_proj, args[5], args[3].shape[1], mode)
-        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args, mode=mode, wstages=wstages)
+        keep = train_keep(x, h_proj, args[5], args[3].shape[1], mode)
+        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args, mode=mode, wstages=wstages, keep=keep)
         ctx.save_for_backward(bound, h_proj, *args)
-        ctx.mode, ctx.wstages = mode, wstages
+        ctx.mode, ctx.wstages, ctx.keep = mode, wstages, keep
         return z, ld
 
     @staticmethod
     def backward(ctx: Any, dz: torch.Tensor, dld: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
         bound, h_proj, *args = ctx.saved_tensors  # an unused output's cotangent arrives as zeros
         dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout = fused_flow_train_bwd(
-            bound, h_proj, dz.contiguous(), dld.contiguous(), *args, mode=ctx.mode, wstages=ctx.wstages)
+            bound, h_proj, dz.contiguous(), dld.contiguous(), *args, mode=ctx.mode, wstages=ctx.wstages, keep=ctx.keep)
         return None, dx, dhp, dan_s, dan_b, torch.zeros_like(args[2]), dw1y, db1, dwm, dbm, dwout, dbout
 
 

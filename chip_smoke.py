@@ -66,15 +66,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
 6b. strict training (`pallas_strict`: K2a and K2b in float32 FMA,
    csrc/flow_fma.cu's `fma_flow_train_kernel` and csrc/flow_train_fma.cu):
    both at the flagship widths, B = 4096 and a ragged 4099, against their
-   plain versions with TF32 off (K2a within 1e-4, K2b at the grad bar),
-   each no further from the plain version in float64 than twice the float32
-   plain version, equal to the bit between two calls; the flagship built
+   plain versions with TF32 off on the plain version's inputs (K2a and what
+   it keeps for K2b within 1e-4; K2b, on the plain step inputs and the plain
+   keep, `train_keep_reference`, at the grad bar), each no further from the
+   plain version in float64 than twice the float32 plain version, equal to
+   the bit between two calls, and K2b on K2a's step inputs and keep at the
+   grad bar; the flagship built
    with `pallas_strict` (dropout 0) trained by `Trainer.train` for 3 steps at
    batch 4096, K2a/K2b launched 3 times each, all in float32 FMA on the FMA
    route, counts zeroed before and read after; one step against the plain
    float32 autograd step (loss and grads at the bars); train samples/s both
    ways; the strict K2a's and K2b's times beside their bounds and plain
-   versions, their layouts, K2b's parts (rows kernels, weight-grad passes).
+   versions, their layouts, K2b's parts (its rows kernel and its weight-grad
+   pass, each one launch over the 26 steps), the keep's and K2b's scratch's
+   bytes and the strict step's peak beside the card's memory. Their bounds
+   count the work each does: K2a writes the keep, K2b reads it and
+   recomputes nothing (two MLPs' products, not three).
 7. entry point: the `train` CLI on a written dataset with a copy of the
    flagship config (`model.kwargs.dropout: 0`, 2 epochs), then `sample` from
    the model directory it wrote.
@@ -346,7 +353,8 @@ def flow_work(kargs: dict, h_proj, rows: int, H: int) -> tuple[float, float]:
     return float(flops), float(nbytes)
 
 
-def train_work(kargs: dict, h_proj, rows: int, H: int) -> tuple[tuple[float, float], tuple[float, float]]:
+def train_work(kargs: dict, h_proj, rows: int, H: int,
+               kept: bool = False) -> tuple[tuple[float, float], tuple[float, float]]:
     """(operations, bytes) of one K2a call and of one K2b call for `rows`
     rows with their own conditions, at the unpadded hidden width H. K2a is
     K1's forward plus the (S, rows, size) step inputs it writes. K2b, from
@@ -354,7 +362,10 @@ def train_work(kargs: dict, h_proj, rows: int, H: int) -> tuple[tuple[float, flo
     through the transposed weights, and forms the weight products: three
     times the forward's matmul work, plus the mixes' transposes; it reads the
     step inputs, h_proj, dz, dld and the weights once and writes dx, dh_proj
-    and the weight grads once."""
+    and the weight grads once. `kept` (the strict pair): K2a also writes
+    each step's h_l and gelu'(a_l), l = 0 .. nh, and s, and K2b reads them
+    and recomputes nothing: twice the forward's matmul work, plus the
+    mixes'."""
     S, size = kargs["an_scale"].shape
     d_a, nh = kargs["w1y"].shape[1], kargs["wm"].shape[1]
     n_out = kargs["wout"].shape[-1]
@@ -363,7 +374,9 @@ def train_work(kargs: dict, h_proj, rows: int, H: int) -> tuple[tuple[float, flo
     mixes = rows * (S - 1) * 2 * size * size
     weights = S * (2 * size + size * size + d_a * H + H + nh * (H * H + H) + H * n_out + n_out)
     b_bytes = 4 * (2 * weights + 2 * S * rows * H + S * rows * size + 2 * rows * size + rows)
-    return (f_ops, f_bytes + 4.0 * S * rows * size), (float(3 * mlp + mixes), float(b_bytes))
+    keep = 4.0 * S * rows * (2 * (nh + 1) * H + n_out // 2) if kept else 0.0
+    return ((f_ops, f_bytes + 4.0 * S * rows * size + keep),
+            (float((2 if kept else 3) * mlp + mixes), float(b_bytes + keep)))
 
 
 def grad_excess(got, ref, atol: float = GRAD_ATOL, rtol: float = GRAD_RTOL) -> tuple[float, float, float]:
@@ -1497,16 +1510,23 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
     """Phase 6b: strict training (`pallas_strict`, K2a and K2b in float32
     FMA: csrc/flow_fma.cu's `fma_flow_train_kernel`, csrc/flow_train_fma.cu).
     (a) Both at the flagship's widths on B = 4096 and a ragged 4099 against
-    their plain versions (TF32 off): K2a within KERNEL_TOL, K2b at the grad
-    bar; each no further from the plain version in float64 than twice the
-    float32 plain version (K2a over z, logdet and the step inputs; K2b over
-    its grads, each relative to its largest value), equal to the bit between
-    two calls. (b) The flagship built with `pallas_strict` at dropout 0:
+    their plain versions (TF32 off), each on the plain version's inputs: K2a
+    (z, logdet, the step inputs, and what it keeps for K2b against
+    `train_keep_reference`) within KERNEL_TOL; K2b on the plain step inputs
+    and the plain keep at the grad bar; each no further from the plain
+    version in float64 than twice the float32 plain version (K2a over z,
+    logdet and the step inputs; K2b over its grads, each relative to its
+    largest value); each equal to the bit between two calls; and the chain,
+    K2b on K2a's step inputs and keep, at the grad bar. (b) The flagship
+    built with `pallas_strict` at dropout 0:
     `Trainer.train` for 3 steps at batch 4096, counts zeroed before and read
     after (K2a and K2b 3 each, all float32 FMA on the FMA route, nothing of
     another mode); one step through the kernels against the plain float32
     autograd step; train samples/s both ways. (c) Their times at the main
-    path's inputs beside their bounds and plain versions, K2b's parts. Returns
+    path's inputs beside their bounds (the work each does: K2a writes the
+    keep, K2b reads it and recomputes nothing) and plain versions, K2b's
+    parts, the keep's and the scratch's bytes beside the card's memory, and
+    the strict step's peak memory. Returns
     the "K2a, strict" and "K2b, strict" rows of the kernel table."""
     import numpy as np
     import torch
@@ -1520,11 +1540,15 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
         ROUTE_FMA,
         _train_bwd_parts,
         fma_card_layout,
+        fma_keep_floats,
         fma_train_card_layout,
+        fma_train_scratch_floats,
         fused_flow_train_backward_reference,
         fused_flow_train_bwd,
         fused_flow_train_fwd,
         fused_flow_train_reference,
+        train_keep,
+        train_keep_reference,
     )
     from bcnf_tpu_torch.train import Trainer, make_optimizer
     from bcnf_tpu_torch.utils.misc import inn_nll_loss
@@ -1552,34 +1576,43 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
             kargs, h_proj = model._fused_flow_args(k_params, model.encode(k_params, (traj,)))
             args = [kargs[n] for n in TRAIN_ARGS]
             x = torch.from_numpy(rng.normal(size=(B, model.size)).astype(np.float32)).to(dev)
-            one = fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA)
-            two = fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA)
+            keep, again = (train_keep(x, h_proj, args[5], args[3].shape[1], MODE_FMA) for _ in range(2))
+            one = fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA, keep=keep)  # K2a keeping for K2b
+            two = fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA, keep=again)
             ref = fused_flow_train_reference(x, h_proj, *args)
+            plain_keep = train_keep_reference(ref[2], h_proj, *args)
             dz, dld = randn_cotangents(ref[0])
-            g1 = fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=MODE_FMA)
-            g2 = fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=MODE_FMA)
+            g1 = fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=MODE_FMA, keep=plain_keep)
+            g2 = fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=MODE_FMA, keep=plain_keep)
+            g_c = fused_flow_train_bwd(one[2], h_proj, dz, dld, *args, mode=MODE_FMA, keep=keep)  # the chain
             g_p = fused_flow_train_backward_reference(ref[2], h_proj, dz, dld, *args)
             out64, g64 = _strict_f64(x, h_proj, args, dz, dld)
             torch.cuda.synchronize()
         e = max((a - b).abs().max().item() for a, b in zip(one, ref))
-        fwd_err = max(fwd_err, e)
+        e_keep = (keep - plain_keep).abs().max().item()
+        fwd_err = max(fwd_err, e, e_keep)
         bwd_err = max(bwd_err, check_grads(f"K2b strict B={B}", GRAD_NAMES, g1, g_p))
-        bits = all(torch.equal(a, b) for a, b in zip(one, two)) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+        check_grads(f"K2b strict B={B} on K2a's step inputs and keep", GRAD_NAMES, g_c, g_p)
+        bits = (all(torch.equal(a, b) for a, b in zip((*one, keep), (*two, again)))
+                and all(torch.equal(a, b) for a, b in zip(g1, g2)))
         f_k, f_p = _rel_from(one, out64), _rel_from(ref, out64)
         b_k, b_p = _rel_from(g1, g64), _rel_from(g_p, g64)
-        print(f"    B={B}: K2a max|d| vs plain over z, logdet, step inputs {e:.3e} (tolerance {KERNEL_TOL:g}); "
-              f"from float64 (max |d| / max |ref| over the outputs): K2a {f_k:.3e}, float32 plain {f_p:.3e}; "
-              f"K2b {b_k:.3e}, float32 plain {b_p:.3e} (bar: twice the plain's); equal to the bit between two "
-              f"calls: {bits}")
-        if not e <= KERNEL_TOL or not f_k <= 2 * f_p or not b_k <= 2 * b_p or not bits:
-            fail(f"the strict K2a/K2b at B={B}: K2a {e:.3e} from plain (tolerance {KERNEL_TOL:g}); from float64 K2a "
-                 f"{f_k:.3e} vs plain {f_p:.3e}, K2b {b_k:.3e} vs plain {b_p:.3e}; equal between calls: {bits}")
+        print(f"    B={B}: K2a max|d| vs plain over z, logdet, step inputs {e:.3e}, over its keep {e_keep:.3e} "
+              f"(tolerance {KERNEL_TOL:g}); from float64 (max |d| / max |ref| over the outputs): K2a {f_k:.3e}, "
+              f"float32 plain {f_p:.3e}; K2b on the plain inputs and keep {b_k:.3e}, float32 plain {b_p:.3e} (bar: "
+              f"twice the plain's); equal to the bit between two calls: {bits}")
+        if not max(e, e_keep) <= KERNEL_TOL or not f_k <= 2 * f_p or not b_k <= 2 * b_p or not bits:
+            fail(f"the strict K2a/K2b at B={B}: K2a {e:.3e} from plain, its keep {e_keep:.3e} (tolerance "
+                 f"{KERNEL_TOL:g}); from float64 K2a {f_k:.3e} vs plain {f_p:.3e}, K2b {b_k:.3e} vs plain {b_p:.3e}; "
+                 f"equal between calls: {bits}")
         if B == 4096:
-            main = (x, h_proj, args, ref[2], dz, dld, e, max((a - b).abs().max().item() for a, b in zip(g1, g_p)))
+            main = (x, h_proj, args, one[2], keep, dz, dld, e, max((a - b).abs().max().item() for a, b in zip(g1, g_p)))
+        del keep, again, plain_keep
     after = counts()
-    if [a[0] - b[0] for a, b in zip(after, saved)] != [4, 4] or [a[1].get(MODE_FMA, 0) - b[1].get(MODE_FMA, 0)
-                                                                 for a, b in zip(after, saved)] != [4, 4]:
-        fail(f"the strict kernels' checks did not count 4 launches each in float32 FMA: {after} after {saved}")
+    if [a[0] - b[0] for a, b in zip(after, saved)] != [4, 6] or [a[1].get(MODE_FMA, 0) - b[1].get(MODE_FMA, 0)
+                                                                 for a, b in zip(after, saved)] != [4, 6]:
+        fail(f"the strict kernels' checks did not count 4 launches of K2a and 6 of K2b in float32 FMA: {after} "
+             f"after {saved}")
 
     # (b) the flagship with pallas_strict: Trainer.train, counts zeroed before and read after
     cfg = _flagship_train_config(4096, 1)
@@ -1630,8 +1663,13 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for kernels in (True, False):
         smodel.use_pallas = kernels
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
         trainer.train_step(smodel, [params], opt, yb, cb, [gen])
         torch.cuda.synchronize()
+        if kernels:  # the strict step's own allocations at its peak, beyond what the phase already held
+            step_gb = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
         t0 = time.perf_counter()
         for _ in range(5):
             trainer.train_step(smodel, [params], opt, yb, cb, [gen])
@@ -1649,18 +1687,19 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
              f"grads {worst:.3e} past the bar")
 
     # (c) times at the main path's batch-4096 inputs
-    x, h_proj, args, bound, dz, dld, e_fwd, e_bwd = main
+    x, h_proj, args, bound, keep, dz, dld, e_fwd, e_bwd = main
     H = model.nested_sizes[0]
-    with torch.no_grad():
+    with torch.no_grad():  # as the training step runs them: K2a keeping for K2b, K2b on that keep
         times = {
-            "K2a": (cuda_ms(lambda: fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA), reps=5),
+            "K2a": (cuda_ms(lambda: fused_flow_train_fwd(x, h_proj, *args, mode=MODE_FMA, keep=keep), reps=5),
                     cuda_ms(lambda: fused_flow_train_reference(x, h_proj, *args), reps=3)),
-            "K2b": (cuda_ms(lambda: fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=MODE_FMA), reps=5),
+            "K2b": (cuda_ms(lambda: fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=MODE_FMA, keep=keep),
+                            reps=5),
                     cuda_ms(lambda: fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args), reps=3)),
         }
         outs = tuple(torch.empty_like(t) for t in (dz, h_proj, *args[:2], *args[3:]))
         part_ms = {name: median(cuda_ms(lambda: _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(TRAIN_ARGS, args)),
-                                                                 outs, part, MODE_FMA), reps=3))
+                                                                 outs, part, MODE_FMA, None, keep), reps=3))
                    for name, part in (("rows", BWD_ROWS), ("weight grads", BWD_WEIGHT_GRADS))}
     for c, (n_l, modes, routes) in zip(counters, saved):  # the counts as this phase found them
         c.launches = n_l
@@ -1668,9 +1707,11 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
         c.mode_launches.update(modes)
         c.route_launches.clear()
         c.route_launches.update(routes)
-    work = dict(zip(("K2a", "K2b"), train_work(dict(zip(TRAIN_ARGS, args)), h_proj, B, H)))
-    Hp, d_a = h_proj.shape[-1], args[3].shape[1]
-    layouts = {"K2a": fma_card_layout(B, Hp, model.size, d_a), "K2b": fma_train_card_layout(B, Hp, model.size, d_a)}
+    work = dict(zip(("K2a", "K2b"), train_work(dict(zip(TRAIN_ARGS, args)), h_proj, B, H, kept=True)))
+    recompute = train_work(dict(zip(TRAIN_ARGS, args)), h_proj, B, H)[1]  # the function with the MLP recomputed
+    S, Hp, d_a, nh = h_proj.shape[0], h_proj.shape[-1], args[3].shape[1], args[5].shape[1]
+    layouts = {"K2a": fma_card_layout(B, Hp, model.size, d_a),
+               "K2b": fma_train_card_layout(B, S, Hp, model.size, d_a, nh)}
     rows = []
     for name, err, src, replaces in (
         ("K2a", e_fwd, "bcnf_tpu_torch/ops/csrc/flow_fma.cu", "bcnf_tpu/ops/flow_kernel.py:558"),
@@ -1687,9 +1728,20 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
               f"{len(k_times)}, range {min(k_times):.2f}-{max(k_times):.2f}), plain float32 {r['plain_ms']:.2f} ms; "
               f"max|d| vs plain {err:.2e}")
     k2b_ms = rows[1]["ms"]
-    print(f"    K2b, strict, parts (CUDA events, median of 3, ms): 26 rows kernels (with the transposed weights' "
-          f"copies) {part_ms['rows']:.2f}, 26 weight-grad passes {part_ms['weight grads']:.2f}, the rest "
-          f"{k2b_ms - part_ms['rows'] - part_ms['weight grads']:.2f}")
+    print(f"    K2b, strict, parts (CUDA events, median of 3, ms; layout above: the rows kernel's, then the "
+          f"weight-grad pass's blocks): the rows kernel over {S} steps (with the transposed weights' copies) "
+          f"{part_ms['rows']:.2f}, the weight-grad pass over {S} steps {part_ms['weight grads']:.2f}, the rest "
+          f"{k2b_ms - part_ms['rows'] - part_ms['weight grads']:.2f}; the function with the MLP recomputed "
+          f"(no keep) would be {recompute[0] / 1e12:.3f} TFLOP, {bound_ms(recompute, peaks, ARITH_FMA)[0]:.2f} ms "
+          f"at the float32-FMA rate")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    keep_gb = 4 * fma_keep_floats(B, S, model.size, d_a, nh, Hp) / 1e9
+    scratch_gb = 4 * fma_train_scratch_floats(B, S, model.size, d_a, nh, Hp) / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    print(f"    K2b, strict, memory at {B} rows: K2a's keep {keep_gb:.3f} GB and K2b's scratch {scratch_gb:.3f} GB "
+          f"of the card's {card_gb:.1f} GB ({smi}); the strict training step's own peak {step_gb:.3f} GB beyond "
+          f"what the phase held (the keep and the scratch grow with the rows)")
     return rows
 
 

@@ -195,9 +195,13 @@ def _source_constant(name: str, source: str = "flow_train_fma.cu") -> int:
 
 
 def test_strict_training_constants_are_read_from_the_kernel_source():
-    """The route's job limit is the source's `kFtMaxJobs`; the rows kernel's
-    ring bounds are the strict K1's (`kFmaRingMin`, `kFmaRingMax`)."""
+    """The route's job limit (a step's nh + 3 weight-grad jobs) is the
+    source's `kFtMaxJobs`, the weight-grad pass's output tile and rows a stage
+    its `kFtTile` and `kFtK`; the rows kernel's ring bounds are the strict
+    K1's (`kFmaRingMin`, `kFmaRingMax`), whose device parts it includes."""
     assert fk.kernel_limit("kFtMaxJobs") == _source_constant("kFtMaxJobs") == 32
+    assert fk.kernel_limit("kFtTile") == _source_constant("kFtTile") == 128
+    assert fk.kernel_limit("kFtK") == _source_constant("kFtK") == 32
     for name in ("kFmaRingMin", "kFmaRingMax", "kFmaStageRows", "kFmaLaneRows", "kFmaWideTN"):
         assert fk.kernel_limit(name) == _source_constant(name, "flow_fma.cu")
     assert '#include "flow_fma.cu"' in (CSRC / "flow_train_fma.cu").read_text()
@@ -253,16 +257,182 @@ def test_strict_training_shared_memory_is_the_source_sum(tn):
         assert (rows, floats, nbytes) == (R, stage, smem(stages)) and nbytes <= limit
         assert stages == fk.kernel_limit("kFmaRingMax") or smem(stages + 1) > limit
         assert blocks == min(-(-4096 // (4 * R)), 132)
+    # the weight-grad pass: kFtRing stages of kFtK rows of A's and B's tile columns
+    atb = 4 * _source_constant("kFtRing") * 2 * fk.kernel_limit("kFtK") * fk.kernel_limit("kFtTile")
+    assert atb <= limit and "kFtRing * 2 * kFtK * kFtTile" in (CSRC / "flow_train_fma.cu").read_text()
 
 
 def test_strict_training_layout_at_the_flagship_shape():
-    """At the flagship's shape (Hp 544, size 19, d_a 10) the rows kernel
-    takes 4 rows a lane, a 4-stage ring of 16-row stages (232,256 of the
-    232,448 bytes a block may use) and one block an SM at 4096 rows; 37
-    blocks at 37 groups."""
+    """At the flagship's shape (Hp 544, size 19, d_a 10, 4 hidden layers, 26
+    steps) the rows kernel takes 4 rows a lane, a 4-stage ring of 16-row
+    stages (232,256 of the 232,448 bytes a block may use) and one block an
+    SM at 4096 rows (37 blocks at 37 groups), for all 26 steps; the
+    weight-grad pass 111 tiles a step (5 x 5 for each dWm_l, 5 for dWout, 5
+    for dW1y, 1 for the ActNorm sums), 2886 blocks; the strict K2a keeps 2.32
+    GB for it and its scratch is 1.08 GB."""
     assert fk.fma_train_layout(4096, 544, 19, 10, 132) == (4, 132, 4, 8704, 232_256)
     assert fk.fma_train_layout(4096 + 3, 544, 19, 10, 132)[1] == 132
     assert fk.fma_train_layout(37 * 16, 544, 19, 10, 132)[1] == 37
+    tiles = fk.fma_atb_tiles(19, 10, 4, 544)
+    assert len(tiles) == 111 and 26 * len(tiles) == 2886
+    assert [sum(t[0] == j for t in tiles) for j in range(7)] == [25, 25, 25, 25, 5, 5, 1]
+    # half-tiles run: a dWm_l's 16 inner tiles 4 each, its 8 edge tiles 2, its corner 1; dWout's and dW1y's 9
+    assert sum(t[3] * t[4] for t in tiles) == 4 * (16 * 4 + 8 * 2 + 1) + 9 + 9 + 1
+    assert 4 * fk.fma_keep_floats(4096, 26, 19, 10, 4, 544) == 2_317_352_960 + 3_833_856
+    assert 4 * fk.fma_train_scratch_floats(4096, 26, 19, 10, 4, 544) == 1_084_013_536
+
+
+@pytest.mark.parametrize("Hp,size,d_a,nh", [(544, 19, 10, 4), (32, 7, 4, 1), (1024, 19, 10, 14), (384, 38, 19, 2),
+                                           (128, 200, 100, 3)])
+def test_strict_weight_grad_tiles_cover_every_output_once(Hp, size, d_a, nh):
+    """The weight-grad pass's blocks of a step (`fma_atb_tiles`, the
+    kernel's job list and tiling): every output of every job, its column
+    sums' row included, lies in exactly one block's halves, and a half a
+    block skips holds none (an index model of the blocks' 8 x 8 outputs a
+    thread: rows 4 ty + i and 64 + 4 ty + i, columns likewise); nor does a
+    warp (16 rows x 32 columns of each half) whose first row or column lies
+    past the job's, which skips its products."""
+    tile = fk.kernel_limit("kFtTile")
+    jobs = fk.fma_atb_jobs(size, d_a, nh, Hp)
+    assert len(jobs) == nh + 3 <= fk.kernel_limit("kFtMaxJobs")
+    covered = [np.zeros((m + int(sums), n), dtype=int) for _, m, n, sums in jobs]
+    for j, m0, n0, mi, nj in fk.fma_atb_tiles(size, d_a, nh, Hp):
+        rows = np.concatenate([m0 + h * tile // 2 + np.arange(tile // 2) for h in range(mi)])
+        cols = np.concatenate([n0 + h * tile // 2 + np.arange(tile // 2) for h in range(nj)])
+        mt, n = covered[j].shape
+        for h in range(mi, 2):  # a skipped half holds no output
+            assert m0 + h * tile // 2 >= mt
+        for h in range(nj, 2):
+            assert n0 + h * tile // 2 >= n
+        r, c = rows[rows < mt], cols[cols < n]
+        covered[j][np.ix_(r, c)] += 1
+        for w in range(8):  # csrc: `busy`
+            w_rows = m0 + (w // 2) * 16 + np.concatenate([np.arange(16), 64 + np.arange(16)])
+            w_cols = n0 + (w % 2) * 32 + np.concatenate([np.arange(32), 64 + np.arange(32)])
+            if m0 + (w // 2) * 16 >= mt or n0 + (w % 2) * 32 >= n:
+                assert not ((w_rows < mt).any() and (w_cols < n).any())
+    for (name, m, n, _), cov in zip(jobs, covered):
+        assert cov.min() == cov.max() == 1, name
+
+
+def test_strict_keep_and_scratch_are_the_source_layouts():
+    """The strict K2a's keep (`fma_keep_floats`, csrc/flow_fma.cu's
+    `fma_keep_act`/`fma_keep_s`, as the kernel indexes them: step k's h_l,
+    then its gelu'(a_l), l = 0 .. nh, each B x Hp; then every step's s, B x
+    d_b) fills its floats exactly once; the K2b scratch
+    (`fma_train_scratch_floats`) is the sum of its parts, each rounded up
+    to 4 floats, in the source's order."""
+    for B, S, size, d_a, nh, Hp in ((5, 3, 7, 4, 1, 32), (37, 2, 19, 10, 4, 544), (33, 4, 8, 3, 2, 64)):
+        n = fk.fma_keep_floats(B, S, size, d_a, nh, Hp)
+        seen = np.zeros(n, dtype=int)
+        for k in range(S):
+            for grad in (0, 1):
+                for l in range(nh + 1):
+                    o = ((k * 2 + grad) * (nh + 1) + l) * B * Hp
+                    seen[o:o + B * Hp] += 1
+            o = S * 2 * (nh + 1) * B * Hp + k * B * (size - d_a)
+            seen[o:o + B * (size - d_a)] += 1
+        assert seen.min() == seen.max() == 1
+        parts = [S * nh * Hp * Hp, S * 2 * (size - d_a) * Hp, S * Hp * (d_a + d_a % 2), S * B * nh * Hp,
+                 S * B * 2 * (size - d_a), S * B * size, S * B * (2 * size + 1), S * (2 * size + 1)]
+        assert fk.fma_train_scratch_floats(B, S, size, d_a, nh, Hp) == sum(-(-p // 4) * 4 for p in parts)
+    text = (CSRC / "flow_fma.cu").read_text()
+    assert "((static_cast<size_t>(k) * 2 + (grad ? 1 : 0)) * (nh + 1) + l) * B * Hp" in text
+    assert "static_cast<size_t>(S) * 2 * (nh + 1) * B * Hp + static_cast<size_t>(k) * B * d_b" in text
+
+
+@pytest.mark.parametrize("B,S,size,d_a,nh,Hp", [(5, 3, 7, 4, 1, 32), (37, 2, 19, 10, 4, 64), (33, 4, 8, 3, 2, 32)])
+def test_strict_backward_from_the_plain_keep_is_the_plain_backward(B, S, size, d_a, nh, Hp):
+    """What the strict K2b reads, `train_keep_reference` (indexed as the
+    kernels index it: csrc/flow_fma.cu's `fma_keep_act`, `fma_keep_s`), is
+    all the backward needs of the MLP: the backward taken from the step
+    inputs and that keep, recomputing nothing (the strict K2b's arithmetic),
+    gives `fused_flow_train_backward_reference`'s ten grads, in float64."""
+    gen = torch.Generator().manual_seed(B + nh)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, dtype=torch.float64)
+
+    an_scale, an_bias = 1 + 0.1 * randn(S, size), 0.1 * randn(S, size)
+    ortho = torch.linalg.qr(randn(S, size, size))[0]
+    w1y, b1, wm, bm = randn(S, d_a, Hp, scale=0.5), randn(S, Hp, scale=0.1), randn(S, nh, Hp, Hp, scale=Hp ** -0.5), \
+        randn(S, nh, Hp, scale=0.1)
+    wout, bout = randn(S, Hp, 2 * (size - d_a), scale=0.1), randn(S, 2 * (size - d_a), scale=0.1)
+    args = (an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)
+    x, h_proj, dz, dld = randn(B, size), randn(S, B, Hp, scale=0.5), randn(B, size), randn(B)
+    _, _, bound = fk.fused_flow_train_reference(x, h_proj, *args)
+    keep = fk.train_keep_reference(bound, h_proj, *args)
+    assert keep.numel() == fk.fma_keep_floats(B, S, size, d_a, nh, Hp)
+    d_b = size - d_a
+
+    def kept(k, l, grad):
+        o = ((k * 2 + grad) * (nh + 1) + l) * B * Hp
+        return keep[o:o + B * Hp].view(B, Hp)
+
+    grads = [torch.zeros_like(t) for t in (dz, h_proj, an_scale, an_bias, w1y, b1, wm, bm, wout, bout)]
+    dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout = grads
+    dx = dz
+    for k in range(S - 1, -1, -1):
+        inner = k < S - 1
+        x1 = bound[k] * an_scale[k] + an_bias[k] if inner else bound[k]
+        o = S * 2 * (nh + 1) * B * Hp + k * B * d_b
+        s = keep[o:o + B * d_b].view(B, d_b)
+        dx2 = dx @ ortho[k].T if inner else dx
+        dz_b = dx2[:, d_a:]
+        ds = dz_b * torch.exp(s) * x1[:, d_a:] + dld[:, None]
+        dout = torch.cat([dz_b, ds * (1 - s * s)], dim=-1)
+        dwout[k], dbout[k] = kept(k, nh, 0).T @ dout, dout.sum(0)
+        dh = dout @ wout[k].T
+        for i in range(nh - 1, -1, -1):
+            da = kept(k, i + 1, 1) * dh
+            dwm[k, i], dbm[k, i] = kept(k, i, 0).T @ da, da.sum(0)
+            dh = da @ wm[k, i].T
+        da0 = kept(k, 0, 1) * dh
+        dw1y[k], db1[k], dhp[k] = x1[:, :d_a].T @ da0, da0.sum(0), da0
+        dx1 = torch.cat([dx2[:, :d_a] + da0 @ w1y[k].T, dz_b * torch.exp(s)], dim=-1)
+        if inner:
+            dan_s[k] = (dx1 * bound[k]).sum(0) + dld.sum() / an_scale[k]
+            dan_b[k] = dx1.sum(0)
+            dx = dx1 * an_scale[k]
+        else:
+            dx = dx1
+    refs = fk.fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args)
+    for name, a, b in zip(GRAD_NAMES, (dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout), refs):
+        torch.testing.assert_close(a, b, atol=1e-12, rtol=1e-10, msg=name)
+
+
+def test_strict_weight_grad_sum_order_emulated_in_float32():
+    """The weight-grad pass's fixed order, emulated in float32: each
+    output's sum over 4096 rows taken kFtK rows at a time into a fresh sum,
+    each stage's sum added to the running one, is nearer the float64 sum
+    than one running float32 sum over all rows (RMS over 544 columns of
+    column sums, the bias grads, and of A^T B outputs), and independent of
+    the tile an output falls in."""
+    rng = np.random.default_rng(0)
+    K, stage = 4096, fk.kernel_limit("kFtK")
+    da = rng.normal(size=(K, 544)).astype(np.float32)
+    h = (0.5 + rng.random(size=(K, 3))).astype(np.float32)
+
+    def two_level(prod):
+        total = np.zeros(prod.shape[1], dtype=np.float32)
+        for s0 in range(0, K, stage):
+            fresh = np.zeros(prod.shape[1], dtype=np.float32)
+            for r in range(s0, min(K, s0 + stage)):
+                fresh = fresh + prod[r]
+            total = total + fresh
+        return total
+
+    def one_level(prod):
+        total = np.zeros(prod.shape[1], dtype=np.float32)
+        for r in range(K):
+            total = total + prod[r]
+        return total
+
+    for prod in (da, (h[:, :1] * da).astype(np.float32)):
+        exact = prod.astype(np.float64).sum(0)
+        err2 = np.sqrt(np.mean((two_level(prod) - exact) ** 2))
+        err1 = np.sqrt(np.mean((one_level(prod) - exact) ** 2))
+        assert err2 < 0.5 * err1, (err2, err1)
 
 
 # ---------------------------------------------------------------------------
@@ -300,42 +470,79 @@ def _card_case(cuda, hidden: int, nh: int, rows: int, seed: int, size: int = 19)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hidden,nh,rows", [(16, 2, 37), (100, 4, 6 * 37 + 5), (526, 4, 203), (1000, 2, 101),
-                                            (526, 1, 4099)])
+@pytest.mark.parametrize("hidden,nh,rows", [(16, 2, 37), (16, 1, 32), (100, 4, 6 * 37 + 5), (526, 4, 203),
+                                            (526, 14, 33), (1000, 2, 101), (1000, 4, 4099), (526, 1, 4099),
+                                            (526, 4, 4099)])
 def test_strict_training_kernels_match_plain_versions_on_card(cuda, hidden, nh, rows):
-    """The strict K2a's z, logdet and step inputs within 1e-4 of its plain
-    version, the strict K2b's grads at the JAX grad bar, each bit-equal
-    between two calls and counted on its route and mode."""
+    """On the plain version's inputs: the strict K2a's z, logdet, step inputs
+    and what it keeps for K2b within 1e-4 of their plain versions
+    (`fused_flow_train_reference`, `train_keep_reference`); the strict K2b,
+    on the plain step inputs and the plain keep, at the JAX grad bar; each
+    equal to the bit between two calls; the chain, K2b on K2a's step inputs
+    and keep, at the grad bar too; counted on their route and mode."""
     x, h_proj, args = _card_case(cuda, hidden, nh, rows, seed=hidden + rows)
     before = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FMA], fk.fused_flow_train_bwd.route_launches[fk.ROUTE_FMA],
               fk.fused_flow_train_fwd.mode_launches[fk.MODE_FMA], fk.fused_flow_train_bwd.mode_launches[fk.MODE_FMA])
     with torch.no_grad():
-        one = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA)
-        two = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA)
+        keep, again = (fk.train_keep(x, h_proj, args[5], args[3].shape[1], fk.MODE_FMA) for _ in range(2))
+        one = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA, keep=keep)
+        two = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA, keep=again)
         ref = fk.fused_flow_train_reference(x, h_proj, *args)
+        plain_keep = fk.train_keep_reference(ref[2], h_proj, *args)
         gen = torch.Generator(device=cuda).manual_seed(rows)
         dz = torch.randn(x.shape, generator=gen, device=cuda)
         dld = torch.randn((rows,), generator=gen, device=cuda)
-        g1 = fk.fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=fk.MODE_FMA)
-        g2 = fk.fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=fk.MODE_FMA)
+        g1 = fk.fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=fk.MODE_FMA, keep=plain_keep)
+        g2 = fk.fused_flow_train_bwd(ref[2], h_proj, dz, dld, *args, mode=fk.MODE_FMA, keep=plain_keep)
+        chain = fk.fused_flow_train_bwd(one[2], h_proj, dz, dld, *args, mode=fk.MODE_FMA, keep=keep)
         grefs = fk.fused_flow_train_backward_reference(ref[2], h_proj, dz, dld, *args)
         torch.cuda.synchronize()
-    for name, a, b, c in zip(("z", "logdet", "bound"), one, two, ref):
+    for name, a, b, c in zip(("z", "logdet", "bound", "keep"), (*one, keep), (*two, again), (*ref, plain_keep)):
         torch.testing.assert_close(a, c, atol=1e-4, rtol=0, msg=name)
         assert torch.equal(a, b), name
-    for name, a, b, c in zip(GRAD_NAMES, g1, g2, grefs):
+    for name, a, b, c, d in zip(GRAD_NAMES, g1, g2, grefs, chain):
         torch.testing.assert_close(a, c, atol=5e-4, rtol=1e-3, msg=name)
         assert torch.equal(a, b), name
+        torch.testing.assert_close(d, c, atol=5e-4, rtol=1e-3, msg=f"{name} (chain)")
     after = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FMA], fk.fused_flow_train_bwd.route_launches[fk.ROUTE_FMA],
              fk.fused_flow_train_fwd.mode_launches[fk.MODE_FMA], fk.fused_flow_train_bwd.mode_launches[fk.MODE_FMA])
-    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+    assert [a - b for a, b in zip(after, before)] == [2, 3, 2, 3]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Hp,size,d_a,rows", [(544, 19, 10, 4096), (1024, 19, 10, 101), (32, 7, 4, 37)])
-def test_strict_training_layout_on_card_is_the_host_copy(cuda, Hp, size, d_a, rows):
+def test_strict_training_refuses_a_missing_keep_on_card(cuda):
+    """The strict K2a and K2b have one way to run: each raises without the
+    keep, before any launch, and counts nothing."""
+    x, h_proj, args = _card_case(cuda, 16, 2, 37, seed=1)
+    counts = (fk.fused_flow_train_fwd.launches, fk.fused_flow_train_bwd.launches)
+    with torch.no_grad():
+        keep = fk.train_keep(x, h_proj, args[5], args[3].shape[1], fk.MODE_FMA)
+        with pytest.raises(ValueError, match="keep"):
+            fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA)
+        bound = fk.fused_flow_train_reference(x, h_proj, *args)[2]
+        with pytest.raises(ValueError, match="keep"):
+            fk.fused_flow_train_bwd(bound, h_proj, x, x[:, 0].contiguous(), *args, mode=fk.MODE_FMA)
+        with pytest.raises(ValueError, match="keep"):  # a keep of another shape
+            fk.fused_flow_train_bwd(bound, h_proj, x, x[:, 0].contiguous(), *args, mode=fk.MODE_FMA, keep=keep[1:])
+    assert (fk.fused_flow_train_fwd.launches, fk.fused_flow_train_bwd.launches) == counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hp,size,d_a,rows,nh", [(544, 19, 10, 4096, 4), (1024, 19, 10, 101, 14), (32, 7, 4, 37, 1)])
+def test_strict_training_layout_on_card_is_the_host_copy(cuda, Hp, size, d_a, rows, nh):
+    """The rows kernel's layout and the weight-grad pass's blocks, the keep's
+    and the scratch's floats, as the libraries compute them, are the host's
+    copies."""
+    from bcnf_tpu_torch.ops._build import load_library
+
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert fk.fma_train_card_layout(rows, Hp, size, d_a) == fk.fma_train_layout(rows, Hp, size, d_a, sms)
+    S = 26
+    assert fk.fma_train_card_layout(rows, S, Hp, size, d_a, nh) == (
+        *fk.fma_train_layout(rows, Hp, size, d_a, sms), S * len(fk.fma_atb_tiles(size, d_a, nh, Hp)))
+    assert load_library("flow_fma").bcnf_flow_fma_keep(rows, S, size, d_a, nh, Hp) == fk.fma_keep_floats(
+        rows, S, size, d_a, nh, Hp)
+    assert load_library("flow_train_fma").bcnf_flow_train_fma_scratch(rows, S, size, d_a, nh, Hp) == (
+        fk.fma_train_scratch_floats(rows, S, size, d_a, nh, Hp))
 
 
 @pytest.mark.gpu
@@ -378,6 +585,23 @@ def test_strict_training_step_launches_only_the_strict_kernels_on_card(cuda):
             assert a is None or not a.any()
         else:
             torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+
+
+def test_strict_train_parts_patches_apply_to_the_kernel_sources():
+    """Each variant of tools/strict_train_parts.py patches this checkout's
+    csrc/flow_train_fma.cu (or the flow_fma.cu it includes) at exactly one
+    place, so that the tool times the parts of the kernel as it is."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("strict_train_parts", Path(__file__).resolve().parent.parent
+                                                  / "tools" / "strict_train_parts.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    sources = {f: (CSRC / f).read_text() for f in ("flow_train_fma.cu", "flow_fma.cu")}
+    assert tool.PATCHES["as built"] == [] and len(tool.PATCHES) >= 8
+    for name, patches in tool.PATCHES.items():
+        for f, old, new in patches:
+            assert sources[f].count(old) == 1 and old != new, (name, old)
 
 
 # ---------------------------------------------------------------------------

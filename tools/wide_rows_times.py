@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""The row-tile routes at the padded widths 768 and 1024, on one NVIDIA GPU:
+K1 both ways, K2a, K2b and K4 both ways, in 3xTF32 and in one TF32 pass,
+each beside its bound.
+
+Run from the root of a checkout on a machine with a card:
+
+    python3 tools/wide_rows_times.py
+
+Below Hp 544 the tensor-core modes run the `wgmma` kernels; at 768 and 1024
+every one of these kernels takes the row tiles (`csrc/flow_kernel.cu`,
+`csrc/flow_train_kernel.cu`, and their one-pass `*_tf32` builds), which no
+published workflow launches. The shape is the flagship's but wider: 26 steps
+of 4 hidden layers, size 19, d_a 10, at H 700 (Hp 768) and H 1000 (Hp 1024);
+random weights, conditions and cotangents from seed 0. Rows as on the main
+path: K1's inverse on 80,000 rows conditioned on 8 (a `sample` of 10,000 x
+8), its forward, K2a and K2b on 4096 rows with their own conditions, K4
+(K1's kernel at one step) on 80,000 rows inverse and 4096 forward. Each
+call's route (`flow_route`, `train_bwd_route`) is printed and must be the
+row tiles. Times: CUDA events around one call, median of 5 after a warm-up
+(3 for K1's inverse). Bound: the larger of the operations at the mode's
+rate (3xTF32 a third of the TF32 peak, one pass the TF32 peak) and the bytes
+at the memory rate, from chip_smoke.py's `flow_work`/`train_work` at the
+unpadded width; the card's peaks from its name (chip_smoke.py's PEAKS).
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+S, SIZE, D_A, NH = 26, 19, 10, 4
+WIDTHS = (700, 1000)  # H: Hp 768 and 1024
+
+
+def main() -> None:
+    import torch
+
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from bcnf_tpu_torch.ops import _build
+    from bcnf_tpu_torch.ops import coupling_kernel as ck
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(["flow_kernel", "flow_kernel_tf32", "flow_train_kernel", "flow_train_kernel_tf32"])  # together
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi)
+    dev = torch.device("cuda")
+    peaks = cs.peaks_for(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    def timed(fn, reps: int = 5) -> float:
+        return cs.median(cs.cuda_ms(fn, reps))
+
+    names = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+    n_out = 2 * (SIZE - D_A)
+    for H in WIDTHS:
+        w = {"an_scale": 1 + 0.1 * randn(S, SIZE), "an_bias": 0.1 * randn(S, SIZE),
+             "ortho": torch.linalg.qr(randn(S, SIZE, SIZE))[0].contiguous(),
+             "w1y": randn(S, D_A, H, scale=D_A ** -0.5), "b1": randn(S, H, scale=0.1),
+             "wm": randn(S, NH, H, H, scale=H ** -0.5), "bm": randn(S, NH, H, scale=0.1),
+             "wout": randn(S, H, n_out, scale=0.1 * H ** -0.5), "bout": randn(S, n_out, scale=0.1)}
+        k8, hp8 = fk.pad_hidden(w, randn(S, 8, H, scale=0.5))
+        k4096, hp4096 = fk.pad_hidden(w, randn(S, 4096, H, scale=0.5))
+        Hp = hp8.shape[-1]
+        args = [k4096[n] for n in names]
+        x80k, x4096 = randn(80_000, SIZE), randn(4096, SIZE)
+        halves = {rows: (x[:, :D_A].contiguous(), x[:, D_A:].contiguous()) for rows, x in ((80_000, x80k), (4096, x4096))}
+        dz, dld = randn(4096, SIZE), randn(4096)
+        f_inv, f_fwd = cs.flow_work(k8, hp8, 80_000, H), cs.flow_work(k4096, hp4096, 4096, H)
+        w2a, w2b = cs.train_work(k4096, hp4096, 4096, H)
+        # K4: the first step's coupling alone (K1's kernel at one step)
+        one = {n: t[:1] for n, t in w.items()}
+        cw = dict(w1y=w["w1y"][0], b1=w["b1"][0], wm=list(w["wm"][0]), bm=list(w["bm"][0]), wout=w["wout"][0],
+                  bout=w["bout"][0])
+        c8, c4096 = randn(8, H, scale=0.5), randn(4096, H, scale=0.5)
+        k4_inv = cs.flow_work(fk.pad_hidden(one, c8[None])[0], c8[None], 80_000, H)
+        k4_fwd = cs.flow_work(fk.pad_hidden(one, c4096[None])[0], c4096[None], 4096, H)
+        print(f"H {H} (Hp {Hp}), 26 steps x 4 hidden layers, size {SIZE}, d_a {D_A}:")
+        for mode, arith in ((fk.MODE_3XTF32, cs.ARITH_3XTF32), (fk.MODE_TF32, cs.ARITH_TF32)):
+            routes = {"K1": (fk.flow_route(Hp, SIZE, D_A, True, mode), fk.flow_route(Hp, SIZE, D_A, False, mode)),
+                      "K2b": fk.train_bwd_route(Hp, SIZE, D_A, NH, mode)}
+            with torch.no_grad():
+                _, _, bound = fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)
+                cases = [
+                    ("K1 inverse, 80,000 rows", f_inv, 3,
+                     lambda: fk.fused_flow(x80k, hp8, *[k8[n] for n in names], inverse=True, n_cond=8, mode=mode)),
+                    ("K1 forward, 4096 rows", f_fwd, 5,
+                     lambda: fk.fused_flow(x4096, hp4096, *args, inverse=False, n_cond=4096, mode=mode)),
+                    ("K2a, 4096 rows", w2a, 5, lambda: fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)),
+                    ("K2b, 4096 rows", w2b, 5,
+                     lambda: fk.fused_flow_train_bwd(bound, hp4096, dz, dld, *args, mode=mode)),
+                    ("K4 inverse, 80,000 rows", k4_inv, 5,
+                     lambda: ck.fused_affine_coupling(*halves[80_000], c8, **cw, inverse=True, n_cond=8, mode=mode)),
+                    ("K4 forward, 4096 rows", k4_fwd, 5,
+                     lambda: ck.fused_affine_coupling(*halves[4096], c4096, **cw, mode=mode)),
+                ]
+                for what, work, reps, fn in cases:
+                    ms = timed(fn, reps)
+                    bound_ms, by = cs.bound_ms(work, peaks, arith)
+                    print(f"    {mode} {what}: {ms:.3f} ms, bound {bound_ms:.3f} ms ({by}), {bound_ms / ms:.1%} of "
+                          f"its bound", flush=True)
+            print(f"    {mode} routes: K1 inverse {routes['K1'][0]}, K1 forward / K2a / K4 forward "
+                  f"{routes['K1'][1]}, K2b {routes['K2b']}")
+            if {*routes["K1"], routes["K2b"]} - {fk.ROUTE_ROWS, fk.ROUTE_ROWS_TF32}:
+                raise SystemExit(f"H {H} {mode}: a route other than the row tiles: {routes}")
+
+
+if __name__ == "__main__":
+    main()
