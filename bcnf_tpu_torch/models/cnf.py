@@ -526,7 +526,13 @@ class CondRealNVP:
         # `bcnf_tpu/models/cnf.py:563-570`): under autograd each inner block
         # runs in `torch.utils.checkpoint`, so the backward recomputes its
         # activations from the block's input instead of keeping them. The
-        # training kernels recompute already and ignore it.
+        # training kernels ignore it: the tensor-core K2b recomputes each
+        # step's MLP from the stored step inputs; the strict K2a keeps each
+        # layer's h and gelu' for the strict K2b, and past a row chunk's
+        # share of the card's memory the strict backward runs K2a again a
+        # chunk (`ops/flow_kernel.py::strict_chunks`), so the keep and K2b's
+        # scratch stay within that share at any batch; the rest of the step
+        # still grows with the rows, as the plain path's does.
         self.remat = False
         common = dict(
             input_size=size, nested_sizes=nested_sizes, n_conditions=n_conditions,
@@ -760,7 +766,16 @@ class CondRealNVP:
         no random bits), a batch of at least `fused_train_min_batch` rows, and
         a CUDA tensor in place of the TPU platform test, at a precision the
         kernels have a mode for (`train_kernel_mode`) and a shape they take
-        (`_fused_train_takes`)."""
+        (`_fused_train_takes`). It checks no memory: the strict pair's keep
+        (`train_keep`) grows with the rows, but where a chunk's keep and K2b
+        scratch would pass their share of the card's memory the strict
+        backward runs in row chunks, K2a again on each
+        (`ops/flow_kernel.py::strict_chunks`), which bounds those two. The
+        rest of the step (activations, step inputs, grads, the encoder)
+        still grows with the rows, so the largest batch is the card's: at
+        the flagship's shape it grows 0.63 MB a row beyond ~16 GB, and on an
+        NVIDIA H100 80GB HBM3 65,536 rows train and 81,920 run out of memory
+        (PERF.md §5, `tools/strict_step_rate.py --batch N`)."""
         min_batch = int(os.environ.get("BCNF_FUSED_TRAIN_MIN_BATCH", self.fused_train_min_batch))
         return (
             self.use_pallas

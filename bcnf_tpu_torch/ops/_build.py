@@ -141,14 +141,14 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     elif source == "flow_fma":
         lib.bcnf_fused_flow.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
         lib.bcnf_fused_flow.restype = i32
-        lib.bcnf_fused_flow_train.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
+        lib.bcnf_fused_flow_train.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
         lib.bcnf_fused_flow_train.restype = i32
         lib.bcnf_flow_fma_layout.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
         lib.bcnf_flow_fma_layout.restype = i32
         lib.bcnf_flow_fma_keep.argtypes = [i32] * 6
         lib.bcnf_flow_fma_keep.restype = ctypes.c_longlong
     elif source == "flow_train_fma":
-        lib.bcnf_flow_train_bwd_fma.argtypes = [ptr] * 25 + [i32] * 7 + [ptr]
+        lib.bcnf_flow_train_bwd_fma.argtypes = [ptr] * 25 + [i32] * 9 + [ptr]
         lib.bcnf_flow_train_bwd_fma.restype = i32
         lib.bcnf_flow_train_fma_scratch.argtypes = [i32] * 6
         lib.bcnf_flow_train_fma_scratch.restype = ctypes.c_longlong

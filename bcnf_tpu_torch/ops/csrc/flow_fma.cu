@@ -74,6 +74,24 @@
 //   round. A round with one group leaves its other 4 warps idle (they still
 //   pass the ring's stages).
 // - No atomics, and every sum in a fixed order: two calls give equal bits.
+// - K2a's keep (2(nh + 1) S B Hp floats of h and gelu', 2.32 GB at the
+//   flagship's 4096 rows, 0.69 ms of bytes beside the 3.57 ms of products)
+//   leaves the epilogue without holding its registers or global addresses.
+//   h is already in the tile: the producer warpgroup's other 3 warps (the
+//   keepers) store each row group's rows of it to the keep during the next
+//   layer's products, handed the tile through named barriers (ready after
+//   the epilogue, free before the next one writes it). gelu' goes into 2
+//   ring stages that the producer hands out as staging slots after each
+//   layer's products (a stage holds a row group's rows of one layer,
+//   column-major as the keep lays gelu' out, so the epilogue writes each
+//   column's rows at once, with no buffer); the producer puts the next
+//   layer's first stages on their way into the ring's other slots, then
+//   copies each written slot to the keep with one bulk store (`cp.async.bulk`
+//   shared -> global) and waits for the store to have read it
+//   (`wait_group.read`) before it takes the slot again. (Storing from the epilogue's registers, `__stcs` a
+//   row, spilled 228 bytes and took 1.0-1.1 ms that overlapped nothing;
+//   handing out 4 slots for h and gelu' kept the next layer's first stages
+//   from loading until the stores had read them.)
 //
 // The hidden width is zero-padded to Hp by the host (exact: padded units
 // stay 0 because gelu(0) = 0). Rows past B in a ragged group are computed
@@ -97,6 +115,9 @@ constexpr int kFmaStageRows = 16;                 // weight rows a ring stage
 constexpr int kFmaRingMin = 2;                    // stages of the weight ring
 constexpr int kFmaRingMax = 6;
 constexpr int kFmaOutPairs = 12;                  // output columns a lane sums at once, in pairs
+constexpr int kFmaKeepers = 96;                   // K2a: the producer warpgroup's other 3 warps store h
+constexpr int kFmaHandOff = 128 + kFmaKeepers;    // a row group's warps and the keepers, at the tile's hand-offs
+constexpr int kFmaReady = 3, kFmaFree = 5;        // their named barriers, + the row group (1, 2: group_sync)
 
 // Rows a lane, and floats a ring stage holds (its weight rows, and at least
 // 4 rows of Wout), at TN.
@@ -232,17 +253,50 @@ __device__ __forceinline__ void store_act(float* at, const float (&acc)[R][TN], 
 // The activations the strict K2a keeps for the strict K2b
 // (flow_train_fma.cu), which then recomputes nothing of the MLP: for each
 // step k, h_l = gelu(a_l) for l = 0 .. nh, then gelu'(a_l) for l = 0 .. nh,
-// each B x Hp rows; after every step's, the output layer's s = tanh(s') of
-// every step (B x d_b each). Offsets in floats (the host's copy:
-// ops/flow_kernel.py::fma_keep_floats).
+// each of Bp = B rounded up to the row group (fma_keep_rows) x Hp floats: h
+// row-major, gelu' a row group at a time (group g's G x Hp block at g G Hp,
+// column-major and swizzled: keep_grad_at); rows past B hold what the
+// kernel computes for them (the flow of a zero row, conditioned on
+// h_proj[k, r % B]) and are never read; after
+// every step's, the output layer's s = tanh(s') of every step (B x d_b
+// each). Offsets in floats (the host's copy: ops/flow_kernel.py::
+// fma_keep_floats).
+__host__ __device__ inline int fma_keep_rows(int B, int Hp) {
+  const int G = 4 * fma_lane_rows(Hp / 32);
+  return (B + G - 1) / G * G;
+}
 __host__ __device__ inline size_t fma_keep_act(int k, int l, bool grad, int B, int nh, int Hp) {
-  return ((static_cast<size_t>(k) * 2 + (grad ? 1 : 0)) * (nh + 1) + l) * B * Hp;
+  return ((static_cast<size_t>(k) * 2 + (grad ? 1 : 0)) * (nh + 1) + l) * fma_keep_rows(B, Hp) * Hp;
 }
 __host__ __device__ inline size_t fma_keep_s(int k, int B, int S, int nh, int Hp, int d_b) {
-  return static_cast<size_t>(S) * 2 * (nh + 1) * B * Hp + static_cast<size_t>(k) * B * d_b;
+  return static_cast<size_t>(S) * 2 * (nh + 1) * fma_keep_rows(B, Hp) * Hp + static_cast<size_t>(k) * B * d_b;
 }
 __host__ __device__ inline size_t fma_keep_floats(int B, int S, int nh, int Hp, int d_b) {
   return fma_keep_s(S, B, S, nh, Hp, d_b);
+}
+
+// Where gelu' of column `col`, rows R rb .. R rb + R - 1 of a row group (rb
+// = lane / 8 for the products' lanes), lies within the group's G x Hp block
+// (of the keep, of K2a's staging slot, of K2b's ring stage), in floats:
+// column-major in units of R rows, a column's 4 units together, each unit's
+// index XOR-ed with (col / 4) % 8 (shifted up one at R = 2) within its
+// aligned 8 units (16 at R = 2). The 8 lanes of one 16-byte shared-memory
+// phase (16 lanes of an 8-byte one) take columns 4 apart: unswizzled they all
+// meet one bank group, swizzled none meets another's. The host's copy:
+// ops/flow_kernel.py::fma_keep_grad_at.
+template <int R>
+__host__ __device__ constexpr int keep_grad_at(int col, int rb) {
+  return R * ((4 * col + rb) ^ (((col >> 2) & 7) << (R == 2 ? 1 : 0)));
+}
+
+// p[r] = v[r] for the lane's R rows (16 or 8 bytes at once).
+template <int R>
+__device__ __forceinline__ void store_rows(float* p, const float (&v)[R]) {
+  if constexpr (R == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
 }
 
 // v[r] for the lane's R rows into column `col` of the transposed tile.
@@ -257,56 +311,64 @@ __device__ __forceinline__ void store_col(float* at, int col, int ldT, const flo
 }
 
 // store_act, keeping what the strict K2b reads: h = gelu(acc + bias) into
-// the tile, and h and gelu'(acc + bias) to the layer's kept rows hs, gs (B
-// x Hp; rows past B not stored; streaming stores, read once, much later).
-// `row` is the lane's first row; bias may be null. h is store_act's value
-// (gelu_and_grad: the same expression).
+// the tile and gelu'(acc + bias) into the lane's rows (rb: lane / 8) of a
+// staging slot of the ring, both column by column (`sg`: the row group's G x
+// Hp block, laid out as the keep lays it out: keep_grad_at), which the
+// producer then copies to the keep in bulk. bias may be null. h is
+// store_act's value (gelu_and_grad: the same expression).
 template <int R, int TN>
-__device__ __forceinline__ void keep_act(float* at, const float (&acc)[R][TN], const float* bias, float* hs,
-                                         float* gs, int row, int B, int cq, int lc) {
+__device__ __forceinline__ void keep_act(float* at, const float (&acc)[R][TN], const float* bias, float* sg, int rb,
+                                         int cq, int lc) {
   using Sh = FmaShape<TN>;
-  float b[TN];
-  if (bias != nullptr) {
-    load_cols<TN>(bias, cq, lc, b);
-  } else {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = 0.0f;
-  }
-#pragma unroll
-  for (int q = 0; q < Sh::Q4; ++q) {  // 4 adjacent columns: 16-byte stores
-    float h[4][R], g[4][R];
+  for (int q = 0; q < Sh::Q4; ++q) {  // 4 adjacent columns, their bias in one load
+    const int col = Sh::col(4 * q, cq, lc);
+    const float4 b4 = bias != nullptr ? *reinterpret_cast<const float4*>(bias + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
+      float h[R], g[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) gelu_and_grad(acc[r][4 * q + c] + b[4 * q + c], h[c][r], g[c][r]);
-      store_col<R>(at, Sh::col(4 * q + c, cq, lc), Sh::ldT, h[c]);
-    }
-    const int col = Sh::col(4 * q, cq, lc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (row + r < B) {
-        const size_t o = static_cast<size_t>(row + r) * Sh::Hp + col;
-        __stcs(reinterpret_cast<float4*>(hs + o), make_float4(h[0][r], h[1][r], h[2][r], h[3][r]));
-        __stcs(reinterpret_cast<float4*>(gs + o), make_float4(g[0][r], g[1][r], g[2][r], g[3][r]));
-      }
+      for (int r = 0; r < R; ++r) gelu_and_grad(acc[r][4 * q + c] + b[c], h[r], g[r]);
+      store_col<R>(at, col + c, Sh::ldT, h);
+      store_rows<R>(sg + keep_grad_at<R>(col + c, rb), g);
     }
   }
 #pragma unroll
   for (int i = 0; i < Sh::Q1; ++i) {
     const int j = 4 * Sh::Q4 + i, col = Sh::col(j, cq, lc);
+    const float b = bias != nullptr ? bias[col] : 0.0f;
     float h[R], g[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) gelu_and_grad(acc[r][j] + b[j], h[r], g[r]);
+    for (int r = 0; r < R; ++r) gelu_and_grad(acc[r][j] + b, h[r], g[r]);
     store_col<R>(at, col, Sh::ldT, h);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (row + r < B) {
-        __stcs(hs + static_cast<size_t>(row + r) * Sh::Hp + col, h[r]);
-        __stcs(gs + static_cast<size_t>(row + r) * Sh::Hp + col, g[r]);
-      }
-    }
+    store_rows<R>(sg + keep_grad_at<R>(col, rb), g);
   }
 }
+
+// The warps of named barrier `id` (bar.sync waits for `n` threads' arrival;
+// bar.arrive counts this thread's and goes on).
+__device__ __forceinline__ void bar_sync(int id, int n) { asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---- bulk stores, shared -> global (the keep's staged rows)
+
+__device__ __forceinline__ void bulk_store_s2g(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_addr(src)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Wait until at most N of the issuing thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// This thread's shared-memory writes, before a bulk copy (the async proxy) reads them.
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // outs[r][c] += sum_kk at[kk][r] ws[kk][c] over nk rows of Wout (n_out
 // columns a row), for a warp's R rows: KQ = 32 / R lanes share a row, lane
@@ -372,6 +434,36 @@ struct RingCursor {
   }
 };
 
+// K2a's epilogue where it keeps, for a lane of row group rg (its first row
+// `lane_row` within the group): once the keepers have taken the tile's last
+// h out (not before the first epilogue), the layer's h into the tile and
+// gelu' into the group's one of the next 2 ring slots (the round's first row
+// group's, then its second's: the producer's `keep_items`, which hands both
+// out at once), the warp passing both.
+template <int R, int TN>
+__device__ __forceinline__ void keep_epilogue(float* at, const float (&acc)[R][TN], const float* bias, bool active,
+                                              bool& kept_before, int rg, int cq, int lc, int lane_row, uint64_t* full,
+                                              uint64_t* empty, float* ring, int stage, int stages, RingCursor& ring_at) {
+  if (kept_before) bar_sync(kFmaFree + rg, kFmaHandOff);
+  kept_before = true;
+  RingCursor second = ring_at;
+  second.advance(stages);
+  mbar_wait(full + ring_at.slot, ring_at.phase);
+  mbar_wait(full + second.slot, second.phase);
+  if (active) {
+    const int slot = rg == 0 ? ring_at.slot : second.slot;
+    keep_act<R, TN>(at, acc, bias, ring + static_cast<size_t>(slot) * stage, lane_row / R, cq, lc);
+    fence_async_smem();
+  }
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) {
+    mbar_arrive(empty + ring_at.slot);
+    mbar_arrive(empty + second.slot);
+  }
+  ring_at = second;
+  ring_at.advance(stages);
+}
+
 // The block's contiguous range [g0, g1) of the `groups` row groups (the
 // host's copy: ops/flow_kernel.py::fma_groups).
 __device__ __forceinline__ void block_groups(int groups, int& g0, int& g1) {
@@ -389,9 +481,13 @@ int sm_count() {
 
 #ifndef BCNF_FMA_DEVICE_ONLY  // flow_train_fma.cu takes the helpers above, not the kernels below
 
-// The flow over the block's rounds; with kBound (K2a's forward, N = B) each
-// step's input rows are also stored to bound[k] (S x B x size) and each
-// layer's activations and s to keep (fma_keep_act, fma_keep_s).
+// The flow over the block's rounds; with kBound (K2a's forward; row r takes
+// h_proj[k * N + r], N >= B, and a row r >= B of the last row group, which
+// is computed but never stored, h_proj[k * N + r % B], within the B rows it
+// was given) each step's input rows are also stored to
+// bound[k] (S x B x size) and, where keep is not null, each layer's
+// activations and s to keep (fma_keep_act, fma_keep_s): the activations
+// through staging slots of the ring, copied out in bulk by the producer.
 template <int TN, bool kBound>
 __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const float* __restrict__ h_proj,
                                          const float* __restrict__ an_s, const float* __restrict__ an_b,
@@ -433,7 +529,117 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
   }
   __syncthreads();
 
-  if (warp >= kFmaWarps) {  // ---- the producer: every weight a step uses, in the order used
+  if constexpr (kBound) {
+    static_assert(Sh::BK == Sh::G, "a ring stage holds a row group's rows of one kept layer");
+  }
+  const bool keeping = kBound && keep != nullptr;  // K2a keeps what the strict K2b reads
+
+  if constexpr (kBound) {
+    if (warp > kFmaWarps) {  // ---- K2a's keepers: each layer's h, from the tile to the keep
+      if (!keeping) return;
+      const int tid = threadIdx.x - kFmaConsumers - 32;
+      for (int t = 0; t < rounds; ++t) {
+        for (int k = 0; k < S; ++k) {
+          for (int l = 0; l <= nh; ++l) {
+            float* hs = keep + fma_keep_act(k, l, false, B, nh, Hp);
+            for (int rg = 0; rg < 2; ++rg) {
+              bar_sync(kFmaReady + rg, kFmaHandOff);  // the group's h is in the tile
+              const int grp = g0 + 2 * t + rg;
+              for (int e = tid; e < G * (Hp / 4) && grp < g1; e += kFmaKeepers) {  // a warp: G rows, 32 / G quads
+                const int r = e % G, c = 4 * (e / G);
+                const float* src = actT + c * ldT + rg * G + r;
+                __stcs(reinterpret_cast<float4*>(hs + (static_cast<size_t>(grp) * G + r) * Hp + c),
+                       make_float4(src[0], src[ldT], src[2 * ldT], src[3 * ldT]));
+              }
+              bar_arrive(kFmaFree + rg, kFmaHandOff);  // ... and out of it
+            }
+          }
+        }
+      }
+      return;
+    }
+    if (warp == kFmaWarps) {  // ---- K2a's producer: K1's weights, and the keep's staging slots between layers
+      if (threadIdx.x != kFmaConsumers) return;
+      RingCursor next;
+      int issued = 0, n_commit = 0;
+      uint64_t reading = ~0ull;  // a slot's 8 bits: the number (mod 128) of the bulk store reading it; 255: none
+      // The last layer's 2 gelu' slots while not yet stored: the first's place in the ring, the layer, and the
+      // slots taken since (the next layer's first stages load into the other slots meanwhile).
+      int pend = -1, pend_k = 0, pend_l = 0, pend_t = 0, since = 0;
+      uint32_t pend_phase = 0;
+      auto claim = [&]() {  // the next slot, once its last users are done with it: every warp, and a bulk store
+        if (issued++ >= stages) mbar_wait(empty + next.slot, next.phase ^ 1u);
+        const int q = static_cast<int>((reading >> (8 * next.slot)) & 255u);
+        if (q != 255) {
+          const int later = (n_commit - 1 - q) & 127;  // stores committed after it
+          if (later == 0) bulk_wait_read<0>();
+          else if (later == 1) bulk_wait_read<1>();
+          else if (later == 2) bulk_wait_read<2>();
+          else bulk_wait_read<3>();
+          reading |= 255ull << (8 * next.slot);
+        }
+      };
+      // Gelu' slot i (the round's row group i), once that group's warps have written it and every warp has
+      // passed it: one bulk store to the keep's rows of its group.
+      auto store = [&](int i) {
+        const int slot = (pend + i) % stages;
+        mbar_wait(empty + slot, pend_phase ^ (static_cast<uint32_t>((pend + i) / stages) & 1u));
+        const int grp = g0 + 2 * pend_t + i;
+        const int rows = grp < g1 ? min(G, B - grp * G) : 0;
+        if (rows > 0) {
+          bulk_store_s2g(keep + fma_keep_act(pend_k, pend_l, true, B, nh, Hp) + static_cast<size_t>(grp) * G * Hp,
+                         ring + static_cast<size_t>(slot) * stage, 4u * static_cast<uint32_t>(G * Hp));
+          bulk_commit();
+          reading = (reading & ~(255ull << (8 * slot))) | (static_cast<uint64_t>(n_commit & 127) << (8 * slot));
+          ++n_commit;
+        }
+      };
+      auto flush = [&]() {
+        if (pend >= 0) {
+          store(0);
+          store(1);
+          pend = -1;
+        }
+      };
+      auto push = [&](const float* src, int floats) {
+        if (pend >= 0 && since++ >= stages - 2) flush();  // the next slot is a gelu' slot: stored first
+        claim();
+        const uint32_t bytes = 4u * static_cast<uint32_t>(floats);
+        uint64_t* bar = full + next.slot;
+        float* dst = ring + static_cast<size_t>(next.slot) * stage;
+        mbar_arrive_expect_tx(bar, bytes); bulk_copy_g2s(dst, src, bytes, bar);
+        next.advance(stages);
+      };
+      // Layer l's gelu' at step k in round t: the next 2 slots, handed out for the consumers to write (a ring
+      // has at least 2 stages), stored once the next stages-2 weight stages are on their way.
+      auto keep_items = [&](int k, int l, int t) {
+        flush();
+        pend = next.slot, pend_phase = next.phase, pend_k = k, pend_l = l, pend_t = t, since = 0;
+        for (int i = 0; i < 2; ++i) {
+          claim();
+          mbar_arrive(full + next.slot);  // no copy in: the consumers write it
+          next.advance(stages);
+        }
+      };
+      for (int t = 0; t < rounds; ++t) {
+        for (int k = 0; k < S; ++k) {
+          for (int j = 0; j < n_in; ++j)
+            push(w1y + (static_cast<size_t>(k) * d_a + j * BK) * Hp, min(BK, d_a - j * BK) * Hp);
+          if (keeping) keep_items(k, 0, t);
+          for (int l = 0; l < nh; ++l) {
+            for (int s = 0; s < Hp / BK; ++s)
+              push(wm + ((static_cast<size_t>(k) * nh + l) * Hp + s * BK) * Hp, BK * Hp);
+            if (keeping) keep_items(k, l + 1, t);
+          }
+          for (int j = 0; j < n_outs; ++j)
+            push(wout + (static_cast<size_t>(k) * Hp + j * out_rows) * n_out, min(out_rows, Hp - j * out_rows) * n_out);
+        }
+      }
+      flush();
+      bulk_wait_all();  // the keep's stores complete before the block ends
+      return;
+    }
+  } else if (warp >= kFmaWarps) {  // ---- the producer: every weight a step uses, in the order used
     if (threadIdx.x != kFmaConsumers) return;
     RingCursor next;
     int issued = 0;
@@ -476,6 +682,7 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
     if (lane == 0) mbar_arrive(empty + ring_at.slot);
     ring_at.advance(stages);
   };
+  bool kept_before = false;  // K2a: an epilogue has handed the keepers the tile
 
   for (int t = 0; t < rounds; ++t) {
     const bool active = g0 + 2 * t + rg < g1;  // the row group has rows this round
@@ -494,8 +701,9 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
       const float* sc = an_s + static_cast<size_t>(k) * size;
       const float* bi = an_b + static_cast<size_t>(k) * size;
       const float* Q = ortho + static_cast<size_t>(k) * size * size;
-      // the input layer's sums start at b1 + h_proj[k, row % N]: loaded
-      // first, so that the loads are in flight during the row work
+      // the input layer's sums start at b1 + h_proj[k, row % N] (K2a: row,
+      // or row % B past B): loaded first, so that the loads are in flight
+      // during the row work
       float acc[R][TN];
       if (active) {
         float b[TN];
@@ -503,7 +711,9 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           float h[TN];
-          load_cols<TN>(h_proj + (static_cast<size_t>(k) * N + (row0 + prod_row + r) % N) * Hp, cq, lc, h);
+          const int row = row0 + prod_row + r;
+          const int hrow = kBound ? (row < B ? row : row % B) : row % N;
+          load_cols<TN>(h_proj + (static_cast<size_t>(k) * N + hrow) * Hp, cq, lc, h);
 #pragma unroll
           for (int j = 0; j < TN; ++j) acc[r][j] = b[j] + h[j];
         }
@@ -552,14 +762,14 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
         if (active) input_product<R, TN>(ws, min(BK, d_a - j * BK), xs + prod_row * size + j * BK, size, acc, cq, lc);
         release();
       }
-      if constexpr (kBound) {
-        if (active)
-          keep_act<R, TN>(at, acc, nullptr, keep + fma_keep_act(k, 0, false, B, nh, Hp),
-                          keep + fma_keep_act(k, 0, true, B, nh, Hp), row0 + prod_row, B, cq, lc);
+      if (keeping) {
+        keep_epilogue<R, TN>(at, acc, nullptr, active, kept_before, rg, cq, lc, prod_row - rg * G, full, empty, ring,
+                             stage, stages, ring_at);
       } else {
         if (active) store_act<R, TN>(at, acc, nullptr, cq, lc);
       }
       group_sync(rg);
+      if (keeping) bar_arrive(kFmaReady + rg, kFmaHandOff);  // the keepers may take h out
 
       // ---- hidden layers: a <- gelu(a Wm_l + bm_l)
       for (int l = 0; l < nh; ++l) {
@@ -574,15 +784,14 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
           release();
         }
         group_sync(rg);  // every warp of the group is done reading the tile
-        if constexpr (kBound) {
-          if (active)
-            keep_act<R, TN>(at, acc, bm + (static_cast<size_t>(k) * nh + l) * Hp,
-                            keep + fma_keep_act(k, l + 1, false, B, nh, Hp),
-                            keep + fma_keep_act(k, l + 1, true, B, nh, Hp), row0 + prod_row, B, cq, lc);
+        if (keeping) {
+          keep_epilogue<R, TN>(at, acc, bm + (static_cast<size_t>(k) * nh + l) * Hp, active, kept_before, rg, cq, lc,
+                               prod_row - rg * G, full, empty, ring, stage, stages, ring_at);
         } else {
           if (active) store_act<R, TN>(at, acc, bm + (static_cast<size_t>(k) * nh + l) * Hp, cq, lc);
         }
         group_sync(rg);
+        if (keeping) bar_arrive(kFmaReady + rg, kFmaHandOff);
       }
 
       // ---- output layer: [t | s'] = a Wout + bout, the warp's own rows
@@ -611,7 +820,7 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
           if (!inverse) {
             *xb = expf(s) * *xb + o[r * n_out + j];
             o[r * n_out + d_b + j] = s;
-            if constexpr (kBound) {
+            if (keeping) {
               if (row0 + own_row + r < B)
                 keep[fma_keep_s(k, B, S, nh, Hp, d_b) + static_cast<size_t>(row0 + own_row + r) * d_b + j] = s;
             }
@@ -657,6 +866,7 @@ __device__ __forceinline__ void fma_flow(const float* __restrict__ x, const floa
       if (!inverse && lane < R && row0 + own_row + lane < B) ld_out[row0 + own_row + lane] = lds[own_row + lane];
     }
   }
+  if (keeping) bar_sync(kFmaFree + rg, kFmaHandOff);  // the keepers' last hand-off
 }
 
 // K1: the flow, forward or inverse.
@@ -672,16 +882,17 @@ fma_flow_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, c
                       size, d_a, nh, inverse, stages, groups);
 }
 
-// K2a: the forward with its step-input store and its keep.
+// K2a: the forward with its step-input store and, where keep is not null,
+// its keep; row r takes h_proj[k * N + r].
 template <int TN>
 __global__ void __launch_bounds__(kFmaThreads, 1)
 fma_flow_train_kernel(const float* __restrict__ x, const float* __restrict__ h_proj, const float* __restrict__ an_s,
                       const float* __restrict__ an_b, const float* __restrict__ ortho, const float* __restrict__ w1y,
                       const float* __restrict__ b1, const float* __restrict__ wm, const float* __restrict__ bm,
                       const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ z,
-                      float* __restrict__ ld_out, float* __restrict__ bound, float* __restrict__ keep, int B, int S,
-                      int size, int d_a, int nh, int stages, int groups) {
-  fma_flow<TN, true>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld_out, bound, keep, B, B, S, size,
+                      float* __restrict__ ld_out, float* __restrict__ bound, float* __restrict__ keep, int B, int N,
+                      int S, int size, int d_a, int nh, int stages, int groups) {
+  fma_flow<TN, true>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld_out, bound, keep, B, N, S, size,
                      d_a, nh, 0, stages, groups);
 }
 
@@ -699,8 +910,9 @@ cudaError_t fma_layout(int TN, int B, int size, int d_a, int sms, int* blocks, i
   return cudaSuccess;
 }
 
-// K1 (bound and keep null) or K2a (the forward, N = B, storing the step
-// inputs to bound and the activations the strict K2b reads to keep).
+// K1 (bound and keep null) or K2a (the forward, bound not null: storing the
+// step inputs to bound and, where keep is not null, the activations the
+// strict K2b reads to keep).
 template <int TN>
 cudaError_t fma_launch(const float* x, const float* h_proj, const float* an_s, const float* an_b, const float* ortho,
                        const float* w1y, const float* b1, const float* wm, const float* bm, const float* wout,
@@ -722,7 +934,7 @@ cudaError_t fma_launch(const float* x, const float* h_proj, const float* an_s, c
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     fma_flow_train_kernel<TN><<<blocks, kFmaThreads, smem, stream>>>(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm,
-                                                                     wout, bout, y, ld, bound, keep, B, S, size, d_a,
+                                                                     wout, bout, y, ld, bound, keep, B, N, S, size, d_a,
                                                                      nh, stages, groups);
   }
   return cudaGetLastError();
@@ -734,7 +946,7 @@ int fma_call(const float* x, const float* h_proj, const float* an_s, const float
              float* y, float* ld, float* bound, float* keep, int B, int N, int S, int size, int d_a, int nh, int Hp,
              int inverse, void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 0 || Hp % 32 != 0 ||
-      (!inverse && ld == nullptr) || ((keep == nullptr) != (bound == nullptr)) ||
+      (!inverse && ld == nullptr) || (keep != nullptr && bound == nullptr) || (bound != nullptr && N < B) ||
       ((reinterpret_cast<size_t>(w1y) | reinterpret_cast<size_t>(wm) | reinterpret_cast<size_t>(wout) |
         reinterpret_cast<size_t>(h_proj) | reinterpret_cast<size_t>(b1) | reinterpret_cast<size_t>(bm) |
         reinterpret_cast<size_t>(keep)) & 15) != 0)
@@ -781,17 +993,20 @@ extern "C" int bcnf_fused_flow(const float* x, const float* h_proj, const float*
                   d_a, nh, Hp, inverse, stream);
 }
 
-// K2a in exact float32: the forward (z, ld = logdet) with each step's input
-// rows stored to bound (S x B x size) and the activations the strict K2b
-// reads to keep (16-byte aligned, bcnf_flow_fma_keep floats); row r takes
-// h_proj[k, r] (N = B).
+// K2a in exact float32: the forward (z, ld = logdet) of B rows with each
+// step's input rows stored to bound (S x B x size) and, where keep is not
+// null, the activations the strict K2b reads to keep (16-byte aligned,
+// bcnf_flow_fma_keep floats for B rows); row r takes h_proj[k * N + r] (N >=
+// B: B rows of a larger batch's projections, whose rows of a step are N
+// apart, as the strict K2b's row chunks run it; the rows it computes past B
+// take h_proj[k * N + r % B], so that it reads none of h_proj's past its B).
 extern "C" int bcnf_fused_flow_train(const float* x, const float* h_proj, const float* an_s, const float* an_b,
                                      const float* ortho, const float* w1y, const float* b1, const float* wm,
                                      const float* bm, const float* wout, const float* bout, float* z, float* ld,
-                                     float* bound, float* keep, int B, int S, int size, int d_a, int nh, int Hp,
+                                     float* bound, float* keep, int B, int N, int S, int size, int d_a, int nh, int Hp,
                                      void* stream) {
-  if (bound == nullptr || keep == nullptr) return cudaErrorInvalidValue;
-  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, keep, B, B, S, size, d_a,
+  if (bound == nullptr) return cudaErrorInvalidValue;
+  return fma_call(x, h_proj, an_s, an_b, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound, keep, B, N, S, size, d_a,
                   nh, Hp, 0, stream);
 }
 

@@ -41,7 +41,8 @@
 //    across layers and steps: Wout^T, Wm_l^T for l = nh-1 .. 0, W1y^T (rows
 //    of W^T as the products read rows of W, copied once a call by
 //    `ft_transpose_kernel`), each layer's weights followed by its gelu'(a_l)
-//    from K2a's keep, one stage for each row group's rows, so that the
+//    from K2a's keep, one stage for each row group's block (as K2a's
+//    epilogue writes it: flow_fma.cu's keep_grad_at), so that the
 //    epilogue reads them from shared memory (read from device memory by each
 //    lane, they cost 2.7 ms: `no_acts`); s is read from the keep. x1, dout,
 //    da_l (l >= 1) and the ActNorm rows [dx1 x_k | dx1 | dld] of every step
@@ -102,40 +103,41 @@ __host__ __device__ constexpr size_t ft_smem(int TN, int size, int d_a, int stag
 }
 
 // The backward's epilogue: da = acc gelu'(a), into the tile and to dst (B x
-// Hp; rows past B not stored). gelu'(a) of the lane's rows is read from the
-// ring stage that holds its row group's rows of K2a's keep (`gs`: the lane's
-// first row, rows Hp floats apart; 0 past B). `row` is the lane's first row.
+// Hp; rows past B not stored). gelu'(a) of the lane's rows (rb: lane / 8) is
+// read from the ring stage that holds its row group's block of K2a's keep
+// (`gs`, laid out as flow_fma.cu's keep_grad_at; d is 0 for rows past B).
+// `row` is the lane's first row.
 template <int R, int TN>
-__device__ __forceinline__ void grad_act(float* at, const float (&acc)[R][TN], const float* gs, float* dst, int row,
-                                         int B, int cq, int lc) {
+__device__ __forceinline__ void grad_act(float* at, const float (&acc)[R][TN], const float* gs, int rb, float* dst,
+                                         int row, int B, int cq, int lc) {
   using Sh = FmaShape<TN>;
 #pragma unroll
   for (int q = 0; q < Sh::Q4; ++q) {
     const int col = Sh::col(4 * q, cq, lc);
     float d[4][R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const size_t o = static_cast<size_t>(row + r) * Sh::Hp + col;
-      const float4 g = row + r < B ? *reinterpret_cast<const float4*>(gs + r * Sh::Hp + col)
-                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      d[0][r] = acc[r][4 * q] * g.x;
-      d[1][r] = acc[r][4 * q + 1] * g.y;
-      d[2][r] = acc[r][4 * q + 2] * g.z;
-      d[3][r] = acc[r][4 * q + 3] * g.w;
-      if (row + r < B) *reinterpret_cast<float4*>(dst + o) = make_float4(d[0][r], d[1][r], d[2][r], d[3][r]);
+    for (int c = 0; c < 4; ++c) {
+      float g[R];
+      load_rows<R>(gs + keep_grad_at<R>(col + c, rb), g);
+#pragma unroll
+      for (int r = 0; r < R; ++r) d[c][r] = row + r < B ? acc[r][4 * q + c] * g[r] : 0.0f;
+      store_col<R>(at, col + c, Sh::ldT, d[c]);
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) store_col<R>(at, Sh::col(4 * q + c, cq, lc), Sh::ldT, d[c]);
+    for (int r = 0; r < R; ++r)
+      if (row + r < B)
+        *reinterpret_cast<float4*>(dst + static_cast<size_t>(row + r) * Sh::Hp + col) =
+            make_float4(d[0][r], d[1][r], d[2][r], d[3][r]);
   }
 #pragma unroll
   for (int i = 0; i < Sh::Q1; ++i) {
     const int j = 4 * Sh::Q4 + i, col = Sh::col(j, cq, lc);
-    float d[R];
+    float d[R], g[R];
+    load_rows<R>(gs + keep_grad_at<R>(col, rb), g);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const size_t o = static_cast<size_t>(row + r) * Sh::Hp + col;
-      d[r] = row + r < B ? acc[r][j] * gs[r * Sh::Hp + col] : 0.0f;
-      if (row + r < B) dst[o] = d[r];
+      d[r] = row + r < B ? acc[r][j] * g[r] : 0.0f;
+      if (row + r < B) dst[static_cast<size_t>(row + r) * Sh::Hp + col] = d[r];
     }
     store_col<R>(at, col, Sh::ldT, d);
   }
@@ -161,7 +163,7 @@ ft_rows_kernel(const float* __restrict__ bound, const float* __restrict__ dz, co
                const float* __restrict__ keep, const float* __restrict__ wmT, const float* __restrict__ woutT,
                const float* __restrict__ w1yT, float* __restrict__ dx, float* __restrict__ dhp,
                float* __restrict__ da_g, float* __restrict__ dout_g, float* __restrict__ x1_g,
-               float* __restrict__ an_g, int B, int S, int size, int d_a, int nh, int stages, int groups) {
+               float* __restrict__ an_g, int B, int Bs, int S, int size, int d_a, int nh, int stages, int groups) {
   using Sh = FmaShape<TN>;
   constexpr int Hp = Sh::Hp, BK = Sh::BK, ldT = Sh::ldT, R = Sh::R, G = Sh::G, BM = Sh::BM;
   const int d_b = size - d_a, n_out = 2 * d_b, d_ap = ft_dap(d_a), n_an = 2 * size + 1;
@@ -216,8 +218,8 @@ ft_rows_kernel(const float* __restrict__ bound, const float* __restrict__ dz, co
     };
     auto push_grad = [&](int t, int k, int l) {  // gelu'(a_l) of the round's two row groups, a stage each
       for (int h = 0; h < 2; ++h) {
-        const int grp = g0 + 2 * t + h, rows = grp < g1 ? min(G, B - grp * G) : 0;
-        push(keep + fma_keep_act(k, l, true, B, nh, Hp) + static_cast<size_t>(grp) * G * Hp, rows * Hp);
+        const int grp = g0 + 2 * t + h;
+        push(keep + fma_keep_act(k, l, true, B, nh, Hp) + static_cast<size_t>(grp) * G * Hp, grp < g1 ? G * Hp : 0);
       }
     };
     for (int t = 0; t < rounds; ++t) {
@@ -280,7 +282,7 @@ ft_rows_kernel(const float* __restrict__ bound, const float* __restrict__ dz, co
       const float* bi = an_b + static_cast<size_t>(k) * size;
       const float* Q = ortho + static_cast<size_t>(k) * size * size;
       const float* sk = keep + fma_keep_s(k, B, S, nh, Hp, d_b);
-      const size_t SBk = static_cast<size_t>(k) * B;
+      const size_t SBk = static_cast<size_t>(k) * B, SBsk = static_cast<size_t>(k) * Bs;
 
       // ---- the warp's own rows: x_k, x1 (to the scratch for dW1y), dx2 = dy Q^T, dout, dz_b e^s
       float* o = outs + own_row * n_out;
@@ -288,7 +290,7 @@ ft_rows_kernel(const float* __restrict__ bound, const float* __restrict__ dz, co
         for (int p = lane; p < R * size; p += 32) {
           const int q = own_row * size + p, i = p % size;
           const bool valid = row0 + q / size < B;
-          const float xv = valid ? bound[(SBk + row0) * size + q] : 0.0f;
+          const float xv = valid ? bound[(SBsk + row0) * size + q] : 0.0f;
           const float x1 = inner ? xv * sc[i] + bi[i] : xv;
           xs[q] = xv;
           x1s[q] = x1;
@@ -332,7 +334,7 @@ ft_rows_kernel(const float* __restrict__ bound, const float* __restrict__ dz, co
       auto epilogue = [&](float* dst) {  // the next two stages: each row group's rows of gelu'(a_l)
         for (int h = 0; h < 2; ++h) {
           const float* gs = wait();
-          if (active && h == rg) grad_act<R, TN>(at, acc, gs + (prod_row - rg * G) * Hp, dst, lrow, B, cq, lc);
+          if (active && h == rg) grad_act<R, TN>(at, acc, gs, (prod_row - rg * G) / R, dst, lrow, B, cq, lc);
           release();
         }
       };
@@ -350,7 +352,7 @@ ft_rows_kernel(const float* __restrict__ bound, const float* __restrict__ dz, co
           release();
         }
         group_sync(rg);
-        epilogue(l > 0 ? da_k + (l - 1) * BHp : dhp + static_cast<size_t>(k) * BHp);
+        epilogue(l > 0 ? da_k + (l - 1) * BHp : dhp + SBsk * Hp);
         group_sync(rg);
       }
 
@@ -623,8 +625,8 @@ cudaError_t ft_layout(int TN, int B, int size, int d_a, int sms, int* blocks, in
 template <int TN>
 cudaError_t launch_rows(const float* bound, const float* dz, const float* dld, const float* an_s, const float* an_b,
                         const float* ortho, const float* keep, const float* wmT, const float* woutT, const float* w1yT,
-                        float* dx, float* dhp, float* da, float* dout, float* x1, float* an, int B, int S, int size,
-                        int d_a, int nh, int sms, cudaStream_t stream) {
+                        float* dx, float* dhp, float* da, float* dout, float* x1, float* an, int B, int Bs, int S,
+                        int size, int d_a, int nh, int sms, cudaStream_t stream) {
   int blocks, stages;
   size_t smem;
   cudaError_t err = ft_layout(TN, B, size, d_a, sms, &blocks, &stages, &smem);
@@ -633,18 +635,19 @@ cudaError_t launch_rows(const float* bound, const float* dz, const float* dld, c
   if (err != cudaSuccess) return err;
   const int groups = (B + FmaShape<TN>::G - 1) / FmaShape<TN>::G;
   ft_rows_kernel<TN><<<blocks, kFmaThreads, smem, stream>>>(bound, dz, dld, an_s, an_b, ortho, keep, wmT, woutT, w1yT,
-                                                            dx, dhp, da, dout, x1, an, B, S, size, d_a, nh, stages,
-                                                            groups);
+                                                            dx, dhp, da, dout, x1, an, B, Bs, S, size, d_a, nh,
+                                                            stages, groups);
   return cudaGetLastError();
 }
 
-// The weight-grad jobs of a step, with their strides between steps (the
-// host's copy: ops/flow_kernel.py::fma_atb_jobs).
+// The weight-grad jobs of a step over B rows, with their strides between
+// steps (dh_proj's rows of a step are Bs apart; the host's copy:
+// ops/flow_kernel.py::fma_atb_jobs).
 int atb_jobs(const float* keep, const float* dhp, float* dw1y, float* db1, float* dwm, float* dbm, float* dwout,
              float* dbout, const float* da, const float* dout, const float* x1, const float* an, float* sums, int B,
-             int size, int d_a, int nh, int Hp, FtJob* jobs) {
+             int Bs, int size, int d_a, int nh, int Hp, FtJob* jobs) {
   const int n_out = 2 * (size - d_a), n_an = 2 * size + 1;
-  const long long BHp = static_cast<long long>(B) * Hp, keep_step = 2LL * (nh + 1) * BHp;
+  const long long BHp = static_cast<long long>(B) * Hp, keep_step = 2LL * (nh + 1) * fma_keep_rows(B, Hp) * Hp;
   int n = 0;
   for (int l = 0; l < nh; ++l)
     jobs[n++] = {keep + fma_keep_act(0, l, false, B, nh, Hp), da + l * BHp, dwm + static_cast<size_t>(l) * Hp * Hp,
@@ -652,8 +655,8 @@ int atb_jobs(const float* keep, const float* dhp, float* dw1y, float* db1, float
                  static_cast<long long>(nh) * Hp, Hp, Hp, Hp, Hp};
   jobs[n++] = {keep + fma_keep_act(0, nh, false, B, nh, Hp), dout, dwout, dbout, keep_step,
                static_cast<long long>(B) * n_out, static_cast<long long>(Hp) * n_out, n_out, Hp, n_out, Hp, n_out};
-  jobs[n++] = {x1, dhp, dw1y, db1, static_cast<long long>(B) * size, BHp, static_cast<long long>(d_a) * Hp, Hp,
-               size, Hp, d_a, Hp};
+  jobs[n++] = {x1, dhp, dw1y, db1, static_cast<long long>(B) * size, static_cast<long long>(Bs) * Hp,
+               static_cast<long long>(d_a) * Hp, Hp, size, Hp, d_a, Hp};
   jobs[n++] = {nullptr, an, nullptr, sums, 0, static_cast<long long>(B) * n_an, 0, n_an, 0, n_an, 0, n_an};
   return n;
 }
@@ -705,7 +708,7 @@ extern "C" int bcnf_flow_train_fma_layout(int B, int S, int size, int d_a, int n
   FtJob jobs[kFtMaxJobs];
   float dummy[4];  // the tiles depend on the jobs' shapes and on which have sums, not on their memory
   const int n_jobs = atb_jobs(dummy, dummy, dummy, dummy, dummy, dummy, dummy, dummy, dummy, dummy, dummy, dummy,
-                              dummy, B, size, d_a, nh, Hp, jobs);
+                              dummy, B, B, size, d_a, nh, Hp, jobs);
   int tiles = 0;
   for (int j = 0; j < n_jobs; ++j) tiles += ft_tiles_m(jobs[j]) * ft_tiles_n(jobs[j]);
   out[5] = S * tiles;
@@ -714,8 +717,12 @@ extern "C" int bcnf_flow_train_fma_layout(int B, int S, int size, int d_a, int n
 
 // The strict K2b: every grad of the training forward, in float32 FMA, from
 // the activations the strict K2a kept (`keep`: flow_fma.cu's fma_keep_act,
-// fma_keep_s; the same bound, h_proj and weights). Arguments otherwise as
-// flow_train_kernel.cu's `bcnf_flow_train_bwd` (the 3xTF32 K2b); Hp must be
+// fma_keep_s; the same bound, h_proj and weights), for the `count` rows from
+// row `first` of a batch of B (bound, dz, dld, dx and dh_proj hold B rows a
+// step; keep and the scratch are for `count` rows, as the K2a that ran on
+// those rows kept them; the weight and ActNorm grads are those rows' sums).
+// Arguments otherwise as flow_train_kernel.cu's `bcnf_flow_train_bwd` (the
+// 3xTF32 K2b); Hp must be
 // 32*TN for a compiled TN, nh >= 1 with nh + 3 jobs within kFtMaxJobs, the
 // rows kernel's ring within a block's shared memory, the weights, h_proj,
 // keep and the scratch 16-byte aligned: else cudaErrorInvalidValue. `parts`
@@ -727,9 +734,9 @@ extern "C" int bcnf_flow_train_bwd_fma(
     const float* an_b, const float* ortho, const float* w1y, const float* b1, const float* wm,
     const float* bm, const float* wout, const float* bout, const float* keep, float* dx, float* dhp, float* dan_s,
     float* dan_b, float* dw1y, float* db1, float* dwm, float* dbm, float* dwout, float* dbout,
-    float* scratch, int B, int S, int size, int d_a, int nh, int Hp, int parts, void* stream) {
-  if (B <= 0 || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 || nh + 3 > kFtMaxJobs || Hp % 32 != 0 ||
-      keep == nullptr ||
+    float* scratch, int B, int first, int count, int S, int size, int d_a, int nh, int Hp, int parts, void* stream) {
+  if (B <= 0 || first < 0 || count <= 0 || first > B - count || S <= 0 || d_a <= 0 || d_a >= size || nh < 1 ||
+      nh + 3 > kFtMaxJobs || Hp % 32 != 0 || keep == nullptr ||
       ((reinterpret_cast<size_t>(w1y) | reinterpret_cast<size_t>(wm) | reinterpret_cast<size_t>(wout) |
         reinterpret_cast<size_t>(h_proj) | reinterpret_cast<size_t>(keep) | reinterpret_cast<size_t>(scratch)) & 15) != 0)
     return cudaErrorInvalidValue;
@@ -738,8 +745,13 @@ extern "C" int bcnf_flow_train_bwd_fma(
   if (sms <= 0) return cudaErrorInvalidDevice;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_out = 2 * (size - d_a), d_ap = ft_dap(d_a);
+  bound += static_cast<size_t>(first) * size;  // the range's rows; the steps stay B rows apart
+  dz += static_cast<size_t>(first) * size;
+  dld += first;
+  dx += static_cast<size_t>(first) * size;
+  dhp += static_cast<size_t>(first) * Hp;
   size_t at[9];
-  scratch_parts(B, S, size, d_a, nh, Hp, at);
+  scratch_parts(count, S, size, d_a, nh, Hp, at);
   float* wmT = scratch + at[0];
   float* woutT = scratch + at[1];
   float* w1yT = scratch + at[2];
@@ -757,8 +769,8 @@ extern "C" int bcnf_flow_train_bwd_fma(
       return err;
 #define BCNF_CASE(TN)                                                                                                \
   case TN:                                                                                                           \
-    err = launch_rows<TN>(bound, dz, dld, an_s, an_b, ortho, keep, wmT, woutT, w1yT, dx, dhp, da, dout, x1, an, B, S, \
-                          size, d_a, nh, sms, st);                                                                   \
+    err = launch_rows<TN>(bound, dz, dld, an_s, an_b, ortho, keep, wmT, woutT, w1yT, dx, dhp, da, dout, x1, an, count, \
+                          B, S, size, d_a, nh, sms, st);                                                             \
     break;
     switch (Hp / 32) {
       BCNF_CASE(1)
@@ -778,9 +790,9 @@ extern "C" int bcnf_flow_train_bwd_fma(
   }
   if (parts & 2) {
     FtJob jobs[kFtMaxJobs];
-    const int n_jobs = atb_jobs(keep, dhp, dw1y, db1, dwm, dbm, dwout, dbout, da, dout, x1, an, sums, B, size, d_a, nh,
-                                Hp, jobs);
-    if ((err = launch_atb(jobs, n_jobs, B, S, st)) != cudaSuccess) return err;
+    const int n_jobs = atb_jobs(keep, dhp, dw1y, db1, dwm, dbm, dwout, dbout, da, dout, x1, an, sums, count, B, size,
+                                d_a, nh, Hp, jobs);
+    if ((err = launch_atb(jobs, n_jobs, count, S, st)) != cudaSuccess) return err;
   }
   if (parts & 4) {
     ft_actnorm_kernel<<<(S * size + 255) / 256, 256, 0, st>>>(sums, an_s, dan_s, dan_b, S, size);

@@ -40,7 +40,9 @@
   lo beside it), prepared once a step and handed from K2a to K2b. The
   strict K2b recomputes nothing of the MLP: the strict K2a keeps each
   layer's activations and gelu' for it (`train_keep`, which both require),
-  handed from K2a to K2b in the same way. The
+  handed from K2a to K2b in the same way; where a row chunk's keep would
+  pass its share of the card's memory, the strict backward runs in row
+  chunks, K2a again a chunk (`strict_chunks`). The
   tensor-core routes run their square hidden products in 3xTF32, or in one
   TF32 pass in the reduced mode; the strict routes every product in float32
   FMA.
@@ -380,11 +382,35 @@ def fma_atb_tiles(size: int, d_a: int, nh: int, Hp: int) -> list[tuple[int, int,
     return out
 
 
+def fma_keep_rows(B: int, Hp: int) -> int:
+    """Rows of each layer's h_l and gelu'(a_l) in the strict K2a's keep: B
+    rounded up to the strict kernels' row group (4 rows a lane's worth;
+    `csrc/flow_fma.cu`: `fma_keep_rows`), since gelu' is kept a row group at
+    a time."""
+    G = 4 * fma_lane_rows(Hp)
+    return -(-B // G) * G
+
+
+def fma_keep_grad_at(Hp: int) -> torch.Tensor:
+    """Where gelu'(a) of a row group's G x Hp block lies in the strict K2a's
+    keep (`csrc/flow_fma.cu`: `keep_grad_at`): entry col G + rr, the
+    block's column col, row rr, in column-major order, holds its float
+    offset within the block: column-major in units of R = G / 4 rows, each
+    unit's index XOR-ed with (col / 4) % 8 (shifted up one at R = 2), so that
+    the strict kernels' lanes, whose columns lie 4 apart, meet in no
+    shared-memory bank."""
+    R = fma_lane_rows(Hp)
+    G = 4 * R
+    col, rr = torch.arange(Hp).repeat_interleave(G), torch.arange(G).repeat(Hp)
+    return R * ((4 * col + rr // R) ^ (((col >> 2) & 7) << (1 if R == 2 else 0))) + rr % R
+
+
 def fma_keep_floats(B: int, S: int, size: int, d_a: int, nh: int, Hp: int) -> int:
     """Floats the strict K2a keeps for the strict K2b (`csrc/flow_fma.cu`:
     `fma_keep_floats`): h_l and gelu'(a_l) of every step and layer (2 (nh +
-    1) S B Hp), then s = tanh(s') of every step (S B d_b)."""
-    return 2 * (nh + 1) * S * B * Hp + S * B * (size - d_a)
+    1) S Bp Hp, Bp = `fma_keep_rows`), then s = tanh(s') of every step (S B
+    d_b)."""
+    return 2 * (nh + 1) * S * fma_keep_rows(B, Hp) * Hp + S * B * (size - d_a)
 
 
 def fma_train_scratch_floats(B: int, S: int, size: int, d_a: int, nh: int, Hp: int) -> int:
@@ -396,6 +422,77 @@ def fma_train_scratch_floats(B: int, S: int, size: int, d_a: int, nh: int, Hp: i
     parts = (S * nh * Hp * Hp, S * n_out * Hp, S * Hp * (d_a + d_a % 2), S * B * nh * Hp, S * B * n_out,
              S * B * size, S * B * n_an, S * n_an)
     return sum(-(-p // 4) * 4 for p in parts)
+
+
+# The strict K2b's row chunks. Where one chunk's keep and K2b scratch would
+# pass STRICT_CHUNK_SHARE of the card's memory, the strict K2a keeps nothing
+# in the forward and the backward runs K2a again on each chunk of rows into a
+# chunk's keep, then K2b on that chunk, summing the weight and ActNorm grads
+# over the chunks (as the JAX package's strict backward recomputes each
+# block's MLP from the stored step inputs). A chunk is a multiple of
+# STRICT_CHUNK_ROWS rows (the kernels' 32-row rounds and weight-grad stages);
+# a tail of fewer rows joins the last chunk.
+STRICT_CHUNK_SHARE = 0.125
+STRICT_CHUNK_ROWS = 32
+
+
+def strict_chunk_rows(S: int, size: int, d_a: int, nh: int, Hp: int, card_bytes: int) -> int:
+    """Rows of the strict K2b's row chunk on a card of `card_bytes` of
+    memory (its total, so that one card and one shape always chunk alike):
+    the most rows, a multiple of STRICT_CHUNK_ROWS (at least one), whose keep
+    (`fma_keep_floats`) and K2b scratch (`fma_train_scratch_floats`) take at
+    most STRICT_CHUNK_SHARE of it. 13,088 rows at the flagship's shape on an
+    H100 80GB (85,017,853,952 bytes)."""
+    budget = STRICT_CHUNK_SHARE * card_bytes
+
+    def fits(units: int) -> bool:
+        rows = units * STRICT_CHUNK_ROWS
+        return 4 * (fma_keep_floats(rows, S, size, d_a, nh, Hp) + fma_train_scratch_floats(rows, S, size, d_a, nh, Hp)
+                    ) <= budget
+
+    lo, hi = 1, int(budget // (4 * fma_keep_floats(STRICT_CHUNK_ROWS, S, size, d_a, nh, Hp))) + 1
+    while lo < hi:  # the most units that fit (fits is monotone), at least 1
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo * STRICT_CHUNK_ROWS
+
+
+def row_chunks(B: int, rows: int) -> list[tuple[int, int]]:
+    """[first, end) of each row chunk of B rows: `rows` rows each, a tail of
+    fewer than STRICT_CHUNK_ROWS joining the last (B 100 in chunks of 32:
+    32, 32 and 36)."""
+    ends = list(range(rows, B, rows)) + [B]
+    if len(ends) > 1 and ends[-1] - ends[-2] < STRICT_CHUNK_ROWS:
+        del ends[-2]
+    return list(zip([0] + ends[:-1], ends))
+
+
+def _strict_route(x: torch.Tensor, h_proj: torch.Tensor, d_a: int, mode: str) -> bool:
+    """Whether K2a and K2b run on x's rows by the strict float32 FMA route
+    (a CUDA tensor in `MODE_FMA`), whose K2a keeps what its K2b reads."""
+    return (x.device.type == "cuda" and mode == MODE_FMA
+            and flow_route(h_proj.shape[-1], x.shape[-1], d_a, False, mode) == ROUTE_FMA)
+
+
+def strict_chunks(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: int, mode: str,
+                  chunk_rows: int | None = None) -> list[tuple[int, int]] | None:
+    """The strict K2b's row chunks of x's B rows (`row_chunks`), or None
+    where the training step takes the batch whole: outside the strict mode;
+    with `chunk_rows` None, on a CPU tensor (whose plain versions keep
+    nothing) or where the batch fits one chunk of `strict_chunk_rows` on the
+    tensor's card. `chunk_rows` (a multiple of STRICT_CHUNK_ROWS) forces the
+    chunk's size, in either place."""
+    if mode != MODE_FMA:
+        return None
+    (B, size), (S, _, Hp), nh = x.shape, h_proj.shape, wm.shape[1]
+    if chunk_rows is None:
+        if not _strict_route(x, h_proj, d_a, mode):
+            return None
+        chunk_rows = strict_chunk_rows(S, size, d_a, nh, Hp, torch.cuda.get_device_properties(x.device).total_memory)
+    elif chunk_rows <= 0 or chunk_rows % STRICT_CHUNK_ROWS:
+        raise ValueError(f"chunk_rows must be a positive multiple of {STRICT_CHUNK_ROWS}, got {chunk_rows}")
+    chunks = row_chunks(B, chunk_rows)
+    return chunks if len(chunks) > 1 else None
 
 
 def fma_train_card_layout(B: int, S: int, Hp: int, size: int, d_a: int, nh: int) -> tuple[int, ...]:
@@ -1031,29 +1128,50 @@ def train_keep_reference(
     bout: torch.Tensor,
 ) -> torch.Tensor:
     """Plain PyTorch version of what the strict K2a keeps for the strict K2b,
-    from the step inputs `bound`, laid out as `fma_keep_floats` counts it:
-    for each step k, h_l = gelu(a_l) for l = 0 .. nh, then gelu'(a_l) for l =
-    0 .. nh, each (B, Hp); after every step's, each step's s = tanh(s'), (B,
-    d_b). With it the strict K2b runs on the plain version's inputs."""
+    from the step inputs `bound`, laid out as `fma_keep_floats` counts it
+    (`csrc/flow_fma.cu`: `fma_keep_act`, `fma_keep_s`): for each step k, h_l
+    = gelu(a_l) for l = 0 .. nh, then gelu'(a_l) for l = 0 .. nh, each of Bp
+    = `fma_keep_rows` rows, h row-major (Bp, Hp), gelu' a row group of G
+    rows at a time in a G x Hp block (`fma_keep_grad_at`); after every step's, each
+    step's s = tanh(s'), (B, d_b). Rows past B are what the kernel computes
+    for its last row group's rows past the batch, which the strict K2b never
+    reads: the flow of a zero row, conditioned on h_proj[k, r % B]. With it
+    the strict K2b runs on the plain version's inputs."""
     S, B, size = bound.shape
-    d_a = w1y.shape[1]
+    d_a, Hp = w1y.shape[1], w1y.shape[2]
+    Bp, G = fma_keep_rows(B, Hp), 4 * fma_lane_rows(Hp)
+    at = fma_keep_grad_at(Hp).to(bound.device)
+    args = (an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)
+
+    def blocks(g: torch.Tensor) -> torch.Tensor:  # gelu' (Bp, Hp) as the keep lays out its row groups' blocks
+        out = torch.empty_like(g).view(Bp // G, G * Hp)
+        out[:, at] = g.view(Bp // G, G, Hp).transpose(1, 2).reshape(Bp // G, G * Hp)
+        return out
+
+    if Bp > B:
+        wrap = torch.arange(B, Bp, device=bound.device) % B
+        past = fused_flow_train_reference(bound.new_zeros((Bp - B, size)), h_proj[:, wrap], *args)[2]
+        bound, h_proj = torch.cat([bound, past], dim=1), torch.cat([h_proj, h_proj[:, wrap]], dim=1)
     acts_and_grads, ss = [], []
     for k in range(S):
         x1 = bound[k] * an_scale[k] + an_bias[k] if k < S - 1 else bound[k]
         acts, hs = _train_step_mlp(k, x1[:, :d_a], h_proj, w1y, b1, wm, bm)
-        ss.append(torch.tanh((hs[-1] @ wout[k] + bout[k])[:, d_a - size:]))
-        acts_and_grads += hs + [gelu_grad(a) for a in acts]
+        ss.append(torch.tanh((hs[-1][:B] @ wout[k] + bout[k])[:, d_a - size:]))
+        acts_and_grads += hs + [blocks(gelu_grad(a)) for a in acts]
     return torch.cat([t.reshape(-1) for t in acts_and_grads + ss])
 
 
-def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tensor]) -> None:
-    if x.dim() != 2 or h_proj.dim() != 3 or h_proj.shape[1] != x.shape[0]:
+def _check_train_args(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tensor],
+                      first: int | None = None) -> None:
+    if (x.dim() != 2 or h_proj.dim() != 3
+            or (h_proj.shape[1] != x.shape[0] if first is None else not 0 <= first <= h_proj.shape[1] - x.shape[0])):
         raise ValueError(
             f"fused_flow_train: rows carry their own conditions, so h_proj must be (S, B, H) for x of "
-            f"(B, size); got x {tuple(x.shape)} and h_proj {tuple(h_proj.shape)}"
+            f"(B, size), or hold rows first .. first + B - 1 given `first`; got x {tuple(x.shape)}, h_proj "
+            f"{tuple(h_proj.shape)}, first {first}"
         )
     if x.device.type == "cuda":
-        _check_args(x, dict(h_proj=h_proj, **args), x.shape[0])
+        _check_args(x, dict(h_proj=h_proj, **args), h_proj.shape[1])
 
 
 def fused_flow_train_fwd(
@@ -1073,24 +1191,43 @@ def fused_flow_train_fwd(
     reads: pass `train_keep`'s buffer, else it raises), or raises. Counts its
     launches in `launches`, by mode in `mode_launches` and by route in
     `route_launches`."""
-    _check_mode(mode, TRAIN_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
     _check_train_args(x, h_proj, args)
+    if keep is None and _strict_route(x, h_proj, w1y.shape[1], mode):  # raises
+        _checked_keep(keep, ROUTE_FMA, x.shape[0], h_proj.shape[0], x.shape[1], w1y.shape[1], wm.shape[1],
+                      h_proj.shape[2], x.device, "fused_flow_train_fwd")
+    return _train_fwd(x, h_proj, args, mode, wstages, keep)
+
+
+def _train_fwd(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tensor], mode: str,
+               wstages: torch.Tensor | None, keep: torch.Tensor | None,
+               first: int | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`fused_flow_train_fwd`, where the strict route may also keep nothing
+    (keep None: the forward of a step whose backward runs in row chunks) and,
+    given `first`, runs on rows first .. first + B - 1 of h_proj's (as the
+    chunked backward runs it again on a chunk's step inputs, into the
+    chunk's keep)."""
+    _check_mode(mode, TRAIN_MODES)
+    _check_train_args(x, h_proj, args, first)
     if x.device.type == "cpu":
-        return fused_flow_train_reference(x, h_proj, **args)
+        rows = h_proj if first is None else h_proj[:, first:first + x.shape[0]]
+        return fused_flow_train_reference(x, rows, **args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_flow_train runs on CPU or CUDA tensors, not {x.device}")
 
     from bcnf_tpu_torch.ops._build import load_library
 
     B, size = x.shape
-    S, _, Hp = h_proj.shape
+    S, N, Hp = h_proj.shape
+    an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout = args.values()
     d_a, nh = w1y.shape[1], wm.shape[1]
     route = flow_route(Hp, size, d_a, False, mode)
     if route is None:
         raise ValueError(f"fused_flow_train_fwd: no kernel takes size {size}, d_a {d_a} at hidden width {Hp} ({mode})")
-    if route == ROUTE_FMA or keep is not None:
+    if first is not None and route != ROUTE_FMA:
+        raise ValueError(f"fused_flow_train_fwd: row ranges (first) are the strict route's, not {route}'s")
+    if keep is not None:
         _checked_keep(keep, route, B, S, size, d_a, nh, Hp, x.device, "fused_flow_train_fwd")
     z = torch.empty_like(x)
     ld = torch.empty((B,), dtype=x.dtype, device=x.device)
@@ -1104,10 +1241,11 @@ def fused_flow_train_fwd(
             err = lib.bcnf_flow_fwd_wgmma(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
                 B, B, S, size, d_a, nh, Hp, _stream())
-        elif route == ROUTE_FMA:
+        elif route == ROUTE_FMA:  # row r takes h_proj[k, first + r]: the kernel reads them N rows a step apart
             err = lib.bcnf_fused_flow_train(
-                *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
-                ctypes.c_void_p(keep.data_ptr()), B, S, size, d_a, nh, Hp, _stream())
+                *_ptrs(x, h_proj[:, first or 0:], an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld,
+                       bound),
+                ctypes.c_void_p(None if keep is None else keep.data_ptr()), B, N, S, size, d_a, nh, Hp, _stream())
         else:
             err = lib.bcnf_flow_rows(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld, bound),
@@ -1142,14 +1280,14 @@ def train_weights(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: 
 def train_keep(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: int, mode: str) -> torch.Tensor | None:
     """An empty buffer for what the strict K2a keeps for the strict K2b
     (`fma_keep_floats`: each step's h_l and gelu'(a_l), and s; 2.32 GB at the
-    flagship's 4096 rows), where K2a runs on its float32 FMA route (a CUDA
-    tensor in `MODE_FMA`), which requires it; None elsewhere. K2a fills it,
-    K2b reads it: the training step hands it from one to the other."""
-    if x.device.type != "cuda" or mode != MODE_FMA:
+    flagship's 4096 rows) on x's rows, where K2a runs on its float32 FMA
+    route (a CUDA tensor in `MODE_FMA`), which requires it; None elsewhere.
+    K2a fills it, K2b reads it: the training step hands it from one to the
+    other, or, where the backward runs in row chunks (`strict_chunks`), the
+    backward makes one a chunk."""
+    if not _strict_route(x, h_proj, d_a, mode):
         return None
     (B, size), (S, _, Hp), nh = x.shape, h_proj.shape, wm.shape[1]
-    if flow_route(Hp, size, d_a, False, mode) != ROUTE_FMA:
-        return None
     return torch.empty((fma_keep_floats(B, S, size, d_a, nh, Hp),), dtype=torch.float32, device=x.device)
 
 
@@ -1175,6 +1313,7 @@ def fused_flow_train_bwd(
     an_scale: torch.Tensor, an_bias: torch.Tensor, ortho: torch.Tensor, w1y: torch.Tensor,
     b1: torch.Tensor, wm: torch.Tensor, bm: torch.Tensor, wout: torch.Tensor, bout: torch.Tensor,
     *, mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None, keep: torch.Tensor | None = None,
+    chunk_rows: int | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """K2b: every grad of K2a's outputs, in one call of the kernel's entry
     point (which enqueues a few launches per step). Returns `(dx, dh_proj,
@@ -1186,9 +1325,13 @@ def fused_flow_train_bwd(
     `prepare_train_weights` lays out `wm` for it, or on weights it prepares;
     strict, the float32 FMA kernels of `csrc/flow_train_fma.cu`, on what the
     strict K2a kept in `keep` for these inputs: without it, it raises), or
-    raises. Counts
-    its calls in `launches`, by mode in `mode_launches` and by route in
-    `route_launches`."""
+    raises. Strict, where `strict_chunks` splits the rows (`chunk_rows`, or
+    the card's memory), it takes no keep: for each chunk it runs K2a again on
+    the chunk's step inputs into a chunk's keep, then K2b on the chunk's
+    rows, and sums the weight and ActNorm grads over the chunks (on the CPU,
+    the plain backward a chunk). Counts its calls (one a chunk) in
+    `launches`, by mode in `mode_launches` and by route in
+    `route_launches`; the chunks' K2a runs count as K2a's."""
     _check_mode(mode, TRAIN_MODES)
     args = dict(an_scale=an_scale, an_bias=an_bias, ortho=ortho, w1y=w1y, b1=b1, wm=wm, bm=bm,
                 wout=wout, bout=bout)
@@ -1197,6 +1340,12 @@ def fused_flow_train_bwd(
     if tuple(bound.shape) != (h_proj.shape[0], *dz.shape) or tuple(dld.shape) != (dz.shape[0],):
         raise ValueError(f"fused_flow_train_bwd: bound {tuple(bound.shape)}, dz {tuple(dz.shape)} and "
                          f"dld {tuple(dld.shape)} do not match h_proj {tuple(h_proj.shape)}")
+    chunks = strict_chunks(dz, h_proj, wm, w1y.shape[1], mode, chunk_rows)
+    if chunks is not None:
+        if keep is not None:
+            raise ValueError("fused_flow_train_bwd: in row chunks the backward makes each chunk's keep (keep must "
+                             "be None)")
+        return _strict_train_bwd_chunks(bound, h_proj, dz, dld, args, chunks)
     if dz.device.type == "cpu":
         return fused_flow_train_backward_reference(bound, h_proj, dz, dld, **args)
     if dz.device.type != "cuda":
@@ -1218,10 +1367,36 @@ def fused_flow_train_bwd(
     return grads
 
 
+def _strict_train_bwd_chunks(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
+                             args: dict[str, torch.Tensor], chunks: list[tuple[int, int]]) -> tuple[torch.Tensor, ...]:
+    """The strict backward in row chunks (`fused_flow_train_bwd`): dx and
+    dh_proj written chunk by chunk, the other grads summed over the chunks
+    in their order."""
+    dx, dhp = torch.empty_like(dz), torch.empty_like(h_proj)
+    sums: list[torch.Tensor] = []
+    for first, end in chunks:
+        if dz.device.type == "cpu":  # the plain backward recomputes the MLP from the step inputs
+            g = fused_flow_train_backward_reference(bound[:, first:end], h_proj[:, first:end], dz[first:end],
+                                                    dld[first:end], **args)
+            dx[first:end], dhp[:, first:end] = g[0], g[1]
+        else:
+            x = bound[0, first:end]
+            keep = train_keep(x, h_proj, args["wm"], args["w1y"].shape[1], MODE_FMA)
+            _train_fwd(x, h_proj, args, MODE_FMA, None, keep, first)
+            g = (dx, dhp, *(torch.empty_like(t) for name, t in args.items() if name != "ortho"))
+            route = _train_bwd_parts(bound, h_proj, dz, dld, args, g, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM,
+                                     MODE_FMA, None, keep, (first, end))
+            fused_flow_train_bwd.launches += 1
+            fused_flow_train_bwd.mode_launches[MODE_FMA] += 1
+            fused_flow_train_bwd.route_launches[route] += 1
+        sums = list(g[2:]) if not sums else [t.add_(c) for t, c in zip(sums, g[2:])]
+    return (dx, dhp, *sums)
+
+
 def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
                      args: dict[str, torch.Tensor], grads: tuple[torch.Tensor, ...], parts: int,
                      mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None,
-                     keep: torch.Tensor | None = None) -> str:
+                     keep: torch.Tensor | None = None, rows: tuple[int, int] | None = None) -> str:
     """Launch K2b's parts on checked CUDA tensors into `grads`, uncounted, on
     the route `train_bwd_route` gives; returns the route. The rows kernels
     (`BWD_ROWS`; on the tensor-core routes one a step, with the copy of dz
@@ -1232,7 +1407,10 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     partials). The wrapper runs all three; chip_smoke.py times each alone.
     The `wgmma` route reads the hidden weights as `prepare_train_weights`
     lays them out: pass them as `wstages`, or they are prepared here. The
-    strict route reads what the strict K2a kept in `keep` (required)."""
+    strict route reads what the strict K2a kept in `keep` (required), and
+    takes `rows` = (first, end): the grads of those rows alone (dx and
+    dh_proj into those rows of `grads`' first two, the rest their sums),
+    from a keep of end - first rows."""
     from bcnf_tpu_torch.ops._build import load_library
 
     S, B, size = bound.shape
@@ -1242,24 +1420,30 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     if route is None:
         raise ValueError(f"fused_flow_train_bwd: no kernel takes size {size}, d_a {d_a}, {nh} hidden layers at "
                          f"hidden width {Hp} ({mode})")
+    first, end = (0, B) if rows is None else rows
+    if rows is not None and (route != ROUTE_FMA or not 0 <= first < end <= B):
+        raise ValueError(f"fused_flow_train_bwd: rows {rows} of {B} on route {route} (row ranges are the strict "
+                         f"route's)")
     tensors = list(args.values())
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
         passes = 3 if route == ROUTE_WGMMA else 1
         tensors[5] = prepare_train_weights(args["wm"], passes) if wstages is None else _checked_wstages(
             wstages, _train_weights_shape(S, nh, Hp, passes), args["wm"], f"fused_flow_train_bwd ({route})")
     if route == ROUTE_FMA or keep is not None:
-        tensors.append(_checked_keep(keep, route, B, S, size, d_a, nh, Hp, dz.device, "fused_flow_train_bwd"))
+        tensors.append(_checked_keep(keep, route, end - first, S, size, d_a, nh, Hp, dz.device,
+                                     "fused_flow_train_bwd"))
     lib = load_library(TRAIN_BWD_LIBRARY[route])
+    shape = (B, S, size, d_a, nh, Hp)
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
-        n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_wgmma
-    elif route == ROUTE_FMA:
-        n_scratch, entry = lib.bcnf_flow_train_fma_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd_fma
+        n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(*shape), lib.bcnf_flow_train_bwd_wgmma
+    elif route == ROUTE_FMA:  # the rows first .. end - 1 of B
+        n_scratch, entry = lib.bcnf_flow_train_fma_scratch(end - first, *shape[1:]), lib.bcnf_flow_train_bwd_fma
+        shape = (B, first, end - first, *shape[1:])
     else:
-        n_scratch, entry = lib.bcnf_flow_train_bwd_scratch(B, S, size, d_a, nh, Hp), lib.bcnf_flow_train_bwd
+        n_scratch, entry = lib.bcnf_flow_train_bwd_scratch(*shape), lib.bcnf_flow_train_bwd
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dz.device)
     with torch.cuda.device(dz.device):
-        err = entry(*_ptrs(bound, h_proj, dz, dld, *tensors, *grads, scratch), B, S, size, d_a, nh, Hp, parts,
-                    _stream())
+        err = entry(*_ptrs(bound, h_proj, dz, dld, *tensors, *grads, scratch), *shape, parts, _stream())
     _raise_on(err, lib, f"fused_flow_train_bwd ({route})")
     return route
 
@@ -1283,6 +1467,9 @@ fused_flow_train_bwd.mode_launches = collections.Counter()  # type: ignore[attr-
 fused_flow_train_bwd.route_launches = collections.Counter()  # type: ignore[attr-defined]
 
 
+_TRAIN_ARGS = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+
+
 class _FusedFlowTrain(torch.autograd.Function):
     """K2a forward, K2b backward: the custom VJP of the JAX package
     (`bcnf_tpu/ops/flow_kernel.py:653-672`), both in the kernel mode given
@@ -1293,24 +1480,28 @@ class _FusedFlowTrain(torch.autograd.Function):
     (246 MB at the flagship's 26 steps of 4 layers at Hp 544), four times in
     3xTF32 (hi and lo, 492 MB), from K2a to K2b. Strict, K2a keeps each
     layer's activations and gelu' for K2b (`train_keep`, 2.32 GB at the
-    flagship's 4096 rows)."""
+    flagship's 4096 rows), unless the rows take more than one chunk
+    (`strict_chunks`: past 13,088 rows at the flagship's shape on an 80 GB
+    card): then the backward runs K2a again a chunk, into a chunk's keep."""
 
     @staticmethod
-    def forward(ctx: Any, mode: str, x: torch.Tensor, h_proj: torch.Tensor,
+    def forward(ctx: Any, mode: str, chunk_rows: int | None, x: torch.Tensor, h_proj: torch.Tensor,
                 *args: torch.Tensor) -> tuple[torch.Tensor, ...]:
         wstages = train_weights(x, h_proj, args[5], args[3].shape[1], mode)
-        keep = train_keep(x, h_proj, args[5], args[3].shape[1], mode)
-        z, ld, bound = fused_flow_train_fwd(x, h_proj, *args, mode=mode, wstages=wstages, keep=keep)
+        chunked = strict_chunks(x, h_proj, args[5], args[3].shape[1], mode, chunk_rows) is not None
+        keep = None if chunked else train_keep(x, h_proj, args[5], args[3].shape[1], mode)
+        z, ld, bound = _train_fwd(x, h_proj, dict(zip(_TRAIN_ARGS, args)), mode, wstages, keep)
         ctx.save_for_backward(bound, h_proj, *args)
-        ctx.mode, ctx.wstages, ctx.keep = mode, wstages, keep
+        ctx.mode, ctx.chunk_rows, ctx.wstages, ctx.keep = mode, chunk_rows, wstages, keep
         return z, ld
 
     @staticmethod
     def backward(ctx: Any, dz: torch.Tensor, dld: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
         bound, h_proj, *args = ctx.saved_tensors  # an unused output's cotangent arrives as zeros
         dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout = fused_flow_train_bwd(
-            bound, h_proj, dz.contiguous(), dld.contiguous(), *args, mode=ctx.mode, wstages=ctx.wstages, keep=ctx.keep)
-        return None, dx, dhp, dan_s, dan_b, torch.zeros_like(args[2]), dw1y, db1, dwm, dbm, dwout, dbout
+            bound, h_proj, dz.contiguous(), dld.contiguous(), *args, mode=ctx.mode, wstages=ctx.wstages, keep=ctx.keep,
+            chunk_rows=ctx.chunk_rows)
+        return None, None, dx, dhp, dan_s, dan_b, torch.zeros_like(args[2]), dw1y, db1, dwm, dbm, dwout, dbout
 
 
 def fused_flow_train(
@@ -1327,10 +1518,13 @@ def fused_flow_train(
     bout: torch.Tensor,
     *,
     mode: str = MODE_3XTF32,
+    chunk_rows: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable `(z, logdet)` of the whole flow for training
     (`bcnf_tpu/ops/flow_kernel.py::fused_flow_train`): K2a forward, K2b
     backward, both in `mode` (3xTF32, one TF32 pass or float32 FMA). Arguments as
     `stack_flow_params`/`pad_hidden` give them, with one condition row per
-    row of `x` (h_proj is (S, B, Hp)); raises otherwise."""
-    return _FusedFlowTrain.apply(mode, x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)
+    row of `x` (h_proj is (S, B, Hp)); raises otherwise. In `MODE_FMA`,
+    `chunk_rows` forces the strict backward's row chunks (`strict_chunks`;
+    by default the card's memory decides them, and a CPU tensor takes none)."""
+    return _FusedFlowTrain.apply(mode, chunk_rows, x, h_proj, an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout)

@@ -247,8 +247,10 @@ class Trainer:
         # each step runs inside `matmul_precision(model.precision)`
         if cfg_t.get("precision"):
             model.precision = str(cfg_t["precision"])
-        # block-boundary rematerialization of the plain path (the kernels
-        # recompute each step's activations already)
+        # block-boundary rematerialization of the plain path (the training
+        # kernels ignore it: the tensor-core K2b recomputes each step's MLP,
+        # the strict pair keeps it and runs its backward in row chunks past
+        # a chunk's share of the card's memory)
         if cfg_t.get("remat") is not None:
             model.remat = bool(cfg_t["remat"])
         # float32 is the contract outside the model's work: no TF32 in any

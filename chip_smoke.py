@@ -1526,8 +1526,16 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
     path's inputs beside their bounds (the work each does: K2a writes the
     keep, K2b reads it and recomputes nothing) and plain versions, K2b's
     parts, the keep's and the scratch's bytes beside the card's memory, and
-    the strict step's peak memory. Returns
-    the "K2a, strict" and "K2b, strict" rows of the kernel table."""
+    the strict step's peak memory; ptxas's registers and spill bytes of each
+    `fma_flow_train_kernel<TN>`. (d) The strict backward in row chunks: at
+    4096 rows none (`strict_chunks`), and forced into chunks of 1024 (K2a
+    again a chunk into a chunk's keep, then K2b on the chunk) against the
+    whole batch's on K2a's step inputs and keep: dx and dh_proj equal to the
+    bit, every grad no further from float64 than twice the float32 plain
+    version, equal between calls, launches exact; then the strict
+    flagship's training step at 65,536 rows (past what one keep holds on an
+    80 GB card): its chunks' launches and its peak memory beside the card's.
+    Returns the "K2a, strict" and "K2b, strict" rows of the kernel table."""
     import numpy as np
     import torch
 
@@ -1547,6 +1555,8 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
         fused_flow_train_bwd,
         fused_flow_train_fwd,
         fused_flow_train_reference,
+        row_chunks,
+        strict_chunks,
         train_keep,
         train_keep_reference,
     )
@@ -1564,12 +1574,20 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
             c.mode_launches.clear()
             c.route_launches.clear()
 
+    def restore(found: list) -> None:  # the counts as this phase found them
+        for c, (n_l, modes, routes) in zip(counters, found):
+            c.launches = n_l
+            c.mode_launches.clear()
+            c.mode_launches.update(modes)
+            c.route_launches.clear()
+            c.route_launches.update(routes)
+
     saved = counts()
     # (a) the kernels against their plain versions, float32 and float64
     print("[6b strict training: kernels] K2a and K2b in float32 FMA at the flagship widths, B=4096 and ragged "
           "B=4099, against their plain versions (TF32 off) and the plain versions in float64:")
     fwd_err, bwd_err = 0.0, 0.0
-    main = None
+    cases = {}  # each batch's inputs, step inputs, keep and cotangents, for (c) and (d)
     for B in (4096, 4099):
         traj = torch.from_numpy(rng.normal(size=(B, 30, 3)).astype(np.float32)).to(dev)
         with torch.no_grad():
@@ -1605,8 +1623,7 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
             fail(f"the strict K2a/K2b at B={B}: K2a {e:.3e} from plain, its keep {e_keep:.3e} (tolerance "
                  f"{KERNEL_TOL:g}); from float64 K2a {f_k:.3e} vs plain {f_p:.3e}, K2b {b_k:.3e} vs plain {b_p:.3e}; "
                  f"equal between calls: {bits}")
-        if B == 4096:
-            main = (x, h_proj, args, one[2], keep, dz, dld, e, max((a - b).abs().max().item() for a, b in zip(g1, g_p)))
+        cases[B] = (x, h_proj, args, one[2], keep, dz, dld, e, max((a - b).abs().max().item() for a, b in zip(g1, g_p)))
         del keep, again, plain_keep
     after = counts()
     if [a[0] - b[0] for a, b in zip(after, saved)] != [4, 6] or [a[1].get(MODE_FMA, 0) - b[1].get(MODE_FMA, 0)
@@ -1687,7 +1704,7 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
              f"grads {worst:.3e} past the bar")
 
     # (c) times at the main path's batch-4096 inputs
-    x, h_proj, args, bound, keep, dz, dld, e_fwd, e_bwd = main
+    x, h_proj, args, bound, keep, dz, dld, e_fwd, e_bwd = cases[4096]
     H = model.nested_sizes[0]
     with torch.no_grad():  # as the training step runs them: K2a keeping for K2b, K2b on that keep
         times = {
@@ -1701,12 +1718,7 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
         part_ms = {name: median(cuda_ms(lambda: _train_bwd_parts(bound, h_proj, dz, dld, dict(zip(TRAIN_ARGS, args)),
                                                                  outs, part, MODE_FMA, None, keep), reps=3))
                    for name, part in (("rows", BWD_ROWS), ("weight grads", BWD_WEIGHT_GRADS))}
-    for c, (n_l, modes, routes) in zip(counters, saved):  # the counts as this phase found them
-        c.launches = n_l
-        c.mode_launches.clear()
-        c.mode_launches.update(modes)
-        c.route_launches.clear()
-        c.route_launches.update(routes)
+    restore(saved)
     work = dict(zip(("K2a", "K2b"), train_work(dict(zip(TRAIN_ARGS, args)), h_proj, B, H, kept=True)))
     recompute = train_work(dict(zip(TRAIN_ARGS, args)), h_proj, B, H)[1]  # the function with the MLP recomputed
     S, Hp, d_a, nh = h_proj.shape[0], h_proj.shape[-1], args[3].shape[1], args[5].shape[1]
@@ -1742,6 +1754,84 @@ def strict_training(model, k_params: dict, rng, dev, peaks: tuple[float, float, 
     print(f"    K2b, strict, memory at {B} rows: K2a's keep {keep_gb:.3f} GB and K2b's scratch {scratch_gb:.3f} GB "
           f"of the card's {card_gb:.1f} GB ({smi}); the strict training step's own peak {step_gb:.3f} GB beyond "
           f"what the phase held (the keep and the scratch grow with the rows)")
+    from bcnf_tpu_torch.ops import _build
+
+    spills, current = [], ""
+    for ln in _build.build_logs.get("flow_fma", "").splitlines():  # this run's ptxas lines of K2a's instances
+        if "Compiling entry function" in ln:
+            current = kernel_label(ln)
+        elif current.startswith("fma_flow_train_kernel") and ("spill" in ln or "registers" in ln):
+            spills.append(f"{current}: {ln.split(':', 1)[-1].strip()}")
+    usage = [f"{kernel_label(f"'{fn}'")} {u['REG']} registers, stack {u['STACK']} B"
+             for fn, u in _build.resource_usage("flow_fma").items() if "fma_flow_train_kernel" in fn]
+    print("    K2a, strict, ptxas: " + ("; ".join(spills) if spills else "flow_fma not rebuilt in this run")
+          + "; cuobjdump -res-usage: " + "; ".join(usage))
+
+    # (d) the strict backward in row chunks, at the main path's batch and at a ragged one whose chunks end past a
+    # row group's rows (1024, 1024, 1024 and 1027 rows): K2a again a chunk, on that chunk's rows of h_proj alone
+    for B, (x, h_proj, args, bound, keep, dz, dld, *_) in cases.items():
+        if strict_chunks(x, h_proj, args[5], d_a, MODE_FMA) is not None:
+            fail(f"the strict backward would chunk {B} rows: the main path's batch takes the whole keep")
+        n = len(row_chunks(B, 1024))
+        saved = counts()
+        zero()
+        with torch.no_grad():
+            g_whole = fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=MODE_FMA, keep=keep)
+            g_chunk = fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=MODE_FMA, chunk_rows=1024)
+            g_again = fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=MODE_FMA, chunk_rows=1024)
+            g32 = fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args)
+            g64 = _strict_f64(x, h_proj, args, dz, dld)[1]
+            torch.cuda.synchronize()
+        got = counts()
+        want = [(2 * n, {MODE_FMA: 2 * n}, {ROUTE_FMA: 2 * n}),
+                (1 + 2 * n, {MODE_FMA: 1 + 2 * n}, {ROUTE_FMA: 1 + 2 * n})]
+
+        def from64(grads) -> list[float]:
+            return [((a.double() - r).abs().max() / r.abs().max()).item() for a, r in zip(grads, g64)]
+
+        rel, rel_whole, rel_plain = from64(g_chunk), from64(g_whole), from64(g32)
+        rows_equal = torch.equal(g_chunk[0], g_whole[0]) and torch.equal(g_chunk[1], g_whole[1])
+        calls_equal = all(torch.equal(a, b) for a, b in zip(g_chunk, g_again))
+        sizes = [end - first for first, end in row_chunks(B, 1024)]
+        print(f"[6b strict training: row chunks] the backward at {B} rows in {n} chunks of {sizes} rows (K2a again "
+              f"a chunk) against the whole batch's on K2a's step inputs and keep: dx and dh_proj equal to the bit "
+              f"{rows_equal}; from float64 (max |d| / max |ref|) chunked / whole / float32 plain: "
+              + ", ".join(f"{nm} {c:.2e}/{w:.2e}/{q:.2e}" for nm, c, w, q in zip(GRAD_NAMES, rel, rel_whole, rel_plain))
+              + f"; equal between calls {calls_equal}; launches K2a {got[0]}, K2b {got[1]}")
+        if not rows_equal or not calls_equal or got != want or any(c > 2 * q for c, q in zip(rel, rel_plain)):
+            fail(f"the chunked strict backward at {B} rows: rows equal {rows_equal}, calls equal {calls_equal}, "
+                 f"launches {got} (want {want}), from float64 {rel} against twice {rel_plain}")
+        restore(saved)
+    del g_whole, g_chunk, g_again, g32, g64, cases, x, h_proj, args, bound, keep, dz, dld
+    torch.cuda.empty_cache()
+
+    big = 65_536  # the strict flagship's step past one keep's memory: Trainer.train_step on random rows
+    y_big = torch.from_numpy(rng.normal(size=(big, smodel.size)).astype(np.float32)).to(dev)
+    c_big = [torch.from_numpy(rng.normal(size=(big, 30, 3)).astype(np.float32)).to(dev)]
+    trainer.train_step(smodel, [params], opt, y_big, c_big, [gen])  # a warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    zero()
+    t0 = time.perf_counter()
+    trainer.train_step(smodel, [params], opt, y_big, c_big, [gen])
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    big_run = counts()
+    big_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    finite = all(torch.isfinite(t).all().item() for t in tree_leaves(params))
+    n_big = big_run[1][0]
+    print(f"[6b strict training, batch {big}] one Trainer.train_step of the strict flagship: {big_s * 1e3:.1f} ms "
+          f"({big / big_s:.0f} train samples/s); launches K2a {big_run[0]}, K2b {big_run[1]} ({n_big} row chunks); "
+          f"peak memory {big_peak:.2f} GB ({big_peak - held / 1e9:.2f} GB beyond what the phase held) of the "
+          f"card's {card_gb:.1f} GB ({smi}); params finite {finite}")
+    if (n_big < 2 or big_run[0] != (n_big + 1, {MODE_FMA: n_big + 1}, {ROUTE_FMA: n_big + 1})
+            or big_run[1] != (n_big, {MODE_FMA: n_big}, {ROUTE_FMA: n_big}) or not finite):
+        fail(f"the strict step at {big} rows: launches K2a {big_run[0]}, K2b {big_run[1]} (the backward should run "
+             f"in row chunks, K2a once more a chunk), params finite {finite}")
+    restore(saved)
+    del y_big, c_big
+    torch.cuda.empty_cache()
     return rows
 
 

@@ -55,6 +55,18 @@ def test_strict_training_matches_jax_strict_kernels(precision, monkeypatch):
     `forward_fused_flow` on CPU tensors (K2a, K2b: their float32 plain
     versions) against JAX's strict model through its training kernels at
     "highest" in interpret mode, on weights bridged from JAX's."""
+    _strict_against_jax(precision, monkeypatch, B, None)
+
+
+def test_strict_chunked_training_matches_jax_strict_kernels(monkeypatch):
+    """The same with the strict backward forced into uneven row chunks (100
+    rows in chunks of 32, 32 and 36: `fused_flow_train(chunk_rows=32)`, the
+    plain backward a chunk and the grads summed over the chunks), against
+    JAX's strict training on the whole batch, at the JAX grad bars."""
+    _strict_against_jax("highest", monkeypatch, 100, 32)
+
+
+def _strict_against_jax(precision: str, monkeypatch, rows: int, chunk_rows: int | None) -> None:
     import jax
     import jax.numpy as jnp
 
@@ -77,8 +89,8 @@ def test_strict_training_matches_jax_strict_kernels(precision, monkeypatch):
     an = jp["blocks"]["actnorm"]  # off identity, so the ActNorm grads are exercised
     an["scale"] = (1.0 + 0.2 * rng.normal(size=(N_BLOCKS - 1, SIZE))).astype(np.float32)
     an["bias"] = (0.2 * rng.normal(size=(N_BLOCKS - 1, SIZE))).astype(np.float32)
-    y = rng.normal(size=(B, SIZE)).astype(np.float32)
-    cond = rng.normal(size=(B, 6)).astype(np.float32)
+    y = rng.normal(size=(rows, SIZE)).astype(np.float32)
+    cond = rng.normal(size=(rows, 6)).astype(np.float32)
 
     seen = []
     real = jax_fk.fused_flow_train
@@ -97,15 +109,19 @@ def test_strict_training_matches_jax_strict_kernels(precision, monkeypatch):
 
     tm = _port_model(precision)
     assert tm.train_kernel_mode == fk.MODE_FMA
-    modes = []
-    real_train = fk.fused_flow_train
-    monkeypatch.setattr(fk, "fused_flow_train", lambda *a, **kw: modes.append(kw["mode"]) or real_train(*a, **kw))
+    modes, chunked = [], []
+    real_train, real_chunks = fk.fused_flow_train, fk._strict_train_bwd_chunks
+    monkeypatch.setattr(fk, "fused_flow_train",
+                        lambda *a, **kw: modes.append(kw["mode"]) or real_train(*a, **kw, chunk_rows=chunk_rows))
+    monkeypatch.setattr(fk, "_strict_train_bwd_chunks",
+                        lambda *a: chunked.append(a[-1]) or real_chunks(*a))
     tp = params_from_numpy(jp, "cpu", requires_grad=True)
     h = tm.encode(tp, (torch.from_numpy(cond),))
     z, ld = tm.forward_fused_flow(tp, torch.from_numpy(y), h)
     loss = inn_nll_loss(z, ld)
     loss.backward()
     assert modes == [fk.MODE_FMA]
+    assert chunked == ([] if chunk_rows is None else [fk.row_chunks(rows, chunk_rows)])
     np.testing.assert_allclose(loss.item(), float(v_ref), atol=1e-5, rtol=0)
     flat_ref = jax.tree.leaves_with_path(jax.tree.map(np.asarray, g_ref))
     ours = list(tree_leaves(map_tree(lambda t: t.grad, tp)))
@@ -318,36 +334,75 @@ def test_strict_weight_grad_tiles_cover_every_output_once(Hp, size, d_a, nh):
 def test_strict_keep_and_scratch_are_the_source_layouts():
     """The strict K2a's keep (`fma_keep_floats`, csrc/flow_fma.cu's
     `fma_keep_act`/`fma_keep_s`, as the kernel indexes them: step k's h_l,
-    then its gelu'(a_l), l = 0 .. nh, each B x Hp; then every step's s, B x
-    d_b) fills its floats exactly once; the K2b scratch
+    then its gelu'(a_l), l = 0 .. nh, each Bp x Hp, Bp = B rounded up to the
+    row group of 16 rows (8 above Hp 544); then every step's s, B x d_b)
+    fills its floats exactly once; the K2b scratch
     (`fma_train_scratch_floats`) is the sum of its parts, each rounded up
     to 4 floats, in the source's order."""
-    for B, S, size, d_a, nh, Hp in ((5, 3, 7, 4, 1, 32), (37, 2, 19, 10, 4, 544), (33, 4, 8, 3, 2, 64)):
+    for B, S, size, d_a, nh, Hp in ((5, 3, 7, 4, 1, 32), (37, 2, 19, 10, 4, 544), (33, 4, 8, 3, 2, 64),
+                                    (37, 2, 19, 10, 2, 1024)):
         n = fk.fma_keep_floats(B, S, size, d_a, nh, Hp)
+        G = 16 if Hp <= 544 else 8
+        Bp = fk.fma_keep_rows(B, Hp)
+        assert Bp % G == 0 and B <= Bp < B + G
         seen = np.zeros(n, dtype=int)
         for k in range(S):
             for grad in (0, 1):
                 for l in range(nh + 1):
-                    o = ((k * 2 + grad) * (nh + 1) + l) * B * Hp
-                    seen[o:o + B * Hp] += 1
-            o = S * 2 * (nh + 1) * B * Hp + k * B * (size - d_a)
+                    o = ((k * 2 + grad) * (nh + 1) + l) * Bp * Hp
+                    seen[o:o + Bp * Hp] += 1
+            o = S * 2 * (nh + 1) * Bp * Hp + k * B * (size - d_a)
             seen[o:o + B * (size - d_a)] += 1
         assert seen.min() == seen.max() == 1
         parts = [S * nh * Hp * Hp, S * 2 * (size - d_a) * Hp, S * Hp * (d_a + d_a % 2), S * B * nh * Hp,
                  S * B * 2 * (size - d_a), S * B * size, S * B * (2 * size + 1), S * (2 * size + 1)]
         assert fk.fma_train_scratch_floats(B, S, size, d_a, nh, Hp) == sum(-(-p // 4) * 4 for p in parts)
     text = (CSRC / "flow_fma.cu").read_text()
-    assert "((static_cast<size_t>(k) * 2 + (grad ? 1 : 0)) * (nh + 1) + l) * B * Hp" in text
-    assert "static_cast<size_t>(S) * 2 * (nh + 1) * B * Hp + static_cast<size_t>(k) * B * d_b" in text
+    assert "((static_cast<size_t>(k) * 2 + (grad ? 1 : 0)) * (nh + 1) + l) * fma_keep_rows(B, Hp) * Hp" in text
+    assert ("static_cast<size_t>(S) * 2 * (nh + 1) * fma_keep_rows(B, Hp) * Hp + static_cast<size_t>(k) * B * d_b"
+            in text)
+    assert "const int G = 4 * fma_lane_rows(Hp / 32);\n  return (B + G - 1) / G * G;" in text
+    assert "  return R * ((4 * col + rb) ^ (((col >> 2) & 7) << (R == 2 ? 1 : 0)));" in text  # fma_keep_grad_at
+
+
+@pytest.mark.parametrize("tn", fk.KERNEL_TN)
+def test_strict_keep_grad_blocks_meet_no_bank_twice(tn):
+    """`fma_keep_grad_at` places each of a row group's G x Hp floats of
+    gelu' once, a lane's R rows of a column together and aligned; and the
+    lanes of each shared-memory phase of K2a's stores and K2b's loads (8
+    lanes for 16 bytes, 16 for 8; lane: columns `col(j, cq, lane % 8)`, rows
+    from R (lane / 8)) meet distinct bank groups at every accumulator column
+    of the lane's 4-column quads, where the unswizzled column-major block
+    put them all in one."""
+    Hp = 32 * tn
+    R = fk.fma_lane_rows(Hp)
+    G = 4 * R
+    at = fk.fma_keep_grad_at(Hp)
+    assert sorted(at.tolist()) == list(range(G * Hp))
+    unit = at.view(Hp, 4, R)
+    assert torch.equal(unit - unit[:, :, :1], torch.arange(R).expand(Hp, 4, R)) and not (unit[:, :, 0] % R).any()
+    qw, q4 = 8 * tn, tn // 4
+    phase = 8 if R == 4 else 16
+    for cq in range(4):
+        for j in range(4 * q4):
+            for p0 in range(0, 32, phase):
+                lanes = range(p0, p0 + phase)
+                cols = [cq * qw + 32 * (j // 4) + 4 * (ln % 8) + j % 4 for ln in lanes]
+                slots = {(int(at[c * G + R * (ln // 8)]) // R) % (32 // R) for c, ln in zip(cols, lanes)}
+                plain = {((c * G + R * (ln // 8)) // R) % (32 // R) for c, ln in zip(cols, lanes)}
+                assert len(slots) == phase and len(plain) < phase, (cq, j, p0)
 
 
 @pytest.mark.parametrize("B,S,size,d_a,nh,Hp", [(5, 3, 7, 4, 1, 32), (37, 2, 19, 10, 4, 64), (33, 4, 8, 3, 2, 32)])
 def test_strict_backward_from_the_plain_keep_is_the_plain_backward(B, S, size, d_a, nh, Hp):
     """What the strict K2b reads, `train_keep_reference` (indexed as the
-    kernels index it: csrc/flow_fma.cu's `fma_keep_act`, `fma_keep_s`), is
-    all the backward needs of the MLP: the backward taken from the step
-    inputs and that keep, recomputing nothing (the strict K2b's arithmetic),
-    gives `fused_flow_train_backward_reference`'s ten grads, in float64."""
+    kernels index it: csrc/flow_fma.cu's `fma_keep_act`, `fma_keep_s`; h_l
+    row-major, gelu'(a_l) a row group of G rows at a time as
+    `fma_keep_grad_at` places it and csrc/flow_train_fma.cu's `grad_act`
+    reads it), is all
+    the backward needs of the MLP: the backward taken from the step inputs
+    and that keep, recomputing nothing (the strict K2b's arithmetic), gives
+    `fused_flow_train_backward_reference`'s ten grads, in float64."""
     gen = torch.Generator().manual_seed(B + nh)
 
     def randn(*shape, scale=1.0):
@@ -363,11 +418,15 @@ def test_strict_backward_from_the_plain_keep_is_the_plain_backward(B, S, size, d
     _, _, bound = fk.fused_flow_train_reference(x, h_proj, *args)
     keep = fk.train_keep_reference(bound, h_proj, *args)
     assert keep.numel() == fk.fma_keep_floats(B, S, size, d_a, nh, Hp)
-    d_b = size - d_a
+    d_b, Bp, G = size - d_a, fk.fma_keep_rows(B, Hp), 4 * fk.fma_lane_rows(Hp)
+    at = fk.fma_keep_grad_at(Hp)
 
     def kept(k, l, grad):
-        o = ((k * 2 + grad) * (nh + 1) + l) * B * Hp
-        return keep[o:o + B * Hp].view(B, Hp)
+        o = ((k * 2 + grad) * (nh + 1) + l) * Bp * Hp
+        block = keep[o:o + Bp * Hp]
+        if grad:  # each row group's block, column-major
+            block = block.view(Bp // G, G * Hp)[:, at].view(Bp // G, Hp, G).transpose(1, 2)
+        return block.reshape(Bp, Hp)[:B]
 
     grads = [torch.zeros_like(t) for t in (dz, h_proj, an_scale, an_bias, w1y, b1, wm, bm, wout, bout)]
     dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout = grads
@@ -375,7 +434,7 @@ def test_strict_backward_from_the_plain_keep_is_the_plain_backward(B, S, size, d
     for k in range(S - 1, -1, -1):
         inner = k < S - 1
         x1 = bound[k] * an_scale[k] + an_bias[k] if inner else bound[k]
-        o = S * 2 * (nh + 1) * B * Hp + k * B * d_b
+        o = S * 2 * (nh + 1) * Bp * Hp + k * B * d_b
         s = keep[o:o + B * d_b].view(B, d_b)
         dx2 = dx @ ortho[k].T if inner else dx
         dz_b = dx2[:, d_a:]
@@ -399,6 +458,97 @@ def test_strict_backward_from_the_plain_keep_is_the_plain_backward(B, S, size, d
     refs = fk.fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args)
     for name, a, b in zip(GRAD_NAMES, (dx, dhp, dan_s, dan_b, dw1y, db1, dwm, dbm, dwout, dbout), refs):
         torch.testing.assert_close(a, b, atol=1e-12, rtol=1e-10, msg=name)
+
+
+def _plain_case(B: int, S: int, size: int, d_a: int, nh: int, Hp: int, seed: int):
+    """Random float32 step inputs, conditions, cotangents and the nine kernel
+    arguments (ActNorm off identity, orthonormal mixes), from a seed."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+
+    ortho = torch.from_numpy(np.stack([np.linalg.qr(rng.normal(size=(size, size)))[0] for _ in range(S)])
+                             .astype(np.float32))
+    args = [1 + t(S, size, scale=0.1), t(S, size, scale=0.2), ortho, t(S, d_a, Hp, scale=0.5), t(S, Hp, scale=0.1),
+            t(S, nh, Hp, Hp, scale=Hp ** -0.5), t(S, nh, Hp, scale=0.1), t(S, Hp, 2 * (size - d_a), scale=0.1),
+            t(S, 2 * (size - d_a), scale=0.1)]
+    return t(B, size), t(S, B, Hp, scale=0.5), args, t(B, size), t(B)
+
+
+@pytest.mark.parametrize("B,chunk_rows,ends", [(100, 32, [32, 64, 100]), (96, 32, [32, 64, 96]),
+                                               (131, 64, [64, 131]), (70, 32, [32, 70])])
+def test_strict_chunked_backward_matches_the_whole_one(B, chunk_rows, ends):
+    """The strict backward in row chunks on the plain versions (a chunk's
+    plain backward, the weight and ActNorm grads summed over the chunks; a
+    tail of fewer than 32 rows joins the last chunk) against the whole
+    batch's: dx and dh_proj equal to the bit (each row's own), the rest
+    within float32's sum order, atol 1e-6 x the grad's largest |value|."""
+    S, size, d_a, nh, Hp = 3, 7, 4, 2, 32
+    x, h_proj, args, dz, dld = _plain_case(B, S, size, d_a, nh, Hp, seed=B)
+    assert [e for _, e in fk.strict_chunks(dz, h_proj, args[5], d_a, fk.MODE_FMA, chunk_rows)] == ends
+    _, _, bound = fk.fused_flow_train_reference(x, h_proj, *args)
+    whole = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_FMA)
+    chunked = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_FMA, chunk_rows=chunk_rows)
+    for name, a, b in zip(GRAD_NAMES, chunked, whole):
+        if name in ("x", "h_proj"):
+            assert torch.equal(a, b), name
+        else:
+            torch.testing.assert_close(a, b, atol=1e-6 * b.abs().max().item(), rtol=0, msg=name)
+    with pytest.raises(ValueError, match="keep"):  # in chunks the backward makes its own keeps
+        fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_FMA, chunk_rows=chunk_rows,
+                                keep=torch.zeros(1))
+
+
+def test_strict_chunked_training_step_through_autograd_on_the_cpu():
+    """`fused_flow_train(chunk_rows=...)` in autograd: z and logdet are the
+    whole batch's, the input and condition grads equal to the bit, the
+    weight grads within float32's sum order; outside the strict mode, or
+    with no `chunk_rows` on the CPU, nothing chunks; `chunk_rows` that is
+    not a positive multiple of 32 raises."""
+    x, h_proj, args, dz, dld = _plain_case(100, 3, 7, 4, 2, 32, seed=5)
+    outs = []
+    for chunk_rows in (None, 32):
+        leaves = [t.clone().requires_grad_(True) for t in (x, h_proj, *args)]
+        z, ld = fk.fused_flow_train(*leaves, mode=fk.MODE_FMA, chunk_rows=chunk_rows)
+        ((z * dz).sum() + (ld * dld).sum()).backward()
+        outs.append((z.detach(), ld.detach(), [t.grad for t in leaves]))
+    (z0, ld0, g0), (z1, ld1, g1) = outs
+    assert torch.equal(z0, z1) and torch.equal(ld0, ld1)
+    assert torch.equal(g0[0], g1[0]) and torch.equal(g0[1], g1[1])
+    for a, b in zip(g1[2:], g0[2:]):
+        torch.testing.assert_close(a, b, atol=1e-6 * max(b.abs().max().item(), 1e-30), rtol=0)
+    assert fk.strict_chunks(dz, h_proj, args[5], 4, fk.MODE_3XTF32, 32) is None
+    assert fk.strict_chunks(dz, h_proj, args[5], 4, fk.MODE_FMA) is None
+    for bad in (0, 48, -32):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            fk.strict_chunks(dz, h_proj, args[5], 4, fk.MODE_FMA, bad)
+
+
+@pytest.mark.parametrize("card_bytes", [85_017_853_952, 80 * 10**9])
+def test_strict_chunk_rule_at_the_flagship_shape(card_bytes):
+    """The chunk rule at the flagship's shape (26 steps, 4 hidden layers at
+    Hp 544, size 19, d_a 10) on an 80 GB card (an H100 80GB's total memory,
+    and 80e9 bytes): a multiple of 32 rows whose keep and K2b scratch take
+    at most an eighth of the card's memory, and 32 rows more would not; so
+    4096 rows (the main path's batch) and 12,288 take one chunk, 65,536
+    rows several, each within the share but a tail of fewer than 32 rows."""
+    shape = (26, 19, 10, 4, 544)
+    rows = fk.strict_chunk_rows(*shape, card_bytes)
+
+    def chunk_bytes(n: int) -> int:
+        S, size, d_a, nh, Hp = shape
+        return 4 * (fk.fma_keep_floats(n, S, size, d_a, nh, Hp) + fk.fma_train_scratch_floats(n, S, size, d_a, nh, Hp))
+
+    assert rows % fk.STRICT_CHUNK_ROWS == 0
+    assert chunk_bytes(rows) <= fk.STRICT_CHUNK_SHARE * card_bytes < chunk_bytes(rows + fk.STRICT_CHUNK_ROWS)
+    assert 12_288 < rows < 16_384
+    assert fk.row_chunks(4096, rows) == [(0, 4096)] and fk.row_chunks(12_288, rows) == [(0, 12_288)]
+    chunks = fk.row_chunks(65_536, rows)
+    assert len(chunks) == 6 and chunks[0] == (0, rows) and chunks[-1][1] == 65_536
+    assert all(e - f <= rows for f, e in chunks)
+    if card_bytes == 85_017_853_952:
+        assert rows == 13_088  # the value the docstrings and PERF.md give
 
 
 def test_strict_weight_grad_sum_order_emulated_in_float32():
@@ -587,10 +737,103 @@ def test_strict_training_step_launches_only_the_strict_kernels_on_card(cuda):
             torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,nh,rows,chunk_rows", [(526, 4, 1000, 256), (100, 2, 101, 32), (1000, 2, 300, 128)])
+def test_strict_chunked_step_matches_the_whole_step_on_card(cuda, hidden, nh, rows, chunk_rows):
+    """The strict training step with its backward forced into row chunks
+    (`fused_flow_train(chunk_rows=...)`: K2a again on each chunk's step
+    inputs into a chunk's keep, then K2b on the chunk): z, logdet, dx and
+    dh_proj equal to the bit to the whole batch's; every grad no further
+    from the float64 plain version (relative to its largest value) than
+    twice the larger of the float32 plain version's and the whole batch's
+    kernel's distance; and the launches counted: K2a once for the forward
+    (keeping nothing) and once a chunk, K2b once a chunk."""
+    x, h_proj, args = _card_case(cuda, hidden, nh, rows, seed=hidden + rows)
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    dz = torch.randn(x.shape, generator=gen, device=cuda)
+    dld = torch.randn((rows,), generator=gen, device=cuda)
+    n_chunks = len(fk.row_chunks(rows, chunk_rows))
+    outs = []
+    for cr in (None, chunk_rows):
+        counts = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FMA], fk.fused_flow_train_bwd.route_launches[fk.ROUTE_FMA],
+                  fk.fused_flow_train_fwd.mode_launches[fk.MODE_FMA], fk.fused_flow_train_bwd.mode_launches[fk.MODE_FMA])
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, h_proj, *args)]
+        z, ld = fk.fused_flow_train(*leaves, mode=fk.MODE_FMA, chunk_rows=cr)
+        ((z * dz).sum() + (ld * dld).sum()).backward()
+        torch.cuda.synchronize()
+        after = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_FMA], fk.fused_flow_train_bwd.route_launches[fk.ROUTE_FMA],
+                 fk.fused_flow_train_fwd.mode_launches[fk.MODE_FMA], fk.fused_flow_train_bwd.mode_launches[fk.MODE_FMA])
+        k = 1 if cr is None else n_chunks
+        assert [a - b for a, b in zip(after, counts)] == [1 + (k if cr else 0), k, 1 + (k if cr else 0), k]
+        outs.append((z.detach(), ld.detach(), [t.grad for i, t in enumerate(leaves) if i != 4]))
+    (z0, ld0, g0), (z1, ld1, g1) = outs
+    assert torch.equal(z0, z1) and torch.equal(ld0, ld1)
+    assert torch.equal(g0[0], g1[0]) and torch.equal(g0[1], g1[1])
+    with torch.no_grad():
+        bound = fk.fused_flow_train_reference(x, h_proj, *args)[2]
+        g32 = fk.fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args)
+        a64 = [t.double() for t in args]
+        bound64 = fk.fused_flow_train_reference(x.double(), h_proj.double(), *a64)[2]
+        g64 = fk.fused_flow_train_backward_reference(bound64, h_proj.double(), dz.double(), dld.double(), *a64)
+    for name, c, w, p, r in zip(GRAD_NAMES, g1, g0, g32, g64):
+        d_c, d_w, d_p = ((t.double() - r).abs().max().item() / r.abs().max().item() for t in (c, w, p))
+        assert d_c <= 2 * max(d_p, d_w), (name, d_c, d_w, d_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,nh,rows,first,count", [(526, 4, 1000, 768, 232), (526, 4, 1000, 0, 232),
+                                                        (100, 2, 101, 64, 37), (1000, 2, 300, 256, 44)])
+def test_strict_k2a_reads_only_its_row_range_on_card(cuda, hidden, nh, rows, first, count):
+    """The strict K2a on rows first .. first + count - 1 of a batch's h_proj
+    (as the chunked backward runs it), where count is not a whole number of
+    row groups and h_proj is followed by NaN: z, logdet, step inputs and the
+    whole keep, its rows past count included, within 1e-4 of the plain
+    versions on those rows alone. A read past the range (the last step's
+    rows past the batch, or the next chunk's rows) shows as NaN or as
+    another row's values in the keep's last row group."""
+    x, h_proj, args = _card_case(cuda, hidden, nh, rows, seed=hidden + first)
+    S, _, Hp = h_proj.shape
+    flat = torch.full((h_proj.numel() + 16 * Hp,), float("nan"), device=cuda)
+    hp = flat[:h_proj.numel()].view(h_proj.shape)
+    hp.copy_(h_proj)
+    xc, hc = x[first:first + count].contiguous(), h_proj[:, first:first + count].contiguous()
+    with torch.no_grad():
+        keep = fk.train_keep(xc, hc, args[5], args[3].shape[1], fk.MODE_FMA)
+        out = fk._train_fwd(xc, hp, dict(zip(ARG_NAMES, args)), fk.MODE_FMA, None, keep, first)
+        ref = fk.fused_flow_train_reference(xc, hc, *args)
+        plain_keep = fk.train_keep_reference(ref[2], hc, *args)
+        torch.cuda.synchronize()
+    for name, a, c in zip(("z", "logdet", "bound", "keep"), (*out, keep), (*ref, plain_keep)):
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=0, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,stages", [(60, 3), (160, 2)])
+def test_strict_k2a_keeps_through_a_short_ring_on_card(cuda, size, stages):
+    """The strict K2a where its ring holds few stages (3 and 2 at Hp 544 with
+    these sizes, `fma_layout`), so that the next layer's weights wait on the
+    gelu' slots' bulk stores: the keep within 1e-4 of `train_keep_reference`,
+    equal to the bit between calls."""
+    x, h_proj, args = _card_case(cuda, 526, 2, 203, seed=size, size=size)
+    d_a = args[3].shape[1]
+    assert fk.fma_layout(203, 544, size, d_a, torch.cuda.get_device_properties(cuda).multi_processor_count)[2] == stages
+    with torch.no_grad():
+        keeps = [fk.train_keep(x, h_proj, args[5], d_a, fk.MODE_FMA) for _ in range(2)]
+        outs = [fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA, keep=k) for k in keeps]
+        ref = fk.fused_flow_train_reference(x, h_proj, *args)
+        plain_keep = fk.train_keep_reference(ref[2], h_proj, *args)
+        torch.cuda.synchronize()
+    for name, a, b, c in zip(("z", "logdet", "bound", "keep"), (*outs[0], keeps[0]), (*outs[1], keeps[1]),
+                             (*ref, plain_keep)):
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=0, msg=name)
+        assert torch.equal(a, b), name
+
+
 def test_strict_train_parts_patches_apply_to_the_kernel_sources():
     """Each variant of tools/strict_train_parts.py patches this checkout's
     csrc/flow_train_fma.cu (or the flow_fma.cu it includes) at exactly one
-    place, so that the tool times the parts of the kernel as it is."""
+    place, and so does each of its strict K2a variants csrc/flow_fma.cu, so
+    that the tool times the parts of the kernels as they are."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("strict_train_parts", Path(__file__).resolve().parent.parent
@@ -599,7 +842,8 @@ def test_strict_train_parts_patches_apply_to_the_kernel_sources():
     spec.loader.exec_module(tool)
     sources = {f: (CSRC / f).read_text() for f in ("flow_train_fma.cu", "flow_fma.cu")}
     assert tool.PATCHES["as built"] == [] and len(tool.PATCHES) >= 8
-    for name, patches in tool.PATCHES.items():
+    assert tool.K2A_PATCHES["as built"] == [] and len(tool.K2A_PATCHES) >= 4
+    for name, patches in (*tool.PATCHES.items(), *tool.K2A_PATCHES.items()):
         for f, old, new in patches:
             assert sources[f].count(old) == 1 and old != new, (name, old)
 

@@ -40,7 +40,9 @@ def kernels(sass: str) -> dict[str, str]:
                 out[name] = "\n".join(body)
             name, body = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_", m.group(1)), []
         elif name is not None and "/*" in line:
-            body.append(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).strip())  # the instruction, without its address
+            # the instruction and its encoding, without its address or the listing's padding (cuobjdump pads
+            # every line of a file to its longest instruction)
+            body.append(" ".join(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split()))
     if name is not None:
         out[name] = "\n".join(body)
     return out

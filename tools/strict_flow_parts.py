@@ -55,8 +55,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # variant -> [(file, old text, new text)]: this checkout's kernel
 PATCHES = {
     "as built": [],
-    "products": [("flow_fma.cu", "mbar_arrive_expect_tx(bar, bytes); bulk_copy_g2s(dst, src, bytes, bar);",
-                  "mbar_arrive(bar);")],
+    "products": [("flow_fma.cu",  # K1's producer (K2a's is indented further)
+                  "\n      mbar_arrive_expect_tx(bar, bytes); bulk_copy_g2s(dst, src, bytes, bar);\n      next.advance",
+                  "\n      mbar_arrive(bar);\n      next.advance")],
     "stream": [("flow_fma.cu", "if (active) hidden_product<R, TN>(", "if (false) hidden_product<R, TN>(")],
     "no_narrow": [("flow_fma.cu", "if (active) input_product<R, TN>(", "if (false) input_product<R, TN>("),
                   ("flow_fma.cu", "if (active)\n          output_product<R>(", "if (false)\n          output_product<R>(")],

@@ -18,9 +18,11 @@ without OTHER_CHECKOUT): the flagship (`configs/runs/trajectory_LSTM_large.yaml`
 random weights from seed 0) on the batch's random rows and trajectories
 from seed 0, the fused LSTM kernels on (the card's default), one warm-up
 step, then 10 steps under the host clock around synchronised work, beside
-K2a's and K2b's launches in them, the most memory PyTorch's allocator held
-during them (`torch.cuda.max_memory_allocated`, weights and optimizer state
-included) and the card's name, power limit and memory.
+K2a's and K2b's launches in them (past the strict backward's chunk limit,
+K2b once a row chunk and K2a once more a chunk: `ops/flow_kernel.py`'s
+`strict_chunks`), the most memory PyTorch's allocator held during them
+(`torch.cuda.max_memory_allocated`, weights and optimizer state included)
+and the card's name, power limit and memory.
 """
 
 from __future__ import annotations
@@ -67,17 +69,22 @@ def time_steps(root: str, B: int) -> dict:
     trainer.train_step(model, [params], opt, yb, cb, [gen])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    before = (fk.fused_flow_train_fwd.launches, fk.fused_flow_train_bwd.launches)
+    before = (fk.fused_flow_train_fwd.launches, fk.fused_flow_train_bwd.launches)  # the warm-up step's
     t0 = time.perf_counter()
     for _ in range(STEPS):
         trainer.train_step(model, [params], opt, yb, cb, [gen])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = (fk.fused_flow_train_fwd.launches - before[0], fk.fused_flow_train_bwd.launches - before[1])
-    if launches != (STEPS, STEPS) or dict(fk.fused_flow_train_bwd.route_launches) != {fk.ROUTE_FMA: STEPS + 1}:
-        raise SystemExit(f"{root}: K2a/K2b launched {launches}, routes {dict(fk.fused_flow_train_bwd.route_launches)}")
+    # a step: K2a and K2b once each; where the strict backward runs in row chunks, K2b once a chunk and K2a
+    # once more a chunk (the backward runs it again on the chunk's rows)
+    chunks = before[1]
+    if (launches != (STEPS * before[0], STEPS * chunks) or before[0] != chunks + (chunks > 1)
+            or dict(fk.fused_flow_train_bwd.route_launches) != {fk.ROUTE_FMA: (STEPS + 1) * chunks}):
+        raise SystemExit(f"{root}: K2a/K2b launched {launches} (the warm-up step {before}), routes "
+                         f"{dict(fk.fused_flow_train_bwd.route_launches)}")
     return {"root": root, "samples_per_s": STEPS * B / seconds, "ms_per_step": 1e3 * seconds / STEPS,
-            "launches": launches, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": launches, "chunks": chunks, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "card_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9}
 
 
@@ -105,7 +112,8 @@ def main() -> None:
             raise SystemExit(f"{root}: the timing failed:\n{out.stdout}\n{out.stderr}")
         r = json.loads(out.stdout.strip().splitlines()[-1])
         print(f"{os.path.relpath(root, HERE) or '.'}: {r['samples_per_s']:.0f} train samples/s at batch {batch} "
-              f"({r['ms_per_step']:.2f} ms a step over {STEPS} steps; K2a, K2b launches {r['launches']}; peak "
+              f"({r['ms_per_step']:.2f} ms a step over {STEPS} steps; K2a, K2b launches {r['launches']}, "
+              f"{r['chunks']} row chunk(s) a step; peak "
               f"{r['peak_gb']:.2f} GB of the card's {r['card_gb']:.1f} GB)", flush=True)
 
 

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the strict K2b's time goes, on one NVIDIA GPU: the training
-backward in exact float32 (`csrc/flow_train_fma.cu`, `pallas_strict`), timed
-as built and with each of its parts taken out, at the flagship's shape.
+"""Where the strict training pair's time goes, on one NVIDIA GPU: the
+training backward K2b (`csrc/flow_train_fma.cu`) and forward K2a with its
+keep (`csrc/flow_fma.cu`'s `fma_flow_train_kernel`) in exact float32
+(`pallas_strict`), timed as built and with each of their parts taken out,
+at the flagship's shape.
 
 Run from the root of a checkout on a machine with a card:
 
     python3 tools/strict_train_parts.py [VARIANT ...]
     python3 tools/strict_train_parts.py --first OTHER_CHECKOUT [VARIANT ...]
+    python3 tools/strict_train_parts.py --k2a-against OTHER_CHECKOUT [VARIANT ...]
 
 The first form builds this checkout's kernel; the second also the first
 design of the strict K2b (a rows kernel a step that recomputes the step's
@@ -39,6 +42,39 @@ The two designs' grads as built are compared, bit for bit. Each variant's
 grads are also held against the plain version in float64 on
 the same inputs: the largest over the ten grads of max |d| / max |float64|,
 beside the float32 plain version's (the smoke's bar: at most twice it).
+
+The strict K2a's variants (`k2a ...`, this checkout's `csrc/flow_fma.cu`
+patched and built alone; the keep leaves the epilogue: gelu' through two
+staging slots of the weight ring a layer, copied out in bulk by the
+producer, h from the tile by the producer warpgroup's other warps):
+- `k2a as built`, and `k2a body`: the same library called with no keep (the
+  body alone: K1's forward with the step-input store);
+- `k2a no_stores`: gelu's staging slots handed out and written, its bulk
+  stores not issued (the slots' hand-offs and the epilogue's writes; h
+  still stored);
+- `k2a no_keepers`: h's stores from the tile not issued (the tile's
+  hand-offs to the keepers still made; gelu' still stored): with
+  `no_stores`, each array's share, and K2a's side of keeping one array a
+  layer;
+- `k2a no_writes`: the epilogue writes h into the tile alone (no gelu', no
+  staging writes); the slots still handed out and stored (stale bytes);
+- `k2a no_fence`: without the proxy fence before the slot's hand-off (not
+  safe: times only).
+With `--k2a-against OTHER_CHECKOUT` another checkout's strict K2a (its
+`csrc/flow_fma.cu` as built, for instance the parent commit's) is built and
+timed in turns with this one's (`other k2a`): this, other, other, this;
+then the two again in turns on the flagship's own inputs as chip_smoke.py's
+phase 6b makes them (`configs/runs/trajectory_LSTM_large.yaml` at dropout
+0, its weights from seed 0, the conditions from random trajectories through
+its encoder's time loop); and on both sets of inputs the strict pair's
+grads (K2a keeping, K2b on its keep: this checkout's, and the other's from
+its `csrc/flow_fma.cu` and `csrc/flow_train_fma.cu` at their C entry points,
+each on its own keep's layout) are compared bit for bit, and the two pairs
+timed in turns (this, other, other, this): K2a keeping, K2b alone on its
+own K2a's keep, and the pair.
+Each K2a variant's time is the median of 5 CUDA-event-timed calls at 4096
+rows, beside its ptxas registers and spill bytes and its keep's largest
+|d| from this checkout's as built.
 
 The first design's (`first ...`): `products`, `stream`, `one_step` (the
 step loop cut to one inner step: its rows kernel and weight-grad pass once,
@@ -75,16 +111,37 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("ft_rows_kernel", "ft_atb_kernel")
+K2A = "k2a "
+# gelu''s place in the keep without its swizzle (`keep_grad_at`): plain column-major
+UNSWIZZLE_OLD = "  return R * ((4 * col + rb) ^ (((col >> 2) & 7) << (R == 2 ? 1 : 0)));"
+UNSWIZZLE_NEW = "  return R * (4 * col + rb);"
+# the strict K2a's variants: [(file, old text, new text)] of csrc/flow_fma.cu
+K2A_PATCHES = {
+    "as built": [],
+    "no_stores": [("flow_fma.cu", "        if (rows > 0) {\n          bulk_store_s2g(",
+                   "        if (false) {\n          bulk_store_s2g(")],
+    "no_keepers": [("flow_fma.cu", "                __stcs(reinterpret_cast<float4*>(hs +",
+                    "                if (false) __stcs(reinterpret_cast<float4*>(hs +")],
+    "no_fence": [("flow_fma.cu", """lane_row / R, cq, lc);
+    fence_async_smem();""", """lane_row / R, cq, lc);""")],
+    "no_writes": [("flow_fma.cu",
+                   "    keep_act<R, TN>(at, acc, bias, ring + static_cast<size_t>(slot) * stage, lane_row / R, cq, lc);",
+                   "    store_act<R, TN>(at, acc, bias, cq, lc);")],
+    "unswizzled": [("flow_fma.cu", UNSWIZZLE_OLD, UNSWIZZLE_NEW)],
+}
 # variant -> [(file, old text, new text)]: this checkout's kernel
 PATCHES = {
     "as built": [],
     "products": [("flow_train_fma.cu", "mbar_arrive_expect_tx(bar, bytes); bulk_copy_g2s(dst, src, bytes, bar);",
                   "mbar_arrive(bar);")],
     "stream": [("flow_train_fma.cu", "if (active) hidden_product<R, TN>(", "if (false) hidden_product<R, TN>(")],
-    "no_acts": [("flow_train_fma.cu", "const float4 g = row + r < B ? *reinterpret_cast<const float4*>(gs + r * Sh::Hp + col)",
-                 "const float4 g = false ? *reinterpret_cast<const float4*>(gs + r * Sh::Hp + col)"),
-                ("flow_train_fma.cu", "d[r] = row + r < B ? acc[r][j] * gs[r * Sh::Hp + col] : 0.0f;", "d[r] = 0.0f;"),
-                ("flow_train_fma.cu", "push(keep + fma_keep_act(k, l, true, B, nh, Hp) + static_cast<size_t>(grp) * G * Hp, rows * Hp);",
+    "unswizzled": [("flow_fma.cu", UNSWIZZLE_OLD, UNSWIZZLE_NEW)],
+    "no_acts": [("flow_train_fma.cu", "load_rows<R>(gs + keep_grad_at<R>(col + c, rb), g);",
+                 "for (int r = 0; r < R; ++r) g[r] = 0.0f;"),
+                ("flow_train_fma.cu", "load_rows<R>(gs + keep_grad_at<R>(col, rb), g);",
+                 "for (int r = 0; r < R; ++r) g[r] = 0.0f;"),
+                ("flow_train_fma.cu",
+                 "push(keep + fma_keep_act(k, l, true, B, nh, Hp) + static_cast<size_t>(grp) * G * Hp, grp < g1 ? G * Hp : 0);",
                  "push(keep, 0);"),
                 ("flow_train_fma.cu", "const float s = row0 + rr < B ? sk[(row0 + rr) * d_b + j] : 0.0f;",
                  "const float s = 0.0f;")],
@@ -125,9 +182,11 @@ S, SIZE, D_A, NH, H, B = 26, 19, 10, 4, 526, 4096
 PARTS = {"whole": 7, "rows": 1, "weight grads": 2, "rest": 4}
 
 
-def build(root: str, kind: str, patches: dict, names: list[str]) -> dict[str, tuple[str, str]]:
-    """One nvcc per variant, all started together, each from its own copy of
-    the patched sources; returns each variant's library and ptxas output."""
+def build(root: str, kind: str, patches: dict, names: list[str], source: str = "flow_train_fma.cu",
+          ) -> dict[str, tuple[str, str]]:
+    """One nvcc per variant of `source`, all started together, each from its
+    own copy of the patched sources; returns each variant's library and
+    ptxas output."""
     sys.path.insert(0, HERE)
     from bcnf_tpu_torch.ops import _build
 
@@ -146,7 +205,7 @@ def build(root: str, kind: str, patches: dict, names: list[str]) -> dict[str, tu
             with open(os.path.join(out_dir, f), "w") as fh:
                 fh.write(text)
         lib = os.path.join(out_dir, "lib.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, "flow_train_fma.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, source)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -172,18 +231,36 @@ def ptxas_lines(log: str) -> list[str]:
     return lines
 
 
+def k2a_ptxas(log: str) -> str:
+    """ptxas's register and spill lines of `fma_flow_train_kernel<17>`."""
+    lines, current = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            current = ln
+        elif "fma_flow_train_kernelILi17E" in current and ("registers" in ln or "spill" in ln):
+            lines.append(ln.split(":", 1)[-1].strip())
+    return "; ".join(lines)
+
+
 def main() -> None:
     argv = sys.argv[1:]
-    other = None
+    other = k2a_other = None
     if argv[:1] == ["--first"]:
         if len(argv) < 2:
             raise SystemExit(__doc__)
         other, argv = os.path.abspath(argv[1]), argv[2:]
-    known = list(PATCHES) + ([FIRST + n for n in PATCHES_FIRST] if other else [])
+    if argv[:1] == ["--k2a-against"]:
+        if len(argv) < 2:
+            raise SystemExit(__doc__)
+        k2a_other, argv = os.path.abspath(argv[1]), argv[2:]
+    known = (list(PATCHES) + ([FIRST + n for n in PATCHES_FIRST] if other else [])
+             + [K2A + n for n in K2A_PATCHES] + [K2A + "body"])
     names = argv or known
     for name in names:
         if name not in known:
             raise SystemExit(f"unknown variant {name!r}; variants: {', '.join(known)}")
+    k2a_names = [n[len(K2A):] for n in names if n.startswith(K2A)]
+    names = [n for n in names if not n.startswith(K2A)]
     ours = [n for n in names if not n.startswith(FIRST)]
     theirs = [n[len(FIRST):] for n in names if n.startswith(FIRST)]
     if ours and "as built" not in ours:
@@ -195,6 +272,14 @@ def main() -> None:
         libs.update({("this", n): v for n, v in build(HERE, "this", PATCHES, ours).items()})
     if theirs:
         libs.update({("first", n): v for n, v in build(other, "first", PATCHES_FIRST, theirs).items()})
+    if k2a_names or k2a_other:
+        k2a_built = [n for n in K2A_PATCHES if n in k2a_names or n == "as built"]
+        k2a_libs = {n: v for n, v in build(HERE, "k2a", K2A_PATCHES, k2a_built, "flow_fma.cu").items()}
+        if k2a_other:
+            k2a_libs["other"] = build(k2a_other, "k2a_other", {"as built": []}, ["as built"], "flow_fma.cu")["as built"]
+            k2b_other = build(k2a_other, "k2b_other", {"as built": []}, ["as built"])["as built"][0]
+        if "body" in k2a_names:
+            k2a_libs["body"] = k2a_libs["as built"]
 
     import torch
 
@@ -285,8 +370,8 @@ def main() -> None:
     built = {}
     for (kind, name), (path, _) in libs.items():
         lib = ctypes.CDLL(path)
-        n_ptr = 24 if kind == "first" else 25
-        lib.bcnf_flow_train_bwd_fma.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        n_ptr, n_int = (24, 7) if kind == "first" else (25, 9)  # this checkout's takes a row range
+        lib.bcnf_flow_train_bwd_fma.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         lib.bcnf_flow_train_bwd_fma.restype = ctypes.c_int
         lib.bcnf_flow_train_fma_scratch.restype = ctypes.c_longlong
         scratch = torch.empty((lib.bcnf_flow_train_fma_scratch(B, S, SIZE, D_A, NH, Hp),), device=dev)
@@ -295,7 +380,8 @@ def main() -> None:
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*ins, *grads, scratch)]
 
         def launch(parts: int) -> None:
-            err = lib.bcnf_flow_train_bwd_fma(*ptrs, B, S, SIZE, D_A, NH, Hp, parts, stream)
+            rows = (B,) if kind == "first" else (B, 0, B)
+            err = lib.bcnf_flow_train_bwd_fma(*ptrs, *rows, S, SIZE, D_A, NH, Hp, parts, stream)
             if err:
                 raise SystemExit(f"variant {kind} {name}: launch failed with cudaError {err}")
 
@@ -322,6 +408,146 @@ def main() -> None:
         print(f"{kind} {name}: " + "; ".join(cells) + f"; max|grad - grad as built| {err:.3e}; from float64 "
               f"{d64[0]:.3e} (worst {d64[1]}; {d64[0] / (2 * plain64[0]):.3f} of the bar{by_grad}) [ptxas: {regs}]",
               flush=True)
+    if k2a_names or k2a_other:
+        k2a_variants(k2a_libs, x, h_proj, args, keep, timed, clocked, stream)
+    if k2a_other:
+        for what, inputs in (("random", (x, h_proj, args)), ("the flagship's", flagship_inputs(dev))):
+            pair_against(k2a_libs["other"][0], k2b_other, *inputs, dz, dld, stream, what, timed)
+
+
+def k2a_variants(libs: dict, x, h_proj, args: list, keep, timed, clocked, stream) -> None:
+    """Time each strict K2a variant at 4096 rows through its C entry point
+    (the other checkout's in turns with this one's as built)."""
+    import torch
+
+    Hp = h_proj.shape[-1]
+    outs = (torch.empty_like(x), torch.empty((B,), device=x.device), torch.empty((S, B, SIZE), device=x.device))
+    base = [ctypes.c_void_p(t.data_ptr()) for t in (x, h_proj, *args, *outs)]
+    refs = {}  # as built's keep on each set of inputs
+    order = [n for n in libs if n not in ("as built", "other")]
+    order = ["as built", *(["other", "other"] if "other" in libs else []), *order, "as built"]
+    if "other" in libs:
+        order += ["flagship as built", "flagship other", "flagship other", "flagship as built"]
+        flagship = flagship_inputs(x.device)
+    for label in order:
+        name = label.removeprefix("flagship ")
+        if label.startswith("flagship "):
+            x, h_proj, args = flagship
+            base = [ctypes.c_void_p(t.data_ptr()) for t in (x, h_proj, *args, *outs)]
+        path, log = libs[name]
+        lib = ctypes.CDLL(path)
+        this = name != "other"
+        lib.bcnf_fused_flow_train.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * (7 if this else 6)
+                                              + [ctypes.c_void_p])
+        lib.bcnf_fused_flow_train.restype = ctypes.c_int
+        kept = torch.zeros_like(keep)
+        ptr = ctypes.c_void_p(None if name == "body" else kept.data_ptr())
+        shape = (B, B, S, SIZE, D_A, NH, Hp) if this else (B, S, SIZE, D_A, NH, Hp)
+
+        def launch() -> None:
+            err = lib.bcnf_fused_flow_train(*base, ptr, *shape, stream)
+            if err:
+                raise SystemExit(f"k2a variant {name}: launch failed with cudaError {err}")
+
+        ms, mhz, watts = clocked(launch)
+        torch.cuda.synchronize()
+        inputs = label.startswith("flagship ")
+        if name == "as built" and inputs not in refs:
+            refs[inputs] = kept.clone()
+        d = ("no keep" if name == "body"
+             else f"keep max|d| from as built {(kept - refs[inputs]).abs().max().item():.3e}")
+        print(f"k2a {label}: {ms:.3f} ms [SM {mhz:.0f} MHz, {watts:.0f} W]; {d} [ptxas <17>: {k2a_ptxas(log)}]",
+              flush=True)
+
+
+def pair_against(other_k2a: str, other_k2b: str, x, h_proj, args: list, dz, dld, stream, what: str,
+                 timed) -> None:
+    """The strict pair's grads, this checkout's (K2a keeping, then K2b on
+    that keep, through `ops/flow_kernel.py`) against another checkout's
+    (its libraries' C entry points, each on its own keep layout), on the
+    same inputs: equal to the bit or not, grad by grad. Then both pairs
+    timed at their C entry points in turns (this, other, other, this): K2a
+    keeping, K2b alone on its own K2a's keep, and the two one after the
+    other, each the median of 5 CUDA-event-timed calls."""
+    import torch
+
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops._build import load_library
+
+    Hp = h_proj.shape[-1]
+    ptr = lambda *ts: [ctypes.c_void_p(t.data_ptr()) for t in ts]  # noqa: E731
+    with torch.no_grad():
+        keep = fk.train_keep(x, h_proj, args[5], D_A, fk.MODE_FMA)
+        _, _, bound = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA, keep=keep)
+        ours = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_FMA, keep=keep)
+        a_lib, b_lib = ctypes.CDLL(other_k2a), ctypes.CDLL(other_k2b)
+        a_lib.bcnf_flow_fma_keep.restype = b_lib.bcnf_flow_train_fma_scratch.restype = ctypes.c_longlong
+        a_lib.bcnf_fused_flow_train.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        b_lib.bcnf_flow_train_bwd_fma.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        their_keep = torch.empty((a_lib.bcnf_flow_fma_keep(B, S, SIZE, D_A, NH, Hp),), device=x.device)
+        outs = (torch.empty_like(x), torch.empty((B,), device=x.device), torch.empty((S, B, SIZE), device=x.device))
+        err = a_lib.bcnf_fused_flow_train(*ptr(x, h_proj, *args, *outs, their_keep), B, S, SIZE, D_A, NH, Hp, stream)
+        theirs = [torch.empty_like(t) for t in ours]
+        scratch = torch.empty((b_lib.bcnf_flow_train_fma_scratch(B, S, SIZE, D_A, NH, Hp),), device=x.device)
+        err = err or b_lib.bcnf_flow_train_bwd_fma(*ptr(outs[2], h_proj, dz, dld, *args, their_keep, *theirs, scratch),
+                                                   B, S, SIZE, D_A, NH, Hp, 7, stream)
+        torch.cuda.synchronize()
+    if err:
+        raise SystemExit(f"the other checkout's strict pair failed to launch: cudaError {err}")
+    names = ("dx", "dh_proj", "dan_scale", "dan_bias", "dw1y", "db1", "dwm", "dbm", "dwout", "dbout")
+    same = [n for n, a, b in zip(names, ours, theirs) if torch.equal(a, b)]
+    print(f"the strict pair on {what} inputs (K2a keeping, K2b on its keep) against the other checkout's: "
+          f"{len(same)} of 10 grads equal to the bit; max|d| "
+          + ", ".join(f"{n} {(a - b).abs().max().item():.3e}" for n, a, b in zip(names, ours, theirs)), flush=True)
+
+    k2a, k2b = load_library(fk.ROUTE_LIBRARY[fk.ROUTE_FMA]), load_library(fk.TRAIN_BWD_LIBRARY[fk.ROUTE_FMA])
+    our_outs = [torch.empty_like(t) for t in outs]
+    our_scratch = torch.empty((k2b.bcnf_flow_train_fma_scratch(B, S, SIZE, D_A, NH, Hp),), device=x.device)
+    grads = [torch.empty_like(t) for t in ours]
+    calls = {  # each checkout's K2a keeping and its K2b on that keep, at their C entry points
+        "this": (lambda: k2a.bcnf_fused_flow_train(*ptr(x, h_proj, *args, *our_outs, keep), B, B, S, SIZE, D_A, NH,
+                                                   Hp, stream),
+                 lambda: k2b.bcnf_flow_train_bwd_fma(*ptr(bound, h_proj, dz, dld, *args, keep, *grads, our_scratch),
+                                                     B, 0, B, S, SIZE, D_A, NH, Hp, 7, stream)),
+        "other": (lambda: a_lib.bcnf_fused_flow_train(*ptr(x, h_proj, *args, *outs, their_keep), B, S, SIZE, D_A, NH,
+                                                      Hp, stream),
+                  lambda: b_lib.bcnf_flow_train_bwd_fma(*ptr(outs[2], h_proj, dz, dld, *args, their_keep, *theirs,
+                                                             scratch), B, S, SIZE, D_A, NH, Hp, 7, stream)),
+    }
+
+    def checked(fn):
+        def call() -> None:
+            if fn():
+                raise SystemExit(f"the strict pair's timing on {what} inputs: a launch failed")
+        return call
+
+    for kind in ("this", "other", "other", "this"):
+        fwd, bwd = (checked(f) for f in calls[kind])
+        cells = [timed(fwd), timed(bwd), timed(lambda: (fwd(), bwd()))]
+        print(f"the strict pair on {what} inputs, {kind}: K2a keeping {cells[0]:.3f} ms, K2b on its keep "
+              f"{cells[1]:.3f} ms, the two {cells[2]:.3f} ms", flush=True)
+
+
+def flagship_inputs(dev) -> tuple:
+    """The strict K2a's inputs as chip_smoke.py's phase 6b makes them: the
+    flagship at dropout 0, weights from seed 0, B random rows and random
+    trajectories through the encoder's time loop (no LSTM kernel to build)."""
+    import torch
+
+    os.environ["BCNF_FUSED_LSTM"] = "0"
+    from bcnf_tpu_torch.config import load_config
+    from bcnf_tpu_torch.models import CondRealNVP
+
+    cfg = load_config(os.path.join(HERE, "configs", "runs", "trajectory_LSTM_large.yaml")).to_dict()
+    cfg["model"]["kwargs"]["dropout"] = 0.0
+    model = CondRealNVP.from_config(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    traj = torch.randn((B, 30, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
+    names = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+    return torch.randn((B, model.size), generator=gen, device=dev), h_proj, [kargs[n].contiguous() for n in names]
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The row-tile routes at the padded widths 768 and 1024, on one NVIDIA GPU:
 K1 both ways, K2a, K2b and K4 both ways, in 3xTF32 and in one TF32 pass,
-each beside its bound.
+each beside its bound and its plain version's time.
 
 Run from the root of a checkout on a machine with a card:
 
@@ -22,6 +22,11 @@ row tiles. Times: CUDA events around one call, median of 5 after a warm-up
 rate (3xTF32 a third of the TF32 peak, one pass the TF32 peak) and the bytes
 at the memory rate, from chip_smoke.py's `flow_work`/`train_work` at the
 unpadded width; the card's peaks from its name (chip_smoke.py's PEAKS).
+Each kernel's plain PyTorch version (`fused_flow_reference`,
+`fused_flow_train_reference`, `fused_flow_train_backward_reference`,
+`fused_affine_coupling_reference`) is timed once a width on the same inputs
+in float32 with TF32 off (the contract both modes serve; cuBLAS SGEMM),
+median of 3, and printed beside each mode's kernel time.
 """
 
 from __future__ import annotations
@@ -86,6 +91,23 @@ def main() -> None:
         k4_inv = cs.flow_work(fk.pad_hidden(one, c8[None])[0], c8[None], 80_000, H)
         k4_fwd = cs.flow_work(fk.pad_hidden(one, c4096[None])[0], c4096[None], 4096, H)
         print(f"H {H} (Hp {Hp}), 26 steps x 4 hidden layers, size {SIZE}, d_a {D_A}:")
+        with torch.no_grad():  # the plain versions, float32 (TF32 off), on the same inputs
+            _, _, bound32 = fk.fused_flow_train_reference(x4096, hp4096, *args)
+            plain = {
+                "K1 inverse, 80,000 rows": timed(lambda: fk.fused_flow_reference(
+                    x80k, hp8, *[k8[n] for n in names], inverse=True, n_cond=8), 3),
+                "K1 forward, 4096 rows": timed(lambda: fk.fused_flow_reference(
+                    x4096, hp4096, *args, inverse=False, n_cond=4096), 3),
+                "K2a, 4096 rows": timed(lambda: fk.fused_flow_train_reference(x4096, hp4096, *args), 3),
+                "K2b, 4096 rows": timed(lambda: fk.fused_flow_train_backward_reference(
+                    bound32, hp4096, dz, dld, *args), 3),
+                "K4 inverse, 80,000 rows": timed(lambda: ck.fused_affine_coupling_reference(
+                    *halves[80_000], c8, **cw, inverse=True, n_cond=8), 3),
+                "K4 forward, 4096 rows": timed(lambda: ck.fused_affine_coupling_reference(
+                    *halves[4096], c4096, **cw, inverse=False, n_cond=4096), 3),
+            }
+        print("    float32 plain versions (TF32 off): " + ", ".join(f"{k} {v:.3f} ms" for k, v in plain.items()),
+              flush=True)
         for mode, arith in ((fk.MODE_3XTF32, cs.ARITH_3XTF32), (fk.MODE_TF32, cs.ARITH_TF32)):
             routes = {"K1": (fk.flow_route(Hp, SIZE, D_A, True, mode), fk.flow_route(Hp, SIZE, D_A, False, mode)),
                       "K2b": fk.train_bwd_route(Hp, SIZE, D_A, NH, mode)}
@@ -108,7 +130,8 @@ def main() -> None:
                     ms = timed(fn, reps)
                     bound_ms, by = cs.bound_ms(work, peaks, arith)
                     print(f"    {mode} {what}: {ms:.3f} ms, bound {bound_ms:.3f} ms ({by}), {bound_ms / ms:.1%} of "
-                          f"its bound", flush=True)
+                          f"its bound; plain {plain[what]:.3f} ms ({plain[what] / ms:.2f}x the kernel's time)",
+                          flush=True)
             print(f"    {mode} routes: K1 inverse {routes['K1'][0]}, K1 forward / K2a / K4 forward "
                   f"{routes['K1'][1]}, K2b {routes['K2b']}")
             if {*routes["K1"], routes["K2b"]} - {fk.ROUTE_ROWS, fk.ROUTE_ROWS_TF32}:
