@@ -46,6 +46,7 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     MODE_3XTF32,
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
+    ROUTE_WIDE,
     TF32_MODES,
     _check_mode,
     _launch_flow,
@@ -248,7 +249,7 @@ def fused_affine_coupling(
     args = dict(entry["args"], h_proj=_pad_projection(h_proj, entry["args"]["b1"].shape[-1]))
     wstages = None
     route = flow_route(args["b1"].shape[-1], size, d_a, inverse, mode)
-    if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, *FWD_WGMMA_ROUTES):
+    if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, ROUTE_WIDE, *FWD_WGMMA_ROUTES):
         if route not in entry["wstages"]:
             entry["wstages"][route] = route_weights(route, args["wm"])
             fused_affine_coupling.stage_preparations += 1

@@ -12,7 +12,11 @@
     the `wgmma` forward of `csrc/flow_fwd_wgmma.cu` (three passes a k-step,
     on the hi/lo weights `prepare_train_weights(wm, passes=3)` lays out);
     the row-tile kernel above that (`rows_flow_kernel` in
-    `csrc/flow_kernel.cu`);
+    `csrc/flow_kernel.cu`), but for the inverse at the padded widths 768
+    and 1024, which runs on `wgmma` clusters of Hp/128 blocks on a
+    distributed tile (`csrc/flow_wide_wgmma.cu`, streaming the hidden
+    weights once in float32 as `prepare_wide_weights` lays them out once a
+    call);
   - the reduced mode (the "default", "bfloat16" and "BF16_BF16_F32_X3"
     precisions, which the JAX model serves with its "default" kernel mode)
     runs the same kernels built with one TF32 pass a product (the `*_tf32`
@@ -98,14 +102,18 @@ TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K4 has no float3
 # 3xTF32 on the row tiles, float32 FMA (strict), and the one-pass `wgmma`
 # and row tiles; each route's library (`ops/_build.py`).
 ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
+ROUTE_WIDE = "wide_wgmma"  # the 3xTF32 inverse at Hp 768 and 1024 (csrc/flow_wide_wgmma.cu)
 ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
 # the forward on wgmma (K1, K2a, K4; csrc/flow_fwd_wgmma.cu), in 3xTF32 and in one pass
 ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32 = "fwd_wgmma", "fwd_wgmma_tf32"
 FWD_WGMMA_ROUTES = (ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32)
 ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_fma",
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32",
-                 ROUTE_FWD_WGMMA: "flow_fwd_wgmma", ROUTE_FWD_WGMMA_TF32: "flow_fwd_wgmma_tf32"}
+                 ROUTE_FWD_WGMMA: "flow_fwd_wgmma", ROUTE_FWD_WGMMA_TF32: "flow_fwd_wgmma_tf32",
+                 ROUTE_WIDE: "flow_wide_wgmma"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
+WIDE_TN = (24, 32)  # the widths the wide 3xTF32 inverse is built for (Hp 768, 1024; csrc/flow_wide_wgmma.cu)
+WIDE_WGMMA_MAX_TN = 32  # the widest of them the route takes; 0 forces the row tiles there
 FWD_WGMMA_MAX_TN = 17  # the widest width the wgmma forward holds (Hp 544); 0 forces the row tiles in both modes
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
 # K2b's routes (`train_bwd_route`): the row tiles in 3xTF32 (`ROUTE_ROWS`) and
@@ -131,7 +139,9 @@ TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 
 # ring (`fma_layout`); the one-pass `wgmma` forward's rows a cluster, blocks
 # a cluster, weight rows a stage, the bounds of its ring and the floats of
 # its barriers (`fwd_wgmma_ring`); the strict K2b's weight-grad jobs a step
-# and that pass's output tile and rows a stage (`fma_atb_tiles`).
+# and that pass's output tile and rows a stage (`fma_atb_tiles`); the wide
+# inverse's rows a cluster, columns a block, k-steps a stage and its two
+# rings' stages.
 _SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kFtTile": "flow_train_fma.cu", "kFtK": "flow_train_fma.cu",
                      "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh",
                   **{name: "flow_wgmma.cu" for name in ("kWgRing3xTf32", "kWgCluster3xTf32", "kWgRingTf32",
@@ -141,7 +151,9 @@ _SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kFtTile": "flow_train_f
                   **{name: "flow_fma.cu" for name in ("kFmaWarps", "kFmaLaneRows", "kFmaWideTN", "kFmaStageRows",
                                                        "kFmaRingMin", "kFmaRingMax")},
                   **{name: "flow_fwd_wgmma.cu" for name in ("kFwRows", "kFwCluster", "kFwStageK", "kFwRingMin",
-                                                             "kFwRingMax", "kFwBarrierFloats")}}
+                                                             "kFwRingMax", "kFwBarrierFloats")},
+                  **{name: "flow_wide_wgmma.cu" for name in ("kWwRows", "kWwCols", "kWwStageK", "kWwHiStages",
+                                                              "kWwLoStages")}}
 
 
 @functools.cache
@@ -175,6 +187,20 @@ def wgmma_grid(route: str, B: int) -> int:
     past the last row runs on masked rows)."""
     cluster, tiles = wgmma_ring(route)[1], -(-B // 64)
     return cluster * (tiles if route == ROUTE_WGMMA else -(-tiles // cluster))
+
+
+def wide_grid(B: int, Hp: int) -> int:
+    """Blocks the wide inverse launches for B rows at the padded width Hp
+    (`csrc/flow_wide_wgmma.cu`: `launch`): a cluster of Hp/kWwCols blocks a
+    tile of kWwRows rows."""
+    return -(-B // kernel_limit("kWwRows")) * (Hp // kernel_limit("kWwCols"))
+
+
+def wide_takes(Hp: int, size: int, d_a: int) -> bool:
+    """Whether the wide inverse takes the shape (`ww_takes`): a width it is
+    built for, and its shared memory (which grows with the rows' state and
+    the cluster's partial outputs) within a block's."""
+    return Hp // 32 in WIDE_TN and kernel_smem(ROUTE_WIDE, Hp, size, d_a) <= kernel_limit("kSmemLimit")
 
 
 def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
@@ -245,11 +271,19 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
     `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`; `csrc/flow_fma.cu`:
     `fma_smem`, at its least; `csrc/flow_fwd_wgmma.cu`: `fw_smem`, at its
-    least), and of K2b's rows kernels (`ROUTE_TRAIN_BWD`;
-    `csrc/flow_train_kernel.cu`: `launch_rows`; `ROUTE_TRAIN_BWD_WGMMA`:
+    least; `csrc/flow_wide_wgmma.cu`: `ww_smem`), and of K2b's rows kernels
+    (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`; `ROUTE_TRAIN_BWD_WGMMA`:
     `csrc/flow_train_wgmma.cu`: `tw_smem`; `ROUTE_TRAIN_BWD_FMA`:
     `csrc/flow_train_fma.cu`: `ft_smem`, at its least)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
+    if route == ROUTE_WIDE:
+        # the tile of the block's columns; the hi and lo rings (kWwStageK k-steps of 8 rows of the block's columns
+        # a stage); x and x Q^T; the C blocks' partial [t | s'] of the ceil(rows / C) rows a block reduces, and
+        # [t | s'] of every row; 2 barriers a ring stage and 3 a block of the cluster
+        rows, cols = kernel_limit("kWwRows"), kernel_limit("kWwCols")
+        C, stages = Hp // cols, kernel_limit("kWwHiStages") + kernel_limit("kWwLoStages")
+        stage, reduced = kernel_limit("kWwStageK") * 8 * cols, C * -(-rows // C) + rows
+        return 4 * (rows * (cols + 4) + stages * stage + rows * 2 * size + reduced * n_out) + 8 * (2 * stages + 3 * C)
     if route == ROUTE_TRAIN_BWD_FMA:  # the shortest ring
         return fma_train_smem(Hp, size, d_a, kernel_limit("kFmaRingMin"))
     if route in FWD_WGMMA_ROUTES:  # the shortest ring
@@ -272,6 +306,20 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     if route == ROUTE_FMA:  # the shortest ring
         return fma_smem(Hp, size, d_a, kernel_limit("kFmaRingMin"))
     raise ValueError(f"unknown route {route!r}")
+
+
+def wide_card_layout(Hp: int, size: int, d_a: int) -> tuple[int, int]:
+    """The wide inverse at this shape on the current card
+    (`csrc/flow_wide_wgmma.cu`): its bytes of shared memory a block, and its
+    clusters of Hp/128 blocks resident at once (the occupancy calculator's
+    `cudaOccupancyMaxActiveClusters`)."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library(ROUTE_LIBRARY[ROUTE_WIDE])
+    smem, clusters = lib.bcnf_flow_wide_smem(Hp, size, d_a), lib.bcnf_flow_wide_clusters(Hp, size, d_a)
+    for n in (smem, clusters):
+        _raise_on(0 if n > 0 else (-n or 1), lib, "wide_card_layout")
+    return smem, clusters
 
 
 def fma_lane_rows(Hp: int) -> int:
@@ -565,9 +613,12 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
     """Which of K1's kernels runs this call (and, forward, which runs K2a's
     and K4's), by mode and shape: strict (`MODE_FMA`) takes the float32 FMA
     kernel; the default and the one-pass mode the `wgmma` inverse where it
-    holds the width and the shape, else the row tiles, each built for its
-    mode; the forward of either mode the `wgmma` forward
-    (`csrc/flow_fwd_wgmma.cu`, built for the mode) at the widths it holds
+    holds the width and the shape, the default mode's inverse at Hp 768 and
+    1024 the wide inverse (`csrc/flow_wide_wgmma.cu`, up to
+    `WIDE_WGMMA_MAX_TN`) where it takes the shape (`wide_takes`), else the
+    row tiles, each built for its mode; the forward of either mode the
+    `wgmma` forward (`csrc/flow_fwd_wgmma.cu`, built for the mode) at the
+    widths it holds
     (`FWD_WGMMA_MAX_TN`) where its ring takes the shape (`fwd_wgmma_ring`), at
     every batch (PERF.md: the card's row sweeps), else the row tiles. None
     where no kernel takes the shape (its shared memory; then the model's gate
@@ -581,12 +632,15 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
         candidates = (ROUTE_FMA,)
     elif inverse and Hp // 32 <= WGMMA_MAX_TN:
         candidates = (wgmma, rows)
+    elif inverse and not one and Hp // 32 in WIDE_TN and Hp // 32 <= WIDE_WGMMA_MAX_TN:
+        candidates = (ROUTE_WIDE, rows)
     elif not inverse and Hp // 32 <= FWD_WGMMA_MAX_TN:
         candidates = (ROUTE_FWD_WGMMA_TF32 if one else ROUTE_FWD_WGMMA, rows)
     else:
         candidates = (rows,)
     limit = kernel_limit("kSmemLimit")
     return next((r for r in candidates if (fwd_wgmma_ring(Hp, size, d_a) > 0 if r in FWD_WGMMA_ROUTES
+                                           else wide_takes(Hp, size, d_a) if r == ROUTE_WIDE
                                            else kernel_smem(r, Hp, size, d_a) <= limit)), None)
 
 
@@ -666,6 +720,34 @@ def prepare_weights(wm: torch.Tensor, passes: int = 3, stage_k: int | None = Non
     # s = k j + u and ng = (Hp/16) rank + ng', to (j, rank, u, ng', kg, r, c)
     wt, hi = (t.reshape(S, nh, g // k, k, 2, g // 2, 2, 8, 4).transpose(3, 4) for t in (wt, hi))
     return torch.stack([hi, wt - hi], dim=5).contiguous()
+
+
+def prepare_wide_weights(wm: torch.Tensor) -> torch.Tensor:
+    """The stacked, padded hidden weights `wm` (S, nh, Hp, Hp), stored (in,
+    out), as the wide inverse reads them (`csrc/flow_wide_wgmma.cu`), on
+    `wm`'s device, float32 as they are (the kernel splits them into hi and
+    lo in shared memory): transposed to K-major, in `wgmma`'s core-matrix
+    order (8 outputs x 4 inputs, 128 contiguous bytes; the two along the
+    inputs side by side), stage by stage, each stage kWwStageK k-steps (8
+    input rows each) split by output column between the Hp/kWwCols blocks
+    of a cluster (block c owns columns kWwCols c ..), so that one bulk copy
+    moves a block's part of a stage: shape (S, nh, Hp/8/kWwStageK stages,
+    Hp/kWwCols blocks, kWwStageK k-steps, kWwCols/8 output groups, 2 input
+    halves, 8 outputs, 4 inputs); entry [s, l, j, c, u, ng, kg, r, i] is
+    wm[s, l, 8 (kWwStageK j + u) + 4 kg + i, kWwCols c + 8 ng + r]. The same
+    bytes as `wm`."""
+    S, nh, Hp, _ = wm.shape
+    k, cols = kernel_limit("kWwStageK"), kernel_limit("kWwCols")
+    if Hp % (8 * k) or Hp % cols:
+        raise ValueError(f"prepare_wide_weights: the padded width {Hp} is not one the wide inverse takes")
+    return (wm.reshape(S, nh, Hp // 8 // k, k, 2, 4, Hp // cols, cols // 8, 8)
+            .permute(0, 1, 2, 6, 3, 7, 4, 8, 5).contiguous())
+
+
+def _wide_weights_shape(S: int, nh: int, Hp: int) -> tuple[int, ...]:
+    """The shape of `prepare_wide_weights`' layout."""
+    k, cols = kernel_limit("kWwStageK"), kernel_limit("kWwCols")
+    return (S, nh, Hp // 8 // k, Hp // cols, k, cols // 8, 2, 8, 4)
 
 
 def _weights_shape(S: int, nh: int, Hp: int, passes: int) -> tuple[int, ...]:
@@ -765,8 +847,12 @@ def prepare_train_weights_reference(wm: torch.Tensor, passes: int = 1) -> torch.
 def route_weights(route: str, wm: torch.Tensor, wstages: torch.Tensor | None = None) -> torch.Tensor:
     """The hidden weights `wm` laid out as K1's `wgmma` route `route` reads
     them: `prepare_weights` for the inverses, `prepare_train_weights` for the
-    forwards, each for the route's mode; or `wstages`, a caller's layout,
-    checked against the route's."""
+    forwards, each for the route's mode, `prepare_wide_weights` for the wide
+    inverse; or `wstages`, a caller's layout, checked against the route's."""
+    if route == ROUTE_WIDE:
+        if wstages is None:
+            return prepare_wide_weights(wm)
+        return _checked_wstages(wstages, _wide_weights_shape(*wm.shape[:3]), wm, f"the {route} route")
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
         passes, prepare, shape = 1 if route == ROUTE_WGMMA_TF32 else 3, prepare_weights, _weights_shape
     elif route in FWD_WGMMA_ROUTES:
@@ -886,13 +972,16 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-# the `wgmma` inverse's parts (csrc/flow_wgmma.cu): its products, the weights'
-# stream, and the exchange between the blocks of a 3xTF32 cluster
-WG_PRODUCTS, WG_COPIES, WG_EXCHANGE = 1, 2, 4
+# the `wgmma` inverses' parts (csrc/flow_wgmma.cu, csrc/flow_wide_wgmma.cu):
+# their products, the weights' stream, the exchange between the blocks of a
+# 3xTF32 cluster (the wide inverse: the A fragments read from the owners'
+# tiles), and the wide inverse's split of each weight stage into hi and lo
+WG_PRODUCTS, WG_COPIES, WG_EXCHANGE, WIDE_SPLIT = 1, 2, 4, 8
+WG_ALL = WG_PRODUCTS | WG_COPIES | WG_EXCHANGE | WIDE_SPLIT
 
 
 def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: bool, n_cond: int, mode: str,
-                 wstages: torch.Tensor | None = None, parts: int = WG_PRODUCTS | WG_COPIES | WG_EXCHANGE,
+                 wstages: torch.Tensor | None = None, parts: int = WG_ALL,
                  ) -> tuple[str, torch.Tensor, torch.Tensor | None]:
     """Launch K1 on checked CUDA tensors, uncounted, on the route
     `flow_route` gives for `mode`; returns `(route, y, logdet or None)`. The
@@ -903,7 +992,9 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     time the rest (chip_smoke.py): its products alone, on stale weight
     stages (`WG_PRODUCTS`), the weights' stream without the products
     (`WG_COPIES`), or each 3xTF32 block on its own half without the exchange
-    (no `WG_EXCHANGE`); y is then not the inverse."""
+    (no `WG_EXCHANGE`); the wide inverse also without its split of the
+    weight stages (no `WIDE_SPLIT`); y is then not the inverse. The wide
+    inverse reads them as `prepare_wide_weights` lays them out."""
     from bcnf_tpu_torch.ops._build import load_library
 
     B, size = x.shape
@@ -920,7 +1011,10 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     tensors = [args[n] for n in ("h_proj", "an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")]
     lib = load_library(ROUTE_LIBRARY[route])
     with torch.cuda.device(x.device):
-        if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
+        if route == ROUTE_WIDE:
+            tensors[6] = route_weights(route, args["wm"], wstages)
+            err = lib.bcnf_flow_inverse_wide(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
+        elif route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
             tensors[6] = route_weights(route, args["wm"], wstages)
             err = lib.bcnf_flow_inverse_wgmma(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
         elif route in FWD_WGMMA_ROUTES:  # no step-input store (that is K2a's)
@@ -1284,7 +1378,7 @@ def train_keep(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: int
     route (a CUDA tensor in `MODE_FMA`), which requires it; None elsewhere.
     K2a fills it, K2b reads it: the training step hands it from one to the
     other, or, where the backward runs in row chunks (`strict_chunks`), the
-    backward makes one a chunk."""
+    backward makes one for the largest chunk, which serves every chunk."""
     if not _strict_route(x, h_proj, d_a, mode):
         return None
     (B, size), (S, _, Hp), nh = x.shape, h_proj.shape, wm.shape[1]
@@ -1327,9 +1421,10 @@ def fused_flow_train_bwd(
     strict K2a kept in `keep` for these inputs: without it, it raises), or
     raises. Strict, where `strict_chunks` splits the rows (`chunk_rows`, or
     the card's memory), it takes no keep: for each chunk it runs K2a again on
-    the chunk's step inputs into a chunk's keep, then K2b on the chunk's
-    rows, and sums the weight and ActNorm grads over the chunks (on the CPU,
-    the plain backward a chunk). Counts its calls (one a chunk) in
+    the chunk's step inputs into the keep, then K2b on the chunk's rows, and
+    sums the weight and ActNorm grads over the chunks; one keep and one
+    scratch, allocated once, serve every chunk (counted in `allocations`; on
+    the CPU, the plain backward a chunk). Counts its calls (one a chunk) in
     `launches`, by mode in `mode_launches` and by route in
     `route_launches`; the chunks' K2a runs count as K2a's."""
     _check_mode(mode, TRAIN_MODES)
@@ -1367,36 +1462,64 @@ def fused_flow_train_bwd(
     return grads
 
 
+def strict_chunk_buffers(chunks: list[tuple[int, int]], S: int, size: int, d_a: int, nh: int,
+                         Hp: int) -> tuple[int, int]:
+    """Floats of the one keep (`fma_keep_floats`) and the one K2b scratch
+    (`fma_train_scratch_floats`) that serve every row chunk of the strict
+    backward: each sized for the largest chunk, which may be the last
+    (`row_chunks` joins a short tail to it). A chunk of fewer rows uses the
+    first floats of each, as the kernels lay them out for its rows."""
+    rows = max(end - first for first, end in chunks)
+    return fma_keep_floats(rows, S, size, d_a, nh, Hp), fma_train_scratch_floats(rows, S, size, d_a, nh, Hp)
+
+
 def _strict_train_bwd_chunks(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
                              args: dict[str, torch.Tensor], chunks: list[tuple[int, int]]) -> tuple[torch.Tensor, ...]:
     """The strict backward in row chunks (`fused_flow_train_bwd`): dx and
     dh_proj written chunk by chunk, the other grads summed over the chunks
-    in their order."""
+    in their order. On the card one keep, one K2b scratch and one set of a
+    chunk's weight and ActNorm grads are allocated before the first chunk
+    and serve every chunk (`strict_chunk_buffers`; counted in
+    `fused_flow_train_bwd.allocations`), so that the allocator is not asked
+    for a chunk's gigabytes again at every chunk; the first chunk writes its
+    grads into the sums, each later one into that set, added to the sums."""
     dx, dhp = torch.empty_like(dz), torch.empty_like(h_proj)
-    sums: list[torch.Tensor] = []
-    for first, end in chunks:
-        if dz.device.type == "cpu":  # the plain backward recomputes the MLP from the step inputs
+    if dz.device.type == "cpu":  # the plain backward recomputes the MLP from the step inputs
+        sums = []
+        for first, end in chunks:
             g = fused_flow_train_backward_reference(bound[:, first:end], h_proj[:, first:end], dz[first:end],
                                                     dld[first:end], **args)
             dx[first:end], dhp[:, first:end] = g[0], g[1]
-        else:
-            x = bound[0, first:end]
-            keep = train_keep(x, h_proj, args["wm"], args["w1y"].shape[1], MODE_FMA)
-            _train_fwd(x, h_proj, args, MODE_FMA, None, keep, first)
-            g = (dx, dhp, *(torch.empty_like(t) for name, t in args.items() if name != "ortho"))
-            route = _train_bwd_parts(bound, h_proj, dz, dld, args, g, BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM,
-                                     MODE_FMA, None, keep, (first, end))
-            fused_flow_train_bwd.launches += 1
-            fused_flow_train_bwd.mode_launches[MODE_FMA] += 1
-            fused_flow_train_bwd.route_launches[route] += 1
-        sums = list(g[2:]) if not sums else [t.add_(c) for t, c in zip(sums, g[2:])]
+            sums = list(g[2:]) if not sums else [t.add_(c) for t, c in zip(sums, g[2:])]
+        return (dx, dhp, *sums)
+    (S, _, size), Hp = bound.shape, h_proj.shape[-1]
+    d_a, nh = args["w1y"].shape[1], args["wm"].shape[1]
+    n_keep, n_scratch = strict_chunk_buffers(chunks, S, size, d_a, nh, Hp)
+    keep = torch.empty((n_keep,), dtype=torch.float32, device=dz.device)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dz.device)
+    fused_flow_train_bwd.allocations.update(("keep", "scratch"))
+    weights = [t for name, t in args.items() if name != "ortho"]  # the grads' shapes: dx and dh_proj's come first
+    sums, part = [torch.empty_like(t) for t in weights], [torch.empty_like(t) for t in weights]
+    for i, (first, end) in enumerate(chunks):
+        x = bound[0, first:end]
+        mine = keep[:fma_keep_floats(end - first, S, size, d_a, nh, Hp)]
+        _train_fwd(x, h_proj, args, MODE_FMA, None, mine, first)
+        route = _train_bwd_parts(bound, h_proj, dz, dld, args, (dx, dhp, *(part if i else sums)),
+                                 BWD_ROWS | BWD_WEIGHT_GRADS | BWD_ACTNORM, MODE_FMA, None, mine, (first, end), scratch)
+        fused_flow_train_bwd.launches += 1
+        fused_flow_train_bwd.mode_launches[MODE_FMA] += 1
+        fused_flow_train_bwd.route_launches[route] += 1
+        if i:
+            for t, c in zip(sums, part):
+                t.add_(c)
     return (dx, dhp, *sums)
 
 
 def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor, dld: torch.Tensor,
                      args: dict[str, torch.Tensor], grads: tuple[torch.Tensor, ...], parts: int,
                      mode: str = MODE_3XTF32, wstages: torch.Tensor | None = None,
-                     keep: torch.Tensor | None = None, rows: tuple[int, int] | None = None) -> str:
+                     keep: torch.Tensor | None = None, rows: tuple[int, int] | None = None,
+                     scratch: torch.Tensor | None = None) -> str:
     """Launch K2b's parts on checked CUDA tensors into `grads`, uncounted, on
     the route `train_bwd_route` gives; returns the route. The rows kernels
     (`BWD_ROWS`; on the tensor-core routes one a step, with the copy of dz
@@ -1410,7 +1533,9 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     strict route reads what the strict K2a kept in `keep` (required), and
     takes `rows` = (first, end): the grads of those rows alone (dx and
     dh_proj into those rows of `grads`' first two, the rest their sums),
-    from a keep of end - first rows."""
+    from a keep of end - first rows. `scratch`, float32 on the card, lends
+    its first floats to the kernels' scratch (the chunked backward's one
+    scratch for every chunk); by default one is allocated for the call."""
     from bcnf_tpu_torch.ops._build import load_library
 
     S, B, size = bound.shape
@@ -1441,7 +1566,12 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
         shape = (B, first, end - first, *shape[1:])
     else:
         n_scratch, entry = lib.bcnf_flow_train_bwd_scratch(*shape), lib.bcnf_flow_train_bwd
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dz.device)
+    if scratch is None:
+        scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dz.device)
+    elif scratch.dtype != torch.float32 or scratch.device != dz.device or scratch.numel() < n_scratch:
+        raise ValueError(f"fused_flow_train_bwd: scratch must hold {n_scratch} float32 on {dz.device}, got "
+                         f"{scratch.numel()} {scratch.dtype} on {scratch.device}")
+    scratch = scratch[:n_scratch]
     with torch.cuda.device(dz.device):
         err = entry(*_ptrs(bound, h_proj, dz, dld, *tensors, *grads, scratch), *shape, parts, _stream())
     _raise_on(err, lib, f"fused_flow_train_bwd ({route})")
@@ -1465,6 +1595,8 @@ def train_bwd_wgmma_layout(Hp: int, size: int, d_a: int, nh: int, B: int,
 fused_flow_train_bwd.launches = 0  # type: ignore[attr-defined]
 fused_flow_train_bwd.mode_launches = collections.Counter()  # type: ignore[attr-defined]
 fused_flow_train_bwd.route_launches = collections.Counter()  # type: ignore[attr-defined]
+# buffers the chunked strict backward allocates for all its chunks: "keep", "scratch"
+fused_flow_train_bwd.allocations = collections.Counter()  # type: ignore[attr-defined]
 
 
 _TRAIN_ARGS = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
@@ -1482,7 +1614,8 @@ class _FusedFlowTrain(torch.autograd.Function):
     layer's activations and gelu' for K2b (`train_keep`, 2.32 GB at the
     flagship's 4096 rows), unless the rows take more than one chunk
     (`strict_chunks`: past 13,088 rows at the flagship's shape on an 80 GB
-    card): then the backward runs K2a again a chunk, into a chunk's keep."""
+    card): then the backward runs K2a again a chunk, into one keep that
+    serves every chunk."""
 
     @staticmethod
     def forward(ctx: Any, mode: str, chunk_rows: int | None, x: torch.Tensor, h_proj: torch.Tensor,

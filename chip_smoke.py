@@ -22,8 +22,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
    `flow_train_fma`: the strict K2b) holds no tensor-core instruction; the
    3xTF32 `wgmma` inverse (2-block clusters, each k-stage folded into a
    float32 sum) at TN 1, 4, 16 and 17 on 64 k + 1 rows over an odd count of
-   tiles, equal to the bit between two calls, from the plain version in
-   float64 no further than twice the float32 plain version.
+   tiles, and the wide inverse (csrc/flow_wide_wgmma.cu) at H 700, 1000 and
+   1024 (Hp 768, 1024) over odd counts of 128-row tiles, each equal to the
+   bit between two calls, from the plain version in float64 no further than
+   twice the float32 plain version; phase 1 fails on any spill in
+   `flow_wide_wgmma` as in the other 3xTF32 `wgmma` libraries.
 3. main path: the flagship `trajectory_LSTM_large` model (48,852,615
    params, random weights from a seed) on the card: posterior sampling of
    10,000 draws for 8 trajectories, then `log_prob` and the round trip on
@@ -155,7 +158,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (the RQS coupling): the `train` CLI on data generated on the card, `eval`
    at its defaults, its test NLL against the CPU; and both dual-domain
    hybrids (`t_DPTRF_large_hybrid`, `t_DFC_large_hybrid`): one `sample`
-   through K1 and one training step each.
+   through K1 and one training step each; then the one config at Hp 1024,
+   `configs/runs/dev/trajectory_LSTM_xsmall_large_hybrid_dual.yaml` (32
+   blocks of 5 x 1024, 136,369,060 params): one `sample` of 10,000 x 8
+   through K1's wide inverse (csrc/flow_wide_wgmma.cu, 1 launch) against
+   the plain path, and its rank batch (1000 draws x 100 conditions) timed
+   on the wide inverse, the row tiles forced and the plain version in
+   turns, held to float64 (twice the float32 plain version's distance, half
+   the 1e-4 bar); fails where the wide inverse loses to either.
 
 14. the video path, `configs/runs/videos_CNN_LSTM_large.yaml` at its
    published widths (CNN 1->8->16->32 on 2 cameras x 30 frames of 90 x 160,
@@ -467,14 +477,16 @@ def strict_sass_check(lib_path: str, what: str = "the strict K1's library") -> i
 
 
 # the libraries whose every kernel instance must keep its registers (phase 1):
-# K1's 3xTF32 `wgmma` inverse, and the 3xTF32 `wgmma` forward and K2b route
-NO_SPILL = ("flow_wgmma", "flow_fwd_wgmma", "flow_train_wgmma")
+# K1's 3xTF32 `wgmma` inverses (Hp <= 544, and the wide one at 768/1024), and
+# the 3xTF32 `wgmma` forward and K2b route
+NO_SPILL = ("flow_wgmma", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_train_wgmma")
 
 
 def wgmma_spill_check() -> None:
     """Phase 1: the registers and spill bytes of each instance of K1's
-    `wgmma` inverse, the `wgmma` forward (K1's, K2a's, K4's) and K2b's
-    `wgmma` route, each in both builds, from this run's ptxas output (where
+    `wgmma` inverse (each build, and the wide inverse), the `wgmma` forward
+    (K1's, K2a's, K4's) and K2b's `wgmma` route, each in both builds, from
+    this run's ptxas output (where
     this run built the library) and from the built library (`cuobjdump
     -res-usage`: STACK and LOCAL bytes a thread); fails on any spill in the
     3xTF32 libraries (`NO_SPILL`)."""
@@ -482,8 +494,8 @@ def wgmma_spill_check() -> None:
 
     from bcnf_tpu_torch.ops import _build
 
-    for lib in ("flow_wgmma", "flow_wgmma_tf32", "flow_fwd_wgmma", "flow_fwd_wgmma_tf32", "flow_train_wgmma",
-                "flow_train_wgmma_tf32"):
+    for lib in ("flow_wgmma", "flow_wgmma_tf32", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_fwd_wgmma_tf32",
+                "flow_train_wgmma", "flow_train_wgmma_tf32"):
         ptxas, kernel = {}, "?"
         for ln in _build.build_logs.get(lib, "").splitlines():
             if "Compiling entry function" in ln:
@@ -557,16 +569,19 @@ def strict_widths_check(dev) -> None:
 
 
 def wgmma_widths_check(dev) -> None:
-    """Phase 2's 3xTF32 `wgmma` inverse (2-block clusters splitting the
-    columns, each k-stage folded) at TN 1, 4, 16 and 17 (Hp 32, 128, 512,
-    544), random weights from the seed, 64 k + 1 rows over an odd count of
-    64-row tiles, N not dividing B: within KERNEL_TOL of the plain version,
-    from the plain version in float64 no further than twice the float32
-    plain version's own distance (plus 4 float32 steps at the largest value),
+    """Phase 2's 3xTF32 `wgmma` inverses at TN 1, 4, 16 and 17 (Hp 32, 128,
+    512, 544: 2-block clusters splitting the columns, each k-stage folded,
+    64-row tiles) and at TN 24 and 32 (Hp 768 and 1024 at H 700, 1000 and
+    1024: the wide inverse, clusters of Hp/128 blocks on 128-row tiles),
+    random weights from the seed, B over an odd count of tiles with a ragged
+    last one, N not dividing B: within KERNEL_TOL of the plain version, from
+    the plain version in float64 no further than twice the float32 plain
+    version's own distance (plus 4 float32 steps at the largest value),
     equal to the bit between two calls, two launches on its route."""
     import torch
 
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_WGMMA, fused_flow, fused_flow_reference, pad_hidden, wgmma_grid
+    from bcnf_tpu_torch.ops.flow_kernel import (ROUTE_WGMMA, ROUTE_WIDE, flow_route, fused_flow, fused_flow_reference,
+                                                pad_hidden, wgmma_grid, wide_grid)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
@@ -574,7 +589,7 @@ def wgmma_widths_check(dev) -> None:
         return scale * torch.randn(shape, generator=gen, device=dev)
 
     cases, worst = [], 0.0
-    for H, B in ((16, 257), (100, 4097), (500, 257), (526, 4097)):
+    for H, B in ((16, 257), (100, 4097), (500, 257), (526, 4097), (700, 257), (1000, 4097), (1024, 1151)):
         S, nh, N, size, d_a = 6, 4, 7, 19, 10
         w = {"an_scale": 1 + 0.1 * randn(S, size), "an_bias": 0.1 * randn(S, size),
              "ortho": torch.linalg.qr(randn(S, size, size))[0].contiguous(),
@@ -583,7 +598,11 @@ def wgmma_widths_check(dev) -> None:
              "wout": randn(S, H, 2 * (size - d_a), scale=0.3 * H ** -0.5), "bout": randn(S, 2 * (size - d_a), scale=0.1)}
         kargs, h_proj = pad_hidden(w, randn(S, N, H, scale=0.5))
         x = randn(B, size)
-        before = fused_flow.route_launches[ROUTE_WGMMA]
+        Hp = h_proj.shape[-1]
+        route = flow_route(Hp, size, d_a, True)
+        if route != (ROUTE_WGMMA if Hp <= 544 else ROUTE_WIDE):
+            fail(f"the 3xTF32 inverse at Hp {Hp} takes the route {route}")
+        before = fused_flow.route_launches[route]
         one = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N)
         two = fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N)
         p32 = fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=N)
@@ -595,18 +614,19 @@ def wgmma_widths_check(dev) -> None:
         floor = 4 * float(torch.finfo(torch.float32).eps) * max(1.0, p64.abs().max().item())
         bits = torch.equal(one, two)
         worst = max(worst, err)
-        Hp = h_proj.shape[-1]
-        cases.append(f"Hp {Hp} B {B} ({wgmma_grid(ROUTE_WGMMA, B)} blocks): {err:.1e}, from float64 {dk:.2e} "
+        blocks = wgmma_grid(ROUTE_WGMMA, B) if route == ROUTE_WGMMA else wide_grid(B, Hp)
+        cases.append(f"Hp {Hp} B {B} ({route}, {blocks} blocks): {err:.1e}, from float64 {dk:.2e} "
                      f"(float32 plain {d32:.2e})")
-        if fused_flow.route_launches[ROUTE_WGMMA] != before + 2:
-            fail(f"the 3xTF32 inverse at Hp {Hp} did not launch twice on {ROUTE_WGMMA}")
+        if fused_flow.route_launches[route] != before + 2:
+            fail(f"the 3xTF32 inverse at Hp {Hp} did not launch twice on {route}")
         if not err <= KERNEL_TOL or not bits or not dk <= 2 * d32 + floor or not torch.isfinite(one).all():
-            fail(f"the 3xTF32 wgmma inverse at Hp {Hp}, B {B}: max|d| {err:.3e} (tolerance {KERNEL_TOL:g}), from "
+            fail(f"the 3xTF32 {route} inverse at Hp {Hp}, B {B}: max|d| {err:.3e} (tolerance {KERNEL_TOL:g}), from "
                  f"float64 {dk:.3e} against the float32 plain version's {d32:.3e} (bar twice it + {floor:.1e}), equal "
                  f"between calls: {bits}")
-    print(f"[2 kernels, wgmma] flow_wgmma (3xTF32, 2-block clusters, k-stages folded) vs plain, size 19, nh 4, 6 "
-          f"steps, N = 7, each equal to the bit between two calls; max|d|: {'; '.join(cases)} (worst {worst:.3e}, "
-          f"tolerance {KERNEL_TOL:g}; from float64 at most twice the float32 plain version's)")
+    print(f"[2 kernels, wgmma] flow_wgmma (3xTF32, 2-block clusters, k-stages folded; Hp <= 544) and "
+          f"flow_wide_wgmma (Hp 768/1024) vs plain, size 19, nh 4, 6 steps, N = 7, each equal to the bit between two "
+          f"calls; max|d|: {'; '.join(cases)} (worst {worst:.3e}, tolerance {KERNEL_TOL:g}; from float64 at most twice "
+          f"the float32 plain version's)")
 
 
 def median(xs: list[float]) -> float:
@@ -981,12 +1001,15 @@ def main() -> None:
     kernels += coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev, peaks)
     eval_path(dev, build_dir, peaks)
     zoo = model_zoo(rng, dev, build_dir, peaks)
+    zoo["K1 inverse, wide"], wide_rows = zoo_wide(rng, dev, peaks)
+    kernels += wide_rows
     video, lstm_video = video_path(rng, dev, build_dir, peaks)
     kernels += precision_path(model, params, rng, dev, build_dir, peaks)
     dp = parallel_path(rng, dev, build_dir)
     card_policies(model, params, rng, dev)
     for row in kernels:  # each kernel's launches on phase 13's, 14's and 16's paths, beside its main-path launches
-        key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward"}.get(
+        key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward",
+               "fused_flow[inverse, wide]": "K1 inverse, wide"}.get(
             row["name"], row["name"].split()[0].removesuffix("[3xtf32]"))
         row["zoo_launches"] = zoo.get(key, 0)
         row["video_launches"] = video.get(key, 0)
@@ -3437,6 +3460,111 @@ def zoo_hybrids(rng, dev) -> int:
         if not torch.isfinite(metrics).all() or not metrics[2] > 0 or not moved or (c["K2a"], c["K2b"]) != (0, 0):
             fail(f"{name}'s training step gave {metrics.tolist()}, head moved {moved}, K2a/K2b {c['K2a']}/{c['K2b']}")
     return launches
+
+
+# the one published configuration at Hp 1024 (5 x 1024, 32 blocks, size 19,
+# n_conditions 32, hybrid, DualDomainLSTM): K1's 3xTF32 inverse at Hp 768 and
+# 1024 runs the wide inverse (csrc/flow_wide_wgmma.cu)
+WIDE_CONFIG = "{{BCNF_ROOT}}/configs/runs/dev/trajectory_LSTM_xsmall_large_hybrid_dual.yaml"
+WIDE_PARAMS = 136_369_060
+RANK_DRAWS, RANK_CONDITIONS = 1000, 100  # a rank batch: compute_y_hat_ranks' sample_batch_size x batch_size
+
+
+def zoo_wide(rng, dev, peaks: tuple[float, float, float]) -> tuple[int, list[dict]]:
+    """Phase 13's wide configuration at its published widths, random weights
+    from the seed: one `sample` of 10,000 x 8 (counts from 0 just before)
+    through K1's wide inverse, one launch on its route, against the plain
+    path on the same z within KERNEL_TOL; then its rank batch (1000 draws x
+    100 conditions, 100,000 rows) through the wide inverse, the row tiles
+    (forced, `WIDE_WGMMA_MAX_TN = 0`) and the float32 plain version, timed
+    in turns in this process, the kernel no further from the float64 plain
+    version than twice the float32 plain version (and than RANK_MARGIN of
+    KERNEL_TOL, phase 12's bar). Returns K1's launches on the path and the
+    kernel's row of the table, timed at the sample's rows."""
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    cfg, model, params = zoo_model(WIDE_CONFIG, WIDE_PARAMS, "DualDomainLSTM", dev)
+    name, T = os.path.basename(WIDE_CONFIG)[:-5], frames(cfg)
+    H, size, d_a = model.nested_sizes[0], model.size, model.coupling.d_a
+    traj = torch.from_numpy(rng.normal(size=(N_COND, T, 3)).astype(np.float32))
+    out, secs, _, routes = zoo_sample(model, params, traj, dev)
+    launches = routes.get(fk.ROUTE_WIDE, 0)
+    if routes != {fk.ROUTE_WIDE: 1} or not model.hybrid:
+        fail(f"{name} sampling launched K1 {routes}, not once on {fk.ROUTE_WIDE} (hybrid {model.hybrid})")
+    model.use_pallas = False
+    with torch.no_grad():
+        plain = model.sample(params, torch.Generator().manual_seed(SEED), M_DRAWS, traj, device=dev)
+    model.use_pallas = True
+    sample_err = (out - plain).abs().max().item()
+    if not sample_err <= KERNEL_TOL:
+        fail(f"{name} samples through the wide inverse disagree with the plain path: {sample_err:.3e}")
+    Hp = fk.padded_width(H)
+    smem, resident = fk.wide_card_layout(Hp, size, d_a)
+
+    def turns(fns: dict, reps: int = 3) -> dict:  # each in turn, then again in reverse: medians of both runs
+        times = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            times[k] += cuda_ms(fns[k], reps)
+        return {k: median(v) for k, v in times.items()}
+
+    with torch.no_grad():
+        # the kernel at the sample's rows, for the table
+        kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj.to(dev),)))
+        x = model.draw_z(torch.Generator().manual_seed(SEED), M_DRAWS, N_COND).to(dev).reshape(-1, size)
+        err = (fk.fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N_COND)
+               - fk.fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=N_COND)).abs().max().item()
+        k_times = cuda_ms(lambda: fk.fused_flow(x, h_proj, **kargs, inverse=True, n_cond=N_COND), reps=5)
+        p_times = cuda_ms(lambda: fk.fused_flow_reference(x, h_proj, **kargs, inverse=True, n_cond=N_COND), reps=3)
+        # the rank batch: 100 conditions, 1000 draws each
+        cond_b = torch.from_numpy(rng.normal(size=(RANK_CONDITIONS, T, 3)).astype(np.float32)).to(dev)
+        kr, hr = model._fused_flow_args(params, model.encode(params, (cond_b,)))
+        xr = torch.randn((RANK_DRAWS * RANK_CONDITIONS, size), generator=torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+
+        def rows():
+            with row_tiles_forced("WIDE_WGMMA_MAX_TN"):
+                return fk.fused_flow(xr, hr, **kr, inverse=True, n_cond=RANK_CONDITIONS)
+
+        saved = fk.fused_flow.launches, dict(fk.fused_flow.route_launches)
+        y_k = fk.fused_flow(xr, hr, **kr, inverse=True, n_cond=RANK_CONDITIONS)
+        y_p = fk.fused_flow_reference(xr, hr, **kr, inverse=True, n_cond=RANK_CONDITIONS)
+        y_64 = fk.fused_flow_reference(xr.double(), hr.double(), **{k: v.double() for k, v in kr.items()},
+                                       inverse=True, n_cond=RANK_CONDITIONS)
+        d_k, d_p = (y_k.double() - y_64).abs().max().item(), (y_p.double() - y_64).abs().max().item()
+        del y_64
+        r_ms = turns({"wide": lambda: fk.fused_flow(xr, hr, **kr, inverse=True, n_cond=RANK_CONDITIONS), "rows": rows,
+                      "plain": lambda: fk.fused_flow_reference(xr, hr, **kr, inverse=True, n_cond=RANK_CONDITIONS)})
+        if fk.fused_flow.route_launches[fk.ROUTE_ROWS] == saved[1].get(fk.ROUTE_ROWS, 0):
+            fail("the rank batch's row tiles, forced, did not run on the row tiles")
+        fk.fused_flow.launches = saved[0]
+        fk.fused_flow.route_launches.clear()
+        fk.fused_flow.route_launches.update(saved[1])
+    row = kernel_row("fused_flow[inverse, wide]", "bcnf_tpu_torch/ops/csrc/flow_wide_wgmma.cu",
+                     "bcnf_tpu/ops/flow_kernel.py:162", launches, err, k_times, p_times,
+                     flow_work(kargs, h_proj, x.shape[0], H), peaks, None, ARITH_3XTF32)
+    r_bound = bound_ms(flow_work(kr, hr, xr.shape[0], H), peaks, ARITH_3XTF32)[0]
+    tiles = -(-x.shape[0] // fk.kernel_limit("kWwRows"))
+    print(f"[13 model zoo, wide] {name} ({WIDE_PARAMS:,} params; {model.n_blocks} blocks of {len(model.nested_sizes)} "
+          f"x {H}, Hp {Hp}): sample {M_DRAWS}x{N_COND} in {secs:.3f} s, K1 launches {routes}, max|d| vs the plain path "
+          f"on the same z {sample_err:.3e} (tolerance {KERNEL_TOL:g}); the wide inverse at the sample's {x.shape[0]:,} "
+          f"rows {row['ms']:.2f} ms (bound {row['bound_ms']:.2f} ms, {row['bound_ms'] / row['ms']:.1%}; plain "
+          f"{row['plain_ms']:.2f} ms; max|d| {err:.2e}), {fk.wide_grid(x.shape[0], Hp)} blocks in clusters of "
+          f"{Hp // fk.kernel_limit('kWwCols')}, {smem} bytes of shared memory a block, {resident} clusters resident at "
+          f"once: {tiles / resident:.2f} waves")
+    print(f"    rank batch ({RANK_DRAWS} draws x {RANK_CONDITIONS} conditions, {xr.shape[0]:,} rows), in turns: wide "
+          f"inverse {r_ms['wide']:.2f} ms, row tiles (forced) {r_ms['rows']:.2f} ms, float32 plain "
+          f"{r_ms['plain']:.2f} ms (bound {r_bound:.2f} ms: {r_bound / r_ms['wide']:.1%}); from the float64 plain "
+          f"version: wide {d_k:.3e}, "
+          f"float32 plain {d_p:.3e} (bar: twice it, and {RANK_MARGIN:.0%} of {KERNEL_TOL:g})")
+    if not d_k <= min(2 * d_p, RANK_MARGIN * KERNEL_TOL) or not torch.isfinite(y_k).all():
+        fail(f"the wide inverse on {name}'s rank batch is {d_k:.3e} from float64 (float32 plain {d_p:.3e})")
+    if not r_ms["wide"] < min(r_ms["rows"], r_ms["plain"]):
+        fail(f"the wide inverse ({r_ms['wide']:.2f} ms) loses to the row tiles ({r_ms['rows']:.2f}) or the plain "
+             f"version ({r_ms['plain']:.2f}) on {name}'s rank batch")
+    return launches, [row]
 
 
 def model_zoo(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> dict:

@@ -551,6 +551,23 @@ def test_strict_chunk_rule_at_the_flagship_shape(card_bytes):
         assert rows == 13_088  # the value the docstrings and PERF.md give
 
 
+@pytest.mark.parametrize("B,chunk_rows,largest", [(4099, 1024, 1027), (4096, 1024, 1024), (65_536, 13_088, 13_088),
+                                                  (100, 32, 36), (131, 64, 67)])
+def test_strict_chunk_buffers_are_sized_for_the_largest_chunk(B, chunk_rows, largest):
+    """The one keep and the one K2b scratch that serve every row chunk hold
+    what the largest chunk needs (`fma_keep_floats`,
+    `fma_train_scratch_floats` of its rows), and the largest chunk can be the
+    last, where `row_chunks` joins a tail of fewer than 32 rows to it; every
+    chunk's keep and scratch fit in their first floats."""
+    shape = (26, 19, 10, 4, 544)
+    chunks = fk.row_chunks(B, chunk_rows)
+    assert max(e - f for f, e in chunks) == largest
+    keep, scratch = fk.strict_chunk_buffers(chunks, *shape)
+    assert (keep, scratch) == (fk.fma_keep_floats(largest, *shape), fk.fma_train_scratch_floats(largest, *shape))
+    for f, e in chunks:
+        assert fk.fma_keep_floats(e - f, *shape) <= keep and fk.fma_train_scratch_floats(e - f, *shape) <= scratch
+
+
 def test_strict_weight_grad_sum_order_emulated_in_float32():
     """The weight-grad pass's fixed order, emulated in float32: each
     output's sum over 4096 rows taken kFtK rows at a time into a fresh sum,
@@ -778,6 +795,47 @@ def test_strict_chunked_step_matches_the_whole_step_on_card(cuda, hidden, nh, ro
     for name, c, w, p, r in zip(GRAD_NAMES, g1, g0, g32, g64):
         d_c, d_w, d_p = ((t.double() - r).abs().max().item() / r.abs().max().item() for t in (c, w, p))
         assert d_c <= 2 * max(d_p, d_w), (name, d_c, d_w, d_p)
+
+
+@pytest.mark.gpu
+def test_strict_chunks_share_one_keep_and_scratch_on_card(cuda):
+    """The strict backward forced into chunks of 1024 rows at 4099 rows
+    (1024, 1024, 1024 and 1027): one keep and one K2b scratch, allocated
+    once (`fused_flow_train_bwd.allocations`), serve all four chunks; K2a
+    runs once a chunk and K2b once a chunk. Its dx and dh_proj equal the
+    whole batch's to the bit, and every grad equals, to the bit, the same
+    chunks run with a keep, a scratch and a set of grads of their own each,
+    summed in the chunks' order (the backward before its buffers were
+    shared)."""
+    x, h_proj, args = _card_case(cuda, 526, 4, 4099, seed=11)
+    gen = torch.Generator(device=cuda).manual_seed(4099)
+    dz, dld = torch.randn(x.shape, generator=gen, device=cuda), torch.randn((4099,), generator=gen, device=cuda)
+    named, parts = dict(zip(ARG_NAMES, args)), fk.BWD_ROWS | fk.BWD_WEIGHT_GRADS | fk.BWD_ACTNORM
+    chunks = fk.row_chunks(4099, 1024)
+    assert [e - f for f, e in chunks] == [1024, 1024, 1024, 1027]
+    with torch.no_grad():
+        keep = fk.train_keep(x, h_proj, args[5], args[3].shape[1], fk.MODE_FMA)
+        bound = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_FMA, keep=keep)[2]
+        whole = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_FMA, keep=keep)
+        del keep
+        allocs = dict(fk.fused_flow_train_bwd.allocations)
+        counts = (fk.fused_flow_train_fwd.launches, fk.fused_flow_train_bwd.launches)
+        got = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_FMA, chunk_rows=1024)
+        torch.cuda.synchronize()
+        assert {k: v - allocs.get(k, 0) for k, v in fk.fused_flow_train_bwd.allocations.items()} == {
+            "keep": 1, "scratch": 1}
+        assert (fk.fused_flow_train_fwd.launches - counts[0], fk.fused_flow_train_bwd.launches - counts[1]) == (4, 4)
+        dx, dhp, sums = torch.empty_like(dz), torch.empty_like(h_proj), []
+        for first, end in chunks:  # a keep, a scratch and grads of the chunk's own
+            mine = fk.train_keep(bound[0, first:end], h_proj, args[5], args[3].shape[1], fk.MODE_FMA)
+            fk._train_fwd(bound[0, first:end], h_proj, named, fk.MODE_FMA, None, mine, first)
+            g = (dx, dhp, *(torch.empty_like(t) for n, t in named.items() if n != "ortho"))
+            fk._train_bwd_parts(bound, h_proj, dz, dld, named, g, parts, fk.MODE_FMA, None, mine, (first, end))
+            sums = list(g[2:]) if not sums else [t.add_(c) for t, c in zip(sums, g[2:])]
+        torch.cuda.synchronize()
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+    for name, a, b in zip(GRAD_NAMES, got, (dx, dhp, *sums)):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -53,6 +53,7 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     ROUTE_ROWS,
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
+    ROUTE_WIDE,
     flow_route,
     fused_flow_reference,
     fused_flow_train_backward_reference,
@@ -442,8 +443,8 @@ def test_prepare_weights_splits_and_lays_out_stages(S, nh, Hp, rank, stage_k):
 def test_k1_routes_by_mode_and_width(H, strict):
     """Strict runs the float32 FMA kernel both ways; the default mode runs
     the inverse on `wgmma` and the forward on the 3xTF32 `wgmma` forward up
-    to the padded width 544, both on the row tiles above it (flagship shape:
-    size 19)."""
+    to the padded width 544, above it the inverse on the wide `wgmma`
+    inverse and the forward on the row tiles (flagship shape: size 19)."""
     from bcnf_tpu_torch.ops.flow_kernel import padded_width
 
     Hp = padded_width(H)
@@ -451,7 +452,7 @@ def test_k1_routes_by_mode_and_width(H, strict):
     if strict:
         assert routes == {True: ROUTE_FMA, False: ROUTE_FMA}
     else:
-        assert routes == {True: ROUTE_WGMMA if Hp <= 544 else ROUTE_ROWS,
+        assert routes == {True: ROUTE_WGMMA if Hp <= 544 else ROUTE_WIDE,
                           False: ROUTE_FWD_WGMMA if Hp <= 544 else ROUTE_ROWS}
 
 

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""The row-tile routes at the padded widths 768 and 1024, on one NVIDIA GPU:
-K1 both ways, K2a, K2b and K4 both ways, in 3xTF32 and in one TF32 pass,
-each beside its bound and its plain version's time.
+"""The routes at the padded widths 768 and 1024, on one NVIDIA GPU: K1 both
+ways, K2a, K2b and K4 both ways, in 3xTF32 and in one TF32 pass, each beside
+its bound and its plain version's time; the 3xTF32 inverses (K1's and K4's)
+on the wide inverse and on the row tiles, forced.
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/wide_rows_times.py
+    python3 tools/wide_rows_times.py [--shape tool|wide]
 
 Below Hp 544 the tensor-core modes run the `wgmma` kernels; at 768 and 1024
-every one of these kernels takes the row tiles (`csrc/flow_kernel.cu`,
-`csrc/flow_train_kernel.cu`, and their one-pass `*_tf32` builds), which no
-published workflow launches. The shape is the flagship's but wider: 26 steps
-of 4 hidden layers, size 19, d_a 10, at H 700 (Hp 768) and H 1000 (Hp 1024);
-random weights, conditions and cotangents from seed 0. Rows as on the main
-path: K1's inverse on 80,000 rows conditioned on 8 (a `sample` of 10,000 x
-8), its forward, K2a and K2b on 4096 rows with their own conditions, K4
-(K1's kernel at one step) on 80,000 rows inverse and 4096 forward. Each
-call's route (`flow_route`, `train_bwd_route`) is printed and must be the
-row tiles. Times: CUDA events around one call, median of 5 after a warm-up
+the 3xTF32 inverse runs the wide inverse (`csrc/flow_wide_wgmma.cu`) and
+every other of these kernels the row tiles (`csrc/flow_kernel.cu`,
+`csrc/flow_train_kernel.cu`, and their one-pass `*_tf32` builds); the
+3xTF32 inverses are timed on the row tiles too (`WIDE_WGMMA_MAX_TN = 0`).
+The shape (`tool`, the default) is the flagship's but wider: 26 steps of 4
+hidden layers, size 19, d_a 10, at H 700 (Hp 768) and H 1000 (Hp 1024);
+`wide` is the wide run config's (`trajectory_LSTM_xsmall_large_hybrid_dual`:
+32 steps of 4 layers at H 1024), where K1's inverse also runs on the rank
+batch's 100,000 rows conditioned on 100. Random weights, conditions and
+cotangents from seed 0. Rows as on the main path: K1's inverse on 80,000
+rows conditioned on 8 (a `sample` of 10,000 x 8), its forward, K2a and K2b
+on 4096 rows with their own conditions, K4 (K1's kernel at one step) on
+80,000 rows inverse and 4096 forward. Each call's route (`flow_route`,
+`train_bwd_route`) is printed and must be the one named. Times: CUDA events around one call, median of 5 after a warm-up
 (3 for K1's inverse). Bound: the larger of the operations at the mode's
 rate (3xTF32 a third of the TF32 peak, one pass the TF32 peak) and the bytes
 at the memory rate, from chip_smoke.py's `flow_work`/`train_work` at the
@@ -36,8 +41,8 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-S, SIZE, D_A, NH = 26, 19, 10, 4
-WIDTHS = (700, 1000)  # H: Hp 768 and 1024
+SIZE, D_A, NH = 19, 10, 4
+SHAPES = {"tool": (26, (700, 1000)), "wide": (32, (1024,))}  # steps; H (Hp 768 and 1024)
 
 
 def main() -> None:
@@ -51,8 +56,11 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    shape = sys.argv[2] if sys.argv[1:2] == ["--shape"] else "tool"
+    S, widths = SHAPES[shape]
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build_all(["flow_kernel", "flow_kernel_tf32", "flow_train_kernel", "flow_train_kernel_tf32"])  # together
+    _build.build_all(["flow_kernel", "flow_kernel_tf32", "flow_train_kernel", "flow_train_kernel_tf32",
+                      "flow_wide_wgmma"])  # together
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
@@ -68,7 +76,7 @@ def main() -> None:
 
     names = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
     n_out = 2 * (SIZE - D_A)
-    for H in WIDTHS:
+    for H in widths:
         w = {"an_scale": 1 + 0.1 * randn(S, SIZE), "an_bias": 0.1 * randn(S, SIZE),
              "ortho": torch.linalg.qr(randn(S, SIZE, SIZE))[0].contiguous(),
              "w1y": randn(S, D_A, H, scale=D_A ** -0.5), "b1": randn(S, H, scale=0.1),
@@ -88,14 +96,18 @@ def main() -> None:
         cw = dict(w1y=w["w1y"][0], b1=w["b1"][0], wm=list(w["wm"][0]), bm=list(w["bm"][0]), wout=w["wout"][0],
                   bout=w["bout"][0])
         c8, c4096 = randn(8, H, scale=0.5), randn(4096, H, scale=0.5)
-        k4_inv = cs.flow_work(fk.pad_hidden(one, c8[None])[0], c8[None], 80_000, H)
+        k4_inv_work = cs.flow_work(fk.pad_hidden(one, c8[None])[0], c8[None], 80_000, H)
         k4_fwd = cs.flow_work(fk.pad_hidden(one, c4096[None])[0], c4096[None], 4096, H)
-        print(f"H {H} (Hp {Hp}), 26 steps x 4 hidden layers, size {SIZE}, d_a {D_A}:")
+        print(f"H {H} (Hp {Hp}), {S} steps x 4 hidden layers, size {SIZE}, d_a {D_A}:")
+        x100k, hp100 = randn(100_000, SIZE), fk.pad_hidden(w, randn(S, 100, H, scale=0.5))[1]
+        f_rank = cs.flow_work(k8, hp100, 100_000, H)
         with torch.no_grad():  # the plain versions, float32 (TF32 off), on the same inputs
             _, _, bound32 = fk.fused_flow_train_reference(x4096, hp4096, *args)
             plain = {
                 "K1 inverse, 80,000 rows": timed(lambda: fk.fused_flow_reference(
                     x80k, hp8, *[k8[n] for n in names], inverse=True, n_cond=8), 3),
+                "K1 inverse, rank batch's 100,000 rows": timed(lambda: fk.fused_flow_reference(
+                    x100k, hp100, *[k8[n] for n in names], inverse=True, n_cond=100), 3),
                 "K1 forward, 4096 rows": timed(lambda: fk.fused_flow_reference(
                     x4096, hp4096, *args, inverse=False, n_cond=4096), 3),
                 "K2a, 4096 rows": timed(lambda: fk.fused_flow_train_reference(x4096, hp4096, *args), 3),
@@ -111,31 +123,50 @@ def main() -> None:
         for mode, arith in ((fk.MODE_3XTF32, cs.ARITH_3XTF32), (fk.MODE_TF32, cs.ARITH_TF32)):
             routes = {"K1": (fk.flow_route(Hp, SIZE, D_A, True, mode), fk.flow_route(Hp, SIZE, D_A, False, mode)),
                       "K2b": fk.train_bwd_route(Hp, SIZE, D_A, NH, mode)}
+            def forced(fn):  # the 3xTF32 inverses on the row tiles
+                def run():
+                    old, fk.WIDE_WGMMA_MAX_TN = fk.WIDE_WGMMA_MAX_TN, 0
+                    try:
+                        return fn()
+                    finally:
+                        fk.WIDE_WGMMA_MAX_TN = old
+                return run
+
             with torch.no_grad():
                 _, _, bound = fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)
-                cases = [
-                    ("K1 inverse, 80,000 rows", f_inv, 3,
-                     lambda: fk.fused_flow(x80k, hp8, *[k8[n] for n in names], inverse=True, n_cond=8, mode=mode)),
+                k1_inv = lambda: fk.fused_flow(x80k, hp8, *[k8[n] for n in names], inverse=True, n_cond=8, mode=mode)
+                k1_rank = lambda: fk.fused_flow(x100k, hp100, *[k8[n] for n in names], inverse=True, n_cond=100,
+                                                mode=mode)
+                k4_inv = lambda: ck.fused_affine_coupling(*halves[80_000], c8, **cw, inverse=True, n_cond=8, mode=mode)
+                inverses = [("K1 inverse, 80,000 rows", f_inv, 3, k1_inv)] + (
+                    [("K1 inverse, rank batch's 100,000 rows", f_rank, 3, k1_rank)] if shape == "wide" else [])
+                if mode == fk.MODE_3XTF32:  # each beside its row tiles, in turns
+                    inverses = [c for case in inverses for c in (case, (case[0] + " (row tiles, forced)", case[1], case[2],
+                                                                       forced(case[3])))]
+                cases = inverses + [
                     ("K1 forward, 4096 rows", f_fwd, 5,
                      lambda: fk.fused_flow(x4096, hp4096, *args, inverse=False, n_cond=4096, mode=mode)),
                     ("K2a, 4096 rows", w2a, 5, lambda: fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)),
                     ("K2b, 4096 rows", w2b, 5,
                      lambda: fk.fused_flow_train_bwd(bound, hp4096, dz, dld, *args, mode=mode)),
-                    ("K4 inverse, 80,000 rows", k4_inv, 5,
-                     lambda: ck.fused_affine_coupling(*halves[80_000], c8, **cw, inverse=True, n_cond=8, mode=mode)),
+                    ("K4 inverse, 80,000 rows", k4_inv_work, 5, k4_inv),
+                    *([("K4 inverse, 80,000 rows (row tiles, forced)", k4_inv_work, 5, forced(k4_inv))]
+                      if mode == fk.MODE_3XTF32 else []),
                     ("K4 forward, 4096 rows", k4_fwd, 5,
                      lambda: ck.fused_affine_coupling(*halves[4096], c4096, **cw, mode=mode)),
                 ]
                 for what, work, reps, fn in cases:
                     ms = timed(fn, reps)
                     bound_ms, by = cs.bound_ms(work, peaks, arith)
+                    p_ms = plain[what.removesuffix(" (row tiles, forced)")]
                     print(f"    {mode} {what}: {ms:.3f} ms, bound {bound_ms:.3f} ms ({by}), {bound_ms / ms:.1%} of "
-                          f"its bound; plain {plain[what]:.3f} ms ({plain[what] / ms:.2f}x the kernel's time)",
-                          flush=True)
+                          f"its bound; plain {p_ms:.3f} ms ({p_ms / ms:.2f}x the kernel's time)", flush=True)
             print(f"    {mode} routes: K1 inverse {routes['K1'][0]}, K1 forward / K2a / K4 forward "
                   f"{routes['K1'][1]}, K2b {routes['K2b']}")
-            if {*routes["K1"], routes["K2b"]} - {fk.ROUTE_ROWS, fk.ROUTE_ROWS_TF32}:
-                raise SystemExit(f"H {H} {mode}: a route other than the row tiles: {routes}")
+            wide = mode == fk.MODE_3XTF32
+            if ((routes["K1"][0] == fk.ROUTE_WIDE) != wide
+                    or {routes["K1"][1], routes["K2b"]} - {fk.ROUTE_ROWS, fk.ROUTE_ROWS_TF32}):
+                raise SystemExit(f"H {H} {mode}: not the wide inverse and the row tiles: {routes}")
 
 
 if __name__ == "__main__":
