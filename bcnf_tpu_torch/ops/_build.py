@@ -10,8 +10,8 @@ sources are built twice: as they are (3xTF32, the default mode) and with
 ``-DBCNF_TF32_PASSES=1`` into a `*_tf32` library (one TF32 pass, the reduced
 mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
 the first; so are K2b's `wgmma` route (`csrc/flow_train_wgmma.cu`) and the
-`wgmma` forward (`csrc/flow_fwd_wgmma.cu`); the wide 3xTF32 inverse
-(`csrc/flow_wide_wgmma.cu`) is built once; 14 libraries in all; the strict
+`wgmma` forward (`csrc/flow_fwd_wgmma.cu`); the wide 3xTF32 inverse and
+forward (`csrc/flow_wide_wgmma.cu`) are built once; 14 libraries in all; the strict
 K1 and K2a (`csrc/flow_fma.cu`, float32 FMA) and
 the strict K2b (`csrc/flow_train_fma.cu`, which takes flow_fma.cu's device
 parts: its hash covers both sources) once. Nothing here runs at import
@@ -42,7 +42,7 @@ ONE_PASS = "_tf32"  # the suffix of a flow library built for the reduced mode
 # wgmma, each in 3xTF32 and (below) in one pass
 SOURCES["flow_train_wgmma"] = _CSRC / "flow_train_wgmma.cu"
 SOURCES["flow_fwd_wgmma"] = _CSRC / "flow_fwd_wgmma.cu"
-SOURCES["flow_wide_wgmma"] = _CSRC / "flow_wide_wgmma.cu"  # K1's (and K4's) 3xTF32 inverse at Hp 768 and 1024
+SOURCES["flow_wide_wgmma"] = _CSRC / "flow_wide_wgmma.cu"  # K1's, K2a's and K4's 3xTF32 walks at Hp 768 and 1024
 for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel", "flow_train_wgmma", "flow_fwd_wgmma"):
     SOURCES[_name + ONE_PASS] = SOURCES[_name]
 BUILD_DIR = _PKG / "_build"
@@ -166,10 +166,10 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
     elif source == "flow_wide_wgmma":
         lib.bcnf_flow_inverse_wide.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
         lib.bcnf_flow_inverse_wide.restype = i32
-        lib.bcnf_flow_wide_clusters.argtypes = [i32] * 3
-        lib.bcnf_flow_wide_clusters.restype = i32
-        lib.bcnf_flow_wide_smem.argtypes = [i32] * 3
-        lib.bcnf_flow_wide_smem.restype = i32
+        lib.bcnf_flow_forward_wide.argtypes = [ptr] * 14 + [i32] * 9 + [ptr]
+        lib.bcnf_flow_forward_wide.restype = i32
+        lib.bcnf_flow_wide_layout.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+        lib.bcnf_flow_wide_layout.restype = i32
     elif source == "flow_train_kernel":
         lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 7 + [ptr]
         lib.bcnf_flow_train_bwd.restype = i32

@@ -14,9 +14,10 @@ wrapper stacks its coupling's weights with S = 1 (`coupling_flow_args`) and
 launches K1's kernels (`ops/flow_kernel.py::_launch_flow`) on ``[x_a | x_b]``
 in 3xTF32, or in one TF32 pass in the reduced mode (JAX's K4 takes its dots
 at the model's precision): the inverse on `wgmma` up to the padded width
-544, the row tiles otherwise; the forward in either mode on the `wgmma`
-forward up to 544 (`csrc/flow_fwd_wgmma.cu`), the row tiles otherwise (JAX's K4 has no
-strict mode, nor has the port's). The wrapper prepares a coupling's weights
+544; the forward in either mode on the `wgmma` forward up to 544
+(`csrc/flow_fwd_wgmma.cu`); in 3xTF32 at 768 and 1024 both ways on the wide
+kernels (`csrc/flow_wide_wgmma.cu`); the row tiles otherwise (JAX's K4 has
+no strict mode, nor has the port's). The wrapper prepares a coupling's weights
 (the padding and stacking, and for a `wgmma` route the layout of its hidden
 weights that route reads) once per parameter version and keeps them
 (`prepared_coupling`),
@@ -48,6 +49,7 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     ROUTE_WGMMA_TF32,
     ROUTE_WIDE,
     TF32_MODES,
+    WIDE_ROUTES,
     _check_mode,
     _launch_flow,
     flow_route,
@@ -182,7 +184,8 @@ def prepared_coupling(w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Te
     """One coupling's prepared weights: `{"args": every argument of
     `coupling_flow_args` but h_proj, "wstages": {route: the layout of the
     hidden weights that `wgmma` route reads}}` (the layouts filled in by the
-    caller as a route needs them),
+    caller as a route needs them; the wide inverse's and forward's one
+    layout under `ROUTE_WIDE`),
     made once per parameter version. Each weight is known by the memory it
     views (address, dtype, device, shape, strides: a per-block view `t[k]`
     of the stacked parameters is a new tensor object at every pass, but the
@@ -249,11 +252,12 @@ def fused_affine_coupling(
     args = dict(entry["args"], h_proj=_pad_projection(h_proj, entry["args"]["b1"].shape[-1]))
     wstages = None
     route = flow_route(args["b1"].shape[-1], size, d_a, inverse, mode)
-    if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, ROUTE_WIDE, *FWD_WGMMA_ROUTES):
-        if route not in entry["wstages"]:
-            entry["wstages"][route] = route_weights(route, args["wm"])
+    if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, *WIDE_ROUTES, *FWD_WGMMA_ROUTES):
+        layout = ROUTE_WIDE if route in WIDE_ROUTES else route  # the wide inverse and forward read one layout
+        if layout not in entry["wstages"]:
+            entry["wstages"][layout] = route_weights(route, args["wm"])
             fused_affine_coupling.stage_preparations += 1
-        wstages = entry["wstages"][route]
+        wstages = entry["wstages"][layout]
     _, y, ld = _launch_flow(torch.cat([x_a, x_b], dim=1), args, inverse=inverse, n_cond=n_cond, mode=mode,
                             wstages=wstages)
     if x_a.shape[0]:

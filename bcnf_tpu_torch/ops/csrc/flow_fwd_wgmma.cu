@@ -14,8 +14,9 @@
 // - with BCNF_TF32_PASSES=1 (library `flow_fwd_wgmma_tf32`), the reduced
 //   mode (one TF32 pass a product: the JAX kernel's "default" mode, which
 //   serves the "default", "bfloat16" and "BF16_BF16_F32_X3" precisions).
-// Wider models and the inverse keep their kernels (flow_kernel.cu's row
-// tiles, flow_wgmma.cu); the strict mode is flow_fma.cu.
+// The inverse keeps its kernel (flow_wgmma.cu); wider models run both ways
+// in 3xTF32 on flow_wide_wgmma.cu and in one pass on flow_kernel.cu's row
+// tiles; the strict mode is flow_fma.cu.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py, `fused_flow` with inverse=False (the
 // Pallas TPU kernel `_flow_kernel`), `fwd_call` of `_make_fused_flow_train`

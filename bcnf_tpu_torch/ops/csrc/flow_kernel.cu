@@ -1,7 +1,11 @@
-// The whole conditional RealNVP flow in one kernel: K1 on the row tiles
-// (its forward, and its inverse at the widths flow_wgmma.cu does not hold) and
-// the training forward K2a, both 3xTF32 on the tensor cores. K1 in exact
-// float32 on FMA (the strict mode) is csrc/flow_fma.cu.
+// The whole conditional RealNVP flow in one kernel: K1 on the row tiles and
+// the training forward K2a, both 3xTF32 on the tensor cores (and in one TF32
+// pass, `*_tf32`), where no `wgmma` route takes the shape: the padded widths
+// 768 and 1024 run 3xTF32 both ways on csrc/flow_wide_wgmma.cu and up to 544
+// on csrc/flow_wgmma.cu and csrc/flow_fwd_wgmma.cu, so in 3xTF32 these row
+// tiles run sizes past those kernels' shared memory, or forced (the tools
+// and chip_smoke.py time them so). K1 in exact float32 on FMA (the strict
+// mode) is csrc/flow_fma.cu.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow (the Pallas TPU kernel
 // `_flow_kernel`: `bcnf_flow_rows`), the per-coupling

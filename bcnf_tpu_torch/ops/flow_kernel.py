@@ -11,12 +11,13 @@
     `prepare_weights`) at padded widths up to 544, and the forward there on
     the `wgmma` forward of `csrc/flow_fwd_wgmma.cu` (three passes a k-step,
     on the hi/lo weights `prepare_train_weights(wm, passes=3)` lays out);
-    the row-tile kernel above that (`rows_flow_kernel` in
-    `csrc/flow_kernel.cu`), but for the inverse at the padded widths 768
-    and 1024, which runs on `wgmma` clusters of Hp/128 blocks on a
-    distributed tile (`csrc/flow_wide_wgmma.cu`, streaming the hidden
-    weights once in float32 as `prepare_wide_weights` lays them out once a
-    call);
+    at the padded widths 768 and 1024 both ways on `wgmma` clusters of
+    Hp/128 blocks on a distributed tile (`csrc/flow_wide_wgmma.cu`,
+    streaming the hidden weights once in float32 as `prepare_wide_weights`
+    lays them out once a call; the inverse folds each k-step, the forward,
+    on 128- or 64-row tiles by the batch, every 16);
+    the row-tile kernel (`rows_flow_kernel` in `csrc/flow_kernel.cu`) where
+    none of these takes the shape;
   - the reduced mode (the "default", "bfloat16" and "BF16_BF16_F32_X3"
     precisions, which the JAX model serves with its "default" kernel mode)
     runs the same kernels built with one TF32 pass a product (the `*_tf32`
@@ -34,7 +35,8 @@
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`, on
   the forward route `flow_route` gives: the row-tile kernel with its
   step-input store, or at padded widths up to 544 the `wgmma` forward of
-  `csrc/flow_fwd_wgmma.cu`; strict, the FMA kernel with its step-input
+  `csrc/flow_fwd_wgmma.cu`, and in 3xTF32 at 768 and 1024 the wide forward
+  of `csrc/flow_wide_wgmma.cu`; strict, the FMA kernel with its step-input
   store) and whose backward is K2b (`fused_flow_train_bwd`, on the route
   `train_bwd_route` gives: the row tiles of `csrc/flow_train_kernel.cu`, or
   at padded widths up to 544 the `wgmma` route of
@@ -103,6 +105,8 @@ TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K4 has no float3
 # and row tiles; each route's library (`ops/_build.py`).
 ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
 ROUTE_WIDE = "wide_wgmma"  # the 3xTF32 inverse at Hp 768 and 1024 (csrc/flow_wide_wgmma.cu)
+ROUTE_WIDE_FWD = "wide_fwd_wgmma"  # the 3xTF32 forward there (K1's, K2a's, K4's; the same source)
+WIDE_ROUTES = (ROUTE_WIDE, ROUTE_WIDE_FWD)
 ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
 # the forward on wgmma (K1, K2a, K4; csrc/flow_fwd_wgmma.cu), in 3xTF32 and in one pass
 ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32 = "fwd_wgmma", "fwd_wgmma_tf32"
@@ -110,10 +114,15 @@ FWD_WGMMA_ROUTES = (ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32)
 ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_fma",
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32",
                  ROUTE_FWD_WGMMA: "flow_fwd_wgmma", ROUTE_FWD_WGMMA_TF32: "flow_fwd_wgmma_tf32",
-                 ROUTE_WIDE: "flow_wide_wgmma"}
+                 ROUTE_WIDE: "flow_wide_wgmma", ROUTE_WIDE_FWD: "flow_wide_wgmma"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
 WIDE_TN = (24, 32)  # the widths the wide 3xTF32 inverse is built for (Hp 768, 1024; csrc/flow_wide_wgmma.cu)
 WIDE_WGMMA_MAX_TN = 32  # the widest of them the route takes; 0 forces the row tiles there
+WIDE_FWD_MAX_TN = 32  # the widest of them the wide forward takes; 0 forces the row tiles there
+# the wide forward walks 64-row tiles (kWwHalfRows) up to this many rows: one wave of the 15 clusters an
+# H100 holds at Hp 1024 (PERF.md: 256 and 960 rows 6.32 and 6.48 ms on 64-row tiles, 7.74 and 7.92 on 128;
+# 4096 rows 34.91 and 23.72)
+WIDE_FWD_HALF_MAX_ROWS = 960
 FWD_WGMMA_MAX_TN = 17  # the widest width the wgmma forward holds (Hp 544); 0 forces the row tiles in both modes
 ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow_train_kernel.cu: launch_rows)
 # K2b's routes (`train_bwd_route`): the row tiles in 3xTF32 (`ROUTE_ROWS`) and
@@ -140,8 +149,8 @@ TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 
 # a cluster, weight rows a stage, the bounds of its ring and the floats of
 # its barriers (`fwd_wgmma_ring`); the strict K2b's weight-grad jobs a step
 # and that pass's output tile and rows a stage (`fma_atb_tiles`); the wide
-# inverse's rows a cluster, columns a block, k-steps a stage and its two
-# rings' stages.
+# inverse's (and forward's) rows a cluster, the forward's smaller tile, columns
+# a block, k-steps a stage and its two rings' stages.
 _SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kFtTile": "flow_train_fma.cu", "kFtK": "flow_train_fma.cu",
                      "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh",
                   **{name: "flow_wgmma.cu" for name in ("kWgRing3xTf32", "kWgCluster3xTf32", "kWgRingTf32",
@@ -152,8 +161,8 @@ _SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kFtTile": "flow_train_f
                                                        "kFmaRingMin", "kFmaRingMax")},
                   **{name: "flow_fwd_wgmma.cu" for name in ("kFwRows", "kFwCluster", "kFwStageK", "kFwRingMin",
                                                              "kFwRingMax", "kFwBarrierFloats")},
-                  **{name: "flow_wide_wgmma.cu" for name in ("kWwRows", "kWwCols", "kWwStageK", "kWwHiStages",
-                                                              "kWwLoStages")}}
+                  **{name: "flow_wide_wgmma.cu" for name in ("kWwRows", "kWwHalfRows", "kWwCols", "kWwStageK",
+                                                              "kWwHiStages", "kWwLoStages")}}
 
 
 @functools.cache
@@ -189,18 +198,54 @@ def wgmma_grid(route: str, B: int) -> int:
     return cluster * (tiles if route == ROUTE_WGMMA else -(-tiles // cluster))
 
 
-def wide_grid(B: int, Hp: int) -> int:
-    """Blocks the wide inverse launches for B rows at the padded width Hp
-    (`csrc/flow_wide_wgmma.cu`: `launch`): a cluster of Hp/kWwCols blocks a
-    tile of kWwRows rows."""
-    return -(-B // kernel_limit("kWwRows")) * (Hp // kernel_limit("kWwCols"))
+def wide_grid(B: int, Hp: int, rows: int | None = None) -> int:
+    """Blocks the wide inverse, or the wide forward on tiles of `rows` rows,
+    launches for B rows at the padded width Hp (`csrc/flow_wide_wgmma.cu`:
+    `ww_launch`): a cluster of Hp/kWwCols blocks a tile of `rows` rows
+    (default kWwRows, the inverse's)."""
+    return -(-B // (rows or kernel_limit("kWwRows"))) * (Hp // kernel_limit("kWwCols"))
 
 
-def wide_takes(Hp: int, size: int, d_a: int) -> bool:
-    """Whether the wide inverse takes the shape (`ww_takes`): a width it is
-    built for, and its shared memory (which grows with the rows' state and
-    the cluster's partial outputs) within a block's."""
-    return Hp // 32 in WIDE_TN and kernel_smem(ROUTE_WIDE, Hp, size, d_a) <= kernel_limit("kSmemLimit")
+def wide_fwd_rows(B: int) -> int:
+    """Rows of the wide forward's tile for a call of B rows: kWwHalfRows (the
+    two consumer warpgroups of a block split its columns) up to
+    `WIDE_FWD_HALF_MAX_ROWS` rows, where twice the clusters shorten the walk
+    more than the halved products cost (PERF.md: the card's row sweep), else
+    kWwRows."""
+    return kernel_limit("kWwHalfRows") if B <= WIDE_FWD_HALF_MAX_ROWS else kernel_limit("kWwRows")
+
+
+def wide_smem(Hp: int, size: int, d_a: int, rows: int | None = None, forward: bool = False) -> int:
+    """Bytes of shared memory a block of the wide inverse, or of the wide
+    forward, takes on tiles of `rows` rows (default kWwRows) at this shape
+    (`csrc/flow_wide_wgmma.cu`: `ww_smem`): the tile of the block's
+    columns (rows of cols + 4 floats; the forward's, fragment-major,
+    unpadded); the hi and lo rings (kWwStageK k-steps of 8 rows of the
+    block's columns a stage); x and the mix's output; the C blocks' partial
+    [t | s'] of the ceil(rows / C) rows a block reduces, and [t | s'] of
+    every row; 2 barriers a ring stage and 3 a block of the cluster; the
+    forward adds the step's W1y (d_a rows), b1 and Wout (n_out floats a
+    row) of the block's columns, the rows' logdet, the step's Q, ActNorm
+    scale and bias (to a multiple of 2 floats), a layer's bias of the
+    block's columns, 2 barriers and, on 64-row tiles, a second tile (h_l
+    and h_{l+1} in turn)."""
+    rows, cols = rows or kernel_limit("kWwRows"), kernel_limit("kWwCols")
+    C, stages, n_out = Hp // cols, kernel_limit("kWwHiStages") + kernel_limit("kWwLoStages"), 2 * (size - d_a)
+    stage, reduced = kernel_limit("kWwStageK") * 8 * cols, C * -(-rows // C) + rows
+    two = rows * cols if rows == kernel_limit("kWwHalfRows") else 0  # the 64-row tiles' second tile
+    fwd = (d_a + 1 + n_out) * cols + rows + (size * size + 2 * size + 1) // 2 * 2 + cols + two if forward else 0
+    return (4 * (rows * (cols if forward else cols + 4) + stages * stage + rows * 2 * size + reduced * n_out + fwd)
+            + 8 * (2 * stages + 3 * C + (2 if forward else 0)))
+
+
+def wide_takes(Hp: int, size: int, d_a: int, forward: bool = False) -> bool:
+    """Whether the wide inverse (or the wide forward) takes the shape
+    (`ww_takes`): a width it is built for, and its shared memory on its
+    kWwRows-row tile (which grows with the rows' state and the cluster's
+    partial outputs) within a block's; the forward's smaller tile then fits
+    too."""
+    route = ROUTE_WIDE_FWD if forward else ROUTE_WIDE
+    return Hp // 32 in WIDE_TN and kernel_smem(route, Hp, size, d_a) <= kernel_limit("kSmemLimit")
 
 
 def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
@@ -271,19 +316,14 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     shape: the sums the kernels' launchers check (`csrc/flow_kernel.cu`:
     `launch_rows`; `csrc/flow_wgmma.cu`: `wg_smem`; `csrc/flow_fma.cu`:
     `fma_smem`, at its least; `csrc/flow_fwd_wgmma.cu`: `fw_smem`, at its
-    least; `csrc/flow_wide_wgmma.cu`: `ww_smem`), and of K2b's rows kernels
+    least; `csrc/flow_wide_wgmma.cu`: `ww_smem`, both ways on kWwRows-row
+    tiles: `wide_smem`), and of K2b's rows kernels
     (`ROUTE_TRAIN_BWD`; `csrc/flow_train_kernel.cu`: `launch_rows`; `ROUTE_TRAIN_BWD_WGMMA`:
     `csrc/flow_train_wgmma.cu`: `tw_smem`; `ROUTE_TRAIN_BWD_FMA`:
     `csrc/flow_train_fma.cu`: `ft_smem`, at its least)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
-    if route == ROUTE_WIDE:
-        # the tile of the block's columns; the hi and lo rings (kWwStageK k-steps of 8 rows of the block's columns
-        # a stage); x and x Q^T; the C blocks' partial [t | s'] of the ceil(rows / C) rows a block reduces, and
-        # [t | s'] of every row; 2 barriers a ring stage and 3 a block of the cluster
-        rows, cols = kernel_limit("kWwRows"), kernel_limit("kWwCols")
-        C, stages = Hp // cols, kernel_limit("kWwHiStages") + kernel_limit("kWwLoStages")
-        stage, reduced = kernel_limit("kWwStageK") * 8 * cols, C * -(-rows // C) + rows
-        return 4 * (rows * (cols + 4) + stages * stage + rows * 2 * size + reduced * n_out) + 8 * (2 * stages + 3 * C)
+    if route in WIDE_ROUTES:
+        return wide_smem(Hp, size, d_a, forward=route == ROUTE_WIDE_FWD)
     if route == ROUTE_TRAIN_BWD_FMA:  # the shortest ring
         return fma_train_smem(Hp, size, d_a, kernel_limit("kFmaRingMin"))
     if route in FWD_WGMMA_ROUTES:  # the shortest ring
@@ -308,18 +348,20 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     raise ValueError(f"unknown route {route!r}")
 
 
-def wide_card_layout(Hp: int, size: int, d_a: int) -> tuple[int, int]:
-    """The wide inverse at this shape on the current card
-    (`csrc/flow_wide_wgmma.cu`): its bytes of shared memory a block, and its
+def wide_card_layout(Hp: int, size: int, d_a: int, rows: int | None = None,
+                     forward: bool = False) -> tuple[int, int]:
+    """The wide inverse, or the wide forward on tiles of `rows` rows (default
+    kWwRows), at this shape on the current card (`csrc/flow_wide_wgmma.cu`:
+    `bcnf_flow_wide_layout`): its bytes of shared memory a block, and its
     clusters of Hp/128 blocks resident at once (the occupancy calculator's
     `cudaOccupancyMaxActiveClusters`)."""
     from bcnf_tpu_torch.ops._build import load_library
 
     lib = load_library(ROUTE_LIBRARY[ROUTE_WIDE])
-    smem, clusters = lib.bcnf_flow_wide_smem(Hp, size, d_a), lib.bcnf_flow_wide_clusters(Hp, size, d_a)
-    for n in (smem, clusters):
-        _raise_on(0 if n > 0 else (-n or 1), lib, "wide_card_layout")
-    return smem, clusters
+    out = (ctypes.c_int * 2)()
+    _raise_on(lib.bcnf_flow_wide_layout(Hp, size, d_a, rows or kernel_limit("kWwRows"), int(forward), out), lib,
+              "wide_card_layout")
+    return out[0], out[1]
 
 
 def fma_lane_rows(Hp: int) -> int:
@@ -620,7 +662,10 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
     `wgmma` forward (`csrc/flow_fwd_wgmma.cu`, built for the mode) at the
     widths it holds
     (`FWD_WGMMA_MAX_TN`) where its ring takes the shape (`fwd_wgmma_ring`), at
-    every batch (PERF.md: the card's row sweeps), else the row tiles. None
+    every batch (PERF.md: the card's row sweeps), the default mode's forward
+    at Hp 768 and 1024 the wide forward (the same source as the wide inverse,
+    up to `WIDE_FWD_MAX_TN`) where it takes the shape, at every batch (its
+    tile's rows by the batch: `wide_fwd_rows`), else the row tiles. None
     where no kernel takes the shape (its shared memory; then the model's gate
     stays closed, as JAX's `inverse_fused_flow` returns None)."""
     _check_mode(mode)
@@ -636,11 +681,13 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
         candidates = (ROUTE_WIDE, rows)
     elif not inverse and Hp // 32 <= FWD_WGMMA_MAX_TN:
         candidates = (ROUTE_FWD_WGMMA_TF32 if one else ROUTE_FWD_WGMMA, rows)
+    elif not inverse and not one and Hp // 32 in WIDE_TN and Hp // 32 <= WIDE_FWD_MAX_TN:
+        candidates = (ROUTE_WIDE_FWD, rows)
     else:
         candidates = (rows,)
     limit = kernel_limit("kSmemLimit")
     return next((r for r in candidates if (fwd_wgmma_ring(Hp, size, d_a) > 0 if r in FWD_WGMMA_ROUTES
-                                           else wide_takes(Hp, size, d_a) if r == ROUTE_WIDE
+                                           else wide_takes(Hp, size, d_a, r == ROUTE_WIDE_FWD) if r in WIDE_ROUTES
                                            else kernel_smem(r, Hp, size, d_a) <= limit)), None)
 
 
@@ -848,8 +895,9 @@ def route_weights(route: str, wm: torch.Tensor, wstages: torch.Tensor | None = N
     """The hidden weights `wm` laid out as K1's `wgmma` route `route` reads
     them: `prepare_weights` for the inverses, `prepare_train_weights` for the
     forwards, each for the route's mode, `prepare_wide_weights` for the wide
-    inverse; or `wstages`, a caller's layout, checked against the route's."""
-    if route == ROUTE_WIDE:
+    inverse and the wide forward (one layout serves both); or `wstages`, a
+    caller's layout, checked against the route's."""
+    if route in WIDE_ROUTES:
         if wstages is None:
             return prepare_wide_weights(wm)
         return _checked_wstages(wstages, _wide_weights_shape(*wm.shape[:3]), wm, f"the {route} route")
@@ -992,9 +1040,10 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     time the rest (chip_smoke.py): its products alone, on stale weight
     stages (`WG_PRODUCTS`), the weights' stream without the products
     (`WG_COPIES`), or each 3xTF32 block on its own half without the exchange
-    (no `WG_EXCHANGE`); the wide inverse also without its split of the
-    weight stages (no `WIDE_SPLIT`); y is then not the inverse. The wide
-    inverse reads them as `prepare_wide_weights` lays them out."""
+    (no `WG_EXCHANGE`); the wide inverse and forward also without their
+    split of the weight stages (no `WIDE_SPLIT`); y is then not the flow.
+    The wide inverse and forward read them as `prepare_wide_weights` lays
+    them out, the forward on tiles of `wide_fwd_rows(B)` rows."""
     from bcnf_tpu_torch.ops._build import load_library
 
     B, size = x.shape
@@ -1014,6 +1063,10 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
         if route == ROUTE_WIDE:
             tensors[6] = route_weights(route, args["wm"], wstages)
             err = lib.bcnf_flow_inverse_wide(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
+        elif route == ROUTE_WIDE_FWD:  # no step-input store (that is K2a's)
+            tensors[6] = route_weights(route, args["wm"], wstages)
+            err = lib.bcnf_flow_forward_wide(*_ptrs(x, *tensors, y, ld), ctypes.c_void_p(0), B, n_cond, S, size, d_a,
+                                             nh, Hp, wide_fwd_rows(B), parts, _stream())
         elif route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
             tensors[6] = route_weights(route, args["wm"], wstages)
             err = lib.bcnf_flow_inverse_wgmma(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
@@ -1280,7 +1333,9 @@ def fused_flow_train_fwd(
     with their step-input store in 3xTF32 or one TF32 pass, the `wgmma`
     forward of either mode, which reads the hidden weights as
     `prepare_train_weights` lays them out for the mode: pass them as
-    `wstages`, or they are prepared here; strict, the float32 FMA kernel with
+    `wstages`, or they are prepared here; in 3xTF32 at Hp 768 and 1024 the
+    wide forward with its step-input store, on `prepare_wide_weights`'
+    layout, passed or prepared in the same way; strict, the float32 FMA kernel with
     its step-input store, which also fills `keep` with what the strict K2b
     reads: pass `train_keep`'s buffer, else it raises), or raises. Counts its
     launches in `launches`, by mode in `mode_launches` and by route in
@@ -1335,6 +1390,11 @@ def _train_fwd(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tens
             err = lib.bcnf_flow_fwd_wgmma(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
                 B, B, S, size, d_a, nh, Hp, _stream())
+        elif route == ROUTE_WIDE_FWD:
+            staged = route_weights(route, wm, wstages)
+            err = lib.bcnf_flow_forward_wide(
+                *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
+                B, B, S, size, d_a, nh, Hp, wide_fwd_rows(B), WG_ALL, _stream())
         elif route == ROUTE_FMA:  # row r takes h_proj[k, first + r]: the kernel reads them N rows a step apart
             err = lib.bcnf_fused_flow_train(
                 *_ptrs(x, h_proj[:, first or 0:], an_scale, an_bias, ortho, w1y, b1, wm, bm, wout, bout, z, ld,
@@ -1361,7 +1421,9 @@ def train_weights(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: 
     them out for `mode` (hi; in 3xTF32 hi and lo), prepared once for K2a and
     K2b where either runs on its `wgmma` route (a CUDA tensor in the 3xTF32
     or the one-pass mode at the widths those routes hold); None where
-    neither reads them."""
+    neither reads them (the wide forward, K2a's 3xTF32 route at Hp 768 and
+    1024, lays out its own weights, which K2b's row tiles there do not
+    read)."""
     if x.device.type != "cuda" or mode not in TF32_MODES:
         return None
     Hp, size, nh = h_proj.shape[-1], x.shape[1], wm.shape[1]

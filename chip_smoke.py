@@ -6,11 +6,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit, versions; build every kernel
-   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`, 13 libraries,
+   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`, 14 libraries,
    one nvcc each, all started together); the registers and spill bytes of
    each instance of K1's `wgmma` inverse, the `wgmma` forward and K2b's
-   `wgmma` route, both builds of each (fails on any spill in the 3xTF32
-   libraries, `flow_wgmma`, `flow_fwd_wgmma` and `flow_train_wgmma`).
+   `wgmma` route, both builds of each, and of the wide inverse and forward
+   (fails on any spill in the 3xTF32 libraries, `flow_wgmma`,
+   `flow_wide_wgmma`, `flow_fwd_wgmma` and `flow_train_wgmma`).
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship widths, on a tiled and on a ragged shape: K1 in its default
    mode (3xTF32: the inverse on `wgmma`, the forward on the `wgmma`
@@ -26,7 +27,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
    1024 (Hp 768, 1024) over odd counts of 128-row tiles, each equal to the
    bit between two calls, from the plain version in float64 no further than
    twice the float32 plain version; phase 1 fails on any spill in
-   `flow_wide_wgmma` as in the other 3xTF32 `wgmma` libraries.
+   `flow_wide_wgmma` as in the other 3xTF32 `wgmma` libraries; and the wide
+   forward (the same source) for K1's forward and K2a at H 700, 1000 and
+   1024 on each of its tiles (128 and 64 rows), from float64 no further
+   than the larger of the row tiles' distance and twice the float32 plain
+   version's (z, logdet and K2a's step inputs), equal to the bit between
+   two calls.
 3. main path: the flagship `trajectory_LSTM_large` model (48,852,615
    params, random weights from a seed) on the card: posterior sampling of
    10,000 draws for 8 trajectories, then `log_prob` and the round trip on
@@ -165,7 +171,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
    the plain path, and its rank batch (1000 draws x 100 conditions) timed
    on the wide inverse, the row tiles forced and the plain version in
    turns, held to float64 (twice the float32 plain version's distance, half
-   the 1e-4 bar); fails where the wide inverse loses to either.
+   the 1e-4 bar); fails where the wide inverse loses to either. Then its
+   forwards on the wide forward: `log_prob` and the forward of 4096 draws
+   (2 launches), a `Trainer` validation pass of its 1000 validation rows in
+   padded batches of 256 (4 launches), one training step at batch 256 with
+   the coupling dropout at 0 (K2a once, K2b on its row tiles) and the
+   forward through K4 (32 launches), each against the plain path within
+   the 1e-4 bar (the metrics relative to their size); K1's forward at 4096
+   and 256 rows with their own conditions timed in turns on the route, the
+   row tiles (forced) and the plain version, K2a and K4's forward beside
+   their plain versions; fails where the route loses at 4096 rows to either
+   or at 256 to the row tiles.
 
 14. the video path, `configs/runs/videos_CNN_LSTM_large.yaml` at its
    published widths (CNN 1->8->16->32 on 2 cameras x 30 frames of 90 x 160,
@@ -629,6 +645,90 @@ def wgmma_widths_check(dev) -> None:
           f"the float32 plain version's)")
 
 
+def wide_forward_check(dev) -> None:
+    """Phase 2's 3xTF32 forwards at Hp 768 and 1024 on the wide forward
+    (csrc/flow_wide_wgmma.cu: clusters of Hp/128 blocks, each 8 k-steps
+    folded): K1's forward and K2a (its step inputs stored) at H 700, 1000
+    and 1024, random weights from the seed, B over odd counts of tiles with
+    a ragged last one, on each of the forward's tiles (128 rows, and 64 with
+    `WIDE_FWD_HALF_MAX_ROWS` past B), N = 7 not dividing B for K1 (K2a: a
+    condition a row): within KERNEL_TOL of the plain version; z, logdet and
+    K2a's step inputs from the plain version in float64 no further than the
+    larger of the row tiles' distance (forced, `WIDE_FWD_MAX_TN = 0`) and
+    twice the float32 plain version's; equal to the bit between two calls;
+    two launches on the route each."""
+    import torch
+
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    def from64(outs, ref) -> list[float]:
+        return [(a.double() - b).abs().max().item() for a, b in zip(outs, ref)]
+
+    names = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+    cases, worst, share = [], 0.0, 0.0
+    half = fk.WIDE_FWD_HALF_MAX_ROWS
+    try:
+        for H, B in ((700, 257), (1000, 4097), (1024, 1151)):
+            S, nh, N, size, d_a = 6, 4, 7, 19, 10
+            w = {"an_scale": 1 + 0.1 * randn(S, size), "an_bias": 0.1 * randn(S, size),
+                 "ortho": torch.linalg.qr(randn(S, size, size))[0].contiguous(),
+                 "w1y": randn(S, d_a, H, scale=d_a ** -0.5), "b1": randn(S, H, scale=0.1),
+                 "wm": randn(S, nh, H, H, scale=H ** -0.5), "bm": randn(S, nh, H, scale=0.1),
+                 "wout": randn(S, H, 2 * (size - d_a), scale=0.3 * H ** -0.5),
+                 "bout": randn(S, 2 * (size - d_a), scale=0.1)}
+            kargs, h_proj = fk.pad_hidden(w, randn(S, N, H, scale=0.5))
+            hp_rows = fk.pad_hidden(w, randn(S, B, H, scale=0.5))[1]
+            args = [kargs[n] for n in names]
+            x = randn(B, size)
+            Hp = h_proj.shape[-1]
+            if fk.flow_route(Hp, size, d_a, False) != fk.ROUTE_WIDE_FWD:
+                fail(f"the 3xTF32 forward at Hp {Hp} takes the route {fk.flow_route(Hp, size, d_a, False)}")
+            with torch.no_grad():
+                k1 = lambda: fk.fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N)
+                k2a = lambda: fk.fused_flow_train_fwd(x, hp_rows, *args)
+                p32 = {"K1": fk.fused_flow_reference(x, h_proj, **kargs, inverse=False, n_cond=N),
+                       "K2a": fk.fused_flow_train_reference(x, hp_rows, *args)}
+                p64 = {"K1": fk.fused_flow_reference(x.double(), h_proj.double(),
+                                                     **{k: v.double() for k, v in kargs.items()}, inverse=False,
+                                                     n_cond=N),
+                       "K2a": fk.fused_flow_train_reference(x.double(), hp_rows.double(), *[a.double() for a in args])}
+                with row_tiles_forced("WIDE_FWD_MAX_TN"):
+                    rows = {"K1": k1(), "K2a": k2a()}
+                for rows_max, tile in ((0, fk.kernel_limit("kWwRows")), (B, fk.kernel_limit("kWwHalfRows"))):
+                    fk.WIDE_FWD_HALF_MAX_ROWS = rows_max
+                    for what, fn, counter in (("K1", k1, fk.fused_flow), ("K2a", k2a, fk.fused_flow_train_fwd)):
+                        before = counter.route_launches[fk.ROUTE_WIDE_FWD]
+                        one, two = fn(), fn()
+                        torch.cuda.synchronize()
+                        err = max((a - b).abs().max().item() for a, b in zip(one, p32[what]))
+                        bits = all(torch.equal(a, b) for a, b in zip(one, two))
+                        d_k, d_r, d_p = (from64(o, p64[what]) for o in (one, rows[what], p32[what]))
+                        bars = [max(r, 2 * p) for r, p in zip(d_r, d_p)]
+                        worst, share = max(worst, err), max([share] + [k / b for k, b in zip(d_k, bars)])
+                        cases.append(f"Hp {Hp} B {B} {what} on {tile}-row tiles: {err:.1e}, from float64 "
+                                     f"{'/'.join(f'{d:.2e}' for d in d_k)} (row tiles "
+                                     f"{'/'.join(f'{d:.2e}' for d in d_r)}, float32 plain "
+                                     f"{'/'.join(f'{d:.2e}' for d in d_p)})")
+                        if counter.route_launches[fk.ROUTE_WIDE_FWD] != before + 2:
+                            fail(f"the wide forward ({what}) at Hp {Hp} did not launch twice on its route")
+                        if (not err <= KERNEL_TOL or not bits or any(k > b for k, b in zip(d_k, bars))
+                                or not all(torch.isfinite(t).all() for t in one)):
+                            fail(f"the wide forward ({what}) at Hp {Hp}, B {B}, {tile}-row tiles: max|d| {err:.3e} "
+                                 f"(tolerance {KERNEL_TOL:g}), from float64 {d_k} against max(row tiles, twice the "
+                                 f"float32 plain version) {bars}, equal between calls: {bits}")
+    finally:
+        fk.WIDE_FWD_HALF_MAX_ROWS = half
+    print(f"[2 kernels, wide forward] flow_wide_wgmma's forward (K1; K2a with its step inputs, z/logdet/bound) vs "
+          f"plain, size 19, nh 4, 6 steps, each equal to the bit between two calls; max|d|: {'; '.join(cases)} (worst "
+          f"{worst:.3e}, tolerance {KERNEL_TOL:g}; from float64 at most {share:.3f} of max(row tiles, twice the float32 "
+          f"plain version's))")
+
+
 def median(xs: list[float]) -> float:
     return sorted(xs)[len(xs) // 2]
 
@@ -796,6 +896,7 @@ def main() -> None:
             fail(f"fused_flow {d} disagrees with its plain version: {e:.3e} > {KERNEL_TOL:g}")
     strict_widths_check(dev)
     wgmma_widths_check(dev)
+    wide_forward_check(dev)
 
     # ---- 3. main path: posterior sampling, then log_prob + round trip, in
     # the default mode (3xTF32) and then in strict mode (float32 FMA)
@@ -1001,7 +1102,8 @@ def main() -> None:
     kernels += coupling_path_c(model, params, traj, samples, z_all, y_lp, cond_lp, rng, dev, peaks)
     eval_path(dev, build_dir, peaks)
     zoo = model_zoo(rng, dev, build_dir, peaks)
-    zoo["K1 inverse, wide"], wide_rows = zoo_wide(rng, dev, peaks)
+    wide_launches, wide_rows = zoo_wide(rng, dev, peaks)
+    zoo.update(wide_launches)
     kernels += wide_rows
     video, lstm_video = video_path(rng, dev, build_dir, peaks)
     kernels += precision_path(model, params, rng, dev, build_dir, peaks)
@@ -1009,7 +1111,9 @@ def main() -> None:
     card_policies(model, params, rng, dev)
     for row in kernels:  # each kernel's launches on phase 13's, 14's and 16's paths, beside its main-path launches
         key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward",
-               "fused_flow[inverse, wide]": "K1 inverse, wide"}.get(
+               "fused_flow[inverse, wide]": "K1 inverse, wide", "fused_flow[forward, wide]": "K1 forward, wide",
+               "K2a[3xtf32, wide] fused_flow_train_fwd": "K2a, wide",
+               "K4 fused_affine_coupling[forward, wide]": "K4 forward, wide"}.get(
             row["name"], row["name"].split()[0].removesuffix("[3xtf32]"))
         row["zoo_launches"] = zoo.get(key, 0)
         row["video_launches"] = video.get(key, 0)
@@ -3470,7 +3574,7 @@ WIDE_PARAMS = 136_369_060
 RANK_DRAWS, RANK_CONDITIONS = 1000, 100  # a rank batch: compute_y_hat_ranks' sample_batch_size x batch_size
 
 
-def zoo_wide(rng, dev, peaks: tuple[float, float, float]) -> tuple[int, list[dict]]:
+def zoo_wide(rng, dev, peaks: tuple[float, float, float]) -> tuple[dict, list[dict]]:
     """Phase 13's wide configuration at its published widths, random weights
     from the seed: one `sample` of 10,000 x 8 (counts from 0 just before)
     through K1's wide inverse, one launch on its route, against the plain
@@ -3479,8 +3583,9 @@ def zoo_wide(rng, dev, peaks: tuple[float, float, float]) -> tuple[int, list[dic
     (forced, `WIDE_WGMMA_MAX_TN = 0`) and the float32 plain version, timed
     in turns in this process, the kernel no further from the float64 plain
     version than twice the float32 plain version (and than RANK_MARGIN of
-    KERNEL_TOL, phase 12's bar). Returns K1's launches on the path and the
-    kernel's row of the table, timed at the sample's rows."""
+    KERNEL_TOL, phase 12's bar); then its forwards (`wide_forward_path`).
+    Returns the launches by kernel on the path and the kernels' rows of the
+    table, the inverse's timed at the sample's rows."""
     import numpy as np
     import torch
 
@@ -3564,7 +3669,210 @@ def zoo_wide(rng, dev, peaks: tuple[float, float, float]) -> tuple[int, list[dic
     if not r_ms["wide"] < min(r_ms["rows"], r_ms["plain"]):
         fail(f"the wide inverse ({r_ms['wide']:.2f} ms) loses to the row tiles ({r_ms['rows']:.2f}) or the plain "
              f"version ({r_ms['plain']:.2f}) on {name}'s rank batch")
-    return launches, [row]
+    fwd_launches, fwd_rows = wide_forward_path(rng, dev, peaks, cfg, model, params, out)
+    return {"K1 inverse, wide": launches, **fwd_launches}, [row, *fwd_rows]
+
+
+def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, model, params: dict,
+                      out) -> tuple[dict, list[dict]]:
+    """Phase 13's wide configuration through the 3xTF32 forwards at Hp 1024
+    (the wide forward, csrc/flow_wide_wgmma.cu), each with the counts set to
+    0 just before and read just after: `log_prob` and the forward of 4096 of
+    the sample's draws (2 launches of K1's forward; z and logdet against the
+    plain path within KERNEL_TOL), a `Trainer` validation pass of the
+    config's 1000 validation rows in padded 256-row batches (4 launches; the
+    metrics against the plain path's within KERNEL_TOL of their size), one
+    training step at batch 256 with the coupling dropout at 0 (one K2a
+    launch, K2b on its row tiles; the step's metrics against the plain
+    path's) and the forward of the 4096 draws through K4 (`use_pallas_coupling`:
+    one launch a coupling, 32). Then K1's forward on 4096 and 256 rows with
+    their own conditions (the validation layout), timed in turns on the
+    route, the row tiles (forced) and the float32 plain version, and K2a and
+    K4's forward at 4096 rows against their plain versions: fails where the
+    route loses to either at 4096 rows or to the row tiles at 256. Returns
+    the launches by kernel and the table's rows."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.ops import coupling_kernel as ck
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.train import DeviceDataset, Trainer, make_optimizer
+
+    name, T = os.path.basename(WIDE_CONFIG)[:-5], frames(cfg)
+    H, size, d_a = model.nested_sizes[0], model.size, model.coupling.d_a
+    hw = cfg["global"]["hybrid_weight"]
+    src, rep = "bcnf_tpu_torch/ops/csrc/flow_wide_wgmma.cu", "bcnf_tpu/ops/flow_kernel.py"
+
+    def plain(fn):  # fn on the plain path
+        model.use_pallas = False
+        try:
+            return fn()
+        finally:
+            model.use_pallas = True
+
+    def rel(a, b) -> float:  # max |a - b| over max(1, |b|)
+        return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+
+    # (a) log_prob and the forward of 4096 draws conditioned on the 8 trajectories
+    d = LOGPROB_ROWS // N_COND
+    y_lp = out[:d].reshape(-1, size).contiguous()
+    traj = torch.from_numpy(rng.normal(size=(N_COND, T, 3)).astype(np.float32)).to(dev)
+    cond_lp = traj.repeat(d, 1, 1)
+    with torch.no_grad():
+        zero_flow_counts()
+        lp = model.log_prob(params, y_lp, cond_lp)
+        z, ld = model.forward(params, y_lp, cond_lp)
+        torch.cuda.synchronize()
+        routes_a = dict(fk.fused_flow.route_launches)
+        z_p, ld_p = plain(lambda: model.forward(params, y_lp, cond_lp))
+    err_a = max((z - z_p).abs().max().item(), (ld - ld_p).abs().max().item())
+    if routes_a != {fk.ROUTE_WIDE_FWD: 2} or not torch.isfinite(lp).all() or not err_a <= KERNEL_TOL:
+        fail(f"{name}'s log_prob and forward launched K1 {routes_a} (expected 2 on {fk.ROUTE_WIDE_FWD}), z/logdet "
+             f"{err_a:.3e} from the plain path (tolerance {KERNEL_TOL:g})")
+
+    # (b) a validation pass: the config's validation rows in padded batches of its batch size
+    B = int(cfg["training"]["batch_size"])
+    n_val = int(round(cfg["data"]["n_samples"] * cfg["training"]["validation_split"]))
+    y_val = rng.normal(size=(n_val, size)).astype(np.float32)
+    t_val = rng.normal(size=(n_val, T, 3)).astype(np.float32)
+    trainer = Trainer(cfg, data=(y_val, [t_val]), device=dev, seed=SEED, hybrid_weight=hw)
+    val_set = DeviceDataset(y_val, [t_val], dev)
+    zero_flow_counts()
+    val = [trainer.val_step(model, [params], by, bc, bw) for by, bc, bw in val_set.batches_padded(B)]
+    torch.cuda.synchronize()
+    routes_b = dict(fk.fused_flow.route_launches)
+    val_p = plain(lambda: [trainer.val_step(model, [params], by, bc, bw) for by, bc, bw in val_set.batches_padded(B)])
+    n_batches = -(-n_val // B)
+    err_b = max(rel(a, b) for v, vp in zip(val, val_p) for a, b in zip(v, vp))
+    if routes_b != {fk.ROUTE_WIDE_FWD: n_batches} or not err_b <= KERNEL_TOL:
+        fail(f"{name}'s validation pass launched K1 {routes_b} (expected {n_batches} on {fk.ROUTE_WIDE_FWD}); its "
+             f"metrics {err_b:.3e} from the plain path's (tolerance {KERNEL_TOL:g} of their size)")
+
+    # (c) one training step at batch B with the coupling dropout at 0: K2a on the route, K2b on its row tiles
+    cfg0 = copy.deepcopy(cfg)
+    cfg0["model"]["kwargs"]["dropout"] = 0.0
+    model0 = CondRealNVP.from_config(cfg0)
+    y_tr, t_tr = y_val[:B], t_val[:B]
+    trainer0 = Trainer(cfg0, data=(y_tr, [t_tr]), device=dev, seed=SEED, hybrid_weight=hw)
+    yb, cb = torch.from_numpy(y_tr).to(dev), [torch.from_numpy(t_tr).to(dev)]
+
+    def step(use_pallas: bool):
+        model0.use_pallas = use_pallas
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+        opt = make_optimizer("Adam", lr=2e-4).init(p)
+        return trainer0.train_step(model0, [p], opt, yb, cb, [torch.Generator(device=dev).manual_seed(SEED)])
+
+    zero_train_counts()
+    metrics_c = step(True)
+    torch.cuda.synchronize()
+    c = train_counts()
+    metrics_p = step(False)
+    err_c = rel(metrics_c, metrics_p)
+    if c["K2a"] != {fk.ROUTE_WIDE_FWD: 1} or c["K2b"] != {fk.ROUTE_ROWS: 1} or not err_c <= KERNEL_TOL:
+        fail(f"{name}'s training step at dropout 0 launched K2a/K2b {c}, its metrics {err_c:.3e} from the plain "
+             f"step's (tolerance {KERNEL_TOL:g} of their size)")
+
+    # (d) the forward of the 4096 draws through K4, one launch a coupling
+    model.use_pallas_coupling = True
+    try:
+        with torch.no_grad():
+            zero_flow_counts()
+            k4_before = ck.fused_affine_coupling.launches
+            z4, ld4 = model.forward(params, y_lp, cond_lp)
+            torch.cuda.synchronize()
+            k4_launches = ck.fused_affine_coupling.launches - k4_before
+            k4_flow = fk.fused_flow.launches
+    finally:
+        model.use_pallas_coupling = False
+    err_d = max((z4 - z_p).abs().max().item(), (ld4 - ld_p).abs().max().item())
+    if k4_launches != model.n_blocks or k4_flow or not err_d <= KERNEL_TOL:
+        fail(f"{name}'s forward through K4 launched it {k4_launches} times (expected {model.n_blocks}), K1 "
+             f"{k4_flow}; z/logdet {err_d:.3e} from the plain path")
+
+    # (e) the kernels' times on validation-shaped rows, in turns with the row tiles (forced) and the plain version
+    def turns(fns: dict, reps: int = 3) -> dict:
+        times = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            times[k] += cuda_ms(fns[k], reps)
+        return times
+
+    names = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
+    t4096 = torch.from_numpy(rng.normal(size=(LOGPROB_ROWS, T, 3)).astype(np.float32)).to(dev)
+    x4096 = torch.randn((LOGPROB_ROWS, size), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    ms, errs = {}, {}
+    with torch.no_grad():
+        kargs, hp = model._fused_flow_args(params, model.encode(params, (t4096,)))
+        args = [kargs[n] for n in names]
+        for rows in (LOGPROB_ROWS, B):
+            x, h = x4096[:rows].contiguous(), hp[:, :rows].contiguous()
+            k1 = lambda: fk.fused_flow(x, h, **kargs, inverse=False, n_cond=rows)
+
+            def k1_rows():
+                with row_tiles_forced("WIDE_FWD_MAX_TN"):
+                    return k1()
+
+            ms[rows] = turns({"wide": k1, "rows": k1_rows,
+                              "plain": lambda: fk.fused_flow_reference(x, h, **kargs, inverse=False, n_cond=rows)})
+            errs[rows] = max((a - b).abs().max().item() for a, b in zip(
+                k1(), fk.fused_flow_reference(x, h, **kargs, inverse=False, n_cond=rows)))
+        k2a = lambda: fk.fused_flow_train_fwd(x4096, hp, *args)
+        k2a_plain = lambda: fk.fused_flow_train_reference(x4096, hp, *args)
+        err_k2a = max((a - b).abs().max().item() for a, b in zip(k2a(), k2a_plain()))
+        k2a_times = turns({"wide": k2a, "plain": k2a_plain})
+        # K4: the first block's coupling, its 4096 rows' conditions
+        layers = params["blocks"]["coupling"]["a"]["layers"]
+        cw = dict(w1y=layers[0]["w"][0, :d_a].contiguous(), b1=layers[0]["b"][0].contiguous(),
+                  wm=[p["w"][0].contiguous() for p in layers[1:-1]], bm=[p["b"][0].contiguous() for p in layers[1:-1]],
+                  wout=layers[-1]["w"][0].contiguous(), bout=layers[-1]["b"][0].contiguous())
+        c4 = hp[0, :, :H].contiguous()
+        xa, xb = x4096[:, :d_a].contiguous(), x4096[:, d_a:].contiguous()
+        k4 = lambda: ck.fused_affine_coupling(xa, xb, c4, **cw, n_cond=LOGPROB_ROWS)
+        k4_plain = lambda: ck.fused_affine_coupling_reference(xa, xb, c4, **cw, inverse=False, n_cond=LOGPROB_ROWS)
+        err_k4 = max((a - b).abs().max().item() for a, b in zip(k4(), k4_plain()))
+        k4_times = turns({"wide": k4, "plain": k4_plain})
+    med = {rows: {k: median(v) for k, v in t.items()} for rows, t in ms.items()}
+    work_k1 = {rows: flow_work(kargs, hp[:, :rows], rows, H) for rows in ms}
+    rows_out = [
+        kernel_row("fused_flow[forward, wide]", src, f"{rep}:162", routes_a[fk.ROUTE_WIDE_FWD] + n_batches,
+                   errs[LOGPROB_ROWS], ms[LOGPROB_ROWS]["wide"], ms[LOGPROB_ROWS]["plain"], work_k1[LOGPROB_ROWS],
+                   peaks, None, ARITH_3XTF32),
+        kernel_row("K2a[3xtf32, wide] fused_flow_train_fwd", src, f"{rep}:558", c["K2a"][fk.ROUTE_WIDE_FWD], err_k2a,
+                   k2a_times["wide"], k2a_times["plain"], train_work(kargs, hp, LOGPROB_ROWS, H)[0], peaks, None,
+                   ARITH_3XTF32),
+        kernel_row("K4 fused_affine_coupling[forward, wide]", src, "bcnf_tpu/ops/coupling_kernel.py:69", k4_launches,
+                   err_k4, k4_times["wide"], k4_times["plain"],
+                   coupling_work(cw, LOGPROB_ROWS, LOGPROB_ROWS, H, False), peaks, None, ARITH_3XTF32),
+    ]
+    for row, what in zip(rows_out[1:], ("K2a", "K4's forward")):
+        if not row["max_abs_err"] <= KERNEL_TOL:
+            fail(f"{what} on the wide forward is {row['max_abs_err']:.3e} from its plain version")
+    b256 = bound_ms(work_k1[B], peaks, ARITH_3XTF32)[0]
+    print(f"[13 model zoo, wide forward] {name}: log_prob and the forward of {y_lp.shape[0]} draws, K1 launches "
+          f"{routes_a}, z/logdet {err_a:.2e} from the plain path; validation of {n_val} rows in {n_batches} padded "
+          f"batches of {B}: K1 launches {routes_b}, metrics {err_b:.2e} (relative) from the plain path's; a training "
+          f"step at batch {B}, coupling dropout 0: K2a {c['K2a']}, K2b {c['K2b']}, metrics "
+          f"{err_c:.2e} from the plain step's; the forward through K4: {k4_launches} launches, {err_d:.2e} from the "
+          f"plain path (tolerance {KERNEL_TOL:g})")
+    print(f"    K1's forward in turns (tiles of {fk.wide_fwd_rows(LOGPROB_ROWS)} rows at {LOGPROB_ROWS}, "
+          f"{fk.wide_fwd_rows(B)} at {B}): {LOGPROB_ROWS} rows wide {med[LOGPROB_ROWS]['wide']:.2f} ms, row tiles "
+          f"(forced) {med[LOGPROB_ROWS]['rows']:.2f}, float32 plain {med[LOGPROB_ROWS]['plain']:.2f} (bound "
+          f"{rows_out[0]['bound_ms']:.2f}); {B} rows wide {med[B]['wide']:.2f} ms, row tiles {med[B]['rows']:.2f}, "
+          f"plain {med[B]['plain']:.2f} (bound {b256:.3f}); K2a at {LOGPROB_ROWS} rows {rows_out[1]['ms']:.2f} ms "
+          f"(plain {rows_out[1]['plain_ms']:.2f}, bound {rows_out[1]['bound_ms']:.2f}); K4's forward "
+          f"{rows_out[2]['ms']:.3f} ms (plain {rows_out[2]['plain_ms']:.3f}, bound {rows_out[2]['bound_ms']:.3f})")
+    if not med[LOGPROB_ROWS]["wide"] < min(med[LOGPROB_ROWS]["rows"], med[LOGPROB_ROWS]["plain"]):
+        fail(f"the wide forward ({med[LOGPROB_ROWS]['wide']:.2f} ms) loses to the row tiles "
+             f"({med[LOGPROB_ROWS]['rows']:.2f}) or the plain version ({med[LOGPROB_ROWS]['plain']:.2f}) at "
+             f"{LOGPROB_ROWS} rows")
+    if not med[B]["wide"] < med[B]["rows"]:
+        fail(f"the wide forward ({med[B]['wide']:.2f} ms) loses to the row tiles ({med[B]['rows']:.2f}) at {B} rows")
+    launches = {"K1 forward, wide": rows_out[0]["launches"], "K2a, wide": rows_out[1]["launches"],
+                "K4 forward, wide": k4_launches}
+    return launches, rows_out
 
 
 def model_zoo(rng, dev, build_dir: str, peaks: tuple[float, float, float]) -> dict:

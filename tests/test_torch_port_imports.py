@@ -220,10 +220,10 @@ def cuda():
 def test_kernel_matches_reference_on_card(cuda, inverse, hidden, strict):
     """A CUDA tensor launches K1 on the route of its mode and width (counted
     once, and once on that route: in 3xTF32 the `wgmma` inverse and the
-    `wgmma` forward up to Hp 544, above it the wide inverse and the forward's
-    row tiles), ragged rows included, within the flow bar of the float32
+    `wgmma` forward up to Hp 544, above it the wide inverse and the wide
+    forward), ragged rows included, within the flow bar of the float32
     plain version."""
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FMA, ROUTE_FWD_WGMMA, ROUTE_ROWS, ROUTE_WGMMA, ROUTE_WIDE
+    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FMA, ROUTE_FWD_WGMMA, ROUTE_WGMMA, ROUTE_WIDE, ROUTE_WIDE_FWD
 
     model = _tiny_model(hidden)
     params = model.init(device=cuda)
@@ -231,7 +231,7 @@ def test_kernel_matches_reference_on_card(cuda, inverse, hidden, strict):
     traj = torch.from_numpy(rng.normal(size=(6, 9, 3)).astype(np.float32)).to(cuda)
     kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
     x = torch.from_numpy(rng.normal(size=(6 * 37 + 5, 5)).astype(np.float32)).to(cuda)
-    route = (ROUTE_FMA if strict else (ROUTE_WIDE if inverse else ROUTE_ROWS) if hidden > 544
+    route = (ROUTE_FMA if strict else (ROUTE_WIDE if inverse else ROUTE_WIDE_FWD) if hidden > 544
              else ROUTE_WGMMA if inverse else ROUTE_FWD_WGMMA)
     before = fused_flow.launches, fused_flow.route_launches[route]
     out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, mode="fma" if strict else "3xtf32")

@@ -54,6 +54,7 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
     ROUTE_WIDE,
+    ROUTE_WIDE_FWD,
     flow_route,
     fused_flow_reference,
     fused_flow_train_backward_reference,
@@ -444,7 +445,8 @@ def test_k1_routes_by_mode_and_width(H, strict):
     """Strict runs the float32 FMA kernel both ways; the default mode runs
     the inverse on `wgmma` and the forward on the 3xTF32 `wgmma` forward up
     to the padded width 544, above it the inverse on the wide `wgmma`
-    inverse and the forward on the row tiles (flagship shape: size 19)."""
+    inverse and the forward on the wide `wgmma` forward (flagship shape:
+    size 19)."""
     from bcnf_tpu_torch.ops.flow_kernel import padded_width
 
     Hp = padded_width(H)
@@ -453,7 +455,7 @@ def test_k1_routes_by_mode_and_width(H, strict):
         assert routes == {True: ROUTE_FMA, False: ROUTE_FMA}
     else:
         assert routes == {True: ROUTE_WGMMA if Hp <= 544 else ROUTE_WIDE,
-                          False: ROUTE_FWD_WGMMA if Hp <= 544 else ROUTE_ROWS}
+                          False: ROUTE_FWD_WGMMA if Hp <= 544 else ROUTE_WIDE_FWD}
 
 
 def test_k1_routes_follow_shared_memory():

@@ -214,11 +214,12 @@ def test_train_bwd_wgmma_parts_patches_apply_to_the_kernel_source():
 @pytest.mark.parametrize("H,wgmma", [(16, True), (100, True), (526, True), (700, False), (1000, False)])
 def test_3xtf32_training_takes_the_wgmma_routes_up_to_hp_544(H, wgmma, nh):
     """In 3xTF32 (the default mode) K2a takes the 3xTF32 `wgmma` forward and
-    K2b the 3xTF32 `wgmma` route at every padded width up to 544, the row
-    tiles at 768 and 1024; the one-pass routes and the strict ones do not
-    move; the training gate opens wherever it did."""
+    K2b the 3xTF32 `wgmma` route at every padded width up to 544; at 768
+    and 1024 K2a the wide forward and K2b the row tiles; the one-pass routes
+    and the strict ones do not move; the training gate opens wherever it
+    did."""
     Hp = fk.padded_width(H)
-    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == (fk.ROUTE_FWD_WGMMA if wgmma else fk.ROUTE_ROWS)
+    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == (fk.ROUTE_FWD_WGMMA if wgmma else fk.ROUTE_WIDE_FWD)
     assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_ROWS)
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == (fk.ROUTE_FWD_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
     assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)

@@ -37,11 +37,12 @@ def _source_constant(name: str) -> int:
 @pytest.mark.parametrize("Hp", [768, 1024])
 def test_wide_route_takes_the_3xtf32_inverse_at_hp_768_and_1024(Hp):
     """The 3xTF32 inverse at Hp 768 and 1024 takes the wide route, its own
-    library; the forward keeps the row tiles, the one-pass inverse its row
-    tiles, strict the FMA kernel; below 768 nothing moves."""
+    library; the forward the wide forward of the same library, the one-pass
+    inverse its row tiles, strict the FMA kernel; below 768 nothing moves."""
     assert fk.flow_route(Hp, 19, 10, True, fk.MODE_3XTF32) == fk.ROUTE_WIDE
     assert fk.ROUTE_LIBRARY[fk.ROUTE_WIDE] == "flow_wide_wgmma"
-    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_ROWS
+    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_WIDE_FWD
+    assert fk.ROUTE_LIBRARY[fk.ROUTE_WIDE_FWD] == "flow_wide_wgmma"
     assert fk.flow_route(Hp, 19, 10, True, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
     assert fk.flow_route(Hp, 19, 10, True, fk.MODE_FMA) == fk.ROUTE_FMA
     for narrow in (32, 256, 512, 544):
@@ -53,13 +54,14 @@ def test_wide_route_takes_the_3xtf32_inverse_at_hp_768_and_1024(Hp):
 def test_wide_route_limit_forces_the_row_tiles(monkeypatch, limit, routes):
     """`WIDE_WGMMA_MAX_TN` bounds the widths the wide route takes: 0 forces
     the row tiles at both (as the tools and the smoke time them), 24 keeps
-    the row tiles at 1024; the other modes and the forward do not move."""
+    the row tiles at 1024; the other modes and the forward (on the wide
+    forward, which its own limit bounds) do not move."""
     monkeypatch.setattr(fk, "WIDE_WGMMA_MAX_TN", limit)
     assert (fk.flow_route(768, 19, 10, True, fk.MODE_3XTF32), fk.flow_route(1024, 19, 10, True, fk.MODE_3XTF32)) == routes
     for Hp in (768, 1024):
         assert fk.flow_route(Hp, 19, 10, True, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
         assert fk.flow_route(Hp, 19, 10, True, fk.MODE_FMA) == fk.ROUTE_FMA
-        assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_ROWS
+        assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_WIDE_FWD
 
 
 @pytest.mark.parametrize("H", [700, 1000, 1024])
@@ -67,7 +69,7 @@ def test_k4_inverse_takes_the_wide_route(H):
     """K4 is K1 at one step (`coupling_flow_args`): its 3xTF32 inverse at
     those widths takes the wide route, on the layout `route_weights` gives
     it (which K4 keeps per coupling: `prepare_wide_weights`); its forward
-    keeps the row tiles."""
+    takes the wide forward, on the same layout."""
     rng = np.random.default_rng(H)
 
     def t(*shape):
@@ -78,8 +80,9 @@ def test_k4_inverse_takes_the_wide_route(H):
     Hp = args["b1"].shape[-1]
     assert Hp in (768, 1024) and args["wm"].shape == (1, 4, Hp, Hp)
     assert fk.flow_route(Hp, 19, 10, True, fk.MODE_3XTF32) == fk.ROUTE_WIDE
-    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_ROWS
+    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_WIDE_FWD
     assert torch.equal(fk.route_weights(fk.ROUTE_WIDE, args["wm"]), fk.prepare_wide_weights(args["wm"]))
+    assert torch.equal(fk.route_weights(fk.ROUTE_WIDE_FWD, args["wm"]), fk.prepare_wide_weights(args["wm"]))
     with pytest.raises(ValueError, match="laid out for its route"):
         fk.route_weights(fk.ROUTE_WIDE, args["wm"], fk.prepare_weights(args["wm"]))
 

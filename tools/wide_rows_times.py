@@ -2,17 +2,22 @@
 """The routes at the padded widths 768 and 1024, on one NVIDIA GPU: K1 both
 ways, K2a, K2b and K4 both ways, in 3xTF32 and in one TF32 pass, each beside
 its bound and its plain version's time; the 3xTF32 inverses (K1's and K4's)
-on the wide inverse and on the row tiles, forced.
+on the wide inverse and on the row tiles, forced; the 3xTF32 forwards (K1's,
+K2a, K4's) on the wide forward, on each of its tiles (128 and 64 rows) and
+on the row tiles, forced, at 4096 rows and at a validation batch's 256.
 
 Run from the root of a checkout on a machine with a card:
 
     python3 tools/wide_rows_times.py [--shape tool|wide]
 
 Below Hp 544 the tensor-core modes run the `wgmma` kernels; at 768 and 1024
-the 3xTF32 inverse runs the wide inverse (`csrc/flow_wide_wgmma.cu`) and
-every other of these kernels the row tiles (`csrc/flow_kernel.cu`,
-`csrc/flow_train_kernel.cu`, and their one-pass `*_tf32` builds); the
-3xTF32 inverses are timed on the row tiles too (`WIDE_WGMMA_MAX_TN = 0`).
+the 3xTF32 inverse runs the wide inverse and the 3xTF32 forwards the wide
+forward (`csrc/flow_wide_wgmma.cu`), and every other of these kernels the
+row tiles (`csrc/flow_kernel.cu`, `csrc/flow_train_kernel.cu`, and their
+one-pass `*_tf32` builds); the 3xTF32 inverses and forwards are timed on
+the row tiles too (`WIDE_WGMMA_MAX_TN = 0`, `WIDE_FWD_MAX_TN = 0`), the
+forwards on each tile of the wide forward (`WIDE_FWD_HALF_MAX_ROWS` 0 and
+past the rows).
 The shape (`tool`, the default) is the flagship's but wider: 26 steps of 4
 hidden layers, size 19, d_a 10, at H 700 (Hp 768) and H 1000 (Hp 1024);
 `wide` is the wide run config's (`trajectory_LSTM_xsmall_large_hybrid_dual`:
@@ -21,7 +26,8 @@ batch's 100,000 rows conditioned on 100. Random weights, conditions and
 cotangents from seed 0. Rows as on the main path: K1's inverse on 80,000
 rows conditioned on 8 (a `sample` of 10,000 x 8), its forward, K2a and K2b
 on 4096 rows with their own conditions, K4 (K1's kernel at one step) on
-80,000 rows inverse and 4096 forward. Each call's route (`flow_route`,
+80,000 rows inverse and 4096 forward; K1's forward and K2a also on 256
+rows (the run configs' validation batch). Each call's route (`flow_route`,
 `train_bwd_route`) is printed and must be the one named. Times: CUDA events around one call, median of 5 after a warm-up
 (3 for K1's inverse). Bound: the larger of the operations at the mode's
 rate (3xTF32 a third of the TF32 peak, one pass the TF32 peak) and the bytes
@@ -89,8 +95,11 @@ def main() -> None:
         x80k, x4096 = randn(80_000, SIZE), randn(4096, SIZE)
         halves = {rows: (x[:, :D_A].contiguous(), x[:, D_A:].contiguous()) for rows, x in ((80_000, x80k), (4096, x4096))}
         dz, dld = randn(4096, SIZE), randn(4096)
+        x256, hp256 = x4096[:256].contiguous(), hp4096[:, :256].contiguous()
         f_inv, f_fwd = cs.flow_work(k8, hp8, 80_000, H), cs.flow_work(k4096, hp4096, 4096, H)
+        f_fwd256 = cs.flow_work(k4096, hp256, 256, H)
         w2a, w2b = cs.train_work(k4096, hp4096, 4096, H)
+        w2a256 = cs.train_work(k4096, hp256, 256, H)[0]
         # K4: the first step's coupling alone (K1's kernel at one step)
         one = {n: t[:1] for n, t in w.items()}
         cw = dict(w1y=w["w1y"][0], b1=w["b1"][0], wm=list(w["wm"][0]), bm=list(w["bm"][0]), wout=w["wout"][0],
@@ -110,7 +119,10 @@ def main() -> None:
                     x100k, hp100, *[k8[n] for n in names], inverse=True, n_cond=100), 3),
                 "K1 forward, 4096 rows": timed(lambda: fk.fused_flow_reference(
                     x4096, hp4096, *args, inverse=False, n_cond=4096), 3),
+                "K1 forward, 256 rows": timed(lambda: fk.fused_flow_reference(
+                    x256, hp256, *args, inverse=False, n_cond=256), 3),
                 "K2a, 4096 rows": timed(lambda: fk.fused_flow_train_reference(x4096, hp4096, *args), 3),
+                "K2a, 256 rows": timed(lambda: fk.fused_flow_train_reference(x256, hp256, *args), 3),
                 "K2b, 4096 rows": timed(lambda: fk.fused_flow_train_backward_reference(
                     bound32, hp4096, dz, dld, *args), 3),
                 "K4 inverse, 80,000 rows": timed(lambda: ck.fused_affine_coupling_reference(
@@ -123,14 +135,26 @@ def main() -> None:
         for mode, arith in ((fk.MODE_3XTF32, cs.ARITH_3XTF32), (fk.MODE_TF32, cs.ARITH_TF32)):
             routes = {"K1": (fk.flow_route(Hp, SIZE, D_A, True, mode), fk.flow_route(Hp, SIZE, D_A, False, mode)),
                       "K2b": fk.train_bwd_route(Hp, SIZE, D_A, NH, mode)}
-            def forced(fn):  # the 3xTF32 inverses on the row tiles
+            def forced(fn, **settings):  # fn with fk's limits set: by default the 3xTF32 inverses on the row tiles
+                settings = settings or {"WIDE_WGMMA_MAX_TN": 0}
+
                 def run():
-                    old, fk.WIDE_WGMMA_MAX_TN = fk.WIDE_WGMMA_MAX_TN, 0
+                    old = {k: getattr(fk, k) for k in settings}
+                    for k, v in settings.items():
+                        setattr(fk, k, v)
                     try:
                         return fn()
                     finally:
-                        fk.WIDE_WGMMA_MAX_TN = old
+                        for k, v in old.items():
+                            setattr(fk, k, v)
                 return run
+
+            def forwards(what, work, fn):  # a 3xTF32 forward on each wide tile and on the row tiles, forced
+                if mode != fk.MODE_3XTF32:
+                    return [(what, work, 5, fn)]
+                return [(what + " (128-row tiles)", work, 5, forced(fn, WIDE_FWD_HALF_MAX_ROWS=0)),
+                        (what + " (64-row tiles)", work, 5, forced(fn, WIDE_FWD_HALF_MAX_ROWS=1 << 30)),
+                        (what + " (row tiles, forced)", work, 5, forced(fn, WIDE_FWD_MAX_TN=0))]
 
             with torch.no_grad():
                 _, _, bound = fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)
@@ -144,29 +168,33 @@ def main() -> None:
                     inverses = [c for case in inverses for c in (case, (case[0] + " (row tiles, forced)", case[1], case[2],
                                                                        forced(case[3])))]
                 cases = inverses + [
-                    ("K1 forward, 4096 rows", f_fwd, 5,
-                     lambda: fk.fused_flow(x4096, hp4096, *args, inverse=False, n_cond=4096, mode=mode)),
-                    ("K2a, 4096 rows", w2a, 5, lambda: fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)),
+                    *forwards("K1 forward, 4096 rows", f_fwd,
+                              lambda: fk.fused_flow(x4096, hp4096, *args, inverse=False, n_cond=4096, mode=mode)),
+                    *forwards("K1 forward, 256 rows", f_fwd256,
+                              lambda: fk.fused_flow(x256, hp256, *args, inverse=False, n_cond=256, mode=mode)),
+                    *forwards("K2a, 4096 rows", w2a, lambda: fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)),
+                    *forwards("K2a, 256 rows", w2a256, lambda: fk.fused_flow_train_fwd(x256, hp256, *args, mode=mode)),
                     ("K2b, 4096 rows", w2b, 5,
                      lambda: fk.fused_flow_train_bwd(bound, hp4096, dz, dld, *args, mode=mode)),
                     ("K4 inverse, 80,000 rows", k4_inv_work, 5, k4_inv),
                     *([("K4 inverse, 80,000 rows (row tiles, forced)", k4_inv_work, 5, forced(k4_inv))]
                       if mode == fk.MODE_3XTF32 else []),
-                    ("K4 forward, 4096 rows", k4_fwd, 5,
-                     lambda: ck.fused_affine_coupling(*halves[4096], c4096, **cw, mode=mode)),
+                    *forwards("K4 forward, 4096 rows", k4_fwd,
+                              lambda: ck.fused_affine_coupling(*halves[4096], c4096, **cw, mode=mode)),
                 ]
                 for what, work, reps, fn in cases:
                     ms = timed(fn, reps)
                     bound_ms, by = cs.bound_ms(work, peaks, arith)
-                    p_ms = plain[what.removesuffix(" (row tiles, forced)")]
+                    p_ms = plain[what.split(" (")[0]]
                     print(f"    {mode} {what}: {ms:.3f} ms, bound {bound_ms:.3f} ms ({by}), {bound_ms / ms:.1%} of "
                           f"its bound; plain {p_ms:.3f} ms ({p_ms / ms:.2f}x the kernel's time)", flush=True)
             print(f"    {mode} routes: K1 inverse {routes['K1'][0]}, K1 forward / K2a / K4 forward "
-                  f"{routes['K1'][1]}, K2b {routes['K2b']}")
+                  f"{routes['K1'][1]} (tiles of {fk.wide_fwd_rows(256)} rows at 256, {fk.wide_fwd_rows(4096)} at "
+                  f"4096), K2b {routes['K2b']}")
             wide = mode == fk.MODE_3XTF32
-            if ((routes["K1"][0] == fk.ROUTE_WIDE) != wide
-                    or {routes["K1"][1], routes["K2b"]} - {fk.ROUTE_ROWS, fk.ROUTE_ROWS_TF32}):
-                raise SystemExit(f"H {H} {mode}: not the wide inverse and the row tiles: {routes}")
+            if ((routes["K1"][0] == fk.ROUTE_WIDE) != wide or (routes["K1"][1] == fk.ROUTE_WIDE_FWD) != wide
+                    or routes["K2b"] not in (fk.ROUTE_ROWS, fk.ROUTE_ROWS_TF32)):
+                raise SystemExit(f"H {H} {mode}: not the wide inverse and forward and K2b's row tiles: {routes}")
 
 
 if __name__ == "__main__":
