@@ -11,10 +11,12 @@ sources are built twice: as they are (3xTF32, the default mode) and with
 mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
 the first; so are K2b's `wgmma` route (`csrc/flow_train_wgmma.cu`) and the
 `wgmma` forward (`csrc/flow_fwd_wgmma.cu`); the wide 3xTF32 inverse and
-forward (`csrc/flow_wide_wgmma.cu`) are built once; 14 libraries in all; the strict
-K1 and K2a (`csrc/flow_fma.cu`, float32 FMA) and
-the strict K2b (`csrc/flow_train_fma.cu`, which takes flow_fma.cu's device
-parts: its hash covers both sources) once. Nothing here runs at import
+forward (`csrc/flow_wide_wgmma.cu`) are built once, and so is K2b in
+3xTF32 there (`csrc/flow_wide_train_wgmma.cu`, which takes
+flow_wide_wgmma.cu's device parts: its hash covers both sources); 15
+libraries in all; the strict K1 and K2a (`csrc/flow_fma.cu`, float32 FMA)
+and the strict K2b (`csrc/flow_train_fma.cu`, which takes flow_fma.cu's
+device parts: its hash covers both sources) once. Nothing here runs at import
 time: the CPU tests import every module.
 """
 
@@ -43,6 +45,7 @@ ONE_PASS = "_tf32"  # the suffix of a flow library built for the reduced mode
 SOURCES["flow_train_wgmma"] = _CSRC / "flow_train_wgmma.cu"
 SOURCES["flow_fwd_wgmma"] = _CSRC / "flow_fwd_wgmma.cu"
 SOURCES["flow_wide_wgmma"] = _CSRC / "flow_wide_wgmma.cu"  # K1's, K2a's and K4's 3xTF32 walks at Hp 768 and 1024
+SOURCES["flow_wide_train_wgmma"] = _CSRC / "flow_wide_train_wgmma.cu"  # K2b in 3xTF32 at Hp 768 and 1024
 for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel", "flow_train_wgmma", "flow_fwd_wgmma"):
     SOURCES[_name + ONE_PASS] = SOURCES[_name]
 BUILD_DIR = _PKG / "_build"
@@ -69,7 +72,7 @@ def _flags(name: str) -> list[str]:
 
 
 # sources a library's source includes beside the headers
-_INCLUDED = {"flow_train_fma": (_CSRC / "flow_fma.cu",)}
+_INCLUDED = {"flow_train_fma": (_CSRC / "flow_fma.cu",), "flow_wide_train_wgmma": (_CSRC / "flow_wide_wgmma.cu",)}
 
 
 def _library_path(name: str) -> Path:
@@ -170,6 +173,13 @@ def load_library(name: str = "flow_kernel") -> ctypes.CDLL:
         lib.bcnf_flow_forward_wide.restype = i32
         lib.bcnf_flow_wide_layout.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
         lib.bcnf_flow_wide_layout.restype = i32
+    elif source == "flow_wide_train_wgmma":
+        lib.bcnf_flow_train_bwd_wide.argtypes = [ptr] * 24 + [i32] * 8 + [ptr]
+        lib.bcnf_flow_train_bwd_wide.restype = i32
+        lib.bcnf_flow_train_wide_scratch.argtypes = [i32] * 7
+        lib.bcnf_flow_train_wide_scratch.restype = ctypes.c_longlong
+        lib.bcnf_flow_train_wide_layout.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+        lib.bcnf_flow_train_wide_layout.restype = i32
     elif source == "flow_train_kernel":
         lib.bcnf_flow_train_bwd.argtypes = [ptr] * 24 + [i32] * 7 + [ptr]
         lib.bcnf_flow_train_bwd.restype = i32

@@ -914,6 +914,10 @@ cudaError_t layout(int size, int d_a, int rows, bool forward, int* out) {
 
 }  // namespace
 
+// flow_wide_train_wgmma.cu takes the device parts above with
+// BCNF_WW_DEVICE_ONLY defined, and leaves out this library's entry points.
+#ifndef BCNF_WW_DEVICE_ONLY
+
 #define BCNF_WW_CASES(Hp, CASE) \
   switch ((Hp) / 32) {          \
     CASE(24)                    \
@@ -994,3 +998,5 @@ extern "C" int bcnf_flow_wide_layout(int Hp, int size, int d_a, int rows, int fo
 extern "C" const char* bcnf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#endif  // BCNF_WW_DEVICE_ONLY

@@ -40,10 +40,14 @@
   store) and whose backward is K2b (`fused_flow_train_bwd`, on the route
   `train_bwd_route` gives: the row tiles of `csrc/flow_train_kernel.cu`, or
   at padded widths up to 544 the `wgmma` route of
-  `csrc/flow_train_wgmma.cu`, or strict the float32 FMA kernels of
+  `csrc/flow_train_wgmma.cu`, in 3xTF32 at 768 and 1024 the wide backward
+  of `csrc/flow_wide_train_wgmma.cu`, or strict the float32 FMA kernels of
   `csrc/flow_train_fma.cu`). Both `wgmma` routes read the hidden weights as
   `prepare_train_weights` lays them out for their mode (hi, and in 3xTF32
-  lo beside it), prepared once a step and handed from K2a to K2b. The
+  lo beside it), prepared once a step and handed from K2a to K2b; at 768
+  and 1024 the wide forward and the wide backward read
+  `prepare_wide_train_weights` (`prepare_wide_weights`' layout of Wm and of
+  Wm^T) in the same way. The
   strict K2b recomputes nothing of the MLP: the strict K2a keeps each
   layer's activations and gelu' for it (`train_keep`, which both require),
   handed from K2a to K2b in the same way; where a row chunk's keep would
@@ -130,12 +134,14 @@ ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow
 # (`ROUTE_WGMMA`) and in one pass (`ROUTE_WGMMA_TF32`), both
 # csrc/flow_train_wgmma.cu, and the strict float32 FMA route (`ROUTE_FMA`,
 # csrc/flow_train_fma.cu); each route's library.
+ROUTE_WIDE_TRAIN = "wide_train_wgmma"  # K2b in 3xTF32 at Hp 768 and 1024 (csrc/flow_wide_train_wgmma.cu)
 TRAIN_BWD_LIBRARY = {ROUTE_ROWS: "flow_train_kernel", ROUTE_ROWS_TF32: "flow_train_kernel_tf32",
                      ROUTE_WGMMA: "flow_train_wgmma", ROUTE_WGMMA_TF32: "flow_train_wgmma_tf32",
-                     ROUTE_FMA: "flow_train_fma"}
+                     ROUTE_FMA: "flow_train_fma", ROUTE_WIDE_TRAIN: "flow_wide_train_wgmma"}
 ROUTE_TRAIN_BWD_FMA = "train_bwd_fma"  # the strict K2b's rows kernel, for `kernel_smem` (csrc: ft_smem)
 ROUTE_TRAIN_BWD_WGMMA = "train_bwd_wgmma"  # its rows kernel, for `kernel_smem` (csrc/flow_train_wgmma.cu: tw_smem)
 TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 forces the row tiles in both modes
+WIDE_TRAIN_MAX_TN = 32  # the widest of WIDE_TN K2b's wide route takes in 3xTF32; 0 forces the row tiles there
 # The constants of the kernels' sources that the host side reads, by the
 # source that defines each: the dynamic shared memory a block may use and
 # the weight-grad jobs one AtbJobs launch holds (K2b's nh + 3 a step), the
@@ -246,6 +252,46 @@ def wide_takes(Hp: int, size: int, d_a: int, forward: bool = False) -> bool:
     too."""
     route = ROUTE_WIDE_FWD if forward else ROUTE_WIDE
     return Hp // 32 in WIDE_TN and kernel_smem(route, Hp, size, d_a) <= kernel_limit("kSmemLimit")
+
+
+def wide_train_smem(Hp: int, size: int, d_a: int, rows: int | None = None) -> int:
+    """Bytes of shared memory a block of K2b's wide rows kernel takes on
+    tiles of `rows` rows (default kWwRows) at this shape
+    (`csrc/flow_wide_train_wgmma.cu`: `wt_smem`): the tile of the block's
+    columns (two on 64-row tiles), the hi and lo rings, the step's W1y, b1 and
+    Wout of the block's columns, per row x1, dx2, [t | s'], dx_a and dld, the
+    C blocks' partials of the ceil(rows / C) rows a block reduces (max(n_out,
+    d_a) floats a row), to an even count of floats; then 2 barriers a ring
+    stage, 3 a block of the cluster and 1 for the step's weights."""
+    rows, cols = rows or kernel_limit("kWwRows"), kernel_limit("kWwCols")
+    C, stages, n_out = Hp // cols, kernel_limit("kWwHiStages") + kernel_limit("kWwLoStages"), 2 * (size - d_a)
+    tiles = 2 if rows == kernel_limit("kWwHalfRows") else 1
+    floats = (tiles * rows * cols + stages * kernel_limit("kWwStageK") * 8 * cols + (d_a + 1 + n_out) * cols
+              + rows * (2 * size + n_out + d_a + 1) + C * -(-rows // C) * max(n_out, d_a))
+    return 4 * (floats + floats % 2) + 8 * (2 * stages + 3 * C + 1)
+
+
+def wide_train_takes(Hp: int, size: int, d_a: int) -> bool:
+    """Whether K2b's wide route takes the shape (`wt_smem` within a block's
+    on its kWwRows-row tile; the 64-row tiles then fit too): a width the
+    wide kernels are built for."""
+    return (Hp // 32 in WIDE_TN and Hp % 32 == 0
+            and wide_train_smem(Hp, size, d_a) <= kernel_limit("kSmemLimit"))
+
+
+def wide_train_card_layout(Hp: int, size: int, d_a: int, rows: int | None = None) -> tuple[int, int, int, int]:
+    """K2b's wide route at this shape on tiles of `rows` rows (default
+    kWwRows) on the current card (`csrc/flow_wide_train_wgmma.cu`:
+    `bcnf_flow_train_wide_layout`): the rows kernel's bytes of shared memory
+    a block and its clusters resident at once, the weight-grad pass's bytes
+    a block and its blocks resident on an SM."""
+    from bcnf_tpu_torch.ops._build import load_library
+
+    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WIDE_TRAIN])
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib.bcnf_flow_train_wide_layout(Hp, size, d_a, rows or kernel_limit("kWwRows"), out), lib,
+              "wide_train_card_layout")
+    return tuple(out)
 
 
 def padded_width(H: int, compiled: tuple[int, ...] = KERNEL_TN) -> int:
@@ -701,8 +747,11 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
     kernel takes the shape (its shared memory, and n_out and d_a within what
     its weight ring stages, reckoned in a stage's floats, kTwStageK x Hp/2 in
     either mode), at every batch (the card's sweeps found the row tiles
-    faster at none of 32, 64, 128, 256 and 4096 rows: PERF.md), else the row
-    tiles of the mode (`csrc/flow_train_kernel.cu`). The row tiles take nh +
+    faster at none of 32, 64, 128, 256 and 4096 rows: PERF.md); the 3xTF32
+    mode at Hp 768 and 1024 the wide route (`csrc/flow_wide_train_wgmma.cu`,
+    up to `WIDE_TRAIN_MAX_TN`) where its rows kernel's shared memory takes
+    the shape (`wide_train_takes`), at every batch; else the row tiles of the
+    mode (`csrc/flow_train_kernel.cu`). The row tiles take nh +
     3 weight-grad jobs a step within one launch's (`kAtbMaxJobs`) and their
     rows kernel's shared memory within a block's (`kSmemLimit`). None where
     no kernel takes the shape: the launchers return cudaErrorInvalidValue
@@ -718,6 +767,8 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
             and 2 * (size - d_a) <= kernel_limit("kTwRing") * ring and d_a <= ring
             and kernel_smem(ROUTE_TRAIN_BWD_WGMMA, Hp, size, d_a) <= limit):
         return ROUTE_WGMMA_TF32 if mode == MODE_TF32 else ROUTE_WGMMA
+    if mode == MODE_3XTF32 and Hp // 32 <= WIDE_TRAIN_MAX_TN and wide_train_takes(Hp, size, d_a):
+        return ROUTE_WIDE_TRAIN
     if nh + 3 <= kernel_limit("kAtbMaxJobs") and kernel_smem(ROUTE_TRAIN_BWD, Hp, size, d_a) <= limit:
         return ROUTE_ROWS_TF32 if mode == MODE_TF32 else ROUTE_ROWS
     return None
@@ -789,6 +840,18 @@ def prepare_wide_weights(wm: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"prepare_wide_weights: the padded width {Hp} is not one the wide inverse takes")
     return (wm.reshape(S, nh, Hp // 8 // k, k, 2, 4, Hp // cols, cols // 8, 8)
             .permute(0, 1, 2, 6, 3, 7, 4, 8, 5).contiguous())
+
+
+def prepare_wide_train_weights(wm: torch.Tensor) -> torch.Tensor:
+    """A training step's hidden weights at Hp 768 and 1024 in 3xTF32, laid
+    out once for the wide forward (K2a) and the wide backward (K2b):
+    `prepare_wide_weights` of Wm (the products h Wm: the forward's and K2b's
+    recompute), then of Wm^T (K2b's da Wm^T), stacked, shape (2, S, nh,
+    ...); K2a reads the first. Twice Wm's bytes, on `wm`'s device."""
+    out = torch.empty((2, *_wide_weights_shape(*wm.shape[:3])), dtype=wm.dtype, device=wm.device)
+    out[0] = prepare_wide_weights(wm)
+    out[1] = prepare_wide_weights(wm.transpose(-1, -2))
+    return out
 
 
 def _wide_weights_shape(S: int, nh: int, Hp: int) -> tuple[int, ...]:
@@ -1391,6 +1454,8 @@ def _train_fwd(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tens
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
                 B, B, S, size, d_a, nh, Hp, _stream())
         elif route == ROUTE_WIDE_FWD:
+            if wstages is not None and tuple(wstages.shape) == (2, *_wide_weights_shape(S, nh, Hp)):
+                wstages = wstages[0]  # a step's layout for K2a and the wide K2b: K2a reads Wm's
             staged = route_weights(route, wm, wstages)
             err = lib.bcnf_flow_forward_wide(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
@@ -1420,13 +1485,16 @@ def train_weights(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: 
     """The hidden weights of a training step as `prepare_train_weights` lays
     them out for `mode` (hi; in 3xTF32 hi and lo), prepared once for K2a and
     K2b where either runs on its `wgmma` route (a CUDA tensor in the 3xTF32
-    or the one-pass mode at the widths those routes hold); None where
-    neither reads them (the wide forward, K2a's 3xTF32 route at Hp 768 and
-    1024, lays out its own weights, which K2b's row tiles there do not
-    read)."""
+    or the one-pass mode at the widths those routes hold); in 3xTF32 at Hp
+    768 and 1024, where K2b runs on the wide route, `prepare_wide_train_weights`
+    (both directions; K2a's wide forward reads the first); None where
+    neither reads a shared layout (K2a's wide forward with K2b on its row
+    tiles lays out its own)."""
     if x.device.type != "cuda" or mode not in TF32_MODES:
         return None
     Hp, size, nh = h_proj.shape[-1], x.shape[1], wm.shape[1]
+    if train_bwd_route(Hp, size, d_a, nh, mode) == ROUTE_WIDE_TRAIN:
+        return prepare_wide_train_weights(wm)
     if (flow_route(Hp, size, d_a, False, mode) in FWD_WGMMA_ROUTES
             or train_bwd_route(Hp, size, d_a, nh, mode) in (ROUTE_WGMMA, ROUTE_WGMMA_TF32)):
         return prepare_train_weights(wm, 3 if mode == MODE_3XTF32 else 1)
@@ -1479,6 +1547,9 @@ def fused_flow_train_bwd(
     tiles of `csrc/flow_train_kernel.cu`, at Hp <= 544 the `wgmma` route of
     `csrc/flow_train_wgmma.cu` built for the mode, on `wstages` as
     `prepare_train_weights` lays out `wm` for it, or on weights it prepares;
+    in 3xTF32 at Hp 768 and 1024 the wide route of
+    `csrc/flow_wide_train_wgmma.cu`, on `prepare_wide_train_weights`' layout,
+    passed or prepared in the same way;
     strict, the float32 FMA kernels of `csrc/flow_train_fma.cu`, on what the
     strict K2a kept in `keep` for these inputs: without it, it raises), or
     raises. Strict, where `strict_chunks` splits the rows (`chunk_rows`, or
@@ -1591,7 +1662,9 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     route also dWout, dbout, dW1y and db1, summed from the rows kernels'
     partials). The wrapper runs all three; chip_smoke.py times each alone.
     The `wgmma` route reads the hidden weights as `prepare_train_weights`
-    lays them out: pass them as `wstages`, or they are prepared here. The
+    lays them out, the wide route as `prepare_wide_train_weights` does (on
+    tiles of `wide_fwd_rows(B)` rows): pass them as `wstages`, or they are
+    prepared here. The
     strict route reads what the strict K2a kept in `keep` (required), and
     takes `rows` = (first, end): the grads of those rows alone (dx and
     dh_proj into those rows of `grads`' first two, the rest their sums),
@@ -1616,6 +1689,9 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
         passes = 3 if route == ROUTE_WGMMA else 1
         tensors[5] = prepare_train_weights(args["wm"], passes) if wstages is None else _checked_wstages(
             wstages, _train_weights_shape(S, nh, Hp, passes), args["wm"], f"fused_flow_train_bwd ({route})")
+    elif route == ROUTE_WIDE_TRAIN:
+        tensors[5] = prepare_wide_train_weights(args["wm"]) if wstages is None else _checked_wstages(
+            wstages, (2, *_wide_weights_shape(S, nh, Hp)), args["wm"], f"fused_flow_train_bwd ({route})")
     if route == ROUTE_FMA or keep is not None:
         tensors.append(_checked_keep(keep, route, end - first, S, size, d_a, nh, Hp, dz.device,
                                      "fused_flow_train_bwd"))
@@ -1623,6 +1699,9 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     shape = (B, S, size, d_a, nh, Hp)
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
         n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(*shape), lib.bcnf_flow_train_bwd_wgmma
+    elif route == ROUTE_WIDE_TRAIN:  # on tiles of the wide forward's rows
+        shape = (*shape, wide_fwd_rows(B))
+        n_scratch, entry = lib.bcnf_flow_train_wide_scratch(*shape), lib.bcnf_flow_train_bwd_wide
     elif route == ROUTE_FMA:  # the rows first .. end - 1 of B
         n_scratch, entry = lib.bcnf_flow_train_fma_scratch(end - first, *shape[1:]), lib.bcnf_flow_train_bwd_fma
         shape = (B, first, end - first, *shape[1:])
@@ -1672,7 +1751,9 @@ class _FusedFlowTrain(torch.autograd.Function):
     route, the hidden weights are prepared once in the forward
     (`train_weights`) and held for the backward: twice Wm's bytes in one pass
     (246 MB at the flagship's 26 steps of 4 layers at Hp 544), four times in
-    3xTF32 (hi and lo, 492 MB), from K2a to K2b. Strict, K2a keeps each
+    3xTF32 (hi and lo, 492 MB), from K2a to K2b; at Hp 768 and 1024 in 3xTF32
+    Wm and Wm^T in float32 (`prepare_wide_train_weights`: 1.07 GB at the wide
+    config's 32 steps of 4 layers at Hp 1024). Strict, K2a keeps each
     layer's activations and gelu' for K2b (`train_keep`, 2.32 GB at the
     flagship's 4096 rows), unless the rows take more than one chunk
     (`strict_chunks`: past 13,088 rows at the flagship's shape on an 80 GB

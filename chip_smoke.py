@@ -6,12 +6,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit, versions; build every kernel
-   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`, 14 libraries,
+   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`, 15 libraries,
    one nvcc each, all started together); the registers and spill bytes of
    each instance of K1's `wgmma` inverse, the `wgmma` forward and K2b's
-   `wgmma` route, both builds of each, and of the wide inverse and forward
-   (fails on any spill in the 3xTF32 libraries, `flow_wgmma`,
-   `flow_wide_wgmma`, `flow_fwd_wgmma` and `flow_train_wgmma`).
+   `wgmma` route, both builds of each, of the wide inverse and forward and
+   of the wide K2b (fails on any spill in the 3xTF32 libraries,
+   `flow_wgmma`, `flow_wide_wgmma`, `flow_fwd_wgmma`, `flow_train_wgmma`
+   and `flow_wide_train_wgmma`).
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship widths, on a tiled and on a ragged shape: K1 in its default
    mode (3xTF32: the inverse on `wgmma`, the forward on the `wgmma`
@@ -175,13 +176,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
    forwards on the wide forward: `log_prob` and the forward of 4096 draws
    (2 launches), a `Trainer` validation pass of its 1000 validation rows in
    padded batches of 256 (4 launches), one training step at batch 256 with
-   the coupling dropout at 0 (K2a once, K2b on its row tiles) and the
-   forward through K4 (32 launches), each against the plain path within
-   the 1e-4 bar (the metrics relative to their size); K1's forward at 4096
-   and 256 rows with their own conditions timed in turns on the route, the
-   row tiles (forced) and the plain version, K2a and K4's forward beside
-   their plain versions; fails where the route loses at 4096 rows to either
-   or at 256 to the row tiles.
+   the coupling dropout at 0 (K2a once on the wide forward, K2b once on the
+   wide backward, csrc/flow_wide_train_wgmma.cu; the step's grads from
+   standard-normal cotangents against the plain step's at the JAX grad
+   bar) and the forward through K4 (32 launches), each against the plain
+   path within the 1e-4 bar (the metrics relative to their size); K1's
+   forward at 4096 and 256 rows with their own conditions timed in turns on
+   the route, the row tiles (forced) and the plain version, K2a and K4's
+   forward beside their plain versions; fails where the route loses at 4096
+   rows to either or at 256 to the row tiles; K2b at 4096 and 256 rows timed
+   in turns on the wide backward, the row tiles (forced) and the plain
+   version, its grads within the JAX grad bar of the plain version, no
+   further from float64 than max(row tiles, twice the float32 plain
+   version), equal to the bit between calls; fails where it loses at 4096
+   rows to either or at 256 to the row tiles.
 
 14. the video path, `configs/runs/videos_CNN_LSTM_large.yaml` at its
    published widths (CNN 1->8->16->32 on 2 cameras x 30 frames of 90 x 160,
@@ -495,13 +503,14 @@ def strict_sass_check(lib_path: str, what: str = "the strict K1's library") -> i
 # the libraries whose every kernel instance must keep its registers (phase 1):
 # K1's 3xTF32 `wgmma` inverses (Hp <= 544, and the wide one at 768/1024), and
 # the 3xTF32 `wgmma` forward and K2b route
-NO_SPILL = ("flow_wgmma", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_train_wgmma")
+NO_SPILL = ("flow_wgmma", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_train_wgmma", "flow_wide_train_wgmma")
 
 
 def wgmma_spill_check() -> None:
     """Phase 1: the registers and spill bytes of each instance of K1's
     `wgmma` inverse (each build, and the wide inverse), the `wgmma` forward
-    (K1's, K2a's, K4's) and K2b's `wgmma` route, each in both builds, from
+    (K1's, K2a's, K4's) and K2b's `wgmma` route, each in both builds, and
+    the wide K2b, from
     this run's ptxas output (where
     this run built the library) and from the built library (`cuobjdump
     -res-usage`: STACK and LOCAL bytes a thread); fails on any spill in the
@@ -511,7 +520,7 @@ def wgmma_spill_check() -> None:
     from bcnf_tpu_torch.ops import _build
 
     for lib in ("flow_wgmma", "flow_wgmma_tf32", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_fwd_wgmma_tf32",
-                "flow_train_wgmma", "flow_train_wgmma_tf32"):
+                "flow_train_wgmma", "flow_train_wgmma_tf32", "flow_wide_train_wgmma"):
         ptxas, kernel = {}, "?"
         for ln in _build.build_logs.get(lib, "").splitlines():
             if "Compiling entry function" in ln:
@@ -1113,6 +1122,7 @@ def main() -> None:
         key = {"fused_flow[inverse]": "K1 inverse", "fused_flow[forward]": "K1 forward",
                "fused_flow[inverse, wide]": "K1 inverse, wide", "fused_flow[forward, wide]": "K1 forward, wide",
                "K2a[3xtf32, wide] fused_flow_train_fwd": "K2a, wide",
+               "K2b[3xtf32, wide] fused_flow_train_bwd": "K2b, wide",
                "K4 fused_affine_coupling[forward, wide]": "K4 forward, wide"}.get(
             row["name"], row["name"].split()[0].removesuffix("[3xtf32]"))
         row["zoo_launches"] = zoo.get(key, 0)
@@ -3683,21 +3693,31 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
     config's 1000 validation rows in padded 256-row batches (4 launches; the
     metrics against the plain path's within KERNEL_TOL of their size), one
     training step at batch 256 with the coupling dropout at 0 (one K2a
-    launch, K2b on its row tiles; the step's metrics against the plain
-    path's) and the forward of the 4096 draws through K4 (`use_pallas_coupling`:
+    launch, one K2b launch on the wide backward, csrc/flow_wide_train_wgmma.cu;
+    the step's metrics against the plain path's, and its grads from
+    standard-normal cotangents against the plain step's at the JAX grad bar)
+    and the forward of the 4096 draws through K4 (`use_pallas_coupling`:
     one launch a coupling, 32). Then K1's forward on 4096 and 256 rows with
     their own conditions (the validation layout), timed in turns on the
     route, the row tiles (forced) and the float32 plain version, and K2a and
     K4's forward at 4096 rows against their plain versions: fails where the
-    route loses to either at 4096 rows or to the row tiles at 256. Returns
-    the launches by kernel and the table's rows."""
+    route loses to either at 4096 rows or to the row tiles at 256; and K2b
+    at 4096 and 256 rows (the step inputs from K2a, standard-normal
+    cotangents, the step's weight layout prepared once) in turns on the wide
+    backward, the row tiles (forced) and the float32 plain version: fails
+    where a grad leaves the JAX grad bar of the plain version, is further
+    from the float64 plain version than max(row tiles, twice the float32
+    plain version), differs between two calls, or where the route loses at
+    4096 rows to either or at 256 to the row tiles. Returns the launches by
+    kernel and the table's rows."""
     import copy
 
     import numpy as np
     import torch
 
-    from bcnf_tpu_torch.bridge import map_tree
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
     from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.models.cnf import matmul_precision
     from bcnf_tpu_torch.ops import coupling_kernel as ck
     from bcnf_tpu_torch.ops import flow_kernel as fk
     from bcnf_tpu_torch.train import DeviceDataset, Trainer, make_optimizer
@@ -3752,7 +3772,7 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
         fail(f"{name}'s validation pass launched K1 {routes_b} (expected {n_batches} on {fk.ROUTE_WIDE_FWD}); its "
              f"metrics {err_b:.3e} from the plain path's (tolerance {KERNEL_TOL:g} of their size)")
 
-    # (c) one training step at batch B with the coupling dropout at 0: K2a on the route, K2b on its row tiles
+    # (c) one training step at batch B with the coupling dropout at 0: K2a on the wide forward, K2b on the wide backward
     cfg0 = copy.deepcopy(cfg)
     cfg0["model"]["kwargs"]["dropout"] = 0.0
     model0 = CondRealNVP.from_config(cfg0)
@@ -3772,9 +3792,25 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
     c = train_counts()
     metrics_p = step(False)
     err_c = rel(metrics_c, metrics_p)
-    if c["K2a"] != {fk.ROUTE_WIDE_FWD: 1} or c["K2b"] != {fk.ROUTE_ROWS: 1} or not err_c <= KERNEL_TOL:
+    if c["K2a"] != {fk.ROUTE_WIDE_FWD: 1} or c["K2b"] != {fk.ROUTE_WIDE_TRAIN: 1} or not err_c <= KERNEL_TOL:
         fail(f"{name}'s training step at dropout 0 launched K2a/K2b {c}, its metrics {err_c:.3e} from the plain "
              f"step's (tolerance {KERNEL_TOL:g} of their size)")
+    # the step's grads, pulled back from standard-normal cotangents (`cotangent_loss`), against the plain step's
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    conds = [*cb, torch.randn(yb.shape, generator=g, device=dev), torch.randn(yb.shape[:1], generator=g, device=dev)]
+
+    def step_grads(use_pallas: bool) -> list:
+        model0.use_pallas = use_pallas
+        p = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+        with matmul_precision(model0.precision):
+            cotangent_loss(model0, p, yb, conds, None)[0].backward()
+        return [t.grad for t in tree_leaves(p)]
+
+    grads_c = [(a, b) for a, b in zip(step_grads(True), step_grads(False)) if b is not None]
+    excess_c = max(grad_excess(a, b)[1] for a, b in grads_c)
+    dmax_c = max(grad_excess(a, b)[0] for a, b in grads_c)
+    if not excess_c <= 0:
+        fail(f"{name}'s training step at dropout 0: a grad is {excess_c:.3e} past the JAX grad bar of the plain step's")
 
     # (d) the forward of the 4096 draws through K4, one launch a coupling
     model.use_pallas_coupling = True
@@ -3834,6 +3870,36 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
         k4_plain = lambda: ck.fused_affine_coupling_reference(xa, xb, c4, **cw, inverse=False, n_cond=LOGPROB_ROWS)
         err_k4 = max((a - b).abs().max().item() for a, b in zip(k4(), k4_plain()))
         k4_times = turns({"wide": k4, "plain": k4_plain})
+        # K2b on the step inputs of K2a, standard-normal cotangents, the step's weight layout prepared once
+        ws = fk.train_weights(x4096, hp, kargs["wm"], d_a, fk.MODE_3XTF32)
+        k2b_ms, k2b_err, k2b_share, k2b_faults = {}, 0.0, {}, []
+        for rows in (LOGPROB_ROWS, B):
+            xr, hr = x4096[:rows].contiguous(), hp[:, :rows].contiguous()
+            bound = fk.fused_flow_train_fwd(xr, hr, *args, wstages=ws)[2]
+            dz, dld = randn_cotangents(xr)
+            wide = lambda: fk.fused_flow_train_bwd(bound, hr, dz, dld, *args, wstages=ws)
+            k2b_plain = lambda: fk.fused_flow_train_backward_reference(bound, hr, dz, dld, *args)
+
+            def k2b_rows():
+                with row_tiles_forced("WIDE_TRAIN_MAX_TN"):
+                    return wide()
+
+            k2b_ms[rows] = turns({"wide": wide, "rows": k2b_rows, "plain": k2b_plain})
+            one, two, tiles, p32 = wide(), wide(), k2b_rows(), k2b_plain()
+            p64 = fk.fused_flow_train_backward_reference(bound.double(), hr.double(), dz.double(), dld.double(),
+                                                         *[a.double() for a in args])
+            share = 0.0
+            for gname, a, b, r, p, d64 in zip(GRAD_NAMES, one, two, tiles, p32, p64):
+                dk, dr, dp = ((t.double() - d64).abs().max().item() for t in (a, r, p))
+                share = max(share, dk / max(dr, 2 * dp))
+                if rows == LOGPROB_ROWS:
+                    k2b_err = max(k2b_err, (a - p).abs().max().item())
+                if grad_excess(a, p)[1] > 0 or not dk <= max(dr, 2 * dp) or not torch.equal(a, b):
+                    k2b_faults.append(f"{gname} at {rows} rows: {grad_excess(a, p)[1]:.3e} past the grad bar, "
+                                      f"{dk:.3e} from float64 (row tiles {dr:.3e}, plain {dp:.3e}), bit-equal "
+                                      f"{torch.equal(a, b)}")
+            k2b_share[rows] = share
+            del one, two, tiles, p32, p64
     med = {rows: {k: median(v) for k, v in t.items()} for rows, t in ms.items()}
     work_k1 = {rows: flow_work(kargs, hp[:, :rows], rows, H) for rows in ms}
     rows_out = [
@@ -3846,6 +3912,10 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
         kernel_row("K4 fused_affine_coupling[forward, wide]", src, "bcnf_tpu/ops/coupling_kernel.py:69", k4_launches,
                    err_k4, k4_times["wide"], k4_times["plain"],
                    coupling_work(cw, LOGPROB_ROWS, LOGPROB_ROWS, H, False), peaks, None, ARITH_3XTF32),
+        kernel_row("K2b[3xtf32, wide] fused_flow_train_bwd", "bcnf_tpu_torch/ops/csrc/flow_wide_train_wgmma.cu",
+                   f"{rep}:600", c["K2b"][fk.ROUTE_WIDE_TRAIN], k2b_err, k2b_ms[LOGPROB_ROWS]["wide"],
+                   k2b_ms[LOGPROB_ROWS]["plain"], train_work(kargs, hp, LOGPROB_ROWS, H)[1], peaks, None,
+                   ARITH_3XTF32),
     ]
     for row, what in zip(rows_out[1:], ("K2a", "K4's forward")):
         if not row["max_abs_err"] <= KERNEL_TOL:
@@ -3855,7 +3925,8 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
           f"{routes_a}, z/logdet {err_a:.2e} from the plain path; validation of {n_val} rows in {n_batches} padded "
           f"batches of {B}: K1 launches {routes_b}, metrics {err_b:.2e} (relative) from the plain path's; a training "
           f"step at batch {B}, coupling dropout 0: K2a {c['K2a']}, K2b {c['K2b']}, metrics "
-          f"{err_c:.2e} from the plain step's; the forward through K4: {k4_launches} launches, {err_d:.2e} from the "
+          f"{err_c:.2e} from the plain step's, its {len(grads_c)} grads max|d| {dmax_c:.2e} ({excess_c:.2e} from "
+          f"the JAX grad bar); the forward through K4: {k4_launches} launches, {err_d:.2e} from the "
           f"plain path (tolerance {KERNEL_TOL:g})")
     print(f"    K1's forward in turns (tiles of {fk.wide_fwd_rows(LOGPROB_ROWS)} rows at {LOGPROB_ROWS}, "
           f"{fk.wide_fwd_rows(B)} at {B}): {LOGPROB_ROWS} rows wide {med[LOGPROB_ROWS]['wide']:.2f} ms, row tiles "
@@ -3870,8 +3941,27 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
              f"{LOGPROB_ROWS} rows")
     if not med[B]["wide"] < med[B]["rows"]:
         fail(f"the wide forward ({med[B]['wide']:.2f} ms) loses to the row tiles ({med[B]['rows']:.2f}) at {B} rows")
+    m2 = {rows: {k: median(v) for k, v in t.items()} for rows, t in k2b_ms.items()}
+    Hp = fk.padded_width(H)
+    smem, resident, gw_smem, gw_blocks = fk.wide_train_card_layout(Hp, size, d_a)
+    print(f"    K2b in turns (tiles of {fk.wide_fwd_rows(LOGPROB_ROWS)} rows at {LOGPROB_ROWS}, "
+          f"{fk.wide_fwd_rows(B)} at {B}; rows kernel {smem} B of shared memory, {resident} clusters of "
+          f"{Hp // 128} resident, weight-grad pass {gw_smem} B, {gw_blocks} blocks an SM): {LOGPROB_ROWS} rows wide "
+          f"{m2[LOGPROB_ROWS]['wide']:.2f} ms, row tiles (forced) {m2[LOGPROB_ROWS]['rows']:.2f}, float32 plain "
+          f"{m2[LOGPROB_ROWS]['plain']:.2f} (bound {rows_out[3]['bound_ms']:.2f}); {B} rows wide {m2[B]['wide']:.2f} "
+          f"ms, row tiles {m2[B]['rows']:.2f}, plain {m2[B]['plain']:.2f}; grads from float64 at most "
+          f"{max(k2b_share.values()):.3f} of max(row tiles, twice the float32 plain version), max|d| from the plain "
+          f"version {k2b_err:.2e} at {LOGPROB_ROWS} rows")
+    if k2b_faults:
+        fail(f"K2b on the wide backward: " + "; ".join(k2b_faults))
+    if not m2[LOGPROB_ROWS]["wide"] < min(m2[LOGPROB_ROWS]["rows"], m2[LOGPROB_ROWS]["plain"]):
+        fail(f"the wide K2b ({m2[LOGPROB_ROWS]['wide']:.2f} ms) loses to the row tiles "
+             f"({m2[LOGPROB_ROWS]['rows']:.2f}) or the plain version ({m2[LOGPROB_ROWS]['plain']:.2f}) at "
+             f"{LOGPROB_ROWS} rows")
+    if not m2[B]["wide"] < m2[B]["rows"]:
+        fail(f"the wide K2b ({m2[B]['wide']:.2f} ms) loses to the row tiles ({m2[B]['rows']:.2f}) at {B} rows")
     launches = {"K1 forward, wide": rows_out[0]["launches"], "K2a, wide": rows_out[1]["launches"],
-                "K4 forward, wide": k4_launches}
+                "K4 forward, wide": k4_launches, "K2b, wide": rows_out[3]["launches"]}
     return launches, rows_out
 
 

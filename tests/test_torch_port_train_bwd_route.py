@@ -30,13 +30,14 @@ def test_one_pass_takes_wgmma_up_to_hp_544_and_3xtf32_never(H, wgmma, nh):
     """The one-pass mode takes the `wgmma` route at every padded width up to
     544 (the flagship's), whatever the batch (the route takes none), and the
     one-pass row tiles at 768 and 1024; the 3xTF32 mode (the default) takes
-    its own build of the `wgmma` route at the same widths, and its row tiles
-    at 768 and 1024."""
+    its own build of the `wgmma` route at the same widths, and the wide
+    route (csrc/flow_wide_train_wgmma.cu) at 768 and 1024."""
     Hp = fk.padded_width(H)
     assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
-    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_ROWS)
-    assert fk.train_bwd_route(Hp, 19, 10, nh) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_ROWS)
+    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_WIDE_TRAIN)
+    assert fk.train_bwd_route(Hp, 19, 10, nh) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_WIDE_TRAIN)
     assert fk.TRAIN_BWD_LIBRARY[fk.ROUTE_WGMMA] == "flow_train_wgmma"
+    assert fk.TRAIN_BWD_LIBRARY[fk.ROUTE_WIDE_TRAIN] == "flow_wide_train_wgmma"
 
 
 def test_forced_row_tiles(monkeypatch):
@@ -109,7 +110,7 @@ def test_training_gate_reads_the_route_of_its_mode(nested, default, highest):
     """`CondRealNVP._fused_train_takes` asks `train_kernels_take` for the
     model's kernel mode: at `precision: default` (one pass) the one-pass
     `wgmma` route's limits hold, at `highest` (3xTF32) its 3xTF32 build's (at
-    Hp 768 and 1024, the row tiles')."""
+    Hp 768 and 1024, the wide route's)."""
     assert _model(19, nested, "default")._fused_train_takes() is default
     assert _model(19, nested, "highest")._fused_train_takes() is highest
     Hp = fk.padded_width(nested[0]) if nested[0] <= 1024 else 1056
@@ -215,12 +216,12 @@ def test_train_bwd_wgmma_parts_patches_apply_to_the_kernel_source():
 def test_3xtf32_training_takes_the_wgmma_routes_up_to_hp_544(H, wgmma, nh):
     """In 3xTF32 (the default mode) K2a takes the 3xTF32 `wgmma` forward and
     K2b the 3xTF32 `wgmma` route at every padded width up to 544; at 768
-    and 1024 K2a the wide forward and K2b the row tiles; the one-pass routes
-    and the strict ones do not move; the training gate opens wherever it
-    did."""
+    and 1024 K2a the wide forward and K2b the wide route; the one-pass
+    routes and the strict ones do not move; the training gate opens
+    wherever it did."""
     Hp = fk.padded_width(H)
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == (fk.ROUTE_FWD_WGMMA if wgmma else fk.ROUTE_WIDE_FWD)
-    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_ROWS)
+    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_WIDE_TRAIN)
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == (fk.ROUTE_FWD_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
     assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_FMA) == fk.ROUTE_FMA
@@ -342,19 +343,21 @@ def test_3xtf32_b_operand_as_the_descriptor_reads_it_gives_matmul_3xtf32(Hp, dir
 
 
 @pytest.mark.parametrize("mode,H,passes", [
-    ("3xtf32", 526, 3), ("3xtf32", 16, 3), ("tf32", 526, 1), ("3xtf32", 1000, None), ("fma", 526, None),
+    ("3xtf32", 526, 3), ("3xtf32", 16, 3), ("tf32", 526, 1), ("3xtf32", 1000, "wide"), ("fma", 526, None),
 ], ids=["3xtf32_544", "3xtf32_32", "one_pass_544", "3xtf32_1024", "strict"])
 def test_train_weights_prepares_once_a_step_for_the_mode(monkeypatch, mode, H, passes):
     """A training step's hidden weights (`train_weights`, which
     `_FusedFlowTrain.forward` calls once and hands to K2a and K2b): on a CUDA
     tensor at the widths the `wgmma` routes hold, one preparation in the
-    mode's layout (3 passes in 3xTF32, 1 in one pass); none where neither
-    route reads them (the row tiles at 1024, the strict kernels) or on a CPU
-    tensor."""
+    mode's layout (3 passes in 3xTF32, 1 in one pass); in 3xTF32 at 1024,
+    where K2b takes the wide route, one of both wide layouts
+    (`prepare_wide_train_weights`); none where no route reads them (the
+    strict kernels) or on a CPU tensor."""
     import types
 
     calls = []
     monkeypatch.setattr(fk, "prepare_train_weights", lambda wm, passes=1: calls.append(passes) or "prepared")
+    monkeypatch.setattr(fk, "prepare_wide_train_weights", lambda wm: calls.append("wide") or "prepared")
     Hp, B, S, nh = fk.padded_width(H), 64, 3, 4
     x = types.SimpleNamespace(device=torch.device("cuda"), shape=(B, 19))
     h_proj = types.SimpleNamespace(shape=(S, B, Hp))

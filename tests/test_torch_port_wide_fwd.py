@@ -44,20 +44,26 @@ def test_wide_forward_takes_the_3xtf32_forward_and_k2a_at_hp_768_and_1024(Hp):
     """The 3xTF32 forward at Hp 768 and 1024 (K1's, K2a's, K4's: one route)
     takes the wide forward, in the wide inverse's library; the one-pass
     forward keeps its row tiles, strict the FMA kernel, the inverse the wide
-    inverse; K2b keeps its row tiles, so the training gate opens as before,
-    and a training step prepares no `prepare_train_weights` layout there
-    (the wide forward lays out its own)."""
+    inverse; K2b takes its own wide route (csrc/flow_wide_train_wgmma.cu), so
+    the training gate opens as before, and a training step prepares no
+    `prepare_train_weights` layout there but the two wide layouts that the
+    wide forward (the first) and the wide K2b read
+    (`prepare_wide_train_weights`)."""
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_WIDE_FWD
     assert fk.flow_route(Hp, 19, 10, False) == fk.ROUTE_WIDE_FWD  # the default mode
     assert fk.ROUTE_LIBRARY[fk.ROUTE_WIDE_FWD] == fk.ROUTE_LIBRARY[fk.ROUTE_WIDE] == "flow_wide_wgmma"
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_FMA) == fk.ROUTE_FMA
     assert fk.flow_route(Hp, 19, 10, True, fk.MODE_3XTF32) == fk.ROUTE_WIDE
-    assert fk.train_bwd_route(Hp, 19, 10, 4, fk.MODE_3XTF32) == fk.ROUTE_ROWS
+    assert fk.train_bwd_route(Hp, 19, 10, 4, fk.MODE_3XTF32) == fk.ROUTE_WIDE_TRAIN
     assert fk.train_kernels_take(Hp, 19, 10, 4, fk.MODE_3XTF32)
     cuda_like = types.SimpleNamespace(device=torch.device("cuda"), shape=(64, 19))
     wm = types.SimpleNamespace(shape=(3, 4, Hp, Hp))
-    assert fk.train_weights(cuda_like, types.SimpleNamespace(shape=(3, 64, Hp)), wm, 10, fk.MODE_3XTF32) is None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fk, "prepare_train_weights", lambda *a, **k: pytest.fail("prepared a wgmma layout"))
+        mp.setattr(fk, "prepare_wide_train_weights", lambda w: ("wide", w))
+        assert fk.train_weights(cuda_like, types.SimpleNamespace(shape=(3, 64, Hp)), wm, 10,
+                                fk.MODE_3XTF32) == ("wide", wm)
 
 
 @pytest.mark.parametrize("Hp", [32, 128, 544])
@@ -77,15 +83,15 @@ def test_forward_routes_below_768_do_not_move(Hp):
 def test_wide_forward_limit_forces_the_row_tiles(monkeypatch, limit, routes):
     """`WIDE_FWD_MAX_TN` bounds the widths the wide forward takes: 0 forces
     the row tiles at both (as the tools and the smoke time them), 24 keeps
-    them at 1024; the inverse (its own limit), the other modes and K2b do
-    not move."""
+    them at 1024; the inverse (its own limit), the other modes and K2b (the
+    wide route, its own limit) do not move."""
     monkeypatch.setattr(fk, "WIDE_FWD_MAX_TN", limit)
     assert (fk.flow_route(768, 19, 10, False), fk.flow_route(1024, 19, 10, False)) == routes
     for Hp in (768, 1024):
         assert fk.flow_route(Hp, 19, 10, True) == fk.ROUTE_WIDE
         assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
         assert fk.flow_route(Hp, 19, 10, False, fk.MODE_FMA) == fk.ROUTE_FMA
-        assert fk.train_bwd_route(Hp, 19, 10, 4) == fk.ROUTE_ROWS
+        assert fk.train_bwd_route(Hp, 19, 10, 4) == fk.ROUTE_WIDE_TRAIN
 
 
 @pytest.mark.parametrize("H", [700, 1000])

@@ -4,7 +4,8 @@ ways, K2a, K2b and K4 both ways, in 3xTF32 and in one TF32 pass, each beside
 its bound and its plain version's time; the 3xTF32 inverses (K1's and K4's)
 on the wide inverse and on the row tiles, forced; the 3xTF32 forwards (K1's,
 K2a, K4's) on the wide forward, on each of its tiles (128 and 64 rows) and
-on the row tiles, forced, at 4096 rows and at a validation batch's 256.
+on the row tiles, forced, at 4096 rows and at a validation batch's 256; the
+3xTF32 K2b on the wide backward and on the row tiles, forced.
 
 Run from the root of a checkout on a machine with a card:
 
@@ -12,12 +13,14 @@ Run from the root of a checkout on a machine with a card:
 
 Below Hp 544 the tensor-core modes run the `wgmma` kernels; at 768 and 1024
 the 3xTF32 inverse runs the wide inverse and the 3xTF32 forwards the wide
-forward (`csrc/flow_wide_wgmma.cu`), and every other of these kernels the
-row tiles (`csrc/flow_kernel.cu`, `csrc/flow_train_kernel.cu`, and their
-one-pass `*_tf32` builds); the 3xTF32 inverses and forwards are timed on
-the row tiles too (`WIDE_WGMMA_MAX_TN = 0`, `WIDE_FWD_MAX_TN = 0`), the
-forwards on each tile of the wide forward (`WIDE_FWD_HALF_MAX_ROWS` 0 and
-past the rows).
+forward (`csrc/flow_wide_wgmma.cu`), the 3xTF32 K2b the wide backward
+(`csrc/flow_wide_train_wgmma.cu`, handed the step's weight layout,
+`train_weights`, as a training step hands it), and every other of these
+kernels the row tiles (`csrc/flow_kernel.cu`, `csrc/flow_train_kernel.cu`,
+and their one-pass `*_tf32` builds); the 3xTF32 inverses, forwards and K2b
+are timed on the row tiles too (`WIDE_WGMMA_MAX_TN = 0`, `WIDE_FWD_MAX_TN =
+0`, `WIDE_TRAIN_MAX_TN = 0`), the forwards on each tile of the wide forward
+(`WIDE_FWD_HALF_MAX_ROWS` 0 and past the rows).
 The shape (`tool`, the default) is the flagship's but wider: 26 steps of 4
 hidden layers, size 19, d_a 10, at H 700 (Hp 768) and H 1000 (Hp 1024);
 `wide` is the wide run config's (`trajectory_LSTM_xsmall_large_hybrid_dual`:
@@ -66,7 +69,7 @@ def main() -> None:
     S, widths = SHAPES[shape]
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all(["flow_kernel", "flow_kernel_tf32", "flow_train_kernel", "flow_train_kernel_tf32",
-                      "flow_wide_wgmma"])  # together
+                      "flow_wide_wgmma", "flow_wide_train_wgmma"])  # together
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
@@ -157,7 +160,9 @@ def main() -> None:
                         (what + " (row tiles, forced)", work, 5, forced(fn, WIDE_FWD_MAX_TN=0))]
 
             with torch.no_grad():
-                _, _, bound = fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)
+                ws = fk.train_weights(x4096, hp4096, k4096["wm"], D_A, mode)  # the step's layout, as a step hands it
+                _, _, bound = fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode, wstages=ws)
+                k2b = lambda: fk.fused_flow_train_bwd(bound, hp4096, dz, dld, *args, mode=mode, wstages=ws)
                 k1_inv = lambda: fk.fused_flow(x80k, hp8, *[k8[n] for n in names], inverse=True, n_cond=8, mode=mode)
                 k1_rank = lambda: fk.fused_flow(x100k, hp100, *[k8[n] for n in names], inverse=True, n_cond=100,
                                                 mode=mode)
@@ -174,8 +179,9 @@ def main() -> None:
                               lambda: fk.fused_flow(x256, hp256, *args, inverse=False, n_cond=256, mode=mode)),
                     *forwards("K2a, 4096 rows", w2a, lambda: fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)),
                     *forwards("K2a, 256 rows", w2a256, lambda: fk.fused_flow_train_fwd(x256, hp256, *args, mode=mode)),
-                    ("K2b, 4096 rows", w2b, 5,
-                     lambda: fk.fused_flow_train_bwd(bound, hp4096, dz, dld, *args, mode=mode)),
+                    ("K2b, 4096 rows", w2b, 5, k2b),
+                    *([("K2b, 4096 rows (row tiles, forced)", w2b, 5, forced(k2b, WIDE_TRAIN_MAX_TN=0))]
+                      if mode == fk.MODE_3XTF32 else []),
                     ("K4 inverse, 80,000 rows", k4_inv_work, 5, k4_inv),
                     *([("K4 inverse, 80,000 rows (row tiles, forced)", k4_inv_work, 5, forced(k4_inv))]
                       if mode == fk.MODE_3XTF32 else []),
@@ -193,8 +199,9 @@ def main() -> None:
                   f"4096), K2b {routes['K2b']}")
             wide = mode == fk.MODE_3XTF32
             if ((routes["K1"][0] == fk.ROUTE_WIDE) != wide or (routes["K1"][1] == fk.ROUTE_WIDE_FWD) != wide
-                    or routes["K2b"] not in (fk.ROUTE_ROWS, fk.ROUTE_ROWS_TF32)):
-                raise SystemExit(f"H {H} {mode}: not the wide inverse and forward and K2b's row tiles: {routes}")
+                    or routes["K2b"] != (fk.ROUTE_WIDE_TRAIN if wide else fk.ROUTE_ROWS_TF32)):
+                raise SystemExit(f"H {H} {mode}: not the wide inverse, forward and backward in 3xTF32 (the row "
+                                 f"tiles in one pass): {routes}")
 
 
 if __name__ == "__main__":
