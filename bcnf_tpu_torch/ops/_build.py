@@ -9,12 +9,12 @@ rebuilt. `build_all` starts one nvcc per library at once. The three flow
 sources are built twice: as they are (3xTF32, the default mode) and with
 ``-DBCNF_TF32_PASSES=1`` into a `*_tf32` library (one TF32 pass, the reduced
 mode; `csrc/flow_rows.cuh`), so the second mode costs no build time beside
-the first; so are K2b's `wgmma` route (`csrc/flow_train_wgmma.cu`) and the
-`wgmma` forward (`csrc/flow_fwd_wgmma.cu`); the wide 3xTF32 inverse and
-forward (`csrc/flow_wide_wgmma.cu`) are built once, and so is K2b in
-3xTF32 there (`csrc/flow_wide_train_wgmma.cu`, which takes
-flow_wide_wgmma.cu's device parts: its hash covers both sources); 15
-libraries in all; the strict K1 and K2a (`csrc/flow_fma.cu`, float32 FMA)
+the first; so are K2b's `wgmma` route (`csrc/flow_train_wgmma.cu`), the
+`wgmma` forward (`csrc/flow_fwd_wgmma.cu`), the wide inverse and forward at
+Hp 768 and 1024 (`csrc/flow_wide_wgmma.cu`) and K2b there
+(`csrc/flow_wide_train_wgmma.cu`, which takes flow_wide_wgmma.cu's device
+parts: the hash of each of its builds covers both sources); 17 libraries
+in all; the strict K1 and K2a (`csrc/flow_fma.cu`, float32 FMA)
 and the strict K2b (`csrc/flow_train_fma.cu`, which takes flow_fma.cu's
 device parts: its hash covers both sources) once. Nothing here runs at import
 time: the CPU tests import every module.
@@ -44,9 +44,10 @@ ONE_PASS = "_tf32"  # the suffix of a flow library built for the reduced mode
 # wgmma, each in 3xTF32 and (below) in one pass
 SOURCES["flow_train_wgmma"] = _CSRC / "flow_train_wgmma.cu"
 SOURCES["flow_fwd_wgmma"] = _CSRC / "flow_fwd_wgmma.cu"
-SOURCES["flow_wide_wgmma"] = _CSRC / "flow_wide_wgmma.cu"  # K1's, K2a's and K4's 3xTF32 walks at Hp 768 and 1024
-SOURCES["flow_wide_train_wgmma"] = _CSRC / "flow_wide_train_wgmma.cu"  # K2b in 3xTF32 at Hp 768 and 1024
-for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel", "flow_train_wgmma", "flow_fwd_wgmma"):
+SOURCES["flow_wide_wgmma"] = _CSRC / "flow_wide_wgmma.cu"  # K1's, K2a's and K4's walks at Hp 768 and 1024
+SOURCES["flow_wide_train_wgmma"] = _CSRC / "flow_wide_train_wgmma.cu"  # K2b at Hp 768 and 1024
+for _name in ("flow_kernel", "flow_wgmma", "flow_train_kernel", "flow_train_wgmma", "flow_fwd_wgmma",
+              "flow_wide_wgmma", "flow_wide_train_wgmma"):
     SOURCES[_name + ONE_PASS] = SOURCES[_name]
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
@@ -72,7 +73,8 @@ def _flags(name: str) -> list[str]:
 
 
 # sources a library's source includes beside the headers
-_INCLUDED = {"flow_train_fma": (_CSRC / "flow_fma.cu",), "flow_wide_train_wgmma": (_CSRC / "flow_wide_wgmma.cu",)}
+_INCLUDED = {"flow_train_fma": (_CSRC / "flow_fma.cu",), "flow_wide_train_wgmma": (_CSRC / "flow_wide_wgmma.cu",),
+             "flow_wide_train_wgmma" + ONE_PASS: (_CSRC / "flow_wide_wgmma.cu",)}
 
 
 def _library_path(name: str) -> Path:

@@ -15,9 +15,10 @@ launches K1's kernels (`ops/flow_kernel.py::_launch_flow`) on ``[x_a | x_b]``
 in 3xTF32, or in one TF32 pass in the reduced mode (JAX's K4 takes its dots
 at the model's precision): the inverse on `wgmma` up to the padded width
 544; the forward in either mode on the `wgmma` forward up to 544
-(`csrc/flow_fwd_wgmma.cu`); in 3xTF32 at 768 and 1024 both ways on the wide
-kernels (`csrc/flow_wide_wgmma.cu`); the row tiles otherwise (JAX's K4 has
-no strict mode, nor has the port's). The wrapper prepares a coupling's weights
+(`csrc/flow_fwd_wgmma.cu`); at 768 and 1024 both ways on the wide kernels
+of the mode (`csrc/flow_wide_wgmma.cu`); the row tiles otherwise (JAX's K4 has
+no strict mode, nor has the port's); in one pass at 768 and 1024 both ways
+on those kernels' one-pass build. The wrapper prepares a coupling's weights
 (the padding and stacking, and for a `wgmma` route the layout of its hidden
 weights that route reads) once per parameter version and keeps them
 (`prepared_coupling`),
@@ -48,8 +49,10 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
     ROUTE_WIDE,
+    ROUTE_WIDE_TF32,
     TF32_MODES,
     WIDE_ROUTES,
+    WIDE_TF32_ROUTES,
     _check_mode,
     _launch_flow,
     flow_route,
@@ -185,7 +188,8 @@ def prepared_coupling(w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Te
     `coupling_flow_args` but h_proj, "wstages": {route: the layout of the
     hidden weights that `wgmma` route reads}}` (the layouts filled in by the
     caller as a route needs them; the wide inverse's and forward's one
-    layout under `ROUTE_WIDE`),
+    layout under `ROUTE_WIDE`, in one pass under `ROUTE_WIDE_TF32`: a layout
+    is kept by its mode, and never reaches the other mode's kernel),
     made once per parameter version. Each weight is known by the memory it
     views (address, dtype, device, shape, strides: a per-block view `t[k]`
     of the stacked parameters is a new tensor object at every pass, but the
@@ -209,6 +213,17 @@ def prepared_coupling(w1y: torch.Tensor, b1: torch.Tensor, wm: Sequence[torch.Te
         _prepared.popitem(last=False)
     fused_affine_coupling.preparations += 1
     return entry
+
+
+def layout_key(route: str) -> str:
+    """The key under which a coupling keeps the layout of its hidden weights
+    that `route` reads (`prepared_coupling`'s "wstages"): the route itself,
+    but the wide inverse and forward of a mode read one layout, kept under
+    the mode's wide inverse route, so that a layout of one mode never
+    reaches the other mode's kernel."""
+    if route in WIDE_ROUTES:
+        return ROUTE_WIDE_TF32 if route in WIDE_TF32_ROUTES else ROUTE_WIDE
+    return route
 
 
 def fused_affine_coupling(
@@ -253,7 +268,7 @@ def fused_affine_coupling(
     wstages = None
     route = flow_route(args["b1"].shape[-1], size, d_a, inverse, mode)
     if B and route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32, *WIDE_ROUTES, *FWD_WGMMA_ROUTES):
-        layout = ROUTE_WIDE if route in WIDE_ROUTES else route  # the wide inverse and forward read one layout
+        layout = layout_key(route)
         if layout not in entry["wstages"]:
             entry["wstages"][layout] = route_weights(route, args["wm"])
             fused_affine_coupling.stage_preparations += 1

@@ -2,8 +2,11 @@
 // wide padded hidden widths Hp 768 and 1024 (TN 24 and 32): the training
 // backward of the whole flow, on the clusters and the distributed tile of
 // the wide forward (flow_wide_wgmma.cu, whose device parts it includes).
-// The narrower widths run flow_train_wgmma.cu; the one-pass and strict modes
-// keep their routes.
+// The narrower widths run flow_train_wgmma.cu; the strict mode keeps its
+// route. Built twice (bcnf_tpu_torch/ops/_build.py): as it is (library
+// `flow_wide_train_wgmma`, 3xTF32, the default mode) and with
+// BCNF_TF32_PASSES=1 (library `flow_wide_train_wgmma_tf32`, one TF32 pass a
+// product: the reduced mode), every one-pass branch under `kPasses == 1`.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py, `bwd_call` of
 // `_make_fused_flow_train` (the Pallas TPU kernel `_flow_bwd_train_kernel`)
@@ -62,6 +65,22 @@
 // 3. `tw_reduce` (BWD_ACTNORM, once after the last step): the partials
 //    summed over the clusters in cluster order into dWout, dbout, dW1y, db1
 //    and the ActNorm grads (zero at the final step).
+// One pass (kPasses == 1; flow_wide_wgmma.cu's header for the walk): the
+// step's Wm and Wm^T laid out rounded to TF32 on the host
+// (`prepare_wide_train_weights(wm, passes=1)`), streamed through the hi ring
+// alone (no lo ring, no splitting warps), one `wgmma` a k-step into the
+// running sums, each A fragment read kWwASets - 1 k-steps ahead into the
+// register set the group before released (the walk's); each h_l and da_l
+// that feeds a hidden product rounded once
+// where it is written into the tile (h_nh, which the output layer and dWout
+// read, and da_0, which dh_proj, dx_a, db1 and dW1y read, stay float32); h_l
+// to the weight-grad pass's B as rounded, with no lo plane (nh planes of
+// RW x Hp a step fewer); da_{l+1} to its A as computed, rounded as the pass
+// loads it, so that dbm_l stays the float32 sum of da_{l+1}; the pass one
+// `wgmma` a k-step.
+// What it computes is `fused_flow_train_backward_reference` with
+// `mm=tf32.matmul_tf32` on the hidden products and their weight grads; the
+// narrow products, dWout, dW1y and every bias and ActNorm sum stay float32.
 // Deterministic: every sum has one order; a run gives the same bits.
 
 #define BCNF_WW_DEVICE_ONLY
@@ -75,7 +94,8 @@ namespace {
 
 using namespace bcnf;
 
-constexpr int kWtGwRows = 32;      // rows (k) a stage of the weight-grad pass
+constexpr int kWtGwRows = 32;      // rows (k) a stage of the weight-grad pass (one pass: 64 were no faster)
+constexpr int kWtHParts = kPasses == 3 ? 2 : 1;  // h_l's planes in the weight-grad B layout: h (and its lo)
 constexpr int kWtGwRing = 2;       // its stages
 constexpr int kWtGwGroups = 2;     // its consumer warpgroups, each 64 of the block's dWm columns on one B stage
 constexpr int kWtGwThreads = 128 * kWtGwGroups;
@@ -95,7 +115,7 @@ __device__ __forceinline__ int opaque(int x) {
 
 struct WtScratch {
   float* gs;    // gelu'(a_l), l <= nh: row-major planes of rows_c x Hp
-  float* h;     // h_l, l < nh, in the B layout (plane l), its lo = h - tf32(h) nh planes on
+  float* h;     // h_l, l < nh, in the B layout (plane l); 3xTF32: its lo = h - tf32(h) nh planes on
   float* da;    // da_{l+1}, l < nh, in the A layout (plane l)
   float* part;  // a Partial per step and cluster
 };
@@ -108,7 +128,7 @@ struct WtScratch {
 __host__ __device__ inline size_t wt_floats(int Hp, int size, int d_a, int rows) {
   const int C = Hp / kWwCols, n_out = 2 * (size - d_a), xw = n_out > d_a ? n_out : d_a;
   const size_t floats = static_cast<size_t>(rows == kWwHalfRows ? 2 : 1) * rows * kWwCols +
-                        static_cast<size_t>(kWwHiStages + kWwLoStages) * kWwStage + ww_narrow_floats(d_a, n_out) +
+                        static_cast<size_t>(kWwHi + kWwLo) * kWwStage + ww_narrow_floats(d_a, n_out) +
                         static_cast<size_t>(rows) * (2 * size + n_out + d_a + 1) +
                         static_cast<size_t>(C) * ww_reduce_rows(C, rows) * xw;
   return (floats + 1) & ~static_cast<size_t>(1);
@@ -120,14 +140,14 @@ __host__ __device__ inline size_t wt_floats(int Hp, int size, int d_a, int rows)
 // of landed) and one for the step's narrow weights.
 size_t wt_smem(int Hp, int size, int d_a, int rows) {
   return sizeof(float) * wt_floats(Hp, size, d_a, rows) +
-         sizeof(uint64_t) * (2 * (kWwHiStages + kWwLoStages) + 3 * static_cast<size_t>(Hp / kWwCols) + 1);
+         sizeof(uint64_t) * (2 * (kWwHi + kWwLo) + 3 * static_cast<size_t>(Hp / kWwCols) + 1);
 }
 
 // The weight-grad pass's: barriers and kWtGwRing stages of 32-row blocks of
-// A (32 x 64 a warpgroup), B (32 x 128) and B's lo.
+// A (32 x 64 a warpgroup), B (32 x 128) and (3xTF32) B's lo.
 size_t wt_gw_smem() {
   return sizeof(float) *
-         (kWtBarrierFloats + static_cast<size_t>(kWtGwRing) * kWtGwRows * (kWtGwGroups * kWtGwM + 2 * kWtGwN));
+         (kWtBarrierFloats + static_cast<size_t>(kWtGwRing) * kWtGwRows * (kWtGwGroups * kWtGwM + kWtHParts * kWtGwN));
 }
 static_assert(kWtGwRows % 32 == 0, "a weight-grad stage is whole 32-row blocks of the stage layouts");
 
@@ -164,8 +184,8 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);          // RW x 128 (two at 64 rows), fragment-major
   float* hi_ring = tile + (kTwoTiles ? 2 : 1) * RW * kWwCols;
-  float* lo_ring = hi_ring + kWwHiStages * kWwStage;
-  float* nw = lo_ring + kWwLoStages * kWwStage;             // W1y (d_a x 128), b1, Wout (128 x n_out)
+  float* lo_ring = hi_ring + kWwHi * kWwStage;             // 3xTF32
+  float* nw = lo_ring + kWwLo * kWwStage;                   // W1y (d_a x 128), b1, Wout (128 x n_out)
   float* x1s = nw + ww_narrow_floats(d_a, n_out);           // RW x size: x1 = x_k s_k + b_k
   float* dx2s = x1s + RW * size;                            // RW x size: dy Q^T, then dx1
   float* outs = dx2s + RW * size;                           // RW x n_out: [t | s'], then dout
@@ -173,10 +193,10 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
   float* dlds = dxas + RW * d_a;                            // RW
   float* gather = dlds + RW;                                // C x RR x n_out (or d_a): the reduced rows' partials
   uint64_t* hi_full = reinterpret_cast<uint64_t*>(tile + wt_floats(Hp, size, d_a, RW));
-  uint64_t* hi_empty = hi_full + kWwHiStages;
-  uint64_t* lo_full = hi_empty + kWwHiStages;
-  uint64_t* lo_empty = lo_full + kWwLoStages;
-  uint64_t* free_ = lo_empty + kWwLoStages;  // free[c]: block c is done reading the tiles
+  uint64_t* hi_empty = hi_full + kWwHi;
+  uint64_t* lo_full = hi_empty + kWwHi;
+  uint64_t* lo_empty = lo_full + kWwLo;
+  uint64_t* free_ = lo_empty + kWwLo;  // free[c]: block c is done reading the tiles
   uint64_t* landed = free_ + C;              // landed[set C + c]: block c's part of a hand-off is written
   uint64_t* nw_full = landed + 2 * C;        // the step's narrow weights in nw
 
@@ -209,11 +229,11 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
   }
   if (tid < RW) dlds[tid] = row0 + tid < B ? dld[row0 + tid] : 0.0f;
   if (tid == 0) {
-    for (int i = 0; i < kWwHiStages; ++i) {
+    for (int i = 0; i < kWwHi; ++i) {
       mbar_init(&hi_full[i], 1);
       mbar_init(&hi_empty[i], kWwConsumers / 32);  // one arrival a consumer warp
     }
-    for (int i = 0; i < kWwLoStages; ++i) {
+    for (int i = 0; i < kWwLo; ++i) {
       mbar_init(&lo_full[i], 3);                   // one arrival a splitting warp
       mbar_init(&lo_empty[i], kWwConsumers / 32);
     }
@@ -232,14 +252,15 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
     // ---- the producer warpgroup: warp 0's first thread issues the stages
     // (layer L < nh: Wm_L^T from wf; then Wm_l from wb for l = nh-1 .. 0), in
     // the consumers' order; its second thread copies the step's W1y, b1 and
-    // Wout of the block's columns; warps 1-3 split each stage's lo
+    // Wout of the block's columns; warps 1-3 split each stage's lo (3xTF32)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int p = tid - kWwConsumers, lane = tid & 31;
+    const int p = tid - kWwConsumers;
+    [[maybe_unused]] const int lane = tid & 31;  // the splitting warps' (3xTF32)
     if (p == 0) {
       constexpr uint32_t bytes = kWwStage * sizeof(float);
       for (int m = 0; m < total; ++m) {
-        const int slot = m % kWwHiStages;
-        mbar_wait(&hi_empty[slot], ((m / kWwHiStages) & 1) ^ 1);
+        const int slot = m % kWwHi;
+        mbar_wait(&hi_empty[slot], ((m / kWwHi) & 1) ^ 1);
         const int j = (m % NJ + static_cast<int>(rank) * (KB / kWwStageK)) % NJ;  // in the block's turn
         const int L = m / NJ, l = L < nh ? L : 2 * nh - 1 - L;
         const float* src = (L < nh ? wf : wb) + ((((static_cast<size_t>(k) * nh + l) * NJ + j) * C + rank) * kWwStage);
@@ -253,23 +274,25 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
         bulk_copy_g2s(nw + i * kWwCols, w1y + (static_cast<size_t>(k) * d_a + i) * Hp + c0, row, nw_full);
       bulk_copy_g2s(nw + d_a * kWwCols, b1 + static_cast<size_t>(k) * Hp + c0, row, nw_full);
       bulk_copy_g2s(nw + (d_a + 1) * kWwCols, wout + (static_cast<size_t>(k) * Hp + c0) * n_out, n_out * row, nw_full);
-    } else if (p >= 32) {
-      const int t = p - 32;  // 96 splitting threads: lo = w - tf32(w); hi is the stage as copied
-      for (int m = 0; m < total; ++m) {
-        const int hs = m % kWwHiStages, ls = m % kWwLoStages;
-        mbar_wait(&hi_full[hs], (m / kWwHiStages) & 1);
-        mbar_wait(&lo_empty[ls], ((m / kWwLoStages) & 1) ^ 1);
-        const float4* h4 = reinterpret_cast<const float4*>(hi_ring + hs * kWwStage);
-        float4* l4 = reinterpret_cast<float4*>(lo_ring + ls * kWwStage);
+    } else if constexpr (kPasses == 3) {
+      if (p >= 32) {
+        const int t = p - 32;  // 96 splitting threads: lo = w - tf32(w); hi is the stage as copied
+        for (int m = 0; m < total; ++m) {
+          const int hs = m % kWwHi, ls = m % kWwLoSlot;
+          mbar_wait(&hi_full[hs], (m / kWwHi) & 1);
+          mbar_wait(&lo_empty[ls], ((m / kWwLoSlot) & 1) ^ 1);
+          const float4* h4 = reinterpret_cast<const float4*>(hi_ring + hs * kWwStage);
+          float4* l4 = reinterpret_cast<float4*>(lo_ring + ls * kWwStage);
 #pragma unroll 2
-        for (int i = t; i < kWwStage / 4; i += 96) {
-          const float4 w = h4[i];
-          l4[i] = make_float4(w.x - trunc_tf32(w.x), w.y - trunc_tf32(w.y), w.z - trunc_tf32(w.z),
-                              w.w - trunc_tf32(w.w));
+          for (int i = t; i < kWwStage / 4; i += 96) {
+            const float4 w = h4[i];
+            l4[i] = make_float4(w.x - trunc_tf32(w.x), w.y - trunc_tf32(w.y), w.z - trunc_tf32(w.z),
+                                w.w - trunc_tf32(w.w));
+          }
+          fence_async_shared();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&lo_full[ls]);
         }
-        fence_async_shared();
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&lo_full[ls]);
       }
     }
     cluster_sync();  // no block leaves while another may reach its memory
@@ -311,18 +334,20 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
     hand_off(landed + (lnum & 1) * C, (lnum >> 1) & 1);
     ++lnum;
   };
-  // h_l (l < nh) of the pair (row, col), (row, col + 1) of the tile to the
-  // weight-grad pass's B planes (col + 1 is 4 floats on), and its lo; rows
-  // past B as zeros
+  // h_l (l < nh) of the pair (row, col), (row, col + 1) of the tile (as the
+  // tile holds it: in one pass rounded) to the weight-grad pass's B planes
+  // (col + 1 is 4 floats on), and in 3xTF32 its lo; rows past B as zeros
   auto store_h = [&](int l, int row, int col, float h0, float h1) {
     const bool valid = row0 + row < B;
     float* o = sc.h + static_cast<size_t>(l) * plane() + hT_index(row0 + row, c0 + col, Hp);
     const float v0 = valid ? h0 : 0.0f, v1 = valid ? h1 : 0.0f;
     o[0] = v0;
     o[4] = v1;
-    float* lo = o + static_cast<size_t>(nh) * plane();
-    lo[0] = v0 - trunc_tf32(v0);
-    lo[4] = v1 - trunc_tf32(v1);
+    if constexpr (kPasses == 3) {
+      float* lo = o + static_cast<size_t>(nh) * plane();
+      lo[0] = v0 - trunc_tf32(v0);
+      lo[4] = v1 - trunc_tf32(v1);
+    }
   };
 
   // ---- recompute: h_0 = gelu(x1_a W1y + b1 + h_proj[k, row]) (FMA): the
@@ -364,6 +389,8 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
         float h0, h1, d0, d1;
         gelu_and_grad(a[r].x, h0, d0);
         gelu_and_grad(a[r].y, h1, d1);
+        h0 = tile_value(h0, true);  // h_0 feeds the first hidden product (nh >= 1)
+        h1 = tile_value(h1, true);
         tile[ww_frag_index(row, lc)] = h0;
         tile[ww_frag_index(row, lc + 1)] = h1;
         *reinterpret_cast<float2*>(sc.gs + static_cast<size_t>(row0 + row) * Hp + c0 + lc) = make_float2(d0, d1);
@@ -375,57 +402,96 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
 
   float acc[R];  // a product's float32 sums (wgmma_tf32.cuh's D layout), then dh
   // acc = the layer's tile `cur` (RW x Hp, distributed) @ the next weight's
-  // stages (this warpgroup's columns): one group in flight behind the next,
-  // every kWwFwdFold k-steps' passes folded into acc
+  // stages (this warpgroup's columns): one group in flight behind the next;
+  // in one pass one `wgmma` a k-step into acc; in 3xTF32 every kWwFwdFold
+  // k-steps' passes folded into acc
   auto product = [&]() {
 #pragma unroll
     for (int e = 0; e < R; ++e) acc[e] = 0.0f;
-    float part[R], nxt[4];
-    uint32_t a[2][2][4] = {};  // [k-step parity][hi, lo]: the group in flight reads the other set
-    uint32_t keep = 0u;        // the next group's scale-d: 0 starts a fold afresh
-    ld_cluster4(frag_at(0), nxt);
+    if constexpr (kPasses == 1) {
+      // k-step s's fragment in set s % kWwASets, read ahead into the set the
+      // group before released (flow_wide_wgmma.cu's one-pass loop)
+      uint32_t a[kWwASets][4];
+      auto load = [&](int s, uint32_t(&v)[4]) {
+        float f[4];
+        ld_cluster4(frag_at(s), f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = __float_as_uint(f[i]);
+      };
+#pragma unroll
+      for (int s = 0; s < kWwASets - 1; ++s) load(s, a[s]);
+      static_assert(NJ % (kWwASets / kWwStageK) == 0, "a layer's stages fill whole passes over the sets");
 #pragma unroll 1
-    for (int j = 0; j < NJ; ++j, ++m) {
-      const int hs = m % kWwHiStages, ls = m % kWwLoStages;
-      mbar_wait(&lo_full[ls], (m / kWwLoStages) & 1);
+      for (int j0 = 0; j0 < NJ; j0 += kWwASets / kWwStageK) {
 #pragma unroll
-      for (int u = 0; u < kWwStageK; ++u) {
-        const int s = kWwStageK * j + u, b = u & 1;
-        const float cv[4] = {nxt[0], nxt[1], nxt[2], nxt[3]};
-        split_tf32(cv, a[b][0], a[b][1]);
-        const uint64_t bh = smem_desc(hi_ring + hs * kWwStage + u * kWwKStep + 8 * wc0, 128, 256);
-        const uint64_t bl = smem_desc(lo_ring + ls * kWwStage + u * kWwKStep + 8 * wc0, 128, 256);
-        wgmma_fence();
-        WgmmaTf32<NW>::mma(part, a[b][1], bh, keep);
-        WgmmaTf32<NW>::mma(part, a[b][0], bl);
-        WgmmaTf32<NW>::mma(part, a[b][0], bh);
-        wgmma_commit();
-        if (s + 1 < KS) ld_cluster4(frag_at(s + 1), nxt);  // read while the group runs
-        wgmma_wait<1>();  // k-step s - 1's group is done: its A registers and, at a stage's first, its stage
-        hold_fragment(a[b ^ 1][0]);
-        hold_fragment(a[b ^ 1][1]);
-        keep = 1u;
-        if (u == 0 && j > 0 && lane == 0) {
-          mbar_arrive(&hi_empty[(m - 1) % kWwHiStages]);
-          mbar_arrive(&lo_empty[(m - 1) % kWwLoStages]);
-        }
-        if ((s + 1) % kWwFwdFold == 0) {  // the fold
-          wgmma_wait<0>();
-          hold_fragment(a[b][0]);
-          hold_fragment(a[b][1]);
-          fence_operands(part);
+        for (int jj = 0; jj < kWwASets / kWwStageK; ++jj, ++m) {
+          const int j = j0 + jj, hs = m % kWwHi;
+          mbar_wait(&hi_full[hs], (m / kWwHi) & 1);
 #pragma unroll
-          for (int e = 0; e < R; ++e) acc[e] += part[e];
-          keep = 0u;
+          for (int u = 0; u < kWwStageK; ++u) {
+            const int s = kWwStageK * j + u, b = kWwStageK * jj + u;  // b = s % kWwASets
+            wgmma_fence();
+            WgmmaTf32<NW>::mma(acc, a[b], smem_desc(hi_ring + hs * kWwStage + u * kWwKStep + 8 * wc0, 128, 256));
+            wgmma_commit();
+            wgmma_wait<1>();  // k-step s - 1's group is done: its A registers and, at a stage's first, its stage
+            hold_fragment(a[(b + kWwASets - 1) % kWwASets]);
+            if (s + kWwASets - 1 < KS) load(s + kWwASets - 1, a[(b + kWwASets - 1) % kWwASets]);  // read ahead
+            if (u == 0 && j > 0 && lane == 0) mbar_arrive(&hi_empty[(m - 1) % kWwHi]);
+          }
         }
       }
+      wgmma_wait<0>();
+      hold_fragment(a[(KS - 1) % kWwASets]);
+      if (lane == 0) mbar_arrive(&hi_empty[(m - 1) % kWwHi]);  // the layer's last stage
+      fence_operands(acc);
+    } else {
+      float part[R], nxt[4];
+      uint32_t a[2][2][4] = {};  // [k-step parity][hi, lo]: the group in flight reads the other set
+      uint32_t keep = 0u;        // the next group's scale-d: 0 starts a fold afresh
+      ld_cluster4(frag_at(0), nxt);
+#pragma unroll 1
+      for (int j = 0; j < NJ; ++j, ++m) {
+        const int hs = m % kWwHi, ls = m % kWwLoSlot;
+        mbar_wait(&lo_full[ls], (m / kWwLoSlot) & 1);
+#pragma unroll
+        for (int u = 0; u < kWwStageK; ++u) {
+          const int s = kWwStageK * j + u, b = u & 1;
+          const float cv[4] = {nxt[0], nxt[1], nxt[2], nxt[3]};
+          split_tf32(cv, a[b][0], a[b][1]);
+          const uint64_t bh = smem_desc(hi_ring + hs * kWwStage + u * kWwKStep + 8 * wc0, 128, 256);
+          const uint64_t bl = smem_desc(lo_ring + ls * kWwStage + u * kWwKStep + 8 * wc0, 128, 256);
+          wgmma_fence();
+          WgmmaTf32<NW>::mma(part, a[b][1], bh, keep);
+          WgmmaTf32<NW>::mma(part, a[b][0], bl);
+          WgmmaTf32<NW>::mma(part, a[b][0], bh);
+          wgmma_commit();
+          if (s + 1 < KS) ld_cluster4(frag_at(s + 1), nxt);  // read while the group runs
+          wgmma_wait<1>();  // k-step s - 1's group is done: its A registers and, at a stage's first, its stage
+          hold_fragment(a[b ^ 1][0]);
+          hold_fragment(a[b ^ 1][1]);
+          keep = 1u;
+          if (u == 0 && j > 0 && lane == 0) {
+            mbar_arrive(&hi_empty[(m - 1) % kWwHi]);
+            mbar_arrive(&lo_empty[(m - 1) % kWwLoSlot]);
+          }
+          if ((s + 1) % kWwFwdFold == 0) {  // the fold
+            wgmma_wait<0>();
+            hold_fragment(a[b][0]);
+            hold_fragment(a[b][1]);
+            fence_operands(part);
+#pragma unroll
+            for (int e = 0; e < R; ++e) acc[e] += part[e];
+            keep = 0u;
+          }
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) {  // the layer's last stage
+        mbar_arrive(&hi_empty[(m - 1) % kWwHi]);
+        mbar_arrive(&lo_empty[(m - 1) % kWwLoSlot]);
+      }
+      fence_operands(acc);
     }
-    wgmma_wait<0>();
-    if (lane == 0) {  // the layer's last stage
-      mbar_arrive(&hi_empty[(m - 1) % kWwHiStages]);
-      mbar_arrive(&lo_empty[(m - 1) % kWwLoStages]);
-    }
-    fence_operands(acc);
   };
 
   // The thread's accumulator pairs: f(e, row, col) for elements e, e + 1 at
@@ -450,8 +516,9 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
         for (int h = 0; h < 2; ++h) f(4 * j + 2 * h, r0 + 8 * h, q0 + 8 * j, v[j - j0][h]);
     }
   };
-  // h_{l+1} = gelu(acc + bm_l) into its tile, gelu'(a_{l+1}) to plane l + 1,
-  // h_{l+1} to the weight-grad pass's B unless it is h_nh
+  // h_{l+1} = gelu(acc + bm_l) into its tile (in one pass rounded unless it
+  // is h_nh), gelu'(a_{l+1}) to plane l + 1, h_{l+1} to the weight-grad
+  // pass's B unless it is h_nh
   auto forward_out = [&](int l) {
     const float* bias = bm + (static_cast<size_t>(k) * nh + l) * Hp + c0;
     float* next = layer_tile(l + 1);
@@ -461,15 +528,18 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
                   float h0, h1, d0, d1;
                   gelu_and_grad(acc[e] + bb.x, h0, d0);
                   gelu_and_grad(acc[e + 1] + bb.y, h1, d1);
+                  h0 = tile_value(h0, l + 1 < nh);
+                  h1 = tile_value(h1, l + 1 < nh);
                   next[ww_frag_index(row, col)] = h0;
                   next[ww_frag_index(row, col + 1)] = h1;
                   *reinterpret_cast<float2*>(gl + static_cast<size_t>(row) * Hp + col) = make_float2(d0, d1);
                   if (l + 1 < nh) store_h(l + 1, row, col, h0, h1);
                 });
   };
-  // da_l = gelu'(a_l) dh (dh in acc) into its tile; da_l (l >= 1) to the
-  // weight-grad pass's A (plane l - 1; rows past B as zeros), da_0 to
-  // dh_proj[k] (rows < B)
+  // da_l = gelu'(a_l) dh (dh in acc) into its tile (in one pass rounded
+  // where it feeds the next product, l >= 1); da_l (l >= 1) to the
+  // weight-grad pass's A as computed (plane l - 1; rows past B as zeros),
+  // da_0 to dh_proj[k] (rows < B)
   auto backward_out = [&](int l) {
     float* dst = layer_tile(l);
     const float* gl = sc.gs + static_cast<size_t>(l) * plane() + static_cast<size_t>(row0) * Hp + c0;
@@ -477,8 +547,8 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
                 [&](int e, int row, int col, float2 gp) {
                   const float da0 = acc[e] * gp.x, da1 = acc[e + 1] * gp.y;
                   const bool valid = row0 + row < B;
-                  dst[ww_frag_index(row, col)] = da0;
-                  dst[ww_frag_index(row, col + 1)] = da1;
+                  dst[ww_frag_index(row, col)] = tile_value(da0, l > 0);
+                  dst[ww_frag_index(row, col + 1)] = tile_value(da1, l > 0);
                   if (l > 0) {  // col and col + 1 stay side by side under the swizzle
                     *reinterpret_cast<float2*>(sc.da + static_cast<size_t>(l - 1) * plane() +
                                                daA_index(row0 + row, c0 + col, Hp / 64)) =
@@ -722,7 +792,9 @@ wide_train_rows(const float* __restrict__ bound, const float* __restrict__ h_pro
 // dWm_l^T = da_{l+1}^T h_l and dbm_l = sum da_{l+1} over the rows, for every
 // layer of step k: block (l, mb, nt) takes dWm_l's columns mb*64G .. (A's
 // features; warpgroup wg 64 of them from mb*64G + 64 wg) and rows nt*128 ..
-// (B's, which its G warpgroups share).
+// (B's, which its G warpgroups share). 3xTF32: A split into hi and lo as
+// loaded, B's hi and lo, three passes; one pass: A rounded as loaded, B as
+// the rows kernel rounded it, one pass.
 template <int TN>
 __global__ void __launch_bounds__(kWtGwThreads, 1)
 wide_dwm(const float* __restrict__ da, const float* __restrict__ hs, float* __restrict__ dwm,
@@ -730,8 +802,8 @@ wide_dwm(const float* __restrict__ da, const float* __restrict__ hs, float* __re
   constexpr int Hp = 32 * TN, MT = Hp / kWtGwM, NT = Hp / kWtGwN, R = kWtGwN / 2, G = kWtGwGroups;
   static_assert(MT % G == 0, "a block's warpgroups take whole 64-feature tiles");
   // a stage: kWtGwRows / 32 row blocks of 32, each the G warpgroups' A (32 x 64 each, contiguous in the scratch),
-  // B (32 x 128) and B's lo, as the scratch holds them
-  constexpr int a_floats = 32 * kWtGwM, b_floats = 32 * kWtGwN, sub = G * a_floats + 2 * b_floats,
+  // B (32 x 128) and (3xTF32) B's lo, as the scratch holds them
+  constexpr int a_floats = 32 * kWtGwM, b_floats = 32 * kWtGwN, sub = G * a_floats + kWtHParts * b_floats,
                 subs = kWtGwRows / 32, stage = subs * sub;
   const int l = static_cast<int>(blockIdx.x) / (MT / G * NT), nt = static_cast<int>(blockIdx.x) % NT;
   const int wg = threadIdx.x >> 7;
@@ -745,7 +817,7 @@ wide_dwm(const float* __restrict__ da, const float* __restrict__ hs, float* __re
   const int tid = threadIdx.x, w4 = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const float* a_src = da + static_cast<size_t>(l) * plane + mb * G * a_floats;
   const float* b_src = hs + static_cast<size_t>(l) * plane + nt * (kWtGwN / 8) * 256;
-  const float* b_lo = b_src + static_cast<size_t>(nh) * plane;
+  [[maybe_unused]] const float* b_lo = b_src + static_cast<size_t>(nh) * plane;  // 3xTF32
 
   auto issue = [&](int s) {
     if (s >= n_rs) return;
@@ -757,8 +829,9 @@ wide_dwm(const float* __restrict__ da, const float* __restrict__ hs, float* __re
       bulk_copy_g2s(dst + u * sub, a_src + rs * MT * a_floats, G * a_floats * sizeof(float), &full[slot]);
       bulk_copy_g2s(dst + u * sub + G * a_floats, b_src + rs * (Hp / 8) * 256, b_floats * sizeof(float),
                     &full[slot]);
-      bulk_copy_g2s(dst + u * sub + G * a_floats + b_floats, b_lo + rs * (Hp / 8) * 256, b_floats * sizeof(float),
-                    &full[slot]);
+      if constexpr (kPasses == 3)
+        bulk_copy_g2s(dst + u * sub + G * a_floats + b_floats, b_lo + rs * (Hp / 8) * 256, b_floats * sizeof(float),
+                      &full[slot]);
     }
   };
   if (tid == 0) {
@@ -778,7 +851,8 @@ wide_dwm(const float* __restrict__ da, const float* __restrict__ hs, float* __re
     const int slot = s % kWtGwRing;
     mbar_wait(&full[slot], static_cast<uint32_t>(s / kWtGwRing) & 1u);
     const float* st = ring + slot * stage;
-    uint32_t ahi[kWtGwRows / 8][4], alo[kWtGwRows / 8][4];
+    uint32_t ahi[kWtGwRows / 8][4];
+    [[maybe_unused]] uint32_t alo[kPasses == 3 ? kWtGwRows / 8 : 1][4];
     // the stage's part of the column sums, added to them once a stage
     float ps0 = 0.0f, ps1 = 0.0f;
 #pragma unroll
@@ -790,7 +864,12 @@ wide_dwm(const float* __restrict__ da, const float* __restrict__ hs, float* __re
       ps0 += v[2];
       ps1 += v[1];
       ps1 += v[3];
-      split_tf32(v, ahi[kk], alo[kk]);
+      if constexpr (kPasses == 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ahi[kk][i] = tf32_rna(v[i]);
+      } else {
+        split_tf32(v, ahi[kk], alo[kk]);
+      }
     }
     sa0 += ps0;
     sa1 += ps1;
@@ -798,8 +877,12 @@ wide_dwm(const float* __restrict__ da, const float* __restrict__ hs, float* __re
 #pragma unroll
     for (int kk = 0; kk < kWtGwRows / 8; ++kk) {
       const float* b = st + (kk / 4) * sub + G * a_floats + 2 * (kk % 4) * 32;
-      wgmma_3xtf32<kWtGwN>(acc, ahi[kk], alo[kk], smem_desc(b, 128, 1024), smem_desc(b + b_floats, 128, 1024),
-                            kk == 0);
+      if constexpr (kPasses == 1) {
+        WgmmaTf32<kWtGwN>::mma(acc, ahi[kk], smem_desc(b, 128, 1024), kk == 0 ? 0u : 1u);
+      } else {
+        wgmma_3xtf32<kWtGwN>(acc, ahi[kk], alo[kk], smem_desc(b, 128, 1024), smem_desc(b + b_floats, 128, 1024),
+                              kk == 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -880,9 +963,9 @@ cudaError_t wt_layout(int size, int d_a, int* out) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], wide_dwm<TN>, kWtGwThreads, gsmem);
 }
 
-// A step's scratch planes: gelu'(a_l) (nh + 1), h_l and its lo in the B
-// layout (2 nh), da_{l+1} in the A layout (nh).
-size_t step_planes(int nh) { return 4 * static_cast<size_t>(nh) + 1; }
+// A step's scratch planes: gelu'(a_l) (nh + 1), h_l (and in 3xTF32 its lo)
+// in the B layout (kWtHParts nh), da_{l+1} in the A layout (nh).
+size_t step_planes(int nh) { return (kWtHParts + 2) * static_cast<size_t>(nh) + 1; }
 
 // Two sets of a step's planes (steps k and k - 1 in turn, so that a step's
 // weight-grad pass can run beside the next step's rows kernel), then the
@@ -979,7 +1062,7 @@ extern "C" int bcnf_flow_train_bwd_wide(
     WtScratch sc;
     sc.gs = scratch + b * step_planes(nh) * plane;
     sc.h = sc.gs + (nh + 1) * plane;
-    sc.da = sc.h + 2 * static_cast<size_t>(nh) * plane;
+    sc.da = sc.h + kWtHParts * static_cast<size_t>(nh) * plane;
     sc.part = scratch + 2 * step_planes(nh) * plane;
     return sc;
   };

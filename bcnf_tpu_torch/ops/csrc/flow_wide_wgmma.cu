@@ -4,7 +4,12 @@
 // forward, and with the step-input store the training forward K2a), where
 // the 64-row float32 tile of flow_wgmma.cu no longer fits a block (263 KB
 // at Hp 1024) and its fold no longer fits the registers. One body
-// (`wide_flow`) serves both, templated on direction and on the store.
+// (`wide_flow`) serves both, templated on direction and on the store. Built
+// twice (bcnf_tpu_torch/ops/_build.py): as it is (library `flow_wide_wgmma`,
+// 3xTF32, the default mode) and with BCNF_TF32_PASSES=1 (library
+// `flow_wide_wgmma_tf32`, one TF32 pass a product, the reduced mode: JAX's
+// "default" `_dot`); every one-pass branch sits under `kPasses == 1`, so
+// the 3xTF32 build is the code it was.
 //
 // Replaces: bcnf_tpu/ops/flow_kernel.py::fused_flow (the Pallas TPU kernel
 // `_flow_kernel`) both ways at those widths in the default mode; `fwd_call`
@@ -142,6 +147,36 @@
 //   bias, and read the rows' conditions all at once before the input
 //   layer's sums (read from global memory in place, they cost ~0.6 ms of
 //   a tile's ~10).
+// One pass (kPasses == 1) keeps the clusters, the distributed tile (in both
+// directions fragment-major, the forward's), the hand-offs, the tiles' rows,
+// the stream of one bulk copy a stage and the step-input store, and drops
+// what only 3xTF32 needs:
+// - the hidden weights are rounded to TF32 once a call on the host
+//   (`prepare_wide_weights(wm, passes=1)`: the same layout, each entry
+//   tf32_rna'd), so a copied stage is the B operand as it lands: no lo ring,
+//   no splitting warps; the consumers wait on the stage's bulk copy alone,
+//   and the 24 KB of the lo ring go to a deeper hi ring (kWwHiStagesTf32);
+// - each activation that feeds a hidden product (h_0 .. h_{nh-1}) is rounded
+//   to TF32 once, where it is written into the tile (`tile_value`), so a
+//   consumer hands the fragment it reads to the tensor cores as it is; h_nh,
+//   which the output layer reads, stays float32, as do the narrow products;
+// - one `wgmma` a k-step, straight into the running sums (no fresh
+//   accumulator, no fold), one group in flight behind the next; the
+//   fragments' remote reads are what the one-pass walk waits on (without
+//   the exchange, each block reading its own tile, the wide config's
+//   inverse took half the time), so each is read kWwASets - 1 k-steps
+//   ahead, straight into the A register set that the group before has just
+//   released (read into other registers and copied two ahead, the outputs
+//   differed from run to run at some shapes; copied one ahead, ptxas
+//   serialized the products).
+// What it computes is `tf32.matmul_tf32` on the hidden products: both
+// operands rounded once, the products summed in the tensor cores' float32.
+// What bounds it: the hidden products at the dense TF32 rate, 43.7 ms at the
+// wide config's 80,000 rows (32 steps of 4 layers at Hp 1024). As built
+// (PERF.md, tools/k1_wide_parts.py --passes 1): ~237 ms; its products
+// alone ~197, the stream alone ~193, neither (the FMA layers, the mixes,
+// the hand-offs and the rings' barriers) ~139, each block reading its own
+// tile in place of the owners' ~222.
 // At RW = 128: 66 KB of tile, 64 KB of hi ring, 24 KB of lo ring, the rows'
 // state (19 KB at size 19) and the output layer's buffers (18 KB) come to
 // ~192 KB of the 227 KB; the forward adds ~17 KB of step weights, logdet
@@ -167,6 +202,18 @@ constexpr int kWwThreads = kWwConsumers + 128;  // and the producer warpgroup
 constexpr int kWwStageK = 2;
 constexpr int kWwHiStages = 8;
 constexpr int kWwLoStages = 3;
+// One pass: the hi ring alone, in the room of both 3xTF32 rings
+constexpr int kWwHiStagesTf32 = 11;
+constexpr int kWwHi = kPasses == 3 ? kWwHiStages : kWwHiStagesTf32;  // this build's rings
+constexpr int kWwLo = kPasses == 3 ? kWwLoStages : 0;
+constexpr int kWwLoSlot = kWwLo > 0 ? kWwLo : 1;  // the lo ring's slots in its index arithmetic (3xTF32 code only)
+// One pass: a consumer's A register sets, k-step s's fragment in set s %
+// kWwASets, read kWwASets - 1 k-steps ahead into the set that the group
+// before has just released; the products walk kWwASets / kWwStageK stages
+// an iteration, so that the sets are indexed at compile time (the wide
+// config's inverse at 80,000 rows: 279, 249 and 237 ms with 2, 4 and 8 sets)
+constexpr int kWwASets = 8;
+static_assert(kWwASets % kWwStageK == 0 && kWwASets >= 2, "whole stages a pass over the sets");
 constexpr int kWwLd = kWwCols + 4;  // the tile's row stride (conflict-free fragment loads)
 constexpr int kWwKStep = 8 * kWwCols;  // floats of a k-step of a block's columns
 constexpr int kWwStage = kWwStageK * kWwKStep;  // floats of a stage
@@ -182,9 +229,12 @@ constexpr int kWwFwdFold = 16;
 static_assert(kWwFwdFold == 0 || (96 % kWwFwdFold == 0 && 128 % kWwFwdFold == 0), "a fold divides a layer's k-steps");
 // Registers a thread: a block of 12 warps starts with 168 (65,536 / 384); the
 // producer warpgroup, which splits the stages, keeps 56, and the consumers
-// take 224 each from what it gives up: 128 x 56 + 256 x 224 = 384 x 168
-constexpr int kProducerRegs = 56;
-constexpr int kConsumerRegs = 224;
+// take 224 each from what it gives up: 128 x 56 + 256 x 224 = 384 x 168. In
+// one pass the producers split nothing and keep 24, the consumers 240 (at
+// 224 and at 232 the one-pass K2b's 128-row rows kernel at Hp 768 spilled
+// 4 bytes): 128 x 24 + 256 x 240 <= 65,536
+constexpr int kProducerRegs = kPasses == 3 ? 56 : 24;
+constexpr int kConsumerRegs = kPasses == 3 ? 224 : 240;
 
 // Rows a block reduces in the output layer: rows r with r % C == rank.
 __host__ __device__ constexpr int ww_reduce_rows(int C, int rows = kWwRows) { return (rows + C - 1) / C; }
@@ -196,7 +246,8 @@ __host__ __device__ constexpr int ww_narrow_floats(int d_a, int n_out) { return 
 __host__ __device__ constexpr int ww_small_floats(int size) { return (size * size + 2 * size + 1) & ~1; }
 
 // The kernel's dynamic shared memory (ops/flow_kernel.py: `wide_smem`
-// mirrors this sum): the tile (the forward's unpadded), the hi and lo rings, x and the mix's output,
+// mirrors this sum): the tile (fragment-major and unpadded but for the
+// 3xTF32 inverse's), the hi and lo rings, x and the mix's output,
 // the partial [t | s'] of the block's reduced rows from each of the C
 // blocks and [t | s'] of every row, two barriers a ring stage and three
 // hand-off barriers a block of the cluster (free, and two sets of landed);
@@ -208,11 +259,11 @@ size_t ww_smem(int Hp, int size, int d_a, int rows = kWwRows, bool forward = fal
   const size_t fwd = forward ? ww_narrow_floats(d_a, n_out) + rows + ww_small_floats(size) + kWwCols +
                                     (rows == kWwHalfRows ? static_cast<size_t>(rows) * kWwCols : 0)
                               : 0;
-  return sizeof(float) * (static_cast<size_t>(rows) * (forward ? kWwCols : kWwLd) +
-                          static_cast<size_t>(kWwHiStages + kWwLoStages) * kWwStage +
+  return sizeof(float) * (static_cast<size_t>(rows) * (forward || kPasses == 1 ? kWwCols : kWwLd) +
+                          static_cast<size_t>(kWwHi + kWwLo) * kWwStage +
                           static_cast<size_t>(rows) * 2 * size +
                           (static_cast<size_t>(C) * ww_reduce_rows(C, rows) + rows) * n_out + fwd) +
-         sizeof(uint64_t) * (2 * (kWwHiStages + kWwLoStages) + 3 * static_cast<size_t>(C) + (forward ? 2 : 0));
+         sizeof(uint64_t) * (2 * (kWwHi + kWwLo) + 3 * static_cast<size_t>(C) + (forward ? 2 : 0));
 }
 
 bool ww_takes(int Hp, int size, int d_a, int rows = kWwRows, bool forward = false) {
@@ -237,6 +288,18 @@ __device__ __forceinline__ void hold_fragment(uint32_t (&a)[4]) {
 // float32 to TF32 by truncation (the low 13 bits cleared): what the tensor
 // cores read of a float32 operand.
 __device__ __forceinline__ float trunc_tf32(float x) { return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u); }
+
+// An activation as it is written into a tile: in one pass, where it is a
+// hidden product's A operand (`operand`), rounded to TF32 (tf32_rna) once
+// there, so that the consumers hand it to the tensor cores as they read it;
+// else as it is.
+__device__ __forceinline__ float tile_value(float v, bool operand) {
+  if constexpr (kPasses == 1) {
+    return operand ? rna(v) : v;
+  } else {
+    return v;
+  }
+}
 
 // Makes this thread's generic-proxy writes to shared memory visible to the
 // async proxy (`wgmma`'s operand reads).
@@ -294,21 +357,26 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
   // Each k-step's three passes into a fresh sum folded into the running sums
   // (the inverse), or every kWwFwdFold k-steps' (the forward)
   constexpr bool kFold = kInverse;
+  // The tile fragment-major (one 16-byte remote read a k-step): the
+  // forward's, and in one pass the inverse's too (four 4-byte remote reads a
+  // k-step of a row-major tile took half the one-pass inverse's time); the
+  // 3xTF32 inverse keeps its row-major tile of row stride kWwLd
+  constexpr bool kFragTile = !kInverse || kPasses == 1;
   const int d_b = size - d_a;
   const int n_out = 2 * d_b;
   const int nw_floats = kInverse ? 0 : ww_narrow_floats(d_a, n_out);   // the forward's step weights
   const int small_floats = kInverse ? 0 : ww_small_floats(size);       // and its Q, ActNorm scale and bias
 
   extern __shared__ float4 smem4[];
-  constexpr int kTileLd = kInverse ? kWwLd : kWwCols;  // the forward's tile is fragment-major, unpadded
+  constexpr int kTileLd = kFragTile ? kWwCols : kWwLd;  // a fragment-major tile is unpadded
   // The forward's 64-row tiles keep two tiles in turn, h_l in tile l % 2: a
   // block writes h_{l+1} into the other, which every block was done reading
   // (h_{l-1}) before the landed hand-off of h_l, so no `free` hand-off
   constexpr bool kTwoTiles = !kInverse && RW == kWwHalfRows;
   float* tile = reinterpret_cast<float*>(smem4);  // RW x kTileLd: the block's columns of h_l
-  float* hi_ring = tile + (kTwoTiles ? 2 : 1) * RW * kTileLd;  // kWwHiStages stages, bulk-copied, then rounded to hi
-  float* lo_ring = hi_ring + kWwHiStages * kWwStage;  // kWwLoStages stages of lo
-  float* nw = lo_ring + kWwLoStages * kWwStage;    // the forward: the step's W1y (d_a x 128), b1, Wout (128 x n_out)
+  float* hi_ring = tile + (kTwoTiles ? 2 : 1) * RW * kTileLd;  // kWwHi stages, bulk-copied (3xTF32: then rounded to hi)
+  float* lo_ring = hi_ring + kWwHi * kWwStage;     // kWwLo stages of lo (3xTF32)
+  float* nw = lo_ring + kWwLo * kWwStage;          // the forward: the step's W1y (d_a x 128), b1, Wout (128 x n_out)
   float* xs = nw + nw_floats;                      // RW x size: the rows' state
   float* xt = xs + RW * size;                      // RW x size: the mix's output
   float* gather = xt + RW * size;                  // C x RR x n_out: the partials of the rows this block reduces
@@ -317,10 +385,10 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
   float* small = lds + (kInverse ? 0 : RW);        // the forward: the step's Q (size x size), ActNorm scale, bias
   float* bms = small + small_floats;               // the forward: the layer's bm of the block's columns
   uint64_t* hi_full = reinterpret_cast<uint64_t*>(bms + (kInverse ? 0 : kWwCols));
-  uint64_t* hi_empty = hi_full + kWwHiStages;
-  uint64_t* lo_full = hi_empty + kWwHiStages;  // the stage is split: hi and lo ready
-  uint64_t* lo_empty = lo_full + kWwLoStages;
-  uint64_t* free_ = lo_empty + kWwLoStages;  // free[c]: block c is done reading the tiles of h_l
+  uint64_t* hi_empty = hi_full + kWwHi;
+  uint64_t* lo_full = hi_empty + kWwHi;  // the stage is split: hi and lo ready (3xTF32)
+  uint64_t* lo_empty = lo_full + kWwLo;
+  uint64_t* free_ = lo_empty + kWwLo;  // free[c]: block c is done reading the tiles of h_l
   uint64_t* landed = free_ + C;  // landed[set C + c]: block c's part of a hand-off is written (2 sets in turn)
   uint64_t* nw_full = landed + 2 * C;  // the forward: the step's weights in nw
   uint64_t* nw_empty = nw_full + 1;    // ... and every consumer warp is done with the last step's
@@ -333,11 +401,11 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
     xs[p] = row0 + p / size < B ? x[static_cast<size_t>(row0) * size + p] : 0.0f;
   if (!kInverse && tid < RW) lds[tid] = 0.0f;
   if (tid == 0) {
-    for (int i = 0; i < kWwHiStages; ++i) {
+    for (int i = 0; i < kWwHi; ++i) {
       mbar_init(&hi_full[i], 1);
       mbar_init(&hi_empty[i], kWwConsumers / 32);  // one arrival a consumer warp
     }
-    for (int i = 0; i < kWwLoStages; ++i) {
+    for (int i = 0; i < kWwLo; ++i) {
       mbar_init(&lo_full[i], 3);                   // one arrival a splitting warp
       mbar_init(&lo_empty[i], kWwConsumers / 32);  // one arrival a consumer warp
     }
@@ -357,16 +425,17 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
   const int total = S * nh * NJ;  // stages of the whole call
   if (tid >= kWwConsumers) {
     // ---- the producer warpgroup: warp 0's first thread issues the stages,
-    // warps 1-3 split them, in the consumers' order across layers and steps;
+    // warps 1-3 split them (3xTF32), in the consumers' order across layers and steps;
     // in the forward warp 0's second thread copies each step's W1y, b1 and
     // Wout of the block's columns once the consumers are done with the last
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int p = tid - kWwConsumers, lane = tid & 31;
+    const int p = tid - kWwConsumers;
+    [[maybe_unused]] const int lane = tid & 31;  // the splitting warps' (3xTF32)
     if (p == 0) {
       constexpr uint32_t bytes = kWwStage * sizeof(float);
       for (int m = 0; m < total; ++m) {
-        const int slot = m % kWwHiStages;
-        mbar_wait(&hi_empty[slot], ((m / kWwHiStages) & 1) ^ 1);
+        const int slot = m % kWwHi;
+        mbar_wait(&hi_empty[slot], ((m / kWwHi) & 1) ^ 1);
         if (parts & kWwCopies) {
           // stage m % NJ of layer (step, l), rank's part: at ((layer NJ + j) C + rank) stages
           const int j = (m % NJ + static_cast<int>(rank) * (KB / kWwStageK)) % NJ;  // in the block's turn
@@ -389,31 +458,33 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
         bulk_copy_g2s(nw + (d_a + 1) * kWwCols, wout + (static_cast<size_t>(k) * Hp + c0) * n_out, n_out * row,
                       nw_full);
       }
-    } else if (p >= 32) {
-      const int t = p - 32;  // 96 splitting threads
-      for (int m = 0; m < total; ++m) {
-        const int hs = m % kWwHiStages, ls = m % kWwLoStages;
-        mbar_wait(&hi_full[hs], (m / kWwHiStages) & 1);
-        mbar_wait(&lo_empty[ls], ((m / kWwLoStages) & 1) ^ 1);
-        if (parts & kWwSplit) {
-          float4* h4 = reinterpret_cast<float4*>(hi_ring + hs * kWwStage);
-          float4* l4 = reinterpret_cast<float4*>(lo_ring + ls * kWwStage);
+    } else if constexpr (kPasses == 3) {
+      if (p >= 32) {
+        const int t = p - 32;  // 96 splitting threads
+        for (int m = 0; m < total; ++m) {
+          const int hs = m % kWwHi, ls = m % kWwLoSlot;
+          mbar_wait(&hi_full[hs], (m / kWwHi) & 1);
+          mbar_wait(&lo_empty[ls], ((m / kWwLoSlot) & 1) ^ 1);
+          if (parts & kWwSplit) {
+            float4* h4 = reinterpret_cast<float4*>(hi_ring + hs * kWwStage);
+            float4* l4 = reinterpret_cast<float4*>(lo_ring + ls * kWwStage);
 #pragma unroll 2
-          for (int i = t; i < kWwStage / 4; i += 96) {
-            const float4 w = h4[i];
-            if (kInverse) {
-              const float4 h = make_float4(rna(w.x), rna(w.y), rna(w.z), rna(w.w));
-              h4[i] = h;
-              l4[i] = make_float4(w.x - h.x, w.y - h.y, w.z - h.z, w.w - h.w);
-            } else {  // the forward's hi is the stage as copied, which the tensor cores truncate
-              const float4 h = make_float4(trunc_tf32(w.x), trunc_tf32(w.y), trunc_tf32(w.z), trunc_tf32(w.w));
-              l4[i] = make_float4(w.x - h.x, w.y - h.y, w.z - h.z, w.w - h.w);
+            for (int i = t; i < kWwStage / 4; i += 96) {
+              const float4 w = h4[i];
+              if (kInverse) {
+                const float4 h = make_float4(rna(w.x), rna(w.y), rna(w.z), rna(w.w));
+                h4[i] = h;
+                l4[i] = make_float4(w.x - h.x, w.y - h.y, w.z - h.z, w.w - h.w);
+              } else {  // the forward's hi is the stage as copied, which the tensor cores truncate
+                const float4 h = make_float4(trunc_tf32(w.x), trunc_tf32(w.y), trunc_tf32(w.z), trunc_tf32(w.w));
+                l4[i] = make_float4(w.x - h.x, w.y - h.y, w.z - h.z, w.w - h.w);
+              }
             }
+            fence_async_shared();
           }
-          fence_async_shared();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&lo_full[ls]);
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&lo_full[ls]);
       }
     }
     cluster_sync();  // no block leaves while another may reach its memory
@@ -429,9 +500,9 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
   const bool exchange = parts & kWwExchange;
   // this thread's first fragment value's offset in a tile, in bytes, and a
   // k-step's bytes there
-  const uint32_t frag_off = kInverse ? 4u * static_cast<uint32_t>((wr0 + 16 * w4 + g) * kWwLd + q)
-                                     : 16u * static_cast<uint32_t>(((wr0 / 16 + w4) * KB) * 32 + lane);
-  constexpr uint32_t kStepBytes = kInverse ? 32u : 512u;
+  const uint32_t frag_off = !kFragTile ? 4u * static_cast<uint32_t>((wr0 + 16 * w4 + g) * kWwLd + q)
+                                       : 16u * static_cast<uint32_t>(((wr0 / 16 + w4) * KB) * 32 + lane);
+  constexpr uint32_t kStepBytes = !kFragTile ? 32u : 512u;
   // the address of this thread's A fragment of the layer's s-th k-step in the
   // block's turn, k-step (s + KB rank) % KS, in its owner's tile (without the
   // exchange: in this block's), shared::cluster
@@ -537,9 +608,15 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
           }
         }
 #pragma unroll
-        for (int r = 0; r < RPT; ++r)
-          *reinterpret_cast<float2*>(tile + (rg + 64 * r) * kWwLd + lc) =
-              make_float2(gelu_tanh(a[r].x), gelu_tanh(a[r].y));
+        for (int r = 0; r < RPT; ++r) {
+          if constexpr (kFragTile) {
+            tile[ww_frag_index(rg + 64 * r, lc)] = tile_value(gelu_tanh(a[r].x), nh > 0);
+            tile[ww_frag_index(rg + 64 * r, lc + 1)] = tile_value(gelu_tanh(a[r].y), nh > 0);
+          } else {
+            *reinterpret_cast<float2*>(tile + (rg + 64 * r) * kWwLd + lc) =
+                make_float2(tile_value(gelu_tanh(a[r].x), nh > 0), tile_value(gelu_tanh(a[r].y), nh > 0));
+          }
+        }
       }
     } else {
       const int rg = tid >> 2, cl = tid & 3;
@@ -573,14 +650,14 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
         }
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
-          tile[ww_frag_index(rg + 64 * r, lc)] = gelu_tanh(a[r].x);
-          tile[ww_frag_index(rg + 64 * r, lc + 1)] = gelu_tanh(a[r].y);
+          tile[ww_frag_index(rg + 64 * r, lc)] = tile_value(gelu_tanh(a[r].x), nh > 0);
+          tile[ww_frag_index(rg + 64 * r, lc + 1)] = tile_value(gelu_tanh(a[r].y), nh > 0);
         }
       }
     }
     hand_off_landed();
 
-    // ---- hidden layers: h_{l+1} = gelu(h_l Wm_l + bm_l) on wgmma in 3xTF32
+    // ---- hidden layers: h_{l+1} = gelu(h_l Wm_l + bm_l) on wgmma (3xTF32, or one pass)
     for (int l = 0; l < nh; ++l) {
       cur = layer_tile(l);
       float acc[R];
@@ -591,19 +668,60 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
             reinterpret_cast<const float4*>(bm + (static_cast<size_t>(k) * nh + l) * Hp + c0)[tid];
       if (!(parts & kWwProducts)) {  // timing the rest: the stages as they come
         for (int j = 0; j < NJ; ++j, ++m) {
-          mbar_wait(&lo_full[m % kWwLoStages], (m / kWwLoStages) & 1);
-          if (lane == 0) {
-            mbar_arrive(&hi_empty[m % kWwHiStages]);
-            mbar_arrive(&lo_empty[m % kWwLoStages]);
+          if constexpr (kPasses == 1) {
+            mbar_wait(&hi_full[m % kWwHi], (m / kWwHi) & 1);
+            if (lane == 0) mbar_arrive(&hi_empty[m % kWwHi]);
+          } else {
+            mbar_wait(&lo_full[m % kWwLoSlot], (m / kWwLoSlot) & 1);
+            if (lane == 0) {
+              mbar_arrive(&hi_empty[m % kWwHi]);
+              mbar_arrive(&lo_empty[m % kWwLoSlot]);
+            }
           }
         }
+      } else if constexpr (kPasses == 1) {  // one wgmma a k-step into the running sums, a group in flight
+        // k-step s's fragment, as the tile holds it (TF32 already), in set s %
+        // kWwASets
+        uint32_t a[kWwASets][4];
+        auto load = [&](int s, uint32_t(&v)[4]) {  // the tile fragment-major in one pass
+          float f[4];
+          ld_cluster4(frag_at(s), f);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = __float_as_uint(f[i]);
+        };
+#pragma unroll
+        for (int s = 0; s < kWwASets - 1; ++s) load(s, a[s]);
+        static_assert(NJ % (kWwASets / kWwStageK) == 0, "a layer's stages fill whole passes over the sets");
+#pragma unroll 1
+        for (int j0 = 0; j0 < NJ; j0 += kWwASets / kWwStageK) {
+#pragma unroll
+          for (int jj = 0; jj < kWwASets / kWwStageK; ++jj, ++m) {
+            const int j = j0 + jj, hs = m % kWwHi;
+            mbar_wait(&hi_full[hs], (m / kWwHi) & 1);
+#pragma unroll
+            for (int u = 0; u < kWwStageK; ++u) {
+              const int s = kWwStageK * j + u, b = kWwStageK * jj + u;  // b = s % kWwASets
+              wgmma_fence();
+              WgmmaTf32<NW>::mma(acc, a[b], smem_desc(hi_ring + hs * kWwStage + u * kWwKStep + 8 * wc0, 128, 256));
+              wgmma_commit();
+              wgmma_wait<1>();  // k-step s - 1's group is done: its A registers and, at a stage's first, its stage
+              hold_fragment(a[(b + kWwASets - 1) % kWwASets]);
+              if (s + kWwASets - 1 < KS) load(s + kWwASets - 1, a[(b + kWwASets - 1) % kWwASets]);  // read ahead
+              if (u == 0 && j > 0 && lane == 0) mbar_arrive(&hi_empty[(m - 1) % kWwHi]);
+            }
+          }
+        }
+        wgmma_wait<0>();
+        hold_fragment(a[(KS - 1) % kWwASets]);
+        if (lane == 0) mbar_arrive(&hi_empty[(m - 1) % kWwHi]);  // the layer's last stage
+        fence_operands(acc);
       } else if (kFold) {  // each k-step's passes into a fresh sum, folded into the running sums
         float part[R], nxt[4];
         load_frag(frag_at(0), nxt);
 #pragma unroll 1
         for (int j = 0; j < NJ; ++j, ++m) {
-          const int hs = m % kWwHiStages, ls = m % kWwLoStages;
-          mbar_wait(&lo_full[ls], (m / kWwLoStages) & 1);
+          const int hs = m % kWwHi, ls = m % kWwLoSlot;
+          mbar_wait(&lo_full[ls], (m / kWwLoSlot) & 1);
 #pragma unroll
           for (int u = 0; u < kWwStageK; ++u) {
             const int s = kWwStageK * j + u;
@@ -638,8 +756,8 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
         ld_cluster4(frag_at(0), nxt);
 #pragma unroll 1
         for (int j = 0; j < NJ; ++j, ++m) {
-          const int hs = m % kWwHiStages, ls = m % kWwLoStages;
-          mbar_wait(&lo_full[ls], (m / kWwLoStages) & 1);
+          const int hs = m % kWwHi, ls = m % kWwLoSlot;
+          mbar_wait(&lo_full[ls], (m / kWwLoSlot) & 1);
 #pragma unroll
           for (int u = 0; u < kWwStageK; ++u) {
             const int s = kWwStageK * j + u, b = u & 1;
@@ -658,8 +776,8 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
             hold_fragment(a[b ^ 1][1]);
             keep = 1u;
             if (u == 0 && j > 0 && lane == 0) {
-              mbar_arrive(&hi_empty[(m - 1) % kWwHiStages]);
-              mbar_arrive(&lo_empty[(m - 1) % kWwLoStages]);
+              mbar_arrive(&hi_empty[(m - 1) % kWwHi]);
+              mbar_arrive(&lo_empty[(m - 1) % kWwLoSlot]);
             }
             if (kWwFwdFold > 0 && (s + 1) % (kWwFwdFold > 0 ? kWwFwdFold : 1) == 0) {  // the fold
               wgmma_wait<0>();
@@ -676,8 +794,8 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
         hold_fragment(a[(KS - 1) & 1][0]);
         hold_fragment(a[(KS - 1) & 1][1]);
         if (lane == 0) {  // the layer's last stage
-          mbar_arrive(&hi_empty[(m - 1) % kWwHiStages]);
-          mbar_arrive(&lo_empty[(m - 1) % kWwLoStages]);
+          mbar_arrive(&hi_empty[(m - 1) % kWwHi]);
+          mbar_arrive(&lo_empty[(m - 1) % kWwLoSlot]);
         }
         fence_operands(acc);
       }
@@ -688,13 +806,14 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = wr0 + 16 * w4 + g + 8 * h, col = wc0 + 8 * j + 2 * q;
-          if (kInverse) {
+          if (!kFragTile) {
             *reinterpret_cast<float2*>(tile + row * kWwLd + col) =
-                make_float2(gelu_tanh(acc[4 * j + 2 * h] + bias[col]), gelu_tanh(acc[4 * j + 2 * h + 1] + bias[col + 1]));
+                make_float2(tile_value(gelu_tanh(acc[4 * j + 2 * h] + bias[col]), l + 1 < nh),
+                            tile_value(gelu_tanh(acc[4 * j + 2 * h + 1] + bias[col + 1]), l + 1 < nh));
           } else {
             float* next = layer_tile(l + 1);
-            next[ww_frag_index(row, col)] = gelu_tanh(acc[4 * j + 2 * h] + bias[col]);
-            next[ww_frag_index(row, col + 1)] = gelu_tanh(acc[4 * j + 2 * h + 1] + bias[col + 1]);
+            next[ww_frag_index(row, col)] = tile_value(gelu_tanh(acc[4 * j + 2 * h] + bias[col]), l + 1 < nh);
+            next[ww_frag_index(row, col + 1)] = tile_value(gelu_tanh(acc[4 * j + 2 * h + 1] + bias[col + 1]), l + 1 < nh);
           }
         }
       hand_off_landed();
@@ -716,9 +835,9 @@ __device__ __forceinline__ void wide_flow(const float* __restrict__ x, const flo
           const float w2 = wo[(kk + 2) * n_out + c], w3 = wo[(kk + 3) * n_out + c];
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            const float* tv = layer_tile(nh) + ww_frag_index(r0 + r, kk);  // the forward's 4 columns: 4 floats apart
-            const float4 v = kInverse ? *reinterpret_cast<const float4*>(tile + (r0 + r) * kWwLd + kk)
-                                      : make_float4(tv[0], tv[4], tv[8], tv[12]);
+            const float* tv = layer_tile(nh) + ww_frag_index(r0 + r, kk);  // fragment-major: 4 columns 4 floats apart
+            const float4 v = !kFragTile ? *reinterpret_cast<const float4*>(tile + (r0 + r) * kWwLd + kk)
+                                        : make_float4(tv[0], tv[4], tv[8], tv[12]);
             acc[r] = fmaf(v.x, w0, acc[r]);
             acc[r] = fmaf(v.y, w1, acc[r]);
             acc[r] = fmaf(v.z, w2, acc[r]);

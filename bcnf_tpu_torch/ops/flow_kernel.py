@@ -24,7 +24,10 @@
     libraries, `ops/_build.py`); its `wgmma` inverse streams hi-only weight
     stages (`prepare_weights(wm, passes=1)`), and its forward at padded
     widths up to 544 runs the `wgmma` forward of `csrc/flow_fwd_wgmma.cu` on
-    the weights `prepare_train_weights` lays out;
+    the weights `prepare_train_weights` lays out; at 768 and 1024 both ways
+    run the one-pass build of `csrc/flow_wide_wgmma.cu`, on the hidden
+    weights rounded to TF32 once a call (`prepare_wide_weights(wm,
+    passes=1)`);
   - the strict mode (`CondRealNVP(pallas_strict=True)`, as the JAX model's
     strict flag forces its exact-float32 kernel mode) runs the float32 FMA
     kernel (`csrc/flow_fma.cu`) both ways: persistent blocks, one an SM,
@@ -35,19 +38,19 @@
   `torch.autograd.Function` whose forward is K2a (`fused_flow_train_fwd`, on
   the forward route `flow_route` gives: the row-tile kernel with its
   step-input store, or at padded widths up to 544 the `wgmma` forward of
-  `csrc/flow_fwd_wgmma.cu`, and in 3xTF32 at 768 and 1024 the wide forward
-  of `csrc/flow_wide_wgmma.cu`; strict, the FMA kernel with its step-input
+  `csrc/flow_fwd_wgmma.cu`, and at 768 and 1024 the wide forward of
+  `csrc/flow_wide_wgmma.cu` built for the mode; strict, the FMA kernel with its step-input
   store) and whose backward is K2b (`fused_flow_train_bwd`, on the route
   `train_bwd_route` gives: the row tiles of `csrc/flow_train_kernel.cu`, or
   at padded widths up to 544 the `wgmma` route of
-  `csrc/flow_train_wgmma.cu`, in 3xTF32 at 768 and 1024 the wide backward
-  of `csrc/flow_wide_train_wgmma.cu`, or strict the float32 FMA kernels of
+  `csrc/flow_train_wgmma.cu`, at 768 and 1024 the wide backward of
+  `csrc/flow_wide_train_wgmma.cu` built for the mode, or strict the float32 FMA kernels of
   `csrc/flow_train_fma.cu`). Both `wgmma` routes read the hidden weights as
   `prepare_train_weights` lays them out for their mode (hi, and in 3xTF32
   lo beside it), prepared once a step and handed from K2a to K2b; at 768
   and 1024 the wide forward and the wide backward read
   `prepare_wide_train_weights` (`prepare_wide_weights`' layout of Wm and of
-  Wm^T) in the same way. The
+  Wm^T, for the mode) in the same way. The
   strict K2b recomputes nothing of the MLP: the strict K2a keeps each
   layer's activations and gelu' for it (`train_keep`, which both require),
   handed from K2a to K2b in the same way; where a row chunk's keep would
@@ -110,7 +113,11 @@ TF32_MODES = (MODE_3XTF32, MODE_TF32)  # the tensor-core modes: K4 has no float3
 ROUTE_WGMMA, ROUTE_ROWS, ROUTE_FMA = "wgmma", "rows", "fma"
 ROUTE_WIDE = "wide_wgmma"  # the 3xTF32 inverse at Hp 768 and 1024 (csrc/flow_wide_wgmma.cu)
 ROUTE_WIDE_FWD = "wide_fwd_wgmma"  # the 3xTF32 forward there (K1's, K2a's, K4's; the same source)
-WIDE_ROUTES = (ROUTE_WIDE, ROUTE_WIDE_FWD)
+ROUTE_WIDE_TF32 = "wide_wgmma_tf32"  # the one-pass inverse there (the same source's one-pass build)
+ROUTE_WIDE_FWD_TF32 = "wide_fwd_wgmma_tf32"  # the one-pass forward there
+WIDE_ROUTES = (ROUTE_WIDE, ROUTE_WIDE_FWD, ROUTE_WIDE_TF32, ROUTE_WIDE_FWD_TF32)
+WIDE_FWD_ROUTES = (ROUTE_WIDE_FWD, ROUTE_WIDE_FWD_TF32)
+WIDE_TF32_ROUTES = (ROUTE_WIDE_TF32, ROUTE_WIDE_FWD_TF32)  # read the one-pass layout of the hidden weights
 ROUTE_WGMMA_TF32, ROUTE_ROWS_TF32 = "wgmma_tf32", "rows_tf32"
 # the forward on wgmma (K1, K2a, K4; csrc/flow_fwd_wgmma.cu), in 3xTF32 and in one pass
 ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32 = "fwd_wgmma", "fwd_wgmma_tf32"
@@ -118,11 +125,12 @@ FWD_WGMMA_ROUTES = (ROUTE_FWD_WGMMA, ROUTE_FWD_WGMMA_TF32)
 ROUTE_LIBRARY = {ROUTE_WGMMA: "flow_wgmma", ROUTE_ROWS: "flow_kernel", ROUTE_FMA: "flow_fma",
                  ROUTE_WGMMA_TF32: "flow_wgmma_tf32", ROUTE_ROWS_TF32: "flow_kernel_tf32",
                  ROUTE_FWD_WGMMA: "flow_fwd_wgmma", ROUTE_FWD_WGMMA_TF32: "flow_fwd_wgmma_tf32",
-                 ROUTE_WIDE: "flow_wide_wgmma", ROUTE_WIDE_FWD: "flow_wide_wgmma"}
+                 ROUTE_WIDE: "flow_wide_wgmma", ROUTE_WIDE_FWD: "flow_wide_wgmma",
+                 ROUTE_WIDE_TF32: "flow_wide_wgmma_tf32", ROUTE_WIDE_FWD_TF32: "flow_wide_wgmma_tf32"}
 WGMMA_MAX_TN = 17  # the widest width the wgmma inverse holds (Hp 544; csrc/flow_wgmma.cu)
-WIDE_TN = (24, 32)  # the widths the wide 3xTF32 inverse is built for (Hp 768, 1024; csrc/flow_wide_wgmma.cu)
-WIDE_WGMMA_MAX_TN = 32  # the widest of them the route takes; 0 forces the row tiles there
-WIDE_FWD_MAX_TN = 32  # the widest of them the wide forward takes; 0 forces the row tiles there
+WIDE_TN = (24, 32)  # the widths the wide inverse and forward are built for (Hp 768, 1024; csrc/flow_wide_wgmma.cu)
+WIDE_WGMMA_MAX_TN = 32  # the widest of them the wide inverse takes; 0 forces the row tiles there in both modes
+WIDE_FWD_MAX_TN = 32  # the widest of them the wide forward takes; 0 forces the row tiles there in both modes
 # the wide forward walks 64-row tiles (kWwHalfRows) up to this many rows: one wave of the 15 clusters an
 # H100 holds at Hp 1024 (PERF.md: 256 and 960 rows 6.32 and 6.48 ms on 64-row tiles, 7.74 and 7.92 on 128;
 # 4096 rows 34.91 and 23.72)
@@ -135,13 +143,16 @@ ROUTE_TRAIN_BWD = "train_bwd"  # K2b's rows kernel, for `kernel_smem` (csrc/flow
 # csrc/flow_train_wgmma.cu, and the strict float32 FMA route (`ROUTE_FMA`,
 # csrc/flow_train_fma.cu); each route's library.
 ROUTE_WIDE_TRAIN = "wide_train_wgmma"  # K2b in 3xTF32 at Hp 768 and 1024 (csrc/flow_wide_train_wgmma.cu)
+ROUTE_WIDE_TRAIN_TF32 = "wide_train_wgmma_tf32"  # K2b in one pass there (the same source's one-pass build)
+WIDE_TRAIN_ROUTES = (ROUTE_WIDE_TRAIN, ROUTE_WIDE_TRAIN_TF32)
 TRAIN_BWD_LIBRARY = {ROUTE_ROWS: "flow_train_kernel", ROUTE_ROWS_TF32: "flow_train_kernel_tf32",
                      ROUTE_WGMMA: "flow_train_wgmma", ROUTE_WGMMA_TF32: "flow_train_wgmma_tf32",
-                     ROUTE_FMA: "flow_train_fma", ROUTE_WIDE_TRAIN: "flow_wide_train_wgmma"}
+                     ROUTE_FMA: "flow_train_fma", ROUTE_WIDE_TRAIN: "flow_wide_train_wgmma",
+                     ROUTE_WIDE_TRAIN_TF32: "flow_wide_train_wgmma_tf32"}
 ROUTE_TRAIN_BWD_FMA = "train_bwd_fma"  # the strict K2b's rows kernel, for `kernel_smem` (csrc: ft_smem)
 ROUTE_TRAIN_BWD_WGMMA = "train_bwd_wgmma"  # its rows kernel, for `kernel_smem` (csrc/flow_train_wgmma.cu: tw_smem)
 TRAIN_WGMMA_MAX_TN = 17  # the widest width K2b's wgmma route holds (Hp 544); 0 forces the row tiles in both modes
-WIDE_TRAIN_MAX_TN = 32  # the widest of WIDE_TN K2b's wide route takes in 3xTF32; 0 forces the row tiles there
+WIDE_TRAIN_MAX_TN = 32  # the widest of WIDE_TN K2b's wide route takes; 0 forces the row tiles there in both modes
 # The constants of the kernels' sources that the host side reads, by the
 # source that defines each: the dynamic shared memory a block may use and
 # the weight-grad jobs one AtbJobs launch holds (K2b's nh + 3 a step), the
@@ -156,7 +167,8 @@ WIDE_TRAIN_MAX_TN = 32  # the widest of WIDE_TN K2b's wide route takes in 3xTF32
 # its barriers (`fwd_wgmma_ring`); the strict K2b's weight-grad jobs a step
 # and that pass's output tile and rows a stage (`fma_atb_tiles`); the wide
 # inverse's (and forward's) rows a cluster, the forward's smaller tile, columns
-# a block, k-steps a stage and its two rings' stages.
+# a block, k-steps a stage, its two 3xTF32 rings' stages and its one-pass
+# ring's stages.
 _SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kFtTile": "flow_train_fma.cu", "kFtK": "flow_train_fma.cu",
                      "kSmemLimit": "flow_common.cuh", "kAtbMaxJobs": "atb.cuh",
                   **{name: "flow_wgmma.cu" for name in ("kWgRing3xTf32", "kWgCluster3xTf32", "kWgRingTf32",
@@ -168,7 +180,7 @@ _SOURCE_CONSTANTS = {"kFtMaxJobs": "flow_train_fma.cu", "kFtTile": "flow_train_f
                   **{name: "flow_fwd_wgmma.cu" for name in ("kFwRows", "kFwCluster", "kFwStageK", "kFwRingMin",
                                                              "kFwRingMax", "kFwBarrierFloats")},
                   **{name: "flow_wide_wgmma.cu" for name in ("kWwRows", "kWwHalfRows", "kWwCols", "kWwStageK",
-                                                              "kWwHiStages", "kWwLoStages")}}
+                                                              "kWwHiStages", "kWwLoStages", "kWwHiStagesTf32")}}
 
 
 @functools.cache
@@ -221,12 +233,24 @@ def wide_fwd_rows(B: int) -> int:
     return kernel_limit("kWwHalfRows") if B <= WIDE_FWD_HALF_MAX_ROWS else kernel_limit("kWwRows")
 
 
-def wide_smem(Hp: int, size: int, d_a: int, rows: int | None = None, forward: bool = False) -> int:
+def wide_rings(mode: str = MODE_3XTF32) -> int:
+    """Stages of the wide kernels' weight rings in `mode`
+    (`csrc/flow_wide_wgmma.cu`: kWwHi + kWwLo): in 3xTF32 the hi ring's
+    kWwHiStages and the lo ring's kWwLoStages, in one pass the hi ring alone
+    of kWwHiStagesTf32."""
+    _check_mode(mode, TF32_MODES)
+    if mode == MODE_TF32:
+        return kernel_limit("kWwHiStagesTf32")
+    return kernel_limit("kWwHiStages") + kernel_limit("kWwLoStages")
+
+
+def wide_smem(Hp: int, size: int, d_a: int, rows: int | None = None, forward: bool = False,
+              mode: str = MODE_3XTF32) -> int:
     """Bytes of shared memory a block of the wide inverse, or of the wide
-    forward, takes on tiles of `rows` rows (default kWwRows) at this shape
-    (`csrc/flow_wide_wgmma.cu`: `ww_smem`): the tile of the block's
-    columns (rows of cols + 4 floats; the forward's, fragment-major,
-    unpadded); the hi and lo rings (kWwStageK k-steps of 8 rows of the
+    forward, takes on tiles of `rows` rows (default kWwRows) at this shape in
+    `mode` (`csrc/flow_wide_wgmma.cu`: `ww_smem`): the tile of the block's
+    columns (the 3xTF32 inverse's rows of cols + 4 floats; the forward's,
+    and in one pass both directions', fragment-major, unpadded); the weight rings (`wide_rings`: kWwStageK k-steps of 8 rows of the
     block's columns a stage); x and the mix's output; the C blocks' partial
     [t | s'] of the ceil(rows / C) rows a block reduces, and [t | s'] of
     every row; 2 barriers a ring stage and 3 a block of the cluster; the
@@ -236,58 +260,61 @@ def wide_smem(Hp: int, size: int, d_a: int, rows: int | None = None, forward: bo
     block's columns, 2 barriers and, on 64-row tiles, a second tile (h_l
     and h_{l+1} in turn)."""
     rows, cols = rows or kernel_limit("kWwRows"), kernel_limit("kWwCols")
-    C, stages, n_out = Hp // cols, kernel_limit("kWwHiStages") + kernel_limit("kWwLoStages"), 2 * (size - d_a)
+    C, stages, n_out = Hp // cols, wide_rings(mode), 2 * (size - d_a)
     stage, reduced = kernel_limit("kWwStageK") * 8 * cols, C * -(-rows // C) + rows
     two = rows * cols if rows == kernel_limit("kWwHalfRows") else 0  # the 64-row tiles' second tile
     fwd = (d_a + 1 + n_out) * cols + rows + (size * size + 2 * size + 1) // 2 * 2 + cols + two if forward else 0
-    return (4 * (rows * (cols if forward else cols + 4) + stages * stage + rows * 2 * size + reduced * n_out + fwd)
+    tile = cols if forward or mode == MODE_TF32 else cols + 4
+    return (4 * (rows * tile + stages * stage + rows * 2 * size + reduced * n_out + fwd)
             + 8 * (2 * stages + 3 * C + (2 if forward else 0)))
 
 
-def wide_takes(Hp: int, size: int, d_a: int, forward: bool = False) -> bool:
-    """Whether the wide inverse (or the wide forward) takes the shape
-    (`ww_takes`): a width it is built for, and its shared memory on its
+def wide_takes(Hp: int, size: int, d_a: int, forward: bool = False, mode: str = MODE_3XTF32) -> bool:
+    """Whether the wide inverse (or the wide forward) of `mode` takes the
+    shape (`ww_takes`): a width it is built for, and its shared memory on its
     kWwRows-row tile (which grows with the rows' state and the cluster's
     partial outputs) within a block's; the forward's smaller tile then fits
     too."""
-    route = ROUTE_WIDE_FWD if forward else ROUTE_WIDE
+    one = mode == MODE_TF32
+    route = (ROUTE_WIDE_FWD_TF32 if one else ROUTE_WIDE_FWD) if forward else (ROUTE_WIDE_TF32 if one else ROUTE_WIDE)
     return Hp // 32 in WIDE_TN and kernel_smem(route, Hp, size, d_a) <= kernel_limit("kSmemLimit")
 
 
-def wide_train_smem(Hp: int, size: int, d_a: int, rows: int | None = None) -> int:
+def wide_train_smem(Hp: int, size: int, d_a: int, rows: int | None = None, mode: str = MODE_3XTF32) -> int:
     """Bytes of shared memory a block of K2b's wide rows kernel takes on
-    tiles of `rows` rows (default kWwRows) at this shape
+    tiles of `rows` rows (default kWwRows) at this shape in `mode`
     (`csrc/flow_wide_train_wgmma.cu`: `wt_smem`): the tile of the block's
-    columns (two on 64-row tiles), the hi and lo rings, the step's W1y, b1 and
+    columns (two on 64-row tiles), the weight rings (`wide_rings`), the step's W1y, b1 and
     Wout of the block's columns, per row x1, dx2, [t | s'], dx_a and dld, the
     C blocks' partials of the ceil(rows / C) rows a block reduces (max(n_out,
     d_a) floats a row), to an even count of floats; then 2 barriers a ring
     stage, 3 a block of the cluster and 1 for the step's weights."""
     rows, cols = rows or kernel_limit("kWwRows"), kernel_limit("kWwCols")
-    C, stages, n_out = Hp // cols, kernel_limit("kWwHiStages") + kernel_limit("kWwLoStages"), 2 * (size - d_a)
+    C, stages, n_out = Hp // cols, wide_rings(mode), 2 * (size - d_a)
     tiles = 2 if rows == kernel_limit("kWwHalfRows") else 1
     floats = (tiles * rows * cols + stages * kernel_limit("kWwStageK") * 8 * cols + (d_a + 1 + n_out) * cols
               + rows * (2 * size + n_out + d_a + 1) + C * -(-rows // C) * max(n_out, d_a))
     return 4 * (floats + floats % 2) + 8 * (2 * stages + 3 * C + 1)
 
 
-def wide_train_takes(Hp: int, size: int, d_a: int) -> bool:
-    """Whether K2b's wide route takes the shape (`wt_smem` within a block's
-    on its kWwRows-row tile; the 64-row tiles then fit too): a width the
-    wide kernels are built for."""
+def wide_train_takes(Hp: int, size: int, d_a: int, mode: str = MODE_3XTF32) -> bool:
+    """Whether K2b's wide route of `mode` takes the shape (`wt_smem` within
+    a block's on its kWwRows-row tile; the 64-row tiles then fit too): a
+    width the wide kernels are built for."""
     return (Hp // 32 in WIDE_TN and Hp % 32 == 0
-            and wide_train_smem(Hp, size, d_a) <= kernel_limit("kSmemLimit"))
+            and wide_train_smem(Hp, size, d_a, mode=mode) <= kernel_limit("kSmemLimit"))
 
 
-def wide_train_card_layout(Hp: int, size: int, d_a: int, rows: int | None = None) -> tuple[int, int, int, int]:
-    """K2b's wide route at this shape on tiles of `rows` rows (default
-    kWwRows) on the current card (`csrc/flow_wide_train_wgmma.cu`:
+def wide_train_card_layout(Hp: int, size: int, d_a: int, rows: int | None = None,
+                           mode: str = MODE_3XTF32) -> tuple[int, int, int, int]:
+    """K2b's wide route of `mode` at this shape on tiles of `rows` rows
+    (default kWwRows) on the current card (`csrc/flow_wide_train_wgmma.cu`:
     `bcnf_flow_train_wide_layout`): the rows kernel's bytes of shared memory
     a block and its clusters resident at once, the weight-grad pass's bytes
     a block and its blocks resident on an SM."""
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WIDE_TRAIN])
+    lib = load_library(TRAIN_BWD_LIBRARY[ROUTE_WIDE_TRAIN_TF32 if mode == MODE_TF32 else ROUTE_WIDE_TRAIN])
     out = (ctypes.c_int * 4)()
     _raise_on(lib.bcnf_flow_train_wide_layout(Hp, size, d_a, rows or kernel_limit("kWwRows"), out), lib,
               "wide_train_card_layout")
@@ -369,7 +396,8 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
     `csrc/flow_train_fma.cu`: `ft_smem`, at its least)."""
     tn, n_out = Hp // 32, 2 * (size - d_a)
     if route in WIDE_ROUTES:
-        return wide_smem(Hp, size, d_a, forward=route == ROUTE_WIDE_FWD)
+        return wide_smem(Hp, size, d_a, forward=route in WIDE_FWD_ROUTES,
+                         mode=MODE_TF32 if route in WIDE_TF32_ROUTES else MODE_3XTF32)
     if route == ROUTE_TRAIN_BWD_FMA:  # the shortest ring
         return fma_train_smem(Hp, size, d_a, kernel_limit("kFmaRingMin"))
     if route in FWD_WGMMA_ROUTES:  # the shortest ring
@@ -395,15 +423,15 @@ def kernel_smem(route: str, Hp: int, size: int, d_a: int) -> int:
 
 
 def wide_card_layout(Hp: int, size: int, d_a: int, rows: int | None = None,
-                     forward: bool = False) -> tuple[int, int]:
+                     forward: bool = False, mode: str = MODE_3XTF32) -> tuple[int, int]:
     """The wide inverse, or the wide forward on tiles of `rows` rows (default
-    kWwRows), at this shape on the current card (`csrc/flow_wide_wgmma.cu`:
+    kWwRows), of `mode` at this shape on the current card (`csrc/flow_wide_wgmma.cu`:
     `bcnf_flow_wide_layout`): its bytes of shared memory a block, and its
     clusters of Hp/128 blocks resident at once (the occupancy calculator's
     `cudaOccupancyMaxActiveClusters`)."""
     from bcnf_tpu_torch.ops._build import load_library
 
-    lib = load_library(ROUTE_LIBRARY[ROUTE_WIDE])
+    lib = load_library(ROUTE_LIBRARY[ROUTE_WIDE_TF32 if mode == MODE_TF32 else ROUTE_WIDE])
     out = (ctypes.c_int * 2)()
     _raise_on(lib.bcnf_flow_wide_layout(Hp, size, d_a, rows or kernel_limit("kWwRows"), int(forward), out), lib,
               "wide_card_layout")
@@ -701,16 +729,16 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
     """Which of K1's kernels runs this call (and, forward, which runs K2a's
     and K4's), by mode and shape: strict (`MODE_FMA`) takes the float32 FMA
     kernel; the default and the one-pass mode the `wgmma` inverse where it
-    holds the width and the shape, the default mode's inverse at Hp 768 and
-    1024 the wide inverse (`csrc/flow_wide_wgmma.cu`, up to
+    holds the width and the shape, the inverse at Hp 768 and 1024 the wide
+    inverse (`csrc/flow_wide_wgmma.cu`, built for the mode, up to
     `WIDE_WGMMA_MAX_TN`) where it takes the shape (`wide_takes`), else the
     row tiles, each built for its mode; the forward of either mode the
     `wgmma` forward (`csrc/flow_fwd_wgmma.cu`, built for the mode) at the
     widths it holds
     (`FWD_WGMMA_MAX_TN`) where its ring takes the shape (`fwd_wgmma_ring`), at
-    every batch (PERF.md: the card's row sweeps), the default mode's forward
-    at Hp 768 and 1024 the wide forward (the same source as the wide inverse,
-    up to `WIDE_FWD_MAX_TN`) where it takes the shape, at every batch (its
+    every batch (PERF.md: the card's row sweeps), the forward at Hp 768 and
+    1024 the wide forward (the same source and build as the wide inverse, up
+    to `WIDE_FWD_MAX_TN`) where it takes the shape, at every batch (its
     tile's rows by the batch: `wide_fwd_rows`), else the row tiles. None
     where no kernel takes the shape (its shared memory; then the model's gate
     stays closed, as JAX's `inverse_fused_flow` returns None)."""
@@ -723,18 +751,18 @@ def flow_route(Hp: int, size: int, d_a: int, inverse: bool, mode: str = MODE_3XT
         candidates = (ROUTE_FMA,)
     elif inverse and Hp // 32 <= WGMMA_MAX_TN:
         candidates = (wgmma, rows)
-    elif inverse and not one and Hp // 32 in WIDE_TN and Hp // 32 <= WIDE_WGMMA_MAX_TN:
-        candidates = (ROUTE_WIDE, rows)
+    elif inverse and Hp // 32 in WIDE_TN and Hp // 32 <= WIDE_WGMMA_MAX_TN:
+        candidates = (ROUTE_WIDE_TF32 if one else ROUTE_WIDE, rows)
     elif not inverse and Hp // 32 <= FWD_WGMMA_MAX_TN:
         candidates = (ROUTE_FWD_WGMMA_TF32 if one else ROUTE_FWD_WGMMA, rows)
-    elif not inverse and not one and Hp // 32 in WIDE_TN and Hp // 32 <= WIDE_FWD_MAX_TN:
-        candidates = (ROUTE_WIDE_FWD, rows)
+    elif not inverse and Hp // 32 in WIDE_TN and Hp // 32 <= WIDE_FWD_MAX_TN:
+        candidates = (ROUTE_WIDE_FWD_TF32 if one else ROUTE_WIDE_FWD, rows)
     else:
         candidates = (rows,)
     limit = kernel_limit("kSmemLimit")
     return next((r for r in candidates if (fwd_wgmma_ring(Hp, size, d_a) > 0 if r in FWD_WGMMA_ROUTES
-                                           else wide_takes(Hp, size, d_a, r == ROUTE_WIDE_FWD) if r in WIDE_ROUTES
-                                           else kernel_smem(r, Hp, size, d_a) <= limit)), None)
+                                           else wide_takes(Hp, size, d_a, r in WIDE_FWD_ROUTES, mode)
+                                           if r in WIDE_ROUTES else kernel_smem(r, Hp, size, d_a) <= limit)), None)
 
 
 def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF32) -> str | None:
@@ -747,10 +775,10 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
     kernel takes the shape (its shared memory, and n_out and d_a within what
     its weight ring stages, reckoned in a stage's floats, kTwStageK x Hp/2 in
     either mode), at every batch (the card's sweeps found the row tiles
-    faster at none of 32, 64, 128, 256 and 4096 rows: PERF.md); the 3xTF32
-    mode at Hp 768 and 1024 the wide route (`csrc/flow_wide_train_wgmma.cu`,
-    up to `WIDE_TRAIN_MAX_TN`) where its rows kernel's shared memory takes
-    the shape (`wide_train_takes`), at every batch; else the row tiles of the
+    faster at none of 32, 64, 128, 256 and 4096 rows: PERF.md); either mode
+    at Hp 768 and 1024 the wide route (`csrc/flow_wide_train_wgmma.cu`,
+    built for the mode, up to `WIDE_TRAIN_MAX_TN`) where its rows kernel's
+    shared memory takes the shape (`wide_train_takes`), at every batch; else the row tiles of the
     mode (`csrc/flow_train_kernel.cu`). The row tiles take nh +
     3 weight-grad jobs a step within one launch's (`kAtbMaxJobs`) and their
     rows kernel's shared memory within a block's (`kSmemLimit`). None where
@@ -767,8 +795,8 @@ def train_bwd_route(Hp: int, size: int, d_a: int, nh: int, mode: str = MODE_3XTF
             and 2 * (size - d_a) <= kernel_limit("kTwRing") * ring and d_a <= ring
             and kernel_smem(ROUTE_TRAIN_BWD_WGMMA, Hp, size, d_a) <= limit):
         return ROUTE_WGMMA_TF32 if mode == MODE_TF32 else ROUTE_WGMMA
-    if mode == MODE_3XTF32 and Hp // 32 <= WIDE_TRAIN_MAX_TN and wide_train_takes(Hp, size, d_a):
-        return ROUTE_WIDE_TRAIN
+    if Hp // 32 <= WIDE_TRAIN_MAX_TN and wide_train_takes(Hp, size, d_a, mode):
+        return ROUTE_WIDE_TRAIN_TF32 if mode == MODE_TF32 else ROUTE_WIDE_TRAIN
     if nh + 3 <= kernel_limit("kAtbMaxJobs") and kernel_smem(ROUTE_TRAIN_BWD, Hp, size, d_a) <= limit:
         return ROUTE_ROWS_TF32 if mode == MODE_TF32 else ROUTE_ROWS
     return None
@@ -820,11 +848,13 @@ def prepare_weights(wm: torch.Tensor, passes: int = 3, stage_k: int | None = Non
     return torch.stack([hi, wt - hi], dim=5).contiguous()
 
 
-def prepare_wide_weights(wm: torch.Tensor) -> torch.Tensor:
+def prepare_wide_weights(wm: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """The stacked, padded hidden weights `wm` (S, nh, Hp, Hp), stored (in,
     out), as the wide inverse reads them (`csrc/flow_wide_wgmma.cu`), on
-    `wm`'s device, float32 as they are (the kernel splits them into hi and
-    lo in shared memory): transposed to K-major, in `wgmma`'s core-matrix
+    `wm`'s device, for a product of `passes` passes: in 3xTF32 float32 as
+    they are (the kernel splits them into hi and lo in shared memory); in one
+    pass (`passes=1`) each entry rounded to TF32 (`tf32_rna`), which the
+    one-pass build reads as it lands. Transposed to K-major, in `wgmma`'s core-matrix
     order (8 outputs x 4 inputs, 128 contiguous bytes; the two along the
     inputs side by side), stage by stage, each stage kWwStageK k-steps (8
     input rows each) split by output column between the Hp/kWwCols blocks
@@ -833,31 +863,38 @@ def prepare_wide_weights(wm: torch.Tensor) -> torch.Tensor:
     Hp/kWwCols blocks, kWwStageK k-steps, kWwCols/8 output groups, 2 input
     halves, 8 outputs, 4 inputs); entry [s, l, j, c, u, ng, kg, r, i] is
     wm[s, l, 8 (kWwStageK j + u) + 4 kg + i, kWwCols c + 8 ng + r]. The same
-    bytes as `wm`."""
+    bytes as `wm`. The one-pass layout carries an axis of 1 after the k-steps
+    (hi alone, as `prepare_weights(passes=1)` marks its own), so that no
+    layout of one mode passes the other's shape check: (S, nh, stages,
+    blocks, kWwStageK, 1, kWwCols/8, 2, 8, 4), the same bytes."""
+    if passes not in (1, 3):
+        raise ValueError(f"prepare_wide_weights: a product takes 1 or 3 passes, not {passes}")
     S, nh, Hp, _ = wm.shape
     k, cols = kernel_limit("kWwStageK"), kernel_limit("kWwCols")
     if Hp % (8 * k) or Hp % cols:
         raise ValueError(f"prepare_wide_weights: the padded width {Hp} is not one the wide inverse takes")
-    return (wm.reshape(S, nh, Hp // 8 // k, k, 2, 4, Hp // cols, cols // 8, 8)
-            .permute(0, 1, 2, 6, 3, 7, 4, 8, 5).contiguous())
+    out = (wm.reshape(S, nh, Hp // 8 // k, k, 2, 4, Hp // cols, cols // 8, 8)
+           .permute(0, 1, 2, 6, 3, 7, 4, 8, 5).contiguous())
+    return out if passes == 3 else _round_tf32(out).unsqueeze(5)
 
 
-def prepare_wide_train_weights(wm: torch.Tensor) -> torch.Tensor:
-    """A training step's hidden weights at Hp 768 and 1024 in 3xTF32, laid
-    out once for the wide forward (K2a) and the wide backward (K2b):
-    `prepare_wide_weights` of Wm (the products h Wm: the forward's and K2b's
-    recompute), then of Wm^T (K2b's da Wm^T), stacked, shape (2, S, nh,
-    ...); K2a reads the first. Twice Wm's bytes, on `wm`'s device."""
-    out = torch.empty((2, *_wide_weights_shape(*wm.shape[:3])), dtype=wm.dtype, device=wm.device)
-    out[0] = prepare_wide_weights(wm)
-    out[1] = prepare_wide_weights(wm.transpose(-1, -2))
+def prepare_wide_train_weights(wm: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """A training step's hidden weights at Hp 768 and 1024 for a product of
+    `passes` passes, laid out once for the wide forward (K2a) and the wide
+    backward (K2b): `prepare_wide_weights(., passes)` of Wm (the products h
+    Wm: the forward's and K2b's recompute), then of Wm^T (K2b's da Wm^T),
+    stacked, shape (2, S, nh, ...); K2a reads the first. Twice Wm's bytes,
+    on `wm`'s device."""
+    out = torch.empty((2, *_wide_weights_shape(*wm.shape[:3], passes)), dtype=wm.dtype, device=wm.device)
+    out[0] = prepare_wide_weights(wm, passes)
+    out[1] = prepare_wide_weights(wm.transpose(-1, -2), passes)
     return out
 
 
-def _wide_weights_shape(S: int, nh: int, Hp: int) -> tuple[int, ...]:
-    """The shape of `prepare_wide_weights`' layout."""
+def _wide_weights_shape(S: int, nh: int, Hp: int, passes: int = 3) -> tuple[int, ...]:
+    """The shape of `prepare_wide_weights`' layout for `passes`."""
     k, cols = kernel_limit("kWwStageK"), kernel_limit("kWwCols")
-    return (S, nh, Hp // 8 // k, Hp // cols, k, cols // 8, 2, 8, 4)
+    return (S, nh, Hp // 8 // k, Hp // cols, k, *((1,) if passes == 1 else ()), cols // 8, 2, 8, 4)
 
 
 def _weights_shape(S: int, nh: int, Hp: int, passes: int) -> tuple[int, ...]:
@@ -874,14 +911,18 @@ def _train_weights_shape(S: int, nh: int, Hp: int, passes: int) -> tuple[int, ..
     return (S, nh, 2, 2, Hp // 8, *parts, Hp // 16, 2, 8, 4)
 
 
-def _checked_wstages(wstages: torch.Tensor, shape: tuple[int, ...], wm: torch.Tensor, what: str) -> torch.Tensor:
+def _checked_wstages(wstages: torch.Tensor, shape: tuple[int, ...], wm: torch.Tensor, what: str,
+                     exact: bool = False) -> torch.Tensor:
     """`wstages` if it holds as many floats as the layout a route reads
     (`shape`; a layout of the other mode holds half or twice as many), for
     `wm`'s layers, contiguous float32 on `wm`'s device; else raises: the
     route's bulk copies read that many bytes from it, whatever it holds. (It
     is checked by its size: a tool's variant build of the inverse may stage
-    another number of k-steps.)"""
-    if (tuple(wstages.shape[:2]) != shape[:2] or wstages.numel() != math.prod(shape)
+    another number of k-steps.) `exact` checks the whole shape: the wide
+    layouts of the two modes hold the same bytes, and only their shapes tell
+    them apart."""
+    if ((tuple(wstages.shape) != shape if exact else tuple(wstages.shape[:2]) != shape[:2])
+            or wstages.numel() != math.prod(shape)
             or wstages.dtype != torch.float32 or wstages.device != wm.device or not wstages.is_contiguous()):
         raise ValueError(f"{what}: wstages must be the hidden weights laid out for its route, contiguous float32 of "
                          f"shape {shape} on {wm.device}; got {tuple(wstages.shape)} {wstages.dtype} on "
@@ -958,12 +999,16 @@ def route_weights(route: str, wm: torch.Tensor, wstages: torch.Tensor | None = N
     """The hidden weights `wm` laid out as K1's `wgmma` route `route` reads
     them: `prepare_weights` for the inverses, `prepare_train_weights` for the
     forwards, each for the route's mode, `prepare_wide_weights` for the wide
-    inverse and the wide forward (one layout serves both); or `wstages`, a
-    caller's layout, checked against the route's."""
+    inverse and the wide forward of the route's mode (one layout serves both
+    directions); or `wstages`, a caller's layout, checked against the
+    route's (the wide layouts by their whole shape, which tells the modes
+    apart)."""
     if route in WIDE_ROUTES:
+        passes = 1 if route in WIDE_TF32_ROUTES else 3
         if wstages is None:
-            return prepare_wide_weights(wm)
-        return _checked_wstages(wstages, _wide_weights_shape(*wm.shape[:3]), wm, f"the {route} route")
+            return prepare_wide_weights(wm, passes)
+        return _checked_wstages(wstages, _wide_weights_shape(*wm.shape[:3], passes), wm, f"the {route} route",
+                                exact=True)
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
         passes, prepare, shape = 1 if route == ROUTE_WGMMA_TF32 else 3, prepare_weights, _weights_shape
     elif route in FWD_WGMMA_ROUTES:
@@ -1106,7 +1151,7 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     (no `WG_EXCHANGE`); the wide inverse and forward also without their
     split of the weight stages (no `WIDE_SPLIT`); y is then not the flow.
     The wide inverse and forward read them as `prepare_wide_weights` lays
-    them out, the forward on tiles of `wide_fwd_rows(B)` rows."""
+    them out for the mode, the forward on tiles of `wide_fwd_rows(B)` rows."""
     from bcnf_tpu_torch.ops._build import load_library
 
     B, size = x.shape
@@ -1123,10 +1168,10 @@ def _launch_flow(x: torch.Tensor, args: dict[str, torch.Tensor], *, inverse: boo
     tensors = [args[n] for n in ("h_proj", "an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")]
     lib = load_library(ROUTE_LIBRARY[route])
     with torch.cuda.device(x.device):
-        if route == ROUTE_WIDE:
+        if route in (ROUTE_WIDE, ROUTE_WIDE_TF32):
             tensors[6] = route_weights(route, args["wm"], wstages)
             err = lib.bcnf_flow_inverse_wide(*_ptrs(x, *tensors, y), B, n_cond, S, size, d_a, nh, Hp, parts, _stream())
-        elif route == ROUTE_WIDE_FWD:  # no step-input store (that is K2a's)
+        elif route in WIDE_FWD_ROUTES:  # no step-input store (that is K2a's)
             tensors[6] = route_weights(route, args["wm"], wstages)
             err = lib.bcnf_flow_forward_wide(*_ptrs(x, *tensors, y, ld), ctypes.c_void_p(0), B, n_cond, S, size, d_a,
                                              nh, Hp, wide_fwd_rows(B), parts, _stream())
@@ -1396,9 +1441,9 @@ def fused_flow_train_fwd(
     with their step-input store in 3xTF32 or one TF32 pass, the `wgmma`
     forward of either mode, which reads the hidden weights as
     `prepare_train_weights` lays them out for the mode: pass them as
-    `wstages`, or they are prepared here; in 3xTF32 at Hp 768 and 1024 the
-    wide forward with its step-input store, on `prepare_wide_weights`'
-    layout, passed or prepared in the same way; strict, the float32 FMA kernel with
+    `wstages`, or they are prepared here; at Hp 768 and 1024 the wide
+    forward of the mode with its step-input store, on `prepare_wide_weights`'
+    layout for the mode, passed or prepared in the same way; strict, the float32 FMA kernel with
     its step-input store, which also fills `keep` with what the strict K2b
     reads: pass `train_keep`'s buffer, else it raises), or raises. Counts its
     launches in `launches`, by mode in `mode_launches` and by route in
@@ -1453,8 +1498,9 @@ def _train_fwd(x: torch.Tensor, h_proj: torch.Tensor, args: dict[str, torch.Tens
             err = lib.bcnf_flow_fwd_wgmma(
                 *_ptrs(x, h_proj, an_scale, an_bias, ortho, w1y, b1, staged, bm, wout, bout, z, ld, bound),
                 B, B, S, size, d_a, nh, Hp, _stream())
-        elif route == ROUTE_WIDE_FWD:
-            if wstages is not None and tuple(wstages.shape) == (2, *_wide_weights_shape(S, nh, Hp)):
+        elif route in WIDE_FWD_ROUTES:
+            passes = 1 if route in WIDE_TF32_ROUTES else 3
+            if wstages is not None and tuple(wstages.shape) == (2, *_wide_weights_shape(S, nh, Hp, passes)):
                 wstages = wstages[0]  # a step's layout for K2a and the wide K2b: K2a reads Wm's
             staged = route_weights(route, wm, wstages)
             err = lib.bcnf_flow_forward_wide(
@@ -1485,16 +1531,17 @@ def train_weights(x: torch.Tensor, h_proj: torch.Tensor, wm: torch.Tensor, d_a: 
     """The hidden weights of a training step as `prepare_train_weights` lays
     them out for `mode` (hi; in 3xTF32 hi and lo), prepared once for K2a and
     K2b where either runs on its `wgmma` route (a CUDA tensor in the 3xTF32
-    or the one-pass mode at the widths those routes hold); in 3xTF32 at Hp
-    768 and 1024, where K2b runs on the wide route, `prepare_wide_train_weights`
-    (both directions; K2a's wide forward reads the first); None where
+    or the one-pass mode at the widths those routes hold); at Hp 768 and
+    1024, where K2b runs on the wide route of the mode,
+    `prepare_wide_train_weights` for the mode (both directions; K2a's wide
+    forward reads the first); None where
     neither reads a shared layout (K2a's wide forward with K2b on its row
     tiles lays out its own)."""
     if x.device.type != "cuda" or mode not in TF32_MODES:
         return None
     Hp, size, nh = h_proj.shape[-1], x.shape[1], wm.shape[1]
-    if train_bwd_route(Hp, size, d_a, nh, mode) == ROUTE_WIDE_TRAIN:
-        return prepare_wide_train_weights(wm)
+    if train_bwd_route(Hp, size, d_a, nh, mode) in WIDE_TRAIN_ROUTES:
+        return prepare_wide_train_weights(wm, 3 if mode == MODE_3XTF32 else 1)
     if (flow_route(Hp, size, d_a, False, mode) in FWD_WGMMA_ROUTES
             or train_bwd_route(Hp, size, d_a, nh, mode) in (ROUTE_WGMMA, ROUTE_WGMMA_TF32)):
         return prepare_train_weights(wm, 3 if mode == MODE_3XTF32 else 1)
@@ -1547,8 +1594,8 @@ def fused_flow_train_bwd(
     tiles of `csrc/flow_train_kernel.cu`, at Hp <= 544 the `wgmma` route of
     `csrc/flow_train_wgmma.cu` built for the mode, on `wstages` as
     `prepare_train_weights` lays out `wm` for it, or on weights it prepares;
-    in 3xTF32 at Hp 768 and 1024 the wide route of
-    `csrc/flow_wide_train_wgmma.cu`, on `prepare_wide_train_weights`' layout,
+    at Hp 768 and 1024 the wide route of `csrc/flow_wide_train_wgmma.cu`
+    built for the mode, on `prepare_wide_train_weights`' layout for the mode,
     passed or prepared in the same way;
     strict, the float32 FMA kernels of `csrc/flow_train_fma.cu`, on what the
     strict K2a kept in `keep` for these inputs: without it, it raises), or
@@ -1662,8 +1709,8 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     route also dWout, dbout, dW1y and db1, summed from the rows kernels'
     partials). The wrapper runs all three; chip_smoke.py times each alone.
     The `wgmma` route reads the hidden weights as `prepare_train_weights`
-    lays them out, the wide route as `prepare_wide_train_weights` does (on
-    tiles of `wide_fwd_rows(B)` rows): pass them as `wstages`, or they are
+    lays them out, the wide routes as `prepare_wide_train_weights` does for
+    their mode (on tiles of `wide_fwd_rows(B)` rows): pass them as `wstages`, or they are
     prepared here. The
     strict route reads what the strict K2a kept in `keep` (required), and
     takes `rows` = (first, end): the grads of those rows alone (dx and
@@ -1689,9 +1736,11 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
         passes = 3 if route == ROUTE_WGMMA else 1
         tensors[5] = prepare_train_weights(args["wm"], passes) if wstages is None else _checked_wstages(
             wstages, _train_weights_shape(S, nh, Hp, passes), args["wm"], f"fused_flow_train_bwd ({route})")
-    elif route == ROUTE_WIDE_TRAIN:
-        tensors[5] = prepare_wide_train_weights(args["wm"]) if wstages is None else _checked_wstages(
-            wstages, (2, *_wide_weights_shape(S, nh, Hp)), args["wm"], f"fused_flow_train_bwd ({route})")
+    elif route in WIDE_TRAIN_ROUTES:
+        passes = 1 if route == ROUTE_WIDE_TRAIN_TF32 else 3
+        tensors[5] = prepare_wide_train_weights(args["wm"], passes) if wstages is None else _checked_wstages(
+            wstages, (2, *_wide_weights_shape(S, nh, Hp, passes)), args["wm"], f"fused_flow_train_bwd ({route})",
+            exact=True)
     if route == ROUTE_FMA or keep is not None:
         tensors.append(_checked_keep(keep, route, end - first, S, size, d_a, nh, Hp, dz.device,
                                      "fused_flow_train_bwd"))
@@ -1699,7 +1748,7 @@ def _train_bwd_parts(bound: torch.Tensor, h_proj: torch.Tensor, dz: torch.Tensor
     shape = (B, S, size, d_a, nh, Hp)
     if route in (ROUTE_WGMMA, ROUTE_WGMMA_TF32):
         n_scratch, entry = lib.bcnf_flow_train_wgmma_scratch(*shape), lib.bcnf_flow_train_bwd_wgmma
-    elif route == ROUTE_WIDE_TRAIN:  # on tiles of the wide forward's rows
+    elif route in WIDE_TRAIN_ROUTES:  # on tiles of the wide forward's rows
         shape = (*shape, wide_fwd_rows(B))
         n_scratch, entry = lib.bcnf_flow_train_wide_scratch(*shape), lib.bcnf_flow_train_bwd_wide
     elif route == ROUTE_FMA:  # the rows first .. end - 1 of B
@@ -1751,9 +1800,10 @@ class _FusedFlowTrain(torch.autograd.Function):
     route, the hidden weights are prepared once in the forward
     (`train_weights`) and held for the backward: twice Wm's bytes in one pass
     (246 MB at the flagship's 26 steps of 4 layers at Hp 544), four times in
-    3xTF32 (hi and lo, 492 MB), from K2a to K2b; at Hp 768 and 1024 in 3xTF32
-    Wm and Wm^T in float32 (`prepare_wide_train_weights`: 1.07 GB at the wide
-    config's 32 steps of 4 layers at Hp 1024). Strict, K2a keeps each
+    3xTF32 (hi and lo, 492 MB), from K2a to K2b; at Hp 768 and 1024 Wm and
+    Wm^T in float32, or rounded to TF32 in one pass
+    (`prepare_wide_train_weights`: 1.07 GB at the wide config's 32 steps of
+    4 layers at Hp 1024). Strict, K2a keeps each
     layer's activations and gelu' for K2b (`train_keep`, 2.32 GB at the
     flagship's 4096 rows), unless the rows take more than one chunk
     (`strict_chunks`: past 13,088 rows at the flagship's shape on an 80 GB

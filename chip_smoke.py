@@ -6,13 +6,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit, versions; build every kernel
-   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`, 15 libraries,
+   from the checkout's sources (`bcnf_tpu_torch/ops/csrc/`, 17 libraries,
    one nvcc each, all started together); the registers and spill bytes of
    each instance of K1's `wgmma` inverse, the `wgmma` forward and K2b's
    `wgmma` route, both builds of each, of the wide inverse and forward and
-   of the wide K2b (fails on any spill in the 3xTF32 libraries,
-   `flow_wgmma`, `flow_wide_wgmma`, `flow_fwd_wgmma`, `flow_train_wgmma`
-   and `flow_wide_train_wgmma`).
+   of the wide K2b, both builds of each (fails on any spill in the 3xTF32
+   libraries, `flow_wgmma`, `flow_wide_wgmma`, `flow_fwd_wgmma`,
+   `flow_train_wgmma` and `flow_wide_train_wgmma`, and in the wide kernels'
+   one-pass builds, `flow_wide_wgmma_tf32` and `flow_wide_train_wgmma_tf32`).
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the flagship widths, on a tiled and on a ragged shape: K1 in its default
    mode (3xTF32: the inverse on `wgmma`, the forward on the `wgmma`
@@ -189,7 +190,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
    version, its grads within the JAX grad bar of the plain version, no
    further from float64 than max(row tiles, twice the float32 plain
    version), equal to the bit between calls; fails where it loses at 4096
-   rows to either or at 256 to the row tiles.
+   rows to either or at 256 to the row tiles. Then the same config at
+   precision "default" on the wide kernels' one-pass builds
+   (`wide_one_pass_path`): one `sample` (1 launch of the one-pass wide
+   inverse), `log_prob` and the forward of 4096 draws (2 launches of the
+   one-pass wide forward), K4 both ways through the model (a launch a
+   coupling each way), a training step at `training.precision: default`
+   (K2a and K2b once each on the one-pass wide routes; metrics and grads
+   within 5e-3 of the plain step's), each against the plain one-pass
+   version (`mm=tf32.matmul_tf32`) at JAX's reduced bar, 5e-3; K1's inverse
+   at 80,000 rows and on the rank batch, K1's forward, K2a and K2b at 4096
+   rows, K1's forward and K2b at 256 timed in turns on the route, the
+   one-pass row tiles (forced), the float32 plain version and the 3xTF32
+   wide route, each route no further from the plain one-pass version than
+   twice the row tiles and equal to the bit between calls; fails where one
+   is not, or loses at 80,000, 100,000 or 4096 rows to any of the three, or
+   at 256 to the row tiles; prints the phase's seconds.
 
 14. the video path, `configs/runs/videos_CNN_LSTM_large.yaml` at its
    published widths (CNN 1->8->16->32 on 2 cameras x 30 frames of 90 x 160,
@@ -502,15 +518,16 @@ def strict_sass_check(lib_path: str, what: str = "the strict K1's library") -> i
 
 # the libraries whose every kernel instance must keep its registers (phase 1):
 # K1's 3xTF32 `wgmma` inverses (Hp <= 544, and the wide one at 768/1024), and
-# the 3xTF32 `wgmma` forward and K2b route
-NO_SPILL = ("flow_wgmma", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_train_wgmma", "flow_wide_train_wgmma")
+# the 3xTF32 `wgmma` forward and K2b route; the wide kernels in both builds
+NO_SPILL = ("flow_wgmma", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_train_wgmma", "flow_wide_train_wgmma",
+            "flow_wide_wgmma_tf32", "flow_wide_train_wgmma_tf32")
 
 
 def wgmma_spill_check() -> None:
     """Phase 1: the registers and spill bytes of each instance of K1's
     `wgmma` inverse (each build, and the wide inverse), the `wgmma` forward
     (K1's, K2a's, K4's) and K2b's `wgmma` route, each in both builds, and
-    the wide K2b, from
+    the wide K2b, in both builds, from
     this run's ptxas output (where
     this run built the library) and from the built library (`cuobjdump
     -res-usage`: STACK and LOCAL bytes a thread); fails on any spill in the
@@ -520,7 +537,8 @@ def wgmma_spill_check() -> None:
     from bcnf_tpu_torch.ops import _build
 
     for lib in ("flow_wgmma", "flow_wgmma_tf32", "flow_wide_wgmma", "flow_fwd_wgmma", "flow_fwd_wgmma_tf32",
-                "flow_train_wgmma", "flow_train_wgmma_tf32", "flow_wide_train_wgmma"):
+                "flow_train_wgmma", "flow_train_wgmma_tf32", "flow_wide_train_wgmma", "flow_wide_wgmma_tf32",
+                "flow_wide_train_wgmma_tf32"):
         ptxas, kernel = {}, "?"
         for ln in _build.build_logs.get(lib, "").splitlines():
             if "Compiling entry function" in ln:
@@ -1123,7 +1141,13 @@ def main() -> None:
                "fused_flow[inverse, wide]": "K1 inverse, wide", "fused_flow[forward, wide]": "K1 forward, wide",
                "K2a[3xtf32, wide] fused_flow_train_fwd": "K2a, wide",
                "K2b[3xtf32, wide] fused_flow_train_bwd": "K2b, wide",
-               "K4 fused_affine_coupling[forward, wide]": "K4 forward, wide"}.get(
+               "K4 fused_affine_coupling[forward, wide]": "K4 forward, wide",
+               "fused_flow[inverse, wide, tf32]": "K1 inverse, wide, tf32",
+               "fused_flow[forward, wide, tf32]": "K1 forward, wide, tf32",
+               "K2a[tf32, wide] fused_flow_train_fwd": "K2a, wide, tf32",
+               "K2b[tf32, wide] fused_flow_train_bwd": "K2b, wide, tf32",
+               "K4 fused_affine_coupling[inverse, wide, tf32]": "K4 inverse, wide, tf32",
+               "K4 fused_affine_coupling[forward, wide, tf32]": "K4 forward, wide, tf32"}.get(
             row["name"], row["name"].split()[0].removesuffix("[3xtf32]"))
         row["zoo_launches"] = zoo.get(key, 0)
         row["video_launches"] = video.get(key, 0)
@@ -3680,7 +3704,8 @@ def zoo_wide(rng, dev, peaks: tuple[float, float, float]) -> tuple[dict, list[di
         fail(f"the wide inverse ({r_ms['wide']:.2f} ms) loses to the row tiles ({r_ms['rows']:.2f}) or the plain "
              f"version ({r_ms['plain']:.2f}) on {name}'s rank batch")
     fwd_launches, fwd_rows = wide_forward_path(rng, dev, peaks, cfg, model, params, out)
-    return {"K1 inverse, wide": launches, **fwd_launches}, [row, *fwd_rows]
+    one_launches, one_rows = wide_one_pass_path(rng, dev, peaks, cfg, model, params)
+    return {"K1 inverse, wide": launches, **fwd_launches, **one_launches}, [row, *fwd_rows, *one_rows]
 
 
 def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, model, params: dict,
@@ -3962,6 +3987,351 @@ def wide_forward_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, mo
         fail(f"the wide K2b ({m2[B]['wide']:.2f} ms) loses to the row tiles ({m2[B]['rows']:.2f}) at {B} rows")
     launches = {"K1 forward, wide": rows_out[0]["launches"], "K2a, wide": rows_out[1]["launches"],
                 "K4 forward, wide": k4_launches, "K2b, wide": rows_out[3]["launches"]}
+    return launches, rows_out
+
+
+# the one-pass kernels against their plain one-pass versions (`mm=tf32.matmul_tf32`): JAX's bar for its
+# reduced kernel mode (tests/test_flow_kernel.py:130-141), phase 15's
+ONE_PASS_BAR = 5e-3
+
+
+def wide_one_pass_path(rng, dev, peaks: tuple[float, float, float], cfg: dict, model,
+                       params: dict) -> tuple[dict, list[dict]]:
+    """Phase 13's wide configuration at precision "default" (one TF32 pass a
+    product) on the wide kernels' one-pass builds (csrc/flow_wide_wgmma.cu and
+    csrc/flow_wide_train_wgmma.cu built with BCNF_TF32_PASSES=1), each path
+    with the counts set to 0 just before and read just after: (a) one
+    `sample` of 10,000 x 8 (1 launch of the one-pass wide inverse) against
+    the plain one-pass version on the same draws; the inverse at the
+    sample's 80,000 rows and on the rank batch (1000 draws x 100
+    conditions) timed in turns on the route, the one-pass row tiles
+    (forced), the float32 plain version and the 3xTF32 wide inverse; (b)
+    `log_prob` and the forward of 4096 draws (2 launches of the one-pass wide
+    forward) against the plain one-pass version, and the forward and the
+    inverse of those draws through K4 (`use_pallas_coupling`, a launch a
+    coupling each way, finite); (c) one `Trainer` step at batch 256 with the
+    coupling dropout at 0 at `training.precision: default` (K2a and K2b once
+    each on the one-pass wide routes), its metrics and its grads from
+    standard-normal cotangents within the reduced bar of the plain step's
+    (of max(1, max |plain|) each); (d) K1's forward, K2a and K2b at 4096
+    rows and K1's forward and K2b at 256 rows with their own conditions,
+    timed in turns on the route, the one-pass row tiles (forced), the
+    float32 plain version and the 3xTF32 wide route; K4 both ways at 4096
+    rows beside its plain version. Every route is held to its plain one-pass
+    version: within the reduced bar (5e-3; K2b's grads of max(1, max
+    |plain|) each), no further than twice the one-pass row tiles, equal to
+    the bit between two calls. Fails where one is not, where a route was not
+    launched, or where K1's inverse at 80,000 or 100,000 rows, or K1's
+    forward, K2a or K2b at 4096 rows, loses to the row tiles, the float32
+    plain version or the 3xTF32 wide route, or at 256 rows to the row tiles.
+    Returns the launches by kernel and the table's rows; prints the phase's
+    seconds."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from bcnf_tpu_torch.bridge import map_tree, tree_leaves
+    from bcnf_tpu_torch.models import CondRealNVP
+    from bcnf_tpu_torch.models.cnf import matmul_precision
+    from bcnf_tpu_torch.ops import coupling_kernel as ck
+    from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+    from bcnf_tpu_torch.train import Trainer, make_optimizer
+
+    t_phase = time.perf_counter()
+    name, T = os.path.basename(WIDE_CONFIG)[:-5], frames(cfg)
+    H, size, d_a = model.nested_sizes[0], model.size, model.coupling.d_a
+    Hp, TF, X3 = fk.padded_width(H), fk.MODE_TF32, fk.MODE_3XTF32
+    src, rep = "bcnf_tpu_torch/ops/csrc/flow_wide_wgmma.cu", "bcnf_tpu/ops/flow_kernel.py"
+    faults: list[str] = []
+
+    def turns(fns: dict, reps: int = 2) -> dict:  # each in turn, then again in reverse: every time
+        times = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            times[k] += cuda_ms(fns[k], reps)
+        return times
+
+    def forced(limit: str, fn):  # fn on the one-pass row tiles
+        def run():
+            with row_tiles_forced(limit):
+                return fn()
+        return run
+
+    def hold(what: str, one, two, rows, p1, scaled: bool = False) -> tuple[float, float]:
+        """The route's outputs (`one`, a second call's `two`) against the
+        plain one-pass version `p1` beside the one-pass row tiles' (`rows`):
+        the largest max |d| and the largest share of twice the row tiles'."""
+        worst, share = 0.0, 0.0
+        for i, (a, b, r, p) in enumerate(zip(one, two, rows, p1)):
+            scale = max(1.0, p.abs().max().item()) if scaled else 1.0
+            dk, dr = (a - p).abs().max().item(), (r - p).abs().max().item()
+            eps = 4 * float(torch.finfo(torch.float32).eps) * max(1.0, p.abs().max().item())
+            worst, share = max(worst, dk / scale), max(share, dk / max(2 * dr + eps, 1e-30))
+            if not (dk <= ONE_PASS_BAR * scale and dk <= 2 * dr + eps and torch.isfinite(a).all()):
+                faults.append(f"{what} output {i}: {dk:.3e} from the plain one-pass version (bar {ONE_PASS_BAR:g}"
+                              f"{' x ' + format(scale, '.3g') if scaled else ''}; the row tiles {dr:.3e})")
+            if not torch.equal(a, b):
+                faults.append(f"{what} output {i} differs between two calls")
+        return worst, share
+
+    def loses(what: str, ms: dict, against: tuple[str, ...]) -> None:
+        if not median(ms["wide"]) < min(median(ms[k]) for k in against):
+            faults.append(f"{what}: the one-pass wide route {median(ms['wide']):.3f} ms loses to "
+                          + ", ".join(f"{k} {median(ms[k]):.3f}" for k in against))
+
+    launches, rows_out, lines = {}, [], []
+    model.precision = "default"
+    try:
+        # (a) sampling, the sample's rows and the rank batch
+        traj = torch.from_numpy(rng.normal(size=(N_COND, T, 3)).astype(np.float32))
+        out, secs, _, routes = zoo_sample(model, params, traj, dev)
+        if routes != {fk.ROUTE_WIDE_TF32: 1}:
+            fail(f"{name} sampling at precision 'default' launched K1 {routes}, not once on {fk.ROUTE_WIDE_TF32}")
+        launches["K1 inverse, wide, tf32"] = routes[fk.ROUTE_WIDE_TF32]
+        cond_b = torch.from_numpy(rng.normal(size=(RANK_CONDITIONS, T, 3)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            with matmul_precision(model.precision):  # the projections as the model's path computes them
+                kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj.to(dev),)))
+                kr, hr = model._fused_flow_args(params, model.encode(params, (cond_b,)))
+            x = model.draw_z(torch.Generator().manual_seed(SEED), M_DRAWS, N_COND).to(dev).reshape(-1, size)
+            xr = torch.randn((RANK_DRAWS * RANK_CONDITIONS, size),
+                             generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            inv = {}
+            for label, xx, kk, hh, n in (("sample", x, kargs, h_proj, N_COND), ("rank", xr, kr, hr, RANK_CONDITIONS)):
+                wide = lambda xx=xx, kk=kk, hh=hh, n=n: fk.fused_flow(xx, hh, **kk, inverse=True, n_cond=n, mode=TF)
+                fns = {"wide": wide, "rows": forced("WIDE_WGMMA_MAX_TN", wide),
+                       "plain": lambda xx=xx, kk=kk, hh=hh, n=n: fk.fused_flow_reference(xx, hh, **kk, inverse=True,
+                                                                                         n_cond=n),
+                       "3xtf32 wide": lambda xx=xx, kk=kk, hh=hh, n=n: fk.fused_flow(xx, hh, **kk, inverse=True,
+                                                                                     n_cond=n, mode=X3)}
+                p1 = fk.fused_flow_reference(xx, hh, **kk, inverse=True, n_cond=n, mm=matmul_tf32)
+                if label == "sample":
+                    sample_err = (out.reshape(-1, size) - p1).abs().max().item()
+                    if not sample_err <= ONE_PASS_BAR:
+                        fail(f"{name}'s sample at precision 'default' is {sample_err:.3e} from the plain one-pass "
+                             f"version on the same draws (bar {ONE_PASS_BAR:g})")
+                d = hold(f"K1's inverse ({label})", [wide()], [wide()], [fns["rows"]()], [p1])
+                del p1
+                inv[label] = (turns(fns), d, flow_work(kk, hh, xx.shape[0], H), xx.shape[0])
+                loses(f"K1's inverse on {xx.shape[0]:,} rows", inv[label][0], ("rows", "plain", "3xtf32 wide"))
+        ms80, d80, work80, _ = inv["sample"]
+        rows_out.append(kernel_row("fused_flow[inverse, wide, tf32]", src, f"{rep}:162",
+                                   launches["K1 inverse, wide, tf32"], d80[0], ms80["wide"], ms80["plain"], work80,
+                                   peaks, None, ARITH_TF32))
+        smem, resident = fk.wide_card_layout(Hp, size, d_a, mode=TF)
+        for label, (ms, d, work, n_rows) in inv.items():
+            lines.append(f"    inverse, {('sample' if label == 'sample' else 'rank batch')} ({n_rows:,} rows), in "
+                         f"turns: one-pass wide "
+                         f"{median(ms['wide']):.2f} ms, one-pass row tiles (forced) {median(ms['rows']):.2f}, float32 "
+                         f"plain {median(ms['plain']):.2f}, 3xTF32 wide {median(ms['3xtf32 wide']):.2f} (bound "
+                         f"{bound_ms(work, peaks, ARITH_TF32)[0]:.2f}); max|d| from the plain one-pass version "
+                         f"{d[0]:.2e}, {d[1]:.2f} of twice the row tiles'")
+
+        # (b) log_prob and the forward of 4096 draws; the same through K4, forward and inverse
+        n_lp = LOGPROB_ROWS // N_COND
+        y_lp = out[:n_lp].reshape(-1, size).contiguous()
+        cond_lp = torch.from_numpy(rng.normal(size=(N_COND, T, 3)).astype(np.float32)).to(dev).repeat(n_lp, 1, 1)
+        with torch.no_grad():
+            zero_flow_counts()
+            lp = model.log_prob(params, y_lp, cond_lp)
+            z, ld = model.forward(params, y_lp, cond_lp)
+            torch.cuda.synchronize()
+            routes_b = dict(fk.fused_flow.route_launches)
+            with matmul_precision(model.precision):
+                kl, hl = model._fused_flow_args(params, model.encode(params, (cond_lp,)))
+            zr, ldr = fk.fused_flow_reference(y_lp, hl, **kl, inverse=False, n_cond=hl.shape[1], mm=matmul_tf32)
+        err_b = max((z - zr).abs().max().item(), (ld - ldr).abs().max().item())
+        if routes_b != {fk.ROUTE_WIDE_FWD_TF32: 2} or not torch.isfinite(lp).all() or not err_b <= ONE_PASS_BAR:
+            fail(f"{name}'s log_prob and forward at precision 'default' launched K1 {routes_b} (expected 2 on "
+                 f"{fk.ROUTE_WIDE_FWD_TF32}); z/logdet {err_b:.3e} from the plain one-pass version")
+        launches["K1 forward, wide, tf32"] = routes_b[fk.ROUTE_WIDE_FWD_TF32]
+        model.use_pallas_coupling = True
+        try:
+            with torch.no_grad():
+                zero_flow_counts()
+                k4_before = dict(ck.fused_affine_coupling.mode_launches)
+                z4, ld4 = model.forward(params, y_lp, cond_lp)
+                k4_fwd = ck.fused_affine_coupling.mode_launches[TF] - k4_before.get(TF, 0)
+                y4 = model.inverse_given_h(params, z4, model.encode(params, (cond_lp,)))
+                torch.cuda.synchronize()
+                k4_inv = ck.fused_affine_coupling.mode_launches[TF] - k4_before.get(TF, 0) - k4_fwd
+                k4_flow = fk.fused_flow.launches
+        finally:
+            model.use_pallas_coupling = False
+        k4_routes = {d: fk.flow_route(Hp, size, d_a, d == "inverse", TF) for d in ("inverse", "forward")}
+        if (k4_fwd != model.n_blocks or k4_inv != model.n_blocks or k4_flow
+                or k4_routes != {"inverse": fk.ROUTE_WIDE_TF32, "forward": fk.ROUTE_WIDE_FWD_TF32}
+                or not all(torch.isfinite(t).all() for t in (z4, ld4, y4))):
+            fail(f"{name} through K4 at precision 'default': {k4_fwd} forward and {k4_inv} inverse launches (expected "
+                 f"{model.n_blocks} each), K1 {k4_flow}, routes {k4_routes}, finite "
+                 f"{[bool(torch.isfinite(t).all()) for t in (z4, ld4, y4)]}")
+        launches["K4 forward, wide, tf32"], launches["K4 inverse, wide, tf32"] = k4_fwd, k4_inv
+
+        # (c) one training step at batch B, coupling dropout 0, training.precision "default"
+        cfg0 = copy.deepcopy(cfg)
+        cfg0["model"]["kwargs"]["dropout"] = 0.0
+        cfg0["training"]["precision"] = "default"
+        model0 = CondRealNVP.from_config(cfg0)
+        model0.precision = cfg0["training"]["precision"]  # as `Trainer.train` sets it
+        B, hw = int(cfg["training"]["batch_size"]), cfg["global"]["hybrid_weight"]
+        y_tr = rng.normal(size=(B, size)).astype(np.float32)
+        t_tr = rng.normal(size=(B, T, 3)).astype(np.float32)
+        trainer0 = Trainer(cfg0, data=(y_tr, [t_tr]), device=dev, seed=SEED, hybrid_weight=hw)
+        yb, cb = torch.from_numpy(y_tr).to(dev), [torch.from_numpy(t_tr).to(dev)]
+
+        def step(use_pallas: bool):
+            model0.use_pallas = use_pallas
+            p = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+            opt = make_optimizer("Adam", lr=2e-4).init(p)
+            return trainer0.train_step(model0, [p], opt, yb, cb, [torch.Generator(device=dev).manual_seed(SEED)])
+
+        zero_train_counts()
+        metrics_c = step(True)
+        torch.cuda.synchronize()
+        c = train_counts()
+        metrics_p = step(False)
+        err_c = ((metrics_c - metrics_p).abs() / metrics_p.abs().clamp(min=1.0)).max().item()
+        if (c["K2a"] != {fk.ROUTE_WIDE_FWD_TF32: 1} or c["K2b"] != {fk.ROUTE_WIDE_TRAIN_TF32: 1}
+                or not err_c <= ONE_PASS_BAR):
+            fail(f"{name}'s training step at precision 'default' launched K2a/K2b {c}, its metrics {err_c:.3e} from "
+                 f"the plain step's (bar {ONE_PASS_BAR:g} of their size)")
+        launches["K2a, wide, tf32"] = c["K2a"][fk.ROUTE_WIDE_FWD_TF32]
+        launches["K2b, wide, tf32"] = c["K2b"][fk.ROUTE_WIDE_TRAIN_TF32]
+        g = torch.Generator(device=dev).manual_seed(SEED + 25)
+        conds = [*cb, torch.randn(yb.shape, generator=g, device=dev), torch.randn(yb.shape[:1], generator=g, device=dev)]
+
+        def step_grads(use_pallas: bool) -> list:
+            model0.use_pallas = use_pallas
+            p = map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+            with matmul_precision(model0.precision):
+                cotangent_loss(model0, p, yb, conds, None)[0].backward()
+            return [t.grad for t in tree_leaves(p)]
+
+        grads_c = [(a, b) for a, b in zip(step_grads(True), step_grads(False)) if b is not None]
+        worst_c = max((a - b).abs().max().item() / max(1.0, b.abs().max().item()) for a, b in grads_c)
+        if not worst_c <= ONE_PASS_BAR:
+            fail(f"{name}'s training step at precision 'default': a grad is {worst_c:.3e} (of max(1, max |plain|)) "
+                 f"from the plain step's (bar {ONE_PASS_BAR:g})")
+        del grads_c
+
+        # (d) K1's forward, K2a, K2b and K4 on validation-shaped rows, in turns
+        t4096 = torch.from_numpy(rng.normal(size=(LOGPROB_ROWS, T, 3)).astype(np.float32)).to(dev)
+        x4096 = torch.randn((LOGPROB_ROWS, size), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        fwd, k2b, errs = {}, {}, {}
+        with torch.no_grad():
+            with matmul_precision(model.precision):
+                kv, hv = model._fused_flow_args(params, model.encode(params, (t4096,)))
+            args = [kv[n] for n in TRAIN_ARGS]
+            ws1, ws3 = (fk.train_weights(x4096, hv, kv["wm"], d_a, m) for m in (TF, X3))
+            for rows in (LOGPROB_ROWS, B):
+                xx, hh = x4096[:rows].contiguous(), hv[:, :rows].contiguous()
+                k1 = lambda xx=xx, hh=hh, rows=rows: fk.fused_flow(xx, hh, **kv, inverse=False, n_cond=rows, mode=TF)
+                fns = {"wide": k1, "rows": forced("WIDE_FWD_MAX_TN", k1),
+                       "plain": lambda xx=xx, hh=hh, rows=rows: fk.fused_flow_reference(xx, hh, **kv, inverse=False,
+                                                                                        n_cond=rows),
+                       "3xtf32 wide": lambda xx=xx, hh=hh, rows=rows: fk.fused_flow(xx, hh, **kv, inverse=False,
+                                                                                    n_cond=rows, mode=X3)}
+                d = hold(f"K1's forward ({rows} rows)", k1(), k1(), fns["rows"](),
+                         fk.fused_flow_reference(xx, hh, **kv, inverse=False, n_cond=rows, mm=matmul_tf32))
+                fwd[rows] = (turns(fns, 3), d, flow_work(kv, hh, rows, H))
+                bound = fk.fused_flow_train_fwd(xx, hh, *args, mode=TF, wstages=ws1)[2]
+                dz, dld = randn_cotangents(xx)
+                wide = lambda b=bound, hh=hh, dz=dz, dld=dld: fk.fused_flow_train_bwd(b, hh, dz, dld, *args, mode=TF,
+                                                                                       wstages=ws1)
+                fns = {"wide": wide, "rows": forced("WIDE_TRAIN_MAX_TN", wide),
+                       "plain": lambda b=bound, hh=hh, dz=dz, dld=dld: fk.fused_flow_train_backward_reference(
+                           b, hh, dz, dld, *args),
+                       "3xtf32 wide": lambda b=bound, hh=hh, dz=dz, dld=dld: fk.fused_flow_train_bwd(
+                           b, hh, dz, dld, *args, mode=X3, wstages=ws3)}
+                d = hold(f"K2b ({rows} rows)", wide(), wide(), fns["rows"](),
+                         fk.fused_flow_train_backward_reference(bound, hh, dz, dld, *args, mm=matmul_tf32), scaled=True)
+                k2b[rows] = (turns(fns), d)
+                if rows == LOGPROB_ROWS:
+                    k2a = lambda: fk.fused_flow_train_fwd(xx, hh, *args, mode=TF, wstages=ws1)
+                    fns = {"wide": k2a, "rows": forced("WIDE_FWD_MAX_TN", k2a),
+                           "plain": lambda: fk.fused_flow_train_reference(xx, hh, *args),
+                           "3xtf32 wide": lambda: fk.fused_flow_train_fwd(xx, hh, *args, mode=X3, wstages=ws3)}
+                    d_k2a = hold("K2a (4096 rows)", k2a(), k2a(), fns["rows"](),
+                                 fk.fused_flow_train_reference(xx, hh, *args, mm=matmul_tf32))
+                    ms_k2a = turns(fns, 3)
+                    loses("K2a at 4096 rows", ms_k2a, ("rows", "plain", "3xtf32 wide"))
+            # K4: the first block's coupling, the 4096 rows' conditions, both ways, beside its plain version
+            layers = params["blocks"]["coupling"]["a"]["layers"]
+            cw = dict(w1y=layers[0]["w"][0, :d_a].contiguous(), b1=layers[0]["b"][0].contiguous(),
+                      wm=[p["w"][0].contiguous() for p in layers[1:-1]],
+                      bm=[p["b"][0].contiguous() for p in layers[1:-1]],
+                      wout=layers[-1]["w"][0].contiguous(), bout=layers[-1]["b"][0].contiguous())
+            c4 = hv[0, :, :H].contiguous()
+            xa, xb = x4096[:, :d_a].contiguous(), x4096[:, d_a:].contiguous()
+            k4 = {}
+            for direction in ("forward", "inverse"):
+                inverse = direction == "inverse"
+                kern = lambda inverse=inverse: ck.fused_affine_coupling(xa, xb, c4, **cw, inverse=inverse,
+                                                                          n_cond=LOGPROB_ROWS, mode=TF)
+                plain = lambda inverse=inverse: ck.fused_affine_coupling_reference(xa, xb, c4, **cw, inverse=inverse,
+                                                                                   n_cond=LOGPROB_ROWS)
+                one = ck.fused_affine_coupling_reference(xa, xb, c4, **cw, inverse=inverse, n_cond=LOGPROB_ROWS,
+                                                         mm=matmul_tf32)
+                a, b = kern(), kern()
+                a, b, one = ((t,) if inverse else t for t in (a, b, one))
+                err = max((u - v).abs().max().item() for u, v in zip(a, one))
+                if not err <= ONE_PASS_BAR or not all(torch.equal(u, v) for u, v in zip(a, b)):
+                    faults.append(f"K4's {direction} on the one-pass wide route: {err:.3e} from its plain one-pass "
+                                  f"version, bit-equal {all(torch.equal(u, v) for u, v in zip(a, b))}")
+                k4[direction] = (turns({"wide": kern, "plain": plain}, 3), err,
+                                 coupling_work(cw, LOGPROB_ROWS, LOGPROB_ROWS, H, inverse))
+        for rows in (LOGPROB_ROWS, B):
+            against = ("rows", "plain", "3xtf32 wide") if rows == LOGPROB_ROWS else ("rows",)
+            loses(f"K1's forward at {rows} rows", fwd[rows][0], against)
+            loses(f"K2b at {rows} rows", k2b[rows][0], against)
+    finally:
+        model.precision = "highest"
+    if faults:
+        fail("the one-pass wide routes: " + "; ".join(faults))
+    src_t = "bcnf_tpu_torch/ops/csrc/flow_wide_train_wgmma.cu"
+    wk = train_work(kv, hv, LOGPROB_ROWS, H)
+    rows_out += [
+        kernel_row("fused_flow[forward, wide, tf32]", src, f"{rep}:162", launches["K1 forward, wide, tf32"],
+                   fwd[LOGPROB_ROWS][1][0], fwd[LOGPROB_ROWS][0]["wide"], fwd[LOGPROB_ROWS][0]["plain"],
+                   fwd[LOGPROB_ROWS][2], peaks, None, ARITH_TF32),
+        kernel_row("K2a[tf32, wide] fused_flow_train_fwd", src, f"{rep}:558", launches["K2a, wide, tf32"], d_k2a[0],
+                   ms_k2a["wide"], ms_k2a["plain"], wk[0], peaks, None, ARITH_TF32),
+        kernel_row("K2b[tf32, wide] fused_flow_train_bwd", src_t, f"{rep}:600", launches["K2b, wide, tf32"],
+                   k2b[LOGPROB_ROWS][1][0], k2b[LOGPROB_ROWS][0]["wide"], k2b[LOGPROB_ROWS][0]["plain"], wk[1], peaks,
+                   None, ARITH_TF32),
+        *(kernel_row(f"K4 fused_affine_coupling[{direction}, wide, tf32]", src, "bcnf_tpu/ops/coupling_kernel.py:69",
+                     launches[f"K4 {direction}, wide, tf32"], k4[direction][1], k4[direction][0]["wide"],
+                     k4[direction][0]["plain"], k4[direction][2], peaks, None, ARITH_TF32)
+          for direction in ("inverse", "forward")),
+    ]
+    tsmem, tres, gw_smem, gw_blocks = fk.wide_train_card_layout(Hp, size, d_a, mode=TF)
+    print(f"[13 model zoo, wide, one pass] {name} at precision 'default': sample {M_DRAWS}x{N_COND} in {secs:.3f} s, "
+          f"K1 launches {routes}, {sample_err:.2e} from the plain one-pass version on the same draws (bar "
+          f"{ONE_PASS_BAR:g}); the one-pass wide inverse {smem} B of shared memory a block, {resident} clusters "
+          f"resident; log_prob and forward of {y_lp.shape[0]} draws: K1 {routes_b}, z/logdet {err_b:.2e} from the "
+          f"plain one-pass version; through K4 {k4_fwd} forward and {k4_inv} inverse launches, finite; a training "
+          f"step at batch {B}, dropout 0: K2a {c['K2a']}, K2b {c['K2b']}, metrics {err_c:.2e} and grads {worst_c:.2e} "
+          f"(of max(1, max |plain|)) from the plain step's")
+    for line in lines:
+        print(line)
+    for rows in (LOGPROB_ROWS, B):
+        (ms, d, work), (m2, d2) = fwd[rows], k2b[rows]
+        print(f"    {rows} rows, in turns: K1 forward one-pass wide {median(ms['wide']):.3f} ms, row tiles "
+              f"{median(ms['rows']):.3f}, float32 plain {median(ms['plain']):.3f}, 3xTF32 wide "
+              f"{median(ms['3xtf32 wide']):.3f} (bound {bound_ms(work, peaks, ARITH_TF32)[0]:.3f}; {d[0]:.2e} from "
+              f"the plain one-pass version, {d[1]:.2f} of twice the row tiles'); K2b one-pass wide "
+              f"{median(m2['wide']):.2f} ms, row tiles {median(m2['rows']):.2f}, float32 plain "
+              f"{median(m2['plain']):.2f}, 3xTF32 wide {median(m2['3xtf32 wide']):.2f} (grads {d2[0]:.2e} of max(1, "
+              f"max |plain|) from the plain one-pass version, {d2[1]:.2f} of twice the row tiles')")
+    print(f"    K2a at {LOGPROB_ROWS} rows one-pass wide {median(ms_k2a['wide']):.3f} ms, row tiles "
+          f"{median(ms_k2a['rows']):.3f}, float32 plain {median(ms_k2a['plain']):.3f}, 3xTF32 wide "
+          f"{median(ms_k2a['3xtf32 wide']):.3f} ({d_k2a[0]:.2e} from the plain one-pass version); K4 at "
+          f"{LOGPROB_ROWS} rows: forward {median(k4['forward'][0]['wide']):.3f} ms (plain "
+          f"{median(k4['forward'][0]['plain']):.3f}), inverse {median(k4['inverse'][0]['wide']):.3f} ms (plain "
+          f"{median(k4['inverse'][0]['plain']):.3f}); K2b's rows kernel {tsmem} B of shared memory, {tres} clusters "
+          f"resident, weight-grad pass {gw_smem} B, {gw_blocks} blocks an SM; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return launches, rows_out
 
 

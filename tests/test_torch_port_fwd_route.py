@@ -37,17 +37,17 @@ def _constant(name: str) -> int:
 @pytest.mark.parametrize("H,wgmma", [(16, True), (100, True), (256, True), (526, True), (700, False), (1000, False)])
 def test_one_pass_forward_takes_wgmma_up_to_hp_544(H, wgmma):
     """The one-pass forward takes the `wgmma` forward at every padded width
-    up to 544 (the flagship's) and the one-pass row tiles at 768 and 1024;
-    the 3xTF32 forward likewise its own build of the `wgmma` forward, or
-    above 544 the wide forward (`csrc/flow_wide_wgmma.cu`), strict the FMA
-    kernel; the inverse its `wgmma` route up to 544, and above it the
-    one-pass row tiles and, in 3xTF32, the wide inverse (the same source)."""
+    up to 544 (the flagship's) and at 768 and 1024 the one-pass build of the
+    wide forward (`csrc/flow_wide_wgmma.cu`); the 3xTF32 forward likewise
+    its own build of the `wgmma` forward, or above 544 the wide forward,
+    strict the FMA kernel; the inverse its `wgmma` route up to 544, and
+    above it the wide inverse (the same source) of the mode."""
     Hp = fk.padded_width(H)
-    one_pass = fk.ROUTE_FWD_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32
+    one_pass = fk.ROUTE_FWD_WGMMA_TF32 if wgmma else fk.ROUTE_WIDE_FWD_TF32
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == one_pass
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == (fk.ROUTE_FWD_WGMMA if wgmma else fk.ROUTE_WIDE_FWD)
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_FMA) == fk.ROUTE_FMA
-    assert fk.flow_route(Hp, 19, 10, True, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
+    assert fk.flow_route(Hp, 19, 10, True, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma else fk.ROUTE_WIDE_TF32)
     assert fk.flow_route(Hp, 19, 10, True, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_WIDE)
     assert fk.ROUTE_LIBRARY[fk.ROUTE_FWD_WGMMA_TF32] == "flow_fwd_wgmma_tf32"
     assert fk.ROUTE_LIBRARY[fk.ROUTE_FWD_WGMMA] == "flow_fwd_wgmma"

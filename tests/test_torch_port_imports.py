@@ -297,14 +297,15 @@ def test_strict_layout_on_card_is_the_host_copy(cuda, Hp, size, d_a, B):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
-@pytest.mark.parametrize("hidden", [16, 526, 1000])  # wgmma up to Hp 544, row tiles above
+@pytest.mark.parametrize("hidden", [16, 526, 1000])  # wgmma up to Hp 544, the wide kernels above
 def test_one_pass_kernel_matches_plain_one_pass_on_card(cuda, inverse, hidden):
     """K1 in one TF32 pass on the one-pass route of its width (`wgmma` up to
-    Hp 544 both ways, the row tiles above), ragged rows included, within
+    Hp 544 both ways, the wide kernels' one-pass build above), ragged rows included, within
     5e-3 (the JAX package's reduced-mode bar) of the plain one-pass version;
     counted once on its route. The float32 plain version is off by more than
     the 3xTF32 kernel is: the pass is one."""
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA_TF32, ROUTE_ROWS_TF32, ROUTE_WGMMA_TF32
+    from bcnf_tpu_torch.ops.flow_kernel import (ROUTE_FWD_WGMMA_TF32, ROUTE_WGMMA_TF32, ROUTE_WIDE_FWD_TF32,
+                                                ROUTE_WIDE_TF32)
     from bcnf_tpu_torch.ops.tf32 import matmul_tf32
 
     model = _tiny_model(hidden)
@@ -313,7 +314,8 @@ def test_one_pass_kernel_matches_plain_one_pass_on_card(cuda, inverse, hidden):
     traj = torch.from_numpy(rng.normal(size=(6, 9, 3)).astype(np.float32)).to(cuda)
     kargs, h_proj = model._fused_flow_args(params, model.encode(params, (traj,)))
     x = torch.from_numpy(rng.normal(size=(6 * 37 + 5, 5)).astype(np.float32)).to(cuda)
-    route = ROUTE_ROWS_TF32 if hidden > 544 else ROUTE_WGMMA_TF32 if inverse else ROUTE_FWD_WGMMA_TF32
+    route = ((ROUTE_WIDE_TF32 if inverse else ROUTE_WIDE_FWD_TF32) if hidden > 544
+             else ROUTE_WGMMA_TF32 if inverse else ROUTE_FWD_WGMMA_TF32)
     before = fused_flow.route_launches[route]
     out = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6, mode="tf32")
     three = fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=6)
@@ -1047,14 +1049,15 @@ def test_one_pass_train_backward_on_wgmma_parts_on_card(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("hidden,mode,forced,route", [
     (526, "tf32", False, "wgmma_tf32"), (526, "tf32", True, "rows_tf32"), (526, "3xtf32", False, "wgmma"),
-    (700, "tf32", False, "rows_tf32"), (526, "3xtf32", True, "rows"), (700, "3xtf32", False, "rows"),
+    (700, "tf32", False, "wide_train_wgmma_tf32"), (526, "3xtf32", True, "rows"),
+    (700, "3xtf32", False, "wide_train_wgmma"),
 ], ids=["one_pass_544", "one_pass_544_forced_tiles", "3xtf32_544", "one_pass_768", "3xtf32_544_forced_tiles",
         "3xtf32_768"])
 def test_training_step_counts_the_train_backward_route_on_card(cuda, monkeypatch, hidden, mode, forced, route):
     """`fused_flow_train` through autograd runs K2b on the route of its mode
     and width, counted once in `route_launches`: each tensor-core mode on its
-    `wgmma` build at Hp 544 (on its row tiles when `TRAIN_WGMMA_MAX_TN` is 0,
-    and at Hp 768)."""
+    `wgmma` build at Hp 544 (on its row tiles when `TRAIN_WGMMA_MAX_TN` is 0)
+    and on the wide backward's build for the mode at Hp 768."""
     from bcnf_tpu_torch.ops import flow_kernel as fk
 
     if forced:

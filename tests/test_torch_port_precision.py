@@ -51,7 +51,6 @@ from bcnf_tpu_torch.ops.flow_kernel import (
     MODE_3XTF32,
     MODE_FMA,
     MODE_TF32,
-    ROUTE_ROWS_TF32,
     ROUTE_WGMMA,
     ROUTE_WGMMA_TF32,
     flow_route,
@@ -330,16 +329,24 @@ def test_prepare_weights_one_pass_stages_hold_hi_alone():
 @pytest.mark.parametrize("H", [16, 526, 700])
 def test_one_pass_routes_and_shared_memory(H):
     """The one-pass mode takes the routes of the default mode, built with one
-    pass: the inverse on `wgmma` up to Hp 544, the row tiles above; its
-    forward the one-pass `wgmma` forward up to Hp 544 and the row tiles
-    above; its `wgmma` stages are half as large (hi alone), and its ring
+    pass: the inverse on `wgmma` up to Hp 544, at 768 and 1024 the wide
+    inverse's one-pass build; its forward the one-pass `wgmma` forward up to
+    Hp 544 and the one-pass wide forward at 768 and 1024, where the one-pass
+    wide kernels take the 3xTF32 ones' shared memory (their hi ring takes the
+    lo ring's room; the inverse's tile is fragment-major, unpadded) and fit;
+    its `wgmma` stages are half as large (hi alone), and its ring
     holds as many in the same bytes as the 3xTF32 ring, whose stages are a
     block's half of hi and lo (`wgmma_ring`)."""
-    from bcnf_tpu_torch.ops.flow_kernel import ROUTE_FWD_WGMMA_TF32, padded_width, wgmma_ring
+    from bcnf_tpu_torch.ops.flow_kernel import (ROUTE_FWD_WGMMA_TF32, ROUTE_WIDE, ROUTE_WIDE_FWD,
+                                                ROUTE_WIDE_FWD_TF32, ROUTE_WIDE_TF32, padded_width, wgmma_ring)
 
     Hp = padded_width(H)
-    assert flow_route(Hp, 19, 10, True, MODE_TF32) == (ROUTE_WGMMA_TF32 if Hp <= 544 else ROUTE_ROWS_TF32)
-    assert flow_route(Hp, 19, 10, False, MODE_TF32) == (ROUTE_FWD_WGMMA_TF32 if Hp <= 544 else ROUTE_ROWS_TF32)
+    assert flow_route(Hp, 19, 10, True, MODE_TF32) == (ROUTE_WGMMA_TF32 if Hp <= 544 else ROUTE_WIDE_TF32)
+    assert flow_route(Hp, 19, 10, False, MODE_TF32) == (ROUTE_FWD_WGMMA_TF32 if Hp <= 544 else ROUTE_WIDE_FWD_TF32)
+    if Hp > 544:  # the one-pass inverse's tile is the forward's, fragment-major: 128 x 4 floats less
+        limit = flow_kernel.kernel_limit("kSmemLimit")
+        assert kernel_smem(ROUTE_WIDE_FWD_TF32, Hp, 19, 10) == kernel_smem(ROUTE_WIDE_FWD, Hp, 19, 10) <= limit
+        assert kernel_smem(ROUTE_WIDE_TF32, Hp, 19, 10) == kernel_smem(ROUTE_WIDE, Hp, 19, 10) - 4 * 128 * 4
     if Hp <= 544:
         (ring3, _), (ring1, _) = wgmma_ring(ROUTE_WGMMA), wgmma_ring(ROUTE_WGMMA_TF32)
         k = flow_kernel.kernel_limit("kWgStageK")

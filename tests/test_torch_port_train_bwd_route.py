@@ -29,15 +29,17 @@ def _constant(name: str) -> int:
 def test_one_pass_takes_wgmma_up_to_hp_544_and_3xtf32_never(H, wgmma, nh):
     """The one-pass mode takes the `wgmma` route at every padded width up to
     544 (the flagship's), whatever the batch (the route takes none), and the
-    one-pass row tiles at 768 and 1024; the 3xTF32 mode (the default) takes
-    its own build of the `wgmma` route at the same widths, and the wide
-    route (csrc/flow_wide_train_wgmma.cu) at 768 and 1024."""
+    wide route's one-pass build at 768 and 1024; the 3xTF32 mode (the
+    default) takes its own build of the `wgmma` route at the same widths,
+    and the wide route (csrc/flow_wide_train_wgmma.cu) at 768 and 1024."""
     Hp = fk.padded_width(H)
-    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
+    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma
+                                                                else fk.ROUTE_WIDE_TRAIN_TF32)
     assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_WIDE_TRAIN)
     assert fk.train_bwd_route(Hp, 19, 10, nh) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_WIDE_TRAIN)
     assert fk.TRAIN_BWD_LIBRARY[fk.ROUTE_WGMMA] == "flow_train_wgmma"
     assert fk.TRAIN_BWD_LIBRARY[fk.ROUTE_WIDE_TRAIN] == "flow_wide_train_wgmma"
+    assert fk.TRAIN_BWD_LIBRARY[fk.ROUTE_WIDE_TRAIN_TF32] == "flow_wide_train_wgmma_tf32"
 
 
 def test_forced_row_tiles(monkeypatch):
@@ -217,13 +219,15 @@ def test_3xtf32_training_takes_the_wgmma_routes_up_to_hp_544(H, wgmma, nh):
     """In 3xTF32 (the default mode) K2a takes the 3xTF32 `wgmma` forward and
     K2b the 3xTF32 `wgmma` route at every padded width up to 544; at 768
     and 1024 K2a the wide forward and K2b the wide route; the one-pass
-    routes and the strict ones do not move; the training gate opens
-    wherever it did."""
+    routes (at 768 and 1024 the wide routes' one-pass builds) and the strict
+    ones are their own; the training gate opens wherever it did."""
     Hp = fk.padded_width(H)
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == (fk.ROUTE_FWD_WGMMA if wgmma else fk.ROUTE_WIDE_FWD)
     assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_3XTF32) == (fk.ROUTE_WGMMA if wgmma else fk.ROUTE_WIDE_TRAIN)
-    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == (fk.ROUTE_FWD_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
-    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma else fk.ROUTE_ROWS_TF32)
+    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == (fk.ROUTE_FWD_WGMMA_TF32 if wgmma
+                                                              else fk.ROUTE_WIDE_FWD_TF32)
+    assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_TF32) == (fk.ROUTE_WGMMA_TF32 if wgmma
+                                                                else fk.ROUTE_WIDE_TRAIN_TF32)
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_FMA) == fk.ROUTE_FMA
     assert fk.train_bwd_route(Hp, 19, 10, nh, fk.MODE_FMA) == fk.ROUTE_FMA
     assert fk.train_kernels_take(Hp, 19, 10, nh, fk.MODE_3XTF32)
@@ -351,13 +355,14 @@ def test_train_weights_prepares_once_a_step_for_the_mode(monkeypatch, mode, H, p
     tensor at the widths the `wgmma` routes hold, one preparation in the
     mode's layout (3 passes in 3xTF32, 1 in one pass); in 3xTF32 at 1024,
     where K2b takes the wide route, one of both wide layouts
-    (`prepare_wide_train_weights`); none where no route reads them (the
+    (`prepare_wide_train_weights`, 3 passes); none where no route reads them (the
     strict kernels) or on a CPU tensor."""
     import types
 
     calls = []
     monkeypatch.setattr(fk, "prepare_train_weights", lambda wm, passes=1: calls.append(passes) or "prepared")
-    monkeypatch.setattr(fk, "prepare_wide_train_weights", lambda wm: calls.append("wide") or "prepared")
+    monkeypatch.setattr(fk, "prepare_wide_train_weights",
+                        lambda wm, passes=3: calls.append("wide" if passes == 3 else "wide one-pass") or "prepared")
     Hp, B, S, nh = fk.padded_width(H), 64, 3, 4
     x = types.SimpleNamespace(device=torch.device("cuda"), shape=(B, 19))
     h_proj = types.SimpleNamespace(shape=(S, B, Hp))

@@ -1,9 +1,11 @@
-"""K1's forward, K2a and K4's forward in 3xTF32 at the padded widths 768 and
-1024 on their own route, the wide forward (`csrc/flow_wide_wgmma.cu`, the
-wide inverse's source): clusters of Hp/128 blocks on a distributed tile,
+"""K1's forward, K2a and K4's forward at the padded widths 768 and 1024 on
+their own route, the wide forward (`csrc/flow_wide_wgmma.cu`, the wide
+inverse's source): clusters of Hp/128 blocks on a distributed tile, on
+tiles of 128 or (up to `WIDE_FWD_HALF_MAX_ROWS` rows) 64 rows; in 3xTF32
 the hidden weights streamed once in float32 and split in shared memory,
-each 8 k-steps' passes folded into float32 sums, on tiles of 128 or (up to
-`WIDE_FWD_HALF_MAX_ROWS` rows) 64 rows.
+each 16 k-steps' passes folded into float32 sums; in one pass (the
+source's one-pass build) streamed as rounded once a call, one `wgmma` a
+k-step into the running sums.
 
 On the CPU: the route (`flow_route`, by mode and shape, for K1, K2a and K4;
 `WIDE_FWD_MAX_TN` = 0 forces the row tiles; the other modes and the
@@ -12,8 +14,8 @@ source, its grid and tile rule, and the wide configuration
 (`configs/runs/dev/trajectory_LSTM_xsmall_large_hybrid_dual.yaml`, cut to 2
 blocks) against the JAX package: the port's `log_prob` and a
 `Trainer.val_step` (their plain path on the CPU), and the plain versions of
-K1's forward and K2a (float32, and in the kernel's 3xTF32 arithmetic)
-against JAX's Pallas kernels in interpret mode. The `gpu` tests hold the
+K1's forward and K2a (float32, and in the kernels' 3xTF32 and one-pass
+arithmetic) against JAX's Pallas kernels in interpret mode. The `gpu` tests hold the
 kernel against its plain version on a card:
 `python -m pytest tests/test_torch_port_wide_fwd.py -m gpu --noconftest`
 (JAX is imported only inside the tests that compare with it)."""
@@ -43,7 +45,7 @@ def _source_constant(name: str) -> int:
 def test_wide_forward_takes_the_3xtf32_forward_and_k2a_at_hp_768_and_1024(Hp):
     """The 3xTF32 forward at Hp 768 and 1024 (K1's, K2a's, K4's: one route)
     takes the wide forward, in the wide inverse's library; the one-pass
-    forward keeps its row tiles, strict the FMA kernel, the inverse the wide
+    forward the same source's one-pass build, strict the FMA kernel, the inverse the wide
     inverse; K2b takes its own wide route (csrc/flow_wide_train_wgmma.cu), so
     the training gate opens as before, and a training step prepares no
     `prepare_train_weights` layout there but the two wide layouts that the
@@ -52,7 +54,8 @@ def test_wide_forward_takes_the_3xtf32_forward_and_k2a_at_hp_768_and_1024(Hp):
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_WIDE_FWD
     assert fk.flow_route(Hp, 19, 10, False) == fk.ROUTE_WIDE_FWD  # the default mode
     assert fk.ROUTE_LIBRARY[fk.ROUTE_WIDE_FWD] == fk.ROUTE_LIBRARY[fk.ROUTE_WIDE] == "flow_wide_wgmma"
-    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
+    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == fk.ROUTE_WIDE_FWD_TF32
+    assert fk.ROUTE_LIBRARY[fk.ROUTE_WIDE_FWD_TF32] == fk.ROUTE_LIBRARY[fk.ROUTE_WIDE_TF32] == "flow_wide_wgmma_tf32"
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_FMA) == fk.ROUTE_FMA
     assert fk.flow_route(Hp, 19, 10, True, fk.MODE_3XTF32) == fk.ROUTE_WIDE
     assert fk.train_bwd_route(Hp, 19, 10, 4, fk.MODE_3XTF32) == fk.ROUTE_WIDE_TRAIN
@@ -61,9 +64,11 @@ def test_wide_forward_takes_the_3xtf32_forward_and_k2a_at_hp_768_and_1024(Hp):
     wm = types.SimpleNamespace(shape=(3, 4, Hp, Hp))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fk, "prepare_train_weights", lambda *a, **k: pytest.fail("prepared a wgmma layout"))
-        mp.setattr(fk, "prepare_wide_train_weights", lambda w: ("wide", w))
+        mp.setattr(fk, "prepare_wide_train_weights", lambda w, passes=3: ("wide", w, passes))
         assert fk.train_weights(cuda_like, types.SimpleNamespace(shape=(3, 64, Hp)), wm, 10,
-                                fk.MODE_3XTF32) == ("wide", wm)
+                                fk.MODE_3XTF32) == ("wide", wm, 3)
+        assert fk.train_weights(cuda_like, types.SimpleNamespace(shape=(3, 64, Hp)), wm, 10,
+                                fk.MODE_TF32) == ("wide", wm, 1)
 
 
 @pytest.mark.parametrize("Hp", [32, 128, 544])
@@ -81,15 +86,17 @@ def test_forward_routes_below_768_do_not_move(Hp):
                                           (24, (fk.ROUTE_WIDE_FWD, fk.ROUTE_ROWS)),
                                           (32, (fk.ROUTE_WIDE_FWD, fk.ROUTE_WIDE_FWD))])
 def test_wide_forward_limit_forces_the_row_tiles(monkeypatch, limit, routes):
-    """`WIDE_FWD_MAX_TN` bounds the widths the wide forward takes: 0 forces
-    the row tiles at both (as the tools and the smoke time them), 24 keeps
-    them at 1024; the inverse (its own limit), the other modes and K2b (the
-    wide route, its own limit) do not move."""
+    """`WIDE_FWD_MAX_TN` bounds the widths the wide forward takes in both
+    modes: 0 forces the row tiles of the mode at both (as the tools and the
+    smoke time them), 24 keeps them at 1024; the inverse (its own limit),
+    strict and K2b (the wide route, its own limit) do not move."""
     monkeypatch.setattr(fk, "WIDE_FWD_MAX_TN", limit)
     assert (fk.flow_route(768, 19, 10, False), fk.flow_route(1024, 19, 10, False)) == routes
+    one_pass = {fk.ROUTE_ROWS: fk.ROUTE_ROWS_TF32, fk.ROUTE_WIDE_FWD: fk.ROUTE_WIDE_FWD_TF32}
+    assert (fk.flow_route(768, 19, 10, False, fk.MODE_TF32),
+            fk.flow_route(1024, 19, 10, False, fk.MODE_TF32)) == tuple(one_pass[r] for r in routes)
     for Hp in (768, 1024):
         assert fk.flow_route(Hp, 19, 10, True) == fk.ROUTE_WIDE
-        assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
         assert fk.flow_route(Hp, 19, 10, False, fk.MODE_FMA) == fk.ROUTE_FMA
         assert fk.train_bwd_route(Hp, 19, 10, 4) == fk.ROUTE_WIDE_TRAIN
 
@@ -99,7 +106,9 @@ def test_k4_forward_takes_the_wide_forward(H):
     """K4 is K1 at one step (`coupling_flow_args`): its 3xTF32 forward at
     those widths takes the wide forward, on the layout the wide inverse
     reads too (`prepare_wide_weights`, which K4 keeps once a coupling for
-    both directions); a layout of another route is refused."""
+    both directions); a layout of another route is refused; its one-pass
+    forward takes the one-pass wide forward, on the one-pass layout, which
+    the 3xTF32 route refuses."""
     rng = np.random.default_rng(H)
 
     def t(*shape):
@@ -109,11 +118,13 @@ def test_k4_forward_takes_the_wide_forward(H):
                                  t(H, 18), t(18))
     Hp = args["b1"].shape[-1]
     assert fk.flow_route(Hp, 19, 10, False, fk.MODE_3XTF32) == fk.ROUTE_WIDE_FWD
-    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
+    assert fk.flow_route(Hp, 19, 10, False, fk.MODE_TF32) == fk.ROUTE_WIDE_FWD_TF32
+    one_pass = fk.prepare_wide_weights(args["wm"], passes=1)
+    assert torch.equal(fk.route_weights(fk.ROUTE_WIDE_FWD_TF32, args["wm"]), one_pass)
     staged = fk.prepare_wide_weights(args["wm"])
     assert torch.equal(fk.route_weights(fk.ROUTE_WIDE_FWD, args["wm"]), staged)
     assert fk.route_weights(fk.ROUTE_WIDE_FWD, args["wm"], staged) is staged
-    for wrong in (fk.prepare_weights(args["wm"]), staged[:, :2].contiguous(), staged.double()):
+    for wrong in (fk.prepare_weights(args["wm"]), staged[:, :2].contiguous(), staged.double(), one_pass):
         with pytest.raises(ValueError, match="laid out for its route"):
             fk.route_weights(fk.ROUTE_WIDE_FWD, args["wm"], wrong)
 
@@ -276,57 +287,81 @@ def _wide_kernel_args(jm, jp, rng, rows: int):
     return kargs, h_proj, rng.normal(size=(rows, 19)).astype(np.float32)
 
 
-@pytest.mark.parametrize("arith", ["float32", "3xtf32"])
+@pytest.mark.parametrize("arith", ["float32", "3xtf32", "tf32"])
 def test_wide_config_k1_forward_plain_version_matches_pallas_interpret(arith):
     """K1's forward plain version at the wide configuration's arguments,
     float32 and in the kernel's 3xTF32 arithmetic (`tf32.matmul_3xtf32` for
     every MLP product), against JAX's `fused_flow` forward through its
     Pallas kernel in interpret mode at "highest": z and logdet within atol
-    1e-4; the route the card takes at this shape is the wide forward."""
+    1e-4; the route the card takes at this shape is the wide forward. In the
+    one-pass arithmetic (`tf32.matmul_tf32`), against JAX's kernel at
+    "default" at its reduced bar, and off float32 (`_check_reduced`); the
+    card takes the one-pass wide forward there."""
     import jax.numpy as jnp
 
     from bcnf_tpu.ops.flow_kernel import fused_flow as jax_fused_flow
-    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32
+    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
+    from tests.test_torch_port_precision import _check_reduced
 
     jm, tm, jp, tp, rng, _ = _wide_pair()
     kargs, h_proj, x = _wide_kernel_args(jm, jp, rng, 8)
+    one = arith == "tf32"
     z_ref, ld_ref = jax_fused_flow(jnp.asarray(x), h_proj, **kargs, inverse=False, n_cond=8, block_b=8,
-                                   precision="highest", interpret=True)
+                                   precision="default" if one else "highest", interpret=True)
     args = {k: torch.from_numpy(np.array(v)) for k, v in kargs.items()}
-    assert h_proj.shape[-1] == 1024 and fk.flow_route(1024, 19, tm.coupling.d_a, False) == fk.ROUTE_WIDE_FWD
-    z, ld = fk.fused_flow_reference(torch.from_numpy(x), torch.from_numpy(np.asarray(h_proj)), **args,
-                                    inverse=False, n_cond=8, mm=matmul_3xtf32 if arith == "3xtf32" else torch.matmul)
+    mode, route = (fk.MODE_TF32, fk.ROUTE_WIDE_FWD_TF32) if one else (fk.MODE_3XTF32, fk.ROUTE_WIDE_FWD)
+    assert h_proj.shape[-1] == 1024 and fk.flow_route(1024, 19, tm.coupling.d_a, False, mode) == route
+    mm = {"float32": torch.matmul, "3xtf32": matmul_3xtf32, "tf32": matmul_tf32}[arith]
+    hp = torch.from_numpy(np.asarray(h_proj))
+    z, ld = fk.fused_flow_reference(torch.from_numpy(x), hp, **args, inverse=False, n_cond=8, mm=mm)
+    if one:
+        z32, ld32 = fk.fused_flow_reference(torch.from_numpy(x), hp, **args, inverse=False, n_cond=8)
+        _check_reduced(z.numpy(), z32.numpy(), np.asarray(z_ref), "z")
+        _check_reduced(ld.numpy(), ld32.numpy(), np.asarray(ld_ref).reshape(-1), "logdet")
+        return
     np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=1e-4, rtol=0)
     np.testing.assert_allclose(ld.numpy(), np.asarray(ld_ref).reshape(-1), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("arith", ["float32", "3xtf32"])
+@pytest.mark.parametrize("arith", ["float32", "3xtf32", "tf32"])
 def test_wide_k2a_plain_version_matches_pallas_interpret(arith):
     """K2a's plain version at the wide configuration's arguments (Hp 1024, 2
     steps of 4 hidden layers, 8 rows with their own conditions), float32
     and in the kernel's 3xTF32 arithmetic, against JAX's `fwd_call` (the
     forward of `_make_fused_flow_train`'s custom VJP, `_flow_fwd_train_kernel`)
     in interpret mode at "highest": z, logdet and every step's input rows
-    (`bound`) within atol 1e-4; step 0's input is the batch itself."""
+    (`bound`) within atol 1e-4; step 0's input is the batch itself. In the
+    one-pass arithmetic against JAX's at "default", at its reduced bar and
+    off float32 (`_check_reduced`)."""
     import jax.numpy as jnp
 
     from bcnf_tpu.ops.flow_kernel import _make_fused_flow_train
-    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32
+    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
+    from tests.test_torch_port_precision import _check_reduced
 
     jm, tm, jp, tp, rng, _ = _wide_pair()
     B = 8
     kargs, h_proj, x = _wide_kernel_args(jm, jp, rng, B)
     S, _, Hp = h_proj.shape
     d_a, nh = kargs["w1y"].shape[1], kargs["wm"].shape[1]
-    f = _make_fused_flow_train(S, nh, d_a, 19 - d_a, Hp, B, "highest", True)
+    one = arith == "tf32"
+    f = _make_fused_flow_train(S, nh, d_a, 19 - d_a, Hp, B, "default" if one else "highest", True)
     (z_ref, ld_ref), res = f.fwd(jnp.asarray(x), h_proj, kargs["an_scale"][:, None, :], kargs["an_bias"][:, None, :],
                                  kargs["ortho"], kargs["w1y"], kargs["b1"][:, None, :], kargs["wm"], kargs["bm"],
                                  kargs["wout"], kargs["bout"][:, None, :])
     assert Hp == 1024 and fk.flow_route(Hp, 19, d_a, False) == fk.ROUTE_WIDE_FWD
-    z, ld, bound = fk.fused_flow_train_reference(
-        torch.from_numpy(x), torch.from_numpy(np.asarray(h_proj)),
-        *[torch.from_numpy(np.asarray(kargs[n])) for n in ARG_NAMES],
-        mm=matmul_3xtf32 if arith == "3xtf32" else torch.matmul)
+    assert fk.flow_route(Hp, 19, d_a, False, fk.MODE_TF32) == fk.ROUTE_WIDE_FWD_TF32
+    targs = [torch.from_numpy(np.asarray(kargs[n])) for n in ARG_NAMES]
+    hp = torch.from_numpy(np.asarray(h_proj))
+    mm = {"float32": torch.matmul, "3xtf32": matmul_3xtf32, "tf32": matmul_tf32}[arith]
+    z, ld, bound = fk.fused_flow_train_reference(torch.from_numpy(x), hp, *targs, mm=mm)
+    if one:
+        f32 = fk.fused_flow_train_reference(torch.from_numpy(x), hp, *targs)
+        for name, a, a32, r in zip(("z", "logdet"), (z, ld), f32, (z_ref, ld_ref)):
+            _check_reduced(a.numpy(), a32.numpy(), np.asarray(r), name)
+        _check_reduced(bound[1:].numpy(), f32[2][1:].numpy(), np.asarray(res[0])[1:], "bound")
+        np.testing.assert_array_equal(bound[0].numpy(), x)
+        return
     np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), atol=1e-4, rtol=0)
     np.testing.assert_allclose(ld.numpy(), np.asarray(ld_ref), atol=1e-4, rtol=0)
     np.testing.assert_allclose(bound.numpy(), np.asarray(res[0]), atol=1e-4, rtol=0)
@@ -453,3 +488,105 @@ def test_wide_k4_forward_on_card(cuda):
         before[0] + 2, before[1] + 1)
     torch.testing.assert_close(zb, ref[0], atol=1e-4, rtol=0)
     torch.testing.assert_close(ld, ref[1], atol=1e-4, rtol=0)
+
+
+ONE_PASS_BAR = 5e-3  # JAX's reduced-mode bar (tests/test_flow_kernel.py:130-141)
+
+
+def _one_pass_check(one, two, rows, p1) -> None:
+    """The one-pass route's outputs `one` against the plain one-pass version
+    `p1`: within the reduced bar, no further than twice the one-pass row
+    tiles' (forced) distance (plus 4 float32 steps), and equal to the bit to
+    a second call's `two`."""
+    for a, b, r, p in zip(one, two, rows, p1):
+        dk, dr = (a - p).abs().max().item(), (r - p).abs().max().item()
+        eps = 4 * float(torch.finfo(torch.float32).eps) * max(1.0, p.abs().max().item())
+        assert dk <= ONE_PASS_BAR and dk <= 2 * dr + eps, (dk, dr)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half_max", [0, 1 << 30], ids=["128-row tiles", "64-row tiles"])
+@pytest.mark.parametrize("H,B,nh,size,d_a", [(700, 257, 4, 19, 10), (1000, 4099, 4, 19, 10), (1024, 65, 1, 21, 9),
+                                             (1024, 323, 0, 19, 10)])
+def test_wide_one_pass_forward_matches_plain_version_on_card(cuda, monkeypatch, half_max, H, B, nh, size, d_a):
+    """K1's forward on the one-pass wide forward, each tile: z and logdet
+    within the reduced bar of the plain one-pass version, no further from it
+    than twice the one-pass row tiles (forced), equal to the bit between two
+    calls, counted on its route; ragged rows, N = 7, no hidden layer."""
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    monkeypatch.setattr(fk, "WIDE_FWD_HALF_MAX_ROWS", half_max)
+    S, N = 3, 7
+    kargs, h_proj, x = _card_args(cuda, H, S, nh, size, d_a, N, seed=H + B + 2)
+    x = x[:B].contiguous()
+    before = fk.fused_flow.route_launches[fk.ROUTE_WIDE_FWD_TF32]
+    with torch.no_grad():
+        one = fk.fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N, mode=fk.MODE_TF32)
+        two = fk.fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N, mode=fk.MODE_TF32)
+        monkeypatch.setattr(fk, "WIDE_FWD_MAX_TN", 0)
+        rows = fk.fused_flow(x, h_proj, **kargs, inverse=False, n_cond=N, mode=fk.MODE_TF32)
+        p1 = fk.fused_flow_reference(x, h_proj, **kargs, inverse=False, n_cond=N, mm=matmul_tf32)
+        torch.cuda.synchronize()
+    assert fk.fused_flow.route_launches[fk.ROUTE_WIDE_FWD_TF32] == before + 2
+    _one_pass_check(one, two, rows, p1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,B", [(700, 257), (1000, 4099)])
+def test_wide_one_pass_k2a_matches_plain_version_on_card(cuda, H, B):
+    """K2a on the one-pass wide forward with its step-input store: z, logdet
+    and every step's input rows within the reduced bar of the plain one-pass
+    version and no further than twice the one-pass row tiles, equal to the
+    bit between calls, counted on its route and mode; on the step's one-pass
+    layout (`train_weights`) or its own, the same bits."""
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    S, nh, size, d_a = 3, 4, 19, 10
+    kargs, h_proj, x = _card_args(cuda, H, S, nh, size, d_a, B, seed=H + 3)
+    x = x[:B].contiguous()
+    args = [kargs[n] for n in ARG_NAMES]
+    before = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_WIDE_FWD_TF32],
+              fk.fused_flow_train_fwd.mode_launches[fk.MODE_TF32])
+    with torch.no_grad():
+        ws = fk.train_weights(x, h_proj, kargs["wm"], d_a, fk.MODE_TF32)
+        one = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_TF32, wstages=ws)
+        two = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_TF32)
+        old, fk.WIDE_FWD_MAX_TN = fk.WIDE_FWD_MAX_TN, 0
+        try:
+            rows = fk.fused_flow_train_fwd(x, h_proj, *args, mode=fk.MODE_TF32)
+        finally:
+            fk.WIDE_FWD_MAX_TN = old
+        p1 = fk.fused_flow_train_reference(x, h_proj, *args, mm=matmul_tf32)
+        torch.cuda.synchronize()
+    assert (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_WIDE_FWD_TF32],
+            fk.fused_flow_train_fwd.mode_launches[fk.MODE_TF32]) == (before[0] + 2, before[1] + 3)
+    _one_pass_check(one, two, rows, p1)
+
+
+@pytest.mark.gpu
+def test_wide_one_pass_k4_forward_on_card(cuda):
+    """K4's one-pass forward at Hp 1024 runs the one-pass wide forward at one
+    step: within the reduced bar of its plain one-pass version, counted in
+    K4's launches; the coupling's one-pass layout, prepared once, serves
+    both directions."""
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    rng = np.random.default_rng(4)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+
+    H = 1000
+    x_a, x_b, hp = t(4099, 10), t(4099, 9), t(8, H, scale=0.5)
+    weights = dict(w1y=t(10, H, scale=0.3), b1=t(H, scale=0.1), wm=[t(H, H, scale=H ** -0.5) for _ in range(4)],
+                   bm=[t(H, scale=0.1) for _ in range(4)], wout=t(H, 18, scale=0.01), bout=t(18, scale=0.1))
+    before = ck.fused_affine_coupling.launches, ck.fused_affine_coupling.stage_preparations
+    with torch.no_grad():
+        zb, ld = ck.fused_affine_coupling(x_a, x_b, hp, **weights, n_cond=8, mode=fk.MODE_TF32)
+        ck.fused_affine_coupling(x_a, x_b, hp, **weights, inverse=True, n_cond=8, mode=fk.MODE_TF32)
+        ref = ck.fused_affine_coupling_reference(x_a, x_b, hp, **weights, inverse=False, n_cond=8, mm=matmul_tf32)
+        torch.cuda.synchronize()
+    assert (ck.fused_affine_coupling.launches, ck.fused_affine_coupling.stage_preparations) == (
+        before[0] + 2, before[1] + 1)
+    assert (zb - ref[0]).abs().max().item() <= ONE_PASS_BAR and (ld - ref[1]).abs().max().item() <= ONE_PASS_BAR

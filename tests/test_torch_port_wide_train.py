@@ -38,14 +38,17 @@ def _source_constant(name: str, source: str = "flow_wide_wgmma.cu") -> int:
                                           (24, (fk.ROUTE_WIDE_TRAIN, fk.ROUTE_ROWS)),
                                           (32, (fk.ROUTE_WIDE_TRAIN, fk.ROUTE_WIDE_TRAIN))])
 def test_wide_train_limit_forces_the_row_tiles(monkeypatch, limit, routes):
-    """`WIDE_TRAIN_MAX_TN` bounds the widths the wide K2b takes: 0 forces the
-    row tiles at both (as the tools and the smoke time them), 24 keeps them at
-    1024; the forward routes and the other modes do not move."""
+    """`WIDE_TRAIN_MAX_TN` bounds the widths the wide K2b takes in both
+    modes: 0 forces the row tiles of the mode at both (as the tools and the
+    smoke time them), 24 keeps them at 1024; the forward routes and strict
+    do not move."""
     monkeypatch.setattr(fk, "WIDE_TRAIN_MAX_TN", limit)
     assert (fk.train_bwd_route(768, 19, 10, 4), fk.train_bwd_route(1024, 19, 10, 4)) == routes
+    one_pass = {fk.ROUTE_ROWS: fk.ROUTE_ROWS_TF32, fk.ROUTE_WIDE_TRAIN: fk.ROUTE_WIDE_TRAIN_TF32}
+    assert (fk.train_bwd_route(768, 19, 10, 4, fk.MODE_TF32),
+            fk.train_bwd_route(1024, 19, 10, 4, fk.MODE_TF32)) == tuple(one_pass[r] for r in routes)
     for Hp in (768, 1024):
         assert fk.flow_route(Hp, 19, 10, False) == fk.ROUTE_WIDE_FWD
-        assert fk.train_bwd_route(Hp, 19, 10, 4, fk.MODE_TF32) == fk.ROUTE_ROWS_TF32
         assert fk.train_bwd_route(Hp, 19, 10, 4, fk.MODE_FMA) == fk.ROUTE_FMA
 
 
@@ -79,28 +82,46 @@ def test_wide_train_weights_match_their_index_model():
     assert torch.equal(got[0], fk.prepare_wide_weights(torch.from_numpy(wm)))
 
 
+def test_wide_one_pass_train_weights_match_their_index_model():
+    """The step's one-pass layout (`prepare_wide_train_weights(wm,
+    passes=1)`): the index model of both directions with each entry rounded
+    to TF32 (`round_tf32`), under the one-pass axis of 1 after the k-steps;
+    the first direction is the one-pass wide forward's own layout."""
+    from bcnf_tpu_torch.ops.tf32 import round_tf32
+
+    k, cols = _source_constant("kWwStageK"), _source_constant("kWwCols")
+    wm = np.random.default_rng(7).normal(size=(2, 3, 256, 256)).astype(np.float32)
+    got = fk.prepare_wide_train_weights(torch.from_numpy(wm), passes=1)
+    assert got.shape == (2, 2, 3, 256 // 8 // k, 256 // cols, k, 1, cols // 8, 2, 8, 4)
+    np.testing.assert_array_equal(got[:, :, :, :, :, :, 0].numpy(),
+                                  round_tf32(torch.from_numpy(_index_model(wm, k, cols))).numpy())
+    assert torch.equal(got[0], fk.prepare_wide_weights(torch.from_numpy(wm), passes=1))
+
+
 @pytest.mark.parametrize("H,mode,expected", [
-    (1000, "3xtf32", "wide"), (700, "3xtf32", "wide"), (526, "3xtf32", 3), (1000, "tf32", None), (1000, "fma", None),
+    (1000, "3xtf32", "wide"), (700, "3xtf32", "wide"), (526, "3xtf32", 3), (1000, "tf32", "wide one-pass"),
+    (1000, "fma", None),
 ], ids=["3xtf32_1024", "3xtf32_768", "3xtf32_544", "one_pass_1024", "strict_1024"])
 def test_train_weights_prepares_both_layouts_once_a_step(monkeypatch, H, mode, expected):
     """A training step's hidden weights (`train_weights`, which
-    `_FusedFlowTrain.forward` calls once and hands to K2a and K2b): in 3xTF32
-    at Hp 768 and 1024 one preparation of both directions
-    (`prepare_wide_train_weights`); at 544 the `wgmma` routes' hi/lo layout;
-    none for the one-pass row tiles or strict there, nor on a CPU tensor.
-    With the row tiles forced K2a's wide forward lays out its own again."""
+    `_FusedFlowTrain.forward` calls once and hands to K2a and K2b): at Hp
+    768 and 1024 one preparation of both directions for the mode
+    (`prepare_wide_train_weights`, 3 passes or 1); at 544 the `wgmma`
+    routes' hi/lo layout; none for strict there, nor on a CPU tensor. With
+    the row tiles forced K2a's wide forward lays out its own again."""
     calls = []
-    monkeypatch.setattr(fk, "prepare_wide_train_weights", lambda wm: calls.append("wide") or "both")
+    monkeypatch.setattr(fk, "prepare_wide_train_weights",
+                        lambda wm, passes=3: calls.append("wide" if passes == 3 else "wide one-pass") or "both")
     monkeypatch.setattr(fk, "prepare_train_weights", lambda wm, passes=1: calls.append(passes) or "hi/lo")
     Hp, B, S, nh = fk.padded_width(H), 64, 3, 4
     x = types.SimpleNamespace(device=torch.device("cuda"), shape=(B, 19))
     h_proj, wm = types.SimpleNamespace(shape=(S, B, Hp)), types.SimpleNamespace(shape=(S, nh, Hp, Hp))
     got = fk.train_weights(x, h_proj, wm, 10, mode)
-    want = {"wide": "both", 3: "hi/lo", None: None}[expected]
+    want = {"wide": "both", "wide one-pass": "both", 3: "hi/lo", None: None}[expected]
     assert (got, calls) == (want, [] if expected is None else [expected])
     cpu = types.SimpleNamespace(device=torch.device("cpu"), shape=(B, 19))
     assert fk.train_weights(cpu, h_proj, wm, 10, mode) is None and len(calls) == (0 if expected is None else 1)
-    if expected == "wide":
+    if expected in ("wide", "wide one-pass"):
         monkeypatch.setattr(fk, "WIDE_TRAIN_MAX_TN", 0)
         assert fk.train_weights(x, h_proj, wm, 10, mode) is None
 
@@ -128,10 +149,17 @@ def test_wide_train_shared_memory_is_the_source_sum_and_fits(Hp, size, d_a, rows
     assert fk.wide_train_smem(Hp, size, d_a) == fk.wide_train_smem(Hp, size, d_a, 128)
     assert fk.wide_train_takes(Hp, size, d_a)
     assert fk.train_bwd_route(Hp, size, d_a, 4) == fk.ROUTE_WIDE_TRAIN
+    # one pass: the hi ring alone, of kWwHiStagesTf32 stages (the source's kWwHi + kWwLo)
+    one = _source_constant("kWwHiStagesTf32")
+    floats1 = floats + (one - hi - lo) * K * 1024
+    expected1 = 4 * (floats1 + floats1 % 2) + 8 * (2 * one + 3 * C + 1)
+    assert fk.wide_train_smem(Hp, size, d_a, rows, fk.MODE_TF32) == expected1 <= fk.kernel_limit("kSmemLimit")
+    assert fk.wide_train_takes(Hp, size, d_a, fk.MODE_TF32)
+    assert fk.train_bwd_route(Hp, size, d_a, 4, fk.MODE_TF32) == fk.ROUTE_WIDE_TRAIN_TF32
     text = (CSRC / "flow_wide_train_wgmma.cu").read_text()
-    for term in ("(rows == kWwHalfRows ? 2 : 1) * rows * kWwCols", "(kWwHiStages + kWwLoStages) * kWwStage",
+    for term in ("(rows == kWwHalfRows ? 2 : 1) * rows * kWwCols", "(kWwHi + kWwLo) * kWwStage",
                  "ww_narrow_floats(d_a, n_out)", "(2 * size + n_out + d_a + 1)", "ww_reduce_rows(C, rows) * xw",
-                 "(2 * (kWwHiStages + kWwLoStages) + 3 * static_cast<size_t>(Hp / kWwCols) + 1)"):
+                 "(2 * (kWwHi + kWwLo) + 3 * static_cast<size_t>(Hp / kWwCols) + 1)"):
         assert term in text, term
 
 
@@ -176,7 +204,7 @@ def test_wide_k2b_cpu_call_takes_the_plain_version():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arith", ["float32", "3xtf32"])
+@pytest.mark.parametrize("arith", ["float32", "3xtf32", "tf32"])
 def test_wide_k2b_plain_version_matches_pallas_vjp(arith):
     """K2b's plain version at the wide configuration's arguments (Hp 1024, 2
     steps of 4 hidden layers, 8 rows with their own conditions), float32 and
@@ -184,12 +212,17 @@ def test_wide_k2b_plain_version_matches_pallas_vjp(arith):
     version, against JAX's custom VJP of `_make_fused_flow_train` (K2b: its
     `bwd_call`, `_flow_bwd_train_kernel`) in interpret mode at "highest", on
     the same cotangents: every grad within the JAX package's grad bar, atol
-    5e-4 and rtol 1e-3 (tests/test_flow_kernel.py:313); the mixes get none."""
+    5e-4 and rtol 1e-3 (tests/test_flow_kernel.py:313); the mixes get none.
+    In the one-pass arithmetic (`tf32.matmul_tf32`) against the VJP at
+    "default", each grad at the reduced bar times its largest magnitude, and
+    the ten off the float32 plain version's (`_check_reduced` on the grads
+    over their scales, as a whole)."""
     import jax
     import jax.numpy as jnp
 
     from bcnf_tpu.ops.flow_kernel import _make_fused_flow_train
-    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32
+    from bcnf_tpu_torch.ops.tf32 import matmul_3xtf32, matmul_tf32
+    from tests.test_torch_port_precision import _check_reduced
     from tests.test_torch_port_wide_fwd import _wide_kernel_args, _wide_pair
 
     jm, tm, jp, tp, rng, _ = _wide_pair()
@@ -198,19 +231,30 @@ def test_wide_k2b_plain_version_matches_pallas_vjp(arith):
     S, _, Hp = h_proj.shape
     d_a, nh = kargs["w1y"].shape[1], kargs["wm"].shape[1]
     assert Hp == 1024 and fk.train_bwd_route(Hp, 19, d_a, nh) == fk.ROUTE_WIDE_TRAIN
+    assert fk.train_bwd_route(Hp, 19, d_a, nh, fk.MODE_TF32) == fk.ROUTE_WIDE_TRAIN_TF32
     dz = rng.normal(size=(B, 19)).astype(np.float32)
     dld = rng.normal(size=(B,)).astype(np.float32)
-    f = _make_fused_flow_train(S, nh, d_a, 19 - d_a, Hp, B, "highest", True)
+    one = arith == "tf32"
+    f = _make_fused_flow_train(S, nh, d_a, 19 - d_a, Hp, B, "default" if one else "highest", True)
     jargs = (jnp.asarray(x), h_proj, kargs["an_scale"][:, None, :], kargs["an_bias"][:, None, :], kargs["ortho"],
              kargs["w1y"], kargs["b1"][:, None, :], kargs["wm"], kargs["bm"], kargs["wout"], kargs["bout"][:, None, :])
     _, vjp = jax.vjp(f, *jargs)
     ref = [np.asarray(r) for r in vjp((jnp.asarray(dz), jnp.asarray(dld)))]
     assert not np.any(ref.pop(4))  # the mixes' grad
-    mm = matmul_3xtf32 if arith == "3xtf32" else torch.matmul
+    mm = {"float32": torch.matmul, "3xtf32": matmul_3xtf32, "tf32": matmul_tf32}[arith]
     targs = [torch.from_numpy(np.asarray(kargs[n])) for n in ARG_NAMES]
     hp = torch.from_numpy(np.asarray(h_proj))
     bound = fk.fused_flow_train_reference(torch.from_numpy(x), hp, *targs, mm=mm)[2]
     got = fk.fused_flow_train_backward_reference(bound, hp, torch.from_numpy(dz), torch.from_numpy(dld), *targs, mm=mm)
+    if one:
+        bound32 = fk.fused_flow_train_reference(torch.from_numpy(x), hp, *targs)[2]
+        f32 = fk.fused_flow_train_backward_reference(bound32, hp, torch.from_numpy(dz), torch.from_numpy(dld), *targs)
+        # every grad over its scale max(1, max |JAX's|), all ten at once: each within the reduced bar, and the
+        # one pass off float32 over the grads as a whole (some sums, as dan_bias over 8 rows, barely move)
+        cat = [np.concatenate([np.asarray(t, np.float64).reshape(-1) / max(1.0, float(np.max(np.abs(b))))
+                               for t, b in zip(ts, ref)]) for ts in (got, f32, ref)]
+        _check_reduced(*cat, "the ten grads")
+        return
     for name, a, b in zip(GRAD_NAMES, got, ref):
         np.testing.assert_allclose(a.numpy().reshape(b.shape), b, atol=5e-4, rtol=1e-3, err_msg=name)
 
@@ -296,4 +340,61 @@ def test_wide_train_step_prepares_once_and_counts_its_routes(cuda):
     with torch.no_grad():
         bound_k = fk.fused_flow_train_fwd(bound[0], h_proj, *args)[2]
         direct = fk.fused_flow_train_bwd(bound_k, h_proj, dz, dld, *args)
+    assert torch.equal(x.grad, direct[0])
+
+
+ONE_PASS_BAR = 5e-3  # JAX's reduced-mode bar, a grad's scale max(1, max |plain|)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,B,nh", [(700, 32, 1), (1000, 256, 4), (1024, 4099, 2), (700, 4099, 3), (1000, 257, 4)])
+def test_wide_one_pass_k2b_matches_plain_version_on_card(cuda, H, B, nh):
+    """K2b on the wide route's one-pass build (64-row tiles up to 960 rows,
+    128 above): every grad within the reduced bar of the plain one-pass
+    version (`tf32.matmul_tf32`; 5e-3 of max(1, max |plain|)), no further
+    from it than twice the one-pass row tiles (forced), equal to the bit
+    between two calls, counted on its route; on the step's one-pass layout
+    or its own, the same bits; a 3xTF32 layout is refused."""
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    bound, h_proj, dz, dld, args = _card_case(cuda, H, B, 3, nh, 19, 10, seed=H + B + nh + 1)
+    before = fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WIDE_TRAIN_TF32]
+    ws = fk.prepare_wide_train_weights(args[5], passes=1)
+    one = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_TF32, wstages=ws)
+    two = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_TF32)
+    with pytest.raises(ValueError, match="laid out for its route"):
+        fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_TF32,
+                                wstages=fk.prepare_wide_train_weights(args[5]))
+    old, fk.WIDE_TRAIN_MAX_TN = fk.WIDE_TRAIN_MAX_TN, 0
+    try:
+        rows = fk.fused_flow_train_bwd(bound, h_proj, dz, dld, *args, mode=fk.MODE_TF32)
+    finally:
+        fk.WIDE_TRAIN_MAX_TN = old
+    p1 = fk.fused_flow_train_backward_reference(bound, h_proj, dz, dld, *args, mm=matmul_tf32)
+    torch.cuda.synchronize()
+    assert fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WIDE_TRAIN_TF32] == before + 2
+    for name, a, b, r, p in zip(GRAD_NAMES, one, two, rows, p1):
+        dk, dr = (a - p).abs().max().item(), (r - p).abs().max().item()
+        assert dk <= ONE_PASS_BAR * max(1.0, p.abs().max().item()) and dk <= 2 * dr, (name, dk, dr)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_wide_one_pass_train_step_prepares_once_and_counts_its_routes(cuda):
+    """`fused_flow_train` at Hp 1024 in one pass: K2a on the one-pass wide
+    forward and K2b on the one-pass wide route, one launch each, on one
+    preparation of the step's one-pass layout; its grads equal
+    `fused_flow_train_bwd`'s on the same step inputs, to the bit."""
+    bound, h_proj, dz, dld, args = _card_case(cuda, 1000, 300, 2, 4, 19, 10, seed=10)
+    x = bound[0].clone().requires_grad_(True)
+    before = (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_WIDE_FWD_TF32],
+              fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WIDE_TRAIN_TF32])
+    z, ld = fk.fused_flow_train(x, h_proj, *args, mode=fk.MODE_TF32)
+    torch.autograd.backward((z, ld), (dz, dld))
+    torch.cuda.synchronize()
+    assert (fk.fused_flow_train_fwd.route_launches[fk.ROUTE_WIDE_FWD_TF32],
+            fk.fused_flow_train_bwd.route_launches[fk.ROUTE_WIDE_TRAIN_TF32]) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        bound_k = fk.fused_flow_train_fwd(bound[0], h_proj, *args, mode=fk.MODE_TF32)[2]
+        direct = fk.fused_flow_train_bwd(bound_k, h_proj, dz, dld, *args, mode=fk.MODE_TF32)
     assert torch.equal(x.grad, direct[0])

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where the wide 3xTF32 kernels' time goes, on one NVIDIA GPU: K1's inverse,
-or with `--forward` K1's forward, at the padded widths 768 and 1024
-(`bcnf_tpu_torch/ops/csrc/flow_wide_wgmma.cu`), timed as built and as
-variants of its design, each with its parts alone, beside the row tiles and
-the float32 plain version.
+"""Where the wide kernels' time goes, on one NVIDIA GPU: K1's inverse, or
+with `--forward` K1's forward, at the padded widths 768 and 1024
+(`bcnf_tpu_torch/ops/csrc/flow_wide_wgmma.cu`), in 3xTF32 or (`--passes
+1`) in the one-pass build, timed as built and as variants of its design,
+each with its parts alone, beside the row tiles of the mode and the float32
+plain version.
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/k1_wide_parts.py [--shape tool|wide] [--width H] [--forward ROWS] [VARIANT ...]
+    python3 tools/k1_wide_parts.py [--shape tool|wide] [--width H] [--forward ROWS] [--passes 3|1] [VARIANT ...]
 
 Each variant is the source's text with a patch (the inverse's: `trunc_hi`:
 the stage as copied serves as hi, the tensor cores truncating it, and the
@@ -20,7 +21,11 @@ every 1, 8 or 32 k-steps in place of 16; `fwd_one_pass`: hi x hi alone;
 `loads_before`: the next k-step's fragment read before the current one is
 split, not after its group is issued; timing only, the values wrong: `no_free`,
 `no_landed`: the hidden layers without the hand-off before or after their
-epilogue; `+` joins patches), compiled
+epilogue; one pass, either way: `hi8`: a hi ring of 8 stages in place of
+11; `wait0`: each k-step's group waited for before the next is issued (no
+group in flight); `sets2`, `sets4`: 2 or 4 A register sets in place of 8,
+each fragment read 1 or 3 k-steps ahead in place of 7; `+` joins patches),
+compiled
 by nvcc into `bcnf_tpu_torch/_build/k1_wide_parts/`.
 Each is launched at each width on the shape (`tool`: 26 steps of 4 hidden
 layers at H 700 and 1000, `tools/wide_rows_times.py`'s; `wide`: 32 steps
@@ -36,7 +41,9 @@ rings' barriers); and the whole kernel with no hidden layer (nh 0: the FMA
 layers, the mixes and the hand-offs alone). A variant with a part taken out computes wrong values;
 only the time is read. Each variant's whole inverse (or forward: z and
 logdet) is held against the plain version in float64: its max |d| beside
-the float32 plain version's (and, forward, the row tiles').
+the float32 plain version's (and, forward, the row tiles'); in one pass
+against the plain one-pass version (`mm=tf32.matmul_tf32`), beside the
+one-pass row tiles'.
 Times: CUDA events around one launch, median of 3 after a warm-up. The row
 tiles (forced through `WIDE_WGMMA_MAX_TN = 0`, forward `WIDE_FWD_MAX_TN = 0`) and the float32 plain
 version (TF32 off) are timed beside them in the same process. Prints the
@@ -53,11 +60,14 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the one-pass loop's wait for the group before the one just issued
+ONE_PASS_WAIT = ("              wgmma_wait<1>();  // k-step s - 1's group is done: its A registers and, at a stage's "
+                 "first, its stage\n              hold_fragment(a[(b + kWwASets - 1) % kWwASets]);")
 PATCHES = {
     "as built": [],
-    "trunc_hi": [("              const float4 h = make_float4(rna(w.x), rna(w.y), rna(w.z), rna(w.w));\n"
-                  "              h4[i] = h;",
-                  "              const float4 h = make_float4(trunc_tf32(w.x), trunc_tf32(w.y), trunc_tf32(w.z), "
+    "trunc_hi": [("                const float4 h = make_float4(rna(w.x), rna(w.y), rna(w.z), rna(w.w));\n"
+                  "                h4[i] = h;",
+                  "                const float4 h = make_float4(trunc_tf32(w.x), trunc_tf32(w.y), trunc_tf32(w.z), "
                   "trunc_tf32(w.w));")],
     "hi4": [("constexpr int kWwHiStages = 8;", "constexpr int kWwHiStages = 4;")],
     "one_pass": [("            WgmmaTf32<NW>::mma(part, alo, bh, 0);\n            WgmmaTf32<NW>::mma(part, ahi, bl);\n"
@@ -77,15 +87,20 @@ PATCHES = {
                  "      if (kInverse) hand_off_free();  // every block is done reading the tiles of h_l")],
     "no_landed": [("      hand_off_landed();\n    }\n\n    // ---- output layer",
                    "      if (kInverse) hand_off_landed();\n    }\n\n    // ---- output layer")],
+    # one pass
+    "hi8": [("constexpr int kWwHiStagesTf32 = 11;", "constexpr int kWwHiStagesTf32 = 8;")],
+    **{f"sets{n}": [("constexpr int kWwASets = 8;", f"constexpr int kWwASets = {n};")] for n in (2, 4)},
+    "wait0": [(ONE_PASS_WAIT, ONE_PASS_WAIT.replace("wgmma_wait<1>", "wgmma_wait<0>"))],
 }
-# the variants run by default: the inverse's, and the forward's (`--forward`)
+# the variants run by default: the inverse's, and the forward's (`--forward`); in one pass either way's
 DEFAULTS = {True: ("trunc_hi", "hi4", "one_pass", "no_fold"),
             False: ("fold0", "fold1", "fold8", "fwd_one_pass", "loads_before", "no_free+no_landed")}
+ONE_PASS_DEFAULTS = ("sets2", "sets4", "hi8", "wait0")
 PARTS = {"all": 15, "products": 1, "stream": 2 | 8, "no exchange": 15 & ~4, "no split": 15 & ~8, "neither": 0}
 SHAPES = {"tool": (26, (700, 1000)), "wide": (32, (1024,))}
 
 
-def build(names: list[str]) -> dict[str, tuple[str, str]]:
+def build(names: list[str], library: str = "flow_wide_wgmma") -> dict[str, tuple[str, str]]:
     """One nvcc per variant (a '+' joins patches), all started together;
     returns each library and its ptxas summary."""
     sys.path.insert(0, HERE)
@@ -104,11 +119,11 @@ def build(names: list[str]) -> dict[str, tuple[str, str]]:
                 if old not in src:
                     raise SystemExit(f"variant {name}: the patch does not apply (the source changed)")
                 src = src.replace(old, new)
-        path = os.path.join(out_dir, f"{name.replace(' ', '_').replace('+', '-')}.cu")
+        path = os.path.join(out_dir, f"{name.replace(' ', '_').replace('+', '-')}_{library}.cu")
         with open(path, "w") as f:
             f.write(src)
         lib = path[:-3] + ".so"
-        cmd = [_build._nvcc(), *_build._flags("flow_wide_wgmma"), "-I", csrc, "-o", lib, path]
+        cmd = [_build._nvcc(), *_build._flags(library), "-I", csrc, "-o", lib, path]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -122,23 +137,28 @@ def build(names: list[str]) -> dict[str, tuple[str, str]]:
 
 
 def main() -> None:
-    argv, shape, widths, fwd_rows = sys.argv[1:], "tool", None, 0
-    while argv[:1] in (["--shape"], ["--width"], ["--forward"]):
+    argv, shape, widths, fwd_rows, passes = sys.argv[1:], "tool", None, 0, 3
+    while argv[:1] in (["--shape"], ["--width"], ["--forward"], ["--passes"]):
         if argv[0] == "--shape":
             shape = argv[1]
         elif argv[0] == "--width":  # one of the shape's widths, H
             widths = (int(argv[1]),)
+        elif argv[0] == "--passes":
+            passes = int(argv[1])
         else:  # the forward on this many rows
             fwd_rows = int(argv[1])
         argv = argv[2:]
     inverse = not fwd_rows
-    names = ["as built"] + (argv or list(DEFAULTS[inverse]))
-    libs = build(names)
+    names = ["as built"] + (argv or list(DEFAULTS[inverse] if passes == 3 else ONE_PASS_DEFAULTS))
+    libs = build(names, "flow_wide_wgmma" + ("_tf32" if passes == 1 else ""))
     import torch
 
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
+
+    mode = fk.MODE_TF32 if passes == 1 else fk.MODE_3XTF32
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -172,15 +192,18 @@ def main() -> None:
         kargs, h_proj = fk.pad_hidden(w, randn(S, N, H, scale=0.5))
         Hp = h_proj.shape[-1]
         x = randn(B, size)
-        staged = fk.prepare_wide_weights(kargs["wm"])
+        staged = fk.prepare_wide_weights(kargs["wm"], passes)
         tensors = [kargs[n] for n in ("an_scale", "an_bias", "ortho", "w1y", "b1")] + [staged] + [
             kargs[n] for n in ("bm", "wout", "bout")]
-        bound = cs.bound_ms(cs.flow_work(kargs, h_proj, B, H), peaks, cs.ARITH_3XTF32)[0]
+        bound = cs.bound_ms(cs.flow_work(kargs, h_proj, B, H), peaks,
+                            cs.ARITH_TF32 if passes == 1 else cs.ARITH_3XTF32)[0]
         with torch.no_grad():
             p32 = outputs(fk.fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=N))
-            p64 = outputs(fk.fused_flow_reference(x.double(), h_proj.double(),
-                                                  **{k: v.double() for k, v in kargs.items()}, inverse=inverse,
-                                                  n_cond=N))
+            # the distances' reference: float64, or in one pass the plain one-pass version
+            p64 = outputs(fk.fused_flow_reference(x, h_proj, **kargs, inverse=inverse, n_cond=N, mm=matmul_tf32)
+                          if passes == 1 else fk.fused_flow_reference(
+                              x.double(), h_proj.double(), **{k: v.double() for k, v in kargs.items()},
+                              inverse=inverse, n_cond=N))
 
             def dist(out) -> list[float]:
                 return [(a.double() - b).abs().max().item() for a, b in zip(out, p64)]
@@ -189,7 +212,7 @@ def main() -> None:
                 old = getattr(fk, limit)
                 setattr(fk, limit, 0)
                 try:
-                    return fk.fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=N)
+                    return fk.fused_flow(x, h_proj, **kargs, inverse=inverse, n_cond=N, mode=mode)
                 finally:
                     setattr(fk, limit, old)
 
@@ -197,11 +220,12 @@ def main() -> None:
             ref_ms = {"row tiles": timed(rows), "plain": timed(lambda: fk.fused_flow_reference(
                 x, h_proj, **kargs, inverse=inverse, n_cond=N))}
         tiles = (fk.kernel_limit("kWwRows"),) if inverse else (fk.kernel_limit("kWwRows"), fk.kernel_limit("kWwHalfRows"))
-        print(f"H {H} (Hp {Hp}), {S} steps x {nh} layers, {B} rows, {'inverse' if inverse else 'forward'}: bound "
-              f"{bound:.2f} ms; row tiles {ref_ms['row tiles']:.2f} ms (from float64 "
-              f"{'/'.join(f'{d:.3e}' for d in drt)}), float32 plain {ref_ms['plain']:.2f} ms (from float64 "
+        ref = "the plain one-pass version" if passes == 1 else "float64"
+        print(f"H {H} (Hp {Hp}), {S} steps x {nh} layers, {B} rows, {'inverse' if inverse else 'forward'}, {mode}: "
+              f"bound {bound:.2f} ms; row tiles {ref_ms['row tiles']:.2f} ms (from {ref} "
+              f"{'/'.join(f'{d:.3e}' for d in drt)}), float32 plain {ref_ms['plain']:.2f} ms (from {ref} "
               f"{'/'.join(f'{d:.3e}' for d in d32)}); card layout (smem, clusters) by tile "
-              f"{[fk.wide_card_layout(Hp, size, d_a, r, not inverse) for r in tiles]}", flush=True)
+              f"{[fk.wide_card_layout(Hp, size, d_a, r, not inverse, mode) for r in tiles]}", flush=True)
         for name, (path, ptxas) in libs.items():
             lib = ctypes.CDLL(path)
             lib.bcnf_flow_inverse_wide.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -226,7 +250,7 @@ def main() -> None:
                 ms["nh 0"] = timed(lambda: launch(15, 0))
                 print(f"    {name}, {tile}-row tiles ({ptxas}): "
                       + ", ".join(f"{part} {t:.2f}" for part, t in ms.items())
-                      + f" ms; {bound / ms['all']:.1%} of the bound; max|d| from plain {err:.2e}, from float64 "
+                      + f" ms; {bound / ms['all']:.1%} of the bound; max|d| from float32 plain {err:.2e}, from {ref} "
                       + "/".join(f"{d:.3e} ({d / p:.2f}x the float32 plain version's, {d / r:.2f}x the row tiles')"
                                  for d, p, r in zip(dk, d32, drt)), flush=True)
 

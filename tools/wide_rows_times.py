@@ -1,25 +1,26 @@
 #!/usr/bin/env python3
 """The routes at the padded widths 768 and 1024, on one NVIDIA GPU: K1 both
 ways, K2a, K2b and K4 both ways, in 3xTF32 and in one TF32 pass, each beside
-its bound and its plain version's time; the 3xTF32 inverses (K1's and K4's)
-on the wide inverse and on the row tiles, forced; the 3xTF32 forwards (K1's,
-K2a, K4's) on the wide forward, on each of its tiles (128 and 64 rows) and
-on the row tiles, forced, at 4096 rows and at a validation batch's 256; the
-3xTF32 K2b on the wide backward and on the row tiles, forced.
+its bound and its plain version's time; in each mode the inverses (K1's
+and K4's) on the wide inverse of the mode and on the row tiles of the mode,
+forced; the forwards (K1's, K2a, K4's) on the wide forward, on each of its
+tiles (128 and 64 rows) and on the row tiles, forced, at 4096 rows and at a
+validation batch's 256; K2b on the wide backward and on the row tiles,
+forced.
 
 Run from the root of a checkout on a machine with a card:
 
     python3 tools/wide_rows_times.py [--shape tool|wide]
 
 Below Hp 544 the tensor-core modes run the `wgmma` kernels; at 768 and 1024
-the 3xTF32 inverse runs the wide inverse and the 3xTF32 forwards the wide
-forward (`csrc/flow_wide_wgmma.cu`), the 3xTF32 K2b the wide backward
-(`csrc/flow_wide_train_wgmma.cu`, handed the step's weight layout,
-`train_weights`, as a training step hands it), and every other of these
-kernels the row tiles (`csrc/flow_kernel.cu`, `csrc/flow_train_kernel.cu`,
-and their one-pass `*_tf32` builds); the 3xTF32 inverses, forwards and K2b
-are timed on the row tiles too (`WIDE_WGMMA_MAX_TN = 0`, `WIDE_FWD_MAX_TN =
-0`, `WIDE_TRAIN_MAX_TN = 0`), the forwards on each tile of the wide forward
+each mode's inverse runs the wide inverse and its forwards the wide forward
+(`csrc/flow_wide_wgmma.cu`, built for the mode), its K2b the wide backward
+(`csrc/flow_wide_train_wgmma.cu`, built for the mode, handed the step's
+weight layout, `train_weights`, as a training step hands it); the
+inverses, forwards and K2b are timed on the row tiles of the mode too
+(`csrc/flow_kernel.cu`, `csrc/flow_train_kernel.cu`, and their one-pass
+`*_tf32` builds; `WIDE_WGMMA_MAX_TN = 0`, `WIDE_FWD_MAX_TN = 0`,
+`WIDE_TRAIN_MAX_TN = 0`), the forwards on each tile of the wide forward
 (`WIDE_FWD_HALF_MAX_ROWS` 0 and past the rows).
 The shape (`tool`, the default) is the flagship's but wider: 26 steps of 4
 hidden layers, size 19, d_a 10, at H 700 (Hp 768) and H 1000 (Hp 1024);
@@ -69,7 +70,8 @@ def main() -> None:
     S, widths = SHAPES[shape]
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all(["flow_kernel", "flow_kernel_tf32", "flow_train_kernel", "flow_train_kernel_tf32",
-                      "flow_wide_wgmma", "flow_wide_train_wgmma"])  # together
+                      "flow_wide_wgmma", "flow_wide_train_wgmma", "flow_wide_wgmma_tf32",
+                      "flow_wide_train_wgmma_tf32"])  # together
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
@@ -152,9 +154,7 @@ def main() -> None:
                             setattr(fk, k, v)
                 return run
 
-            def forwards(what, work, fn):  # a 3xTF32 forward on each wide tile and on the row tiles, forced
-                if mode != fk.MODE_3XTF32:
-                    return [(what, work, 5, fn)]
+            def forwards(what, work, fn):  # a forward on each wide tile and on the row tiles, forced
                 return [(what + " (128-row tiles)", work, 5, forced(fn, WIDE_FWD_HALF_MAX_ROWS=0)),
                         (what + " (64-row tiles)", work, 5, forced(fn, WIDE_FWD_HALF_MAX_ROWS=1 << 30)),
                         (what + " (row tiles, forced)", work, 5, forced(fn, WIDE_FWD_MAX_TN=0))]
@@ -169,9 +169,8 @@ def main() -> None:
                 k4_inv = lambda: ck.fused_affine_coupling(*halves[80_000], c8, **cw, inverse=True, n_cond=8, mode=mode)
                 inverses = [("K1 inverse, 80,000 rows", f_inv, 3, k1_inv)] + (
                     [("K1 inverse, rank batch's 100,000 rows", f_rank, 3, k1_rank)] if shape == "wide" else [])
-                if mode == fk.MODE_3XTF32:  # each beside its row tiles, in turns
-                    inverses = [c for case in inverses for c in (case, (case[0] + " (row tiles, forced)", case[1], case[2],
-                                                                       forced(case[3])))]
+                inverses = [c for case in inverses for c in (case, (case[0] + " (row tiles, forced)", case[1], case[2],
+                                                                   forced(case[3])))]  # each beside its row tiles
                 cases = inverses + [
                     *forwards("K1 forward, 4096 rows", f_fwd,
                               lambda: fk.fused_flow(x4096, hp4096, *args, inverse=False, n_cond=4096, mode=mode)),
@@ -180,11 +179,9 @@ def main() -> None:
                     *forwards("K2a, 4096 rows", w2a, lambda: fk.fused_flow_train_fwd(x4096, hp4096, *args, mode=mode)),
                     *forwards("K2a, 256 rows", w2a256, lambda: fk.fused_flow_train_fwd(x256, hp256, *args, mode=mode)),
                     ("K2b, 4096 rows", w2b, 5, k2b),
-                    *([("K2b, 4096 rows (row tiles, forced)", w2b, 5, forced(k2b, WIDE_TRAIN_MAX_TN=0))]
-                      if mode == fk.MODE_3XTF32 else []),
+                    ("K2b, 4096 rows (row tiles, forced)", w2b, 5, forced(k2b, WIDE_TRAIN_MAX_TN=0)),
                     ("K4 inverse, 80,000 rows", k4_inv_work, 5, k4_inv),
-                    *([("K4 inverse, 80,000 rows (row tiles, forced)", k4_inv_work, 5, forced(k4_inv))]
-                      if mode == fk.MODE_3XTF32 else []),
+                    ("K4 inverse, 80,000 rows (row tiles, forced)", k4_inv_work, 5, forced(k4_inv)),
                     *forwards("K4 forward, 4096 rows", k4_fwd,
                               lambda: ck.fused_affine_coupling(*halves[4096], c4096, **cw, mode=mode)),
                 ]
@@ -197,11 +194,11 @@ def main() -> None:
             print(f"    {mode} routes: K1 inverse {routes['K1'][0]}, K1 forward / K2a / K4 forward "
                   f"{routes['K1'][1]} (tiles of {fk.wide_fwd_rows(256)} rows at 256, {fk.wide_fwd_rows(4096)} at "
                   f"4096), K2b {routes['K2b']}")
-            wide = mode == fk.MODE_3XTF32
-            if ((routes["K1"][0] == fk.ROUTE_WIDE) != wide or (routes["K1"][1] == fk.ROUTE_WIDE_FWD) != wide
-                    or routes["K2b"] != (fk.ROUTE_WIDE_TRAIN if wide else fk.ROUTE_ROWS_TF32)):
-                raise SystemExit(f"H {H} {mode}: not the wide inverse, forward and backward in 3xTF32 (the row "
-                                 f"tiles in one pass): {routes}")
+            one = mode == fk.MODE_TF32
+            if routes != {"K1": (fk.ROUTE_WIDE_TF32 if one else fk.ROUTE_WIDE,
+                                 fk.ROUTE_WIDE_FWD_TF32 if one else fk.ROUTE_WIDE_FWD),
+                          "K2b": fk.ROUTE_WIDE_TRAIN_TF32 if one else fk.ROUTE_WIDE_TRAIN}:
+                raise SystemExit(f"H {H} {mode}: not the wide inverse, forward and backward of the mode: {routes}")
 
 
 if __name__ == "__main__":

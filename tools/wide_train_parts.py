@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""K2b in 3xTF32 at the padded widths 768 and 1024 on one NVIDIA GPU: the
-wide route (`csrc/flow_wide_train_wgmma.cu`) beside the row tiles (forced,
-`WIDE_TRAIN_MAX_TN = 0`) and the float32 plain version, timed in turns in
-one process, and its parts, each alone: the rows kernels (`BWD_ROWS`), the weight-grad passes
-(`BWD_WEIGHT_GRADS`), the rest (`BWD_ACTNORM`: the partials' reduction) and
-the step's weight layout (`prepare_wide_train_weights`).
+"""K2b at the padded widths 768 and 1024 on one NVIDIA GPU, in 3xTF32 or
+(`--passes 1`) in one TF32 pass: the wide route of the mode
+(`csrc/flow_wide_train_wgmma.cu`, library `flow_wide_train_wgmma` or its
+one-pass build `flow_wide_train_wgmma_tf32`) beside the row tiles of the
+mode (forced, `WIDE_TRAIN_MAX_TN = 0`) and the float32 plain version (and,
+in one pass, the plain one-pass version, `mm=tf32.matmul_tf32`), timed in
+turns in one process, and its parts, each alone: the rows kernels
+(`BWD_ROWS`), the weight-grad passes (`BWD_WEIGHT_GRADS`), the rest
+(`BWD_ACTNORM`: the partials' reduction) and the step's weight layout
+(`prepare_wide_train_weights`).
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/wide_train_parts.py [--shape wide|tool] [--rows 4096,256] [VARIANT ...]
+    python3 tools/wide_train_parts.py [--shape wide|tool] [--rows 4096,256] [--passes 3|1] [VARIANT ...]
 
 Each VARIANT is the source's text with a patch (`serial`: each step's
 weight-grad pass after its rows kernel on the caller's stream, not beside
 the next step's rows kernel; `dwm_groups1`: the weight-grad pass with one
 consumer warpgroup a block, each block reading its own B stages, in place
-of two sharing them), compiled by nvcc into
+of two sharing them; one pass: `hi8`: a hi ring of 8 stages in place of
+11; `wait0`: the rows kernel's products with no group in flight;
+`sets2`, `sets4`: 2 or 4 A register sets in place of 8), compiled by nvcc into
 `bcnf_tpu_torch/_build/wide_train_parts/` and timed in turns beside the
 route as built (its grads held equal to the bit to the build's).
 
@@ -29,7 +35,9 @@ it (prepared once, outside the time). Also, for each row count: every grad's
 distance from the float64 plain version beside the row tiles' and the
 float32 plain version's (the bar: max(row tiles, twice the float32 plain
 version)), the wide route's grads against the float32 plain version's
-(max |d| over max |plain| a grad), equality to the bit between two calls,
+(max |d| over max |plain| a grad); in one pass each grad's distance from
+the plain one-pass version beside the row tiles' (the bar: within 5e-3 of
+max(1, max |plain|), and no further than twice the row tiles), equality to the bit between two calls,
 the card layout (shared memory, clusters resident) and the library's ptxas
 registers and spills. Exits non-zero where a check fails.
 """
@@ -47,13 +55,19 @@ SIZE, D_A, NH = 19, 10, 4
 SHAPES = {"tool": (26, (700, 1000)), "wide": (32, (1024,))}  # steps; H
 GRADS = ("dx", "dh_proj", "dan_scale", "dan_bias", "dw1y", "db1", "dwm", "dbm", "dwout", "dbout")
 NAMES = ("an_scale", "an_bias", "ortho", "w1y", "b1", "wm", "bm", "wout", "bout")
-LIBRARY = "flow_wide_train_wgmma"
+# the one-pass rows kernel's wait for the group before the one just issued
+ONE_PASS_WAIT = ("            wgmma_wait<1>();  // k-step s - 1's group is done: its A registers and, at a stage's "
+                 "first, its stage\n            hold_fragment(a[(b + kWwASets - 1) % kWwASets]);")
 PATCHES = {"serial": [("const bool beside = (parts & (kWtRows | kWtGrads)) == (kWtRows | kWtGrads);",
                         "const bool beside = false;")],
-           "dwm_groups1": [("constexpr int kWtGwGroups = 2;", "constexpr int kWtGwGroups = 1;")]}
+           "dwm_groups1": [("constexpr int kWtGwGroups = 2;", "constexpr int kWtGwGroups = 1;")],
+           "hi8": [("constexpr int kWwHiStagesTf32 = 11;", "constexpr int kWwHiStagesTf32 = 8;")],
+           **{f"sets{n}": [("constexpr int kWwASets = 8;", f"constexpr int kWwASets = {n};")] for n in (2, 4)},
+           "wait0": [(ONE_PASS_WAIT, ONE_PASS_WAIT.replace("wgmma_wait<1>", "wgmma_wait<0>"))]}
+ONE_PASS_BAR = 5e-3  # JAX's reduced-mode bar, a grad's scale max(1, max |plain|)
 
 
-def variants(names: list[str]) -> dict[str, tuple[ctypes.CDLL, str]]:
+def variants(names: list[str], library: str) -> dict[str, tuple[ctypes.CDLL, str]]:
     """One nvcc per variant, all started together; each library typed as
     the route's, and its ptxas registers and spill bytes."""
     from bcnf_tpu_torch.ops import _build
@@ -61,22 +75,26 @@ def variants(names: list[str]) -> dict[str, tuple[ctypes.CDLL, str]]:
     csrc = os.path.join(HERE, "bcnf_tpu_torch", "ops", "csrc")
     out_dir = os.path.join(HERE, "bcnf_tpu_torch", "_build", "wide_train_parts")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(csrc, LIBRARY + ".cu")) as f:
+    with open(os.path.join(csrc, "flow_wide_train_wgmma.cu")) as f:
         text = f.read()
+    with open(os.path.join(csrc, "flow_wide_wgmma.cu")) as f:
+        included = f.read()  # the device parts it includes, which hold the rings
     procs = {}
     for name in names:
-        src = text
+        src, inc = text, included
         for old, new in PATCHES[name]:
-            if src.count(old) != 1:
+            if src.count(old) + inc.count(old) != 1:
                 raise SystemExit(f"variant {name}: the patch does not apply (the source changed)")
-            src = src.replace(old, new)
-        path = os.path.join(out_dir, f"{name}.cu")
+            src, inc = src.replace(old, new), inc.replace(old, new)
+        path = os.path.join(out_dir, f"{name}_{library}.cu")
         with open(path, "w") as f:
-            f.write(src)
-        cmd = [_build._nvcc(), *_build._flags(LIBRARY), "-I", csrc, "-o", path[:-3] + ".so", path]
+            f.write(src.replace('#include "flow_wide_wgmma.cu"', f'#include "{name}_{library}_ww.cu"'))
+        with open(os.path.join(out_dir, f"{name}_{library}_ww.cu"), "w") as f:
+            f.write(inc)
+        cmd = [_build._nvcc(), *_build._flags(library), "-I", csrc, "-o", path[:-3] + ".so", path]
         procs[name] = (path[:-3] + ".so", subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                                           text=True))
-    built = _build.load_library(LIBRARY)
+    built = _build.load_library(library)
     libs = {}
     for name, (so, proc) in procs.items():
         out, _ = proc.communicate()
@@ -99,39 +117,44 @@ def main() -> None:
     import chip_smoke as cs
     from bcnf_tpu_torch.ops import _build
     from bcnf_tpu_torch.ops import flow_kernel as fk
+    from bcnf_tpu_torch.ops.tf32 import matmul_tf32
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     argv = sys.argv[1:]
     shape = argv[argv.index("--shape") + 1] if "--shape" in argv else "wide"
     rows_list = [int(r) for r in (argv[argv.index("--rows") + 1] if "--rows" in argv else "4096,256").split(",")]
-    names = [a for i, a in enumerate(argv) if not a.startswith("--") and (i == 0 or argv[i - 1] not in ("--shape",
-                                                                                                        "--rows"))]
+    passes = int(argv[argv.index("--passes") + 1]) if "--passes" in argv else 3
+    names = [a for i, a in enumerate(argv) if not a.startswith("--") and (i == 0 or argv[i - 1] not in (
+        "--shape", "--rows", "--passes"))]
+    mode = fk.MODE_TF32 if passes == 1 else fk.MODE_3XTF32
+    library = fk.TRAIN_BWD_LIBRARY[fk.ROUTE_WIDE_TRAIN_TF32 if passes == 1 else fk.ROUTE_WIDE_TRAIN]
     S, widths = SHAPES[shape]
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build_all(["flow_wide_train_wgmma", "flow_wide_wgmma", "flow_train_kernel"])  # together
+    one = _build.ONE_PASS if passes == 1 else ""
+    _build.build_all([library, "flow_wide_wgmma" + one, "flow_train_kernel" + one])  # together
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    usage = _build.resource_usage("flow_wide_train_wgmma")
-    print("flow_wide_train_wgmma: " + "; ".join(
+    usage = _build.resource_usage(library)
+    print(f"{library}: " + "; ".join(
         f"{cs.kernel_label(repr(fn))} {u['REG']} registers, stack {u['STACK']} B, local {u['LOCAL']} B"
         for fn, u in usage.items()))
-    for ln in _build.build_logs.get("flow_wide_train_wgmma", "").splitlines():
+    for ln in _build.build_logs.get(library, "").splitlines():
         if "spill" in ln:
             print("    ptxas: " + ln.strip())
     failed = [fn for fn, u in usage.items() if u["STACK"] or u["LOCAL"]]
-    built = _build.load_library(LIBRARY)
-    libs = variants(names)
+    built = _build.load_library(library)
+    libs = variants(names, library)
     for name, (_, ptxas) in libs.items():
         print(f"variant {name}: {ptxas}")
 
     def on(lib, fn):  # fn with the route's library swapped for a variant's
         def run():
-            _build._loaded[LIBRARY] = lib
+            _build._loaded[library] = lib
             try:
                 return fn()
             finally:
-                _build._loaded[LIBRARY] = built
+                _build._loaded[library] = built
         return run
 
     dev = torch.device("cuda")
@@ -168,27 +191,29 @@ def main() -> None:
         Hp = hp_all.shape[-1]
         args = [kargs[n] for n in NAMES]
         x_all, dz_all, dld_all = randn(B_max, SIZE), randn(B_max, SIZE), randn(B_max)
-        route = fk.train_bwd_route(Hp, SIZE, D_A, NH)
-        if route != fk.ROUTE_WIDE_TRAIN:
-            raise SystemExit(f"H {H}: K2b's 3xTF32 route is {route}, not {fk.ROUTE_WIDE_TRAIN}")
-        ws = fk.prepare_wide_train_weights(kargs["wm"])
-        prep_ms = cs.median(cs.cuda_ms(lambda: fk.prepare_wide_train_weights(kargs["wm"]), 5))
+        route, want = fk.train_bwd_route(Hp, SIZE, D_A, NH, mode), (
+            fk.ROUTE_WIDE_TRAIN_TF32 if passes == 1 else fk.ROUTE_WIDE_TRAIN)
+        if route != want:
+            raise SystemExit(f"H {H}: K2b's {mode} route is {route}, not {want}")
+        ws = fk.prepare_wide_train_weights(kargs["wm"], passes)
+        prep_ms = cs.median(cs.cuda_ms(lambda: fk.prepare_wide_train_weights(kargs["wm"], passes), 5))
         for rows in rows_list:
             x, hp = x_all[:rows].contiguous(), hp_all[:, :rows].contiguous()
             dz, dld = dz_all[:rows].contiguous(), dld_all[:rows].contiguous()
             with torch.no_grad():
-                bound = fk.fused_flow_train_fwd(x, hp, *args, wstages=ws)[2]
+                bound = fk.fused_flow_train_fwd(x, hp, *args, mode=mode, wstages=ws)[2]
             tile = fk.wide_fwd_rows(rows)
-            smem, resident, gw_smem, gw_blocks = fk.wide_train_card_layout(Hp, SIZE, D_A, tile)
-            wide = lambda: fk.fused_flow_train_bwd(bound, hp, dz, dld, *args, wstages=ws)
+            smem, resident, gw_smem, gw_blocks = fk.wide_train_card_layout(Hp, SIZE, D_A, tile, mode)
+            wide = lambda: fk.fused_flow_train_bwd(bound, hp, dz, dld, *args, mode=mode, wstages=ws)
             plain = lambda: fk.fused_flow_train_backward_reference(bound, hp, dz, dld, *args)
+            plain1 = lambda: fk.fused_flow_train_backward_reference(bound, hp, dz, dld, *args, mm=matmul_tf32)
             grads = [torch.empty_like(t) for t in (dz, hp, *[kargs[n] for n in NAMES if n != "ortho"])]
             ms = turns({"wide": wide, **{name: on(lib, wide) for name, (lib, _) in libs.items()},
-                        "rows": forced(wide), "plain": plain})
+                        "rows": forced(wide), "plain": plain, **({"plain one-pass": plain1} if passes == 1 else {})})
             ref = wide()
             for name, (lib, _) in libs.items():
                 grads_alone = lambda: fk._train_bwd_parts(bound, hp, dz, dld, dict(zip(NAMES, args)), grads,
-                                                          fk.BWD_WEIGHT_GRADS, fk.MODE_3XTF32, ws)
+                                                          fk.BWD_WEIGHT_GRADS, mode, ws)
                 alone = cs.median(cs.cuda_ms(on(lib, grads_alone), 5))
                 equal = all(torch.equal(a, b) for a, b in zip(ref, on(lib, wide)()))
                 print(f"    variant {name}: {ms[name]:.2f} ms (as built {ms['wide']:.2f}), its weight grads alone "
@@ -198,29 +223,37 @@ def main() -> None:
             parts = {}
             for name, bit in (("rows", fk.BWD_ROWS), ("weight grads", fk.BWD_WEIGHT_GRADS), ("rest", fk.BWD_ACTNORM)):
                 run = lambda bit=bit: fk._train_bwd_parts(bound, hp, dz, dld, dict(zip(NAMES, args)), grads, bit,
-                                                          fk.MODE_3XTF32, ws)
+                                                          mode, ws)
                 parts[name] = cs.median(cs.cuda_ms(run, 5))
             one, two = wide(), wide()
             k_rows, p32 = forced(wide)(), plain()
+            p1 = plain1() if passes == 1 else p32
             p64 = fk.fused_flow_train_backward_reference(bound.double(), hp.double(), dz.double(), dld.double(),
                                                          *[a.double() for a in args])
             torch.cuda.synchronize()
             work = cs.train_work(kargs, hp, rows, H)[1]
-            bound_ms, by = cs.bound_ms(work, peaks, cs.ARITH_3XTF32)
+            bound_ms, by = cs.bound_ms(work, peaks, cs.ARITH_TF32 if passes == 1 else cs.ARITH_3XTF32)
             print(f"H {H} (Hp {Hp}), {S} steps x {NH} layers, size {SIZE}, d_a {D_A}, {rows} rows on tiles of {tile} "
                   f"({-(-rows // tile)} clusters of {Hp // 128}, {resident} resident; rows kernel {smem} B of shared "
-                  f"memory, weight-grad pass {gw_smem} B, {gw_blocks} blocks an SM), in turns: wide {ms['wide']:.2f} "
-                  f"ms, row tiles (forced) {ms['rows']:.2f}, float32 plain {ms['plain']:.2f}; bound {bound_ms:.2f} ms "
+                  f"memory, weight-grad pass {gw_smem} B, {gw_blocks} blocks an SM), {mode}, in turns: wide "
+                  f"{ms['wide']:.2f} ms, row tiles (forced) {ms['rows']:.2f}, float32 plain {ms['plain']:.2f}"
+                  + (f", plain one-pass {ms['plain one-pass']:.2f}" if passes == 1 else "") + f"; bound {bound_ms:.2f} ms "
                   f"({by}, {bound_ms / ms['wide']:.1%} of the wide route's time)")
             print(f"    parts alone: rows {parts['rows']:.2f} ms, weight grads {parts['weight grads']:.2f}, the rest "
                   f"{parts['rest']:.3f}; the step's weight layout {prep_ms:.3f} ms (outside the times)")
             worst = []
-            for name, a, b, r, p, d in zip(GRADS, one, two, k_rows, p32, p64):
+            for name, a, b, r, p, d, q in zip(GRADS, one, two, k_rows, p32, p64, p1):
                 dk, dr, dp = ((t.double() - d).abs().max().item() for t in (a, r, p))
                 rel = (a - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
-                ok = dk <= max(dr, 2 * dp) and torch.equal(a, b)
-                worst.append(f"{name} {dk:.2e} (rows {dr:.2e}, plain {dp:.2e}; {rel:.1e} of max|plain|)"
-                             + ("" if ok else " FAILS"))
+                if passes == 1:  # from the plain one-pass version: the reduced bar, and twice the row tiles'
+                    dk1, dr1 = (a - q).abs().max().item(), (r - q).abs().max().item()
+                    ok = dk1 <= ONE_PASS_BAR * max(1.0, q.abs().max().item()) and dk1 <= 2 * dr1 and torch.equal(a, b)
+                    worst.append(f"{name} {dk1:.2e} from the plain one-pass version (rows {dr1:.2e}); from float64 "
+                                 f"{dk:.2e} (rows {dr:.2e}, float32 plain {dp:.2e})" + ("" if ok else " FAILS"))
+                else:
+                    ok = dk <= max(dr, 2 * dp) and torch.equal(a, b)
+                    worst.append(f"{name} {dk:.2e} (rows {dr:.2e}, plain {dp:.2e}; {rel:.1e} of max|plain|)"
+                                 + ("" if ok else " FAILS"))
                 if not ok:
                     failed.append(f"{name} at H {H}, {rows} rows")
             print("    from float64: " + "; ".join(worst), flush=True)
